@@ -3,36 +3,52 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line with `elapsed_s`:
+Phases, each printing JSON lines with `elapsed_s`:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions. Exits non-zero without a CUDA device or without the package
    beside this script.
 2. build: every kernel library of the main path, built with nvcc from the
-   sources in the checkout, with `-Xptxas -v` output.
+   sources in the checkout, all at once (one nvcc per source), with
+   `-Xptxas -v` output.
 3. kernel vs plain: each kernel's wrapper on card tensors at the main
-   path's shapes (plus a ragged and an empty input, and dense tables of
-   29,792 and 32,768 rows, which the kernel cuts into two tiles) against
-   its plain PyTorch version; max abs error ≤ 1e-5·(1 + max |plain|)
-   (float atomics sum in another order), and every row that no element
-   touches exactly 0.0 in both. (A touched entry whose terms cancel may
-   come out 0.0 in one summation order and not in another: on the card
-   both the kernel and `index_add_` sum in a varying order.)
+   path's shapes against its plain PyTorch version; max abs error ≤
+   1e-5·(1 + max |plain|) (float atomics sum in another order), and every
+   row that no element touches exactly 0.0 in both. (A touched entry whose
+   terms cancel may come out 0.0 in one summation order and not in
+   another: on the card both the kernels and `index_add_` sum in a varying
+   order.) `hash_grad_small`: n = 2^21 and 2^18 at the 4096- and
+   13,824-row levels 0 and 1, a ragged and an empty input, and dense
+   tables of 29,792 and 32,768 rows, which it cuts into two tiles.
+   `scatter_add`: n = 2^18 at the 2^19-row hashed tables and the dense
+   39,304-, 125,000- and 373,248-row levels 2-4, n = 2^21, a ragged and
+   an empty input, and F = 1. Some indices fall outside the table.
 4. timing: CUDA events over 50 launches after warm-up, with the stream held
    by a sleep kernel while the launches queue, so that host overhead does
    not count; the plain version, one PyTorch library call (`index_add_`)
-   and the bound (bytes over 3.35 TB/s vs float adds over 67 TFLOP/s). Run
-   on uniform random indices here, and after phase 6 on the corner indices
-   of the trained field's next batch, which the kernels line reports.
-5. agreement: one training loss and its gradients at a small config on the
+   and the bound (bytes over 3.35 TB/s vs float adds over 67 TFLOP/s). On
+   uniform random indices here, and after phase 7 on the inputs that the
+   trained field's next step gives each level, which the kernels line
+   reports (per step: the sum over the kernel's levels). Each input is
+   first checked against the plain version as in phase 3.
+5. probes: every section of `rnb_neus2_torch.tools.bench_scatter` (the
+   five TPU scatter-add probes' sweeps), both kernels at every point,
+   checked exactly against the plain version; a mismatch raises.
+6. agreement: one training loss and its gradients at a small config on the
    card against the same on the CPU (the CPU port is held against the JAX
-   package by tests/test_torch_*.py).
-6. train: the main path — `Trainer.train_step` at the full default width
+   package by tests/test_torch_*.py); then the default config's K = 1
+   encode backward on the card and the CPU with the same positions and
+   cotangents: the picked corner of every sample at every level is the
+   same, and the table gradients agree as in phase 3.
+7. train: the main path — `Trainer.train_step` at the full default width
    (14 levels x F=2, 2^19 hashed tables, 64-wide MLPs, 2^18-sample batch,
-   128^3 occupancy grid) with the exact backward (stoch_corner_bwd=0) and
-   without the divergence guard, which is not ported, 40 steps on a seeded
-   synthetic sphere; launch counts are zeroed just before and read just
-   after.
+   128^3 occupancy grid) with the default stochastic backward
+   (stoch_corner_bwd=1) and without the divergence guard, which is not
+   ported, from init for 440 steps on a seeded synthetic sphere, so that
+   the last 29 run all 14 levels; then the exact backward
+   (stoch_corner_bwd=0) for 20 steps. Launch counts are zeroed just before
+   each and read just after: `hash_grad_small` twice a step (levels 0 and
+   1), `scatter_add` once for each other level the step runs.
 
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Any failed phase raises and the script exits
@@ -41,21 +57,23 @@ non-zero.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import signal
 import statistics
-import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 T0 = time.perf_counter()
 WALL_LIMIT_S = 1150            # the process is killed past this
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM
-FP32_FLOPS = 67e12             # H100 SXM, float32 outside the tensor cores
-TRAIN_STEPS = 40
+TRAIN_STEPS = 440              # bucket 14 from step 411
+FULL_LEVEL_STEPS = 20          # at least this many final steps at 14 levels
+EXACT_STEPS = 20
+LOG_EVERY = 20
 
 
 def log(phase: str, **kw) -> None:
@@ -64,100 +82,87 @@ def log(phase: str, **kw) -> None:
                       **kw}), flush=True)
 
 
-def card_name_and_power() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+def build_all(build, modules) -> None:
+    """Phase 2: one nvcc per library, all started together."""
+    with ThreadPoolExecutor(len(modules)) as pool:
+        list(pool.map(lambda mod: mod._library(), modules))
+    for mod in modules:
+        _, rec = build._LOADED[mod.LIBRARY]
+        print(rec["log"], flush=True)
+        log("build", library=rec["path"], built=rec["built"],
+            seconds=rec["seconds"])
 
 
-def time_ms(fn, torch, iters: int = 50) -> float:
-    """Mean device ms per call: events around `iters` calls queued behind
-    a sleep kernel, after 5 warm-up calls."""
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def scatter_bound(n: int, S: int, F: int):
-    """(least ms, what bounds it) for (n,) int32 idx + (n, F) f32 in and
-    (S, F) f32 out: bytes over the memory rate vs n·F float adds."""
-    t_bytes = (n * 4 + n * F * 4 + S * F * 4) / HBM_BYTES_PER_S
-    t_ops = n * F / FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def check_kernel_vs_plain(torch, hgs, dev) -> float:
-    """Phase 3. Returns the largest abs error seen."""
+def check_cases(torch, bench, name, fn, plain, dev, cases) -> float:
+    """Phase 3 for one kernel over (n, S, F) cases
+    (`bench_scatter.check_against_plain`, which raises on a mismatch).
+    Returns the largest abs error seen."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     worst = 0.0
-    cases = [(1 << 21, 4096), (1 << 21, 13824), (1_000_003, 13824),
-             (0, 4096), (1 << 21, 32768), (1_000_003, 29792)]
-    for n, S in cases:
+    for n, S, F in cases:
         idx = torch.randint(0, S, (n,), generator=gen, device=dev,
                             dtype=torch.int32)
         idx = torch.where(idx % 7 == 0, idx + 1, idx)   # rows left untouched
         out_of_range = torch.rand(n, generator=gen, device=dev) < 0.01
         idx = torch.where(out_of_range, idx + S * (idx % 2 * 2 - 1), idx)
-        cf = torch.randn(n, 2, generator=gen, device=dev)
-        got = hgs.grad_small(idx, cf, S)
+        cf = torch.randn(n, F, generator=gen, device=dev)
+        got = fn(idx, cf, S)
         torch.cuda.synchronize()
-        want = hgs.plain(idx, cf, S)
-        err = float((got - want).abs().max())
-        tol = 1e-5 * (1.0 + float(want.abs().max()))
+        want = plain(idx, cf, S)
+        err = bench.check_against_plain(name, got, want, idx, S,
+                                        exact=False)
         keep = (idx >= 0) & (idx < S)
-        untouched = torch.bincount(idx[keep], minlength=S) == 0
-        zeros_kept = bool((got[untouched] == 0).all()
-                          and (want[untouched] == 0).all())
-        n_zero = int(untouched.sum())
-        log("kernel_vs_plain", kernel="hash_grad_small", n=n, S=S,
-            max_abs_err=err, tol=tol, untouched_rows=n_zero,
-            untouched_exactly_zero=zeros_kept,
-            touched_zero_entries_kernel=int((got[~untouched] == 0).sum()),
-            touched_zero_entries_plain=int((want[~untouched] == 0).sum()))
-        if not (err <= tol and zeros_kept and got.shape == want.shape):
-            raise AssertionError(f"hash_grad_small disagrees at n={n} S={S}: "
-                                 f"err {err} > tol {tol} or an untouched "
-                                 f"row is not exactly 0.0")
+        n_zero = int((torch.bincount(idx[keep], minlength=S) == 0).sum())
+        log("kernel_vs_plain", kernel=name, n=n, S=S, F=F, max_abs_err=err,
+            tol=1e-5 * (1.0 + float(want.abs().max())),
+            untouched_rows=n_zero, dropped=int((~keep).sum()))
         if n and n_zero == 0:
             raise AssertionError("no untouched rows to check exact zeros")
         worst = max(worst, err)
     return worst
 
 
-def time_kernel(torch, hgs, dev, card: str, indices: dict) -> dict:
-    """Phase 4 at the main path's shapes: n = 8 corners x 2^18 samples,
-    S = 4096 (level 0) and 13,824 (level 1); `indices` maps S to the (n,)
-    int32 indices to time with. Returns the sums over both launches of one
-    step."""
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    F = 2
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    for S, idx in indices.items():
-        n = idx.shape[0]
-        cf = torch.randn(n, F, generator=gen, device=dev)
+def check_kernels_vs_plain(torch, bench, kernels, dev) -> dict:
+    """Phase 3. Returns each kernel's largest abs error."""
+    hgs, sca = kernels["hash_grad_small"], kernels["scatter_add"]
+    n1, n8 = 1 << 18, 1 << 21
+    return {
+        "hash_grad_small": check_cases(
+            torch, bench, "hash_grad_small", hgs.grad_small, hgs.plain, dev,
+            [(n8, 4096, 2), (n8, 13824, 2), (n1, 4096, 2), (n1, 13824, 2),
+             (1_000_003, 13824, 2), (0, 4096, 2), (n8, 32768, 2),
+             (1_000_003, 29792, 2)]),
+        "scatter_add": check_cases(
+            torch, bench, "scatter_add", sca.scatter_add, sca.plain, dev,
+            [(n1, 1 << 19, 2), (n1, 39304, 2), (n1, 125000, 2),
+             (n1, 373248, 2), (n8, 1 << 19, 2), (262_147, 1 << 19, 2),
+             (0, 1 << 19, 2), (n1, 1 << 19, 1)]),
+    }
+
+
+def time_inputs(torch, bench, name, fn, plain, dev, card, inputs) -> dict:
+    """Phase 4 for one kernel over (S, idx, v) inputs, each first checked
+    against the plain version as in phase 3. Returns the sums over them,
+    and the largest abs error."""
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0}
+    for S, idx, v in inputs:
+        n, F = v.shape
+        err = bench.check_against_plain(name, fn(idx, v, S),
+                                        plain(idx, v, S), idx, S,
+                                        exact=False)
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
         row = {
-            "ms": time_ms(lambda: hgs.grad_small(idx, cf, S), torch),
-            "plain_ms": time_ms(lambda: hgs.plain(idx, cf, S), torch),
-            "library_ms": time_ms(lambda: torch.zeros(
-                S, F, device=dev).index_add_(0, idx, cf), torch),
+            "ms": bench.time_ms(lambda: fn(idx, v, S)),
+            "plain_ms": bench.time_ms(lambda: plain(idx, v, S)),
+            "library_ms": bench.time_ms(lambda: torch.zeros(
+                S, F, device=dev).index_add_(0, idx, v)),
         }
-        row["bound_ms"], bound_by = scatter_bound(n, S, F)
-        log("timing", kernel="hash_grad_small", n=n, S=S, card=card,
+        row["bound_ms"], bound_by = bench.scatter_bound(n, S, F)
+        log("timing", kernel=name, n=n, S=S, F=F, card=card,
             distinct_rows=int(torch.unique(idx).numel()),
+            zero_values=int((v == 0).all(1).sum()), max_abs_err=err,
             bound_by=bound_by, **row)
         for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
             tot[k] += row[k]
@@ -165,11 +170,21 @@ def time_kernel(torch, hgs, dev, card: str, indices: dict) -> dict:
     return tot
 
 
-def check_agreement(torch, dev) -> None:
-    """Phase 5, at a small config whose levels 0 and 1 take the kernel:
-    the march of one CPU ray batch on the card equals the CPU's bit for
-    bit; the loss (rtol 1e-5) and every gradient (max error ≤ 1e-4 of the
-    tensor's largest entry) agree on the CPU's samples."""
+def uniform_inputs(torch, dev, sizes, ns) -> list:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    return [(S, torch.randint(0, S, (n,), generator=gen, device=dev,
+                              dtype=torch.int32),
+             torch.randn(n, 2, generator=gen, device=dev))
+            for n in ns for S in sizes]
+
+
+def check_small_agreement(torch, dev) -> None:
+    """Phase 6a, at a small config whose levels 0 and 1 take the
+    shared-memory kernel and levels 2-3 the global-atomics one: the march
+    of one CPU ray batch on the card equals the CPU's bit for bit; the loss
+    (rtol 1e-5) and every gradient (max error ≤ 1e-4 of the tensor's
+    largest entry) agree on the CPU's samples. Exact backward."""
     from rnb_neus2_torch.config import (HashGridConfig, LossConfig,
                                         MarchConfig, NetworkConfig,
                                         RenderFlags)
@@ -215,70 +230,124 @@ def check_agreement(torch, dev) -> None:
     (l0, g0), (l1, g1) = results
     worst = max(float((a - b).abs().max()) / (float(a.abs().max()) + 1e-12)
                 for a, b in zip(g0, g1))
-    log("agreement", march_equal=march_equal,
-        valid_samples=int(samples.valid.sum()), loss_cpu=l0, loss_gpu=l1,
-        max_rel_grad_err=worst)
+    log("agreement", config="small, exact backward",
+        march_equal=march_equal, valid_samples=int(samples.valid.sum()),
+        loss_cpu=l0, loss_gpu=l1, max_rel_grad_err=worst)
     if not march_equal:
         raise AssertionError("the march on the card differs from the CPU's")
     if abs(l0 - l1) > 1e-5 * abs(l0) or not worst <= 1e-4:
         raise AssertionError("card and CPU disagree on the small config")
 
 
-def uniform_indices(torch, dev) -> dict:
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2)
-    return {S: torch.randint(0, S, (1 << 21,), generator=gen, device=dev,
-                             dtype=torch.int32) for S in (4096, 13824)}
+def check_stochastic_agreement(torch, dev, n: int = 1 << 16) -> None:
+    """Phase 6b: the default config's K = 1 encode backward on the card
+    and on the CPU from the same positions, table and cotangents. Every
+    sample's picked corner agrees at every level; the table gradients
+    agree within 1e-5·(1 + max |CPU|), and every entry that no pick
+    touches is exactly 0.0 in both."""
+    from rnb_neus2_torch.config import HashGridConfig
+    from rnb_neus2_torch.ops import hash_encoding as he
+
+    static = he.HashGridStatic(HashGridConfig())
+    L = static.cfg.n_levels
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    x = torch.rand(n, 3, generator=gen)
+    table = torch.randn(static.n_entries, 2, generator=gen) * 1e-2
+    cot = [torch.randn(n, static.cfg.output_dim, generator=gen)
+           for _ in range(4)]
+    picks, grads = [], []
+    for d in ("cpu", dev):
+        xd, cd = x.to(d), [c.to(d) for c in cot]
+        base = he._position_hash(xd)
+        per_level = []
+        for lvl in range(L):
+            idx, src = he.level_corner_cotangents(xd, static, lvl, cd[0],
+                                                  cd[1:], 1.0)
+            choice, idx_k, _ = he.pick_corners(
+                idx, src, he._draws(base, lvl, 1), 1)
+            per_level.append((choice.cpu(), idx_k.cpu()))
+        picks.append(per_level)
+        t = table.to(d).requires_grad_(True)
+        f, j = he.make_encode_with_jacobian_cv(static, corner_samples=1)(
+            t, xd)
+        loss = (f * cd[0]).sum() + sum((jd * c).sum()
+                                       for jd, c in zip(j, cd[1:]))
+        grads.append(torch.autograd.grad(loss, t)[0].cpu())
+    differ = [int((a[0] != b[0]).sum()) for a, b in zip(*picks)]
+    touched = torch.zeros(static.n_entries, dtype=torch.bool)
+    for lvl, (_, idx_k) in enumerate(picks[0]):
+        touched[idx_k + int(static.offsets[lvl])] = True
+    want, got = grads
+    err = float((got - want).abs().max())
+    tol = 1e-5 * (1.0 + float(want.abs().max()))
+    zeros_kept = bool((got[~touched] == 0).all()
+                      and (want[~touched] == 0).all())
+    log("agreement", config="default, K=1 backward", samples=n,
+        picks_differ_per_level=differ, max_abs_err=err, tol=tol,
+        touched_entries=int(touched.sum()),
+        untouched_exactly_zero=zeros_kept)
+    if any(differ):
+        raise AssertionError(f"picked corners differ on the card: {differ}")
+    if not (err <= tol and zeros_kept):
+        raise AssertionError("K=1 table gradients disagree card vs CPU")
 
 
-def main_path_indices(torch, tr) -> dict:
-    """The kernel's indices for the trainer's next batch: the 8 corners of
-    every sample of each level that takes the kernel."""
-    from rnb_neus2_torch.ops import hash_encoding
-    from rnb_neus2_torch.train.sampler import sample_ray_batch
-    _, _, pos, _ = sample_ray_batch(
-        tr.dataset, tr.occ.bitfield, 1 << 16, tr.cfg.train.target_batch_size,
-        tr.cfg.march, generator=tr.generator)
-    static = tr.field.static
-    return {int(static.table_sizes[lvl]):
-            hash_encoding._level_corner_arrays(pos, static, lvl)[0]
-            .reshape(-1).to(torch.int32)
-            for lvl in hash_encoding.levels_through_kernel(static)}
-
-
-def train(torch, hgs, dev):
-    """Phase 6: the main path at full width. Returns (summary, trainer)."""
-    from rnb_neus2_torch.config import (NetworkConfig, TestbedConfig,
-                                        TrainConfig)
+def train(torch, kernels, dev, stoch: int, steps: int):
+    """Phase 7: one training path at full width from init. Returns
+    (summary, trainer)."""
+    from rnb_neus2_torch.config import TestbedConfig, TrainConfig
+    from rnb_neus2_torch.ops import hash_encoding as he
     from rnb_neus2_torch.testing.synthetic import sphere_dataset
     from rnb_neus2_torch.train.trainer import Trainer
 
-    cfg = TestbedConfig(network=NetworkConfig(stoch_corner_bwd=0),
-                        train=TrainConfig(divergence_guard=False))
+    cfg = TestbedConfig(train=TrainConfig(divergence_guard=False))
+    cfg = dataclasses.replace(cfg, network=dataclasses.replace(
+        cfg.network, stoch_corner_bwd=stoch))
     ds = sphere_dataset(n_views=16, width=256, height=256, radius=0.25,
                         device=dev)
     tr = Trainer(ds, cfg, device=dev)
-    log("train_setup", hash_rows=tr.field.static.n_entries,
-        levels=cfg.grid.n_levels, batch=cfg.train.target_batch_size,
-        occ_grid=cfg.train.occ_grid_size)
+    log("train_setup", stoch_corner_bwd=stoch,
+        hash_rows=tr.field.static.n_entries, levels=cfg.grid.n_levels,
+        batch=cfg.train.target_batch_size, occ_grid=cfg.train.occ_grid_size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    hgs.reset_launches()
+    for k in kernels.values():
+        k.reset_launches()
     hist = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         m = tr.train_step()
         torch.cuda.synchronize()
         hist.append(m)
-        log("step", step=tr.step, step_ms=m["step_ms"],
-            loss_color=m["loss_color"], loss_total=m["loss_total"],
-            rays=m["rays_per_batch"], valid=m["n_valid_total"],
-            kept=m["n_samples_kept"])
-    launches = hgs.launches
+        if tr.step % LOG_EVERY == 0 or tr.step == steps:
+            log("step", stoch_corner_bwd=stoch, step=tr.step,
+                step_ms=m["step_ms"], loss_color=m["loss_color"],
+                loss_total=m["loss_total"], rays=m["rays_per_batch"],
+                levels=m["n_levels_run"], valid=m["n_valid_total"],
+                kept=m["n_samples_kept"])
+    launches = {name: k.launches for name, k in kernels.items()}
+    small = [len(he.levels_through_kernel(tr.field.static,
+                                          int(m["n_levels_run"])))
+             for m in hist]
+    want = {"hash_grad_small": sum(small),
+            "scatter_add": sum(int(m["n_levels_run"]) for m in hist)
+            - sum(small)}
     color = [m["loss_color"] for m in hist]
     totals = [m["loss_total"] for m in hist]
+    L = tr.cfg.grid.n_levels
+    full = [m for m in hist if m["n_levels_run"] == L]
+    trailing_full = 0
+    for m in reversed(hist):
+        if m["n_levels_run"] != L:
+            break
+        trailing_full += 1
     summary = {
-        "launches": launches,
+        "stoch_corner_bwd": stoch, "steps": steps, "launches": launches,
+        "launches_expected": want,
         "median_step_ms": statistics.median(m["step_ms"] for m in hist[5:]),
+        "median_step_ms_all_levels": statistics.median(
+            m["step_ms"] for m in full[-FULL_LEVEL_STEPS:]) if full else None,
+        "final_steps_at_all_levels": trailing_full,
         "rays_per_batch_last": hist[-1]["rays_per_batch"],
         "valid_samples_last": hist[-1]["n_valid_total"],
         "kept_samples_last": hist[-1]["n_samples_kept"],
@@ -290,10 +359,34 @@ def train(torch, hgs, dev):
         raise AssertionError("non-finite loss")
     if not summary["color_last5"] < summary["color_first5"]:
         raise AssertionError("the color loss did not fall")
-    if launches != 2 * TRAIN_STEPS:
-        raise AssertionError(f"{launches} kernel launches in {TRAIN_STEPS} "
-                             "steps; want 2 per step (levels 0 and 1)")
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} in {steps} steps; "
+                             f"want {want}")
     return summary, tr
+
+
+def main_path_inputs(torch, tr) -> dict:
+    """Per kernel, the (S, idx, v) inputs that one more training step of
+    the trained field gives each level's table gradient."""
+    from rnb_neus2_torch.ops import hash_encoding as he
+
+    real = he.level_table_grad
+    seen = {"hash_grad_small": [], "scatter_add": []}
+
+    def record(static, lvl, idx, src):
+        name = ("hash_grad_small" if static.uses_small_kernel(lvl)
+                else "scatter_add")
+        seen[name].append((int(static.table_sizes[lvl]),
+                           idx.to(torch.int32).clone(),
+                           src.contiguous().clone()))
+        return real(static, lvl, idx, src)
+
+    he.level_table_grad = record
+    try:
+        tr.train_step()
+    finally:
+        he.level_table_grad = real
+    return seen
 
 
 def main() -> int:
@@ -311,41 +404,56 @@ def main() -> int:
     from rnb_neus2_torch.device import resolve_device
     from rnb_neus2_torch.kernels import build
     from rnb_neus2_torch.kernels import hash_grad_small as hgs
+    from rnb_neus2_torch.kernels import scatter_add as sca
+    from rnb_neus2_torch.tools import bench_scatter as bench
 
-    card = card_name_and_power()
+    kernels = {"hash_grad_small": hgs, "scatter_add": sca}
+    fns = {"hash_grad_small": hgs.grad_small, "scatter_add": sca.scatter_add}
+    card = bench.card_name_and_power()
     print(card, flush=True)
     dev = resolve_device("cuda")
     log("device", kind=torch.cuda.get_device_name(0), nvidia_smi=card,
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
 
-    _, rec = build.load_library("hash_grad", [hgs.SOURCE])
-    print(rec["log"], flush=True)
-    log("build", library=rec["path"], built=rec["built"],
-        seconds=rec["seconds"])
-
-    err = check_kernel_vs_plain(torch, hgs, dev)
-    time_kernel(torch, hgs, dev, card, uniform_indices(torch, dev))
-    check_agreement(torch, dev)
-    summary, tr = train(torch, hgs, dev)
-    # phase 4 again, on the indices of the trained field's next batch
-    times = time_kernel(torch, hgs, dev, card, main_path_indices(torch, tr))
-
-    kernels = [{
-        "name": "hash_grad_small",
-        "route": "cuda",
-        "source": "rnb_neus2_torch/csrc/hash_grad_small.cu",
-        "replaces": "rnb_neus2_tpu/ops/hash_encoding.py:461",
-        "launches": summary["launches"],
-        "max_abs_err": err,
-        "ms": times["ms"],
-        "plain_ms": times["plain_ms"],
-        "bound_ms": times["bound_ms"],
-        "bound_by": times["bound_by"],
-        "library_ms": times["library_ms"],
-    }]
+    build_all(build, [hgs, sca])
+    errs = check_kernels_vs_plain(torch, bench, kernels, dev)
+    for name, sizes in (("hash_grad_small", (4096, 13824)),
+                        ("scatter_add", (39304, 125000, 373248, 1 << 19))):
+        time_inputs(torch, bench, name, fns[name], kernels[name].plain, dev,
+                    card, uniform_inputs(torch, dev, sizes,
+                                         (1 << 18, 1 << 21)))
+    probes = bench.run(list(bench.SECTIONS), dev,
+                       emit=lambda line: log("probe", **json.loads(line)))
+    log("probes", points=len(probes))
+    check_small_agreement(torch, dev)
+    check_stochastic_agreement(torch, dev)
+    summary, tr = train(torch, kernels, dev, 1, TRAIN_STEPS)
+    if summary["final_steps_at_all_levels"] < FULL_LEVEL_STEPS:
+        raise AssertionError("too few final steps ran all 14 levels")
+    exact, _ = train(torch, kernels, dev, 0, EXACT_STEPS)
+    # phase 4 again, on the inputs of the trained field's next step
+    inputs = main_path_inputs(torch, tr)
+    rows = []
+    for name, mod in kernels.items():
+        t = time_inputs(torch, bench, name, fns[name], mod.plain, dev, card,
+                        inputs[name])
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"rnb_neus2_torch/csrc/{mod.SOURCE}",
+            "replaces": list(mod.REPLACES),
+            "launches": summary["launches"][name],
+            "launches_exact_path": exact["launches"][name],
+            "max_abs_err": max(errs[name], t["max_abs_err"]),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
     log("done", card=card, total_s=time.perf_counter() - T0)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

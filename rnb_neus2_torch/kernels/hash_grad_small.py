@@ -20,10 +20,14 @@ import functools
 import torch
 
 from .build import load_library
+# the function is scatter_add's: the same plain version and input rules
+from .scatter_add import check_inputs, plain
 
 # the largest dynamic shared memory one block may use on sm_90
 MAX_SMEM_BYTES = 232448
 SOURCE = "hash_grad_small.cu"
+LIBRARY = "hash_grad"
+REPLACES = ("rnb_neus2_tpu/ops/hash_encoding.py:461",)
 
 launches = 0
 # per device index: SM count, and whether the shared-memory limit is set
@@ -33,8 +37,6 @@ _SMS: dict = {}
 def reset_launches() -> None:
     global launches
     launches = 0
-# per device index: SM count, and whether the shared-memory limit is set
-_SMS: dict = {}
 
 
 def tile_rows(table_size: int, n_features: int) -> int:
@@ -43,18 +45,9 @@ def tile_rows(table_size: int, n_features: int) -> int:
     return min(table_size, MAX_SMEM_BYTES // (4 * n_features))
 
 
-def plain(idx: torch.Tensor, cf: torch.Tensor, table_size: int
-          ) -> torch.Tensor:
-    """The same function in plain PyTorch (any device)."""
-    keep = (idx >= 0) & (idx < table_size)
-    out = torch.zeros(table_size, cf.shape[1], dtype=torch.float32,
-                      device=cf.device)
-    return out.index_add_(0, idx[keep].long(), cf[keep])
-
-
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib, _ = load_library("hash_grad", [SOURCE])
+    lib, _ = load_library(LIBRARY, [SOURCE])
     fn = lib.hash_grad_small_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -85,26 +78,12 @@ def _sm_count(lib, device: torch.device) -> int:
     return _SMS[i]
 
 
-def _check(idx: torch.Tensor, cf: torch.Tensor, table_size: int) -> None:
-    if idx.dtype != torch.int32:
-        raise TypeError(f"idx must be int32, got {idx.dtype}")
-    if cf.dtype != torch.float32:
-        raise TypeError(f"cf must be float32, got {cf.dtype}")
-    if idx.dim() != 1 or cf.dim() != 2 or cf.shape[0] != idx.shape[0]:
-        raise ValueError(f"shapes idx {tuple(idx.shape)}, cf "
-                         f"{tuple(cf.shape)}: want (n,) and (n, F)")
-    if idx.device != cf.device:
-        raise ValueError(f"idx on {idx.device}, cf on {cf.device}")
-    if table_size <= 0:
-        raise ValueError(f"table_size {table_size}")
-
-
 def grad_small(idx: torch.Tensor, cf: torch.Tensor, table_size: int
                ) -> torch.Tensor:
     """(n,) int32 indices and (n, F) float32 cotangents → (S, F) table
     gradient. CUDA tensors launch the kernel or raise; CPU tensors take the
     plain version."""
-    _check(idx, cf, table_size)
+    check_inputs(idx, cf, table_size)
     if idx.device.type == "cpu":
         return plain(idx, cf, table_size)
     if idx.device.type != "cuda":

@@ -17,14 +17,17 @@ Semantics match the reference's tiny-cuda-nn fork (grid.h):
 
 `make_encode_with_jacobian_cv` is the training encode: features and their
 analytic position-jacobian from one gather, with a hand-written backward
-that scatters the exact 8-corner table gradient. Small dense levels
-(≤ 2^15 entries) scatter through the CUDA kernel of
-`kernels/hash_grad_small.py`; every other level through `index_add_`.
+that scatters either the exact 8-corner table gradient or, with
+`corner_samples` = K > 0 (the default K = 1), K corners per sample drawn
+in proportion to the magnitude of their cotangent (`pick_corners`, with
+the position-hash draws of `_hash_uniforms`, bit for bit the JAX
+package's). Small dense levels (≤ 2^15 entries) scatter through the CUDA
+kernel of `kernels/hash_grad_small.py`; every other level through the
+global-atomics kernel of `kernels/scatter_add.py`.
 
 Not ported, because they exist only for the TPU's layout: the `level_tables`
 optimization barrier, the corner-redundant rows-of-16 tables
 (`dense_corner_tables`, `grad_nbhd16`) and the `RNB_SCATTER_MODE` modes.
-The stochastic K-corner backward comes in a later slice.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from ..config import HashGridConfig
-from ..kernels import hash_grad_small
+from ..kernels import hash_grad_small, scatter_add
 
 PRIMES = (1, 2654435761, 805459861)
 MASK32 = 0xFFFFFFFF
@@ -47,6 +50,45 @@ SMALL_LEVEL_MAX_ENTRIES = 1 << 15
 # 3-bit counter — the JAX package's order
 CORNERS = np.array([[i & 1, (i >> 1) & 1, (i >> 2) & 1] for i in range(8)],
                    np.int64)
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """a·b mod 2^32 for int64 `a` in [0, 2^32) and a constant b < 2^32.
+
+    A full 32-bit product reaches 2^64 and overflows int64, so b is taken
+    in 16-bit halves: each partial product stays below 2^48."""
+    return (a * (b & 0xFFFF) + (((a * (b >> 16)) & MASK32) << 16)) & MASK32
+
+
+def _position_hash(positions: torch.Tensor) -> torch.Tensor:
+    """The draws' salt-free uint32 mix (as int64) of the float32 bit
+    patterns of the (N, 3) positions."""
+    bits = [positions[:, d].contiguous().view(torch.int32).long() & MASK32
+            for d in range(3)]
+    return (_mul32(bits[0], 0x9E3779B1) ^ _mul32(bits[1], 0x85EBCA77)
+            ^ _mul32(bits[2], 0xC2B2AE3D))
+
+
+def _draws(base: torch.Tensor, salt: int, k: int) -> list:
+    """The k uniforms of stream `salt` from `_position_hash`'s mix."""
+    us = []
+    for j in range(k):
+        h = (base + ((0x27D4EB2F * (salt * k + j + 1)) & MASK32)) & MASK32
+        h = _mul32(h ^ (h >> 15), 0x2C1B3C6D)
+        h = _mul32(h ^ (h >> 12), 0x297A2D39)
+        h = h ^ (h >> 15)
+        # below 2^24: exact in float32
+        us.append((h >> 8).float() * (1.0 / (1 << 24)))
+    return us
+
+
+def _hash_uniforms(positions: torch.Tensor, salt: int, k: int) -> list:
+    """k per-sample float32 uniforms in [0, 1) from the position bit
+    patterns (a murmur-style uint32 mix), bit for bit the JAX package's
+    `_hash_uniforms`: the backward has no generator input, and fresh
+    random ray samples every step decorrelate the draws across steps;
+    `salt` selects an independent stream."""
+    return _draws(_position_hash(positions), salt, k)
 
 
 class HashGridStatic:
@@ -187,80 +229,130 @@ def _encode_jac_forward(table, positions, static, La, mask):
 
 def level_table_grad(static: HashGridStatic, lvl: int, idx: torch.Tensor,
                      src: torch.Tensor) -> torch.Tensor:
-    """(size, F) table gradient of one level from (N, 8) corner indices and
-    (N, 8, F) corner cotangents: the CUDA kernel for small dense levels,
-    `index_add_` for the others."""
+    """(size, F) table gradient of one level from (n,) element indices and
+    (n, F) element cotangents: the shared-memory kernel for small dense
+    levels, the global-atomics kernel for every other level."""
     size = int(static.table_sizes[lvl])
-    F = src.shape[-1]
+    idx, src = idx.to(torch.int32), src.contiguous()
     if static.uses_small_kernel(lvl):
-        return hash_grad_small.grad_small(
-            idx.reshape(-1).to(torch.int32), src.reshape(-1, F).contiguous(),
-            size)
-    out = src.new_zeros(size, F)
-    return out.index_add_(0, idx.reshape(-1), src.reshape(-1, F))
+        return hash_grad_small.grad_small(idx, src, size)
+    return scatter_add.scatter_add(idx, src, size)
+
+
+def level_corner_cotangents(positions: torch.Tensor, static: HashGridStatic,
+                            lvl: int, g_out: torch.Tensor, g_jac, m: float):
+    """(idx (N, 8) int64, src (N, 8, F)) of one level: each corner's table
+    index and its cotangent src_c = w_c·g_out + Σ_d dw_{c,d}·g_jac_d (the
+    jacobian cotangents scaled by the lattice scale), in the JAX package's
+    order of operations; `m` is the level's unlock mask."""
+    F = static.cfg.n_features_per_level
+    idx, w, dw, scale = _level_corner_arrays(positions, static, lvl)
+    sl = slice(lvl * F, (lvl + 1) * F)
+    go = g_out[:, sl] * m
+    src = w[..., None] * go[:, None, :]                             # (N,8,F)
+    for d in range(3):
+        gj = g_jac[d][:, sl] * (scale * m)
+        src = src + dw[..., d, None] * gj[:, None, :]
+    return idx, src
+
+
+def pick_corners(idx: torch.Tensor, src: torch.Tensor, us: Sequence,
+                 k: int):
+    """The stochastic K-corner draw of one level (the "stoch" branch of
+    the JAX package's `enc_bwd`): per sample and uniform u, corner
+    choice = #{c < 7 : u ≥ cdf_c} over p_c ∝ Σ_f |src_c[f]|, its value
+    scaled by 1/(K·p_choice) — an unbiased estimator of the 8-corner
+    scatter with every value bounded by ‖src‖₁/K.
+
+    idx (N, 8), src (N, 8, F), `us` k uniforms (N,) → (choice (k, N),
+    element indices (k·N,), values (k·N, F)), draw-major as in JAX. Sums
+    run corner by corner in JAX's order, with no fused multiply-add: an
+    ulp in the CDF flips a pick near a boundary."""
+    n, _, F = src.shape
+    a = src.abs()
+    mags = a[..., 0]
+    for f in range(1, F):
+        mags = mags + a[..., f]
+    mags = mags + 1e-20                                             # (N,8)
+    total = mags[:, 0]
+    for c in range(1, 8):
+        total = total + mags[:, c]
+    ps = mags * (1.0 / total)[:, None]
+    cdf = [ps[:, 0]]
+    for c in range(1, 7):
+        cdf.append(cdf[-1] + ps[:, c])
+    u = torch.stack(list(us))                                       # (k,N)
+    choice = (u[..., None] >= torch.stack(cdf, 1)[None]).sum(-1)    # (k,N)
+    pick = choice.t()                                               # (N,k)
+    idx_k = idx.gather(1, pick).t()
+    p_k = ps.gather(1, pick).t()
+    s_k = src.gather(1, pick[..., None].expand(n, k, F)).transpose(0, 1)
+    inv = 1.0 / (k * p_k)
+    return choice, idx_k.reshape(-1), (s_k * inv[..., None]).reshape(-1, F)
 
 
 class _EncodeWithJacobian(torch.autograd.Function):
-    """Exact 8-corner custom backward (the reference's
+    """The training encode's custom backward (the reference's
     kernel_grid_backward_grid, grid.h:~400): for every corner c of every
     sample, src_c = w_c·g_out + Σ_d dw_{c,d}·g_jac_d (scaled by the level's
-    lattice scale), scattered into the table. Indices and weights are
-    recomputed from the positions — the backward gathers nothing. The
-    position cotangent is zero (None): training differentiates wrt the
-    table only, and the field's position-gradient is the jacobian output."""
+    lattice scale), scattered into the table: all 8 corners (K = 0), or K
+    corners drawn per sample (`pick_corners`) from the stream
+    salt·La + level. Indices and weights are recomputed from the positions
+    — the backward gathers nothing. The position cotangent is zero (None):
+    training differentiates wrt the table only, and the field's
+    position-gradient is the jacobian output."""
 
     @staticmethod
-    def forward(ctx, table, positions, static, La, mask):
+    def forward(ctx, table, positions, static, La, mask, k, salt):
         ctx.save_for_backward(positions)
-        ctx.static, ctx.La, ctx.mask = static, La, mask
+        ctx.static, ctx.La, ctx.mask, ctx.k, ctx.salt = (static, La, mask,
+                                                         k, salt)
         ctx.n_entries = table.shape[0]
         return _encode_jac_forward(table, positions, static, La, mask)
 
     @staticmethod
     def backward(ctx, g_out, g_jx, g_jy, g_jz):
         (positions,) = ctx.saved_tensors
-        static, La, mask = ctx.static, ctx.La, ctx.mask
+        static, La, k = ctx.static, ctx.La, ctx.k
         F = static.cfg.n_features_per_level
         g_table = g_out.new_zeros(ctx.n_entries, F)
-        g_jac = (g_jx, g_jy, g_jz)
+        base = _position_hash(positions) if k else None
         for lvl in range(La):
-            idx, w, dw, scale = _level_corner_arrays(positions, static, lvl)
-            sl = slice(lvl * F, (lvl + 1) * F)
-            m = mask[lvl]
-            go = g_out[:, sl] * m
-            src = w[..., None] * go[:, None, :]                     # (N,8,F)
-            for d in range(3):
-                gj = g_jac[d][:, sl] * (scale * m)
-                src = src + dw[..., d, None] * gj[:, None, :]
+            idx, src = level_corner_cotangents(positions, static, lvl, g_out,
+                                               (g_jx, g_jy, g_jz),
+                                               ctx.mask[lvl])
+            if k:
+                us = _draws(base, ctx.salt * La + lvl, k)
+                _, idx, src = pick_corners(idx, src, us, k)
             off = int(static.offsets[lvl])
             size = int(static.table_sizes[lvl])
-            g_table[off:off + size] = level_table_grad(static, lvl, idx, src)
-        return g_table, None, None, None, None
+            g_table[off:off + size] = level_table_grad(
+                static, lvl, idx.reshape(-1), src.reshape(-1, F))
+        return g_table, None, None, None, None, None, None
 
 
 def make_encode_with_jacobian_cv(static: HashGridStatic,
                                  n_active: int | None = None,
-                                 corner_samples: int = 0):
+                                 corner_samples: int = 0,
+                                 corner_salt: int = 0):
     """Training encode specialized to `static`:
     apply(table, positions, valid_level=None) → (features (N, L·F),
     jac = 3-tuple of (N, L·F)) with jac[d][n, lf] = ∂features[n, lf]/∂x_d,
     built from the same gathered corner features as the forward.
 
     n_active statically limits the processed levels; locked levels emit
-    zeros without any gather or scatter. corner_samples > 0 (the stochastic
-    K-corner backward) is not ported yet and raises."""
-    if corner_samples:
-        raise ValueError(
-            "stoch_corner_bwd > 0 (the K-corner stochastic backward) is not "
-            "ported yet (ROADMAP.md, queue 1: the K >= 1 stochastic "
-            "backward); use stoch_corner_bwd=0 for the exact backward")
+    zeros without any gather or scatter. corner_samples = K > 0 makes the
+    backward scatter K importance-sampled corners per sample instead of 8
+    (`pick_corners`); corner_salt selects an independent draw stream."""
+    if corner_samples < 0:
+        raise ValueError(f"corner_samples {corner_samples} < 0")
     La = _active(static, n_active)
 
     def apply(table: torch.Tensor, positions: torch.Tensor,
               valid_level: int | None = None):
         mask = tuple(_level_mask(La, valid_level))
-        out, jx, jy, jz = _EncodeWithJacobian.apply(table, positions, static,
-                                                    La, mask)
+        out, jx, jy, jz = _EncodeWithJacobian.apply(
+            table, positions, static, La, mask, corner_samples, corner_salt)
         return out, (jx, jy, jz)
 
     return apply

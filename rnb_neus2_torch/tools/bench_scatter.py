@@ -1,0 +1,221 @@
+"""Time the scatter-add kernels at the sweeps of the five TPU scatter-add
+probes.
+
+    python -m rnb_neus2_torch.tools.bench_scatter [section ...]
+        [--device cuda|cpu] [--max-n N]
+
+One section per probe, named after the function it ports; each runs that
+probe's own sweep of table rows S, elements n and features F:
+
+- `scalar_loop` (`tools/profiling/_bench_pallas.py:33`): S = n = 2^19, F = 1;
+- `onehot_mxu` (`_bench_pallas.py:78`): S in {4096, 16384, 65536},
+  n = 2^21, F = 2;
+- `vector_rmw` (`_bench_pallas2.py:35` `bench`): S = n = 2^19, F = 1. The
+  probe's (TN, unroll) pairs (8192, 1) and (8192, 4) are TPU tiling
+  parameters with no meaning on the card, so the point runs once;
+- `pallas_onehot` (`_bench_primitives.py:168`): S in {4096, 16384, 131072,
+  2^19}, n = 2^21, F = 2;
+- `pallas_scalar` (`_bench_primitives.py:241`): S in {4096, 2^19},
+  n = 2^18, F = 1.
+
+The output is the (S, F) table; the probes' f-blocked (Hpad, 128·F) and
+(S/128, 128) layouts are TPU layouts and are not ported. Indices are
+uniform in [0, S) from a seeded generator, shifted per launch as
+(idx0 + j·977) mod S like the probes' `run_scan` (8 shifts, cycled); the
+values are ones.
+
+At every point both kernels run: `scatter_add` (global atomics) and
+`hash_grad_small` (shared-memory tiles; a table over one block's shared
+memory is cut into tiles of rows, each of which reads every element).
+`route` names the one the encode backward's level rule picks for a dense
+level of S entries (S ≤ 2^15: `hash_grad_small`, else `scatter_add`), and
+`ms` is that kernel's time. Each kernel is checked against the plain
+version: exactly on the ones (their sums are integers below 2^24), and on
+one random-normal value set with max abs error ≤ 1e-5·(1 + max |plain|)
+and every untouched row exactly 0.0 in both; a mismatch raises. Times are
+CUDA events over 50 launches queued behind a sleep kernel, after 5 warm-up
+launches; `library_ms` is one `torch.zeros(S, F).index_add_(0, idx, v)`;
+`bound_ms` is the bytes n·(4 + 4F) + S·F·4 over 3.35 TB/s against n·F
+float adds over 67 TFLOP/s. One JSON line per point, with the card's name
+and power limit from nvidia-smi.
+
+`--device cpu` runs the plain versions (the wrappers take them for CPU
+tensors) and measures no time; `--max-n` caps n (the tests use it). The
+default device is cuda, which raises without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import subprocess
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from ..device import resolve_device
+from ..kernels import hash_grad_small, scatter_add
+from ..ops.hash_encoding import SMALL_LEVEL_MAX_ENTRIES
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM
+FP32_FLOPS = 67e12             # H100 SXM, float32 outside the tensor cores
+ITERS = 50
+SHIFTS = 8                     # `run_scan`'s k
+SHIFT = 977
+
+# section -> (file:line of the probe it ports, F, [(S, n), ...])
+SECTIONS = {
+    "scalar_loop": ("tools/profiling/_bench_pallas.py:33", 1,
+                    [(1 << 19, 1 << 19)]),
+    "onehot_mxu": ("tools/profiling/_bench_pallas.py:78", 2,
+                   [(S, 1 << 21) for S in (4096, 16384, 65536)]),
+    "vector_rmw": ("tools/profiling/_bench_pallas2.py:35", 1,
+                   [(1 << 19, 1 << 19)]),
+    "pallas_onehot": ("tools/profiling/_bench_primitives.py:168", 2,
+                      [(S, 1 << 21) for S in (4096, 16384, 131072,
+                                              1 << 19)]),
+    "pallas_scalar": ("tools/profiling/_bench_primitives.py:241", 1,
+                      [(S, 1 << 18) for S in (4096, 1 << 19)]),
+}
+KERNELS = {"scatter_add": scatter_add.scatter_add,
+           "hash_grad_small": hash_grad_small.grad_small}
+
+
+def card_name_and_power() -> str:
+    """`name, power limit` of card 0, as nvidia-smi gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = ITERS) -> float:
+    """Mean device ms per call: CUDA events around `iters` calls queued
+    behind a sleep kernel, after 5 warm-up calls."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def scatter_bound(n: int, S: int, F: int):
+    """(least ms, what bounds it) for (n,) int32 idx + (n, F) f32 in and
+    (S, F) f32 out: bytes over the memory rate vs n·F float adds."""
+    t_bytes = (n * 4 + n * F * 4 + S * F * 4) / HBM_BYTES_PER_S
+    t_ops = n * F / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def level_rule(S: int) -> str:
+    """The kernel the encode backward sends a dense level of S entries."""
+    return ("hash_grad_small" if S <= SMALL_LEVEL_MAX_ENTRIES
+            else "scatter_add")
+
+
+def check_against_plain(name: str, got: torch.Tensor, want: torch.Tensor,
+                        idx: torch.Tensor, S: int, exact: bool) -> float:
+    """Raise unless `got` agrees with the plain version's `want`; returns
+    the max abs error. `exact`: bitwise equality; else max abs error ≤
+    1e-5·(1 + max |plain|) and every untouched row exactly 0.0 in both."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if exact:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} at S={S}: not exactly the plain "
+                                 f"version (max abs error {err})")
+        return err
+    tol = 1e-5 * (1.0 + float(want.abs().max()))
+    keep = (idx >= 0) & (idx < S)
+    untouched = torch.bincount(idx[keep].long(), minlength=S) == 0
+    if not (err <= tol and bool((got[untouched] == 0).all())
+            and bool((want[untouched] == 0).all())):
+        raise AssertionError(f"{name} at S={S}: max abs error {err} > "
+                             f"{tol}, or an untouched row is not exactly "
+                             f"0.0")
+    return err
+
+
+def run_point(section: str, S: int, n: int, F: int, dev: torch.device,
+              card: Optional[str], seed: int) -> Dict:
+    replaces = SECTIONS[section][0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    idx0 = torch.randint(0, S, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    idxs = [(idx0 + j * SHIFT) % S for j in range(SHIFTS)]
+    ones = torch.ones(n, F, device=dev)
+    normal = torch.randn(n, F, generator=gen, device=dev)
+    on_card = dev.type == "cuda"
+    per_kernel = {}
+    for name, fn in KERNELS.items():
+        got = fn(idxs[0], ones, S)
+        check_against_plain(name, got, scatter_add.plain(idxs[0], ones, S),
+                            idxs[0], S, exact=True)
+        got = fn(idxs[1], normal, S)
+        err = check_against_plain(name, got,
+                                  scatter_add.plain(idxs[1], normal, S),
+                                  idxs[1], S, exact=False)
+        ms = None
+        if on_card:
+            shifts = itertools.cycle(idxs)
+            ms = time_ms(lambda: fn(next(shifts), ones, S))
+        per_kernel[name] = {"ms": ms, "max_abs_err": err,
+                            "ns_per_el": None if ms is None else ms * 1e6 / n}
+    library_ms = None
+    if on_card:
+        shifts = itertools.cycle(idxs)
+        library_ms = time_ms(lambda: torch.zeros(S, F, device=dev)
+                             .index_add_(0, next(shifts), ones))
+    bound_ms, bound_by = scatter_bound(n, S, F)
+    route = level_rule(S)
+    return {"section": section, "replaces": replaces, "S": S, "n": n,
+            "F": F, "route": route, "ms": per_kernel[route]["ms"],
+            "ns_per_el": per_kernel[route]["ns_per_el"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "kernels": per_kernel,
+            "device": str(dev), "card": card}
+
+
+def run(sections: Sequence[str], dev: torch.device,
+        max_n: Optional[int] = None, emit=print) -> List[Dict]:
+    """Every point of `sections`; `emit` gets one JSON line per point."""
+    card = card_name_and_power() if dev.type == "cuda" else None
+    rows = []
+    for seed, (section, (S, n)) in enumerate(
+            (s, p) for s in sections for p in SECTIONS[s][2]):
+        n = n if max_n is None else min(n, max_n)
+        row = run_point(section, S, n, SECTIONS[section][1], dev, card, seed)
+        emit(json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("sections", nargs="*",
+                    help=f"any of {', '.join(SECTIONS)} (default: all)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--max-n", type=int, default=None)
+    args = ap.parse_args(argv)
+    unknown = set(args.sections) - set(SECTIONS)
+    if unknown:
+        ap.error(f"unknown sections {sorted(unknown)}")
+    run(args.sections or list(SECTIONS), resolve_device(args.device),
+        args.max_n, emit=lambda line: print(line, flush=True))
+
+
+if __name__ == "__main__":
+    main()

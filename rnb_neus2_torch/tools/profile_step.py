@@ -1,13 +1,16 @@
 """Where a training step's time goes on the card.
 
-    python -m rnb_neus2_torch.tools.profile_step [--warm 300] [--steps 16]
+    python -m rnb_neus2_torch.tools.profile_step [--warm 420] [--steps 16]
+        [--stoch-corner-bwd K]
 
-Trains the default field at full width with the exact backward
-(stoch_corner_bwd=0), without the divergence guard (not ported), on the
-seeded synthetic sphere, as `chip_smoke.py` does, for `--warm` steps (300:
-past step 256, where the occupancy refresh becomes subsampled and runs
-every 16 steps), times `--steps` steps, runs
-`--steps` more under `torch.profiler` and prints one JSON line:
+Trains the default field at full width, with the default stochastic
+backward (K = 1; `--stoch-corner-bwd 0` takes the exact one, as the
+testbed CLI's flag does), without the divergence guard (not ported), on
+the seeded synthetic sphere, as `chip_smoke.py` does, for `--warm` steps
+(420: past step 411, from which every step runs all 14 levels, and past
+step 256, where the occupancy refresh becomes subsampled and runs every
+16 steps), times `--steps` steps, runs `--steps` more under
+`torch.profiler` and prints one JSON line:
 
 - unprofiled_wall_ms_per_step: host clock over the timed steps (each step
   ends in the host read-back of its metrics);
@@ -21,7 +24,8 @@ every 16 steps), times `--steps` steps, runs
   kernels it launched (autograd runs the backward's kernels from its own
   thread; those count under `backward`; device time that no span claims is
   `other`);
-- top_kernels: the 15 kernels with the most device time per step.
+- top_kernels: the 15 kernels with the most device time per step;
+- n_levels_run: the level bucket of each profiled step.
 
 Needs a CUDA device.
 """
@@ -30,17 +34,18 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
-import subprocess
 import time
 
 import torch
 from torch.autograd import DeviceType
 
-from ..config import NetworkConfig, TestbedConfig, TrainConfig
+from ..config import TestbedConfig, TrainConfig
 from ..device import resolve_device
 from ..testing.synthetic import sphere_dataset
 from ..train.trainer import Trainer
+from .bench_scatter import card_name_and_power
 
 PHASES = ("occupancy_refresh", "sample_and_march", "field_forward", "loss",
           "backward", "optimizer")
@@ -63,17 +68,19 @@ def _phase_of(evt) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--warm", type=int, default=300)
+    ap.add_argument("--warm", type=int, default=420)
     ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--stoch-corner-bwd", type=int, default=None,
+                    help="K corners per sample in the hash-grid backward "
+                    "(0 = exact 8-corner); default: the config's (1)")
     args = ap.parse_args()
 
     dev = resolve_device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    cfg = TestbedConfig(network=NetworkConfig(stoch_corner_bwd=0),
-                        train=TrainConfig(divergence_guard=False))
+    card = card_name_and_power()
+    cfg = TestbedConfig(train=TrainConfig(divergence_guard=False))
+    if args.stoch_corner_bwd is not None:
+        cfg = dataclasses.replace(cfg, network=dataclasses.replace(
+            cfg.network, stoch_corner_bwd=args.stoch_corner_bwd))
     tr = Trainer(sphere_dataset(n_views=16, width=256, height=256,
                                 radius=0.25, device=dev), cfg, device=dev)
     for _ in range(args.warm):
@@ -113,7 +120,9 @@ def main() -> None:
     out = {
         "card": card,
         "device": torch.cuda.get_device_name(0),
+        "stoch_corner_bwd": cfg.network.stoch_corner_bwd,
         "steps": n, "first_step": tr.step - n,
+        "n_levels_run": [m["n_levels_run"] for m in metrics],
         "rays_per_batch": [m["rays_per_batch"] for m in metrics],
         "unprofiled_wall_ms_per_step": plain_wall_ms / n,
         "wall_ms_per_step": wall_ms / n,

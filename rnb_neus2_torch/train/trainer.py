@@ -3,8 +3,10 @@ body `_raw_step_fn`, the occupancy refresh `_raw_occ_fn`, the level and ray
 buckets, and the per-step `train_step`).
 
 One step = sample rays → march → field (hash encode + jacobian, SDF MLP,
-RGB MLP) → loss → backward (the exact 8-corner hash-grid scatter; levels 0
-and 1 through the CUDA kernel) → sparse Adam → parameter EMA. The
+RGB MLP) → loss → backward (the hash-grid table gradient: K stochastic
+corners per sample at the default stoch_corner_bwd = K = 1, or the exact 8;
+levels 0 and 1 through the shared-memory CUDA kernel, the others through
+the global-atomics one) → sparse Adam → parameter EMA. The
 occupancy grid refreshes every clamp(step/16, 1, 16) steps
 (testbed.cu:2801-2821): a full sweep before step 256, G³/4 uniform + G³/4
 occupancy-biased cells after. Rays per batch adapt to hit the 2^18-sample
@@ -13,8 +15,8 @@ phase runs inside a `torch.profiler.record_function` span of its name, which
 `rnb_neus2_torch/tools/profile_step.py` reads.
 
 Not ported in this slice, each named in ROADMAP.md: the divergence guard,
-the fused multi-step path, the compile cache, error-map CDF rebuilds and
-sampling, and the stochastic corner backward. `check_ported` refuses a
+the fused multi-step path, the compile cache, and error-map CDF rebuilds
+and sampling. `check_ported` refuses a
 configuration that asks for any of them: the guard is on by default, so
 the port trains only with `TrainConfig(divergence_guard=False)`.
 """
@@ -79,11 +81,6 @@ _DEFAULTS = {"train": TrainConfig(), "march": MarchConfig()}
 
 def check_ported(cfg: TestbedConfig) -> None:
     """Raise on a configuration this slice of the port cannot train."""
-    if cfg.network.stoch_corner_bwd > 0:
-        raise ValueError(
-            "stoch_corner_bwd > 0 (the K-corner stochastic backward) is not "
-            "ported yet (ROADMAP.md, queue 1: the K >= 1 stochastic "
-            "backward); use stoch_corner_bwd=0 for the exact backward")
     t = cfg.train
     if t.divergence_guard:
         raise ValueError(
@@ -212,16 +209,20 @@ class Trainer:
         return metrics
 
     def train_step(self) -> Dict[str, float]:
-        """One step, metrics read back to the host (`Trainer.train_step`)."""
+        """One step, metrics read back to the host (`Trainer.train_step`);
+        `n_levels_run` is the step's level bucket, the levels its encode
+        processes."""
         t0 = time.perf_counter()
+        n_levels = self._level_bucket()
         if self.step % occupancy.update_cadence(self.step) == 0:
             with record_function("occupancy_refresh"):
-                self.refresh_occupancy(self._level_bucket())
+                self.refresh_occupancy(n_levels)
         r = self._bucket()
-        metrics = self._step_body(r, self._level_bucket())
+        metrics = self._step_body(r, n_levels)
         self.step += 1
         out = {k: float(v) for k, v in metrics.items()}
         out["rays_per_batch"] = r
+        out["n_levels_run"] = n_levels
         # adaptive rays/batch (testbed_nerf.cu:3554-3555)
         n_basis = out["n_samples_kept"] if self.cfg.train.adapt_to_kept \
             else out["n_valid_total"]

@@ -10,6 +10,7 @@ import torch
 
 from rnb_neus2_torch.config import HashGridConfig
 from rnb_neus2_torch.kernels import hash_grad_small as hgs
+from rnb_neus2_torch.kernels import scatter_add as sca
 from rnb_neus2_torch.ops import hash_encoding as he
 
 pytestmark = pytest.mark.gpu
@@ -81,3 +82,102 @@ def test_encode_backward_on_card_matches_cpu(cuda):
     scale = grads[0].abs().max()
     assert (grads[0] - grads[1]).abs().max() <= 1e-5 * scale
     assert torch.equal(grads[0] == 0, grads[1] == 0)
+
+
+@pytest.mark.parametrize("n,S,F", [(1 << 18, 1 << 19, 2), (1 << 18, 39304, 2),
+                                   (1 << 18, 373248, 2), (1 << 21, 1 << 19, 2),
+                                   (12345, 125000, 2), (1, 4096, 2),
+                                   (0, 4096, 2), (1 << 18, 1 << 19, 1),
+                                   (5000, 1000, 3)])
+def test_scatter_add_matches_plain(cuda, n, S, F):
+    """The global-atomics kernel at the main path's shapes (one hashed or
+    dense level of a K = 1 step, n = 2^18; the exact backward's 2^21),
+    ragged and empty inputs, F = 1 and 3, indices outside [0, S): the
+    tolerance and the exact zeros of `test_kernel_matches_plain`."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n + S + F)
+    idx = torch.randint(-S // 50, S + S // 50, (n,), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    idx = torch.where(idx % 5 == 0, idx + 1, idx)
+    v = torch.randn(n, F, generator=gen, device=cuda)
+    before = sca.launches
+    got = sca.scatter_add(idx, v, S)
+    assert sca.launches == before + (1 if n else 0)
+    want = sca.plain(idx, v, S)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (S, F)
+    assert (got - want).abs().max() <= 1e-5 * (1 + want.abs().max())
+    keep = (idx >= 0) & (idx < S)
+    untouched = torch.bincount(idx[keep], minlength=S) == 0
+    assert untouched.sum() >= S // 5
+    assert (got[untouched] == 0).all() and (want[untouched] == 0).all()
+
+
+def test_scatter_add_with_a_padded_hot_row(cuda):
+    """Half the elements on one row with zero values, as the padded slots
+    of a training batch give: the kernel skips the zeros, and the result is
+    still the plain version's (the hot row only gets the non-zero
+    values)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    n, S = 1 << 18, 1 << 19
+    idx = torch.randint(0, S, (n,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    v = torch.randn(n, 2, generator=gen, device=cuda)
+    pad = torch.arange(n, device=cuda) >= n // 2
+    idx[pad] = 12345
+    v[pad] = 0.0
+    v[n // 2 - 3:n // 2, :] = -0.0
+    got = sca.scatter_add(idx, v, S)
+    want = sca.plain(idx, v, S)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max() <= 1e-5 * (1 + want.abs().max())
+    assert torch.equal(got == 0, want == 0)
+    assert not torch.signbit(got[got == 0]).any()
+
+
+def test_scatter_add_refuses_what_it_cannot_take(cuda):
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        sca.scatter_add(idx, torch.zeros(2, 4, device=cuda).T, 16)
+    with pytest.raises(ValueError):
+        sca.scatter_add(idx, torch.zeros(4, 2), 16)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_stochastic_backward_on_card_matches_cpu(cuda, k):
+    """The default config's K-corner backward on the card (levels 0-1
+    through the shared-memory kernel, 2-13 through the global-atomics one)
+    against the CPU's plain scatters: every sample picks the same corner at
+    every level, the table gradients agree within 1e-5 of the largest
+    entry, and every entry that no pick touches is exactly 0.0 in both."""
+    static = he.HashGridStatic(HashGridConfig())
+    gen = torch.Generator()
+    gen.manual_seed(k)
+    n = 1 << 14
+    x = torch.rand(n, 3, generator=gen)
+    table = torch.randn(static.n_entries, 2, generator=gen) * 1e-2
+    cot = [torch.randn(n, static.cfg.output_dim, generator=gen)
+           for _ in range(4)]
+    picks, grads = [], []
+    for d in ("cpu", cuda):
+        xd, cd = x.to(d), [c.to(d) for c in cot]
+        base = he._position_hash(xd)
+        picks.append([[p.cpu() for p in he.pick_corners(
+            *he.level_corner_cotangents(xd, static, lvl, cd[0], cd[1:], 1.0),
+            he._draws(base, lvl, k), k)[:2]]
+            for lvl in range(static.cfg.n_levels)])
+        t = table.to(d).requires_grad_(True)
+        f, j = he.make_encode_with_jacobian_cv(static, corner_samples=k)(
+            t, xd)
+        loss = (f * cd[0]).sum() + sum((jd * c).sum()
+                                       for jd, c in zip(j, cd[1:]))
+        grads.append(torch.autograd.grad(loss, t)[0].cpu())
+    touched = torch.zeros(static.n_entries, dtype=torch.bool)
+    for lvl, ((choice_cpu, idx_k), (choice_card, _)) in enumerate(
+            zip(*picks)):
+        assert torch.equal(choice_cpu, choice_card)
+        touched[idx_k + int(static.offsets[lvl])] = True
+    scale = grads[0].abs().max()
+    assert (grads[0] - grads[1]).abs().max() <= 1e-5 * scale
+    assert (grads[0][~touched] == 0).all() and (grads[1][~touched] == 0).all()
