@@ -9,7 +9,7 @@ Phases, each printing JSON lines with `elapsed_s`:
    versions. Exits non-zero without a CUDA device or without the package
    beside this script.
 2. build: every kernel library of the main path, built with nvcc from the
-   sources in the checkout, all at once (one nvcc per source), with
+   sources in the checkout, all at once (one nvcc per library), with
    `-Xptxas -v` output.
 3. kernel vs plain: each kernel's wrapper on card tensors at the main
    path's shapes against its plain PyTorch version; max abs error ≤
@@ -19,18 +19,35 @@ Phases, each printing JSON lines with `elapsed_s`:
    another: on the card both the kernels and `index_add_` sum in a varying
    order.) `hash_grad_small`: n = 2^21 and 2^18 at the 4096- and
    13,824-row levels 0 and 1, a ragged and an empty input, and dense
-   tables of 29,792 and 32,768 rows, which it cuts into two tiles.
+   tables of 29,792 and 32,768 rows, over one block's shared memory.
    `scatter_add`: n = 2^18 at the 2^19-row hashed tables and the dense
    39,304-, 125,000- and 373,248-row levels 2-4, n = 2^21, a ragged and
-   an empty input, and F = 1. Some indices fall outside the table.
+   an empty input, and F = 1. Some indices fall outside the table. Then
+   each kernel's in-place entry point (`bench_scatter.check_in_place`)
+   at n = 2^18 into a (S, F) view with sentinel rows on both sides, at
+   F = 1, 2 and 4, on a zeroed view, a random one and one that starts 4
+   bytes past an 8-byte boundary (F = 2 and 4 aligned take the float2
+   vector path, the others 32-bit atomics), and on the padded hot-row
+   input: the sentinels and untouched rows keep their bits.
 4. timing: CUDA events over 50 launches after warm-up, with the stream held
    by a sleep kernel while the launches queue, so that host overhead does
-   not count; the plain version, one PyTorch library call (`index_add_`)
-   and the bound (bytes over 3.35 TB/s vs float adds over 67 TFLOP/s). On
-   uniform random indices here, and after phase 7 on the inputs that the
-   trained field's next step gives each level, which the kernels line
-   reports (per step: the sum over the kernel's levels). Each input is
-   first checked against the plain version as in phase 3.
+   not count: the allocating wrapper (`ms`, a zeroed table per launch),
+   the in-place entry point (`ms_into`, the main path's), the plain
+   version, one PyTorch library call (`index_add_`) and the bounds (bytes
+   over 3.35 TB/s vs float adds over 67 TFLOP/s): `bound_ms` for the
+   allocating call, n·(4 + 4F) + S·F·4 bytes, and `bound_into_ms` for the
+   in-place one, n·(4 + 4F) bytes plus a read and a write of each row
+   that this input adds to. On uniform
+   random indices here, and after phase 7 on the inputs that the trained
+   field's next step gives each level, K = 1 and exact, which the kernels
+   line reports (per step: the sum over the kernel's levels); there also,
+   for `hash_grad_small`, the other kernel on the
+   same inputs (`ms_into_scatter_add`), each kernel's fixed cost (one
+   launch on its first level's indices with zero values, which add
+   nothing: `ms_into_zero_values`), and one line per level with the share of
+   elements whose row repeats within its warp of 32 consecutive elements
+   (the atomics the aggregation can remove). Each input is first checked
+   against the plain version as in phase 3.
 5. probes: every section of `rnb_neus2_torch.tools.bench_scatter` (the
    five TPU scatter-add probes' sweeps), both kernels at every point,
    checked exactly against the plain version; a mismatch raises.
@@ -123,11 +140,49 @@ def check_cases(torch, bench, name, fn, plain, dev, cases) -> float:
     return worst
 
 
+def check_in_place_cases(torch, bench, name, mod, fn_into, dev, S) -> float:
+    """Phase 3, in place, at n = 2^18 into a (S, F) view of a larger
+    buffer: F = 1, 2, 4 on a zeroed, a random and a misaligned view, and
+    the padded hot row. Returns the largest abs error."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    n = 1 << 18
+    worst = 0.0
+    for F in (1, 2, 4):
+        for mode in ("zeroed", "nonzero", "misaligned"):
+            idx = torch.randint(-S // 50, S + S // 50, (n,), generator=gen,
+                                device=dev, dtype=torch.int32)
+            idx = torch.where(idx % 5 == 0, idx + 1, idx)
+            v = torch.randn(n, F, generator=gen, device=dev)
+            buf, view = bench.in_place_view(S, F, dev, gen,
+                                            nonzero=mode == "nonzero",
+                                            misaligned=mode == "misaligned")
+            before = mod.launches
+            err = bench.check_in_place(name, fn_into, buf, view, idx, v)
+            if mod.launches != before + 1:
+                raise AssertionError(f"{name} in place did not launch")
+            log("kernel_vs_plain_in_place", kernel=name, n=n, S=S, F=F,
+                view=mode, vector_path=F % 2 == 0 and mode != "misaligned",
+                max_abs_err=err)
+            worst = max(worst, err)
+    idx = torch.randint(0, S, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    v = torch.randn(n, 2, generator=gen, device=dev)
+    pad = torch.arange(n, device=dev) >= n // 2
+    idx[pad] = 1234
+    v[pad] = 0.0
+    buf, view = bench.in_place_view(S, 2, dev, gen)
+    err = bench.check_in_place(name, fn_into, buf, view, idx, v)
+    log("kernel_vs_plain_in_place", kernel=name, n=n, S=S, F=2,
+        view="padded hot row", max_abs_err=err)
+    return max(worst, err)
+
+
 def check_kernels_vs_plain(torch, bench, kernels, dev) -> dict:
     """Phase 3. Returns each kernel's largest abs error."""
     hgs, sca = kernels["hash_grad_small"], kernels["scatter_add"]
     n1, n8 = 1 << 18, 1 << 21
-    return {
+    errs = {
         "hash_grad_small": check_cases(
             torch, bench, "hash_grad_small", hgs.grad_small, hgs.plain, dev,
             [(n8, 4096, 2), (n8, 13824, 2), (n1, 4096, 2), (n1, 13824, 2),
@@ -139,32 +194,55 @@ def check_kernels_vs_plain(torch, bench, kernels, dev) -> dict:
              (n1, 373248, 2), (n8, 1 << 19, 2), (262_147, 1 << 19, 2),
              (0, 1 << 19, 2), (n1, 1 << 19, 1)]),
     }
+    for name, S in (("hash_grad_small", 13824), ("scatter_add", 1 << 19)):
+        errs[name] = max(errs[name], check_in_place_cases(
+            torch, bench, name, kernels[name], bench.KERNELS_INTO[name], dev,
+            S))
+    return errs
 
 
-def time_inputs(torch, bench, name, fn, plain, dev, card, inputs) -> dict:
-    """Phase 4 for one kernel over (S, idx, v) inputs, each first checked
-    against the plain version as in phase 3. Returns the sums over them,
-    and the largest abs error."""
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "max_abs_err": 0.0}
+def time_inputs(torch, bench, name, mod, dev, card, inputs,
+                main_path=False) -> dict:
+    """Phase 4 for one kernel module over (S, idx, v) inputs, each first
+    checked against the plain version as in phase 3. On the `main_path`
+    inputs, for `hash_grad_small`, also `scatter_add`'s in-place entry
+    point on the same inputs (`ms_into_scatter_add`). Returns the sums
+    over the inputs, and the largest abs error."""
+    fn = bench.KERNELS[name]
+    fn_into = bench.KERNELS_INTO[name]
+    other = (bench.KERNELS_INTO["scatter_add"]
+             if main_path and name == "hash_grad_small" else None)
+    plain = mod.plain
+    keys = ("ms", "ms_into", "plain_ms", "library_ms", "bound_ms",
+            "bound_into_ms")
+    keys += ("ms_into_scatter_add",) if other else ()
+    tot = dict.fromkeys(keys, 0.0)
+    tot["max_abs_err"] = 0.0
     for S, idx, v in inputs:
         n, F = v.shape
         err = bench.check_against_plain(name, fn(idx, v, S),
                                         plain(idx, v, S), idx, S,
                                         exact=False)
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        out = torch.zeros(S, F, device=dev)
         row = {
             "ms": bench.time_ms(lambda: fn(idx, v, S)),
+            "ms_into": bench.time_ms(lambda: fn_into(out, idx, v)),
             "plain_ms": bench.time_ms(lambda: plain(idx, v, S)),
             "library_ms": bench.time_ms(lambda: torch.zeros(
                 S, F, device=dev).index_add_(0, idx, v)),
         }
+        if other:
+            row["ms_into_scatter_add"] = bench.time_ms(
+                lambda: other(out, idx, v))
         row["bound_ms"], bound_by = bench.scatter_bound(n, S, F)
+        row["bound_into_ms"], _ = bench.scatter_bound_into(
+            n, F, bench.rows_added_to(idx, v, S))
         log("timing", kernel=name, n=n, S=S, F=F, card=card,
             distinct_rows=int(torch.unique(idx).numel()),
             zero_values=int((v == 0).all(1).sum()), max_abs_err=err,
             bound_by=bound_by, **row)
-        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        for k in keys:
             tot[k] += row[k]
         tot["bound_by"] = bound_by
     return tot
@@ -365,28 +443,51 @@ def train(torch, kernels, dev, stoch: int, steps: int):
     return summary, tr
 
 
-def main_path_inputs(torch, tr) -> dict:
-    """Per kernel, the (S, idx, v) inputs that one more training step of
-    the trained field gives each level's table gradient."""
-    from rnb_neus2_torch.ops import hash_encoding as he
+def main_path_inputs(torch, tr) -> list:
+    """[(kernel name, S, idx, v)] of one more training step of the trained
+    field, level by level: what it gives the in-place entry points."""
+    from rnb_neus2_torch.kernels import hash_grad_small as hgs
+    from rnb_neus2_torch.kernels import scatter_add as sca
 
-    real = he.level_table_grad
-    seen = {"hash_grad_small": [], "scatter_add": []}
+    seen = []
 
-    def record(static, lvl, idx, src):
-        name = ("hash_grad_small" if static.uses_small_kernel(lvl)
-                else "scatter_add")
-        seen[name].append((int(static.table_sizes[lvl]),
-                           idx.to(torch.int32).clone(),
-                           src.contiguous().clone()))
-        return real(static, lvl, idx, src)
+    def hook(mod, attr, name):
+        real = getattr(mod, attr)
 
-    he.level_table_grad = record
+        def record(out, idx, v):
+            seen.append((name, out.shape[0], idx.clone(), v.clone()))
+            return real(out, idx, v)
+        setattr(mod, attr, record)
+        return mod, attr, real
+
+    hooks = [hook(hgs, "grad_small_into", "hash_grad_small"),
+             hook(sca, "scatter_add_into", "scatter_add")]
     try:
         tr.train_step()
     finally:
-        he.level_table_grad = real
+        for mod, attr, real in hooks:
+            setattr(mod, attr, real)
     return seen
+
+
+def warp_repeats(torch, S, idx, v) -> dict:
+    """Of the elements a kernel adds (index in [0, S), a non-zero value),
+    the share whose row equals another's in its warp of 32 consecutive
+    elements, and the share of atomics that summing such rows first
+    removes (1 - distinct rows per warp / elements)."""
+    n = idx.numel()
+    live = (idx >= 0) & (idx < S) & (v != 0).any(1)
+    dead = -1 - torch.arange(n + (-n % 32), device=idx.device)
+    key = torch.cat([torch.where(live, idx.long(), dead[:n]), dead[n:]])
+    rows = key.view(-1, 32).sort(1).values
+    dup = rows[:, 1:] == rows[:, :-1]
+    repeat = torch.zeros_like(rows, dtype=torch.bool)
+    repeat[:, 1:] |= dup
+    repeat[:, :-1] |= dup
+    n_live = int(live.sum())
+    return {"elements": n_live,
+            "repeat_share": int(repeat.sum()) / max(n_live, 1),
+            "atomics_removed_share": int(dup.sum()) / max(n_live, 1)}
 
 
 def main() -> int:
@@ -408,7 +509,6 @@ def main() -> int:
     from rnb_neus2_torch.tools import bench_scatter as bench
 
     kernels = {"hash_grad_small": hgs, "scatter_add": sca}
-    fns = {"hash_grad_small": hgs.grad_small, "scatter_add": sca.scatter_add}
     card = bench.card_name_and_power()
     print(card, flush=True)
     dev = resolve_device("cuda")
@@ -420,9 +520,8 @@ def main() -> int:
     errs = check_kernels_vs_plain(torch, bench, kernels, dev)
     for name, sizes in (("hash_grad_small", (4096, 13824)),
                         ("scatter_add", (39304, 125000, 373248, 1 << 19))):
-        time_inputs(torch, bench, name, fns[name], kernels[name].plain, dev,
-                    card, uniform_inputs(torch, dev, sizes,
-                                         (1 << 18, 1 << 21)))
+        time_inputs(torch, bench, name, kernels[name], dev, card,
+                    uniform_inputs(torch, dev, sizes, (1 << 18, 1 << 21)))
     probes = bench.run(list(bench.SECTIONS), dev,
                        emit=lambda line: log("probe", **json.loads(line)))
     log("probes", points=len(probes))
@@ -431,13 +530,33 @@ def main() -> int:
     summary, tr = train(torch, kernels, dev, 1, TRAIN_STEPS)
     if summary["final_steps_at_all_levels"] < FULL_LEVEL_STEPS:
         raise AssertionError("too few final steps ran all 14 levels")
-    exact, _ = train(torch, kernels, dev, 0, EXACT_STEPS)
-    # phase 4 again, on the inputs of the trained field's next step
-    inputs = main_path_inputs(torch, tr)
+    exact, tr_exact = train(torch, kernels, dev, 0, EXACT_STEPS)
+    # phase 4 again, on the inputs of the trained fields' next steps
+    inputs = {"K=1": main_path_inputs(torch, tr),
+              "exact": main_path_inputs(torch, tr_exact)}
+    for lvl, case in enumerate(inputs["K=1"]):
+        exact_case = (inputs["exact"][lvl] if lvl < len(inputs["exact"])
+                      else None)
+        log("warp_repeats", level=lvl, kernel=case[0], S=case[1],
+            **{"K=1": warp_repeats(torch, *case[1:]),
+               "exact": exact_case and warp_repeats(torch, *exact_case[1:])})
+    fixed = {}
+    for name, S, idx, v in (next(c for c in inputs["K=1"] if c[0] == k)
+                            for k in kernels):
+        out = torch.zeros(S, v.shape[1], device=dev)
+        zeros = torch.zeros_like(v)
+        fixed[name] = bench.time_ms(
+            lambda: bench.KERNELS_INTO[name](out, idx, zeros))
+        log("fixed_cost", kernel=name, S=S, n=idx.numel(), card=card,
+            ms_into_zero_values=fixed[name])
     rows = []
     for name, mod in kernels.items():
-        t = time_inputs(torch, bench, name, fns[name], mod.plain, dev, card,
-                        inputs[name])
+        per_path = {
+            path: time_inputs(torch, bench, name, mod, dev, card,
+                              [c[1:] for c in cases if c[0] == name],
+                              main_path=True)
+            for path, cases in inputs.items()}
+        t = per_path["K=1"]
         rows.append({
             "name": name,
             "route": "cuda",
@@ -445,12 +564,20 @@ def main() -> int:
             "replaces": list(mod.REPLACES),
             "launches": summary["launches"][name],
             "launches_exact_path": exact["launches"][name],
-            "max_abs_err": max(errs[name], t["max_abs_err"]),
+            "max_abs_err": max(errs[name], t["max_abs_err"],
+                               per_path["exact"]["max_abs_err"]),
             "ms": t["ms"],
+            "ms_into": t["ms_into"],
+            "ms_into_scatter_add": t.get("ms_into_scatter_add"),
+            "ms_into_zero_values": fixed[name],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
+            "bound_into_ms": t["bound_into_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "exact_path": {k: per_path["exact"].get(k) for k in (
+                "ms", "ms_into", "ms_into_scatter_add", "plain_ms",
+                "bound_ms", "bound_into_ms", "library_ms")},
         })
     log("done", card=card, total_s=time.perf_counter() - T0)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -2,10 +2,11 @@
 load it with ctypes.
 
 `nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC` into `build/rnb_neus2_torch/<hash of the sources and
-flags>/lib<name>.so` under the repository root, at first use. The library is
-written under a temporary name and renamed into place, so two processes
-building at once never see a half-written file and no lock file is needed.
+-Xcompiler -fPIC` into `build/rnb_neus2_torch/<hash of the sources, the
+headers of csrc/ and the flags>/lib<name>.so` under the repository root,
+at first use. The library is written under a temporary name and renamed
+into place, so two processes building at once never see a half-written
+file and no lock file is needed.
 A missing `nvcc` or a failed build raises; there is no fallback.
 """
 
@@ -42,7 +43,7 @@ def find_nvcc() -> str:
 
 def _digest(paths: Sequence[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in [*paths, *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

@@ -23,7 +23,8 @@ in proportion to the magnitude of their cotangent (`pick_corners`, with
 the position-hash draws of `_hash_uniforms`, bit for bit the JAX
 package's). Small dense levels (≤ 2^15 entries) scatter through the CUDA
 kernel of `kernels/hash_grad_small.py`; every other level through the
-global-atomics kernel of `kernels/scatter_add.py`.
+global-atomics kernel of `kernels/scatter_add.py`. Both add in place into
+the level's rows of the one zeroed table gradient.
 
 Not ported, because they exist only for the TPU's layout: the `level_tables`
 optimization barrier, the corner-redundant rows-of-16 tables
@@ -228,15 +229,15 @@ def _encode_jac_forward(table, positions, static, La, mask):
 
 
 def level_table_grad(static: HashGridStatic, lvl: int, idx: torch.Tensor,
-                     src: torch.Tensor) -> torch.Tensor:
-    """(size, F) table gradient of one level from (n,) element indices and
-    (n, F) element cotangents: the shared-memory kernel for small dense
+                     src: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Add one level's table gradient from (n,) element indices and (n, F)
+    element cotangents into `out`, the level's contiguous (size, F) rows of
+    the table gradient, in place: the cluster-shared kernel for small dense
     levels, the global-atomics kernel for every other level."""
-    size = int(static.table_sizes[lvl])
     idx, src = idx.to(torch.int32), src.contiguous()
     if static.uses_small_kernel(lvl):
-        return hash_grad_small.grad_small(idx, src, size)
-    return scatter_add.scatter_add(idx, src, size)
+        return hash_grad_small.grad_small_into(out, idx, src)
+    return scatter_add.scatter_add_into(out, idx, src)
 
 
 def level_corner_cotangents(positions: torch.Tensor, static: HashGridStatic,
@@ -326,8 +327,8 @@ class _EncodeWithJacobian(torch.autograd.Function):
                 _, idx, src = pick_corners(idx, src, us, k)
             off = int(static.offsets[lvl])
             size = int(static.table_sizes[lvl])
-            g_table[off:off + size] = level_table_grad(
-                static, lvl, idx.reshape(-1), src.reshape(-1, F))
+            level_table_grad(static, lvl, idx.reshape(-1),
+                             src.reshape(-1, F), g_table[off:off + size])
         return g_table, None, None, None, None, None, None
 
 

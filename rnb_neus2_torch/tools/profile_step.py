@@ -25,6 +25,9 @@ step 256, where the occupancy refresh becomes subsampled and runs every
   thread; those count under `backward`; device time that no span claims is
   `other`);
 - top_kernels: the 15 kernels with the most device time per step;
+- backward_fills_and_copies: per step, the fill and copy kernels that the
+  backward launched, by name (the table gradient is zeroed once, and its
+  levels are added in place, so no per-level fill or copy belongs there);
 - n_levels_run: the level bucket of each profiled step.
 
 Needs a CUDA device.
@@ -101,6 +104,7 @@ def main() -> None:
 
     host_ms = collections.Counter()
     device_us = collections.Counter()    # kernels attributed to a phase
+    bwd_fill_copy = collections.Counter()  # backward fill/copy launches
     by_kernel = collections.Counter()    # every device activity, by name
     n_kernels = 0
     for evt in prof.events():
@@ -113,7 +117,11 @@ def main() -> None:
         if evt.name in PHASES and evt.cpu_parent is None:
             host_ms[evt.name] += evt.cpu_time_total / 1e3
         for k in evt.kernels:
-            device_us[_phase_of(evt)] += k.duration
+            phase = _phase_of(evt)
+            device_us[phase] += k.duration
+            if phase == "backward" and any(w in k.name.lower()
+                                           for w in ("fill", "copy")):
+                bwd_fill_copy[k.name[:120]] += 1
     busy_us = sum(by_kernel.values())
     device_us["other"] += busy_us - sum(device_us.values())
     busy_ms = busy_us / 1e3
@@ -134,6 +142,8 @@ def main() -> None:
                    for p in PHASES + ("other",)},
         "top_kernels": [{"name": k[:120], "device_ms": us / 1e3 / n}
                         for k, us in by_kernel.most_common(15)],
+        "backward_fills_and_copies": {k: c / n for k, c in
+                                      bwd_fill_copy.most_common()},
     }
     print(json.dumps(out), flush=True)
 

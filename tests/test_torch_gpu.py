@@ -12,6 +12,7 @@ from rnb_neus2_torch.config import HashGridConfig
 from rnb_neus2_torch.kernels import hash_grad_small as hgs
 from rnb_neus2_torch.kernels import scatter_add as sca
 from rnb_neus2_torch.ops import hash_encoding as he
+from rnb_neus2_torch.tools import bench_scatter as bench
 
 pytestmark = pytest.mark.gpu
 
@@ -32,7 +33,7 @@ def test_kernel_matches_plain(cuda, n, S):
     |plain|). Rows that no element touches are exactly 0.0 in both; a
     touched entry whose terms cancel may come out 0.0 in one order and not
     in another. S = 29,792 and 32,768 are over one block's shared memory
-    and run in two tiles of rows."""
+    and take one copy of the histogram per 2 blocks of a cluster."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(n + S)
     idx = torch.randint(-S // 50, S + S // 50, (n,), generator=gen,
@@ -56,6 +57,8 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     cf = torch.zeros(4, 2, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         hgs.grad_small(idx, torch.zeros(4, 60000, device=cuda), 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        hgs.grad_small(idx, cf, 1 << 19)
     with pytest.raises(ValueError, match="contiguous"):
         hgs.grad_small(idx, torch.zeros(2, 4, device=cuda).T, 16)
     with pytest.raises(ValueError):
@@ -181,3 +184,95 @@ def test_stochastic_backward_on_card_matches_cpu(cuda, k):
     scale = grads[0].abs().max()
     assert (grads[0] - grads[1]).abs().max() <= 1e-5 * scale
     assert (grads[0][~touched] == 0).all() and (grads[1][~touched] == 0).all()
+
+
+INTO = {"scatter_add": (sca, sca.scatter_add_into),
+        "hash_grad_small": (hgs, hgs.grad_small_into)}
+# a level of the default config that each kernel takes
+LEVEL_ROWS = {"scatter_add": 1 << 19, "hash_grad_small": 13824}
+
+
+def _level_inputs(cuda, name, n, F, seed):
+    S = LEVEL_ROWS[name]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    idx = torch.randint(-S // 50, S + S // 50, (n,), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    idx = torch.where(idx % 5 == 0, idx + 1, idx)
+    return S, gen, idx, torch.randn(n, F, generator=gen, device=cuda)
+
+
+@pytest.mark.parametrize("mode", ["zeroed", "nonzero", "misaligned"])
+@pytest.mark.parametrize("F", [1, 2, 4])
+@pytest.mark.parametrize("name", sorted(INTO))
+def test_in_place_matches_plain(cuda, name, F, mode):
+    """Each kernel adds in place into a (S, F) view with sentinel rows on
+    both sides (`bench_scatter.check_in_place`): the sentinels and the rows
+    that no element touches keep their bits, and the view is within
+    1e-5·(1 + max |plain|) of the plain version, on a zeroed or a random
+    view. F = 2 and 4 on an aligned view take the float2 loads and vector
+    reductions (one element's float2, or pairs of features); F = 1, and
+    the view that starts 4 bytes past an 8-byte boundary, take 32-bit
+    atomics."""
+    mod, fn = INTO[name]
+    S, gen, idx, v = _level_inputs(cuda, name, 1 << 18, F, F)
+    buf, view = bench.in_place_view(S, F, cuda, gen,
+                                    nonzero=mode == "nonzero",
+                                    misaligned=mode == "misaligned")
+    assert (view.data_ptr() % 8 == 4) == (mode == "misaligned")
+    before = mod.launches
+    bench.check_in_place(name, fn, buf, view, idx, v)
+    assert mod.launches == before + 1
+
+
+@pytest.mark.parametrize("name", sorted(INTO))
+def test_in_place_with_a_padded_hot_row(cuda, name):
+    """Half the elements on one row with zero values, as the padded slots
+    of a training batch give, into an offset view: the kernel skips the
+    zeros, and the result is still the plain version's."""
+    mod, fn = INTO[name]
+    n = 1 << 18
+    S, gen, idx, v = _level_inputs(cuda, name, n, 2, 7)
+    pad = torch.arange(n, device=cuda) >= n // 2
+    idx[pad] = 1234
+    v[pad] = 0.0
+    v[n // 2 - 3:n // 2, :] = -0.0
+    buf, view = bench.in_place_view(S, 2, cuda, gen)
+    bench.check_in_place(name, fn, buf, view, idx, v)
+    assert not torch.signbit(view[view == 0]).any()
+
+
+@pytest.mark.parametrize("pattern", ["warp", "stride3", "runs"])
+@pytest.mark.parametrize("name", sorted(INTO))
+def test_kernels_on_repeated_rows(cuda, name, pattern):
+    """Rows that repeat within a warp, which the warp aggregation sums
+    before one atomic: every lane of a warp on one row ("warp"), three
+    rows per warp ("stride3"), runs of 1 to 40 equal rows ("runs"); values
+    random, some zero. Ones must sum exactly; random values within the
+    tolerance."""
+    mod, fn = INTO[name]
+    n = (1 << 18) + 77
+    S = LEVEL_ROWS[name]
+    e = torch.arange(n, device=cuda)
+    if pattern == "warp":
+        idx = (e // 32 * 7919) % S
+    elif pattern == "stride3":
+        idx = (e % 3) * 1001 + e // 32
+    else:
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(11)
+        starts = torch.rand(n, generator=gen, device=cuda) < 1 / 20
+        idx = (torch.cumsum(starts.long(), 0) * 4099) % S
+    idx = idx.to(torch.int32)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(12)
+    for F in (1, 2, 3):
+        ones = torch.ones(n, F, device=cuda)
+        got = fn(torch.zeros(S, F, device=cuda), idx, ones)
+        want = mod.plain(idx, ones, S)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        v = torch.randn(n, F, generator=gen, device=cuda)
+        v[torch.rand(n, generator=gen, device=cuda) < 0.2] = 0.0
+        buf, view = bench.in_place_view(S, F, cuda, gen, nonzero=True)
+        bench.check_in_place(name, fn, buf, view, idx, v)

@@ -14,7 +14,7 @@ from rnb_neus2_tpu.config import HashGridConfig as JHashGridConfig
 from rnb_neus2_tpu.ops import hash_encoding as jhe
 from rnb_neus2_torch import interop
 from rnb_neus2_torch.config import HashGridConfig
-from rnb_neus2_torch.kernels import hash_grad_small
+from rnb_neus2_torch.kernels import hash_grad_small, scatter_add
 from rnb_neus2_torch.ops import hash_encoding as he
 
 # small config with 3 dense and 3 hashed levels; the default config;
@@ -184,7 +184,8 @@ def test_kernel_levels_are_the_pallas_levels(monkeypatch, base_resolution):
     `grad_onehot_mxu` on the TPU, also where its (S, F) histogram is over
     one block's shared memory (base resolution 31 or 32: a level 0 of
     29,791 or 32,768 rows at F = 2). The backward sends that level to the
-    kernel's wrapper, which cuts such a table into tiles of rows."""
+    kernel's in-place wrapper, whose cluster of 8 blocks holds such a table
+    whole: one copy per 2 blocks where one block cannot hold it."""
     monkeypatch.setattr(jhe, "_SCATTER_MODE", "auto")
     cfg = dict(n_levels=3, base_resolution=base_resolution)
     jstatic = jhe.HashGridStatic(JHashGridConfig(**cfg))
@@ -194,17 +195,21 @@ def test_kernel_levels_are_the_pallas_levels(monkeypatch, base_resolution):
     assert list(he.levels_through_kernel(static)) == mxu == [0]
     size = int(static.table_sizes[0])
     assert size == -(-base_resolution ** 3 // 8) * 8
-    rows = hash_grad_small.tile_rows(size, 2)
-    assert -(-size // rows) == (1 if base_resolution == 16 else 2)
+    g = hash_grad_small.replica_blocks(size, 2)
+    assert g == (1 if base_resolution == 16 else 2)
+    assert hash_grad_small.takes(size, 2)
+    rows = -(-size // g)
+    assert hash_grad_small.block_bytes(size, 2, g) == (
+        rows * 8 + -(-rows // 32) * 4)
 
     calls = []
-    real = hash_grad_small.grad_small
+    real = hash_grad_small.grad_small_into
 
-    def spy(idx, cf, table_size):
-        calls.append((idx.shape[0], table_size))
-        return real(idx, cf, table_size)
+    def spy(out, idx, cf):
+        calls.append((idx.shape[0], out.shape[0]))
+        return real(out, idx, cf)
 
-    monkeypatch.setattr(hash_grad_small, "grad_small", spy)
+    monkeypatch.setattr(hash_grad_small, "grad_small_into", spy)
     t = torch.from_numpy(_table(static, 8)).requires_grad_(True)
     f, j = he.make_encode_with_jacobian_cv(static)(
         t, torch.from_numpy(_positions(50, 9)))
@@ -235,6 +240,44 @@ def test_stochastic_backward_not_ported_raises():
         assert rows <= int((g0[off:off + size] != 0).any(1).sum())
     with pytest.raises(ValueError):
         he.make_encode_with_jacobian_cv(static, corner_samples=-1)
+
+
+@pytest.mark.parametrize("k,valid_level", [(0, None), (1, None), (2, 5)])
+def test_table_gradient_bitwise_as_before(k, valid_level):
+    """The backward adds every level into its rows of the one zeroed table
+    gradient in place. On the CPU that gives, bit for bit, the table
+    gradient of the per-level allocate-and-copy it replaces: the level's
+    corner cotangents (and K-corner picks), the plain scatter into a zeroed
+    (size, F) table, and a copy into the level's rows."""
+    static = he.HashGridStatic(HashGridConfig(**CONFIGS["small"]))
+    L, F = static.cfg.n_levels, static.cfg.n_features_per_level
+    x = torch.from_numpy(_positions(157, 17))
+    rng = np.random.default_rng(18)
+    cots = [torch.from_numpy(rng.standard_normal(
+        (157, static.cfg.output_dim)).astype(np.float32)) for _ in range(4)]
+    t = torch.from_numpy(_table(static, 19) * np.float32(1e-2)
+                         ).requires_grad_(True)
+    f, j = he.make_encode_with_jacobian_cv(static, corner_samples=k)(
+        t, x, valid_level)
+    loss = (f * cots[0]).sum() + sum((j[d] * cots[1 + d]).sum()
+                                     for d in range(3))
+    (got,) = torch.autograd.grad(loss, t)
+
+    want = torch.zeros_like(got)
+    base = he._position_hash(x)
+    mask = he._level_mask(L, valid_level)
+    for lvl in range(L):
+        idx, src = he.level_corner_cotangents(x, static, lvl, cots[0],
+                                              cots[1:], mask[lvl])
+        if k:
+            _, idx, src = he.pick_corners(idx, src, he._draws(base, lvl, k),
+                                          k)
+        off, size = int(static.offsets[lvl]), int(static.table_sizes[lvl])
+        want[off:off + size] = scatter_add.plain(
+            idx.reshape(-1).to(torch.int32), src.reshape(-1, F).contiguous(),
+            size)
+    assert bool((want != 0).any())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def _uniform_positions(n, seed):

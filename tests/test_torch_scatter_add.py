@@ -76,26 +76,95 @@ def test_wrapper_rejects_bad_inputs():
     assert scatter_add.scatter_add(idx[:0], v[:0], 16).shape == (16, 2)
 
 
+INTO = {"scatter_add": scatter_add.scatter_add_into,
+        "hash_grad_small": hash_grad_small.grad_small_into}
+ALLOCATING = {"scatter_add": scatter_add.scatter_add,
+              "hash_grad_small": hash_grad_small.grad_small}
+
+
+@pytest.mark.parametrize("mode", ["zeroed", "nonzero", "misaligned"])
+@pytest.mark.parametrize("name", sorted(INTO))
+def test_plain_in_place_into_an_offset_view(name, mode):
+    """Each in-place wrapper (its plain version on the CPU) adds into a
+    contiguous (S, F) view of a larger buffer: every float outside the
+    view keeps its bits, every row that no element touches keeps its bits,
+    and the view holds its earlier contents plus the scatter (numpy's
+    `np.add.at` on the kept indices), zeroed or not, aligned or not."""
+    S, n, F = 700, 2500, 2
+    idx, v = _inputs(n, S, F, 21)
+    gen = torch.Generator()
+    gen.manual_seed(22)
+    buf, view = bench_scatter.in_place_view(
+        S, F, torch.device("cpu"), gen, nonzero=mode == "nonzero",
+        misaligned=mode == "misaligned")
+    assert view.is_contiguous() and view.shape == (S, F)
+    assert (view.data_ptr() % 8 == 4) == (mode == "misaligned")
+    assert bool((view != 0).any()) == (mode == "nonzero")
+    want = view.numpy().copy()
+    keep = (idx >= 0) & (idx < S)
+    np.add.at(want, idx[keep], v[keep])
+    before = scatter_add.launches, hash_grad_small.launches
+    err = bench_scatter.check_in_place(name, INTO[name], buf, view,
+                                       torch.from_numpy(idx),
+                                       torch.from_numpy(v))
+    assert (scatter_add.launches, hash_grad_small.launches) == before
+    assert err == 0.0                  # the wrapper is the plain version
+    np.testing.assert_allclose(view.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", sorted(INTO))
+def test_allocating_wrapper_equals_in_place_on_zeros(name):
+    S, n = 1000, 3000
+    idx, v = _inputs(n, S, 2, 23)
+    idx, v = torch.from_numpy(idx), torch.from_numpy(v)
+    got = ALLOCATING[name](idx, v, S)
+    want = INTO[name](torch.zeros(S, 2), idx, v)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", sorted(INTO))
+def test_in_place_wrapper_refuses_a_bad_out(name):
+    """A non-contiguous, wrongly shaped, wrongly typed or 1-D `out` is
+    refused, on the CPU as on the card."""
+    fn = INTO[name]
+    idx = torch.zeros(8, dtype=torch.int32)
+    v = torch.ones(8, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(torch.zeros(2, 16).T, idx, v)
+    with pytest.raises(ValueError):
+        fn(torch.zeros(16, 3), idx, v)
+    with pytest.raises(ValueError):
+        fn(torch.zeros(32), idx, v)
+    with pytest.raises(TypeError):
+        fn(torch.zeros(16, 2, dtype=torch.float64), idx, v)
+    with pytest.raises(TypeError):
+        fn(torch.zeros(16, 2), idx.long(), v)
+    out = torch.zeros(16, 2)
+    assert fn(out, idx, v) is out and float(out[0, 0]) == 8.0
+
+
 @pytest.mark.parametrize("k", [0, 1, 2])
 def test_default_config_levels_route_to_the_kernels(monkeypatch, k):
     """At the default config the backward sends levels 0 and 1 (dense,
     ≤ 2^15 entries, where the JAX package takes `grad_onehot_mxu`) to the
-    shared-memory kernel's wrapper and levels 2-13 to the global-atomics
-    kernel's, with 8 elements per sample in the exact backward and K in
-    the stochastic one; nothing else scatters."""
+    cluster-shared kernel's in-place wrapper and levels 2-13 to the
+    global-atomics kernel's, with 8 elements per sample in the exact
+    backward and K in the stochastic one, each into its level's rows of
+    the table gradient; nothing else scatters."""
     static = he.HashGridStatic(HashGridConfig())
     calls = []
 
     def spy(name, real):
-        def fn(idx, v, table_size):
-            calls.append((name, idx.shape[0], table_size))
-            return real(idx, v, table_size)
+        def fn(out, idx, v):
+            calls.append((name, idx.shape[0], out.shape[0]))
+            return real(out, idx, v)
         return fn
 
-    monkeypatch.setattr(hash_grad_small, "grad_small",
-                        spy("hash_grad_small", hash_grad_small.grad_small))
-    monkeypatch.setattr(scatter_add, "scatter_add",
-                        spy("scatter_add", scatter_add.scatter_add))
+    monkeypatch.setattr(hash_grad_small, "grad_small_into",
+                        spy("hash_grad_small",
+                            hash_grad_small.grad_small_into))
+    monkeypatch.setattr(scatter_add, "scatter_add_into",
+                        spy("scatter_add", scatter_add.scatter_add_into))
     n = 37
     rng = np.random.default_rng(k)
     t = torch.from_numpy((rng.standard_normal((static.n_entries, 2)) * 1e-2)
@@ -146,3 +215,19 @@ def test_bench_scatter_check_catches_a_wrong_table():
                                           exact=False)
     assert bench_scatter.check_against_plain("k", want, want, idx, 4,
                                              exact=True) == 0.0
+
+
+def test_in_place_bound_counts_only_the_rows_added_to():
+    """`bound_into_ms` reads idx and values once and each row that the
+    input changes twice; the table's fill (`bound_ms`'s S·F·4 bytes) is
+    not in it. Out-of-range indices and all-zero values change no row."""
+    idx = torch.tensor([0, 2, 2, 5, -1, 7, 3], dtype=torch.int32)
+    v = torch.ones(7, 2)
+    v[3] = 0.0                                  # row 5 adds only zeros
+    v[6] = 0.0                                  # and so does row 3
+    assert bench_scatter.rows_added_to(idx, v, 6) == 2   # rows 0 and 2
+    ms, by = bench_scatter.scatter_bound_into(7, 2, 2)
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * (7 * 12 + 2 * 2 * 2 * 4)
+                               / bench_scatter.HBM_BYTES_PER_S)
+    assert ms < bench_scatter.scatter_bound(7, 1 << 19, 2)[0]
