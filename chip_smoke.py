@@ -9,8 +9,9 @@ Phases, each printing JSON lines with `elapsed_s`:
    versions. Exits non-zero without a CUDA device or without the package
    beside this script.
 2. build: every kernel library of the main path, built with nvcc from the
-   sources in the checkout, all at once (one nvcc per library), with
-   `-Xptxas -v` output.
+   sources in the checkout, and the point-to-mesh library of the Chamfer
+   metric (`native/raycast.cc`, g++), all at once (one compiler per
+   library), with `-Xptxas -v` output.
 3. kernel vs plain: each kernel's wrapper on card tensors at the main
    path's shapes against its plain PyTorch version; max abs error ≤
    1e-5·(1 + max |plain|) (float atomics sum in another order), and every
@@ -59,13 +60,37 @@ Phases, each printing JSON lines with `elapsed_s`:
    same, and the table gradients agree as in phase 3.
 7. train: the main path — `Trainer.train_step` at the full default width
    (14 levels x F=2, 2^19 hashed tables, 64-wide MLPs, 2^18-sample batch,
-   128^3 occupancy grid) with the default stochastic backward
-   (stoch_corner_bwd=1) and without the divergence guard, which is not
-   ported, from init for 440 steps on a seeded synthetic sphere, so that
-   the last 29 run all 14 levels; then the exact backward
-   (stoch_corner_bwd=0) for 20 steps. Launch counts are zeroed just before
-   each and read just after: `hash_grad_small` twice a step (levels 0 and
-   1), `scatter_add` once for each other level the step runs.
+   128^3 occupancy grid) of the unmodified default config: the default
+   stochastic backward (stoch_corner_bwd=1) and the divergence guard on,
+   which checkpoints every healthy step on the card. From init for 440
+   steps on a seeded synthetic sphere, so that the last 29 run all 14
+   levels; then the exact backward (only stoch_corner_bwd=0 changed) for
+   20 steps. Launch counts are zeroed just before each and read just
+   after: `hash_grad_small` twice a step (levels 0 and 1), `scatter_add`
+   once for each other level the step runs. Each run prints the guard's
+   counters (rollbacks, degraded, the loss and eikonal floors); a
+   rollback on the sphere is reported, not hidden.
+8. rollback: one NaN color loss fed to the default run's guard
+   (`_consume_metrics`) rolls it back. Parameters, Adam moments and step
+   counts, EMA parameters, the occupancy grid and the error map must
+   equal the good snapshot bit for bit, and the generator's next draws
+   must differ from a replay of the snapshot's. Then 16 more steps: every
+   one accepted, the color loss finite, and its mean below the loss EMA
+   that the snapshot restored (the trailing average: one step's loss at
+   convergence is noise).
+9. mesh: the default run's EMA field exported on the card. At res 192 its
+   fine volume goes through the card's marching cubes and, fetched to the
+   host, through the numpy one: V within 1e-5, F equal. Then
+   `extract_mesh` at res 512 and 1024 (the CLI and pipeline defaults):
+   V and F counts, active blocks, seconds per stage and
+   `torch.cuda.max_memory_allocated`; the sphere's vertices lie within a
+   voxel of radius 0.25 (median), and the 512 OBJ written to a temporary
+   directory reads back with `load_obj`.
+10. chamfer: the protocol of tests/test_chamfer_gate.py on the card, guard
+   on: the composite scene at 12 views of 80x96, 8 levels, top resolution
+   256, a 2^15 table, n_ladder 1024, 900 steps, extraction at 128 against
+   `composite_gt_mesh(192)`. The same absolute gate: chamfer_l1 < 0.05
+   and completeness < 0.04.
 
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Any failed phase raises and the script exits
@@ -100,7 +125,7 @@ def log(phase: str, **kw) -> None:
 
 
 def build_all(build, modules) -> None:
-    """Phase 2: one nvcc per library, all started together."""
+    """Phase 2: one compiler per library, all started together."""
     with ThreadPoolExecutor(len(modules)) as pool:
         list(pool.map(lambda mod: mod._library(), modules))
     for mod in modules:
@@ -374,14 +399,15 @@ def check_stochastic_agreement(torch, dev, n: int = 1 << 16) -> None:
 def train(torch, kernels, dev, stoch: int, steps: int):
     """Phase 7: one training path at full width from init. Returns
     (summary, trainer)."""
-    from rnb_neus2_torch.config import TestbedConfig, TrainConfig
+    from rnb_neus2_torch.config import TestbedConfig
     from rnb_neus2_torch.ops import hash_encoding as he
     from rnb_neus2_torch.testing.synthetic import sphere_dataset
     from rnb_neus2_torch.train.trainer import Trainer
 
-    cfg = TestbedConfig(train=TrainConfig(divergence_guard=False))
-    cfg = dataclasses.replace(cfg, network=dataclasses.replace(
-        cfg.network, stoch_corner_bwd=stoch))
+    cfg = TestbedConfig()
+    if stoch != cfg.network.stoch_corner_bwd:
+        cfg = dataclasses.replace(cfg, network=dataclasses.replace(
+            cfg.network, stoch_corner_bwd=stoch))
     ds = sphere_dataset(n_views=16, width=256, height=256, radius=0.25,
                         device=dev)
     tr = Trainer(ds, cfg, device=dev)
@@ -431,6 +457,7 @@ def train(torch, kernels, dev, stoch: int, steps: int):
         "kept_samples_last": hist[-1]["n_samples_kept"],
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "color_first5": sum(color[:5]) / 5, "color_last5": sum(color[-5:]) / 5,
+        "guard": guard_counters(tr),
     }
     log("train", **summary)
     if not all(math.isfinite(v) for v in color + totals):
@@ -441,6 +468,198 @@ def train(torch, kernels, dev, stoch: int, steps: int):
         raise AssertionError(f"kernel launches {launches} in {steps} steps; "
                              f"want {want}")
     return summary, tr
+
+
+def guard_counters(tr) -> dict:
+    """The divergence guard's state after a run."""
+    return {"enabled": tr.cfg.train.divergence_guard,
+            "rollbacks": tr._guard_total_rollbacks,
+            "degraded": not tr.cfg.flags.apply_rgbplus,
+            "rearms_used": tr._guard_rearms_used,
+            "lr_scale": tr.lr_scale,
+            "loss_ema_floor": tr._guard_ema_floor,
+            "ek_ema_floor": tr._guard_ek_floor,
+            "checkpoint_steps": [g and g["step"] for g in (
+                tr._good, tr._anchor, tr._deep_anchor)]}
+
+
+def forced_rollback(torch, tr, steps: int = 16) -> dict:
+    """Phase 8: one NaN color loss through the guard of a trained run; the
+    restored state equals the good snapshot bit for bit, the generator
+    draws a new stream, and training goes on."""
+    good = tr._good
+    out = tr._consume_metrics({
+        "loss_color": float("nan"), "loss_ek": 0.0, "loss_mask": 0.0,
+        "n_valid_total": 1.0, "rays_per_batch": tr._bucket()})
+    if not out.get("rolled_back") or tr._good is not good:
+        raise AssertionError("a NaN loss did not roll back to the good "
+                             "snapshot")
+    pairs = [(f"param.{k}", p, good["params"][k])
+             for k, p in tr.params.items()]
+    for name in ("mu", "nu", "steps", "ema"):
+        pairs += [(f"{name}.{k}", t, good["opt"][name][k])
+                  for k, t in getattr(tr.opt, name).items()]
+    pairs += [(f"emap.{k}", t, getattr(good["emap"], k))
+              for k, t in tr.emap._asdict().items()]
+    pairs += [(f"occ.{k}", getattr(tr.occ, k), getattr(good["occ"], k))
+              for k in ("density", "bitfield", "mean_density")]
+    differ = [n for n, a, b in pairs if not torch.equal(a, b)]
+    dev = tr.device
+
+    def draws(state):
+        g = torch.Generator(device=dev)
+        g.set_state(state)
+        return torch.rand(1024, generator=g, device=dev)
+    new_stream = not torch.equal(draws(tr.generator.get_state()),
+                                 draws(good["rng"]))
+    restored_step = tr.step
+    hist = [tr.train_step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    color = [m["loss_color"] for m in hist]
+    summary = {"restored_step": restored_step,
+               "tensors_compared": len(pairs), "tensors_differ": differ,
+               "bytes_compared": sum(a.numel() * a.element_size()
+                                     for _, a, _ in pairs),
+               "new_generator_stream": new_stream,
+               "lr_scale_after": tr.lr_scale,
+               "rolled_back_after": sum("rolled_back" in m for m in hist),
+               "color": color, "loss_ema_restored": good["loss_ema"][0],
+               "color_first4": sum(color[:4]) / 4,
+               "color_last4": sum(color[-4:]) / 4,
+               "guard": guard_counters(tr)}
+    log("rollback", **summary)
+    if differ or not new_stream:
+        raise AssertionError("the rollback did not restore the snapshot "
+                             "bit for bit with a new generator stream")
+    # falling: below the trailing loss EMA that the snapshot restored
+    # (one step's color loss at convergence is noise-dominated)
+    if not all(math.isfinite(c) for c in color) \
+            or summary["rolled_back_after"] \
+            or not sum(color) / steps < good["loss_ema"][0]:
+        raise AssertionError("training after the rollback failed")
+    return summary
+
+
+def mesh_export(torch, tr, card) -> dict:
+    """Phase 9: the trained field's EMA mesh on the card."""
+    import numpy as np
+    import tempfile
+    from rnb_neus2_torch.mesh import extract, writer
+    from rnb_neus2_torch.mesh.marching import marching_cubes_grid
+    from rnb_neus2_torch.mesh.marching_device import marching_cubes_device
+
+    field = extract._bind(tr.field, tr.inference_params)
+    res = 192
+    csdf, active = extract.coarse_pass(field, res, 0.0, 1.0)
+    vol = extract.fine_volume(field, csdf, active, res, 0.0, 1.0)
+    t0 = time.perf_counter()
+    V, F = marching_cubes_device(vol, (0.0, 0.0, 0.0), 1.0 / res)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    V0, F0 = marching_cubes_grid(vol.cpu().numpy(), (0.0, 0.0, 0.0),
+                                 1.0 / res)
+    t2 = time.perf_counter()
+    same = V.shape == V0.shape and F.shape == F0.shape
+    err = float(np.abs(V.cpu().numpy() - V0).max()) if same and len(V0) \
+        else None
+    faces_equal = same and bool(np.array_equal(F.cpu().numpy(), F0))
+    log("mesh_vs_host", res=res, vertices=len(V0), faces=len(F0),
+        active_blocks=int(active.shape[0]), max_abs_err=err,
+        faces_equal=faces_equal, card_s=t1 - t0, numpy_s=t2 - t1)
+    if not (faces_equal and len(F0) and err <= 1e-5):
+        raise AssertionError("card marching cubes differs from numpy")
+    del csdf, vol, V, F
+    out = {"vs_host_res192": {"faces": len(F0), "card_s": t1 - t0,
+                              "numpy_s": t2 - t1}}
+    meta = tr.dataset.meta
+    for res in (512, 1024):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        m = extract.extract_mesh(tr.field, tr.inference_params,
+                                 resolution=res, meta=meta)
+        total = time.perf_counter() - t0
+        # back to the unit cube: the sphere of radius 0.25 at its centre
+        unit = (m["V"] - np.asarray(meta.n2w_translation)) \
+            / meta.n2w_scale * meta.scale + np.asarray(meta.offset)
+        r_err = np.abs(np.linalg.norm(unit - 0.5, axis=1) - 0.25)
+        row = {"res": res, "vertices": len(m["V"]), "faces": len(m["F"]),
+               "active_blocks": m["active_blocks"], "seconds": m["seconds"],
+               "total_s": total,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "memory_before": base,
+               "radius_err_median": float(np.median(r_err)),
+               "radius_err_p99": float(np.percentile(r_err, 99)),
+               "card": card}
+        if not (len(m["F"]) and np.isfinite(m["V"]).all()
+                and np.isfinite(m["N"]).all()
+                and row["radius_err_median"] < 0.01):
+            log("mesh", **row)
+            raise AssertionError(f"the res-{res} mesh is not the sphere")
+        if res == 512:
+            with tempfile.TemporaryDirectory() as d:
+                path = Path(d) / "mesh.obj"
+                t0 = time.perf_counter()
+                writer.save_mesh(path, m["V"], m["F"], m["N"])
+                row["obj_write_s"] = time.perf_counter() - t0
+                row["obj_bytes"] = path.stat().st_size
+                Vr, Fr = writer.load_obj(path)
+            # "%0.5f" rounds by ≤ 5e-6, and parsing to float32 adds an ulp
+            row["obj_max_abs_err"] = float(np.abs(Vr - m["V"]).max())
+            if not (np.array_equal(Fr, m["F"])
+                    and row["obj_max_abs_err"] <= 1e-5):
+                log("mesh", **row)
+                raise AssertionError("the OBJ does not read back")
+        log("mesh", **row)
+        out[f"res{res}"] = row
+    return out
+
+
+def chamfer_protocol(torch, dev, card) -> dict:
+    """Phase 10: tests/test_chamfer_gate.py's protocol and gate on the
+    card, with the default guard on."""
+    from rnb_neus2_torch.config import (HashGridConfig, MarchConfig,
+                                        TestbedConfig, TrainConfig)
+    from rnb_neus2_torch.mesh.extract import extract_mesh
+    from rnb_neus2_torch.mesh.metrics import chamfer_distance
+    from rnb_neus2_torch.testing.synthetic import (composite_dataset,
+                                                   composite_gt_mesh)
+    from rnb_neus2_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    ds = composite_dataset(n_views=12, width=80, height=96,
+                           focal=900.0 * 80 / 512, device=dev)
+    cfg = TestbedConfig(
+        grid=HashGridConfig(n_levels=8, top_resolution=256,
+                            log2_hashmap_size=15),
+        train=TrainConfig(target_batch_size=1 << 13,
+                          initial_rays_per_batch=256,
+                          occ_grid_size=64, seed=0),
+        march=MarchConfig(n_ladder=1024))
+    tr = Trainer(ds, cfg, device=dev)
+    t1 = time.perf_counter()
+    last = {}
+    for _ in range(900):
+        last = tr.train_step()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    m = extract_mesh(tr.field, tr.inference_params, resolution=128,
+                     meta=ds.meta)
+    Vg, Fg = composite_gt_mesh(192)
+    Vg = (Vg - 0.5) / 0.5
+    ch = chamfer_distance(m["V"], m["F"], Vg, Fg)
+    t3 = time.perf_counter()
+    row = {**ch, "gate_chamfer_l1": 0.05, "gate_completeness": 0.04,
+           "loss_color_last": last["loss_color"], "steps": tr.step,
+           "vertices": len(m["V"]), "setup_s": t1 - t0, "train_s": t2 - t1,
+           "extract_and_chamfer_s": t3 - t2, "total_s": t3 - t0,
+           "guard": guard_counters(tr), "card": card}
+    log("chamfer", **row)
+    if not (math.isfinite(last["loss_color"]) and ch["chamfer_l1"] < 0.05
+            and ch["completeness"] < 0.04):
+        raise AssertionError(f"the Chamfer gate failed: {ch}")
+    return row
 
 
 def main_path_inputs(torch, tr) -> list:
@@ -506,6 +725,7 @@ def main() -> int:
     from rnb_neus2_torch.kernels import build
     from rnb_neus2_torch.kernels import hash_grad_small as hgs
     from rnb_neus2_torch.kernels import scatter_add as sca
+    from rnb_neus2_torch.io import raycast
     from rnb_neus2_torch.tools import bench_scatter as bench
 
     kernels = {"hash_grad_small": hgs, "scatter_add": sca}
@@ -516,7 +736,7 @@ def main() -> int:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
 
-    build_all(build, [hgs, sca])
+    build_all(build, [hgs, sca, raycast])
     errs = check_kernels_vs_plain(torch, bench, kernels, dev)
     for name, sizes in (("hash_grad_small", (4096, 13824)),
                         ("scatter_add", (39304, 125000, 373248, 1 << 19))):
@@ -579,6 +799,9 @@ def main() -> int:
                 "ms", "ms_into", "ms_into_scatter_add", "plain_ms",
                 "bound_ms", "bound_into_ms", "library_ms")},
         })
+    forced_rollback(torch, tr)
+    mesh_export(torch, tr, card)
+    chamfer_protocol(torch, dev, card)
     log("done", card=card, total_s=time.perf_counter() - T0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
-"""Synthetic analytic-sphere scene (port of the numpy part of
+"""Synthetic analytic scenes (port of the numpy part of
 `rnb_neus2_tpu/testing/synthetic.py`).
 
-Per-view normal maps (camera frame), albedo maps and masks for a
-Lambertian sphere centred in the unit cube, made in numpy from closed
-forms, so that a run needs no data file.
+Per-view normal maps (camera frame), albedo maps and masks made in numpy
+from closed forms, so that a run needs no data file: a Lambertian sphere
+centred in the unit cube, and the composite scene (sphere ∪ torus ∪
+rounded box) whose analytic SDF gives the ground-truth mesh of the
+Chamfer gate.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 
 from ..geom.camera import Cameras
 from ..io.dataset import SceneMeta, TrainingDataset, build_dataset
+from ..mesh.marching import marching_cubes_grid
 
 
 def ring_cameras(n_views: int, radius: float, width: int, height: int,
@@ -104,3 +107,112 @@ def sphere_dataset(n_views: int = 8, width: int = 48, height: int = 48,
     normals, albedo, alphas = render_sphere_views(cams, radius=radius,
                                                   albedo_rgb=albedo_rgb)
     return build_dataset(cams, normals, albedo, alphas, alphas, SceneMeta())
+
+
+# ---------------------------------------------------------------------------
+# Composite analytic scene (sphere ∪ torus ∪ rounded box)
+# ---------------------------------------------------------------------------
+# A stand-in for the reference's multi-object validation scenes
+# (DiLiGenT-MV-style: ring views, per-view normal+albedo maps, masks).
+# Analytic SDF → exact GT surface for Chamfer-L1 (mesh/metrics.py).
+
+
+def composite_sdf(p: np.ndarray) -> np.ndarray:
+    """(..., 3) → (...) SDF of the union scene, exact enough for GT use."""
+    p = np.asarray(p, np.float32)
+    # sphere
+    d1 = np.linalg.norm(p - np.array([0.50, 0.54, 0.56], np.float32),
+                        axis=-1) - 0.14
+    # torus, axis = z, centered slightly low
+    q = p - np.array([0.50, 0.46, 0.40], np.float32)
+    qxy = np.linalg.norm(q[..., :2], axis=-1) - 0.17
+    d2 = np.sqrt(qxy * qxy + q[..., 2] * q[..., 2]) - 0.055
+    # rounded box
+    b = np.abs(p - np.array([0.52, 0.62, 0.40], np.float32)) \
+        - np.array([0.10, 0.055, 0.045], np.float32)
+    d3 = (np.linalg.norm(np.maximum(b, 0.0), axis=-1)
+          + np.minimum(np.max(b, axis=-1), 0.0)) - 0.02
+    return np.minimum(np.minimum(d1, d2), d3)
+
+
+def composite_normal(p: np.ndarray, eps: float = 1e-4) -> np.ndarray:
+    """Central-difference normal of composite_sdf, normalized."""
+    p = np.asarray(p, np.float32)
+    g = np.stack([
+        composite_sdf(p + np.eye(3, dtype=np.float32)[d] * eps)
+        - composite_sdf(p - np.eye(3, dtype=np.float32)[d] * eps)
+        for d in range(3)], axis=-1)
+    return g / np.maximum(np.linalg.norm(g, axis=-1, keepdims=True), 1e-12)
+
+
+def composite_albedo(p: np.ndarray) -> np.ndarray:
+    """Smoothly varying per-component albedo (texture for the RGB loss)."""
+    p = np.asarray(p, np.float32)
+    base = np.stack([
+        0.55 + 0.25 * np.sin(14.0 * p[..., 0]),
+        0.45 + 0.25 * np.sin(11.0 * p[..., 1] + 1.3),
+        0.50 + 0.30 * np.sin(9.0 * p[..., 2] + 2.1)], axis=-1)
+    return np.clip(base, 0.05, 1.0).astype(np.float32)
+
+
+def render_composite_views(cams: Cameras, max_iters: int = 96,
+                           t_max: float = 3.0):
+    """Sphere-traced analytic render → (normals_cam, albedo, alphas)."""
+    W, H = cams.resolution
+    n_views = cams.rot_c2w.shape[0]
+    rots = cams.rot_c2w.cpu().numpy()
+    origins = cams.origin.cpu().numpy()
+    focal = cams.focal.cpu().numpy()
+    pp = cams.principal.cpu().numpy()
+    u = (np.arange(W) + 0.5) / W
+    v = (np.arange(H) + 0.5) / H
+    uu, vv = np.meshgrid(u, v)
+
+    normals = np.zeros((n_views, H, W, 3), np.float32)
+    albedo = np.zeros((n_views, H, W, 3), np.float32)
+    alphas = np.zeros((n_views, H, W), np.float32)
+    for i in range(n_views):
+        d_cam = np.stack([
+            (uu - pp[i, 0]) * W / focal[i, 0],
+            (vv - pp[i, 1]) * H / focal[i, 1],
+            np.ones_like(uu)], axis=-1)
+        d = d_cam @ rots[i].T
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        d = d.reshape(-1, 3)
+        o = origins[i][None, :]
+        t = np.full((d.shape[0],), 0.05, np.float32)
+        alive = np.ones_like(t, bool)
+        for _ in range(max_iters):
+            s = composite_sdf(o + t[:, None] * d)
+            hit_now = s < 5e-5
+            t = np.where(alive & ~hit_now, t + np.maximum(s, 1e-4), t)
+            alive &= t < t_max
+        s = composite_sdf(o + t[:, None] * d)
+        hit = (s < 2e-3) & (t < t_max)
+        p = o + t[:, None] * d
+        n_world = composite_normal(p)
+        n_cam = np.einsum("nd,dk->nk", n_world, rots[i])
+        normals[i] = np.where(hit[:, None], n_cam,
+                              np.array([-1.0, 1.0, 1.0]) / np.sqrt(3.0)
+                              ).reshape(H, W, 3)
+        albedo[i] = (composite_albedo(p) * hit[:, None]).reshape(H, W, 3)
+        alphas[i] = hit.astype(np.float32).reshape(H, W)
+    return normals, albedo, alphas
+
+
+def composite_dataset(n_views: int = 20, width: int = 512, height: int = 612,
+                      cam_radius: float = 1.6, focal: float = 900.0,
+                      device="cpu") -> TrainingDataset:
+    cams = ring_cameras(n_views, cam_radius, width, height, focal,
+                        device=device)
+    normals, albedo, alphas = render_composite_views(cams)
+    return build_dataset(cams, normals, albedo, alphas, alphas, SceneMeta())
+
+
+def composite_gt_mesh(resolution: int = 384):
+    """GT mesh of the analytic scene via table marching cubes, unit-cube
+    coordinates."""
+    ax = np.linspace(0.0, 1.0, resolution + 1, dtype=np.float32)
+    X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
+    vol = composite_sdf(np.stack([X, Y, Z], axis=-1))
+    return marching_cubes_grid(-vol, (0.0, 0.0, 0.0), 1.0 / resolution, 0.0)

@@ -3,10 +3,10 @@
     python -m rnb_neus2_torch.tools.profile_step [--warm 420] [--steps 16]
         [--stoch-corner-bwd K]
 
-Trains the default field at full width, with the default stochastic
+Trains the default config at full width, with the default stochastic
 backward (K = 1; `--stoch-corner-bwd 0` takes the exact one, as the
-testbed CLI's flag does), without the divergence guard (not ported), on
-the seeded synthetic sphere, as `chip_smoke.py` does, for `--warm` steps
+testbed CLI's flag does) and the divergence guard on, on the seeded
+synthetic sphere, as `chip_smoke.py` does, for `--warm` steps
 (420: past step 411, from which every step runs all 14 levels, and past
 step 256, where the occupancy refresh becomes subsampled and runs every
 16 steps), times `--steps` steps, runs `--steps` more under
@@ -20,10 +20,11 @@ step 256, where the occupancy refresh becomes subsampled and runs every
 - kernels_per_step: device activities (kernels, copies, fills);
 - phases: for each `record_function` span of the trainer
   (occupancy_refresh, sample_and_march, field_forward, loss, backward,
-  optimizer) the host ms per step and the device ms per step of the
-  kernels it launched (autograd runs the backward's kernels from its own
-  thread; those count under `backward`; device time that no span claims is
-  `other`);
+  optimizer, guard_snapshot) the host ms per step, and the device ms and
+  activities per step of the kernels it launched (autograd runs the
+  backward's kernels from its own thread; those count under `backward`;
+  device time that no span claims is `other`). `guard_snapshot` is the
+  divergence guard's on-device copy of the state after each healthy step;
 - top_kernels: the 15 kernels with the most device time per step;
 - backward_fills_and_copies: per step, the fill and copy kernels that the
   backward launched, by name (the table gradient is zeroed once, and its
@@ -44,14 +45,14 @@ import time
 import torch
 from torch.autograd import DeviceType
 
-from ..config import TestbedConfig, TrainConfig
+from ..config import TestbedConfig
 from ..device import resolve_device
 from ..testing.synthetic import sphere_dataset
 from ..train.trainer import Trainer
 from .bench_scatter import card_name_and_power
 
 PHASES = ("occupancy_refresh", "sample_and_march", "field_forward", "loss",
-          "backward", "optimizer")
+          "backward", "optimizer", "guard_snapshot")
 
 
 def _root(evt):
@@ -80,7 +81,7 @@ def main() -> None:
 
     dev = resolve_device("cuda")
     card = card_name_and_power()
-    cfg = TestbedConfig(train=TrainConfig(divergence_guard=False))
+    cfg = TestbedConfig()
     if args.stoch_corner_bwd is not None:
         cfg = dataclasses.replace(cfg, network=dataclasses.replace(
             cfg.network, stoch_corner_bwd=args.stoch_corner_bwd))
@@ -104,6 +105,7 @@ def main() -> None:
 
     host_ms = collections.Counter()
     device_us = collections.Counter()    # kernels attributed to a phase
+    device_n = collections.Counter()     # their launches
     bwd_fill_copy = collections.Counter()  # backward fill/copy launches
     by_kernel = collections.Counter()    # every device activity, by name
     n_kernels = 0
@@ -119,11 +121,13 @@ def main() -> None:
         for k in evt.kernels:
             phase = _phase_of(evt)
             device_us[phase] += k.duration
+            device_n[phase] += 1
             if phase == "backward" and any(w in k.name.lower()
                                            for w in ("fill", "copy")):
                 bwd_fill_copy[k.name[:120]] += 1
     busy_us = sum(by_kernel.values())
     device_us["other"] += busy_us - sum(device_us.values())
+    device_n["other"] += n_kernels - sum(device_n.values())
     busy_ms = busy_us / 1e3
     out = {
         "card": card,
@@ -138,8 +142,10 @@ def main() -> None:
         "idle_share": 1.0 - busy_ms / wall_ms,
         "kernels_per_step": n_kernels / n,
         "phases": {p: {"host_ms": host_ms[p] / n,
-                       "device_ms": device_us[p] / 1e3 / n}
+                       "device_ms": device_us[p] / 1e3 / n,
+                       "device_activities": device_n[p] / n}
                    for p in PHASES + ("other",)},
+        "rolled_back": sum("rolled_back" in m for m in metrics),
         "top_kernels": [{"name": k[:120], "device_ms": us / 1e3 / n}
                         for k, us in by_kernel.most_common(15)],
         "backward_fills_and_copies": {k: c / n for k, c in

@@ -1,7 +1,7 @@
 """The PyTorch port's trainer on the CPU: short sphere runs whose color
 loss falls (exact and default stochastic backward), the level schedule
-against the JAX package, and the refusals (an unported option, a card
-that is not there)."""
+against the JAX package, the default config accepted as it is (guard
+on), and the refusals (an unported option, a card that is not there)."""
 
 import ast
 import dataclasses
@@ -61,16 +61,12 @@ def test_valid_level_schedule_matches_jax():
 
 def test_trainer_refuses_stochastic_backward():
     """No longer refused: the default config (the K = 1 stochastic
-    backward) needs only the divergence guard switched off, which is not
-    ported."""
+    backward, the divergence guard on) is accepted as it is."""
     ds = sphere_dataset(n_views=2, width=8, height=8)
-    cfg = TestbedConfig(train=TrainConfig(divergence_guard=False))
-    assert cfg.network.stoch_corner_bwd == 1
+    cfg = TestbedConfig()
+    assert cfg.network.stoch_corner_bwd == 1 and cfg.train.divergence_guard
     check_ported(cfg)
     assert Trainer(ds, cfg, device="cpu").field.net.stoch_corner_bwd == 1
-    with pytest.raises(ValueError) as err:
-        check_ported(TestbedConfig())
-    assert "stoch" not in str(err.value)
 
 
 def test_default_stochastic_run_color_loss_falls():
@@ -89,11 +85,18 @@ def test_default_stochastic_run_color_loss_falls():
 
 
 def test_trainer_refuses_divergence_guard():
-    """The guard is on by default and not ported: the Trainer says so."""
+    """No longer refused: the guard is on by default and ported. The
+    guarded trainer takes steps, checkpoints each healthy one, and the
+    default config passes `check_ported` unmodified."""
     ds = sphere_dataset(n_views=2, width=8, height=8)
     cfg = dataclasses.replace(_small_cfg(), train=TrainConfig())
-    with pytest.raises(ValueError, match="divergence guard"):
-        Trainer(ds, cfg, device="cpu")
+    assert cfg.train.divergence_guard
+    check_ported(TestbedConfig())
+    tr = Trainer(ds, cfg, device="cpu")
+    out = tr.train_step()
+    assert "rolled_back" not in out and np.isfinite(out["loss_color"])
+    assert tr.step == 1 and tr._good is not None and tr._good["step"] == 1
+    assert tr.loss_ema.updates == 1
 
 
 @pytest.mark.parametrize("section,name", [
