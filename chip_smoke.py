@@ -9,9 +9,10 @@ Phases, each printing JSON lines with `elapsed_s`:
    versions. Exits non-zero without a CUDA device or without the package
    beside this script.
 2. build: every kernel library of the main path, built with nvcc from the
-   sources in the checkout, and the point-to-mesh library of the Chamfer
-   metric (`native/raycast.cc`, g++), all at once (one compiler per
-   library), with `-Xptxas -v` output.
+   sources in the checkout, the point-to-mesh library of the Chamfer
+   metric (`native/raycast.cc`, g++) and the PNG row unfilter
+   (`rnb_neus2_torch/native/png_unfilter.cc`, g++), all at once (one
+   compiler per library), with `-Xptxas -v` output.
 3. kernel vs plain: each kernel's wrapper on card tensors at the main
    path's shapes against its plain PyTorch version; max abs error ≤
    1e-5·(1 + max |plain|) (float atomics sum in another order), and every
@@ -91,20 +92,55 @@ Phases, each printing JSON lines with `elapsed_s`:
    256, a 2^15 table, n_ladder 1024, 900 steps, extraction at 128 against
    `composite_gt_mesh(192)`. The same absolute gate: chamfer_l1 < 0.05
    and completeness < 0.04.
+11. cli: the sphere of phase 7 written as a prepared scene (16 views,
+   256x256, 16-bit RGBA PNGs, transform.json) by the port's
+   `write_prepared_scene`; `load_transform_json` matches `sphere_dataset`
+   within the 16-bit quantization (origins 1e-5, normals in the mask
+   5e-3, the same mask). Then `python -m rnb_neus2_torch.cli.testbed
+   --scene D --maxiter 64 --save-snapshot --save-mesh --resolution 256`
+   as a subprocess: exit 0, its `iteration=64` line, both files. Its
+   snapshot restored in this process into a fresh `Trainer` of the same
+   flags equals the file bit for bit (parameters, Adam moments, steps and
+   count, EMA, the float16 grid, its bitfield against min(0.1, mean), the
+   refresh count, step, ray count, the loss and eikonal EMAs, the
+   generator), and one more step gives a finite loss. Prints the
+   snapshot's bytes, write and read seconds, the PNG decode ms per view
+   (the scene's 256x256 files and one 612x512 view) and the CLI's
+   ms/step.
+12. pipeline: the sphere as an IDR input (cameras.npz, normal/, albedo/,
+   mask/ PNGs; `write_idr_scene`) through `run_full_pipeline` in this
+   process on the card: load, prepare (silhouette scaling), stage 1 to
+   step 400, stage 2 resumed from its snapshot with --opti-lights to 600
+   (all 14 levels from step 411), the mesh at 512, the largest component.
+   Launch counts zeroed just before and read just after: `hash_grad_small`
+   twice per `train_step` call, `scatter_add` between 1 and 12 per call;
+   rollbacks are counted and reported. mesh.obj reads back with
+   `load_obj`, and its median vertex radius about the sphere's world
+   centre lies within a voxel (at 512) of the world radius. The input's
+   albedos carry a per-view scale (1 + 0.01 i); albedo ratios on that
+   mesh and the prepared albedos are finite and positive (the line
+   prints ratio × scale, which would be flat), and the scaled albedos
+   are written. Prints seconds per stage, ms/step
+   through the CLI loop, snapshot and OBJ write seconds, peak memory.
 
-Then one JSON line with every kernel's numbers, and as the last line
-{"ok": true, "device": {...}}. Any failed phase raises and the script exits
-non-zero.
+Then one JSON line with every kernel's numbers (the main path's launches,
+and the pipeline's), and as the last line {"ok": true, "device": {...}}.
+Any failed phase raises and the script exits non-zero.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import re
 import signal
 import statistics
+import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -116,6 +152,9 @@ TRAIN_STEPS = 440              # bucket 14 from step 411
 FULL_LEVEL_STEPS = 20          # at least this many final steps at 14 levels
 EXACT_STEPS = 20
 LOG_EVERY = 20
+CLI_STEPS = 64
+PIPELINE_STEPS = 600           # stage 1 to 400, stage 2 to 600
+SPHERE = dict(n_views=16, width=256, height=256, radius=0.25)
 
 
 def log(phase: str, **kw) -> None:
@@ -709,6 +748,270 @@ def warp_repeats(torch, S, idx, v) -> dict:
             "atomics_removed_share": int(dup.sum()) / max(n_live, 1)}
 
 
+class _Tee(io.TextIOBase):
+    """stdout that is also kept: the pipeline's [INFO] lines carry its
+    timings."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.buf.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _floats(pattern: str, text: str) -> list:
+    return [float(m) for m in re.findall(pattern, text)]
+
+
+def cli_phase(torch, dev, card) -> dict:
+    """Phase 11: the testbed CLI in a subprocess on a scene written to
+    disk, and its snapshot restored here bit for bit."""
+    import numpy as np
+    from rnb_neus2_torch import interop
+    from rnb_neus2_torch.cli import testbed
+    from rnb_neus2_torch.io import image_io, png
+    from rnb_neus2_torch.io.dataset import load_transform_json
+    from rnb_neus2_torch.testing.synthetic import (sphere_dataset,
+                                                   write_prepared_scene)
+    from rnb_neus2_torch.train import snapshot as snap
+    from rnb_neus2_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as d:
+        scene = Path(d) / "scene"
+        t0 = time.perf_counter()
+        write_prepared_scene(str(scene), **SPHERE)
+        t1 = time.perf_counter()
+        files = sorted(scene.glob("*/*.png"))
+        for f in files:
+            image_io.load_image_raw16(f)
+        t2 = time.perf_counter()
+        big = np.random.default_rng(0).integers(
+            0, 65536, (612, 512, 4), dtype=np.uint16)
+        big[..., :3] = np.sort(big[..., :3], axis=1)
+        png.write_png(Path(d) / "big.png", big)
+        t3 = time.perf_counter()
+        for _ in range(5):
+            if not np.array_equal(png.read_png(Path(d) / "big.png"), big):
+                raise AssertionError("the 612x512 PNG does not read back")
+        t4 = time.perf_counter()
+        ds = load_transform_json(str(scene), dev)
+        t5 = time.perf_counter()
+        mem = sphere_dataset(**SPHERE)
+        inside = mem.alpha_normal.numpy() > 0.5
+        row = {
+            "views": SPHERE["n_views"], "png_files": len(files),
+            "scene_write_s": t1 - t0,
+            "png_decode_ms_per_view_256": 1e3 * (t2 - t1) / len(files) * 2,
+            "png_decode_ms_612x512_rgba16": 1e3 * (t4 - t3) / 5,
+            "load_transform_json_s": t5 - t4,
+            "origin_err": float(np.abs(ds.cameras.origin.cpu().numpy()
+                                       - mem.cameras.origin.numpy()).max()),
+            "normal_err_in_mask": float(np.abs(
+                ds.normals.cpu().numpy()[inside]
+                - mem.normals.numpy()[inside]).max()),
+            "mask_equal": bool(np.array_equal(
+                ds.alpha_normal.cpu().numpy() > 0.5, inside)),
+        }
+        if not (row["origin_err"] < 1e-5 and row["normal_err_in_mask"]
+                < 5e-3 and row["mask_equal"]):
+            log("cli", **row)
+            raise AssertionError("the written scene does not load back as "
+                                 "the sphere")
+        argv = ["--scene", str(scene), "--maxiter", str(CLI_STEPS),
+                "--save-snapshot", "--save-mesh", "--resolution", "256"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rnb_neus2_torch.cli.testbed", *argv],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        row["cli_s"] = time.perf_counter() - t0
+        print(proc.stdout[-4000:], proc.stderr[-4000:], flush=True)
+        out = scene / "output"
+        path = out / f"snapshot_{CLI_STEPS}.msgpack"
+        if proc.returncode != 0 \
+                or f"iteration={CLI_STEPS} loss=" not in proc.stdout \
+                or not path.exists() \
+                or not (out / f"mesh_{CLI_STEPS}.obj").exists():
+            log("cli", returncode=proc.returncode, **row)
+            raise AssertionError("the CLI run failed")
+        row["cli_ms_per_step"] = _floats(r"\(([\d.]+) ms/step\)",
+                                         proc.stdout)[0]
+        row["snapshot_write_s"] = _floats(r"Wrote \d+ bytes in ([\d.]+) s",
+                                          proc.stdout)[0]
+        row["snapshot_bytes"] = path.stat().st_size
+        t0 = time.perf_counter()
+        data = snap.load_snapshot(str(path))
+        row["snapshot_read_s"] = time.perf_counter() - t0
+        cfg = testbed.make_config(testbed.build_argparser().parse_args(argv))
+        tr = Trainer(ds, cfg, device=dev)
+        t0 = time.perf_counter()
+        snap.restore_trainer(tr, data)
+        torch.cuda.synchronize()
+        row["restore_s"] = time.perf_counter() - t0
+        differ = _restore_differences(torch, interop, tr, data)
+        row["restored_step"] = tr.step
+        row["differ"] = differ
+        m = tr.train_step()
+        torch.cuda.synchronize()
+        row["next_loss_total"] = m["loss_total"]
+        row["card"] = card
+        log("cli", **row)
+        if differ or not math.isfinite(m["loss_total"]):
+            raise AssertionError(f"the CLI's snapshot did not restore bit "
+                                 f"for bit: {differ}")
+    return row
+
+
+def _restore_differences(torch, interop, tr, data) -> list:
+    """Names of the restored fields that differ from the snapshot file."""
+    import numpy as np
+    differ = []
+
+    def same(name, got, want):
+        got, want = np.asarray(got), np.asarray(want)
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            differ.append(name)
+
+    def walk(name, got, want):
+        if isinstance(want, dict):
+            if set(got) != set(want):
+                differ.append(name)
+                return
+            for k in want:
+                walk(f"{name}.{k}", got[k], want[k])
+        else:
+            same(name, got, want)
+
+    walk("params", interop.state_dict(interop.params_to_jax(tr.params)),
+         data["params"])
+    chain, ema = interop.opt_state_to_jax(tr.opt)
+    walk("adam_state", chain, data["adam_state"])
+    walk("ema_params", interop.state_dict(ema), data["ema_params"])
+    grid = np.asarray(data["density_grid"]).astype(np.float32)
+    same("density_grid", tr.occ.density.cpu().numpy(), grid)
+    d = torch.from_numpy(grid)
+    same("bitfield", tr.occ.bitfield.cpu().numpy(),
+         (d > torch.clamp_max(torch.clamp_min(d, 0.0).mean(), 0.1)).numpy())
+    for name, got in (("density_ema_step", tr.occ.ema_step),
+                      ("step", tr.step), ("n_rays", tr.n_rays)):
+        if got != int(data[name]):
+            differ.append(name)
+    for name, ema_m in (("loss_ema", tr.loss_ema), ("ek_ema", tr.ek_ema)):
+        want = float(data[name])
+        if not (ema_m.value == want or math.isnan(want)
+                and not ema_m._initialized) \
+                or ema_m.updates != int(data[name + "_updates"]):
+            differ.append(name)
+    same("torch_rng_state", tr.generator.get_state().numpy(),
+         data["torch_rng_state"])
+    return differ
+
+
+def pipeline_phase(torch, kernels, card) -> dict:
+    """Phase 12: run_full_pipeline from an IDR input on disk to mesh.obj,
+    in this process, with the kernels' launches counted."""
+    import numpy as np
+    from rnb_neus2_torch.cli import pipeline
+    from rnb_neus2_torch.io.albedo_scaling import (
+        compute_albedo_scale_ratios, scale_and_save_albedos)
+    from rnb_neus2_torch.mesh.writer import load_obj
+    from rnb_neus2_torch.testing.synthetic import write_idr_scene
+    from rnb_neus2_torch.train.trainer import Trainer
+
+    world_center = np.array([0.2, -0.1, 0.3])
+    stages, steps = [], []
+    real_stage, real_step = pipeline.run_testbed, Trainer.train_step
+
+    def timed_stage(*a, **k):
+        t0 = time.perf_counter()
+        real_stage(*a, **k)
+        torch.cuda.synchronize()
+        stages.append({"stage": a[3], "maxiter": a[1],
+                       "seconds": time.perf_counter() - t0})
+
+    def counted_step(self):
+        m = real_step(self)
+        steps.append((int(m["n_levels_run"]), "rolled_back" in m))
+        return m
+
+    with tempfile.TemporaryDirectory() as d:
+        root = Path(d)
+        scales = [(1.0 + 0.01 * i,) * 3 for i in range(SPHERE["n_views"])]
+        r_world = write_idr_scene(str(root / "in"), world_center=world_center,
+                                  albedo_scales=scales, **SPHERE)
+        tee = _Tee(sys.stdout)
+        pipeline.run_testbed, Trainer.train_step = timed_stage, counted_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(tee):
+                mesh_path = pipeline.run_full_pipeline(
+                    str(root / "in"), str(root / "out"),
+                    max_steps=PIPELINE_STEPS, mesh_resolution=512,
+                    device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            pipeline.run_testbed, Trainer.train_step = real_stage, real_step
+        total = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        text = tee.buf.getvalue()
+        calls = len(steps)
+        prepared = root / "out" / "prepared_data"
+        with open(prepared / "transform.json") as f:
+            n2w_scale = json.load(f)["n2w"][0][0]
+        voxel = 2.0 / 512 * n2w_scale
+        t1 = time.perf_counter()
+        V, F = load_obj(mesh_path)
+        t2 = time.perf_counter()
+        radius = float(np.median(np.linalg.norm(V - world_center, axis=1)))
+        ratios = compute_albedo_scale_ratios(
+            str(prepared / "albedos"), str(prepared / "transform.json"),
+            mesh_path, rng=np.random.default_rng(0))
+        scale_and_save_albedos(str(prepared / "albedos"),
+                               str(root / "scaled"), ratios)
+        t3 = time.perf_counter()
+        row = {
+            "steps": PIPELINE_STEPS, "train_step_calls": calls,
+            "rollbacks": sum(rb for _, rb in steps),
+            "steps_at_14_levels": sum(n == 14 for n, _ in steps),
+            "launches": launches, "stages": stages, "total_s": total,
+            "ms_per_step_cli": _floats(r"\(([\d.]+) ms/step\)", text),
+            "snapshot_write_s": _floats(r"Wrote \d+ bytes in ([\d.]+) s",
+                                        text),
+            "mesh_extract_and_write_s": re.findall(
+                r"extract ([\d.]+) s, write ([\d.]+) s", text),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "vertices": len(V), "faces": len(F), "load_obj_s": t2 - t1,
+            "median_radius": radius, "world_radius": r_world,
+            "voxel": voxel, "albedo_ratios": ratios[:, 0].tolist(),
+            # the ratios undo the views' albedo scales up to one factor
+            "albedo_ratio_times_scale": (ratios[:, 0] * np.asarray(
+                scales)[:, 0]).tolist(),
+            "albedo_s": t3 - t2,
+            "scaled_albedos": len(list((root / "scaled").glob("*.png"))),
+            "card": card}
+    log("pipeline", **row)
+    if launches["hash_grad_small"] != 2 * calls \
+            or not 0 < launches["scatter_add"] <= 12 * calls:
+        raise AssertionError(f"kernel launches {launches} in {calls} "
+                             "train_step calls")
+    if row["steps_at_14_levels"] == 0:
+        raise AssertionError("stage 2 never ran all 14 levels")
+    if not (len(F) and abs(radius - r_world) <= voxel):
+        raise AssertionError(f"mesh.obj median radius {radius}, the "
+                             f"sphere's {r_world} (voxel {voxel})")
+    if not (np.isfinite(ratios).all() and (ratios > 0).all()
+            and row["scaled_albedos"] == SPHERE["n_views"]):
+        raise AssertionError("albedo scaling failed")
+    return row
+
+
 def main() -> int:
     signal.alarm(WALL_LIMIT_S)
     import torch
@@ -725,7 +1028,7 @@ def main() -> int:
     from rnb_neus2_torch.kernels import build
     from rnb_neus2_torch.kernels import hash_grad_small as hgs
     from rnb_neus2_torch.kernels import scatter_add as sca
-    from rnb_neus2_torch.io import raycast
+    from rnb_neus2_torch.io import png, raycast
     from rnb_neus2_torch.tools import bench_scatter as bench
 
     kernels = {"hash_grad_small": hgs, "scatter_add": sca}
@@ -736,7 +1039,7 @@ def main() -> int:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
 
-    build_all(build, [hgs, sca, raycast])
+    build_all(build, [hgs, sca, raycast, png])
     errs = check_kernels_vs_plain(torch, bench, kernels, dev)
     for name, sizes in (("hash_grad_small", (4096, 13824)),
                         ("scatter_add", (39304, 125000, 373248, 1 << 19))):
@@ -802,6 +1105,13 @@ def main() -> int:
     forced_rollback(torch, tr)
     mesh_export(torch, tr, card)
     chamfer_protocol(torch, dev, card)
+    del tr, tr_exact, inputs
+    torch.cuda.empty_cache()
+    cli_phase(torch, dev, card)
+    piped = pipeline_phase(torch, kernels, card)
+    for row in rows:
+        row["launches_pipeline"] = piped["launches"][row["name"]]
+        row["pipeline_train_step_calls"] = piped["train_step_calls"]
     log("done", card=card, total_s=time.perf_counter() - T0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

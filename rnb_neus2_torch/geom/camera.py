@@ -6,16 +6,19 @@ Ray directions are built from normalized pixel coordinates
 (testbed_nerf.cu:1285-1296): d_cam = ((u−cx)·W/fx, (v−cy)·H/fy, 1), rotated
 by R_c2w and normalized.
 
-Lens distortion (OpenCV and F-theta, `geom/distortion.py` in the JAX
-package) comes with the scene loader in a later slice; cameras here are
-ideal pinholes.
+Lens distortion is applied where the reference applies it
+(testbed_nerf.cu:1282-1300): F-theta replaces the pinhole back-projection;
+the OpenCV model Newton-undistorts the normalized plane coordinates
+(`geom/distortion.py`). With neither, the cameras are ideal pinholes.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from .distortion import f_theta_undistortion, iterative_undistortion
 
 
 class Cameras(NamedTuple):
@@ -26,11 +29,19 @@ class Cameras(NamedTuple):
     focal: torch.Tensor       # (N, 2) fx, fy in pixels
     principal: torch.Tensor   # (N, 2) cx, cy normalized to [0,1]
     resolution: Tuple[int, int]  # (W, H), shared by all views
+    # OpenCV lens distortion [k1, k2, p1, p2] per view (transform.json's
+    # top-level k1/k2/p1/p2, nerf_loader.cu:432-465), or None
+    distortion: Optional[torch.Tensor] = None   # (N, 4)
+    # F-theta fisheye [p0..p4, width, height] shared by all views
+    # (nerf_loader.cu ftheta_p0..p4), or None
+    ftheta: Optional[torch.Tensor] = None       # (7,)
 
     def to(self, device) -> "Cameras":
+        move = lambda t: None if t is None else t.to(device)
         return Cameras(self.rot_c2w.to(device), self.origin.to(device),
                        self.focal.to(device), self.principal.to(device),
-                       self.resolution)
+                       self.resolution, move(self.distortion),
+                       move(self.ftheta))
 
 
 def rays_from_pixels(cams: Cameras, img_idx: torch.Tensor,
@@ -42,10 +53,16 @@ def rays_from_pixels(cams: Cameras, img_idx: torch.Tensor,
     rot = cams.rot_c2w[img_idx]                       # (R,3,3)
     o = cams.origin[img_idx]
     pp = cams.principal[img_idx]
-    f = cams.focal[img_idx]
-    x = (xy[:, 0] - pp[:, 0]) * W / f[:, 0]
-    y = (xy[:, 1] - pp[:, 1]) * H / f[:, 1]
-    d_cam = torch.stack([x, y, torch.ones_like(x)], dim=1)
+    if cams.ftheta is not None:
+        d_cam = f_theta_undistortion(xy - pp, cams.ftheta,
+                                     error_direction=(0.0, 0.0, 1.0))
+    else:
+        f = cams.focal[img_idx]
+        x = (xy[:, 0] - pp[:, 0]) * W / f[:, 0]
+        y = (xy[:, 1] - pp[:, 1]) * H / f[:, 1]
+        if cams.distortion is not None:
+            x, y = iterative_undistortion(cams.distortion[img_idx], x, y)
+        d_cam = torch.stack([x, y, torch.ones_like(x)], dim=1)
     d = torch.einsum("rij,rj->ri", rot, d_cam)
     return o, d / torch.linalg.norm(d, dim=1, keepdim=True)
 

@@ -3,7 +3,8 @@ it with ctypes.
 
 CUDA sources of `csrc/`: `nvcc -gencode arch=compute_90a,code=sm_90a
 -std=c++17 -O3 -shared -Xcompiler -fPIC`; host C++ sources (the repo's
-`native/raycast.cc`): `g++ -O3 -fopenmp -shared -fPIC`. Either goes into
+`native/raycast.cc`, the package's `native/png_unfilter.cc`): `g++ -O3
+-fopenmp -shared -fPIC`. Either goes into
 `build/rnb_neus2_torch/<hash of the sources, the headers of csrc/ and the
 flags>/lib<name>.so` under the repository root, at first use; nothing is
 written beside the sources. The library is written under a temporary

@@ -109,6 +109,109 @@ def sphere_dataset(n_views: int = 8, width: int = 48, height: int = 48,
     return build_dataset(cams, normals, albedo, alphas, alphas, SceneMeta())
 
 
+def write_prepared_scene(out_dir, n_views: int = 8, width: int = 48,
+                         height: int = 48, radius: float = 0.25,
+                         cam_radius: float = 1.5, focal: float = 70.0,
+                         albedo_scales=None):
+    """Write the sphere as a prepared scene DIRECTORY (transform.json +
+    16-bit RGBA normals/ and albedos/) through the port's PNG writer, so
+    that a run goes through the same encode and decode as the pipeline's.
+    Cameras are stored before normalization (t raw; the loader applies
+    t → 0.5·t + 0.5)."""
+    import json
+    import os
+
+    from ..io import image_io
+
+    cams = ring_cameras(n_views, cam_radius, width, height, focal)
+    normals, albedo, alphas = render_sphere_views(cams, radius=radius)
+    os.makedirs(os.path.join(out_dir, "normals"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "albedos"), exist_ok=True)
+
+    frames = []
+    rots = cams.rot_c2w.numpy()
+    origins = cams.origin.numpy()
+    for i in range(n_views):
+        # decoded = stored*2−1 with y,z negated → stored = decoded·(1,−1,−1)
+        stored = normals[i] * np.array([1.0, -1.0, -1.0])
+        png = np.concatenate([(stored + 1.0) / 2.0, alphas[i][..., None]],
+                             axis=-1)
+        name = f"{i:05d}.png"
+        image_io.save_image(png, os.path.join(out_dir, "normals", name), 16)
+        a = albedo[i].copy()
+        if albedo_scales is not None:
+            a = np.clip(a * albedo_scales[i], 0, 1)
+        image_io.save_image(
+            np.concatenate([a, alphas[i][..., None]], axis=-1),
+            os.path.join(out_dir, "albedos", name), 16)
+
+        c2w = np.eye(4)
+        c2w[:3, :3] = rots[i]
+        # the loader maps t → 0.5·t + 0.5; invert so origins land as built
+        c2w[:3, 3] = (origins[i] - 0.5) / 0.5
+        K = np.eye(4)
+        K[0, 0] = K[1, 1] = focal
+        K[0, 2], K[1, 2] = width / 2.0, height / 2.0
+        frames.append({"albedo_path": f"albedos/{name}",
+                       "normal_path": f"normals/{name}",
+                       "transform_matrix": c2w.tolist(),
+                       "intrinsic_matrix": K.tolist()})
+    tj = {"w": width, "h": height, "aabb_scale": 1.0, "scale": 0.5,
+          "offset": [0.5, 0.5, 0.5], "from_na": True,
+          "n2w": np.eye(4).tolist(), "frames": frames}
+    with open(os.path.join(out_dir, "transform.json"), "w") as f:
+        json.dump(tj, f)
+    return out_dir
+
+
+def write_idr_scene(out_dir, n_views: int = 8, width: int = 48,
+                    height: int = 48, radius: float = 0.25,
+                    cam_radius: float = 1.5, focal: float = 70.0,
+                    world_center=(0.2, -0.1, 0.3), world_scale: float = 2.0,
+                    albedo_scales=None):
+    """Write the sphere as an IDR-style input directory, what the pipeline
+    loads (`io/dataloaders.py:load_idr_scene`): cameras.npz (world_mat_i =
+    K·[R | t] of each view, scale_mat_i = identity) with 16-bit RGB
+    normal/ and albedo/ PNGs and 8-bit grey mask/ PNGs named 000.png, ….
+    The world frame is the unit cube scaled by `world_scale` about the
+    sphere's centre, which lands on `world_center`: the sphere's world
+    radius is radius · world_scale. `albedo_scales` (one RGB factor per
+    view) gives the views the unknown per-view albedo scale that albedo
+    scaling estimates. Returns the world radius."""
+    import os
+
+    from ..io import image_io, png
+
+    cams = ring_cameras(n_views, cam_radius, width, height, focal)
+    normals, albedo, alphas = render_sphere_views(cams, radius=radius)
+    for sub in ("normal", "albedo", "mask"):
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+    rots = cams.rot_c2w.numpy().astype(np.float64)
+    centers = (cams.origin.numpy().astype(np.float64) - 0.5) * world_scale \
+        + np.asarray(world_center, np.float64)
+    K = np.array([[focal, 0.0, width / 2.0, 0.0],
+                  [0.0, focal, height / 2.0, 0.0],
+                  [0.0, 0.0, 1.0, 0.0], [0.0, 0.0, 0.0, 1.0]])
+    mats = {}
+    for i in range(n_views):
+        name = f"{i:03d}.png"
+        stored = normals[i] * np.array([1.0, -1.0, -1.0])
+        image_io.save_image((stored + 1.0) / 2.0,
+                            os.path.join(out_dir, "normal", name), 16)
+        a = albedo[i] if albedo_scales is None else np.clip(
+            albedo[i] * albedo_scales[i], 0, 1)
+        image_io.save_image(a, os.path.join(out_dir, "albedo", name), 16)
+        png.write_png(os.path.join(out_dir, "mask", name),
+                      (alphas[i] * 255).astype(np.uint8))
+        w2c = np.eye(4)
+        w2c[:3, :3] = rots[i].T
+        w2c[:3, 3] = -rots[i].T @ centers[i]
+        mats[f"world_mat_{i}"] = (K @ w2c).astype(np.float32)
+        mats[f"scale_mat_{i}"] = np.eye(4, dtype=np.float32)
+    np.savez(os.path.join(out_dir, "cameras.npz"), **mats)
+    return radius * world_scale
+
+
 # ---------------------------------------------------------------------------
 # Composite analytic scene (sphere ∪ torus ∪ rounded box)
 # ---------------------------------------------------------------------------

@@ -85,9 +85,10 @@ def effective_lr_scale(train_cfg, step: int, lr_scale: float) -> float:
 
 
 # config fields that no code of this slice reads, by config section; each
-# must keep its default
+# must keep its default. (train.max_steps is read by the CLI's loop, not by
+# a step.)
 NOT_READ = {
-    "train": ("max_steps", "field_chunk", "fused_steps"),
+    "train": ("field_chunk", "fused_steps"),
     "march": ("max_samples_per_ray",),
 }
 _DEFAULTS = {"train": TrainConfig(), "march": MarchConfig()}
@@ -236,8 +237,12 @@ class Trainer:
                                           cfg.loss, anneal)
         names = list(self.params)
         with record_function("backward"):
+            # a parameter the loss does not reach (the RGB network under
+            # --no-albedo) gets a zero gradient, as under jax.grad
             grads = torch.autograd.grad(loss,
-                                        [self.params[n] for n in names])
+                                        [self.params[n] for n in names],
+                                        allow_unused=True,
+                                        materialize_grads=True)
         frac = cfg.train.fractional_from_step
         rgb_scale = 1.0 if frac is None else float(step < frac)
         with record_function("optimizer"):

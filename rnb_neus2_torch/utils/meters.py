@@ -1,7 +1,10 @@
-"""Half-life EMA meter (port of `Ema` in `rnb_neus2_tpu/utils/meters.py`;
-reference: Ema in common.h:245+)."""
+"""Half-life EMA meter and the pipeline's logger (port of `Ema` and
+`Logger` in `rnb_neus2_tpu/utils/meters.py`; reference: Ema in
+common.h:245+)."""
 
 from __future__ import annotations
+
+import sys
 
 
 class Ema:
@@ -36,3 +39,23 @@ class Ema:
         self.value = 0.0
         self._initialized = False
         self.updates = 0
+
+
+class Logger:
+    """[INFO]/[WARN]/[ERROR]-prefixed lines, as the pipeline's logger
+    prints them (reference: SimpleLogger in rnb_neus2/pipeline.py:15-24)."""
+
+    def __init__(self, stream=None):
+        self.stream = stream or sys.stdout
+
+    def _emit(self, tag, msg):
+        print(f"[{tag}] {msg}", file=self.stream, flush=True)
+
+    def info(self, msg):
+        self._emit("INFO", msg)
+
+    def warning(self, msg):
+        self._emit("WARN", msg)
+
+    def error(self, msg):
+        self._emit("ERROR", msg)

@@ -3,8 +3,10 @@
 Console script `rnb-neus2` matches the reference package's entry point
 (reference setup.py:21-25); `rnb-neus2-testbed` exposes the testbed CLI
 that the reference ships as a compiled binary. `rnb_neus2_torch` is the
-PyTorch/CUDA port; its CUDA sources (`csrc/*.cu`) are built with nvcc at
-first use.
+PyTorch/CUDA port; its CUDA sources (`csrc/*.cu`) are built with nvcc and
+its host sources (`native/*.cc`) with g++ at first use. Its console
+scripts are `rnb-neus2-torch` (the pipeline) and `rnb-neus2-torch-testbed`
+(the testbed CLI).
 """
 
 from setuptools import find_packages, setup
@@ -18,7 +20,8 @@ setup(
                                     "rnb_neus2_torch", "rnb_neus2_torch.*"]),
     py_modules=["run_pipeline"],
     package_data={"rnb_neus2_tpu": ["configs/*/*.json"],
-                  "rnb_neus2_torch": ["csrc/*.cu"]},
+                  "rnb_neus2_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                      "native/*.cc", "configs/*/*.json"]},
     python_requires=">=3.10",
     install_requires=[
         "numpy",
@@ -33,6 +36,8 @@ setup(
         "console_scripts": [
             "rnb-neus2=run_pipeline:main",
             "rnb-neus2-testbed=rnb_neus2_tpu.cli.testbed:main",
+            "rnb-neus2-torch=rnb_neus2_torch.cli.run_pipeline:main",
+            "rnb-neus2-torch-testbed=rnb_neus2_torch.cli.testbed:main",
         ],
     },
 )

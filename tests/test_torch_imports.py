@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: no source of `rnb_neus2_torch` or
-`chip_smoke.py` imports JAX or the JAX package, the whole package imports
-with both blocked, and `chip_smoke.py` fails without a card or without
-the package beside it."""
+`chip_smoke.py` imports JAX, the JAX package or a library the card's host
+lacks (`cv2`, `msgpack`, `PIL`, `trimesh`, `pyalicevision`); the whole
+package imports with all of them blocked, and so do the two CLIs'
+`--help`; `chip_smoke.py` fails without a card or without the package
+beside it."""
 
 import re
 import shutil
@@ -14,9 +16,12 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "rnb_neus2_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+BLOCKED = ("jax", "flax", "optax", "cv2", "msgpack", "PIL", "trimesh",
+           "pyalicevision", "rnb_neus2_tpu")
 FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|flax|optax|rnb_neus2_tpu)\b"
-    r"|from\s+(jax|flax|optax|rnb_neus2_tpu)\b)", re.M)
+    rf"^\s*(import\s+({'|'.join(BLOCKED)})\b"
+    rf"|from\s+({'|'.join(BLOCKED)})\b)", re.M)
+BLOCK = f"import sys\nfor m in {BLOCKED!r}:\n    sys.modules[m] = None\n"
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
@@ -28,15 +33,24 @@ def test_package_imports_with_jax_blocked():
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in (ROOT / "rnb_neus2_torch").rglob("*.py"))
-    code = ("import sys\n"
-            "for m in ('jax', 'flax', 'optax', 'cv2', 'rnb_neus2_tpu'):\n"
-            "    sys.modules[m] = None\n"
-            f"import importlib\nfor m in {modules!r}:\n"
+    code = (BLOCK + f"import importlib\nfor m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "import chip_smoke\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("cli", ["testbed", "run_pipeline"])
+def test_cli_help_with_libraries_blocked(cli):
+    code = (BLOCK + "import runpy\n"
+            "sys.argv = ['x', '--help']\n"
+            f"runpy.run_module('rnb_neus2_torch.cli.{cli}', "
+            "run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--device" in out.stdout
 
 
 def test_chip_smoke_fails_without_card_or_package(tmp_path):
