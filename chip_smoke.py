@@ -97,31 +97,59 @@ Phases, each printing JSON lines with `elapsed_s`:
    `write_prepared_scene`; `load_transform_json` matches `sphere_dataset`
    within the 16-bit quantization (origins 1e-5, normals in the mask
    5e-3, the same mask). Then `python -m rnb_neus2_torch.cli.testbed
-   --scene D --maxiter 64 --save-snapshot --save-mesh --resolution 256`
-   as a subprocess: exit 0, its `iteration=64` line, both files. Its
+   --scene D --maxiter 300 --save-snapshot --save-mesh --resolution 256
+   --trace-steps 16 --render-path P --render-frames 8` as a subprocess
+   (P: a camera path between training views 0 and 4; the trace covers
+   steps 256-271, one 16-step chunk): exit 0, its `iteration=300` line,
+   both files; its Chrome trace names both kernels'
+   CUDA functions and the trainer's spans; 8 RGBA PNGs of 256x256 whose
+   first and last differ; and the count of metric reads it prints equals
+   that of the same loop run on the CPU with the step body, the refresh
+   and the read replaced by counters (the port's schedule). Its
    snapshot restored in this process into a fresh `Trainer` of the same
    flags equals the file bit for bit (parameters, Adam moments, steps and
    count, EMA, the float16 grid, its bitfield against min(0.1, mean), the
    refresh count, step, ray count, the loss and eikonal EMAs, the
    generator), and one more step gives a finite loss. Prints the
    snapshot's bytes, write and read seconds, the PNG decode ms per view
-   (the scene's 256x256 files and one 612x512 view) and the CLI's
-   ms/step.
+   (the scene's 256x256 files and one 612x512 view), the CLI's ms/step,
+   the trace's size and kernel count and the fly-through's seconds.
 12. pipeline: the sphere as an IDR input (cameras.npz, normal/, albedo/,
    mask/ PNGs; `write_idr_scene`) through `run_full_pipeline` in this
    process on the card: load, prepare (silhouette scaling), stage 1 to
    step 400, stage 2 resumed from its snapshot with --opti-lights to 600
-   (all 14 levels from step 411), the mesh at 512, the largest component.
-   Launch counts zeroed just before and read just after: `hash_grad_small`
-   twice per `train_step` call, `scatter_add` between 1 and 12 per call;
-   rollbacks are counted and reported. mesh.obj reads back with
+   (all 14 levels from step 411, except in a 16-step chunk that started
+   below that bucket), the mesh at 512, the largest component. The CLI
+   trains through `Trainer.train_steps` (metrics read every 25 steps, or
+   every two 16-step chunks from step 256); every step body and chunk is
+   recorded with its level bucket. Launch counts zeroed just before and
+   read just after: `hash_grad_small` twice per step, `scatter_add` once
+   for each other level of the step's bucket; rollbacks are counted and
+   reported. mesh.obj reads back with
    `load_obj`, and its median vertex radius about the sphere's world
    centre lies within a voxel (at 512) of the world radius. The input's
    albedos carry a per-view scale (1 + 0.01 i); albedo ratios on that
    mesh and the prepared albedos are finite and positive (the line
    prints ratio × scale, which would be flat), and the scaled albedos
    are written. Prints seconds per stage, ms/step
-   through the CLI loop, snapshot and OBJ write seconds, peak memory.
+   through the CLI loop, metric reads, snapshot and OBJ write seconds,
+   peak memory.
+13. render and Testbed: right after phase 10, while the phase-7 trainer
+   lives, the host syncs of its step: `torch.cuda.set_sync_debug_mode`
+   counts the synchronizing calls of 16 `train_step_async` steps, of a
+   32-step `train_steps` call with its one read, and of one
+   `_consume_metrics`. Then the renderer on its EMA field at all 14 levels
+   (`render_view`): view 0 at 256x256 (silhouette IoU against the
+   dataset's alpha ≥ 0.9; depth inside the silhouette within (0.5, 3.0)),
+   the same view at 512x612 with the focal length scaled per axis to keep
+   the field of view (coverage within 0.01 of the 256x256 one), ms per
+   frame, rays/s and peak memory for each; and a 32x32 crop of rays from
+   the CPU rendered on the card and by the CPU port on the same
+   parameters and bitfield (`render_rays`): albedo, alpha and depth within
+   1e-4, alpha x normal within 1e-4. After phase 12, the Python `Testbed`
+   on the card on the phase-11 scene: 16 `frame()`s, `render_to_cpu`,
+   `compute_marching_cubes_mesh` at 128, and `save_snapshot` /
+   `load_snapshot` into a second `Testbed`, equal to the file bit for bit.
 
 Then one JSON line with every kernel's numbers (the main path's launches,
 and the pipeline's), and as the last line {"ok": true, "device": {...}}.
@@ -152,7 +180,9 @@ TRAIN_STEPS = 440              # bucket 14 from step 411
 FULL_LEVEL_STEPS = 20          # at least this many final steps at 14 levels
 EXACT_STEPS = 20
 LOG_EVERY = 20
-CLI_STEPS = 64
+CLI_STEPS = 300
+TRACE_STEPS = 16               # the CLI's traced window, steps 256-271
+FLY_FRAMES = 8
 PIPELINE_STEPS = 600           # stage 1 to 400, stage 2 to 600
 SPHERE = dict(n_views=16, width=256, height=256, radius=0.25)
 
@@ -767,101 +797,190 @@ def _floats(pattern: str, text: str) -> list:
     return [float(m) for m in re.findall(pattern, text)]
 
 
-def cli_phase(torch, dev, card) -> dict:
+def dry_metric_reads(argv) -> int:
+    """The metric reads of the CLI's loop for `argv`, run in this process
+    on the CPU with the step body, the occupancy refresh and the read
+    replaced by counters (only the step and the error map's counters
+    advance); the flags that act after the loop are dropped."""
+    from rnb_neus2_torch.cli import testbed
+    from rnb_neus2_torch.train.trainer import Trainer
+
+    after = {"--save-snapshot": 0, "--save-mesh": 0, "--render-path": 1,
+             "--render-frames": 1}
+    dry, i = [], 0
+    while i < len(argv):
+        if argv[i] in after:
+            i += 1 + after[argv[i]]
+            continue
+        dry.append(argv[i])
+        i += 1
+    reads = []
+    saved = {k: getattr(Trainer, k) for k in (
+        "_step_body", "refresh_occupancy", "_consume_metrics")}
+    Trainer._step_body = lambda self, n_rays, n_active: {}
+    Trainer.refresh_occupancy = lambda self, n_active: None
+    Trainer._consume_metrics = lambda self, m: reads.append(self.step) or {}
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = testbed.main(dry + ["--device", "cpu"])
+    finally:
+        for k, v in saved.items():
+            setattr(Trainer, k, v)
+    if rc != 0:
+        raise AssertionError(f"the dry CLI loop exited {rc}")
+    return len(reads)
+
+
+def check_trace(path: Path) -> dict:
+    """The Chrome trace of the CLI's --trace-steps: both kernels' CUDA
+    functions and the trainer's spans are in it."""
+    trace = json.loads(path.read_text())
+    events = trace["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in e.get("name", "") for e in kernels)
+             for k in ("hash_grad_small_kernel", "scatter_add_kernel")}
+    spans = ("occupancy_refresh", "sample_and_march", "field_forward",
+             "loss", "backward", "optimizer")
+    row = {"trace_bytes": path.stat().st_size, "trace_events": len(events),
+           "trace_kernels": len(kernels), "trace_kernel_launches": found,
+           "trace_spans_missing": [n for n in spans if n not in names]}
+    if not all(found.values()) or row["trace_spans_missing"]:
+        raise AssertionError(f"the trace lacks kernels or spans: {row}")
+    return row
+
+
+def cli_phase(torch, dev, card, work: Path) -> dict:
     """Phase 11: the testbed CLI in a subprocess on a scene written to
-    disk, and its snapshot restored here bit for bit."""
+    disk under `work` (kept for phase 13), with a trace and a fly-through,
+    and its snapshot restored here bit for bit."""
     import numpy as np
     from rnb_neus2_torch import interop
     from rnb_neus2_torch.cli import testbed
     from rnb_neus2_torch.io import image_io, png
     from rnb_neus2_torch.io.dataset import load_transform_json
+    from rnb_neus2_torch.render.camera_path import CameraKeyframe, CameraPath
     from rnb_neus2_torch.testing.synthetic import (sphere_dataset,
                                                    write_prepared_scene)
     from rnb_neus2_torch.train import snapshot as snap
     from rnb_neus2_torch.train.trainer import Trainer
 
-    with tempfile.TemporaryDirectory() as d:
-        scene = Path(d) / "scene"
-        t0 = time.perf_counter()
-        write_prepared_scene(str(scene), **SPHERE)
-        t1 = time.perf_counter()
-        files = sorted(scene.glob("*/*.png"))
-        for f in files:
-            image_io.load_image_raw16(f)
-        t2 = time.perf_counter()
-        big = np.random.default_rng(0).integers(
-            0, 65536, (612, 512, 4), dtype=np.uint16)
-        big[..., :3] = np.sort(big[..., :3], axis=1)
-        png.write_png(Path(d) / "big.png", big)
-        t3 = time.perf_counter()
-        for _ in range(5):
-            if not np.array_equal(png.read_png(Path(d) / "big.png"), big):
-                raise AssertionError("the 612x512 PNG does not read back")
-        t4 = time.perf_counter()
-        ds = load_transform_json(str(scene), dev)
-        t5 = time.perf_counter()
-        mem = sphere_dataset(**SPHERE)
-        inside = mem.alpha_normal.numpy() > 0.5
-        row = {
-            "views": SPHERE["n_views"], "png_files": len(files),
-            "scene_write_s": t1 - t0,
-            "png_decode_ms_per_view_256": 1e3 * (t2 - t1) / len(files) * 2,
-            "png_decode_ms_612x512_rgba16": 1e3 * (t4 - t3) / 5,
-            "load_transform_json_s": t5 - t4,
-            "origin_err": float(np.abs(ds.cameras.origin.cpu().numpy()
-                                       - mem.cameras.origin.numpy()).max()),
-            "normal_err_in_mask": float(np.abs(
-                ds.normals.cpu().numpy()[inside]
-                - mem.normals.numpy()[inside]).max()),
-            "mask_equal": bool(np.array_equal(
-                ds.alpha_normal.cpu().numpy() > 0.5, inside)),
-        }
-        if not (row["origin_err"] < 1e-5 and row["normal_err_in_mask"]
-                < 5e-3 and row["mask_equal"]):
-            log("cli", **row)
-            raise AssertionError("the written scene does not load back as "
-                                 "the sphere")
-        argv = ["--scene", str(scene), "--maxiter", str(CLI_STEPS),
-                "--save-snapshot", "--save-mesh", "--resolution", "256"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "rnb_neus2_torch.cli.testbed", *argv],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        row["cli_s"] = time.perf_counter() - t0
-        print(proc.stdout[-4000:], proc.stderr[-4000:], flush=True)
-        out = scene / "output"
-        path = out / f"snapshot_{CLI_STEPS}.msgpack"
-        if proc.returncode != 0 \
-                or f"iteration={CLI_STEPS} loss=" not in proc.stdout \
-                or not path.exists() \
-                or not (out / f"mesh_{CLI_STEPS}.obj").exists():
-            log("cli", returncode=proc.returncode, **row)
-            raise AssertionError("the CLI run failed")
-        row["cli_ms_per_step"] = _floats(r"\(([\d.]+) ms/step\)",
-                                         proc.stdout)[0]
-        row["snapshot_write_s"] = _floats(r"Wrote \d+ bytes in ([\d.]+) s",
-                                          proc.stdout)[0]
-        row["snapshot_bytes"] = path.stat().st_size
-        t0 = time.perf_counter()
-        data = snap.load_snapshot(str(path))
-        row["snapshot_read_s"] = time.perf_counter() - t0
-        cfg = testbed.make_config(testbed.build_argparser().parse_args(argv))
-        tr = Trainer(ds, cfg, device=dev)
-        t0 = time.perf_counter()
-        snap.restore_trainer(tr, data)
-        torch.cuda.synchronize()
-        row["restore_s"] = time.perf_counter() - t0
-        differ = _restore_differences(torch, interop, tr, data)
-        row["restored_step"] = tr.step
-        row["differ"] = differ
-        m = tr.train_step()
-        torch.cuda.synchronize()
-        row["next_loss_total"] = m["loss_total"]
-        row["card"] = card
+    scene = work / "scene"
+    t0 = time.perf_counter()
+    write_prepared_scene(str(scene), **SPHERE)
+    t1 = time.perf_counter()
+    files = sorted(scene.glob("*/*.png"))
+    for f in files:
+        image_io.load_image_raw16(f)
+    t2 = time.perf_counter()
+    big = np.random.default_rng(0).integers(
+        0, 65536, (612, 512, 4), dtype=np.uint16)
+    big[..., :3] = np.sort(big[..., :3], axis=1)
+    png.write_png(work / "big.png", big)
+    t3 = time.perf_counter()
+    for _ in range(5):
+        if not np.array_equal(png.read_png(work / "big.png"), big):
+            raise AssertionError("the 612x512 PNG does not read back")
+    t4 = time.perf_counter()
+    ds = load_transform_json(str(scene), dev)
+    t5 = time.perf_counter()
+    mem = sphere_dataset(**SPHERE)
+    inside = mem.alpha_normal.numpy() > 0.5
+    row = {
+        "views": SPHERE["n_views"], "png_files": len(files),
+        "scene_write_s": t1 - t0,
+        "png_decode_ms_per_view_256": 1e3 * (t2 - t1) / len(files) * 2,
+        "png_decode_ms_612x512_rgba16": 1e3 * (t4 - t3) / 5,
+        "load_transform_json_s": t5 - t4,
+        "origin_err": float(np.abs(ds.cameras.origin.cpu().numpy()
+                                   - mem.cameras.origin.numpy()).max()),
+        "normal_err_in_mask": float(np.abs(
+            ds.normals.cpu().numpy()[inside]
+            - mem.normals.numpy()[inside]).max()),
+        "mask_equal": bool(np.array_equal(
+            ds.alpha_normal.cpu().numpy() > 0.5, inside)),
+    }
+    if not (row["origin_err"] < 1e-5 and row["normal_err_in_mask"]
+            < 5e-3 and row["mask_equal"]):
         log("cli", **row)
-        if differ or not math.isfinite(m["loss_total"]):
-            raise AssertionError(f"the CLI's snapshot did not restore bit "
-                                 f"for bit: {differ}")
+        raise AssertionError("the written scene does not load back as "
+                             "the sphere")
+    rot = ds.cameras.rot_c2w.cpu().numpy()
+    org = ds.cameras.origin.cpu().numpy()
+    cam_path = work / "path.json"
+    CameraPath([CameraKeyframe.from_matrix(
+        np.concatenate([rot[i], org[i][:, None]], axis=1))
+        for i in (0, 4)]).save(str(cam_path))
+    argv = ["--scene", str(scene), "--maxiter", str(CLI_STEPS),
+            "--save-snapshot", "--save-mesh", "--resolution", "256",
+            "--trace-steps", str(TRACE_STEPS), "--render-path",
+            str(cam_path), "--render-frames", str(FLY_FRAMES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rnb_neus2_torch.cli.testbed", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    row["cli_s"] = time.perf_counter() - t0
+    print(proc.stdout[-4000:], proc.stderr[-4000:], flush=True)
+    out = scene / "output"
+    path = out / f"snapshot_{CLI_STEPS}.msgpack"
+    if proc.returncode != 0 \
+            or f"iteration={CLI_STEPS} loss=" not in proc.stdout \
+            or not path.exists() \
+            or not (out / f"mesh_{CLI_STEPS}.obj").exists():
+        log("cli", returncode=proc.returncode, **row)
+        raise AssertionError("the CLI run failed")
+    row["cli_ms_per_step"] = _floats(r"\(([\d.]+) ms/step",
+                                     proc.stdout)[0]
+    # the same without the profiled window
+    row["trace_s"] = _floats(r"trace to \S+ in ([\d.]+) s",
+                             proc.stdout)[0]
+    row["cli_ms_per_step_untraced"] = (
+        row["cli_ms_per_step"] * CLI_STEPS - 1e3 * row["trace_s"]) \
+        / (CLI_STEPS - TRACE_STEPS)
+    row["metric_reads"] = int(_floats(r"([\d]+) metric reads",
+                                      proc.stdout)[0])
+    row.update(check_trace(out / "trace" / "trace.json"))
+    row["metric_reads_schedule"] = dry_metric_reads(
+        argv + ["--trace-dir", str(work / "dry_trace")])
+    frames = [png.read_png(out / "flythrough" / f"{i:05d}.png")
+              for i in range(FLY_FRAMES)]
+    row["flythrough_s"] = _floats(r"fly-through frames to \S+ in "
+                                  r"([\d.]+) s", proc.stdout)[0]
+    row["flythrough_endpoint_diff"] = int(np.abs(
+        frames[0].astype(int) - frames[-1].astype(int)).max())
+    row["flythrough_alpha_mean"] = [float(f[..., 3].mean() / 255)
+                                    for f in frames]
+    if row["metric_reads"] != row["metric_reads_schedule"] \
+            or len(frames) != FLY_FRAMES \
+            or any(f.shape != (256, 256, 4) or f.dtype != np.uint8
+                   for f in frames) \
+            or not row["flythrough_endpoint_diff"]:
+        log("cli", **row)
+        raise AssertionError("the CLI's reads, trace or fly-through "
+                             "failed")
+    row["snapshot_write_s"] = _floats(r"Wrote \d+ bytes in ([\d.]+) s",
+                                      proc.stdout)[0]
+    row["snapshot_bytes"] = path.stat().st_size
+    t0 = time.perf_counter()
+    data = snap.load_snapshot(str(path))
+    row["snapshot_read_s"] = time.perf_counter() - t0
+    cfg = testbed.make_config(testbed.build_argparser().parse_args(argv))
+    tr = Trainer(ds, cfg, device=dev)
+    t0 = time.perf_counter()
+    snap.restore_trainer(tr, data)
+    torch.cuda.synchronize()
+    row["restore_s"] = time.perf_counter() - t0
+    differ = _restore_differences(torch, interop, tr, data)
+    row["restored_step"] = tr.step
+    row["differ"] = differ
+    m = tr.train_step()
+    torch.cuda.synchronize()
+    row["next_loss_total"] = m["loss_total"]
+    row["card"] = card
+    log("cli", **row)
+    if differ or not math.isfinite(m["loss_total"]):
+        raise AssertionError(f"the CLI's snapshot did not restore bit "
+                             f"for bit: {differ}")
     return row
 
 
@@ -915,6 +1034,7 @@ def pipeline_phase(torch, kernels, card) -> dict:
     in this process, with the kernels' launches counted."""
     import numpy as np
     from rnb_neus2_torch.cli import pipeline
+    from rnb_neus2_torch.config import HashGridConfig
     from rnb_neus2_torch.io.albedo_scaling import (
         compute_albedo_scale_ratios, scale_and_save_albedos)
     from rnb_neus2_torch.mesh.writer import load_obj
@@ -922,8 +1042,10 @@ def pipeline_phase(torch, kernels, card) -> dict:
     from rnb_neus2_torch.train.trainer import Trainer
 
     world_center = np.array([0.2, -0.1, 0.3])
-    stages, steps = [], []
-    real_stage, real_step = pipeline.run_testbed, Trainer.train_step
+    stages, steps, chunks, reads = [], [], [], []
+    real = {k: getattr(Trainer, k) for k in (
+        "_step_body", "_run_chunk", "_consume_metrics")}
+    real_stage = pipeline.run_testbed
 
     def timed_stage(*a, **k):
         t0 = time.perf_counter()
@@ -932,10 +1054,21 @@ def pipeline_phase(torch, kernels, card) -> dict:
         stages.append({"stage": a[3], "maxiter": a[1],
                        "seconds": time.perf_counter() - t0})
 
-    def counted_step(self):
-        m = real_step(self)
-        steps.append((int(m["n_levels_run"]), "rolled_back" in m))
-        return m
+    def counted_body(self, n_rays, n_active):
+        steps.append((self.step, n_active))
+        return real["_step_body"](self, n_rays, n_active)
+
+    def counted_chunk(self, n_rays, n_active, chunk):
+        chunks.append((self.step, n_active))
+        return real["_run_chunk"](self, n_rays, n_active, chunk)
+
+    def counted_read(self, metrics):
+        out = real["_consume_metrics"](self, metrics)
+        reads.append((self.step, "rolled_back" in out))
+        return out
+
+    counted = {"_step_body": counted_body, "_run_chunk": counted_chunk,
+               "_consume_metrics": counted_read}
 
     with tempfile.TemporaryDirectory() as d:
         root = Path(d)
@@ -943,7 +1076,9 @@ def pipeline_phase(torch, kernels, card) -> dict:
         r_world = write_idr_scene(str(root / "in"), world_center=world_center,
                                   albedo_scales=scales, **SPHERE)
         tee = _Tee(sys.stdout)
-        pipeline.run_testbed, Trainer.train_step = timed_stage, counted_step
+        pipeline.run_testbed = timed_stage
+        for k, fn in counted.items():
+            setattr(Trainer, k, fn)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for k in kernels.values():
@@ -957,11 +1092,22 @@ def pipeline_phase(torch, kernels, card) -> dict:
                     device="cuda")
             torch.cuda.synchronize()
         finally:
-            pipeline.run_testbed, Trainer.train_step = real_stage, real_step
+            pipeline.run_testbed = real_stage
+            for k, fn in real.items():
+                setattr(Trainer, k, fn)
         total = time.perf_counter() - t0
         launches = {name: k.launches for name, k in kernels.items()}
         text = tee.buf.getvalue()
-        calls = len(steps)
+        n_steps = len(steps)
+        from rnb_neus2_torch.ops import hash_encoding as he
+        static = he.HashGridStatic(HashGridConfig())
+        want = {"hash_grad_small": sum(
+            len(he.levels_through_kernel(static, n)) for _, n in steps)}
+        want["scatter_add"] = sum(n for _, n in steps) \
+            - want["hash_grad_small"]
+        # steps whose chunk holds a smaller bucket than the step's own
+        held = [s for s, n in steps if n < min(
+            b for b in (4, 9, 14) if b >= HashGridConfig().valid_levels(s))]
         prepared = root / "out" / "prepared_data"
         with open(prepared / "transform.json") as f:
             n2w_scale = json.load(f)["n2w"][0][0]
@@ -977,11 +1123,17 @@ def pipeline_phase(torch, kernels, card) -> dict:
                                str(root / "scaled"), ratios)
         t3 = time.perf_counter()
         row = {
-            "steps": PIPELINE_STEPS, "train_step_calls": calls,
-            "rollbacks": sum(rb for _, rb in steps),
-            "steps_at_14_levels": sum(n == 14 for n, _ in steps),
-            "launches": launches, "stages": stages, "total_s": total,
-            "ms_per_step_cli": _floats(r"\(([\d.]+) ms/step\)", text),
+            "steps": PIPELINE_STEPS, "step_bodies": n_steps,
+            "chunks": len(chunks), "chunk_starts": [c for c, _ in chunks],
+            "metric_reads": len(reads),
+            "rollbacks": sum(rb for _, rb in reads),
+            "steps_at_14_levels": sum(n == 14 for _, n in steps),
+            "steps_held_below_their_bucket": held,
+            "launches": launches, "launches_expected": want,
+            "stages": stages, "total_s": total,
+            "ms_per_step_cli": _floats(r"\(([\d.]+) ms/step", text),
+            "metric_reads": [int(v) for v in _floats(r"(\d+) metric reads",
+                                                     text)],
             "snapshot_write_s": _floats(r"Wrote \d+ bytes in ([\d.]+) s",
                                         text),
             "mesh_extract_and_write_s": re.findall(
@@ -997,10 +1149,9 @@ def pipeline_phase(torch, kernels, card) -> dict:
             "scaled_albedos": len(list((root / "scaled").glob("*.png"))),
             "card": card}
     log("pipeline", **row)
-    if launches["hash_grad_small"] != 2 * calls \
-            or not 0 < launches["scatter_add"] <= 12 * calls:
-        raise AssertionError(f"kernel launches {launches} in {calls} "
-                             "train_step calls")
+    if launches != want or launches["hash_grad_small"] != 2 * n_steps:
+        raise AssertionError(f"kernel launches {launches} in {n_steps} "
+                             f"steps; want {want}")
     if row["steps_at_14_levels"] == 0:
         raise AssertionError("stage 2 never ran all 14 levels")
     if not (len(F) and abs(radius - r_world) <= voxel):
@@ -1009,6 +1160,169 @@ def pipeline_phase(torch, kernels, card) -> dict:
     if not (np.isfinite(ratios).all() and (ratios > 0).all()
             and row["scaled_albedos"] == SPHERE["n_views"]):
         raise AssertionError("albedo scaling failed")
+    return row
+
+
+def host_syncs(torch, tr) -> dict:
+    """Phase 13: the synchronizing CUDA calls of the trained run's steps,
+    counted with `torch.cuda.set_sync_debug_mode("warn")`: 16
+    `train_step_async` steps (no read), their one `_consume_metrics`, and
+    a `train_steps(32, sync_every=32)` call. Each count lists the source
+    lines that synchronized."""
+    import warnings
+
+    def count(fn):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                result = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        where = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message)]
+        return result, {"syncs": len(where),
+                        "sources": sorted(set(where))}
+
+    step0 = tr.step
+    pending, async_row = count(
+        lambda: [tr.train_step_async() for _ in range(16)][-1])
+    _, read_row = count(lambda: tr._consume_metrics(pending))
+    step1 = tr.step
+    _, steps_row = count(lambda: tr.train_steps(32, sync_every=32))
+    row = {"steps_async": [step0, step1], "async_16_steps": async_row,
+           "consume_metrics": read_row,
+           "train_steps_32": {"steps": [step1, tr.step], **steps_row}}
+    log("host_syncs", **row)
+    return row
+
+
+def render_phase(torch, tr, card) -> dict:
+    """Phase 13: the renderer on the trained run's EMA field on the card,
+    against the dataset's silhouette, at 512x612, and against the CPU
+    port on a crop of rays."""
+    import numpy as np
+    from rnb_neus2_torch.geom.camera import rays_from_pixels
+    from rnb_neus2_torch.mesh.extract import _bind
+    from rnb_neus2_torch.render import renderer
+
+    field = _bind(tr.field, tr.inference_params)
+    cams = tr.dataset.cameras
+    bit, march = tr.occ.bitfield, tr.cfg.march
+
+    def timed(cams_v, reps=3):
+        renderer.render_view(field, None, cams_v, 0, bit, march)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = renderer.render_view(field, None, cams_v, 0, bit, march)
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        W, H = cams_v.resolution
+        return out, {"W": W, "H": H, "tiles": -(-W * H // 4096),
+                     "ms_per_frame": ms, "rays_per_s": W * H / ms * 1e3,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                     "memory_before": base,
+                     "alpha_mean": float(out["alpha"].mean()),
+                     "finite": bool(all(np.isfinite(v).all()
+                                        for v in out.values()))}
+
+    small, row_small = timed(cams)
+    gt = tr.dataset.alpha_normal[0].cpu().numpy() > 0.5
+    pred = small["alpha"] > 0.5
+    row_small["silhouette_iou"] = float((gt & pred).sum()
+                                        / max((gt | pred).sum(), 1))
+    depth = small["depth"][pred]
+    row_small["depth_in_silhouette"] = [float(depth.min()),
+                                        float(depth.max())]
+    W, H = 512, 612
+    scale = torch.tensor([W / cams.resolution[0], H / cams.resolution[1]],
+                         device=cams.focal.device)
+    big_cams = cams._replace(focal=cams.focal * scale, resolution=(W, H))
+    _, row_big = timed(big_cams)
+    # a 32x32 crop at the centre of view 0: rays made on the CPU, rendered
+    # on the card and by the CPU port
+    ys, xs = np.mgrid[112:144, 112:144]
+    xy = torch.tensor(np.stack([(xs.ravel() + 0.5) / 256,
+                                (ys.ravel() + 0.5) / 256], 1),
+                      dtype=torch.float32)
+    o, d = rays_from_pixels(cams.to("cpu"), torch.zeros(1024,
+                                                        dtype=torch.int64),
+                            xy)
+    on_card = [t.cpu() for t in renderer.render_rays(
+        field, o.to(bit.device), d.to(bit.device), bit, march)]
+    t0 = time.perf_counter()
+    on_cpu = renderer.render_rays(_bind(tr.field, tr.inference_params)
+                                  .to("cpu"), o, d, bit.cpu(), march)
+    cpu_s = time.perf_counter() - t0
+    names = ("albedo", "depth", "alpha")
+    errs = {n: float((a - b).abs().max())
+            for n, a, b in zip(names, on_card, on_cpu)}
+    errs["alpha_x_normal"] = float((on_cpu[2][:, None] * (
+        on_card[3] - on_cpu[3])).abs().max())
+    crop = {"max_abs_err": errs, "tol": 1e-4, "cpu_s": cpu_s,
+            "alpha_mean": float(on_cpu[2].mean())}
+    row = {"res256": row_small, "res512x612": row_big, "crop32": crop,
+           "card": card}
+    log("render", **row)
+    if not (row_small["finite"] and row_big["finite"]
+            and row_small["silhouette_iou"] >= 0.9
+            and 0.5 < row_small["depth_in_silhouette"][0]
+            and row_small["depth_in_silhouette"][1] < 3.0
+            and abs(row_big["alpha_mean"] - row_small["alpha_mean"]) < 0.01
+            and max(errs.values()) <= 1e-4 and crop["alpha_mean"] > 0.1):
+        raise AssertionError(f"the render of the trained sphere failed: "
+                             f"{row}")
+    return row
+
+
+def testbed_phase(torch, dev, card, work: Path) -> dict:
+    """Phase 13: the Python `Testbed` on the card on the phase-11 scene."""
+    import numpy as np
+    from rnb_neus2_torch import api, interop
+    from rnb_neus2_torch.train import snapshot as snap
+
+    scene = str(work / "scene")
+    t = [time.perf_counter()]
+    tb = api.Testbed(api.TestbedMode.Nerf, device=dev)
+    tb.load_training_data(scene)
+    t.append(time.perf_counter())
+    frames = sum(tb.frame() for _ in range(16))
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    img = tb.render_to_cpu(0)
+    t.append(time.perf_counter())
+    m = tb.compute_marching_cubes_mesh((128, 128, 128))
+    t.append(time.perf_counter())
+    path = work / "testbed.msgpack"
+    tb.save_snapshot(str(path))
+    tb2 = api.Testbed(api.TestbedMode.Nerf, device=dev)
+    tb2.load_training_data(scene)
+    tb2.load_snapshot(str(path))
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    differ = _restore_differences(torch, interop, tb2._trainer,
+                                  snap.load_snapshot(str(path)))
+    differ += [k for k, p in tb._trainer.params.items()
+               if not torch.equal(p, tb2._trainer.params[k])]
+    row = {"frames": frames, "step": tb.training_step, "loss": tb.loss,
+           "n_params": tb.n_params(), "image_shape": list(img.shape),
+           "image_finite": bool(np.isfinite(img).all()),
+           "mesh_vertices": len(m["V"]), "mesh_faces": len(m["F"]),
+           "snapshot_bytes": path.stat().st_size, "differ": differ,
+           "seconds": {k: b - a for k, a, b in zip(
+               ("load", "16_frames", "render_to_cpu", "mesh_128",
+                "snapshot_save_and_load"), t, t[1:])},
+           "card": card}
+    log("testbed", **row)
+    if not (frames == 16 and tb2.training_step == 16 and not differ
+            and row["image_finite"] and img.shape == (256, 256, 4)
+            and len(m["F"]) and np.isfinite(m["V"]).all()
+            and math.isfinite(tb.loss)):
+        raise AssertionError(f"the Testbed phase failed: {row}")
     return row
 
 
@@ -1105,13 +1419,17 @@ def main() -> int:
     forced_rollback(torch, tr)
     mesh_export(torch, tr, card)
     chamfer_protocol(torch, dev, card)
+    host_syncs(torch, tr)
+    render_phase(torch, tr, card)
     del tr, tr_exact, inputs
     torch.cuda.empty_cache()
-    cli_phase(torch, dev, card)
-    piped = pipeline_phase(torch, kernels, card)
+    with tempfile.TemporaryDirectory() as work:
+        cli_phase(torch, dev, card, Path(work))
+        piped = pipeline_phase(torch, kernels, card)
+        testbed_phase(torch, dev, card, Path(work))
     for row in rows:
         row["launches_pipeline"] = piped["launches"][row["name"]]
-        row["pipeline_train_step_calls"] = piped["train_step_calls"]
+        row["pipeline_steps"] = piped["step_bodies"]
     log("done", card=card, total_s=time.perf_counter() - T0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

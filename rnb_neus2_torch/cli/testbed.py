@@ -6,13 +6,14 @@ with the reference executable (src/main.cu:90-258):
       [--relu] [--opti-lights] [--no-albedo] [--save-mesh]
       [--save-snapshot] [--snapshot PATH] [--resolution R] [--save-each K]
       [--fractional-training N] [--free-memory] [--network CONFIG]
-      [--disable-snap-to-center] [--device cuda|cpu] ...
+      [--disable-snap-to-center] [--trace-steps N [--trace-dir D]]
+      [--render-path PATH.json [--render-frames N] [--render-scale S]]
+      [--device cuda|cpu] ...
 
 Every flag of the JAX CLI parses. The run is on the card unless `--device
 cpu` asks for the CPU. A flag whose feature the port does not have exits
-with code 2 and names it: `--n-chips` > 1 (data parallelism),
-`--trace-steps` (the device trace), `--render-path` (the fly-through) and
-any configuration `check_ported` refuses (the fp16 and rollover gradient
+with code 2 and names it: `--n-chips` > 1 (data parallelism) and any
+configuration `check_ported` refuses (the fp16 and rollover gradient
 emulations, among others). Nothing else runs in their place.
 
 Behaviour (main.cu:283-470): L2 unless --lone, RGB+ unless --no-rgbplus;
@@ -23,9 +24,16 @@ resumes the training state (main.cu:304-314); the mesh goes to
 rolling output/snapshot_latest.msgpack (and .prev), written off the loop,
 and skips a generation whose eikonal EMA creeps or whose loss diverged.
 
-The port steps with `Trainer.train_step`, which reads the metrics every
-step; the JAX CLI reads them every 25 steps (`train_steps(n,
-sync_every=25)`), a path that is not ported.
+The loop is the JAX CLI's: it trains to the next of maxiter, the next
+multiple of 100, the next --save-each and --snapshot-each step and the
+trace's start with `Trainer.train_steps(n, sync_every=25)`, which reads
+the metrics once per 25 dispatched steps (or per two 16-step chunks after
+step 256) and at the target. --trace-steps N profiles N steps from step
+min(max(256, start + 32), maxiter − N) with `torch.profiler` (the card's
+kernels and the trainer's spans) into a Chrome trace,
+<trace-dir or scene/output/trace>/trace.json. --render-path renders
+--render-frames views along a camera-path JSON (`render/camera_path.py`)
+after training, as 8-bit RGBA PNGs in <scene>/output/flythrough/.
 """
 
 from __future__ import annotations
@@ -107,11 +115,11 @@ def build_argparser():
                    help="write output/snapshot_latest.msgpack every N "
                         "steps (atomic; resume point)")
     p.add_argument("--trace-steps", type=int, default=0,
-                   help="a device trace of N steps (not ported)")
+                   help="a device trace of N steps")
     p.add_argument("--trace-dir", default="",
                    help="trace output dir (with --trace-steps)")
     p.add_argument("--render-path", default="",
-                   help="camera-path JSON for a fly-through (not ported)")
+                   help="camera-path JSON for a fly-through")
     p.add_argument("--render-frames", type=int, default=60,
                    help="frames along --render-path")
     p.add_argument("--render-scale", type=float, default=1.0,
@@ -195,10 +203,6 @@ def unported_flag(args) -> str:
     if args.n_chips > 1:
         return (f"--n-chips {args.n_chips}: data parallelism over several "
                 "devices is not ported")
-    if args.trace_steps:
-        return "--trace-steps: the device trace is not ported"
-    if args.render_path:
-        return "--render-path: the fly-through renderer is not ported"
     return ""
 
 
@@ -208,6 +212,7 @@ def run(args) -> int:
     from ..mesh import extract, writer
     from ..train import snapshot as snap
     from ..train.trainer import Trainer, check_ported
+    from ..utils.diagnostics import profile_trace
     from ..utils.meters import Logger
 
     logger = Logger()
@@ -252,11 +257,39 @@ def run(args) -> int:
                     f"{t1 - t0:.3f} s, write {time.perf_counter() - t1:.3f} "
                     "s)")
 
-    max_steps = cfg.train.max_steps
+    max_steps = args.maxiter
     snap_writer = None
+    trace_at = None
+    if args.trace_steps:
+        # a mid-run window, past the occupancy warm-up, so that the
+        # steady-state step is what the trace shows
+        trace_at = min(max(256, trainer.step + 32),
+                       max(max_steps - args.trace_steps, 0))
     start_step, t0 = trainer.step, time.perf_counter()
     while trainer.step < max_steps:
-        trainer.train_step()
+        if trace_at is not None and trainer.step >= trace_at:
+            tdir = args.trace_dir or os.path.join(out_dir, "trace")
+            n = min(args.trace_steps, max_steps - trainer.step)
+            t_trace = time.perf_counter()
+            with profile_trace(tdir, device):
+                trainer.train_steps(n, sync_every=max(n, 1))
+            logger.info(f"Wrote a {n}-step device trace to "
+                        f"{os.path.join(tdir, 'trace.json')} in "
+                        f"{time.perf_counter() - t_trace:.3f} s")
+            trace_at = None
+            continue
+        # to the next log, mesh, snapshot or trace boundary, with the
+        # metrics read once per 25 steps
+        boundaries = [max_steps, (trainer.step // 100 + 1) * 100]
+        if args.save_each:
+            boundaries.append(
+                (trainer.step // args.save_each + 1) * args.save_each)
+        if args.snapshot_each:
+            boundaries.append((trainer.step // args.snapshot_each + 1)
+                              * args.snapshot_each)
+        if trace_at is not None and trace_at > trainer.step:
+            boundaries.append(trace_at)
+        trainer.train_steps(min(boundaries) - trainer.step, sync_every=25)
         step = trainer.step
         if step % 100 == 0 or step >= max_steps:
             # reference `iteration=N loss=X` (main.cu:447-449), plus the
@@ -291,7 +324,8 @@ def run(args) -> int:
     seconds = time.perf_counter() - t0
     n = trainer.step - start_step
     logger.info(f"Trained {n} steps in {seconds:.3f} s "
-                f"({1e3 * seconds / max(n, 1):.2f} ms/step)")
+                f"({1e3 * seconds / max(n, 1):.2f} ms/step, "
+                f"{trainer.metric_reads} metric reads)")
 
     if snap_writer is not None:
         snap_writer.join()
@@ -305,7 +339,30 @@ def run(args) -> int:
         size = snap.save_snapshot(path, trainer)
         logger.info(f"Wrote {size} bytes in "
                     f"{time.perf_counter() - t0:.3f} s")
+    if args.render_path:
+        render_path(args, trainer, dataset, cfg, out_dir, logger)
     return 0
+
+
+def render_path(args, trainer, dataset, cfg, out_dir, logger) -> None:
+    """--render-path: `--render-frames` views along the camera path, each
+    through view 0's intrinsics, as 8-bit RGBA PNGs."""
+    from ..io.image_io import save_image
+    from ..render.camera_path import CameraPath
+    from ..render import renderer
+
+    frames_dir = os.path.join(out_dir, "flythrough")
+    os.makedirs(frames_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    frames = renderer.render_path(
+        trainer.field, trainer.inference_params, dataset.cameras,
+        trainer.occ.bitfield, CameraPath.load(args.render_path),
+        args.render_frames, cfg.march, render_scale=args.render_scale)
+    for i, rgba in enumerate(frames):
+        save_image(rgba, os.path.join(frames_dir, f"{i:05d}.png"),
+                   bit_depth=8)
+    logger.info(f"Rendered {args.render_frames} fly-through frames to "
+                f"{frames_dir} in {time.perf_counter() - t0:.3f} s")
 
 
 def main(argv=None) -> int:

@@ -33,6 +33,7 @@ optimization barrier, the corner-redundant rows-of-16 tables
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -51,6 +52,13 @@ SMALL_LEVEL_MAX_ENTRIES = 1 << 15
 # 3-bit counter — the JAX package's order
 CORNERS = np.array([[i & 1, (i >> 1) & 1, (i >> 2) & 1] for i in range(8)],
                    np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _corners(device: torch.device) -> torch.Tensor:
+    """CORNERS on `device`, copied there once: a copy from host memory on
+    every level of every step would make the host wait for it."""
+    return torch.as_tensor(CORNERS, device=device)
 
 
 def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
@@ -143,7 +151,7 @@ def _level_corner_arrays(positions: torch.Tensor, static: HashGridStatic,
     wrt the lattice fraction along d, products taken in the JAX package's
     order."""
     scale = float(static.scales[lvl])
-    corners = torch.as_tensor(CORNERS, device=positions.device)     # (8,3)
+    corners = _corners(positions.device)                            # (8,3)
     p = positions * scale + 0.5
     p0 = torch.floor(p)
     fr = p - p0

@@ -1,5 +1,6 @@
-"""Training-time ray marching as a fixed-shape ladder + global compaction
-(port of `rnb_neus2_tpu/ops/ray_march.py:194-383`).
+"""Ray marching as a fixed-shape ladder: global compaction for training,
+dense per-ray compaction for rendering (port of
+`rnb_neus2_tpu/ops/ray_march.py`).
 
 Both the occupied step and the empty-space skip of the reference's march
 (testbed_nerf.cu:1216-1387) keep t on one deterministic ladder
@@ -14,6 +15,10 @@ with the JAX package's float32 operations in the same order, so the march
 equals the JAX package's bit for bit. At cone 0 the two-phase blocked path
 runs: a dilated coarse-grid probe per 8-point block, then fine occupancy
 inside each ray's first NB = min(K/8, max(32, 2^20/R)) flagged blocks.
+
+`march` (the inference renderer's) keeps each ray's first M valid ladder
+points in order, an (R, M) layout; it too equals the JAX package's bit for
+bit. Cascaded occupancy (aabb_scale > 1) is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -41,6 +46,13 @@ class FlatSamples(NamedTuple):
     ray_kept: torch.Tensor   # (R,) ray survived the budget drop
 
 
+class MarchedRays(NamedTuple):
+    t: torch.Tensor        # (R, M) sample distances (ladder points)
+    dt: torch.Tensor       # (R, M) step sizes at those points
+    valid: torch.Tensor    # (R, M) sample exists
+    n_valid: torch.Tensor  # (R,) occupied-sample count (pre-truncation)
+
+
 def ladder_t_at(startt: torch.Tensor, k: torch.Tensor,
                 cone_angle: float) -> torch.Tensor:
     """Closed-form ladder point k (any int tensor broadcastable with
@@ -60,6 +72,13 @@ def ladder_t_at(startt: torch.Tensor, k: torch.Tensor,
     return torch.where(k < n0, t_const, t_geom)
 
 
+def t_ladder(startt: torch.Tensor, n_points: int,
+             cone_angle: float) -> torch.Tensor:
+    """(R,) start distances → (R, K) ladder; closed form, no scan."""
+    k = torch.arange(n_points, device=startt.device)[None, :]
+    return ladder_t_at(startt[:, None], k, cone_angle)
+
+
 def _step_size(t: torch.Tensor, cone_angle: float) -> torch.Tensor:
     return torch.clamp(t * cone_angle, MIN_CONE_STEPSIZE, MAX_CONE_STEPSIZE)
 
@@ -75,8 +94,7 @@ def _ladder_valid(ray_o, ray_d, bitfield, u_start, n_ladder, cone_angle):
     """(R, K) ladder t, dt, valid, the per-ray valid count, and startt."""
     lo, hi = 0.0, 1.0
     tmin, tmax, startt = _start(ray_o, ray_d, u_start, cone_angle, lo, hi)
-    k = torch.arange(n_ladder, device=ray_o.device)[None, :]
-    t = ladder_t_at(startt[:, None], k, cone_angle)          # (R, K)
+    t = t_ladder(startt, n_ladder, cone_angle)               # (R, K)
     dt = _step_size(t, cone_angle)
     pos = ray_o[:, None, :] + t[..., None] * ray_d[:, None, :]
     inside = torch.all((pos >= lo) & (pos <= hi), dim=-1)
@@ -101,6 +119,29 @@ def effective_ladder_points(n_ladder: int, cone_angle: float,
                if diag > t_switch else 0.0)
         need = int(n0 + math.ceil(geo))
     return min(n_ladder, max(need + 8, 1))   # +8 jitter/rounding margin
+
+
+def march(ray_o: torch.Tensor, ray_d: torch.Tensor, bitfield: torch.Tensor,
+          u_start: torch.Tensor, n_ladder: int, max_samples: int,
+          cone_angle: float, aabb_scale: float = 1.0) -> MarchedRays:
+    """Dense per-ray compaction: the first M valid samples of each ray, in
+    ladder order (the JAX package's order-preserving top-k; the keys are
+    distinct, so `torch.topk` picks the same indices). ray_d must be
+    unit-norm; the ladder is trimmed as in `march_flat`, which drops only
+    points that are never valid."""
+    if aabb_scale > 1.0:
+        raise ValueError("aabb_scale > 1 (cascaded occupancy) is not ported "
+                         "yet (ROADMAP.md)")
+    n_ladder = effective_ladder_points(n_ladder, cone_angle, aabb_scale)
+    max_samples = min(max_samples, n_ladder)
+    t, dt, valid, n_valid, _ = _ladder_valid(ray_o, ray_d, bitfield, u_start,
+                                             n_ladder, cone_angle)
+    k = torch.arange(n_ladder, device=ray_o.device)[None, :]
+    key = torch.where(valid, -k, -(n_ladder + k))        # valid sort first
+    sel = torch.topk(key, max_samples, dim=1, sorted=True).indices
+    take = lambda a: torch.gather(a, 1, sel)
+    return MarchedRays(t=take(t), dt=take(dt), valid=take(valid),
+                       n_valid=n_valid)
 
 
 BLOCK = 8          # fine ladder points per coarse block (blocked path)

@@ -1,14 +1,28 @@
-"""NeuS SDF→alpha conversion (port of `rnb_neus2_tpu/render/neus.py`).
+"""NeuS SDF→alpha conversion and per-ray compositing (port of
+`rnb_neus2_tpu/render/neus.py`).
 
 Section-based alpha from the logistic CDF of the SDF at the section
 endpoints, with the cos-annealed direction·gradient estimate
-(`src/testbed_nerf.cu:1652-1677`). Compositing over the flat sample buffer
-lives in `render/losses.py:training_loss`.
+(`src/testbed_nerf.cu:1652-1677`). `composite` is the renderer's
+front-to-back compositing over an (R, K) sample layout; compositing over
+the training's flat sample buffer lives in `render/losses.py:
+training_loss`.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+from ..config import TRANSMITTANCE_EPSILON
+
+
+class CompositeOut(NamedTuple):
+    alpha: torch.Tensor     # (R, K)
+    weight: torch.Tensor    # (R, K) = alpha · T, zeroed for dropped samples
+    trans: torch.Tensor     # (R, K) transmittance BEFORE each sample
+    keep: torch.Tensor      # (R, K) sample kept (valid & T ≥ ε)
 
 
 def sdf_to_alpha(sdf: torch.Tensor, true_cos: torch.Tensor, dt: torch.Tensor,
@@ -27,3 +41,17 @@ def sdf_to_alpha(sdf: torch.Tensor, true_cos: torch.Tensor, dt: torch.Tensor,
     cdf_prev = torch.sigmoid(est_prev * inv_s)
     p = cdf_prev - cdf_next
     return torch.clamp((p + 1e-5) / (cdf_prev + 1e-5), 0.0, 1.0)
+
+
+def composite(alpha: torch.Tensor, valid: torch.Tensor) -> CompositeOut:
+    """Front-to-back compositing with the reference's termination rule: a
+    sample takes part iff it is valid and the transmittance entering it is
+    ≥ 1e−4 (the serial loop breaks at T < EPSILON,
+    testbed_nerf.cu:1491-1494)."""
+    alpha = torch.where(valid, alpha, 0.0)
+    # exclusive cumulative product along the samples (T entering each)
+    inc = torch.cumprod(1.0 - alpha, dim=-1)
+    trans = torch.cat([torch.ones_like(inc[..., :1]), inc[..., :-1]], dim=-1)
+    keep = valid & (trans >= TRANSMITTANCE_EPSILON)
+    weight = torch.where(keep, alpha * trans, 0.0)
+    return CompositeOut(alpha=alpha, weight=weight, trans=trans, keep=keep)

@@ -10,6 +10,8 @@ per-pixel GT normal, negated. Shading s = n·l (optionally ReLU'd).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -24,6 +26,17 @@ def canonical_light_triplet() -> np.ndarray:
         -np.cos(slant),
     ], axis=0)
     return L.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _triplet(device: torch.device, dtype: torch.dtype,
+             supernormal: bool) -> torch.Tensor:
+    """The (3, 3) light triplet on `device`, copied there once (a copy
+    from host memory every step would make the host wait for it)."""
+    if supernormal:
+        return torch.eye(3, device=device, dtype=dtype)
+    return torch.as_tensor(canonical_light_triplet(), device=device,
+                           dtype=dtype)
 
 
 def rodrigues_to_normal(normal_gt: torch.Tensor) -> torch.Tensor:
@@ -49,11 +62,7 @@ def rodrigues_to_normal(normal_gt: torch.Tensor) -> torch.Tensor:
 def per_ray_lights(normal_gt: torch.Tensor, light_idx: torch.Tensor,
                    supernormal: bool, light_opti: bool) -> torch.Tensor:
     """(R,3) camera-frame light for each ray's randomly chosen triplet slot."""
-    kw = dict(device=normal_gt.device, dtype=normal_gt.dtype)
-    if supernormal:
-        L = torch.eye(3, **kw)
-    else:
-        L = torch.as_tensor(canonical_light_triplet(), **kw)
+    L = _triplet(normal_gt.device, normal_gt.dtype, supernormal)
     lights = L[None].expand(normal_gt.shape[0], 3, 3)
     if light_opti:
         lights = -torch.einsum("rij,rjk->rik",

@@ -1,7 +1,7 @@
 """Where a training step's time goes on the card.
 
     python -m rnb_neus2_torch.tools.profile_step [--warm 420] [--steps 16]
-        [--stoch-corner-bwd K]
+        [--stoch-corner-bwd K] [--sync-every N]
 
 Trains the default config at full width, with the default stochastic
 backward (K = 1; `--stoch-corner-bwd 0` takes the exact one, as the
@@ -30,6 +30,15 @@ step 256, where the occupancy refresh becomes subsampled and runs every
   backward launched, by name (the table gradient is zeroed once, and its
   levels are added in place, so no per-level fill or copy belongs there);
 - n_levels_run: the level bucket of each profiled step.
+
+Each step is a `train_step` (its metrics read and passed through the
+guard), unless `--sync-every N` runs each window as one
+`train_steps(--steps, sync_every=N)` call, the CLI's schedule: metrics
+read every N steps, and 16-step chunks from step 256 (`--warm 416
+--steps 32 --sync-every 25`: two chunks and one read per window, as the
+CLI runs after step 256). Then `n_levels_run` and `rays_per_batch` are
+those of the window's reads, and the guard's snapshot is taken once per
+read.
 
 Needs a CUDA device.
 """
@@ -77,6 +86,9 @@ def main() -> None:
     ap.add_argument("--stoch-corner-bwd", type=int, default=None,
                     help="K corners per sample in the hash-grid backward "
                     "(0 = exact 8-corner); default: the config's (1)")
+    ap.add_argument("--sync-every", type=int, default=0,
+                    help="run each window as train_steps(--steps, "
+                    "sync_every=N) (0: a train_step per step)")
     args = ap.parse_args()
 
     dev = resolve_device("cuda")
@@ -87,18 +99,22 @@ def main() -> None:
             cfg.network, stoch_corner_bwd=args.stoch_corner_bwd))
     tr = Trainer(sphere_dataset(n_views=16, width=256, height=256,
                                 radius=0.25, device=dev), cfg, device=dev)
+    def window(k):
+        if args.sync_every:
+            return [tr.train_steps(k, sync_every=args.sync_every)]
+        return [tr.train_step() for _ in range(k)]
+
     for _ in range(args.warm):
         tr.train_step()
     t0 = time.perf_counter()
-    for _ in range(args.steps):
-        tr.train_step()
+    window(args.steps)
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        metrics = [tr.train_step() for _ in range(args.steps)]
+        metrics = window(args.steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     n = args.steps
@@ -133,6 +149,7 @@ def main() -> None:
         "card": card,
         "device": torch.cuda.get_device_name(0),
         "stoch_corner_bwd": cfg.network.stoch_corner_bwd,
+        "sync_every": args.sync_every, "metric_reads": len(metrics),
         "steps": n, "first_step": tr.step - n,
         "n_levels_run": [m["n_levels_run"] for m in metrics],
         "rays_per_batch": [m["rays_per_batch"] for m in metrics],

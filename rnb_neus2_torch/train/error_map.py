@@ -1,5 +1,5 @@
-"""Error-map accumulation and CDF rebuilds (port of
-`rnb_neus2_tpu/train/error_map.py` without `sample`).
+"""Error-map accumulation, CDF rebuilds and proportional sampling (port
+of `rnb_neus2_tpu/train/error_map.py`).
 
 Per-image error maps accumulate the raw per-ray color loss by a bilinear
 splat (testbed_nerf.cu:1802-1831) at resolution
@@ -7,9 +7,9 @@ min(image res, ceil(√√(samples_per_image))·3.5) (testbed.cu:3642-3644).
 Every `n_steps_between_error_map_updates` (128 at first, ×1.5 after each
 rebuild; the trainer keeps the cadence) `rebuild` turns the maps into
 sampling CDFs with the reference's uniform floors and resets the
-accumulator. Drawing pixels from those CDFs (`sample`) comes with
-error-map sampling in a later slice; the reference trains with it off by
-default.
+accumulator. `sample` draws images and pixels from those CDFs when a
+caller turns on one of the two knobs (`TrainConfig.sample_*_
+proportional_to_error`, off by default as in the reference).
 """
 
 from __future__ import annotations
@@ -20,6 +20,9 @@ from typing import NamedTuple, Tuple
 import torch
 
 MIN_IMG_PMF = 0.1
+# share of proportional draws that take a uniform pixel (testbed_nerf.cu
+# sample_cdf_2d)
+UNIFORM_SAMPLING_FRACTION = 0.5
 # per-texel / per-row uniform floor (testbed_nerf.cu:2433 MIN_PDF)
 MIN_PDF = 0.01
 
@@ -98,3 +101,76 @@ def rebuild(state: ErrorMapState) -> ErrorMapState:
                          cdf_y=cdf_y, cdf_img=torch.cumsum(pmf, dim=0),
                          pmf_img=pmf,
                          valid=torch.ones((), dtype=torch.bool, device=dev))
+
+
+def sample(state: ErrorMapState, n_rays: int, u_img: torch.Tensor | None,
+           u_y: torch.Tensor, u_x: torch.Tensor,
+           image_proportional: bool = True, focal_proportional: bool = True):
+    """→ (img (R,) int64, xy (R, 2) in [0, 1)², pdf (R,)): sample_cdf_2d
+    (testbed_nerf.cu:1115-1148) on the uniforms u_img, u_y, u_x, with the
+    stratified-uniform scheme until the first rebuild.
+
+    image_proportional / focal_proportional are the pyngp knobs
+    (testbed.h:663-664): off, the image is stratified (image_idx) / the
+    pixel uniform, the kernels' cdf == nullptr paths."""
+    n, eh, ew = state.accum.shape
+    dev = u_y.device
+    img_u = (torch.arange(n_rays, device=dev) * n) // n_rays
+    if not (image_proportional or focal_proportional):
+        return (img_u, torch.stack([u_x, u_y], dim=1),
+                torch.ones(n_rays, device=dev))
+    if image_proportional:
+        img_is = torch.clamp_max(
+            torch.searchsorted(state.cdf_img, u_img), n - 1)
+    else:
+        img_is = img_u
+    f = UNIFORM_SAMPLING_FRACTION
+    # uniform branch (u_x < 0.5): pixel uniform, residual covers the texel
+    uniform = u_x < f
+    ux_uni = u_x / f
+    ux_cdf = (u_x - f) / (1.0 - f)
+
+    ar = torch.arange(n_rays, device=dev)
+    rows_cdf = state.cdf_y[img_is]                          # (R, EH)
+    y_idx = torch.clamp_max(
+        torch.searchsorted(rows_cdf, u_y[:, None])[:, 0], eh - 1)
+    x_cdf = state.cdf_x[img_is, y_idx]                      # (R, EW)
+    x_idx = torch.clamp_max(
+        torch.searchsorted(x_cdf, ux_cdf[:, None])[:, 0], ew - 1)
+
+    def prev(cdf, i):
+        return torch.where(i > 0, cdf[ar, torch.clamp_min(i - 1, 0)], 0.0)
+
+    cy_prev = prev(rows_cdf, y_idx)
+    pmf_y = rows_cdf[ar, y_idx] - cy_prev
+    cx_prev = prev(x_cdf, x_idx)
+    pmf_x = x_cdf[ar, x_idx] - cx_prev
+    # intra-texel position = rescaled inversion residual (:1130-1141)
+    ry = torch.clamp((u_y - cy_prev) / torch.clamp_min(pmf_y, 1e-12),
+                     0.0, 1.0)
+    rx = torch.clamp((ux_cdf - cx_prev) / torch.clamp_min(pmf_x, 1e-12),
+                     0.0, 1.0)
+    xy_cdf = torch.stack([(x_idx + rx) / ew, (y_idx + ry) / eh], dim=1)
+    xy_is = torch.where(uniform[:, None],
+                        torch.stack([ux_uni, u_y], dim=1), xy_cdf)
+    # mixture density at the returned pixel (pdf_2d, :1150-1169) × image
+    # pmf; diagnostics only (the loss divides by no pdf)
+    tx = torch.clamp((xy_is[:, 0] * ew).to(torch.int64), 0, ew - 1)
+    ty = torch.clamp((xy_is[:, 1] * eh).to(torch.int64), 0, eh - 1)
+    pmf_y_at = rows_cdf[ar, ty] - prev(rows_cdf, ty)
+    x_cdf_at = state.cdf_x[img_is, ty]                      # (R, EW)
+    pmf_x_at = x_cdf_at[ar, tx] - prev(x_cdf_at, tx)
+    pdf_img_f = state.pmf_img[img_is] * n if image_proportional else 1.0
+    pdf_xy_f = f + (pmf_y_at * eh) * (pmf_x_at * ew) * (1.0 - f)
+    if not focal_proportional:
+        xy_is = torch.stack([u_x, u_y], dim=1)
+        pdf_xy_f = 1.0
+    pdf_is = pdf_img_f * pdf_xy_f
+
+    # uniform fallback before the first rebuild: stratified images,
+    # uniform xy
+    use_is = state.valid
+    img = torch.where(use_is, img_is, img_u)
+    xy = torch.where(use_is, xy_is, torch.stack([u_x, u_y], dim=1))
+    pdf = torch.where(use_is, pdf_is, 1.0)
+    return img, xy, pdf

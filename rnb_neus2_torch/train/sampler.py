@@ -4,6 +4,9 @@
 - image choice: stratified img = i·n_images / n_rays;
 - pixel: uniform continuous xy per ray, texel at floor(xy·res), snapped to
   the pixel center by default (testbed.h:650);
+- with an error map and either of its knobs on (off by default, as in
+  the reference, testbed.h:663-664), images and pixels are drawn from
+  the error map's CDFs instead (`error_map.sample`);
 - black-pixel skip: texels whose premultiplied linear red ≤ 0 are dropped
   when u_skip ≥ 0.9 (testbed_nerf.cu:1264-1266);
 - per-ray light index in {0,1,2};
@@ -11,8 +14,7 @@
 
 The random numbers come from an explicit `torch.Generator`, or are handed
 in as `RayUniforms` (the tests feed both packages the same numbers; JAX's
-key splits cannot be reproduced in torch). Error-map proportional sampling
-comes in a later slice.
+key splits cannot be reproduced in torch).
 """
 
 from __future__ import annotations
@@ -29,36 +31,57 @@ from ..render.losses import RayBatch
 
 
 class RayUniforms(NamedTuple):
-    xy: torch.Tensor          # (R, 2) in [0, 1)
+    xy: torch.Tensor          # (R, 2) in [0, 1): (x, y)
     skip: torch.Tensor        # (R,) in [0, 1)
     start: torch.Tensor       # (R,) in [0, 1)
     light_idx: torch.Tensor   # (R,) int in {0, 1, 2}
+    # (R,) in [0, 1): the image draw of error-map proportional sampling,
+    # which reads xy as its (u_x, u_y); None on the default path
+    img: torch.Tensor | None = None
 
 
 def draw_uniforms(n_rays: int, generator: torch.Generator | None,
-                  device) -> RayUniforms:
-    return RayUniforms(
-        xy=torch.rand((n_rays, 2), generator=generator, device=device),
-        skip=torch.rand((n_rays,), generator=generator, device=device),
-        start=torch.rand((n_rays,), generator=generator, device=device),
-        light_idx=torch.randint(0, 3, (n_rays,), generator=generator,
-                                device=device))
+                  device, proportional: bool = False) -> RayUniforms:
+    """The step's random numbers; `proportional` adds the image draw of
+    error-map sampling after the others."""
+    draw = lambda *shape: torch.rand(shape, generator=generator,
+                                     device=device)
+    xy, skip, start = draw(n_rays, 2), draw(n_rays), draw(n_rays)
+    light = torch.randint(0, 3, (n_rays,), generator=generator,
+                          device=device)
+    return RayUniforms(xy=xy, skip=skip, start=start, light_idx=light,
+                       img=draw(n_rays) if proportional else None)
 
 
 def sample_ray_batch(dataset: TrainingDataset, bitfield: torch.Tensor,
                      n_rays: int, n_slots: int, march_cfg: MarchConfig,
                      generator: torch.Generator | None = None,
-                     uniforms: RayUniforms | None = None):
-    """Returns (RayBatch, FlatSamples, positions (S, 3), (img, xy))."""
+                     uniforms: RayUniforms | None = None,
+                     emap_state=None, emap_image_prop: bool = False,
+                     emap_focal_prop: bool = False):
+    """Returns (RayBatch, FlatSamples, positions (S, 3), (img, xy)).
+
+    With `emap_state` and one of the emap_*_prop knobs, images and pixels
+    come from the error map's CDFs (`error_map.sample` on the uniforms'
+    `img` and `xy`)."""
     W, H = dataset.resolution
     n_img = dataset.n_images
     dev = dataset.device
+    proportional = emap_state is not None and (emap_image_prop
+                                               or emap_focal_prop)
     u = uniforms if uniforms is not None else draw_uniforms(
-        n_rays, generator, dev)
+        n_rays, generator, dev, proportional)
 
-    ray_ids = torch.arange(n_rays, device=dev)
-    img = (ray_ids * n_img) // n_rays
-    xy = u.xy
+    if proportional:
+        from . import error_map
+        img, xy, pdf = error_map.sample(
+            emap_state, n_rays, u.img, u.xy[:, 1].contiguous(),
+            u.xy[:, 0].contiguous(),
+            emap_image_prop, emap_focal_prop)
+    else:
+        img = (torch.arange(n_rays, device=dev) * n_img) // n_rays
+        xy = u.xy
+        pdf = torch.ones(n_rays, device=dev)
     px = torch.clamp((xy[:, 0] * W).to(torch.int64), 0, W - 1)
     py = torch.clamp((xy[:, 1] * H).to(torch.int64), 0, H - 1)
     if march_cfg.snap_to_pixel_centers:
@@ -97,7 +120,7 @@ def sample_ray_batch(dataset: TrainingDataset, bitfield: torch.Tensor,
         mask_gt=(alpha_n > 0.99).to(torch.float32),
         rot_c2w=dataset.cameras.rot_c2w[img],
         light_idx=u.light_idx,
-        pdf=torch.ones(n_rays, device=dev),
+        pdf=pdf,
         sample_attrs=s_attr,
     )
     return batch, samples, pos, (img, xy)

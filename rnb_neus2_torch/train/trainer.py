@@ -17,6 +17,20 @@ map rebuilds its CDFs after 128 steps, then every 1.5× the last interval
 `torch.profiler.record_function` span of its name, which
 `rnb_neus2_torch/tools/profile_step.py` reads.
 
+`train_step` is one step with its metrics read back and passed through
+the guard. `train_steps(n, sync_every)` is the JAX package's schedule:
+steps are dispatched without a read (`train_step_async`), from step 256
+in chunks of `fused_steps` (16) steps that take one occupancy refresh and
+hold the rays bucket and the level bucket of their first step for all of
+their steps, and the metrics are read (`_consume_metrics`: the ray-count
+adaptation, the EMAs, the guard and its snapshot) once `sync_every` steps
+have been dispatched since the last read, and at the end. The JAX package
+runs a chunk as one fused call; here it is the step body called once per
+step with the buckets held, so a chunk that starts below a bucket
+boundary (the chunk at step 400 of the default grid, whose level bucket
+goes from 9 to 14 at step 411) encodes its last steps at the smaller
+bucket, as the JAX package does.
+
 The divergence guard (on by default; no reference analog) keeps an
 on-device copy of the last healthy state, a ≥ 64-step-lagging anchor and
 a ≥ 256-step-lagging deep anchor. A metrics read that finds the color
@@ -27,9 +41,9 @@ and after too many trips drops the RGB+ channel ("degraded" mode) until
 enough clean progress re-arms it. The names and the policy are the JAX
 package's, so one test drives both.
 
-Not ported in this slice, each named in ROADMAP.md: the fused multi-step
-path, the compile cache and error-map sampling. `check_ported` refuses a
-configuration that asks for any of them.
+Not ported, each named in ROADMAP.md: the compile cache, cascaded
+occupancy, the light PRNG salt and the gradient emulations.
+`check_ported` refuses a configuration that asks for any of them.
 """
 
 from __future__ import annotations
@@ -50,10 +64,11 @@ from ..grid import occupancy
 from ..io.dataset import TrainingDataset
 from ..models.neus_field import NeusField
 from ..render.losses import training_loss
+from ..utils.diagnostics import LossGraph
 from ..utils.meters import Ema
 from . import error_map
 from .optimizer import SparseAdam
-from .sampler import sample_ray_batch
+from .sampler import draw_uniforms, sample_ray_batch
 
 log = logging.getLogger("rnb_neus2_torch.train")
 
@@ -88,7 +103,7 @@ def effective_lr_scale(train_cfg, step: int, lr_scale: float) -> float:
 # must keep its default. (train.max_steps is read by the CLI's loop, not by
 # a step.)
 NOT_READ = {
-    "train": ("field_chunk", "fused_steps"),
+    "train": ("field_chunk",),
     "march": ("max_samples_per_ray",),
 }
 _DEFAULTS = {"train": TrainConfig(), "march": MarchConfig()}
@@ -105,9 +120,6 @@ def check_ported(cfg: TestbedConfig) -> None:
                     f"{type(have).__name__}.{name}={getattr(have, name)!r}: "
                     f"this port does not read {name} yet; leave it at its "
                     f"default {getattr(default, name)!r}")
-    if t.sample_image_proportional_to_error \
-            or t.sample_focal_plane_proportional_to_error:
-        raise ValueError("error-map proportional sampling is not ported yet")
     if t.light_prng_salt:
         raise ValueError("light_prng_salt is not ported")
     if cfg.grid.aabb_scale > 1.0:
@@ -143,6 +155,9 @@ class Trainer:
         self.loss_ema = Ema(half_life_steps=50)
         self.ek_ema = Ema(half_life_steps=50)
         self.mask_ema = Ema(half_life_steps=50)
+        self.loss_graph = LossGraph()
+        # metrics reads (`_consume_metrics` calls) so far
+        self.metric_reads = 0
         # error map: first rebuild after 128 steps, interval ×1.5 each time
         ew, eh = error_map.resolution_for(
             dataset.n_images, cfg.train.initial_rays_per_batch, 128,
@@ -219,14 +234,22 @@ class Trainer:
             self.occ = occupancy.update(self.occ, dens, decay)
 
     def _step_body(self, n_rays: int, n_active: int) -> Dict:
-        """Sample, march, field, loss, backward, optimizer (`_raw_step_fn`)."""
+        """Sample, march, field, loss, backward, optimizer (`_raw_step_fn`)
+        at `self.step`. The metrics stay tensors on the device."""
         cfg = self.cfg
         step = self.step
+        t = cfg.train
+        proportional = (t.sample_image_proportional_to_error
+                        or t.sample_focal_plane_proportional_to_error)
         with record_function("sample_and_march"):
             batch, samples, pos, (img, xy) = sample_ray_batch(
                 self.dataset, self.occ.bitfield, n_rays,
-                cfg.train.target_batch_size, cfg.march,
-                generator=self.generator)
+                t.target_batch_size, cfg.march,
+                uniforms=draw_uniforms(n_rays, self.generator, self.device,
+                                       proportional),
+                emap_state=self.emap,
+                emap_image_prop=t.sample_image_proportional_to_error,
+                emap_focal_prop=t.sample_focal_plane_proportional_to_error)
         vl = valid_level_for_step(cfg.grid, step)
         anneal = 1.0 if cfg.loss.anneal_end <= 0 else min(
             1.0, step / cfg.loss.anneal_end)
@@ -255,12 +278,11 @@ class Trainer:
         metrics["loss_total"] = loss.detach()
         return metrics
 
-    def train_step(self) -> Dict[str, float]:
-        """One step, metrics read back to the host and passed through the
-        divergence guard (`Trainer.train_step`). `n_levels_run` is the
-        step's level bucket, the levels its encode processes;
-        `rolled_back` is set when the guard did not accept the step."""
-        t0 = time.perf_counter()
+    def train_step_async(self) -> Dict:
+        """One step with no read of its metrics, which stay on the device
+        (`Trainer.train_step_async`): the occupancy refresh when the cadence
+        asks for one, the step body, the step count and the error map's
+        rebuild cadence."""
         n_levels = self._level_bucket()
         if self.step % occupancy.update_cadence(self.step) == 0:
             with record_function("occupancy_refresh"):
@@ -275,8 +297,61 @@ class Trainer:
             self._emap_counter = 0
             self._emap_interval = int(self._emap_interval * 1.5)
         metrics["rays_per_batch"] = r
-        out = self._consume_metrics(metrics)
-        out["n_levels_run"] = n_levels
+        metrics["n_levels_run"] = n_levels
+        return metrics
+
+    def _run_chunk(self, n_rays: int, n_active: int, chunk: int) -> Dict:
+        """`chunk` steps at one rays bucket and one level bucket, after one
+        occupancy refresh (`_make_chunk_fn`). The caller has checked that
+        the chunk starts on the refresh cadence and ends before the error
+        map's next rebuild. Returns the last step's metrics."""
+        with record_function("occupancy_refresh"):
+            self.refresh_occupancy(n_active)
+        for _ in range(chunk):
+            metrics = self._step_body(n_rays, n_active)
+            self.step += 1
+        self._emap_counter += chunk
+        metrics["rays_per_batch"] = n_rays
+        metrics["n_levels_run"] = n_active
+        return metrics
+
+    def train_steps(self, n: int, sync_every: int = 10) -> Dict[str, float]:
+        """`n` steps, with the metrics read only after `sync_every`
+        dispatched steps and after the last (`Trainer.train_steps`). From
+        step 256, on a step that is a multiple of 16, a whole chunk of
+        `fused_steps` steps goes at once when it fits in the call and
+        ends before the next error-map rebuild. `n` counts the steps
+        dispatched: a rollback by the guard does not give them back.
+        Returns the last read's metrics."""
+        out: Dict[str, float] = {}
+        pending = None
+        done = 0
+        last_sync = 0
+        chunk = self.cfg.train.fused_steps
+        while done < n:
+            eligible = (chunk > 1 and self.step >= 256
+                        and self.step % 16 == 0 and chunk % 16 == 0
+                        and n - done >= chunk
+                        and self._emap_counter + chunk < self._emap_interval)
+            if eligible:
+                pending = self._run_chunk(self._bucket(),
+                                          self._level_bucket(), chunk)
+                done += chunk
+            else:
+                pending = self.train_step_async()
+                done += 1
+            if done - last_sync >= sync_every or done >= n:
+                out = self._consume_metrics(pending)
+                last_sync = done
+        return out
+
+    def train_step(self) -> Dict[str, float]:
+        """One step, metrics read back to the host and passed through the
+        divergence guard (`Trainer.train_step`). `n_levels_run` is the
+        step's level bucket, the levels its encode processes;
+        `rolled_back` is set when the guard did not accept the step."""
+        t0 = time.perf_counter()
+        out = self._consume_metrics(self.train_step_async())
         out["step_ms"] = (time.perf_counter() - t0) * 1e3
         return out
 
@@ -597,9 +672,13 @@ class Trainer:
         """Read the metrics to the host, pass them through the guard, then
         adapt rays per batch, update the EMAs and checkpoint (after the
         EMA updates, so the snapshot carries the post-read EMAs)."""
+        self.metric_reads += 1
         r = metrics.pop("rays_per_batch")
+        n_levels = metrics.pop("n_levels_run", None)
         out = {k: float(v) for k, v in metrics.items()}
         out["rays_per_batch"] = r
+        if n_levels is not None:
+            out["n_levels_run"] = n_levels
         if not self._guard_check(out["loss_color"]):
             out["rolled_back"] = True
             return out
@@ -615,6 +694,7 @@ class Trainer:
         self.loss_ema.update(out["loss_color"])
         self.ek_ema.update(out["loss_ek"])
         self.mask_ema.update(out["loss_mask"])
+        self.loss_graph.update(out["loss_color"])
         if self.cfg.train.divergence_guard:
             # best-ever EMA levels; monotone, not restored on rollback
             v = self.loss_ema.value

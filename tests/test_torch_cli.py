@@ -125,8 +125,6 @@ def test_tiny_cpu_run_writes_mesh_and_snapshot_and_resumes(scene, capsys):
 
 @pytest.mark.parametrize("argv,feature", [
     (["--n-chips", "2"], "data parallelism"),
-    (["--trace-steps", "4"], "device trace"),
-    (["--render-path", "path.json"], "fly-through"),
     (["--fp16-grad-emu", "1"], "emulations"),
     (["--rollover-grad-emu", "1"], "emulations"),
 ])

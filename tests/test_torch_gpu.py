@@ -322,3 +322,101 @@ def test_extract_mesh_device_matches_host(cuda):
     assert np.array_equal(dev["F"], host["F"])
     assert np.abs(dev["N"] - host["N"]).max() <= 1e-4
     assert np.abs(dev["C"] - host["C"]).max() <= 1e-5
+
+
+def _small_render_setup(device):
+    """A 4-level field sharpened off its init (variance 0.6, noise on the
+    table and the SDF MLP's encoding columns) and its occupancy grid."""
+    from rnb_neus2_torch.config import NetworkConfig
+    from rnb_neus2_torch.grid import occupancy
+    from rnb_neus2_torch.models.neus_field import NeusField
+
+    gen = torch.Generator()
+    gen.manual_seed(11)
+    field = NeusField(HashGridConfig(n_levels=4, top_resolution=64),
+                      NetworkConfig(), "cpu", gen)
+    with torch.no_grad():
+        field.variance.fill_(0.6)
+        field.hash_table.add_(1e-2 * torch.randn(field.hash_table.shape,
+                                                 generator=gen))
+        field.sdf_w_enc.normal_(0.0, 0.05, generator=gen)
+        bit = occupancy.update(occupancy.init_state(32), field.density(
+            occupancy.cell_positions(32, gen))).bitfield
+    return field, bit
+
+
+def test_render_view_on_card_matches_cpu(cuda):
+    """`render_view` on the card against the CPU port on the same
+    parameters and bitfield, within 1e-4 (alpha x normal for the
+    normal), at render_scale 1 and 0.5."""
+    import numpy as np
+    from rnb_neus2_torch.config import MarchConfig
+    from rnb_neus2_torch.render.renderer import render_view
+    from rnb_neus2_torch.testing.synthetic import sphere_dataset
+
+    field, bit = _small_render_setup(cuda)
+    ds = sphere_dataset(n_views=2, width=40, height=32, radius=0.25)
+    card_field = type(field)(field.grid, field.net, cuda)
+    card_field.load_state_dict(field.state_dict())
+    for scale in (1.0, 0.5):
+        want = render_view(field, None, ds.cameras, 1, bit,
+                           MarchConfig(n_ladder=512), max_samples=64,
+                           render_scale=scale)
+        got = render_view(card_field, None, ds.cameras.to(cuda), 1,
+                          bit.to(cuda), MarchConfig(n_ladder=512),
+                          max_samples=64, render_scale=scale)
+        for k in ("albedo", "alpha", "depth"):
+            assert np.abs(got[k] - want[k]).max() <= 1e-4, k
+        a = want["alpha"][..., None]
+        assert np.abs(a * (got["normal"] - want["normal"])).max() <= 1e-4
+        assert want["alpha"].max() > 0.99
+
+
+def test_train_steps_on_card_follow_the_schedule(cuda):
+    """Real `train_steps(600, 25)` on the card read the metrics at the
+    steps of the CPU schedule with the step body replaced by a counter
+    (the schedule `tests/test_torch_train_steps.py` holds against the JAX
+    package), and every step launched the kernels for its level
+    bucket."""
+    from rnb_neus2_torch.config import (MarchConfig, TestbedConfig,
+                                        TrainConfig)
+    from rnb_neus2_torch.testing.synthetic import sphere_dataset
+    from rnb_neus2_torch.train.trainer import Trainer
+
+    cfg = TestbedConfig(
+        grid=HashGridConfig(n_levels=4, top_resolution=64),
+        train=TrainConfig(target_batch_size=1 << 13,
+                          initial_rays_per_batch=128, occ_grid_size=32),
+        march=MarchConfig(n_ladder=512))
+
+    def run(device, dry):
+        tr = Trainer(sphere_dataset(n_views=4, width=32, height=32,
+                                    radius=0.2), cfg, device=device)
+        reads, bodies = [], []
+        real_read, real_body = tr._consume_metrics, tr._step_body
+
+        def read(m):
+            out = real_read(m) if not dry else {}
+            reads.append((tr.step, "rolled_back" in out))
+            return out
+
+        def body(n_rays, n_active):
+            bodies.append(n_active)
+            return {} if dry else real_body(n_rays, n_active)
+
+        tr._consume_metrics, tr._step_body = read, body
+        if dry:
+            tr.refresh_occupancy = lambda n_active: None
+        tr.train_steps(600, 25)
+        return reads, bodies
+
+    want, _ = run("cpu", True)
+    hgs.reset_launches()
+    sca.reset_launches()
+    got, bodies = run(cuda, False)
+    torch.cuda.synchronize()
+    assert got == want and not any(rb for _, rb in got)
+    static = he.HashGridStatic(cfg.grid)
+    small = sum(len(he.levels_through_kernel(static, n)) for n in bodies)
+    assert len(bodies) == 600
+    assert (hgs.launches, sca.launches) == (small, sum(bodies) - small)
