@@ -151,8 +151,39 @@ Phases, each printing JSON lines with `elapsed_s`:
    `compute_marching_cubes_mesh` at 128, and `save_snapshot` /
    `load_snapshot` into a second `Testbed`, equal to the file bit for bit.
 
+14. dynamic: a three-frame sequence at full width (`FrameSequenceTrainer`,
+   the unmodified `TestbedConfig()`): the phase-7 sphere's 16 views of
+   256x256 with its centre at 0.5 + k·S, S = (0.06, -0.04, 0), the first
+   frame 440 steps, each later frame 400 delta steps then 100 canonical
+   steps. Launch counts zeroed just before and read just after each
+   phase: the delta phases launch neither kernel and run no training
+   step; the first frame and the canonical phases launch them per step
+   body and its level bucket (the canonical ones all at 14 levels: 2 and
+   12 per step). Each later frame meets the JAX tests' criteria
+   (tests/test_dynamic.py): R within 0.08 of I, |t + k·S| < 0.5·|k·S|,
+   cos(t, -k·S) > 0.8, and its mesh at res 256 has its median within
+   0.5·|2k·S| of 2k·S in world space. Before frame 2's canonical phase,
+   one delta gradient on the card against the CPU port on the same
+   uniforms: within 1e-4 relative. Prints ms/step of every phase and the
+   peak memory.
+15. refinement, on the phase-7 trainer right after phase 13's renderer:
+   (a) pose refinement as in tests/test_camera_refine.py (view 0's rays
+   offset by (0.03, -0.02, 0), 400 steps of 4096 rays, adam lr 2e-3):
+   |t0 + T| < 0.6·|T|, the other views' translations < 0.02; (b) focal
+   refinement (every ray corrupted as focal × 1.06, the focal offset
+   alone trained, 400 steps): |1.06·(1 + f) − 1| < 0.036 on both axes;
+   (a) and (b) launch neither kernel. (c) `optimise_mesh_step`, 16 steps
+   on the EMA field's mesh at res 256 in the unit cube: the mean
+   |‖v − c‖ − 0.25| does not grow. (d) `export_cuda_snapshot` →
+   `import_cuda_snapshot` into a fresh `Trainer`: the parameters and
+   their EMA equal the EMA's fp16 rounding bit for bit, the density grid
+   survives the Morton round trip (its fp16 rounding). (e) 20 full-width
+   steps from init with `sparse_adam=False`: finite, the last 5 steps'
+   mean color loss below the first 5's, launches per step bucket.
+
 Then one JSON line with every kernel's numbers (the main path's launches,
-and the pipeline's), and as the last line {"ok": true, "device": {...}}.
+the pipeline's, the dynamic path's per phase, the refinement's and the
+dense-Adam run's), and as the last line {"ok": true, "device": {...}}.
 Any failed phase raises and the script exits non-zero.
 """
 
@@ -185,6 +216,13 @@ TRACE_STEPS = 16               # the CLI's traced window, steps 256-271
 FLY_FRAMES = 8
 PIPELINE_STEPS = 600           # stage 1 to 400, stage 2 to 600
 SPHERE = dict(n_views=16, width=256, height=256, radius=0.25)
+DYN_FIRST, DYN_DELTA, DYN_NEXT = 440, 400, 100   # phase 14's schedule
+DYN_SHIFT = (0.06, -0.04, 0.0)  # the sphere's motion per frame
+REFINE_STEPS = 400
+REFINE_FOCAL = 560.0           # phase 15's views of the phase-7 sphere
+FOCAL_CORRUPT = 0.06
+MESH_STEPS = 16
+DENSE_STEPS = 20
 
 
 def log(phase: str, **kw) -> None:
@@ -469,7 +507,6 @@ def train(torch, kernels, dev, stoch: int, steps: int):
     """Phase 7: one training path at full width from init. Returns
     (summary, trainer)."""
     from rnb_neus2_torch.config import TestbedConfig
-    from rnb_neus2_torch.ops import hash_encoding as he
     from rnb_neus2_torch.testing.synthetic import sphere_dataset
     from rnb_neus2_torch.train.trainer import Trainer
 
@@ -499,12 +536,7 @@ def train(torch, kernels, dev, stoch: int, steps: int):
                 levels=m["n_levels_run"], valid=m["n_valid_total"],
                 kept=m["n_samples_kept"])
     launches = {name: k.launches for name, k in kernels.items()}
-    small = [len(he.levels_through_kernel(tr.field.static,
-                                          int(m["n_levels_run"])))
-             for m in hist]
-    want = {"hash_grad_small": sum(small),
-            "scatter_add": sum(int(m["n_levels_run"]) for m in hist)
-            - sum(small)}
+    want = _expected_launches([int(m["n_levels_run"]) for m in hist])
     color = [m["loss_color"] for m in hist]
     totals = [m["loss_total"] for m in hist]
     L = tr.cfg.grid.n_levels
@@ -1099,12 +1131,7 @@ def pipeline_phase(torch, kernels, card) -> dict:
         launches = {name: k.launches for name, k in kernels.items()}
         text = tee.buf.getvalue()
         n_steps = len(steps)
-        from rnb_neus2_torch.ops import hash_encoding as he
-        static = he.HashGridStatic(HashGridConfig())
-        want = {"hash_grad_small": sum(
-            len(he.levels_through_kernel(static, n)) for _, n in steps)}
-        want["scatter_add"] = sum(n for _, n in steps) \
-            - want["hash_grad_small"]
+        want = _expected_launches([n for _, n in steps])
         # steps whose chunk holds a smaller bucket than the step's own
         held = [s for s, n in steps if n < min(
             b for b in (4, 9, 14) if b >= HashGridConfig().valid_levels(s))]
@@ -1326,6 +1353,406 @@ def testbed_phase(torch, dev, card, work: Path) -> dict:
     return row
 
 
+def _record_step_bodies():
+    """Patch `Trainer._step_body` to record each body's level bucket;
+    returns (records, undo)."""
+    from rnb_neus2_torch.train.trainer import Trainer
+
+    real = Trainer._step_body
+    rec = []
+
+    def counted(self, n_rays, n_active):
+        rec.append(n_active)
+        return real(self, n_rays, n_active)
+
+    Trainer._step_body = counted
+    return rec, lambda: setattr(Trainer, "_step_body", real)
+
+
+def _expected_launches(buckets) -> dict:
+    """Each kernel's launches for step bodies at the given level buckets
+    (the default grid): `hash_grad_small` at levels 0-1, `scatter_add` at
+    every other level the body runs."""
+    from rnb_neus2_torch.config import HashGridConfig
+    from rnb_neus2_torch.ops import hash_encoding as he
+
+    static = he.HashGridStatic(HashGridConfig())
+    small = sum(len(he.levels_through_kernel(static, b)) for b in buckets)
+    return {"hash_grad_small": small, "scatter_add": sum(buckets) - small}
+
+
+def _to(x, dev, dtype=None):
+    """Tensors, and dicts, tuples and NamedTuples of them, moved to `dev`;
+    float tensors cast to `dtype` when given."""
+    import torch
+    if isinstance(x, dict):
+        return {k: _to(v, dev, dtype) for k, v in x.items()}
+    if isinstance(x, torch.Tensor):
+        cast = dtype if dtype is not None and x.is_floating_point() \
+            else x.dtype
+        return x.to(dev, cast)
+    if isinstance(x, tuple):
+        vals = [_to(v, dev, dtype) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
+
+
+def delta_card_vs_cpu(torch, seq, n_rays: int) -> dict:
+    """Phase 14's agreement: one delta gradient of the sequence's current
+    state on the card and by the CPU port on the same inputs (the field,
+    the delta and the card's marched batch), both in float64. In float32
+    the comparison is ill-conditioned at full width: the gradient sums
+    ~27k per-sample terms that carry the level-13 lattice scale squared
+    (~4e6) and cancel, so the card's and the CPU's rounding alone moved
+    it by up to 5.6e-2 relative with the positions made equal (an H100
+    80GB HBM3 at 700 W); float64 leaves only the implementations'
+    differences."""
+    from rnb_neus2_torch.models import delta_network as dn
+    from rnb_neus2_torch.train import dynamic
+    from rnb_neus2_torch.train.sampler import draw_uniforms
+
+    f64 = torch.float64
+    gen = torch.Generator(device=seq.trainer.device)
+    gen.manual_seed(14)
+    marched = dynamic.sample_ray_batch(
+        seq.trainer.dataset, seq.trainer.occ.bitfield, n_rays,
+        seq.cfg.train.target_batch_size, seq.cfg.march,
+        uniforms=draw_uniforms(n_rays, gen, seq.trainer.device),
+        ray_transform=lambda o, d: dn.apply_rigid(seq.delta, o, d))
+    state = seq.trainer.field.state_dict()
+    real = dynamic.sample_ray_batch
+    out = {}
+    for name, dev in (("card", seq.trainer.device), ("cpu", "cpu")):
+        twin = dynamic.FrameSequenceTrainer(seq.trainer.dataset, seq.cfg,
+                                            seq.dyn, device=dev)
+        twin.trainer.field.load_state_dict(
+            {k: v.to(dev) for k, v in state.items()})
+        twin.trainer.field.double()
+        twin.delta = _to(seq.delta, dev, f64)
+        batch = _to(marched, dev, f64)
+        t0 = time.perf_counter()
+        dynamic.sample_ray_batch = lambda *a, **k: batch
+        try:
+            loss, grads = twin.delta_grad(n_rays)
+        finally:
+            dynamic.sample_ray_batch = real
+        out[name] = (float(loss), {k: v.cpu() for k, v in grads.items()},
+                     time.perf_counter() - t0)
+        del twin
+    rel = {k: float((out["card"][1][k] - g).abs().max()
+                    / g.abs().max().clamp_min(1e-30))
+           for k, g in out["cpu"][1].items()}
+    row = {"n_rays": n_rays, "samples": int(marched[1].valid.sum()),
+           "dtype": "float64", "loss_card": out["card"][0],
+           "loss_cpu": out["cpu"][0], "grad_rel_err": rel,
+           "card_s": out["card"][2], "cpu_s": out["cpu"][2]}
+    row["passed"] = max(rel.values()) <= 1e-4 and math.isclose(
+        row["loss_card"], row["loss_cpu"], rel_tol=1e-5)
+    log("dynamic_card_vs_cpu", **row)
+    return row
+
+
+def dynamic_phase(torch, kernels, dev, card) -> dict:
+    """Phase 14: a three-frame dynamic sequence at full width on the card
+    (`FrameSequenceTrainer`), with the JAX tests' criteria per frame and
+    the kernels' launches counted per phase."""
+    import numpy as np
+    from rnb_neus2_torch.config import TestbedConfig
+    from rnb_neus2_torch.io.dataset import SceneMeta, build_dataset
+    from rnb_neus2_torch.models import delta_network as dn
+    from rnb_neus2_torch.testing.synthetic import (ring_cameras,
+                                                   render_sphere_views)
+    from rnb_neus2_torch.train import dynamic
+
+    shift = np.asarray(DYN_SHIFT, np.float32)
+
+    def frame(k):
+        cams = ring_cameras(16, 1.5, 256, 256, 70.0, device=dev)
+        n, a, al = render_sphere_views(cams, center=tuple(0.5 + k * shift),
+                                       radius=0.25)
+        return build_dataset(cams, n, a, al, al, SceneMeta())
+
+    dyn = dynamic.DynamicConfig(
+        first_frame_max_training_step=DYN_FIRST,
+        predict_global_movement_training_step=DYN_DELTA,
+        next_frame_max_training_step=DYN_NEXT)
+    seq = dynamic.FrameSequenceTrainer(frame(0), TestbedConfig(), dyn,
+                                       device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bodies, undo = _record_step_bodies()
+    rows = []
+
+    def run(name, fn, steps):
+        for k in kernels.values():
+            k.reset_launches()
+        start = len(bodies)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+        want = _expected_launches(bodies[start:])
+        row = {"phase": name, "steps": steps, "seconds": s,
+               "ms_per_step": 1e3 * s / steps, "launches": launches,
+               "launches_expected": want,
+               "step_bodies": len(bodies) - start,
+               "levels": sorted(set(bodies[start:]))}
+        rows.append(row)
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, want {want}")
+        return row
+
+    frames = []
+    try:
+        run("first_frame", seq.train_first_frame, DYN_FIRST)
+        for k in (1, 2):
+            ds = frame(k)
+            d = run(f"delta_{k}", lambda: seq.predict_movement(ds), DYN_DELTA)
+            if d["step_bodies"] or any(d["launches"].values()):
+                raise AssertionError("the delta phase ran a training step "
+                                     "or launched a scatter kernel")
+            delta = {key: v.detach().cpu() for key, v in seq.delta.items()}
+            if k == 2:
+                card_vs_cpu = delta_card_vs_cpu(
+                    torch, seq, max(min(seq.trainer.n_rays, 8192), 4096))
+            c = run(f"canonical_{k}", seq.train_frame, DYN_NEXT)
+            if c["step_bodies"] != DYN_NEXT \
+                    or c["levels"] != [seq.cfg.grid.n_levels]:
+                raise AssertionError(f"canonical phase {k}: {c}")
+            R = dn.rotation_6d_to_matrix(delta["rotation6d"]).numpy()
+            t = delta["translation"].numpy()
+            want_t = -k * shift
+            # the delta's translation about the unit cube's centre c (the
+            # canonical sphere's): R·c + t − c. A rotation about c leaves
+            # the sphere's views unchanged, so R drifts there and t, the
+            # translation about the cube's corner, trades off against it
+            moved = R @ np.full(3, 0.5, np.float32) + t - 0.5
+            cos = float(moved @ want_t / (np.linalg.norm(moved)
+                                          * np.linalg.norm(want_t) + 1e-9))
+
+            t0 = time.perf_counter()
+            m = seq.extract_mesh(resolution=256)
+            mesh_s = time.perf_counter() - t0
+            centre = np.median(m["V"], axis=0)
+            row = {"frame": k, "rotation_err": float(np.abs(
+                R - np.eye(3)).max()), "translation": t.tolist(),
+                "translation_err": float(np.linalg.norm(t - want_t)),
+                "shift": float(np.linalg.norm(want_t)), "cos": cos,
+                "centre_moved": moved.tolist(),
+                "centre_moved_err": float(np.linalg.norm(moved - want_t)),
+                "delta_loss_first": seq.delta_losses[0],
+                "delta_loss_last": seq.delta_losses[-1],
+                "mesh_vertices": len(m["V"]), "mesh_s": mesh_s,
+                "mesh_centre": centre.tolist(),
+                "mesh_centre_err": float(np.linalg.norm(
+                    centre - 2 * k * shift)),
+                "mesh_centre_tol": float(0.5 * np.linalg.norm(
+                    2 * k * shift))}
+            row["passed"] = (row["rotation_err"] < 0.08
+                             and row["centre_moved_err"] < 0.5 * row["shift"]
+                             and cos > 0.8 and row["mesh_centre_err"]
+                             < row["mesh_centre_tol"])
+            log("dynamic_frame", **row)
+            frames.append(row)
+    finally:
+        undo()
+    failed = [f for f in frames if not f["passed"]]
+    if failed:
+        raise AssertionError(f"frames fail the JAX tests' criteria: {failed}")
+    if not card_vs_cpu["passed"]:
+        raise AssertionError(f"the delta gradient disagrees card vs CPU: "
+                             f"{card_vs_cpu}")
+    out = {"phases": rows, "frames": frames, "card_vs_cpu": card_vs_cpu,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "rollbacks": seq.trainer._guard_total_rollbacks, "card": card}
+    log("dynamic", **out)
+    return out
+
+
+def refine_phase(torch, kernels, tr, card) -> dict:
+    """Phase 15 on the phase-7 trainer: pose and focal refinement (the
+    loop of tests/test_camera_refine.py), mesh refinement, a CUDA-testbed
+    snapshot round trip, and 20 dense-Adam steps."""
+    import numpy as np
+    import tempfile
+    from rnb_neus2_torch.config import OptimizerConfig, TestbedConfig
+    from rnb_neus2_torch.io.dataset import SceneMeta
+    from rnb_neus2_torch.mesh import refine
+    from rnb_neus2_torch.mesh.extract import extract_mesh
+    from rnb_neus2_torch.render.losses import training_loss
+    from rnb_neus2_torch.testing.synthetic import sphere_dataset
+    from rnb_neus2_torch.train import camera_refine as cr
+    from rnb_neus2_torch.train import tcnn_snapshot
+    from rnb_neus2_torch.train.sampler import (sample_positions,
+                                               sample_ray_batch)
+    from rnb_neus2_torch.train.trainer import Trainer
+
+    dev = tr.device
+    cfg = tr.cfg
+    # the phase-7 sphere through 16 narrower lenses: at focal 70 a view
+    # sees it in 0.7% of its pixels (phase 13's alpha_mean), 1.7 of 256
+    # rays per view and step, where a 0.02 translation moves its
+    # silhouette by under a pixel; at REFINE_FOCAL it fills about a third
+    # of each view, as the sphere of the JAX tests' 32x32 views at focal 70
+    ds = sphere_dataset(n_views=SPHERE["n_views"], width=SPHERE["width"],
+                        height=SPHERE["height"], radius=SPHERE["radius"],
+                        focal=REFINE_FOCAL, device=dev)
+    lcfg = dataclasses.replace(cfg.loss, ek_loss_weight=0.0)
+    out = {"card": card, "views_covered": float(ds.alpha_normal.mean()),
+           "phase7_views_covered": float(tr.dataset.alpha_normal.mean())}
+
+    def refine_loop(corrupt, mask):
+        """REFINE_STEPS steps of 4096 rays against the frozen field;
+        `corrupt(p, img, o, d)` → refined rays; `mask` zeroes gradients
+        of the fields it names."""
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(15)
+        params = cr.init_refine_params(ds.n_images, dev)
+        opt = cr.make_refiner(params, 2e-3)
+        for k in kernels.values():
+            k.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REFINE_STEPS):
+            batch, samples, _, (img, _) = sample_ray_batch(
+                ds, tr.occ.bitfield, 4096, cfg.train.target_batch_size,
+                cfg.march, generator=gen)
+            p = cr.CameraRefineParams(*(v.detach().requires_grad_()
+                                        for v in params))
+            with tr.field.frozen():
+                o2, d2 = corrupt(p, batch, img)
+                out_f = tr.field(sample_positions(o2, d2, samples),
+                                 differentiable_positions=True)
+                loss, _ = training_loss(out_f, samples, batch._replace(
+                    ray_o=o2, ray_d=d2, sample_attrs=None), cfg.flags,
+                    lcfg, 1.0)
+                grads = torch.autograd.grad(loss, list(p), allow_unused=True,
+                                            materialize_grads=True)
+            grads = [torch.zeros_like(g) if name in mask else g
+                     for name, g in zip(p._fields, grads)]
+            params = opt.step(params, cr.CameraRefineParams(*grads))
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+        if any(launches.values()):
+            raise AssertionError(f"refinement launched {launches}")
+        return params, {"seconds": s, "ms_per_step": 1e3 * s / REFINE_STEPS,
+                        "launches": launches,
+                        "loss_last": float(loss.detach())}
+
+    true_t = torch.tensor([0.03, -0.02, 0.0], device=dev)
+
+    def pose(p, batch, img):
+        o = batch.ray_o + true_t * (img == 0)[:, None]
+        return cr.refine_rays(p, img, o, batch.ray_d)
+
+    params, row = refine_loop(pose, ())
+    t0 = params.trans[0].cpu().numpy()
+    row.update(trans_view0=t0.tolist(), err=float(np.linalg.norm(
+        t0 + true_t.cpu().numpy())), bound=0.6 * float(true_t.norm()),
+        others_max=float(params.trans[1:].abs().max()))
+    log("refine_pose", **row)
+    out["pose"] = row
+    if not (row["err"] < row["bound"] and row["others_max"] < 0.02):
+        raise AssertionError(f"pose refinement: {row}")
+
+    corrupt_p = cr.init_refine_params(ds.n_images, dev)._replace(
+        focal=torch.full((2,), FOCAL_CORRUPT, device=dev))
+
+    def focal(p, batch, img):
+        rot = ds.cameras.rot_c2w[img]
+        o1, d1 = cr.refine_rays(corrupt_p, img, batch.ray_o, batch.ray_d,
+                                rot_c2w=rot)
+        return cr.refine_rays(p, img, o1, d1, rot_c2w=rot)
+
+    params, row = refine_loop(focal, ("rot", "trans", "exposure"))
+    eff = (1.0 + FOCAL_CORRUPT) * (1.0 + params.focal.cpu().numpy())
+    row.update(effective_focal=eff.tolist(), bound=0.6 * FOCAL_CORRUPT)
+    log("refine_focal", **row)
+    out["focal"] = row
+    if not np.all(np.abs(eff - 1.0) < 0.6 * FOCAL_CORRUPT):
+        raise AssertionError(f"focal refinement: {row}")
+
+    # (c) mesh refinement in the unit cube, where the field lives
+    t0 = time.perf_counter()
+    m = extract_mesh(tr.field, tr.inference_params, 256,
+                     meta=SceneMeta(scale=1.0, offset=(0.0, 0.0, 0.0),
+                                    from_na=False))
+    t1 = time.perf_counter()
+    fn = refine.field_sdf_grad_fn(tr.field, tr.inference_params)
+    V2 = refine.optimise_mesh_step(fn, m["V"], m["F"], n_steps=MESH_STEPS)
+    t2 = time.perf_counter()
+    err = lambda V: float(np.mean(np.abs(
+        np.linalg.norm(V - 0.5, axis=1) - 0.25)))
+    row = {"vertices": len(m["V"]), "steps": MESH_STEPS,
+           "extract_s": t1 - t0, "optimise_s": t2 - t1,
+           "ms_per_step": 1e3 * (t2 - t1) / MESH_STEPS,
+           "radius_err_before": err(m["V"]), "radius_err_after": err(V2),
+           "abs_sdf_before": float(np.abs(fn(m["V"])[0]).mean()),
+           "abs_sdf_after": float(np.abs(fn(V2)[0]).mean())}
+    log("mesh_refine", **row)
+    out["mesh_refine"] = row
+    if not (np.isfinite(V2).all()
+            and row["radius_err_after"] <= row["radius_err_before"]):
+        raise AssertionError(f"mesh refinement: {row}")
+
+    # (d) CUDA-testbed snapshot round trip into a fresh trainer
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "snapshot.msgpack")
+        t0 = time.perf_counter()
+        tcnn_snapshot.export_cuda_snapshot(path, tr)
+        t1 = time.perf_counter()
+        tr2 = Trainer(tr.dataset, cfg, device=dev)
+        t2 = time.perf_counter()
+        tcnn_snapshot.import_cuda_snapshot(path, tr2)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        size = Path(path).stat().st_size
+    half = lambda t: t.detach().half().float()
+    differ = [k for k, p in tr.inference_params.items()
+              if not (torch.equal(tr2.params[k].detach(), half(p))
+                      and torch.equal(tr2.opt.ema[k], half(p)))]
+    grid_ok = torch.equal(tr2.occ.density, half(tr.occ.density))
+    row = {"bytes": size, "export_s": t1 - t0, "import_s": t3 - t2,
+           "params_differ": differ, "density_round_trip": grid_ok,
+           "step": tr2.step, "n_rays": tr2.n_rays}
+    log("tcnn_snapshot", **row)
+    out["tcnn_snapshot"] = row
+    if differ or not grid_ok or (tr2.step, tr2.n_rays) != (tr.step,
+                                                           tr.n_rays):
+        raise AssertionError(f"CUDA-testbed snapshot round trip: {row}")
+    del tr2
+
+    # (e) dense Adam at full width from init
+    dense = TestbedConfig(optimizer=OptimizerConfig(sparse_adam=False))
+    trd = Trainer(tr.dataset, dense, device=dev)
+    for k in kernels.values():
+        k.reset_launches()
+    hist = []
+    t0 = time.perf_counter()
+    for _ in range(DENSE_STEPS):
+        hist.append(trd.train_step())
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    want = _expected_launches([m["n_levels_run"] for m in hist])
+    color = [m["loss_color"] for m in hist]
+    row = {"steps": DENSE_STEPS, "seconds": s,
+           "ms_per_step": 1e3 * s / DENSE_STEPS, "launches": launches,
+           "launches_expected": want, "color_first5": sum(color[:5]) / 5,
+           "color_last5": sum(color[-5:]) / 5,
+           "finite": all(math.isfinite(m["loss_total"]) for m in hist)}
+    log("dense_adam", **row)
+    out["dense_adam"] = row
+    if not (row["finite"] and row["color_last5"] < row["color_first5"]
+            and launches == want):
+        raise AssertionError(f"dense Adam: {row}")
+    del trd
+    return out
+
+
 def main() -> int:
     signal.alarm(WALL_LIMIT_S)
     import torch
@@ -1421,15 +1848,23 @@ def main() -> int:
     chamfer_protocol(torch, dev, card)
     host_syncs(torch, tr)
     render_phase(torch, tr, card)
+    refined = refine_phase(torch, kernels, tr, card)
     del tr, tr_exact, inputs
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work:
         cli_phase(torch, dev, card, Path(work))
         piped = pipeline_phase(torch, kernels, card)
         testbed_phase(torch, dev, card, Path(work))
+    dyn = dynamic_phase(torch, kernels, dev, card)
     for row in rows:
         row["launches_pipeline"] = piped["launches"][row["name"]]
         row["pipeline_steps"] = piped["step_bodies"]
+        row["launches_dynamic"] = {p["phase"]: p["launches"][row["name"]]
+                                   for p in dyn["phases"]}
+        row["launches_refinement"] = sum(
+            refined[k]["launches"][row["name"]] for k in ("pose", "focal"))
+        row["launches_dense_adam"] = \
+            refined["dense_adam"]["launches"][row["name"]]
     log("done", card=card, total_s=time.perf_counter() - T0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,9 +22,17 @@ The optimizer state is the JAX package's optax chain
    "3": {}}                                   scale(-1)
 
 with `mu`, `nu` and `steps` laid out as the parameters, beside the EMA
-parameters (`OptState.ema_params`). `opt_state_to_jax` and
-`opt_state_from_jax` convert it to and from the port's `SparseAdam`. This
-module imports no JAX.
+parameters (`OptState.ema_params`); with `sparse_adam=False` the Adam
+entry is optax's `ScaleByAdamState` {"count", "mu", "nu"}.
+`opt_state_to_jax` and `opt_state_from_jax` convert it to and from the
+port's `AdamChain`.
+
+The dynamic scene's rigid delta is {"rotation6d": (6,), "translation":
+(3,)} in both packages, and the camera refiner's parameters a
+`CameraRefineParams` (rot, trans, exposure, focal): `tensors_from_numpy`
+carries either, and `adam_state_from_jax` an optax `adam` state
+({"0": ScaleByAdamState, "1": {}}, flax's state dict) into the port's
+`Adam`. This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -90,13 +98,14 @@ def params_to_jax(params: Dict[str, torch.Tensor], convert=_numpy
 
 def opt_state_to_jax(opt, convert=_numpy
                      ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """(the optax chain's state dict, the EMA parameters' tree) of a
-    `SparseAdam`; the counts are int32 numpy scalars, `convert` maps each
-    tensor to a leaf."""
+    """(the optax chain's state dict, the EMA parameters' tree) of an
+    `AdamChain`; the counts are int32 numpy scalars, `convert` maps each
+    tensor to a leaf. A dense chain has no `steps`."""
     count = np.asarray(opt.count, np.int32)
     tree = lambda d: state_dict(params_to_jax(d, convert))
-    adam = {"count": count, "mu": tree(opt.mu), "nu": tree(opt.nu),
-            "steps": tree(opt.steps)}
+    adam = {"count": count, "mu": tree(opt.mu), "nu": tree(opt.nu)}
+    if opt.sparse:
+        adam["steps"] = tree(opt.steps)
     chain = {"0": {"inner_state": {}}, "1": adam,
              "2": {"count": count.copy()}, "3": {}}
     return chain, params_to_jax(opt.ema, convert)
@@ -104,10 +113,11 @@ def opt_state_to_jax(opt, convert=_numpy
 
 def opt_state_from_jax(chain: Dict[str, Any], ema: Dict[str, Any],
                        device="cpu") -> Dict[str, Any]:
-    """`SparseAdam` fields (mu, nu, steps, ema: port state dicts; count:
+    """`AdamChain` fields (mu, nu, steps, ema: port state dicts; count:
     int) from the optax chain's state dict and the EMA parameters' tree.
     A chain without per-parameter `steps` (a dense-Adam snapshot) gets
-    them at the global count, as the JAX package's restore does."""
+    them at the global count, as the JAX package's restore does; a dense
+    `AdamChain` does not read them."""
     adam = chain["1"]
     count = int(np.asarray(adam["count"]))
     mu = params_from_jax(adam["mu"], device)
@@ -119,3 +129,26 @@ def opt_state_from_jax(chain: Dict[str, Any], ema: Dict[str, Any],
     return {"mu": mu, "nu": params_from_jax(adam["nu"], device),
             "steps": steps, "ema": params_from_jax(ema, device),
             "count": count}
+
+
+def tensors_from_numpy(tree, device="cpu"):
+    """A dict or NamedTuple of numpy arrays (the JAX package's delta or
+    `CameraRefineParams`, converted by the caller) as float32 tensors in
+    the same container."""
+    t = lambda a: torch.as_tensor(np.array(a, np.float32), device=device)
+    if isinstance(tree, tuple):
+        return type(tree)(*(t(a) for a in tree))
+    return {k: t(a) for k, a in tree.items()}
+
+
+def adam_state_from_jax(state: Dict[str, Any], adam, device="cpu") -> None:
+    """Load an optax `adam` state (flax's state dict of
+    chain(scale_by_adam, scale_by_learning_rate): {"0": {"count", "mu",
+    "nu"}, "1": {}}) into the port's `Adam` in place."""
+    inner = state["0"]
+    adam.count = int(np.asarray(inner["count"]))
+    for name in ("mu", "nu"):
+        live = getattr(adam, name)
+        for k in live:
+            live[k] = torch.as_tensor(np.array(inner[name][k], np.float32),
+                                      device=device)

@@ -25,6 +25,7 @@ package's parameter tree.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict
 
@@ -119,10 +120,19 @@ class NeusField(nn.Module):
             + self.net.sdf_bias
 
     def sdf_and_grad(self, x: torch.Tensor, valid_level: int | None = None,
-                     n_active: int | None = None):
+                     n_active: int | None = None,
+                     differentiable_positions: bool = False):
         """sdf, analytic ∇sdf and the 16-wide SDF features from ONE hash
-        gather, all differentiable wrt the parameters (not wrt x)."""
-        enc, jac = self._encode_jac(x, valid_level, n_active)
+        gather, all differentiable wrt the parameters. Wrt x only with
+        `differentiable_positions` (rays whose geometry is trainable): then
+        the encode is `hash_encoding.encode_with_jacobian` (all levels,
+        `n_active` ignored, the exact table gradient), and ∇sdf carries the
+        encode's second-order term; the ReLU masks stay constants."""
+        if differentiable_positions:
+            enc, jac = hash_encoding.encode_with_jacobian(
+                self.hash_table, x, self.static, valid_level)
+        else:
+            enc, jac = self._encode_jac(x, valid_level, n_active)
         w_x, w_enc = self.sdf_w_x, self.sdf_w_enc
         pre = (x - 0.5) @ w_x.T + enc @ w_enc.T
         h = torch.relu(pre)
@@ -143,11 +153,14 @@ class NeusField(nn.Module):
     # -- full field ---------------------------------------------------------
 
     def forward(self, x: torch.Tensor, valid_level: int | None = None,
-                n_active: int | None = None) -> Dict[str, torch.Tensor]:
+                n_active: int | None = None,
+                differentiable_positions: bool = False
+                ) -> Dict[str, torch.Tensor]:
         """Full forward: albedo_raw (N,3), sdf (N,), grad (N,3), variance
         (scalar) — the packed 16-wide output of nerf_network.h:225-250 as a
         dict."""
-        sdf, grad, feats = self.sdf_and_grad(x, valid_level, n_active)
+        sdf, grad, feats = self.sdf_and_grad(x, valid_level, n_active,
+                                             differentiable_positions)
         h = torch.relu(feats @ self.rgb_w_feat.T + x @ self.rgb_w_xyz.T
                        + grad @ self.rgb_w_grad.T)
         rgb_out = apply_mlp(list(self.rgb_rest), h)
@@ -166,6 +179,21 @@ class NeusField(nn.Module):
         s = torch.exp(10.0 * self.variance[0])
         sig = torch.sigmoid(sdf * s)
         return s * sig * (1.0 - sig)
+
+    @contextlib.contextmanager
+    def frozen(self):
+        """No parameter requires a gradient inside the block: a loss
+        differentiated wrt other tensors (a rigid delta, camera
+        corrections) then computes no table or weight gradient and
+        launches no scatter kernel."""
+        params = [p for p in self.parameters() if p.requires_grad]
+        for p in params:
+            p.requires_grad_(False)
+        try:
+            yield self
+        finally:
+            for p in params:
+                p.requires_grad_(True)
 
     def matrix_names(self):
         """Names of the matrix parameters (the MLP weights)."""

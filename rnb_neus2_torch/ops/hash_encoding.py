@@ -26,6 +26,11 @@ kernel of `kernels/hash_grad_small.py`; every other level through the
 global-atomics kernel of `kernels/scatter_add.py`. Both add in place into
 the level's rows of the one zeroed table gradient.
 
+`encode_with_jacobian` is the position-differentiable encode, for rays
+whose geometry is trainable: the same outputs at all levels, the exact
+table gradient, and the positions' cotangent (`position_cotangent`: the
+first- and second-order terms of the trilinear weights).
+
 Not ported, because they exist only for the TPU's layout: the `level_tables`
 optimization barrier, the corner-redundant rows-of-16 tables
 (`dense_corner_tables`, `grad_nbhd16`) and the `RNB_SCATTER_MODE` modes.
@@ -143,13 +148,11 @@ def _corner_indices(pos_grid: torch.Tensor, res: int, table_size: int,
     return (x + y * res + z * res * res) % table_size
 
 
-def _level_corner_arrays(positions: torch.Tensor, static: HashGridStatic,
-                         lvl: int):
-    """(idx (N,8) int64, w (N,8), dw (N,8,3), scale) for one level.
-
-    w is the trilinear weight of each corner and dw[..., d] its derivative
-    wrt the lattice fraction along d, products taken in the JAX package's
-    order."""
+def _level_factors(positions: torch.Tensor, static: HashGridStatic,
+                   lvl: int):
+    """(idx (N,8) int64, wd (N,8,3), sd (1,8,3), scale) for one level: each
+    corner's table index, its per-axis weight factors (frac or 1 − frac)
+    and their signs d wd/d frac (±1)."""
     scale = float(static.scales[lvl])
     corners = _corners(positions.device)                            # (8,3)
     p = positions * scale + 0.5
@@ -162,6 +165,17 @@ def _level_corner_arrays(positions: torch.Tensor, static: HashGridStatic,
     on = corners[None] > 0
     wd = torch.where(on, fr[:, None, :], 1.0 - fr[:, None, :])      # (N,8,3)
     sd = torch.where(on, 1.0, -1.0).to(fr.dtype)                    # (1,8,3)
+    return idx, wd, sd, scale
+
+
+def _level_corner_arrays(positions: torch.Tensor, static: HashGridStatic,
+                         lvl: int):
+    """(idx (N,8) int64, w (N,8), dw (N,8,3), scale) for one level.
+
+    w is the trilinear weight of each corner and dw[..., d] its derivative
+    wrt the lattice fraction along d, products taken in the JAX package's
+    order."""
+    idx, wd, sd, scale = _level_factors(positions, static, lvl)
     wx, wy, wz = wd[..., 0], wd[..., 1], wd[..., 2]
     w = wx * wy * wz
     dw = torch.stack([sd[..., 0] * (wy * wz), sd[..., 1] * (wx * wz),
@@ -300,44 +314,116 @@ def pick_corners(idx: torch.Tensor, src: torch.Tensor, us: Sequence,
     return choice, idx_k.reshape(-1), (s_k * inv[..., None]).reshape(-1, F)
 
 
+# the off-diagonal pairs (e, d) of the weights' second derivative; output
+# axis d sums g_jac_e·B_p over its two pairs p = {e, d}
+_PAIRS = ((0, 1), (0, 2), (1, 2))
+_PAIR_OF = ((0, 1), (0, 2), (1, 2))       # output axis d → its two pairs
+_OTHER_OF = ((1, 2), (0, 2), (0, 1))      # output axis d → the e of each
+
+
+@functools.lru_cache(maxsize=None)
+def _cotangent_constants(device: torch.device):
+    """On `device`, copied there once: each corner's sign product
+    sd_e·sd_d of every pair (1, 8, 3), each pair's third axis, and the
+    pair and e indices of both terms of each output axis."""
+    sd = np.where(CORNERS > 0, 1.0, -1.0)
+    sdp = np.stack([sd[:, e] * sd[:, d] for e, d in _PAIRS], 1)[None]
+    t = lambda a: torch.as_tensor(a, device=device)
+    return (t(sdp.astype(np.float32)), t([3 - e - d for e, d in _PAIRS]),
+            t([p[0] for p in _PAIR_OF]), t([p[1] for p in _PAIR_OF]),
+            t([o[0] for o in _OTHER_OF]), t([o[1] for o in _OTHER_OF]))
+
+
+def position_cotangent(table: torch.Tensor, positions: torch.Tensor,
+                       static: HashGridStatic, La: int, mask, g_out,
+                       g_jac) -> torch.Tensor:
+    """(N, 3) cotangent of the positions through the encode and its
+    jacobian, as `jax.grad` of the JAX package's `encode_with_jacobian`
+    gives it: the gradient reaches x only through the lattice fraction
+    (d frac/dx = scale; floor and the indices carry none), so per level
+
+      g_x[d] += scale·Σ_f g_out·A_d + scale²·Σ_{e≠d} Σ_f g_jac_e·B_{e,d}
+
+    with A_d = Σ_c dw_{c,d}·feat_c and B_{e,d} = Σ_c sd_e·sd_d·wd_o·feat_c
+    (o the third axis) the second derivative of the multilinear weights,
+    whose diagonal is zero; the level's unlock mask multiplies both terms.
+    Plain PyTorch, batched over corners and axes: it gathers each level's
+    corner features again."""
+    F = static.cfg.n_features_per_level
+    sdp, third, p0, p1, e0, e1 = _cotangent_constants(positions.device)
+    g_j = torch.stack(g_jac, 1)                                     # (N,3,LF)
+    g = positions.new_zeros(positions.shape[0], 3)
+    for lvl in range(La):
+        m = mask[lvl]
+        if m == 0.0:
+            continue
+        idx, wd, sd, scale = _level_factors(positions, static, lvl)
+        feats = table[idx + int(static.offsets[lvl])]               # (N,8,F)
+        sl = slice(lvl * F, (lvl + 1) * F)
+        # dw_{c,d} = sd_d · Π_{e≠d} wd_e; H_{c,p} = sd_e·sd_d·wd_o
+        wx, wy, wz = wd[..., 0], wd[..., 1], wd[..., 2]
+        dw = sd * torch.stack([wy * wz, wx * wz, wx * wy], -1)      # (N,8,3)
+        h = sdp * wd.index_select(2, third)                         # (N,8,3)
+        # per-sample contractions over the 8 corners as broadcast products:
+        # as batched 3x8 by 8xF matmuls (einsum) they were a fifth of a
+        # delta step's device time on the card
+        f4 = feats[:, :, None, :]
+        A = (dw[..., None] * f4).sum(1)                             # (N,3,F)
+        B = (h[..., None] * f4).sum(1)                              # (N,3,F)
+        gj = g_j[:, :, sl]                                          # (N,3,F)
+        second = (gj.index_select(1, e0) * B.index_select(1, p0)
+                  + gj.index_select(1, e1) * B.index_select(1, p1)).sum(-1)
+        first = (g_out[:, None, sl] * A).sum(-1)
+        g = g + (scale * m) * first + (scale * scale * m) * second
+    return g
+
+
 class _EncodeWithJacobian(torch.autograd.Function):
     """The training encode's custom backward (the reference's
     kernel_grid_backward_grid, grid.h:~400): for every corner c of every
     sample, src_c = w_c·g_out + Σ_d dw_{c,d}·g_jac_d (scaled by the level's
     lattice scale), scattered into the table: all 8 corners (K = 0), or K
     corners drawn per sample (`pick_corners`) from the stream
-    salt·La + level. Indices and weights are recomputed from the positions
-    — the backward gathers nothing. The position cotangent is zero (None):
-    training differentiates wrt the table only, and the field's
-    position-gradient is the jacobian output."""
+    salt·La + level. Indices and weights are recomputed from the positions.
+    The table gradient is computed only when the table requires one. The
+    position cotangent is None unless `position_grad` (the training step
+    differentiates wrt the table only, and the field's position-gradient
+    is the jacobian output); with it, `position_cotangent` gives it."""
 
     @staticmethod
-    def forward(ctx, table, positions, static, La, mask, k, salt):
-        ctx.save_for_backward(positions)
+    def forward(ctx, table, positions, static, La, mask, k, salt,
+                position_grad):
+        ctx.save_for_backward(positions, table if position_grad else None)
         ctx.static, ctx.La, ctx.mask, ctx.k, ctx.salt = (static, La, mask,
                                                          k, salt)
+        ctx.position_grad = position_grad
         ctx.n_entries = table.shape[0]
         return _encode_jac_forward(table, positions, static, La, mask)
 
     @staticmethod
     def backward(ctx, g_out, g_jx, g_jy, g_jz):
-        (positions,) = ctx.saved_tensors
+        positions, table = ctx.saved_tensors
         static, La, k = ctx.static, ctx.La, ctx.k
         F = static.cfg.n_features_per_level
-        g_table = g_out.new_zeros(ctx.n_entries, F)
-        base = _position_hash(positions) if k else None
-        for lvl in range(La):
-            idx, src = level_corner_cotangents(positions, static, lvl, g_out,
-                                               (g_jx, g_jy, g_jz),
-                                               ctx.mask[lvl])
-            if k:
-                us = _draws(base, ctx.salt * La + lvl, k)
-                _, idx, src = pick_corners(idx, src, us, k)
-            off = int(static.offsets[lvl])
-            size = int(static.table_sizes[lvl])
-            level_table_grad(static, lvl, idx.reshape(-1),
-                             src.reshape(-1, F), g_table[off:off + size])
-        return g_table, None, None, None, None, None, None
+        g_table = g_pos = None
+        if ctx.needs_input_grad[0]:
+            g_table = g_out.new_zeros(ctx.n_entries, F)
+            base = _position_hash(positions) if k else None
+            for lvl in range(La):
+                idx, src = level_corner_cotangents(
+                    positions, static, lvl, g_out, (g_jx, g_jy, g_jz),
+                    ctx.mask[lvl])
+                if k:
+                    us = _draws(base, ctx.salt * La + lvl, k)
+                    _, idx, src = pick_corners(idx, src, us, k)
+                off = int(static.offsets[lvl])
+                size = int(static.table_sizes[lvl])
+                level_table_grad(static, lvl, idx.reshape(-1),
+                                 src.reshape(-1, F), g_table[off:off + size])
+        if ctx.position_grad and ctx.needs_input_grad[1]:
+            g_pos = position_cotangent(table, positions, static, La,
+                                       ctx.mask, g_out, (g_jx, g_jy, g_jz))
+        return g_table, g_pos, None, None, None, None, None, None
 
 
 def make_encode_with_jacobian_cv(static: HashGridStatic,
@@ -361,10 +447,28 @@ def make_encode_with_jacobian_cv(static: HashGridStatic,
               valid_level: int | None = None):
         mask = tuple(_level_mask(La, valid_level))
         out, jx, jy, jz = _EncodeWithJacobian.apply(
-            table, positions, static, La, mask, corner_samples, corner_salt)
+            table, positions, static, La, mask, corner_samples, corner_salt,
+            False)
         return out, (jx, jy, jz)
 
     return apply
+
+
+def encode_with_jacobian(table: torch.Tensor, positions: torch.Tensor,
+                         static: HashGridStatic,
+                         valid_level: int | None = None):
+    """The position-differentiable encode (the JAX package's generic
+    `encode_with_jacobian`, which `jax.grad` differentiates): the same
+    (features, jac) as the training encode, at all L levels with
+    `valid_level` masking them, differentiable wrt the positions
+    (`position_cotangent`) and wrt the table by the exact 8-corner
+    gradient. Used when rays are trainable (the dynamic scene's rigid
+    delta, camera refinement)."""
+    L = static.cfg.n_levels
+    mask = tuple(_level_mask(L, valid_level))
+    out, jx, jy, jz = _EncodeWithJacobian.apply(
+        table, positions, static, L, mask, 0, 0, True)
+    return out, (jx, jy, jz)
 
 
 def levels_through_kernel(static: HashGridStatic,

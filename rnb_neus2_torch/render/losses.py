@@ -159,7 +159,11 @@ def training_loss(field_out: Dict[str, torch.Tensor], samples,
         dirs = batch.sample_attrs[:, 0:3]
         s_ray_alive = batch.sample_attrs[:, 3] > 0.5
     else:
-        dirs = batch.ray_d[rid]
+        # trainable rays (the delta phase, camera refinement): index_select,
+        # whose backward is an index_add; the backward of `ray_d[rid]`
+        # (`indexing_backward_kernel`) serializes on the padded slots' one
+        # row and took most of a delta step on the card
+        dirs = batch.ray_d.index_select(0, rid)
         s_ray_alive = ray_alive[rid]
     s_alive = s_ray_alive & in_seg & samples.valid
     inv_s = torch.exp(10.0 * variance)

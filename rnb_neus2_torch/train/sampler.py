@@ -10,6 +10,9 @@
 - black-pixel skip: texels whose premultiplied linear red ≤ 0 are dropped
   when u_skip ≥ 0.9 (testbed_nerf.cu:1264-1266);
 - per-ray light index in {0,1,2};
+- an optional `ray_transform` (o, d) → (o, d) maps the rays into the
+  canonical frame before the march (the dynamic scene's rigid delta,
+  testbed_nerf.cu:1311-1323);
 - ray march with jittered start (ops/ray_march.py).
 
 The random numbers come from an explicit `torch.Generator`, or are handed
@@ -58,7 +61,7 @@ def sample_ray_batch(dataset: TrainingDataset, bitfield: torch.Tensor,
                      generator: torch.Generator | None = None,
                      uniforms: RayUniforms | None = None,
                      emap_state=None, emap_image_prop: bool = False,
-                     emap_focal_prop: bool = False):
+                     emap_focal_prop: bool = False, ray_transform=None):
     """Returns (RayBatch, FlatSamples, positions (S, 3), (img, xy)).
 
     With `emap_state` and one of the emap_*_prop knobs, images and pixels
@@ -98,6 +101,8 @@ def sample_ray_batch(dataset: TrainingDataset, bitfield: torch.Tensor,
     alive = ~(skip_cand & (u.skip >= 0.9))
 
     ray_o, ray_d = rays_from_pixels(dataset.cameras, img, xy)
+    if ray_transform is not None:
+        ray_o, ray_d = ray_transform(ray_o, ray_d)
     samples = ray_march.march_flat(ray_o, ray_d, bitfield, u.start,
                                    march_cfg.n_ladder, n_slots,
                                    march_cfg.cone_angle)
@@ -124,3 +129,17 @@ def sample_ray_batch(dataset: TrainingDataset, bitfield: torch.Tensor,
         sample_attrs=s_attr,
     )
     return batch, samples, pos, (img, xy)
+
+
+def sample_positions(ray_o: torch.Tensor, ray_d: torch.Tensor,
+                     samples) -> torch.Tensor:
+    """(S, 3) positions o[rid] + t·d[rid] clipped to [0, 1], differentiable
+    wrt the rays (trainable rays: the rigid delta, camera refinement).
+    The clip is min(max(·, 0), 1), whose gradient at an exact boundary is
+    0.5, as `jnp.clip`'s; `torch.clamp` gives 1 there. The gathers are
+    index_selects: their backward is an index_add, where that of
+    `ray_o[rid]` serializes on the padded slots' one row."""
+    rid = torch.clamp_max(samples.ray_id, ray_o.shape[0] - 1)
+    p = ray_o.index_select(0, rid) \
+        + samples.t[:, None] * ray_d.index_select(0, rid)
+    return torch.minimum(torch.maximum(p, p.new_zeros(())), p.new_ones(()))

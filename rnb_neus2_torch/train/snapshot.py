@@ -200,7 +200,8 @@ def restore_trainer(trainer, snap: Dict[str, Any]) -> None:
                              f"{tuple(params[k].shape)}, the trainer's "
                              f"{tuple(p.shape)}")
         p.copy_(params[k])
-    for name in ("mu", "nu", "steps", "ema"):
+    for name in ("mu", "nu", "ema") + (("steps",) if trainer.opt.sparse
+                                       else ()):
         getattr(trainer.opt, name).update(opt[name])
     trainer.opt.count = opt["count"]
     trainer.step = int(snap["step"])

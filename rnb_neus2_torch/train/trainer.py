@@ -67,7 +67,7 @@ from ..render.losses import training_loss
 from ..utils.diagnostics import LossGraph
 from ..utils.meters import Ema
 from . import error_map
-from .optimizer import SparseAdam
+from .optimizer import AdamChain
 from .sampler import draw_uniforms, sample_ray_batch
 
 log = logging.getLogger("rnb_neus2_torch.train")
@@ -146,7 +146,7 @@ class Trainer:
         if params is not None:
             self.field.load_state_dict(params)
         self.params = dict(self.field.named_parameters())
-        self.opt = SparseAdam(cfg.optimizer, self.params,
+        self.opt = AdamChain(cfg.optimizer, self.params,
                               self.field.matrix_names())
         self.occ = occupancy.init_state(cfg.train.occ_grid_size, self.device)
         self.step = 0

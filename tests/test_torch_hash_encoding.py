@@ -398,3 +398,75 @@ def test_interop_round_trip():
     assert tdef_a == tdef_b
     for a, b in zip(flat_a, flat_b):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("valid_level", [None, 3])
+@pytest.mark.parametrize("name", ["small", "hashed", "default"])
+def test_position_differentiable_encode_matches_jax(name, valid_level):
+    """`encode_with_jacobian` (the position-differentiable encode): the
+    features and jacobians within 1e-6 of the JAX package's generic
+    `encode_with_jacobian`, and the gradient wrt the positions and the
+    table of a random linear loss of both within 1e-5 of `jax.grad`'s
+    (relative to each gradient's largest entry). Positions on the lattice
+    and on the cube's faces included; at the default config's 14 levels
+    the second-order term carries the lattice scale squared (up to
+    2048²)."""
+    cfg = CONFIGS[name]
+    jstatic = jhe.HashGridStatic(JHashGridConfig(**cfg))
+    static = he.HashGridStatic(HashGridConfig(**cfg))
+    table = _table(static, 7) * 1e-2
+    x = _positions(257, 8)
+    rng = np.random.default_rng(9)
+    L2 = static.cfg.output_dim
+    cot_f = rng.standard_normal((257, L2)).astype(np.float32)
+    cot_j = [rng.standard_normal((257, L2)).astype(np.float32)
+             for _ in range(3)]
+
+    def jloss(t, xx):
+        f, j = jhe.encode_with_jacobian(t, xx, jstatic, valid_level)
+        return jnp.vdot(f, cot_f) + sum(jnp.vdot(j[d], cot_j[d])
+                                        for d in range(3))
+
+    jf, jj = jhe.encode_with_jacobian(jnp.asarray(table), jnp.asarray(x),
+                                      jstatic, valid_level)
+    want_t, want_x = (np.asarray(g) for g in jax.grad(jloss, (0, 1))(
+        jnp.asarray(table), jnp.asarray(x)))
+
+    t = torch.from_numpy(table).requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    f, j = he.encode_with_jacobian(t, xt, static, valid_level)
+    np.testing.assert_allclose(f.detach().numpy(), np.asarray(jf),
+                               rtol=1e-6, atol=1e-6)
+    for d in range(3):
+        np.testing.assert_allclose(j[d].detach().numpy(), np.asarray(jj[d]),
+                                   rtol=1e-6, atol=1e-6 * float(
+                                       np.abs(np.asarray(jj[d])).max()))
+    loss = (f * torch.from_numpy(cot_f)).sum() + sum(
+        (j[d] * torch.from_numpy(cot_j[d])).sum() for d in range(3))
+    got_t, got_x = torch.autograd.grad(loss, (t, xt))
+    for got, want in ((got_x, want_x), (got_t, want_t)):
+        err = np.abs(got.numpy() - want).max()
+        assert err <= 1e-5 * np.abs(want).max(), (err, np.abs(want).max())
+    np.testing.assert_array_equal(got_t.numpy() == 0.0, want_t == 0.0)
+
+
+def test_position_grad_only_where_asked():
+    """The training encode gives the positions no gradient (the JAX
+    package's custom VJP zeroes it); the position-differentiable encode
+    computes no table gradient for a table that requires none."""
+    static = he.HashGridStatic(HashGridConfig(**CONFIGS["small"]))
+    table = torch.from_numpy(_table(static, 10))
+    x = torch.from_numpy(_positions(64, 11)).requires_grad_(True)
+    f, _ = he.make_encode_with_jacobian_cv(static)(
+        table.requires_grad_(True), x)
+    (gx,) = torch.autograd.grad(f.sum(), x, allow_unused=True)
+    assert gx is None
+    calls = []
+    orig = he.level_table_grad
+    try:
+        he.level_table_grad = lambda *a: calls.append(a)
+        f, _ = he.encode_with_jacobian(table.detach(), x, static)
+        (gx,) = torch.autograd.grad(f.sum(), x)
+    finally:
+        he.level_table_grad = orig
+    assert not calls and torch.isfinite(gx).all()
