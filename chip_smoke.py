@@ -180,10 +180,41 @@ Phases, each printing JSON lines with `elapsed_s`:
    survives the Morton round trip (its fp16 rounding). (e) 20 full-width
    steps from init with `sparse_adam=False`: finite, the last 5 steps'
    mean color loss below the first 5's, launches per step bucket.
+16. options, each at full width from init on the phase-7 sphere beside
+   200 steps of the unmodified default config, launches
+   counted per level bucket (raises on a rollback or a non-finite loss)
+   and 8 more steps under the profiler (per-span device ms):
+   (a) aabb_scale 4 as `TestbedConfig.from_network_json(base.json,
+   aabb_scale=4)` gives it (cone 1/256, the unit-cube march on
+   `march_flat`'s single-phase ladder, as the JAX trainer): 300 steps,
+   `sample_and_march` device ms, peak memory; then a 3-cascade grid
+   (`update_cascaded` on the trained field's densities) marched by
+   `march` at cone 1/256 over 4,096 rays into the cube [−1.5, 2.5]³ on
+   the card and by the CPU port: valid and n_valid bit for bit, t
+   within 1e-6 relative. (b) the fp16 and rollover emulations together,
+   200 steps; one step's gradients (exact backward, 4,096 rays the card
+   marched) card vs CPU after `quantize_grads_fp16`: every entry a
+   float16 value over 128, each tensor within 2e-3 relative L2 (the
+   float32 gradients already differ by up to 5.6e-4 in summation order,
+   the variance's one sum over every sample; then a last-bit difference
+   can round one fp16 step, 2^-11, apart). (c)
+   `light_prng_salt = 1`: one step's draws against salt 0 differ in
+   `light_idx` only; 20 steps. (d) bf16 compute, 200 steps; one step's
+   loss within 2e-2 and gradients within 3e-2 of each tensor's largest
+   entry card vs CPU (the tolerance of tests/test_torch_options.py).
+17. extra modes at the JAX tests' sizes (tests/test_extra_modes.py,
+   tests/test_takikawa.py), launches counted per fit: `ImageField` on
+   the 48x48 pattern, 300 steps (loss < 5e-3, render MSE < 1e-2);
+   `SdfField` hash (4 levels, top 64), 250 steps (loss < 5e-3, IoU >
+   0.9) and Takikawa (depth 6 from 3), 150 steps (IoU > 0.5);
+   `VolumeField` (4 levels, top 32), 300 steps (loss < 5e-3); a 256x256
+   SDF shade frame and volume frame, finite; the `Testbed` in Image mode
+   from a PNG on disk, 100 steps.
 
 Then one JSON line with every kernel's numbers (the main path's launches,
-the pipeline's, the dynamic path's per phase, the refinement's and the
-dense-Adam run's), and as the last line {"ok": true, "device": {...}}.
+the pipeline's, the dynamic path's per phase, the refinement's, the
+dense-Adam run's, each option path's and each extra-mode fit's), and as
+the last line {"ok": true, "device": {...}}.
 Any failed phase raises and the script exits non-zero.
 """
 
@@ -223,6 +254,12 @@ REFINE_FOCAL = 560.0           # phase 15's views of the phase-7 sphere
 FOCAL_CORRUPT = 0.06
 MESH_STEPS = 16
 DENSE_STEPS = 20
+OPT_AABB_STEPS = 300           # phase 16's option runs
+OPT_EMU_STEPS = 200
+OPT_SALT_STEPS = 20
+OPT_BF16_STEPS = 200
+EXTRA_STEPS = {"image": 300, "sdf": 250, "takikawa": 150, "volume": 300}
+EXTRA_TESTBED_STEPS = 100      # phase 17's Testbed in Image mode
 
 
 def log(phase: str, **kw) -> None:
@@ -1369,14 +1406,15 @@ def _record_step_bodies():
     return rec, lambda: setattr(Trainer, "_step_body", real)
 
 
-def _expected_launches(buckets) -> dict:
+def _expected_launches(buckets, grid=None) -> dict:
     """Each kernel's launches for step bodies at the given level buckets
-    (the default grid): `hash_grad_small` at levels 0-1, `scatter_add` at
+    (of `grid`, the default grid if None): `hash_grad_small` at the dense
+    levels of at most 2^15 entries (0-1 by default), `scatter_add` at
     every other level the body runs."""
     from rnb_neus2_torch.config import HashGridConfig
     from rnb_neus2_torch.ops import hash_encoding as he
 
-    static = he.HashGridStatic(HashGridConfig())
+    static = he.HashGridStatic(grid or HashGridConfig())
     small = sum(len(he.levels_through_kernel(static, b)) for b in buckets)
     return {"hash_grad_small": small, "scatter_add": sum(buckets) - small}
 
@@ -1753,6 +1791,378 @@ def refine_phase(torch, kernels, tr, card) -> dict:
     return out
 
 
+def _train_counted(torch, kernels, tr, steps: int, label: str,
+                   profile_steps: int = 8) -> dict:
+    """`steps` train_steps of `tr` with both kernels' launches counted per
+    level bucket, then `profile_steps` more under the profiler (per-phase
+    device ms). Raises on a non-finite loss, a rollback or a launch count
+    that the buckets do not give."""
+    from rnb_neus2_torch.tools.profile_step import profile_window
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.reset_launches()
+    hist = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        hist.append(tr.train_step())
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    want = _expected_launches([int(m["n_levels_run"]) for m in hist],
+                              tr.cfg.grid)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_window(lambda n: [tr.train_step() for _ in range(n)],
+                          profile_steps)
+    prof.pop("metrics")
+    color = [m["loss_color"] for m in hist]
+    row = {"path": label, "steps": steps, "seconds": s,
+           "ms_per_step": 1e3 * s / steps,
+           "median_step_ms": statistics.median(m["step_ms"]
+                                               for m in hist[5:]),
+           "launches": launches, "launches_expected": want,
+           "levels_last": hist[-1]["n_levels_run"],
+           "rays_per_batch_last": hist[-1]["rays_per_batch"],
+           "color_first5": sum(color[:5]) / 5,
+           "color_last5": sum(color[-5:]) / 5,
+           "finite": all(math.isfinite(m["loss_total"]) for m in hist),
+           "guard": guard_counters(tr), "max_memory_allocated": peak,
+           "profiled_steps": profile_steps,
+           "device_ms_per_step": prof["device_busy_ms_per_step"],
+           "wall_ms_per_step_profiled": prof["wall_ms_per_step"],
+           "idle_share": prof["idle_share"],
+           "phase_device_ms": {p: v["device_ms"]
+                               for p, v in prof["phases"].items()}}
+    log("options_train", **row)
+    if not row["finite"] or row["guard"]["rollbacks"] or launches != want:
+        raise AssertionError(f"option path {label}: {row}")
+    return row
+
+
+def _card_vs_cpu_grads(torch, tr, loss_cfg, n_rays: int, seed: int):
+    """One loss and its gradients on a batch that the card marched from
+    `tr`'s state, by a copy of `tr`'s field on the card and one on the
+    CPU (the exact backward on both): ((loss, grads) card, (loss, grads)
+    CPU), grads by parameter name, on the CPU."""
+    from rnb_neus2_torch.models.neus_field import NeusField
+    from rnb_neus2_torch.render.losses import training_loss
+    from rnb_neus2_torch.train.sampler import draw_uniforms, sample_ray_batch
+
+    dev = tr.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    batch, samples, pos, _ = sample_ray_batch(
+        tr.dataset, tr.occ.bitfield, n_rays, tr.cfg.train.target_batch_size,
+        tr.cfg.march, uniforms=draw_uniforms(n_rays, gen, dev))
+    net = dataclasses.replace(tr.cfg.network, stoch_corner_bwd=0)
+    state = tr.field.state_dict()
+    out = []
+    for d in (dev, "cpu"):
+        field = NeusField(tr.cfg.grid, net, d)
+        field.load_state_dict({k: v.to(d) for k, v in state.items()})
+        loss, _ = training_loss(field(pos.to(d)), _to(samples, d),
+                                _to(batch, d), tr.cfg.flags, loss_cfg, 1.0)
+        names = [n for n, _ in field.named_parameters()]
+        grads = torch.autograd.grad(loss, list(field.parameters()))
+        out.append((float(loss.detach()),
+                    {n: g.detach().cpu() for n, g in zip(names, grads)}))
+        del field
+    return out[0], out[1], int(samples.valid.sum())
+
+
+def options_phase(torch, kernels, dev, card, ds) -> dict:
+    """Phase 16: the JAX trainer's options at full width on the phase-7
+    sphere, each from a random init (module docstring)."""
+    import numpy as np
+    from rnb_neus2_torch.config import TestbedConfig
+    from rnb_neus2_torch.grid import occupancy
+    from rnb_neus2_torch.ops import ray_march
+    from rnb_neus2_torch.render.losses import quantize_grads_fp16
+    from rnb_neus2_torch.train.sampler import draw_uniforms
+    from rnb_neus2_torch.train.trainer import Trainer, light_generator
+
+    base = ROOT / "rnb_neus2_torch" / "configs" / "nerf" / "base.json"
+    out = {}
+
+    # the unmodified default config over the same steps, for comparison
+    tr = Trainer(ds, TestbedConfig(), device=dev)
+    out["default"] = _train_counted(torch, kernels, tr, OPT_EMU_STEPS,
+                                    "default")
+    out["default"]["card"] = card
+    del tr
+
+    # (a) aabb_scale 4 as from_network_json gives it: cone 1/256, the
+    # per-level scale of top_resolution·4, the unit-cube march
+    cfg = TestbedConfig.from_network_json(str(base), aabb_scale=4.0)
+    if cfg.march.cone_angle != 1.0 / 256.0 or cfg.grid.aabb_scale != 4.0:
+        raise AssertionError(f"from_network_json(aabb_scale=4): {cfg.grid}, "
+                             f"{cfg.march}")
+    tr = Trainer(ds, cfg, device=dev)
+    row = _train_counted(torch, kernels, tr, OPT_AABB_STEPS, "aabb_scale_4")
+    row["card"] = card
+    # a 3-cascade grid from the trained field, marched at cone 1/256 over
+    # the cube [−1.5, 2.5]³ on the card and by the CPU port
+    C, G = 3, occupancy.NERF_GRIDSIZE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    pts = occupancy.cascade_cell_positions(G, C, gen, dev)
+    with torch.no_grad():
+        dens = torch.cat([tr.field.density(p) for p in pts.split(1 << 20)])
+    state = occupancy.update_cascaded(
+        occupancy.init_state_cascaded(G, C, dev), dens.reshape(C, -1))
+    rng = np.random.default_rng(16)
+    R = 4096
+    o = rng.normal(size=(R, 3))
+    o = 0.5 + 3.6 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = 0.5 + (rng.random((R, 3)) - 0.5) * 0.8 - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    args = [torch.as_tensor(a.astype(np.float32))
+            for a in (o, d, rng.random(R))]
+    marched = []
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        m = ray_march.march(args[0].to(where), args[1].to(where),
+                            state.bitfield.to(where), args[2].to(where),
+                            cfg.march.n_ladder, 256, 1.0 / 256.0,
+                            aabb_scale=4.0)
+        if where != "cpu":
+            torch.cuda.synchronize()
+        marched.append((_to(m, "cpu"), time.perf_counter() - t0))
+    (mc, card_s), (mh, cpu_s) = marched
+    t_rel = float(((mc.t - mh.t).abs() / mh.t.abs().clamp_min(1e-30))
+                  [mh.valid].max()) if bool(mh.valid.any()) else 0.0
+    march_row = {
+        "rays": R, "cascades": C, "occupied_cells": [
+            int(b.sum()) for b in state.bitfield],
+        "valid_equal": torch.equal(mc.valid, mh.valid),
+        "n_valid_equal": torch.equal(mc.n_valid, mh.n_valid),
+        "valid_samples": int(mh.valid.sum()),
+        "n_valid_sum": int(mh.n_valid.sum()),
+        "valid_differ": int((mc.valid != mh.valid).sum()),
+        "t_max_rel_err": t_rel, "card_s": card_s, "cpu_s": cpu_s}
+    log("options_cascaded_march", **march_row)
+    row["cascaded_march"] = march_row
+    out["aabb_scale_4"] = row
+    if not (march_row["valid_equal"] and march_row["n_valid_equal"]
+            and t_rel <= 1e-6 and march_row["valid_samples"] > 0):
+        raise AssertionError(f"cascaded march card vs CPU: {march_row}")
+    del tr, pts, dens, state
+
+    # (b) the fp16 and rollover gradient emulations together
+    cfg = TestbedConfig()
+    emu = dataclasses.replace(cfg, loss=dataclasses.replace(
+        cfg.loss, fp16_grad_emulation=True, rollover_grad_emulation=True))
+    tr = Trainer(ds, emu, device=dev)
+    row = _train_counted(torch, kernels, tr, OPT_EMU_STEPS, "emulations")
+    (lc, gc), (lh, gh), n_valid = _card_vs_cpu_grads(
+        torch, tr, emu.loss, 4096, 161)
+    qc = quantize_grads_fp16(gc)
+    qh = quantize_grads_fp16(gh)
+    not_fp16 = [k for k, g in qc.items()
+                if not torch.equal((g * 128.0).half().float(), g * 128.0)]
+    rel_l2 = lambda a, b: {k: float((a[k] - g).norm()
+                                    / g.norm().clamp_min(1e-30))
+                           for k, g in b.items()}
+    rel = rel_l2(qc, qh)
+    agree = {"valid_samples": n_valid, "loss_card": lc, "loss_cpu": lh,
+             "grad_rel_l2": rel, "unquantized_rel_l2": rel_l2(gc, gh),
+             "not_fp16_over_128": not_fp16,
+             "table_zero_entries_card": int((qc["hash_table"] == 0).sum()),
+             "table_zero_entries_cpu": int((qh["hash_table"] == 0).sum())}
+    log("options_emulation_card_vs_cpu", **agree)
+    row["card_vs_cpu"] = agree
+    row["card"] = card
+    out["emulations"] = row
+    if not_fp16 or max(rel.values()) > 2e-3 or not math.isclose(
+            lc, lh, rel_tol=1e-5):
+        raise AssertionError(f"emulation gradients card vs CPU: {agree}")
+    del tr
+
+    # (c) light_prng_salt: one step's draws against salt 0
+    draws = []
+    for salt in (0, 1):
+        g = torch.Generator(device=dev)
+        g.manual_seed(cfg.train.seed)
+        lg = light_generator(dataclasses.replace(
+            cfg.train, light_prng_salt=salt), dev)
+        draws.append(draw_uniforms(1 << 14, g, dev, False, lg))
+    same = {f: torch.equal(getattr(draws[0], f), getattr(draws[1], f))
+            for f in ("xy", "skip", "start", "light_idx")}
+    salted = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, light_prng_salt=1))
+    tr = Trainer(ds, salted, device=dev)
+    row = _train_counted(torch, kernels, tr, OPT_SALT_STEPS, "light_salt")
+    row.update(draws_equal=same, card=card)
+    log("options_light_salt", draws_equal=same)
+    out["light_salt"] = row
+    if same != {"xy": True, "skip": True, "start": True,
+                "light_idx": False}:
+        raise AssertionError(f"salted draws: {same}")
+    del tr
+
+    # (d) bfloat16 compute
+    bf = dataclasses.replace(cfg, network=dataclasses.replace(
+        cfg.network, compute_dtype="bfloat16"))
+    tr = Trainer(ds, bf, device=dev)
+    row = _train_counted(torch, kernels, tr, OPT_BF16_STEPS, "bfloat16")
+    (lc, gc), (lh, gh), n_valid = _card_vs_cpu_grads(
+        torch, tr, bf.loss, 4096, 162)
+    worst = {k: float((gc[k] - g).abs().max() / g.abs().max().clamp_min(
+        1e-30)) for k, g in gh.items()}
+    agree = {"valid_samples": n_valid, "loss_card": lc, "loss_cpu": lh,
+             "grad_max_err_of_max": worst}
+    log("options_bf16_card_vs_cpu", **agree)
+    row.update(card_vs_cpu=agree, card=card)
+    out["bfloat16"] = row
+    if max(worst.values()) > 3e-2 or not math.isclose(lc, lh, rel_tol=2e-2):
+        raise AssertionError(f"bf16 card vs CPU: {agree}")
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fit_counted(torch, kernels, label: str, fit) -> dict:
+    """`fit()` → (loss, extra dict), with both kernels' launches counted
+    and its seconds."""
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.reset_launches()
+    t0 = time.perf_counter()
+    loss, extra = fit()
+    torch.cuda.synchronize()
+    row = {"fit": label, "loss": loss, "seconds": time.perf_counter() - t0,
+           "launches": {n: k.launches for n, k in kernels.items()}, **extra}
+    return row
+
+
+def extra_modes_phase(torch, kernels, dev, card, work: Path) -> dict:
+    """Phase 17: the Image, Sdf and Volume workloads on the card at the
+    JAX tests' sizes (module docstring)."""
+    import numpy as np
+    from rnb_neus2_torch import api
+    from rnb_neus2_torch.config import HashGridConfig
+    from rnb_neus2_torch.io.image_io import save_image
+    from rnb_neus2_torch.models import extra_modes as em
+    from rnb_neus2_torch.ops import hash_encoding as he
+    from rnb_neus2_torch.testing.synthetic import icosphere
+
+    def per_step(grid, steps):
+        static = he.HashGridStatic(grid)
+        small = len(he.levels_through_kernel(static))
+        return {"hash_grad_small": small * steps,
+                "scatter_add": (grid.n_levels - small) * steps}
+
+    rows = {}
+    H = W = 48
+    ys, xs = np.mgrid[0:H, 0:W]
+    img = np.stack([np.sin(xs / 6.0) * 0.5 + 0.5,
+                    np.cos(ys / 9.0) * 0.5 + 0.5,
+                    ((xs + ys) % 16) / 16.0], -1).astype(np.float32)
+
+    def image():
+        f = em.ImageField(device=dev)
+        params, loss = f.fit(img, n_steps=EXTRA_STEPS["image"], batch=4096)
+        mse = float(np.mean((f.render(params, W, H) - img) ** 2))
+        return loss, {"render_mse": mse}
+
+    rows["image"] = _fit_counted(torch, kernels, "image", image)
+    rows["image"]["launches_expected"] = {
+        "hash_grad_small": 0,
+        "scatter_add": em.Hash2D().n_levels * EXTRA_STEPS["image"]}
+    V, F = icosphere(0.3, (0.5, 0.5, 0.5), subdiv=2)
+    sdf_grid = HashGridConfig(n_levels=4, top_resolution=64)
+    fields = {}
+
+    def sdf_hash():
+        f = em.SdfField(sdf_grid, device=dev)
+        _, loss = f.fit(V, F, n_steps=EXTRA_STEPS["sdf"], batch=2048)
+        fields["sdf"] = f
+        return loss, {"iou": f.calculate_iou(n_samples=1 << 13)}
+
+    rows["sdf_hash"] = _fit_counted(torch, kernels, "sdf_hash", sdf_hash)
+    rows["sdf_hash"]["launches_expected"] = per_step(sdf_grid,
+                                                     EXTRA_STEPS["sdf"])
+
+    def sdf_takikawa():
+        f = em.SdfField(encoding="takikawa", octree_depth=6,
+                        octree_starting_level=3, device=dev)
+        _, loss = f.fit(V, F, n_steps=EXTRA_STEPS["takikawa"],
+                        batch=1 << 11)
+        levels = sum(len(k) > 0 for k in f.octree.cell_keys)
+        return loss, {"iou": f.calculate_iou(n_samples=1 << 13),
+                      "octree_levels": levels,
+                      "octree_vertices": f.octree.n_vertices}
+
+    rows["sdf_takikawa"] = _fit_counted(torch, kernels, "sdf_takikawa",
+                                        sdf_takikawa)
+    rows["sdf_takikawa"]["launches_expected"] = {
+        "hash_grad_small": 0, "scatter_add":
+            rows["sdf_takikawa"]["octree_levels"] * EXTRA_STEPS["takikawa"]}
+    g = np.mgrid[0:24, 0:24, 0:24] / 24.0
+    vol = np.exp(-(((g - 0.5) ** 2).sum(0)) / 0.05).astype(np.float32)
+    vol_grid = HashGridConfig(n_levels=4, top_resolution=32)
+
+    def volume():
+        f = em.VolumeField(vol_grid, device=dev)
+        _, loss = f.fit(vol, n_steps=EXTRA_STEPS["volume"], batch=4096)
+        fields["volume"] = f
+        return loss, {}
+
+    rows["volume"] = _fit_counted(torch, kernels, "volume", volume)
+    rows["volume"]["launches_expected"] = per_step(vol_grid,
+                                                   EXTRA_STEPS["volume"])
+    # frames of the fitted SDF (shade) and volume
+    t0 = time.perf_counter()
+    shade = fields["sdf"].render(W=256, H=256, mode="shade")
+    t1 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    frame = fields["volume"].render(W=256, H=256, generator=gen)
+    t2 = time.perf_counter()
+    renders = {"sdf_shade_finite": bool(np.isfinite(shade).all()),
+               "sdf_coverage": float(shade[..., 3].mean()),
+               "sdf_shade_s": t1 - t0,
+               "volume_finite": bool(np.isfinite(frame).all()),
+               "volume_mean": float(frame[..., :3].mean()),
+               "volume_s": t2 - t1}
+    log("extra_renders", **renders)
+    # the Testbed facade, Image mode, from a PNG on disk
+    path = str(work / "pattern.png")
+    save_image(img, path, bit_depth=16)
+    tb = api.Testbed(api.TestbedMode.Image, device=dev)
+    tb.load_training_data(path)
+    frames = sum(tb.frame() for _ in range(4))
+    tb.train(EXTRA_TESTBED_STEPS - 4)
+    out_img = tb.render_to_cpu()
+    testbed = {"mode": "Image", "frames": frames, "step": tb.training_step,
+               "loss": tb.loss, "image_shape": list(out_img.shape),
+               "render_mse": float(np.mean((out_img - img) ** 2))}
+    log("extra_testbed", **testbed)
+    for r in rows.values():
+        r["card"] = card
+        log("extra_fit", **r)
+    failed = [k for k, r in rows.items()
+              if r["launches"] != r["launches_expected"]
+              or not math.isfinite(r["loss"])]
+    gates = {"image": rows["image"]["loss"] < 5e-3
+             and rows["image"]["render_mse"] < 1e-2,
+             "sdf_hash": rows["sdf_hash"]["loss"] < 5e-3
+             and rows["sdf_hash"]["iou"] > 0.9,
+             "sdf_takikawa": rows["sdf_takikawa"]["iou"] > 0.5,
+             "volume": rows["volume"]["loss"] < 5e-3,
+             "renders": renders["sdf_shade_finite"]
+             and renders["volume_finite"] and renders["sdf_coverage"] > 0,
+             "testbed": frames == 4
+             and tb.training_step == EXTRA_TESTBED_STEPS
+             and out_img.shape == (H, W, 3)
+             and testbed["render_mse"] < 5e-2}
+    if failed or not all(gates.values()):
+        raise AssertionError(f"extra modes: launches/loss {failed}, "
+                             f"gates {gates}")
+    return {"fits": rows, "renders": renders, "testbed": testbed}
+
+
 def main() -> int:
     signal.alarm(WALL_LIMIT_S)
     import torch
@@ -1856,6 +2266,12 @@ def main() -> int:
         piped = pipeline_phase(torch, kernels, card)
         testbed_phase(torch, dev, card, Path(work))
     dyn = dynamic_phase(torch, kernels, dev, card)
+    from rnb_neus2_torch.testing.synthetic import sphere_dataset
+    ds = sphere_dataset(**SPHERE, device=dev)
+    opts = options_phase(torch, kernels, dev, card, ds)
+    del ds
+    with tempfile.TemporaryDirectory() as work:
+        extra = extra_modes_phase(torch, kernels, dev, card, Path(work))
     for row in rows:
         row["launches_pipeline"] = piped["launches"][row["name"]]
         row["pipeline_steps"] = piped["step_bodies"]
@@ -1865,6 +2281,10 @@ def main() -> int:
             refined[k]["launches"][row["name"]] for k in ("pose", "focal"))
         row["launches_dense_adam"] = \
             refined["dense_adam"]["launches"][row["name"]]
+        row["launches_options"] = {k: r["launches"][row["name"]]
+                                   for k, r in opts.items()}
+        row["launches_extra_modes"] = {
+            k: r["launches"][row["name"]] for k, r in extra["fits"].items()}
     log("done", card=card, total_s=time.perf_counter() - T0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,14 +13,17 @@ the PyTorch port, on the card unless `device="cpu"` asks for the CPU.
 >>> while tb.frame(): ...
 >>> mesh = tb.compute_marching_cubes_mesh(resolution=(512,) * 3)
 
-Only the Nerf mode is ported: the Image, Sdf and Volume workloads of the
-JAX package (`models/extra_modes.py`) are not (ROADMAP.md), and asking for
-one raises.
+The Image, Sdf and Volume modes drive `models/extra_modes.py` through the
+same verbs (`load_training_data`, `frame`/`train`, `render_to_cpu`,
+`calculate_iou`, `training_step`, `loss`), as the JAX package's
+`_ExtraModeDriver` does. A Nerf scene whose transform.json says another
+`aabb_scale` than the configuration is refused (`check_scene`).
 """
 
 from __future__ import annotations
 
 import enum
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -38,17 +41,73 @@ class TestbedMode(enum.Enum):
     Volume = "volume"
 
 
+class _ExtraModeDriver:
+    """Drives the Image, Sdf and Volume workloads (`models/extra_modes.py`)
+    through the Testbed's verbs, as pyngp exposes every ETestbedMode
+    through one class (python_api.cu:219-616, common.h:153)."""
+
+    def __init__(self, mode: TestbedMode, device):
+        from .models import extra_modes as em
+
+        self.mode = mode
+        self.field = {TestbedMode.Image: em.ImageField,
+                      TestbedMode.Sdf: em.SdfField,
+                      TestbedMode.Volume: em.VolumeField}[mode](
+                          device=device)
+        self.params = None
+        self.state = None
+        self.step = 0
+        self.loss = 0.0
+        self._data = None
+
+    def load(self, source) -> None:
+        """source: an image path or array (Image), an OBJ path or (V, F)
+        (Sdf), a .npy path or a dense array (Volume), the per-mode
+        dispatch of Testbed::load_training_data."""
+        if self.mode == TestbedMode.Image:
+            if isinstance(source, (str, os.PathLike)):
+                from .io.image_io import load_image
+                source = load_image(str(source))[..., :3]
+            self._data = (np.asarray(source, np.float32),)
+        elif self.mode == TestbedMode.Sdf:
+            if isinstance(source, (str, os.PathLike)):
+                from .mesh.writer import load_obj
+                source = load_obj(str(source))
+            self._data = (np.asarray(source[0], np.float32),
+                          np.asarray(source[1]))
+        else:
+            if isinstance(source, (str, os.PathLike)):
+                source = np.load(str(source))
+            self._data = (np.asarray(source, np.float32),)
+
+    def train(self, n_steps: int) -> None:
+        if self._data is None:
+            raise RuntimeError("load_training_data first")
+        self.params, self.state, self.loss = self.field.fit(
+            *self._data, n_steps=n_steps, seed=self.step,
+            params=self.params, state=self.state, return_state=True)
+        self.step += n_steps
+
+    def render(self, W: int = 0, H: int = 0) -> np.ndarray:
+        if self.params is None:
+            raise RuntimeError("train first")
+        if self.mode == TestbedMode.Image:
+            img = self._data[0]
+            return self.field.render(self.params, W or img.shape[1],
+                                     H or img.shape[0])
+        # Sdf: the sphere-traced BRDF shade (testbed_sdf.cu); Volume: the
+        # ratio-tracked density (testbed_volume.cu)
+        return self.field.render(self.params, W=W or 256, H=H or 256)
+
+
 class Testbed:
-    """Facade over `Trainer`, the renderer and mesh extraction."""
+    """Facade over `Trainer`, the renderer and mesh extraction, or over
+    an extra mode's field (`_ExtraModeDriver`)."""
 
     def __init__(self, mode: TestbedMode = TestbedMode.Nerf,
                  config: Optional[object] = None, device=None):
         from .config import TestbedConfig
 
-        if mode != TestbedMode.Nerf:
-            raise ValueError(
-                f"TestbedMode.{mode.name}: the Image, Sdf and Volume modes "
-                "(models/extra_modes.py) are not ported; only Nerf is")
         self.mode = mode
         self.device = resolve_device(device)
         self.cfg = config or TestbedConfig()
@@ -60,14 +119,21 @@ class Testbed:
         # optional lat-long RGBA background texture (render/envmap.py,
         # the reference's envmap.cuh); None = constant background_color
         self.envmap: Optional[torch.Tensor] = None
+        self._extra = (None if mode == TestbedMode.Nerf
+                       else _ExtraModeDriver(mode, self.device))
 
     # -- data ----------------------------------------------------------------
 
     def load_training_data(self, source) -> None:
+        if self._extra is not None:
+            self._extra.load(source)
+            return
         from .io.dataset import load_transform_json
-        from .train.trainer import Trainer
+        from .train.trainer import Trainer, check_scene
 
-        self._dataset = load_transform_json(str(source), self.device)
+        dataset = load_transform_json(str(source), self.device)
+        check_scene(dataset.meta, self.cfg)
+        self._dataset = dataset
         self._trainer = Trainer(self._dataset, self.cfg, device=self.device)
 
     def set_camera_intrinsics(self, frame_idx: int, fx: float = 0.0,
@@ -126,19 +192,26 @@ class Testbed:
         (Testbed::frame, testbed.cu:1826-1919)."""
         if not self.shall_train or self.training_step >= self.max_iter:
             return False
-        self._trainer.train_step()
+        self.train(1)
         return True
 
     def train(self, n_steps: int) -> None:
+        if self._extra is not None:
+            self._extra.train(n_steps)
+            return
         for _ in range(n_steps):
             self._trainer.train_step()
 
     @property
     def training_step(self) -> int:
+        if self._extra is not None:
+            return self._extra.step
         return self._trainer.step if self._trainer else 0
 
     @property
     def loss(self) -> float:
+        if self._extra is not None:
+            return self._extra.loss
         return self._trainer.loss_ema.value if self._trainer else 0.0
 
     @property
@@ -157,9 +230,12 @@ class Testbed:
 
     # -- rendering ---------------------------------------------------------------
 
-    def render_to_cpu(self, view_idx: int = 0, max_samples: int = 256
-                      ) -> np.ndarray:
-        """Render a training view → (H, W, 4) float RGBA."""
+    def render_to_cpu(self, view_idx: int = 0, max_samples: int = 256,
+                      W: int = 0, H: int = 0) -> np.ndarray:
+        """Render a training view → (H, W, 4) float RGBA. W and H set the
+        size of an extra mode's frame (pyngp render(width, height))."""
+        if self._extra is not None:
+            return self._extra.render(W, H)
         from .render.renderer import render_view
 
         out = render_view(self._trainer.field,
@@ -231,7 +307,14 @@ class Testbed:
         """Volumetric IoU between the learned SDF and a ground-truth SDF
         callable over [0, 1]³ (Testbed::calculate_iou, testbed.h:378), at
         `n_samples` uniform points drawn from a generator seeded with
-        `seed`."""
+        `seed`. In Sdf mode the ground truth is the loaded mesh, at up to
+        2^15 points."""
+        if self._extra is not None:
+            if self.mode != TestbedMode.Sdf:
+                raise ValueError(f"calculate_iou in {self.mode}: Nerf or "
+                                 "Sdf only")
+            return self._extra.field.calculate_iou(min(n_samples, 1 << 15),
+                                                   seed)
         if gt_sdf is None:
             raise ValueError("calculate_iou needs a gt_sdf callable")
         from .mesh.extract import _bind

@@ -13,8 +13,9 @@ with the reference executable (src/main.cu:90-258):
 Every flag of the JAX CLI parses. The run is on the card unless `--device
 cpu` asks for the CPU. A flag whose feature the port does not have exits
 with code 2 and names it: `--n-chips` > 1 (data parallelism) and any
-configuration `check_ported` refuses (the fp16 and rollover gradient
-emulations, among others). Nothing else runs in their place.
+configuration `check_ported` refuses. So does a scene whose transform.json
+says another `aabb_scale` than the configuration (`check_scene`). Nothing
+else runs in their place.
 
 Behaviour (main.cu:283-470): L2 unless --lone, RGB+ unless --no-rgbplus;
 `iteration=N loss=X` every 100 steps (main.cu:447-449); --snapshot
@@ -89,7 +90,7 @@ def build_argparser():
                         "backward; 0 = exact 8-corner (default: config)")
     p.add_argument("--fp16-grad-emu", type=int, default=None,
                    help="1/0: the reference's fp16 loss-gradient chain "
-                        "(not ported; default: config)")
+                        "(default: config)")
     p.add_argument("--rgbplus-ref-jacobian", action="store_true",
                    help="the reference's RGB+ L2 jacobian inside the "
                         "clamped region (LossConfig.rgbplus_ref_jacobian)")
@@ -101,7 +102,7 @@ def build_argparser():
                         "evaluations (0 = all levels)")
     p.add_argument("--rollover-grad-emu", type=int, default=None,
                    help="1/0: the reference's rollover-padded backward "
-                        "(not ported; default: config)")
+                        "(default: config)")
     p.add_argument("--adapt-to-kept", type=int, default=None,
                    help="1/0: adaptive rays/batch divides by the "
                         "contributing sample count (default: config)")
@@ -211,7 +212,7 @@ def run(args) -> int:
     from ..io.dataset import load_transform_json
     from ..mesh import extract, writer
     from ..train import snapshot as snap
-    from ..train.trainer import Trainer, check_ported
+    from ..train.trainer import Trainer, check_ported, check_scene
     from ..utils.diagnostics import profile_trace
     from ..utils.meters import Logger
 
@@ -231,6 +232,11 @@ def run(args) -> int:
     os.makedirs(out_dir, exist_ok=True)
 
     dataset = load_transform_json(scene, device)
+    try:
+        check_scene(dataset.meta, cfg)
+    except ValueError as e:
+        logger.error(f"not run: {e}")
+        return 2
     logger.info(f"Loaded {dataset.n_images} views "
                 f"{dataset.resolution[0]}x{dataset.resolution[1]} "
                 f"on {device}")

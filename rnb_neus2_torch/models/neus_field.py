@@ -15,7 +15,12 @@ Reimplements the reference's `NerfNetwork` (nerf_network.h):
   so not computed) | xyz (3) | ∇sdf (3)], first layer as three blocks
   (w_feat, w_xyz, w_grad);
 - trainable scalar variance, init 0.3, inv_s = exp(10·v);
-- geometric (SAL) init of the SDF MLP.
+- geometric (SAL) init of the SDF MLP;
+- `compute_dtype` "bfloat16": every product of the two MLPs and their
+  jacobian chains on bfloat16-rounded operands with float32 accumulation,
+  the JAX package's mixed precision (`ops/mlp.py:dot`); outputs, the ReLU
+  masks, the first layer's xyz column in the jacobian (w_x, as JAX keeps
+  it) and the table cotangent stay float32.
 
 Parameters (float32 masters): `hash_table` (T, F); `sdf_w_x`, `sdf_w_enc`
 and `sdf_rest.i`; `rgb_w_feat`, `rgb_w_xyz`, `rgb_w_grad` and
@@ -35,7 +40,7 @@ from torch import nn
 from ..config import HashGridConfig, NetworkConfig
 from ..device import resolve_device
 from ..ops import hash_encoding
-from ..ops.mlp import apply_mlp, xavier_uniform
+from ..ops.mlp import COMPUTE_DTYPES, apply_mlp, dot, xavier_uniform
 
 # parameters that are matrices (L2 regularized, always updated by Adam)
 MATRIX_PREFIXES = ("sdf_", "rgb_")
@@ -46,9 +51,9 @@ class NeusField(nn.Module):
     def __init__(self, grid: HashGridConfig, net: NetworkConfig,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
-        if net.compute_dtype != "float32":
-            raise ValueError(f"compute_dtype {net.compute_dtype!r}: the port "
-                             "computes in float32 only")
+        if net.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {net.compute_dtype!r}: one of "
+                             f"{COMPUTE_DTYPES}")
         dev = resolve_device(device)
         self.grid = grid
         self.net = net
@@ -105,13 +110,17 @@ class NeusField(nn.Module):
 
     # -- SDF ---------------------------------------------------------------
 
+    def _dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return dot(a, b, self.net.compute_dtype)
+
     def sdf_features(self, x: torch.Tensor, valid_level: int | None = None,
                      n_active: int | None = None) -> torch.Tensor:
         """(N,3)→(N,16) raw SDF-MLP output (row 0 + bias = sdf)."""
-        enc = hash_encoding.encode_columns(self.hash_table, x, self.static,
-                                           valid_level, n_active)
-        h = torch.relu((x - 0.5) @ self.sdf_w_x.T + enc @ self.sdf_w_enc.T)
-        return apply_mlp(list(self.sdf_rest), h)
+        enc = hash_encoding.encode(self.hash_table, x, self.static,
+                                   valid_level, n_active)
+        h = torch.relu(self._dot(x - 0.5, self.sdf_w_x.T)
+                       + self._dot(enc, self.sdf_w_enc.T))
+        return apply_mlp(list(self.sdf_rest), h, self.net.compute_dtype)
 
     def sdf(self, x: torch.Tensor, valid_level: int | None = None,
             n_active: int | None = None) -> torch.Tensor:
@@ -133,21 +142,23 @@ class NeusField(nn.Module):
                 self.hash_table, x, self.static, valid_level)
         else:
             enc, jac = self._encode_jac(x, valid_level, n_active)
+        dot_ = self._dot
         w_x, w_enc = self.sdf_w_x, self.sdf_w_enc
-        pre = (x - 0.5) @ w_x.T + enc @ w_enc.T
+        pre = dot_(x - 0.5, w_x.T) + dot_(enc, w_enc.T)
         h = torch.relu(pre)
         act = (pre > 0).to(h.dtype)
-        jh = [act * (w_x[None, :, d] + jac[d] @ w_enc.T) for d in range(3)]
+        jh = [act * (w_x[None, :, d] + dot_(jac[d], w_enc.T))
+              for d in range(3)]
         rest = list(self.sdf_rest)
         for wl in rest[:-1]:
-            pre = h @ wl.T
+            pre = dot_(h, wl.T)
             act = (pre > 0).to(h.dtype)
             h = torch.relu(pre)
-            jh = [act * (j @ wl.T) for j in jh]
+            jh = [act * dot_(j, wl.T) for j in jh]
         w_out = rest[-1]
-        feats = h @ w_out.T
+        feats = dot_(h, w_out.T)
         sdf = feats[:, 0] + self.net.sdf_bias
-        grad = torch.stack([j @ w_out[0] for j in jh], dim=-1)
+        grad = torch.stack([dot_(j, w_out[0]) for j in jh], dim=-1)
         return sdf, grad, feats
 
     # -- full field ---------------------------------------------------------
@@ -161,9 +172,11 @@ class NeusField(nn.Module):
         dict."""
         sdf, grad, feats = self.sdf_and_grad(x, valid_level, n_active,
                                              differentiable_positions)
-        h = torch.relu(feats @ self.rgb_w_feat.T + x @ self.rgb_w_xyz.T
-                       + grad @ self.rgb_w_grad.T)
-        rgb_out = apply_mlp(list(self.rgb_rest), h)
+        dot_ = self._dot
+        h = torch.relu(dot_(feats, self.rgb_w_feat.T)
+                       + dot_(x, self.rgb_w_xyz.T)
+                       + dot_(grad, self.rgb_w_grad.T))
+        rgb_out = apply_mlp(list(self.rgb_rest), h, self.net.compute_dtype)
         return {
             "albedo_raw": rgb_out[:, :3],
             "sdf": sdf,

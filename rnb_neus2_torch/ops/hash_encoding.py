@@ -31,6 +31,13 @@ whose geometry is trainable: the same outputs at all levels, the exact
 table gradient, and the positions' cotangent (`position_cotangent`: the
 first- and second-order terms of the trilinear weights).
 
+`encode` is the features-only encode (the JAX package's `encode`, which
+`jax.grad` differentiates): the forward of `encode_columns`, and a
+backward that adds the exact 8-corner table gradient through the same two
+kernels and, when the positions require it, their first-order cotangent.
+The field's SDF-only path (`NeusField.sdf_features`) and the extra
+modes' volume and SDF fields train through it.
+
 Not ported, because they exist only for the TPU's layout: the `level_tables`
 optimization barrier, the corner-redundant rows-of-16 tables
 (`dense_corner_tables`, `grad_nbhd16`) and the `RNB_SCATTER_MODE` modes.
@@ -267,13 +274,14 @@ def level_corner_cotangents(positions: torch.Tensor, static: HashGridStatic,
     """(idx (N, 8) int64, src (N, 8, F)) of one level: each corner's table
     index and its cotangent src_c = w_c·g_out + Σ_d dw_{c,d}·g_jac_d (the
     jacobian cotangents scaled by the lattice scale), in the JAX package's
-    order of operations; `m` is the level's unlock mask."""
+    order of operations; `m` is the level's unlock mask. g_jac None: the
+    features-only encode, src_c = w_c·g_out."""
     F = static.cfg.n_features_per_level
     idx, w, dw, scale = _level_corner_arrays(positions, static, lvl)
     sl = slice(lvl * F, (lvl + 1) * F)
     go = g_out[:, sl] * m
     src = w[..., None] * go[:, None, :]                             # (N,8,F)
-    for d in range(3):
+    for d in range(3 if g_jac is not None else 0):
         gj = g_jac[d][:, sl] * (scale * m)
         src = src + dw[..., d, None] * gj[:, None, :]
     return idx, src
@@ -347,11 +355,12 @@ def position_cotangent(table: torch.Tensor, positions: torch.Tensor,
     with A_d = Σ_c dw_{c,d}·feat_c and B_{e,d} = Σ_c sd_e·sd_d·wd_o·feat_c
     (o the third axis) the second derivative of the multilinear weights,
     whose diagonal is zero; the level's unlock mask multiplies both terms.
-    Plain PyTorch, batched over corners and axes: it gathers each level's
-    corner features again."""
+    g_jac None (the features-only encode): the first term alone. Plain
+    PyTorch, batched over corners and axes: it gathers each level's corner
+    features again."""
     F = static.cfg.n_features_per_level
     sdp, third, p0, p1, e0, e1 = _cotangent_constants(positions.device)
-    g_j = torch.stack(g_jac, 1)                                     # (N,3,LF)
+    g_j = torch.stack(g_jac, 1) if g_jac is not None else None     # (N,3,LF)
     g = positions.new_zeros(positions.shape[0], 3)
     for lvl in range(La):
         m = mask[lvl]
@@ -363,18 +372,21 @@ def position_cotangent(table: torch.Tensor, positions: torch.Tensor,
         # dw_{c,d} = sd_d · Π_{e≠d} wd_e; H_{c,p} = sd_e·sd_d·wd_o
         wx, wy, wz = wd[..., 0], wd[..., 1], wd[..., 2]
         dw = sd * torch.stack([wy * wz, wx * wz, wx * wy], -1)      # (N,8,3)
-        h = sdp * wd.index_select(2, third)                         # (N,8,3)
         # per-sample contractions over the 8 corners as broadcast products:
         # as batched 3x8 by 8xF matmuls (einsum) they were a fifth of a
         # delta step's device time on the card
         f4 = feats[:, :, None, :]
         A = (dw[..., None] * f4).sum(1)                             # (N,3,F)
+        first = (g_out[:, None, sl] * A).sum(-1)
+        g = g + (scale * m) * first
+        if g_j is None:
+            continue
+        h = sdp * wd.index_select(2, third)                         # (N,8,3)
         B = (h[..., None] * f4).sum(1)                              # (N,3,F)
         gj = g_j[:, :, sl]                                          # (N,3,F)
         second = (gj.index_select(1, e0) * B.index_select(1, p0)
                   + gj.index_select(1, e1) * B.index_select(1, p1)).sum(-1)
-        first = (g_out[:, None, sl] * A).sum(-1)
-        g = g + (scale * m) * first + (scale * scale * m) * second
+        g = g + (scale * scale * m) * second
     return g
 
 
@@ -403,27 +415,75 @@ class _EncodeWithJacobian(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, g_jx, g_jy, g_jz):
         positions, table = ctx.saved_tensors
-        static, La, k = ctx.static, ctx.La, ctx.k
-        F = static.cfg.n_features_per_level
+        static, La = ctx.static, ctx.La
         g_table = g_pos = None
         if ctx.needs_input_grad[0]:
-            g_table = g_out.new_zeros(ctx.n_entries, F)
-            base = _position_hash(positions) if k else None
-            for lvl in range(La):
-                idx, src = level_corner_cotangents(
-                    positions, static, lvl, g_out, (g_jx, g_jy, g_jz),
-                    ctx.mask[lvl])
-                if k:
-                    us = _draws(base, ctx.salt * La + lvl, k)
-                    _, idx, src = pick_corners(idx, src, us, k)
-                off = int(static.offsets[lvl])
-                size = int(static.table_sizes[lvl])
-                level_table_grad(static, lvl, idx.reshape(-1),
-                                 src.reshape(-1, F), g_table[off:off + size])
+            g_table = _table_grad(static, positions, La, ctx.mask, g_out,
+                                  (g_jx, g_jy, g_jz), ctx.n_entries, ctx.k,
+                                  ctx.salt)
         if ctx.position_grad and ctx.needs_input_grad[1]:
             g_pos = position_cotangent(table, positions, static, La,
                                        ctx.mask, g_out, (g_jx, g_jy, g_jz))
         return g_table, g_pos, None, None, None, None, None, None
+
+
+def _table_grad(static: HashGridStatic, positions: torch.Tensor, La: int,
+                mask, g_out: torch.Tensor, g_jac, n_entries: int, k: int = 0,
+                salt: int = 0) -> torch.Tensor:
+    """The (n_entries, F) table gradient of La levels: each level's corner
+    cotangents (`level_corner_cotangents`), all 8 corners (k = 0) or k
+    picked per sample from the stream salt·La + level (`pick_corners`),
+    added in place into the level's rows by `level_table_grad`."""
+    F = static.cfg.n_features_per_level
+    g_table = g_out.new_zeros(n_entries, F)
+    base = _position_hash(positions) if k else None
+    for lvl in range(La):
+        idx, src = level_corner_cotangents(positions, static, lvl, g_out,
+                                           g_jac, mask[lvl])
+        if k:
+            _, idx, src = pick_corners(idx, src, _draws(base, salt * La + lvl,
+                                                        k), k)
+        off = int(static.offsets[lvl])
+        size = int(static.table_sizes[lvl])
+        level_table_grad(static, lvl, idx.reshape(-1), src.reshape(-1, F),
+                         g_table[off:off + size])
+    return g_table
+
+
+class _Encode(torch.autograd.Function):
+    """The features-only encode with the exact 8-corner table gradient
+    (through the two kernels on the card) and the positions' first-order
+    cotangent (`position_cotangent` without the jacobian term)."""
+
+    @staticmethod
+    def forward(ctx, table, positions, static, valid_level, n_active):
+        La = _active(static, n_active)
+        ctx.mask = tuple(_level_mask(La, valid_level))
+        ctx.static, ctx.La, ctx.n_entries = static, La, table.shape[0]
+        ctx.save_for_backward(table, positions)
+        return encode_columns(table, positions, static, valid_level,
+                              n_active)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        table, positions = ctx.saved_tensors
+        g_table = g_pos = None
+        if ctx.needs_input_grad[0]:
+            g_table = _table_grad(ctx.static, positions, ctx.La, ctx.mask,
+                                  g_out, None, ctx.n_entries)
+        if ctx.needs_input_grad[1]:
+            g_pos = position_cotangent(table, positions, ctx.static, ctx.La,
+                                       ctx.mask, g_out, None)
+        return g_table, g_pos, None, None, None
+
+
+def encode(table: torch.Tensor, positions: torch.Tensor,
+           static: HashGridStatic, valid_level: int | None = None,
+           n_active: int | None = None) -> torch.Tensor:
+    """(N, 3) positions → (N, L·F) features (`encode_columns`), with the
+    exact table gradient through the scatter kernels and the positions'
+    cotangent: the JAX package's `encode` under `jax.grad`."""
+    return _Encode.apply(table, positions, static, valid_level, n_active)
 
 
 def make_encode_with_jacobian_cv(static: HashGridStatic,

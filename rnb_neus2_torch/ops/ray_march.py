@@ -18,7 +18,13 @@ inside each ray's first NB = min(K/8, max(32, 2^20/R)) flagged blocks.
 
 `march` (the inference renderer's) keeps each ray's first M valid ladder
 points in order, an (R, M) layout; it too equals the JAX package's bit for
-bit. Cascaded occupancy (aabb_scale > 1) is not ported (ROADMAP.md).
+bit.
+
+`aabb_scale` > 1 marches the cube [0.5 ∓ aabb_scale/2]; given a (C, G³)
+bitfield, both marches consult the cascaded occupancy grid with the
+reference's mip selection (testbed_nerf.cu:569-583, 755-790). The JAX
+package's trainer passes neither, so at aabb_scale > 1 it trains on the
+unit cube and a 1-D bitfield at cone 1/256 (the single-phase path).
 """
 
 from __future__ import annotations
@@ -90,16 +96,26 @@ def _start(ray_o, ray_d, u_start, cone_angle, lo, hi):
     return tmin, tmax, tmin + dt0 * u_start
 
 
-def _ladder_valid(ray_o, ray_d, bitfield, u_start, n_ladder, cone_angle):
-    """(R, K) ladder t, dt, valid, the per-ray valid count, and startt."""
-    lo, hi = 0.0, 1.0
+def _cube(aabb_scale: float):
+    return 0.5 - aabb_scale / 2.0, 0.5 + aabb_scale / 2.0
+
+
+def _ladder_valid(ray_o, ray_d, bitfield, u_start, n_ladder, cone_angle,
+                  aabb_scale: float = 1.0):
+    """(R, K) ladder t, dt, valid, the per-ray valid count, and startt.
+    A (C, G³) bitfield is looked up across its cascades."""
+    lo, hi = _cube(aabb_scale)
     tmin, tmax, startt = _start(ray_o, ray_d, u_start, cone_angle, lo, hi)
     t = t_ladder(startt, n_ladder, cone_angle)               # (R, K)
     dt = _step_size(t, cone_angle)
     pos = ray_o[:, None, :] + t[..., None] * ray_d[:, None, :]
     inside = torch.all((pos >= lo) & (pos <= hi), dim=-1)
     inside &= (tmax > tmin)[:, None]
-    valid = inside & occupancy.lookup(bitfield, pos)
+    if bitfield.dim() == 2:
+        occ = occupancy.lookup_cascaded(bitfield, pos, dt)
+    else:
+        occ = occupancy.lookup(bitfield, pos)
+    valid = inside & occ
     return t, dt, valid, valid.sum(dim=1), startt
 
 
@@ -129,13 +145,10 @@ def march(ray_o: torch.Tensor, ray_d: torch.Tensor, bitfield: torch.Tensor,
     distinct, so `torch.topk` picks the same indices). ray_d must be
     unit-norm; the ladder is trimmed as in `march_flat`, which drops only
     points that are never valid."""
-    if aabb_scale > 1.0:
-        raise ValueError("aabb_scale > 1 (cascaded occupancy) is not ported "
-                         "yet (ROADMAP.md)")
     n_ladder = effective_ladder_points(n_ladder, cone_angle, aabb_scale)
     max_samples = min(max_samples, n_ladder)
     t, dt, valid, n_valid, _ = _ladder_valid(ray_o, ray_d, bitfield, u_start,
-                                             n_ladder, cone_angle)
+                                             n_ladder, cone_angle, aabb_scale)
     k = torch.arange(n_ladder, device=ray_o.device)[None, :]
     key = torch.where(valid, -k, -(n_ladder + k))        # valid sort first
     sel = torch.topk(key, max_samples, dim=1, sorted=True).indices
@@ -216,21 +229,23 @@ def _compact(valid, n_valid, n_slots):
 
 def march_flat(ray_o: torch.Tensor, ray_d: torch.Tensor,
                bitfield: torch.Tensor, u_start: torch.Tensor, n_ladder: int,
-               n_slots: int, cone_angle: float,
+               n_slots: int, cone_angle: float, aabb_scale: float = 1.0,
                blocked: bool | None = None) -> FlatSamples:
     """Global compaction into a fixed S-slot buffer with whole-ray drops
     on budget overflow (the reference's count + atomicAdd compaction,
     testbed_nerf.cu:1332-1364). ray_d must be unit-norm. blocked=None takes
-    the two-phase path at cone 0 (bitwise identical to the single-phase
-    ladder whenever NB == K/8, i.e. R ≤ 8192)."""
-    K = effective_ladder_points(n_ladder, cone_angle)
+    the two-phase path at cone 0 with a 1-D bitfield (bitwise identical to
+    the single-phase ladder whenever NB == K/8, i.e. R ≤ 8192), the
+    single-phase ladder otherwise."""
+    K = effective_ladder_points(n_ladder, cone_angle, aabb_scale)
     if blocked is None:
-        blocked = cone_angle == 0.0 and K % BLOCK == 0 and K >= 64
+        blocked = (cone_angle == 0.0 and bitfield.dim() == 1
+                   and K % BLOCK == 0 and K >= 64)
     if blocked:
         return _march_flat_blocked(ray_o, ray_d, bitfield, u_start, K,
-                                   n_slots, cone_angle)
+                                   n_slots, cone_angle, aabb_scale)
     t, dt, valid, n_valid, startt = _ladder_valid(
-        ray_o, ray_d, bitfield, u_start, K, cone_angle)
+        ray_o, ray_d, bitfield, u_start, K, cone_angle, aabb_scale)
     rid_flat, rid_c, valid_flat, offsets, ray_kept, k_flat = _compact(
         valid, n_valid, n_slots)
     t_flat = torch.where(valid_flat,
@@ -241,7 +256,8 @@ def march_flat(ray_o: torch.Tensor, ray_d: torch.Tensor,
 
 
 def _march_flat_blocked(ray_o, ray_d, bitfield, u_start, K: int,
-                        n_slots: int, cone_angle: float) -> FlatSamples:
+                        n_slots: int, cone_angle: float,
+                        aabb_scale: float = 1.0) -> FlatSamples:
     """Two-phase march (cone 0). Phase A probes each ray's K/8 block
     midpoints against the dilated coarse occupancy (a proven superset).
     Phase B keeps each ray's first NB flagged blocks (order-preserving
@@ -256,7 +272,7 @@ def _march_flat_blocked(ray_o, ray_d, bitfield, u_start, K: int,
     B = BLOCK
     KB = K // B
     NB = _blocked_nb(R, KB)
-    lo, hi = 0.0, 1.0
+    lo, hi = _cube(aabb_scale)
     g = round(bitfield.shape[0] ** (1.0 / 3.0))
     coarse, cg = _coarse_dilated(bitfield, g)
     tmin, tmax, startt = _start(ray_o, ray_d, u_start, cone_angle, lo, hi)

@@ -18,9 +18,23 @@ gradients, including the second-order path through ∇sdf:
 - mask: weight_sum clamped to [1e−4, 1−1e−4] with zero gradient at the
   rails (:1757-1777); sigmoid-BCE by default, plain BCE with --bce.
 
-The JAX package's fp16 loss-gradient and rollover-padding emulations
-(`LossConfig.fp16_grad_emulation`, `rollover_grad_emulation`) are not
-ported; `training_loss` raises if either is set.
+Two emulations of the reference's backward (`LossConfig`; the JAX
+package's `render/losses.py:79-158, 294-340`), off by default:
+- `fp16_grad_emulation`: the loss kernel's dL/doutput rows are fp16 at
+  ×LOSS_SCALE = 128 (testbed.h:237, testbed_nerf.cu:1960-2083), so each
+  output's cotangent passes `fp16_grad_barrier` (g → fp16(clip(128·g))/128,
+  saturating); the variance is broadcast per sample first, so that each
+  sample's dL/dv is quantized before the sum (nerf_network.h:327-340). The
+  trainer quantizes the parameter gradients the same way
+  (`quantize_grads_fp16`);
+- `rollover_grad_emulation`: the rollover-padded compacted backward
+  (fill_rollover_and_rescale, common_device.h:526-535) weights each kept
+  sample's output cotangent by its padded-copy count (`rollover_weights`,
+  from a stop-gradient preview of the keep mask, through
+  `scale_cotangent`).
+The rollover weight goes inside and the fp16 barrier outside, so the
+backward quantizes first and reweights second, as the reference writes
+fp16 then rescales.
 """
 
 from __future__ import annotations
@@ -125,6 +139,82 @@ def mask_losses(weight_sum: torch.Tensor, mask_gt: torch.Tensor,
     return -(mask_gt * torch.log(sig) + (1.0 - mask_gt) * torch.log(1.0 - sig))
 
 
+# the reference's fp16 loss-gradient scale (testbed.h:237) and fp16's
+# largest finite value
+LOSS_SCALE = 128.0
+_FP16_MAX = 65504.0
+
+
+def _quantize_fp16(g: torch.Tensor) -> torch.Tensor:
+    """fp16(clip(128·g))/128: saturating, with fp16's underflow to zero and
+    11-bit rounding (round to nearest even, as JAX's convert)."""
+    gq = torch.clamp(g * LOSS_SCALE, -_FP16_MAX, _FP16_MAX)
+    return gq.to(torch.float16).to(g.dtype) / LOSS_SCALE
+
+
+class FP16GradBarrier(torch.autograd.Function):
+    """Identity whose cotangent is quantized to the fp16 value the
+    reference's backward carries (`_quantize_fp16`). Saturating: a CUDA
+    float→half overflow makes inf, which would poison the reference's Adam
+    moments for good, so a run it survives never overflows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _quantize_fp16(g)
+
+
+def fp16_grad_barrier(x: torch.Tensor) -> torch.Tensor:
+    return FP16GradBarrier.apply(x)
+
+
+def quantize_grads_fp16(grads):
+    """The parameter-gradient half of the emulation: the reference
+    accumulates hash-table scatters and MLP weight gradients in fp16 at
+    the ×128 scale (adam.h:88 divides it back out). A sequence or a dict of
+    gradients, each quantized."""
+    if isinstance(grads, dict):
+        return {k: _quantize_fp16(g) for k, g in grads.items()}
+    return [_quantize_fp16(g) for g in grads]
+
+
+class ScaleCotangent(torch.autograd.Function):
+    """Identity in value; the backward multiplies the cotangent by `w`,
+    which gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(w)
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        return g * w, None
+
+
+def scale_cotangent(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return ScaleCotangent.apply(x, w)
+
+
+def rollover_weights(keep: torch.Tensor) -> torch.Tensor:
+    """Per-slot gradient weight of the rollover-padded compacted backward:
+    the n kept samples fill a fixed S-row network batch, rows [n, S)
+    repeating row (i mod n) with dL/doutput rescaled by n/S, so the kept
+    sample of compaction rank r carries 1 + ⌊(S−1−r)/n⌋·(n/S). Slots not
+    kept get 1 (their cotangent is already zero)."""
+    S = keep.shape[0]
+    k = keep.to(torch.int64)
+    n = torch.clamp_min(k.sum(), 1)
+    rank = torch.cumsum(k, 0) - 1
+    copies = torch.div(S - 1 - rank, n, rounding_mode="floor")
+    w = 1.0 + copies.to(torch.float32) * (n.to(torch.float32) / S)
+    return torch.where(keep, w, torch.ones_like(w))
+
+
 def _segment_sum(values: torch.Tensor, seg_ids: torch.Tensor,
                  n_segments: int) -> torch.Tensor:
     out = values.new_zeros((n_segments,) + values.shape[1:])
@@ -142,9 +232,6 @@ def training_loss(field_out: Dict[str, torch.Tensor], samples,
     per-ray exclusive transmittance is a segmented log-space prefix sum
     (cumsum(log(1−α)) re-based at each ray's first slot), and per-ray
     reductions are segment sums keyed by ray_id."""
-    if cfg.fp16_grad_emulation or cfg.rollover_grad_emulation:
-        raise ValueError("the fp16 and rollover gradient emulations are not "
-                         "ported (ROADMAP.md, queue 1: everything else)")
     S = samples.t.shape[0]
     R = batch.alive.shape[0]
     sdf = field_out["sdf"]
@@ -166,6 +253,33 @@ def training_loss(field_out: Dict[str, torch.Tensor], samples,
         dirs = batch.ray_d.index_select(0, rid)
         s_ray_alive = ray_alive[rid]
     s_alive = s_ray_alive & in_seg & samples.valid
+
+    def keep_mask(sdf_, grad_, inv_s_):
+        """valid and not yet terminated: the main path's keep below,
+        recomputed for the rollover emulation's stop-gradient preview."""
+        tc = torch.sum(dirs * grad_, dim=-1)
+        a = neus.sdf_to_alpha(sdf_, tc, samples.dt, inv_s_,
+                              cos_anneal_ratio)
+        a = torch.where(s_alive, a, torch.zeros_like(a))
+        lw_ = torch.log1p(-torch.clamp_max(a, 1.0 - 1e-7))
+        ce = torch.cat([lw_.new_zeros(1), torch.cumsum(lw_, 0)[:-1]])
+        base = ce[torch.clamp_max(samples.seg_start, S - 1)]
+        return s_alive & (torch.exp(ce - base[rid]) >= TRANSMITTANCE_EPSILON)
+
+    if cfg.rollover_grad_emulation:
+        w_roll = rollover_weights(keep_mask(
+            sdf.detach(), grad.detach(), torch.exp(10.0 * variance.detach())))
+        sdf = scale_cotangent(sdf, w_roll)
+        grad = scale_cotangent(grad, w_roll[:, None])
+        albedo_raw = scale_cotangent(albedo_raw, w_roll[:, None])
+        variance = scale_cotangent(variance.expand(S), w_roll)
+    if cfg.fp16_grad_emulation:
+        # rows 0-2 albedo_raw, 3 sdf, 4-6 + 8-10 ∇sdf (their summed
+        # cotangent), 7 the variance, written per sample
+        sdf = fp16_grad_barrier(sdf)
+        grad = fp16_grad_barrier(grad)
+        albedo_raw = fp16_grad_barrier(albedo_raw)
+        variance = fp16_grad_barrier(variance.expand(S))
     inv_s = torch.exp(10.0 * variance)
 
     # ---- per-sample alpha ------------------------------------------------

@@ -319,3 +319,32 @@ def composite_gt_mesh(resolution: int = 384):
     X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
     vol = composite_sdf(np.stack([X, Y, Z], axis=-1))
     return marching_cubes_grid(-vol, (0.0, 0.0, 0.0), 1.0 / resolution, 0.0)
+
+
+def icosphere(radius: float = 1.0, center=(0, 0, 0), subdiv: int = 3):
+    """A subdivided octahedron projected onto the sphere: (V (n, 3)
+    float32, F (m, 3) int64), the JAX package's test mesh."""
+    V = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                  [0, 0, 1], [0, 0, -1]], np.float64)
+    F = np.array([[0, 2, 4], [2, 1, 4], [1, 3, 4], [3, 0, 4],
+                  [2, 0, 5], [1, 2, 5], [3, 1, 5], [0, 3, 5]])
+    for _ in range(subdiv):
+        edge_mid = {}
+        newF = []
+        Vl = list(V)
+
+        def mid(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in edge_mid:
+                m = V[a] + V[b]
+                edge_mid[key] = len(Vl)
+                Vl.append(m / np.linalg.norm(m))
+            return edge_mid[key]
+
+        for a, b, c in F:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            newF += [[a, ab, ca], [ab, b, bc], [ca, bc, c], [ab, bc, ca]]
+        V = np.array([v / np.linalg.norm(v) for v in Vl])
+        F = np.array(newF)
+    return ((V * radius + np.asarray(center)).astype(np.float32),
+            F.astype(np.int64))

@@ -79,6 +79,63 @@ def _phase_of(evt) -> str:
     return "other"
 
 
+def profile_window(window, n: int) -> dict:
+    """Run `window(n)` (n training steps, returning their metrics) under
+    `torch.profiler` → the per-step breakdown of the module docstring:
+    wall_ms_per_step, device_busy_ms_per_step, idle_share,
+    kernels_per_step, phases, top_kernels, backward_fills_and_copies, and
+    the window's `metrics`."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        metrics = window(n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    host_ms = collections.Counter()
+    device_us = collections.Counter()    # kernels attributed to a phase
+    device_n = collections.Counter()     # their launches
+    bwd_fill_copy = collections.Counter()  # backward fill/copy launches
+    by_kernel = collections.Counter()    # every device activity, by name
+    n_kernels = 0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            if getattr(evt, "is_user_annotation", False):  # a span on the card
+                continue
+            by_kernel[evt.name] += evt.time_range.elapsed_us()
+            n_kernels += 1
+            continue
+        if evt.name in PHASES and evt.cpu_parent is None:
+            host_ms[evt.name] += evt.cpu_time_total / 1e3
+        for k in evt.kernels:
+            phase = _phase_of(evt)
+            device_us[phase] += k.duration
+            device_n[phase] += 1
+            if phase == "backward" and any(w in k.name.lower()
+                                           for w in ("fill", "copy")):
+                bwd_fill_copy[k.name[:120]] += 1
+    busy_us = sum(by_kernel.values())
+    device_us["other"] += busy_us - sum(device_us.values())
+    device_n["other"] += n_kernels - sum(device_n.values())
+    busy_ms = busy_us / 1e3
+    return {
+        "wall_ms_per_step": wall_ms / n,
+        "device_busy_ms_per_step": busy_ms / n,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "kernels_per_step": n_kernels / n,
+        "phases": {p: {"host_ms": host_ms[p] / n,
+                       "device_ms": device_us[p] / 1e3 / n,
+                       "device_activities": device_n[p] / n}
+                   for p in PHASES + ("other",)},
+        "top_kernels": [{"name": k[:120], "device_ms": us / 1e3 / n}
+                        for k, us in by_kernel.most_common(15)],
+        "backward_fills_and_copies": {k: c / n for k, c in
+                                      bwd_fill_copy.most_common()},
+        "metrics": metrics,
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--warm", type=int, default=420)
@@ -110,63 +167,19 @@ def main() -> None:
     window(args.steps)
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        metrics = window(args.steps)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    n = args.steps
-
-    host_ms = collections.Counter()
-    device_us = collections.Counter()    # kernels attributed to a phase
-    device_n = collections.Counter()     # their launches
-    bwd_fill_copy = collections.Counter()  # backward fill/copy launches
-    by_kernel = collections.Counter()    # every device activity, by name
-    n_kernels = 0
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            if getattr(evt, "is_user_annotation", False):  # a span on the card
-                continue
-            by_kernel[evt.name] += evt.time_range.elapsed_us()
-            n_kernels += 1
-            continue
-        if evt.name in PHASES and evt.cpu_parent is None:
-            host_ms[evt.name] += evt.cpu_time_total / 1e3
-        for k in evt.kernels:
-            phase = _phase_of(evt)
-            device_us[phase] += k.duration
-            device_n[phase] += 1
-            if phase == "backward" and any(w in k.name.lower()
-                                           for w in ("fill", "copy")):
-                bwd_fill_copy[k.name[:120]] += 1
-    busy_us = sum(by_kernel.values())
-    device_us["other"] += busy_us - sum(device_us.values())
-    device_n["other"] += n_kernels - sum(device_n.values())
-    busy_ms = busy_us / 1e3
+    prof = profile_window(window, args.steps)
+    metrics = prof.pop("metrics")
     out = {
         "card": card,
         "device": torch.cuda.get_device_name(0),
         "stoch_corner_bwd": cfg.network.stoch_corner_bwd,
         "sync_every": args.sync_every, "metric_reads": len(metrics),
-        "steps": n, "first_step": tr.step - n,
+        "steps": args.steps, "first_step": tr.step - args.steps,
         "n_levels_run": [m["n_levels_run"] for m in metrics],
         "rays_per_batch": [m["rays_per_batch"] for m in metrics],
-        "unprofiled_wall_ms_per_step": plain_wall_ms / n,
-        "wall_ms_per_step": wall_ms / n,
-        "device_busy_ms_per_step": busy_ms / n,
-        "idle_share": 1.0 - busy_ms / wall_ms,
-        "kernels_per_step": n_kernels / n,
-        "phases": {p: {"host_ms": host_ms[p] / n,
-                       "device_ms": device_us[p] / 1e3 / n,
-                       "device_activities": device_n[p] / n}
-                   for p in PHASES + ("other",)},
+        "unprofiled_wall_ms_per_step": plain_wall_ms / args.steps,
+        **prof,
         "rolled_back": sum("rolled_back" in m for m in metrics),
-        "top_kernels": [{"name": k[:120], "device_ms": us / 1e3 / n}
-                        for k, us in by_kernel.most_common(15)],
-        "backward_fills_and_copies": {k: c / n for k, c in
-                                      bwd_fill_copy.most_common()},
     }
     print(json.dumps(out), flush=True)
 

@@ -9,7 +9,8 @@
   the error map's CDFs instead (`error_map.sample`);
 - black-pixel skip: texels whose premultiplied linear red ≤ 0 are dropped
   when u_skip ≥ 0.9 (testbed_nerf.cu:1264-1266);
-- per-ray light index in {0,1,2};
+- per-ray light index in {0,1,2}, from a stream of its own under a
+  non-zero `light_prng_salt` (`draw_uniforms`);
 - an optional `ray_transform` (o, d) → (o, d) maps the rays into the
   canonical frame before the march (the dynamic scene's rigid delta,
   testbed_nerf.cu:1311-1323);
@@ -44,14 +45,21 @@ class RayUniforms(NamedTuple):
 
 
 def draw_uniforms(n_rays: int, generator: torch.Generator | None,
-                  device, proportional: bool = False) -> RayUniforms:
+                  device, proportional: bool = False,
+                  light_generator: torch.Generator | None = None
+                  ) -> RayUniforms:
     """The step's random numbers; `proportional` adds the image draw of
-    error-map sampling after the others."""
+    error-map sampling after the others. With `light_generator` (a
+    non-zero `light_prng_salt`) the light index comes from it; `generator`
+    draws its own all the same, so that every other draw is unchanged."""
     draw = lambda *shape: torch.rand(shape, generator=generator,
                                      device=device)
     xy, skip, start = draw(n_rays, 2), draw(n_rays), draw(n_rays)
     light = torch.randint(0, 3, (n_rays,), generator=generator,
                           device=device)
+    if light_generator is not None:
+        light = torch.randint(0, 3, (n_rays,), generator=light_generator,
+                              device=device)
     return RayUniforms(xy=xy, skip=skip, start=start, light_idx=light,
                        img=draw(n_rays) if proportional else None)
 

@@ -16,7 +16,9 @@ state. The generator's own state goes under an extra key,
 `torch_rng_state`, which JAX does not read. A file without it (one that
 JAX wrote), or one whose generator state is for another device, seeds the
 port's generator with the 64-bit value (word 0 << 32) | word 1 of
-`rng_key`: a resumed run draws a stream of its own, not JAX's.
+`rng_key`: a resumed run draws a stream of its own, not JAX's. Under a
+non-zero `light_prng_salt` the light index's generator goes under
+`torch_light_rng_state`.
 """
 
 from __future__ import annotations
@@ -90,6 +92,9 @@ def snapshot_payload(trainer) -> Dict[str, Any]:
         "density_ema_step": np.asarray(trainer.occ.ema_step, np.int32),
         "rng_key": _rng_key(rng),
         "torch_rng_state": rng.numpy(),
+        **({} if trainer.light_generator is None else {
+            "torch_light_rng_state":
+                trainer.light_generator.get_state().numpy()}),
         # the divergence guard's meters and floors, so that a resumed run
         # has a warm reference at once (the JAX package's snapshot.py
         # gives the runs that motivated each)
@@ -228,6 +233,10 @@ def restore_trainer(trainer, snap: Dict[str, Any]) -> None:
             np.array(state, np.uint8)))
     else:
         _seed_from_key(trainer.generator, snap["rng_key"])
+    light = snap.get("torch_light_rng_state")
+    if light is not None and trainer.light_generator is not None:
+        trainer.light_generator.set_state(torch.from_numpy(
+            np.array(light, np.uint8)))
 
     ema_val = float(snap.get("loss_ema", np.nan))
     if math.isfinite(ema_val):

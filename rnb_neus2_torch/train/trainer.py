@@ -41,9 +41,24 @@ and after too many trips drops the RGB+ channel ("degraded" mode) until
 enough clean progress re-arms it. The names and the policy are the JAX
 package's, so one test drives both.
 
-Not ported, each named in ROADMAP.md: the compile cache, cascaded
-occupancy, the light PRNG salt and the gradient emulations.
-`check_ported` refuses a configuration that asks for any of them.
+Every training option the JAX trainer reads runs here:
+- `grid.aabb_scale` > 1 changes what it changes in the JAX trainer, the
+  per-level scale (`HashGridConfig.per_level_scale`) and, through
+  `TestbedConfig.from_network_json`, the cone (1/256): the march stays on
+  the unit cube with a single-cascade grid, at cone > 0 the single-phase
+  ladder;
+- `loss.fp16_grad_emulation` quantizes the whole parameter gradient to
+  the reference's fp16 values (`quantize_grads_fp16`) after the backward
+  and before the optimizer, the table's included: an entry that underflows
+  to 0 is skipped by sparse Adam, as in the JAX package;
+- `loss.rollover_grad_emulation` lives in the loss;
+- `train.light_prng_salt` ≠ 0 draws the light index from a generator of
+  its own, seeded from (seed, salt), so that the salt changes the light
+  index and no other draw (the JAX package folds the salt into the light
+  key);
+- `network.compute_dtype` "bfloat16" lives in the field.
+`check_ported` refuses only a non-default value of a field that no code
+reads (`NOT_READ`); the compile cache is not ported.
 """
 
 from __future__ import annotations
@@ -63,7 +78,7 @@ from ..device import resolve_device
 from ..grid import occupancy
 from ..io.dataset import TrainingDataset
 from ..models.neus_field import NeusField
-from ..render.losses import training_loss
+from ..render.losses import quantize_grads_fp16, training_loss
 from ..utils.diagnostics import LossGraph
 from ..utils.meters import Ema
 from . import error_map
@@ -110,8 +125,7 @@ _DEFAULTS = {"train": TrainConfig(), "march": MarchConfig()}
 
 
 def check_ported(cfg: TestbedConfig) -> None:
-    """Raise on a configuration this slice of the port cannot train."""
-    t = cfg.train
+    """Raise on a configuration this port cannot train."""
     for section, names in NOT_READ.items():
         have, default = getattr(cfg, section), _DEFAULTS[section]
         for name in names:
@@ -120,14 +134,33 @@ def check_ported(cfg: TestbedConfig) -> None:
                     f"{type(have).__name__}.{name}={getattr(have, name)!r}: "
                     f"this port does not read {name} yet; leave it at its "
                     f"default {getattr(default, name)!r}")
-    if t.light_prng_salt:
-        raise ValueError("light_prng_salt is not ported")
-    if cfg.grid.aabb_scale > 1.0:
-        raise ValueError("aabb_scale > 1 (cascaded occupancy) is not "
-                         "ported yet")
-    if cfg.loss.fp16_grad_emulation or cfg.loss.rollover_grad_emulation:
-        raise ValueError("the fp16 and rollover gradient emulations are not "
-                         "ported")
+
+
+def check_scene(meta, cfg: TestbedConfig) -> None:
+    """Raise when the scene's `aabb_scale` (transform.json, `SceneMeta`)
+    differs from the configuration's: neither package feeds the scene's
+    value into the config, so training would run another scene scale than
+    the scene asks for."""
+    if float(meta.aabb_scale) != float(cfg.grid.aabb_scale):
+        raise ValueError(
+            f"the scene's aabb_scale is {meta.aabb_scale!r} but the "
+            f"configuration's grid.aabb_scale is {cfg.grid.aabb_scale!r}; "
+            "build the configuration with TestbedConfig.from_network_json("
+            f"path, aabb_scale={meta.aabb_scale!r})")
+
+
+def light_generator(train_cfg, device):
+    """The light index's own generator for a non-zero `light_prng_salt`,
+    seeded from (seed, salt); None at salt 0 (the step's generator draws
+    it)."""
+    salt = train_cfg.light_prng_salt
+    if not salt:
+        return None
+    seed = np.random.SeedSequence([train_cfg.seed, salt]).generate_state(
+        1, np.uint64)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed[0]) & ((1 << 63) - 1))
+    return gen
 
 
 class Trainer:
@@ -141,6 +174,7 @@ class Trainer:
         self.dataset = dataset.to(self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.train.seed)
+        self.light_generator = light_generator(cfg.train, self.device)
         self.field = NeusField(cfg.grid, cfg.network, self.device,
                                self.generator)
         if params is not None:
@@ -246,7 +280,7 @@ class Trainer:
                 self.dataset, self.occ.bitfield, n_rays,
                 t.target_batch_size, cfg.march,
                 uniforms=draw_uniforms(n_rays, self.generator, self.device,
-                                       proportional),
+                                       proportional, self.light_generator),
                 emap_state=self.emap,
                 emap_image_prop=t.sample_image_proportional_to_error,
                 emap_focal_prop=t.sample_focal_plane_proportional_to_error)
@@ -266,6 +300,8 @@ class Trainer:
                                         [self.params[n] for n in names],
                                         allow_unused=True,
                                         materialize_grads=True)
+            if cfg.loss.fp16_grad_emulation:
+                grads = quantize_grads_fp16(grads)
         frac = cfg.train.fractional_from_step
         rgb_scale = 1.0 if frac is None else float(step < frac)
         with record_function("optimizer"):
@@ -388,7 +424,10 @@ class Trainer:
                 density=self.occ.density.clone(),
                 bitfield=self.occ.bitfield.clone(),
                 mean_density=self.occ.mean_density.clone()),
-            "rng": self.generator.get_state(), "step": self.step,
+            "rng": self.generator.get_state(),
+            "light_rng": (self.light_generator.get_state()
+                          if self.light_generator is not None else None),
+            "step": self.step,
             "n_rays": self.n_rays, "emap_counter": self._emap_counter,
             "emap_interval": self._emap_interval,
             # the whole EMA state: an uninitialized EMA must come back
@@ -440,6 +479,8 @@ class Trainer:
             getattr(self.occ, name).copy_(getattr(g["occ"], name))
         self.occ = self.occ._replace(ema_step=g["occ"].ema_step)
         self.generator.set_state(g["rng"])
+        if self.light_generator is not None:
+            self.light_generator.set_state(g["light_rng"])
         self.step = g["step"]
         self.n_rays = g["n_rays"]
         self._emap_counter = g["emap_counter"]

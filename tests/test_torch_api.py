@@ -6,7 +6,8 @@ run on the port's `Testbed` on the CPU; the intrinsics it sets equal the
 JAX `Testbed`'s; a JAX `Testbed` restored from the port's snapshot
 renders the same view (albedo and alpha within 1e-5, the JAX side op by
 op as in `tests/test_torch_render.py`) and reports the same step, loss
-and parameter count; the extra modes are refused.
+and parameter count. The extra modes are in
+`tests/test_torch_extra_modes.py`.
 """
 
 import numpy as np
@@ -181,9 +182,3 @@ def test_jax_testbed_on_the_ports_snapshot(tmp_path):
         want = jtb.render_to_cpu(1, max_samples=32)
     assert got.shape == want.shape == (16, 16, 4)
     assert np.abs(got - np.asarray(want)).max() <= 1e-5
-
-
-@pytest.mark.parametrize("mode", ["Sdf", "Image", "Volume"])
-def test_extra_modes_are_refused(mode):
-    with pytest.raises(ValueError, match="extra_modes"):
-        ngp.Testbed(getattr(ngp.TestbedMode, mode), device="cpu")

@@ -1,9 +1,10 @@
 """The port's testbed CLI (`python -m rnb_neus2_torch.cli.testbed`)
 against the JAX package's: every JAX flag parses, `make_config` gives the
 JAX config field for field, a tiny run on the CPU writes mesh_N.obj and
-snapshot_N.msgpack, `--snapshot` resumes at the saved step, and a flag
-for a feature the port lacks exits non-zero naming it, as does `--device
-cuda` on a host without a card."""
+snapshot_N.msgpack, `--snapshot` resumes at the saved step, the fp16 and
+rollover emulation flags train, and a flag for a feature the port lacks
+exits non-zero naming it, as does `--device cuda` on a host without a
+card."""
 
 import argparse
 import dataclasses
@@ -125,8 +126,6 @@ def test_tiny_cpu_run_writes_mesh_and_snapshot_and_resumes(scene, capsys):
 
 @pytest.mark.parametrize("argv,feature", [
     (["--n-chips", "2"], "data parallelism"),
-    (["--fp16-grad-emu", "1"], "emulations"),
-    (["--rollover-grad-emu", "1"], "emulations"),
 ])
 def test_unported_flags_exit_nonzero(scene, capsys, argv, feature):
     scene_dir, net = scene
@@ -134,6 +133,17 @@ def test_unported_flags_exit_nonzero(scene, capsys, argv, feature):
                       + _small(net))
     assert rc != 0
     assert feature in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [["--fp16-grad-emu", "1"],
+                                  ["--rollover-grad-emu", "1"],
+                                  ["--fp16-grad-emu", "1",
+                                   "--rollover-grad-emu", "1"]])
+def test_emulation_flags_train(scene, capsys, argv):
+    scene_dir, net = scene
+    assert testbed.main(["--scene", scene_dir, "--maxiter", "3"] + argv
+                        + _small(net)) == 0
+    assert "iteration=3 loss=" in capsys.readouterr().out
 
 
 def test_no_card_no_fallback(scene, capsys):

@@ -420,3 +420,133 @@ def test_train_steps_on_card_follow_the_schedule(cuda):
     small = sum(len(he.levels_through_kernel(static, n)) for n in bodies)
     assert len(bodies) == 600
     assert (hgs.launches, sca.launches) == (small, sum(bodies) - small)
+
+
+def test_features_only_encode_on_card_matches_cpu(cuda):
+    """`hash_encoding.encode` (the extra modes' and the SDF-only path's
+    encode): features within 1e-6, the table gradient through both
+    kernels as in phase 3, the positions' cotangent within 1e-4 of its
+    largest entry."""
+    cfg = HashGridConfig(n_levels=4, top_resolution=64)
+    static = he.HashGridStatic(cfg)
+    gen = torch.Generator().manual_seed(5)
+    table = 1e-2 * torch.randn(static.n_entries, 2, generator=gen)
+    x = torch.rand(20000, 3, generator=gen)
+    gout = torch.randn(20000, cfg.output_dim, generator=gen)
+    res = []
+    for d in ("cpu", cuda):
+        t = table.to(d).requires_grad_(True)
+        p = x.to(d).requires_grad_(True)
+        before = (hgs.launches, sca.launches)
+        enc = he.encode(t, p, static)
+        gt, gp = torch.autograd.grad((enc * gout.to(d)).sum(), (t, p))
+        if d != "cpu":
+            small = len(he.levels_through_kernel(static))
+            assert (hgs.launches - before[0], sca.launches - before[1]) == (
+                small, cfg.n_levels - small)
+        res.append([v.detach().cpu() for v in (enc, gt, gp)])
+    (e0, t0, p0), (e1, t1, p1) = res
+    assert (e0 - e1).abs().max() <= 1e-6
+    assert (t0 - t1).abs().max() <= 1e-5 * (1 + t0.abs().max())
+    assert (p0 - p1).abs().max() <= 1e-4 * p0.abs().max()
+
+
+def test_extra_mode_encodings_on_card_match_cpu(cuda):
+    """The 2-D hash grid and the Takikawa octree: features and table
+    gradients (one `scatter_add` launch per level) as above."""
+    from rnb_neus2_torch.models.extra_modes import Hash2D
+    from rnb_neus2_torch.ops import takikawa
+    from rnb_neus2_torch.testing.synthetic import icosphere
+
+    gen = torch.Generator().manual_seed(6)
+    enc2 = Hash2D()
+    tree = takikawa.build_triangle_octree(
+        *icosphere(0.3, (0.5, 0.5, 0.5), subdiv=2), 6, 3)
+    cases = [(lambda t, p: enc2.encode(t, p),
+              1e-2 * torch.randn(enc2.n_entries, 2, generator=gen),
+              torch.rand(20000, 2, generator=gen), enc2.n_levels),
+             (lambda t, p: takikawa.encode(t, p, tree),
+              1e-2 * torch.randn(tree.n_vertices, 8, generator=gen),
+              torch.rand(20000, 3, generator=gen), tree.n_levels)]
+    for fn, table, x, levels in cases:
+        res = []
+        for d in ("cpu", cuda):
+            t = table.to(d).requires_grad_(True)
+            before = sca.launches
+            out = fn(t, x.to(d))
+            gout = torch.ones_like(out)
+            (g,) = torch.autograd.grad((out * gout).sum(), t)
+            if d != "cpu":
+                assert sca.launches - before == levels
+            res.append((out.detach().cpu(), g.cpu()))
+        (o0, g0), (o1, g1) = res
+        assert (o0 - o1).abs().max() <= 1e-6
+        assert (g0 - g1).abs().max() <= 1e-5 * (1 + g0.abs().max())
+
+
+def test_cascaded_march_on_card_matches_cpu(cuda):
+    """`march` at aabb_scale 4 over a 3-cascade grid at cone 0 and 1/256:
+    valid and n_valid bit for bit, t within 1e-6 relative."""
+    from rnb_neus2_torch.grid import occupancy
+    from rnb_neus2_torch.ops import ray_march
+
+    gen = torch.Generator().manual_seed(7)
+    C, G = 3, 128
+    pts = occupancy.cascade_cell_positions(G, C, gen)
+    r = (pts - 0.5).norm(dim=1)
+    dens = ((r - 0.3).abs() < 0.05).float()
+    bits = occupancy.update_cascaded(occupancy.init_state_cascaded(G, C),
+                                     dens.reshape(C, -1)).bitfield
+    o = torch.randn(2048, 3, generator=gen)
+    o = 0.5 + 3.6 * o / o.norm(dim=1, keepdim=True)
+    d = 0.5 + (torch.rand(2048, 3, generator=gen) - 0.5) * 0.8 - o
+    d = d / d.norm(dim=1, keepdim=True)
+    u = torch.rand(2048, generator=gen)
+    for cone in (0.0, 1.0 / 256.0):
+        got = ray_march.march(o.to(cuda), d.to(cuda), bits.to(cuda),
+                              u.to(cuda), 1024, 128, cone, aabb_scale=4.0)
+        want = ray_march.march(o, d, bits, u, 1024, 128, cone,
+                               aabb_scale=4.0)
+        assert torch.equal(got.valid.cpu(), want.valid)
+        assert torch.equal(got.n_valid.cpu(), want.n_valid)
+        v = want.valid
+        assert ((got.t.cpu() - want.t).abs()[v]
+                <= 1e-6 * want.t.abs()[v]).all()
+        assert int(v.sum()) > 0
+
+
+def test_option_paths_train_on_the_card(cuda):
+    """aabb_scale 4, the emulations, the salt and bfloat16 each train a few
+    steps on the card with both kernels launched per level bucket."""
+    import dataclasses
+
+    from rnb_neus2_torch.config import (LossConfig, MarchConfig,
+                                        NetworkConfig, TestbedConfig,
+                                        TrainConfig)
+    from rnb_neus2_torch.testing.synthetic import sphere_dataset
+    from rnb_neus2_torch.train.trainer import Trainer
+
+    ds = sphere_dataset(n_views=4, width=64, height=64, radius=0.25,
+                        device=cuda)
+    base = TestbedConfig(grid=HashGridConfig(n_levels=4, top_resolution=64),
+                         train=TrainConfig(target_batch_size=1 << 14,
+                                           occ_grid_size=32))
+    variants = [
+        dict(grid=HashGridConfig(n_levels=4, top_resolution=64,
+                                 aabb_scale=4.0),
+             march=MarchConfig(cone_angle=1.0 / 256.0)),
+        dict(loss=LossConfig(fp16_grad_emulation=True,
+                             rollover_grad_emulation=True)),
+        dict(train=dataclasses.replace(base.train, light_prng_salt=1)),
+        dict(network=NetworkConfig(compute_dtype="bfloat16")),
+    ]
+    for kw in variants:
+        cfg = dataclasses.replace(base, **kw)
+        tr = Trainer(ds, cfg, device=cuda)
+        static = tr.field.static
+        before = (hgs.launches, sca.launches)
+        buckets = [tr.train_step()["n_levels_run"] for _ in range(6)]
+        small = sum(len(he.levels_through_kernel(static, b))
+                    for b in buckets)
+        assert (hgs.launches - before[0], sca.launches - before[1]) == (
+            small, sum(buckets) - small), kw

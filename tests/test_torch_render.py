@@ -112,13 +112,6 @@ def test_t_ladder_bitwise():
             assert np.array_equal(got, want)
 
 
-def test_march_refuses_cascades():
-    o, d, u = _rays(4, 1)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ray_march.march(_t(o), _t(d), torch.zeros(8, dtype=torch.bool),
-                        _t(u), 64, 8, 0.0, aabb_scale=2.0)
-
-
 def test_composite_matches_jax():
     rng = np.random.default_rng(4)
     alpha = (rng.random((200, 48)) ** 3).astype(np.float32)

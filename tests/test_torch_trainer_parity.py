@@ -131,9 +131,10 @@ def _np_tree(t):
     return jax.tree_util.tree_map(np.array, t)
 
 
-def _compare_steps(jtr, tr, queue, n) -> int:
+def _compare_steps(jtr, tr, queue, n, moment_rel=1e-3) -> int:
     """n steps of both on JAX's draws, compared after each; returns the
-    number of occupancy refreshes."""
+    number of occupancy refreshes. `moment_rel`: the Adam moments'
+    tolerance, relative to their largest entry (the variance's is 3x)."""
     refreshes = 0
     for _ in range(n):
         jitter, uni = _jax_draws(jtr)
@@ -160,7 +161,7 @@ def _compare_steps(jtr, tr, queue, n) -> int:
             got = getattr(tr.opt, name)
             for k, w in want[name].items():
                 err = float((got[k] - w).abs().max())
-                rel = 3e-3 if k == "variance" else 1e-3
+                rel = 3 * moment_rel if k == "variance" else moment_rel
                 assert err <= rel * (float(w.abs().max()) + 1e-30), \
                     (name, k, err)
         for k, w in want["steps"].items():
