@@ -86,7 +86,12 @@ Phases, each printing JSON lines with `elapsed_s`:
    V and F counts, active blocks, seconds per stage and
    `torch.cuda.max_memory_allocated`; the sphere's vertices lie within a
    voxel of radius 0.25 (median), and the 512 OBJ written to a temporary
-   directory reads back with `load_obj`.
+   directory reads back with `load_obj`. At 1024 the export runs again
+   with the slabbed marching cubes (8 slabs): V, F and N equal to the
+   first export's (which `extract.mc_slabs` runs one-shot on this card),
+   its seconds and peak beside them; then both marching cubes alone on
+   the same fine volume, equal, with their seconds and the memory each
+   allocates beside the volume.
 10. chamfer: the protocol of tests/test_chamfer_gate.py on the card, guard
    on: the composite scene at 12 views of 80x96, 8 levels, top resolution
    256, a 2^15 table, n_ladder 1024, 900 steps, extraction at 128 against
@@ -210,10 +215,26 @@ Phases, each printing JSON lines with `elapsed_s`:
    `VolumeField` (4 levels, top 32), 300 steps (loss < 5e-3); a 256x256
    SDF shade frame and volume frame, finite; the `Testbed` in Image mode
    from a PNG on disk, 100 steps.
+18. data parallelism: `parallel.ParallelTrainer` with two replicas on the
+   card (`devices=["cuda:0", "cuda:0"]`) at the full default width on the
+   phase-7 sphere, 450 steps on the CLI's schedule (`train_steps(25, 25)`
+   18 times: 14 levels from step 411, a full-sweep refresh at every
+   cadence past step 256), beside a single `Trainer` from the same init
+   on the same schedule: ms/step, device busy ms/step (8 profiled
+   `train_step`s), peak memory, each kernel's launches against twice the
+   count of the recorded level buckets, the replicas' largest parameter
+   difference after every read (must be 0), the loss trend against the
+   single trainer (the last six reads' mean loss_total within 3 × the sum
+   of their spreads, tests/test_parallel.py's rule), then both kernels
+   against their plain versions on the first replica's backward inputs
+   of one more step (as phase 4 on the main path), and a forced rollback
+   (both replicas' parameters scaled, then a NaN loss read: both restored
+   to the snapshot bit for bit, and training goes on).
 
 Then one JSON line with every kernel's numbers (the main path's launches,
 the pipeline's, the dynamic path's per phase, the refinement's, the
-dense-Adam run's, each option path's and each extra-mode fit's), and as
+dense-Adam run's, each option path's, each extra-mode fit's and the
+data-parallel run's, with the timings on the first replica's inputs), and as
 the last line {"ok": true, "device": {...}}.
 Any failed phase raises and the script exits non-zero.
 """
@@ -260,6 +281,7 @@ OPT_SALT_STEPS = 20
 OPT_BF16_STEPS = 200
 EXTRA_STEPS = {"image": 300, "sdf": 250, "takikawa": 150, "volume": 300}
 EXTRA_TESTBED_STEPS = 100      # phase 17's Testbed in Image mode
+PAR_READS, PAR_SYNC = 18, 25   # phase 18: 450 steps, a read per 25
 
 
 def log(phase: str, **kw) -> None:
@@ -749,9 +771,75 @@ def mesh_export(torch, tr, card) -> dict:
                     and row["obj_max_abs_err"] <= 1e-5):
                 log("mesh", **row)
                 raise AssertionError("the OBJ does not read back")
+        if res == 1024:
+            row["slabbed"] = slabbed_export(torch, tr, m, base, card)
+            # the slab count the rule picks at this point, for a 1025³
+            # volume (an expanded view: no memory)
+            row["mc_slabs_rule"] = extract.mc_slabs(torch.empty(
+                (1025, 1, 1), device=tr.device).expand(1025, 1025, 1025))
         log("mesh", **row)
         out[f"res{res}"] = row
     return out
+
+
+def slabbed_export(torch, tr, one_shot: dict, base: int, card) -> dict:
+    """Phase 9's res-1024 export again with the slabbed marching cubes (8
+    slabs): the mesh must equal the one-shot's; its seconds and peak. Then
+    both marching cubes alone on the same fine volume: seconds and the
+    memory each allocates beside the volume (peak − allocated before), the
+    basis of `extract.MC_BYTES_PER_POINT`."""
+    import numpy as np
+    from rnb_neus2_torch.mesh import extract
+    from rnb_neus2_torch.mesh.marching_device import (
+        marching_cubes_device, marching_cubes_device_slabbed)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rule = extract.mc_slabs
+    extract.mc_slabs = lambda vol: 8
+    try:
+        t0 = time.perf_counter()
+        m = extract.extract_mesh(tr.field, tr.inference_params,
+                                 resolution=1024, meta=tr.dataset.meta)
+    finally:
+        extract.mc_slabs = rule
+    row = {"n_slabs": 8, "seconds": m["seconds"],
+           "total_s": time.perf_counter() - t0,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "memory_before": base, "card": card,
+           "identical": all(np.array_equal(m[k], one_shot[k])
+                            for k in ("V", "F", "N"))}
+    del m
+    field = extract._bind(tr.field, tr.inference_params)
+    csdf, active = extract.coarse_pass(field, 1024, 0.0, 1.0)
+    vol = extract.fine_volume(field, csdf, active, 1024, 0.0, 1.0)
+    del csdf, active
+    meshes = []
+    for n, fn in ((1, lambda: marching_cubes_device(vol, (0.0,) * 3,
+                                                    1.0 / 1024)),
+                  (8, lambda: marching_cubes_device_slabbed(
+                      vol, (0.0,) * 3, 1.0 / 1024, 0.0, 8))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        V, F = fn()
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before
+        row[f"mc_alone_{n}"] = {"seconds": time.perf_counter() - t0,
+                                "bytes_beside_volume": extra,
+                                "bytes_per_point": extra / vol.numel()}
+        meshes.append((V, F))
+        del V, F
+    row["mc_alone_identical"] = all(torch.equal(a, b) for a, b in
+                                    zip(*meshes))
+    del vol, meshes
+    if not (row["identical"] and row["mc_alone_identical"]):
+        log("mesh_slabbed", **row)
+        raise AssertionError("the slabbed res-1024 mesh differs from the "
+                             "one-shot's")
+    return row
 
 
 def chamfer_protocol(torch, dev, card) -> dict:
@@ -1390,20 +1478,21 @@ def testbed_phase(torch, dev, card, work: Path) -> dict:
     return row
 
 
-def _record_step_bodies():
-    """Patch `Trainer._step_body` to record each body's level bucket;
-    returns (records, undo)."""
+def _record_step_bodies(cls=None):
+    """Patch `cls._step_body` (`Trainer`'s by default) to record each
+    body's level bucket; returns (records, undo)."""
     from rnb_neus2_torch.train.trainer import Trainer
 
-    real = Trainer._step_body
+    cls = cls or Trainer
+    real = cls.__dict__["_step_body"]
     rec = []
 
     def counted(self, n_rays, n_active):
         rec.append(n_active)
         return real(self, n_rays, n_active)
 
-    Trainer._step_body = counted
-    return rec, lambda: setattr(Trainer, "_step_body", real)
+    cls._step_body = counted
+    return rec, lambda: setattr(cls, "_step_body", real)
 
 
 def _expected_launches(buckets, grid=None) -> dict:
@@ -2163,6 +2252,137 @@ def extra_modes_phase(torch, kernels, dev, card, work: Path) -> dict:
     return {"fits": rows, "renders": renders, "testbed": testbed}
 
 
+def _parallel_run(torch, kernels, tr, label: str) -> dict:
+    """Phase 18's schedule on one trainer: PAR_READS calls of
+    `train_steps(PAR_SYNC, PAR_SYNC)`, launches counted per recorded level
+    bucket and replica, the replicas compared after every read."""
+    from rnb_neus2_torch.tools.profile_step import profile_window
+
+    replicas = getattr(tr, "replicas", None)
+    n_rep = len(replicas) if replicas else 1
+    rec, undo = _record_step_bodies(type(tr))
+    refreshes = []
+    real_refresh = tr.refresh_occupancy
+    tr.refresh_occupancy = lambda n: (refreshes.append(tr.step),
+                                      real_refresh(n))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.reset_launches()
+    reads, max_diff = [], 0.0
+    t0 = time.perf_counter()
+    try:
+        for _ in range(PAR_READS):
+            t = time.perf_counter()
+            out = tr.train_steps(PAR_SYNC, PAR_SYNC)
+            torch.cuda.synchronize()
+            reads.append({"step": tr.step, "s": time.perf_counter() - t,
+                          "loss_total": out["loss_total"],
+                          "loss_color": out["loss_color"],
+                          "levels": out.get("n_levels_run"),
+                          "rays": out["rays_per_batch"],
+                          "rolled_back": bool(out.get("rolled_back"))})
+            with torch.no_grad():
+                for rep in (replicas or [])[1:]:
+                    max_diff = max(max_diff, max(
+                        float((p - tr.params[k]).abs().max())
+                        for k, p in rep.params.items()))
+    finally:
+        undo()
+        del tr.refresh_occupancy
+    total = time.perf_counter() - t0
+    steps = tr.step
+    launches = {n: k.launches for n, k in kernels.items()}
+    want = {n: n_rep * c
+            for n, c in _expected_launches(rec, tr.cfg.grid).items()}
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_window(lambda n: [tr.train_step() for _ in range(n)], 8)
+    last = reads[-6:]
+    row = {"trainer": label, "replicas": n_rep, "steps": steps,
+           "seconds": total, "ms_per_step": 1e3 * total / len(rec),
+           "ms_per_step_all_levels": 1e3 * reads[-1]["s"] / PAR_SYNC,
+           "step_bodies": len(rec), "launches": launches,
+           "launches_expected": want, "max_memory_allocated": peak,
+           "replica_max_param_diff": max_diff,
+           "refreshes_past_256": sum(s >= 256 for s in refreshes),
+           "loss_last6_mean": statistics.mean(r["loss_total"] for r in last),
+           "loss_last6_std": statistics.pstdev(r["loss_total"]
+                                               for r in last),
+           "reads": reads, "guard": guard_counters(tr),
+           "device_ms_per_step": prof["device_busy_ms_per_step"],
+           "wall_ms_per_step_profiled": prof["wall_ms_per_step"],
+           "idle_share": prof["idle_share"],
+           "phase_device_ms": {p: v["device_ms"]
+                               for p, v in prof["phases"].items()}}
+    log("parallel_train", **row)
+    if launches != want or max_diff != 0.0 or row["guard"]["rollbacks"] \
+            or not all(math.isfinite(r["loss_total"]) for r in reads) \
+            or reads[-1]["levels"] != tr.cfg.grid.n_levels \
+            or not row["refreshes_past_256"]:
+        raise AssertionError(f"the {label} run failed: {row}")
+    return row
+
+
+def parallel_phase(torch, bench, kernels, dev, card) -> dict:
+    """Phase 18: two replicas on the card at full width against a single
+    `Trainer`, both kernels on the first replica's inputs, a forced
+    rollback of both replicas."""
+    from rnb_neus2_torch.config import TestbedConfig
+    from rnb_neus2_torch.parallel import ParallelTrainer
+    from rnb_neus2_torch.testing.synthetic import sphere_dataset
+    from rnb_neus2_torch.train.trainer import Trainer
+
+    ds = sphere_dataset(**SPHERE, device=dev)
+    torch.cuda.empty_cache()
+    single = _parallel_run(torch, kernels,
+                           Trainer(ds, TestbedConfig(), device=dev),
+                           "single")
+    torch.cuda.empty_cache()
+    tr = ParallelTrainer(ds, TestbedConfig(), devices=[dev, dev])
+    par = _parallel_run(torch, kernels, tr, "parallel")
+    gap = abs(par["loss_last6_mean"] - single["loss_last6_mean"])
+    spread = 3 * (par["loss_last6_std"] + single["loss_last6_std"]) + 1e-5
+    log("parallel_vs_single", card=card, loss_gap=gap, loss_bound=spread,
+        ms_per_step=[single["ms_per_step"], par["ms_per_step"]],
+        device_ms_per_step=[single["device_ms_per_step"],
+                            par["device_ms_per_step"]],
+        max_memory_allocated=[single["max_memory_allocated"],
+                              par["max_memory_allocated"]])
+    if not gap < spread:
+        raise AssertionError("the two replicas' loss does not track the "
+                             "single trainer's")
+    # both kernels on the first replica's backward inputs of one more step
+    seen = main_path_inputs(torch, tr)
+    first = seen[:len(seen) // tr.n_dev]
+    timed = {name: time_inputs(torch, bench, name, mod, dev, card,
+                               [c[1:] for c in first if c[0] == name],
+                               main_path=True)
+             for name, mod in kernels.items()}
+    # a forced rollback: both replicas' parameters scaled, then a NaN read
+    good = tr._good
+    with torch.no_grad():
+        for rep in tr.replicas:
+            for p in rep.params.values():
+                p.mul_(2.0)
+    out = tr._consume_metrics({
+        "loss_color": float("nan"), "loss_ek": 0.0, "loss_mask": 0.0,
+        "n_valid_total": 1.0, "rays_per_batch": tr._bucket()})
+    differ = [f"{i}.{k}" for i, rep in enumerate(tr.replicas)
+              for k, p in rep.params.items()
+              if not torch.equal(p, good["params"][k])]
+    after = [tr.train_step()["loss_total"] for _ in range(8)]
+    roll = {"rolled_back": bool(out.get("rolled_back")),
+            "restored_step": good["step"], "replicas": tr.n_dev,
+            "tensors_differ": differ, "loss_after": after}
+    log("parallel_rollback", **roll)
+    if differ or not roll["rolled_back"] \
+            or not all(math.isfinite(v) for v in after):
+        raise AssertionError(f"the replicas' rollback failed: {roll}")
+    return {"launches": par["launches"], "steps": par["step_bodies"],
+            "kernels": timed, "single": single, "parallel": par,
+            "rollback": roll}
+
+
 def main() -> int:
     signal.alarm(WALL_LIMIT_S)
     import torch
@@ -2272,6 +2492,7 @@ def main() -> int:
     del ds
     with tempfile.TemporaryDirectory() as work:
         extra = extra_modes_phase(torch, kernels, dev, card, Path(work))
+    par = parallel_phase(torch, bench, kernels, dev, card)
     for row in rows:
         row["launches_pipeline"] = piped["launches"][row["name"]]
         row["pipeline_steps"] = piped["step_bodies"]
@@ -2285,6 +2506,13 @@ def main() -> int:
                                    for k, r in opts.items()}
         row["launches_extra_modes"] = {
             k: r["launches"][row["name"]] for k, r in extra["fits"].items()}
+        t = par["kernels"][row["name"]]
+        row["launches_parallel"] = par["launches"][row["name"]]
+        row["parallel_steps"] = par["steps"]
+        row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
+        row["parallel_path"] = {k: t.get(k) for k in (
+            "ms", "ms_into", "ms_into_scatter_add", "plain_ms", "bound_ms",
+            "bound_into_ms", "library_ms", "max_abs_err")}
     log("done", card=card, total_s=time.perf_counter() - T0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,13 @@ with the reference executable (src/main.cu:90-258):
       [--device cuda|cpu] ...
 
 Every flag of the JAX CLI parses. The run is on the card unless `--device
-cpu` asks for the CPU. A flag whose feature the port does not have exits
-with code 2 and names it: `--n-chips` > 1 (data parallelism) and any
-configuration `check_ported` refuses. So does a scene whose transform.json
-says another `aabb_scale` than the configuration (`check_scene`). Nothing
-else runs in their place.
+cpu` asks for the CPU. `--n-chips N` (0: every device) trains data-parallel
+(`parallel.ParallelTrainer`) over min(N, devices) CUDA devices where more
+than one is asked for and more than one exists, and on one `Trainer`
+otherwise, as the JAX CLI does; under `--device cpu` one device exists. A
+configuration `check_ported` refuses exits with code 2 and names what it
+lacks; so does a scene whose transform.json says another `aabb_scale` than
+the configuration (`check_scene`). Nothing else runs in their place.
 
 Behaviour (main.cu:283-470): L2 unless --lone, RGB+ unless --no-rgbplus;
 `iteration=N loss=X` every 100 steps (main.cu:447-449); --snapshot
@@ -74,8 +76,7 @@ def build_argparser():
                    help="cuda (default) or cpu")
     # the JAX package's extras (not in the reference)
     p.add_argument("--n-chips", type=int, default=0,
-                   help="0 or 1: one device; more is data parallelism, "
-                        "which is not ported")
+                   help="0 = all local devices (data-parallel)")
     p.add_argument("--target-batch-size", type=int, default=0,
                    help="sample budget per step (0 = reference 2^18)")
     p.add_argument("--occ-grid-size", type=int, default=0,
@@ -199,12 +200,15 @@ def make_config(args):
                                march=march, network=network, grid=grid)
 
 
-def unported_flag(args) -> str:
-    """The feature a flag asks for that the port lacks, or ''."""
-    if args.n_chips > 1:
-        return (f"--n-chips {args.n_chips}: data parallelism over several "
-                "devices is not ported")
-    return ""
+def replica_devices(device) -> list:
+    """The devices data parallelism may use: every CUDA device where the
+    run is on the card, only `device` on the CPU."""
+    import torch
+
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 def run(args) -> int:
@@ -219,9 +223,6 @@ def run(args) -> int:
     logger = Logger()
     cfg = make_config(args)
     try:
-        refusal = unported_flag(args)
-        if refusal:
-            raise ValueError(refusal)
         check_ported(cfg)
         device = resolve_device(args.device)
     except (ValueError, RuntimeError) as e:
@@ -240,7 +241,15 @@ def run(args) -> int:
     logger.info(f"Loaded {dataset.n_images} views "
                 f"{dataset.resolution[0]}x{dataset.resolution[1]} "
                 f"on {device}")
-    trainer = Trainer(dataset, cfg, device=device)
+    avail = replica_devices(device)
+    n_chips = args.n_chips or len(avail)
+    if n_chips > 1 and len(avail) > 1:
+        from ..parallel.trainer import ParallelTrainer
+        trainer = ParallelTrainer(dataset, cfg,
+                                  devices=avail[:min(n_chips, len(avail))])
+        logger.info(f"Data-parallel over {trainer.n_dev} devices")
+    else:
+        trainer = Trainer(dataset, cfg, device=device)
 
     if args.snapshot:
         if not os.path.exists(args.snapshot):

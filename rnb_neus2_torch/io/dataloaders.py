@@ -1,7 +1,7 @@
 """Input dataloaders (port of `rnb_neus2_tpu/io/dataloaders.py`): IDR
-cameras.npz, AliceVision SfMData as JSON, and the auto-detecting factory.
-The pyalicevision loader of binary SfMData (`.abc`) is not ported:
-`load_data` raises for an input only it can read.
+cameras.npz, AliceVision SfMData as JSON, SfMData through the
+pyalicevision bindings (`.sfm` and the binary `.abc`), and the
+auto-detecting factory.
 
 Standardized output contract (reference: rnb_neus2/dataloaders/base.py:3-22):
 
@@ -20,7 +20,10 @@ Conventions reproduced:
   centers and landmarks (sfm_json_loader.py:16, 84-85); focal from
   pxFocalLength (scalar or [fx,fy]) or focalLength(mm)·W/sensorWidth;
   principal point = image center + stored offset (:58-75); per-pose
-  albedo/mask matching with a mask-folder fallback (:144-199).
+  albedo/mask matching with a mask-folder fallback (:144-199). The
+  pyalicevision loader (sfm_pyav_loader.py) applies the same flip and
+  matching to the bindings' objects; the bindings are imported only when
+  a `.sfm` or `.abc` file is loaded.
 """
 
 from __future__ import annotations
@@ -217,6 +220,128 @@ def load_sfm_scene(sfm_path: str, albedo_sfm_path: str = "",
 
 
 # ---------------------------------------------------------------------------
+# AliceVision SfMData through pyalicevision
+# ---------------------------------------------------------------------------
+
+def _pyav_intrinsic_K(intrinsic, camera_mod, numeric_mod) -> np.ndarray:
+    """4×4 K from a pyalicevision intrinsic: the Pinhole cast's focal and
+    principal-point accessors, the raw scale where the focal accessors are
+    missing, scale and offset for a non-pinhole intrinsic (reference
+    sfm_pyav_loader.py:22-46)."""
+    K = np.eye(4, dtype=np.float32)
+    cam = camera_mod.Pinhole.cast(intrinsic)
+    if cam is not None:
+        try:
+            K[0, 0] = cam.getFocalLengthPixX()
+            K[1, 1] = cam.getFocalLengthPixY()
+        except AttributeError:
+            s = intrinsic.getScale()
+            K[0, 0], K[1, 1] = s.x(), s.y()
+        pp = cam.getPrincipalPoint()
+        K[0, 2] = numeric_mod.getX(pp)
+        K[1, 2] = numeric_mod.getY(pp)
+    else:
+        s = intrinsic.getScale()
+        o = intrinsic.getOffset()
+        K[0, 0], K[1, 1] = s.x(), s.y()
+        K[0, 2], K[1, 2] = o.x(), o.y()
+    return K
+
+
+def _pyav_load_sfm(sfm_io, sfm_data_mod, path: str, required: bool,
+                   logger=None):
+    """One SfMData file; None where an optional one is absent or does not
+    load (reference sfm_pyav_loader.py:77-110)."""
+    if not required and (not path or not os.path.exists(path)):
+        return None
+    data = sfm_data_mod.SfMData()
+    if not sfm_io.load(data, path, sfm_io.ALL):
+        if required:
+            raise RuntimeError(f"Failed to load SfMData: {path}")
+        if logger:
+            logger.info(f"Failed to load optional SfMData {path}")
+        return None
+    return data
+
+
+def load_sfm_scene_pyav(sfm_path: str, albedo_sfm_path: str = "",
+                        mask_sfm_path: str = "",
+                        mask_folder_path: str = "", logger=None) -> dict:
+    """The loader contract from pyalicevision's SfMData (reference
+    sfm_pyav_loader.py): the views whose viewId is their poseId, c2w with
+    the Y/Z flip, Pinhole intrinsics (`_pyav_intrinsic_K`), flipped
+    landmarks, albedo and mask matched by pose with the mask-folder
+    fallback. ImportError propagates, so that `load_data` parses a `.sfm`
+    as JSON where the bindings are absent."""
+    from pyalicevision import (camera, numeric, sfmData as sfm_data_mod,
+                               sfmDataIO)
+
+    flip4 = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    normal_sfm = _pyav_load_sfm(sfmDataIO, sfm_data_mod, sfm_path, True,
+                                logger)
+    albedo_sfm = _pyav_load_sfm(sfmDataIO, sfm_data_mod, albedo_sfm_path,
+                                False, logger)
+    mask_sfm = _pyav_load_sfm(sfmDataIO, sfm_data_mod, mask_sfm_path,
+                              False, logger)
+
+    all_views = normal_sfm.getViews()
+    if not len(all_views):
+        raise RuntimeError(f"No views in SfMData {sfm_path}")
+
+    lms = normal_sfm.getLandmarks()
+    landmarks = None
+    if len(lms):
+        pts = np.array([[lms[k].X[0], lms[k].X[1], lms[k].X[2]]
+                        for k in lms.keys()], np.float32)
+        landmarks = pts * np.array([1, -1, -1], np.float32)
+
+    albedo_views = albedo_sfm.getViews() if albedo_sfm is not None else {}
+    mask_views = mask_sfm.getViews() if mask_sfm is not None else {}
+
+    def find_mask(pose_id):
+        if pose_id in mask_views:
+            p = mask_views[pose_id].getImage().getImagePath()
+            if os.path.exists(p):
+                return p
+        if mask_folder_path and os.path.isdir(mask_folder_path):
+            return _find_mask_in_folder(mask_folder_path, str(pose_id))
+        return None
+
+    views, W, H = [], None, None
+    for pose_id in sorted(v for v in all_views.keys()
+                          if v == all_views[v].getPoseId()):
+        view = all_views[pose_id]
+        if not normal_sfm.isPoseAndIntrinsicDefined(pose_id):
+            continue
+        tf = normal_sfm.getPose(view).getTransform()
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[:3, :3] = np.asarray(tf.rotation(), np.float32).T
+        c2w[:3, 3] = np.asarray(tf.center(), np.float32).squeeze()
+        c2w = flip4 @ c2w
+        intr = normal_sfm.getIntrinsics()[view.getIntrinsicId()]
+        K = _pyav_intrinsic_K(intr, camera, numeric)
+        img = view.getImage()
+        if W is None:
+            W, H = img.getWidth(), img.getHeight()
+        albedo_path = None
+        if pose_id in albedo_views:
+            albedo_path = albedo_views[pose_id].getImage().getImagePath()
+        views.append({
+            "c2w": c2w, "K": K,
+            "normal_path": img.getImagePath(),
+            "albedo_path": albedo_path,
+            "mask_path": find_mask(pose_id),
+            "pose_id": str(pose_id),
+        })
+    if not views:
+        raise RuntimeError("No valid views could be loaded")
+    if logger:
+        logger.info(f"Loaded {len(views)} views via pyalicevision")
+    return {"views": views, "landmarks": landmarks,
+            "image_width": W, "image_height": H, "scale_mat": None}
+
+
+# ---------------------------------------------------------------------------
 # factory
 # ---------------------------------------------------------------------------
 
@@ -224,9 +349,9 @@ def load_data(input_path: str, albedo_sfm_path: str = "",
               mask_sfm_path: str = "", mask_folder_path: str = "",
               logger=None) -> dict:
     """Auto-detect the input format and load (reference
-    dataloaders/__init__.py:28-79). A `.sfm` file is parsed as JSON, as
-    the JAX package does where pyalicevision is absent; `.abc` (binary
-    SfMData) needs the pyalicevision loader, which is not ported."""
+    dataloaders/__init__.py:28-79): a `.sfm` or `.abc` file through
+    pyalicevision where the bindings import, a `.sfm` as JSON where they
+    do not."""
     if os.path.isdir(input_path):
         if os.path.exists(os.path.join(input_path, "cameras.npz")):
             return load_idr_scene(input_path)
@@ -237,17 +362,17 @@ def load_data(input_path: str, albedo_sfm_path: str = "",
     ext = os.path.splitext(input_path)[1].lower()
     if ext == ".npz":
         return load_idr_scene(os.path.dirname(input_path))
-    pyav = ("the pyalicevision SfMData loader is not ported to the PyTorch "
-            "package; export the SfMData as JSON")
-    if ext == ".abc":
-        raise ValueError(f"{input_path}: {pyav}")
-    if ext in (".json", ".sfm"):
+    if ext in (".sfm", ".abc"):
         try:
-            return load_sfm_scene(input_path, albedo_sfm_path,
-                                  mask_sfm_path, mask_folder_path)
-        except (json.JSONDecodeError, UnicodeDecodeError) as e:
-            raise ValueError(f"{input_path} is not JSON ({e}); {pyav}") \
-                from e
+            return load_sfm_scene_pyav(
+                input_path, albedo_sfm_path=albedo_sfm_path,
+                mask_sfm_path=mask_sfm_path,
+                mask_folder_path=mask_folder_path)
+        except ImportError:
+            pass
+    if ext in (".json", ".sfm"):
+        return load_sfm_scene(input_path, albedo_sfm_path, mask_sfm_path,
+                              mask_folder_path)
     raise ValueError(
         f"Unsupported input format: {ext}. Supported: directory with "
-        "cameras.npz, .npz, .sfm or .json (SfMData as JSON)")
+        "cameras.npz, .npz, .sfm, .abc, .json")

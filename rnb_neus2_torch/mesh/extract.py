@@ -12,7 +12,11 @@ src/testbed.cu:369-381 + testbed_nerf.cu:4218-4350):
    coarse grid's value at every point, with the active 17³ blocks
    evaluated at full resolution written over it;
 4. marching cubes over the whole fine volume (`marching_device` on the
-   field's device, or `marching` in numpy on the host);
+   field's device, or `marching` in numpy on the host). On the card the
+   one-shot `marching_cubes_device` runs where its transient grids fit
+   the card's free memory, else `marching_cubes_device_slabbed` with the
+   fewest slabs that fit (`mc_slabs`; the JAX package slabs above res 640
+   on a 16 GB chip); both give the same mesh;
 5. normals from the SDF gradient, optional albedo colours
    clip(exp(clip(albedo_raw, −10, 10)), 0, 1)
    (compute_mesh_vertex_colors, testbed_nerf.cu:4193-4216);
@@ -36,11 +40,17 @@ import torch
 
 from ..io.dataset import SceneMeta
 from . import marching
-from .marching_device import marching_cubes_device
+from .marching_device import (marching_cubes_device,
+                              marching_cubes_device_slabbed)
 
 # points per field evaluation; the last chunk is padded to this size so
 # that every point is evaluated in a batch of the same shape
 CHUNK = 1 << 18
+# bytes per volume point that the one-shot device marching cubes allocates
+# beside the volume: 26,875,038,720 for a 1025³ volume, 24.96 per point
+# (chip_smoke.py's mesh phase, `mc_alone_1`; NVIDIA H100 80GB HBM3, 700 W),
+# rounded up
+MC_BYTES_PER_POINT = 25
 
 
 def _field_device(field) -> torch.device:
@@ -116,7 +126,9 @@ def fine_volume(field, csdf: torch.Tensor, active: torch.Tensor, res: int,
     spacing = span / res
     fi = torch.clamp_max(torch.arange(npts, device=dev) * cres // res,
                          cres - 1)
-    vol = csdf[fi[:, None, None], fi[None, :, None], fi[None, None, :]]
+    # one axis at a time: three broadcast index tensors would be expanded
+    # to (res+1)³ int64 each (26 GB at res 1024)
+    vol = csdf.index_select(0, fi).index_select(1, fi).index_select(2, fi)
     corner = active.to(dev) * block                        # (B, 3)
 
     def index(i):
@@ -151,7 +163,9 @@ def extract_mesh(field, params, resolution: int = 512,
     backend: "device" keeps the fine volume on the field's device and
     triangulates there; "host" fetches it and runs the numpy marching
     cubes; "auto" = "device" for a field on a card up to res 1088,
-    "host" otherwise. A failure on the card raises."""
+    "host" otherwise. A failure on the card raises. The device backend
+    slabs its marching cubes as `mc_slabs` decides; the mesh is the same
+    at every slab count."""
     meta = meta or SceneMeta()
     field = _bind(field, params)
     dev = _field_device(field)
@@ -169,7 +183,13 @@ def extract_mesh(field, params, resolution: int = 512,
     vol = fine_volume(field, csdf, active, res, lo, span, block)
     t.append(_now(dev))
     if backend == "device":
-        V, F = marching_cubes_device(vol, (lo, lo, lo), span / res, thresh)
+        n = mc_slabs(vol)
+        origin = (lo, lo, lo)
+        if n > 1:
+            V, F = marching_cubes_device_slabbed(vol, origin, span / res,
+                                                 thresh, n)
+        else:
+            V, F = marching_cubes_device(vol, origin, span / res, thresh)
     else:
         V, F = marching.marching_cubes_grid(vol.cpu().numpy(), (lo, lo, lo),
                                             span / res, thresh)
@@ -181,6 +201,24 @@ def extract_mesh(field, params, resolution: int = 512,
     mesh["seconds"] = dict(zip(("coarse", "fine", "marching_cubes",
                                 "finish"), np.diff(t).tolist()))
     return mesh
+
+
+def mc_slabs(vol: torch.Tensor) -> int:
+    """1 where the one-shot device marching cubes' grids
+    (MC_BYTES_PER_POINT per point) fit the memory free on the volume's
+    card, else the fewest slabs (a power of two dividing X − 1) whose
+    grids do. 1 for a volume on the CPU."""
+    if vol.device.type != "cuda":
+        return 1
+    free = torch.cuda.mem_get_info(vol.device)[0] + (
+        torch.cuda.memory_reserved(vol.device)
+        - torch.cuda.memory_allocated(vol.device))
+    need = MC_BYTES_PER_POINT * vol.numel()
+    cells = vol.shape[0] - 1
+    n = 1
+    while need / n > free and cells % (2 * n) == 0:
+        n *= 2
+    return n
 
 
 @torch.no_grad()

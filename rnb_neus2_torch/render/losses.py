@@ -39,7 +39,7 @@ fp16 then rescales.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -223,7 +223,9 @@ def _segment_sum(values: torch.Tensor, seg_ids: torch.Tensor,
 
 def training_loss(field_out: Dict[str, torch.Tensor], samples,
                   batch: RayBatch, flags: RenderFlags, cfg: LossConfig,
-                  cos_anneal_ratio: float = 1.0
+                  cos_anneal_ratio: float = 1.0,
+                  n_rays_divisor: Optional[int] = None,
+                  ek_samples_divisor: Optional[int] = None
                   ) -> tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total differentiable loss for one globally-compacted batch.
 
@@ -231,7 +233,12 @@ def training_loss(field_out: Dict[str, torch.Tensor], samples,
     on the (S, 3) sample positions. Compositing runs in the flat layout: the
     per-ray exclusive transmittance is a segmented log-space prefix sum
     (cumsum(log(1−α)) re-based at each ray's first slot), and per-ray
-    reductions are segment sums keyed by ray_id."""
+    reductions are segment sums keyed by ray_id.
+
+    n_rays_divisor / ek_samples_divisor (None: this batch's R and S) let a
+    data-parallel replica normalize by the global ray count and the global
+    sample target, so that the sum of the replicas' gradients is the
+    single-device gradient (`parallel/trainer.py`)."""
     S = samples.t.shape[0]
     R = batch.alive.shape[0]
     sdf = field_out["sdf"]
@@ -337,16 +344,18 @@ def training_loss(field_out: Dict[str, torch.Tensor], samples,
     ek = torch.sum(torch.where(keep, (gnorm - 1.0) ** 2,
                                torch.zeros_like(gnorm)))
 
+    n_rays = n_rays_divisor or R
+    ek_div = ek_samples_divisor or S
     total = (torch.sum(color) + cfg.mask_loss_weight * torch.sum(mask)
-             ) / R + cfg.ek_loss_weight * ek / S
+             ) / n_rays + cfg.ek_loss_weight * ek / ek_div
 
     n_kept = torch.sum(keep)
     n_alive = torch.sum(ray_alive.to(torch.float32))
     metrics = {
         # raw per-ray loss, splatted into the error map by the trainer
         "_per_ray_color_logged": color_logged,
-        "loss_color": torch.sum(color_logged) / R,
-        "loss_mask": torch.sum(mask.detach()) / R,
+        "loss_color": torch.sum(color_logged) / n_rays,
+        "loss_mask": torch.sum(mask.detach()) / n_rays,
         "loss_ek": ek.detach() / torch.clamp_min(n_kept.to(torch.float32),
                                                  1.0),
         "weight_sum_mean": torch.sum(weight_sum.detach())

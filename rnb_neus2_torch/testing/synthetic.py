@@ -5,7 +5,9 @@ Per-view normal maps (camera frame), albedo maps and masks made in numpy
 from closed forms, so that a run needs no data file: a Lambertian sphere
 centred in the unit cube, and the composite scene (sphere ∪ torus ∪
 rounded box) whose analytic SDF gives the ground-truth mesh of the
-Chamfer gate.
+Chamfer gate, with its unit-sphere-normalized v2 (`composite_norm`,
+`composite_sdf_v2`, `composite_dataset_v2`, `composite_gt_mesh_v2`,
+`write_prepared_composite_scene`).
 """
 
 from __future__ import annotations
@@ -118,13 +120,23 @@ def write_prepared_scene(out_dir, n_views: int = 8, width: int = 48,
     that a run goes through the same encode and decode as the pipeline's.
     Cameras are stored before normalization (t raw; the loader applies
     t → 0.5·t + 0.5)."""
+    cams = ring_cameras(n_views, cam_radius, width, height, focal)
+    normals, albedo, alphas = render_sphere_views(cams, radius=radius)
+    return _write_prepared(out_dir, cams, normals, albedo, alphas, focal,
+                           albedo_scales)
+
+
+def _write_prepared(out_dir, cams: Cameras, normals, albedo, alphas,
+                    focal: float, albedo_scales=None):
+    """Rendered views → a prepared scene directory (transform.json +
+    16-bit RGBA normals/ and albedos/)."""
     import json
     import os
 
     from ..io import image_io
 
-    cams = ring_cameras(n_views, cam_radius, width, height, focal)
-    normals, albedo, alphas = render_sphere_views(cams, radius=radius)
+    width, height = cams.resolution
+    n_views = normals.shape[0]
     os.makedirs(os.path.join(out_dir, "normals"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, "albedos"), exist_ok=True)
 
@@ -258,9 +270,38 @@ def composite_albedo(p: np.ndarray) -> np.ndarray:
     return np.clip(base, 0.05, 1.0).astype(np.float32)
 
 
+def composite_norm(sphere_scale: float = 1.0):
+    """Unit-sphere normalization of the composite scene, the reference's
+    `compute_unit_sphere_scaling` (rnb_neus2/scaling.py:9-34) on the GT
+    surface points: centroid, 99th-percentile outlier rejection, the
+    inliers' mean as centre, scale so the largest distance is
+    `sphere_scale`. Returns (center (3,), k) in unit-cube terms: the
+    normalized scene is p_v2 = (p_v1 − center)·k + 0.5 with k =
+    0.5·sphere_scale / max_dist, so the surface fills the radius-0.5 ball
+    of the unit cube as every scene the reference trains does."""
+    V, _ = composite_gt_mesh(96)
+    centroid = V.mean(0)
+    d = np.linalg.norm(V - centroid, axis=1)
+    inl = V[d <= np.percentile(d, 99)]
+    c = inl.mean(0)
+    max_dist = float(np.max(np.linalg.norm(inl - c, axis=1)))
+    return c.astype(np.float32), 0.5 * sphere_scale / max_dist
+
+
+def composite_sdf_v2(p: np.ndarray, norm) -> np.ndarray:
+    """SDF of the unit-sphere-normalized scene (exact under uniform
+    scaling: d_v2(p) = k·d_v1(center + (p−0.5)/k))."""
+    c, k = norm
+    return composite_sdf(c + (np.asarray(p, np.float32) - 0.5) / k) * k
+
+
 def render_composite_views(cams: Cameras, max_iters: int = 96,
-                           t_max: float = 3.0):
-    """Sphere-traced analytic render → (normals_cam, albedo, alphas)."""
+                           norm=None, t_max: float = None):
+    """Sphere-traced analytic render → (normals_cam, albedo, alphas).
+
+    norm=(center, k) renders the normalized scene (composite_norm); the
+    albedo is evaluated at the original scene point, so the texture is the
+    same at every scaling."""
     W, H = cams.resolution
     n_views = cams.rot_c2w.shape[0]
     rots = cams.rot_c2w.cpu().numpy()
@@ -270,6 +311,16 @@ def render_composite_views(cams: Cameras, max_iters: int = 96,
     u = (np.arange(W) + 0.5) / W
     v = (np.arange(H) + 0.5) / H
     uu, vv = np.meshgrid(u, v)
+    if t_max is None:
+        t_max = 3.0 if norm is None else float(
+            np.max(np.linalg.norm(origins - 0.5, axis=-1)) + 1.0)
+    if norm is None:
+        sdf_fn = composite_sdf
+        unmap = lambda p: p
+    else:
+        c, k = norm
+        sdf_fn = lambda p: composite_sdf_v2(p, norm)
+        unmap = lambda p: c + (p - 0.5) / k
 
     normals = np.zeros((n_views, H, W, 3), np.float32)
     albedo = np.zeros((n_views, H, W, 3), np.float32)
@@ -286,19 +337,20 @@ def render_composite_views(cams: Cameras, max_iters: int = 96,
         t = np.full((d.shape[0],), 0.05, np.float32)
         alive = np.ones_like(t, bool)
         for _ in range(max_iters):
-            s = composite_sdf(o + t[:, None] * d)
+            s = sdf_fn(o + t[:, None] * d)
             hit_now = s < 5e-5
             t = np.where(alive & ~hit_now, t + np.maximum(s, 1e-4), t)
             alive &= t < t_max
-        s = composite_sdf(o + t[:, None] * d)
+        s = sdf_fn(o + t[:, None] * d)
         hit = (s < 2e-3) & (t < t_max)
         p = o + t[:, None] * d
-        n_world = composite_normal(p)
+        n_world = composite_normal(unmap(p))
         n_cam = np.einsum("nd,dk->nk", n_world, rots[i])
         normals[i] = np.where(hit[:, None], n_cam,
                               np.array([-1.0, 1.0, 1.0]) / np.sqrt(3.0)
                               ).reshape(H, W, 3)
-        albedo[i] = (composite_albedo(p) * hit[:, None]).reshape(H, W, 3)
+        albedo[i] = (composite_albedo(unmap(p)) * hit[:, None]
+                     ).reshape(H, W, 3)
         alphas[i] = hit.astype(np.float32).reshape(H, W)
     return normals, albedo, alphas
 
@@ -319,6 +371,60 @@ def composite_gt_mesh(resolution: int = 384):
     X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
     vol = composite_sdf(np.stack([X, Y, Z], axis=-1))
     return marching_cubes_grid(-vol, (0.0, 0.0, 0.0), 1.0 / resolution, 0.0)
+
+
+# v2 camera defaults: the ring radius of the v1 cameras after the
+# unit-sphere scaling (1.6·k ≈ 3.4), and a focal at which the radius-0.5
+# object spans ~90% of the image half-width (DiLiGenT-MV-style framing)
+COMPOSITE_V2_CAM_RADIUS = 3.4
+COMPOSITE_V2_FOCAL = 1550.0
+
+
+def composite_dataset_v2(n_views: int = 20, width: int = 512,
+                         height: int = 612,
+                         cam_radius: float = COMPOSITE_V2_CAM_RADIUS,
+                         focal: float = COMPOSITE_V2_FOCAL,
+                         sphere_scale: float = 1.0,
+                         device="cpu") -> TrainingDataset:
+    """The unit-sphere-normalized composite scene (composite_norm): world
+    scale and framing as the reference's prep (scaling.py) and a
+    DiLiGenT-style capture hand the testbed."""
+    norm = composite_norm(sphere_scale)
+    cams = ring_cameras(n_views, cam_radius, width, height, focal,
+                        device=device)
+    normals, albedo, alphas = render_composite_views(cams, 128, norm)
+    return build_dataset(cams, normals, albedo, alphas, alphas, SceneMeta())
+
+
+def composite_gt_mesh_v2(resolution: int = 384, sphere_scale: float = 1.0):
+    """GT mesh of the normalized scene, unit-cube coordinates."""
+    norm = composite_norm(sphere_scale)
+    ax = np.linspace(0.0, 1.0, resolution + 1, dtype=np.float32)
+    X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
+    vol = composite_sdf_v2(np.stack([X, Y, Z], axis=-1), norm)
+    return marching_cubes_grid(-vol, (0.0, 0.0, 0.0), 1.0 / resolution, 0.0)
+
+
+def write_prepared_composite_scene(out_dir, n_views: int = 20,
+                                   width: int = 512, height: int = 612,
+                                   cam_radius: float = 1.6,
+                                   focal: float = 900.0,
+                                   normalized: bool = False,
+                                   sphere_scale: float = 1.0):
+    """The composite scene as a prepared directory (transform.json +
+    16-bit RGBA normal and albedo PNGs), the input of the reference's
+    stage-1 testbed. normalized=True applies the unit-sphere scaling and
+    the v2 framing (composite_norm, composite_dataset_v2)."""
+    norm = None
+    if normalized:
+        norm = composite_norm(sphere_scale)
+        if cam_radius == 1.6:
+            cam_radius = COMPOSITE_V2_CAM_RADIUS
+        if focal == 900.0:
+            focal = COMPOSITE_V2_FOCAL
+    cams = ring_cameras(n_views, cam_radius, width, height, focal)
+    normals, albedo, alphas = render_composite_views(cams, 128, norm)
+    return _write_prepared(out_dir, cams, normals, albedo, alphas, focal)
 
 
 def icosphere(radius: float = 1.0, center=(0, 0, 0), subdiv: int = 3):

@@ -20,6 +20,7 @@ step 256, where the occupancy refresh becomes subsampled and runs every
 - kernels_per_step: device activities (kernels, copies, fills);
 - phases: for each `record_function` span of the trainer
   (occupancy_refresh, sample_and_march, field_forward, loss, backward,
+  grad_sum (the data-parallel trainer's sum over its replicas),
   optimizer, guard_snapshot) the host ms per step, and the device ms and
   activities per step of the kernels it launched (autograd runs the
   backward's kernels from its own thread; those count under `backward`;
@@ -61,7 +62,7 @@ from ..train.trainer import Trainer
 from .bench_scatter import card_name_and_power
 
 PHASES = ("occupancy_refresh", "sample_and_march", "field_forward", "loss",
-          "backward", "optimizer", "guard_snapshot")
+          "backward", "grad_sum", "optimizer", "guard_snapshot")
 
 
 def _root(evt):

@@ -205,6 +205,10 @@ def restore_trainer(trainer, snap: Dict[str, Any]) -> None:
                              f"{tuple(params[k].shape)}, the trainer's "
                              f"{tuple(p.shape)}")
         p.copy_(params[k])
+    # a data-parallel trainer copies them on to its other replicas
+    broadcast = getattr(trainer, "broadcast_params", None)
+    if broadcast is not None:
+        broadcast()
     for name in ("mu", "nu", "ema") + (("steps",) if trainer.opt.sparse
                                        else ()):
         getattr(trainer.opt, name).update(opt[name])

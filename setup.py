@@ -21,7 +21,8 @@ setup(
     py_modules=["run_pipeline"],
     package_data={"rnb_neus2_tpu": ["configs/*/*.json"],
                   "rnb_neus2_torch": ["csrc/*.cu", "csrc/*.cuh",
-                                      "native/*.cc", "configs/*/*.json"]},
+                                      "native/*.cc", "configs/*/*.json",
+                                      "meshroom/*.py"]},
     python_requires=">=3.10",
     install_requires=[
         "numpy",

@@ -2,9 +2,9 @@
 against the JAX package's: every JAX flag parses, `make_config` gives the
 JAX config field for field, a tiny run on the CPU writes mesh_N.obj and
 snapshot_N.msgpack, `--snapshot` resumes at the saved step, the fp16 and
-rollover emulation flags train, and a flag for a feature the port lacks
-exits non-zero naming it, as does `--device cuda` on a host without a
-card."""
+rollover emulation flags train, and `--device cuda` on a host without a
+card exits non-zero naming it. (`--n-chips`' dispatch is in
+tests/test_torch_parallel.py.)"""
 
 import argparse
 import dataclasses
@@ -122,17 +122,6 @@ def test_tiny_cpu_run_writes_mesh_and_snapshot_and_resumes(scene, capsys):
     data = snap.load_snapshot(os.path.join(out, "snapshot_30.msgpack"))
     assert int(data["step"]) == 30
     assert json.loads(data["config_json"])["train"]["max_steps"] == 30
-
-
-@pytest.mark.parametrize("argv,feature", [
-    (["--n-chips", "2"], "data parallelism"),
-])
-def test_unported_flags_exit_nonzero(scene, capsys, argv, feature):
-    scene_dir, net = scene
-    rc = testbed.main(["--scene", scene_dir, "--maxiter", "5"] + argv
-                      + _small(net))
-    assert rc != 0
-    assert feature in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("argv", [["--fp16-grad-emu", "1"],

@@ -550,3 +550,91 @@ def test_option_paths_train_on_the_card(cuda):
                     for b in buckets)
         assert (hgs.launches - before[0], sca.launches - before[1]) == (
             small, sum(buckets) - small), kw
+
+
+@pytest.mark.parametrize("cards", [1, 2], ids=["one_card", "two_cards"])
+def test_two_replicas_on_the_card_match_the_cpu(cuda, monkeypatch, cards):
+    """`ParallelTrainer` with two replicas on one card (or one on each of
+    two cards: the cross-device copies of the draws, the bitfield, the
+    gradients, the metrics and the parameters) against the same two
+    replicas on the CPU, 3 steps on the same draws (numbers made on the
+    host and moved to the device; the exact backward; one initialization,
+    made on the CPU): loss within 1e-5 relative, the bitfield equal,
+    parameters within 1e-4 (a tenth of the learning rate, as
+    tests/test_torch_trainer_parity.py holds the CPU port to JAX), both
+    launches per replica and level bucket, and the replicas identical
+    after every step."""
+    import numpy as np
+
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA devices")
+
+    from rnb_neus2_torch.config import (MarchConfig, NetworkConfig,
+                                        TestbedConfig, TrainConfig)
+    from rnb_neus2_torch.grid import occupancy
+    from rnb_neus2_torch.parallel import ParallelTrainer
+    from rnb_neus2_torch.parallel import trainer as ptrainer
+    from rnb_neus2_torch.testing.synthetic import sphere_dataset
+    from rnb_neus2_torch.train.sampler import RayUniforms
+
+    cfg = TestbedConfig(
+        grid=HashGridConfig(n_levels=4, top_resolution=64),
+        network=NetworkConfig(stoch_corner_bwd=0),
+        train=TrainConfig(target_batch_size=1 << 13,
+                          initial_rays_per_batch=128, occ_grid_size=32),
+        march=MarchConfig(n_ladder=512))
+    real_sample, real_cells = ptrainer.sample_ray_batch, \
+        occupancy.cell_positions
+    calls = {"sample": 0, "cells": 0}
+
+    def sample(*a, **k):
+        uni = k["uniforms"]
+        R, dev = uni.xy.shape[0], uni.xy.device
+        rng = np.random.default_rng(calls["sample"])
+        calls["sample"] += 1
+        f = lambda *s: torch.from_numpy(rng.random(s, np.float32)).to(dev)
+        k["uniforms"] = RayUniforms(
+            xy=f(R, 2), skip=f(R), start=f(R),
+            light_idx=torch.from_numpy(rng.integers(0, 3, R)).to(dev))
+        return real_sample(*a, **k)
+
+    def cells(g, gen=None, device="cpu"):
+        rng = np.random.default_rng(1000 + calls["cells"])
+        calls["cells"] += 1
+        jitter = torch.from_numpy(rng.random((g ** 3, 3), np.float32))
+        return real_cells(g, gen, device, jitter=jitter.to(device))
+
+    monkeypatch.setattr(ptrainer, "sample_ray_batch", sample)
+    monkeypatch.setattr(occupancy, "cell_positions", cells)
+    ds = sphere_dataset(n_views=4, width=32, height=32, radius=0.2)
+    # one initialization for both (a card's generator draws another stream)
+    init = ParallelTrainer(ds, cfg, devices=["cpu", "cpu"]).params
+    init = {k: v.detach().clone() for k, v in init.items()}
+    runs = {}
+    card_devs = [torch.device("cuda", i % cards) for i in range(2)]
+    for name, devs in (("cpu", ["cpu", "cpu"]), ("card", card_devs)):
+        calls.update(sample=0, cells=0)
+        tr = ParallelTrainer(ds, cfg, params=init, devices=devs)
+        before = (hgs.launches, sca.launches)
+        hist = []
+        for _ in range(3):
+            hist.append(tr.train_step())
+            for rep in tr.replicas[1:]:
+                for k, p in rep.params.items():
+                    assert torch.equal(p.to(tr.device), tr.params[k]), \
+                        (name, k)
+        runs[name] = (tr, hist, (hgs.launches - before[0],
+                                 sca.launches - before[1]))
+    (cpu, cpu_hist, _), (card, card_hist, launches) = runs["cpu"], \
+        runs["card"]
+    for m, w in zip(card_hist, cpu_hist):
+        assert m["loss_total"] == pytest.approx(w["loss_total"], rel=1e-5)
+        assert m["rays_per_batch"] == w["rays_per_batch"]
+    assert torch.equal(card.occ.bitfield.cpu(), cpu.occ.bitfield)
+    with torch.no_grad():
+        for k, p in card.params.items():
+            assert float((p.cpu() - cpu.params[k]).abs().max()) <= 1e-4, k
+    static = he.HashGridStatic(cfg.grid)
+    buckets = [m["n_levels_run"] for m in card_hist]
+    small = sum(len(he.levels_through_kernel(static, b)) for b in buckets)
+    assert launches == (2 * small, 2 * (sum(buckets) - small))

@@ -7,6 +7,7 @@ run on the CPU that writes snapshot_40, snapshot_60 and mesh_60."""
 import json
 import os
 import shutil
+import sys
 from collections import Counter
 
 import numpy as np
@@ -96,13 +97,20 @@ def test_idr_loader_matches_jax(idr):
             assert v[k] == jv[k]
 
 
-def test_load_data_refuses_the_pyalicevision_inputs(tmp_path):
-    (tmp_path / "scene.abc").write_bytes(b"\x00\x01")
-    with pytest.raises(ValueError, match="pyalicevision"):
-        dataloaders.load_data(str(tmp_path / "scene.abc"))
-    (tmp_path / "scene.sfm").write_bytes(b"\x89binary")
-    with pytest.raises(ValueError, match="pyalicevision"):
-        dataloaders.load_data(str(tmp_path / "scene.sfm"))
+def test_load_data_refuses_the_pyalicevision_inputs(tmp_path, monkeypatch):
+    """Where the pyalicevision bindings do not import, a `.abc` file and a
+    `.sfm` that is not JSON are refused with the JAX package's errors (the
+    loader through the bindings: tests/test_torch_ported_modules.py)."""
+    monkeypatch.setitem(sys.modules, "pyalicevision", None)
+    for name, blob in (("scene.abc", b"\x00\x01"),
+                       ("scene.sfm", b"\x89binary")):
+        (tmp_path / name).write_bytes(blob)
+        with pytest.raises(ValueError) as got:
+            dataloaders.load_data(str(tmp_path / name))
+        with pytest.raises(ValueError) as want:
+            jloaders.load_data(str(tmp_path / name))
+        assert type(got.value) is type(want.value)
+        assert str(got.value) == str(want.value)
 
 
 def test_contour_points_equal_cv2():
