@@ -10,8 +10,9 @@ Phases, each printing JSON lines with `elapsed_s`:
    beside this script.
 2. build: every kernel library of the main path, built with nvcc from the
    sources in the checkout, the point-to-mesh library of the Chamfer
-   metric (`native/raycast.cc`, g++) and the PNG row unfilter
-   (`rnb_neus2_torch/native/png_unfilter.cc`, g++), all at once (one
+   metric (`native/raycast.cc`, g++), the PNG row unfilter
+   (`rnb_neus2_torch/native/png_unfilter.cc`, g++) and the image codecs'
+   helpers (`rnb_neus2_torch/native/codecs.cc`, g++), all at once (one
    compiler per library), with `-Xptxas -v` output.
 3. kernel vs plain: each kernel's wrapper on card tensors at the main
    path's shapes against its plain PyTorch version; max abs error ≤
@@ -230,11 +231,33 @@ Phases, each printing JSON lines with `elapsed_s`:
    of one more step (as phase 4 on the main path), and a forced rollback
    (both replicas' parameters scaled, then a NaN loss read: both restored
    to the snapshot bit for bit, and training goes on).
+19. formats: the phase-7 sphere written twice as a Meshroom-style input
+   (`write_sfm_scene`: AliceVision SfMData JSON for normals and albedos,
+   a mask folder by pose id): A with 16-bit PNG normals and albedos and
+   8-bit PNG masks, B with float EXR normals (`save_exr`), 16-bit TIFF
+   albedos (`save_image(".tif")`) and JPEG masks (`save_image(".jpg")`,
+   found by `_find_mask_in_folder`'s `.jpg` step). Both loaded and
+   prepared on the host: B's prepared albedos and both alphas equal A's,
+   its normals within 1 (the count of differing samples printed), the
+   same n2w. Then `run_full_pipeline` on B on the card: stage 1 to 300,
+   stage 2 to 450, the mesh at 512; launches against the recorded level
+   buckets' count (as phase 12); the mesh's median vertex radius within
+   a voxel of the world radius. Then every codec on the host at 612x512
+   (DiLiGenT-MV's view size; a rendered sphere's normal map): PNG
+   16-bit, TIFF LZW 16-bit, EXR ZIP half and float, JPEG 4:2:0 (the
+   normal map's 8 bits), ms per view to decode and to encode (each file
+   read back exactly; the JPEG decoded twice identically), and a
+   4032x3024 JPEG (a camera photo's size) encoded and decoded. Last, the
+   seconds of `load_transform_json` on a prepared 16-view 612x512 scene
+   of 16-bit PNGs (`scene_load_seconds`; loaded by its path from another
+   checkout's root, this file times that checkout's package on the same
+   scene).
 
 Then one JSON line with every kernel's numbers (the main path's launches,
 the pipeline's, the dynamic path's per phase, the refinement's, the
-dense-Adam run's, each option path's, each extra-mode fit's and the
-data-parallel run's, with the timings on the first replica's inputs), and as
+dense-Adam run's, each option path's, each extra-mode fit's, the
+data-parallel run's and the formats pipeline's, with the timings on the
+first replica's inputs), and as
 the last line {"ok": true, "device": {...}}.
 Any failed phase raises and the script exits non-zero.
 """
@@ -281,6 +304,12 @@ OPT_SALT_STEPS = 20
 OPT_BF16_STEPS = 200
 EXTRA_STEPS = {"image": 300, "sdf": 250, "takikawa": 150, "volume": 300}
 EXTRA_TESTBED_STEPS = 100      # phase 17's Testbed in Image mode
+FORMATS_STEPS = 450            # phase 19: stage 1 to 300, stage 2 to 450
+CODEC_VIEW = (512, 612)        # phase 19's codec timings: H, W
+PHOTO = (3024, 4032)
+CODEC_REPEATS = 5
+SCENE_LOAD = dict(n_views=16, width=612, height=512, focal=560.0)
+SCENE_LOAD_REPEATS = 5
 PAR_READS, PAR_SYNC = 18, 25   # phase 18: 450 steps, a read per 25
 
 
@@ -2383,6 +2412,204 @@ def parallel_phase(torch, bench, kernels, dev, card) -> dict:
             "rollback": roll}
 
 
+def _compare_prepared(png, a: Path, b: Path) -> dict:
+    """Phase 19: B's prepared PNGs against A's."""
+    import numpy as np
+
+    out = {"frames": 0, "albedo_equal": True, "alpha_equal": True,
+           "normal_max_diff": 0, "normal_samples_differing": 0}
+    for name in sorted(p.name for p in (a / "normals").glob("*.png")):
+        out["frames"] += 1
+        na, nb = (png.read_png(d / "normals" / name).astype(np.int64)
+                  for d in (a, b))
+        aa, ab = (png.read_png(d / "albedos" / name) for d in (a, b))
+        d = np.abs(na - nb)
+        out["normal_max_diff"] = max(out["normal_max_diff"],
+                                     int(d[..., :3].max()))
+        out["normal_samples_differing"] += int((d[..., :3] > 0).sum())
+        out["alpha_equal"] &= bool((d[..., 3] == 0).all()
+                                   and np.array_equal(aa[..., 3], ab[..., 3]))
+        out["albedo_equal"] &= bool(np.array_equal(aa, ab))
+    with open(a / "transform.json") as f, open(b / "transform.json") as g:
+        out["n2w_equal"] = json.load(f)["n2w"] == json.load(g)["n2w"]
+    return out
+
+
+def codec_timings(work: Path) -> dict:
+    """Phase 19: ms per view of every decoder and encoder on the host, at
+    DiLiGenT-MV's 612x512 on a rendered sphere's normal map, and a
+    4032x3024 JPEG."""
+    import numpy as np
+    from rnb_neus2_torch.io import exr, jpeg, png, tiff
+    from rnb_neus2_torch.testing.synthetic import (render_sphere_views,
+                                                   ring_cameras)
+
+    h, w = CODEC_VIEW
+    cams = ring_cameras(1, 1.5, w, h, 560.0)
+    normals, _, _ = render_sphere_views(cams, radius=0.25)
+    unit = np.clip((normals[0] * np.array([1.0, -1.0, -1.0]) + 1) / 2, 0, 1)
+    u16 = (unit * 65535).astype(np.uint16)
+    u8 = (unit * 255).astype(np.uint8)
+    f32 = (unit * 2 - 1).astype(np.float32)
+    cases = {
+        "png_16bit": (".png", lambda p: png.write_png(p, u16),
+                      png.read_png, u16),
+        "tiff_lzw_16bit": (".tif", lambda p: tiff.write_tiff(p, u16),
+                           tiff.read_tiff, u16),
+        "exr_zip_half": (".exr", lambda p: exr.write_exr(
+            p, f32.astype(np.float16)), exr.read_exr,
+            f32.astype(np.float16).astype(np.float32)),
+        "exr_zip_float": (".exr", lambda p: exr.write_exr(p, f32),
+                          exr.read_exr, f32),
+        "jpeg_420": (".jpg", lambda p: jpeg.write_jpeg(p, u8),
+                     jpeg.read_jpeg, None),
+    }
+    out = {"view": [w, h], "repeats": CODEC_REPEATS}
+    for name, (ext, write, read, want) in cases.items():
+        path = work / f"codec_{name}{ext}"
+        enc, dec = [], []
+        for _ in range(CODEC_REPEATS):
+            t0 = time.perf_counter()
+            write(path)
+            t1 = time.perf_counter()
+            got = read(path)
+            t2 = time.perf_counter()
+            enc.append((t1 - t0) * 1e3)
+            dec.append((t2 - t1) * 1e3)
+        again = read(path)
+        if want is not None and not np.array_equal(got, want):
+            raise AssertionError(f"{name}: the file does not read back")
+        if not np.array_equal(got, again) or got.shape[:2] != (h, w):
+            raise AssertionError(f"{name}: decode is not repeatable")
+        out[name] = {"decode_ms": statistics.median(dec),
+                     "encode_ms": statistics.median(enc),
+                     "bytes": path.stat().st_size}
+    rng = np.random.default_rng(19)
+    y, x = np.mgrid[:PHOTO[0], :PHOTO[1]].astype(np.float32)
+    photo = np.stack([128 + 90 * np.sin(x / (97 + 13 * c))
+                      * np.cos(y / (61 + 7 * c)) for c in range(3)], -1)
+    photo = np.clip(photo + rng.normal(0, 6, photo.shape), 0, 255) \
+        .astype(np.uint8)
+    del x, y
+    path = work / "photo.jpg"
+    t0 = time.perf_counter()
+    jpeg.write_jpeg(path, photo)
+    t1 = time.perf_counter()
+    first = jpeg.read_jpeg(path)
+    t2 = time.perf_counter()
+    second = jpeg.read_jpeg(path)
+    t3 = time.perf_counter()
+    if first.shape != photo.shape or not np.array_equal(first, second):
+        raise AssertionError("4032x3024 JPEG: decode is not repeatable")
+    err = np.abs(first.astype(np.int16) - photo).mean()
+    out["jpeg_photo"] = {"size": [PHOTO[1], PHOTO[0]],
+                         "encode_ms": (t1 - t0) * 1e3,
+                         "decode_ms": [(t2 - t1) * 1e3, (t3 - t2) * 1e3],
+                         "bytes": path.stat().st_size,
+                         "mean_abs_err": float(err)}
+    return out
+
+
+def scene_load_seconds() -> list:
+    """Seconds of each of SCENE_LOAD_REPEATS `io/dataset.py:
+    load_transform_json` calls on a prepared sphere scene of 16-bit RGBA
+    PNGs (SCENE_LOAD): the PNG path's start-up cost. `rnb_neus2_torch` is
+    the first one on sys.path, so that this file, loaded by its path from
+    another checkout's root, times that checkout on the same scene."""
+    from rnb_neus2_torch.io.dataset import load_transform_json
+    from rnb_neus2_torch.testing.synthetic import write_prepared_scene
+
+    with tempfile.TemporaryDirectory() as d:
+        write_prepared_scene(d, **SCENE_LOAD)
+        load_transform_json(d)                 # builds the unfilter library
+        seconds = []
+        for _ in range(SCENE_LOAD_REPEATS):
+            t0 = time.perf_counter()
+            load_transform_json(d)
+            seconds.append(time.perf_counter() - t0)
+    return seconds
+
+
+def formats_phase(torch, kernels, card) -> dict:
+    """Phase 19: the Meshroom-style scene in PNG and in EXR/TIFF/JPEG,
+    prepared and compared, the EXR/TIFF/JPEG one through the pipeline on
+    the card, then the codecs' timings."""
+    import numpy as np
+    from rnb_neus2_torch.cli import pipeline
+    from rnb_neus2_torch.io import png
+    from rnb_neus2_torch.io.dataloaders import load_data
+    from rnb_neus2_torch.io.prepare import prepare_testbed_data
+    from rnb_neus2_torch.mesh.writer import load_obj
+    from rnb_neus2_torch.testing.synthetic import write_sfm_scene
+
+    world_center = np.array([0.2, -0.1, 0.3])
+    with tempfile.TemporaryDirectory() as d:
+        root = Path(d)
+        scenes, seconds = {}, {}
+        for fmt in ("png", "exr"):
+            t0 = time.perf_counter()
+            scenes[fmt] = write_sfm_scene(str(root / fmt), fmt,
+                                          world_center=world_center,
+                                          **SPHERE)
+            t1 = time.perf_counter()
+            normals, albedos, masks, r_world = scenes[fmt]
+            data = load_data(normals, albedo_sfm_path=albedos,
+                             mask_folder_path=masks)
+            prepare_testbed_data(data, str(root / fmt / "prepared"))
+            seconds[fmt] = {"write_s": t1 - t0,
+                            "load_and_prepare_s": time.perf_counter() - t1}
+        mask_paths = [v["mask_path"] for v in data["views"]]
+        cmp = _compare_prepared(png, root / "png" / "prepared",
+                                root / "exr" / "prepared")
+        log("formats_prepare", seconds=seconds, mask_files=sorted(
+            {Path(p).suffix for p in mask_paths}), **cmp)
+        if not (cmp["frames"] == SPHERE["n_views"] and cmp["albedo_equal"]
+                and cmp["alpha_equal"] and cmp["normal_max_diff"] <= 1
+                and cmp["n2w_equal"]):
+            raise AssertionError(f"prepared EXR/TIFF/JPEG scene differs "
+                                 f"from the PNG one: {cmp}")
+        if not all(p.endswith(".jpg") for p in mask_paths):
+            raise AssertionError(f"masks found: {mask_paths}")
+
+        normals, albedos, masks, r_world = scenes["exr"]
+        buckets, undo = _record_step_bodies()
+        for k in kernels.values():
+            k.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            mesh_path = pipeline.run_full_pipeline(
+                normals, str(root / "out"), max_steps=FORMATS_STEPS,
+                mesh_resolution=512, albedo_sfm_path=albedos,
+                mask_folder_path=masks, device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        total = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        want = _expected_launches(buckets)
+        with open(root / "out" / "prepared_data" / "transform.json") as f:
+            voxel = 2.0 / 512 * json.load(f)["n2w"][0][0]
+        V, F = load_obj(mesh_path)
+        radius = float(np.median(np.linalg.norm(V - world_center, axis=1)))
+        codecs = codec_timings(root)
+        codecs["png_scene_load_s"] = scene_load_seconds()
+    row = {"steps": FORMATS_STEPS, "step_bodies": len(buckets),
+           "steps_at_14_levels": sum(b == 14 for b in buckets),
+           "launches": launches, "launches_expected": want,
+           "pipeline_s": total, "vertices": len(V), "faces": len(F),
+           "median_radius": radius, "world_radius": r_world, "voxel": voxel,
+           "codecs": codecs, "card": card}
+    log("formats", **row)
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} in "
+                             f"{len(buckets)} steps; want {want}")
+    if not (len(F) and abs(radius - r_world) <= voxel):
+        raise AssertionError(f"mesh.obj median radius {radius}, the "
+                             f"sphere's {r_world} (voxel {voxel})")
+    return row
+
+
 def main() -> int:
     signal.alarm(WALL_LIMIT_S)
     import torch
@@ -2399,7 +2626,7 @@ def main() -> int:
     from rnb_neus2_torch.kernels import build
     from rnb_neus2_torch.kernels import hash_grad_small as hgs
     from rnb_neus2_torch.kernels import scatter_add as sca
-    from rnb_neus2_torch.io import png, raycast
+    from rnb_neus2_torch.io import native, png, raycast
     from rnb_neus2_torch.tools import bench_scatter as bench
 
     kernels = {"hash_grad_small": hgs, "scatter_add": sca}
@@ -2410,7 +2637,7 @@ def main() -> int:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
 
-    build_all(build, [hgs, sca, raycast, png])
+    build_all(build, [hgs, sca, raycast, png, native])
     errs = check_kernels_vs_plain(torch, bench, kernels, dev)
     for name, sizes in (("hash_grad_small", (4096, 13824)),
                         ("scatter_add", (39304, 125000, 373248, 1 << 19))):
@@ -2493,6 +2720,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         extra = extra_modes_phase(torch, kernels, dev, card, Path(work))
     par = parallel_phase(torch, bench, kernels, dev, card)
+    torch.cuda.empty_cache()
+    fmts = formats_phase(torch, kernels, card)
     for row in rows:
         row["launches_pipeline"] = piped["launches"][row["name"]]
         row["pipeline_steps"] = piped["step_bodies"]
@@ -2508,6 +2737,8 @@ def main() -> int:
             k: r["launches"][row["name"]] for k, r in extra["fits"].items()}
         t = par["kernels"][row["name"]]
         row["launches_parallel"] = par["launches"][row["name"]]
+        row["launches_formats"] = fmts["launches"][row["name"]]
+        row["formats_steps"] = fmts["step_bodies"]
         row["parallel_steps"] = par["steps"]
         row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
         row["parallel_path"] = {k: t.get(k) for k in (

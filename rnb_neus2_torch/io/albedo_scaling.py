@@ -1,6 +1,8 @@
 """Multi-view albedo scale harmonization (port of
 `rnb_neus2_tpu/io/albedo_scaling.py`; reference:
-rnb_neus2/albedo_scaling.py). Images go through the port's PNG codec.
+rnb_neus2/albedo_scaling.py). Images go through the port's codecs
+(`io/image_io.py`); an `.exr` albedo is read, and its scaled copy, like
+cv2's write of integer samples to an `.exr` name, raises.
 
 Photometric-stereo albedos are recovered per view up to an unknown scale;
 this stage estimates one RGB scale per view so albedos agree across views:

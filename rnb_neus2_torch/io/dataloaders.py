@@ -81,7 +81,7 @@ def load_idr_scene(data_dir: str) -> dict:
         raise FileNotFoundError(f"normal/ folder not found in {data_dir}")
     first = sorted(os.listdir(normal_dir))[0]
     n_digits = len(os.path.splitext(first)[0])
-    H, W = image_io.read_raw(os.path.join(normal_dir, first)).shape[:2]
+    H, W = image_io.color_shape(os.path.join(normal_dir, first))
 
     albedo_dir = os.path.join(data_dir, "albedo")
     mask_dir = os.path.join(data_dir, "mask")

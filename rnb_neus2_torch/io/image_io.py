@@ -1,12 +1,15 @@
 """Image I/O and the exact training-time decode (port of
 `rnb_neus2_tpu/io/image_io.py`).
 
-Files are PNG, 8 or 16 bit, read and written by `io/png.py` (no `cv2`):
-values are normalized to [0, 1] and channels come in RGB(A) order. The
-JAX package reads through cv2 and flips its BGR(A) back to RGB(A); the
-port's reader gives RGB(A) directly and flips nothing. A grey+alpha file
-reads as (grey, grey, grey, alpha), as cv2 reads it. EXR and TIFF inputs,
-which the JAX package reads only through cv2, raise.
+Files are read and written by the port's own codecs (no `cv2`): PNG
+(`io/png.py`), TIFF (`io/tiff.py`), JPEG (`io/jpeg.py`) and OpenEXR
+(`io/exr.py`). A file's format is found from its signature, as
+`cv2.imread` finds it, and its samples come back as cv2 gives them, but
+in RGB(A) order: the JAX package flips cv2's BGR(A), the port's readers
+give RGB(A) directly and flip nothing. A grey+alpha PNG reads as (grey,
+grey, grey, alpha), as cv2 reads it. Integer samples are normalized to
+[0, 1]; float (EXR, float TIFF) samples pass through. `save_image` writes
+the format its extension names, as `cv2.imwrite` does.
 
 Training decode (a 16-bit RGBA texel, common_device.cuh:665-690 +
 testbed_nerf.cu:1504-1535):
@@ -21,7 +24,7 @@ import os
 
 import numpy as np
 
-from .png import read_png, write_png
+from . import exr, jpeg, png, tiff
 
 
 def srgb_to_linear(x: np.ndarray) -> np.ndarray:
@@ -56,35 +59,79 @@ def decode_normal(rgb: np.ndarray, alpha: np.ndarray) -> np.ndarray:
 # files
 # ---------------------------------------------------------------------------
 
-def read_raw(path) -> np.ndarray:
-    """A PNG's samples as `cv2.imread(IMREAD_UNCHANGED)` gives them, in
-    RGB(A) order: (H, W) grey, (H, W, 3) or (H, W, 4); grey+alpha comes
-    back as (grey, grey, grey, alpha)."""
-    ext = os.path.splitext(str(path))[1].lower()
-    if ext in (".exr", ".tif", ".tiff"):
-        raise ValueError(f"{path}: {ext[1:].upper()} input is not supported "
-                         "by the PyTorch port yet; convert it to a 16-bit "
-                         "PNG")
+def _reader(path):
     if not os.path.exists(str(path)):
         raise FileNotFoundError(f"Cannot read image: {path}")
-    img = read_png(path)
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head.startswith(png.SIGNATURE):
+        return png.read_png
+    if head.startswith(jpeg.SIGNATURE):
+        return jpeg.read_jpeg
+    if head[:2] in (b"II", b"MM") and head[2:4] in (b"*\0", b"\0*",
+                                                      b"+\0", b"\0+"):
+        return tiff.read_tiff
+    if head.startswith(exr.MAGIC):
+        return _read_exr
+    raise ValueError(f"{path}: not a PNG, JPEG, TIFF or OpenEXR file "
+                     "(other formats are not supported)")
+
+
+def _read_exr(path, mode: str = "unchanged") -> np.ndarray:
+    if mode != "unchanged":
+        raise ValueError(f"{path}: EXR read as 8-bit colour or grey is not "
+                         "supported")
+    return exr.read_exr(path)
+
+
+def read_image(path, mode: str = "unchanged") -> np.ndarray:
+    """`cv2.imread(path, flag)` in RGB(A) order, the format found from the
+    file's signature. mode "unchanged" (IMREAD_UNCHANGED): uint8, uint16
+    or float32, (H, W) grey, (H, W, 3) or (H, W, 4); grey+alpha comes back
+    as (grey, grey, grey, alpha). "color" (IMREAD_COLOR): uint8 (H, W, 3);
+    "grey" (IMREAD_GRAYSCALE): uint8 (H, W); both with the EXIF
+    orientation applied."""
+    img = _reader(path)(path, mode)
     if img.ndim == 3 and img.shape[2] == 2:
         img = img[..., [0, 0, 0, 1]]
     return img
 
 
+def read_raw(path) -> np.ndarray:
+    """`read_image(path)`: the samples as `cv2.imread(IMREAD_UNCHANGED)`
+    gives them, in RGB(A) order."""
+    return read_image(path)
+
+
+def color_shape(path):
+    """(H, W) of `cv2.imread(path)` (IMREAD_COLOR): an EXIF orientation of
+    5-8 swaps them."""
+    reader = _reader(path)
+    if reader in (png.read_png, jpeg.read_jpeg):
+        return read_image(path, "color").shape[:2]
+    return read_image(path).shape[:2]
+
+
 def load_image(path) -> np.ndarray:
-    """PNG 8/16-bit → [0,1] float32, RGB(A) order."""
+    """8/16-bit → [0,1] float32; float32 (EXR, float TIFF) passes through;
+    RGB(A) order."""
     img = read_raw(path)
-    return img.astype(np.float32) / float(np.iinfo(img.dtype).max)
+    if img.dtype in (np.uint8, np.uint16):
+        return img.astype(np.float32) / float(np.iinfo(img.dtype).max)
+    if img.dtype != np.float32:
+        raise ValueError(f"Unsupported dtype {img.dtype} in {path}")
+    return img
 
 
 def load_image_raw16(path) -> np.ndarray:
     """16-bit RGBA exactly as the engine's stbi_load_16 sees it:
-    (H, W, 4) uint16, 8-bit inputs upscaled by 257."""
+    (H, W, 4) uint16, 8-bit inputs upscaled by 257, float inputs clipped
+    to [0, 1] and rounded as (v · 65535 + 0.5) truncated."""
     img = read_raw(path)
     if img.dtype == np.uint8:
         img = img.astype(np.uint16) * 257
+    elif img.dtype == np.float32:
+        img = (np.clip(img, 0, 1) * 65535.0 + 0.5).astype(np.uint16)
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=-1)
     if img.shape[2] == 3:
@@ -93,19 +140,57 @@ def load_image_raw16(path) -> np.ndarray:
     return img
 
 
+def write_raw(path, image: np.ndarray) -> None:
+    """uint8 or uint16 samples in RGB(A) order, written in the format the
+    extension names, as `cv2.imwrite` writes them: `.png`; `.tif`/`.tiff`
+    (LZW, horizontal differencing); `.jpg`/`.jpeg`/`.jpe` (quality 95,
+    4:2:0, alpha dropped, 16-bit samples saturated to 255 as cv2's
+    conversion to 8 bits does). `.exr` raises, since OpenCV's EXR encoder
+    takes only float samples (`save_exr` writes floats), and so does any
+    other extension."""
+    ext = os.path.splitext(str(path))[1].lower()
+    if ext == ".png":
+        png.write_png(path, image)
+    elif ext in (".tif", ".tiff"):
+        tiff.write_tiff(path, image)
+    elif ext in (".jpg", ".jpeg", ".jpe"):
+        if image.ndim == 3:
+            image = image[..., :3]
+        jpeg.write_jpeg(path, np.minimum(image, 255).astype(np.uint8))
+    elif ext == ".exr":
+        raise ValueError(f"{path}: an EXR file holds float samples; "
+                         f"{image.dtype} cannot be written (use save_exr)")
+    else:
+        raise ValueError(f"{path}: no image writer for extension "
+                         f"{ext or '(none)'!r}")
+
+
 def save_image(image: np.ndarray, path, bit_depth: int = 16) -> None:
+    """[0, 1] floats → 8- or 16-bit samples (NaN → 0), written by
+    `write_raw` in the format the extension names."""
     image = np.nan_to_num(np.asarray(image, np.float32), nan=0.0)
     image = np.clip(image, 0.0, 1.0) * float(2 ** bit_depth - 1)
-    write_png(path, image.astype(np.uint8 if bit_depth == 8
-                                 else np.uint16))
+    write_raw(path, image.astype(np.uint8 if bit_depth == 8 else np.uint16))
+
+
+def save_exr(image: np.ndarray, path) -> None:
+    """float32 (H, W), (H, W, 3) or (H, W, 4) → an EXR of FLOAT channels,
+    ZIP-compressed (what the JAX `save_exr` asks cv2 for), each channel
+    under its own name: Y, or R, G, B(, A). (The JAX `save_exr` reverses
+    all channels before cv2 names them B, G, R, A, so an RGBA image's R
+    lands in A there.)"""
+    exr.write_exr(path, image)
 
 
 def load_normal(path) -> np.ndarray:
-    """Normal map in [−1,1], remapped from the PNG's [0,1]."""
+    """Normal map in [−1,1]: a `.exr` name as-is, any other remapped from
+    [0,1] (the extension decides, not the content, as in the JAX
+    package)."""
+    ext = os.path.splitext(str(path))[1].lower()
     img = load_image(path)
     if img.ndim == 3 and img.shape[2] > 3:
         img = img[:, :, :3]
-    return img * 2.0 - 1.0
+    return img if ext == ".exr" else img * 2.0 - 1.0
 
 
 def save_normal_16bit(normal: np.ndarray, path) -> None:

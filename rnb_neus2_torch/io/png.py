@@ -1,14 +1,14 @@
 """PNG read and write with numpy, zlib and a small C unfilter: no `cv2` or
 `PIL`, which the card's host does not have.
 
-Reads 8- and 16-bit grey, grey+alpha, RGB and RGBA, non-interlaced, with
-any of the five row filters, and returns the samples in the file's order:
-(H, W) for grey, (H, W, C) otherwise, RGB(A) — not cv2's BGR(A). Palette,
-sub-byte and interlaced files raise, naming what is not supported. Rows
-are unfiltered by `png_unfilter` (`native/png_unfilter.cc`, built with g++
-into `build/` at first use, as `io/raycast.py` builds the BVH): Sub,
-Average and Paeth depend on the byte before, which numpy cannot vectorize
-along a row.
+Reads every PNG kind that cv2 reads — grey at 1, 2, 4, 8 and 16 bits,
+grey+alpha, RGB and RGBA at 8 and 16, palette at 1-8 bits with or without
+tRNS, plain or Adam7-interlaced, any of the five row filters — and
+returns what `cv2.imread` returns, in RGB(A) order rather than cv2's
+BGR(A). Rows (each Adam7 pass on its own) are unfiltered by
+`png_unfilter` (`native/png_unfilter.cc`, built with g++ into `build/` at
+first use, as `io/raycast.py` builds the BVH): Sub, Average and Paeth
+depend on the byte before, which numpy cannot vectorize along a row.
 
 Writes every row with filter 0 (None) and zlib level 1.
 """
@@ -24,6 +24,7 @@ from pathlib import Path
 import numpy as np
 
 from ..kernels.build import load_host_library
+from . import exif
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 SOURCE = Path(__file__).resolve().parent.parent / "native" / "png_unfilter.cc"
@@ -53,47 +54,140 @@ def _chunks(blob: bytes, path):
         pos += 12 + n
 
 
-def read_png(path) -> np.ndarray:
-    """uint8 or uint16 samples, (H, W) or (H, W, C) in RGB(A) order."""
-    blob = Path(path).read_bytes()
-    if not blob.startswith(SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file (only PNG is read; EXR, "
-                         "TIFF and other formats are not supported)")
-    header, idat = None, []
-    for kind, body in _chunks(blob, path):
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if header is None:
-        raise ValueError(f"{path}: PNG without an IHDR chunk")
-    w, h, depth, ctype, _, _, interlace = header
-    if ctype not in CHANNELS:
-        raise ValueError(f"{path}: PNG colour type {ctype} (palette) is not "
-                         "supported; only grey, grey+alpha, RGB and RGBA")
-    if depth not in (8, 16):
-        raise ValueError(f"{path}: PNG bit depth {depth} is not supported; "
-                         "only 8 and 16")
-    if interlace:
-        raise ValueError(f"{path}: interlaced (Adam7) PNG is not supported")
-    ch, nbytes = CHANNELS[ctype], depth // 8
-    bpp = ch * nbytes
-    stride = w * bpp
-    data = zlib.decompress(b"".join(idat))
-    if len(data) != h * (stride + 1):
-        raise ValueError(f"{path}: PNG image data has {len(data)} bytes, "
-                         f"want {h * (stride + 1)}")
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))   # x0, y0, dx, dy
+# libpng's png_set_rgb_to_gray(0.299, 0.587) in 1/32768 (pngrtran.c)
+GREY_RC, GREY_GC = 9797, 19234
+GREY_BC = 32768 - GREY_RC - GREY_GC
+
+
+def _unfilter(data: bytes, h: int, stride: int, bpp: int, path):
     out = np.empty((h, stride), np.uint8)
     bad = _library().png_unfilter(data, out.ctypes.data_as(ctypes.c_void_p),
                                   h, stride, bpp)
     if bad:
         raise ValueError(f"{path}: PNG row {bad - 1} has an unknown filter "
                          "type")
-    img = out.view(">u2").astype(np.uint16) if depth == 16 else out
-    img = img.reshape(h, w, ch)
-    return img[..., 0] if ch == 1 else img
+    return out
+
+
+def _samples(rows: np.ndarray, n: int, depth: int) -> np.ndarray:
+    """Unfiltered rows → (h, n) samples of `depth` bits (MSB first)."""
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16)[:, :n]
+    if depth == 8:
+        return rows[:, :n]
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (rows[:, :, None] >> shifts) & np.uint8((1 << depth) - 1)
+    return vals.reshape(rows.shape[0], -1)[:, :n]
+
+
+def _decode(path):
+    """→ (samples (H, W, C) as stored, colour type, bit depth, PLTE, tRNS,
+    EXIF orientation)."""
+    blob = Path(path).read_bytes()
+    if not blob.startswith(SIGNATURE):
+        raise ValueError(f"{path}: not a PNG file")
+    header, idat, plte, trns, orientation = None, [], None, None, 1
+    for kind, body in _chunks(blob, path):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"eXIf":
+            orientation = exif.orientation(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: PNG without an IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = header
+    allowed = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+    if depth not in allowed.get(ctype, ()):
+        raise ValueError(f"{path}: PNG colour type {ctype} at bit depth "
+                         f"{depth} is not a valid PNG")
+    if ctype == 3 and plte is None:
+        raise ValueError(f"{path}: palette PNG without a PLTE chunk")
+    ch = 1 if ctype == 3 else CHANNELS[ctype]
+    bpp = max(1, ch * depth // 8)
+    data = zlib.decompress(b"".join(idat))
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    img = None if not interlace else np.empty(
+        (h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = (pw * ch * depth + 7) // 8
+        n = ph * (stride + 1)
+        if pos + n > len(data):
+            raise ValueError(f"{path}: PNG image data has {len(data)} "
+                             f"bytes, too few for {w}x{h}")
+        rows = _unfilter(data[pos:pos + n], ph, stride, bpp, path)
+        samples = _samples(rows, pw * ch, depth).reshape(ph, pw, ch)
+        if img is None:
+            img = samples
+        else:
+            img[y0::dy, x0::dx] = samples
+        pos += n
+    if pos != len(data):
+        raise ValueError(f"{path}: PNG image data has {len(data)} bytes, "
+                         f"want {pos}")
+    return img, ctype, depth, plte, trns, orientation
+
+
+def read_png(path, mode: str = "unchanged") -> np.ndarray:
+    """A PNG as `cv2.imread` reads it (libpng's transforms), RGB(A) order.
+
+    mode "unchanged" (IMREAD_UNCHANGED): uint8 or uint16 samples, (H, W)
+    grey (1-, 2- and 4-bit scaled to 0-255), (H, W, 2) grey+alpha, RGB, or
+    RGBA; a palette expands to RGB, or RGBA with a tRNS chunk, and RGB
+    with a tRNS colour key becomes RGBA. "color" (IMREAD_COLOR): uint8
+    (H, W, 3), 16-bit samples keep their high byte, alpha dropped. "grey"
+    (IMREAD_GRAYSCALE): uint8 (H, W), colour through libpng's
+    rgb_to_gray (truncating at 8 bits, rounding at 16, before the 16-bit
+    strip). Both apply an eXIf chunk's orientation, as cv2 does."""
+    img, ctype, depth, plte, trns, orientation = _decode(path)
+    top = (1 << depth) - 1
+    if ctype == 3:
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:len(plte)] = plte[:256]
+        alpha = np.full(256, 255, np.uint8)
+        if trns is not None:
+            alpha[:len(trns)] = np.frombuffer(trns[:256], np.uint8)
+        idx = img[..., 0]
+        img = pal[idx]
+        if trns is not None and mode == "unchanged":
+            img = np.concatenate([img, alpha[idx][..., None]], axis=-1)
+        depth, top = 8, 255
+    elif ctype == 0 and depth < 8:
+        img = img * np.uint8(255 // top)
+        depth, top = 8, 255
+    elif ctype == 2 and trns is not None and mode == "unchanged":
+        key = np.array(struct.unpack(">HHH", trns[:6]), img.dtype)
+        alpha = np.where(np.all(img == key, axis=-1), 0, top)
+        img = np.concatenate([img, alpha[..., None].astype(img.dtype)], -1)
+    if mode == "unchanged":
+        return img[..., 0] if img.shape[2] == 1 else img
+    colour = img.shape[2] >= 3
+    if mode == "color":
+        out = img[..., :3] if colour else np.repeat(img[..., :1], 3, -1)
+    elif mode == "grey":
+        if not colour:
+            out = img[..., 0]
+        else:
+            r, g, b = (img[..., i].astype(np.int64) for i in range(3))
+            out = GREY_RC * r + GREY_GC * g + GREY_BC * b
+            out = (out + 16384) >> 15 if depth == 16 else out >> 15
+    else:
+        raise ValueError(f"unknown read mode {mode!r}")
+    out = (out >> 8) if depth == 16 else out
+    return exif.orient(out.astype(np.uint8), orientation)
 
 
 def write_png(path, img: np.ndarray) -> None:

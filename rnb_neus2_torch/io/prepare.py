@@ -1,12 +1,14 @@
 """Prepare stage: loaded scene → testbed directory (transform.json +
 normals/ + albedos/ RGBA PNGs). Port of `rnb_neus2_tpu/io/prepare.py`,
-reading and writing through the port's PNG codec (`io/png.py`): EXR
-normals and albedos, which the JAX package reads through cv2, raise.
+reading through the port's codecs (`io/image_io.py:read_raw`: PNG, TIFF,
+JPEG, EXR) and writing PNG (`io/png.py`).
 
 Reference behavior (rnb_neus2/prepare.py:116-257) reproduced exactly:
 - scaling-mode priority chain silhouettes_v2 → silhouettes → landmarks →
   camera centers (auto), or forced / none (:44-113);
 - camera centers rescaled c2w[:3,3] = s·(c − center) (:148-150);
+- EXR float normals in [−1,1] mapped to uint16; float albedos clipped to
+  [0,1] → uint16;
 - alpha masks regenerated PER TARGET BIT DEPTH (the
   mixed-bit-depth bug guarded by tests/test_prepare_albedo_alpha.py in the
   reference) (:160-215);
@@ -30,7 +32,8 @@ from . import scaling as sc
 
 def load_mask_for_depth(mask_path, shape, bit_depth: int) -> np.ndarray:
     """Binary mask at the target bit depth; full-opaque when absent
-    (prepare.py:23-41)."""
+    (prepare.py:23-41); `scaling.read_mask` thresholds it (float samples
+    above 0.5)."""
     max_val = 65535 if bit_depth == 16 else 255
     dtype = np.uint16 if bit_depth == 16 else np.uint8
     if mask_path and os.path.exists(str(mask_path)):
@@ -77,6 +80,12 @@ def compute_scaling(data: dict, scaling_mode: str = "auto",
                        "Use scaling_mode='none' to disable.")
 
 
+def _to_uint16_normal(img: np.ndarray) -> np.ndarray:
+    """EXR float normals [−1,1] → uint16 (prepare.py:166-169)."""
+    v = np.clip((img + 1.0) / 2.0, 0, 1)
+    return (v * 65535).astype(np.uint16)
+
+
 def prepare_testbed_data(data: dict, output_folder: str, logger=None,
                          scaling_mode: str = "auto",
                          sphere_scale: float = 1.0,
@@ -102,6 +111,8 @@ def prepare_testbed_data(data: dict, output_folder: str, logger=None,
         except FileNotFoundError:
             logger.warning(f"Cannot read: {view['normal_path']}")
             continue
+        if nrm.dtype == np.float32:
+            nrm = _to_uint16_normal(nrm)
         if nrm.ndim == 3 and nrm.shape[2] == 4:
             nrm = nrm[:, :, :3]
         bit_depth = 16 if nrm.dtype == np.uint16 else 8
@@ -111,6 +122,8 @@ def prepare_testbed_data(data: dict, output_folder: str, logger=None,
         ap = view.get("albedo_path")
         if ap and os.path.exists(str(ap)):
             alb = image_io.read_raw(ap)
+            if alb.dtype == np.float32:
+                alb = (np.clip(alb, 0, 1) * 65535).astype(np.uint16)
             if alb.ndim == 3 and alb.shape[2] == 4:
                 alb = alb[:, :, :3]
         if alb is None:

@@ -31,11 +31,13 @@ from . import image_io
 def read_mask(path) -> np.ndarray:
     """A mask file as binary float64: the channel that
     `cv2.imread(IMREAD_UNCHANGED)[:, :, 0]` gives (grey, or blue: index 2
-    of the port's RGB(A)) above 125 for 8 bits, 30000 for 16
-    (scaling.py:256-305)."""
+    of the port's RGB(A)) above 0.5 for float samples, 125 for 8 bits,
+    30000 for 16 (scaling.py:256-305)."""
     img = image_io.read_raw(path)
     if img.ndim == 3:
         img = img[:, :, 2]
+    if img.dtype == np.float32:
+        return (img > 0.5).astype(np.float64)
     thr = 125 if img.dtype == np.uint8 else 30000
     return np.where(img > thr, 1.0, 0.0)
 

@@ -176,6 +176,25 @@ def _write_prepared(out_dir, cams: Cameras, normals, albedo, alphas,
     return out_dir
 
 
+def _world_views(n_views, width, height, radius, cam_radius, focal,
+                 world_center, world_scale, albedo_scales):
+    """The sphere's views in a world frame: the unit cube scaled by
+    `world_scale` about the sphere's centre, which lands on
+    `world_center`. → (c2w rotations, camera centres, the stored normals
+    (the y/z negation undone: what a normal map holds, in [-1, 1]),
+    albedos with their per-view scales, alphas)."""
+    cams = ring_cameras(n_views, cam_radius, width, height, focal)
+    normals, albedo, alphas = render_sphere_views(cams, radius=radius)
+    rots = cams.rot_c2w.numpy().astype(np.float64)
+    centers = (cams.origin.numpy().astype(np.float64) - 0.5) * world_scale \
+        + np.asarray(world_center, np.float64)
+    stored = normals * np.array([1.0, -1.0, -1.0])
+    if albedo_scales is not None:
+        albedo = np.stack([np.clip(albedo[i] * albedo_scales[i], 0, 1)
+                           for i in range(n_views)])
+    return rots, centers, stored, albedo, alphas
+
+
 def write_idr_scene(out_dir, n_views: int = 8, width: int = 48,
                     height: int = 48, radius: float = 0.25,
                     cam_radius: float = 1.5, focal: float = 70.0,
@@ -194,25 +213,21 @@ def write_idr_scene(out_dir, n_views: int = 8, width: int = 48,
 
     from ..io import image_io, png
 
-    cams = ring_cameras(n_views, cam_radius, width, height, focal)
-    normals, albedo, alphas = render_sphere_views(cams, radius=radius)
+    rots, centers, stored, albedo, alphas = _world_views(
+        n_views, width, height, radius, cam_radius, focal, world_center,
+        world_scale, albedo_scales)
     for sub in ("normal", "albedo", "mask"):
         os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
-    rots = cams.rot_c2w.numpy().astype(np.float64)
-    centers = (cams.origin.numpy().astype(np.float64) - 0.5) * world_scale \
-        + np.asarray(world_center, np.float64)
     K = np.array([[focal, 0.0, width / 2.0, 0.0],
                   [0.0, focal, height / 2.0, 0.0],
                   [0.0, 0.0, 1.0, 0.0], [0.0, 0.0, 0.0, 1.0]])
     mats = {}
     for i in range(n_views):
         name = f"{i:03d}.png"
-        stored = normals[i] * np.array([1.0, -1.0, -1.0])
-        image_io.save_image((stored + 1.0) / 2.0,
+        image_io.save_image((stored[i] + 1.0) / 2.0,
                             os.path.join(out_dir, "normal", name), 16)
-        a = albedo[i] if albedo_scales is None else np.clip(
-            albedo[i] * albedo_scales[i], 0, 1)
-        image_io.save_image(a, os.path.join(out_dir, "albedo", name), 16)
+        image_io.save_image(albedo[i], os.path.join(out_dir, "albedo", name),
+                            16)
         png.write_png(os.path.join(out_dir, "mask", name),
                       (alphas[i] * 255).astype(np.uint8))
         w2c = np.eye(4)
@@ -222,6 +237,69 @@ def write_idr_scene(out_dir, n_views: int = 8, width: int = 48,
         mats[f"scale_mat_{i}"] = np.eye(4, dtype=np.float32)
     np.savez(os.path.join(out_dir, "cameras.npz"), **mats)
     return radius * world_scale
+
+
+SFM_FORMATS = {"png": ("png", "png", "png"), "exr": ("exr", "tif", "jpg")}
+
+
+def write_sfm_scene(out_dir, formats: str = "png", n_views: int = 8,
+                    width: int = 48, height: int = 48, radius: float = 0.25,
+                    cam_radius: float = 1.5, focal: float = 70.0,
+                    world_center=(0.2, -0.1, 0.3), world_scale: float = 2.0,
+                    albedo_scales=None):
+    """Write the sphere as a Meshroom-style input, what the pipeline loads
+    from AliceVision SfMData JSON (`io/dataloaders.py:load_sfm_scene`):
+    normals.sfm.json and albedos.sfm.json (one intrinsic, a pose per view
+    in AliceVision's frame, views naming their image files) and a masks/
+    folder of files named by pose id. The world frame is
+    `write_idr_scene`'s. formats "png": 16-bit PNG normals and albedos,
+    8-bit PNG masks; "exr": float EXR normals in [-1, 1] (`save_exr`),
+    16-bit TIFF albedos and 8-bit JPEG masks (`save_image`). Returns
+    (normal SfM path, albedo SfM path, mask folder, world radius)."""
+    import json
+    import os
+
+    from ..io import image_io
+
+    n_fmt, a_fmt, m_fmt = SFM_FORMATS[formats]
+    rots, centers, stored, albedo, alphas = _world_views(
+        n_views, width, height, radius, cam_radius, focal, world_center,
+        world_scale, albedo_scales)
+    for sub in ("normals", "albedos", "masks"):
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+    flip = np.diag([1.0, -1.0, -1.0])     # the loader's AliceVision flip
+    poses, normal_views, albedo_views = [], [], []
+    for i in range(n_views):
+        pid = str(1000 + i)
+        n_path = os.path.join("normals", f"{i:03d}.{n_fmt}")
+        a_path = os.path.join("albedos", f"{i:03d}.{a_fmt}")
+        if n_fmt == "exr":
+            image_io.save_exr(stored[i].astype(np.float32),
+                              os.path.join(out_dir, n_path))
+        else:
+            image_io.save_image((stored[i] + 1.0) / 2.0,
+                                os.path.join(out_dir, n_path), 16)
+        image_io.save_image(albedo[i], os.path.join(out_dir, a_path), 16)
+        image_io.save_image(alphas[i], os.path.join(
+            out_dir, "masks", f"{pid}.{m_fmt}"), 8)
+        poses.append({"poseId": pid, "pose": {"transform": {
+            "rotation": [repr(float(v)) for v in (flip @ rots[i]).ravel()],
+            "center": [repr(float(v)) for v in flip @ centers[i]]}}})
+        for views, path in ((normal_views, n_path), (albedo_views, a_path)):
+            views.append({"viewId": str(i), "poseId": pid,
+                          "intrinsicId": "0", "path": path})
+    intr = [{"intrinsicId": "0", "width": width, "height": height,
+             "pxFocalLength": [repr(float(focal))] * 2,
+             "principalPoint": ["0", "0"]}]
+    paths = []
+    for name, views in (("normals", normal_views), ("albedos", albedo_views)):
+        path = os.path.join(out_dir, f"{name}.sfm.json")
+        with open(path, "w") as f:
+            json.dump({"intrinsics": intr, "poses": poses, "views": views},
+                      f)
+        paths.append(path)
+    return paths[0], paths[1], os.path.join(out_dir, "masks"), \
+        radius * world_scale
 
 
 # ---------------------------------------------------------------------------

@@ -8,11 +8,15 @@ mask as alpha) and transform.json (w, h, scale = 0.5, offset = [.5, .5,
 .5], from_na, n2w = scale_mat_0, and per frame the c2w and K decomposed
 from P = world_mat @ scale_mat by `io.dataloaders.decompose_projection`).
 
-Images and masks are read as the original reads them with cv2 (colour
-for the image, grey for the mask), through `io/png.py`: PNG only, where
-another format is refused by name. A 16-bit sample keeps its high byte, a
-grey image becomes three equal channels, an image's own alpha is dropped,
-and a colour mask becomes its luma (0.299 R + 0.587 G + 0.114 B).
+Images and masks are read as the original reads them with cv2 — the
+image with `IMREAD_COLOR`, the mask with `IMREAD_GRAYSCALE`, each format
+found from its signature (`io/image_io.py:read_image`: PNG, TIFF and
+JPEG, with their EXIF orientation) — and each RGBA result is written
+under its own name in the format that name's extension gives, as
+`cv2.imwrite` writes it (a `.jpg` name drops the mask, as cv2's JPEG
+writer drops alpha). EXR images, whose 8-bit conversion by cv2 the
+tests cannot observe (their cv2 is built without OpenEXR), are refused
+by name.
 
     python -m rnb_neus2_torch.tools.data_format_from_neus DATASET OUT \
         [--cameras-name cameras_sphere.npz] [--image-folder image] \
@@ -28,34 +32,7 @@ import os
 import numpy as np
 
 from ..io.dataloaders import decompose_projection
-from ..io.png import read_png, write_png
-
-
-def _read_8bit(path) -> np.ndarray:
-    if os.path.splitext(path)[1].lower() != ".png":
-        raise ValueError(f"{path}: only PNG images are read (this "
-                         "converter has no decoder for other formats)")
-    img = read_png(path)
-    return (img >> 8).astype(np.uint8) if img.dtype == np.uint16 else img
-
-
-def _read_colour(path) -> np.ndarray:
-    img = _read_8bit(path)
-    if img.ndim == 2:
-        img = img[..., None]
-    if img.shape[2] in (1, 2):
-        img = np.repeat(img[..., :1], 3, axis=2)
-    return img[..., :3]
-
-
-def _read_grey(path) -> np.ndarray:
-    img = _read_8bit(path)
-    if img.ndim == 2:
-        return img
-    if img.shape[2] <= 2:
-        return img[..., 0]
-    rgb = img[..., :3].astype(np.float64)
-    return np.rint(rgb @ np.array([0.299, 0.587, 0.114])).astype(np.uint8)
+from ..io.image_io import read_image, write_raw
 
 
 def generate(dataset_dir, output_dir, cameras_name="cameras_sphere.npz",
@@ -73,14 +50,14 @@ def generate(dataset_dir, output_dir, cameras_name="cameras_sphere.npz",
     frames = []
     W = H = None
     for i, name in enumerate(images):
-        img = _read_colour(os.path.join(img_dir, name))
+        img = read_image(os.path.join(img_dir, name), "color")
         if masks:
-            msk = _read_grey(os.path.join(msk_dir, masks[i]))
+            msk = read_image(os.path.join(msk_dir, masks[i]), "grey")
         else:
             msk = np.full(img.shape[:2], 255, np.uint8)
         rgba = np.concatenate([img, msk[:, :, None]], axis=-1)
         H, W = rgba.shape[:2]
-        write_png(os.path.join(out_img_dir, name), rgba)
+        write_raw(os.path.join(out_img_dir, name), rgba)
 
         P = (cams[f"world_mat_{i}"] @ cams[f"scale_mat_{i}"])[:3, :4]
         K, c2w = decompose_projection(P.astype(np.float32))

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no source of `rnb_neus2_torch` or
 `chip_smoke.py` imports JAX, the JAX package or a library the card's host
-lacks (`cv2`, `msgpack`, `PIL`, `trimesh`, `pyalicevision`), except
+lacks (`cv2`, `msgpack`, `PIL`, `trimesh`, the image libraries `imageio`,
+`tifffile` and `OpenEXR`, `pyalicevision`), except
 `pyalicevision` inside a function (the SfMData loader imports the
 optional bindings when it is called, as the JAX package does); the whole
 package imports with all of them blocked, and so do the two CLIs'
@@ -22,7 +23,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "rnb_neus2_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 BLOCKED = ("jax", "flax", "optax", "cv2", "msgpack", "PIL", "trimesh",
-           "pyalicevision", "rnb_neus2_tpu")
+           "imageio", "tifffile", "OpenEXR", "pyalicevision", "rnb_neus2_tpu")
 # pyalicevision may be imported inside a function only
 ANYWHERE = "|".join(m for m in BLOCKED if m != "pyalicevision")
 FORBIDDEN = re.compile(

@@ -4,7 +4,8 @@ JAX package.
 PNG: the port's reader equals `cv2.imread(IMREAD_UNCHANGED)` with cv2's
 BGR(A) flipped, for 8 and 16 bit, every channel count and files whose
 rows use every filter type; cv2 reads the port's writer back exactly;
-palette, interlaced, EXR and TIFF inputs raise. image_io: every loader
+what the readers still refuse (a PIZ EXR, a progressive JPEG, a tiled or
+planar-separate TIFF) raises by name. image_io: every loader
 equals the JAX package's on the same file. Loader: `load_transform_json`
 of both packages on one scene directory is bitwise equal in normals,
 albedos, alphas and the skip candidate, and equal in cameras; with k1–p2
@@ -120,19 +121,32 @@ def test_png_writer_read_back_by_cv2(tmp_path, dtype, ch):
     np.testing.assert_array_equal(png.read_png(cv_path), ref)
 
 
+def _tiff_header(tags) -> bytes:
+    """A little-endian TIFF whose one IFD holds `tags` ({tag: SHORT})."""
+    ifd = struct.pack("<H", len(tags)) + b"".join(
+        struct.pack("<HHIHH", t, 3, 1, v, 0) for t, v in sorted(tags.items()))
+    return b"II*\x00" + struct.pack("<I", 8) + ifd + bytes(4)
+
+
 def test_png_refuses_what_it_does_not_read(tmp_path):
-    img = _image(np.random.default_rng(0), np.uint8, 3)
-    cases = {"palette.png": _encode(img[..., :1], [0], color_type=3),
-             "interlaced.png": _encode(img, [0], interlace=1)}
-    for name, blob in cases.items():
-        (tmp_path / name).write_bytes(blob)
-    with pytest.raises(ValueError, match="palette"):
-        png.read_png(tmp_path / "palette.png")
-    with pytest.raises(ValueError, match="interlaced"):
-        png.read_png(tmp_path / "interlaced.png")
-    (tmp_path / "x.exr").write_bytes(b"\x76\x2f\x31\x01" + bytes(20))
-    for name in ("x.exr", "y.tiff"):
-        with pytest.raises(ValueError, match="not supported"):
+    """What the readers still refuse raises by name: a PIZ-compressed EXR,
+    a progressive JPEG, a tiled TIFF and a planar-separate TIFF."""
+    image_io.save_exr(np.zeros((4, 5, 3), np.float32), tmp_path / "x.exr")
+    blob = (tmp_path / "x.exr").read_bytes()
+    key = b"compression\0compression\0" + struct.pack("<i", 1)
+    (tmp_path / "piz.exr").write_bytes(blob.replace(key + b"\x03",
+                                                    key + b"\x04"))
+    cv2.imwrite(str(tmp_path / "p.jpg"), np.zeros((9, 9, 3), np.uint8),
+                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    base = {256: 8, 257: 8, 258: 8, 259: 1, 262: 1, 277: 1}
+    (tmp_path / "tiled.tif").write_bytes(
+        _tiff_header({**base, 322: 16, 323: 16, 324: 0, 325: 0}))
+    (tmp_path / "planar.tif").write_bytes(
+        _tiff_header({**base, 262: 2, 277: 3, 284: 2}))
+    for name, what in (("piz.exr", "PIZ"), ("p.jpg", "progressive"),
+                       ("tiled.tif", "tiled"),
+                       ("planar.tif", "planar-separate")):
+        with pytest.raises(ValueError, match=f"{what}.*not supported"):
             image_io.load_image(tmp_path / name)
     (tmp_path / "z.png").write_bytes(b"GIF89a" + bytes(20))
     with pytest.raises(ValueError, match="not a PNG"):

@@ -339,10 +339,19 @@ def test_neus_converter_matches_jax(tmp_path, capsys):
 
 
 def test_neus_converter_refuses_other_formats(tmp_path):
+    """An EXR image (whose 8-bit colour read no test can observe) and a
+    format no reader knows raise by name."""
+    from rnb_neus2_torch.io import image_io
     _neus_dir(tmp_path / "neus", n=1)
-    os.rename(tmp_path / "neus" / "image" / "000.png",
-              tmp_path / "neus" / "image" / "000.jpg")
-    with pytest.raises(ValueError, match="only PNG"):
+    img = tmp_path / "neus" / "image" / "000.png"
+    os.remove(img)
+    image_io.save_exr(np.zeros((16, 20, 3), np.float32),
+                      img.with_suffix(".exr"))
+    with pytest.raises(ValueError, match="EXR read as 8-bit colour"):
+        data_format_from_neus.generate(str(tmp_path / "neus"),
+                                       str(tmp_path / "out"))
+    img.with_suffix(".exr").write_bytes(b"GIF89a" + bytes(20))
+    with pytest.raises(ValueError, match="not a PNG, JPEG, TIFF or OpenEXR"):
         data_format_from_neus.generate(str(tmp_path / "neus"),
                                        str(tmp_path / "out"))
 
