@@ -253,11 +253,26 @@ Phases, each printing JSON lines with `elapsed_s`:
    checkout's root, this file times that checkout's package on the same
    scene).
 
+20. final slice (within 90 s): every fixture of
+   tests/torch_fixtures/formats (the JPEG and TIFF variants, written
+   where the CPU tests run by its make_fixtures.py with cv2 and PIL,
+   which this host lacks) decoded on the host in the three read modes, equal to
+   cv2's decode in its expected.npz, the files cv2 cannot read raising
+   UnreadableImage (ms per decode; the 612x512 progressive JPEG whole and
+   cut after 3 scans); `python -m rnb_neus2_torch.tools.mesh_from_snapshot`
+   as a subprocess on phase 11's scene and snapshot at resolution 256
+   (GT 128): exit 0, its OBJ equal to phase 11's mesh_300.obj (faces
+   equal, vertices within 1e-5), its Chamfer printed and not gated (the
+   sphere is not the composite scene); `Trainer.train(32)` on a fresh
+   default-config trainer on that scene, launches against the recorded
+   level buckets' count (as phase 12); then every section of
+   `tools/bench_primitives` on the card, one line per row.
+
 Then one JSON line with every kernel's numbers (the main path's launches,
 the pipeline's, the dynamic path's per phase, the refinement's, the
 dense-Adam run's, each option path's, each extra-mode fit's, the
-data-parallel run's and the formats pipeline's, with the timings on the
-first replica's inputs), and as
+data-parallel run's, the formats pipeline's and `Trainer.train`'s, with
+the timings on the first replica's inputs), and as
 the last line {"ok": true, "device": {...}}.
 Any failed phase raises and the script exits non-zero.
 """
@@ -311,6 +326,9 @@ CODEC_REPEATS = 5
 SCENE_LOAD = dict(n_views=16, width=612, height=512, focal=560.0)
 SCENE_LOAD_REPEATS = 5
 PAR_READS, PAR_SYNC = 18, 25   # phase 18: 450 steps, a read per 25
+FIXTURES = ROOT / "tests" / "torch_fixtures" / "formats"   # phase 20
+FIXTURE_REPEATS = 3
+TRAIN_API_STEPS = 32
 
 
 def log(phase: str, **kw) -> None:
@@ -2610,6 +2628,157 @@ def formats_phase(torch, kernels, card) -> dict:
     return row
 
 
+def decode_fixtures() -> dict:
+    """Phase 20, part 1: every fixture of tests/torch_fixtures/formats
+    decoded in each mode on the host, equal to cv2's decode in
+    expected.npz; where cv2 returned None (an empty array there), the
+    port must raise UnreadableImage."""
+    import numpy as np
+    from rnb_neus2_torch.io import image_io
+    from rnb_neus2_torch.io.errors import UnreadableImage
+
+    with np.load(FIXTURES / "expected.npz") as z:
+        expected = {k: z[k] for k in z.files}
+    files = sorted(p for p in FIXTURES.iterdir()
+                   if p.suffix in (".jpg", ".tif"))
+    ms, bad, refused = {}, [], 0
+    for path in files:
+        for mode in ("unchanged", "color", "grey"):
+            want = expected[f"{path.name}:{mode}"]
+            t0 = time.perf_counter()
+            try:
+                got = image_io.read_image(path, mode)
+            except UnreadableImage:
+                got = None
+            dt = 1e3 * (time.perf_counter() - t0)
+            ms[f"{path.name}:{mode}"] = dt
+            if want.size == 0:
+                refused += 1
+                if got is not None:
+                    bad.append(f"{path.name}:{mode} read, cv2 cannot")
+            elif got is None or got.dtype != want.dtype \
+                    or not np.array_equal(got, want):
+                bad.append(f"{path.name}:{mode}")
+    big = {}
+    for name in ("prog_612x512.jpg", "prog_612x512_cut3.jpg"):
+        times = []
+        for _ in range(FIXTURE_REPEATS):
+            t0 = time.perf_counter()
+            image_io.read_image(FIXTURES / name, "color")
+            times.append(1e3 * (time.perf_counter() - t0))
+        big[name] = min(times)
+    row = {"files": len(files), "decodes": len(ms), "refused": refused,
+           "mismatched": bad, "ms_per_decode": ms,
+           "ms_612x512_progressive_color": big["prog_612x512.jpg"],
+           "ms_612x512_progressive_cut3_color":
+               big["prog_612x512_cut3.jpg"],
+           "decode_s": sum(ms.values()) / 1e3}
+    log("fixtures", **row)
+    if bad or len(files) < 20:
+        raise AssertionError(f"fixtures that differ from cv2's decode: "
+                             f"{bad}")
+    return row
+
+
+def final_slice_phase(torch, kernels, card, work: Path) -> dict:
+    """Phase 20: the fixtures, `python -m
+    rnb_neus2_torch.tools.mesh_from_snapshot` on phase 11's scene and
+    snapshot, `Trainer.train(32)` with its launches counted, and every
+    section of `tools/bench_primitives` on the card."""
+    import numpy as np
+    from rnb_neus2_torch.config import TestbedConfig
+    from rnb_neus2_torch.io.dataset import load_transform_json
+    from rnb_neus2_torch.mesh.writer import load_obj
+    from rnb_neus2_torch.tools import bench_primitives
+    from rnb_neus2_torch.train.trainer import Trainer
+    from rnb_neus2_torch.utils.meters import Logger
+
+    t_phase = time.perf_counter()
+    row = {"fixtures": decode_fixtures()}
+    scene = work / "scene"
+    out = scene / "output"
+    V11, F11 = load_obj(out / f"mesh_{CLI_STEPS}.obj")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rnb_neus2_torch.tools.mesh_from_snapshot",
+         "--scene", str(scene), "--snapshot",
+         str(out / f"snapshot_{CLI_STEPS}.msgpack"), "--resolution", "256",
+         "--gt-resolution", "128"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    row["mesh_from_snapshot_s"] = time.perf_counter() - t0
+    print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"mesh_from_snapshot exited "
+                             f"{proc.returncode}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    V, F = load_obj(out / f"mesh_{CLI_STEPS}.obj")
+    row["mesh_from_snapshot"] = result
+    row["mesh_vs_phase11"] = {
+        "vertices": [len(V), len(V11)], "faces_equal":
+            bool(F.shape == F11.shape and np.array_equal(F, F11)),
+        "max_vertex_diff": float(np.abs(V - V11).max())
+        if V.shape == V11.shape else None}
+    log("mesh_from_snapshot", **row["mesh_vs_phase11"], result=result)
+    if not (row["mesh_vs_phase11"]["faces_equal"]
+            and row["mesh_vs_phase11"]["max_vertex_diff"] <= 1e-5
+            and result["mesh_vertices"] == len(V11)):
+        raise AssertionError(f"mesh_from_snapshot's mesh differs from "
+                             f"phase 11's: {row['mesh_vs_phase11']}")
+
+    ds = load_transform_json(str(scene), "cuda")
+    tr = Trainer(ds, TestbedConfig(), device="cuda")
+    buckets, undo = _record_step_bodies()
+    lines = []
+
+    class Lines(Logger):
+        def info(self, msg):
+            lines.append(msg)
+    for k in kernels.values():
+        k.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        tr.train(TRAIN_API_STEPS, log_every=TRAIN_API_STEPS // 2,
+                 logger=Lines())
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    launches = {name: k.launches for name, k in kernels.items()}
+    want = _expected_launches(buckets)
+    row["train_api"] = {"steps": tr.step, "step_bodies": len(buckets),
+                        "seconds": time.perf_counter() - t0,
+                        "step_ms_ema": tr.step_ms.value, "log": lines,
+                        "launches": launches, "launches_expected": want}
+    log("train_api", **row["train_api"])
+    del tr, ds
+    torch.cuda.empty_cache()
+    if launches != want or tr_steps_wrong(row["train_api"]):
+        raise AssertionError(f"Trainer.train: launches {launches}, want "
+                             f"{want}: {row['train_api']}")
+
+    t0 = time.perf_counter()
+    prims = bench_primitives.run(device="cuda")
+    for p in prims:
+        log("primitive", **p)
+    row["primitives"] = {"rows": len(prims),
+                         "seconds": time.perf_counter() - t0}
+    row["seconds"] = time.perf_counter() - t_phase
+    row["card"] = card
+    log("final_slice", **{k: v for k, v in row.items()
+                          if k not in ("fixtures",)})
+    return row
+
+
+def tr_steps_wrong(train_api: dict) -> bool:
+    """`Trainer.train(n)` ran other than n steps, or logged other than its
+    two lines."""
+    return (train_api["steps"] != TRAIN_API_STEPS
+            or train_api["step_bodies"] != TRAIN_API_STEPS
+            or len(train_api["log"]) != 2
+            or not train_api["log"][-1].startswith(
+                f"iteration={TRAIN_API_STEPS} loss="))
+
+
 def main() -> int:
     signal.alarm(WALL_LIMIT_S)
     import torch
@@ -2708,10 +2877,11 @@ def main() -> int:
     refined = refine_phase(torch, kernels, tr, card)
     del tr, tr_exact, inputs
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as work:
-        cli_phase(torch, dev, card, Path(work))
-        piped = pipeline_phase(torch, kernels, card)
-        testbed_phase(torch, dev, card, Path(work))
+    # phase 11's scene, snapshot and mesh stay for phase 20
+    work11 = tempfile.TemporaryDirectory()
+    cli_phase(torch, dev, card, Path(work11.name))
+    piped = pipeline_phase(torch, kernels, card)
+    testbed_phase(torch, dev, card, Path(work11.name))
     dyn = dynamic_phase(torch, kernels, dev, card)
     from rnb_neus2_torch.testing.synthetic import sphere_dataset
     ds = sphere_dataset(**SPHERE, device=dev)
@@ -2722,6 +2892,8 @@ def main() -> int:
     par = parallel_phase(torch, bench, kernels, dev, card)
     torch.cuda.empty_cache()
     fmts = formats_phase(torch, kernels, card)
+    final = final_slice_phase(torch, kernels, card, Path(work11.name))
+    work11.cleanup()
     for row in rows:
         row["launches_pipeline"] = piped["launches"][row["name"]]
         row["pipeline_steps"] = piped["step_bodies"]
@@ -2738,6 +2910,8 @@ def main() -> int:
         t = par["kernels"][row["name"]]
         row["launches_parallel"] = par["launches"][row["name"]]
         row["launches_formats"] = fmts["launches"][row["name"]]
+        row["launches_train_api"] = \
+            final["train_api"]["launches"][row["name"]]
         row["formats_steps"] = fmts["step_bodies"]
         row["parallel_steps"] = par["steps"]
         row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])

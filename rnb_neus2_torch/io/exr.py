@@ -26,6 +26,7 @@ from pathlib import Path
 import numpy as np
 
 from . import native
+from .errors import unsupported
 
 MAGIC = b"\x76\x2f\x31\x01"
 NO, RLE, ZIPS, ZIP = 0, 1, 2, 3
@@ -41,7 +42,7 @@ CHANNEL_SETS = {("B", "G", "R"): ("R", "G", "B"),
 
 
 def _refuse(path, what: str):
-    raise ValueError(f"{path}: {what} is not supported")
+    unsupported(path, what)
 
 
 def _cstr(blob: bytes, pos: int):

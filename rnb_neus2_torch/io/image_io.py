@@ -25,6 +25,7 @@ import os
 import numpy as np
 
 from . import exr, jpeg, png, tiff
+from .errors import UnreadableImage, unreadable, unsupported
 
 
 def srgb_to_linear(x: np.ndarray) -> np.ndarray:
@@ -59,28 +60,47 @@ def decode_normal(rgb: np.ndarray, alpha: np.ndarray) -> np.ndarray:
 # files
 # ---------------------------------------------------------------------------
 
+# formats cv2 reads that the port does not yet, by their signatures
+OTHER_FORMATS = ((b"BM", "BMP"), (b"P1", "PNM"), (b"P2", "PNM"),
+                 (b"P3", "PNM"), (b"P4", "PNM"), (b"P5", "PNM"),
+                 (b"P6", "PNM"), (b"P7", "PAM"), (b"PF", "PFM"),
+                 (b"Pf", "PFM"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
+                 (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
+                 (b"\x59\xa6\x6a\x95", "Sun raster"),
+                 (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"),
+                 (b"\xff\x4f\xff\x51", "JPEG 2000"))
+
+
 def _reader(path):
-    if not os.path.exists(str(path)):
-        raise FileNotFoundError(f"Cannot read image: {path}")
+    """The reader of the file's format, from its signature, as
+    `cv2.imread` finds it. A missing file or one of no format cv2 reads
+    raises UnreadableImage (cv2 returns None); a format cv2 reads and the
+    port does not, UnsupportedImage."""
+    if not os.path.isfile(str(path)):
+        unreadable(path, f"Cannot read image: {path}")
     with open(path, "rb") as f:
-        head = f.read(8)
+        head = f.read(16)
     if head.startswith(png.SIGNATURE):
         return png.read_png
     if head.startswith(jpeg.SIGNATURE):
         return jpeg.read_jpeg
-    if head[:2] in (b"II", b"MM") and head[2:4] in (b"*\0", b"\0*",
-                                                      b"+\0", b"\0+"):
+    if head[:4] in tiff.SIGNATURES:
         return tiff.read_tiff
     if head.startswith(exr.MAGIC):
         return _read_exr
-    raise ValueError(f"{path}: not a PNG, JPEG, TIFF or OpenEXR file "
-                     "(other formats are not supported)")
+    for sig, name in OTHER_FORMATS:
+        if head.startswith(sig):
+            unsupported(path, f"{name} image")
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        unsupported(path, "WebP image")
+    if head[4:8] == b"ftyp" and head[8:12] in (b"avif", b"avis"):
+        unsupported(path, "AVIF image")
+    unreadable(path, "not an image file cv2 reads")
 
 
 def _read_exr(path, mode: str = "unchanged") -> np.ndarray:
     if mode != "unchanged":
-        raise ValueError(f"{path}: EXR read as 8-bit colour or grey is not "
-                         "supported")
+        unsupported(path, "EXR read as 8-bit colour or grey")
     return exr.read_exr(path)
 
 
@@ -112,10 +132,20 @@ def color_shape(path):
     return read_image(path).shape[:2]
 
 
+def _read_or_raise(path) -> np.ndarray:
+    """`read_raw`, a file cv2 cannot read raising as the JAX loaders do
+    for cv2's None."""
+    try:
+        return read_raw(path)
+    except UnreadableImage as e:
+        raise UnreadableImage(f"Cannot read image: {path} ({e})") from None
+
+
 def load_image(path) -> np.ndarray:
     """8/16-bit → [0,1] float32; float32 (EXR, float TIFF) passes through;
-    RGB(A) order."""
-    img = read_raw(path)
+    RGB(A) order. A file cv2 cannot read raises FileNotFoundError
+    ("Cannot read image: ...")."""
+    img = _read_or_raise(path)
     if img.dtype in (np.uint8, np.uint16):
         return img.astype(np.float32) / float(np.iinfo(img.dtype).max)
     if img.dtype != np.float32:
@@ -127,7 +157,7 @@ def load_image_raw16(path) -> np.ndarray:
     """16-bit RGBA exactly as the engine's stbi_load_16 sees it:
     (H, W, 4) uint16, 8-bit inputs upscaled by 257, float inputs clipped
     to [0, 1] and rounded as (v · 65535 + 0.5) truncated."""
-    img = read_raw(path)
+    img = _read_or_raise(path)
     if img.dtype == np.uint8:
         img = img.astype(np.uint16) * 257
     elif img.dtype == np.float32:

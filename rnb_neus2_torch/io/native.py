@@ -1,5 +1,6 @@
 """The codecs' C helpers (`native/codecs.cc`): LZW and PackBits for TIFF,
-RLE for EXR, and the Huffman coding of JPEG scans. Built with g++ into
+RLE for EXR, and the entropy coding of JPEG scans (sequential and
+progressive Huffman, arithmetic, lossless). Built with g++ into
 `build/` at first use (`kernels/build.py:load_host_library`) and bound
 with ctypes; each returns a byte count or a negative error code.
 """
@@ -25,7 +26,15 @@ SIGNATURES = {
     "packbits_encode": [_P, _I64, _I64, _P, _I64],
     "exr_rle_decode": [_P, _I64, _P, _I64],
     "jpeg_decode_scan": [_P, _I64, _I64, _I64, _I32, _P, _P, _P, _P, _I32,
-                         _P, _P, _I32, _P],
+                         _P, _P, _I32, _P, _P],
+    "jpeg_decode_progressive": [_P, _I64, _I64, _I64, _I32, _P, _P, _P,
+                                _P, _I32, _P, _P, _I32, _I32, _I32, _I32,
+                                _I32, _P, _P],
+    "jpeg_decode_arith": [_P, _I64, _I64, _I64, _I32, _P, _P, _I32, _P, _P,
+                          _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
+                          _P],
+    "jpeg_decode_lossless": [_P, _I64, _I64, _I32, _I32, _I32, _P, _I32, _P,
+                             _P, _I32, _I32, _I32, _I32, _P],
     "jpeg_encode_scan": [_P, _I64, _I32, _P, _P, _P, _P, _P, _P, _I64],
 }
 
@@ -84,13 +93,58 @@ def exr_rle_decode(src: bytes, size: int) -> bytes:
 def jpeg_decode_scan(blob: bytes, pos: int, block_comp: np.ndarray,
                      rows: np.ndarray, comp_dc: np.ndarray,
                      comp_ac: np.ndarray, bits: np.ndarray, vals: np.ndarray,
-                     restart: int, coefs: np.ndarray) -> int:
-    """Decode one scan into `coefs` (see codecs.cc); → the position of the
-    marker that ends it, or a negative error code."""
-    return _library().jpeg_decode_scan(
+                     restart: int, coefs: np.ndarray) -> tuple:
+    """Decode one scan into `coefs` (see codecs.cc); → (the position of
+    the marker that ends it or a negative error code, the MCU at which
+    the data ran out or -1)."""
+    stopped = np.zeros(1, np.int64)
+    end = _library().jpeg_decode_scan(
         blob, len(blob), pos, rows.size // block_comp.size, block_comp.size,
         ptr(block_comp), ptr(rows), ptr(comp_dc), ptr(comp_ac),
-        bits.size // 16, ptr(bits), ptr(vals), restart, ptr(coefs))
+        bits.size // 16, ptr(bits), ptr(vals), restart, ptr(coefs),
+        ptr(stopped))
+    return end, int(stopped[0])
+
+
+def jpeg_decode_progressive(blob: bytes, pos: int, block_comp, rows,
+                            comp_dc, comp_ac, bits, vals, restart: int,
+                            ss: int, se: int, ah: int, al: int,
+                            coefs: np.ndarray) -> int:
+    """One progressive Huffman scan of band ss..se at bits ah/al into
+    `coefs`; → as `jpeg_decode_scan`."""
+    stopped = np.zeros(1, np.int64)
+    end = _library().jpeg_decode_progressive(
+        blob, len(blob), pos, rows.size // block_comp.size, block_comp.size,
+        ptr(block_comp), ptr(rows), ptr(comp_dc), ptr(comp_ac),
+        bits.size // 16, ptr(bits), ptr(vals), restart, ss, se, ah, al,
+        ptr(coefs), ptr(stopped))
+    return end, int(stopped[0])
+
+
+def jpeg_decode_arith(blob: bytes, pos: int, block_comp, rows, dc_tbl,
+                      ac_tbl, dc_l, dc_u, ac_k, restart: int,
+                      progressive: bool, ss: int, se: int, ah: int, al: int,
+                      coefs: np.ndarray) -> int:
+    """One arithmetic-coded scan (sequential, or a progressive band) with
+    the DAC conditioning `dc_l`, `dc_u`, `ac_k` (uint8, 16 tables each);
+    → as `jpeg_decode_scan`."""
+    return _library().jpeg_decode_arith(
+        blob, len(blob), pos, rows.size // block_comp.size, block_comp.size,
+        ptr(block_comp), ptr(rows), dc_tbl.size, ptr(dc_tbl), ptr(ac_tbl),
+        ptr(dc_l), ptr(dc_u), ptr(ac_k), restart, int(progressive), ss, se,
+        ah, al, ptr(coefs))
+
+
+def jpeg_decode_lossless(blob: bytes, pos: int, width: int, height: int,
+                         comp_tbl, bits, vals, restart: int, predictor: int,
+                         pt: int, precision: int, out: np.ndarray) -> int:
+    """One lossless scan of comp_tbl.size interleaved components into
+    `out` ((n, height, width) uint16); → as `jpeg_decode_scan`, -5 for a
+    restart interval of partial rows."""
+    return _library().jpeg_decode_lossless(
+        blob, len(blob), pos, width, height, comp_tbl.size, ptr(comp_tbl),
+        bits.size // 16, ptr(bits), ptr(vals), restart, predictor, pt,
+        precision, ptr(out))
 
 
 def jpeg_encode_scan(blocks: np.ndarray, block_comp: np.ndarray,

@@ -25,6 +25,7 @@ import numpy as np
 
 from ..kernels.build import load_host_library
 from . import exif
+from .errors import unreadable
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 SOURCE = Path(__file__).resolve().parent.parent / "native" / "png_unfilter.cc"
@@ -49,7 +50,7 @@ def _chunks(blob: bytes, path):
         body = blob[pos + 8:pos + 8 + n]
         crc, = struct.unpack_from(">I", blob, pos + 8 + n)
         if zlib.crc32(kind + body) != crc:
-            raise ValueError(f"{path}: bad CRC in PNG chunk {kind!r}")
+            unreadable(path, f"bad CRC in PNG chunk {kind!r}")
         yield kind, body
         pos += 12 + n
 
@@ -66,8 +67,8 @@ def _unfilter(data: bytes, h: int, stride: int, bpp: int, path):
     bad = _library().png_unfilter(data, out.ctypes.data_as(ctypes.c_void_p),
                                   h, stride, bpp)
     if bad:
-        raise ValueError(f"{path}: PNG row {bad - 1} has an unknown filter "
-                         "type")
+        unreadable(path, f"PNG row {bad - 1} has an unknown filter "
+                   "type")
     return out
 
 
@@ -87,7 +88,7 @@ def _decode(path):
     EXIF orientation)."""
     blob = Path(path).read_bytes()
     if not blob.startswith(SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file")
+        unreadable(path, "not a PNG file")
     header, idat, plte, trns, orientation = None, [], None, None, 1
     for kind, body in _chunks(blob, path):
         if kind == b"IHDR":
@@ -103,15 +104,15 @@ def _decode(path):
         elif kind == b"IEND":
             break
     if header is None:
-        raise ValueError(f"{path}: PNG without an IHDR chunk")
+        unreadable(path, "PNG without an IHDR chunk")
     w, h, depth, ctype, _, _, interlace = header
     allowed = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
                4: (8, 16), 6: (8, 16)}
     if depth not in allowed.get(ctype, ()):
-        raise ValueError(f"{path}: PNG colour type {ctype} at bit depth "
-                         f"{depth} is not a valid PNG")
+        unreadable(path, f"PNG colour type {ctype} at bit depth "
+                   f"{depth} is not a valid PNG")
     if ctype == 3 and plte is None:
-        raise ValueError(f"{path}: palette PNG without a PLTE chunk")
+        unreadable(path, "palette PNG without a PLTE chunk")
     ch = 1 if ctype == 3 else CHANNELS[ctype]
     bpp = max(1, ch * depth // 8)
     data = zlib.decompress(b"".join(idat))
@@ -126,8 +127,8 @@ def _decode(path):
         stride = (pw * ch * depth + 7) // 8
         n = ph * (stride + 1)
         if pos + n > len(data):
-            raise ValueError(f"{path}: PNG image data has {len(data)} "
-                             f"bytes, too few for {w}x{h}")
+            unreadable(path, f"PNG image data has {len(data)} "
+                       f"bytes, too few for {w}x{h}")
         rows = _unfilter(data[pos:pos + n], ph, stride, bpp, path)
         samples = _samples(rows, pw * ch, depth).reshape(ph, pw, ch)
         if img is None:
@@ -136,8 +137,8 @@ def _decode(path):
             img[y0::dy, x0::dx] = samples
         pos += n
     if pos != len(data):
-        raise ValueError(f"{path}: PNG image data has {len(data)} bytes, "
-                         f"want {pos}")
+        unreadable(path, f"PNG image data has {len(data)} bytes, "
+                   f"want {pos}")
     return img, ctype, depth, plte, trns, orientation
 
 

@@ -1,7 +1,10 @@
 """Prepare stage: loaded scene → testbed directory (transform.json +
 normals/ + albedos/ RGBA PNGs). Port of `rnb_neus2_tpu/io/prepare.py`,
 reading through the port's codecs (`io/image_io.py:read_raw`: PNG, TIFF,
-JPEG, EXR) and writing PNG (`io/png.py`).
+JPEG, EXR) and writing PNG (`io/png.py`). A file that cv2 cannot read
+either (`errors.UnreadableImage`) is handled as the JAX package handles
+cv2's None: a normal map's view is skipped with a warning, an albedo is
+all ones, a mask fully opaque.
 
 Reference behavior (rnb_neus2/prepare.py:116-257) reproduced exactly:
 - scaling-mode priority chain silhouettes_v2 → silhouettes → landmarks →
@@ -27,17 +30,21 @@ import numpy as np
 
 from ..utils.meters import Logger
 from . import image_io, png
+from .errors import UnreadableImage
 from . import scaling as sc
 
 
 def load_mask_for_depth(mask_path, shape, bit_depth: int) -> np.ndarray:
-    """Binary mask at the target bit depth; full-opaque when absent
-    (prepare.py:23-41); `scaling.read_mask` thresholds it (float samples
-    above 0.5)."""
+    """Binary mask at the target bit depth; full-opaque when absent or
+    unreadable by cv2 (prepare.py:23-41); `scaling.read_mask` thresholds
+    it (float samples above 0.5)."""
     max_val = 65535 if bit_depth == 16 else 255
     dtype = np.uint16 if bit_depth == 16 else np.uint8
     if mask_path and os.path.exists(str(mask_path)):
-        return (sc.read_mask(mask_path) * max_val).astype(dtype)
+        try:
+            return (sc.read_mask(mask_path) * max_val).astype(dtype)
+        except UnreadableImage:
+            pass
     return np.full(shape, max_val, dtype)
 
 
@@ -108,7 +115,7 @@ def prepare_testbed_data(data: dict, output_folder: str, logger=None,
 
         try:
             nrm = image_io.read_raw(view["normal_path"])
-        except FileNotFoundError:
+        except UnreadableImage:        # missing, or cv2 returns None
             logger.warning(f"Cannot read: {view['normal_path']}")
             continue
         if nrm.dtype == np.float32:
@@ -121,7 +128,11 @@ def prepare_testbed_data(data: dict, output_folder: str, logger=None,
         alb = None
         ap = view.get("albedo_path")
         if ap and os.path.exists(str(ap)):
-            alb = image_io.read_raw(ap)
+            try:
+                alb = image_io.read_raw(ap)
+            except UnreadableImage:    # cv2's None: an all-ones albedo
+                alb = None
+        if alb is not None:
             if alb.dtype == np.float32:
                 alb = (np.clip(alb, 0, 1) * 65535).astype(np.uint16)
             if alb.ndim == 3 and alb.shape[2] == 4:

@@ -26,6 +26,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from . import image_io
+from .errors import UnreadableImage
 
 
 def read_mask(path) -> np.ndarray:
@@ -252,7 +253,10 @@ def cameras_for_silhouettes(data: dict) -> Tuple[List[dict],
         path = view.get("mask_path")
         if not path or not os.path.exists(path):
             continue
-        binary = read_mask(path).astype(np.float32)
+        try:
+            binary = read_mask(path).astype(np.float32)
+        except UnreadableImage:     # cv2's None: the view is skipped
+            continue
         c2w = view["c2w"]
         K = view["K"]
         cameras.append({

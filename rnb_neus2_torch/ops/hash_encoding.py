@@ -486,6 +486,18 @@ def encode(table: torch.Tensor, positions: torch.Tensor,
     return _Encode.apply(table, positions, static, valid_level, n_active)
 
 
+def encode_batched(table: torch.Tensor, positions: torch.Tensor,
+                   static: HashGridStatic, valid_level: int | None = None,
+                   batch: int = 1 << 20) -> torch.Tensor:
+    """Chunked `encode` for huge inference batches (marching cubes
+    grids): `batch` positions at a time, concatenated."""
+    n = positions.shape[0]
+    if n <= batch:
+        return encode(table, positions, static, valid_level)
+    return torch.cat([encode(table, positions[s:s + batch], static,
+                             valid_level) for s in range(0, n, batch)], 0)
+
+
 def make_encode_with_jacobian_cv(static: HashGridStatic,
                                  n_active: int | None = None,
                                  corner_samples: int = 0,

@@ -39,7 +39,9 @@ both; a mismatch raises. Times are CUDA events over 50 launches queued
 behind a sleep kernel, after 5 warm-up launches: `ms` of the allocating
 wrapper (a zeroed table per launch, as the TPU probes' outputs and
 `library_ms` have), `ms_into` of the in-place entry point adding into one
-table; `library_ms` is one `torch.zeros(S, F).index_add_(0, idx, v)`;
+table; `library_ms` is one `torch.zeros(S, F).index_add_(0, idx, v)`,
+`plain_ms` the kernels' plain version (`scatter_add.plain`: the
+in-range mask, then `index_add_` into zeros);
 `bound_ms` is the bytes n·(4 + 4F) + S·F·4 over 3.35 TB/s against n·F
 float adds over 67 TFLOP/s, and `bound_into_ms`, for `ms_into`, the same
 with a read and a write of each row the input adds to in place of the
@@ -259,10 +261,12 @@ def run_point(section: str, S: int, n: int, F: int, dev: torch.device,
         per_kernel[name] = {"ms": ms, "ms_into": ms_into, "max_abs_err": err,
                             "ns_per_el": None if ms is None else ms * 1e6 / n}
     library_ms = None
+    plain_ms = None
     if on_card:
         shifts = itertools.cycle(idxs)
         library_ms = time_ms(lambda: torch.zeros(S, F, device=dev)
                              .index_add_(0, next(shifts), ones))
+        plain_ms = time_ms(lambda: scatter_add.plain(next(shifts), ones, S))
     bound_ms, bound_by = scatter_bound(n, S, F)
     bound_into_ms, _ = scatter_bound_into(n, F, rows_added_to(idx0, ones, S))
     route = level_rule(S)
@@ -271,7 +275,8 @@ def run_point(section: str, S: int, n: int, F: int, dev: torch.device,
             "ms_into": per_kernel[route]["ms_into"],
             "ns_per_el": per_kernel[route]["ns_per_el"],
             "bound_ms": bound_ms, "bound_into_ms": bound_into_ms,
-            "bound_by": bound_by, "library_ms": library_ms, "kernels": per_kernel,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "plain_ms": plain_ms, "kernels": per_kernel,
             "device": str(dev), "card": card}
 
 

@@ -189,6 +189,8 @@ class Trainer:
         self.loss_ema = Ema(half_life_steps=50)
         self.ek_ema = Ema(half_life_steps=50)
         self.mask_ema = Ema(half_life_steps=50)
+        # wall-clock ms of `train_step`, a host meter (no snapshot holds it)
+        self.step_ms = Ema(half_life_steps=50)
         self.loss_graph = LossGraph()
         # metrics reads (`_consume_metrics` calls) so far
         self.metric_reads = 0
@@ -389,7 +391,22 @@ class Trainer:
         t0 = time.perf_counter()
         out = self._consume_metrics(self.train_step_async())
         out["step_ms"] = (time.perf_counter() - t0) * 1e3
+        self.step_ms.update(out["step_ms"])
         return out
+
+    def train(self, n_steps: int, log_every: int = 100, logger=None):
+        """`n_steps` calls of `train_step`, with JAX `Trainer.train`'s log
+        line every `log_every` steps when a logger is given."""
+        for _ in range(n_steps):
+            out = self.train_step()
+            if logger and self.step % log_every == 0:
+                logger.info(
+                    f"iteration={self.step} loss={self.loss_ema.value:.6f} "
+                    f"ek={self.ek_ema.value:.4f} "
+                    f"mask={self.mask_ema.value:.4f} "
+                    f"rays={out['rays_per_batch']} "
+                    f"step_ms={self.step_ms.value:.1f}")
+        return self
 
     @property
     def inference_params(self) -> Dict[str, torch.Tensor]:

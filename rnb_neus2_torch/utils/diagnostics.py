@@ -51,6 +51,10 @@ class LevelStats:
     max: float
     frac_zero: float
 
+    @property
+    def fraction_of_table(self) -> float:
+        return 0.0  # filled by gather_level_stats, as in the JAX package
+
 
 def gather_level_stats(hash_table: torch.Tensor, static) -> List[LevelStats]:
     """Per-level summary of the table parameters (gather_histograms);

@@ -1,6 +1,6 @@
-"""Half-life EMA meter and the pipeline's logger (port of `Ema` and
-`Logger` in `rnb_neus2_tpu/utils/meters.py`; reference: Ema in
-common.h:245+)."""
+"""Half-life EMA meter, the pipeline's logger and the per-stage timer
+(port of `Ema`, `Logger` and `StageTimer` in
+`rnb_neus2_tpu/utils/meters.py`; reference: Ema in common.h:245+)."""
 
 from __future__ import annotations
 
@@ -59,3 +59,17 @@ class Logger:
 
     def error(self, msg):
         self._emit("ERROR", msg)
+
+
+class StageTimer:
+    """Wall-clock EMA per named stage (reference: m_training_prep_ms etc.,
+    testbed.h:863-871)."""
+
+    def __init__(self):
+        self.meters = {}
+
+    def observe(self, name: str, ms: float):
+        self.meters.setdefault(name, Ema()).update(ms)
+
+    def summary(self) -> dict:
+        return {k: v.value for k, v in self.meters.items()}

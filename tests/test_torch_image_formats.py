@@ -36,6 +36,7 @@ import rnb_neus2_tpu.io.scaling as jscaling
 import rnb_neus2_torch.api as ngp
 from rnb_neus2_torch.io import (albedo_scaling, exr, image_io, jpeg, png,
                                 prepare, scaling, tiff)
+from rnb_neus2_torch.io.errors import UnreadableImage, UnsupportedImage
 
 H, W = 37, 41
 READ_FLAGS = {"unchanged": cv2.IMREAD_UNCHANGED, "color": cv2.IMREAD_COLOR,
@@ -499,82 +500,84 @@ def test_exr_jax_semantics_and_save_exr(tmp_path, monkeypatch, chans):
 # ---------------------------------------------------------------------------
 
 def _refused_jpegs(tmp_path):
+    """JPEG kinds that cv2 cannot read either (UnreadableImage)."""
     img = _smooth(np.random.default_rng(2), (9, 10, 3), 255).astype(np.uint8)
     ok, blob = cv2.imencode(".jpg", img)
     blob = blob.tobytes()
     sof = blob.index(b"\xff\xc0")
     out = {}
-    cv2.imwrite(str(tmp_path / "prog.jpg"), img,
-                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    out["progressive"] = tmp_path / "prog.jpg"
-    for marker, what in ((0xC9, "arithmetic-coded"), (0xC3, "lossless"),
-                         (0xC5, "hierarchical")):
+    for marker in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF):
         p = tmp_path / f"{marker:x}.jpg"
         p.write_bytes(blob[:sof + 1] + bytes([marker]) + blob[sof + 2:])
-        out[what] = p
+        out[p] = "hierarchical"
     p = tmp_path / "p12.jpg"
     p.write_bytes(blob[:sof + 4] + b"\x0c" + blob[sof + 5:])
-    out["12-bit"] = p
-    p = tmp_path / "cmyk.jpg"
-    p.write_bytes(b"\xff\xd8\xff\xc0" + struct.pack(">HBHHB", 20, 8, 4, 4, 4)
-                  + b"".join(bytes([i, 0x11, 0]) for i in range(4))
+    out[p] = "12-bit"
+    p = tmp_path / "two.jpg"
+    p.write_bytes(b"\xff\xd8\xff\xc0" + struct.pack(">HBHHB", 14, 8, 4, 4, 2)
+                  + b"".join(bytes([i, 0x11, 0]) for i in range(2))
                   + b"\xff\xd9")
-    out["CMYK"] = p
-    p = tmp_path / "rgb.jpg"
-    p.write_bytes(_with_segment(blob, 0xEE, b"Adobe\x00\x64\x00\x00\x00\x00"
-                                b"\x00", drop_jfif=True))
-    out["Adobe transform 0"] = p
-    return out
+    out[p] = "2-component"
+    return {p: (what, UnreadableImage) for p, what in out.items()}
 
 
 def _refused_exrs(tmp_path):
+    """EXR kinds that cv2 (with OpenEXR) reads and the port does not yet
+    (UnsupportedImage)."""
     planes = {c: np.zeros((3, 4), "<f4") for c in "BGR"}
     out = {}
     for code, what in ((4, "PIZ"), (5, "PXR24"), (6, "B44"), (7, "B44A"),
                        (8, "DWAA"), (9, "DWAB")):
         p = tmp_path / f"{what}.exr"
         p.write_bytes(_exr_file(planes, code))
-        out[what] = p
+        out[p] = what
     for flag, what in ((0x200, "tiled"), (0x1000, "multi-part"),
                        (0x800, "deep")):
         p = tmp_path / f"{what}.exr"
         p.write_bytes(_exr_file(planes, 0, version_flags=flag))
-        out[what] = p
+        out[p] = what
     p = tmp_path / "uint.exr"
     p.write_bytes(_exr_file({c: np.zeros((3, 4), "<u4") for c in "BGR"}, 0))
-    out["UINT"] = p
+    out[p] = "UINT"
     p = tmp_path / "names.exr"
     p.write_bytes(_exr_file({"Z": np.zeros((3, 4), "<f4")}, 0))
-    out["channel set"] = p
-    return out
+    out[p] = "channel set"
+    return {p: (f"{what}.*not supported", UnsupportedImage)
+            for p, what in out.items()}
 
 
 def _refused_tiffs(tmp_path):
+    """TIFF kinds that cv2 cannot read either (UnreadableImage)."""
     out = {}
     data = bytes(64)
-    for what, extra in (("tiled", {322: (3, (16,)), 323: (3, (16,))}),
-                        ("planar-separate", {284: (3, (2,))}),
-                        ("JPEG-compressed", {259: (3, (7,))}),
-                        ("12-bit", {258: (3, (12,))}),
-                        ("64-bit", {258: (3, (64,)), 339: (3, (3,))}),
-                        ("Orientation", {274: (3, (3,))})):
+    for what, extra in (("2-bit", {258: (3, (2,))}),
+                        ("4-bit", {258: (3, (4,))}),
+                        ("float16", {258: (3, (16,)), 339: (3, (3,))}),
+                        ("Orientation 5", {274: (3, (5,))}),
+                        ("Orientation 8", {274: (3, (8,))})):
         p = tmp_path / f"{what}.tif"
-        p.write_bytes(_tiff(_tiff_tags(4, 4, 8, 1, 1, len(data),
+        # 4x5: cv2 reads orientations 5-8 of square images only
+        p.write_bytes(_tiff(_tiff_tags(4, 5, 8, 1, 1, len(data),
                                        extra=extra), data))
-        out[what] = p
+        out[p] = what
     p = tmp_path / "big.tif"
     p.write_bytes(b"II+\x00\x08\x00\x00\x00" + bytes(16))
-    out["BigTIFF"] = p
-    return out
+    out[p] = "TIFF directory outside the file"
+    return {p: (what, UnreadableImage) for p, what in out.items()}
 
 
 @pytest.mark.parametrize("family", ["jpeg", "exr", "tiff"])
 def test_refused_variants_raise_by_name(tmp_path, family):
+    """Each refusal names the file's feature. JPEG and TIFF: what cv2
+    cannot read either (cv2 returns None on the same bytes); EXR: the
+    variants that wait for files written by OpenEXR."""
     cases = {"jpeg": _refused_jpegs, "exr": _refused_exrs,
              "tiff": _refused_tiffs}[family](tmp_path)
-    for what, path in cases.items():
-        with pytest.raises(ValueError, match=f"{what}.*not supported"):
+    for path, (what, cls) in cases.items():
+        with pytest.raises(cls, match=what):
             image_io.load_image(path)
+        if cls is UnreadableImage:
+            assert cv2.imread(str(path), cv2.IMREAD_UNCHANGED) is None, path
 
 
 def _segment_at(blob: bytes, marker: int) -> int:

@@ -6,7 +6,7 @@ lacks (`cv2`, `msgpack`, `PIL`, `trimesh`, the image libraries `imageio`,
 optional bindings when it is called, as the JAX package does); the whole
 package imports with all of them blocked, and so do the two CLIs'
 `--help`; `chip_smoke.py` fails without a card or without the package
-beside it. The Meshroom node (`rnb_neus2_torch/meshroom/`) imports the
+beside it; so do the tools' `--help`. The Meshroom node (`rnb_neus2_torch/meshroom/`) imports the
 Meshroom application, which exists only inside Meshroom: its source is
 scanned, and tests/test_torch_ported_modules.py imports it with
 `meshroom.core` mocked."""
@@ -58,6 +58,18 @@ def test_cli_help_with_libraries_blocked(cli):
     code = (BLOCK + "import runpy\n"
             "sys.argv = ['x', '--help']\n"
             f"runpy.run_module('rnb_neus2_torch.cli.{cli}', "
+            "run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--device" in out.stdout
+
+
+@pytest.mark.parametrize("tool", ["mesh_from_snapshot", "bench_primitives"])
+def test_tool_help_with_libraries_blocked(tool):
+    code = (BLOCK + "import runpy\n"
+            "sys.argv = ['x', '--help']\n"
+            f"runpy.run_module('rnb_neus2_torch.tools.{tool}', "
             "run_name='__main__')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

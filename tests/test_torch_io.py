@@ -32,7 +32,7 @@ from rnb_neus2_tpu.io import image_io as jimage_io
 from rnb_neus2_tpu.testing.synthetic import \
     write_prepared_scene as j_write_scene
 from rnb_neus2_torch.geom.camera import rays_from_pixels
-from rnb_neus2_torch.io import dataset, image_io, png
+from rnb_neus2_torch.io import dataset, errors, image_io, png
 from rnb_neus2_torch.testing.synthetic import (sphere_dataset,
                                                write_prepared_scene)
 
@@ -129,27 +129,34 @@ def _tiff_header(tags) -> bytes:
 
 
 def test_png_refuses_what_it_does_not_read(tmp_path):
-    """What the readers still refuse raises by name: a PIZ-compressed EXR,
-    a progressive JPEG, a tiled TIFF and a planar-separate TIFF."""
+    """What the readers still refuse raises by name: a PIZ-compressed EXR
+    and a BMP, which cv2 reads (UnsupportedImage), and a hierarchical JPEG
+    and an Orientation 6 TIFF, which cv2 cannot read either
+    (UnreadableImage, a FileNotFoundError as the JAX loaders raise for
+    cv2's None, asserted beside cv2's None on the same bytes)."""
     image_io.save_exr(np.zeros((4, 5, 3), np.float32), tmp_path / "x.exr")
     blob = (tmp_path / "x.exr").read_bytes()
     key = b"compression\0compression\0" + struct.pack("<i", 1)
     (tmp_path / "piz.exr").write_bytes(blob.replace(key + b"\x03",
                                                     key + b"\x04"))
-    cv2.imwrite(str(tmp_path / "p.jpg"), np.zeros((9, 9, 3), np.uint8),
-                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    cv2.imwrite(str(tmp_path / "b.bmp"), np.zeros((9, 9, 3), np.uint8))
+    (tmp_path / "b.img").write_bytes((tmp_path / "b.bmp").read_bytes())
+    for name, what in (("piz.exr", "PIZ"), ("b.img", "BMP")):
+        with pytest.raises(errors.UnsupportedImage,
+                           match=f"{what}.*not supported"):
+            image_io.load_image(tmp_path / name)
+    jpg = cv2.imencode(".jpg", np.zeros((9, 9, 3), np.uint8))[1].tobytes()
+    (tmp_path / "h.jpg").write_bytes(jpg.replace(b"\xff\xc0", b"\xff\xc5",
+                                                 1))
     base = {256: 8, 257: 8, 258: 8, 259: 1, 262: 1, 277: 1}
-    (tmp_path / "tiled.tif").write_bytes(
-        _tiff_header({**base, 322: 16, 323: 16, 324: 0, 325: 0}))
-    (tmp_path / "planar.tif").write_bytes(
-        _tiff_header({**base, 262: 2, 277: 3, 284: 2}))
-    for name, what in (("piz.exr", "PIZ"), ("p.jpg", "progressive"),
-                       ("tiled.tif", "tiled"),
-                       ("planar.tif", "planar-separate")):
-        with pytest.raises(ValueError, match=f"{what}.*not supported"):
+    (tmp_path / "o6.tif").write_bytes(_tiff_header({**base, 257: 9,
+                                                    274: 6}))
+    for name, what in (("h.jpg", "hierarchical"), ("o6.tif", "Orientation")):
+        assert cv2.imread(str(tmp_path / name), cv2.IMREAD_UNCHANGED) is None
+        with pytest.raises(FileNotFoundError, match=f"Cannot read.*{what}"):
             image_io.load_image(tmp_path / name)
     (tmp_path / "z.png").write_bytes(b"GIF89a" + bytes(20))
-    with pytest.raises(ValueError, match="not a PNG"):
+    with pytest.raises(errors.UnreadableImage, match="not a PNG"):
         png.read_png(tmp_path / "z.png")
 
 
@@ -278,3 +285,65 @@ def test_distorted_rays_match_jax(scenes, tmp_path, lens):
     assert torch.equal(d0, want)
     moved = ds.to("cpu").cameras
     assert torch.equal(getattr(moved, field), getattr(ds.cameras, field))
+
+
+def test_prepare_handles_unreadable_files_as_jax(tmp_path):
+    """A scene in which cv2 cannot read one normal map, one albedo and
+    one mask (a hierarchical JPEG under each name): the JAX package skips
+    the view with a warning, fills the albedo with ones and makes the
+    mask opaque (and leaves the mask out of the silhouette scaling); the
+    port does the same, to the byte."""
+    from test_torch_image_formats import _cv2_rgb, _write_scene
+
+    import rnb_neus2_tpu.io.prepare as jprepare
+    from rnb_neus2_torch.io import prepare
+
+    data = _write_scene(str(tmp_path / "in"), "png", "tif", "png", {})
+    data["views"].append(dict(data["views"][0]))
+    data["views"][3]["c2w"] = data["views"][0]["c2w"].copy()
+    data["views"][3]["c2w"][:3, 3] *= 1.1
+    jpg = cv2.imencode(".jpg", np.zeros((9, 9, 3), np.uint8))[1].tobytes()
+    bad = jpg.replace(b"\xff\xc0", b"\xff\xc5", 1)
+    for i, key in ((0, "normal_path"), (1, "albedo_path"), (2, "mask_path")):
+        path = str(tmp_path / "in" / f"bad_{key}.png")
+        with open(path, "wb") as f:
+            f.write(bad)
+        assert cv2.imread(path, cv2.IMREAD_UNCHANGED) is None
+        data["views"][i][key] = path
+    logs = {}
+    for name, mod in (("port", prepare), ("jax", jprepare)):
+        lines = []
+
+        class Log:
+            def info(self, msg):
+                lines.append(("info", msg))
+
+            def warning(self, msg):
+                lines.append(("warning", msg))
+        out = mod.prepare_testbed_data(data, str(tmp_path / name),
+                                       logger=Log(),
+                                       scaling_mode="silhouettes")
+        logs[name] = (out, lines)
+    (out, lines), (jout, jlines) = logs["port"], logs["jax"]
+    assert out["n_frames"] == jout["n_frames"] == 3
+    np.testing.assert_allclose(out["scale_matrix"], jout["scale_matrix"],
+                               rtol=1e-9)
+    assert [m for k, m in lines if k == "warning"] == \
+        [m for k, m in jlines if k == "warning"] == \
+        [f"Cannot read: {data['views'][0]['normal_path']}"]
+    tj, jtj = (json.load(open(tmp_path / d / "transform.json"))
+               for d in ("port", "jax"))
+    assert len(tj["frames"]) == len(jtj["frames"]) == 3
+    for fr, jfr in zip(tj["frames"], jtj["frames"]):
+        np.testing.assert_allclose(fr["transform_matrix"],
+                                   jfr["transform_matrix"], rtol=1e-9)
+        for k in ("normal_path", "albedo_path"):
+            got = png.read_png(tmp_path / "port" / fr[k])
+            np.testing.assert_array_equal(got, _cv2_rgb(
+                tmp_path / "jax" / jfr[k]))
+    # view 1's albedo (frame 0) is all ones; view 2's alphas (frame 1)
+    # are opaque
+    alb = png.read_png(tmp_path / "port" / tj["frames"][0]["albedo_path"])
+    assert (alb[..., :3] == 65535).all()
+    nrm = png.read_png(tmp_path / "port" / tj["frames"][1]["normal_path"])
+    assert (nrm[..., 3] == 65535).all()

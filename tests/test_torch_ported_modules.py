@@ -8,6 +8,7 @@ as in tests/test_meshroom_node.py)."""
 import importlib.util
 import json
 import os
+import shutil
 import types
 
 import numpy as np
@@ -340,7 +341,7 @@ def test_neus_converter_matches_jax(tmp_path, capsys):
 
 def test_neus_converter_refuses_other_formats(tmp_path):
     """An EXR image (whose 8-bit colour read no test can observe) and a
-    format no reader knows raise by name."""
+    format that cv2 reads and the port does not yet (GIF) raise by name."""
     from rnb_neus2_torch.io import image_io
     _neus_dir(tmp_path / "neus", n=1)
     img = tmp_path / "neus" / "image" / "000.png"
@@ -351,7 +352,7 @@ def test_neus_converter_refuses_other_formats(tmp_path):
         data_format_from_neus.generate(str(tmp_path / "neus"),
                                        str(tmp_path / "out"))
     img.with_suffix(".exr").write_bytes(b"GIF89a" + bytes(20))
-    with pytest.raises(ValueError, match="not a PNG, JPEG, TIFF or OpenEXR"):
+    with pytest.raises(ValueError, match="GIF image is not supported"):
         data_format_from_neus.generate(str(tmp_path / "neus"),
                                        str(tmp_path / "out"))
 
@@ -409,3 +410,173 @@ def test_meshroom_node_calls_the_ports_pipeline(node_cls,  # noqa: F811
                                                  logger=None))
     assert calls["port"] == calls["jax"]
     assert calls["port"]["max_steps"] == 12345
+
+
+# ---------------------------------------------------------------------------
+# mesh_from_snapshot, the four public names, the primitive probes
+# ---------------------------------------------------------------------------
+
+def _jax_mesh_from_snapshot():
+    spec = importlib.util.spec_from_file_location(
+        "jax_mesh_from_snapshot",
+        os.path.join(ROOT, "tools", "mesh_from_snapshot.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def snapshot_scene(tmp_path_factory):
+    """A prepared scene and a step-0 snapshot of the default config (the
+    geometric initialisation's sphere), which both packages load."""
+    from rnb_neus2_torch.config import TestbedConfig
+    from rnb_neus2_torch.io.dataset import load_transform_json
+    from rnb_neus2_torch.train import snapshot as snap
+    from rnb_neus2_torch.train.trainer import Trainer
+
+    root = tmp_path_factory.mktemp("snap")
+    scene = root / "scene"
+    synthetic.write_prepared_scene(str(scene), n_views=4, width=24,
+                                   height=24)
+    torch.manual_seed(0)
+    trainer = Trainer(load_transform_json(str(scene), "cpu"),
+                      TestbedConfig(), device="cpu")
+    path = str(root / "snapshot_0.msgpack")
+    snap.save_snapshot(path, trainer)
+    return scene, path
+
+
+def test_mesh_from_snapshot_matches_jax(snapshot_scene, tmp_path,
+                                        monkeypatch, capsys):
+    from rnb_neus2_torch.tools import mesh_from_snapshot
+
+    scene, path = snapshot_scene
+    results = {}
+    for name in ("port", "jax"):
+        s = tmp_path / name
+        shutil.copytree(scene, s)
+        argv = ["--scene", str(s), "--snapshot", path, "--resolution",
+                "64", "--gt-resolution", "64"]
+        if name == "port":
+            assert mesh_from_snapshot.main(argv + ["--device", "cpu"]) == 0
+        else:
+            monkeypatch.setattr("sys.argv", ["mesh_from_snapshot"] + argv)
+            _jax_mesh_from_snapshot().main()
+        with open(s / "output" / "chamfer_from_snapshot.json") as f:
+            results[name] = json.load(f)
+    got, want = results["port"], results["jax"]
+    assert got["iter"] == want["iter"] == 0
+    assert got["resolution"] == want["resolution"] == 64
+    assert got["mesh_vertices"] == want["mesh_vertices"] > 0
+    for k in want:
+        if k.startswith("chamfer") or k in ("accuracy", "completeness"):
+            assert abs(got[k] - want[k]) <= 1e-5, k
+    assert json.dumps(got) in capsys.readouterr().out
+
+
+def test_stage_timer_and_level_stats_match_jax():
+    from rnb_neus2_tpu.utils import diagnostics as jdiag
+    from rnb_neus2_tpu.utils import meters as jmeters
+    from rnb_neus2_torch.utils import diagnostics, meters
+
+    timers = (meters.StageTimer(), jmeters.StageTimer())
+    for name, ms in (("prep", 3.0), ("step", 10.0), ("prep", 5.0),
+                     ("step", 7.5), ("mesh", 100.0)):
+        for t in timers:
+            t.observe(name, ms)
+    assert timers[0].summary() == timers[1].summary()
+    fields = dict(level=2, resolution=64, n_params=1000, hashed=True,
+                  mean=0.0, std=1.0, min=-1.0, max=1.0, frac_zero=0.5)
+    assert diagnostics.LevelStats(**fields).fraction_of_table == \
+        jdiag.LevelStats(**fields).fraction_of_table == 0.0
+
+
+def test_encode_batched_matches_jax():
+    import jax.numpy as jnp
+    from rnb_neus2_tpu.ops import hash_encoding as jhash
+    from rnb_neus2_torch.ops import hash_encoding
+
+    from rnb_neus2_tpu.config import HashGridConfig as JHashGridConfig
+    from rnb_neus2_torch.config import HashGridConfig
+
+    cfg = dict(n_levels=6, top_resolution=128, log2_hashmap_size=14)
+    jstatic = jhash.HashGridStatic(JHashGridConfig(**cfg))
+    static = hash_encoding.HashGridStatic(HashGridConfig(**cfg))
+    rng = np.random.default_rng(5)
+    table = rng.normal(0, 1e-2, (jstatic.n_entries, 2)).astype(np.float32)
+    pos = rng.random((300, 3)).astype(np.float32)
+    want = np.asarray(jhash.encode_batched(jnp.asarray(table),
+                                           jnp.asarray(pos), jstatic,
+                                           batch=128))
+    got = hash_encoding.encode_batched(torch.from_numpy(table),
+                                       torch.from_numpy(pos), static,
+                                       batch=128)
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-6)
+    whole = hash_encoding.encode(torch.from_numpy(table),
+                                 torch.from_numpy(pos), static)
+    np.testing.assert_array_equal(got.detach().numpy(),
+                                  whole.detach().numpy())
+
+
+def test_trainer_train_logs_as_jax():
+    """`Trainer.train(n, log_every, logger)`: n steps, JAX's log line at
+    every multiple of log_every (the meters' values, the step_ms EMA),
+    and the trainer returned."""
+    from rnb_neus2_torch.testing.synthetic import sphere_dataset
+    from rnb_neus2_torch.train.trainer import Trainer
+    from rnb_neus2_torch.utils.meters import Logger
+    from test_torch_train import _small_cfg
+
+    trainer = Trainer(sphere_dataset(n_views=4, width=16, height=16,
+                                     radius=0.2), _small_cfg(),
+                      device="cpu")
+    lines = []
+
+    class Log(Logger):
+        def info(self, msg):
+            lines.append(msg)
+    # record each step's output and meters, to replay them through the
+    # JAX package's own `Trainer.train`
+    record, step = [], trainer.train_step
+
+    def recorded():
+        out = step()
+        record.append((out, trainer.step, trainer.loss_ema.value,
+                       trainer.ek_ema.value, trainer.mask_ema.value,
+                       trainer.step_ms.value))
+        return out
+    trainer.train_step = recorded
+    assert trainer.train(4, log_every=2, logger=Log()) is trainer
+    assert trainer.step == 4 and len(lines) == 2
+    assert trainer.step_ms.updates == 4 and trainer.step_ms.value > 0
+
+    from rnb_neus2_tpu.train.trainer import Trainer as JTrainer
+    from rnb_neus2_tpu.utils.meters import Ema
+    fake = types.SimpleNamespace(step=0, loss_ema=Ema(), ek_ema=Ema(),
+                                 mask_ema=Ema(), step_ms=Ema())
+    replay = iter(record)
+
+    def replay_step():
+        out, fake.step, *vals = next(replay)
+        for ema, v in zip((fake.loss_ema, fake.ek_ema, fake.mask_ema,
+                           fake.step_ms), vals):
+            ema.value = v
+        return out
+    fake.train_step = replay_step
+    jlines = []
+    JTrainer.train(fake, 4, log_every=2,
+                   logger=types.SimpleNamespace(info=jlines.append))
+    assert lines == jlines
+
+
+@pytest.mark.parametrize("section", ["scatter", "gather", "sort", "misc",
+                                     "sharded", "slice_gather", "bigtable"])
+def test_bench_primitives_sections_run_small_on_cpu(section):
+    from rnb_neus2_torch.tools import bench_primitives
+
+    rows = bench_primitives.run([section], "cpu", sizes={
+        "n_el": 1 << 12, "s_big": 1 << 10, "s_huge": 1 << 13})
+    assert rows and all(r["section"] == section and r["ms"] is None
+                        for r in rows)
+    assert all(r["source"].startswith("tools/profiling/_bench_primitives")
+               for r in rows)
