@@ -2453,12 +2453,57 @@ def _compare_prepared(png, a: Path, b: Path) -> dict:
     return out
 
 
+def netpbm_scene(root: Path, png, world_center) -> dict:
+    """Phase 19: the sphere written by the port's own writers with 16-bit
+    PPM normals, 8-bit BMP albedos and PGM masks, prepared, and held
+    against the PNG scene's prepared arrays (root/png/prepared): the
+    normals and alphas equal, the albedos within one 8-bit step of the
+    16-bit ones, the same n2w."""
+    import numpy as np
+    from rnb_neus2_torch.io.dataloaders import load_data
+    from rnb_neus2_torch.io.prepare import prepare_testbed_data
+    from rnb_neus2_torch.testing.synthetic import write_sfm_scene
+
+    t0 = time.perf_counter()
+    normals, albedos, masks, _ = write_sfm_scene(
+        str(root / "netpbm"), "netpbm", world_center=world_center, **SPHERE)
+    t1 = time.perf_counter()
+    data = load_data(normals, albedo_sfm_path=albedos)
+    for v in data["views"]:
+        v["mask_path"] = str(Path(masks) / f"{v['pose_id']}.pgm")
+    prepare_testbed_data(data, str(root / "netpbm" / "prepared"))
+    out = {"write_s": t1 - t0, "load_and_prepare_s": time.perf_counter() - t1,
+           "frames": 0, "normal_max_diff": 0, "alpha_equal": True,
+           "albedo_max_diff_x257": 0}
+    a, b = root / "png" / "prepared", root / "netpbm" / "prepared"
+    for name in sorted(p.name for p in (a / "normals").glob("*.png")):
+        out["frames"] += 1
+        na, nb = (png.read_png(d / "normals" / name).astype(np.int64)
+                  for d in (a, b))
+        aa, ab = (png.read_png(d / "albedos" / name).astype(np.int64)
+                  for d in (a, b))
+        out["normal_max_diff"] = max(out["normal_max_diff"],
+                                     int(np.abs(na - nb).max()))
+        out["alpha_equal"] &= bool(np.array_equal(aa[..., 3] > 0,
+                                                  ab[..., 3] > 0))
+        out["albedo_max_diff_x257"] = max(
+            out["albedo_max_diff_x257"],
+            int(np.abs(aa[..., :3] - ab[..., :3] * 257).max()))
+    with open(a / "transform.json") as f, open(b / "transform.json") as g:
+        out["n2w_equal"] = json.load(f)["n2w"] == json.load(g)["n2w"]
+    log("formats_netpbm_scene", **out)
+    return out
+
+
 def codec_timings(work: Path) -> dict:
     """Phase 19: ms per view of every decoder and encoder on the host, at
-    DiLiGenT-MV's 612x512 on a rendered sphere's normal map, and a
+    DiLiGenT-MV's 612x512 on a rendered sphere's normal map (PNG, TIFF,
+    EXR, JPEG, BMP, PPM, PFM, Radiance, Sun raster; WebP and GIF, which
+    the port does not write, are timed on phase 20's fixtures), and a
     4032x3024 JPEG."""
     import numpy as np
-    from rnb_neus2_torch.io import exr, jpeg, png, tiff
+    from rnb_neus2_torch.io import (bmp, exr, hdr, jpeg, png, pxm, sunras,
+                                    tiff)
     from rnb_neus2_torch.testing.synthetic import (render_sphere_views,
                                                    ring_cameras)
 
@@ -2481,6 +2526,16 @@ def codec_timings(work: Path) -> dict:
                           exr.read_exr, f32),
         "jpeg_420": (".jpg", lambda p: jpeg.write_jpeg(p, u8),
                      jpeg.read_jpeg, None),
+        "bmp_24bit": (".bmp", lambda p: bmp.write_bmp(p, u8), bmp.read_bmp,
+                      u8),
+        "ppm_16bit": (".ppm", lambda p: pxm.write_pnm(p, u16, "ppm"),
+                      pxm.read_pnm, u16),
+        "pfm_float": (".pfm", lambda p: pxm.write_pfm(p, f32), pxm.read_pfm,
+                      f32),
+        "hdr_rle": (".hdr", lambda p: hdr.write_hdr(p, unit.astype(
+            np.float32)), hdr.read_hdr, None),
+        "sun_raster_24bit": (".ras", lambda p: sunras.write_sunras(p, u8),
+                             sunras.read_sunras, u8),
     }
     out = {"view": [w, h], "repeats": CODEC_REPEATS}
     for name, (ext, write, read, want) in cases.items():
@@ -2579,6 +2634,7 @@ def formats_phase(torch, kernels, card) -> dict:
         mask_paths = [v["mask_path"] for v in data["views"]]
         cmp = _compare_prepared(png, root / "png" / "prepared",
                                 root / "exr" / "prepared")
+        netpbm = netpbm_scene(root, png, world_center)
         log("formats_prepare", seconds=seconds, mask_files=sorted(
             {Path(p).suffix for p in mask_paths}), **cmp)
         if not (cmp["frames"] == SPHERE["n_views"] and cmp["albedo_equal"]
@@ -2588,6 +2644,12 @@ def formats_phase(torch, kernels, card) -> dict:
                                  f"from the PNG one: {cmp}")
         if not all(p.endswith(".jpg") for p in mask_paths):
             raise AssertionError(f"masks found: {mask_paths}")
+        if not (netpbm["frames"] == SPHERE["n_views"]
+                and netpbm["normal_max_diff"] == 0 and netpbm["alpha_equal"]
+                and netpbm["albedo_max_diff_x257"] < 257
+                and netpbm["n2w_equal"]):
+            raise AssertionError(f"prepared PPM/BMP/PGM scene differs from "
+                                 f"the PNG one: {netpbm}")
 
         normals, albedos, masks, r_world = scenes["exr"]
         buckets, undo = _record_step_bodies()
@@ -2630,9 +2692,11 @@ def formats_phase(torch, kernels, card) -> dict:
 
 def decode_fixtures() -> dict:
     """Phase 20, part 1: every fixture of tests/torch_fixtures/formats
+    (JPEG, TIFF, BMP, PNM/PAM/PFM, Radiance, Sun raster, GIF, WebP)
     decoded in each mode on the host, equal to cv2's decode in
     expected.npz; where cv2 returned None (an empty array there), the
-    port must raise UnreadableImage."""
+    port must raise UnreadableImage. The 612x512 files are timed in
+    "color" mode (the best of FIXTURE_REPEATS)."""
     import numpy as np
     from rnb_neus2_torch.io import image_io
     from rnb_neus2_torch.io.errors import UnreadableImage
@@ -2640,7 +2704,7 @@ def decode_fixtures() -> dict:
     with np.load(FIXTURES / "expected.npz") as z:
         expected = {k: z[k] for k in z.files}
     files = sorted(p for p in FIXTURES.iterdir()
-                   if p.suffix in (".jpg", ".tif"))
+                   if p.is_file() and p.suffix not in (".py", ".npz"))
     ms, bad, refused = {}, [], 0
     for path in files:
         for mode in ("unchanged", "color", "grey"):
@@ -2660,7 +2724,9 @@ def decode_fixtures() -> dict:
                     or not np.array_equal(got, want):
                 bad.append(f"{path.name}:{mode}")
     big = {}
-    for name in ("prog_612x512.jpg", "prog_612x512_cut3.jpg"):
+    for name in ("prog_612x512.jpg", "prog_612x512_cut3.jpg",
+                 "webp_lossy_612x512.webp", "webp_lossless_612x512.webp",
+                 "hdr_612x512.hdr", "bmp_rle8_612x512.bmp"):
         times = []
         for _ in range(FIXTURE_REPEATS):
             t0 = time.perf_counter()
@@ -2672,9 +2738,10 @@ def decode_fixtures() -> dict:
            "ms_612x512_progressive_color": big["prog_612x512.jpg"],
            "ms_612x512_progressive_cut3_color":
                big["prog_612x512_cut3.jpg"],
+           "ms_612x512_color": big,
            "decode_s": sum(ms.values()) / 1e3}
     log("fixtures", **row)
-    if bad or len(files) < 20:
+    if bad or len(files) < 80:
         raise AssertionError(f"fixtures that differ from cv2's decode: "
                              f"{bad}")
     return row

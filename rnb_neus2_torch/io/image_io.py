@@ -2,14 +2,17 @@
 `rnb_neus2_tpu/io/image_io.py`).
 
 Files are read and written by the port's own codecs (no `cv2`): PNG
-(`io/png.py`), TIFF (`io/tiff.py`), JPEG (`io/jpeg.py`) and OpenEXR
-(`io/exr.py`). A file's format is found from its signature, as
+(`io/png.py`), TIFF (`io/tiff.py`), JPEG (`io/jpeg.py`), OpenEXR
+(`io/exr.py`), BMP (`io/bmp.py`), PNM/PAM/PFM (`io/pxm.py`), Radiance
+HDR (`io/hdr.py`), Sun raster (`io/sunras.py`), GIF (`io/gif.py`) and
+WebP (`io/webp.py`). A file's format is found from its signature, as
 `cv2.imread` finds it, and its samples come back as cv2 gives them, but
 in RGB(A) order: the JAX package flips cv2's BGR(A), the port's readers
 give RGB(A) directly and flip nothing. A grey+alpha PNG reads as (grey,
-grey, grey, alpha), as cv2 reads it. Integer samples are normalized to
-[0, 1]; float (EXR, float TIFF) samples pass through. `save_image` writes
-the format its extension names, as `cv2.imwrite` does.
+grey, grey, alpha), as cv2 reads it (a grey+alpha PAM as cv2's two
+channels). Integer samples are normalized to [0, 1]; float (EXR, float
+TIFF, PFM, Radiance) samples pass through. `save_image` writes the
+format its extension names, as `cv2.imwrite` does.
 
 Training decode (a 16-bit RGBA texel, common_device.cuh:665-690 +
 testbed_nerf.cu:1504-1535):
@@ -24,7 +27,7 @@ import os
 
 import numpy as np
 
-from . import exr, jpeg, png, tiff
+from . import bmp, exr, gif, hdr, jpeg, png, pxm, sunras, tiff, webp
 from .errors import UnreadableImage, unreadable, unsupported
 
 
@@ -61,13 +64,7 @@ def decode_normal(rgb: np.ndarray, alpha: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 # formats cv2 reads that the port does not yet, by their signatures
-OTHER_FORMATS = ((b"BM", "BMP"), (b"P1", "PNM"), (b"P2", "PNM"),
-                 (b"P3", "PNM"), (b"P4", "PNM"), (b"P5", "PNM"),
-                 (b"P6", "PNM"), (b"P7", "PAM"), (b"PF", "PFM"),
-                 (b"Pf", "PFM"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
-                 (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
-                 (b"\x59\xa6\x6a\x95", "Sun raster"),
-                 (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"),
+OTHER_FORMATS = ((b"\x00\x00\x00\x0cjP  ", "JPEG 2000"),
                  (b"\xff\x4f\xff\x51", "JPEG 2000"))
 
 
@@ -88,11 +85,25 @@ def _reader(path):
         return tiff.read_tiff
     if head.startswith(exr.MAGIC):
         return _read_exr
+    if head.startswith(bmp.SIGNATURE):
+        return bmp.read_bmp
+    if pxm.is_pnm(head):
+        return pxm.read_pnm
+    if pxm.is_pam(head):
+        return pxm.read_pam
+    if pxm.is_pfm(head):
+        return pxm.read_pfm
+    if head.startswith(hdr.SIGNATURES):
+        return hdr.read_hdr
+    if head.startswith(sunras.SIGNATURE):
+        return sunras.read_sunras
+    if head.startswith(gif.SIGNATURES):
+        return gif.read_gif
+    if webp.is_webp(head):
+        return webp.read_webp
     for sig, name in OTHER_FORMATS:
         if head.startswith(sig):
             unsupported(path, f"{name} image")
-    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        unsupported(path, "WebP image")
     if head[4:8] == b"ftyp" and head[8:12] in (b"avif", b"avis"):
         unsupported(path, "AVIF image")
     unreadable(path, "not an image file cv2 reads")
@@ -107,12 +118,14 @@ def _read_exr(path, mode: str = "unchanged") -> np.ndarray:
 def read_image(path, mode: str = "unchanged") -> np.ndarray:
     """`cv2.imread(path, flag)` in RGB(A) order, the format found from the
     file's signature. mode "unchanged" (IMREAD_UNCHANGED): uint8, uint16
-    or float32, (H, W) grey, (H, W, 3) or (H, W, 4); grey+alpha comes back
-    as (grey, grey, grey, alpha). "color" (IMREAD_COLOR): uint8 (H, W, 3);
+    or float32, (H, W) grey, (H, W, 3) or (H, W, 4); a grey+alpha PNG
+    comes back as (grey, grey, grey, alpha), a grey+alpha PAM as (H, W,
+    2). "color" (IMREAD_COLOR): uint8 (H, W, 3);
     "grey" (IMREAD_GRAYSCALE): uint8 (H, W); both with the EXIF
     orientation applied."""
-    img = _reader(path)(path, mode)
-    if img.ndim == 3 and img.shape[2] == 2:
+    reader = _reader(path)
+    img = reader(path, mode)
+    if reader is png.read_png and img.ndim == 3 and img.shape[2] == 2:
         img = img[..., [0, 0, 0, 1]]
     return img
 
@@ -170,15 +183,38 @@ def load_image_raw16(path) -> np.ndarray:
     return img
 
 
+# extensions whose cv2 encoder quantises (libwebp, cv2's GIF palette and
+# dithering, OpenJPEG, libavif): the port does not write them yet
+NOT_YET_WRITTEN = {".webp": "WebP", ".gif": "GIF", ".jp2": "JPEG 2000",
+                   ".j2k": "JPEG 2000", ".avif": "AVIF"}
+PNM_KINDS = {".ppm": "ppm", ".pgm": "pgm", ".pbm": "pbm", ".pnm": "auto"}
+
+
+def _to_8bit(image: np.ndarray) -> np.ndarray:
+    """loadsave.cpp's fallback for an 8-bit-only encoder: convertTo(CV_8U),
+    which saturates 16-bit samples at 255."""
+    return np.minimum(image, 255).astype(np.uint8)
+
+
 def write_raw(path, image: np.ndarray) -> None:
     """uint8 or uint16 samples in RGB(A) order, written in the format the
     extension names, as `cv2.imwrite` writes them: `.png`; `.tif`/`.tiff`
     (LZW, horizontal differencing); `.jpg`/`.jpeg`/`.jpe` (quality 95,
-    4:2:0, alpha dropped, 16-bit samples saturated to 255 as cv2's
-    conversion to 8 bits does). `.exr` raises, since OpenCV's EXR encoder
-    takes only float samples (`save_exr` writes floats), and so does any
-    other extension."""
+    4:2:0, alpha dropped); `.bmp`/`.dib`; `.ppm`, `.pgm`, `.pbm`,
+    `.pnm` (binary); `.pam`; `.pfm` and `.hdr`/`.pic` (which also
+    take float32); `.ras`/`.sr`. Formats of 8-bit samples (JPEG, BMP, Sun
+    raster, PBM) take 16-bit ones saturated to 255, as cv2's conversion
+    to 8 bits does. Where cv2.imwrite returns False (a colour `.pgm`, a
+    grey `.ppm`, a 4-channel `.pfm` or `.hdr`, ...) this raises
+    ValueError; so do `.exr` (OpenCV's EXR encoder takes only float
+    samples: `save_exr` writes floats), the formats whose cv2 encoder
+    quantises (`.webp`, `.gif`, `.jp2`, `.avif`), not yet written by the
+    port, and any other extension."""
     ext = os.path.splitext(str(path))[1].lower()
+    image = np.asarray(image)
+    if image.dtype == np.float32 and ext not in (".pfm", ".hdr", ".pic"):
+        raise ValueError(f"{path}: float32 samples are written as .pfm, "
+                         ".hdr or .exr (save_exr)")
     if ext == ".png":
         png.write_png(path, image)
     elif ext in (".tif", ".tiff"):
@@ -186,10 +222,27 @@ def write_raw(path, image: np.ndarray) -> None:
     elif ext in (".jpg", ".jpeg", ".jpe"):
         if image.ndim == 3:
             image = image[..., :3]
-        jpeg.write_jpeg(path, np.minimum(image, 255).astype(np.uint8))
+        jpeg.write_jpeg(path, _to_8bit(image))
+    elif ext in (".bmp", ".dib"):
+        bmp.write_bmp(path, _to_8bit(image))
+    elif ext in PNM_KINDS:
+        kind = PNM_KINDS[ext]
+        pxm.write_pnm(path, _to_8bit(image) if kind == "pbm" else image,
+                      kind)
+    elif ext == ".pam":
+        pxm.write_pam(path, image)
+    elif ext == ".pfm":
+        pxm.write_pfm(path, image)
+    elif ext in (".hdr", ".pic"):
+        hdr.write_hdr(path, image)
+    elif ext in (".ras", ".sr"):
+        sunras.write_sunras(path, _to_8bit(image))
     elif ext == ".exr":
         raise ValueError(f"{path}: an EXR file holds float samples; "
                          f"{image.dtype} cannot be written (use save_exr)")
+    elif ext in NOT_YET_WRITTEN:
+        raise ValueError(f"{path}: {NOT_YET_WRITTEN[ext]} files are not yet "
+                         "written by the port")
     else:
         raise ValueError(f"{path}: no image writer for extension "
                          f"{ext or '(none)'!r}")

@@ -782,6 +782,29 @@ def cv_grey(rgb) -> np.ndarray:
             >> 14).astype(np.uint8)
 
 
+# cvtColor's BGR2GRAY weights in 1/32768 (color_rgb.simd.hpp), which
+# imread applies where a decoder leaves the conversion to it
+CVT_GREY_B, CVT_GREY_G, CVT_GREY_R = 3735, 19235, 9798
+
+
+def cvt_grey(rgb) -> np.ndarray:
+    """cvtColor(COLOR_BGR2GRAY) of 8-bit RGB samples."""
+    r, g, b = (rgb[..., i].astype(np.int32) for i in range(3))
+    return ((b * CVT_GREY_B + g * CVT_GREY_G + r * CVT_GREY_R + 16384)
+            >> 15).astype(np.uint8)
+
+
+def saturate_u8(x: np.ndarray) -> np.ndarray:
+    """saturate_cast<uchar> of float samples: round half to even, and a
+    value cvRound cannot hold in an int (inf, NaN, beyond 2^31) → 0."""
+    x = np.asarray(x, np.float64)
+    with np.errstate(invalid="ignore"):
+        r = np.rint(x)
+        r = np.where(np.isfinite(r) & (r >= -2.0 ** 31) & (r < 2.0 ** 31),
+                     r, 0)
+    return np.clip(r, 0, 255).astype(np.uint8)
+
+
 def _ycck_to_cmyk(y, cb, cr, k) -> np.ndarray:
     """jdcolor.c ycck_cmyk_convert: YCbCr → RGB inverted, K kept."""
     rgb = ycc_to_rgb(y, cb, cr)

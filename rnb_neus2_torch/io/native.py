@@ -1,6 +1,8 @@
 """The codecs' C helpers (`native/codecs.cc`): LZW and PackBits for TIFF,
-RLE for EXR, and the entropy coding of JPEG scans (sequential and
-progressive Huffman, arithmetic, lossless). Built with g++ into
+RLE for EXR, the entropy coding of JPEG scans (sequential and
+progressive Huffman, arithmetic, lossless), BMP RLE, PNM's ASCII
+numbers, Radiance RLE, GIF LZW, and WebP's lossless and lossy
+bitstreams. Built with g++ into
 `build/` at first use (`kernels/build.py:load_host_library`) and bound
 with ctypes; each returns a byte count or a negative error code.
 """
@@ -36,6 +38,16 @@ SIGNATURES = {
     "jpeg_decode_lossless": [_P, _I64, _I64, _I32, _I32, _I32, _P, _I32, _P,
                              _P, _I32, _I32, _I32, _I32, _P],
     "jpeg_encode_scan": [_P, _I64, _I32, _P, _P, _P, _P, _P, _P, _I64],
+    "bmp_rle_decode": [_P, _I64, _I64, _I64, _I32, _P],
+    "pnm_read_numbers": [_P, _I64, _I64, _I64, _I32, _P],
+    "hdr_decode": [_P, _I64, _I64, _I64, _P],
+    "hdr_encode_rle": [_P, _I64, _I64, _P, _I64],
+    "gif_lzw_decode": [_P, _I64, _I32, _I64, _P],
+    "vp8l_decode": [_P, _I64, _I32, _I32, _P, _P, _P, _I64],
+    "vp8l_unpredict": [_P, _I32, _I32, _P, _I32],
+    "alpha_ungradient": [_P, _I32, _I32],
+    "vp8_parse": [_P, _I64, _P, _P, _P, _I64],
+    "vp8_reconstruct": [_P, _P, _P, _P, _P, _P],
 }
 
 
@@ -159,3 +171,106 @@ def jpeg_encode_scan(blocks: np.ndarray, block_comp: np.ndarray,
     if n < 0:
         raise ValueError(f"jpeg_encode_scan failed with code {n}")
     return out[:n].tobytes()
+
+
+def bmp_rle_decode(src: bytes, w: int, h: int, bits: int) -> tuple:
+    """BMP RLE8 / RLE4 data → (0 or a negative code, (h, w) uint8 palette
+    indices in file row order)."""
+    out = np.empty((h, w), np.uint8)
+    code = _library().bmp_rle_decode(src, len(src), w, h, bits, ptr(out))
+    return code, out
+
+
+def pnm_read_numbers(blob: bytes, pos: int, count: int,
+                     maxdigits: int = 0) -> tuple:
+    """`count` ASCII numbers as OpenCV's PxM ReadNumber reads them from
+    `pos` → (the position after them or a negative code, int32 values)."""
+    out = np.zeros(max(count, 1), np.int32)
+    end = _library().pnm_read_numbers(blob, len(blob), pos, count,
+                                      maxdigits, ptr(out))
+    return end, out[:count]
+
+
+def hdr_decode(src: bytes, w: int, h: int) -> tuple:
+    """Radiance scanlines → (bytes consumed or a negative code, (h, w, 4)
+    RGBE bytes)."""
+    out = np.empty((h, w, 4), np.uint8)
+    return _library().hdr_decode(src, len(src), w, h, ptr(out)), out
+
+
+def hdr_encode_rle(rgbe: np.ndarray) -> bytes:
+    """(h, w, 4) RGBE bytes → new-style RLE scanlines."""
+    rgbe = np.ascontiguousarray(rgbe, np.uint8)
+    h, w = rgbe.shape[:2]
+    cap = h * (4 + 4 * (w + w // 128 + 2))
+    dst = np.empty(cap, np.uint8)
+    n = _library().hdr_encode_rle(ptr(rgbe), w, h, ptr(dst), cap)
+    if n < 0:
+        raise ValueError(f"hdr_encode_rle failed with code {n}")
+    return dst[:n].tobytes()
+
+
+def gif_lzw_decode(src: bytes, min_size: int, npix: int) -> tuple:
+    """One GIF image's LZW payload → (pixels decoded or -1, the (npix,)
+    uint8 indices)."""
+    out = np.zeros(npix, np.uint8)
+    n = _library().gif_lzw_decode(src, len(src), min_size, npix, ptr(out))
+    return n, out
+
+
+def vp8l_decode(src: bytes, w: int, h: int) -> tuple:
+    """A VP8L image stream → (the entropy-coded ARGB pixels (uint32, at
+    the width left after colour indexing, flat), the transforms' records
+    (int32, 4 each), their data (uint32), the number of transforms or
+    -1)."""
+    out = np.zeros(w * h, np.uint32)
+    tinfo = np.zeros(16, np.int32)
+    cap = 2 * (w * h) + 4096
+    tdata = np.zeros(cap, np.uint32)
+    n = _library().vp8l_decode(src, len(src), w, h, ptr(out), ptr(tinfo),
+                               ptr(tdata), cap)
+    return out, tinfo, tdata, n
+
+
+def vp8l_unpredict(px: np.ndarray, modes: np.ndarray, bits: int) -> None:
+    """The predictor transform's inverse, in place on (h, w) uint32."""
+    modes = np.ascontiguousarray(modes, np.uint32)
+    _library().vp8l_unpredict(ptr(px), px.shape[1], px.shape[0],
+                              ptr(modes), bits)
+
+
+def alpha_ungradient(a: np.ndarray) -> None:
+    """The ALPH gradient filter's inverse, in place on (h, w) uint8."""
+    _library().alpha_ungradient(ptr(a), a.shape[1], a.shape[0])
+
+
+VP8_MAX_MB = 1 << 20
+
+
+def vp8_parse(src: bytes) -> tuple:
+    """A VP8 key frame → (info int32[64], per-macroblock modes uint8,
+    dequantized coefficients int16, 0 or a negative code)."""
+    n_mb = VP8_MAX_MB
+    if len(src) >= 10:
+        w = (src[6] | (src[7] << 8)) & 0x3FFF
+        h = (src[8] | (src[9] << 8)) & 0x3FFF
+        n_mb = min(n_mb, ((w + 15) >> 4) * ((h + 15) >> 4))
+    info = np.zeros(64, np.int32)
+    mb = np.zeros(20 * max(n_mb, 1), np.uint8)
+    coeffs = np.zeros(400 * max(n_mb, 1), np.int16)
+    code = _library().vp8_parse(src, len(src), ptr(info), ptr(mb),
+                                ptr(coeffs), n_mb)
+    return info, mb, coeffs, code
+
+
+def vp8_reconstruct(info, mb, resid, mbw: int, mbh: int) -> tuple:
+    """Prediction, residuals and the loop filter → the Y, U, V planes at
+    whole macroblocks."""
+    Y = np.zeros((mbh * 16, mbw * 16), np.uint8)
+    U = np.zeros((mbh * 8, mbw * 8), np.uint8)
+    V = np.zeros((mbh * 8, mbw * 8), np.uint8)
+    mb = np.ascontiguousarray(mb, np.uint8)
+    resid = np.ascontiguousarray(resid, np.int16)
+    _library().vp8_reconstruct(ptr(info), ptr(mb), ptr(resid), ptr(Y),
+                               ptr(U), ptr(V))
+    return Y, U, V

@@ -14,6 +14,17 @@
 //                                  libjpeg-turbo's jdarith.c decodes it
 //   jpeg_decode_lossless          one lossless Huffman scan (Annex H)
 //   jpeg_encode_scan              one interleaved baseline scan (F.1)
+//   bmp_rle_decode                BMP RLE8 / RLE4 as OpenCV's grfmt_bmp
+//   pnm_read_numbers              PNM ASCII numbers as OpenCV's ReadNumber
+//   hdr_decode / hdr_encode_rle   Radiance scanlines (Greg Ward's rgbe.c)
+//   gif_lzw_decode                GIF LZW, codes of 3-12 bits
+//   vp8l_decode / vp8l_unpredict  WebP lossless: prefix codes, colour
+//                                  cache, LZ77, the transforms' sub-images;
+//                                  the predictor transform's inverse
+//   alpha_ungradient              WebP ALPH's gradient filter, undone
+//   vp8_parse / vp8_reconstruct   VP8 key frames: headers, modes and
+//                                  tokens; intra prediction and the loop
+//                                  filters (libwebp's dec.c / frame_dec.c)
 //
 // Every function returns a byte count or position, or a negative error
 // code the Python side turns into a ValueError naming the file.
@@ -944,4 +955,1768 @@ extern "C" int64_t jpeg_encode_scan(
   }
   if (bits) emit(0x7F, 8 - bits);
   return overflow ? -3 : o;
+}
+
+// ---------------------------------------------------------------- BMP RLE
+// OpenCV's BmpDecoder::readData for BI_RLE8 / BI_RLE4, into palette
+// indices (h, w) in file row order: pixels that a delta, an end of line or
+// the end of the bitmap skip take index 0 (cv2 fills them with palette
+// entry 0). Runs are counted in pixels where cv2 counts bytes of its
+// output row. → 0, -1 for a run past the end of a row (cv2 gives up), -2
+// when the data ends early (cv2's stream throws).
+namespace {
+
+struct RleRows {
+  uint8_t* out;
+  int64_t w, h, x = 0, y = 0;
+  // FillUniColor: `count` pixels of `v`, wrapping to the next row
+  void fill(int64_t count, uint8_t v) {
+    do {
+      int64_t end = std::min(x + count, w);
+      count -= end - x;
+      if (y < h)
+        for (; x < end; ++x) out[y * w + x] = v;
+      else
+        x = end;
+      if (x >= w) {
+        x = 0;
+        if (++y >= h) break;
+      }
+    } while (count > 0);
+  }
+};
+
+}  // namespace
+
+extern "C" int64_t bmp_rle_decode(const uint8_t* src, int64_t n, int64_t w,
+                                  int64_t h, int32_t bits, uint8_t* out) {
+  RleRows r{out, w, h};
+  std::memset(out, 0, static_cast<size_t>(w * h));
+  int64_t pos = 0;
+  int line_end_flag = 0;
+#define GET(v)                 \
+  do {                         \
+    if (pos >= n) return -2;   \
+    (v) = src[pos++];          \
+  } while (0)
+  for (;;) {
+    int len, code;
+    GET(len);
+    GET(code);
+    if (len != 0) {  // encoded run
+      if (r.x + len > w || r.y >= h) return -1;
+      if (bits == 8) {
+        int64_t prev_y = r.y;
+        r.fill(len, static_cast<uint8_t>(code));
+        line_end_flag = static_cast<int>(r.y - prev_y);
+        if (r.y >= h) break;
+      } else {
+        for (int t = 0; t < len; ++t, ++r.x)
+          out[r.y * w + r.x] = static_cast<uint8_t>(t & 1 ? code & 15
+                                                          : code >> 4);
+      }
+    } else if (code > 2) {  // absolute run
+      if (r.x + code > w || r.y >= h) return -1;
+      int64_t sz = bits == 8 ? (code + 1) & ~1 : (((code + 1) >> 1) + 1) & ~1;
+      if (pos + sz > n) return -2;
+      const uint8_t* s = src + pos;
+      pos += sz;
+      for (int i = 0; i < code; ++i, ++r.x)
+        out[r.y * w + r.x] = bits == 8 ? s[i]
+            : static_cast<uint8_t>(i & 1 ? s[i >> 1] & 15 : s[i >> 1] >> 4);
+      line_end_flag = 0;
+    } else {  // escape: 0 end of line, 1 end of bitmap, 2 delta
+      int64_t x_shift = w - r.x, y_shift = h - r.y;
+      if (bits == 4 || code || !line_end_flag || x_shift < w) {
+        if (code == 2) {
+          int dx, dy;
+          GET(dx);
+          GET(dy);
+          x_shift = dx;
+          y_shift = dy;
+        }
+        if (code != 0) x_shift += y_shift * w;
+        if (bits == 8 && r.y >= h) break;
+        r.fill(x_shift, 0);
+        if (r.y >= h) break;
+      }
+      line_end_flag = 0;
+      if (r.y >= h) break;
+    }
+  }
+#undef GET
+  return 0;
+}
+
+// ---------------------------------------------------------------- PNM
+// OpenCV's ReadNumber (grfmt_pxm.cpp), `count` times from `pos`: skip
+// whitespace and '#' comments (to '\n' or '\r'), then read digits (at most
+// `maxdigits` if it is not 0), consuming the byte after them. → the new
+// position, -1 for another byte where a number should start or a value
+// past INT_MAX, -2 at the end of the data (cv2's stream throws there).
+extern "C" int64_t pnm_read_numbers(const uint8_t* src, int64_t n,
+                                    int64_t pos, int64_t count,
+                                    int32_t maxdigits, int32_t* out) {
+  auto space = [](int c) { return c == ' ' || (c >= '\t' && c <= '\r'); };
+  for (int64_t k = 0; k < count; ++k) {
+    if (pos >= n) return -2;
+    int c = src[pos++];
+    while (c < '0' || c > '9') {
+      if (c == '#') {
+        do {
+          if (pos >= n) return -2;
+          c = src[pos++];
+        } while (c != '\n' && c != '\r');
+        if (pos >= n) return -2;
+        c = src[pos++];
+      } else if (space(c)) {
+        while (space(c)) {
+          if (pos >= n) return -2;
+          c = src[pos++];
+        }
+      } else {
+        return -1;
+      }
+    }
+    int64_t val = 0;
+    int digits = 0;
+    for (;;) {
+      val = val * 10 + (c - '0');
+      if (val > 2147483647) return -1;
+      if (maxdigits != 0 && ++digits >= maxdigits) break;
+      if (pos >= n) return -2;
+      c = src[pos++];
+      if (c < '0' || c > '9') break;
+    }
+    out[k] = static_cast<int32_t>(val);
+  }
+  return pos;
+}
+
+// ---------------------------------------------------------------- HDR
+// Greg Ward's rgbe.c as OpenCV ships it. hdr_decode: RGBE_ReadPixels_RLE
+// into (h, w, 4) RGBE bytes: scanlines of new-style RLE while each starts
+// with 2, 2 and the width, and from the first one that does not, every
+// remaining pixel flat; widths below 8 or above 0x7fff are flat
+// throughout. → the bytes consumed, -1 for a bad scanline, -2 when the
+// data ends early.
+extern "C" int64_t hdr_decode(const uint8_t* src, int64_t n, int64_t w,
+                              int64_t h, uint8_t* out) {
+  int64_t pos = 0;
+  auto flat = [&](int64_t from) -> int64_t {
+    int64_t need = (w * h - from) * 4;
+    if (pos + need > n) return -2;
+    std::memcpy(out + from * 4, src + pos, static_cast<size_t>(need));
+    return pos + need;
+  };
+  if (w < 8 || w > 0x7fff) return flat(0);
+  std::vector<uint8_t> line(static_cast<size_t>(4 * w));
+  for (int64_t y = 0; y < h; ++y) {
+    if (pos + 4 > n) return -2;
+    const uint8_t* q = src + pos;
+    pos += 4;
+    if (q[0] != 2 || q[1] != 2 || (q[2] & 0x80)) {
+      std::memcpy(out + y * w * 4, q, 4);
+      return flat(y * w + 1);
+    }
+    if (((q[2] << 8) | q[3]) != w) return -1;
+    uint8_t* p = line.data();
+    for (int i = 0; i < 4; ++i) {
+      uint8_t* end = line.data() + (i + 1) * w;
+      while (p < end) {
+        if (pos + 2 > n) return -2;
+        int c = src[pos], v = src[pos + 1];
+        pos += 2;
+        if (c > 128) {
+          c -= 128;
+          if (c == 0 || c > end - p) return -1;
+          std::memset(p, v, static_cast<size_t>(c));
+          p += c;
+        } else {
+          if (c == 0 || c > end - p) return -1;
+          *p++ = static_cast<uint8_t>(v);
+          if (--c > 0) {
+            if (pos + c > n) return -2;
+            std::memcpy(p, src + pos, static_cast<size_t>(c));
+            pos += c;
+            p += c;
+          }
+        }
+      }
+    }
+    uint8_t* o = out + y * w * 4;
+    for (int64_t x = 0; x < w; ++x)
+      for (int i = 0; i < 4; ++i) o[x * 4 + i] = line[i * w + x];
+  }
+  return pos;
+}
+
+// RGBE_WriteBytes_RLE for each of the four channels of each scanline of
+// (h, w, 4) RGBE bytes, after its 2, 2, w >> 8, w & 255 start (the caller
+// writes widths below 8 or above 0x7fff flat). → the bytes written, or -1
+// if `cap` is too small.
+extern "C" int64_t hdr_encode_rle(const uint8_t* rgbe, int64_t w, int64_t h,
+                                  uint8_t* dst, int64_t cap) {
+  constexpr int kMinRun = 4;
+  int64_t n = 0;
+  auto put = [&](uint8_t b) {
+    if (n < cap) dst[n] = b;
+    ++n;
+  };
+  std::vector<uint8_t> chan(static_cast<size_t>(w));
+  for (int64_t y = 0; y < h; ++y) {
+    put(2);
+    put(2);
+    put(static_cast<uint8_t>(w >> 8));
+    put(static_cast<uint8_t>(w & 0xFF));
+    for (int i = 0; i < 4; ++i) {
+      for (int64_t x = 0; x < w; ++x) chan[x] = rgbe[(y * w + x) * 4 + i];
+      const uint8_t* data = chan.data();
+      int64_t cur = 0;
+      while (cur < w) {
+        int64_t beg = cur;
+        int run = 0, old_run = 0;
+        while (run < kMinRun && beg < w) {
+          beg += run;
+          old_run = run;
+          run = 1;
+          while (beg + run < w && run < 127 && data[beg] == data[beg + run])
+            ++run;
+        }
+        if (old_run > 1 && old_run == beg - cur) {
+          put(static_cast<uint8_t>(128 + old_run));
+          put(data[cur]);
+          cur = beg;
+        }
+        while (cur < beg) {
+          int64_t k = std::min<int64_t>(beg - cur, 128);
+          put(static_cast<uint8_t>(k));
+          for (int64_t j = 0; j < k; ++j) put(data[cur + j]);
+          cur += k;
+        }
+        if (run >= kMinRun) {
+          put(static_cast<uint8_t>(128 + run));
+          put(data[beg]);
+          cur += run;
+        }
+      }
+    }
+  }
+  return n <= cap ? n : -1;
+}
+
+// ---------------------------------------------------------------- GIF
+// One image's LZW data (GIF89a appendix F: LSB-first codes from
+// min_size + 1 bits up to 12, clear and end codes), given as the
+// concatenated payload of its sub-blocks, into `npix` palette indices.
+// A full table takes no more entries until a clear code. → the pixels
+// decoded, or -1 for a code past the table or more pixels than `npix`
+// (cv2 refuses both).
+extern "C" int64_t gif_lzw_decode(const uint8_t* src, int64_t n,
+                                  int32_t min_size, int64_t npix,
+                                  uint8_t* out) {
+  static thread_local uint16_t prefix[4096];
+  static thread_local uint8_t suffix[4096], first[4096];
+  static thread_local uint16_t length[4096];
+  static thread_local uint8_t stack[4096];
+  const int clear = 1 << min_size, end = clear + 1;
+  for (int c = 0; c < clear; ++c) {
+    suffix[c] = first[c] = static_cast<uint8_t>(c);
+    length[c] = 1;
+  }
+  int size = min_size + 1, next = end + 1, prev = -1;
+  uint32_t acc = 0;
+  int bits = 0;
+  int64_t pos = 0, count = 0;
+  for (;;) {
+    while (bits < size && pos < n) {
+      acc |= static_cast<uint32_t>(src[pos++]) << bits;
+      bits += 8;
+    }
+    if (bits < size) break;
+    int code = static_cast<int>(acc & ((1u << size) - 1));
+    acc >>= size;
+    bits -= size;
+    if (code == clear) {
+      size = min_size + 1;
+      next = end + 1;
+      prev = -1;
+      continue;
+    }
+    if (code == end) break;
+    if (code > next || (prev < 0 && code >= clear)) return -1;
+    if (prev >= 0 && next < 4096) {
+      prefix[next] = static_cast<uint16_t>(prev);
+      first[next] = first[prev];
+      suffix[next] = code == next ? first[prev] : first[code];
+      length[next] = static_cast<uint16_t>(length[prev] + 1);
+      ++next;
+    } else if (code == next) {
+      return -1;
+    }
+    int len = length[code];
+    if (count + len > npix) return -1;
+    int c = code;
+    for (int i = len - 1; i >= 0; --i) {
+      stack[i] = suffix[c];
+      c = prefix[c];
+    }
+    std::memcpy(out + count, stack, static_cast<size_t>(len));
+    count += len;
+    prev = code;
+    if (next == (1 << size) && size < 12) ++size;
+  }
+  return count;
+}
+
+// ---------------------------------------------------------------- WebP
+// The entropy layers of WebP as libwebp decodes them (what cv2's WebP
+// reader calls): VP8L, the lossless format (prefix codes, meta prefix
+// codes, the colour cache, LZ77 backward references with the 120-entry
+// distance map, and the transforms' sub-images) and VP8 key frames (the
+// boolean decoder, frame and segment headers, token probabilities,
+// intra modes and coefficients), then VP8's reconstruction (intra
+// prediction and the loop filters), which runs block after block. The
+// vectorisable steps (inverse transforms of VP8L, VP8's inverse WHT and
+// DCT, the alpha filters, YUV to RGB) are numpy in io/webp.py.
+namespace {
+
+// ---- VP8L
+struct LBits {
+  const uint8_t* p;
+  int64_t n, pos = 0;
+  bool eos = false;
+  uint32_t read(int nb) {
+    uint32_t v = 0;
+    for (int i = 0; i < nb; ++i, ++pos) {
+      int64_t byte = pos >> 3;
+      if (byte >= n) {
+        eos = true;
+        continue;
+      }
+      v |= static_cast<uint32_t>((p[byte] >> (pos & 7)) & 1) << i;
+    }
+    return v;
+  }
+};
+
+// A canonical prefix code (as deflate's: the first bit read is the code's
+// most significant); one used symbol takes no bits, as in libwebp.
+struct Prefix {
+  int count[16] = {0};
+  std::vector<int> symbol;
+  int single = -1;
+  bool build(const int* len, int n) {
+    std::fill(count, count + 16, 0);
+    for (int s = 0; s < n; ++s) {
+      if (len[s] > 15 || len[s] < 0) return false;
+      ++count[len[s]];
+    }
+    int used = n - count[0];
+    if (used == 0) return false;
+    int left = 1;
+    for (int l = 1; l < 16; ++l) {
+      left = (left << 1) - count[l];
+      if (left < 0) return false;
+    }
+    int offs[16];
+    offs[1] = 0;
+    for (int l = 1; l < 15; ++l) offs[l + 1] = offs[l] + count[l];
+    symbol.assign(static_cast<size_t>(used), 0);
+    for (int s = 0; s < n; ++s)
+      if (len[s]) symbol[offs[len[s]]++] = s;
+    single = used == 1 ? symbol[0] : -1;
+    return used == 1 || left == 0;
+  }
+  int decode(LBits& br) const {
+    if (single >= 0) return single;
+    int code = 0, first = 0, index = 0;
+    for (int l = 1; l < 16; ++l) {
+      code |= static_cast<int>(br.read(1));
+      int c = count[l];
+      if (code - c < first) return symbol[index + code - first];
+      index += c;
+      first = (first + c) << 1;
+      code <<= 1;
+    }
+    return -1;
+  }
+};
+
+const uint8_t kCodeToPlane[120] = {
+    0x18, 0x07, 0x17, 0x19, 0x28, 0x06, 0x27, 0x29, 0x16, 0x1a, 0x26, 0x2a,
+    0x38, 0x05, 0x37, 0x39, 0x15, 0x1b, 0x36, 0x3a, 0x25, 0x2b, 0x48, 0x04,
+    0x47, 0x49, 0x14, 0x1c, 0x35, 0x3b, 0x46, 0x4a, 0x24, 0x2c, 0x58, 0x45,
+    0x4b, 0x34, 0x3c, 0x03, 0x57, 0x59, 0x13, 0x1d, 0x56, 0x5a, 0x23, 0x2d,
+    0x44, 0x4c, 0x55, 0x5b, 0x33, 0x3d, 0x68, 0x02, 0x67, 0x69, 0x12, 0x1e,
+    0x66, 0x6a, 0x22, 0x2e, 0x54, 0x5c, 0x43, 0x4d, 0x65, 0x6b, 0x32, 0x3e,
+    0x78, 0x01, 0x77, 0x79, 0x53, 0x5d, 0x11, 0x1f, 0x64, 0x6c, 0x42, 0x4e,
+    0x76, 0x7a, 0x21, 0x2f, 0x75, 0x7b, 0x31, 0x3f, 0x63, 0x6d, 0x52, 0x5e,
+    0x00, 0x74, 0x7c, 0x41, 0x4f, 0x10, 0x20, 0x62, 0x6e, 0x30, 0x73, 0x7d,
+    0x51, 0x5f, 0x40, 0x72, 0x7e, 0x61, 0x6f, 0x50, 0x71, 0x7f, 0x60, 0x70};
+const int kCodeLengthOrder[19] = {17, 18, 0, 1, 2, 3, 4, 5, 16, 6,
+                                  7, 8, 9, 10, 11, 12, 13, 14, 15};
+
+inline int sub_sample(int size, int bits) {
+  return (size + (1 << bits) - 1) >> bits;
+}
+
+struct Lossless {
+  LBits br;
+  uint32_t seen = 0;
+  // transforms in bitstream order: type, bits, xsize before it, offset of
+  // its data in `tdata` (predictor / cross-colour sub-image, or the
+  // colour map expanded to 1 << (8 >> bits) entries)
+  int32_t* tinfo;
+  int ntrans = 0;
+  std::vector<uint32_t> tdata;
+
+  bool read_code(int alphabet, Prefix& out) {
+    std::vector<int> len(static_cast<size_t>(alphabet), 0);
+    if (br.read(1)) {
+      int nsym = br.read(1) + 1;
+      int s = br.read(br.read(1) ? 8 : 1);
+      if (s < alphabet) len[s] = 1;
+      if (nsym == 2) {
+        s = br.read(8);
+        if (s < alphabet) len[s] = 1;
+      }
+    } else {
+      int cl[19] = {0};
+      int ncodes = br.read(4) + 4;
+      for (int i = 0; i < ncodes; ++i) cl[kCodeLengthOrder[i]] = br.read(3);
+      Prefix lengths;
+      if (!lengths.build(cl, 19)) return false;
+      int max_symbol = alphabet;
+      if (br.read(1)) {
+        int nbits = 2 + 2 * br.read(3);
+        max_symbol = 2 + br.read(nbits);
+        if (max_symbol > alphabet) return false;
+      }
+      int prev = 8, sym = 0;
+      while (sym < alphabet) {
+        if (max_symbol-- == 0) break;
+        int c = lengths.decode(br);
+        if (c < 0 || br.eos) return false;
+        if (c < 16) {
+          len[sym++] = c;
+          if (c) prev = c;
+        } else {
+          static const int extra[3] = {2, 3, 7}, offset[3] = {3, 3, 11};
+          int rep = br.read(extra[c - 16]) + offset[c - 16];
+          if (sym + rep > alphabet) return false;
+          int v = c == 16 ? prev : 0;
+          while (rep-- > 0) len[sym++] = v;
+        }
+      }
+    }
+    if (br.eos) return false;
+    return out.build(len.data(), alphabet);
+  }
+
+  static uint32_t copy_value(int sym, LBits& br) {
+    if (sym < 4) return static_cast<uint32_t>(sym + 1);
+    int extra = (sym - 2) >> 1;
+    uint32_t offset = static_cast<uint32_t>(2 + (sym & 1)) << extra;
+    return offset + br.read(extra) + 1;
+  }
+
+  bool transform(int* xs, int ys) {
+    if (ntrans >= 4) return false;
+    int type = br.read(2);
+    if (seen & (1u << type)) return false;
+    seen |= 1u << type;
+    int32_t* t = tinfo + 4 * ntrans++;
+    t[0] = type;
+    t[1] = 0;
+    t[2] = *xs;
+    t[3] = static_cast<int32_t>(tdata.size());
+    std::vector<uint32_t> sub;
+    if (type == 0 || type == 1) {
+      int bits = br.read(3) + 2;
+      t[1] = bits;
+      if (!image(sub_sample(*xs, bits), sub_sample(ys, bits), false, sub))
+        return false;
+    } else if (type == 3) {
+      int ncolors = br.read(8) + 1;
+      int bits = ncolors > 16 ? 0 : ncolors > 4 ? 1 : ncolors > 2 ? 2 : 3;
+      t[1] = bits;
+      if (!image(ncolors, 1, false, sub)) return false;
+      std::vector<uint32_t> map(static_cast<size_t>(1) << (8 >> bits), 0);
+      map[0] = sub[0];
+      for (int i = 1; i < ncolors; ++i) {
+        uint32_t a = sub[i], b = map[i - 1];
+        map[i] = (((a & 0xff00ff00u) + (b & 0xff00ff00u)) & 0xff00ff00u) |
+                 (((a & 0x00ff00ffu) + (b & 0x00ff00ffu)) & 0x00ff00ffu);
+      }
+      sub.swap(map);
+      *xs = sub_sample(*xs, bits);
+    }
+    tdata.insert(tdata.end(), sub.begin(), sub.end());
+    return true;
+  }
+
+  // DecodeImageStream: a level-0 image reads the transforms and may use
+  // meta prefix codes; sub-images do neither.
+  bool image(int xs, int ys, bool level0, std::vector<uint32_t>& out) {
+    if (level0)
+      while (br.read(1))
+        if (!transform(&xs, ys)) return false;
+    int cache_bits = 0;
+    if (br.read(1)) {
+      cache_bits = br.read(4);
+      if (cache_bits < 1 || cache_bits > 11) return false;
+    }
+    int hbits = 0, hxs = 0, ngroups = 1;
+    std::vector<uint32_t> meta;
+    if (level0 && br.read(1)) {
+      hbits = br.read(3) + 2;
+      hxs = sub_sample(xs, hbits);
+      if (!image(hxs, sub_sample(ys, hbits), false, meta)) return false;
+      for (uint32_t& m : meta) {
+        m = (m >> 8) & 0xffff;
+        ngroups = std::max(ngroups, static_cast<int>(m) + 1);
+      }
+    }
+    if (br.eos) return false;
+    const int cache_size = cache_bits ? 1 << cache_bits : 0;
+    std::vector<Prefix> codes(static_cast<size_t>(5) * ngroups);
+    static const int alphabet[5] = {280, 256, 256, 256, 40};
+    for (int g = 0; g < ngroups; ++g)
+      for (int j = 0; j < 5; ++j)
+        if (!read_code(alphabet[j] + (j == 0 ? cache_size : 0),
+                       codes[5 * g + j]))
+          return false;
+    std::vector<uint32_t> cache(static_cast<size_t>(std::max(cache_size, 1)),
+                                0);
+    out.assign(static_cast<size_t>(xs) * ys, 0);
+    const int64_t total = static_cast<int64_t>(xs) * ys;
+    int64_t pos = 0;
+    auto insert = [&](uint32_t argb) {
+      if (cache_bits)
+        cache[(0x1e35a7bdu * argb) >> (32 - cache_bits)] = argb;
+    };
+    while (pos < total) {
+      int col = static_cast<int>(pos % xs), row = static_cast<int>(pos / xs);
+      const Prefix* g = codes.data() +
+          5 * (hbits ? meta[(row >> hbits) * hxs + (col >> hbits)] : 0);
+      int code = g[0].decode(br);
+      if (code < 0 || br.eos) return false;
+      if (code < 256) {
+        int red = g[1].decode(br), blue = g[2].decode(br),
+            alpha = g[3].decode(br);
+        if (br.eos || red < 0 || blue < 0 || alpha < 0) return false;
+        uint32_t argb = (static_cast<uint32_t>(alpha) << 24) |
+                        (static_cast<uint32_t>(red) << 16) |
+                        (static_cast<uint32_t>(code) << 8) |
+                        static_cast<uint32_t>(blue);
+        out[pos++] = argb;
+        insert(argb);
+      } else if (code < 280) {
+        int64_t length = copy_value(code - 256, br);
+        int dsym = g[4].decode(br);
+        if (dsym < 0) return false;
+        int64_t dcode = copy_value(dsym, br), dist;
+        if (dcode > 120) {
+          dist = dcode - 120;
+        } else {
+          int v = kCodeToPlane[dcode - 1];
+          dist = static_cast<int64_t>(v >> 4) * xs + 8 - (v & 0xf);
+          if (dist < 1) dist = 1;
+        }
+        if (br.eos || pos < dist || total - pos < length) return false;
+        for (int64_t i = 0; i < length; ++i, ++pos) {
+          out[pos] = out[pos - dist];
+          insert(out[pos]);
+        }
+      } else {
+        if (code - 280 >= cache_size) return false;
+        uint32_t argb = cache[code - 280];
+        out[pos++] = argb;
+        insert(argb);
+      }
+    }
+    return !br.eos;
+  }
+};
+
+}  // namespace
+
+// A VP8L image stream (after the 5-byte header of a VP8L chunk, or an ALPH
+// chunk's payload) of `xs` x `ys`: → the entropy-coded ARGB pixels of the
+// width left after a colour-indexing transform into `out`, the transforms
+// into `tinfo` (4 int32 each: type, bits, xsize before it, offset into
+// `tdata`) and their data into `tdata` (uint32, capacity `tcap`). Returns
+// the number of transforms, or -1 for a bitstream libwebp refuses.
+extern "C" int64_t vp8l_decode(const uint8_t* src, int64_t n, int32_t xs,
+                               int32_t ys, uint32_t* out, int32_t* tinfo,
+                               uint32_t* tdata, int64_t tcap) {
+  Lossless d{LBits{src, n}, 0, tinfo, 0, {}};
+  std::vector<uint32_t> img;
+  if (!d.image(xs, ys, true, img)) return -1;
+  if (static_cast<int64_t>(d.tdata.size()) > tcap) return -1;
+  std::memcpy(out, img.data(), img.size() * 4);
+  std::memcpy(tdata, d.tdata.data(), d.tdata.size() * 4);
+  return d.ntrans;
+}
+
+namespace {
+
+inline uint32_t add_pixels(uint32_t a, uint32_t b) {
+  return (((a & 0xff00ff00u) + (b & 0xff00ff00u)) & 0xff00ff00u) |
+         (((a & 0x00ff00ffu) + (b & 0x00ff00ffu)) & 0x00ff00ffu);
+}
+inline uint32_t average2(uint32_t a, uint32_t b) {
+  return (((a ^ b) & 0xfefefefeu) >> 1) + (a & b);
+}
+inline int clip255(int a) { return a < 0 ? 0 : a > 255 ? 255 : a; }
+inline int sub3(int a, int b, int c) {
+  return std::abs(b - c) - std::abs(a - c);
+}
+inline uint32_t select_pred(uint32_t a, uint32_t b, uint32_t c) {
+  int d = 0;
+  for (int s = 0; s < 32; s += 8)
+    d += sub3((a >> s) & 0xff, (b >> s) & 0xff, (c >> s) & 0xff);
+  return d <= 0 ? a : b;
+}
+inline uint32_t clamp_full(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t out = 0;
+  for (int s = 0; s < 32; s += 8)
+    out |= static_cast<uint32_t>(clip255(static_cast<int>((a >> s) & 0xff) +
+                                         static_cast<int>((b >> s) & 0xff) -
+                                         static_cast<int>((c >> s) & 0xff)))
+           << s;
+  return out;
+}
+inline uint32_t clamp_half(uint32_t ave, uint32_t c) {
+  uint32_t out = 0;
+  for (int s = 0; s < 32; s += 8) {
+    int a = (ave >> s) & 0xff, b = (c >> s) & 0xff;
+    out |= static_cast<uint32_t>(clip255(a + (a - b) / 2)) << s;
+  }
+  return out;
+}
+
+}  // namespace
+
+// The predictor transform's inverse, in place on (h, w) ARGB residuals,
+// with the modes of `bits`-sized tiles in the green of `modes`.
+extern "C" int64_t vp8l_unpredict(uint32_t* px, int32_t w, int32_t h,
+                                  const uint32_t* modes, int32_t bits) {
+  const int tiles = sub_sample(w, bits);
+  for (int y = 0; y < h; ++y) {
+    uint32_t* row = px + static_cast<int64_t>(y) * w;
+    const uint32_t* up = row - w;
+    for (int x = 0; x < w; ++x) {
+      uint32_t pred;
+      if (y == 0) {
+        pred = x == 0 ? 0xff000000u : row[x - 1];
+      } else if (x == 0) {
+        pred = up[0];
+      } else {
+        uint32_t L = row[x - 1], T = up[x], TL = up[x - 1], TR = up[x + 1];
+        int mode = (modes[(y >> bits) * tiles + (x >> bits)] >> 8) & 0xf;
+        switch (mode) {
+          case 1: pred = L; break;
+          case 2: pred = T; break;
+          case 3: pred = TR; break;
+          case 4: pred = TL; break;
+          case 5: pred = average2(average2(L, TR), T); break;
+          case 6: pred = average2(L, TL); break;
+          case 7: pred = average2(L, T); break;
+          case 8: pred = average2(TL, T); break;
+          case 9: pred = average2(T, TR); break;
+          case 10: pred = average2(average2(L, TL), average2(T, TR)); break;
+          case 11: pred = select_pred(T, L, TL); break;
+          case 12: pred = clamp_full(L, T, TL); break;
+          case 13: pred = clamp_half(average2(L, T), TL); break;
+          default: pred = 0xff000000u; break;
+        }
+      }
+      row[x] = add_pixels(row[x], pred);
+    }
+  }
+  return 0;
+}
+
+// The ALPH chunk's gradient filter, undone in place on (h, w) bytes.
+extern "C" int64_t alpha_ungradient(uint8_t* a, int32_t w, int32_t h) {
+  for (int x = 1; x < w; ++x) a[x] = static_cast<uint8_t>(a[x] + a[x - 1]);
+  for (int y = 1; y < h; ++y) {
+    uint8_t* row = a + static_cast<int64_t>(y) * w;
+    const uint8_t* prev = row - w;
+    int left = prev[0], top_left = prev[0];
+    for (int x = 0; x < w; ++x) {
+      int top = prev[x];
+      left = static_cast<uint8_t>(row[x] + clip255(left + top - top_left));
+      top_left = top;
+      row[x] = static_cast<uint8_t>(left);
+    }
+  }
+  return 0;
+}
+
+namespace {
+
+// RFC 6386 tables 13.5 (default token probabilities), 13.4 (their update
+// probabilities) and 11.5 (key-frame subblock mode probabilities, indexed
+// [above][left] in libwebp's mode order: DC, TM, VE, HE, RD, VR, LD, VL,
+// HD, HU)
+const uint8_t kCoeffsProba0[4 * 8 * 3 * 11] = {
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    253, 136, 254, 255, 228, 219, 128, 128, 128, 128, 128,
+    189, 129, 242, 255, 227, 213, 255, 219, 128, 128, 128,
+    106, 126, 227, 252, 214, 209, 255, 255, 128, 128, 128,
+    1, 98, 248, 255, 236, 226, 255, 255, 128, 128, 128,
+    181, 133, 238, 254, 221, 234, 255, 154, 128, 128, 128,
+    78, 134, 202, 247, 198, 180, 255, 219, 128, 128, 128,
+    1, 185, 249, 255, 243, 255, 128, 128, 128, 128, 128,
+    184, 150, 247, 255, 236, 224, 128, 128, 128, 128, 128,
+    77, 110, 216, 255, 236, 230, 128, 128, 128, 128, 128,
+    1, 101, 251, 255, 241, 255, 128, 128, 128, 128, 128,
+    170, 139, 241, 252, 236, 209, 255, 255, 128, 128, 128,
+    37, 116, 196, 243, 228, 255, 255, 255, 128, 128, 128,
+    1, 204, 254, 255, 245, 255, 128, 128, 128, 128, 128,
+    207, 160, 250, 255, 238, 128, 128, 128, 128, 128, 128,
+    102, 103, 231, 255, 211, 171, 128, 128, 128, 128, 128,
+    1, 152, 252, 255, 240, 255, 128, 128, 128, 128, 128,
+    177, 135, 243, 255, 234, 225, 128, 128, 128, 128, 128,
+    80, 129, 211, 255, 194, 224, 128, 128, 128, 128, 128,
+    1, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    246, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    255, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    198, 35, 237, 223, 193, 187, 162, 160, 145, 155, 62,
+    131, 45, 198, 221, 172, 176, 220, 157, 252, 221, 1,
+    68, 47, 146, 208, 149, 167, 221, 162, 255, 223, 128,
+    1, 149, 241, 255, 221, 224, 255, 255, 128, 128, 128,
+    184, 141, 234, 253, 222, 220, 255, 199, 128, 128, 128,
+    81, 99, 181, 242, 176, 190, 249, 202, 255, 255, 128,
+    1, 129, 232, 253, 214, 197, 242, 196, 255, 255, 128,
+    99, 121, 210, 250, 201, 198, 255, 202, 128, 128, 128,
+    23, 91, 163, 242, 170, 187, 247, 210, 255, 255, 128,
+    1, 200, 246, 255, 234, 255, 128, 128, 128, 128, 128,
+    109, 178, 241, 255, 231, 245, 255, 255, 128, 128, 128,
+    44, 130, 201, 253, 205, 192, 255, 255, 128, 128, 128,
+    1, 132, 239, 251, 219, 209, 255, 165, 128, 128, 128,
+    94, 136, 225, 251, 218, 190, 255, 255, 128, 128, 128,
+    22, 100, 174, 245, 186, 161, 255, 199, 128, 128, 128,
+    1, 182, 249, 255, 232, 235, 128, 128, 128, 128, 128,
+    124, 143, 241, 255, 227, 234, 128, 128, 128, 128, 128,
+    35, 77, 181, 251, 193, 211, 255, 205, 128, 128, 128,
+    1, 157, 247, 255, 236, 231, 255, 255, 128, 128, 128,
+    121, 141, 235, 255, 225, 227, 255, 255, 128, 128, 128,
+    45, 99, 188, 251, 195, 217, 255, 224, 128, 128, 128,
+    1, 1, 251, 255, 213, 255, 128, 128, 128, 128, 128,
+    203, 1, 248, 255, 255, 128, 128, 128, 128, 128, 128,
+    137, 1, 177, 255, 224, 255, 128, 128, 128, 128, 128,
+    253, 9, 248, 251, 207, 208, 255, 192, 128, 128, 128,
+    175, 13, 224, 243, 193, 185, 249, 198, 255, 255, 128,
+    73, 17, 171, 221, 161, 179, 236, 167, 255, 234, 128,
+    1, 95, 247, 253, 212, 183, 255, 255, 128, 128, 128,
+    239, 90, 244, 250, 211, 209, 255, 255, 128, 128, 128,
+    155, 77, 195, 248, 188, 195, 255, 255, 128, 128, 128,
+    1, 24, 239, 251, 218, 219, 255, 205, 128, 128, 128,
+    201, 51, 219, 255, 196, 186, 128, 128, 128, 128, 128,
+    69, 46, 190, 239, 201, 218, 255, 228, 128, 128, 128,
+    1, 191, 251, 255, 255, 128, 128, 128, 128, 128, 128,
+    223, 165, 249, 255, 213, 255, 128, 128, 128, 128, 128,
+    141, 124, 248, 255, 255, 128, 128, 128, 128, 128, 128,
+    1, 16, 248, 255, 255, 128, 128, 128, 128, 128, 128,
+    190, 36, 230, 255, 236, 255, 128, 128, 128, 128, 128,
+    149, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    1, 226, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    247, 192, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    240, 128, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    1, 134, 252, 255, 255, 128, 128, 128, 128, 128, 128,
+    213, 62, 250, 255, 255, 128, 128, 128, 128, 128, 128,
+    55, 93, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    202, 24, 213, 235, 186, 191, 220, 160, 240, 175, 255,
+    126, 38, 182, 232, 169, 184, 228, 174, 255, 187, 128,
+    61, 46, 138, 219, 151, 178, 240, 170, 255, 216, 128,
+    1, 112, 230, 250, 199, 191, 247, 159, 255, 255, 128,
+    166, 109, 228, 252, 211, 215, 255, 174, 128, 128, 128,
+    39, 77, 162, 232, 172, 180, 245, 178, 255, 255, 128,
+    1, 52, 220, 246, 198, 199, 249, 220, 255, 255, 128,
+    124, 74, 191, 243, 183, 193, 250, 221, 255, 255, 128,
+    24, 71, 130, 219, 154, 170, 243, 182, 255, 255, 128,
+    1, 182, 225, 249, 219, 240, 255, 224, 128, 128, 128,
+    149, 150, 226, 252, 216, 205, 255, 171, 128, 128, 128,
+    28, 108, 170, 242, 183, 194, 254, 223, 255, 255, 128,
+    1, 81, 230, 252, 204, 203, 255, 192, 128, 128, 128,
+    123, 102, 209, 247, 188, 196, 255, 233, 128, 128, 128,
+    20, 95, 153, 243, 164, 173, 255, 203, 128, 128, 128,
+    1, 222, 248, 255, 216, 213, 128, 128, 128, 128, 128,
+    168, 175, 246, 252, 235, 205, 255, 255, 128, 128, 128,
+    47, 116, 215, 255, 211, 212, 255, 255, 128, 128, 128,
+    1, 121, 236, 253, 212, 214, 255, 255, 128, 128, 128,
+    141, 84, 213, 252, 201, 202, 255, 219, 128, 128, 128,
+    42, 80, 160, 240, 162, 185, 255, 205, 128, 128, 128,
+    1, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    244, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    238, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+};
+
+const uint8_t kCoeffsUpdateProba[4 * 8 * 3 * 11] = {
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    176, 246, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    223, 241, 252, 255, 255, 255, 255, 255, 255, 255, 255,
+    249, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 244, 252, 255, 255, 255, 255, 255, 255, 255, 255,
+    234, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    253, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 246, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    239, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 248, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    251, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    251, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 254, 253, 255, 254, 255, 255, 255, 255, 255, 255,
+    250, 255, 254, 255, 254, 255, 255, 255, 255, 255, 255,
+    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    217, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    225, 252, 241, 253, 255, 255, 254, 255, 255, 255, 255,
+    234, 250, 241, 250, 253, 255, 253, 254, 255, 255, 255,
+    255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    223, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    238, 253, 254, 254, 255, 255, 255, 255, 255, 255, 255,
+    255, 248, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    249, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 253, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    247, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    252, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    253, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 254, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    250, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    186, 251, 250, 255, 255, 255, 255, 255, 255, 255, 255,
+    234, 251, 244, 254, 255, 255, 255, 255, 255, 255, 255,
+    251, 251, 243, 253, 254, 255, 254, 255, 255, 255, 255,
+    255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    236, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    251, 253, 253, 254, 254, 255, 255, 255, 255, 255, 255,
+    255, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    248, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    250, 254, 252, 254, 255, 255, 255, 255, 255, 255, 255,
+    248, 254, 249, 253, 255, 255, 255, 255, 255, 255, 255,
+    255, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    246, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    252, 254, 251, 254, 254, 255, 255, 255, 255, 255, 255,
+    255, 254, 252, 255, 255, 255, 255, 255, 255, 255, 255,
+    248, 254, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    253, 255, 254, 254, 255, 255, 255, 255, 255, 255, 255,
+    255, 251, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    245, 251, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    253, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 251, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    252, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 252, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    249, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    250, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+};
+
+const uint8_t kBModesProba[10 * 10 * 9] = {
+    231, 120, 48, 89, 115, 113, 120, 152, 112,
+    152, 179, 64, 126, 170, 118, 46, 70, 95,
+    175, 69, 143, 80, 85, 82, 72, 155, 103,
+    56, 58, 10, 171, 218, 189, 17, 13, 152,
+    114, 26, 17, 163, 44, 195, 21, 10, 173,
+    121, 24, 80, 195, 26, 62, 44, 64, 85,
+    144, 71, 10, 38, 171, 213, 144, 34, 26,
+    170, 46, 55, 19, 136, 160, 33, 206, 71,
+    63, 20, 8, 114, 114, 208, 12, 9, 226,
+    81, 40, 11, 96, 182, 84, 29, 16, 36,
+    134, 183, 89, 137, 98, 101, 106, 165, 148,
+    72, 187, 100, 130, 157, 111, 32, 75, 80,
+    66, 102, 167, 99, 74, 62, 40, 234, 128,
+    41, 53, 9, 178, 241, 141, 26, 8, 107,
+    74, 43, 26, 146, 73, 166, 49, 23, 157,
+    65, 38, 105, 160, 51, 52, 31, 115, 128,
+    104, 79, 12, 27, 217, 255, 87, 17, 7,
+    87, 68, 71, 44, 114, 51, 15, 186, 23,
+    47, 41, 14, 110, 182, 183, 21, 17, 194,
+    66, 45, 25, 102, 197, 189, 23, 18, 22,
+    88, 88, 147, 150, 42, 46, 45, 196, 205,
+    43, 97, 183, 117, 85, 38, 35, 179, 61,
+    39, 53, 200, 87, 26, 21, 43, 232, 171,
+    56, 34, 51, 104, 114, 102, 29, 93, 77,
+    39, 28, 85, 171, 58, 165, 90, 98, 64,
+    34, 22, 116, 206, 23, 34, 43, 166, 73,
+    107, 54, 32, 26, 51, 1, 81, 43, 31,
+    68, 25, 106, 22, 64, 171, 36, 225, 114,
+    34, 19, 21, 102, 132, 188, 16, 76, 124,
+    62, 18, 78, 95, 85, 57, 50, 48, 51,
+    193, 101, 35, 159, 215, 111, 89, 46, 111,
+    60, 148, 31, 172, 219, 228, 21, 18, 111,
+    112, 113, 77, 85, 179, 255, 38, 120, 114,
+    40, 42, 1, 196, 245, 209, 10, 25, 109,
+    88, 43, 29, 140, 166, 213, 37, 43, 154,
+    61, 63, 30, 155, 67, 45, 68, 1, 209,
+    100, 80, 8, 43, 154, 1, 51, 26, 71,
+    142, 78, 78, 16, 255, 128, 34, 197, 171,
+    41, 40, 5, 102, 211, 183, 4, 1, 221,
+    51, 50, 17, 168, 209, 192, 23, 25, 82,
+    138, 31, 36, 171, 27, 166, 38, 44, 229,
+    67, 87, 58, 169, 82, 115, 26, 59, 179,
+    63, 59, 90, 180, 59, 166, 93, 73, 154,
+    40, 40, 21, 116, 143, 209, 34, 39, 175,
+    47, 15, 16, 183, 34, 223, 49, 45, 183,
+    46, 17, 33, 183, 6, 98, 15, 32, 183,
+    57, 46, 22, 24, 128, 1, 54, 17, 37,
+    65, 32, 73, 115, 28, 128, 23, 128, 205,
+    40, 3, 9, 115, 51, 192, 18, 6, 223,
+    87, 37, 9, 115, 59, 77, 64, 21, 47,
+    104, 55, 44, 218, 9, 54, 53, 130, 226,
+    64, 90, 70, 205, 40, 41, 23, 26, 57,
+    54, 57, 112, 184, 5, 41, 38, 166, 213,
+    30, 34, 26, 133, 152, 116, 10, 32, 134,
+    39, 19, 53, 221, 26, 114, 32, 73, 255,
+    31, 9, 65, 234, 2, 15, 1, 118, 73,
+    75, 32, 12, 51, 192, 255, 160, 43, 51,
+    88, 31, 35, 67, 102, 85, 55, 186, 85,
+    56, 21, 23, 111, 59, 205, 45, 37, 192,
+    55, 38, 70, 124, 73, 102, 1, 34, 98,
+    125, 98, 42, 88, 104, 85, 117, 175, 82,
+    95, 84, 53, 89, 128, 100, 113, 101, 45,
+    75, 79, 123, 47, 51, 128, 81, 171, 1,
+    57, 17, 5, 71, 102, 57, 53, 41, 49,
+    38, 33, 13, 121, 57, 73, 26, 1, 85,
+    41, 10, 67, 138, 77, 110, 90, 47, 114,
+    115, 21, 2, 10, 102, 255, 166, 23, 6,
+    101, 29, 16, 10, 85, 128, 101, 196, 26,
+    57, 18, 10, 102, 102, 213, 34, 20, 43,
+    117, 20, 15, 36, 163, 128, 68, 1, 26,
+    102, 61, 71, 37, 34, 53, 31, 243, 192,
+    69, 60, 71, 38, 73, 119, 28, 222, 37,
+    68, 45, 128, 34, 1, 47, 11, 245, 171,
+    62, 17, 19, 70, 146, 85, 55, 62, 70,
+    37, 43, 37, 154, 100, 163, 85, 160, 1,
+    63, 9, 92, 136, 28, 64, 32, 201, 85,
+    75, 15, 9, 9, 64, 255, 184, 119, 16,
+    86, 6, 28, 5, 64, 255, 25, 248, 1,
+    56, 8, 17, 132, 137, 255, 55, 116, 128,
+    58, 15, 20, 82, 135, 57, 26, 121, 40,
+    164, 50, 31, 137, 154, 133, 25, 35, 218,
+    51, 103, 44, 131, 131, 123, 31, 6, 158,
+    86, 40, 64, 135, 148, 224, 45, 183, 128,
+    22, 26, 17, 131, 240, 154, 14, 1, 209,
+    45, 16, 21, 91, 64, 222, 7, 1, 197,
+    56, 21, 39, 155, 60, 138, 23, 102, 213,
+    83, 12, 13, 54, 192, 255, 68, 47, 28,
+    85, 26, 85, 85, 128, 128, 32, 146, 171,
+    18, 11, 7, 63, 144, 171, 4, 4, 246,
+    35, 27, 10, 146, 174, 171, 12, 26, 128,
+    190, 80, 35, 99, 180, 80, 126, 54, 45,
+    85, 126, 47, 87, 176, 51, 41, 20, 32,
+    101, 75, 128, 139, 118, 146, 116, 128, 85,
+    56, 41, 15, 176, 236, 85, 37, 9, 62,
+    71, 30, 17, 119, 118, 255, 17, 18, 138,
+    101, 38, 60, 138, 55, 70, 43, 26, 142,
+    146, 36, 19, 30, 171, 255, 97, 27, 20,
+    138, 45, 61, 62, 219, 1, 81, 188, 64,
+    32, 41, 20, 117, 151, 142, 20, 21, 163,
+    112, 19, 12, 61, 195, 128, 48, 4, 24,
+};
+
+const uint8_t kDcTable[128] = {
+    4, 5, 6, 7, 8, 9, 10, 10, 11, 12, 13, 14, 15, 16, 17, 17,
+    18, 19, 20, 20, 21, 21, 22, 22, 23, 23, 24, 25, 25, 26, 27, 28,
+    29, 30, 31, 32, 33, 34, 35, 36, 37, 37, 38, 39, 40, 41, 42, 43,
+    44, 45, 46, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58,
+    59, 60, 61, 62, 63, 64, 65, 66, 67, 68, 69, 70, 71, 72, 73, 74,
+    75, 76, 76, 77, 78, 79, 80, 81, 82, 83, 84, 85, 86, 87, 88, 89,
+    91, 93, 95, 96, 98, 100, 101, 102, 104, 106, 108, 110, 112, 114, 116,
+    118, 122, 124, 126, 128, 130, 132, 134, 136, 138, 140, 143, 145, 148,
+    151, 154, 157};
+const uint16_t kAcTable[128] = {
+    4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
+    20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35,
+    36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 47, 48, 49, 50, 51,
+    52, 53, 54, 55, 56, 57, 58, 60, 62, 64, 66, 68, 70, 72, 74, 76,
+    78, 80, 82, 84, 86, 88, 90, 92, 94, 96, 98, 100, 102, 104, 106, 108,
+    110, 112, 114, 116, 119, 122, 125, 128, 131, 134, 137, 140, 143, 146,
+    149, 152, 155, 158, 161, 164, 167, 170, 173, 177, 181, 185, 189, 193,
+    197, 201, 205, 209, 213, 217, 221, 225, 229, 234, 239, 245, 249, 254,
+    259, 264, 269, 274, 279, 284};
+const int8_t kYModesIntra4[18] = {0, 1, -1, 2, -2, 3, 4, 6, -3, 5,
+                                  -4, -5, -6, 7, -7, 8, -8, -9};
+const uint8_t kBands[17] = {0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7,
+                            0};
+const uint8_t kZigzag[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11,
+                             14, 15};
+const uint8_t kCat3[] = {173, 148, 140, 0};
+const uint8_t kCat4[] = {176, 155, 140, 135, 0};
+const uint8_t kCat5[] = {180, 157, 141, 134, 130, 0};
+const uint8_t kCat6[] = {254, 254, 243, 230, 196, 177, 153, 140, 133, 130,
+                         129, 0};
+const uint8_t* const kCat3456[] = {kCat3, kCat4, kCat5, kCat6};
+
+// RFC 6386's boolean decoder. `eof` is set when a decision needs bits past
+// the end of the partition, where libwebp's reader sets its own.
+struct BoolDec {
+  const uint8_t* p = nullptr;
+  int64_t n = 0, pos = 0, shifts = 0;
+  uint32_t value = 0;
+  uint32_t range = 255;
+  int bit_count = 0;
+  bool eof = false;
+  void init(const uint8_t* data, int64_t size) {
+    p = data;
+    n = size;
+    pos = 0;
+    value = (static_cast<uint32_t>(next()) << 8) | next();
+  }
+  uint8_t next() { return pos < n ? p[pos++] : (++pos, 0); }
+  int get(int prob) {
+    if (shifts > 8 * (n - 1)) eof = true;
+    uint32_t split = 1 + (((range - 1) * static_cast<uint32_t>(prob)) >> 8);
+    uint32_t big = split << 8;
+    int bit;
+    if (value >= big) {
+      bit = 1;
+      range -= split;
+      value -= big;
+    } else {
+      bit = 0;
+      range = split;
+    }
+    while (range < 128) {
+      value <<= 1;
+      range <<= 1;
+      ++shifts;
+      if (++bit_count == 8) {
+        bit_count = 0;
+        value |= next();
+      }
+    }
+    return bit;
+  }
+  int value_bits(int bits) {
+    int v = 0;
+    while (bits-- > 0) v |= get(0x80) << bits;
+    return v;
+  }
+  int signed_value(int bits) {
+    int v = value_bits(bits);
+    return get(0x80) ? -v : v;
+  }
+};
+
+inline int clip_q(int v, int m) { return v < 0 ? 0 : v > m ? m : v; }
+
+int large_value(BoolDec& br, const uint8_t* p) {
+  int v;
+  if (!br.get(p[3])) {
+    v = !br.get(p[4]) ? 2 : 3 + br.get(p[5]);
+  } else if (!br.get(p[6])) {
+    if (!br.get(p[7])) {
+      v = 5 + br.get(159);
+    } else {
+      v = 7 + 2 * br.get(165);
+      v += br.get(145);
+    }
+  } else {
+    int bit1 = br.get(p[8]);
+    int bit0 = br.get(p[9 + bit1]);
+    int cat = 2 * bit1 + bit0;
+    v = 0;
+    for (const uint8_t* tab = kCat3456[cat]; *tab; ++tab)
+      v += v + br.get(*tab);
+    v += 3 + (8 << cat);
+  }
+  return v;
+}
+
+// GetCoeffs: the tokens of one 4x4 block from coefficient `n`, dequantized
+// into `out` (raster order); → the index after the last one read.
+int block_coeffs(BoolDec& br, const uint8_t (*prob)[3][11], int ctx,
+                 const int* dq, int n, int16_t* out) {
+  const uint8_t* p = prob[kBands[n]][ctx];
+  for (; n < 16; ++n) {
+    if (!br.get(p[0])) return n;
+    while (!br.get(p[1])) {
+      p = prob[kBands[++n]][0];
+      if (n == 16) return 16;
+    }
+    int v;
+    const uint8_t(*next)[11] = prob[kBands[n + 1]];
+    if (!br.get(p[2])) {
+      v = 1;
+      p = next[1];
+    } else {
+      v = large_value(br, p);
+      p = next[2];
+    }
+    int s = br.get(0x80) ? -v : v;
+    out[kZigzag[n]] = static_cast<int16_t>(s * dq[n > 0]);
+  }
+  return 16;
+}
+
+}  // namespace
+
+// A VP8 key frame (the payload of a VP8 chunk): headers, intra modes and
+// dequantized coefficients. `info` (int32, 64): [0] width, [1] height,
+// [2] macroblock columns, [3] rows, [4] filter type (0 none, 1 simple, 2
+// normal), then from [8] per segment s and inner flag i at 8 + 6s + 3i:
+// limit, interior limit, hev threshold (libwebp's precomputed filter
+// strengths). `mb` (uint8, 20 per macroblock): is_i4x4, uv mode,
+// segment, has coefficients, the 16 subblock modes (or the 16x16 mode).
+// `coeffs` (int16, 400 per macroblock): 16 Y, 4 U, 4 V blocks and the Y2
+// block, 16 each. "has coefficients" leaves out the Y2 block, whose
+// inverse WHT decides it for a 16x16 macroblock (libwebp's skip test).
+// → 0, or -1 (bad header), -2 (data ends early), -3 (not
+// a key frame or not shown).
+extern "C" int64_t vp8_parse(const uint8_t* src, int64_t n, int32_t* info,
+                             uint8_t* mb, int16_t* coeffs, int64_t max_mb) {
+  if (n < 10) return -2;
+  uint32_t bits = src[0] | (src[1] << 8) | (src[2] << 16);
+  bool key = !(bits & 1);
+  int profile = (bits >> 1) & 7, show = (bits >> 4) & 1;
+  int64_t part0 = bits >> 5;
+  if (!key || profile > 3 || !show) return -3;
+  if (src[3] != 0x9d || src[4] != 0x01 || src[5] != 0x2a) return -1;
+  int w = (src[6] | (src[7] << 8)) & 0x3fff;
+  int h = (src[8] | (src[9] << 8)) & 0x3fff;
+  const int mbw = (w + 15) >> 4, mbh = (h + 15) >> 4;
+  if (w == 0 || h == 0 || static_cast<int64_t>(mbw) * mbh > max_mb)
+    return -1;
+  const uint8_t* buf = src + 10;
+  int64_t left = n - 10;
+  if (part0 > left) return -2;
+  BoolDec br;
+  br.init(buf, part0);
+  buf += part0;
+  left -= part0;
+  br.value_bits(1);  // colour space
+  br.value_bits(1);  // clamping type
+  // segment header
+  int use_segment = br.value_bits(1), update_map = 0, absolute = 1;
+  int quant[4] = {0}, fstrength[4] = {0};
+  int seg_proba[3] = {255, 255, 255};
+  if (use_segment) {
+    update_map = br.value_bits(1);
+    if (br.value_bits(1)) {
+      absolute = br.value_bits(1);
+      for (int s = 0; s < 4; ++s)
+        quant[s] = br.value_bits(1) ? br.signed_value(7) : 0;
+      for (int s = 0; s < 4; ++s)
+        fstrength[s] = br.value_bits(1) ? br.signed_value(6) : 0;
+    }
+    if (update_map)
+      for (int s = 0; s < 3; ++s)
+        seg_proba[s] = br.value_bits(1) ? br.value_bits(8) : 255;
+  }
+  // filter header
+  int simple = br.value_bits(1), level = br.value_bits(6);
+  int sharpness = br.value_bits(3), use_lf_delta = br.value_bits(1);
+  int ref_lf_delta0 = 0, mode_lf_delta0 = 0;
+  if (use_lf_delta && br.value_bits(1)) {
+    for (int i = 0; i < 4; ++i)
+      if (br.value_bits(1)) {
+        int v = br.signed_value(6);
+        if (i == 0) ref_lf_delta0 = v;
+      }
+    for (int i = 0; i < 4; ++i)
+      if (br.value_bits(1)) {
+        int v = br.signed_value(6);
+        if (i == 0) mode_lf_delta0 = v;
+      }
+  }
+  const int filter_type = level == 0 ? 0 : simple ? 1 : 2;
+  if (br.eof) return -2;
+  // partitions
+  const int nparts = 1 << br.value_bits(2);
+  if (left < 3 * (nparts - 1)) return -2;
+  BoolDec parts[8];
+  {
+    const uint8_t* sz = buf;
+    const uint8_t* start = buf + 3 * (nparts - 1);
+    int64_t size_left = left - 3 * (nparts - 1);
+    for (int p = 0; p < nparts - 1; ++p) {
+      int64_t psize = sz[0] | (sz[1] << 8) | (sz[2] << 16);
+      if (psize > size_left) psize = size_left;
+      parts[p].init(start, psize);
+      start += psize;
+      size_left -= psize;
+      sz += 3;
+    }
+    parts[nparts - 1].init(start, size_left);
+    if (start >= buf + left) return -2;
+  }
+  // quantizers
+  int dqm[4][6];
+  {
+    const int base = br.value_bits(7);
+    int d[5];
+    for (int i = 0; i < 5; ++i)
+      d[i] = br.value_bits(1) ? br.signed_value(4) : 0;
+    for (int s = 0; s < 4; ++s) {
+      int q;
+      if (use_segment) {
+        q = quant[s] + (absolute ? 0 : base);
+      } else {
+        if (s > 0) {
+          std::memcpy(dqm[s], dqm[0], sizeof(dqm[0]));
+          continue;
+        }
+        q = base;
+      }
+      int* m = dqm[s];
+      m[0] = kDcTable[clip_q(q + d[0], 127)];
+      m[1] = kAcTable[clip_q(q, 127)];
+      m[2] = kDcTable[clip_q(q + d[1], 127)] * 2;
+      m[3] = (kAcTable[clip_q(q + d[2], 127)] * 101581) >> 16;
+      if (m[3] < 8) m[3] = 8;
+      m[4] = kDcTable[clip_q(q + d[3], 117)];
+      m[5] = kAcTable[clip_q(q + d[4], 127)];
+    }
+  }
+  br.value_bits(1);  // update_proba, ignored for key frames
+  uint8_t proba[4][8][3][11];
+  for (int t = 0; t < 4; ++t)
+    for (int b = 0; b < 8; ++b)
+      for (int c = 0; c < 3; ++c)
+        for (int p = 0; p < 11; ++p) {
+          int i = ((t * 8 + b) * 3 + c) * 11 + p;
+          proba[t][b][c][p] = static_cast<uint8_t>(
+              br.get(kCoeffsUpdateProba[i]) ? br.value_bits(8)
+                                            : kCoeffsProba0[i]);
+        }
+  const int use_skip = br.value_bits(1);
+  const int skip_p = use_skip ? br.value_bits(8) : 0;
+  if (br.eof) return -2;
+  // filter strengths (PrecomputeFilterStrengths)
+  info[0] = w;
+  info[1] = h;
+  info[2] = mbw;
+  info[3] = mbh;
+  info[4] = filter_type;
+  for (int s = 0; s < 4; ++s) {
+    int base_level = use_segment
+        ? fstrength[s] + (absolute ? 0 : level) : level;
+    for (int i4 = 0; i4 <= 1; ++i4) {
+      int lv = base_level;
+      if (use_lf_delta) {
+        lv += ref_lf_delta0;
+        if (i4) lv += mode_lf_delta0;
+      }
+      lv = lv < 0 ? 0 : lv > 63 ? 63 : lv;
+      int32_t* f = info + 8 + 6 * s + 3 * i4;
+      if (lv > 0) {
+        int ilevel = lv;
+        if (sharpness > 0) {
+          ilevel >>= sharpness > 4 ? 2 : 1;
+          if (ilevel > 9 - sharpness) ilevel = 9 - sharpness;
+        }
+        if (ilevel < 1) ilevel = 1;
+        f[0] = 2 * lv + ilevel;
+        f[1] = ilevel;
+        f[2] = lv >= 40 ? 2 : lv >= 15 ? 1 : 0;
+      } else {
+        f[0] = f[1] = f[2] = 0;
+      }
+    }
+  }
+  // macroblocks
+  std::vector<uint8_t> intra_t(static_cast<size_t>(4 * mbw), 0);
+  std::vector<uint8_t> nz_top(static_cast<size_t>(mbw), 0);
+  std::vector<uint8_t> nzdc_top(static_cast<size_t>(mbw), 0);
+  std::memset(coeffs, 0, sizeof(int16_t) * 400 * mbw * mbh);
+  for (int y = 0; y < mbh; ++y) {
+    uint8_t intra_l[4] = {0, 0, 0, 0};
+    uint8_t nz_left = 0, nzdc_left = 0;
+    BoolDec& tok = parts[y & (nparts - 1)];
+    for (int x = 0; x < mbw; ++x) {
+      uint8_t* m = mb + 20 * (static_cast<int64_t>(y) * mbw + x);
+      int16_t* c = coeffs + 400 * (static_cast<int64_t>(y) * mbw + x);
+      int segment = update_map
+          ? (!br.get(seg_proba[0]) ? br.get(seg_proba[1])
+                                   : br.get(seg_proba[2]) + 2)
+          : 0;
+      int skip = use_skip ? br.get(skip_p) : 0;
+      int is_i4 = !br.get(145);
+      uint8_t* top = intra_t.data() + 4 * x;
+      if (!is_i4) {
+        int ymode = br.get(156) ? (br.get(128) ? 1 : 3)
+                                : (br.get(163) ? 2 : 0);
+        std::memset(m + 4, ymode, 16);
+        std::memset(top, ymode, 4);
+        std::memset(intra_l, ymode, 4);
+      } else {
+        for (int yy = 0; yy < 4; ++yy) {
+          int ymode = intra_l[yy];
+          for (int xx = 0; xx < 4; ++xx) {
+            const uint8_t* prob = kBModesProba + (top[xx] * 10 + ymode) * 9;
+            int i = kYModesIntra4[br.get(prob[0])];
+            while (i > 0) i = kYModesIntra4[2 * i + br.get(prob[i])];
+            ymode = -i;
+            top[xx] = static_cast<uint8_t>(ymode);
+            m[4 + yy * 4 + xx] = static_cast<uint8_t>(ymode);
+          }
+          intra_l[yy] = static_cast<uint8_t>(ymode);
+        }
+      }
+      int uvmode = !br.get(142) ? 0 : !br.get(114) ? 2 : br.get(183) ? 1 : 3;
+      m[0] = static_cast<uint8_t>(is_i4);
+      m[1] = static_cast<uint8_t>(uvmode);
+      m[2] = static_cast<uint8_t>(segment);
+      // residuals (ParseResiduals)
+      const int* q = dqm[segment];
+      bool any = false;
+      if (!skip) {
+        int first;
+        const uint8_t(*ac)[3][11];
+        if (!is_i4) {
+          int ctx = nzdc_top[x] + nzdc_left;
+          int nz = block_coeffs(tok, proba[1], ctx, q + 2, 0, c + 384);
+          nzdc_top[x] = nzdc_left = nz > 0;
+          first = 1;
+          ac = proba[0];
+        } else {
+          first = 0;
+          ac = proba[3];
+        }
+        uint8_t tnz = nz_top[x] & 0x0f, lnz = nz_left & 0x0f;
+        for (int yy = 0; yy < 4; ++yy) {
+          int l = lnz & 1;
+          for (int xx = 0; xx < 4; ++xx) {
+            int ctx = l + (tnz & 1);
+            int16_t* blk = c + 16 * (yy * 4 + xx);
+            int nz = block_coeffs(tok, ac, ctx, q, first, blk);
+            l = nz > first;
+            tnz = static_cast<uint8_t>((tnz >> 1) | (l << 7));
+            any |= nz > first;
+          }
+          tnz >>= 4;
+          lnz = static_cast<uint8_t>((lnz >> 1) | (l << 7));
+        }
+        uint32_t out_t = tnz, out_l = lnz >> 4;
+        for (int ch = 0; ch < 4; ch += 2) {
+          uint32_t t = nz_top[x] >> (4 + ch), ll = nz_left >> (4 + ch);
+          for (int yy = 0; yy < 2; ++yy) {
+            int l = ll & 1;
+            for (int xx = 0; xx < 2; ++xx) {
+              int ctx = l + (t & 1);
+              int16_t* blk = c + 256 + 16 * (2 * ch + yy * 2 + xx);
+              int nz = block_coeffs(tok, proba[2], ctx, q + 4, 0, blk);
+              l = nz > 0;
+              t = (t >> 1) | (l << 3);
+              any |= nz > 0;
+            }
+            t >>= 2;
+            ll = (ll >> 1) | (l << 5);
+          }
+          out_t |= (t << 4) << ch;
+          out_l |= (ll & 0xf0) << ch;
+        }
+        nz_top[x] = static_cast<uint8_t>(out_t);
+        nz_left = static_cast<uint8_t>(out_l);
+      } else {
+        nz_top[x] = nz_left = 0;
+        if (!is_i4) nzdc_top[x] = nzdc_left = 0;
+      }
+      m[3] = static_cast<uint8_t>(any);
+      if (tok.eof) return -2;
+    }
+    if (br.eof) return -2;
+  }
+  return 0;
+}
+
+namespace {
+
+constexpr int BPS = 32;  // libwebp's work-buffer stride
+
+inline uint8_t clip8(int v) {
+  return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v);
+}
+inline uint8_t avg3(int a, int b, int c) {
+  return static_cast<uint8_t>((a + 2 * b + c + 2) >> 2);
+}
+inline uint8_t avg2(int a, int b) {
+  return static_cast<uint8_t>((a + b + 1) >> 1);
+}
+
+void true_motion(uint8_t* dst, int size) {
+  const uint8_t* top = dst - BPS;
+  for (int y = 0; y < size; ++y)
+    for (int x = 0; x < size; ++x)
+      dst[y * BPS + x] = clip8(top[x] + dst[y * BPS - 1] - top[-1]);
+}
+
+void fill(uint8_t* dst, int size, int v) {
+  for (int y = 0; y < size; ++y) std::memset(dst + y * BPS, v, size);
+}
+
+// 16x16 luma and 8x8 chroma: DC (with libwebp's edge variants), TM, V, H
+void predict_block(uint8_t* dst, int size, int mode, int mb_x, int mb_y) {
+  const int shift = size == 16 ? 5 : 4;
+  if (mode == 0) {
+    int dc = 0;
+    if (mb_x > 0 && mb_y > 0) {
+      for (int i = 0; i < size; ++i) dc += dst[i - BPS] + dst[-1 + i * BPS];
+      fill(dst, size, (dc + size) >> shift);
+    } else if (mb_y > 0) {  // no left
+      for (int i = 0; i < size; ++i) dc += dst[i - BPS];
+      fill(dst, size, (dc + size / 2) >> (shift - 1));
+    } else if (mb_x > 0) {  // no top
+      for (int i = 0; i < size; ++i) dc += dst[-1 + i * BPS];
+      fill(dst, size, (dc + size / 2) >> (shift - 1));
+    } else {
+      fill(dst, size, 0x80);
+    }
+  } else if (mode == 1) {
+    true_motion(dst, size);
+  } else if (mode == 2) {
+    for (int y = 0; y < size; ++y) std::memcpy(dst + y * BPS, dst - BPS, size);
+  } else {
+    for (int y = 0; y < size; ++y)
+      std::memset(dst + y * BPS, dst[y * BPS - 1], size);
+  }
+}
+
+#define DST(x, y) dst[(x) + (y) * BPS]
+void predict4(uint8_t* dst, int mode) {
+  const uint8_t* top = dst - BPS;
+  const int I = dst[-1], J = dst[-1 + BPS], K = dst[-1 + 2 * BPS],
+            L = dst[-1 + 3 * BPS], X = top[-1], A = top[0], B = top[1],
+            C = top[2], D = top[3], E = top[4], F = top[5], G = top[6],
+            H = top[7];
+  switch (mode) {
+    case 0: {  // DC
+      int dc = 4;
+      for (int i = 0; i < 4; ++i) dc += top[i] + dst[-1 + i * BPS];
+      fill(dst, 4, dc >> 3);
+      break;
+    }
+    case 1: true_motion(dst, 4); break;
+    case 2: {  // VE
+      uint8_t v[4] = {avg3(X, A, B), avg3(A, B, C), avg3(B, C, D),
+                      avg3(C, D, E)};
+      for (int y = 0; y < 4; ++y) std::memcpy(dst + y * BPS, v, 4);
+      break;
+    }
+    case 3: {  // HE
+      uint8_t v[4] = {avg3(X, I, J), avg3(I, J, K), avg3(J, K, L),
+                      avg3(K, L, L)};
+      for (int y = 0; y < 4; ++y) std::memset(dst + y * BPS, v[y], 4);
+      break;
+    }
+    case 4:  // RD
+      DST(0, 3) = avg3(J, K, L);
+      DST(1, 3) = DST(0, 2) = avg3(I, J, K);
+      DST(2, 3) = DST(1, 2) = DST(0, 1) = avg3(X, I, J);
+      DST(3, 3) = DST(2, 2) = DST(1, 1) = DST(0, 0) = avg3(A, X, I);
+      DST(3, 2) = DST(2, 1) = DST(1, 0) = avg3(B, A, X);
+      DST(3, 1) = DST(2, 0) = avg3(C, B, A);
+      DST(3, 0) = avg3(D, C, B);
+      break;
+    case 5:  // VR
+      DST(0, 0) = DST(1, 2) = avg2(X, A);
+      DST(1, 0) = DST(2, 2) = avg2(A, B);
+      DST(2, 0) = DST(3, 2) = avg2(B, C);
+      DST(3, 0) = avg2(C, D);
+      DST(0, 3) = avg3(K, J, I);
+      DST(0, 2) = avg3(J, I, X);
+      DST(0, 1) = DST(1, 3) = avg3(I, X, A);
+      DST(1, 1) = DST(2, 3) = avg3(X, A, B);
+      DST(2, 1) = DST(3, 3) = avg3(A, B, C);
+      DST(3, 1) = avg3(B, C, D);
+      break;
+    case 6:  // LD
+      DST(0, 0) = avg3(A, B, C);
+      DST(1, 0) = DST(0, 1) = avg3(B, C, D);
+      DST(2, 0) = DST(1, 1) = DST(0, 2) = avg3(C, D, E);
+      DST(3, 0) = DST(2, 1) = DST(1, 2) = DST(0, 3) = avg3(D, E, F);
+      DST(3, 1) = DST(2, 2) = DST(1, 3) = avg3(E, F, G);
+      DST(3, 2) = DST(2, 3) = avg3(F, G, H);
+      DST(3, 3) = avg3(G, H, H);
+      break;
+    case 7:  // VL
+      DST(0, 0) = avg2(A, B);
+      DST(1, 0) = DST(0, 2) = avg2(B, C);
+      DST(2, 0) = DST(1, 2) = avg2(C, D);
+      DST(3, 0) = DST(2, 2) = avg2(D, E);
+      DST(0, 1) = avg3(A, B, C);
+      DST(1, 1) = DST(0, 3) = avg3(B, C, D);
+      DST(2, 1) = DST(1, 3) = avg3(C, D, E);
+      DST(3, 1) = DST(2, 3) = avg3(D, E, F);
+      DST(3, 2) = avg3(E, F, G);
+      DST(3, 3) = avg3(F, G, H);
+      break;
+    case 8:  // HD
+      DST(0, 0) = DST(2, 1) = avg2(I, X);
+      DST(0, 1) = DST(2, 2) = avg2(J, I);
+      DST(0, 2) = DST(2, 3) = avg2(K, J);
+      DST(0, 3) = avg2(L, K);
+      DST(3, 0) = avg3(A, B, C);
+      DST(2, 0) = avg3(X, A, B);
+      DST(1, 0) = DST(3, 1) = avg3(I, X, A);
+      DST(1, 1) = DST(3, 2) = avg3(J, I, X);
+      DST(1, 2) = DST(3, 3) = avg3(K, J, I);
+      DST(1, 3) = avg3(L, K, J);
+      break;
+    default:  // HU
+      DST(0, 0) = avg2(I, J);
+      DST(2, 0) = DST(0, 1) = avg2(J, K);
+      DST(2, 1) = DST(0, 2) = avg2(K, L);
+      DST(1, 0) = avg3(I, J, K);
+      DST(3, 0) = DST(1, 1) = avg3(J, K, L);
+      DST(3, 1) = DST(1, 2) = avg3(K, L, L);
+      DST(3, 2) = DST(2, 2) = DST(0, 3) = DST(1, 3) = DST(2, 3) =
+          DST(3, 3) = static_cast<uint8_t>(L);
+      break;
+  }
+}
+#undef DST
+
+// one 4x4 block of residuals added and clipped (TransformOne's STORE)
+void add_residual(uint8_t* dst, const int16_t* r) {
+  for (int y = 0; y < 4; ++y)
+    for (int x = 0; x < 4; ++x)
+      dst[y * BPS + x] = clip8(dst[y * BPS + x] + r[y * 4 + x]);
+}
+
+// ---- loop filters (dsp/dec.c)
+inline int sclip1(int v) { return v < -128 ? -128 : v > 127 ? 127 : v; }
+inline int sclip2(int v) { return v < -16 ? -16 : v > 15 ? 15 : v; }
+
+inline void do_filter2(uint8_t* p, int step) {
+  const int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
+  const int a = 3 * (q0 - p0) + sclip1(p1 - q1);
+  const int a1 = sclip2((a + 4) >> 3), a2 = sclip2((a + 3) >> 3);
+  p[-step] = clip8(p0 + a2);
+  p[0] = clip8(q0 - a1);
+}
+inline void do_filter4(uint8_t* p, int step) {
+  const int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
+  const int a = 3 * (q0 - p0);
+  const int a1 = sclip2((a + 4) >> 3), a2 = sclip2((a + 3) >> 3);
+  const int a3 = (a1 + 1) >> 1;
+  p[-2 * step] = clip8(p1 + a3);
+  p[-step] = clip8(p0 + a2);
+  p[0] = clip8(q0 - a1);
+  p[step] = clip8(q1 - a3);
+}
+inline void do_filter6(uint8_t* p, int step) {
+  const int p2 = p[-3 * step], p1 = p[-2 * step], p0 = p[-step];
+  const int q0 = p[0], q1 = p[step], q2 = p[2 * step];
+  const int a = sclip1(3 * (q0 - p0) + sclip1(p1 - q1));
+  const int a1 = (27 * a + 63) >> 7, a2 = (18 * a + 63) >> 7,
+            a3 = (9 * a + 63) >> 7;
+  p[-3 * step] = clip8(p2 + a3);
+  p[-2 * step] = clip8(p1 + a2);
+  p[-step] = clip8(p0 + a1);
+  p[0] = clip8(q0 - a1);
+  p[step] = clip8(q1 - a2);
+  p[2 * step] = clip8(q2 - a3);
+}
+inline bool hev(const uint8_t* p, int step, int t) {
+  return std::abs(p[-2 * step] - p[-step]) > t ||
+         std::abs(p[step] - p[0]) > t;
+}
+inline bool needs_filter(const uint8_t* p, int step, int t) {
+  return 4 * std::abs(p[-step] - p[0]) + std::abs(p[-2 * step] - p[step]) <=
+         t;
+}
+inline bool needs_filter2(const uint8_t* p, int step, int t, int it) {
+  const int p3 = p[-4 * step], p2 = p[-3 * step], p1 = p[-2 * step];
+  const int p0 = p[-step], q0 = p[0], q1 = p[step], q2 = p[2 * step],
+            q3 = p[3 * step];
+  if (4 * std::abs(p0 - q0) + std::abs(p1 - q1) > t) return false;
+  return std::abs(p3 - p2) <= it && std::abs(p2 - p1) <= it &&
+         std::abs(p1 - p0) <= it && std::abs(q3 - q2) <= it &&
+         std::abs(q2 - q1) <= it && std::abs(q1 - q0) <= it;
+}
+// `hstride` across the edge, `vstride` along it
+void simple_edge(uint8_t* p, int hstride, int vstride, int thresh) {
+  const int t2 = 2 * thresh + 1;
+  for (int i = 0; i < 16; ++i, p += vstride)
+    if (needs_filter(p, hstride, t2)) do_filter2(p, hstride);
+}
+void complex_edge(uint8_t* p, int hstride, int vstride, int size, int thresh,
+                  int ithresh, int hev_t, bool mb_edge) {
+  const int t2 = 2 * thresh + 1;
+  for (int i = 0; i < size; ++i, p += vstride)
+    if (needs_filter2(p, hstride, t2, ithresh)) {
+      if (hev(p, hstride, hev_t))
+        do_filter2(p, hstride);
+      else if (mb_edge)
+        do_filter6(p, hstride);
+      else
+        do_filter4(p, hstride);
+    }
+}
+
+}  // namespace
+
+// Reconstruct a parsed VP8 key frame into its planes (Y of mbh*16 rows of
+// mbw*16, U and V of mbh*8 rows of mbw*8): each macroblock predicted from
+// its unfiltered neighbours with libwebp's borders (127 above the frame,
+// 129 left of it), `resid` (int16, 384 per macroblock: the inverse
+// transforms' outputs) added, and then the loop filter over the frame in
+// macroblock order (DoFilter). `mb` and `info` as vp8_parse gives them.
+extern "C" int64_t vp8_reconstruct(const int32_t* info, const uint8_t* mb,
+                                   const int16_t* resid, uint8_t* Y,
+                                   uint8_t* U, uint8_t* V) {
+  const int mbw = info[2], mbh = info[3], ftype = info[4];
+  const int ys = mbw * 16, uvs = mbw * 8;
+  static const int kScan[16] = {0, 4, 8, 12, 4 * BPS, 4 + 4 * BPS,
+                                8 + 4 * BPS, 12 + 4 * BPS, 8 * BPS,
+                                4 + 8 * BPS, 8 + 8 * BPS, 12 + 8 * BPS,
+                                12 * BPS, 4 + 12 * BPS, 8 + 12 * BPS,
+                                12 + 12 * BPS};
+  uint8_t ybuf[BPS * 17], ubuf[BPS * 9], vbuf[BPS * 9];
+  for (int my = 0; my < mbh; ++my) {
+    for (int mx = 0; mx < mbw; ++mx) {
+      const uint8_t* m = mb + 20 * (static_cast<int64_t>(my) * mbw + mx);
+      const int16_t* r = resid + 384 * (static_cast<int64_t>(my) * mbw + mx);
+      uint8_t* yd = ybuf + BPS + 8;  // room for the left and top borders
+      uint8_t* ud = ubuf + BPS + 8;
+      uint8_t* vd = vbuf + BPS + 8;
+      uint8_t* y0 = Y + static_cast<int64_t>(my) * 16 * ys + mx * 16;
+      uint8_t* u0 = U + static_cast<int64_t>(my) * 8 * uvs + mx * 8;
+      uint8_t* v0 = V + static_cast<int64_t>(my) * 8 * uvs + mx * 8;
+      // top row (with the top-left corner and four top-right samples)
+      if (my == 0) {
+        std::memset(yd - BPS - 1, 127, 21);
+        std::memset(ud - BPS - 1, 127, 9);
+        std::memset(vd - BPS - 1, 127, 9);
+      } else {
+        std::memcpy(yd - BPS, y0 - ys, 16);
+        std::memcpy(ud - BPS, u0 - uvs, 8);
+        std::memcpy(vd - BPS, v0 - uvs, 8);
+        yd[-BPS - 1] = mx > 0 ? y0[-ys - 1] : 129;
+        ud[-BPS - 1] = mx > 0 ? u0[-uvs - 1] : 129;
+        vd[-BPS - 1] = mx > 0 ? v0[-uvs - 1] : 129;
+        if (mx < mbw - 1)
+          std::memcpy(yd - BPS + 16, y0 - ys + 16, 4);
+        else
+          std::memset(yd - BPS + 16, y0[-ys + 15], 4);
+      }
+      for (int j = 0; j < 16; ++j)
+        yd[j * BPS - 1] = mx > 0 ? y0[j * ys - 1] : 129;
+      for (int j = 0; j < 8; ++j) {
+        ud[j * BPS - 1] = mx > 0 ? u0[j * uvs - 1] : 129;
+        vd[j * BPS - 1] = mx > 0 ? v0[j * uvs - 1] : 129;
+      }
+      if (m[0]) {  // 4x4 subblocks
+        for (int k = 4; k < 16; k += 4)
+          std::memcpy(yd - BPS + 16 + k * BPS, yd - BPS + 16, 4);
+        for (int n = 0; n < 16; ++n) {
+          uint8_t* dst = yd + kScan[n];
+          predict4(dst, m[4 + n]);
+          add_residual(dst, r + 16 * n);
+        }
+      } else {
+        predict_block(yd, 16, m[4], mx, my);
+        for (int n = 0; n < 16; ++n)
+          add_residual(yd + kScan[n], r + 16 * n);
+      }
+      predict_block(ud, 8, m[1], mx, my);
+      predict_block(vd, 8, m[1], mx, my);
+      for (int n = 0; n < 4; ++n) {
+        const int off = (n & 1) * 4 + (n >> 1) * 4 * BPS;
+        add_residual(ud + off, r + 256 + 16 * n);
+        add_residual(vd + off, r + 320 + 16 * n);
+      }
+      for (int j = 0; j < 16; ++j) std::memcpy(y0 + j * ys, yd + j * BPS, 16);
+      for (int j = 0; j < 8; ++j) {
+        std::memcpy(u0 + j * uvs, ud + j * BPS, 8);
+        std::memcpy(v0 + j * uvs, vd + j * BPS, 8);
+      }
+    }
+  }
+  if (ftype == 0) return 0;
+  for (int my = 0; my < mbh; ++my) {
+    for (int mx = 0; mx < mbw; ++mx) {
+      const uint8_t* m = mb + 20 * (static_cast<int64_t>(my) * mbw + mx);
+      const int32_t* f = info + 8 + 6 * m[2] + 3 * m[0];
+      const int limit = f[0], ilevel = f[1], hev_t = f[2];
+      const bool inner = m[0] || m[3];
+      if (limit == 0) continue;
+      uint8_t* yp = Y + static_cast<int64_t>(my) * 16 * ys + mx * 16;
+      if (ftype == 1) {
+        if (mx > 0) simple_edge(yp, 1, ys, limit + 4);
+        if (inner)
+          for (int k = 4; k < 16; k += 4) simple_edge(yp + k, 1, ys, limit);
+        if (my > 0) simple_edge(yp, ys, 1, limit + 4);
+        if (inner)
+          for (int k = 4; k < 16; k += 4)
+            simple_edge(yp + k * ys, ys, 1, limit);
+        continue;
+      }
+      uint8_t* up = U + static_cast<int64_t>(my) * 8 * uvs + mx * 8;
+      uint8_t* vp = V + static_cast<int64_t>(my) * 8 * uvs + mx * 8;
+      if (mx > 0) {
+        complex_edge(yp, 1, ys, 16, limit + 4, ilevel, hev_t, true);
+        complex_edge(up, 1, uvs, 8, limit + 4, ilevel, hev_t, true);
+        complex_edge(vp, 1, uvs, 8, limit + 4, ilevel, hev_t, true);
+      }
+      if (inner) {
+        for (int k = 4; k < 16; k += 4)
+          complex_edge(yp + k, 1, ys, 16, limit, ilevel, hev_t, false);
+        complex_edge(up + 4, 1, uvs, 8, limit, ilevel, hev_t, false);
+        complex_edge(vp + 4, 1, uvs, 8, limit, ilevel, hev_t, false);
+      }
+      if (my > 0) {
+        complex_edge(yp, ys, 1, 16, limit + 4, ilevel, hev_t, true);
+        complex_edge(up, uvs, 1, 8, limit + 4, ilevel, hev_t, true);
+        complex_edge(vp, uvs, 1, 8, limit + 4, ilevel, hev_t, true);
+      }
+      if (inner) {
+        for (int k = 4; k < 16; k += 4)
+          complex_edge(yp + k * ys, ys, 1, 16, limit, ilevel, hev_t, false);
+        complex_edge(up + 4 * uvs, uvs, 1, 8, limit, ilevel, hev_t, false);
+        complex_edge(vp + 4 * uvs, uvs, 1, 8, limit, ilevel, hev_t, false);
+      }
+    }
+  }
+  return 0;
 }

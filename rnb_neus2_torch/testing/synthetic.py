@@ -239,7 +239,8 @@ def write_idr_scene(out_dir, n_views: int = 8, width: int = 48,
     return radius * world_scale
 
 
-SFM_FORMATS = {"png": ("png", "png", "png"), "exr": ("exr", "tif", "jpg")}
+SFM_FORMATS = {"png": ("png", "png", "png"), "exr": ("exr", "tif", "jpg"),
+               "netpbm": ("ppm", "bmp", "pgm")}
 
 
 def write_sfm_scene(out_dir, formats: str = "png", n_views: int = 8,
@@ -254,8 +255,11 @@ def write_sfm_scene(out_dir, formats: str = "png", n_views: int = 8,
     folder of files named by pose id. The world frame is
     `write_idr_scene`'s. formats "png": 16-bit PNG normals and albedos,
     8-bit PNG masks; "exr": float EXR normals in [-1, 1] (`save_exr`),
-    16-bit TIFF albedos and 8-bit JPEG masks (`save_image`). Returns
-    (normal SfM path, albedo SfM path, mask folder, world radius)."""
+    16-bit TIFF albedos and 8-bit JPEG masks (`save_image`); "netpbm":
+    16-bit PPM normals, 8-bit BMP albedos and 8-bit PGM masks (which the
+    loaders' mask folder lookup, like the JAX package's, does not list:
+    set each view's mask_path). Returns (normal SfM path, albedo SfM
+    path, mask folder, world radius)."""
     import json
     import os
 
@@ -279,7 +283,8 @@ def write_sfm_scene(out_dir, formats: str = "png", n_views: int = 8,
         else:
             image_io.save_image((stored[i] + 1.0) / 2.0,
                                 os.path.join(out_dir, n_path), 16)
-        image_io.save_image(albedo[i], os.path.join(out_dir, a_path), 16)
+        image_io.save_image(albedo[i], os.path.join(out_dir, a_path),
+                            8 if a_fmt == "bmp" else 16)
         image_io.save_image(alphas[i], os.path.join(
             out_dir, "masks", f"{pid}.{m_fmt}"), 8)
         poses.append({"poseId": pid, "pose": {"transform": {

@@ -780,20 +780,38 @@ def test_scale_and_save_albedos_match_jax(tmp_path, fmt):
                                               np.ones((4, 3)))
 
 
-@pytest.mark.parametrize("ext", [".png", ".tif", ".tiff", ".jpg", ".jpeg"])
+# formats whose cv2 encoder the port copies byte for byte
+EXACT_WRITERS = (".jpg", ".jpeg", ".bmp", ".dib", ".ppm", ".pnm", ".pgm",
+                 ".pbm", ".pam", ".pfm", ".hdr", ".pic", ".ras", ".sr")
+
+
+@pytest.mark.parametrize("ext", [".png", ".tif", ".tiff", ".jpg", ".jpeg",
+                                 ".bmp", ".dib", ".ppm", ".pnm", ".pgm",
+                                 ".pbm", ".pam", ".pfm", ".hdr", ".pic",
+                                 ".ras", ".sr"])
 @pytest.mark.parametrize("bit_depth", [8, 16])
 def test_save_image_by_extension_matches_jax(tmp_path, ext, bit_depth):
+    """The port writes what the JAX save_image (cv2.imwrite) writes; where
+    cv2.imwrite returns False the JAX one writes nothing and says nothing,
+    and the port raises (ROADMAP section 3)."""
     img = np.random.default_rng(bit_depth).uniform(-0.1, 1.1, (H, W, 4)) \
         .astype(np.float32)
     img[0, 0, 0] = np.nan
-    image_io.save_image(img, tmp_path / f"p{ext}", bit_depth)
     jimage_io.save_image(img, tmp_path / f"j{ext}", bit_depth)
+    samples = (np.clip(np.nan_to_num(img), 0, 1) * (2 ** bit_depth - 1)) \
+        .astype(np.uint8 if bit_depth == 8 else np.uint16)
+    if not cv2.imwrite(str(tmp_path / f"c{ext}"), _as_cv2(samples)):
+        with pytest.raises(ValueError):
+            image_io.save_image(img, tmp_path / f"p{ext}", bit_depth)
+        return
+    image_io.save_image(img, tmp_path / f"p{ext}", bit_depth)
     got = (tmp_path / f"p{ext}").read_bytes()
     want = (tmp_path / f"j{ext}").read_bytes()
     assert got[:4] == want[:4]                      # the same format
-    np.testing.assert_array_equal(_cv2_rgb(tmp_path / f"p{ext}"),
-                                  _cv2_rgb(tmp_path / f"j{ext}"))
-    if ext in (".jpg", ".jpeg"):
+    if ext != ".pam":   # cv2 cannot read back the 4-channel PAM it writes
+        np.testing.assert_array_equal(_cv2_rgb(tmp_path / f"p{ext}"),
+                                      _cv2_rgb(tmp_path / f"j{ext}"))
+    if ext in EXACT_WRITERS:
         assert got == want
 
 

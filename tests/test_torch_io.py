@@ -130,7 +130,8 @@ def _tiff_header(tags) -> bytes:
 
 def test_png_refuses_what_it_does_not_read(tmp_path):
     """What the readers still refuse raises by name: a PIZ-compressed EXR
-    and a BMP, which cv2 reads (UnsupportedImage), and a hierarchical JPEG
+    and a JPEG 2000 file, which cv2 reads (UnsupportedImage), and a
+    hierarchical JPEG
     and an Orientation 6 TIFF, which cv2 cannot read either
     (UnreadableImage, a FileNotFoundError as the JAX loaders raise for
     cv2's None, asserted beside cv2's None on the same bytes)."""
@@ -139,9 +140,10 @@ def test_png_refuses_what_it_does_not_read(tmp_path):
     key = b"compression\0compression\0" + struct.pack("<i", 1)
     (tmp_path / "piz.exr").write_bytes(blob.replace(key + b"\x03",
                                                     key + b"\x04"))
-    cv2.imwrite(str(tmp_path / "b.bmp"), np.zeros((9, 9, 3), np.uint8))
-    (tmp_path / "b.img").write_bytes((tmp_path / "b.bmp").read_bytes())
-    for name, what in (("piz.exr", "PIZ"), ("b.img", "BMP")):
+    jp2 = cv2.imencode(".jp2", np.zeros((64, 64, 3), np.uint8))[1]
+    (tmp_path / "b.img").write_bytes(jp2.tobytes())
+    assert cv2.imread(str(tmp_path / "b.img")) is not None
+    for name, what in (("piz.exr", "PIZ"), ("b.img", "JPEG 2000")):
         with pytest.raises(errors.UnsupportedImage,
                            match=f"{what}.*not supported"):
             image_io.load_image(tmp_path / name)

@@ -2,11 +2,13 @@
 cv2's decode of each in IMREAD_UNCHANGED, _COLOR and _GRAYSCALE (RGB(A)
 order; an empty array where cv2 returns None).
 
-One small file per JPEG and TIFF variant that the port reads, written by
-cv2, PIL or the writers of `tests/torch_image_writers.py`, and a few that
-cv2 cannot read either; among them a 612x512 progressive JPEG and the
-same file cut after 3 of its scans, and a progressive and a baseline
-file that end inside a scan. `chip_smoke.py` (phase 20) decodes
+One small file per image variant that the port reads (JPEG, TIFF, BMP,
+PNM/PAM/PFM, Radiance HDR, Sun raster, GIF, WebP), written by cv2, PIL
+or the writers of `tests/torch_image_writers.py`, and a few that cv2
+cannot read either; among them a 612x512 progressive JPEG and the same
+file cut after 3 of its scans, a progressive and a baseline file that
+end inside a scan, and 612x512 lossy and lossless WebP, Radiance and
+RLE8 BMP files, which phase 20 times. `chip_smoke.py` (phase 20) decodes
 them on the card's host, which has neither cv2 nor PIL, and
 tests/test_torch_image_variants.py holds them against `expected.npz`.
 
@@ -210,6 +212,165 @@ def tiffs(rng):
     return out
 
 
+BIG = (612, 512)     # DiLiGenT-MV's view, (width, height)
+
+
+def sphere_view(radius=200):
+    """A 612x512 normal map of a sphere on black, the project's typical
+    input, as [0, 1] floats (the timing fixtures' content)."""
+    w, h = BIG
+    y, x = np.mgrid[:h, :w].astype(np.float32)
+    nx, ny = (x - w / 2) / radius, (y - h / 2) / radius
+    r2 = nx ** 2 + ny ** 2
+    nz = np.sqrt(np.clip(1 - r2, 0, 1))
+    img = np.stack([nx, -ny, nz], -1) * 0.5 + 0.5
+    img[r2 >= 1] = 0
+    return img
+
+
+def more_formats(rng):
+    """BMP, PNM/PAM/PFM, Radiance, Sun raster, GIF and WebP."""
+    out = {}
+    rgb = smooth(rng, (H, W, 3))
+    rgba = smooth(rng, (H, W, 4))
+    grey = smooth(rng, (H, W))
+    pal = rng.integers(0, 256, (256, 3))
+    idx = rng.integers(0, 16, (H, W))
+    out["bmp_pal4.bmp"] = tw.bmp_file(W, H, 4, tw.bmp_rows(idx, 4),
+                                      palette=pal[:16])
+    out["bmp_pal8_grey.bmp"] = tw.bmp_file(
+        W, H, 8, tw.bmp_rows(grey, 8),
+        palette=np.repeat(np.arange(256)[:, None], 3, 1))
+    out["bmp_pal1_os2.bmp"] = tw.bmp_file(
+        W, H, 1, tw.bmp_rows(idx % 2, 1), header=12, palette=pal[:2])
+    out["bmp_565.bmp"] = tw.bmp_file(
+        W, H, 16, tw.bmp_rows(rng.integers(0, 1 << 16, (H, W)), 16),
+        compression=3, masks=(0xF800, 0x7E0, 0x1F))
+    out["bmp_555_top_down.bmp"] = tw.bmp_file(
+        W, H, 16, tw.bmp_rows(rng.integers(0, 1 << 15, (H, W))[::-1], 16),
+        top_down=True)
+    out["bmp_v5_bgra.bmp"] = tw.bmp_file(
+        W, H, 32, tw.bmp_rows(rgba.reshape(H, -1), 8), header=124,
+        compression=3, masks=(0xFF, 0xFF00, 0xFF0000, 0xFF000000))
+    runs = np.repeat(rng.integers(0, 16, (H, 11)), 5, 1)[:, :W]
+    out["bmp_rle8_delta.bmp"] = tw.bmp_file(
+        W, H, 8, tw.bmp_rle(runs, 8, delta_at=(5, 3, 9, 2)), compression=1,
+        palette=pal)
+    out["bmp_rle4.bmp"] = tw.bmp_file(W, H, 4, tw.bmp_rle(runs, 4),
+                                      compression=2, palette=pal[:16])
+    out["bmp_cv2_rgb.bmp"] = cv2.imencode(".bmp", rgb[..., ::-1])[1] \
+        .tobytes()
+    blob = out["bmp_cv2_rgb.bmp"]
+    out["unreadable_bmp_bits2.bmp"] = blob[:28] + b"\2\0" + blob[30:]
+    bits = rng.integers(0, 2, (H, W))
+    out["pnm_p1.pbm"] = b"P1\n# bits\n%d %d\n" % (W, H) + b"\n".join(
+        b"".join(b"%d" % v for v in row) for row in bits) + b"\n"
+    out["pnm_p4.pbm"] = b"P4\n%d %d\n" % (W, H) + np.packbits(
+        bits.astype(np.uint8), axis=1).tobytes()
+    g100 = grey.astype(np.int64) * 100 // 255
+    out["pnm_p2_maxval100.pgm"] = b"P2\n%d %d\n100\n" % (W, H) + b" ".join(
+        b"%d" % v for v in g100.reshape(-1)) + b"\n"
+    out["pnm_p3.ppm"] = b"P3 %d %d 255\n" % (W, H) + b" ".join(
+        b"%d" % v for v in rgb.reshape(-1)) + b"\n"
+    out["pnm_p5_16bit.pgm"] = b"P5\n%d %d\n65535\n" % (W, H) + \
+        (grey.astype(np.uint16) * 257).astype(">u2").tobytes()
+    out["pnm_p6_maxval1000.ppm"] = b"P6\n%d %d\n1000\n" % (W, H) + \
+        (rgb.astype(np.int64) * 1000 // 255).astype(">u2").tobytes()
+    out["pnm_cv2_p6.ppm"] = cv2.imencode(".ppm", rgb[..., ::-1])[1] \
+        .tobytes()
+    out["unreadable_pnm_truncated.pgm"] = out["pnm_p5_16bit.pgm"][:-9]
+
+    def pam(depth, maxval, tt, data):
+        head = b"P7\nWIDTH %d\nHEIGHT %d\nDEPTH %d\nMAXVAL %d\n" % (
+            W, H, depth, maxval)
+        return head + (b"TUPLTYPE " + tt + b"\n" if tt else b"") + \
+            b"ENDHDR\n" + data
+    out["pam_grayscale.pam"] = pam(1, 255, b"GRAYSCALE", grey.tobytes())
+    out["pam_rgb.pam"] = pam(3, 255, None, rgb.tobytes())
+    out["pam_rgb_16bit.pam"] = pam(3, 65535, b"RGB", (
+        rgb.astype(np.uint16) * 257).astype(">u2").tobytes())
+    out["pam_blackandwhite.pam"] = pam(1, 1, b"BLACKANDWHITE",
+                                       rng.integers(0, 256, H * W,
+                                                    dtype=np.uint8).tobytes())
+    out["unreadable_pam_cv2_bgra.pam"] = cv2.imencode(
+        ".pam", rgba[..., [2, 1, 0, 3]])[1].tobytes()
+    f3 = rng.normal(0.3, 0.5, (H, W, 3)).astype(np.float32)
+    out["pfm_rgb.pfm"] = b"PF\n%d %d\n-1.0\n" % (W, H) + \
+        f3[::-1].astype("<f4").tobytes()
+    out["pfm_grey_big_endian.pfm"] = b"Pf\n%d %d\n2\n" % (W, H) + \
+        f3[::-1, :, 0].astype(">f4").tobytes()
+    rgbe = rng.integers(0, 256, (H, W, 4)).astype(np.uint8)
+    rgbe[..., 3] = rng.integers(120, 136, (H, W))
+    rgbe[:, 10:30] = rgbe[:, 10:11]
+    out["hdr_rle.hdr"] = tw.hdr_file(rgbe)
+    out["hdr_flat.hdr"] = tw.hdr_file(rgbe, rle=False)
+    out["hdr_cv2.hdr"] = cv2.imencode(".hdr", f3[..., ::-1] ** 2)[1] \
+        .tobytes()
+    out["unreadable_hdr_xyze.hdr"] = out["hdr_rle.hdr"].replace(
+        b"rle_rgbe", b"rle_xyze")
+    pitch = (W + 1) & -2
+    data8 = rng.integers(0, 256, pitch * H, dtype=np.uint8).tobytes()
+    out["sun_8bit_cmap.ras"] = tw.sun_raster(
+        W, H, 8, data8, cmap=rng.integers(0, 256, 768,
+                                          dtype=np.uint8).tobytes())
+    out["sun_8bit_no_map.ras"] = tw.sun_raster(W, H, 8, data8)
+    out["sun_1bit.ras"] = tw.sun_raster(
+        W, H, 1, rng.integers(0, 256, (((W + 7) // 8 + 1) & -2) * H,
+                              dtype=np.uint8).tobytes())
+    out["sun_cv2_24bit.ras"] = cv2.imencode(".ras", np.ascontiguousarray(
+        rgb[:, :W - 1, ::-1]))[1].tobytes()
+    out["sun_32bit.ras"] = tw.sun_raster(W, H, 32, rgba.tobytes(), kind=0)
+    out["unreadable_sun_byte_encoded.ras"] = tw.sun_raster(W, H, 8, data8,
+                                                           kind=2)
+    out["gif_interlaced.gif"] = tw.gif_file(
+        W, H, [dict(idx=idx, min_size=4, interlace=True)], pal[:16])
+    out["gif_local_transparent_offset.gif"] = tw.gif_file(
+        W, H, [dict(idx=idx[:20, :30] % 4, min_size=2, left=7, top=9,
+                    table=pal[40:44], transparent=2)], pal[:16],
+        background=5)
+    q = Image.fromarray(rgb).quantize(64)
+    out["gif_pil_animated.gif"] = pil_bytes(q, "GIF", save_all=True,
+                                            append_images=[q.rotate(90)],
+                                            duration=50)
+    out["unreadable_gif_no_trailer.gif"] = out["gif_interlaced.gif"][:-1]
+    out["webp_lossless.webp"] = pil_bytes(Image.fromarray(
+        rng.integers(0, 256, (H, W, 3)).astype(np.uint8)), "WEBP",
+        lossless=True)
+    out["webp_lossless_palette.webp"] = pil_bytes(
+        Image.fromarray(rgb).quantize(6).convert("RGB"), "WEBP",
+        lossless=True)
+    out["webp_lossless_rgba.webp"] = pil_bytes(Image.fromarray(rgba),
+                                               "WEBP", lossless=True)
+    opaque = np.concatenate([rgb, np.full((H, W, 1), 255, np.uint8)], -1)
+    out["webp_lossy_simple_filter.webp"] = tw.webp_encode(
+        opaque, filter_type=0, partitions=2, quality=70)
+    out["webp_lossy.webp"] = pil_bytes(Image.fromarray(rgb), "WEBP",
+                                       quality=80)
+    out["webp_lossy_alpha.webp"] = tw.webp_encode(
+        rgba, alpha_filtering=1, quality=70)
+    frames = [Image.fromarray(rgba), Image.fromarray(rgba[::-1].copy())]
+    out["webp_animated.webp"] = pil_bytes(frames[0], "WEBP", save_all=True,
+                                          append_images=frames[1:],
+                                          lossless=True, duration=40)
+    blob = out["webp_lossy.webp"]
+    out["unreadable_webp_truncated.webp"] = blob[:len(blob) // 2]
+    view = sphere_view()
+    view8 = (view * 255).astype(np.uint8)
+    out["webp_lossy_612x512.webp"] = pil_bytes(Image.fromarray(view8),
+                                               "WEBP", quality=90)
+    out["webp_lossless_612x512.webp"] = pil_bytes(Image.fromarray(view8),
+                                                  "WEBP", lossless=True)
+    small = sphere_view(110)[..., ::-1].astype(np.float32)
+    out["hdr_612x512.hdr"] = cv2.imencode(".hdr", np.ascontiguousarray(
+        np.round(small * 64) / 64))[1].tobytes()
+    levels = Image.fromarray(view8).quantize(24)
+    out["bmp_rle8_612x512.bmp"] = tw.bmp_file(
+        BIG[0], BIG[1], 8, tw.bmp_rle(np.asarray(levels), 8),
+        compression=1, palette=np.asarray(levels.getpalette()[:72])
+        .reshape(24, 3))
+    return out
+
+
 def cv2_rgb(path, mode):
     try:
         img = cv2.imread(str(path), MODES[mode])
@@ -224,13 +385,14 @@ def cv2_rgb(path, mode):
 
 def main():
     rng = np.random.default_rng(2024)
-    files = {**jpegs(rng), **tiffs(rng)}
+    files = {**jpegs(rng), **tiffs(rng), **more_formats(rng)}
     for old in HERE.iterdir():
-        if old.suffix in (".jpg", ".tif"):
+        if old.suffix not in (".py", ".npz"):
             old.unlink()
     expected = {}
     for name, blob in sorted(files.items()):
-        assert len(blob) <= 64 << 10, (name, len(blob))
+        limit = 512 << 10 if "612x512" in name else 64 << 10
+        assert len(blob) <= limit, (name, len(blob))
         (HERE / name).write_bytes(blob)
         for mode in MODES:
             expected[f"{name}:{mode}"] = cv2_rgb(HERE / name, mode)

@@ -1,10 +1,15 @@
-"""Writers of the JPEG and TIFF kinds that neither cv2 nor PIL writes, for
-the image-variant tests and their fixtures (`torch_fixtures/formats/
+"""Writers of the image kinds that neither cv2 nor PIL writes, for the
+image-variant tests and their fixtures (`torch_fixtures/formats/
 make_fixtures.py`): arithmetic-coded JPEG (ITU T.81 Annex D, F.1.4, G.1.3;
-the coding procedures of libjpeg's jcarith.c), lossless JPEG (Annex H)
-and tiled or planar TIFF (TIFF 6.0 sections 15 and 8). cv2's decode of
-what they write is the reference, so the port's decoder is never held
-against its own encoder. numpy only.
+the coding procedures of libjpeg's jcarith.c), lossless JPEG (Annex H),
+tiled or planar TIFF (TIFF 6.0 sections 15 and 8), BMP of every header
+kind, bit count and compression (RLE8/RLE4 by the Windows rules), Sun
+rasters, Radiance scanlines (flat and new-style RLE), GIF (LZW at any
+code size, interlacing, local tables, transparency, several frames) and
+WebP's ALPH chunks and RIFF containers; `webp_encode` reaches libwebp's
+encoder options through PIL's own libwebp. cv2's decode of what they
+write is the reference, so the port's decoder is never held against its
+own encoder. numpy only, but for `webp_encode`.
 """
 
 import struct
@@ -581,3 +586,355 @@ def tiles(img, tw, th):
             t[:part.shape[0], :part.shape[1]] = part
             out.append(t)
     return out
+
+
+# --------------------------------------------------------------------- BMP
+def bmp_file(w, h, bpp, data, header=40, compression=0, palette=None,
+             clrused=0, masks=None, top_down=False) -> bytes:
+    """A BMP with `data` (the pixel bytes as stored) after a file header,
+    an info header of `header` bytes (12 = OS/2 core; 40, 52, 56, 108,
+    124 = INFO and its successors, which carry `masks` (R, G, B, A) from
+    52 bytes on), and `palette` ((n, 3) RGB, stored BGR0, or BGR in an
+    OS/2 file). BI_BITFIELDS masks of a 40-byte header follow it."""
+    pal = b""
+    if palette is not None:
+        p = np.asarray(palette, np.uint8)[:, ::-1]
+        if header == 12:
+            pal = p.tobytes()
+        else:
+            pal = np.concatenate([p, np.zeros((len(p), 1), np.uint8)],
+                                 1).tobytes()
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bpp)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h,
+                           1, bpp, compression, len(data), 2835, 2835,
+                           clrused, 0)
+        if header >= 52:
+            m = list(masks or (0, 0, 0, 0))
+            info += struct.pack("<4I", *(m + [0] * 4)[:4])
+        info = (info + b"BGRs" if header >= 108 else info)
+        info = info[:header].ljust(header, b"\0")
+        if header == 40 and masks is not None:
+            pal = struct.pack("<3I", *masks[:3]) + pal
+    off = 14 + len(info) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", off + len(data), 0, 0, off) + info
+            + pal + data)
+
+
+def bmp_rows(rows: np.ndarray, bits: int) -> bytes:
+    """(h, n) samples of `bits` each, top row first → bottom-up rows packed
+    MSB first and padded to 4 bytes."""
+    out = []
+    for row in np.asarray(rows)[::-1]:
+        if bits >= 8:
+            b = np.asarray(row).astype(f"<u{bits // 8}").tobytes() \
+                if bits in (8, 16) else bytes(np.asarray(row, np.uint8))
+        else:
+            b = pack_bits(row[None], bits)
+        out.append(b + b"\0" * (-len(b) % 4))
+    return b"".join(out)
+
+
+def bmp_rle(idx: np.ndarray, bits: int, delta_at=None) -> bytes:
+    """Palette indices (h, w), top row first → RLE8 (bits 8) or RLE4 data,
+    bottom row first: encoded runs of equal values, absolute runs of the
+    rest (3 or more pixels, padded to a word), an end of line after each
+    row and an end of bitmap; `delta_at` (row, col, dx, dy) skips pixels
+    with a delta instead."""
+    out = bytearray()
+    rows = np.asarray(idx)[::-1]
+    h, w = rows.shape
+    y = 0
+    while y < h:
+        row, x = rows[y], 0
+        while x < w:
+            if delta_at is not None and (y, x) == delta_at[:2]:
+                dx, dy = delta_at[2:]
+                out += bytes([0, 2, dx, dy])
+                x += dx
+                if dy:
+                    y += dy
+                    row = rows[y]
+                continue
+            n = 1
+            if bits == 8:
+                while x + n < w and n < 255 and row[x + n] == row[x]:
+                    n += 1
+            else:
+                while (x + n < w and n < 255
+                       and row[x + n] == row[x + (n & 1)]):
+                    n += 1
+            if n >= 3 or w - x < 3:
+                v = row[x] if bits == 8 else (row[x] << 4) | (
+                    row[x + 1] if n > 1 else 0)
+                out += bytes([n, int(v)])
+                x += n
+                continue
+            k = min(w - x, 12)
+            lit = [int(v) for v in row[x:x + k]]
+            if bits == 8:
+                body = bytes(lit) + b"\0" * (k & 1)
+            else:
+                body = pack_bits([lit], 4)
+                body += b"\0" * (len(body) & 1)
+            out += bytes([0, k]) + body
+            x += k
+        out += b"\0\0"
+        y += 1
+    return bytes(out[:-2]) + b"\0\1"
+
+
+# ---------------------------------------------------------------- Sun raster
+def sun_raster(w, h, depth, data, kind=1, cmap=b"") -> bytes:
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(data), kind,
+                       1 if cmap else 0, len(cmap)) + cmap + data
+
+
+# ----------------------------------------------------------------- Radiance
+def hdr_file(rgbe: np.ndarray, rle=True, head=None) -> bytes:
+    """(h, w, 4) RGBE bytes as a Radiance file: new-style RLE scanlines
+    (runs of 4 or more as runs, the rest literal) or flat."""
+    h, w = rgbe.shape[:2]
+    out = bytearray(head if head is not None else
+                    b"#?RADIANCE\n# a comment\nEXPOSURE=1.0\n"
+                    b"FORMAT=32-bit_rle_rgbe\n\n-Y %d +X %d\n" % (h, w))
+    if not rle:
+        return bytes(out) + np.asarray(rgbe, np.uint8).tobytes()
+    for y in range(h):
+        out += bytes([2, 2, w >> 8, w & 255])
+        for c in range(4):
+            v = [int(t) for t in rgbe[y, :, c]]
+            x = 0
+            while x < w:
+                n = 1
+                while x + n < w and n < 127 and v[x + n] == v[x]:
+                    n += 1
+                if n >= 4:
+                    out += bytes([128 + n, v[x]])
+                    x += n
+                    continue
+                k = 1
+                while x + k < w and k < 128 and not (
+                        x + k + 3 < w and v[x + k] == v[x + k + 1]
+                        == v[x + k + 2] == v[x + k + 3]):
+                    k += 1
+                out += bytes([k]) + bytes(v[x:x + k])
+                x += k
+    return bytes(out)
+
+
+# ---------------------------------------------------------------------- GIF
+def gif_lzw(indices, min_size: int, clear_every: int = 0) -> bytes:
+    """GIF LZW (LSB-first codes, growing to 12 bits, a clear code first,
+    again when the table is full or every `clear_every` codes, and an end
+    code) of palette indices, in sub-blocks."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    acc = nbits = 0
+    out = bytearray()
+
+    def put(code, size):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += size
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+
+    size = min_size + 1
+    table = {(i,): i for i in range(clear)}
+    nxt = end + 1
+    put(clear, size)
+    cur, emitted = (), 0
+    for v in [int(t) for t in np.asarray(indices).reshape(-1)]:
+        cand = cur + (v,)
+        if cand in table:
+            cur = cand
+            continue
+        put(table[cur], size)
+        emitted += 1
+        if nxt < 4096:
+            table[cand] = nxt
+            nxt += 1
+            if nxt > (1 << size) and size < 12:
+                size += 1
+        if nxt >= 4096 or (clear_every and emitted % clear_every == 0):
+            put(clear, size)
+            table = {(i,): i for i in range(clear)}
+            nxt, size = end + 1, min_size + 1
+        cur = (v,)
+    if cur:
+        put(table[cur], size)
+        if nxt == 1 << size and size < 12 and emitted:
+            size += 1
+    put(end, size)
+    if nbits:
+        out.append(acc & 255)
+    blocks = bytearray([min_size])
+    for i in range(0, len(out), 255):
+        blocks += bytes([len(out[i:i + 255])]) + out[i:i + 255]
+    return bytes(blocks) + b"\0"
+
+
+def _table_bits(n):
+    return max(1, int(np.ceil(np.log2(max(n, 2))))) - 1
+
+
+def gif_file(w, h, frames, global_table=None, background=0,
+             version=b"89a") -> bytes:
+    """A GIF of logical size (w, h); each frame a dict: `idx` (fh, fw)
+    indices, `left`, `top`, `table` (a local colour table, (n, 3)),
+    `interlace`, `transparent` (an index, in a Graphic Control Extension
+    with `disposal`), `min_size` (the LZW minimum code size)."""
+    out = bytearray(b"GIF" + version + struct.pack("<HH", w, h))
+    if global_table is not None:
+        g = np.asarray(global_table, np.uint8)
+        bits = _table_bits(len(g))
+        g = np.concatenate([g, np.zeros(((2 << bits) - len(g), 3),
+                                        np.uint8)])
+        out += bytes([0x80 | 0x70 | bits, background, 0]) + g.tobytes()
+    else:
+        out += bytes([0x70, background, 0])
+    for f in frames:
+        idx = np.asarray(f["idx"])
+        fh, fw = idx.shape
+        if f.get("transparent") is not None or f.get("disposal"):
+            t = f.get("transparent")
+            out += bytes([0x21, 0xF9, 4, (f.get("disposal", 0) << 2)
+                          | (t is not None), 0, 0, t or 0, 0])
+        flags = 0
+        table = f.get("table")
+        if table is not None:
+            t = np.asarray(table, np.uint8)
+            bits = _table_bits(len(t))
+            flags |= 0x80 | bits
+        if f.get("interlace"):
+            flags |= 0x40
+            order = np.concatenate([np.arange(0, fh, 8), np.arange(4, fh, 8),
+                                    np.arange(2, fh, 4), np.arange(1, fh, 2)])
+            idx = idx[order]
+        out += b"," + struct.pack("<HHHHB", f.get("left", 0), f.get("top", 0),
+                                  fw, fh, flags)
+        if table is not None:
+            out += np.concatenate([t, np.zeros(((2 << bits) - len(t), 3),
+                                               np.uint8)]).tobytes()
+        out += gif_lzw(idx, f.get("min_size", 8), f.get("clear_every", 0))
+    return bytes(out) + b";"
+
+
+# --------------------------------------------------------------------- WebP
+WEBP_CONFIG = ("lossless", "quality", "method", "image_hint", "target_size",
+               "target_PSNR", "segments", "sns_strength", "filter_strength",
+               "filter_sharpness", "filter_type", "autofilter",
+               "alpha_compression", "alpha_filtering", "alpha_quality",
+               "pass", "show_compressed", "preprocessing", "partitions",
+               "partition_limit", "emulate_jpeg_size", "thread_level",
+               "low_memory", "near_lossless", "exact", "use_delta_palette",
+               "use_sharp_yuv")
+
+
+def _libwebp():
+    import ctypes
+    import glob
+    import os
+    import PIL
+    libdir = os.path.join(os.path.dirname(PIL.__file__), "..", "pillow.libs")
+    libs = glob.glob(os.path.join(libdir, "libwebp-*.so*"))
+    if not libs:
+        raise RuntimeError("PIL's libwebp not found")
+    for dep in glob.glob(os.path.join(libdir, "libsharpyuv-*.so*")):
+        ctypes.CDLL(dep, mode=ctypes.RTLD_GLOBAL)
+    return ctypes.CDLL(libs[0])
+
+
+def webp_encode(rgba, **config) -> bytes:
+    """(h, w, 4) uint8 RGBA → a WebP written by libwebp's advanced API
+    (PIL's own libwebp through ctypes), with any WebPConfig field set by
+    name: filter_type 0 (simple) or 1, partitions 0-3, segments 1-4,
+    filter_sharpness, alpha_compression 0 (raw) or 1, alpha_filtering,
+    lossless, exact... Only for test data: cv2 and PIL reach none of
+    these knobs."""
+    import ctypes
+    lib = _libwebp()
+    rgba = np.ascontiguousarray(rgba, np.uint8)
+    h, w = rgba.shape[:2]
+    cfg = (ctypes.c_int32 * 64)()
+    assert lib.WebPConfigInitInternal(cfg, 0, ctypes.c_float(75.0), 0x0210)
+    for name, value in config.items():
+        i = WEBP_CONFIG.index(name)
+        if name in ("quality", "target_PSNR"):
+            ctypes.cast(ctypes.byref(cfg, 4 * i),
+                        ctypes.POINTER(ctypes.c_float))[0] = value
+        else:
+            cfg[i] = value
+    assert lib.WebPValidateConfig(cfg)
+    pic = (ctypes.c_uint8 * 256)()
+    assert lib.WebPPictureInitInternal(pic, 0x0210)
+    fields = ctypes.cast(pic, ctypes.POINTER(ctypes.c_int32))
+    fields[0] = config.get("lossless", 0)     # use_argb
+    fields[2], fields[3] = w, h
+    assert lib.WebPPictureImportRGBA(pic, rgba.ctypes.data_as(
+        ctypes.c_void_p), 4 * w)
+    writer = (ctypes.c_uint8 * 32)()
+    lib.WebPMemoryWriterInit(writer)
+    ptrs = ctypes.cast(pic, ctypes.POINTER(ctypes.c_void_p))
+    ptrs[12] = ctypes.cast(lib.WebPMemoryWrite, ctypes.c_void_p).value
+    ptrs[13] = ctypes.addressof(writer)
+    ok = lib.WebPEncode(cfg, pic)
+    mem = ctypes.cast(writer, ctypes.POINTER(ctypes.c_void_p))
+    size = ctypes.cast(writer, ctypes.POINTER(ctypes.c_size_t))[1]
+    blob = ctypes.string_at(mem[0], size)
+    lib.WebPMemoryWriterClear(writer)
+    lib.WebPPictureFree(pic)
+    assert ok, "WebPEncode failed"
+    return blob
+
+
+def alpha_filter(a, method: int) -> np.ndarray:
+    """The WebP alpha filters' forward direction (1 horizontal, 2
+    vertical, 3 gradient; 0 none) on (h, w) uint8."""
+    a = np.asarray(a).astype(np.int32)
+    pred = np.zeros_like(a)
+    pred[0, 1:] = a[0, :-1]
+    if method:
+        pred[1:, 0] = a[:-1, 0]
+    if method == 1:
+        pred[1:, 1:] = a[1:, :-1]
+    elif method == 2:
+        pred[1:, 1:] = a[:-1, 1:]
+    elif method == 3:
+        pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    if method == 0:
+        pred[:] = 0
+    return ((a - pred) & 0xFF).astype(np.uint8)
+
+
+def alph_chunk(a, method: int, compression: int, vp8l_of_green) -> bytes:
+    """An ALPH payload: the header byte and the filtered plane, raw or as
+    a VP8L image stream whose green channel holds it (`vp8l_of_green`
+    maps an (h, w, 4) RGBA image to a VP8L chunk's payload)."""
+    f = alpha_filter(a, method)
+    if compression == 0:
+        return bytes([method << 2]) + f.tobytes()
+    g = np.zeros(f.shape + (4,), np.uint8)
+    g[..., 1], g[..., 3] = f, 255
+    return bytes([1 | method << 2]) + vp8l_of_green(g)[5:]
+
+
+def riff(*chunks) -> bytes:
+    """A RIFF/WEBP file of (tag, payload) chunks, each padded to even."""
+    body = b"".join(tag + struct.pack("<I", len(data)) + data
+                    + b"\0" * (len(data) & 1) for tag, data in chunks)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def riff_chunk(blob: bytes, tag: bytes):
+    """The payload of a WebP file's first top-level chunk `tag`, or None."""
+    pos = 12
+    while pos < len(blob):
+        n = struct.unpack_from("<I", blob, pos + 4)[0]
+        if blob[pos:pos + 4] == tag:
+            return blob[pos + 8:pos + 8 + n]
+        pos += 8 + n + (n & 1)
+    return None
