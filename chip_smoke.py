@@ -319,7 +319,10 @@ OPT_SALT_STEPS = 20
 OPT_BF16_STEPS = 200
 EXTRA_STEPS = {"image": 300, "sdf": 250, "takikawa": 150, "volume": 300}
 EXTRA_TESTBED_STEPS = 100      # phase 17's Testbed in Image mode
-FORMATS_STEPS = 450            # phase 19: stage 1 to 300, stage 2 to 450
+FORMATS_STEPS = 300            # phase 19: stage 1 to 200, stage 2 to 300
+JP2_STEPS = 200                # phase 19's JPEG 2000 / Group 4 scene
+JP2_MESH_RES = 256
+JP2_SCENE = ROOT / "tests" / "torch_fixtures" / "jp2_scene"
 CODEC_VIEW = (512, 612)        # phase 19's codec timings: H, W
 PHOTO = (3024, 4032)
 CODEC_REPEATS = 5
@@ -2538,6 +2541,23 @@ def codec_timings(work: Path) -> dict:
                              sunras.read_sunras, u8),
     }
     out = {"view": [w, h], "repeats": CODEC_REPEATS}
+    # formats the port reads and does not write: phase 20's 612x512
+    # fixtures of the same sphere (see make_fixtures.py)
+    from rnb_neus2_torch.io import image_io
+    for name, file, mode in (
+            ("jp2_lossless_16bit_colour", "jp2_lossless16_612x512.jp2",
+             "unchanged"),
+            ("jp2_lossy_8bit_colour", "jp2_lossy8_612x512.jp2", "color"),
+            ("tiff_group4_mask", "g4_mask_612x512.tif", "unchanged")):
+        dec = []
+        for _ in range(CODEC_REPEATS):
+            t0 = time.perf_counter()
+            got = image_io.read_image(FIXTURES / file, mode)
+            dec.append((time.perf_counter() - t0) * 1e3)
+        if got.shape[:2] != (h, w):
+            raise AssertionError(f"{name}: {got.shape}")
+        out[name] = {"decode_ms": statistics.median(dec), "mode": mode,
+                     "bytes": (FIXTURES / file).stat().st_size}
     for name, (ext, write, read, want) in cases.items():
         path = work / f"codec_{name}{ext}"
         enc, dec = [], []
@@ -2603,10 +2623,108 @@ def scene_load_seconds() -> list:
     return seconds
 
 
+def _digest(a) -> str:
+    import hashlib
+    import numpy as np
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(f"{a.dtype}{a.shape}".encode()
+                          + a.tobytes()).hexdigest()
+
+
+def jp2_scene_phase(torch, kernels, root: Path, png) -> dict:
+    """Phase 19: the committed sphere of lossless 16-bit JPEG 2000
+    normals, lossy 8-bit JPEG 2000 albedos and Group 4 TIFF masks
+    (tests/torch_fixtures/jp2_scene), prepared on the host: normals and
+    their alphas (the masks) equal to the PNG scene's prepared ones
+    (root/png/prepared), the albedos, normals and n2w equal to the JAX
+    package's (expected.json's digests);
+    then `run_full_pipeline` on the card (JP2_STEPS, mesh at JP2_MESH_RES)
+    with its launches per level bucket and the mesh's median radius
+    within a voxel of the sphere's."""
+    import numpy as np
+    from rnb_neus2_torch.cli import pipeline
+    from rnb_neus2_torch.io.dataloaders import load_data
+    from rnb_neus2_torch.io.prepare import prepare_testbed_data
+    from rnb_neus2_torch.mesh.writer import load_obj
+
+    expected = json.loads((JP2_SCENE / "expected.json").read_text())
+    kw = dict(albedo_sfm_path=str(JP2_SCENE / "albedos.sfm.json"),
+              mask_sfm_path=str(JP2_SCENE / "masks.sfm.json"))
+    normals = str(JP2_SCENE / "normals.sfm.json")
+    t0 = time.perf_counter()
+    data = load_data(normals, **kw)
+    prepare_testbed_data(data, str(root / "jp2" / "prepared"))
+    prep_s = time.perf_counter() - t0
+    a, b = root / "png" / "prepared", root / "jp2" / "prepared"
+    cmp = {"frames": 0, "normals_equal": True, "alphas_equal": True,
+           "albedo_digests_equal": True, "normal_digests_equal": True}
+    for name in sorted(p.name for p in (a / "normals").glob("*.png")):
+        cmp["frames"] += 1
+        na, nb = (png.read_png(d / "normals" / name) for d in (a, b))
+        ab = png.read_png(b / "albedos" / name)
+        # the normal map's alpha is the mask's; the albedo's alpha follows
+        # its lossy samples, held by the digest
+        cmp["normals_equal"] &= bool(np.array_equal(na[..., :3],
+                                                    nb[..., :3]))
+        cmp["alphas_equal"] &= bool(np.array_equal(na[..., 3], nb[..., 3]))
+        want = expected["frames"][name]
+        cmp["albedo_digests_equal"] &= _digest(ab) == want["albedo"]
+        cmp["normal_digests_equal"] &= _digest(nb) == want["normal"]
+    with open(b / "transform.json") as f:
+        cmp["n2w_equal"] = json.load(f)["n2w"] == expected["n2w"]
+    cmp["mask_files"] = sorted({Path(v["mask_path"]).suffix
+                                for v in data["views"]})
+    log("formats_jp2_prepare", prepare_s=prep_s, **cmp)
+    if not (cmp["frames"] == SPHERE["n_views"] and cmp["normals_equal"]
+            and cmp["alphas_equal"] and cmp["albedo_digests_equal"]
+            and cmp["normal_digests_equal"] and cmp["n2w_equal"]
+            and cmp["mask_files"] == [".tif"]):
+        raise AssertionError(f"prepared JPEG 2000 / Group 4 scene: {cmp}")
+
+    buckets, undo = _record_step_bodies()
+    for k in kernels.values():
+        k.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        mesh_path = pipeline.run_full_pipeline(
+            normals, str(root / "jp2_out"), max_steps=JP2_STEPS,
+            mesh_resolution=JP2_MESH_RES, device="cuda", **kw)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    total = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    want = _expected_launches(buckets)
+    with open(root / "jp2_out" / "prepared_data" / "transform.json") as f:
+        voxel = 2.0 / JP2_MESH_RES * json.load(f)["n2w"][0][0]
+    V, F = load_obj(mesh_path)
+    center = np.asarray(expected["world_center"])
+    radius = float(np.median(np.linalg.norm(V - center, axis=1)))
+    row = {"steps": JP2_STEPS, "step_bodies": len(buckets),
+           "launches": launches, "launches_expected": want,
+           "pipeline_s": total, "vertices": len(V), "faces": len(F),
+           "median_radius": radius,
+           "world_radius": expected["world_radius"], "voxel": voxel,
+           **{k: cmp[k] for k in ("normals_equal", "alphas_equal",
+                                  "albedo_digests_equal", "n2w_equal")},
+           "prepare_s": prep_s}
+    log("formats_jp2", **row)
+    if launches != want:
+        raise AssertionError(f"JPEG 2000 scene: kernel launches {launches} "
+                             f"in {len(buckets)} steps; want {want}")
+    if not (len(F) and abs(radius - expected["world_radius"]) <= voxel):
+        raise AssertionError(f"JPEG 2000 scene: median radius {radius}, "
+                             f"the sphere's {expected['world_radius']} "
+                             f"(voxel {voxel})")
+    return row
+
+
 def formats_phase(torch, kernels, card) -> dict:
-    """Phase 19: the Meshroom-style scene in PNG and in EXR/TIFF/JPEG,
-    prepared and compared, the EXR/TIFF/JPEG one through the pipeline on
-    the card, then the codecs' timings."""
+    """Phase 19: the Meshroom-style scene in PNG, in EXR/TIFF/JPEG and in
+    PPM/BMP/PGM, prepared and compared, the committed JPEG 2000 / Group 4
+    scene prepared and through the pipeline on the card, the EXR/TIFF/JPEG
+    one through the pipeline, then the codecs' timings."""
     import numpy as np
     from rnb_neus2_torch.cli import pipeline
     from rnb_neus2_torch.io import png
@@ -2635,6 +2753,7 @@ def formats_phase(torch, kernels, card) -> dict:
         cmp = _compare_prepared(png, root / "png" / "prepared",
                                 root / "exr" / "prepared")
         netpbm = netpbm_scene(root, png, world_center)
+        jp2 = jp2_scene_phase(torch, kernels, root, png)
         log("formats_prepare", seconds=seconds, mask_files=sorted(
             {Path(p).suffix for p in mask_paths}), **cmp)
         if not (cmp["frames"] == SPHERE["n_views"] and cmp["albedo_equal"]
@@ -2679,7 +2798,7 @@ def formats_phase(torch, kernels, card) -> dict:
            "launches": launches, "launches_expected": want,
            "pipeline_s": total, "vertices": len(V), "faces": len(F),
            "median_radius": radius, "world_radius": r_world, "voxel": voxel,
-           "codecs": codecs, "card": card}
+           "codecs": codecs, "jp2_scene": jp2, "card": card}
     log("formats", **row)
     if launches != want:
         raise AssertionError(f"kernel launches {launches} in "
@@ -2692,7 +2811,8 @@ def formats_phase(torch, kernels, card) -> dict:
 
 def decode_fixtures() -> dict:
     """Phase 20, part 1: every fixture of tests/torch_fixtures/formats
-    (JPEG, TIFF, BMP, PNM/PAM/PFM, Radiance, Sun raster, GIF, WebP)
+    (JPEG, TIFF with CCITT, BMP, PNM/PAM/PFM, Radiance, Sun raster, GIF,
+    WebP, JPEG 2000)
     decoded in each mode on the host, equal to cv2's decode in
     expected.npz; where cv2 returned None (an empty array there), the
     port must raise UnreadableImage. The 612x512 files are timed in
@@ -2726,7 +2846,9 @@ def decode_fixtures() -> dict:
     big = {}
     for name in ("prog_612x512.jpg", "prog_612x512_cut3.jpg",
                  "webp_lossy_612x512.webp", "webp_lossless_612x512.webp",
-                 "hdr_612x512.hdr", "bmp_rle8_612x512.bmp"):
+                 "hdr_612x512.hdr", "bmp_rle8_612x512.bmp",
+                 "jp2_lossless16_612x512.jp2", "jp2_lossy8_612x512.jp2",
+                 "g4_mask_612x512.tif"):
         times = []
         for _ in range(FIXTURE_REPEATS):
             t0 = time.perf_counter()
@@ -2977,6 +3099,9 @@ def main() -> int:
         t = par["kernels"][row["name"]]
         row["launches_parallel"] = par["launches"][row["name"]]
         row["launches_formats"] = fmts["launches"][row["name"]]
+        row["launches_formats_jp2"] = \
+            fmts["jp2_scene"]["launches"][row["name"]]
+        row["formats_jp2_steps"] = fmts["jp2_scene"]["step_bodies"]
         row["launches_train_api"] = \
             final["train_api"]["launches"][row["name"]]
         row["formats_steps"] = fmts["step_bodies"]

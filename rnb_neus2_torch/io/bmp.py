@@ -15,8 +15,8 @@ palette entry 0), bottom-up and top-down rows. What cv2 gives back:
 32-bit BI_BITFIELDS pixels are the bytes as stored (B, G, R, A) unless
 a header of 56 bytes or more holds non-zero R, G and B masks: then each
 channel is (v & mask) >> shift, scaled by 255 // (mask >> shift), alpha
-255 where its mask is 0, and their grey is the float32 sum 0.114 B +
-0.587 G + 0.299 R, truncated.
+255 where its mask is 0, and their grey is the float32 sum 0.299 R +
+0.587 G + 0.114 B, in that order, truncated.
 
 16-bit samples expand by a shift (v << 3), not by replication. Writes
 8-bit grey with a grey palette, 24-bit colour, and 32-bit BGRA under a
@@ -170,7 +170,7 @@ def read_bmp(path, mode: str = "unchanged") -> np.ndarray:
         if ch == 1 and hd.masks is not None:
             r, g, b = (out[..., i].astype(np.float32) for i in range(3))
             f = np.float32
-            out = (b * f(0.114) + g * f(0.587) + r * f(0.299)) \
+            out = (r * f(0.299) + g * f(0.587) + b * f(0.114)) \
                 .astype(np.uint8)
         elif ch == 1:
             out = cv_grey(out)

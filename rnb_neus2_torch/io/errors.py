@@ -29,3 +29,15 @@ def unreadable(path, what: str):
 
 def unsupported(path, what: str):
     raise UnsupportedImage(f"{path}: {what} is not supported")
+
+
+# cv2's imread refuses larger images before it decodes them
+# (loadsave.cpp:validateInputImageSize, CV_IO_MAX_IMAGE_WIDTH/HEIGHT/PIXELS)
+MAX_SIDE, MAX_PIXELS = 1 << 20, 1 << 30
+
+
+def check_size(path, width: int, height: int) -> None:
+    if not (0 < width <= MAX_SIDE and 0 < height <= MAX_SIDE
+            and width * height <= MAX_PIXELS):
+        unreadable(path, f"image of {width}x{height} pixels, past cv2's "
+                   "limits")

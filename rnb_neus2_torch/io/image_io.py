@@ -4,8 +4,8 @@
 Files are read and written by the port's own codecs (no `cv2`): PNG
 (`io/png.py`), TIFF (`io/tiff.py`), JPEG (`io/jpeg.py`), OpenEXR
 (`io/exr.py`), BMP (`io/bmp.py`), PNM/PAM/PFM (`io/pxm.py`), Radiance
-HDR (`io/hdr.py`), Sun raster (`io/sunras.py`), GIF (`io/gif.py`) and
-WebP (`io/webp.py`). A file's format is found from its signature, as
+HDR (`io/hdr.py`), Sun raster (`io/sunras.py`), GIF (`io/gif.py`), WebP
+(`io/webp.py`) and JPEG 2000 (`io/jpeg2000.py`). A file's format is found from its signature, as
 `cv2.imread` finds it, and its samples come back as cv2 gives them, but
 in RGB(A) order: the JAX package flips cv2's BGR(A), the port's readers
 give RGB(A) directly and flip nothing. A grey+alpha PNG reads as (grey,
@@ -27,7 +27,8 @@ import os
 
 import numpy as np
 
-from . import bmp, exr, gif, hdr, jpeg, png, pxm, sunras, tiff, webp
+from . import (bmp, exr, gif, hdr, jpeg, jpeg2000, png, pxm, sunras, tiff,
+               webp)
 from .errors import UnreadableImage, unreadable, unsupported
 
 
@@ -63,11 +64,6 @@ def decode_normal(rgb: np.ndarray, alpha: np.ndarray) -> np.ndarray:
 # files
 # ---------------------------------------------------------------------------
 
-# formats cv2 reads that the port does not yet, by their signatures
-OTHER_FORMATS = ((b"\x00\x00\x00\x0cjP  ", "JPEG 2000"),
-                 (b"\xff\x4f\xff\x51", "JPEG 2000"))
-
-
 def _reader(path):
     """The reader of the file's format, from its signature, as
     `cv2.imread` finds it. A missing file or one of no format cv2 reads
@@ -101,9 +97,8 @@ def _reader(path):
         return gif.read_gif
     if webp.is_webp(head):
         return webp.read_webp
-    for sig, name in OTHER_FORMATS:
-        if head.startswith(sig):
-            unsupported(path, f"{name} image")
+    if jpeg2000.is_jpeg2000(head):
+        return jpeg2000.read_jpeg2000
     if head[4:8] == b"ftyp" and head[8:12] in (b"avif", b"avis"):
         unsupported(path, "AVIF image")
     unreadable(path, "not an image file cv2 reads")

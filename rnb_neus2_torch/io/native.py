@@ -1,8 +1,9 @@
 """The codecs' C helpers (`native/codecs.cc`): LZW and PackBits for TIFF,
 RLE for EXR, the entropy coding of JPEG scans (sequential and
 progressive Huffman, arithmetic, lossless), BMP RLE, PNM's ASCII
-numbers, Radiance RLE, GIF LZW, and WebP's lossless and lossy
-bitstreams. Built with g++ into
+numbers, Radiance RLE, GIF LZW, WebP's lossless and lossy bitstreams,
+TIFF's CCITT and ThunderScan codecs, and a JPEG 2000 tile (tier-2,
+tier-1, the inverse wavelet). Built with g++ into
 `build/` at first use (`kernels/build.py:load_host_library`) and bound
 with ctypes; each returns a byte count or a negative error code.
 """
@@ -48,6 +49,10 @@ SIGNATURES = {
     "alpha_ungradient": [_P, _I32, _I32],
     "vp8_parse": [_P, _I64, _P, _P, _P, _I64],
     "vp8_reconstruct": [_P, _P, _P, _P, _P, _P],
+    "fax_decode": [_P, _I64, _I32, _I32, _I32, _I32, _I64, _I64, _P],
+    "thunder_decode": [_P, _I64, _I64, _I64, _P],
+    "j2k_decode_tile": [_P, _I64, _P, _I64, _I32, _P, _I32, _P, _P, _I32,
+                        _P, _I32, _P, _I32, _P, _P],
 }
 
 
@@ -242,6 +247,33 @@ def vp8l_unpredict(px: np.ndarray, modes: np.ndarray, bits: int) -> None:
 def alpha_ungradient(a: np.ndarray) -> None:
     """The ALPH gradient filter's inverse, in place on (h, w) uint8."""
     _library().alpha_ungradient(ptr(a), a.shape[1], a.shape[0])
+
+
+def fax_decode(src: bytes, kind: int, two_d: int, lsb_first: bool,
+               odd_start: int, width: int, rows: int, out: np.ndarray) -> int:
+    """CCITT data (TIFF compression `kind`: 2, 3, 4 or 32771) → packed
+    1-bit rows in `out`; → bytes written or a negative code."""
+    return _library().fax_decode(src, len(src), kind, two_d, int(lsb_first),
+                                 odd_start, width, rows, ptr(out))
+
+
+def thunder_decode(src: bytes, width: int, rows: int,
+                   out: np.ndarray) -> int:
+    """ThunderScan data → packed 4-bit rows in `out`; → bytes or -1."""
+    return _library().thunder_decode(src, len(src), width, rows, ptr(out))
+
+
+def j2k_decode_tile(data: bytes, head: bytes, comps, bands, steps, precs,
+                    cblks, packets, out: np.ndarray) -> int:
+    """One JPEG 2000 tile (see codecs.cc) into `out` (int32 words);
+    → 0 or a negative code."""
+    arrays = [np.ascontiguousarray(a) for a in (comps, bands, steps, precs,
+                                                cblks, packets)]
+    comps, bands, steps, precs, cblks, packets = arrays
+    return _library().j2k_decode_tile(
+        data, len(data), head, len(head), len(comps), ptr(comps),
+        len(bands), ptr(bands), ptr(steps), len(precs), ptr(precs),
+        len(cblks), ptr(cblks), len(packets), ptr(packets), ptr(out))
 
 
 VP8_MAX_MB = 1 << 20

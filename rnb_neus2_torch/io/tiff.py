@@ -5,7 +5,10 @@
 Reads the first image of a TIFF or BigTIFF as `cv2.imread` does (byte
 order `II` or `MM`): strips or tiles (edge tiles cropped), planar
 configuration 1 or 2; compression none (1), LZW (5), Deflate (8, 32946),
-PackBits (32773) or JPEG (7, with JPEGTables, through `io/jpeg.py`);
+PackBits (32773), JPEG (7, with JPEGTables, through `io/jpeg.py`), the
+CCITT codecs of bilevel images (2 modified Huffman, 3 T.4 1-D and 2-D,
+4 T.6, 32771 RLEW; FillOrder 2) as libtiff's tif_fax3.c decodes them,
+or ThunderScan (32809, 4-bit);
 predictor none, horizontal differencing (2) or floating point (3);
 orientations 1-8 in every mode, as `exif.orient` (5-8 only for square
 images: cv2 transposes in place and fails on others). cv2 reads 1-, 4-
@@ -25,8 +28,12 @@ _GRAYSCALE.
 What cv2 cannot read either raises `errors.UnreadableImage`: 2-bit
 samples, 4-bit grey, orientations 5-8 of a non-square image, 16-bit
 CMYK, CMYK with alpha, float16, 32- and 64-bit samples read as 8-bit
-colour or grey. What cv2 reads and this reader does not raises
-`errors.UnsupportedImage`: old-style JPEG (6) and other compressions,
+colour or grey, and the codecs cv2's libtiff was built without
+(`NOT_CONFIGURED`: old-style JPEG, PixarLog, JBIG, LERC, LZMA, ZSTD,
+WebP). What cv2 reads and this reader does not raises
+`errors.UnsupportedImage`: SGILog, a code libtiff does not know (cv2
+reads zeros), CCITT or ThunderScan data libtiff would have to recover
+from,
 16-bit and float planar-separate files of several samples (which cv2
 decodes into uninitialized memory), 16-bit grey tiles of partial width
 read as 8-bit, grey with more than one extra sample, other photometric
@@ -45,11 +52,24 @@ from pathlib import Path
 import numpy as np
 
 from . import exif, jpeg, native
-from .errors import unreadable, unsupported
+from .errors import check_size, unreadable, unsupported
 
 SIGNATURES = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
 NONE, LZW, DEFLATE, ADOBE_DEFLATE, PACKBITS, JPEG = 1, 5, 32946, 8, 32773, 7
-COMPRESSIONS = (NONE, LZW, DEFLATE, ADOBE_DEFLATE, PACKBITS)
+CCITT_RLE, CCITT_T4, CCITT_T6, CCITT_RLEW, THUNDERSCAN = 2, 3, 4, 32771, 32809
+FAX = (CCITT_RLE, CCITT_T4, CCITT_T6, CCITT_RLEW)
+COMPRESSIONS = (NONE, LZW, DEFLATE, ADOBE_DEFLATE, PACKBITS, *FAX,
+                THUNDERSCAN)
+# codecs libtiff knows and cv2's libtiff was built without: cv2.imread
+# returns None ("... compression support is not configured")
+NOT_CONFIGURED = {6: "old-style JPEG", 32909: "PixarLog", 34661: "JBIG",
+                  34887: "LERC", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP"}
+# codecs cv2 decodes and this reader does not
+NOT_READ = {34676: "SGILog", 34677: "SGILog24"}
+FAX_ERRORS = {-1: "that ends early", -2: "with a bad code word",
+              -3: "with a row of the wrong length",
+              -4: "in uncompressed mode", -5: "with runs past the row",
+              -6: "with an EOL inside a row (or zeros past its end)"}
 PREDICTED = (LZW, DEFLATE, ADOBE_DEFLATE)
 # field type → (struct code, size)
 TYPES = {1: ("B", 1), 2: ("c", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8),
@@ -57,6 +77,10 @@ TYPES = {1: ("B", 1), 2: ("c", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8),
          11: ("f", 4), 12: ("d", 8), 13: ("I", 4), 16: ("Q", 8),
          17: ("q", 8), 18: ("Q", 8)}
 MINISWHITE, MINISBLACK, RGB, PALETTE, SEPARATED, YCBCR = 0, 1, 2, 3, 5, 6
+# the tags this reader takes as integers, and the integer field types
+LAYOUT_TAGS = (256, 257, 258, 259, 262, 266, 273, 274, 277, 278, 279, 284,
+               292, 317, 320, 322, 323, 324, 325, 338, 339, 530)
+INTEGER_TYPES = (1, 3, 4, 6, 8, 9, 13, 16, 17, 18)
 
 
 def _ifd(blob: bytes, path):
@@ -85,8 +109,10 @@ def _ifd(blob: bytes, path):
             count, = struct.unpack_from(order + ("Q" if big else "I"), blob,
                                         at + 4)
             raw = blob[at + (12 if big else 8):][:inline]
-            if typ not in TYPES:
+            if typ not in TYPES or count == 0:
                 continue
+            if tag in LAYOUT_TAGS and typ not in INTEGER_TYPES:
+                unreadable(path, f"TIFF tag {tag} of field type {typ}")
             code, size = TYPES[typ]
             nbytes = size * count
             data = raw if nbytes <= inline else blob[struct.unpack(
@@ -109,6 +135,7 @@ class _Layout:
         if 256 not in tags or 257 not in tags:
             unreadable(path, "TIFF without ImageWidth or ImageLength")
         self.w, self.h = tags[256][0], tags[257][0]
+        check_size(path, self.w, self.h)
         self.spp = tags.get(277, (1,))[0]
         bits = set(tags.get(258, (1,)))
         fmt = set(tags.get(339, (1,)))
@@ -146,11 +173,26 @@ class _Layout:
             unsupported(path, f"TIFF with {bits}-bit samples of "
                         f"SampleFormat {fmt}")
         self.dtype = np.dtype(dtype)
+        if self.comp in NOT_CONFIGURED:
+            unreadable(path, f"TIFF compression {self.comp} "
+                       f"({NOT_CONFIGURED[self.comp]}), which cv2's libtiff "
+                       "lacks")
         if self.comp == JPEG:
             if bits != 8:
                 unsupported(path, f"{bits}-bit JPEG-compressed TIFF")
+        elif self.comp in NOT_READ:
+            unsupported(path, f"TIFF compression {self.comp} "
+                        f"({NOT_READ[self.comp]})")
         elif self.comp not in COMPRESSIONS:
-            unsupported(path, f"TIFF compression {self.comp}")
+            unsupported(path, f"TIFF compression {self.comp} (libtiff does "
+                        "not know it; cv2 reads zeros)")
+        if self.comp in FAX and (bits != 1 or spp != 1):
+            unreadable(path, f"CCITT-compressed TIFF of {spp} {bits}-bit "
+                       "samples")
+        if self.comp == THUNDERSCAN and (bits != 4 or spp != 1):
+            unreadable(path, f"ThunderScan TIFF of {spp} {bits}-bit samples")
+        self.fill_order = tags.get(266, (1,))[0]
+        self.t4_options = tags.get(292, (0,))[0]
         kinds = {MINISWHITE: (1, 2), MINISBLACK: (1, 2), RGB: (3, 4),
                  PALETTE: (1,), SEPARATED: (4,), YCBCR: (3,)}
         if spp not in kinds.get(ph, ()):
@@ -193,8 +235,32 @@ class _Layout:
             unreadable(path, "TIFF with empty tiles or strips")
 
 
-def _decompress(blob, offset, count, comp, size, path) -> bytes:
+def _fax(data, lay, offset, cols, rows, path) -> bytes:
+    """One chunk of CCITT data → its rows of packed 1-bit samples, as
+    libtiff's tif_fax3.c decodes them; what libtiff would have to recover
+    from is refused."""
+    out = np.empty(rows * -(-cols // 8), np.uint8)
+    n = native.fax_decode(data, lay.comp, lay.t4_options & 1,
+                          lay.fill_order == 2, offset & 1, cols, rows, out)
+    if n < 0:
+        if lay.t4_options & 2 and n == -4:
+            unsupported(path, "CCITT uncompressed mode (T4Options bit 1)")
+        unsupported(path, f"CCITT data {FAX_ERRORS.get(n, n)} (libtiff "
+                    "recovers from it in its own way)")
+    return out.tobytes()
+
+
+def _decompress(blob, offset, count, comp, size, path, lay=None,
+                cols=0, rows=0) -> bytes:
     data = blob[offset:offset + count]
+    if comp in FAX:
+        return _fax(data, lay, offset, cols, rows, path)
+    if comp == THUNDERSCAN:
+        out = np.empty(rows * -(-cols // 2), np.uint8)
+        if native.thunder_decode(data, cols, rows, out) < 0:
+            unsupported(path, "ThunderScan data that does not fill its rows "
+                        "exactly (libtiff leaves bytes unwritten)")
+        return out.tobytes()
     try:
         if comp == NONE:
             out = data
@@ -276,7 +342,7 @@ def _decode(blob, lay, order, path) -> np.ndarray:
             # a strip holds its rows only; a tile is always whole
             n_rows = lay.ch if lay.tiled else rows
             raw = _decompress(blob, lay.offsets[k], counts[k], lay.comp,
-                              row_bytes * n_rows, path)
+                              row_bytes * n_rows, path, lay, lay.cw, n_rows)
             s = _samples(raw, n_rows, lay.cw, per, lay, order)
             out[y:y + rows, x:x + cols, p * per:(p + 1) * per] = \
                 s[:rows, :cols]

@@ -26,7 +26,9 @@ from typing import Dict, Sequence, Tuple
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-GXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC")
+# no fused multiply-adds: the JPEG 2000 9/7 wavelet rounds each product
+# and sum in float32, as OpenJPEG does
+GXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC", "-ffp-contract=off")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 REPO = Path(__file__).resolve().parents[2]
 BUILD_ROOT = REPO / "build" / "rnb_neus2_torch"

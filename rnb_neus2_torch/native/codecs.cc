@@ -2720,3 +2720,1106 @@ extern "C" int64_t vp8_reconstruct(const int32_t* info, const uint8_t* mb,
   }
   return 0;
 }
+
+// ---------------------------------------------------------------- CCITT fax
+// libtiff 4.7's tif_fax3.c decoders, state machine for state machine: the
+// bit accumulator (bytes enter LSB first, through the fill order's bit
+// map), the run arrays (alternating white and black, the reference line
+// ending in an imaginary 0), `EXPAND1D`, `EXPAND2D`, `SYNC_EOL` and the
+// RLE/RLEW row alignments. Where libtiff logs an error and recovers
+// (a bad code word, a line of the wrong length, uncompressed mode, data
+// that ends early) this returns a negative code instead.
+namespace fax {
+
+enum State : uint8_t { kNull, kPass, kHoriz, kV0, kVR, kVL, kExt, kTermW,
+                       kTermB, kMakeUpW, kMakeUpB, kMakeUp, kEol };
+struct Ent { uint8_t state = kNull, width = 0; uint16_t param = 0; };
+struct Tables { Ent main[1 << 7], white[1 << 12], black[1 << 13]; };
+
+// ITU-T T.4 tables 2 and 3: terminating codes 0-63, then make-up codes
+const char* const kWhiteTerm[64] = {
+  "00110101", "000111", "0111", "1000", "1011", "1100", "1110", "1111",
+  "10011", "10100", "00111", "01000", "001000", "000011", "110100",
+  "110101", "101010", "101011", "0100111", "0001100", "0001000", "0010111",
+  "0000011", "0000100", "0101000", "0101011", "0010011", "0100100",
+  "0011000", "00000010", "00000011", "00011010", "00011011", "00010010",
+  "00010011", "00010100", "00010101", "00010110", "00010111", "00101000",
+  "00101001", "00101010", "00101011", "00101100", "00101101", "00000100",
+  "00000101", "00001010", "00001011", "01010010", "01010011", "01010100",
+  "01010101", "00100100", "00100101", "01011000", "01011001", "01011010",
+  "01011011", "01001010", "01001011", "00110010", "00110011", "00110100"};
+const char* const kWhiteMakeUp[27] = {  // 64, 128, ..., 1728
+  "11011", "10010", "010111", "0110111", "00110110", "00110111",
+  "01100100", "01100101", "01101000", "01100111", "011001100", "011001101",
+  "011010010", "011010011", "011010100", "011010101", "011010110",
+  "011010111", "011011000", "011011001", "011011010", "011011011",
+  "010011000", "010011001", "010011010", "011000", "010011011"};
+const char* const kBlackTerm[64] = {
+  "0000110111", "010", "11", "10", "011", "0011", "0010", "00011",
+  "000101", "000100", "0000100", "0000101", "0000111", "00000100",
+  "00000111", "000011000", "0000010111", "0000011000", "0000001000",
+  "00001100111", "00001101000", "00001101100", "00000110111",
+  "00000101000", "00000010111", "00000011000", "000011001010",
+  "000011001011", "000011001100", "000011001101", "000001101000",
+  "000001101001", "000001101010", "000001101011", "000011010010",
+  "000011010011", "000011010100", "000011010101", "000011010110",
+  "000011010111", "000001101100", "000001101101", "000011011010",
+  "000011011011", "000001010100", "000001010101", "000001010110",
+  "000001010111", "000001100100", "000001100101", "000001010010",
+  "000001010011", "000000100100", "000000110111", "000000111000",
+  "000000100111", "000000101000", "000001011000", "000001011001",
+  "000000101011", "000000101100", "000001011010", "000001100110",
+  "000001100111"};
+const char* const kBlackMakeUp[27] = {
+  "0000001111", "000011001000", "000011001001", "000001011011",
+  "000000110011", "000000110100", "000000110101", "0000001101100",
+  "0000001101101", "0000001001010", "0000001001011", "0000001001100",
+  "0000001001101", "0000001110010", "0000001110011", "0000001110100",
+  "0000001110101", "0000001110110", "0000001110111", "0000001010010",
+  "0000001010011", "0000001010100", "0000001010101", "0000001011010",
+  "0000001011011", "0000001100100", "0000001100101"};
+const char* const kExtMakeUp[13] = {  // 1792, 1856, ..., 2560, both colours
+  "00000001000", "00000001100", "00000001101", "000000010010",
+  "000000010011", "000000010100", "000000010101", "000000010110",
+  "000000010111", "000000011100", "000000011101", "000000011110",
+  "000000011111"};
+const char* const kEolCode = "000000000001";
+
+// a code, first bit first, at every index of a table read LSB first
+void put(Ent* tab, int wid, const char* bits, uint8_t state, int param) {
+  int len = static_cast<int>(strlen(bits));
+  uint32_t rev = 0;
+  for (int i = 0; i < len; ++i)
+    if (bits[i] == '1') rev |= 1u << i;
+  for (uint32_t hi = 0; hi < (1u << (wid - len)); ++hi)
+    tab[rev | (hi << len)] = {state, static_cast<uint8_t>(len),
+                              static_cast<uint16_t>(param)};
+}
+
+const Tables& tables() {
+  static const Tables* t = [] {
+    Tables* t = new Tables();
+    const struct { const char* bits; uint8_t state; int param; } main[] = {
+      {"1", kV0, 0}, {"011", kVR, 1}, {"010", kVL, 1}, {"001", kHoriz, 0},
+      {"0001", kPass, 0}, {"000011", kVR, 2}, {"000010", kVL, 2},
+      {"0000011", kVR, 3}, {"0000010", kVL, 3}, {"0000001", kExt, 0},
+      {"0000000", kEol, 0}};
+    for (auto& m : main) put(t->main, 7, m.bits, m.state, m.param);
+    for (int i = 0; i < 64; ++i) {
+      put(t->white, 12, kWhiteTerm[i], kTermW, i);
+      put(t->black, 13, kBlackTerm[i], kTermB, i);
+    }
+    for (int i = 0; i < 27; ++i) {
+      put(t->white, 12, kWhiteMakeUp[i], kMakeUpW, 64 * (i + 1));
+      put(t->black, 13, kBlackMakeUp[i], kMakeUpB, 64 * (i + 1));
+    }
+    for (int i = 0; i < 13; ++i) {
+      put(t->white, 12, kExtMakeUp[i], kMakeUp, 1792 + 64 * i);
+      put(t->black, 13, kExtMakeUp[i], kMakeUp, 1792 + 64 * i);
+    }
+    put(t->white, 12, kEolCode, kEol, 0);
+    put(t->black, 13, kEolCode, kEol, 0);
+    return t;
+  }();
+  return *t;
+}
+
+enum Err { kEof = -1, kBadCode = -2, kBadLength = -3, kUncompressed = -4,
+           kOverflow = -5, kEarlyEol = -6 };
+
+struct Bits {
+  const uint8_t* data;
+  int64_t n, cp = 0;
+  uint32_t acc = 0;
+  int avail = 0;
+  bool reverse;  // FillOrder 1: the first bit of the stream is a byte's MSB
+  uint32_t byte(int64_t i) const {
+    uint32_t b = data[i];
+    if (!reverse) return b;
+    b = ((b & 0xF0) >> 4) | ((b & 0x0F) << 4);
+    b = ((b & 0xCC) >> 2) | ((b & 0x33) << 2);
+    return ((b & 0xAA) >> 1) | ((b & 0x55) << 1);
+  }
+  bool need8(int k) {
+    if (avail < k) {
+      if (cp >= n) {
+        if (avail == 0) return false;
+        avail = k;
+      } else {
+        acc |= byte(cp++) << avail;
+        avail += 8;
+      }
+    }
+    return true;
+  }
+  bool need16(int k) {
+    if (avail < k) {
+      if (cp >= n) {
+        if (avail == 0) return false;
+        avail = k;
+      } else {
+        acc |= byte(cp++) << avail;
+        if ((avail += 8) < k) {
+          if (cp >= n) {
+            avail = k;
+          } else {
+            acc |= byte(cp++) << avail;
+            avail += 8;
+          }
+        }
+      }
+    }
+    return true;
+  }
+  uint32_t get(int k) const { return acc & ((1u << k) - 1); }
+  void clr(int k) { avail -= k; acc >>= k; }
+};
+
+struct Row {
+  uint32_t* thisrun;
+  uint32_t* pa;
+  uint32_t* end;
+  int a0 = 0, run_length = 0, lastx;
+  bool set(int x) {
+    if (pa >= end) return false;
+    *pa++ = run_length + x;
+    a0 += x;
+    run_length = 0;
+    return true;
+  }
+};
+
+// One run of one colour: make-up codes, then a terminating code.
+int colour_run(Bits& b, Row& r, bool white, int& eolcnt) {
+  const Tables& t = tables();
+  for (;;) {
+    int wid = white ? 12 : 13;
+    if (!b.need16(wid)) return kEof;
+    const Ent& e = (white ? t.white : t.black)[b.get(wid)];
+    b.clr(e.width);
+    switch (e.state) {
+      case kEol: eolcnt = 1; return kEarlyEol;
+      case kTermW: case kTermB:
+        return r.set(e.param) ? 0 : kOverflow;
+      case kMakeUpW: case kMakeUpB: case kMakeUp:
+        r.a0 += e.param;
+        r.run_length += e.param;
+        break;
+      default: return kBadCode;
+    }
+  }
+}
+
+// CLEANUP_RUNS for a decoded row: anything but an exact width is refused
+int cleanup(Row& r) {
+  if (r.run_length && !r.set(0)) return kOverflow;
+  return r.a0 == r.lastx ? 0 : kBadLength;
+}
+
+int expand1d(Bits& b, Row& r, int& eolcnt) {
+  for (;;) {
+    int st = colour_run(b, r, true, eolcnt);
+    if (st) return st;
+    if (r.a0 >= r.lastx) break;
+    st = colour_run(b, r, false, eolcnt);
+    if (st) return st;
+    if (r.a0 >= r.lastx) break;
+    if (r.pa[-1] == 0 && r.pa[-2] == 0) r.pa -= 2;
+  }
+  return cleanup(r);
+}
+
+int expand2d(Bits& b, Row& r, const uint32_t* refruns, const uint32_t* refend,
+             int& eolcnt) {
+  const Tables& t = tables();
+  const uint32_t* pb = refruns;
+  int b1 = static_cast<int>(*pb++);
+  auto check_b1 = [&]() {
+    if (r.pa != r.thisrun)
+      while (b1 <= r.a0 && b1 < r.lastx) {
+        if (pb + 1 >= refend) return false;
+        b1 += pb[0] + pb[1];
+        pb += 2;
+      }
+    return true;
+  };
+  while (r.a0 < r.lastx) {
+    if (r.pa >= r.end) return kOverflow;
+    if (!b.need8(7)) return kEof;
+    const Ent& e = t.main[b.get(7)];
+    b.clr(e.width);
+    switch (e.state) {
+      case kPass:
+        if (!check_b1() || pb >= refend) return kOverflow;
+        b1 += *pb++;
+        r.run_length += b1 - r.a0;
+        r.a0 = b1;
+        if (pb >= refend) return kOverflow;
+        b1 += *pb++;
+        break;
+      case kHoriz: {
+        bool white = ((r.pa - r.thisrun) & 1) == 0;
+        int st = colour_run(b, r, white, eolcnt);
+        if (!st) st = colour_run(b, r, !white, eolcnt);
+        if (st) return st == kEarlyEol ? kBadCode : st;
+        if (!check_b1()) return kOverflow;
+        break;
+      }
+      case kV0: case kVR:
+        if (!check_b1()) return kOverflow;
+        if (!r.set(b1 - r.a0 + (e.state == kVR ? e.param : 0)))
+          return kOverflow;
+        if (pb >= refend) return kOverflow;
+        b1 += *pb++;
+        break;
+      case kVL:
+        if (!check_b1()) return kOverflow;
+        if (b1 < r.a0 + e.param) return kBadCode;
+        if (!r.set(b1 - r.a0 - e.param)) return kOverflow;
+        if (pb <= refruns) return kOverflow;
+        b1 -= *--pb;
+        break;
+      case kExt: return kUncompressed;
+      case kEol: eolcnt = 1; return kEarlyEol;
+      default: return kBadCode;
+    }
+  }
+  if (r.run_length && !r.set(0)) return kOverflow;
+  return cleanup(r);
+}
+
+// SYNC_EOL: skip to just past the next EOL (fill bits included)
+int sync_eol(Bits& b, int& eolcnt) {
+  if (eolcnt == 0) {
+    for (;;) {
+      if (!b.need16(11)) return kEof;
+      if (b.get(11) == 0) break;
+      b.clr(1);
+    }
+  }
+  for (;;) {
+    if (!b.need8(8)) return kEof;
+    if (b.get(8)) break;
+    b.clr(8);
+  }
+  while (b.get(1) == 0) b.clr(1);
+  b.clr(1);
+  eolcnt = 0;
+  return 0;
+}
+
+void fill(uint8_t* row, const uint32_t* runs, const uint32_t* end, int lastx) {
+  memset(row, 0, (lastx + 7) / 8);
+  int x = 0;
+  for (const uint32_t* p = runs; p < end && x < lastx; ++p) {
+    int run = std::min<int>(static_cast<int>(*p), lastx - x);
+    if ((p - runs) & 1)
+      for (int i = x; i < x + run; ++i) row[i >> 3] |= 0x80 >> (i & 7);
+    x += run;
+  }
+}
+
+}  // namespace
+
+// One strip or tile of CCITT data → `rows` rows of packed 1-bit samples
+// (black = 1, MSB first, rows byte-aligned). kind: 2 (MH, byte-aligned
+// rows), 32771 (MH, 16-bit-aligned rows; `odd_start` if the data begins
+// at an odd file offset), 3 (T.4 with EOLs; `two_d` for 2-D rows) or 4
+// (T.6). `lsb_first`: FillOrder 2. → bytes written, or a negative code:
+// -1 data ends early, -2 a bad code word or an EOL inside a row, -3 a row
+// of the wrong length, -4 uncompressed mode, -5 runs overflowing the row.
+extern "C" int64_t fax_decode(const uint8_t* src, int64_t n, int32_t kind,
+                              int32_t two_d, int32_t lsb_first,
+                              int32_t odd_start, int64_t width,
+                              int64_t rows, uint8_t* dst) {
+  using namespace fax;
+  Bits b{src, n};
+  b.reverse = !lsb_first;
+  // libtiff's run arrays: 2·roundup(width + 1, 32) entries each; the
+  // reference line is read up to that bound, past its own runs
+  int64_t nruns = 2 * ((width + 1 + 31) / 32 * 32);
+  std::vector<uint32_t> cur(nruns), ref(nruns);
+  ref[0] = static_cast<uint32_t>(width);
+  ref[1] = 0;
+  int64_t rowbytes = (width + 7) / 8;
+  int eolcnt = 0;
+  for (int64_t y = 0; y < rows; ++y) {
+    Row r{cur.data(), cur.data(), cur.data() + nruns, 0, 0,
+          static_cast<int>(width)};
+    int st = 0;
+    if (kind == 2 || kind == 32771) {
+      st = expand1d(b, r, eolcnt);
+      if (st) return st;
+      if (kind == 2) {
+        b.clr(b.avail - (b.avail & ~7));
+      } else {
+        b.clr(b.avail - (b.avail & ~15));
+        if (b.avail == 0 && ((b.cp + odd_start) & 1))
+          b.cp++;
+      }
+    } else {
+      bool is1d = true;
+      if (kind == 3) {
+        st = sync_eol(b, eolcnt);
+        if (st) return st;
+        if (two_d) {
+          if (!b.need8(1)) return kEof;
+          is1d = b.get(1);
+          b.clr(1);
+        }
+      } else {
+        is1d = false;
+      }
+      st = is1d ? expand1d(b, r, eolcnt)
+                : expand2d(b, r, ref.data(), ref.data() + nruns, eolcnt);
+      if (st) return st;
+    }
+    fill(dst + y * rowbytes, r.thisrun, r.pa, r.lastx);
+    if (kind == 3 || kind == 4) {
+      if (r.pa < r.end) r.set(0);
+      std::swap(cur, ref);
+    }
+  }
+  return rows * rowbytes;
+}
+
+// ThunderScan 4-bit rows (libtiff's tif_thunder.c, ThunderDecode per row)
+// into packed rows of (width + 1) / 2 bytes; a row whose pixel count is
+// not the width, or that a run ends without writing (libtiff leaves those
+// bytes as they were), → -1.
+extern "C" int64_t thunder_decode(const uint8_t* src, int64_t n,
+                                  int64_t width, int64_t rows, uint8_t* dst) {
+  static const int two[4] = {0, 1, 0, -1};
+  static const int three[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  int64_t rowbytes = (width + 1) / 2, cc = n;
+  const uint8_t* bp = src;
+  memset(dst, 0, rowbytes * rows);
+  for (int64_t y = 0; y < rows; ++y) {
+    uint8_t* op = dst + y * rowbytes;
+    unsigned lastpixel = 0;
+    int64_t npixels = 0;
+    auto setpixel = [&](unsigned v) {
+      lastpixel = v & 0xF;
+      if (npixels < width) {
+        if (npixels++ & 1) *op++ |= lastpixel;
+        else op[0] = static_cast<uint8_t>(lastpixel << 4);
+      }
+    };
+    while (cc > 0 && npixels < width) {
+      int c = *bp++, d;
+      cc--;
+      switch (c & 0xC0) {
+        case 0x00: {  // a run of the last pixel
+          int k = c & 0x3F;
+          if (npixels & 1) {
+            op[0] |= lastpixel;
+            lastpixel = *op++;
+            npixels++;
+            k--;
+          } else {
+            lastpixel |= lastpixel << 4;
+          }
+          npixels += k;
+          if (npixels >= width) return -1;
+          for (; k > 0; k -= 2) *op++ = static_cast<uint8_t>(lastpixel);
+          if (k == -1) *--op &= 0xF0;
+          lastpixel &= 0xF;
+          break;
+        }
+        case 0x40:  // 2-bit deltas
+          if ((d = (c >> 4) & 3) != 2) setpixel(lastpixel + two[d]);
+          if ((d = (c >> 2) & 3) != 2) setpixel(lastpixel + two[d]);
+          if ((d = c & 3) != 2) setpixel(lastpixel + two[d]);
+          break;
+        case 0x80:  // 3-bit deltas
+          if ((d = (c >> 3) & 7) != 4) setpixel(lastpixel + three[d]);
+          if ((d = c & 7) != 4) setpixel(lastpixel + three[d]);
+          break;
+        default:    // raw
+          setpixel(c);
+      }
+    }
+    if (npixels != width) return -1;
+  }
+  return rowbytes * rows;
+}
+
+// ---------------------------------------------------------------- JPEG 2000
+// One tile of a JPEG 2000 codestream as OpenJPEG 2.5 decodes it (ITU-T
+// T.800): tier-2 (packet headers: tag trees, inclusion, zero bit-planes,
+// pass counts, Lblock; SOP/EPH; packed headers), tier-1 (the MQ decoder,
+// the raw bypass, the significance, refinement and cleanup passes with
+// their 19 contexts, the code-block styles), ROI max-shift, dequantization
+// and the inverse 5/3 (integer) or 9/7 (float32, OpenJPEG's constants and
+// order of operations) wavelet. The geometry (bands, precincts, code-blocks)
+// and the packet order come from `io/jpeg2000.py`.
+namespace j2k {
+
+// ITU-T T.800 Table C.2: Qe, NMPS, NLPS, SWITCH
+const uint16_t kQe[47] = {
+  0x5601, 0x3401, 0x1801, 0x0AC1, 0x0521, 0x0221, 0x5601, 0x5401, 0x4801,
+  0x3801, 0x3001, 0x2401, 0x1C01, 0x1601, 0x5601, 0x5401, 0x5101, 0x4801,
+  0x3801, 0x3401, 0x3001, 0x2801, 0x2401, 0x2201, 0x1C01, 0x1801, 0x1601,
+  0x1401, 0x1201, 0x1101, 0x0AC1, 0x09C1, 0x08A1, 0x0521, 0x0441, 0x02A1,
+  0x0221, 0x0141, 0x0111, 0x0085, 0x0049, 0x0025, 0x0015, 0x0009, 0x0005,
+  0x0001, 0x5601};
+const uint8_t kNmps[47] = {
+  1, 2, 3, 4, 5, 38, 7, 8, 9, 10, 11, 12, 13, 29, 15, 16, 17, 18, 19, 20,
+  21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38,
+  39, 40, 41, 42, 43, 44, 45, 45, 46};
+const uint8_t kNlps[47] = {
+  1, 6, 9, 12, 29, 33, 6, 14, 14, 14, 17, 18, 20, 21, 14, 14, 15, 16, 17,
+  18, 19, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34,
+  35, 36, 37, 38, 39, 40, 41, 42, 43, 46};
+const uint8_t kSwitch[47] = {1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 1};
+
+enum { kCtxZc = 0, kCtxSc = 9, kCtxMag = 14, kCtxAgg = 17, kCtxUni = 18 };
+enum { kLazy = 1, kReset = 2, kTermAll = 4, kVsc = 8, kPterm = 16,
+       kSegSym = 32 };
+
+// The MQ decoder of C.3 as OpenJPEG's mqc.c runs it, over a segment
+// followed by two 0xFF bytes; and the raw (bypass) bit reader.
+struct Mq {
+  const uint8_t* bp;
+  uint32_t a = 0, c = 0;
+  int ct = 0;
+  uint8_t state[19], mps[19];
+  void reset_states() {
+    memset(state, 0, sizeof state);
+    memset(mps, 0, sizeof mps);
+    state[kCtxUni] = 46;
+    state[kCtxAgg] = 3;
+    state[kCtxZc] = 4;
+  }
+  void bytein() {
+    if (*bp == 0xFF) {
+      if (bp[1] > 0x8F) {
+        c += 0xFF00;
+        ct = 8;
+      } else {
+        bp++;
+        c += static_cast<uint32_t>(*bp) << 9;
+        ct = 7;
+      }
+    } else {
+      bp++;
+      c += static_cast<uint32_t>(*bp) << 8;
+      ct = 8;
+    }
+  }
+  void init(const uint8_t* data, int64_t len) {
+    bp = data;
+    c = len == 0 ? 0xFFu << 16 : static_cast<uint32_t>(*bp) << 16;
+    bytein();
+    c <<= 7;
+    ct -= 7;
+    a = 0x8000;
+  }
+  void init_raw(const uint8_t* data) {
+    bp = data;
+    c = 0;
+    ct = 0;
+  }
+  void renorm() {
+    do {
+      if (ct == 0) bytein();
+      a <<= 1;
+      c <<= 1;
+      ct--;
+    } while (a < 0x8000);
+  }
+  int decode(int cx) {
+    uint8_t& s = state[cx];
+    uint32_t qe = kQe[s];
+    int d;
+    a -= qe;
+    if ((c >> 16) < qe) {
+      if (a < qe) {
+        d = mps[cx];
+        s = kNmps[s];
+      } else {
+        d = !mps[cx];
+        if (kSwitch[s]) mps[cx] ^= 1;
+        s = kNlps[s];
+      }
+      a = qe;
+      renorm();
+    } else {
+      c -= qe << 16;
+      if ((a & 0x8000) == 0) {
+        if (a < qe) {
+          d = !mps[cx];
+          if (kSwitch[s]) mps[cx] ^= 1;
+          s = kNlps[s];
+        } else {
+          d = mps[cx];
+          s = kNmps[s];
+        }
+        renorm();
+      } else {
+        d = mps[cx];
+      }
+    }
+    return d;
+  }
+  int raw() {
+    if (ct == 0) {
+      if (c == 0xFF) {
+        if (*bp > 0x8F) {
+          c = 0xFF;
+          ct = 8;
+        } else {
+          c = *bp++;
+          ct = 7;
+        }
+      } else {
+        c = *bp++;
+        ct = 8;
+      }
+    }
+    ct--;
+    return (c >> ct) & 1;
+  }
+};
+
+struct Seg { int maxpasses = 0, numpasses = 0, newpasses = 0;
+             int64_t len = 0, newlen = 0; };
+
+struct Cblk {
+  int band, x0, y0, x1, y1;
+  int numbps = 0, numlenbits = 0, newpasses = 0;
+  std::vector<Seg> segs;
+  std::vector<uint8_t> data;
+};
+
+// One code-block's tier-1 decode into `out` (w·h int32, row-major).
+struct T1 {
+  int w, h, orient, style;
+  std::vector<uint8_t> sig, sgn, pi, mu;  // (h + 2) x (w + 2), padded
+  int32_t* data;
+  Mq mq;
+  int at(int x, int y) const { return (y + 1) * (w + 2) + x + 1; }
+  // the row below is outside this sample's contexts under VSC at a
+  // stripe's last row
+  bool south(int y) const { return !((style & kVsc) && (y & 3) == 3); }
+  int nb(int x, int y) const {
+    int i = at(x, y), s = w + 2, n = sig[i - 1] + sig[i + 1] + sig[i - s]
+        + sig[i - s - 1] + sig[i - s + 1];
+    if (south(y)) n += sig[i + s] + sig[i + s - 1] + sig[i + s + 1];
+    return n;
+  }
+  int zc(int x, int y) const {
+    int i = at(x, y), s = w + 2;
+    int hh = sig[i - 1] + sig[i + 1];
+    int vv = sig[i - s] + (south(y) ? sig[i + s] : 0);
+    int dd = sig[i - s - 1] + sig[i - s + 1]
+        + (south(y) ? sig[i + s - 1] + sig[i + s + 1] : 0);
+    if (orient == 3) {
+      int hv = hh + vv;
+      if (dd >= 3) return 8;
+      if (dd == 2) return hv >= 1 ? 7 : 6;
+      if (dd == 1) return hv >= 2 ? 5 : hv == 1 ? 4 : 3;
+      return hv >= 2 ? 2 : hv;
+    }
+    if (orient == 1) std::swap(hh, vv);
+    if (hh == 2) return 8;
+    if (hh == 1) return vv ? 7 : dd ? 6 : 5;
+    if (vv) return vv == 2 ? 4 : 3;
+    return dd >= 2 ? 2 : dd;
+  }
+  int contribution(int i) const { return sig[i] ? (sgn[i] ? -1 : 1) : 0; }
+  // sign context and its XOR bit (T.800 Table D.3)
+  int sc(int x, int y, int& xorbit) const {
+    int i = at(x, y), s = w + 2;
+    int hc = contribution(i - 1) + contribution(i + 1);
+    int vc = contribution(i - s) + (south(y) ? contribution(i + s) : 0);
+    hc = std::max(-1, std::min(1, hc));
+    vc = std::max(-1, std::min(1, vc));
+    if (hc < 0) {
+      hc = -hc;
+      vc = -vc;
+      xorbit = 1;
+    } else if (hc == 0 && vc < 0) {
+      vc = -vc;
+      xorbit = 1;
+    } else {
+      xorbit = 0;
+    }
+    return kCtxSc + (hc == 0 ? (vc == 0 ? 0 : 1) : 3 + vc);
+  }
+  int mag(int x, int y) const {
+    int i = at(x, y);
+    return kCtxMag + (mu[i] ? 2 : nb(x, y) ? 1 : 0);
+  }
+  void become_significant(int x, int y, int neg, int32_t oneplushalf) {
+    int i = at(x, y);
+    sig[i] = 1;
+    sgn[i] = neg;
+    data[y * w + x] = neg ? -oneplushalf : oneplushalf;
+  }
+  void decode_sign(int x, int y, int32_t oneplushalf) {
+    int xorbit, cx = sc(x, y, xorbit);
+    become_significant(x, y, mq.decode(cx) ^ xorbit, oneplushalf);
+  }
+  template <class F> void scan(F f) {
+    for (int y0 = 0; y0 < h; y0 += 4)
+      for (int x = 0; x < w; ++x)
+        for (int y = y0; y < std::min(y0 + 4, h); ++y) f(x, y);
+  }
+  void sigpass(int bpno, bool raw) {
+    int32_t one = 1 << bpno, oph = one | (one >> 1);
+    scan([&](int x, int y) {
+      int i = at(x, y);
+      if (sig[i] || !nb(x, y)) return;
+      if (raw) {
+        if (mq.raw()) become_significant(x, y, mq.raw(), oph);
+      } else if (mq.decode(zc(x, y))) {
+        decode_sign(x, y, oph);
+      }
+      pi[i] = 1;
+    });
+  }
+  void refpass(int bpno, bool raw) {
+    int32_t poshalf = (1 << bpno) >> 1;
+    scan([&](int x, int y) {
+      int i = at(x, y);
+      if (!sig[i] || pi[i]) return;
+      int v = raw ? mq.raw() : mq.decode(mag(x, y));
+      int32_t& d = data[y * w + x];
+      d += (v ^ (d < 0)) ? poshalf : -poshalf;
+      mu[i] = 1;
+    });
+  }
+  void clnpass(int bpno) {
+    int32_t one = 1 << bpno, oph = one | (one >> 1);
+    auto step = [&](int x, int y, bool skip_zc) {
+      int i = at(x, y);
+      if (sig[i] || pi[i]) return;
+      if (skip_zc || mq.decode(zc(x, y))) decode_sign(x, y, oph);
+    };
+    for (int y0 = 0; y0 < h; y0 += 4) {
+      for (int x = 0; x < w; ++x) {
+        int y1 = std::min(y0 + 4, h), start = y0;
+        if (y1 - y0 == 4) {
+          bool run = true;
+          for (int y = y0; y < y1 && run; ++y) {
+            int i = at(x, y);
+            run = !sig[i] && !pi[i] && !nb(x, y);
+          }
+          if (run) {
+            if (!mq.decode(kCtxAgg)) {
+              start = y1;
+            } else {
+              int r = mq.decode(kCtxUni);
+              r = (r << 1) | mq.decode(kCtxUni);
+              step(x, y0 + r, true);
+              start = y0 + r + 1;
+            }
+          }
+        }
+        for (int y = start; y < y1; ++y) step(x, y, false);
+        for (int y = y0; y < y1; ++y) pi[at(x, y)] = 0;
+      }
+    }
+    if (style & kSegSym) {
+      for (int k = 0; k < 4; ++k) mq.decode(kCtxUni);
+    }
+  }
+  // → false where OpenJPEG fails the code-block
+  bool decode(const Cblk& cb, int roishift) {
+    int n = (w + 2) * (h + 2);
+    sig.assign(n, 0);
+    sgn.assign(n, 0);
+    pi.assign(n, 0);
+    mu.assign(n, 0);
+    memset(data, 0, sizeof(int32_t) * w * h);
+    if (cb.segs.empty()) return true;
+    int bpno_plus_one = roishift + cb.numbps;
+    if (bpno_plus_one >= 31) return false;
+    int passtype = 2;
+    mq.reset_states();
+    int64_t at_byte = 0;
+    std::vector<uint8_t> buf;
+    for (const Seg& seg : cb.segs) {
+      bool raw = bpno_plus_one <= cb.numbps - 4 && passtype < 2
+          && (style & kLazy);
+      buf.assign(cb.data.begin() + at_byte,
+                 cb.data.begin() + at_byte + seg.len);
+      buf.push_back(0xFF);
+      buf.push_back(0xFF);
+      at_byte += seg.len;
+      if (raw) mq.init_raw(buf.data()); else mq.init(buf.data(), seg.len);
+      for (int p = 0; p < seg.numpasses && bpno_plus_one >= 1; ++p) {
+        if (passtype == 0) sigpass(bpno_plus_one, raw);
+        else if (passtype == 1) refpass(bpno_plus_one, raw);
+        else clnpass(bpno_plus_one);
+        if ((style & kReset) && !raw) {
+          mq.reset_states();
+        }
+        if (++passtype == 3) {
+          passtype = 0;
+          bpno_plus_one--;
+        }
+      }
+    }
+    if (roishift) {
+      int32_t thresh = 1 << roishift;
+      for (int i = 0; i < w * h; ++i) {
+        int32_t v = data[i], m = v < 0 ? -v : v;
+        if (m >= thresh) {
+          m >>= roishift;
+          data[i] = v < 0 ? -m : m;
+        }
+      }
+    }
+    return true;
+  }
+};
+
+// OpenJPEG's tag tree (tgt.c): nodes from the leaves up, values 999
+struct TagTree {
+  struct Node { int parent, value = 999, low = 0; };
+  std::vector<Node> nodes;
+  TagTree(int w, int h) {
+    std::vector<int> lw{w}, lh{h};
+    int n;
+    do {
+      n = lw.back() * lh.back();
+      lw.push_back((lw.back() + 1) / 2);
+      lh.push_back((lh.back() + 1) / 2);
+    } while (n > 1);
+    int total = 0;
+    std::vector<int> first;
+    for (size_t l = 0; l + 1 < lw.size(); ++l) {
+      first.push_back(total);
+      total += lw[l] * lh[l];
+    }
+    nodes.resize(std::max(total, 1));
+    for (size_t l = 0; l < first.size(); ++l)
+      for (int j = 0; j < lh[l]; ++j)
+        for (int i = 0; i < lw[l]; ++i)
+          nodes[first[l] + j * lw[l] + i].parent = l + 1 < first.size()
+              ? first[l + 1] + (j / 2) * lw[l + 1] + i / 2 : -1;
+  }
+};
+
+struct Bio {
+  const uint8_t* bp;
+  const uint8_t* start;
+  const uint8_t* end;
+  uint32_t buf = 0;
+  int ct = 0;
+  void bytein() {
+    buf = (buf << 8) & 0xFFFF;
+    ct = buf == 0xFF00 ? 7 : 8;
+    if (bp >= end) return;
+    buf |= *bp++;
+  }
+  uint32_t bit() {
+    if (ct == 0) bytein();
+    ct--;
+    return (buf >> ct) & 1;
+  }
+  uint32_t read(int n) {
+    uint32_t v = 0;
+    for (int i = n - 1; i >= 0; --i) v |= bit() << i;
+    return v;
+  }
+  void inalign() {
+    if ((buf & 0xFF) == 0xFF) bytein();
+    ct = 0;
+  }
+};
+
+int tgt_decode(Bio& bio, TagTree& t, int leaf, int threshold) {
+  int stk[32], sp = 0, node = leaf;
+  while (t.nodes[node].parent >= 0) {
+    stk[sp++] = node;
+    node = t.nodes[node].parent;
+  }
+  int low = 0;
+  for (;;) {
+    TagTree::Node& nd = t.nodes[node];
+    if (low > nd.low) nd.low = low; else low = nd.low;
+    while (low < threshold && low < nd.value) {
+      if (bio.bit()) nd.value = low; else ++low;
+    }
+    nd.low = low;
+    if (sp == 0) break;
+    node = stk[--sp];
+  }
+  return t.nodes[node].value < threshold;
+}
+
+int numpasses(Bio& bio) {
+  if (!bio.bit()) return 1;
+  if (!bio.bit()) return 2;
+  uint32_t n = bio.read(2);
+  if (n != 3) return 3 + n;
+  n = bio.read(5);
+  if (n != 31) return 6 + n;
+  return 37 + bio.read(7);
+}
+
+int floorlog2(int v) {
+  int l = 0;
+  while (v > 1) {
+    v >>= 1;
+    ++l;
+  }
+  return l;
+}
+
+void init_seg(Cblk& cb, int style, bool first) {
+  Seg s;
+  if (style & kTermAll) {
+    s.maxpasses = 1;
+  } else if (style & kLazy) {
+    if (first) {
+      s.maxpasses = 10;
+    } else {
+      int prev = cb.segs.back().maxpasses;
+      s.maxpasses = (prev == 1 || prev == 10) ? 2 : 1;
+    }
+  } else {
+    s.maxpasses = 109;
+  }
+  cb.segs.push_back(s);
+}
+
+// 1-D synthesis on x[0..n) (interleaved; the low-pass samples at the
+// positions of parity `cas`), with whole-sample symmetric extension
+void idwt53(int32_t* x, int n, int cas) {
+  if (n == 1) {
+    if (cas) x[0] /= 2;
+    return;
+  }
+  auto at = [&](int i) { return x[i < 0 ? -i : i >= n ? 2 * n - 2 - i : i]; };
+  for (int i = cas; i < n; i += 2) x[i] -= (at(i - 1) + at(i + 1) + 2) >> 2;
+  for (int i = 1 - cas; i < n; i += 2) x[i] += (at(i - 1) + at(i + 1)) >> 1;
+}
+
+void idwt97(float* x, int n, int cas) {
+  if (n == 1) return;
+  const float kK = 1.230174105f, kTwoInvK = 1.625732422f;
+  const float kLift[4] = {-0.443506852f, -0.882911075f, 0.052980118f,
+                          1.586134342f};   // -delta, -gamma, -beta, -alpha
+  for (int i = cas; i < n; i += 2) x[i] = x[i] * kK;
+  for (int i = 1 - cas; i < n; i += 2) x[i] = x[i] * kTwoInvK;
+  auto at = [&](int i) { return x[i < 0 ? -i : i >= n ? 2 * n - 2 - i : i]; };
+  for (int step = 0; step < 4; ++step) {
+    int parity = step % 2 == 0 ? cas : 1 - cas;
+    float c = kLift[step];
+    for (int i = parity; i < n; i += 2) x[i] = x[i] + (at(i - 1) + at(i + 1)) * c;
+  }
+}
+
+// the 2-D inverse wavelet of one tile-component, level by level, rows
+// then columns (OpenJPEG's opj_dwt_decode_tile / _97)
+template <class T, class F>
+void idwt2d(T* a, int stride, const int32_t* res, int numres, F f) {
+  std::vector<T> tmp;
+  for (int r = 1; r < numres; ++r) {
+    const int32_t* pr = res + 4 * (r - 1);
+    const int32_t* cr = res + 4 * r;
+    int sw = pr[2] - pr[0], shh = pr[3] - pr[1];
+    int rw = cr[2] - cr[0], rh = cr[3] - cr[1];
+    int cas_h = cr[0] & 1, cas_v = cr[1] & 1;
+    tmp.resize(std::max(rw, rh));
+    if (rw > 0)
+      for (int y = 0; y < rh; ++y) {
+        T* row = a + static_cast<int64_t>(y) * stride;
+        for (int k = 0; k < sw; ++k) tmp[2 * k + cas_h] = row[k];
+        for (int k = 0; k < rw - sw; ++k) tmp[2 * k + 1 - cas_h] = row[sw + k];
+        f(tmp.data(), rw, cas_h);
+        for (int i = 0; i < rw; ++i) row[i] = tmp[i];
+      }
+    if (rh > 0)
+      for (int x = 0; x < rw; ++x) {
+        for (int k = 0; k < shh; ++k)
+          tmp[2 * k + cas_v] = a[static_cast<int64_t>(k) * stride + x];
+        for (int k = 0; k < rh - shh; ++k)
+          tmp[2 * k + 1 - cas_v] = a[static_cast<int64_t>(shh + k) * stride + x];
+        f(tmp.data(), rh, cas_v);
+        for (int i = 0; i < rh; ++i)
+          a[static_cast<int64_t>(i) * stride + x] = tmp[i];
+      }
+  }
+}
+
+}  // namespace j2k
+
+// One tile: packets → code-blocks → coefficients → samples.
+//   comps   (n_comp, 140) int32: numres, style, reversible, roishift,
+//           out offset (words), width, height, sop|eph<<1 (first row
+//           only), then 33 x (x0, y0, x1, y1) of the resolutions
+//   bands   (n_band, 10) int32: comp, res, bandno, x0, y0, x1, y1, Mb,
+//           ox, oy (where the band sits in the tile-component array);
+//           stepsize (n_band) float32
+//   precs   (n_prec, 15) int32: comp, res, nbands, 3 x (band, cw, ch,
+//           first code-block)
+//   cblks   (n_cblk, 5) int32: band, x0, y0, x1, y1
+//   packets (n_packet, 2) int32: precinct, layer
+// `hdr` holds the packed packet headers (PPM/PPT) or is empty. `out`:
+// each component's samples, int32 (reversible) or float32, at its offset.
+// → 0, or -1 a packet past the data, -2 a code-block of > 30 bit-planes,
+// -3 a bad packet header.
+extern "C" int64_t j2k_decode_tile(
+    const uint8_t* src, int64_t n, const uint8_t* hdr, int64_t hn,
+    int32_t n_comp, const int32_t* comps, int32_t n_band,
+    const int32_t* bands, const float* stepsize, int32_t n_prec,
+    const int32_t* precs, int32_t n_cblk, const int32_t* cblks,
+    int32_t n_packet, const int32_t* packets, int32_t* out) {
+  using namespace j2k;
+  const int kC = 140;
+  bool sop = comps[7] & 1, eph = comps[7] & 2;
+  std::vector<Cblk> cb(n_cblk);
+  for (int i = 0; i < n_cblk; ++i) {
+    const int32_t* c = cblks + 5 * i;
+    cb[i].band = c[0];
+    cb[i].x0 = c[1];
+    cb[i].y0 = c[2];
+    cb[i].x1 = c[3];
+    cb[i].y1 = c[4];
+  }
+  // the tag trees of each precinct's bands
+  std::vector<TagTree> incl, imsb;
+  for (int p = 0; p < n_prec; ++p)
+    for (int b = 0; b < 3; ++b) {
+      const int32_t* pb = precs + 15 * p + 3 + 4 * b;
+      int cw = b < precs[15 * p + 2] ? pb[1] : 0;
+      int ch = b < precs[15 * p + 2] ? pb[2] : 0;
+      incl.emplace_back(std::max(cw, 1), std::max(ch, 1));
+      imsb.emplace_back(std::max(cw, 1), std::max(ch, 1));
+    }
+  const uint8_t* cur = src;
+  const uint8_t* end = src + n;
+  const uint8_t* hcur = hn ? hdr : nullptr;
+  const uint8_t* hend = hdr + hn;
+  for (int k = 0; k < n_packet; ++k) {
+    int p = packets[2 * k], layer = packets[2 * k + 1];
+    const int32_t* pr = precs + 15 * p;
+    const int32_t* cc = comps + kC * pr[0];
+    int style = cc[1];
+    if (sop && end - cur >= 6 && cur[0] == 0xFF && cur[1] == 0x91) cur += 6;
+    Bio bio;
+    bio.start = bio.bp = hcur ? hcur : cur;
+    bio.end = hcur ? hend : end;
+    std::vector<int> touched;
+    if (bio.bit()) {
+      for (int b = 0; b < pr[2]; ++b) {
+        const int32_t* pb = pr + 3 + 4 * b;
+        const int32_t* band = bands + 10 * pb[0];
+        if (band[5] == band[3] || band[6] == band[4]) continue;
+        int ncb = pb[1] * pb[2];
+        for (int i = 0; i < ncb; ++i) {
+          Cblk& c = cb[pb[3] + i];
+          bool included = c.segs.empty()
+              ? tgt_decode(bio, incl[3 * p + b], i, layer + 1) : bio.bit();
+          if (!included) {
+            c.newpasses = 0;
+            continue;
+          }
+          if (c.segs.empty()) {
+            int z = 0;
+            while (!tgt_decode(bio, imsb[3 * p + b], i, z)) {
+              if (++z > 64) return -3;
+            }
+            c.numbps = band[7] + 1 - z;
+            c.numlenbits = 3;
+          }
+          c.newpasses = numpasses(bio);
+          int inc = 0;
+          while (bio.bit()) ++inc;
+          c.numlenbits += inc;
+          int segno;
+          if (c.segs.empty()) {
+            init_seg(c, style, true);
+            segno = 0;
+          } else {
+            segno = static_cast<int>(c.segs.size()) - 1;
+            if (c.segs[segno].numpasses == c.segs[segno].maxpasses) {
+              init_seg(c, style, false);
+              ++segno;
+            }
+          }
+          int left = c.newpasses;
+          int first_seg = segno;
+          do {
+            Seg& s = c.segs[segno];
+            s.newpasses = std::min(s.maxpasses - s.numpasses, left);
+            int bits = c.numlenbits + floorlog2(s.newpasses);
+            if (bits > 32) return -3;
+            s.newlen = bio.read(bits);
+            left -= s.newpasses;
+            if (left > 0) {
+              init_seg(c, style, false);
+              ++segno;
+            }
+          } while (left > 0);
+          touched.push_back(pb[3] + i);
+          touched.push_back(first_seg);
+        }
+      }
+    }
+    bio.inalign();
+    const uint8_t* after = bio.bp;
+    if (eph && bio.end - after >= 2 && after[0] == 0xFF && after[1] == 0x92)
+      after += 2;
+    if (hcur) hcur = after; else cur = after;
+    // the packet body
+    for (size_t t = 0; t < touched.size(); t += 2) {
+      Cblk& c = cb[touched[t]];
+      for (size_t s = touched[t + 1]; s < c.segs.size(); ++s) {
+        Seg& sg = c.segs[s];
+        if (sg.newpasses == 0 && sg.newlen == 0) continue;
+        if (sg.newlen > end - cur) return -1;
+        c.data.insert(c.data.end(), cur, cur + sg.newlen);
+        cur += sg.newlen;
+        sg.numpasses += sg.newpasses;
+        sg.len += sg.newlen;
+        sg.newpasses = 0;
+        sg.newlen = 0;
+      }
+    }
+  }
+  // tier-1, dequantization, the wavelet
+  std::vector<int32_t> blk;
+  for (int i = 0; i < n_cblk; ++i) {
+    const int32_t* band = bands + 10 * cb[i].band;
+    const int32_t* cc = comps + kC * band[0];
+    j2k::T1 t1;
+    t1.w = cb[i].x1 - cb[i].x0;
+    t1.h = cb[i].y1 - cb[i].y0;
+    if (t1.w <= 0 || t1.h <= 0) continue;
+    t1.orient = band[2];
+    t1.style = cc[1];
+    blk.assign(static_cast<size_t>(t1.w) * t1.h, 0);
+    t1.data = blk.data();
+    if (!t1.decode(cb[i], cc[3])) return -2;
+    int32_t* dst = out + cc[4];
+    int stride = cc[5];
+    int ox = cb[i].x0 - band[3] + band[8], oy = cb[i].y0 - band[4] + band[9];
+    float step = 0.5f * stepsize[cb[i].band];
+    for (int y = 0; y < t1.h; ++y)
+      for (int x = 0; x < t1.w; ++x) {
+        int32_t v = blk[y * t1.w + x];
+        int32_t* o = dst + static_cast<int64_t>(oy + y) * stride + ox + x;
+        if (cc[2]) {
+          *o = v / 2;
+        } else {
+          float f = static_cast<float>(v) * step;
+          memcpy(o, &f, 4);
+        }
+      }
+  }
+  for (int c = 0; c < n_comp; ++c) {
+    const int32_t* cc = comps + kC * c;
+    if (cc[2])
+      idwt2d(out + cc[4], cc[5], cc + 8, cc[0], idwt53);
+    else
+      idwt2d(reinterpret_cast<float*>(out + cc[4]), cc[5], cc + 8, cc[0],
+             idwt97);
+  }
+  return 0;
+}

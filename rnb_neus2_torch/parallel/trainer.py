@@ -49,8 +49,8 @@ from ..io.dataset import TrainingDataset
 from ..models.neus_field import NeusField
 from ..render.losses import quantize_grads_fp16, training_loss
 from ..train.sampler import RayUniforms, draw_uniforms, sample_ray_batch
-from ..train.trainer import (OCC_CHUNK, Trainer, effective_lr_scale,
-                             valid_level_for_step)
+from ..train.trainer import (OCC_CHUNK, Trainer, check_field_chunk,
+                             effective_lr_scale, valid_level_for_step)
 from .mesh import make_mesh
 
 # metrics summed over the replicas; every other metric is their mean
@@ -141,6 +141,7 @@ class ParallelTrainer(Trainer):
         anneal = 1.0 if cfg.loss.anneal_end <= 0 else min(
             1.0, self.step / cfg.loss.anneal_end)
         with record_function("field_forward"):
+            check_field_chunk(pos.shape[0], t.field_chunk)
             out = rep.field(pos, vl, n_active)
         with record_function("loss"):
             loss, metrics = training_loss(

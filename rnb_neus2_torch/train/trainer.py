@@ -58,7 +58,10 @@ Every training option the JAX trainer reads runs here:
   key);
 - `network.compute_dtype` "bfloat16" lives in the field.
 `check_ported` refuses only a non-default value of a field that no code
-reads (`NOT_READ`); the compile cache is not ported.
+reads (`NOT_READ`, empty now); `march.max_samples_per_ray`, which no code
+of the JAX package reads, is taken at any value (`IGNORED`), and
+`train.field_chunk` is checked where the JAX field asserts on it
+(`check_field_chunk`); the compile cache is not ported.
 """
 
 from __future__ import annotations
@@ -117,10 +120,10 @@ def effective_lr_scale(train_cfg, step: int, lr_scale: float) -> float:
 # config fields that no code of this slice reads, by config section; each
 # must keep its default. (train.max_steps is read by the CLI's loop, not by
 # a step.)
-NOT_READ = {
-    "train": ("field_chunk",),
-    "march": ("max_samples_per_ray",),
-}
+NOT_READ: Dict[str, tuple] = {}
+# config fields that no code of the JAX package reads either: any value is
+# taken and changes nothing
+IGNORED = {"march": ("max_samples_per_ray",)}
 _DEFAULTS = {"train": TrainConfig(), "march": MarchConfig()}
 
 
@@ -134,6 +137,18 @@ def check_ported(cfg: TestbedConfig) -> None:
                     f"{type(have).__name__}.{name}={getattr(have, name)!r}: "
                     f"this port does not read {name} yet; leave it at its "
                     f"default {getattr(default, name)!r}")
+
+
+def check_field_chunk(n: int, chunk: int) -> None:
+    """`train.field_chunk` only splits the JAX field's evaluation of the
+    n-sample buffer into lax.map chunks (`NeusField.apply_chunked`,
+    "semantically identical to apply()"), and asserts that a chunk
+    divides a larger buffer. The port evaluates the field in one piece,
+    the same function, and raises where that assert fails."""
+    if n > chunk and n % chunk:
+        raise ValueError(f"TrainConfig.field_chunk={chunk} does not divide "
+                         f"the {n}-sample buffer (the JAX field's "
+                         "apply_chunked asserts n % chunk == 0)")
 
 
 def check_scene(meta, cfg: TestbedConfig) -> None:
@@ -290,6 +305,7 @@ class Trainer:
         anneal = 1.0 if cfg.loss.anneal_end <= 0 else min(
             1.0, step / cfg.loss.anneal_end)
         with record_function("field_forward"):
+            check_field_chunk(pos.shape[0], t.field_chunk)
             out = self.field(pos, vl, n_active)
         with record_function("loss"):
             loss, metrics = training_loss(out, samples, batch, cfg.flags,

@@ -203,6 +203,22 @@ def test_bmp_channels_pinned(tmp_path):
                       "bgra32_v124": (4,)}
 
 
+@pytest.mark.parametrize("bgr,grey", [((233, 201, 249), 218),
+                                      ((108, 111, 169), 128)])
+def test_masked_bmp_grey_sums_r_then_g_then_b(tmp_path, bgr, grey):
+    """cv2 sums a masked 32-bit BMP's grey in float32 as 0.299 R +
+    0.587 G + 0.114 B, truncated; summed B first, these two colours come
+    out one off. cv2.imwrite writes such a file (a V5 header) for every
+    4-channel image."""
+    img = np.zeros((3, 5, 4), np.uint8)
+    img[...] = (*bgr, 255)
+    path = tmp_path / "c.bmp"
+    assert cv2.imwrite(str(path), img)
+    assert (cv2.imread(str(path), cv2.IMREAD_GRAYSCALE) == grey).all()
+    assert (image_io.read_image(path, "grey") == grey).all()
+    assert _like_cv2(tmp_path, path.read_bytes(), ".bmp") == list(MODES)
+
+
 # ---------------------------------------------------------------- PNM, PAM
 def _pnm_cases():
     rng = np.random.default_rng(2)

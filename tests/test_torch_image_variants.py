@@ -670,3 +670,57 @@ def test_decode_jpeg_takes_bytes():
     want = cv2.imdecode(np.frombuffer(blob, np.uint8),
                         cv2.IMREAD_COLOR)[..., ::-1]
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("compression", ["tiff_lzma", "tiff_zstd"])
+def test_prepare_handles_lzma_and_zstd_tiffs_as_jax(tmp_path, compression):
+    """cv2's libtiff has neither codec and returns None: a normal map, an
+    albedo and a mask in such a file are a skipped view, an all-ones
+    albedo and an opaque mask, in the port as in the JAX package."""
+    import json
+
+    import rnb_neus2_tpu.io.prepare as jprepare
+    from rnb_neus2_torch.io import png, prepare
+    from test_torch_image_formats import _cv2_rgb, _write_scene
+
+    data = _write_scene(str(tmp_path / "in"), "png", "tif", "png", {})
+    data["views"].append(dict(data["views"][0]))
+    data["views"][3]["c2w"] = data["views"][0]["c2w"].copy()
+    data["views"][3]["c2w"][:3, 3] *= 1.1
+    for i, key in ((0, "normal_path"), (1, "albedo_path"), (2, "mask_path")):
+        path = tmp_path / "in" / f"{key}.tif"
+        Image.fromarray(np.full((9, 9, 3), 200, np.uint8)).save(
+            path, "TIFF", compression=compression[5:])
+        assert cv2.imread(str(path), cv2.IMREAD_UNCHANGED) is None
+        with pytest.raises(UnreadableImage):
+            image_io.read_image(path)
+        data["views"][i][key] = str(path)
+    outs = {}
+    for name, mod in (("port", prepare), ("jax", jprepare)):
+        warnings = []
+
+        class Log:
+            def info(self, msg):
+                pass
+
+            def warning(self, msg):
+                warnings.append(msg)
+        outs[name] = (mod.prepare_testbed_data(
+            data, str(tmp_path / name), logger=Log(),
+            scaling_mode="silhouettes"), warnings)
+    (out, warn), (jout, jwarn) = outs["port"], outs["jax"]
+    assert out["n_frames"] == jout["n_frames"] == 3
+    assert warn == jwarn == [f"Cannot read: {data['views'][0]['normal_path']}"]
+    np.testing.assert_allclose(out["scale_matrix"], jout["scale_matrix"],
+                               rtol=1e-9)
+    tj, jtj = (json.load(open(tmp_path / d / "transform.json"))
+               for d in ("port", "jax"))
+    for fr, jfr in zip(tj["frames"], jtj["frames"]):
+        for k in ("normal_path", "albedo_path"):
+            np.testing.assert_array_equal(
+                png.read_png(tmp_path / "port" / fr[k]),
+                _cv2_rgb(tmp_path / "jax" / jfr[k]))
+    alb = png.read_png(tmp_path / "port" / tj["frames"][0]["albedo_path"])
+    assert (alb[..., :3] == 65535).all()
+    nrm = png.read_png(tmp_path / "port" / tj["frames"][1]["normal_path"])
+    assert (nrm[..., 3] == 65535).all()

@@ -130,11 +130,13 @@ def _tiff_header(tags) -> bytes:
 
 def test_png_refuses_what_it_does_not_read(tmp_path):
     """What the readers still refuse raises by name: a PIZ-compressed EXR
-    and a JPEG 2000 file, which cv2 reads (UnsupportedImage), and a
+    and an AVIF file, which cv2 reads (UnsupportedImage), and a
     hierarchical JPEG
     and an Orientation 6 TIFF, which cv2 cannot read either
     (UnreadableImage, a FileNotFoundError as the JAX loaders raise for
-    cv2's None, asserted beside cv2's None on the same bytes)."""
+    cv2's None, asserted beside cv2's None on the same bytes). A JPEG
+    2000 file, refused before the port read it, now reads as cv2 reads
+    it, whatever its name."""
     image_io.save_exr(np.zeros((4, 5, 3), np.float32), tmp_path / "x.exr")
     blob = (tmp_path / "x.exr").read_bytes()
     key = b"compression\0compression\0" + struct.pack("<i", 1)
@@ -142,8 +144,13 @@ def test_png_refuses_what_it_does_not_read(tmp_path):
                                                     key + b"\x04"))
     jp2 = cv2.imencode(".jp2", np.zeros((64, 64, 3), np.uint8))[1]
     (tmp_path / "b.img").write_bytes(jp2.tobytes())
-    assert cv2.imread(str(tmp_path / "b.img")) is not None
-    for name, what in (("piz.exr", "PIZ"), ("b.img", "JPEG 2000")):
+    np.testing.assert_array_equal(
+        image_io.read_image(tmp_path / "b.img", "color"),
+        cv2.imread(str(tmp_path / "b.img"))[..., ::-1])
+    avif = cv2.imencode(".avif", np.zeros((16, 16, 3), np.uint8))[1]
+    (tmp_path / "c.img").write_bytes(avif.tobytes())
+    assert cv2.imread(str(tmp_path / "c.img")) is not None
+    for name, what in (("piz.exr", "PIZ"), ("c.img", "AVIF")):
         with pytest.raises(errors.UnsupportedImage,
                            match=f"{what}.*not supported"):
             image_io.load_image(tmp_path / name)

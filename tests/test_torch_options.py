@@ -333,7 +333,8 @@ def test_light_salt_survives_the_guard_and_snapshot():
 # trainer steps on JAX's own draws
 # ---------------------------------------------------------------------------
 
-def _small_cfg(pkg, aabb_scale=1.0, cone=0.0, light_prng_salt=0, **loss_kw):
+def _small_cfg(pkg, aabb_scale=1.0, cone=0.0, light_prng_salt=0,
+               field_chunk=1 << 18, **loss_kw):
     return pkg.TestbedConfig(
         grid=pkg.HashGridConfig(n_levels=4, top_resolution=64,
                                 aabb_scale=aabb_scale),
@@ -341,7 +342,8 @@ def _small_cfg(pkg, aabb_scale=1.0, cone=0.0, light_prng_salt=0, **loss_kw):
         loss=pkg.LossConfig(**loss_kw),
         train=pkg.TrainConfig(target_batch_size=1 << 13,
                               initial_rays_per_batch=128, occ_grid_size=32,
-                              seed=0, light_prng_salt=light_prng_salt),
+                              seed=0, light_prng_salt=light_prng_salt,
+                              field_chunk=field_chunk),
         march=pkg.MarchConfig(n_ladder=512, cone_angle=cone))
 
 
@@ -373,6 +375,9 @@ OPTION_CASES = {
     "emulations": dict(fp16_grad_emulation=True,
                        rollover_grad_emulation=True),
     "light_salt": dict(light_prng_salt=1),
+    # 2^12 splits the 2^13-sample buffer in two lax.map chunks in JAX; the
+    # port evaluates the field in one piece
+    "field_chunk": dict(field_chunk=1 << 12),
 }
 
 
@@ -434,7 +439,9 @@ def test_check_ported_refuses_only_not_read_fields():
         network=dataclasses.replace(cfg.network, compute_dtype="bfloat16"),
         loss=dataclasses.replace(cfg.loss, fp16_grad_emulation=True,
                                  rollover_grad_emulation=True),
-        train=dataclasses.replace(cfg.train, light_prng_salt=3))
+        train=dataclasses.replace(cfg.train, light_prng_salt=3,
+                                  field_chunk=1 << 16),
+        march=dataclasses.replace(cfg.march, max_samples_per_ray=64))
     trainer_mod.check_ported(on)
     for section, names in trainer_mod.NOT_READ.items():
         for name in names:
@@ -443,6 +450,57 @@ def test_check_ported_refuses_only_not_read_fields():
                 sec, **{name: (getattr(sec, name) or 0) + 1})})
             with pytest.raises(ValueError, match=name):
                 trainer_mod.check_ported(bad)
+
+
+@pytest.mark.parametrize("n,chunk", [(12, 4), (12, 5), (4, 12), (12, 12),
+                                     (8192, 3000)])
+def test_field_chunk_raises_where_jax_asserts(n, chunk):
+    """JAX's `apply_chunked` asserts n % chunk == 0 when n > chunk; the
+    port raises on the same (n, chunk) and on no other."""
+    from rnb_neus2_tpu.models.neus_field import NeusField as JField
+    from rnb_neus2_tpu.models.neus_field import init_params
+    jcfg = _small_cfg(jconfig)
+    field = JField(jcfg.grid, jcfg.network)
+    params = init_params(jax.random.PRNGKey(0), jcfg.grid, jcfg.network)
+    x = np.random.default_rng(0).random((n, 3), np.float32)
+    try:
+        field.apply_chunked(params, x, chunk=chunk)
+        jax_raises = False
+    except AssertionError:
+        jax_raises = True
+    if jax_raises:
+        with pytest.raises(ValueError, match="field_chunk"):
+            trainer_mod.check_field_chunk(n, chunk)
+    else:
+        trainer_mod.check_field_chunk(n, chunk)
+    assert jax_raises == (n > chunk and n % chunk != 0)
+
+
+def test_cli_trains_with_field_chunk_and_max_samples_per_ray(
+        tmp_path, monkeypatch):
+    """The CLI runs the same check: a config with both fields changed
+    trains and writes its mesh, and a chunk that does not divide the
+    buffer stops the run at its first step, as the JAX assert does."""
+    d, net = _scene_with_aabb(tmp_path, 1.0)
+    args = ["--scene", d, "--maxiter", "2", "--network", net,
+            "--target-batch-size", "1024", "--occ-grid-size", "16",
+            "--n-ladder", "128", "--device", "cpu", "--save-mesh",
+            "--resolution", "16"]
+    real = testbed.make_config
+
+    def with_fields(chunk):
+        def make(a):
+            c = real(a)
+            return dataclasses.replace(
+                c, train=dataclasses.replace(c.train, field_chunk=chunk),
+                march=dataclasses.replace(c.march, max_samples_per_ray=8))
+        return make
+    monkeypatch.setattr(testbed, "make_config", with_fields(256))
+    assert testbed.main(args) == 0
+    assert os.path.exists(os.path.join(d, "output", "mesh_2.obj"))
+    monkeypatch.setattr(testbed, "make_config", with_fields(300))
+    with pytest.raises(ValueError, match="field_chunk"):
+        testbed.main(args)
 
 
 def test_bf16_trains_a_few_steps():

@@ -341,8 +341,8 @@ def test_neus_converter_matches_jax(tmp_path, capsys):
 
 def test_neus_converter_refuses_other_formats(tmp_path):
     """An EXR image (whose 8-bit colour read no test can observe) and a
-    format that cv2 reads and the port does not yet (JPEG 2000) raise by
-    name."""
+    format that cv2 reads and the port does not yet (AVIF; JPEG 2000 until
+    the port read it) raise by name."""
     from rnb_neus2_torch.io import image_io
     _neus_dir(tmp_path / "neus", n=1)
     img = tmp_path / "neus" / "image" / "000.png"
@@ -354,8 +354,8 @@ def test_neus_converter_refuses_other_formats(tmp_path):
                                        str(tmp_path / "out"))
     import cv2
     img.with_suffix(".exr").write_bytes(cv2.imencode(
-        ".jp2", np.zeros((64, 64, 3), np.uint8))[1].tobytes())
-    with pytest.raises(ValueError, match="JPEG 2000 image is not supported"):
+        ".avif", np.zeros((64, 64, 3), np.uint8))[1].tobytes())
+    with pytest.raises(ValueError, match="AVIF image is not supported"):
         data_format_from_neus.generate(str(tmp_path / "neus"),
                                        str(tmp_path / "out"))
 

@@ -2,15 +2,24 @@
 cv2's decode of each in IMREAD_UNCHANGED, _COLOR and _GRAYSCALE (RGB(A)
 order; an empty array where cv2 returns None).
 
-One small file per image variant that the port reads (JPEG, TIFF, BMP,
-PNM/PAM/PFM, Radiance HDR, Sun raster, GIF, WebP), written by cv2, PIL
-or the writers of `tests/torch_image_writers.py`, and a few that cv2
-cannot read either; among them a 612x512 progressive JPEG and the same
-file cut after 3 of its scans, a progressive and a baseline file that
-end inside a scan, and 612x512 lossy and lossless WebP, Radiance and
-RLE8 BMP files, which phase 20 times. `chip_smoke.py` (phase 20) decodes
-them on the card's host, which has neither cv2 nor PIL, and
-tests/test_torch_image_variants.py holds them against `expected.npz`.
+One small file per image variant that the port reads (JPEG, TIFF with
+its CCITT and ThunderScan codecs, BMP, PNM/PAM/PFM, Radiance HDR, Sun
+raster, GIF, WebP, JPEG 2000), written by cv2, PIL or the writers of
+`tests/torch_image_writers.py`, and a few that cv2 cannot read either;
+among them a 612x512 progressive JPEG and the same file cut after 3 of
+its scans, a progressive and a baseline file that end inside a scan, and
+612x512 lossy and lossless WebP, Radiance, RLE8 BMP, lossless 16-bit and
+lossy 8-bit JPEG 2000 and Group 4 mask files, which phases 19 and 20
+time. `chip_smoke.py` (phase 20) decodes them on the card's host, which
+has neither cv2 nor PIL, and tests/test_torch_image_variants.py holds
+them against `expected.npz`.
+
+Also the JPEG 2000 / Group 4 sphere scene of `../jp2_scene/` (phase 19):
+the port's `write_sfm_scene` PNG sphere (16 views of 256x256) with its
+normals rewritten as lossless 16-bit JP2, its albedos as 8-bit JP2 at
+cv2's default (lossy) rate and its masks as Group 4 TIFF (a masks.sfm.json
+names them), and `expected.json`, digests of what the JAX package's
+`prepare_testbed_data` makes of it on this host.
 
 Needs cv2 and PIL, so it runs where the tests run, not on the card:
 
@@ -29,6 +38,7 @@ from PIL import Image
 
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parents[1]))
+sys.path.insert(0, str(HERE.parents[2]))
 import torch_image_writers as tw  # noqa: E402
 
 H, W = 37, 53
@@ -371,6 +381,159 @@ def more_formats(rng):
     return out
 
 
+def thirteenth(rng):
+    """TIFF CCITT (MH, T.4 1-D and 2-D, T.6, RLEW, FillOrder 2) and
+    ThunderScan; JPEG 2000 (cv2's lossless and lossy files, PIL's raw
+    codestream, every progression order, code-block styles, a palette,
+    sYCC, 12-bit, packed headers) and what cv2 refuses."""
+    import tempfile
+    out = {}
+    y, x = np.mgrid[:H, :W]
+    mask = ((x - 24) ** 2 + (y - 18) ** 2 < 150) ^ ((x + y) % 11 == 0)
+    mask[rng.random((H, W)) < 0.03] ^= True
+    with tempfile.TemporaryDirectory() as d:
+        p = Path(d) / "f"
+        for name, kw in {"mh": dict(compression=2),
+                         "g3_1d": dict(compression=3, t4_options=0),
+                         "g3_2d": dict(compression=3, t4_options=5),
+                         "g4": dict(compression=4),
+                         "g4_fill_order_2": dict(compression=4,
+                                                 fill_order=2,
+                                                 photometric=1),
+                         "g4_tiles": dict(compression=4, tile=(16, 16))
+                         }.items():
+            out[f"fax_{name}.tif"] = tw.libtiff_bilevel(p, mask, **kw)
+        out["fax_rlew.tif"] = tw.rlew_file(mask)
+        idx = ((x // 4 + y // 6) % 16).astype(np.uint8)
+        pal = [int(v) for v in rng.integers(0, 65536, 48)]
+        out["thunderscan.tif"] = tw.tiff_file(
+            {256: (3, [W]), 257: (3, [H]), 258: (3, [4]),
+             259: (3, [32809]), 262: (3, [3]), 277: (3, [1]),
+             278: (3, [H]), 320: (3, pal)}, [tw.thunderscan(idx)])
+        out["unreadable_lzma.tif"] = pil_bytes(
+            Image.fromarray(smooth(rng, (H, W))), "TIFF", compression="lzma")
+        rgb = smooth(rng, (H, W, 3))
+        planes = [rgb[..., c].astype(np.int64) for c in range(3)]
+        ok, blob = cv2.imencode(".jp2", rgb[..., ::-1])
+        out["jp2_cv2_lossy.jp2"] = blob.tobytes()
+        rgba16 = smooth(rng, (H, W, 4)).astype(np.uint16) * 257 + 3
+        ok, blob = cv2.imencode(".jp2", rgba16, [
+            cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, 1000])
+        out["jp2_cv2_lossless_rgba16.jp2"] = blob.tobytes()
+        out["j2k_pil_grey_97.j2k"] = pil_bytes(
+            Image.fromarray(rgb[..., 0]), "JPEG2000", no_jp2=True,
+            irreversible=True)
+        for prog in tw.PROGRESSION_ORDERS:
+            out[f"j2k_{prog.lower()}.jp2"] = tw.openjpeg_encode(
+                p, planes, tcp_mct=1, irreversible=prog in ("RPCL", "CPRL"),
+                prog_order=prog, precincts=[(16, 16), (32, 32)],
+                rates=[20, 5, 1], tile_size_on=1, cp_tdx=32, cp_tdy=24,
+                numresolution=3)
+        out["j2k_styles_sop_eph.j2k"] = tw.openjpeg_encode(
+            p, planes, jp2=False, tcp_mct=1, irreversible=1, mode=63,
+            csty=6, rates=[20, 5, 1])
+        out["j2k_ppm.j2k"] = tw.packed_headers(tw.openjpeg_encode(
+            p, planes, jp2=False, tcp_mct=1, csty=6, rates=[10, 2]), "ppm")
+        out["j2k_sycc_12bit.jp2"] = tw.openjpeg_encode(
+            p, [c * 16 for c in planes], prec=12, colour=3)
+        cs = tw.openjpeg_encode(p, [(x // 5 + y // 7) % 6], jp2=False,
+                                numresolution=2)
+        out["j2k_palette.jp2"] = tw.jp2_file(
+            cs, H, W, 1, 8, pclr=(rng.integers(0, 256, (6, 3)), [8] * 3),
+            cmap=[(0, 1, 0), (0, 1, 1), (0, 1, 2)])
+        out["unreadable_j2k_signed.jp2"] = tw.openjpeg_encode(
+            p, [c - 128 for c in planes], signed=True)
+    view = sphere_view()
+    view16 = np.round(view * 65535).astype(np.uint16)
+    ok, blob = cv2.imencode(".jp2", view16[..., ::-1], [
+        cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, 1000])
+    out["jp2_lossless16_612x512.jp2"] = blob.tobytes()
+    ok, blob = cv2.imencode(".jp2", (view16 >> 8).astype(np.uint8)[..., ::-1])
+    out["jp2_lossy8_612x512.jp2"] = blob.tobytes()
+    inside = view.max(-1) > 0
+    with tempfile.TemporaryDirectory() as d:
+        out["g4_mask_612x512.tif"] = tw.libtiff_bilevel(Path(d) / "m.tif",
+                                                        inside, 4)
+    return out
+
+
+SCENE = HERE.parent / "jp2_scene"
+SCENE_SPHERE = dict(n_views=16, width=256, height=256, radius=0.25)
+SCENE_CENTER = (0.2, -0.1, 0.3)
+
+
+def array_digest(a) -> str:
+    import hashlib
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(f"{a.dtype}{a.shape}".encode()
+                          + a.tobytes()).hexdigest()
+
+
+def jp2_scene():
+    """The phase-19 sphere in JPEG 2000 and Group 4 TIFF, and the digests
+    of the JAX package's prepared arrays (RGBA order, uint16)."""
+    import json
+    import shutil
+    import tempfile
+
+    from rnb_neus2_torch.testing.synthetic import write_sfm_scene
+    from rnb_neus2_tpu.io.dataloaders import load_data as jload
+    from rnb_neus2_tpu.io.prepare import prepare_testbed_data as jprepare
+
+    if SCENE.exists():
+        shutil.rmtree(SCENE)
+    for sub in ("normals", "albedos", "masks"):
+        (SCENE / sub).mkdir(parents=True)
+    with tempfile.TemporaryDirectory() as d:
+        normals, albedos, masks, radius = write_sfm_scene(
+            d, "png", world_center=SCENE_CENTER, **SCENE_SPHERE)
+        sfm = {k: json.load(open(p)) for k, p in (("normals", normals),
+                                                  ("albedos", albedos))}
+        for view in sfm["normals"]["views"]:
+            src = Path(d) / view["path"]
+            img = cv2.imread(str(src), cv2.IMREAD_UNCHANGED)
+            view["path"] = str(Path("normals") / (src.stem + ".jp2"))
+            assert cv2.imwrite(str(SCENE / view["path"]), img, [
+                cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, 1000])
+        for view in sfm["albedos"]["views"]:
+            src = Path(d) / view["path"]
+            img = cv2.imread(str(src), cv2.IMREAD_COLOR)    # 8 bits
+            view["path"] = str(Path("albedos") / (src.stem + ".jp2"))
+            assert cv2.imwrite(str(SCENE / view["path"]), img)
+        mask_views = []
+        for view in sfm["normals"]["views"]:
+            pid = view["poseId"]
+            m = cv2.imread(str(Path(masks) / f"{pid}.png"),
+                           cv2.IMREAD_GRAYSCALE)
+            path = Path("masks") / f"{pid}.tif"
+            Image.fromarray(m > 127).convert("1").save(
+                SCENE / path, "TIFF", compression="group4")
+            mask_views.append(dict(view, path=str(path)))
+        sfm["masks"] = dict(sfm["normals"], views=mask_views)
+        for k, v in sfm.items():
+            with open(SCENE / f"{k}.sfm.json", "w") as f:
+                json.dump(v, f)
+    with tempfile.TemporaryDirectory() as d:
+        data = jload(str(SCENE / "normals.sfm.json"),
+                     albedo_sfm_path=str(SCENE / "albedos.sfm.json"),
+                     mask_sfm_path=str(SCENE / "masks.sfm.json"))
+        jprepare(data, d)
+        tj = json.load(open(Path(d) / "transform.json"))
+        expected = {"world_center": list(SCENE_CENTER), "world_radius":
+                    radius, "n2w": tj["n2w"], "frames": {}}
+        for fr in tj["frames"]:
+            rec = {}
+            for key in ("normal_path", "albedo_path"):
+                img = cv2.imread(str(Path(d) / fr[key]),
+                                 cv2.IMREAD_UNCHANGED)[..., [2, 1, 0, 3]]
+                rec[key.split("_")[0]] = array_digest(img)
+            expected["frames"][Path(fr["normal_path"]).name] = rec
+    with open(SCENE / "expected.json", "w") as f:
+        json.dump(expected, f, indent=1)
+    total = sum(p.stat().st_size for p in SCENE.rglob("*") if p.is_file())
+    print(f"jp2_scene: {total} bytes")
+
+
 def cv2_rgb(path, mode):
     try:
         img = cv2.imread(str(path), MODES[mode])
@@ -385,7 +548,8 @@ def cv2_rgb(path, mode):
 
 def main():
     rng = np.random.default_rng(2024)
-    files = {**jpegs(rng), **tiffs(rng), **more_formats(rng)}
+    files = {**jpegs(rng), **tiffs(rng), **more_formats(rng),
+             **thirteenth(np.random.default_rng(16))}
     for old in HERE.iterdir():
         if old.suffix not in (".py", ".npz"):
             old.unlink()
@@ -402,6 +566,7 @@ def main():
     total = sum(len(b) for b in files.values())
     print(f"{len(files)} fixtures, {total} bytes; expected.npz "
           f"{(HERE / 'expected.npz').stat().st_size} bytes")
+    jp2_scene()
 
 
 if __name__ == "__main__":

@@ -938,3 +938,430 @@ def riff_chunk(blob: bytes, tag: bytes):
             return blob[pos + 8:pos + 8 + n]
         pos += 8 + n + (n & 1)
     return None
+
+
+# ------------------------------------------------------- CCITT, ThunderScan
+def _libtiff():
+    import ctypes
+    import glob
+    import os
+    import PIL
+    libdir = os.path.join(os.path.dirname(PIL.__file__), "..", "pillow.libs")
+    libs = glob.glob(os.path.join(libdir, "libtiff-*.so*"))
+    if not libs:
+        raise RuntimeError("PIL's libtiff not found")
+    lib = ctypes.CDLL(libs[0])
+    lib.TIFFOpen.restype = ctypes.c_void_p
+    lib.TIFFOpen.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    lib.TIFFClose.argtypes = [ctypes.c_void_p]
+    for fn in (lib.TIFFWriteEncodedStrip, lib.TIFFWriteEncodedTile):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p,
+                       ctypes.c_ssize_t]
+        fn.restype = ctypes.c_ssize_t
+    return lib
+
+
+def libtiff_bilevel(path, black, compression, photometric=0, fill_order=1,
+                    t4_options=None, rows_per_strip=None, tile=None) -> bytes:
+    """(h, w) bool `black` written by PIL's own libtiff (its CCITT
+    encoders) with the given tags; → the file's bytes. With MinIsWhite
+    (0) a black pixel is a 1 bit, with MinIsBlack (1) a 0 bit."""
+    import ctypes
+    lib = _libtiff()
+    black = np.asarray(black, bool)
+    h, w = black.shape
+    bits = black if photometric == 0 else ~black
+    tif = lib.TIFFOpen(str(path).encode(), b"w")
+    assert tif
+
+    def put(tag, v, wide=False):
+        assert lib.TIFFSetField(ctypes.c_void_p(tif), ctypes.c_uint32(tag),
+                                ctypes.c_uint32(v) if wide
+                                else ctypes.c_int(v)), tag
+    put(256, w, True)
+    put(257, h, True)
+    put(258, 1)
+    put(277, 1)
+    put(259, compression)
+    put(262, photometric)
+    put(266, fill_order)
+    put(284, 1)
+    if t4_options is not None:
+        put(292, t4_options, True)
+    if tile:
+        put(322, tile[0], True)
+        put(323, tile[1], True)
+        for i, t in enumerate(tiles(bits.astype(np.uint8), *tile)):
+            buf = np.packbits(t, axis=1).tobytes()
+            assert lib.TIFFWriteEncodedTile(ctypes.c_void_p(tif), i, buf,
+                                            len(buf)) >= 0
+    else:
+        rps = rows_per_strip or h
+        put(278, rps, True)
+        for i, y in enumerate(range(0, h, rps)):
+            buf = np.packbits(bits[y:y + rps].astype(np.uint8),
+                              axis=1).tobytes()
+            assert lib.TIFFWriteEncodedStrip(ctypes.c_void_p(tif), i, buf,
+                                             len(buf)) >= 0
+    lib.TIFFClose(ctypes.c_void_p(tif))
+    with open(path, "rb") as f:
+        return f.read()
+
+
+# ITU-T T.4 tables 2 and 3 (terminating codes 0-63, make-up codes 64,
+# 128, ..., 1728, then the shared make-up codes 1792, ..., 2560)
+T4_WHITE = """00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111
+01000 001000 000011 110100 110101 101010 101011 0100111 0001100 0001000
+0010111 0000011 0000100 0101000 0101011 0010011 0100100 0011000 00000010
+00000011 00011010 00011011 00010010 00010011 00010100 00010101 00010110
+00010111 00101000 00101001 00101010 00101011 00101100 00101101 00000100
+00000101 00001010 00001011 01010010 01010011 01010100 01010101 00100100
+00100101 01011000 01011001 01011010 01011011 01001010 01001011 00110010
+00110011 00110100 11011 10010 010111 0110111 00110110 00110111 01100100
+01100101 01101000 01100111 011001100 011001101 011010010 011010011
+011010100 011010101 011010110 011010111 011011000 011011001 011011010
+011011011 010011000 010011001 010011010 011000 010011011""".split()
+T4_BLACK = """0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100
+0000101 0000111 00000100 00000111 000011000 0000010111 0000011000
+0000001000 00001100111 00001101000 00001101100 00000110111 00000101000
+00000010111 00000011000 000011001010 000011001011 000011001100
+000011001101 000001101000 000001101001 000001101010 000001101011
+000011010010 000011010011 000011010100 000011010101 000011010110
+000011010111 000001101100 000001101101 000011011010 000011011011
+000001010100 000001010101 000001010110 000001010111 000001100100
+000001100101 000001010010 000001010011 000000100100 000000110111
+000000111000 000000100111 000000101000 000001011000 000001011001
+000000101011 000000101100 000001011010 000001100110 000001100111
+0000001111 000011001000 000011001001 000001011011 000000110011
+000000110100 000000110101 0000001101100 0000001101101 0000001001010
+0000001001011 0000001001100 0000001001101 0000001110010 0000001110011
+0000001110100 0000001110101 0000001110110 0000001110111 0000001010010
+0000001010011 0000001010100 0000001010101 0000001011010 0000001011011
+0000001100100 0000001100101""".split()
+T4_EXT = """00000001000 00000001100 00000001101 000000010010 000000010011
+000000010100 000000010101 000000010110 000000010111 000000011100
+000000011101 000000011110 000000011111""".split()
+
+
+def _mh_run(run, white):
+    """One run as modified Huffman codes: make-ups, then a terminating
+    code."""
+    table = T4_WHITE if white else T4_BLACK
+    out = []
+    while run >= 2624:
+        out.append(T4_EXT[-1])
+        run -= 2560
+    if run >= 1792:
+        out.append(T4_EXT[run // 64 - 28])
+        run %= 64
+    elif run >= 64:
+        out.append(table[63 + run // 64])
+        run %= 64
+    out.append(table[run])
+    return out
+
+
+def rlew_file(black, photometric=0) -> bytes:
+    """A CCITT RLEW (32771) TIFF of one strip: each row coded as modified
+    Huffman and padded to where libtiff's decoder starts the next row.
+    That decoder drops what is left in its bit accumulator modulo 16 and
+    then steps to an even byte, so its row start depends on how far its
+    table look-ups (12 bits for white codes, 13 for black) have read
+    ahead; this follows it byte for byte. (libtiff's own 32771 encoder
+    pads to the next 16-bit word, which its decoder misreads.)"""
+    bits, avail, cp = "", 0, 0
+    for row in np.asarray(black, bool):
+        if photometric == 1:
+            row = ~row
+        changes = np.flatnonzero(np.diff(np.r_[False, row, ~row[-1]]))
+        runs = np.diff(np.r_[0, changes])[:len(changes)]
+        runs = [int(r) for r in runs]
+        if len(runs) % 2 == 1:
+            runs.append(0)
+        codes = []
+        for i, r in enumerate(runs):
+            if i == len(runs) - 1 and r == 0:
+                break
+            codes += [(c, 12 if i % 2 == 0 else 13)
+                      for c in _mh_run(r, i % 2 == 0)]
+        for code, wid in codes:
+            bits += code
+            if avail < wid:             # NeedBits16: up to two bytes
+                cp += 1
+                avail += 8
+                if avail < wid:
+                    cp += 1
+                    avail += 8
+            avail -= len(code)
+        avail &= ~15
+        if avail == 0 and cp & 1:
+            cp += 1
+        start = 8 * cp - avail
+        bits += "0" * (start - len(bits))
+    bits += "0" * (-len(bits) % 8)
+    data = bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+    h, w = np.asarray(black).shape
+    return tiff_file({256: (3, [w]), 257: (3, [h]), 258: (3, [1]),
+                      259: (3, [32771]), 262: (3, [photometric]),
+                      277: (3, [1]), 278: (3, [h])}, [data])
+
+
+def thunderscan(idx: np.ndarray) -> bytes:
+    """(h, w) 4-bit values → ThunderScan codes (libtiff's tif_thunder.c
+    decodes them): per row raw pixels, 2- and 3-bit deltas and runs of
+    the last pixel, a run never ending a row (libtiff would leave those
+    bytes unwritten)."""
+    out = bytearray()
+    two = {0: 0, 1: 1, -1: 3}
+    three = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+    for row in np.asarray(idx, int):
+        x, last, w = 0, 0, len(row)
+        while x < w:
+            run = 0
+            while x + run < w - 1 and row[x + run] == last and run < 63:
+                run += 1
+            if run >= 2 and x > 0:
+                out.append(run)
+                x += run
+                continue
+            d = [int(row[x + k]) - last if k == 0 else
+                 int(row[x + k]) - int(row[x + k - 1])
+                 for k in range(min(3, w - x))]
+            if len(d) == 3 and all(v in two for v in d):
+                out.append(0x40 | two[d[0]] << 4 | two[d[1]] << 2 | two[d[2]])
+                x += 3
+            elif len(d) >= 2 and all(v in three for v in d[:2]):
+                out.append(0x80 | three[d[0]] << 3 | three[d[1]])
+                x += 2
+            elif d[0] in three and (x + 1 == w or x % 5 == 0):
+                # a 3-bit delta and a skip
+                out.append(0x80 | three[d[0]] << 3 | 4)
+                x += 1
+            else:
+                out.append(0xC0 | int(row[x]))
+                x += 1
+            last = int(row[x - 1])
+    return bytes(out)
+
+
+# ------------------------------------------------------------- JPEG 2000
+# opj_cparameters_t of OpenJPEG 2.5 (openjpeg.h), byte offsets on a 64-bit
+# host; `tests/test_torch_image_jpeg2000.py` checks them against
+# opj_set_default_encoder_parameters
+OPJ_FIELDS = {
+    "tile_size_on": (0, "i"), "cp_tx0": (4, "i"), "cp_ty0": (8, "i"),
+    "cp_tdx": (12, "i"), "cp_tdy": (16, "i"), "cp_disto_alloc": (20, "i"),
+    "cp_fixed_quality": (28, "i"), "csty": (48, "i"),
+    "prog_order": (52, "i"), "numpocs": (4792, "I"),
+    "tcp_numlayers": (4796, "i"), "numresolution": (5600, "i"),
+    "cblockw_init": (5604, "i"), "cblockh_init": (5608, "i"),
+    "mode": (5612, "i"), "irreversible": (5616, "i"),
+    "roi_compno": (5620, "i"), "roi_shift": (5624, "i"),
+    "res_spec": (5628, "i"), "tp_on": (18696, "b"), "tp_flag": (18697, "b"),
+    "tcp_mct": (18698, "b")}
+OPJ_RATES, OPJ_DISTORATIO, OPJ_PRCW, OPJ_PRCH, OPJ_POC = (4800, 5200, 5632,
+                                                           5764, 56)
+PROGRESSION_ORDERS = ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL")
+
+
+def _libopenjp2():
+    import ctypes
+    import glob
+    import os
+    import PIL
+    libdir = os.path.join(os.path.dirname(PIL.__file__), "..", "pillow.libs")
+    libs = glob.glob(os.path.join(libdir, "libopenjp2-*.so*"))
+    if not libs:
+        raise RuntimeError("PIL's libopenjp2 not found")
+    lib = ctypes.CDLL(libs[0])
+    P = ctypes.c_void_p
+    for name, res, args in (
+            ("opj_image_create", P, [ctypes.c_uint32, P, ctypes.c_int]),
+            ("opj_create_compress", P, [ctypes.c_int]),
+            ("opj_setup_encoder", ctypes.c_int, [P, P, P]),
+            ("opj_stream_create_default_file_stream", P,
+             [ctypes.c_char_p, ctypes.c_int]),
+            ("opj_start_compress", ctypes.c_int, [P, P, P]),
+            ("opj_encode", ctypes.c_int, [P, P]),
+            ("opj_end_compress", ctypes.c_int, [P, P]),
+            ("opj_stream_destroy", None, [P]),
+            ("opj_destroy_codec", None, [P]),
+            ("opj_image_destroy", None, [P]),
+            ("opj_set_default_encoder_parameters", None, [P])):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    return lib
+
+
+def opj_parameters(**fields) -> bytearray:
+    """opj_cparameters_t: OpenJPEG's defaults, then `fields` (names of
+    OPJ_FIELDS; also rates=[...] (sets cp_disto_alloc), quality=[...]
+    (cp_fixed_quality, dB), precincts=[(w, h), ...] (res_spec, csty bit
+    0), poc=[(res0, comp0, layer1, res1, comp1, "RPCL"), ...] (tile 1))."""
+    import ctypes
+    lib = _libopenjp2()
+    buf = (ctypes.c_uint8 * 20000)()
+    lib.opj_set_default_encoder_parameters(buf)
+    p = bytearray(buf)
+    rates, quality = fields.pop("rates", None), fields.pop("quality", None)
+    if rates is not None:
+        fields.update(cp_disto_alloc=1, tcp_numlayers=len(rates))
+        struct.pack_into(f"<{len(rates)}f", p, OPJ_RATES, *rates)
+    if quality is not None:
+        fields.update(cp_fixed_quality=1, tcp_numlayers=len(quality))
+        struct.pack_into(f"<{len(quality)}f", p, OPJ_DISTORATIO, *quality)
+    precincts = fields.pop("precincts", None)
+    if precincts:
+        fields["res_spec"] = len(precincts)
+        fields["csty"] = fields.get("csty", 0) | 1
+        for i, (w, h) in enumerate(precincts):
+            struct.pack_into("<i", p, OPJ_PRCW + 4 * i, w)
+            struct.pack_into("<i", p, OPJ_PRCH + 4 * i, h)
+    for i, (r0, c0, l1, r1, c1, prog) in enumerate(fields.pop("poc", ())):
+        at = OPJ_POC + 148 * i
+        struct.pack_into("<5I", p, at, r0, c0, l1, r1, c1)
+        struct.pack_into("<i", p, at + 32, PROGRESSION_ORDERS.index(prog))
+        struct.pack_into("<I", p, at + 48, 1)
+        fields["numpocs"] = i + 1
+    if "prog_order" in fields and isinstance(fields["prog_order"], str):
+        fields["prog_order"] = PROGRESSION_ORDERS.index(fields["prog_order"])
+    for name, value in fields.items():
+        at, code = OPJ_FIELDS[name]
+        struct.pack_into("<" + code, p, at, value)
+    return p
+
+
+def openjpeg_encode(path, comps, prec=8, signed=False, jp2=True,
+                    colour=1, sub=None, origin=(0, 0), extra=(),
+                    **fields) -> bytes:
+    """Components ((h, w) integer arrays, at their own subsampled sizes)
+    encoded by PIL's own libopenjp2 with any encoder field (see
+    `opj_parameters`); colour: OPJ_CLRSPC_SRGB (1), GRAY (2), SYCC (3);
+    sub: per component (dx, dy); origin: the image offset. → the file's
+    bytes."""
+    import ctypes
+    lib = _libopenjp2()
+    n = len(comps)
+    sub = sub or [(1, 1)] * n
+    precs = prec if isinstance(prec, (list, tuple)) else [prec] * n
+    parms = (ctypes.c_uint32 * (9 * n))()
+    for i, c in enumerate(comps):
+        h, w = np.asarray(c).shape
+        parms[9 * i:9 * i + 9] = [sub[i][0], sub[i][1], w, h,
+                                  -(-origin[0] // sub[i][0]),
+                                  -(-origin[1] // sub[i][1]), precs[i], 0,
+                                  int(signed)]
+    image = lib.opj_image_create(n, parms, colour)
+    assert image
+    w0 = np.asarray(comps[0]).shape[1] * sub[0][0]
+    h0 = np.asarray(comps[0]).shape[0] * sub[0][1]
+    hdr = (ctypes.c_uint32 * 4).from_address(image)
+    hdr[:] = [origin[0], origin[1], origin[0] + w0, origin[1] + h0]
+    comp_array = ctypes.c_void_p.from_address(image + 24).value
+    for i, c in enumerate(comps):
+        data = ctypes.c_void_p.from_address(comp_array + 64 * i + 48).value
+        a = np.ascontiguousarray(c, np.int32)
+        ctypes.memmove(data, a.ctypes.data, a.nbytes)
+    params = (ctypes.c_uint8 * 20000).from_buffer(opj_parameters(**fields))
+    codec = lib.opj_create_compress(2 if jp2 else 0)
+    stream = None
+    try:
+        assert lib.opj_setup_encoder(codec, params, image)
+        if extra:
+            opj_extra_options(codec, list(extra))
+        stream = lib.opj_stream_create_default_file_stream(
+            str(path).encode(), 0)
+        assert lib.opj_start_compress(codec, image, stream)
+        assert lib.opj_encode(codec, stream)
+        assert lib.opj_end_compress(codec, stream)
+    finally:
+        if stream:
+            lib.opj_stream_destroy(stream)
+        lib.opj_destroy_codec(codec)
+        lib.opj_image_destroy(image)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def opj_extra_options(codec, options):
+    """opj_encoder_set_extra_options (e.g. "TLM=YES", "PLT=YES")."""
+    import ctypes
+    lib = _libopenjp2()
+    arr = (ctypes.c_char_p * (len(options) + 1))(
+        *[o.encode() for o in options], None)
+    lib.opj_encoder_set_extra_options.argtypes = [ctypes.c_void_p,
+                                                  ctypes.c_void_p]
+    assert lib.opj_encoder_set_extra_options(codec, arr)
+
+
+def jp2_box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + kind + payload
+
+
+def jp2_file(codestream: bytes, h, w, ncomp, bits, enumcs=16, pclr=None,
+             cmap=None, cdef=None) -> bytes:
+    """A JP2 file around a codestream: signature, ftyp, jp2h (ihdr, colr
+    of `enumcs`, then pclr ((n, k) entries, depths), cmap [(cmp, mtyp,
+    pcol)] and cdef [(cn, typ, asoc)] when given), jp2c."""
+    head = jp2_box(b"ihdr", struct.pack(">IIHBBBB", h, w, ncomp, bits - 1,
+                                        7, 0, 0))
+    head += jp2_box(b"colr", struct.pack(">BBBI", 1, 0, 0, enumcs))
+    if pclr is not None:
+        table, depths = pclr
+        body = struct.pack(">HB", len(table), len(depths))
+        body += bytes(d - 1 for d in depths)
+        for row in table:
+            for v, d in zip(row, depths):
+                body += int(v).to_bytes((d + 7) // 8, "big")
+        head += jp2_box(b"pclr", body)
+    if cmap is not None:
+        head += jp2_box(b"cmap", b"".join(struct.pack(">HBB", *m)
+                                          for m in cmap))
+    if cdef is not None:
+        head += jp2_box(b"cdef", struct.pack(">H", len(cdef)) + b"".join(
+            struct.pack(">HHH", *d) for d in cdef))
+    return (b"\x00\x00\x00\x0cjP  \r\n\x87\n"
+            + jp2_box(b"ftyp", b"jp2 \x00\x00\x00\x00jp2 ")
+            + jp2_box(b"jp2h", head) + jp2_box(b"jp2c", codestream))
+
+
+def packed_headers(codestream: bytes, where="ppt") -> bytes:
+    """A codestream written with SOP and EPH markers, its packet headers
+    (each up to and with its EPH) moved into PPT marker segments of their
+    tile-parts, or into PPM segments of the main header (one Nppm chunk
+    per tile-part); the bodies stay, behind their SOPs. Marker emulation
+    keeps FF91 and FF92 out of headers and bodies, so they split."""
+    main_end = codestream.index(b"\xff\x90")
+    main, pos, parts = codestream[:main_end], main_end, []
+    while pos < len(codestream) and codestream[pos:pos + 2] == b"\xff\x90":
+        psot = struct.unpack_from(">I", codestream, pos + 6)[0]
+        end = pos + psot if psot else len(codestream) - 2
+        sod = codestream.index(b"\xff\x93", pos) + 2
+        header, data = codestream[pos:sod - 2], codestream[sod:end]
+        heads, bodies = b"", b""
+        for pkt in data.split(b"\xff\x91")[1:]:
+            sop, rest = b"\xff\x91" + pkt[:4], pkt[4:]
+            cut = rest.index(b"\xff\x92") + 2
+            heads += rest[:cut]
+            bodies += sop + rest[cut:]
+        parts.append((header, heads, bodies))
+        pos = end
+    out = b""
+    if where == "ppm":
+        stream = b"".join(struct.pack(">I", len(h)) + h for _, h, _ in parts)
+        ppm = b"".join(struct.pack(">HHB", 0xFF60, 3 + len(c), z) + c
+                       for z, c in enumerate([stream[i:i + 60000] for i in
+                                              range(0, len(stream), 60000)]))
+        out = main + ppm
+    else:
+        out = main
+    zppt = {}                 # Zppt counts the PPT segments of each tile
+    for header, heads, bodies in parts:
+        if where == "ppt":
+            tile = struct.unpack_from(">H", header, 4)[0]
+            z = zppt[tile] = zppt.get(tile, -1) + 1
+            header += struct.pack(">HHB", 0xFF61, 3 + len(heads), z) + heads
+        tp = header + b"\xff\x93" + bodies
+        tp = tp[:6] + struct.pack(">I", len(tp)) + tp[10:]
+        out += tp
+    return out + b"\xff\xd9"
