@@ -12,8 +12,9 @@ Phases, each printing JSON lines with `elapsed_s`:
    sources in the checkout, the point-to-mesh library of the Chamfer
    metric (`native/raycast.cc`, g++), the PNG row unfilter
    (`rnb_neus2_torch/native/png_unfilter.cc`, g++) and the image codecs'
-   helpers (`rnb_neus2_torch/native/codecs.cc`, g++), all at once (one
-   compiler per library), with `-Xptxas -v` output.
+   helpers (`rnb_neus2_torch/native/codecs.cc`, g++) and the AV1 decoder
+   (`rnb_neus2_torch/native/av1.cc`, g++), all at once (one compiler per
+   library), with `-Xptxas -v` output.
 3. kernel vs plain: each kernel's wrapper on card tensors at the main
    path's shapes against its plain PyTorch version; max abs error ≤
    1e-5·(1 + max |plain|) (float atomics sum in another order), and every
@@ -251,15 +252,24 @@ Phases, each printing JSON lines with `elapsed_s`:
    seconds of `load_transform_json` on a prepared 16-view 612x512 scene
    of 16-bit PNGs (`scene_load_seconds`; loaded by its path from another
    checkout's root, this file times that checkout's package on the same
-   scene).
+   scene). Also the committed JPEG 2000 / Group 4 sphere
+   (`jp2_scene_phase`) and AVIF sphere (`avif_scene_phase`: lossless
+   8-bit 4:4:4 normals, cv2-default albedos, lossless grey masks; each
+   view's decode timed; normals, albedos and n2w equal to the JAX
+   package's digests), each through `run_full_pipeline` (200 steps, mesh
+   at 256; launches per level bucket, radius within a voxel), and the
+   612x512 JPEG 2000, Group 4 and AVIF (8-bit q95 colour, lossless 4:4:4
+   colour, 12-bit unchanged) decodes.
 
 20. final slice (within 90 s): every fixture of
-   tests/torch_fixtures/formats (the JPEG and TIFF variants, written
-   where the CPU tests run by its make_fixtures.py with cv2 and PIL,
-   which this host lacks) decoded on the host in the three read modes, equal to
-   cv2's decode in its expected.npz, the files cv2 cannot read raising
-   UnreadableImage (ms per decode; the 612x512 progressive JPEG whole and
-   cut after 3 scans); `python -m rnb_neus2_torch.tools.mesh_from_snapshot`
+   tests/torch_fixtures/formats (JPEG, TIFF, BMP, PNM, Radiance, Sun
+   raster, GIF, WebP, JPEG 2000 and AVIF, written where the CPU tests run
+   by its make_fixtures.py with cv2, PIL and libaom, which this host
+   lacks) decoded on the host in the three read modes, equal to cv2's
+   decode in its expected.npz, the files cv2 cannot read raising
+   UnreadableImage and the AVIF features refused by name
+   (`REFUSED_FIXTURES`) UnsupportedImage (ms per decode; the 612x512
+   files, best of 3); `python -m rnb_neus2_torch.tools.mesh_from_snapshot`
    as a subprocess on phase 11's scene and snapshot at resolution 256
    (GT 128): exit 0, its OBJ equal to phase 11's mesh_300.obj (faces
    equal, vertices within 1e-5), its Chamfer printed and not gated (the
@@ -271,7 +281,8 @@ Phases, each printing JSON lines with `elapsed_s`:
 Then one JSON line with every kernel's numbers (the main path's launches,
 the pipeline's, the dynamic path's per phase, the refinement's, the
 dense-Adam run's, each option path's, each extra-mode fit's, the
-data-parallel run's, the formats pipeline's and `Trainer.train`'s, with
+data-parallel run's, the formats pipeline's, the JP2 and AVIF scenes'
+and `Trainer.train`'s, with
 the timings on the first replica's inputs), and as
 the last line {"ok": true, "device": {...}}.
 Any failed phase raises and the script exits non-zero.
@@ -291,6 +302,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -323,6 +335,9 @@ FORMATS_STEPS = 300            # phase 19: stage 1 to 200, stage 2 to 300
 JP2_STEPS = 200                # phase 19's JPEG 2000 / Group 4 scene
 JP2_MESH_RES = 256
 JP2_SCENE = ROOT / "tests" / "torch_fixtures" / "jp2_scene"
+AVIF_STEPS = 200               # phase 19's AVIF scene
+AVIF_MESH_RES = 256
+AVIF_SCENE = ROOT / "tests" / "torch_fixtures" / "avif_scene"
 CODEC_VIEW = (512, 612)        # phase 19's codec timings: H, W
 PHOTO = (3024, 4032)
 CODEC_REPEATS = 5
@@ -331,6 +346,10 @@ SCENE_LOAD_REPEATS = 5
 PAR_READS, PAR_SYNC = 18, 25   # phase 18: 450 steps, a read per 25
 FIXTURES = ROOT / "tests" / "torch_fixtures" / "formats"   # phase 20
 FIXTURE_REPEATS = 3
+# phase 20's fixtures that cv2 reads and the port refuses by name
+REFUSED_FIXTURES = {"avif_film_grain.avif": "film grain",
+                    "avif_superres.avif": "superres",
+                    "avif_grid.avif": "grid"}
 TRAIN_API_STEPS = 32
 
 
@@ -2548,6 +2567,11 @@ def codec_timings(work: Path) -> dict:
             ("jp2_lossless_16bit_colour", "jp2_lossless16_612x512.jp2",
              "unchanged"),
             ("jp2_lossy_8bit_colour", "jp2_lossy8_612x512.jp2", "color"),
+            ("avif_q95_8bit_colour", "avif_q95_612x512.avif", "color"),
+            ("avif_lossless_444_colour", "avif_lossless444_612x512.avif",
+             "color"),
+            ("avif_12bit_unchanged", "avif_12bit_612x512.avif",
+             "unchanged"),
             ("tiff_group4_mask", "g4_mask_612x512.tif", "unchanged")):
         dec = []
         for _ in range(CODEC_REPEATS):
@@ -2720,6 +2744,100 @@ def jp2_scene_phase(torch, kernels, root: Path, png) -> dict:
     return row
 
 
+def avif_scene_phase(torch, kernels, root: Path, png) -> dict:
+    """Phase 19: the committed AVIF sphere (tests/torch_fixtures/avif_scene:
+    lossless 8-bit 4:4:4 normals, albedos at cv2's default quality,
+    lossless grey masks), prepared on the host: the normals, albedos and
+    n2w equal to the JAX package's (expected.json's digests), each view's
+    decode timed (whether the alphas equal the PNG scene's is printed:
+    these normals carry no alpha of their own); then `run_full_pipeline` on the card
+    (AVIF_STEPS, mesh at AVIF_MESH_RES) with its launches per level
+    bucket and the mesh's median radius within a voxel of the sphere's."""
+    import numpy as np
+    from rnb_neus2_torch.cli import pipeline
+    from rnb_neus2_torch.io import image_io
+    from rnb_neus2_torch.io.dataloaders import load_data
+    from rnb_neus2_torch.io.prepare import prepare_testbed_data
+    from rnb_neus2_torch.mesh.writer import load_obj
+
+    expected = json.loads((AVIF_SCENE / "expected.json").read_text())
+    kw = dict(albedo_sfm_path=str(AVIF_SCENE / "albedos.sfm.json"),
+              mask_sfm_path=str(AVIF_SCENE / "masks.sfm.json"))
+    normals = str(AVIF_SCENE / "normals.sfm.json")
+    decode_ms = {}
+    for kind in ("normals", "albedos", "masks"):
+        times = []
+        for path in sorted((AVIF_SCENE / kind).glob("*.avif")):
+            t0 = time.perf_counter()
+            image_io.read_image(path)
+            times.append(1e3 * (time.perf_counter() - t0))
+        decode_ms[kind] = statistics.median(times)
+    t0 = time.perf_counter()
+    data = load_data(normals, **kw)
+    prepare_testbed_data(data, str(root / "avif" / "prepared"))
+    prep_s = time.perf_counter() - t0
+    a, b = root / "png" / "prepared", root / "avif" / "prepared"
+    cmp = {"frames": 0, "alphas_equal": True, "albedo_digests_equal": True,
+           "normal_digests_equal": True}
+    for name in sorted(p.name for p in (a / "normals").glob("*.png")):
+        cmp["frames"] += 1
+        na, nb = (png.read_png(d / "normals" / name) for d in (a, b))
+        cmp["alphas_equal"] &= bool(np.array_equal(na[..., 3], nb[..., 3]))
+        want = expected["frames"][name]
+        cmp["albedo_digests_equal"] &= \
+            _digest(png.read_png(b / "albedos" / name)) == want["albedo"]
+        cmp["normal_digests_equal"] &= _digest(nb) == want["normal"]
+    with open(b / "transform.json") as f:
+        cmp["n2w_equal"] = json.load(f)["n2w"] == expected["n2w"]
+    cmp["files"] = sorted({Path(v[k]).suffix for v in data["views"]
+                           for k in ("normal_path", "albedo_path",
+                                     "mask_path")})
+    log("formats_avif_prepare", prepare_s=prep_s, decode_ms=decode_ms,
+        **cmp)
+    if not (cmp["frames"] == SPHERE["n_views"]
+            and cmp["albedo_digests_equal"] and cmp["normal_digests_equal"]
+            and cmp["n2w_equal"] and cmp["files"] == [".avif"]):
+        raise AssertionError(f"prepared AVIF scene: {cmp}")
+
+    buckets, undo = _record_step_bodies()
+    for k in kernels.values():
+        k.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        mesh_path = pipeline.run_full_pipeline(
+            normals, str(root / "avif_out"), max_steps=AVIF_STEPS,
+            mesh_resolution=AVIF_MESH_RES, device="cuda", **kw)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    total = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    want = _expected_launches(buckets)
+    with open(root / "avif_out" / "prepared_data" / "transform.json") as f:
+        voxel = 2.0 / AVIF_MESH_RES * json.load(f)["n2w"][0][0]
+    V, F = load_obj(mesh_path)
+    center = np.asarray(expected["world_center"])
+    radius = float(np.median(np.linalg.norm(V - center, axis=1)))
+    row = {"steps": AVIF_STEPS, "step_bodies": len(buckets),
+           "launches": launches, "launches_expected": want,
+           "pipeline_s": total, "vertices": len(V), "faces": len(F),
+           "median_radius": radius,
+           "world_radius": expected["world_radius"], "voxel": voxel,
+           "decode_ms": decode_ms, "prepare_s": prep_s,
+           **{k: cmp[k] for k in ("alphas_equal", "albedo_digests_equal",
+                                  "normal_digests_equal", "n2w_equal")}}
+    log("formats_avif", **row)
+    if launches != want:
+        raise AssertionError(f"AVIF scene: kernel launches {launches} "
+                             f"in {len(buckets)} steps; want {want}")
+    if not (len(F) and abs(radius - expected["world_radius"]) <= voxel):
+        raise AssertionError(f"AVIF scene: median radius {radius}, the "
+                             f"sphere's {expected['world_radius']} "
+                             f"(voxel {voxel})")
+    return row
+
+
 def formats_phase(torch, kernels, card) -> dict:
     """Phase 19: the Meshroom-style scene in PNG, in EXR/TIFF/JPEG and in
     PPM/BMP/PGM, prepared and compared, the committed JPEG 2000 / Group 4
@@ -2754,6 +2872,7 @@ def formats_phase(torch, kernels, card) -> dict:
                                 root / "exr" / "prepared")
         netpbm = netpbm_scene(root, png, world_center)
         jp2 = jp2_scene_phase(torch, kernels, root, png)
+        avif = avif_scene_phase(torch, kernels, root, png)
         log("formats_prepare", seconds=seconds, mask_files=sorted(
             {Path(p).suffix for p in mask_paths}), **cmp)
         if not (cmp["frames"] == SPHERE["n_views"] and cmp["albedo_equal"]
@@ -2798,7 +2917,8 @@ def formats_phase(torch, kernels, card) -> dict:
            "launches": launches, "launches_expected": want,
            "pipeline_s": total, "vertices": len(V), "faces": len(F),
            "median_radius": radius, "world_radius": r_world, "voxel": voxel,
-           "codecs": codecs, "jp2_scene": jp2, "card": card}
+           "codecs": codecs, "jp2_scene": jp2, "avif_scene": avif,
+           "card": card}
     log("formats", **row)
     if launches != want:
         raise AssertionError(f"kernel launches {launches} in "
@@ -2812,20 +2932,21 @@ def formats_phase(torch, kernels, card) -> dict:
 def decode_fixtures() -> dict:
     """Phase 20, part 1: every fixture of tests/torch_fixtures/formats
     (JPEG, TIFF with CCITT, BMP, PNM/PAM/PFM, Radiance, Sun raster, GIF,
-    WebP, JPEG 2000)
+    WebP, JPEG 2000, AVIF)
     decoded in each mode on the host, equal to cv2's decode in
     expected.npz; where cv2 returned None (an empty array there), the
-    port must raise UnreadableImage. The 612x512 files are timed in
-    "color" mode (the best of FIXTURE_REPEATS)."""
+    port must raise UnreadableImage, and UnsupportedImage naming the
+    feature for REFUSED_FIXTURES. The 612x512 files are timed in "color"
+    mode (the best of FIXTURE_REPEATS)."""
     import numpy as np
     from rnb_neus2_torch.io import image_io
-    from rnb_neus2_torch.io.errors import UnreadableImage
+    from rnb_neus2_torch.io.errors import UnreadableImage, UnsupportedImage
 
     with np.load(FIXTURES / "expected.npz") as z:
         expected = {k: z[k] for k in z.files}
     files = sorted(p for p in FIXTURES.iterdir()
                    if p.is_file() and p.suffix not in (".py", ".npz"))
-    ms, bad, refused = {}, [], 0
+    ms, bad, refused, named = {}, [], 0, 0
     for path in files:
         for mode in ("unchanged", "color", "grey"):
             want = expected[f"{path.name}:{mode}"]
@@ -2834,6 +2955,11 @@ def decode_fixtures() -> dict:
                 got = image_io.read_image(path, mode)
             except UnreadableImage:
                 got = None
+            except UnsupportedImage as e:
+                if REFUSED_FIXTURES.get(path.name, "?") not in str(e):
+                    raise
+                named += 1
+                continue
             dt = 1e3 * (time.perf_counter() - t0)
             ms[f"{path.name}:{mode}"] = dt
             if want.size == 0:
@@ -2848,7 +2974,8 @@ def decode_fixtures() -> dict:
                  "webp_lossy_612x512.webp", "webp_lossless_612x512.webp",
                  "hdr_612x512.hdr", "bmp_rle8_612x512.bmp",
                  "jp2_lossless16_612x512.jp2", "jp2_lossy8_612x512.jp2",
-                 "g4_mask_612x512.tif"):
+                 "g4_mask_612x512.tif", "avif_q95_612x512.avif",
+                 "avif_lossless444_612x512.avif", "avif_12bit_612x512.avif"):
         times = []
         for _ in range(FIXTURE_REPEATS):
             t0 = time.perf_counter()
@@ -2856,6 +2983,7 @@ def decode_fixtures() -> dict:
             times.append(1e3 * (time.perf_counter() - t0))
         big[name] = min(times)
     row = {"files": len(files), "decodes": len(ms), "refused": refused,
+           "refused_by_name": named,
            "mismatched": bad, "ms_per_decode": ms,
            "ms_612x512_progressive_color": big["prog_612x512.jpg"],
            "ms_612x512_progressive_cut3_color":
@@ -2863,7 +2991,7 @@ def decode_fixtures() -> dict:
            "ms_612x512_color": big,
            "decode_s": sum(ms.values()) / 1e3}
     log("fixtures", **row)
-    if bad or len(files) < 80:
+    if bad or len(files) < 120 or named != len(REFUSED_FIXTURES) * 3:
         raise AssertionError(f"fixtures that differ from cv2's decode: "
                              f"{bad}")
     return row
@@ -2986,6 +3114,8 @@ def main() -> int:
     from rnb_neus2_torch.kernels import scatter_add as sca
     from rnb_neus2_torch.io import native, png, raycast
     from rnb_neus2_torch.tools import bench_scatter as bench
+    av1 = types.SimpleNamespace(_library=native._av1_library,
+                                LIBRARY=native.AV1_LIBRARY)
 
     kernels = {"hash_grad_small": hgs, "scatter_add": sca}
     card = bench.card_name_and_power()
@@ -2995,7 +3125,7 @@ def main() -> int:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
 
-    build_all(build, [hgs, sca, raycast, png, native])
+    build_all(build, [hgs, sca, raycast, png, native, av1])
     errs = check_kernels_vs_plain(torch, bench, kernels, dev)
     for name, sizes in (("hash_grad_small", (4096, 13824)),
                         ("scatter_add", (39304, 125000, 373248, 1 << 19))):
@@ -3102,6 +3232,9 @@ def main() -> int:
         row["launches_formats_jp2"] = \
             fmts["jp2_scene"]["launches"][row["name"]]
         row["formats_jp2_steps"] = fmts["jp2_scene"]["step_bodies"]
+        row["launches_formats_avif"] = \
+            fmts["avif_scene"]["launches"][row["name"]]
+        row["formats_avif_steps"] = fmts["avif_scene"]["step_bodies"]
         row["launches_train_api"] = \
             final["train_api"]["launches"][row["name"]]
         row["formats_steps"] = fmts["step_bodies"]

@@ -5,7 +5,8 @@ Files are read and written by the port's own codecs (no `cv2`): PNG
 (`io/png.py`), TIFF (`io/tiff.py`), JPEG (`io/jpeg.py`), OpenEXR
 (`io/exr.py`), BMP (`io/bmp.py`), PNM/PAM/PFM (`io/pxm.py`), Radiance
 HDR (`io/hdr.py`), Sun raster (`io/sunras.py`), GIF (`io/gif.py`), WebP
-(`io/webp.py`) and JPEG 2000 (`io/jpeg2000.py`). A file's format is found from its signature, as
+(`io/webp.py`), JPEG 2000 (`io/jpeg2000.py`) and AVIF (`io/avif.py`). A
+file's format is found from its signature, as
 `cv2.imread` finds it, and its samples come back as cv2 gives them, but
 in RGB(A) order: the JAX package flips cv2's BGR(A), the port's readers
 give RGB(A) directly and flip nothing. A grey+alpha PNG reads as (grey,
@@ -27,8 +28,8 @@ import os
 
 import numpy as np
 
-from . import (bmp, exr, gif, hdr, jpeg, jpeg2000, png, pxm, sunras, tiff,
-               webp)
+from . import (avif, bmp, exr, gif, hdr, jpeg, jpeg2000, png, pxm, sunras,
+               tiff, webp)
 from .errors import UnreadableImage, unreadable, unsupported
 
 
@@ -72,7 +73,7 @@ def _reader(path):
     if not os.path.isfile(str(path)):
         unreadable(path, f"Cannot read image: {path}")
     with open(path, "rb") as f:
-        head = f.read(16)
+        head = f.read(512)
     if head.startswith(png.SIGNATURE):
         return png.read_png
     if head.startswith(jpeg.SIGNATURE):
@@ -99,8 +100,8 @@ def _reader(path):
         return webp.read_webp
     if jpeg2000.is_jpeg2000(head):
         return jpeg2000.read_jpeg2000
-    if head[4:8] == b"ftyp" and head[8:12] in (b"avif", b"avis"):
-        unsupported(path, "AVIF image")
+    if avif.is_avif(head):
+        return avif.read_avif
     unreadable(path, "not an image file cv2 reads")
 
 

@@ -306,3 +306,50 @@ def vp8_reconstruct(info, mb, resid, mbw: int, mbh: int) -> tuple:
     _library().vp8_reconstruct(ptr(info), ptr(mb), ptr(resid), ptr(Y),
                                ptr(U), ptr(V))
     return Y, U, V
+
+
+# ------------------------------------------------------------------ AV1
+AV1_SOURCE = Path(__file__).resolve().parent.parent / "native" / "av1.cc"
+AV1_LIBRARY = "av1"
+AV1_INFO = ("width", "height", "bit_depth", "mono", "ssx", "ssy", "cp", "tc",
+            "mc", "full_range", "profile", "still", "reduced", "csp",
+            "frame_type", "operating_points", "level", "tier")
+
+
+@functools.lru_cache(maxsize=None)
+def _av1_library() -> ctypes.CDLL:
+    lib, _ = load_host_library(AV1_LIBRARY, AV1_SOURCE)
+    lib.av1_decode.restype = ctypes.c_int64
+    lib.av1_decode.argtypes = [_P, _I64, _P, _P, _I64, _P]
+    return lib
+
+
+def av1_decode(obus: bytes) -> tuple:
+    """Decode the intra frame of an AV1 OBU stream (`native/av1.cc`) →
+    (code, info dict, [Y, U, V] uint16 planes, census int64[128]); code
+    is 0 or one of the negative codes of av1.cc, and the planes are empty
+    unless it is 0 (info holds the sequence header's fields once one was
+    read)."""
+    lib = _av1_library()
+    info = np.zeros(32, np.int32)
+    census = np.zeros(128, np.int64)
+    code = lib.av1_decode(obus, len(obus), ptr(info), None, 0, ptr(census))
+    if code > -1000:
+        meta = dict(zip(AV1_INFO, (int(v) for v in info[:len(AV1_INFO)])))
+        return code, meta if meta["width"] else {}, [], census
+    need = -code - 1000
+    planes = np.zeros(need, np.uint16)
+    census[:] = 0
+    code = lib.av1_decode(obus, len(obus), ptr(info), ptr(planes), need,
+                          ptr(census))
+    meta = dict(zip(AV1_INFO, (int(v) for v in info[:len(AV1_INFO)])))
+    if code != 0:
+        return code, meta, [], census
+    w, h = meta["width"], meta["height"]
+    out = [planes[:w * h].reshape(h, w)]
+    if not meta["mono"]:
+        cw, ch = (w + meta["ssx"]) >> meta["ssx"], (h + meta["ssy"]) >> meta["ssy"]
+        u = planes[w * h:w * h + cw * ch].reshape(ch, cw)
+        v = planes[w * h + cw * ch:w * h + 2 * cw * ch].reshape(ch, cw)
+        out += [u, v]
+    return code, meta, out, census

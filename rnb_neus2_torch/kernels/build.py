@@ -5,8 +5,9 @@ CUDA sources of `csrc/`: `nvcc -gencode arch=compute_90a,code=sm_90a
 -std=c++17 -O3 -shared -Xcompiler -fPIC`; host C++ sources (the repo's
 `native/raycast.cc`, the package's `native/png_unfilter.cc`): `g++ -O3
 -fopenmp -shared -fPIC`. Either goes into
-`build/rnb_neus2_torch/<hash of the sources, the headers of csrc/ and the
-flags>/lib<name>.so` under the repository root, at first use; nothing is
+`build/rnb_neus2_torch/<hash of the sources, the headers they include,
+the headers of csrc/ and the flags>/lib<name>.so` under the repository
+root, at first use; nothing is
 written beside the sources. The library is written under a temporary
 name and renamed into place, so two processes building at once never see
 a half-written file and no lock file is needed.
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -48,9 +50,28 @@ def find_nvcc() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _included(path: Path, seen: set) -> list:
+    """The headers `path` includes with #include "...", found beside it,
+    and theirs in turn, in the order first met."""
+    out = []
+    for name in _INCLUDE.findall(path.read_bytes()):
+        dep = (path.parent / name.decode()).resolve()
+        if dep.is_file() and dep not in seen:
+            seen.add(dep)
+            out += [dep, *_included(dep, seen)]
+    return out
+
+
 def _digest(paths: Sequence[Path], flags: Sequence[str]) -> str:
+    """Hash of the flags, the sources, the headers they include (native/'s
+    AV1 tables beside av1.cc, ...) and csrc/'s headers."""
     h = hashlib.sha256(" ".join(flags).encode())
-    for p in [*paths, *sorted(CSRC.glob("*.cuh"))]:
+    seen = {Path(p).resolve() for p in paths}
+    deps = [d for p in paths for d in _included(Path(p), seen)]
+    for p in [*paths, *deps, *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

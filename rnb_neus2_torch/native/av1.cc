@@ -1,0 +1,2494 @@
+// AV1 still-image decoder for the port's AVIF reader (io/avif.py): the
+// OBUs of one intra frame (a KEY_FRAME or INTRA_ONLY frame) to its Y, U and
+// V planes, bit for bit as the AV1 specification and libaom decode them.
+//
+// Follows the specification's decoding process and its names: OBU and
+// header syntax (5.3-5.9), the symbol decoder with CDF adaptation (8.2),
+// block syntax (5.11) with intra block copy (its motion vector stack,
+// 7.10.2), prediction and reconstruction (7.11-7.13), and the in-loop
+// filters in order: deblocking (7.14), CDEF (7.15) and loop restoration
+// (7.17). Superres, film grain, large-scale tile, layers and frames that
+// are not intra are refused with their own codes; so is what libaom
+// rejects (a tile whose symbols overrun it or end without the trailing
+// bits, an invalid segment id, ...).
+//
+// C interface (ctypes, io/native.py):
+//   av1_decode(obus, n, info[32], planes, cap, census[128]) -> 0 or < 0
+// info receives the sequence and frame header's values (see INFO_*);
+// planes receives Y, then U, then V (uint16, each plane's width x height,
+// row by row) when cap (in samples) is large enough; otherwise the call
+// returns -(samples needed) - 1000 after the headers and decodes nothing.
+// census counts the coding tools the frame used (see CENSUS_*).
+#include <algorithm>
+#include <cstdint>
+#include <cstring>
+#include <vector>
+
+#include "av1_dsp.h"
+#include "av1_tables.h"
+
+using namespace av1;
+
+namespace {
+
+enum Err {
+    ERR_BITSTREAM = -1,      // malformed or truncated: libaom fails too
+    ERR_FILM_GRAIN = -2,
+    ERR_SUPERRES = -3,
+    ERR_LARGE_SCALE_TILE = -4,
+    ERR_NOT_INTRA = -6,      // inter frame or show_existing_frame
+    ERR_LAYERED = -7,        // more than one spatial layer
+    ERR_NO_FRAME = -8,
+};
+
+enum Info {
+    INFO_WIDTH, INFO_HEIGHT, INFO_BITDEPTH, INFO_MONO, INFO_SSX, INFO_SSY,
+    INFO_CP, INFO_TC, INFO_MC, INFO_RANGE, INFO_PROFILE, INFO_STILL,
+    INFO_REDUCED, INFO_CSP, INFO_FRAME_TYPE, INFO_OPERATING_POINTS, INFO_LEVEL, INFO_TIER,
+};
+
+enum Census {
+    C_PARTITION = 0,      // 10 partition kinds
+    C_YMODE = 10,         // 13 luma modes
+    C_UVMODE = 23,        // 14 chroma modes (13 = CFL)
+    C_PALETTE_Y = 37, C_PALETTE_UV = 38, C_FILTER_INTRA = 39, C_INTRABC = 40,
+    C_TXTYPE = 41,        // 16 transform types
+    C_TXSIZE = 57,        // 19 transform sizes
+    C_DEBLOCK = 76, C_CDEF = 77, C_LR_WIENER = 78, C_LR_SGRPROJ = 79,
+    C_LR_SWITCHABLE = 80, C_SEGMENTATION = 81, C_DELTA_Q = 82, C_DELTA_LF = 83,
+    C_TILES = 84, C_SB128 = 85, C_QMATRIX = 86, C_LOSSLESS = 87,
+    C_SEGMENT_IDS = 94,
+    C_COUNT = 128,
+};
+
+enum { DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED,
+       D203_PRED, D67_PRED, SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED,
+       PAETH_PRED, UV_CFL_PRED };
+enum { DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST,
+       FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST, IDTX, V_DCT, H_DCT,
+       V_ADST, H_ADST, V_FLIPADST, H_FLIPADST };
+enum { PARTITION_NONE, PARTITION_HORZ, PARTITION_VERT, PARTITION_SPLIT,
+       PARTITION_HORZ_A, PARTITION_HORZ_B, PARTITION_VERT_A, PARTITION_VERT_B,
+       PARTITION_HORZ_4, PARTITION_VERT_4 };
+enum { BLOCK_4X4, BLOCK_4X8, BLOCK_8X4, BLOCK_8X8, BLOCK_8X16, BLOCK_16X8,
+       BLOCK_16X16, BLOCK_16X32, BLOCK_32X16, BLOCK_32X32, BLOCK_32X64,
+       BLOCK_64X32, BLOCK_64X64, BLOCK_64X128, BLOCK_128X64, BLOCK_128X128,
+       BLOCK_4X16, BLOCK_16X4, BLOCK_8X32, BLOCK_32X8, BLOCK_16X64,
+       BLOCK_64X16, BLOCK_INVALID = 255 };
+enum { TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_64X64, TX_4X8, TX_8X4,
+       TX_8X16, TX_16X8, TX_16X32, TX_32X16, TX_32X64, TX_64X32, TX_4X16,
+       TX_16X4, TX_8X32, TX_32X8, TX_16X64, TX_64X16 };
+enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
+
+const int kNum4x4W[22] = {1, 1, 2, 2, 2, 4, 4, 4, 8, 8, 8, 16, 16, 16, 32, 32, 1, 4, 2, 8, 4, 16};
+const int kNum4x4H[22] = {1, 2, 1, 2, 4, 2, 4, 8, 4, 8, 16, 8, 16, 32, 16, 32, 4, 1, 8, 2, 16, 4};
+const int kMiWLog2[22] = {0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4, 4, 5, 5, 0, 2, 1, 3, 2, 4};
+const int kMiHLog2[22] = {0, 1, 0, 1, 2, 1, 2, 3, 2, 3, 4, 3, 4, 5, 4, 5, 2, 0, 3, 1, 4, 2};
+const int kMaxTxRect[22] = {TX_4X4, TX_4X8, TX_8X4, TX_8X8, TX_8X16, TX_16X8,
+    TX_16X16, TX_16X32, TX_32X16, TX_32X32, TX_32X64, TX_64X32, TX_64X64,
+    TX_64X64, TX_64X64, TX_64X64, TX_4X16, TX_16X4, TX_8X32, TX_32X8,
+    TX_16X64, TX_64X16};
+const int kTxW[19] = {4, 8, 16, 32, 64, 4, 8, 8, 16, 16, 32, 32, 64, 4, 16, 8, 32, 16, 64};
+const int kTxH[19] = {4, 8, 16, 32, 64, 8, 4, 16, 8, 32, 16, 64, 32, 16, 4, 32, 8, 64, 16};
+const int kSplitTx[19] = {TX_4X4, TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_4X4,
+    TX_4X4, TX_8X8, TX_8X8, TX_16X16, TX_16X16, TX_32X32, TX_32X32, TX_4X8,
+    TX_8X4, TX_8X16, TX_16X8, TX_16X32, TX_32X16};
+const int kRowShift[19] = {0, 1, 2, 2, 2, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2};
+const int kModeToAngle[13] = {0, 90, 180, 45, 135, 113, 157, 203, 67, 0, 0, 0, 0};
+const int kIntraModeContext[13] = {0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1, 2, 0};
+const int kFilterIntraDir[5] = {DC_PRED, V_PRED, H_PRED, D157_PRED, DC_PRED};
+const int kModeToTxfm[14] = {DCT_DCT, ADST_DCT, DCT_ADST, DCT_DCT, ADST_ADST,
+    ADST_DCT, DCT_ADST, DCT_ADST, ADST_DCT, ADST_ADST, ADST_DCT, DCT_ADST,
+    ADST_ADST, DCT_DCT};
+const int kCoeffBaseCtxOffset[3][5][5] = {
+    {{0, 1, 6, 6, 21}, {1, 6, 6, 21, 21}, {6, 6, 21, 21, 21}, {6, 21, 21, 21, 21}, {21, 21, 21, 21, 21}},
+    {{0, 16, 6, 6, 21}, {16, 16, 6, 21, 21}, {16, 16, 21, 21, 21}, {16, 16, 21, 21, 21}, {16, 16, 21, 21, 21}},
+    {{0, 11, 11, 11, 11}, {11, 11, 11, 11, 11}, {6, 6, 21, 21, 21}, {6, 21, 21, 21, 21}, {21, 21, 21, 21, 21}}};
+const int kSigRefDiff[3][5][2] = {
+    {{0, 1}, {1, 0}, {1, 1}, {0, 2}, {2, 0}},
+    {{0, 1}, {1, 0}, {0, 2}, {0, 3}, {0, 4}},
+    {{0, 1}, {1, 0}, {2, 0}, {3, 0}, {4, 0}}};
+const int kMagRefOffset[3][3][2] = {
+    {{0, 1}, {1, 0}, {1, 1}}, {{0, 1}, {1, 0}, {0, 2}}, {{0, 1}, {1, 0}, {2, 0}}};
+const int kSegFeatureBits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
+const int kSegFeatureSigned[8] = {1, 1, 1, 1, 1, 0, 0, 0};
+const int kSegFeatureMax[8] = {255, 63, 63, 63, 63, 7, 0, 0};
+const int kWienerTapsMin[3] = {-5, -23, -17};
+const int kWienerTapsMax[3] = {10, 8, 46};
+const int kWienerTapsK[3] = {1, 2, 3};
+const int kWienerTapsMid[3] = {3, -7, 15};
+const int kSgrprojXqdMin[2] = {-96, -32};
+const int kSgrprojXqdMax[2] = {31, 95};
+const int kSgrprojXqdMid[2] = {-32, 31};
+
+inline int tx_class(int t) {
+    if (t == V_DCT || t == V_ADST || t == V_FLIPADST) return 2;  // vertical
+    if (t == H_DCT || t == H_ADST || t == H_FLIPADST) return 1;  // horizontal
+    return 0;
+}
+inline int tx_from_wh(int w, int h) {
+    for (int t = 0; t < 19; t++) if (kTxW[t] == w && kTxH[t] == h) return t;
+    return -1;
+}
+inline int block_from_wh(int w4, int h4) {
+    for (int b = 0; b < 22; b++) if (kNum4x4W[b] == w4 && kNum4x4H[b] == h4) return b;
+    return BLOCK_INVALID;
+}
+inline int tx_sqr(int t) { int m = std::min(kTxW[t], kTxH[t]); return tx_from_wh(m, m); }
+inline int tx_sqr_up(int t) { int m = std::max(kTxW[t], kTxH[t]); return tx_from_wh(m, m); }
+inline int adjusted_tx(int t) { return tx_from_wh(std::min(32, kTxW[t]), std::min(32, kTxH[t])); }
+inline int is_directional(int m) { return m >= V_PRED && m <= D67_PRED; }
+
+struct Bits {
+    const uint8_t* d; size_t n; size_t pos = 0;
+    uint32_t f(int k) {
+        uint32_t x = 0;
+        for (int i = 0; i < k; i++) {
+            size_t byte = pos >> 3;
+            if (byte >= n) throw (int)ERR_BITSTREAM;
+            x = (x << 1) | ((d[byte] >> (7 - (pos & 7))) & 1);
+            pos++;
+        }
+        return x;
+    }
+    int su(int k) { int v = (int)f(k); int m = 1 << (k - 1); return (v & m) ? v - 2 * m : v; }
+    uint32_t uvlc() {
+        int lz = 0;
+        while (!f(1)) { if (++lz >= 32) throw (int)ERR_BITSTREAM; }
+        return f(lz) + (1u << lz) - 1;
+    }
+    uint32_t ns(uint32_t n) {
+        int w = floor_log2(n) + 1; uint32_t m = (1u << w) - n;
+        uint32_t v = f(w - 1);
+        if (v < m) return v;
+        return (v << 1) - m + f(1);
+    }
+    uint32_t le(int k) { uint32_t x = 0; for (int i = 0; i < k; i++) x |= f(8) << (8 * i); return x; }
+    void align() { pos = (pos + 7) & ~(size_t)7; }
+};
+
+// 8.2: the symbol decoder
+struct SymDec {
+    const uint8_t* d = nullptr; size_t n = 0, bitpos = 0;
+    uint32_t val = 0, rng = 0; int64_t maxBits = 0, shifts = 0; bool update = true;
+    uint32_t readbits(int k) {
+        uint32_t x = 0;
+        for (int i = 0; i < k; i++) {
+            size_t byte = bitpos >> 3;
+            uint32_t b = byte < n ? (d[byte] >> (7 - (bitpos & 7))) & 1 : 0;
+            x = (x << 1) | b; bitpos++;
+        }
+        return x;
+    }
+    void init(const uint8_t* data, size_t sz, bool disableUpdate) {
+        if (sz == 0) throw (int)ERR_BITSTREAM;
+        d = data; n = sz; bitpos = 0; update = !disableUpdate;
+        int numBits = (int)std::min<size_t>(sz * 8, 15);
+        uint32_t buf = readbits(numBits);
+        uint32_t padded = buf << (15 - numBits);
+        val = ((1u << 15) - 1) ^ padded;
+        rng = 1u << 15;
+        maxBits = (int64_t)8 * sz - 15;
+        shifts = 0;
+    }
+    void renorm() {
+        int bits = 15 - floor_log2(rng);
+        shifts += bits;
+        rng <<= bits;
+        int numBits = (int)std::min<int64_t>(bits, std::max<int64_t>(0, maxBits));
+        uint32_t newData = readbits(numBits);
+        uint32_t padded = newData << (bits - numBits);
+        val = padded ^ (((val + 1) << bits) - 1);
+        maxBits -= bits;
+    }
+    int decode(const uint16_t* cdf, int N) {
+        uint32_t cur = rng, prev; int sym = -1;
+        do {
+            sym++; prev = cur;
+            uint32_t f = cdf[sym];
+            cur = (((rng >> 8) * (f >> 6)) >> 1) + 4 * (uint32_t)(N - sym - 1);
+        } while (val < cur);
+        rng = prev - cur; val -= cur;
+        renorm();
+        return sym;
+    }
+    int symbol(uint16_t* cdf, int N) {
+        int s = decode(cdf, N);
+        if (update) {
+            int rate = 3 + (cdf[N] > 15) + (cdf[N] > 31) + std::min(floor_log2(N), 2);
+            int tmp = 32768;
+            for (int i = 0; i < N - 1; i++) {
+                tmp = (i == s) ? 0 : tmp;
+                if (tmp < cdf[i]) cdf[i] -= (uint16_t)((cdf[i] - tmp) >> rate);
+                else cdf[i] += (uint16_t)((tmp - cdf[i]) >> rate);
+            }
+            cdf[N] += (cdf[N] < 32);
+        }
+        return s;
+    }
+    // libaom's od_ec_dec_tell: the bits the symbols have used
+    int64_t tell() const { return 1 + shifts; }
+    bool overflowed() const { return ((tell() + 7) >> 3) > (int64_t)n; }
+    // check_trailing_bits_after_symbol_coder: a 1 after the last used bit,
+    // then zeros to the end of the tile
+    bool trailing_ok() const {
+        if (overflowed()) return false;
+        int64_t nb = tell(), bytes = (nb + 7) >> 3;
+        uint8_t last = d[bytes - 1], pattern = (uint8_t)(128 >> ((nb - 1) & 7));
+        if ((last & (2 * pattern - 1)) != pattern) return false;
+        for (size_t i = (size_t)bytes; i < n; i++) if (d[i]) return false;
+        return true;
+    }
+    int bit() { static const uint16_t c[3] = {16384, 0, 0}; return decode(c, 2); }
+    int literal(int k) { int x = 0; for (int i = 0; i < k; i++) x = 2 * x + bit(); return x; }
+    int ns(int n) {
+        int w = floor_log2(n) + 1, m = (1 << w) - n;
+        int v = literal(w - 1);
+        if (v < m) return v;
+        return (v << 1) - m + literal(1);
+    }
+};
+
+struct Cdfs {
+    uint16_t partition[20][11], kf_y_mode[5][5][14], uv_mode[2][13][15];
+    uint16_t angle_delta[8][8], intrabc[3], skip[3][3], seg[3][9];
+    uint16_t delta_q[5], delta_lf[5], delta_lf_multi[4][5], tx_size[4][3][4];
+    uint16_t filter_intra[22][3], filter_intra_mode[6];
+    uint16_t pal_y_size[7][8], pal_uv_size[7][8], pal_y_mode[7][3][3], pal_uv_mode[2][3];
+    uint16_t pal_y_color[7][5][9], pal_uv_color[7][5][9];
+    uint16_t cfl_sign[9], cfl_alpha[6][17], intra_tx[3][4][13][17], inter_tx[4][4][17], txfm_part[21][3];
+    uint16_t switchable_restore[4], wiener[3], sgrproj[3];
+    uint16_t txb_skip[5][13][3], eob16[2][2][6], eob32[2][2][7], eob64[2][2][8];
+    uint16_t eob128[2][2][9], eob256[2][2][10], eob512[2][2][11], eob1024[2][2][12];
+    uint16_t eob_extra[5][2][9][3], dc_sign[2][3][3], base_eob[5][2][4][4];
+    uint16_t base[5][2][42][5], br[5][2][21][5];
+
+    void init(int baseQ) {
+#define CP(dst, src) static_assert(sizeof(dst) == sizeof(src), #dst); memcpy(dst, src, sizeof(dst))
+        CP(partition, k_partition_cdf); CP(kf_y_mode, k_kf_y_mode_cdf); CP(uv_mode, k_uv_mode_cdf);
+        CP(angle_delta, k_angle_delta_cdf); CP(intrabc, k_intrabc_cdf); CP(skip, k_skip_cdf);
+        CP(seg, k_spatial_pred_seg_cdf); CP(delta_q, k_delta_q_cdf); CP(delta_lf, k_delta_lf_cdf);
+        CP(delta_lf_multi, k_delta_lf_multi_cdf); CP(tx_size, k_tx_size_cdf);
+        CP(filter_intra, k_filter_intra_cdfs); CP(filter_intra_mode, k_filter_intra_mode_cdf);
+        CP(pal_y_size, k_palette_y_size_cdf); CP(pal_uv_size, k_palette_uv_size_cdf);
+        CP(pal_y_mode, k_palette_y_mode_cdf); CP(pal_uv_mode, k_palette_uv_mode_cdf);
+        CP(pal_y_color, k_palette_y_color_cdf); CP(pal_uv_color, k_palette_uv_color_cdf);
+        CP(cfl_sign, k_cfl_sign_cdf); CP(cfl_alpha, k_cfl_alpha_cdf); CP(intra_tx, k_intra_ext_tx_cdf);
+        CP(inter_tx, k_inter_ext_tx_cdf); CP(txfm_part, k_txfm_partition_cdf);
+        CP(switchable_restore, k_switchable_restore_cdf); CP(wiener, k_wiener_restore_cdf);
+        CP(sgrproj, k_sgrproj_restore_cdf);
+        int q = baseQ <= 20 ? 0 : baseQ <= 60 ? 1 : baseQ <= 120 ? 2 : 3;
+        CP(txb_skip, k_txb_skip_cdf[q]); CP(eob16, k_eob_multi16_cdf[q]); CP(eob32, k_eob_multi32_cdf[q]);
+        CP(eob64, k_eob_multi64_cdf[q]); CP(eob128, k_eob_multi128_cdf[q]);
+        CP(eob256, k_eob_multi256_cdf[q]); CP(eob512, k_eob_multi512_cdf[q]);
+        CP(eob1024, k_eob_multi1024_cdf[q]); CP(eob_extra, k_eob_extra_cdf[q]);
+        CP(dc_sign, k_dc_sign_cdf[q]); CP(base_eob, k_coeff_base_eob_cdf[q]);
+        CP(base, k_coeff_base_cdf[q]); CP(br, k_coeff_br_cdf[q]);
+#undef CP
+    }
+};
+
+struct Plane {
+    std::vector<uint16_t> px; int stride = 0, w = 0, h = 0;  // w, h: allocated
+    uint16_t* at(int y, int x) { return &px[(size_t)y * stride + x]; }
+    uint16_t get(int y, int x) const { return px[(size_t)y * stride + x]; }
+};
+
+struct Decoder {
+    // ---- sequence header
+    int seqSeen = 0, profile = 0, stillPicture = 0, reducedStill = 0;
+    int timingInfo = 0, decoderModelInfo = 0, equalPictureInterval = 0;
+    int bufferRemovalTimeLen = 0, framePresentationTimeLen = 0, opCount = 1;
+    int opIdc[32] = {0}, opDecoderModel[32] = {0}, level0 = 0, tier0 = 0;
+    int frameWidthBits = 0, frameHeightBits = 0, maxW = 0, maxH = 0;
+    int frameIdPresent = 0, idLen = 0, sb128 = 0, enFilterIntra = 0, enIntraEdge = 0;
+    int enOrderHint = 0, orderHintBits = 0, forceSct = 0, forceIntMv = 0;
+    int enSuperres = 0, enCdef = 0, enRestoration = 0, filmGrainPresent = 0;
+    int bitDepth = 8, mono = 0, ssx = 1, ssy = 1, cp = 2, tc = 2, mc = 2, colorRange = 0;
+    int csp = 0, sepUvDelta = 0, numPlanes = 3;
+    // ---- frame header
+    int frameType = 0, showFrame = 1, errorResilient = 1, allowSct = 0, allowIntrabc = 0, disableCdfUpdate = 0;
+    int FrameWidth = 0, FrameHeight = 0, MiCols = 0, MiRows = 0;
+    int baseQ = 0, dqYDc = 0, dqUDc = 0, dqUAc = 0, dqVDc = 0, dqVAc = 0;
+    int usingQm = 0, qmY = 15, qmU = 15, qmV = 15;
+    int segEnabled = 0, featEn[8][8] = {{0}}, featData[8][8] = {{0}}, segIdPreSkip = 0, lastActiveSegId = 0;
+    int deltaQPresent = 0, deltaQRes = 0, deltaLfPresent = 0, deltaLfRes = 0, deltaLfMulti = 0;
+    int codedLossless = 0, allLossless = 0, losslessArr[8] = {0}, segQmLevel[3][8] = {{0}};
+    int lfLevel[4] = {0}, lfSharp = 0, lfDeltaEnabled = 0;
+    int lfRefDeltas[8] = {1, 0, 0, 0, -1, 0, -1, -1}, lfModeDeltas[2] = {0, 0};
+    int cdefDamping = 3, cdefBits = 0, cdefYPri[8] = {0}, cdefYSec[8] = {0}, cdefUvPri[8] = {0}, cdefUvSec[8] = {0};
+    int frameRestType[3] = {0}, lrSize[3] = {256, 256, 256}, usesLr = 0;
+    int txModeSelect = 0, reducedTxSet = 0;
+    int tileColsLog2 = 0, tileRowsLog2 = 0, tileCols = 1, tileRows = 1;
+    int miColStarts[65], miRowStarts[65], tileSizeBytes = 4;
+    int headerDone = 0, tilesDone = 0;
+    // ---- frame state
+    int miStride = 0, miAllocRows = 0;
+    std::vector<uint8_t> miSize, yMode, uvMode, skip, isInter, segId, txSizeMi, palSize0, palSize1, lossMi, written;
+    std::vector<int16_t> mvRow, mvCol;
+    std::vector<int8_t> deltaLFs;       // 4 per mi
+    std::vector<uint16_t> palColors;    // 2 planes x 8 per mi
+    std::vector<uint8_t> txTypes;       // luma, per 4x4
+    std::vector<uint8_t> lfTx[3];       // per 4x4 of each plane
+    std::vector<int8_t> cdefIdx;        // per 64x64
+    int cdefStride = 0;
+    Plane frame[3], cdefFrame[3], lrFrame[3];
+    // loop restoration units
+    std::vector<uint8_t> lrType[3];
+    std::vector<int16_t> lrWiener[3];   // 2 passes x 3 per unit
+    std::vector<int16_t> lrSgr[3];      // set, xqd0, xqd1 per unit
+    int lrUnitRows[3] = {0}, lrUnitCols[3] = {0};
+    int64_t* census = nullptr;
+    // ---- tile state
+    int MiRowStart = 0, MiRowEnd = 0, MiColStart = 0, MiColEnd = 0;
+    Cdfs cdf;
+    SymDec sd;
+    std::vector<uint8_t> aboveLevel[3], aboveDc[3], leftLevel[3], leftDc[3];
+    int currentQIndex = 0, deltaLF[4] = {0}, readDeltas = 0;
+    int refSgrXqd[3][2], refLrWiener[3][2][3];
+    uint8_t blockDecoded[3][35][35];
+    // ---- block state
+    int MiRow = 0, MiCol = 0, MiSize = 0, bw4 = 0, bh4 = 0, HasChroma = 0;
+    int AvailU = 0, AvailL = 0, AvailUChroma = 0, AvailLChroma = 0;
+    int Skip = 0, segment_id = 0, Lossless = 0, use_intrabc = 0, Mv[2] = {0, 0};
+    uint16_t ndvc[143];
+    int YMode = 0, UVMode = 0, AngleDeltaY = 0, AngleDeltaUV = 0, CflAlphaU = 0, CflAlphaV = 0;
+    int PaletteSizeY = 0, PaletteSizeUV = 0, use_filter_intra = 0, filter_intra_mode = 0;
+    int TxSize = 0, MaxLumaW = 0, MaxLumaH = 0, PlaneTxType = 0;
+    uint16_t paletteColors[3][8];
+    uint8_t colorMapY[128][128], colorMapUV[128][128];
+    int32_t quant[1024];
+
+    size_t mi(int r, int c) const { return (size_t)r * miStride + c; }
+
+    // ================================================================ headers
+    void color_config(Bits& b) {
+        int high = b.f(1);
+        if (profile == 2 && high) bitDepth = b.f(1) ? 12 : 10;
+        else bitDepth = high ? 10 : 8;
+        mono = profile == 1 ? 0 : b.f(1);
+        numPlanes = mono ? 1 : 3;
+        if (b.f(1)) { cp = b.f(8); tc = b.f(8); mc = b.f(8); }
+        else { cp = 2; tc = 2; mc = 2; }
+        if (mono) { colorRange = b.f(1); ssx = 1; ssy = 1; csp = 0; sepUvDelta = 0; return; }
+        if (cp == 1 && tc == 13 && mc == 0) { colorRange = 1; ssx = 0; ssy = 0; }
+        else {
+            colorRange = b.f(1);
+            if (profile == 0) { ssx = 1; ssy = 1; }
+            else if (profile == 1) { ssx = 0; ssy = 0; }
+            else if (bitDepth == 12) { ssx = b.f(1); ssy = ssx ? b.f(1) : 0; }
+            else { ssx = 1; ssy = 0; }
+            if (ssx && ssy) csp = b.f(2);
+        }
+        sepUvDelta = b.f(1);
+    }
+
+    void sequence_header(Bits& b) {
+        profile = b.f(3);
+        if (profile > 2) throw (int)ERR_BITSTREAM;
+        stillPicture = b.f(1); reducedStill = b.f(1);
+        if (reducedStill) { timingInfo = 0; decoderModelInfo = 0; opCount = 1; opIdc[0] = 0; level0 = b.f(5); }
+        else {
+            timingInfo = b.f(1);
+            if (timingInfo) {
+                b.f(32); b.f(32);
+                equalPictureInterval = b.f(1);
+                if (equalPictureInterval) b.uvlc();
+                decoderModelInfo = b.f(1);
+                if (decoderModelInfo) {
+                    bufferRemovalTimeLen = 0;
+                    int bufferDelayLen = b.f(5) + 1;
+                    b.f(32);
+                    bufferRemovalTimeLen = b.f(5) + 1;
+                    framePresentationTimeLen = b.f(5) + 1;
+                    decoderModelInfo = bufferDelayLen;  // keep the length, non-zero
+                }
+            } else decoderModelInfo = 0;
+            int initialDisplayDelay = b.f(1);
+            opCount = b.f(5) + 1;
+            for (int i = 0; i < opCount; i++) {
+                opIdc[i] = b.f(12);
+                int level = b.f(5), tier = level > 7 ? b.f(1) : 0;
+                if (i == 0) { level0 = level; tier0 = tier; }
+                if (decoderModelInfo) {
+                    opDecoderModel[i] = b.f(1);
+                    if (opDecoderModel[i]) { b.f(decoderModelInfo); b.f(decoderModelInfo); b.f(1); }
+                } else opDecoderModel[i] = 0;
+                if (initialDisplayDelay && b.f(1)) b.f(4);
+            }
+        }
+        frameWidthBits = b.f(4) + 1; frameHeightBits = b.f(4) + 1;
+        maxW = b.f(frameWidthBits) + 1; maxH = b.f(frameHeightBits) + 1;
+        frameIdPresent = reducedStill ? 0 : b.f(1);
+        if (frameIdPresent) { int d = b.f(4) + 2; int a = b.f(3) + 1; idLen = a + d; }
+        sb128 = b.f(1); enFilterIntra = b.f(1); enIntraEdge = b.f(1);
+        if (reducedStill) { forceSct = 2; forceIntMv = 2; enOrderHint = 0; orderHintBits = 0; }
+        else {
+            b.f(1); b.f(1); b.f(1); b.f(1);  // interintra, masked, warped, dual filter
+            enOrderHint = b.f(1);
+            if (enOrderHint) { b.f(1); b.f(1); }  // jnt_comp, ref_frame_mvs
+            forceSct = b.f(1) ? 2 : b.f(1);
+            if (forceSct > 0) forceIntMv = b.f(1) ? 2 : b.f(1);
+            else forceIntMv = 2;
+            orderHintBits = enOrderHint ? b.f(3) + 1 : 0;
+        }
+        enSuperres = b.f(1); enCdef = b.f(1); enRestoration = b.f(1);
+        color_config(b);
+        filmGrainPresent = b.f(1);
+        seqSeen = 1;
+    }
+
+    static int tile_log2(int blk, int target) { int k = 0; while ((blk << k) < target) k++; return k; }
+
+    void tile_info(Bits& b) {
+        int sbCols = sb128 ? (MiCols + 31) >> 5 : (MiCols + 15) >> 4;
+        int sbRows = sb128 ? (MiRows + 31) >> 5 : (MiRows + 15) >> 4;
+        int sbShift = sb128 ? 5 : 4, sbSize = sbShift + 2;
+        int maxTileWidthSb = 4096 >> sbSize;
+        int maxTileAreaSb = (4096 * 2304) >> (2 * sbSize);
+        int minLog2TileCols = tile_log2(maxTileWidthSb, sbCols);
+        int maxLog2TileCols = tile_log2(1, std::min(sbCols, 64));
+        int maxLog2TileRows = tile_log2(1, std::min(sbRows, 64));
+        int minLog2Tiles = std::max(minLog2TileCols, tile_log2(maxTileAreaSb, sbRows * sbCols));
+        if (b.f(1)) {
+            tileColsLog2 = minLog2TileCols;
+            while (tileColsLog2 < maxLog2TileCols && b.f(1)) tileColsLog2++;
+            int tileWidthSb = (sbCols + (1 << tileColsLog2) - 1) >> tileColsLog2;
+            int i = 0;
+            for (int s = 0; s < sbCols; s += tileWidthSb) miColStarts[i++] = s << sbShift;
+            miColStarts[i] = MiCols; tileCols = i;
+            int minLog2TileRows = std::max(minLog2Tiles - tileColsLog2, 0);
+            tileRowsLog2 = minLog2TileRows;
+            while (tileRowsLog2 < maxLog2TileRows && b.f(1)) tileRowsLog2++;
+            int tileHeightSb = (sbRows + (1 << tileRowsLog2) - 1) >> tileRowsLog2;
+            i = 0;
+            for (int s = 0; s < sbRows; s += tileHeightSb) miRowStarts[i++] = s << sbShift;
+            miRowStarts[i] = MiRows; tileRows = i;
+        } else {
+            int widest = 0, s = 0, i = 0;
+            for (; s < sbCols; i++) {
+                if (i >= 64) throw (int)ERR_BITSTREAM;
+                miColStarts[i] = s << sbShift;
+                int maxWidth = std::min(sbCols - s, maxTileWidthSb);
+                int size = (int)b.ns(maxWidth) + 1;
+                widest = std::max(size, widest);
+                s += size;
+            }
+            miColStarts[i] = MiCols; tileCols = i; tileColsLog2 = tile_log2(1, tileCols);
+            int maxArea = minLog2Tiles > 0 ? (sbRows * sbCols) >> (minLog2Tiles + 1) : sbRows * sbCols;
+            int maxHeight = std::max(maxArea / widest, 1);
+            s = 0; i = 0;
+            for (; s < sbRows; i++) {
+                if (i >= 64) throw (int)ERR_BITSTREAM;
+                miRowStarts[i] = s << sbShift;
+                int mh = std::min(sbRows - s, maxHeight);
+                s += (int)b.ns(mh) + 1;
+            }
+            miRowStarts[i] = MiRows; tileRows = i; tileRowsLog2 = tile_log2(1, tileRows);
+        }
+        if (tileColsLog2 > 0 || tileRowsLog2 > 0) {
+            b.f(tileRowsLog2 + tileColsLog2);
+            tileSizeBytes = b.f(2) + 1;
+        }
+    }
+
+    int read_delta_q(Bits& b) { return b.f(1) ? b.su(7) : 0; }
+
+    int get_qidx(int ignoreDeltaQ, int seg) const {
+        if (segEnabled && featEn[seg][0]) {
+            int q = baseQ + featData[seg][0];
+            if (!ignoreDeltaQ && deltaQPresent) q = currentQIndex + featData[seg][0];
+            return clip3(0, 255, q);
+        }
+        if (!ignoreDeltaQ && deltaQPresent) return currentQIndex;
+        return baseQ;
+    }
+
+    void frame_header(Bits& b, int temporalId, int spatialId) {
+        int showExisting = 0;
+        if (reducedStill) { frameType = 0; showFrame = 1; }
+        else {
+            showExisting = b.f(1);
+            if (showExisting) throw (int)ERR_NOT_INTRA;
+            frameType = b.f(2); showFrame = b.f(1);
+            if (frameType != 0 && frameType != 2) throw (int)ERR_NOT_INTRA;
+            if (showFrame && decoderModelInfo && !equalPictureInterval) b.f(framePresentationTimeLen);
+            if (!showFrame) b.f(1);  // showable_frame
+            errorResilient = (frameType == 0 && showFrame) ? 1 : b.f(1);
+        }
+        disableCdfUpdate = b.f(1);
+        allowSct = forceSct == 2 ? b.f(1) : forceSct;
+        if (allowSct && forceIntMv == 2) b.f(1);
+        if (frameIdPresent) b.f(idLen);
+        int overrideSize = reducedStill ? 0 : b.f(1);
+        b.f(orderHintBits);
+        if (!reducedStill && decoderModelInfo) {
+            if (b.f(1)) {
+                for (int op = 0; op < opCount; op++) {
+                    if (!opDecoderModel[op]) continue;
+                    int idc = opIdc[op];
+                    int inT = (idc >> temporalId) & 1, inS = (idc >> (spatialId + 8)) & 1;
+                    if (idc == 0 || (inT && inS)) b.f(bufferRemovalTimeLen);
+                }
+            }
+        }
+        int refresh = (frameType == 0 && showFrame) ? 0xFF : b.f(8);
+        if (frameType == 2 && refresh == 0xFF) throw (int)ERR_BITSTREAM;
+        if (refresh != 0xFF && errorResilient && enOrderHint)
+            for (int i = 0; i < 8; i++) b.f(orderHintBits);
+        // frame_size, superres_params, render_size
+        if (overrideSize) { FrameWidth = b.f(frameWidthBits) + 1; FrameHeight = b.f(frameHeightBits) + 1; }
+        else { FrameWidth = maxW; FrameHeight = maxH; }
+        if (enSuperres && b.f(1)) throw (int)ERR_SUPERRES;
+        MiCols = 2 * ((FrameWidth + 7) >> 3); MiRows = 2 * ((FrameHeight + 7) >> 3);
+        if (b.f(1)) { b.f(16); b.f(16); }
+        if (allowSct) allowIntrabc = b.f(1);
+        if (!(reducedStill || disableCdfUpdate)) b.f(1);  // disable_frame_end_update_cdf
+        tile_info(b);
+        // quantization_params
+        baseQ = b.f(8);
+        dqYDc = read_delta_q(b);
+        if (numPlanes > 1) {
+            int diffUv = sepUvDelta ? b.f(1) : 0;
+            dqUDc = read_delta_q(b); dqUAc = read_delta_q(b);
+            if (diffUv) { dqVDc = read_delta_q(b); dqVAc = read_delta_q(b); }
+            else { dqVDc = dqUDc; dqVAc = dqUAc; }
+        }
+        usingQm = b.f(1);
+        if (usingQm) { qmY = b.f(4); qmU = b.f(4); qmV = sepUvDelta ? b.f(4) : qmU; }
+        // segmentation_params
+        segEnabled = b.f(1);
+        memset(featEn, 0, sizeof(featEn)); memset(featData, 0, sizeof(featData));
+        if (segEnabled) {
+            for (int i = 0; i < 8; i++) for (int j = 0; j < 8; j++) {
+                if (b.f(1)) {
+                    featEn[i][j] = 1;
+                    int bits = kSegFeatureBits[j], lim = kSegFeatureMax[j];
+                    if (kSegFeatureSigned[j]) featData[i][j] = clip3(-lim, lim, b.su(1 + bits));
+                    else featData[i][j] = clip3(0, lim, (int)b.f(bits));
+                }
+            }
+        }
+        segIdPreSkip = 0; lastActiveSegId = 0;
+        for (int i = 0; i < 8; i++) for (int j = 0; j < 8; j++)
+            if (featEn[i][j]) { lastActiveSegId = i; if (j >= 5) segIdPreSkip = 1; }
+        // delta_q_params, delta_lf_params
+        deltaQRes = 0; deltaQPresent = 0;
+        if (baseQ > 0) deltaQPresent = b.f(1);
+        if (deltaQPresent) deltaQRes = b.f(2);
+        deltaLfPresent = 0; deltaLfRes = 0; deltaLfMulti = 0;
+        if (deltaQPresent) {
+            if (!allowIntrabc) deltaLfPresent = b.f(1);
+            if (deltaLfPresent) { deltaLfRes = b.f(2); deltaLfMulti = b.f(1); }
+        }
+        codedLossless = 1;
+        for (int s = 0; s < 8; s++) {
+            int q = get_qidx(1, s);
+            losslessArr[s] = q == 0 && dqYDc == 0 && dqUAc == 0 && dqUDc == 0 && dqVAc == 0 && dqVDc == 0;
+            if (!losslessArr[s]) codedLossless = 0;
+            if (usingQm) {
+                if (losslessArr[s]) { segQmLevel[0][s] = segQmLevel[1][s] = segQmLevel[2][s] = 15; }
+                else { segQmLevel[0][s] = qmY; segQmLevel[1][s] = qmU; segQmLevel[2][s] = qmV; }
+            }
+        }
+        allLossless = codedLossless;
+        // loop_filter_params
+        lfRefDeltas[0] = 1; lfRefDeltas[1] = 0; lfRefDeltas[2] = 0; lfRefDeltas[3] = 0;
+        lfRefDeltas[4] = -1; lfRefDeltas[5] = 0; lfRefDeltas[6] = -1; lfRefDeltas[7] = -1;
+        lfModeDeltas[0] = lfModeDeltas[1] = 0;
+        lfDeltaEnabled = 1;
+        if (codedLossless || allowIntrabc) { lfLevel[0] = lfLevel[1] = lfLevel[2] = lfLevel[3] = 0; }
+        else {
+            lfLevel[0] = b.f(6); lfLevel[1] = b.f(6);
+            if (numPlanes > 1 && (lfLevel[0] || lfLevel[1])) { lfLevel[2] = b.f(6); lfLevel[3] = b.f(6); }
+            lfSharp = b.f(3);
+            lfDeltaEnabled = b.f(1);
+            if (lfDeltaEnabled && b.f(1)) {
+                for (int i = 0; i < 8; i++) if (b.f(1)) lfRefDeltas[i] = b.su(7);
+                for (int i = 0; i < 2; i++) if (b.f(1)) lfModeDeltas[i] = b.su(7);
+            }
+        }
+        // cdef_params
+        cdefBits = 0; cdefDamping = 3;
+        memset(cdefYPri, 0, sizeof(cdefYPri)); memset(cdefYSec, 0, sizeof(cdefYSec));
+        memset(cdefUvPri, 0, sizeof(cdefUvPri)); memset(cdefUvSec, 0, sizeof(cdefUvSec));
+        if (!(codedLossless || allowIntrabc || !enCdef)) {
+            cdefDamping = b.f(2) + 3; cdefBits = b.f(2);
+            for (int i = 0; i < (1 << cdefBits); i++) {
+                cdefYPri[i] = b.f(4); cdefYSec[i] = b.f(2); if (cdefYSec[i] == 3) cdefYSec[i]++;
+                if (numPlanes > 1) { cdefUvPri[i] = b.f(4); cdefUvSec[i] = b.f(2); if (cdefUvSec[i] == 3) cdefUvSec[i]++; }
+            }
+        }
+        // lr_params
+        usesLr = 0; frameRestType[0] = frameRestType[1] = frameRestType[2] = RESTORE_NONE;
+        if (!(allLossless || allowIntrabc || !enRestoration)) {
+            static const int remap[4] = {RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER, RESTORE_SGRPROJ};
+            int usesChroma = 0;
+            for (int i = 0; i < numPlanes; i++) {
+                frameRestType[i] = remap[b.f(2)];
+                if (frameRestType[i] != RESTORE_NONE) { usesLr = 1; if (i > 0) usesChroma = 1; }
+            }
+            if (usesLr) {
+                int shift;
+                if (sb128) shift = b.f(1) + 1;
+                else { shift = b.f(1); if (shift) shift += b.f(1); }
+                lrSize[0] = 256 >> (2 - shift);
+                int uvShift = (ssx && ssy && usesChroma) ? b.f(1) : 0;
+                lrSize[1] = lrSize[2] = lrSize[0] >> uvShift;
+            }
+        }
+        // read_tx_mode, frame_reference_mode, skip_mode, warped motion
+        txModeSelect = codedLossless ? 0 : b.f(1);
+        reducedTxSet = b.f(1);
+        // film_grain_params
+        if (filmGrainPresent && showFrame) { if (b.f(1)) throw (int)ERR_FILM_GRAIN; }
+        headerDone = 1;
+    }
+
+    // ================================================================ frame state
+    void alloc() {
+        int sbMi = sb128 ? 32 : 16;
+        int rows = (MiRows + sbMi - 1) / sbMi * sbMi + 32, cols = (MiCols + sbMi - 1) / sbMi * sbMi + 32;
+        miStride = cols; miAllocRows = rows;
+        size_t n = (size_t)rows * cols;
+        miSize.assign(n, 0); yMode.assign(n, 0); uvMode.assign(n, 0); skip.assign(n, 0);
+        isInter.assign(n, 0); segId.assign(n, 0); txSizeMi.assign(n, 0); palSize0.assign(n, 0);
+        palSize1.assign(n, 0); lossMi.assign(n, 0); written.assign(n, 0); mvRow.assign(n, 0); mvCol.assign(n, 0); deltaLFs.assign(n * 4, 0); palColors.assign(n * 16, 0);
+        txTypes.assign(n, 0);
+        for (int p = 0; p < 3; p++) lfTx[p].assign(n, 0);
+        cdefStride = cols / 16 + 2;
+        cdefIdx.assign((size_t)(rows / 16 + 2) * cdefStride, -1);
+        for (int p = 0; p < numPlanes; p++) {
+            int sx = p ? ssx : 0, sy = p ? ssy : 0;
+            Plane& f = frame[p];
+            f.w = ((cols * 4) >> sx) + 80; f.h = ((rows * 4) >> sy) + 80; f.stride = f.w;
+            f.px.assign((size_t)f.w * f.h, 0);
+            aboveLevel[p].assign(f.w / 4 + 32, 0); aboveDc[p].assign(f.w / 4 + 32, 0);
+            leftLevel[p].assign(f.h / 4 + 32, 0); leftDc[p].assign(f.h / 4 + 32, 0);
+        }
+        for (int p = 0; p < numPlanes; p++) {
+            lrUnitRows[p] = lrUnitCols[p] = 0;
+            if (frameRestType[p] == RESTORE_NONE) continue;
+            int sx = p ? ssx : 0, sy = p ? ssy : 0;
+            int unitSize = lrSize[p];
+            lrUnitRows[p] = count_units(unitSize, round2(FrameHeight, sy));
+            lrUnitCols[p] = count_units(unitSize, round2(FrameWidth, sx));
+            size_t units = (size_t)lrUnitRows[p] * lrUnitCols[p];
+            lrType[p].assign(units, 0); lrWiener[p].assign(units * 6, 0); lrSgr[p].assign(units * 3, 0);
+        }
+    }
+    static int count_units(int unitSize, int frameSize) { return std::max((frameSize + (unitSize >> 1)) / unitSize, 1); }
+
+    int is_inside(int r, int c) const { return c >= MiColStart && c < MiColEnd && r >= MiRowStart && r < MiRowEnd; }
+
+    // ================================================================ tiles
+    void decode_tile() {
+        for (int p = 0; p < numPlanes; p++) {
+            std::fill(aboveLevel[p].begin(), aboveLevel[p].end(), 0);
+            std::fill(aboveDc[p].begin(), aboveDc[p].end(), 0);
+        }
+        for (int i = 0; i < 4; i++) deltaLF[i] = 0;
+        for (int p = 0; p < numPlanes; p++) {
+            refSgrXqd[p][0] = kSgrprojXqdMid[0]; refSgrXqd[p][1] = kSgrprojXqdMid[1];
+            for (int pass = 0; pass < 2; pass++) for (int i = 0; i < 3; i++) refLrWiener[p][pass][i] = kWienerTapsMid[i];
+        }
+        int sbSize = sb128 ? BLOCK_128X128 : BLOCK_64X64, sbSize4 = kNum4x4W[sbSize];
+        for (int r = MiRowStart; r < MiRowEnd; r += sbSize4) {
+            for (int p = 0; p < numPlanes; p++) {
+                std::fill(leftLevel[p].begin(), leftLevel[p].end(), 0);
+                std::fill(leftDc[p].begin(), leftDc[p].end(), 0);
+            }
+            for (int c = MiColStart; c < MiColEnd; c += sbSize4) {
+                readDeltas = deltaQPresent;
+                // clear_cdef
+                cdefIdx[(size_t)(r >> 4) * cdefStride + (c >> 4)] = -1;
+                if (sb128) {
+                    cdefIdx[(size_t)(r >> 4) * cdefStride + (c >> 4) + 1] = -1;
+                    cdefIdx[(size_t)((r >> 4) + 1) * cdefStride + (c >> 4)] = -1;
+                    cdefIdx[(size_t)((r >> 4) + 1) * cdefStride + (c >> 4) + 1] = -1;
+                }
+                clear_block_decoded_flags(r, c, sbSize4);
+                read_lr(r, c, sbSize);
+                decode_partition(r, c, sbSize);
+                if (sd.overflowed()) throw (int)ERR_BITSTREAM;
+            }
+        }
+        if (!sd.trailing_ok()) throw (int)ERR_BITSTREAM;
+    }
+
+    void clear_block_decoded_flags(int r, int c, int sbSize4) {
+        for (int p = 0; p < numPlanes; p++) {
+            int sx = p ? ssx : 0, sy = p ? ssy : 0;
+            int sbW4 = (MiColEnd - c) >> sx, sbH4 = (MiRowEnd - r) >> sy;
+            for (int y = -1; y <= (sbSize4 >> sy); y++)
+                for (int x = -1; x <= (sbSize4 >> sx); x++) {
+                    uint8_t v;
+                    if (y < 0 && x < sbW4) v = 1;
+                    else if (x < 0 && y < sbH4) v = 1;
+                    else v = 0;
+                    blockDecoded[p][y + 1][x + 1] = v;
+                }
+            blockDecoded[p][(sbSize4 >> sy) + 1][0] = 0;
+        }
+    }
+
+    // ---- loop restoration coefficients (5.11.57)
+    void read_lr(int r, int c, int bSize) {
+        if (allowIntrabc) return;
+        int w = kNum4x4W[bSize], h = kNum4x4H[bSize];
+        for (int p = 0; p < numPlanes; p++) {
+            if (frameRestType[p] == RESTORE_NONE) continue;
+            int sx = p ? ssx : 0, sy = p ? ssy : 0;
+            int unitSize = lrSize[p];
+            int unitRows = lrUnitRows[p], unitCols = lrUnitCols[p];
+            int rs = (r * (4 >> sy) + unitSize - 1) / unitSize;
+            int re = std::min(unitRows, ((r + h) * (4 >> sy) + unitSize - 1) / unitSize);
+            int cs = (c * (4 >> sx) + unitSize - 1) / unitSize;
+            int ce = std::min(unitCols, ((c + w) * (4 >> sx) + unitSize - 1) / unitSize);
+            for (int ur = rs; ur < re; ur++) for (int uc = cs; uc < ce; uc++) read_lr_unit(p, ur, uc);
+        }
+    }
+
+    int decode_subexp_bool(int numSyms, int k) {
+        int i = 0, mk = 0;
+        while (true) {
+            int b2 = i ? k + i - 1 : k, a = 1 << b2;
+            if (numSyms <= mk + 3 * a) return sd.ns(numSyms - mk) + mk;
+            if (sd.literal(1)) { i++; mk += a; }
+            else return sd.literal(b2) + mk;
+        }
+    }
+    static int inverse_recenter(int r, int v) {
+        if (v > 2 * r) return v;
+        if (v & 1) return r - ((v + 1) >> 1);
+        return r + (v >> 1);
+    }
+    int decode_signed_subexp_with_ref(int low, int high, int k, int r) {
+        int mx = high - low; r -= low;
+        int v = decode_subexp_bool(mx, k);
+        int x = (r << 1) <= mx ? inverse_recenter(r, v) : mx - 1 - inverse_recenter(mx - 1 - r, v);
+        return x + low;
+    }
+
+    void read_lr_unit(int p, int ur, int uc) {
+        int type = RESTORE_NONE;
+        if (frameRestType[p] == RESTORE_WIENER) type = sd.symbol(cdf.wiener, 2) ? RESTORE_WIENER : RESTORE_NONE;
+        else if (frameRestType[p] == RESTORE_SGRPROJ) type = sd.symbol(cdf.sgrproj, 2) ? RESTORE_SGRPROJ : RESTORE_NONE;
+        else type = sd.symbol(cdf.switchable_restore, 3);  // 0 none, 1 wiener, 2 sgrproj
+        size_t u = (size_t)ur * lrUnitCols[p] + uc;
+        lrType[p][u] = (uint8_t)type;
+        if (type == RESTORE_WIENER) {
+            census[C_LR_WIENER]++;
+            for (int pass = 0; pass < 2; pass++) {
+                int first = 0;
+                if (p) { first = 1; lrWiener[p][u * 6 + pass * 3] = 0; }
+                for (int j = first; j < 3; j++) {
+                    int v = decode_signed_subexp_with_ref(kWienerTapsMin[j], kWienerTapsMax[j] + 1, kWienerTapsK[j], refLrWiener[p][pass][j]);
+                    lrWiener[p][u * 6 + pass * 3 + j] = (int16_t)v;
+                    refLrWiener[p][pass][j] = v;
+                }
+            }
+        } else if (type == RESTORE_SGRPROJ) {
+            census[C_LR_SGRPROJ]++;
+            int set = sd.literal(4);
+            lrSgr[p][u * 3] = (int16_t)set;
+            for (int i = 0; i < 2; i++) {
+                int radius = k_sgr_params[set][i];
+                int v;
+                if (radius) v = decode_signed_subexp_with_ref(kSgrprojXqdMin[i], kSgrprojXqdMax[i] + 1, 4, refSgrXqd[p][i]);
+                else { v = 0; if (i == 1) v = clip3(kSgrprojXqdMin[i], kSgrprojXqdMax[i], (1 << 7) - refSgrXqd[p][0]); }
+                lrSgr[p][u * 3 + 1 + i] = (int16_t)v;
+                refSgrXqd[p][i] = v;
+            }
+        }
+    }
+
+    // ---- partitions (5.11.4)
+    void decode_partition(int r, int c, int bSize) {
+        if (r >= MiRows || c >= MiCols) return;
+        int availU = is_inside(r - 1, c), availL = is_inside(r, c - 1);
+        int num4x4 = kNum4x4W[bSize], half = num4x4 >> 1, quarter = half >> 1;
+        int hasRows = (r + half) < MiRows, hasCols = (c + half) < MiCols;
+        int partition;
+        if (bSize < BLOCK_8X8) partition = PARTITION_NONE;
+        else {
+            int bsl = kMiWLog2[bSize];
+            int above = availU && kMiWLog2[miSize[mi(r - 1, c)]] < bsl;
+            int left = availL && kMiHLog2[miSize[mi(r, c - 1)]] < bsl;
+            int ctx = left * 2 + above;
+            int grp = bsl - 1;
+            uint16_t* pc = cdf.partition[grp * 4 + ctx];
+            int N = bSize == BLOCK_8X8 ? 4 : bSize == BLOCK_128X128 ? 8 : 10;
+            auto prob = [&](int e) { return (e > 0 ? pc[e - 1] : 32768) - pc[e]; };
+            if (hasRows && hasCols) partition = sd.symbol(pc, N);
+            else if (hasCols) {
+                // split_or_horz: the vertical-alike probabilities
+                int s2 = prob(PARTITION_VERT) + prob(PARTITION_SPLIT) + prob(PARTITION_HORZ_A) +
+                         prob(PARTITION_VERT_A) + prob(PARTITION_VERT_B);
+                if (bSize != BLOCK_128X128) s2 += prob(PARTITION_VERT_4);
+                uint16_t c2[3] = {(uint16_t)s2, 0, 0};
+                partition = sd.decode(c2, 2) ? PARTITION_SPLIT : PARTITION_HORZ;
+            } else if (hasRows) {
+                // split_or_vert: the horizontal-alike probabilities
+                int s2 = prob(PARTITION_HORZ) + prob(PARTITION_SPLIT) + prob(PARTITION_HORZ_A) +
+                         prob(PARTITION_HORZ_B) + prob(PARTITION_VERT_A);
+                if (bSize != BLOCK_128X128) s2 += prob(PARTITION_HORZ_4);
+                uint16_t c2[3] = {(uint16_t)s2, 0, 0};
+                partition = sd.decode(c2, 2) ? PARTITION_SPLIT : PARTITION_VERT;
+            } else partition = PARTITION_SPLIT;
+        }
+        census[C_PARTITION + partition]++;
+        int w4 = kNum4x4W[bSize], h4 = kNum4x4H[bSize];
+        int subSize, splitSize = block_from_wh(w4 / 2, h4 / 2);
+        switch (partition) {
+            case PARTITION_NONE: subSize = bSize; break;
+            case PARTITION_HORZ: case PARTITION_HORZ_A: case PARTITION_HORZ_B: subSize = block_from_wh(w4, h4 / 2); break;
+            case PARTITION_VERT: case PARTITION_VERT_A: case PARTITION_VERT_B: subSize = block_from_wh(w4 / 2, h4); break;
+            case PARTITION_SPLIT: subSize = splitSize; break;
+            case PARTITION_HORZ_4: subSize = block_from_wh(w4, h4 / 4); break;
+            default: subSize = block_from_wh(w4 / 4, h4); break;
+        }
+        if (subSize == BLOCK_INVALID) throw (int)ERR_BITSTREAM;
+        switch (partition) {
+            case PARTITION_NONE: decode_block(r, c, subSize); break;
+            case PARTITION_HORZ:
+                decode_block(r, c, subSize);
+                if (hasRows) decode_block(r + half, c, subSize);
+                break;
+            case PARTITION_VERT:
+                decode_block(r, c, subSize);
+                if (hasCols) decode_block(r, c + half, subSize);
+                break;
+            case PARTITION_SPLIT:
+                decode_partition(r, c, subSize); decode_partition(r, c + half, subSize);
+                decode_partition(r + half, c, subSize); decode_partition(r + half, c + half, subSize);
+                break;
+            case PARTITION_HORZ_A:
+                decode_block(r, c, splitSize); decode_block(r, c + half, splitSize);
+                decode_block(r + half, c, subSize);
+                break;
+            case PARTITION_HORZ_B:
+                decode_block(r, c, subSize); decode_block(r + half, c, splitSize);
+                decode_block(r + half, c + half, splitSize);
+                break;
+            case PARTITION_VERT_A:
+                decode_block(r, c, splitSize); decode_block(r + half, c, splitSize);
+                decode_block(r, c + half, subSize);
+                break;
+            case PARTITION_VERT_B:
+                decode_block(r, c, subSize); decode_block(r, c + half, splitSize);
+                decode_block(r + half, c + half, splitSize);
+                break;
+            case PARTITION_HORZ_4:
+                for (int i = 0; i < 4; i++) {
+                    if (i > 0 && r + quarter * i >= MiRows) break;
+                    decode_block(r + quarter * i, c, subSize);
+                }
+                break;
+            case PARTITION_VERT_4:
+                for (int i = 0; i < 4; i++) {
+                    if (i > 0 && c + quarter * i >= MiCols) break;
+                    decode_block(r, c + quarter * i, subSize);
+                }
+                break;
+        }
+    }
+
+    // ---- blocks (5.11.5)
+    int plane_residual_size(int bsize, int plane) const {
+        if (!plane) return bsize;
+        return k_ss_size_lookup[bsize][ssx][ssy];
+    }
+
+    void decode_block(int r, int c, int subSize) {
+        MiRow = r; MiCol = c; MiSize = subSize;
+        bw4 = kNum4x4W[subSize]; bh4 = kNum4x4H[subSize];
+        if (bh4 == 1 && ssy && (MiRow & 1) == 0) HasChroma = 0;
+        else if (bw4 == 1 && ssx && (MiCol & 1) == 0) HasChroma = 0;
+        else HasChroma = numPlanes > 1;
+        AvailU = is_inside(r - 1, c); AvailL = is_inside(r, c - 1);
+        AvailUChroma = AvailU; AvailLChroma = AvailL;
+        if (HasChroma) {
+            if (ssy && bh4 == 1) AvailUChroma = is_inside(r - 2, c);
+            if (ssx && bw4 == 1) AvailLChroma = is_inside(r, c - 2);
+        } else AvailUChroma = AvailLChroma = 0;
+        intra_frame_mode_info();
+        palette_tokens();
+        read_block_tx_size();
+        if (Skip) reset_block_context();
+        if (use_intrabc) census[C_INTRABC]++;
+        for (int y = 0; y < bh4; y++) for (int x = 0; x < bw4; x++) {
+            size_t m = mi(r + y, c + x);
+            yMode[m] = (uint8_t)YMode; uvMode[m] = (uint8_t)UVMode;
+            isInter[m] = (uint8_t)use_intrabc; skip[m] = (uint8_t)Skip; written[m] = 1;
+            mvRow[m] = (int16_t)Mv[0]; mvCol[m] = (int16_t)Mv[1];
+            miSize[m] = (uint8_t)MiSize; segId[m] = (uint8_t)segment_id;
+            palSize0[m] = (uint8_t)PaletteSizeY; palSize1[m] = (uint8_t)PaletteSizeUV;
+            lossMi[m] = (uint8_t)Lossless;
+            for (int i = 0; i < 8; i++) {
+                palColors[m * 16 + i] = paletteColors[0][i];
+                palColors[m * 16 + 8 + i] = paletteColors[1][i];
+            }
+            for (int i = 0; i < 4; i++) deltaLFs[m * 4 + i] = (int8_t)deltaLF[i];
+        }
+        census[C_YMODE + YMode]++;
+        if (HasChroma) census[C_UVMODE + UVMode]++;
+        if (Lossless) census[C_LOSSLESS]++;
+        if (use_intrabc) predict_intrabc();
+        residual();
+    }
+
+    void intra_segment_id() {
+        if (segEnabled) read_segment_id();
+        else segment_id = 0;
+        Lossless = losslessArr[segment_id];
+    }
+
+    void read_segment_id() {
+        int prevUL = -1, prevU = -1, prevL = -1;
+        if (AvailU && AvailL) prevUL = segId[mi(MiRow - 1, MiCol - 1)];
+        if (AvailU) prevU = segId[mi(MiRow - 1, MiCol)];
+        if (AvailL) prevL = segId[mi(MiRow, MiCol - 1)];
+        int ctx;
+        if (prevUL < 0) ctx = 0;
+        else if (prevUL == prevU && prevUL == prevL) ctx = 2;
+        else if (prevUL == prevU || prevUL == prevL || prevU == prevL) ctx = 1;
+        else ctx = 0;
+        int pred;
+        if (prevU == -1) pred = prevL == -1 ? 0 : prevL;
+        else if (prevL == -1) pred = prevU;
+        else pred = prevUL == prevU ? prevU : prevL;
+        if (Skip) { segment_id = pred; return; }
+        int coded = sd.symbol(cdf.seg[ctx], 8);
+        int max = lastActiveSegId + 1, v;
+        if (!pred) v = coded;
+        else if (pred >= max - 1) v = max - coded - 1;
+        else if (2 * pred < max) {
+            if (coded <= 2 * pred) v = (coded & 1) ? pred + ((coded + 1) >> 1) : pred - (coded >> 1);
+            else v = coded;
+        } else {
+            if (coded <= 2 * (max - pred - 1)) v = (coded & 1) ? pred + ((coded + 1) >> 1) : pred - (coded >> 1);
+            else v = max - (coded + 1);
+        }
+        if (v < 0 || v > lastActiveSegId) throw (int)ERR_BITSTREAM;
+        segment_id = v;
+        census[C_SEGMENT_IDS]++;
+    }
+
+    void intra_frame_mode_info() {
+        Skip = 0;
+        if (segIdPreSkip) intra_segment_id();
+        // read_skip
+        if (segIdPreSkip && segEnabled && featEn[segment_id][6]) Skip = 1;
+        else {
+            int ctx = 0;
+            if (AvailU) ctx += skip[mi(MiRow - 1, MiCol)];
+            if (AvailL) ctx += skip[mi(MiRow, MiCol - 1)];
+            Skip = sd.symbol(cdf.skip[ctx], 2);
+        }
+        if (!segIdPreSkip) intra_segment_id();
+        read_cdef();
+        read_delta_qindex();
+        read_delta_lf();
+        readDeltas = 0;
+        use_intrabc = 0; Mv[0] = Mv[1] = 0;
+        PaletteSizeY = PaletteSizeUV = 0; use_filter_intra = 0;
+        memset(paletteColors, 0, sizeof(paletteColors));
+        if (allowIntrabc) {
+            use_intrabc = sd.symbol(cdf.intrabc, 2);
+            if (use_intrabc) {
+                YMode = DC_PRED; UVMode = DC_PRED; AngleDeltaY = AngleDeltaUV = 0;
+                CflAlphaU = CflAlphaV = 0;
+                read_intrabc_mv();
+                return;
+            }
+        }
+        // intra_frame_y_mode
+        int aboveMode = AvailU ? yMode[mi(MiRow - 1, MiCol)] : DC_PRED;
+        int leftMode = AvailL ? yMode[mi(MiRow, MiCol - 1)] : DC_PRED;
+        YMode = sd.symbol(cdf.kf_y_mode[kIntraModeContext[aboveMode]][kIntraModeContext[leftMode]], 13);
+        AngleDeltaY = 0;
+        if (MiSize >= BLOCK_8X8 && is_directional(YMode)) {
+            AngleDeltaY = sd.symbol(cdf.angle_delta[YMode - V_PRED], 7) - 3;
+        }
+        UVMode = DC_PRED; AngleDeltaUV = 0; CflAlphaU = CflAlphaV = 0;
+        if (HasChroma) {
+            int cflAllowed;
+            if (Lossless && plane_residual_size(MiSize, 1) == BLOCK_4X4) cflAllowed = 1;
+            else if (!Lossless && std::max(bw4, bh4) * 4 <= 32) cflAllowed = 1;
+            else cflAllowed = 0;
+            UVMode = sd.symbol(cdf.uv_mode[cflAllowed][YMode], 13 + cflAllowed);
+            if (UVMode == UV_CFL_PRED) read_cfl_alphas();
+            if (MiSize >= BLOCK_8X8 && is_directional(UVMode)) {
+                AngleDeltaUV = sd.symbol(cdf.angle_delta[UVMode - V_PRED], 7) - 3;
+            }
+        }
+        PaletteSizeY = PaletteSizeUV = 0;
+        memset(paletteColors, 0, sizeof(paletteColors));
+        if (MiSize >= BLOCK_8X8 && bw4 * 4 <= 64 && bh4 * 4 <= 64 && allowSct) palette_mode_info();
+        // filter_intra_mode_info
+        use_filter_intra = 0;
+        if (enFilterIntra && YMode == DC_PRED && PaletteSizeY == 0 && std::max(bw4, bh4) * 4 <= 32) {
+            use_filter_intra = sd.symbol(cdf.filter_intra[MiSize], 2);
+            if (use_filter_intra) { filter_intra_mode = sd.symbol(cdf.filter_intra_mode, 5); census[C_FILTER_INTRA]++; }
+        }
+    }
+
+    void read_cfl_alphas() {
+        int signs = sd.symbol(cdf.cfl_sign, 8);
+        int signU = (signs + 1) / 3, signV = (signs + 1) % 3;
+        if (signU) {
+            int ctx = (signU - 1) * 3 + signV;
+            CflAlphaU = 1 + sd.symbol(cdf.cfl_alpha[ctx], 16);
+            if (signU == 1) CflAlphaU = -CflAlphaU;
+        } else CflAlphaU = 0;
+        if (signV) {
+            int ctx = (signV - 1) * 3 + signU;
+            CflAlphaV = 1 + sd.symbol(cdf.cfl_alpha[ctx], 16);
+            if (signV == 1) CflAlphaV = -CflAlphaV;
+        } else CflAlphaV = 0;
+    }
+
+    void read_cdef() {
+        if (Skip || codedLossless || !enCdef || allowIntrabc) return;
+        int r = MiRow & ~15, c = MiCol & ~15;
+        int8_t& idx = cdefIdx[(size_t)(r >> 4) * cdefStride + (c >> 4)];
+        if (idx == -1) {
+            idx = (int8_t)sd.literal(cdefBits);
+            int w4 = bw4, h4 = bh4;
+            for (int y = r; y < r + h4; y += 16)
+                for (int x = c; x < c + w4; x += 16)
+                    cdefIdx[(size_t)(y >> 4) * cdefStride + (x >> 4)] = idx;
+        }
+    }
+
+    void read_delta_qindex() {
+        int sbSize = sb128 ? BLOCK_128X128 : BLOCK_64X64;
+        if (MiSize == sbSize && Skip) return;
+        if (readDeltas) {
+            int abs = sd.symbol(cdf.delta_q, 4);
+            if (abs == 3) { int rem = sd.literal(3) + 1; abs = sd.literal(rem) + (1 << rem) + 1; }
+            if (abs) {
+                int sign = sd.literal(1);
+                int reduced = sign ? -abs : abs;
+                currentQIndex = clip3(1, 255, currentQIndex + (reduced << deltaQRes));
+            }
+        }
+    }
+
+    void read_delta_lf() {
+        int sbSize = sb128 ? BLOCK_128X128 : BLOCK_64X64;
+        if (MiSize == sbSize && Skip) return;
+        if (readDeltas && deltaLfPresent) {
+            int count = 1;
+            if (deltaLfMulti) count = numPlanes > 1 ? 4 : 2;
+            for (int i = 0; i < count; i++) {
+                uint16_t* c = deltaLfMulti ? cdf.delta_lf_multi[i] : cdf.delta_lf;
+                int abs = sd.symbol(c, 4);
+                if (abs == 3) { int n = sd.literal(3) + 1; abs = sd.literal(n) + (1 << n) + 1; }
+                if (abs) {
+                    int sign = sd.literal(1);
+                    int reduced = sign ? -abs : abs;
+                    deltaLF[i] = clip3(-63, 63, deltaLF[i] + (reduced << deltaLfRes));
+                }
+            }
+        }
+    }
+
+    // ---- palette (5.11.46)
+    int get_palette_cache(int plane, uint16_t* cache) {
+        int aboveN = 0, leftN = 0;
+        if (((MiRow * 4) % 64) && AvailU) aboveN = plane ? palSize1[mi(MiRow - 1, MiCol)] : palSize0[mi(MiRow - 1, MiCol)];
+        if (AvailL) leftN = plane ? palSize1[mi(MiRow, MiCol - 1)] : palSize0[mi(MiRow, MiCol - 1)];
+        const uint16_t* ac = aboveN ? &palColors[mi(MiRow - 1, MiCol) * 16 + plane * 8] : nullptr;
+        const uint16_t* lc = leftN ? &palColors[mi(MiRow, MiCol - 1) * 16 + plane * 8] : nullptr;
+        int ai = 0, li = 0, n = 0;
+        while (ai < aboveN && li < leftN) {
+            int aboveC = ac[ai], leftC = lc[li];
+            if (leftC < aboveC) { if (n == 0 || leftC != cache[n - 1]) cache[n++] = (uint16_t)leftC; li++; }
+            else {
+                if (n == 0 || aboveC != cache[n - 1]) cache[n++] = (uint16_t)aboveC;
+                ai++;
+                if (leftC == aboveC) li++;
+            }
+        }
+        while (ai < aboveN) { int v = ac[ai++]; if (n == 0 || v != cache[n - 1]) cache[n++] = (uint16_t)v; }
+        while (li < leftN) { int v = lc[li++]; if (n == 0 || v != cache[n - 1]) cache[n++] = (uint16_t)v; }
+        return n;
+    }
+
+    void read_palette_colors(int plane, int size, uint16_t* colors, int deltaPlus1) {
+        uint16_t cache[16];
+        int cacheN = get_palette_cache(plane, cache);
+        int idx = 0;
+        for (int i = 0; i < cacheN && idx < size; i++) if (sd.literal(1)) colors[idx++] = cache[i];
+        if (idx < size) { colors[idx++] = (uint16_t)sd.literal(bitDepth); }
+        int paletteBits = 0;
+        if (idx < size) { int minBits = bitDepth - 3; paletteBits = minBits + sd.literal(2); }
+        while (idx < size) {
+            int delta = sd.literal(paletteBits);
+            if (deltaPlus1) delta++;
+            colors[idx] = (uint16_t)clip3(0, (1 << bitDepth) - 1, colors[idx - 1] + delta);
+            int range = (1 << bitDepth) - colors[idx] - deltaPlus1;
+            paletteBits = std::min(paletteBits, ceil_log2(range));
+            idx++;
+        }
+        std::sort(colors, colors + size);
+    }
+
+    void palette_mode_info() {
+        int bsizeCtx = kMiWLog2[MiSize] + kMiHLog2[MiSize] - 2;
+        if (YMode == DC_PRED) {
+            int ctx = (AvailU && palSize0[mi(MiRow - 1, MiCol)] > 0) + (AvailL && palSize0[mi(MiRow, MiCol - 1)] > 0);
+            if (sd.symbol(cdf.pal_y_mode[bsizeCtx][ctx], 2)) {
+                PaletteSizeY = sd.symbol(cdf.pal_y_size[bsizeCtx], 7) + 2;
+                read_palette_colors(0, PaletteSizeY, paletteColors[0], 1);
+                census[C_PALETTE_Y]++;
+            }
+        }
+        if (HasChroma && UVMode == DC_PRED) {
+            int ctx = PaletteSizeY > 0;
+            if (sd.symbol(cdf.pal_uv_mode[ctx], 2)) {
+                PaletteSizeUV = sd.symbol(cdf.pal_uv_size[bsizeCtx], 7) + 2;
+                read_palette_colors(1, PaletteSizeUV, paletteColors[1], 0);
+                if (sd.literal(1)) {
+                    int minBits = bitDepth - 4, maxVal = 1 << bitDepth;
+                    int bits = minBits + sd.literal(2);
+                    paletteColors[2][0] = (uint16_t)sd.literal(bitDepth);
+                    for (int idx = 1; idx < PaletteSizeUV; idx++) {
+                        int delta = sd.literal(bits);
+                        if (delta && sd.literal(1)) delta = -delta;
+                        int val = paletteColors[2][idx - 1] + delta;
+                        if (val < 0) val += maxVal;
+                        if (val >= maxVal) val -= maxVal;
+                        paletteColors[2][idx] = (uint16_t)clip3(0, (1 << bitDepth) - 1, val);
+                    }
+                } else {
+                    for (int idx = 0; idx < PaletteSizeUV; idx++) paletteColors[2][idx] = (uint16_t)sd.literal(bitDepth);
+                }
+                census[C_PALETTE_UV]++;
+            }
+        }
+    }
+
+    int palette_color_context(uint8_t (*map)[128], int r, int c, int n, int* order) {
+        int scores[8] = {0};
+        for (int i = 0; i < 8; i++) order[i] = i;
+        if (c > 0) scores[map[r][c - 1]] += 2;
+        if (r > 0 && c > 0) scores[map[r - 1][c - 1]] += 1;
+        if (r > 0) scores[map[r - 1][c]] += 2;
+        for (int i = 0; i < 3; i++) {
+            int maxScore = scores[i], maxIdx = i;
+            for (int j = i + 1; j < n; j++) if (scores[j] > maxScore) { maxScore = scores[j]; maxIdx = j; }
+            if (maxIdx != i) {
+                maxScore = scores[maxIdx]; int maxOrder = order[maxIdx];
+                for (int k = maxIdx; k > i; k--) { scores[k] = scores[k - 1]; order[k] = order[k - 1]; }
+                scores[i] = maxScore; order[i] = maxOrder;
+            }
+        }
+        int hash = scores[0] * 1 + scores[1] * 2 + scores[2] * 2;
+        return k_palette_color_context[hash];
+    }
+
+    void read_color_map(uint8_t (*map)[128], int n, uint16_t (*cdfs)[9], int blockW, int blockH, int onW, int onH) {
+        map[0][0] = (uint8_t)sd.ns(n);
+        int order[8];
+        for (int i = 1; i < onH + onW - 1; i++)
+            for (int j = std::min(i, onW - 1); j >= std::max(0, i - onH + 1); j--) {
+                int ctx = palette_color_context(map, i - j, j, n, order);
+                int idx = sd.symbol(cdfs[ctx], n);
+                map[i - j][j] = (uint8_t)order[idx];
+            }
+        for (int i = 0; i < onH; i++) for (int j = onW; j < blockW; j++) map[i][j] = map[i][onW - 1];
+        for (int i = onH; i < blockH; i++) for (int j = 0; j < blockW; j++) map[i][j] = map[onH - 1][j];
+    }
+
+    void palette_tokens() {
+        int blockH = bh4 * 4, blockW = bw4 * 4;
+        int onH = std::min(blockH, (MiRows - MiRow) * 4), onW = std::min(blockW, (MiCols - MiCol) * 4);
+        if (PaletteSizeY) read_color_map(colorMapY, PaletteSizeY, cdf.pal_y_color[PaletteSizeY - 2], blockW, blockH, onW, onH);
+        if (PaletteSizeUV) {
+            blockH >>= ssy; blockW >>= ssx; onH >>= ssy; onW >>= ssx;
+            if (blockW < 4) { blockW += 2; onW += 2; }
+            if (blockH < 4) { blockH += 2; onH += 2; }
+            read_color_map(colorMapUV, PaletteSizeUV, cdf.pal_uv_color[PaletteSizeUV - 2], blockW, blockH, onW, onH);
+        }
+    }
+
+    // ---- transform size (5.11.15-17)
+    int above_tx_width(int row, int col) const {
+        if (row == MiRow) {
+            if (!AvailU) return 64;
+            size_t m = mi(row - 1, col);
+            if (skip[m] && isInter[m]) return kNum4x4W[miSize[m]] * 4;
+        }
+        return kTxW[txSizeMi[mi(row - 1, col)]];
+    }
+    int left_tx_height(int row, int col) const {
+        if (col == MiCol) {
+            if (!AvailL) return 64;
+            size_t m = mi(row, col - 1);
+            if (skip[m] && isInter[m]) return kNum4x4H[miSize[m]] * 4;
+        }
+        return kTxH[txSizeMi[mi(row, col - 1)]];
+    }
+
+    // InterTxSizes live in txSizeMi
+    void read_block_tx_size() {
+        if (txModeSelect && MiSize > BLOCK_4X4 && use_intrabc && !Skip && !Lossless) {
+            int maxTx = kMaxTxRect[MiSize];
+            int txW4 = kTxW[maxTx] / 4, txH4 = kTxH[maxTx] / 4;
+            for (int row = MiRow; row < MiRow + bh4; row += txH4)
+                for (int col = MiCol; col < MiCol + bw4; col += txW4) read_var_tx_size(row, col, maxTx, 0);
+            return;
+        }
+        read_tx_size(!Skip || !use_intrabc);
+        for (int y = 0; y < bh4; y++) for (int x = 0; x < bw4; x++) txSizeMi[mi(MiRow + y, MiCol + x)] = (uint8_t)TxSize;
+    }
+
+    void read_var_tx_size(int row, int col, int txSz, int depth) {
+        if (row >= MiRows || col >= MiCols) return;
+        int split;
+        if (txSz == TX_4X4 || depth == 2) split = 0;
+        else {
+            int above = above_tx_width(row, col) < kTxW[txSz];
+            int left = left_tx_height(row, col) < kTxH[txSz];
+            int size = std::min(64, std::max(bw4, bh4) * 4);
+            int maxTxSz = tx_from_wh(size, size);
+            int ctx = (tx_sqr_up(txSz) != maxTxSz) * 3 + (4 - maxTxSz) * 6 + above + left;
+            split = sd.symbol(cdf.txfm_part[ctx], 2);
+        }
+        int w4 = kTxW[txSz] / 4, h4 = kTxH[txSz] / 4;
+        if (split) {
+            int sub = kSplitTx[txSz], sw = kTxW[sub] / 4, sh = kTxH[sub] / 4;
+            for (int i = 0; i < h4; i += sh) for (int j = 0; j < w4; j += sw) read_var_tx_size(row + i, col + j, sub, depth + 1);
+        } else {
+            for (int i = 0; i < h4; i++) for (int j = 0; j < w4; j++) txSizeMi[mi(row + i, col + j)] = (uint8_t)txSz;
+            TxSize = txSz;
+        }
+    }
+
+    void read_tx_size(int allowSelect) {
+        if (Lossless) { TxSize = TX_4X4; return; }
+        int maxRect = kMaxTxRect[MiSize];
+        TxSize = maxRect;
+        if (MiSize > BLOCK_4X4 && allowSelect && txModeSelect) {
+            int depthTo4 = 0; for (int t = maxRect; t != TX_4X4; t = kSplitTx[t]) depthTo4++;
+            int maxDepth = std::min(depthTo4, 2), cat = depthTo4 - 1;
+            int maxW = kTxW[maxRect], maxH = kTxH[maxRect];
+            int aboveW = 0, leftH = 0;
+            if (AvailU) {
+                size_t m = mi(MiRow - 1, MiCol);
+                aboveW = isInter[m] ? kNum4x4W[miSize[m]] * 4 : above_tx_width(MiRow, MiCol);
+            }
+            if (AvailL) {
+                size_t m = mi(MiRow, MiCol - 1);
+                leftH = isInter[m] ? kNum4x4H[miSize[m]] * 4 : left_tx_height(MiRow, MiCol);
+            }
+            int ctx = (AvailU && aboveW >= maxW) + (AvailL && leftH >= maxH);
+            int depth = sd.symbol(cdf.tx_size[cat][ctx], maxDepth + 1);
+            for (int i = 0; i < depth; i++) TxSize = kSplitTx[TxSize];
+        }
+    }
+
+    void reset_block_context() {
+        for (int p = 0; p < 1 + 2 * HasChroma; p++) {
+            int sx = p ? ssx : 0, sy = p ? ssy : 0;
+            for (int i = MiCol >> sx; i < ((MiCol + bw4 - 1) >> sx) + 1; i++) { aboveLevel[p][i] = 0; aboveDc[p][i] = 0; }
+            for (int i = MiRow >> sy; i < ((MiRow + bh4 - 1) >> sy) + 1; i++) { leftLevel[p][i] = 0; leftDc[p][i] = 0; }
+        }
+    }
+
+    // ---- residual (5.11.34)
+    int get_tx_size(int plane, int txSz) const {
+        if (!plane) return txSz;
+        int uvTx = kMaxTxRect[plane_residual_size(MiSize, plane)];
+        if (kTxW[uvTx] == 64 || kTxH[uvTx] == 64) {
+            if (kTxW[uvTx] == 16) return TX_16X32;
+            if (kTxH[uvTx] == 16) return TX_32X16;
+            return TX_32X32;
+        }
+        return uvTx;
+    }
+
+    void residual() {
+        int widthChunks = std::max(1, bw4 >> 4), heightChunks = std::max(1, bh4 >> 4);
+        for (int cy = 0; cy < heightChunks; cy++)
+            for (int cx = 0; cx < widthChunks; cx++) {
+                int miRowChunk = MiRow + (cy << 4), miColChunk = MiCol + (cx << 4);
+                for (int p = 0; p < 1 + HasChroma * 2; p++) {
+                    int txSz = Lossless ? TX_4X4 : get_tx_size(p, TxSize);
+                    int stepX = kTxW[txSz] >> 2, stepY = kTxH[txSz] >> 2;
+                    int planeSz = plane_residual_size(MiSize, p);
+                    int n4w = kNum4x4W[planeSz], n4h = kNum4x4H[planeSz];
+                    int sx = p ? ssx : 0, sy = p ? ssy : 0;
+                    int baseX = (MiCol >> sx) * 4, baseY = (MiRow >> sy) * 4;
+                    if (use_intrabc && !Lossless && p == 0) {
+                        transform_tree((miColChunk >> sx) * 4, (miRowChunk >> sy) * 4, n4w * 4, n4h * 4);
+                        continue;
+                    }
+                    for (int y = 0; y < std::min(n4h, 16 >> sy); y += stepY)
+                        for (int x = 0; x < std::min(n4w, 16 >> sx); x += stepX)
+                            transform_block(p, baseX, baseY, txSz, x + ((cx << 4) >> sx), y + ((cy << 4) >> sy));
+                }
+            }
+    }
+
+    void transform_tree(int startX, int startY, int w, int h) {
+        if (startX >= MiCols * 4 || startY >= MiRows * 4) return;
+        int txSz = txSizeMi[mi(startY >> 2, startX >> 2)];
+        if (w <= kTxW[txSz] && h <= kTxH[txSz]) { transform_block(0, startX, startY, txSz, 0, 0); return; }
+        if (w > h) { transform_tree(startX, startY, w / 2, h); transform_tree(startX + w / 2, startY, w / 2, h); }
+        else if (w < h) { transform_tree(startX, startY, w, h / 2); transform_tree(startX, startY + h / 2, w, h / 2); }
+        else {
+            transform_tree(startX, startY, w / 2, h / 2); transform_tree(startX + w / 2, startY, w / 2, h / 2);
+            transform_tree(startX, startY + h / 2, w / 2, h / 2); transform_tree(startX + w / 2, startY + h / 2, w / 2, h / 2);
+        }
+    }
+
+    void transform_block(int plane, int baseX, int baseY, int txSz, int x, int y) {
+        int startX = baseX + 4 * x, startY = baseY + 4 * y;
+        int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+        int row = (startY << sy) >> 2, col = (startX << sx) >> 2;
+        int sbMask = sb128 ? 31 : 15;
+        int sbRow = row & sbMask, sbCol = col & sbMask;
+        int stepX = kTxW[txSz] >> 2, stepY = kTxH[txSz] >> 2;
+        int maxX = (MiCols * 4) >> sx, maxY = (MiRows * 4) >> sy;
+        if (startX >= maxX || startY >= maxY) return;
+        if (use_intrabc) {}
+        else if ((plane == 0 && PaletteSizeY) || (plane != 0 && PaletteSizeUV)) predict_palette(plane, startX, startY, x, y, txSz);
+        else {
+            int isCfl = plane > 0 && UVMode == UV_CFL_PRED;
+            int mode = plane == 0 ? YMode : (isCfl ? DC_PRED : UVMode);
+            int log2W = floor_log2(kTxW[txSz]), log2H = floor_log2(kTxH[txSz]);
+            int haveLeft = (plane == 0 ? AvailL : AvailLChroma) || x > 0;
+            int haveAbove = (plane == 0 ? AvailU : AvailUChroma) || y > 0;
+            int haveAboveRt = blockDecoded[plane][(sbRow >> sy) - 1 + 1][(sbCol >> sx) + stepX + 1];
+            int haveBelowLt = blockDecoded[plane][(sbRow >> sy) + stepY + 1][(sbCol >> sx) - 1 + 1];
+            predict_intra(plane, startX, startY, haveLeft, haveAbove, haveAboveRt, haveBelowLt, mode, log2W, log2H);
+            if (isCfl) predict_cfl(plane, startX, startY, txSz);
+        }
+        if (plane == 0) { MaxLumaW = startX + stepX * 4; MaxLumaH = startY + stepY * 4; }
+        if (!Skip) {
+            int eob = coeffs(startX, startY, plane, txSz);
+            if (eob > 0) reconstruct(plane, startX, startY, txSz);
+        }
+        for (int i = 0; i < stepY; i++) for (int j = 0; j < stepX; j++) {
+            lfTx[plane][mi((row >> sy) + i, (col >> sx) + j)] = (uint8_t)txSz;
+            blockDecoded[plane][(sbRow >> sy) + i + 1][(sbCol >> sx) + j + 1] = 1;
+        }
+    }
+
+    // ---- coefficients (5.11.39)
+    // intra: 0 DCT only, 1 INTRA_1, 2 INTRA_2; intra block copy: 0, 3 INTER_1, 4 INTER_2, 5 INTER_3
+    int get_tx_set(int txSz) const {
+        int sq = tx_sqr(txSz), up = tx_sqr_up(txSz);
+        if (up > TX_32X32) return 0;
+        if (use_intrabc) {
+            if (reducedTxSet || up == TX_32X32) return 5;
+            if (sq == TX_16X16) return 4;
+            return 3;
+        }
+        if (up == TX_32X32) return 0;
+        if (reducedTxSet) return 2;
+        if (sq == TX_16X16) return 2;
+        return 1;
+    }
+
+    int compute_tx_type(int plane, int txSz, int blockX, int blockY) const {
+        if (Lossless || tx_sqr_up(txSz) > TX_32X32) return DCT_DCT;
+        int set = get_tx_set(txSz);
+        if (plane == 0) return txTypes[mi(blockY, blockX)];
+        static const uint8_t inSet[6][16] = {
+            {1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+            {1, 1, 1, 1, 0, 0, 0, 0, 0, 1, 1, 1, 0, 0, 0, 0},
+            {1, 1, 1, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0},
+            {1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1},
+            {1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0},
+            {1, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0}};
+        int t;
+        if (use_intrabc) t = txTypes[mi(std::max(MiRow, blockY << ssy), std::max(MiCol, blockX << ssx))];
+        else t = kModeToTxfm[UVMode];
+        if (!inSet[set][t]) return DCT_DCT;
+        return t;
+    }
+
+    const int16_t* get_scan(int txSz) const {
+        static int offsets[19] = {-1};
+        if (offsets[0] == -1) {
+            int off = 0;
+            for (int t = 0; t < 19; t++) {
+                if (kTxW[t] == 64 || kTxH[t] == 64) { offsets[t] = -2; continue; }
+                offsets[t] = off; off += kTxW[t] * kTxH[t];
+            }
+        }
+        int t = txSz;
+        if (t == TX_16X64) t = TX_16X32;
+        else if (t == TX_64X16) t = TX_32X16;
+        else if (tx_sqr_up(t) == TX_64X64) t = TX_32X32;
+        return k_default_scan + offsets[t];
+    }
+
+    int coeffs(int startX, int startY, int plane, int txSz) {
+        int x4 = startX >> 2, y4 = startY >> 2, w4 = kTxW[txSz] >> 2, h4 = kTxH[txSz] >> 2;
+        int txSzCtx = (tx_sqr(txSz) + tx_sqr_up(txSz) + 1) >> 1;
+        int ptype = plane > 0;
+        int segEob = (txSz == TX_16X64 || txSz == TX_64X16) ? 512 : std::min(1024, kTxW[txSz] * kTxH[txSz]);
+        for (int i = 0; i < segEob; i++) quant[i] = 0;
+        int eob = 0, culLevel = 0, dcCategory = 0;
+        int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+        int maxX4 = MiCols >> sx, maxY4 = MiRows >> sy;
+        // all_zero context
+        int ctx;
+        int w = kTxW[txSz], h = kTxH[txSz];
+        int bsize = plane_residual_size(MiSize, plane);
+        if (plane == 0) {
+            int top = 0, left = 0;
+            for (int k = 0; k < w4; k++) if (x4 + k < maxX4) top = std::max(top, (int)aboveLevel[plane][x4 + k]);
+            for (int k = 0; k < h4; k++) if (y4 + k < maxY4) left = std::max(left, (int)leftLevel[plane][y4 + k]);
+            top = std::min(top, 255); left = std::min(left, 255);
+            if (kNum4x4W[bsize] * 4 == w && kNum4x4H[bsize] * 4 == h) ctx = 0;
+            else if (top == 0 && left == 0) ctx = 1;
+            else if (top == 0 || left == 0) ctx = 2 + (std::max(top, left) > 3);
+            else if (std::max(top, left) <= 3) ctx = 4;
+            else if (std::min(top, left) <= 3) ctx = 5;
+            else ctx = 6;
+        } else {
+            int above = 0, left = 0;
+            for (int i = 0; i < w4; i++) if (x4 + i < maxX4) { above |= aboveLevel[plane][x4 + i]; above |= aboveDc[plane][x4 + i]; }
+            for (int i = 0; i < h4; i++) if (y4 + i < maxY4) { left |= leftLevel[plane][y4 + i]; left |= leftDc[plane][y4 + i]; }
+            ctx = (above != 0) + (left != 0) + 7;
+            if (kNum4x4W[bsize] * kNum4x4H[bsize] * 16 > w * h) ctx += 3;
+        }
+        int allZero = sd.symbol(cdf.txb_skip[txSzCtx][ctx], 2);
+        if (allZero) {
+            if (plane == 0)
+                for (int i = 0; i < w4; i++) for (int j = 0; j < h4; j++) txTypes[mi(y4 + j, x4 + i)] = DCT_DCT;
+        } else {
+            if (plane == 0) transform_type(x4, y4, txSz);
+            PlaneTxType = compute_tx_type(plane, txSz, x4, y4);
+            census[C_TXTYPE + PlaneTxType]++;
+            census[C_TXSIZE + txSz]++;
+            const int16_t* scan = get_scan(txSz);
+            // mrow / mcol scans for 1-D transforms
+            int adj = adjusted_tx(txSz);
+            int bwl = floor_log2(kTxW[adj]), txw = kTxW[adj], txh = kTxH[adj];
+            int cls = tx_class(PlaneTxType);
+            static thread_local int16_t lineScan[1024];
+            if (PlaneTxType == V_DCT || PlaneTxType == V_ADST || PlaneTxType == V_FLIPADST) {
+                for (int i = 0; i < txw * txh; i++) lineScan[i] = (int16_t)i;  // mrow: row by row
+                scan = lineScan;
+            } else if (PlaneTxType == H_DCT || PlaneTxType == H_ADST || PlaneTxType == H_FLIPADST) {
+                for (int i = 0; i < txw * txh; i++) lineScan[i] = (int16_t)((i % txh) * txw + i / txh);  // mcol
+                scan = lineScan;
+            }
+            int eobMultisize = std::min(floor_log2(w), 5) + std::min(floor_log2(h), 5) - 4;
+            int ectx = cls == 0 ? 0 : 1;
+            int eobPt;
+            switch (eobMultisize) {
+                case 0: eobPt = sd.symbol(cdf.eob16[ptype][ectx], 5); break;
+                case 1: eobPt = sd.symbol(cdf.eob32[ptype][ectx], 6); break;
+                case 2: eobPt = sd.symbol(cdf.eob64[ptype][ectx], 7); break;
+                case 3: eobPt = sd.symbol(cdf.eob128[ptype][ectx], 8); break;
+                case 4: eobPt = sd.symbol(cdf.eob256[ptype][ectx], 9); break;
+                case 5: eobPt = sd.symbol(cdf.eob512[ptype][0], 10); break;
+                default: eobPt = sd.symbol(cdf.eob1024[ptype][0], 11); break;
+            }
+            eobPt += 1;
+            eob = eobPt < 2 ? eobPt : (1 << (eobPt - 2)) + 1;
+            int eobShift = eobPt - 3;
+            if (eobShift >= 0) {
+                if (sd.symbol(cdf.eob_extra[txSzCtx][ptype][eobPt - 3], 2)) eob += 1 << eobShift;
+                for (int i = 1; i < std::max(1, eobPt - 2); i++) {
+                    eobShift = std::max(1, eobPt - 2) - 1 - i;
+                    if (sd.literal(1)) eob += 1 << eobShift;
+                }
+            }
+            for (int c = eob - 1; c >= 0; c--) {
+                int pos = scan[c];
+                int level;
+                if (c == eob - 1) {
+                    int cctx = c == 0 ? 0 : (c <= (txh * txw) / 8 ? 1 : (c <= (txh * txw) / 4 ? 2 : 3));
+                    level = sd.symbol(cdf.base_eob[txSzCtx][ptype][cctx], 3) + 1;
+                } else {
+                    int cctx = coeff_base_ctx(txSz, bwl, txh, pos, cls);
+                    level = sd.symbol(cdf.base[txSzCtx][ptype][cctx], 4);
+                }
+                if (level > 2) {
+                    int bctx = coeff_br_ctx(bwl, txh, pos, cls);
+                    for (int idx = 0; idx < 4; idx++) {
+                        int br = sd.symbol(cdf.br[std::min(txSzCtx, 3)][ptype][bctx], 4);
+                        level += br;
+                        if (br < 3) break;
+                    }
+                }
+                quant[pos] = level;
+            }
+            for (int c = 0; c < eob; c++) {
+                int pos = scan[c];
+                int sign = 0;
+                if (quant[pos] != 0) {
+                    if (c == 0) {
+                        int dcSign = 0;
+                        for (int k = 0; k < w4; k++) if (x4 + k < maxX4) {
+                            int s = aboveDc[plane][x4 + k];
+                            if (s == 1) dcSign--; else if (s == 2) dcSign++;
+                        }
+                        for (int k = 0; k < h4; k++) if (y4 + k < maxY4) {
+                            int s = leftDc[plane][y4 + k];
+                            if (s == 1) dcSign--; else if (s == 2) dcSign++;
+                        }
+                        int dctx = dcSign < 0 ? 1 : dcSign > 0 ? 2 : 0;
+                        sign = sd.symbol(cdf.dc_sign[ptype][dctx], 2);
+                    } else sign = sd.literal(1);
+                }
+                if (quant[pos] > 14) {
+                    int length = 0, bit;
+                    do {
+                        length++; bit = sd.literal(1);
+                        if (length > 32) throw (int)ERR_BITSTREAM;
+                    } while (!bit);
+                    int xg = 1;
+                    for (int i = length - 2; i >= 0; i--) xg = (xg << 1) | sd.literal(1);
+                    quant[pos] = xg + 14;
+                }
+                if (pos == 0 && quant[pos] > 0) dcCategory = sign ? 1 : 2;
+                quant[pos] &= 0xFFFFF;
+                culLevel += quant[pos];
+                if (sign) quant[pos] = -quant[pos];
+            }
+            culLevel = std::min(63, culLevel);
+        }
+        for (int i = 0; i < w4; i++) { aboveLevel[plane][x4 + i] = (uint8_t)culLevel; aboveDc[plane][x4 + i] = (uint8_t)dcCategory; }
+        for (int i = 0; i < h4; i++) { leftLevel[plane][y4 + i] = (uint8_t)culLevel; leftDc[plane][y4 + i] = (uint8_t)dcCategory; }
+        return eob;
+    }
+
+    int coeff_base_ctx(int txSz, int bwl, int txh, int pos, int cls) const {
+        int row = pos >> bwl, col = pos - (row << bwl);
+        int mag = 0;
+        for (int idx = 0; idx < 5; idx++) {
+            int rr = row + kSigRefDiff[cls][idx][0], cc = col + kSigRefDiff[cls][idx][1];
+            if (rr >= 0 && cc >= 0 && rr < txh && cc < (1 << bwl))
+                mag += std::min(std::abs(quant[(rr << bwl) + cc]), 3);
+        }
+        int ctx = std::min((mag + 1) >> 1, 4);
+        if (cls == 0) {
+            if (row == 0 && col == 0) return 0;
+            int shape = kTxW[txSz] == kTxH[txSz] ? 0 : (kTxW[txSz] > kTxH[txSz] ? 1 : 2);
+            return ctx + kCoeffBaseCtxOffset[shape][std::min(row, 4)][std::min(col, 4)];
+        }
+        int idx = cls == 2 ? row : col;
+        static const int posOff[3] = {26, 31, 36};
+        return ctx + posOff[std::min(idx, 2)];
+    }
+
+    int coeff_br_ctx(int bwl, int txh, int pos, int cls) const {
+        int row = pos >> bwl, col = pos - (row << bwl);
+        int mag = 0;
+        for (int idx = 0; idx < 3; idx++) {
+            int rr = row + kMagRefOffset[cls][idx][0], cc = col + kMagRefOffset[cls][idx][1];
+            if (rr >= 0 && cc >= 0 && rr < txh && cc < (1 << bwl))
+                mag += std::min(quant[rr * (1 << bwl) + cc], 15);
+        }
+        mag = std::min((mag + 1) >> 1, 6);
+        if (pos == 0) return mag;
+        if (cls == 0) return (row < 2 && col < 2) ? mag + 7 : mag + 14;
+        if (cls == 1) return col == 0 ? mag + 7 : mag + 14;
+        return row == 0 ? mag + 7 : mag + 14;
+    }
+
+    void transform_type(int x4, int y4, int txSz) {
+        int set = get_tx_set(txSz);
+        int txType = DCT_DCT;
+        if (set > 0 && (segEnabled ? get_qidx(1, segment_id) : baseQ) > 0) {
+            int intraDir = use_filter_intra ? kFilterIntraDir[filter_intra_mode] : YMode;
+            int sq = tx_sqr(txSz);
+            if (set == 1) txType = k_ext_tx_inv[3][sd.symbol(cdf.intra_tx[1][sq][intraDir], 7)];
+            else if (set == 2) txType = k_ext_tx_inv[2][sd.symbol(cdf.intra_tx[2][sq][intraDir], 5)];
+            else if (set == 3) txType = k_ext_tx_inv[5][sd.symbol(cdf.inter_tx[1][sq], 16)];
+            else if (set == 4) txType = k_ext_tx_inv[4][sd.symbol(cdf.inter_tx[2][sq], 12)];
+            else txType = k_ext_tx_inv[1][sd.symbol(cdf.inter_tx[3][sq], 2)];
+        }
+        for (int i = 0; i < (kTxW[txSz] >> 2); i++)
+            for (int j = 0; j < (kTxH[txSz] >> 2); j++) txTypes[mi(y4 + j, x4 + i)] = (uint8_t)txType;
+    }
+
+    // ---- reconstruction (7.12.3)
+    int dc_q(int b) const { return k_dc_qlookup[(bitDepth - 8) >> 1][clip3(0, 255, b)]; }
+    int ac_q(int b) const { return k_ac_qlookup[(bitDepth - 8) >> 1][clip3(0, 255, b)]; }
+
+    void reconstruct(int plane, int x, int y, int txSz) {
+        int dqDenom = 1;
+        if (txSz == TX_32X32 || txSz == TX_16X32 || txSz == TX_32X16 || txSz == TX_16X64 || txSz == TX_64X16) dqDenom = 2;
+        else if (txSz == TX_64X64 || txSz == TX_32X64 || txSz == TX_64X32) dqDenom = 4;
+        int log2W = floor_log2(kTxW[txSz]), log2H = floor_log2(kTxH[txSz]);
+        int tw = std::min(32, 1 << log2W), th = std::min(32, 1 << log2H);
+        int qidx = get_qidx(0, segment_id);
+        int dcQ, acQ;
+        if (plane == 0) { dcQ = dc_q(qidx + dqYDc); acQ = ac_q(qidx); }
+        else if (plane == 1) { dcQ = dc_q(qidx + dqUDc); acQ = ac_q(qidx + dqUAc); }
+        else { dcQ = dc_q(qidx + dqVDc); acQ = ac_q(qidx + dqVAc); }
+        const uint8_t* qm = nullptr;
+        int qmLevel = usingQm && !Lossless ? segQmLevel[plane][segment_id] : 15;
+        if (qmLevel < 15 && PlaneTxType < IDTX) {
+            int adj = tx_from_wh(tw, th);
+            int off = 0;
+            for (int t = 0; t < adj; t++) if (kTxW[t] != 64 && kTxH[t] != 64) off += kTxW[t] * kTxH[t];
+            qm = &k_iwt_matrix[qmLevel][plane > 0][off];
+            census[C_QMATRIX]++;
+        }
+        static thread_local int32_t coef[32 * 32];
+        int maxC = (1 << (7 + bitDepth)) - 1, minC = -(1 << (7 + bitDepth));
+        for (int i = 0; i < th; i++) for (int j = 0; j < tw; j++) {
+            int pos = i * tw + j;
+            int32_t q = quant[pos];
+            if (!q) { coef[pos] = 0; continue; }
+            int dqv = pos == 0 ? dcQ : acQ;
+            if (qm) dqv = (qm[pos] * dqv + 16) >> 5;
+            int64_t a = std::abs((int64_t)q);
+            int64_t dq = (a * dqv) & 0xFFFFFF;
+            dq >>= (dqDenom == 4 ? 2 : dqDenom == 2 ? 1 : 0);
+            if (q < 0) dq = -dq;
+            coef[pos] = (int32_t)std::max<int64_t>(minC, std::min<int64_t>(maxC, dq));
+        }
+        Plane& f = frame[plane];
+        inverse_transform_add(coef, log2W, log2H, PlaneTxType, Lossless, kRowShift[txSz], bitDepth,
+                              f.at(y, x), f.stride);
+    }
+
+    // ---- intra block copy (5.11.26, 7.10.2, 7.11.3)
+    int numMvFound = 0, stackMv[8][2], weightStack[8];
+
+    void add_candidate(int r, int c, int weight) {
+        size_t m = mi(r, c);
+        if (!isInter[m]) return;
+        int mv0 = mvRow[m], mv1 = mvCol[m];  // integer already: lower_mv_precision keeps it
+        int idx;
+        for (idx = 0; idx < numMvFound; idx++) if (stackMv[idx][0] == mv0 && stackMv[idx][1] == mv1) break;
+        if (idx < numMvFound) weightStack[idx] += weight;
+        else if (numMvFound < 8) { stackMv[numMvFound][0] = mv0; stackMv[numMvFound][1] = mv1; weightStack[numMvFound] = weight; numMvFound++; }
+    }
+    void scan_row(int deltaRow) {
+        int end4 = std::min(std::min(bw4, MiCols - MiCol), 16), deltaCol = 0, step16 = bw4 >= 16;
+        if (std::abs(deltaRow) > 1) { deltaRow += MiRow & 1; deltaCol = 1 - (MiCol & 1); }
+        for (int i = 0; i < end4;) {
+            int r = MiRow + deltaRow, c = MiCol + deltaCol + i;
+            if (!is_inside(r, c)) break;
+            int len = std::min(bw4, kNum4x4W[miSize[mi(r, c)]]);
+            if (std::abs(deltaRow) > 1) len = std::max(2, len);
+            if (step16) len = std::max(4, len);
+            add_candidate(r, c, len * 2);
+            i += len;
+        }
+    }
+    void scan_col(int deltaCol) {
+        int end4 = std::min(std::min(bh4, MiRows - MiRow), 16), deltaRow = 0, step16 = bh4 >= 16;
+        if (std::abs(deltaCol) > 1) { deltaRow = 1 - (MiRow & 1); deltaCol += MiCol & 1; }
+        for (int i = 0; i < end4;) {
+            int r = MiRow + deltaRow + i, c = MiCol + deltaCol;
+            if (!is_inside(r, c)) break;
+            int len = std::min(bh4, kNum4x4H[miSize[mi(r, c)]]);
+            if (std::abs(deltaCol) > 1) len = std::max(2, len);
+            if (step16) len = std::max(4, len);
+            add_candidate(r, c, len * 2);
+            i += len;
+        }
+    }
+    void scan_point(int dr, int dc) {
+        int r = MiRow + dr, c = MiCol + dc;
+        if (is_inside(r, c) && written[mi(r, c)]) add_candidate(r, c, 4);
+    }
+    void sort_stack(int start, int end) {
+        while (end > start) {
+            int newEnd = start;
+            for (int idx = start + 1; idx < end; idx++)
+                if (weightStack[idx - 1] < weightStack[idx]) {
+                    std::swap(weightStack[idx - 1], weightStack[idx]);
+                    std::swap(stackMv[idx - 1][0], stackMv[idx][0]);
+                    std::swap(stackMv[idx - 1][1], stackMv[idx][1]);
+                    newEnd = idx;
+                }
+            end = newEnd;
+        }
+    }
+
+    int read_mv_component(int comp) {
+        uint16_t* c = ndvc + 5 + 69 * comp;
+        int sign = sd.symbol(c + 27, 2);
+        int mvClass = sd.symbol(c, 11);
+        int mag, d;
+        if (mvClass == 0) { d = sd.symbol(c + 36, 2); mag = 0; }
+        else {
+            int n = mvClass;  // mv_class + CLASS0_BITS - 1
+            d = 0;
+            for (int i = 0; i < n; i++) d |= sd.symbol(c + 39 + 3 * i, 2) << i;
+            mag = 2 << (mvClass + 2);
+        }
+        mag += ((d << 3) | (3 << 1) | 1) + 1;
+        return sign ? -mag : mag;
+    }
+
+    void read_intrabc_mv() {
+        numMvFound = 0;
+        scan_row(-1);
+        scan_col(-1);
+        if (std::max(bw4, bh4) <= 16) scan_point(-1, bw4);
+        int numNearest = numMvFound;
+        for (int i = 0; i < numNearest; i++) weightStack[i] += 640;
+        scan_point(-1, -1);
+        scan_row(-3);
+        scan_col(-3);
+        if (bh4 > 1) scan_row(-5);
+        if (bw4 > 1) scan_col(-5);
+        sort_stack(0, numNearest);
+        sort_stack(numNearest, numMvFound);
+        // context_and_clamping: clamp each candidate to the block's reach
+        for (int i = 0; i < numMvFound; i++) {
+            int bh = bh4 * 4, bw = bw4 * 4;
+            int top = -(MiRow * 4 * 8), bottom = (MiRows - bh4 - MiRow) * 4 * 8;
+            int left = -(MiCol * 4 * 8), right = (MiCols - bw4 - MiCol) * 4 * 8;
+            stackMv[i][0] = clip3(top - (128 + bh * 8), bottom + (128 + bh * 8), stackMv[i][0]);
+            stackMv[i][1] = clip3(left - (128 + bw * 8), right + (128 + bw * 8), stackMv[i][1]);
+        }
+        int nearest[2] = {0, 0}, near[2] = {0, 0};
+        if (numMvFound > 0) { nearest[0] = stackMv[0][0]; nearest[1] = stackMv[0][1]; }
+        if (numMvFound > 1) { near[0] = stackMv[1][0]; near[1] = stackMv[1][1]; }
+        for (int k = 0; k < 2; k++) {  // lower_mv_precision without high precision
+            if (nearest[k] & 1) nearest[k] += nearest[k] > 0 ? -1 : 1;
+            if (near[k] & 1) near[k] += near[k] > 0 ? -1 : 1;
+        }
+        int ref[2];
+        if (nearest[0] || nearest[1]) { ref[0] = nearest[0]; ref[1] = nearest[1]; }
+        else { ref[0] = near[0]; ref[1] = near[1]; }
+        if (!ref[0] && !ref[1]) {
+            int sbSize4 = sb128 ? 32 : 16;
+            if (MiRow - sbSize4 < MiRowStart) { ref[0] = 0; ref[1] = (-4 * sbSize4 - 256) * 8; }
+            else { ref[0] = -4 * sbSize4 * 8; ref[1] = 0; }
+        }
+        ref[0] = (ref[0] >> 3) * 8; ref[1] = (ref[1] >> 3) * 8;
+        int joint = sd.symbol(ndvc, 4);
+        int diff0 = 0, diff1 = 0;
+        if (joint == 2 || joint == 3) diff0 = read_mv_component(0);
+        if (joint == 1 || joint == 3) diff1 = read_mv_component(1);
+        Mv[0] = ((ref[0] + diff0) >> 3) * 8;
+        Mv[1] = ((ref[1] + diff1) >> 3) * 8;
+    }
+
+    // the whole block (and its chroma, in one piece) from already decoded
+    // samples of this frame; the 2-tap filter at chroma half-sample offsets
+    void predict_intrabc() {
+        for (int plane = 0; plane < 1 + 2 * HasChroma; plane++) {
+            int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+            int planeSz = plane_residual_size(MiSize, plane);
+            int w = kNum4x4W[planeSz] * 4, h = kNum4x4H[planeSz] * 4;
+            int baseX = (MiCol >> sx) * 4, baseY = (MiRow >> sy) * 4;
+            int px = (2 * Mv[1]) >> sx, py = (2 * Mv[0]) >> sy;  // 1/16 sample
+            int ix = baseX + (px >> 4), iy = baseY + (py >> 4), fx = px & 15, fy = py & 15;
+            int lastX = ((FrameWidth + sx) >> sx) - 1, lastY = ((FrameHeight + sy) >> sy) - 1;
+            Plane& f = frame[plane];
+            static thread_local uint16_t pred[128 * 128];
+            auto ref = [&](int y, int x) { return (int)f.get(clip3(0, lastY, y), clip3(0, lastX, x)); };
+            for (int i = 0; i < h; i++) for (int j = 0; j < w; j++) {
+                int y = iy + i, x = ix + j, v;
+                if (!fx && !fy) v = ref(y, x);
+                else if (fx && !fy) v = (ref(y, x) + ref(y, x + 1) + 1) >> 1;
+                else if (!fx && fy) v = (ref(y, x) + ref(y + 1, x) + 1) >> 1;
+                else v = (ref(y, x) + ref(y, x + 1) + ref(y + 1, x) + ref(y + 1, x + 1) + 2) >> 2;
+                pred[i * w + j] = (uint16_t)v;
+            }
+            for (int i = 0; i < h; i++) for (int j = 0; j < w; j++) *f.at(baseY + i, baseX + j) = pred[i * w + j];
+        }
+    }
+
+    // ---- prediction (7.11.2)
+    int is_smooth(int row, int col, int plane) const {
+        int mode = plane == 0 ? yMode[mi(row, col)] : uvMode[mi(row, col)];
+        if (plane && isInter[mi(row, col)]) return 0;
+        return mode == SMOOTH_PRED || mode == SMOOTH_V_PRED || mode == SMOOTH_H_PRED;
+    }
+    int get_filter_type(int plane) const {
+        int aboveSmooth = 0, leftSmooth = 0;
+        if (plane == 0 ? AvailU : AvailUChroma) {
+            int r = MiRow - 1, c = MiCol;
+            if (plane > 0) { if (ssx && !(MiCol & 1)) c++; if (ssy && (MiRow & 1)) r--; }
+            aboveSmooth = is_smooth(r, c, plane);
+        }
+        if (plane == 0 ? AvailL : AvailLChroma) {
+            int r = MiRow, c = MiCol - 1;
+            if (plane > 0) { if (ssx && (MiCol & 1)) c--; if (ssy && !(MiRow & 1)) r++; }
+            leftSmooth = is_smooth(r, c, plane);
+        }
+        return aboveSmooth || leftSmooth;
+    }
+
+    static int edge_filter_strength(int w, int h, int filterType, int delta) {
+        int d = std::abs(delta), blkWh = w + h, s = 0;
+        if (filterType == 0) {
+            if (blkWh <= 8) { if (d >= 56) s = 1; }
+            else if (blkWh <= 12) { if (d >= 40) s = 1; }
+            else if (blkWh <= 16) { if (d >= 40) s = 1; }
+            else if (blkWh <= 24) { if (d >= 8) s = 1; if (d >= 16) s = 2; if (d >= 32) s = 3; }
+            else if (blkWh <= 32) { if (d >= 1) s = 1; if (d >= 4) s = 2; if (d >= 32) s = 3; }
+            else { if (d >= 1) s = 3; }
+        } else {
+            if (blkWh <= 8) { if (d >= 40) s = 1; if (d >= 64) s = 2; }
+            else if (blkWh <= 16) { if (d >= 20) s = 1; if (d >= 48) s = 2; }
+            else if (blkWh <= 24) { if (d >= 4) s = 3; }
+            else { if (d >= 1) s = 3; }
+        }
+        return s;
+    }
+    static void edge_filter(int* buf /* buf[-1..] valid */, int sz, int strength) {
+        if (!strength) return;
+        static const int kernel[3][5] = {{0, 4, 8, 4, 0}, {0, 5, 6, 5, 0}, {2, 4, 4, 4, 2}};
+        int edge[300];
+        for (int i = 0; i < sz; i++) edge[i] = buf[i - 1];
+        for (int i = 1; i < sz; i++) {
+            int s = 0;
+            for (int j = 0; j < 5; j++) { int k = clip3(0, sz - 1, i - 2 + j); s += kernel[strength - 1][j] * edge[k]; }
+            buf[i - 1] = (s + 8) >> 4;
+        }
+    }
+    static int use_upsample(int w, int h, int filterType, int delta) {
+        int d = std::abs(delta), blkWh = w + h;
+        if (d <= 0 || d >= 40) return 0;
+        return filterType ? blkWh <= 8 : blkWh <= 16;
+    }
+    void edge_upsample(int* buf, int numPx) const {
+        int dup[300];
+        dup[0] = buf[-1];
+        for (int i = -1; i < numPx; i++) dup[i + 2] = buf[i];
+        dup[numPx + 2] = buf[numPx - 1];
+        buf[-2] = dup[0];
+        int maxv = (1 << bitDepth) - 1;
+        for (int i = 0; i < numPx; i++) {
+            int s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3];
+            s = clip3(0, maxv, round2(s, 4));
+            buf[2 * i - 1] = s;
+            buf[2 * i] = dup[i + 2];
+        }
+    }
+
+    void predict_intra(int plane, int x, int y, int haveLeft, int haveAbove, int haveAboveRt,
+                       int haveBelowLt, int mode, int log2W, int log2H) {
+        Plane& f = frame[plane];
+        int w = 1 << log2W, h = 1 << log2H;
+        int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+        int maxX = ((MiCols * 4) >> sx) - 1, maxY = ((MiRows * 4) >> sy) - 1;
+        int base = 1 << (bitDepth - 1);
+        int aboveBuf[300], leftBuf[300];
+        int* AboveRow = aboveBuf + 16;
+        int* LeftCol = leftBuf + 16;
+        int n = w + h;
+        if (!haveAbove && haveLeft) { int v = f.get(y, x - 1); for (int i = -1; i < n; i++) AboveRow[i] = v; }
+        else if (!haveAbove && !haveLeft) { for (int i = -1; i < n; i++) AboveRow[i] = base - 1; }
+        else {
+            int aboveLimit = std::min(maxX, x + (haveAboveRt ? 2 * w : w) - 1);
+            for (int i = 0; i < n; i++) AboveRow[i] = f.get(y - 1, std::min(aboveLimit, x + i));
+        }
+        if (!haveLeft && haveAbove) { int v = f.get(y - 1, x); for (int i = -1; i < n; i++) LeftCol[i] = v; }
+        else if (!haveLeft && !haveAbove) { for (int i = -1; i < n; i++) LeftCol[i] = base + 1; }
+        else {
+            int leftLimit = std::min(maxY, y + (haveBelowLt ? 2 * h : h) - 1);
+            for (int i = 0; i < n; i++) LeftCol[i] = f.get(std::min(leftLimit, y + i), x - 1);
+        }
+        int corner;
+        if (haveAbove && haveLeft) corner = f.get(y - 1, x - 1);
+        else if (haveAbove) corner = f.get(y - 1, x);
+        else if (haveLeft) corner = f.get(y, x - 1);
+        else corner = base;
+        AboveRow[-1] = corner; LeftCol[-1] = corner;
+        int maxv = (1 << bitDepth) - 1;
+        static thread_local int pred[64][64];
+        if (plane == 0 && use_filter_intra) {
+            // recursive filter intra (7.11.2.3)
+            int w4 = w >> 2, h2 = h >> 1;
+            for (int i2 = 0; i2 < h2; i2++) for (int j4 = 0; j4 < w4; j4++) {
+                int p[7];
+                for (int i = 0; i < 7; i++) {
+                    if (i < 5) {
+                        if (i2 == 0) p[i] = AboveRow[(j4 << 2) + i - 1];
+                        else if (j4 == 0 && i == 0) p[i] = LeftCol[(i2 << 1) - 1];
+                        else p[i] = pred[(i2 << 1) - 1][(j4 << 2) + i - 1];
+                    } else {
+                        if (j4 == 0) p[i] = LeftCol[(i2 << 1) + i - 5];
+                        else p[i] = pred[(i2 << 1) + i - 5][(j4 << 2) - 1];
+                    }
+                }
+                for (int i = 0; i < 8; i++) {
+                    int pr = 0;
+                    for (int j = 0; j < 7; j++) pr += k_filter_intra_taps[filter_intra_mode][i][j] * p[j];
+                    pred[(i2 << 1) + (i >> 2)][(j4 << 2) + (i & 3)] = clip3(0, maxv, round2signed(pr, 4));
+                }
+            }
+        } else if (is_directional(mode)) {
+            int angleDelta = plane == 0 ? AngleDeltaY : AngleDeltaUV;
+            int pAngle = kModeToAngle[mode] + angleDelta * 3;
+            int upA = 0, upL = 0;
+            if (enIntraEdge) {
+                int filterType = get_filter_type(plane);
+                if (pAngle != 90 && pAngle != 180) {
+                    if (pAngle > 90 && pAngle < 180 && (w + h) >= 24) {
+                        int s = round2(LeftCol[0] * 5 + AboveRow[-1] * 6 + AboveRow[0] * 5, 4);
+                        LeftCol[-1] = s; AboveRow[-1] = s;
+                    }
+                    if (haveAbove) {
+                        int strength = edge_filter_strength(w, h, filterType, pAngle - 90);
+                        int numPx = std::min(w, maxX - x + 1) + (pAngle < 90 ? h : 0) + 1;
+                        edge_filter(AboveRow, numPx, strength);
+                    }
+                    if (haveLeft) {
+                        int strength = edge_filter_strength(w, h, filterType, pAngle - 180);
+                        int numPx = std::min(h, maxY - y + 1) + (pAngle > 180 ? w : 0) + 1;
+                        edge_filter(LeftCol, numPx, strength);
+                    }
+                }
+                upA = use_upsample(w, h, filterType, pAngle - 90);
+                if (upA) edge_upsample(AboveRow, w + (pAngle < 90 ? h : 0));
+                upL = use_upsample(w, h, filterType, pAngle - 180);
+                if (upL) edge_upsample(LeftCol, h + (pAngle > 180 ? w : 0));
+            }
+            int dx = 0, dy = 0;
+            if (pAngle < 90) dx = k_dr_intra_derivative[pAngle];
+            else if (pAngle > 90 && pAngle < 180) dx = k_dr_intra_derivative[180 - pAngle];
+            if (pAngle > 90 && pAngle < 180) dy = k_dr_intra_derivative[pAngle - 90];
+            else if (pAngle > 180) dy = k_dr_intra_derivative[270 - pAngle];
+            if (pAngle < 90) {
+                int maxBaseX = (w + h - 1) << upA;
+                for (int i = 0; i < h; i++) {
+                    int idx = (i + 1) * dx;
+                    int shift = ((idx << upA) & 0x3F) >> 1;
+                    int b = idx >> (6 - upA);
+                    for (int j = 0; j < w; j++, b += 1 << upA) {
+                        if (b < maxBaseX) pred[i][j] = round2(AboveRow[b] * (32 - shift) + AboveRow[b + 1] * shift, 5);
+                        else pred[i][j] = AboveRow[maxBaseX];
+                    }
+                }
+            } else if (pAngle > 90 && pAngle < 180) {
+                for (int i = 0; i < h; i++) for (int j = 0; j < w; j++) {
+                    int idx = (j << 6) - (i + 1) * dx;
+                    int b = idx >> (6 - upA);
+                    if (b >= -(1 << upA)) {
+                        int shift = ((idx * (1 << upA)) & 0x3F) >> 1;
+                        pred[i][j] = round2(AboveRow[b] * (32 - shift) + AboveRow[b + 1] * shift, 5);
+                    } else {
+                        idx = (i << 6) - (j + 1) * dy;
+                        b = idx >> (6 - upL);
+                        int shift = ((idx * (1 << upL)) & 0x3F) >> 1;
+                        pred[i][j] = round2(LeftCol[b] * (32 - shift) + LeftCol[b + 1] * shift, 5);
+                    }
+                }
+            } else if (pAngle > 180) {
+                int maxBaseY = (w + h - 1) << upL;
+                for (int j = 0; j < w; j++) {
+                    int idx = (j + 1) * dy;
+                    int shift = ((idx << upL) & 0x3F) >> 1;
+                    int b = idx >> (6 - upL);
+                    for (int i = 0; i < h; i++, b += 1 << upL) {
+                        if (b < maxBaseY) pred[i][j] = round2(LeftCol[b] * (32 - shift) + LeftCol[b + 1] * shift, 5);
+                        else pred[i][j] = LeftCol[maxBaseY];
+                    }
+                }
+            } else if (pAngle == 90) {
+                for (int i = 0; i < h; i++) for (int j = 0; j < w; j++) pred[i][j] = AboveRow[j];
+            } else {
+                for (int i = 0; i < h; i++) for (int j = 0; j < w; j++) pred[i][j] = LeftCol[i];
+            }
+        } else if (mode == SMOOTH_PRED || mode == SMOOTH_V_PRED || mode == SMOOTH_H_PRED) {
+            const uint8_t* wx = k_smooth_weights + w - 4;
+            const uint8_t* wy = k_smooth_weights + h - 4;
+            for (int i = 0; i < h; i++) for (int j = 0; j < w; j++) {
+                if (mode == SMOOTH_PRED)
+                    pred[i][j] = round2(wy[i] * AboveRow[j] + (256 - wy[i]) * LeftCol[h - 1] +
+                                        wx[j] * LeftCol[i] + (256 - wx[j]) * AboveRow[w - 1], 9);
+                else if (mode == SMOOTH_V_PRED)
+                    pred[i][j] = round2(wy[i] * AboveRow[j] + (256 - wy[i]) * LeftCol[h - 1], 8);
+                else
+                    pred[i][j] = round2(wx[j] * LeftCol[i] + (256 - wx[j]) * AboveRow[w - 1], 8);
+            }
+        } else if (mode == DC_PRED) {
+            int avg;
+            if (haveAbove && haveLeft) {
+                int sum = 0;
+                for (int k = 0; k < h; k++) sum += LeftCol[k];
+                for (int k = 0; k < w; k++) sum += AboveRow[k];
+                sum += (w + h) >> 1;
+                avg = sum / (w + h);
+            } else if (haveLeft) {
+                int sum = 0; for (int k = 0; k < h; k++) sum += LeftCol[k];
+                avg = clip3(0, maxv, (sum + (h >> 1)) >> log2H);
+            } else if (haveAbove) {
+                int sum = 0; for (int k = 0; k < w; k++) sum += AboveRow[k];
+                avg = clip3(0, maxv, (sum + (w >> 1)) >> log2W);
+            } else avg = 1 << (bitDepth - 1);
+            for (int i = 0; i < h; i++) for (int j = 0; j < w; j++) pred[i][j] = avg;
+        } else {  // PAETH
+            for (int i = 0; i < h; i++) for (int j = 0; j < w; j++) {
+                int b = AboveRow[j] + LeftCol[i] - AboveRow[-1];
+                int pL = std::abs(b - LeftCol[i]), pT = std::abs(b - AboveRow[j]), pTL = std::abs(b - AboveRow[-1]);
+                if (pL <= pT && pL <= pTL) pred[i][j] = LeftCol[i];
+                else if (pT <= pTL) pred[i][j] = AboveRow[j];
+                else pred[i][j] = AboveRow[-1];
+            }
+        }
+        for (int i = 0; i < h; i++) {
+            uint16_t* row = f.at(y + i, x);
+            for (int j = 0; j < w; j++) row[j] = (uint16_t)pred[i][j];
+        }
+    }
+
+    void predict_cfl(int plane, int startX, int startY, int txSz) {
+        int w = kTxW[txSz], h = kTxH[txSz];
+        int sx = ssx, sy = ssy;
+        int alpha = plane == 1 ? CflAlphaU : CflAlphaV;
+        static thread_local int L[32][32];
+        int sum = 0;
+        Plane& luma = frame[0];
+        for (int i = 0; i < h; i++) {
+            int lumaY = std::min(startY + i, (MaxLumaH >> sy) - 1) << sy;
+            for (int j = 0; j < w; j++) {
+                int lumaX = std::min(startX + j, (MaxLumaW >> sx) - 1) << sx;
+                int t = 0;
+                for (int dy = 0; dy <= sy; dy++) for (int dx = 0; dx <= sx; dx++) t += luma.get(lumaY + dy, lumaX + dx);
+                int v = t << (3 - sx - sy);
+                L[i][j] = v; sum += v;
+            }
+        }
+        int avg = round2(sum, floor_log2(w) + floor_log2(h));
+        Plane& f = frame[plane];
+        int maxv = (1 << bitDepth) - 1;
+        for (int i = 0; i < h; i++) for (int j = 0; j < w; j++) {
+            uint16_t* p = f.at(startY + i, startX + j);
+            int scaled = round2signed(alpha * (L[i][j] - avg), 6);
+            *p = (uint16_t)clip3(0, maxv, *p + scaled);
+        }
+    }
+
+    void predict_palette(int plane, int startX, int startY, int x, int y, int txSz) {
+        int w = kTxW[txSz], h = kTxH[txSz];
+        const uint16_t* pal = paletteColors[plane];
+        uint8_t (*map)[128] = plane ? colorMapUV : colorMapY;
+        Plane& f = frame[plane];
+        for (int i = 0; i < h; i++) for (int j = 0; j < w; j++)
+            *f.at(startY + i, startX + j) = pal[map[y * 4 + i][x * 4 + j]];
+    }
+
+    // ================================================================ in-loop filters
+    void loop_filter() {
+        if (!lfLevel[0] && !lfLevel[1]) return;
+        census[C_DEBLOCK]++;
+        for (int plane = 0; plane < numPlanes; plane++) {
+            if (plane > 0 && !lfLevel[1 + plane]) continue;
+            int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+            for (int pass = 0; pass < 2; pass++) {
+                int rowStep = plane == 0 ? 1 : (1 << sy), colStep = plane == 0 ? 1 : (1 << sx);
+                for (int row = 0; row < MiRows; row += rowStep)
+                    for (int col = 0; col < MiCols; col += colStep) edge_loop_filter(plane, pass, row, col, sx, sy);
+            }
+        }
+    }
+
+    int filter_level(int row, int col, int plane, int pass) const {
+        size_t m = mi(row, col);
+        int seg = segId[m];
+        int i = plane == 0 ? pass : plane + 1;
+        int deltaLf = deltaLfMulti ? deltaLFs[m * 4 + i] : deltaLFs[m * 4];
+        if (!deltaLfPresent) deltaLf = 0;
+        int lvl = clip3(0, 63, deltaLf + lfLevel[i]);
+        if (segEnabled && featEn[seg][1 + i]) lvl = clip3(0, 63, lvl + featData[seg][1 + i]);
+        if (lfDeltaEnabled) {
+            int nShift = lvl >> 5;
+            lvl = clip3(0, 63, lvl + (lfRefDeltas[0] * (1 << nShift)));
+        }
+        return lvl;
+    }
+
+    void edge_loop_filter(int plane, int pass, int row, int col, int sx, int sy) {
+        int dx = pass == 0 ? 1 : 0, dy = pass == 1 ? 1 : 0;
+        int x = col * 4, y = row * 4;
+        row |= sy; col |= sx;
+        int onScreen;
+        if (x >= FrameWidth) onScreen = 0;
+        else if (y >= FrameHeight) onScreen = 0;
+        else if (pass == 0 && x == 0) onScreen = 0;
+        else if (pass == 1 && y == 0) onScreen = 0;
+        else onScreen = 1;
+        if (!onScreen) return;
+        int xP = x >> sx, yP = y >> sy;
+        int prevRow = row - (dy << sy), prevCol = col - (dx << sx);
+        int txSz = lfTx[plane][mi(row >> sy, col >> sx)];
+        int prevTxSz = lfTx[plane][mi(prevRow >> sy, prevCol >> sx)];
+        // every transform edge: skip suppresses only inter blocks' inner
+        // edges, and a frame with intra block copy is never deblocked
+        int applyFilter = pass == 0 ? (xP % kTxW[txSz] == 0) : (yP % kTxH[txSz] == 0);
+        int baseSize = pass == 0 ? std::min(kTxW[prevTxSz], kTxW[txSz]) : std::min(kTxH[prevTxSz], kTxH[txSz]);
+        int filterSize = plane == 0 ? std::min(16, baseSize) : std::min(8, baseSize);
+        int lvl = filter_level(row, col, plane, pass);
+        if (lvl == 0) lvl = filter_level(prevRow, prevCol, plane, pass);
+        if (!applyFilter || lvl == 0) return;
+        int shift = lfSharp > 4 ? 2 : (lfSharp > 0 ? 1 : 0);
+        int limit = lfSharp > 0 ? clip3(1, 9 - lfSharp, lvl >> shift) : std::max(1, lvl >> shift);
+        LfParams lp{limit, 2 * (lvl + 2) + limit, lvl >> 4};
+        int size = filterSize == 4 ? 4 : filterSize == 8 ? (plane == 0 ? 8 : 6) : 14;
+        Plane& f = frame[plane];
+        int step = pass == 0 ? 1 : f.stride;
+        for (int i = 0; i < 4; i++) {
+            uint16_t* s = f.at(yP + dx * i, xP + dy * i);
+            lf_sample(s, step, size, lp, bitDepth);
+        }
+    }
+
+    void cdef() {
+        for (int p = 0; p < numPlanes; p++) cdefFrame[p] = frame[p];
+        if (codedLossless || allowIntrabc || !enCdef) return;
+        int coeffShift = bitDepth - 8;
+        for (int fbr = 0; fbr < MiRows; fbr += 16)
+            for (int fbc = 0; fbc < MiCols; fbc += 16) {
+                int idx = cdefIdx[(size_t)(fbr >> 4) * cdefStride + (fbc >> 4)];
+                if (idx == -1) continue;
+                for (int r = fbr; r < std::min(fbr + 16, MiRows); r += 2)
+                    for (int c = fbc; c < std::min(fbc + 16, MiCols); c += 2) {
+                        int sk = skip[mi(r, c)] && skip[mi(r + 1, c)] && skip[mi(r, c + 1)] && skip[mi(r + 1, c + 1)];
+                        if (sk) continue;
+                        int yDir, var;
+                        cdef_direction(frame[0].at(r * 4, c * 4), frame[0].stride, bitDepth, &yDir, &var);
+                        int priStr = cdefYPri[idx] << coeffShift, secStr = cdefYSec[idx] << coeffShift;
+                        int dir = priStr == 0 ? 0 : yDir;
+                        int varStr = (var >> 6) ? std::min(floor_log2(var >> 6), 12) : 0;
+                        priStr = var ? (priStr * (4 + varStr) + 8) >> 4 : 0;
+                        int damping = cdefDamping + coeffShift;
+                        if (cdefYPri[idx] || cdefYSec[idx]) census[C_CDEF]++;
+                        cdef_filter(0, r, c, priStr, secStr, damping, dir);
+                        if (numPlanes == 1) continue;
+                        priStr = cdefUvPri[idx] << coeffShift; secStr = cdefUvSec[idx] << coeffShift;
+                        dir = priStr == 0 ? 0 : kCdefUvDir[ssx][ssy][yDir];
+                        damping = cdefDamping + coeffShift - 1;
+                        cdef_filter(1, r, c, priStr, secStr, damping, dir);
+                        cdef_filter(2, r, c, priStr, secStr, damping, dir);
+                    }
+            }
+    }
+
+    void cdef_filter(int plane, int r, int c, int priStr, int secStr, int damping, int dir) {
+        if (!priStr && !secStr) return;
+        int coeffShift = bitDepth - 8;
+        int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+        int x0 = (c * 4) >> sx, y0 = (r * 4) >> sy;
+        int w = 8 >> sx, h = 8 >> sy;
+        const Plane& src = frame[plane];
+        Plane& dst = cdefFrame[plane];
+        static const int priTaps[2][2] = {{4, 2}, {3, 3}}, secTaps[2][2] = {{2, 1}, {2, 1}};
+        auto avail = [&](int y, int x) {
+            int cr = (y << sy) >> 2, cc = (x << sx) >> 2;
+            return y >= 0 && x >= 0 && cr < MiRows && cc < MiCols;
+        };
+        int tapSet = (priStr >> coeffShift) & 1;
+        for (int i = 0; i < h; i++) for (int j = 0; j < w; j++) {
+            int x = src.get(y0 + i, x0 + j);
+            int sum = 0, mx = x, mn = x;
+            for (int k = 0; k < 2; k++)
+                for (int sign = -1; sign <= 1; sign += 2) {
+                    int yy = y0 + i + sign * kCdefDirections[dir][k][0], xx = x0 + j + sign * kCdefDirections[dir][k][1];
+                    if (avail(yy, xx)) {
+                        int p = src.get(yy, xx);
+                        sum += priTaps[tapSet][k] * cdef_constrain(p - x, priStr, damping);
+                        mx = std::max(p, mx); mn = std::min(p, mn);
+                    }
+                    for (int off = -2; off <= 2; off += 4) {
+                        int d2 = (dir + off) & 7;
+                        int y2 = y0 + i + sign * kCdefDirections[d2][k][0], x2 = x0 + j + sign * kCdefDirections[d2][k][1];
+                        if (avail(y2, x2)) {
+                            int s = src.get(y2, x2);
+                            sum += secTaps[tapSet][k] * cdef_constrain(s - x, secStr, damping);
+                            mx = std::max(s, mx); mn = std::min(s, mn);
+                        }
+                    }
+                }
+            *dst.at(y0 + i, x0 + j) = (uint16_t)clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
+        }
+    }
+
+    // loop restoration (7.17)
+    int stripeStartY = 0, stripeEndY = 0, planeEndX = 0, planeEndY = 0;
+
+    int source_sample(int plane, int x, int y) const {
+        x = std::max(0, std::min(planeEndX, x));
+        y = std::max(0, std::min(planeEndY, y));
+        if (y < stripeStartY) { y = std::max(stripeStartY - 2, y); return frame[plane].get(y, x); }
+        if (y > stripeEndY) { y = std::min(stripeEndY + 2, y); return frame[plane].get(y, x); }
+        return cdefFrame[plane].get(y, x);
+    }
+
+    void loop_restoration() {
+        if (!usesLr) { for (int p = 0; p < numPlanes; p++) lrFrame[p] = cdefFrame[p]; return; }
+        for (int p = 0; p < numPlanes; p++) lrFrame[p] = cdefFrame[p];
+        for (int y = 0; y < FrameHeight; y += 4)
+            for (int x = 0; x < FrameWidth; x += 4)
+                for (int p = 0; p < numPlanes; p++)
+                    if (frameRestType[p] != RESTORE_NONE) lr_block(p, y >> 2, x >> 2);
+    }
+
+    void lr_block(int plane, int row, int col) {
+        int lumaY = row * 4;
+        int stripeNum = (lumaY + 8) / 64;
+        int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+        stripeStartY = (-8 + stripeNum * 64) >> sy;
+        stripeEndY = stripeStartY + (64 >> sy) - 1;
+        int unitSize = lrSize[plane];
+        int unitRows = lrUnitRows[plane], unitCols = lrUnitCols[plane];
+        int unitRow = std::min(unitRows - 1, ((row * 4 + 8) >> sy) / unitSize);
+        int unitCol = std::min(unitCols - 1, ((col * 4) >> sx) / unitSize);
+        planeEndX = round2(FrameWidth, sx) - 1;
+        planeEndY = round2(FrameHeight, sy) - 1;
+        int x = (col * 4) >> sx, y = (row * 4) >> sy;
+        if (x > planeEndX || y > planeEndY) return;
+        // subsampled chroma: a 4x4 block per 2x2 luma 4x4s, visited once
+        if ((sx && (col & 1)) || (sy && (row & 1))) return;
+        int w = std::min(4, planeEndX - x + 1), h = std::min(4, planeEndY - y + 1);
+        size_t u = (size_t)unitRow * unitCols + unitCol;
+        int rType = lrType[plane][u];
+        if (rType == RESTORE_WIENER) wiener_filter(plane, u, x, y, w, h);
+        else if (rType == RESTORE_SGRPROJ) sgr_filter(plane, u, x, y, w, h);
+    }
+
+    void wiener_filter(int plane, size_t u, int x, int y, int w, int h) {
+        int round0 = bitDepth == 12 ? 5 : 3, round1 = bitDepth == 12 ? 9 : 11;
+        int vf[7], hf[7];
+        const int16_t* co = &lrWiener[plane][u * 6];
+        auto mk = [](const int16_t* c, int* f) {
+            f[3] = 128;
+            for (int i = 0; i < 3; i++) { f[i] = c[i]; f[6 - i] = c[i]; f[3] -= 2 * c[i]; }
+        };
+        mk(co, vf); mk(co + 3, hf);
+        int offset = 1 << (bitDepth + 7 - round0 - 1);
+        int limit = (1 << (bitDepth + 1 + 7 - round0)) - 1;
+        int inter[10][4];
+        for (int r = 0; r < h + 6; r++) for (int c = 0; c < w; c++) {
+            int s = 0;
+            for (int t = 0; t < 7; t++) s += hf[t] * source_sample(plane, x + c + t - 3, y + r - 3);
+            int v = round2(s, round0);
+            inter[r][c] = clip3(-offset, limit - offset, v);
+        }
+        int maxv = (1 << bitDepth) - 1;
+        for (int r = 0; r < h; r++) for (int c = 0; c < w; c++) {
+            int s = 0;
+            for (int t = 0; t < 7; t++) s += vf[t] * inter[r + t][c];
+            *lrFrame[plane].at(y + r, x + c) = (uint16_t)clip3(0, maxv, round2(s, round1));
+        }
+    }
+
+    void box_filter(int plane, int x, int y, int w, int h, int set, int pass, int32_t F[4][4]) {
+        int r = k_sgr_params[set][pass];
+        uint32_t s = (uint32_t)k_sgr_params[set][2 + pass];
+        int n = (2 * r + 1) * (2 * r + 1);
+        uint32_t A[6][6], B[6][6];
+        for (int i = -1; i < h + 1; i++) for (int j = -1; j < w + 1; j++) {
+            uint32_t a = 0, b = 0;
+            for (int dy = -r; dy <= r; dy++) for (int dx = -r; dx <= r; dx++) {
+                uint32_t c = (uint32_t)source_sample(plane, x + j + dx, y + i + dy);
+                a += c * c; b += c;
+            }
+            a = (uint32_t)round2_64(a, 2 * (bitDepth - 8));
+            uint32_t d = (uint32_t)round2_64(b, bitDepth - 8);
+            uint32_t p = (a * n < d * d) ? 0 : a * n - d * d;
+            // uint32 arithmetic throughout, wrapping as libaom's
+            uint32_t z = (p * s + (1u << 19)) >> 20;
+            uint32_t a2 = (uint32_t)k_x_by_xplus1[std::min<uint32_t>(z, 255)];
+            uint32_t b2 = ((256 - a2) * b * (uint32_t)k_one_by_x[n - 1] + (1u << 11)) >> 12;
+            A[i + 1][j + 1] = a2; B[i + 1][j + 1] = b2;
+        }
+        for (int i = 0; i < h; i++) {
+            int shift = 5;
+            if (pass == 0 && (i & 1)) shift = 4;
+            for (int j = 0; j < w; j++) {
+                int32_t a = 0, b = 0;
+                for (int dy = -1; dy <= 1; dy++) for (int dx = -1; dx <= 1; dx++) {
+                    int weight;
+                    if (pass == 0) weight = ((i + dy) & 1) ? (dx == 0 ? 6 : 5) : 0;
+                    else weight = (dx == 0 || dy == 0) ? 4 : 3;
+                    a += weight * (int32_t)A[i + dy + 1][j + dx + 1];
+                    b += weight * (int32_t)B[i + dy + 1][j + dx + 1];
+                }
+                int32_t v = a * (int32_t)cdefFrame[plane].get(y + i, x + j) + b;
+                F[i][j] = (int32_t)round2_64(v, 8 + shift - 4);
+            }
+        }
+    }
+
+    void sgr_filter(int plane, size_t u, int x, int y, int w, int h) {
+        int set = lrSgr[plane][u * 3];
+        int xqd0 = lrSgr[plane][u * 3 + 1], xqd1 = lrSgr[plane][u * 3 + 2];
+        int r0 = k_sgr_params[set][0], r1 = k_sgr_params[set][1];
+        int xq0, xq1;
+        if (r0 == 0) { xq0 = 0; xq1 = (1 << 7) - xqd1; }
+        else if (r1 == 0) { xq0 = xqd0; xq1 = 0; }
+        else { xq0 = xqd0; xq1 = (1 << 7) - xqd0 - xqd1; }
+        int32_t f0[4][4], f1[4][4];
+        if (r0) box_filter(plane, x, y, w, h, set, 0, f0);
+        if (r1) box_filter(plane, x, y, w, h, set, 1, f1);
+        int maxv = (1 << bitDepth) - 1;
+        for (int i = 0; i < h; i++) for (int j = 0; j < w; j++) {
+            int32_t uu = (int32_t)cdefFrame[plane].get(y + i, x + j) << 4;
+            int32_t v = uu << 7;
+            if (r0) v += xq0 * (f0[i][j] - uu);
+            if (r1) v += xq1 * (f1[i][j] - uu);
+            int s = (int)round2_64(v, 11);
+            *lrFrame[plane].at(y + i, x + j) = (uint16_t)clip3(0, maxv, s);
+        }
+    }
+
+    // ================================================================ OBUs
+    void tile_group(const uint8_t* d, size_t sz) {
+        Bits b{d, sz};
+        int numTiles = tileCols * tileRows;
+        int tgStart = 0, tgEnd = numTiles - 1;
+        if (numTiles > 1 && b.f(1)) {
+            int bits = tileColsLog2 + tileRowsLog2;
+            tgStart = b.f(bits); tgEnd = b.f(bits);
+        }
+        b.align();
+        size_t pos = b.pos >> 3;
+        census[C_TILES] = numTiles;
+        for (int t = tgStart; t <= tgEnd; t++) {
+            int tileRow = t / tileCols, tileCol = t % tileCols;
+            size_t tileSize;
+            if (t == tgEnd) {
+                if (pos > sz) throw (int)ERR_BITSTREAM;
+                tileSize = sz - pos;
+            } else {
+                if (pos + tileSizeBytes > sz) throw (int)ERR_BITSTREAM;
+                tileSize = 0;
+                for (int i = 0; i < tileSizeBytes; i++) tileSize |= (size_t)d[pos + i] << (8 * i);
+                tileSize += 1; pos += tileSizeBytes;
+            }
+            if (pos + tileSize > sz) throw (int)ERR_BITSTREAM;
+            MiRowStart = miRowStarts[tileRow]; MiRowEnd = miRowStarts[tileRow + 1];
+            MiColStart = miColStarts[tileCol]; MiColEnd = miColStarts[tileCol + 1];
+            currentQIndex = baseQ;
+            cdf.init(baseQ);
+            memcpy(ndvc, k_nmv_cdf, sizeof(ndvc));
+            sd.init(d + pos, tileSize, disableCdfUpdate);
+            decode_tile();
+            pos += tileSize;
+        }
+        if (tgEnd == numTiles - 1) tilesDone = 1;
+    }
+
+    static size_t leb128(const uint8_t* d, size_t n, size_t& pos) {
+        size_t v = 0;
+        for (int i = 0; i < 8; i++) {
+            if (pos >= n) throw (int)ERR_BITSTREAM;
+            uint8_t byte = d[pos++];
+            v |= (size_t)(byte & 0x7f) << (7 * i);
+            if (!(byte & 0x80)) return v;
+        }
+        throw (int)ERR_BITSTREAM;
+    }
+
+    // Parse the OBUs; stops after the first frame's header when the planes
+    // do not fit (decode == false) and after its last tile otherwise.
+    void run(const uint8_t* d, size_t n, bool decode) {
+        size_t pos = 0;
+        while (pos < n && !tilesDone) {
+            uint8_t h = d[pos++];
+            if (h & 0x80) throw (int)ERR_BITSTREAM;
+            int type = (h >> 3) & 15, ext = (h >> 2) & 1, hasSize = (h >> 1) & 1;
+            int temporalId = 0, spatialId = 0;
+            if (ext) {
+                if (pos >= n) throw (int)ERR_BITSTREAM;
+                temporalId = d[pos] >> 5; spatialId = (d[pos] >> 3) & 3; pos++;
+            }
+            size_t sz = hasSize ? leb128(d, n, pos) : n - pos;
+            if (pos + sz > n) throw (int)ERR_BITSTREAM;
+            const uint8_t* p = d + pos;
+            if (spatialId > 0 && type != 1) { pos += sz; throw (int)ERR_LAYERED; }
+            if (type == 1) { Bits b{p, sz}; sequence_header(b); }
+            else if (type == 3 || type == 6) {
+                if (!seqSeen) throw (int)ERR_BITSTREAM;
+                if (headerDone) { if (type == 3) { pos += sz; continue; } }
+                Bits b{p, sz};
+                if (!headerDone) frame_header(b, temporalId, spatialId);
+                if (!decode) return;
+                alloc();
+                if (type == 6) {
+                    b.align();
+                    size_t off = b.pos >> 3;
+                    tile_group(p + off, sz - off);
+                }
+            } else if (type == 4) {
+                if (!headerDone) throw (int)ERR_BITSTREAM;
+                if (!decode) return;
+                if (frame[0].px.empty()) alloc();
+                tile_group(p, sz);
+            } else if (type == 8) throw (int)ERR_LARGE_SCALE_TILE;
+            pos += sz;
+        }
+    }
+
+    void post_filters() {
+        loop_filter();
+        cdef();
+        loop_restoration();
+    }
+};
+
+}  // namespace
+
+static void fill_info(const Decoder* d, int32_t* info) {
+    info[INFO_WIDTH] = d->headerDone ? d->FrameWidth : d->maxW;
+    info[INFO_HEIGHT] = d->headerDone ? d->FrameHeight : d->maxH;
+    info[INFO_BITDEPTH] = d->bitDepth; info[INFO_MONO] = d->mono;
+    info[INFO_SSX] = d->ssx; info[INFO_SSY] = d->ssy;
+    info[INFO_CP] = d->cp; info[INFO_TC] = d->tc; info[INFO_MC] = d->mc;
+    info[INFO_RANGE] = d->colorRange; info[INFO_PROFILE] = d->profile;
+    info[INFO_STILL] = d->stillPicture; info[INFO_REDUCED] = d->reducedStill;
+    info[INFO_CSP] = d->csp; info[INFO_FRAME_TYPE] = d->frameType;
+    info[INFO_OPERATING_POINTS] = d->opCount;
+    info[INFO_LEVEL] = d->level0; info[INFO_TIER] = d->tier0;
+}
+
+extern "C" int64_t av1_decode(const uint8_t* obus, int64_t n, int32_t* info, uint16_t* planes,
+                              int64_t cap, int64_t* census) {
+    Decoder* dec = new Decoder();
+    int64_t ret = 0;
+    int64_t dummy[C_COUNT];
+    memset(dummy, 0, sizeof(dummy));
+    try {
+        dec->census = census ? census : dummy;
+        dec->run(obus, (size_t)n, false);
+        if (!dec->headerDone) throw (int)ERR_NO_FRAME;
+        fill_info(dec, info);
+        int64_t W = dec->FrameWidth, H = dec->FrameHeight;
+        int64_t cw = dec->mono ? 0 : (W + dec->ssx) >> dec->ssx, ch = dec->mono ? 0 : (H + dec->ssy) >> dec->ssy;
+        int64_t need = W * H + 2 * cw * ch;
+        if (cap < need) { delete dec; return -need - 1000; }
+        Decoder* d2 = new Decoder();
+        delete dec;
+        dec = d2;
+        dec->census = census ? census : dummy;
+        dec->run(obus, (size_t)n, true);
+        if (!dec->tilesDone) throw (int)ERR_BITSTREAM;
+        dec->census[C_SEGMENTATION] = dec->segEnabled;
+        dec->census[C_DELTA_Q] = dec->deltaQPresent;
+        dec->census[C_DELTA_LF] = dec->deltaLfPresent;
+        dec->census[C_SB128] = dec->sb128;
+        if (dec->frameRestType[0] == RESTORE_SWITCHABLE || dec->frameRestType[1] == RESTORE_SWITCHABLE ||
+            dec->frameRestType[2] == RESTORE_SWITCHABLE) dec->census[C_LR_SWITCHABLE] = 1;
+        dec->post_filters();
+        uint16_t* out = planes;
+        for (int p = 0; p < dec->numPlanes; p++) {
+            int64_t pw = p ? cw : W, ph = p ? ch : H;
+            const Plane& f = dec->lrFrame[p];
+            for (int64_t y = 0; y < ph; y++) memcpy(out + y * pw, &f.px[(size_t)y * f.stride], pw * 2);
+            out += pw * ph;
+        }
+    } catch (int code) {
+        ret = code;
+        if (dec->seqSeen) fill_info(dec, info);
+    } catch (...) {
+        ret = ERR_BITSTREAM;
+    }
+    delete dec;
+    return ret;
+}

@@ -17,6 +17,7 @@ quantization (the rule of tests/test_cli_pipeline.py).
 import json
 import shutil
 import struct
+from pathlib import Path
 import zlib
 
 import numpy as np
@@ -130,7 +131,8 @@ def _tiff_header(tags) -> bytes:
 
 def test_png_refuses_what_it_does_not_read(tmp_path):
     """What the readers still refuse raises by name: a PIZ-compressed EXR
-    and an AVIF file, which cv2 reads (UnsupportedImage), and a
+    and a film-grain AVIF file, which cv2 reads (UnsupportedImage; a
+    plain AVIF file now reads as cv2 reads it), and a
     hierarchical JPEG
     and an Orientation 6 TIFF, which cv2 cannot read either
     (UnreadableImage, a FileNotFoundError as the JAX loaders raise for
@@ -149,8 +151,16 @@ def test_png_refuses_what_it_does_not_read(tmp_path):
         cv2.imread(str(tmp_path / "b.img"))[..., ::-1])
     avif = cv2.imencode(".avif", np.zeros((16, 16, 3), np.uint8))[1]
     (tmp_path / "c.img").write_bytes(avif.tobytes())
-    assert cv2.imread(str(tmp_path / "c.img")) is not None
-    for name, what in (("piz.exr", "PIZ"), ("c.img", "AVIF")):
+    for mode, flag in (("unchanged", cv2.IMREAD_UNCHANGED),
+                       ("color", cv2.IMREAD_COLOR)):
+        np.testing.assert_array_equal(
+            image_io.read_image(tmp_path / "c.img", mode),
+            cv2.imread(str(tmp_path / "c.img"), flag)[..., ::-1])
+    grain = Path(__file__).parent / "torch_fixtures" / "formats" / \
+        "avif_film_grain.avif"
+    (tmp_path / "g.img").write_bytes(grain.read_bytes())
+    assert cv2.imread(str(tmp_path / "g.img")) is not None
+    for name, what in (("piz.exr", "PIZ"), ("g.img", "AVIF with film grain")):
         with pytest.raises(errors.UnsupportedImage,
                            match=f"{what}.*not supported"):
             image_io.load_image(tmp_path / name)

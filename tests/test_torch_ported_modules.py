@@ -8,6 +8,7 @@ as in tests/test_meshroom_node.py)."""
 import importlib.util
 import json
 import os
+from pathlib import Path
 import shutil
 import types
 
@@ -341,8 +342,9 @@ def test_neus_converter_matches_jax(tmp_path, capsys):
 
 def test_neus_converter_refuses_other_formats(tmp_path):
     """An EXR image (whose 8-bit colour read no test can observe) and a
-    format that cv2 reads and the port does not yet (AVIF; JPEG 2000 until
-    the port read it) raise by name."""
+    file that cv2 reads and the port does not yet (an AVIF with film
+    grain; plain AVIF and JPEG 2000 until the port read them) raise by
+    name."""
     from rnb_neus2_torch.io import image_io
     _neus_dir(tmp_path / "neus", n=1)
     img = tmp_path / "neus" / "image" / "000.png"
@@ -352,10 +354,11 @@ def test_neus_converter_refuses_other_formats(tmp_path):
     with pytest.raises(ValueError, match="EXR read as 8-bit colour"):
         data_format_from_neus.generate(str(tmp_path / "neus"),
                                        str(tmp_path / "out"))
-    import cv2
-    img.with_suffix(".exr").write_bytes(cv2.imencode(
-        ".avif", np.zeros((64, 64, 3), np.uint8))[1].tobytes())
-    with pytest.raises(ValueError, match="AVIF image is not supported"):
+    grain = Path(__file__).parent / "torch_fixtures" / "formats" / \
+        "avif_film_grain.avif"
+    img.with_suffix(".exr").write_bytes(grain.read_bytes())
+    with pytest.raises(ValueError, match="AVIF with film grain is not "
+                                         "supported"):
         data_format_from_neus.generate(str(tmp_path / "neus"),
                                        str(tmp_path / "out"))
 

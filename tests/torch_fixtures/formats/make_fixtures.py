@@ -14,6 +14,11 @@ time. `chip_smoke.py` (phase 20) decodes them on the card's host, which
 has neither cv2 nor PIL, and tests/test_torch_image_variants.py holds
 them against `expected.npz`.
 
+AVIF (the fourteenth slice): cv2's, PIL's and libaom's files for every
+coding tool the port's AV1 decoder has (`tests/test_torch_image_avif.py`
+holds their census), the features refused by name and what cv2 cannot
+read; `../avif_scene/` is the sphere below in AVIF.
+
 Also the JPEG 2000 / Group 4 sphere scene of `../jp2_scene/` (phase 19):
 the port's `write_sfm_scene` PNG sphere (16 views of 256x256) with its
 normals rewritten as lossless 16-bit JP2, its albedos as 8-bit JP2 at
@@ -23,7 +28,7 @@ names them), and `expected.json`, digests of what the JAX package's
 
 Needs cv2 and PIL, so it runs where the tests run, not on the card:
 
-    python tests/torch_fixtures/formats/make_fixtures.py
+    python tests/torch_fixtures/formats/make_fixtures.py [avif]
 """
 
 import io
@@ -457,6 +462,211 @@ def thirteenth(rng):
     return out
 
 
+def rich(rng, h, w):
+    """Texture with edges at many angles, discs and noise: content that
+    makes an AV1 encoder use most of its intra tools."""
+    base = smooth(rng, (h, w, 3), noise=0.0)
+    for _ in range(max(4, h * w // 400)):
+        ang, length = rng.uniform(0, np.pi), rng.uniform(6, 40)
+        x0, y0 = rng.uniform(0, w), rng.uniform(0, h)
+        p2 = (int(x0 + length * np.cos(ang)), int(y0 + length * np.sin(ang)))
+        cv2.line(base, (int(x0), int(y0)), p2,
+                 tuple(int(v) for v in rng.integers(0, 256, 3)),
+                 int(rng.integers(1, 4)), cv2.LINE_AA)
+    for _ in range(max(2, h * w // 1500)):
+        cv2.circle(base, (int(rng.uniform(0, w)), int(rng.uniform(0, h))),
+                   int(rng.uniform(3, 14)),
+                   tuple(int(v) for v in rng.integers(0, 256, 3)), -1,
+                   cv2.LINE_AA)
+    noise = rng.normal(0, 6, base.shape)
+    return np.clip(base + noise, 0, 255).astype(np.uint8)
+
+
+def bands(rng, size, width, horizontal):
+    """Stripes `width` samples wide, each a colour with a sinusoid along
+    it: 64x16, 16x64, 64x32 and 32x64 blocks and transforms."""
+    yy, xx = np.mgrid[:size, :size].astype(np.float64)
+    idx, t = (yy, xx) if horizontal else (xx, yy)
+    img = np.zeros((size, size, 3))
+    for b in range(size // width):
+        m = (idx // width) == b
+        for c in range(3):
+            img[..., c][m] = (rng.uniform(40, 200) + 35 * np.sin(
+                t / rng.uniform(5, 12) + rng.uniform(0, 6)))[m]
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def pil_avif(img, mode=None, **kw):
+    return pil_bytes(Image.fromarray(img, mode), "AVIF", **kw)
+
+
+def cv2_avif(img, *params):
+    ok, blob = cv2.imencode(".avif", img, list(params))
+    assert ok
+    return blob.tobytes()
+
+
+def aom_avif(rgb, **kw):
+    """libaom's encoder through ctypes (tools no libavif option reaches),
+    in a one-item container."""
+    from rnb_neus2_torch.io import native
+    obus = tw.aom_encode(tw.rgb_to_yuv420(rgb), **kw)
+    code, info, _, _ = native.av1_decode(obus)
+    assert code in (0, -3), code      # -3: superres, refused by name
+    return tw.avif_still(obus, info, colr=(1, 13, 6, 1))
+
+
+def aom_until(rgb, census_index, settings):
+    """The first of `settings` (aom_avif keyword sets) whose frame uses the
+    tool at `census_index` of native/av1.cc's census."""
+    from rnb_neus2_torch.io import native
+    for kw in settings:
+        obus = tw.aom_encode(tw.rgb_to_yuv420(rgb), **kw)
+        code, info, _, census = native.av1_decode(obus)
+        if code == 0 and census[census_index]:
+            return tw.avif_still(obus, info, colr=(1, 13, 6, 1))
+    raise AssertionError(f"no setting uses tool {census_index}")
+
+
+def with_colr(blob: bytes, mc: int) -> bytes:
+    """`blob` with its colr nclx box's matrix_coefficients set to `mc`."""
+    i = blob.find(b"colrnclx")
+    assert i > 0
+    out = bytearray(blob)
+    out[i + 12:i + 14] = mc.to_bytes(2, "big")
+    return bytes(out)
+
+
+def grid_avif(tile_blob: bytes) -> bytes:
+    """A 2x2 grid derived item over four copies of a one-item AVIF's
+    tile."""
+    from rnb_neus2_torch.io import avif
+    c = avif.parse(tile_blob, "tile")
+    it = c.items[c.primary]
+    obus = avif.item_data(c, it, tile_blob, "tile")
+    w, h = struct.unpack(">II", avif.prop(it, b"ispe")[4:12])
+    av1c = tw.isobmff_box(b"av1C", avif.prop(it, b"av1C"))
+    tiles = [dict(id=2 + i, type=b"av01", data=obus, hidden=True,
+                  props=[tw.ispe(w, h), tw.pixi(8, 3), av1c])
+             for i in range(4)]
+    desc = bytes([0, 0, 1, 1]) + struct.pack(">HH", 2 * w, 2 * h)
+    grid = dict(id=1, type=b"grid", data=desc, method=1,
+                props=[tw.ispe(2 * w, 2 * h), tw.pixi(8, 3)])
+    return tw.avif_file([grid] + tiles, refs=[(b"dimg", 1, [2, 3, 4, 5])])
+
+
+def fourteenth(rng):
+    """AVIF: cv2's own files at its defaults, quality 50 and 100, 10 and
+    12 bits, grey, RGBA and odd sizes; PIL's (libavif 1.3 + aom) for the
+    subsamplings, tiles, 128x128 superblocks, screen content, alpha
+    premultiplied, irot/imir, limited range and aom's advanced options;
+    libaom's encoder through ctypes for intra block copy, loop
+    restoration's switchable type, the 64-point rectangular transforms,
+    variance-AQ segmentation (two passes) and superres; hand-built containers for a grid, a sequence and what
+    cv2 refuses; three 612x512 files for phase 20."""
+    out = {}
+    img = rich(rng, 64, 96)
+    bgr = img[..., ::-1].copy()
+    out["avif_cv2_default.avif"] = cv2_avif(bgr)
+    out["avif_cv2_q95.avif"] = cv2_avif(bgr, cv2.IMWRITE_AVIF_QUALITY, 95)
+    out["avif_cv2_q50.avif"] = cv2_avif(bgr, cv2.IMWRITE_AVIF_QUALITY, 50)
+    out["avif_cv2_q100.avif"] = cv2_avif(bgr, cv2.IMWRITE_AVIF_QUALITY, 100)
+    deep = (smooth(rng, (48, 64, 3), 0.05).astype(np.uint16) * 257)
+    out["avif_cv2_10bit.avif"] = cv2_avif(deep >> 6, cv2.IMWRITE_AVIF_DEPTH, 10)
+    out["avif_cv2_12bit.avif"] = cv2_avif(deep >> 4, cv2.IMWRITE_AVIF_DEPTH, 12)
+    out["avif_cv2_10bit_lossless.avif"] = cv2_avif(
+        deep >> 6, cv2.IMWRITE_AVIF_DEPTH, 10, cv2.IMWRITE_AVIF_QUALITY, 100)
+    out["avif_cv2_12bit_lossless.avif"] = cv2_avif(
+        deep >> 4, cv2.IMWRITE_AVIF_DEPTH, 12, cv2.IMWRITE_AVIF_QUALITY, 100)
+    out["avif_cv2_grey.avif"] = cv2_avif(img[..., 1].copy())
+    out["avif_cv2_grey_10bit.avif"] = cv2_avif(deep[..., 0] >> 6, cv2.IMWRITE_AVIF_DEPTH, 10)
+    alpha = np.clip(np.add.outer(np.arange(64) * 3, np.arange(96) * 2), 0, 255).astype(np.uint8)
+    out["avif_cv2_rgba.avif"] = cv2_avif(np.dstack([bgr, alpha]))
+    deep_a = np.dstack([deep, deep[..., :1][::-1]])
+    out["avif_cv2_rgba_10bit.avif"] = cv2_avif(deep_a >> 6, cv2.IMWRITE_AVIF_DEPTH, 10)
+    out["avif_cv2_rgba_12bit.avif"] = cv2_avif(deep_a >> 4, cv2.IMWRITE_AVIF_DEPTH, 12)
+    for w, h in ((1, 1), (17, 9), (65, 33)):
+        out[f"avif_cv2_{w}x{h}.avif"] = cv2_avif(rich(rng, h, w)[..., ::-1].copy())
+    nat = rich(rng, 96, 96)
+    out["avif_422.avif"] = pil_avif(nat, quality=50, speed=0, subsampling="4:2:2")
+    out["avif_444.avif"] = pil_avif(nat, quality=50, speed=0, subsampling="4:4:4",
+                                    advanced={"enable-chroma-deltaq": "1"})
+    out["avif_400.avif"] = pil_avif(nat, quality=50, speed=0, subsampling="4:0:0")
+    out["avif_q20_speed0.avif"] = pil_avif(nat, quality=20, speed=0)
+    out["avif_tiles_2x2.avif"] = pil_avif(nat, quality=50, speed=2, tile_rows=1,
+                                          tile_cols=1, autotiling=False)
+    out["avif_sb128.avif"] = pil_avif(rich(rng, 160, 160), quality=40, speed=1,
+                                      advanced={"sb-size": "128"})
+    few = (rich(rng, 96, 96) // 64 * 64 + 32).astype(np.uint8)
+    out["avif_palette.avif"] = pil_avif(few, quality=70, speed=1,
+                                        advanced={"tune-content": "screen"})
+    out["avif_qm.avif"] = pil_avif(nat, quality=40, speed=2,
+                                   advanced={"enable-qm": "1", "qm-min": "2"})
+    out["avif_deltaq_lf.avif"] = aom_avif(rich(rng, 256, 256), usage=2, cq=30, options={
+        "cpu-used": 2, "deltaq-mode": 2, "delta-lf-mode": 1})
+    out["avif_segmentation.avif"] = aom_avif(rich(rng, 96, 96), usage=0, cq=30, options={
+        "cpu-used": 2, "aq-mode": 1, "deltaq-mode": 0}, two_pass=True)
+    out["avif_lr.avif"] = pil_avif(nat, quality=40, speed=1,
+                                   advanced={"enable-restoration": "1"})
+    lr = rich(rng, 256, 256)
+    blur = cv2.GaussianBlur(rich(rng, 256, 256), (0, 0), 3)
+    lr[:, 128:] = blur[:, 128:]
+    lr[128:, :128] = np.clip(blur[128:, :128] + rng.normal(0, 20, (128, 128, 3)), 0, 255)
+    out["avif_lr_switchable.avif"] = aom_until(lr, 80, [dict(
+        usage=u, cq=cq, options={"cpu-used": cpu, "enable-restoration": 1})
+        for cq in (35, 20, 50) for u in (0, 2) for cpu in (1, 0)])
+    for width, hor in ((16, True), (16, False), (32, True), (32, False)):
+        name = f"avif_tx64_{width}{'h' if hor else 'v'}.avif"
+        out[name] = aom_avif(bands(rng, 256, width, hor), usage=0, cq=20,
+                             options={"cpu-used": 0})
+    tile = rng.integers(0, 256, (32, 32, 3)).astype(np.float64)
+    ibc = np.tile(tile, (4, 12, 1))
+    yy, xx = np.mgrid[:128, :384]
+    ramp = ((xx % 16) * 3 - (yy % 8) * 4)[..., None] * np.array([1, -1, 0.5])
+    ibc = np.clip(ibc + ramp + rng.normal(0, 3, ibc.shape), 0, 255).astype(np.uint8)
+    out["avif_intrabc.avif"] = aom_avif(ibc, usage=0, cq=20, options={
+        "cpu-used": 2, "tune-content": "screen", "enable-intrabc": 1,
+        "reduced-tx-type-set": 0})
+    lim = pil_avif(nat, quality=60, range="limited")
+    out["avif_bt709_limited.avif"] = with_colr(lim, 1)
+    out["avif_bt2020_limited.avif"] = with_colr(lim, 9)
+    full = out["avif_cv2_q95.avif"]
+    out["avif_bt709_full.avif"] = with_colr(full, 1)
+    out["avif_smpte240_full.avif"] = with_colr(full, 7)
+    rgba = np.dstack([nat[:64], alpha[:, :96]])
+    out["avif_premultiplied.avif"] = pil_avif(rgba, quality=80, alpha_premultiplied=True)
+    for name, orient in (("irot", 6), ("imir", 2)):
+        exif = Image.Exif()
+        exif[0x0112] = orient
+        out[f"avif_{name}.avif"] = pil_avif(nat[:40], quality=70, exif=exif.tobytes())
+    flat = np.clip(np.stack(np.broadcast_arrays(
+        80 + np.arange(96)[None], 120 + np.arange(96)[:, None] * 0.5,
+        np.full((96, 96), 100.0)), -1) + rng.normal(0, 4, (96, 96, 3)), 0, 255).astype(np.uint8)
+    out["avif_film_grain.avif"] = pil_avif(flat, quality=60,
+                                           advanced={"denoise-noise-level": "25"})
+    out["avif_superres.avif"] = aom_avif(rich(rng, 64, 64), usage=2, cq=30,
+                                         options={"cpu-used": 4}, cfg={19: 1, 20: 16, 21: 16})
+    out["avif_grid.avif"] = grid_avif(cv2_avif(rich(rng, 64, 64)[..., ::-1].copy()))
+    good = out["avif_cv2_q95.avif"]
+    out["unreadable_avif_truncated.avif"] = good[:len(good) * 2 // 3]
+    bad = bytearray(good)
+    i = bad.find(b"iloc") + 4 + 4 + 2 + 2 + 2 + 2 + 2
+    bad[i:i + 4] = (len(good) + 100).to_bytes(4, "big")     # extent offset past the end
+    out["unreadable_avif_bad_iloc.avif"] = bytes(bad)
+    bad = bytearray(good)
+    bad[bad.find(b"mdat") + 4] |= 0x80                       # OBU forbidden bit
+    out["unreadable_avif_bad_obu.avif"] = bytes(bad)
+    out["unreadable_avif_grey_alpha.avif"] = pil_avif(
+        np.dstack([nat[..., 0], alpha[:, :96].repeat(2, 0)[:96]]), mode="LA",
+        quality=80, subsampling="4:0:0")
+    view8 = np.round(sphere_view() * 255).astype(np.uint8)[..., ::-1].copy()
+    out["avif_q95_612x512.avif"] = cv2_avif(view8, cv2.IMWRITE_AVIF_QUALITY, 95)
+    out["avif_lossless444_612x512.avif"] = cv2_avif(view8, cv2.IMWRITE_AVIF_QUALITY, 100)
+    view12 = np.round(sphere_view() * 4095).astype(np.uint16)[..., ::-1].copy()
+    out["avif_12bit_612x512.avif"] = cv2_avif(view12, cv2.IMWRITE_AVIF_DEPTH, 12)
+    return out
+
+
 SCENE = HERE.parent / "jp2_scene"
 SCENE_SPHERE = dict(n_views=16, width=256, height=256, radius=0.25)
 SCENE_CENTER = (0.2, -0.1, 0.3)
@@ -534,6 +744,73 @@ def jp2_scene():
     print(f"jp2_scene: {total} bytes")
 
 
+AVIF_SCENE = HERE.parent / "avif_scene"
+
+
+def avif_scene():
+    """The phase-19 sphere in AVIF: normals lossless 8-bit 4:4:4, albedos
+    at cv2's default quality, masks lossless grey; and the digests of the
+    JAX package's prepared arrays (RGBA order, uint16)."""
+    import json
+    import shutil
+    import tempfile
+
+    from rnb_neus2_torch.testing.synthetic import write_sfm_scene
+    from rnb_neus2_tpu.io.dataloaders import load_data as jload
+    from rnb_neus2_tpu.io.prepare import prepare_testbed_data as jprepare
+
+    if AVIF_SCENE.exists():
+        shutil.rmtree(AVIF_SCENE)
+    for sub in ("normals", "albedos", "masks"):
+        (AVIF_SCENE / sub).mkdir(parents=True)
+    with tempfile.TemporaryDirectory() as d:
+        normals, albedos, masks, radius = write_sfm_scene(
+            d, "png", world_center=SCENE_CENTER, **SCENE_SPHERE)
+        sfm = {k: json.load(open(p)) for k, p in (("normals", normals),
+                                                  ("albedos", albedos))}
+        for key, params in (("normals", [cv2.IMWRITE_AVIF_QUALITY, 100]),
+                            ("albedos", [])):
+            for view in sfm[key]["views"]:
+                src = Path(d) / view["path"]
+                img = cv2.imread(str(src), cv2.IMREAD_COLOR)    # 8 bits
+                view["path"] = str(Path(key) / (src.stem + ".avif"))
+                assert cv2.imwrite(str(AVIF_SCENE / view["path"]), img, params)
+        mask_views = []
+        for view in sfm["normals"]["views"]:
+            pid = view["poseId"]
+            m = cv2.imread(str(Path(masks) / f"{pid}.png"),
+                           cv2.IMREAD_GRAYSCALE)
+            path = Path("masks") / f"{pid}.avif"
+            assert cv2.imwrite(str(AVIF_SCENE / path), m,
+                               [cv2.IMWRITE_AVIF_QUALITY, 100])
+            assert np.array_equal(cv2.imread(str(AVIF_SCENE / path),
+                                             cv2.IMREAD_UNCHANGED), m)
+            mask_views.append(dict(view, path=str(path)))
+        sfm["masks"] = dict(sfm["normals"], views=mask_views)
+        for k, v in sfm.items():
+            with open(AVIF_SCENE / f"{k}.sfm.json", "w") as f:
+                json.dump(v, f)
+    with tempfile.TemporaryDirectory() as d:
+        data = jload(str(AVIF_SCENE / "normals.sfm.json"),
+                     albedo_sfm_path=str(AVIF_SCENE / "albedos.sfm.json"),
+                     mask_sfm_path=str(AVIF_SCENE / "masks.sfm.json"))
+        jprepare(data, d)
+        tj = json.load(open(Path(d) / "transform.json"))
+        expected = {"world_center": list(SCENE_CENTER), "world_radius":
+                    radius, "n2w": tj["n2w"], "frames": {}}
+        for fr in tj["frames"]:
+            rec = {}
+            for key in ("normal_path", "albedo_path"):
+                img = cv2.imread(str(Path(d) / fr[key]),
+                                 cv2.IMREAD_UNCHANGED)[..., [2, 1, 0, 3]]
+                rec[key.split("_")[0]] = array_digest(img)
+            expected["frames"][Path(fr["normal_path"]).name] = rec
+    with open(AVIF_SCENE / "expected.json", "w") as f:
+        json.dump(expected, f, indent=1)
+    total = sum(p.stat().st_size for p in AVIF_SCENE.rglob("*") if p.is_file())
+    print(f"avif_scene: {total} bytes")
+
+
 def cv2_rgb(path, mode):
     try:
         img = cv2.imread(str(path), MODES[mode])
@@ -547,13 +824,25 @@ def cv2_rgb(path, mode):
 
 
 def main():
-    rng = np.random.default_rng(2024)
-    files = {**jpegs(rng), **tiffs(rng), **more_formats(rng),
-             **thirteenth(np.random.default_rng(16))}
-    for old in HERE.iterdir():
-        if old.suffix not in (".py", ".npz"):
+    """All fixtures and both scenes; `make_fixtures.py avif` rewrites only
+    the AVIF files, their entries of expected.npz and the AVIF scene."""
+    only_avif = sys.argv[1:] == ["avif"]
+    avifs = fourteenth(np.random.default_rng(17))
+    if only_avif:
+        files = avifs
+        for old in HERE.glob("*.avif"):
             old.unlink()
-    expected = {}
+        with np.load(HERE / "expected.npz") as z:
+            expected = {k: z[k] for k in z.files
+                        if not k.split(":")[0].endswith(".avif")}
+    else:
+        rng = np.random.default_rng(2024)
+        files = {**jpegs(rng), **tiffs(rng), **more_formats(rng),
+                 **thirteenth(np.random.default_rng(16)), **avifs}
+        for old in HERE.iterdir():
+            if old.suffix not in (".py", ".npz"):
+                old.unlink()
+        expected = {}
     for name, blob in sorted(files.items()):
         limit = 512 << 10 if "612x512" in name else 64 << 10
         assert len(blob) <= limit, (name, len(blob))
@@ -566,7 +855,9 @@ def main():
     total = sum(len(b) for b in files.values())
     print(f"{len(files)} fixtures, {total} bytes; expected.npz "
           f"{(HERE / 'expected.npz').stat().st_size} bytes")
-    jp2_scene()
+    if not only_avif:
+        jp2_scene()
+    avif_scene()
 
 
 if __name__ == "__main__":

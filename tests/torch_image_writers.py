@@ -1365,3 +1365,218 @@ def packed_headers(codestream: bytes, where="ppt") -> bytes:
         tp = tp[:6] + struct.pack(">I", len(tp)) + tp[10:]
         out += tp
     return out + b"\xff\xd9"
+
+
+# ------------------------------------------------------------------ AVIF
+# A HEIF container written box by box (for the grid, layered and
+# broken-box cases) and libaom's own encoder through ctypes (the
+# opencv-python wheel's libaom), for the tools no libavif option reaches:
+# intra block copy, superres, two-pass segmentation and a chosen usage.
+
+def isobmff_box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I4s", 8 + len(payload), kind) + payload
+
+
+def full_box(kind: bytes, version: int, flags: int, payload: bytes) -> bytes:
+    return isobmff_box(kind, bytes([version]) + flags.to_bytes(3, "big") + payload)
+
+
+def av1c(info: dict) -> bytes:
+    """The av1C record (AV1-ISOBMFF 2.3.3) of a stream's sequence header,
+    from the fields `native.av1_decode` reports."""
+    return bytes([0x81, (info["profile"] << 5) | info["level"],
+                  (info["tier"] << 7) | ((info["bit_depth"] > 8) << 6) | ((info["bit_depth"] == 12) << 5)
+                  | (info["mono"] << 4) | (info["ssx"] << 3) | (info["ssy"] << 2) | info["csp"], 0])
+
+
+def avif_still(obus: bytes, info: dict, colr=None, extra_props=()) -> bytes:
+    """A one-item AVIF file around an AV1 key frame."""
+    channels = 1 if info["mono"] else 3
+    props = [ispe(info["width"], info["height"]), pixi(info["bit_depth"], channels),
+             isobmff_box(b"av1C", av1c(info))]
+    if colr is not None:
+        props.append(nclx(*colr))
+    props += list(extra_props)
+    return avif_file([dict(id=1, type=b"av01", data=obus, props=props)])
+
+
+def avif_file(items, primary=1, refs=(), major=b"avif", brands=(b"avif", b"mif1", b"miaf"),
+              extra_meta=b"", extra_top=b"", idat=None) -> bytes:
+    """An AVIF file: `items` is a list of dicts with id, type, data,
+    props (list of box bytes), optional hidden / construction method 1
+    (the data then goes into idat); refs are (type, from, [to...])."""
+    ftyp = isobmff_box(b"ftyp", major + b"\0\0\0\0" + b"".join(brands))
+    hdlr = full_box(b"hdlr", 0, 0, b"\0" * 4 + b"pict" + b"\0" * 12 + b"\0")
+    pitm = full_box(b"pitm", 0, 0, struct.pack(">H", primary))
+    infes = b"".join(full_box(b"infe", 2, 1 if it.get("hidden") else 0,
+                              struct.pack(">HH", it["id"], 0) + it["type"] + b"\0")
+                     for it in items)
+    iinf = full_box(b"iinf", 0, 0, struct.pack(">H", len(items)) + infes)
+    props, assoc = [], []
+    for it in items:
+        idx = []
+        for p in it.get("props", []):
+            props.append(p)
+            idx.append(len(props))
+        assoc.append((it["id"], idx))
+    ipco = isobmff_box(b"ipco", b"".join(props))
+    ipma_body = struct.pack(">I", len(assoc))
+    for iid, idx in assoc:
+        ipma_body += struct.pack(">HB", iid, len(idx)) + bytes(0x80 | i for i in idx)
+    iprp = isobmff_box(b"iprp", ipco + full_box(b"ipma", 0, 0, ipma_body))
+    iref = b""
+    if refs:
+        iref = full_box(b"iref", 0, 0, b"".join(
+            isobmff_box(k, struct.pack(">HH", f, len(to)) + b"".join(struct.pack(">H", t) for t in to))
+            for k, f, to in refs))
+    idat_items = [it for it in items if it.get("method") == 1]
+    idat_payload = b"".join(it["data"] for it in idat_items)
+
+    def build(mdat_start):
+        body = struct.pack(">H", len(items))
+        pos, ipos = mdat_start, 0
+        for it in items:
+            if it.get("method") == 1:
+                off = ipos
+                ipos += len(it["data"])
+                body += struct.pack(">HHHHII", it["id"], 1, 0, 1, off, len(it["data"]))
+            else:
+                body += struct.pack(">HHHHII", it["id"], 0, 0, 1, pos, len(it["data"]))
+                pos += len(it["data"])
+        iloc = full_box(b"iloc", 1, 0, bytes([0x44, 0x00]) + body)
+        meta = full_box(b"meta", 0, 0, hdlr + pitm + iloc + iinf + iref + iprp + extra_meta
+                        + (isobmff_box(b"idat", idat_payload) if idat_items else b""))
+        return meta
+
+    meta = build(0)
+    start = len(ftyp) + len(meta) + len(extra_top) + 8
+    meta = build(start)
+    mdat = isobmff_box(b"mdat", b"".join(it["data"] for it in items if it.get("method") != 1))
+    return ftyp + meta + extra_top + mdat
+
+
+def ispe(w, h) -> bytes:
+    return full_box(b"ispe", 0, 0, struct.pack(">II", w, h))
+
+
+def pixi(depth, channels) -> bytes:
+    return full_box(b"pixi", 0, 0, bytes([channels] + [depth] * channels))
+
+
+def nclx(cp, tc, mc, full) -> bytes:
+    return isobmff_box(b"colr", b"nclx" + struct.pack(">HHHB", cp, tc, mc, 0x80 if full else 0))
+
+
+def _libaom():
+    import ctypes
+
+    import torch_av1_tables as tables
+    lib = ctypes.CDLL(tables.libaom_path())
+    lib.aom_codec_av1_cx.restype = ctypes.c_void_p
+    lib.aom_img_alloc.restype = ctypes.c_void_p
+    lib.aom_img_alloc.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint]
+    lib.aom_codec_enc_init_ver.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long, ctypes.c_int]
+    lib.aom_codec_set_option.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p]
+    lib.aom_codec_encode.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_ulong, ctypes.c_long]
+    lib.aom_codec_get_cx_data.restype = ctypes.c_void_p
+    lib.aom_codec_get_cx_data.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.aom_codec_destroy.argtypes = [ctypes.c_void_p]
+    lib.aom_img_free.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+AOM_ENCODER_ABI_VERSION = 0x1d   # as libavif 1.4 passes it to aom_codec_enc_init_ver
+
+
+def aom_encode(yuv, bit_depth=8, usage=2, cq=30, options=None, cfg=None,
+               two_pass=False) -> bytes:
+    """One key frame from libaom's encoder: `yuv` is [Y, U, V] 4:2:0
+    planes (uint8 or uint16 for 10/12 bits); usage 0 good quality, 2 all
+    intra; `options` go to aom_codec_set_option (aomenc's names),
+    `cfg` sets aom_codec_enc_cfg_t fields by their uint32 index (19
+    rc_superres_mode, 20 rc_superres_denominator, 21 its key-frame
+    denominator); `two_pass` runs libaom's first pass and feeds its
+    stats to the second (its variance AQ segments only then).
+    → the OBUs without the temporal delimiter."""
+    stats = _aom_pass(yuv, bit_depth, usage, cq, options, cfg, 1, None)[1] if two_pass else None
+    out = _aom_pass(yuv, bit_depth, usage, cq, options, cfg, 2 if two_pass else 0, stats)[0]
+    if out and (out[0] >> 3) & 15 == 2:                # drop the temporal delimiter
+        out = out[2:]
+    return out
+
+
+def _aom_pass(yuv, bit_depth, usage, cq, options, cfg, passno, stats):
+    import ctypes
+    lib = _libaom()
+    h, w = yuv[0].shape
+    cfgbuf = ctypes.create_string_buffer(4096)
+    iface = ctypes.c_void_p(lib.aom_codec_av1_cx())
+    if lib.aom_codec_enc_config_default(iface, cfgbuf, usage):
+        raise RuntimeError("aom_codec_enc_config_default")
+    fields = np.frombuffer(cfgbuf, np.uint32, 100).copy()
+    fields[3], fields[4], fields[5] = w, h, 1          # g_w, g_h, g_limit
+    fields[8], fields[9] = bit_depth, bit_depth        # g_bit_depth, g_input_bit_depth
+    fields[2] = 2 if bit_depth == 12 else 0            # g_profile
+    fields[13] = passno                                 # g_pass
+    fields[14] = 0                                      # g_lag_in_frames
+    fields[24] = 3                                      # rc_end_usage AOM_Q
+    for k, v in (cfg or {}).items():
+        fields[k] = v
+    ctypes.memmove(cfgbuf, fields.tobytes(), fields.nbytes)
+    keep = None
+    if stats is not None:                              # rc_twopass_stats_in
+        keep = ctypes.create_string_buffer(stats, len(stats))
+        ctypes.c_void_p.from_address(ctypes.addressof(cfgbuf) + 104).value = ctypes.addressof(keep)
+        ctypes.c_size_t.from_address(ctypes.addressof(cfgbuf) + 112).value = len(stats)
+    ctx = ctypes.create_string_buffer(512)
+    flags = 0x40000 if bit_depth > 8 else 0            # AOM_CODEC_USE_HIGHBITDEPTH
+    if lib.aom_codec_enc_init_ver(ctx, iface, cfgbuf, flags, AOM_ENCODER_ABI_VERSION):
+        raise RuntimeError("aom_codec_enc_init_ver")
+    try:
+        opts = {"cq-level": str(cq)}
+        opts.update(options or {})
+        for k, v in opts.items():
+            if lib.aom_codec_set_option(ctx, k.encode(), str(v).encode()):
+                raise RuntimeError(f"aom option {k}={v} refused")
+        fmt = 0x102 | (0x800 if bit_depth > 8 else 0)
+        img = lib.aom_img_alloc(None, fmt, w, h, 16)
+        planes = (ctypes.c_void_p * 3).from_address(img + 64)
+        strides = (ctypes.c_int * 3).from_address(img + 88)
+        ctypes.c_uint.from_address(img + 36).value = bit_depth   # bit_depth
+        for p, plane in enumerate(yuv):
+            data = np.ascontiguousarray(plane, np.uint16 if bit_depth > 8 else np.uint8)
+            row = data.shape[1] * data.itemsize
+            for y in range(data.shape[0]):
+                ctypes.memmove(planes[p] + y * strides[p], data[y].ctypes.data, row)
+        frames, stat = b"", b""
+        for frame in (img, None):
+            if lib.aom_codec_encode(ctx, frame, 0, 1, 0):
+                raise RuntimeError("aom_codec_encode")
+            it = ctypes.c_void_p(0)
+            while True:
+                pkt = lib.aom_codec_get_cx_data(ctx, ctypes.byref(it))
+                if not pkt:
+                    break
+                kind = ctypes.c_int.from_address(pkt).value
+                buf = ctypes.c_void_p.from_address(pkt + 8).value
+                sz = ctypes.c_size_t.from_address(pkt + 16).value
+                if kind == 0:                          # AOM_CODEC_CX_FRAME_PKT
+                    frames += ctypes.string_at(buf, sz)
+                elif kind == 1:                        # AOM_CODEC_STATS_PKT
+                    stat += ctypes.string_at(buf, sz)
+        lib.aom_img_free(img)
+    finally:
+        lib.aom_codec_destroy(ctx)
+    return frames, stat
+
+
+def rgb_to_yuv420(rgb: np.ndarray) -> list:
+    """BT.601 full-range Y, U, V (4:2:0, box-averaged chroma) of an 8-bit
+    RGB image with even sides."""
+    f = rgb.astype(np.float64)
+    y = 0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2]
+    u = (f[..., 2] - y) / 1.772 + 128
+    v = (f[..., 0] - y) / 1.402 + 128
+    sub = lambda c: c.reshape(c.shape[0] // 2, 2, c.shape[1] // 2, 2).mean((1, 3))
+    return [np.clip(np.round(c), 0, 255).astype(np.uint8) for c in (y, sub(u), sub(v))]
+
