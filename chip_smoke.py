@@ -1516,6 +1516,8 @@ def testbed_phase(torch, dev, card, work: Path) -> dict:
     t.append(time.perf_counter())
     img = tb.render_to_cpu(0)
     t.append(time.perf_counter())
+    shots = screenshot_checks(tb, img, work)
+    t.append(time.perf_counter())
     m = tb.compute_marching_cubes_mesh((128, 128, 128))
     t.append(time.perf_counter())
     path = work / "testbed.msgpack"
@@ -1534,9 +1536,10 @@ def testbed_phase(torch, dev, card, work: Path) -> dict:
            "image_finite": bool(np.isfinite(img).all()),
            "mesh_vertices": len(m["V"]), "mesh_faces": len(m["F"]),
            "snapshot_bytes": path.stat().st_size, "differ": differ,
+           "screenshots": shots,
            "seconds": {k: b - a for k, a, b in zip(
-               ("load", "16_frames", "render_to_cpu", "mesh_128",
-                "snapshot_save_and_load"), t, t[1:])},
+               ("load", "16_frames", "render_to_cpu", "screenshots",
+                "mesh_128", "snapshot_save_and_load"), t, t[1:])},
            "card": card}
     log("testbed", **row)
     if not (frames == 16 and tb2.training_step == 16 and not differ
@@ -1545,6 +1548,91 @@ def testbed_phase(torch, dev, card, work: Path) -> dict:
             and math.isfinite(tb.loss)):
         raise AssertionError(f"the Testbed phase failed: {row}")
     return row
+
+
+WRITER_FIXTURES = ROOT / "tests" / "torch_fixtures" / "writers"
+
+
+def writer_fixture_checks() -> dict:
+    """The port's `.webp`, `.gif` and `.jp2` encoders on the committed
+    input against cv2.imwrite's committed files of it
+    (tests/torch_fixtures/writers/): GIF and JPEG 2000 byte for byte, the
+    WebP (whose bytes are the port's own) pixel for pixel wherever alpha
+    is not 0, and every file decoded by the port's reader."""
+    import numpy as np
+    from rnb_neus2_torch.io import gif, image_io, jpeg2000, webp
+
+    rgba = image_io.read_image(WRITER_FIXTURES / "input.png")
+    encoders = {".webp": webp.encode_webp, ".gif": gif.encode_gif,
+                ".jp2": jpeg2000.encode_jp2}
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for ext, encode in encoders.items():
+            ours = encode(rgba)
+            want = (WRITER_FIXTURES / f"cv2{ext}").read_bytes()
+            path = Path(d) / f"port{ext}"
+            path.write_bytes(ours)
+            got = image_io.read_image(path)
+            ref = image_io.read_image(WRITER_FIXTURES / f"cv2{ext}")
+            if ext == ".webp":
+                seen = rgba[..., 3] > 0
+                same = (got.shape == ref.shape
+                        and np.array_equal(got[seen], ref[seen])
+                        and np.array_equal(got[..., 3], ref[..., 3])
+                        and not got[~seen].any())
+            else:
+                same = ours == want and np.array_equal(got, ref)
+            out[ext] = {"bytes": len(ours), "cv2_bytes": len(want),
+                        "same_bytes": ours == want, "agree": bool(same)}
+            if not same:
+                raise AssertionError(f"writer fixture {ext}: {out[ext]}")
+    return out
+
+
+def screenshot_checks(tb, img, work: Path) -> dict:
+    """`Testbed.screenshot` to `.webp`, `.gif` and `.jp2` of the frame
+    `img` just rendered (`render_to_cpu` is held to it, so that the check
+    is exact), each read back by the port's reader: the JPEG 2000 equals
+    the 8-bit RGBA that `save_image` makes of it, the WebP the same with
+    the colour under alpha 0 zeroed, the GIF has the RGBA's shape and
+    transparency, and the GIF encoder reproduces cv2's committed file
+    (`writer_fixture_checks`)."""
+    import numpy as np
+    from rnb_neus2_torch.io import image_io
+
+    rgba = (np.clip(np.nan_to_num(img.astype(np.float32), nan=0.0), 0, 1)
+            * 255.0).astype(np.uint8)
+    clear = rgba.copy()
+    clear[clear[..., 3] == 0, :3] = 0
+    # cv2 reads back 3 channels from a WebP without alpha under 255 and
+    # a GIF without a transparent pixel
+    webp_ch = 4 if (rgba[..., 3] < 255).any() else 3
+    gif_ch = 4 if (rgba[..., 3] == 0).any() else 3
+    want = {".jp2": rgba, ".webp": clear[..., :webp_ch]}
+    tb.render_to_cpu = lambda view_idx=0, **kw: img
+    out = {}
+    try:
+        for ext in (".webp", ".gif", ".jp2"):
+            path = work / f"screenshot{ext}"
+            t0 = time.perf_counter()
+            tb.screenshot(str(path))
+            t1 = time.perf_counter()
+            got = image_io.read_image(path)
+            if ext in want:
+                ok = got.dtype == np.uint8 and np.array_equal(got, want[ext])
+            else:
+                ok = (got.shape == rgba.shape[:2] + (gif_ch,)
+                      and got.dtype == np.uint8
+                      and (gif_ch == 3 or np.array_equal(
+                          got[..., 3] == 0, rgba[..., 3] == 0)))
+            out[ext] = {"bytes": path.stat().st_size,
+                        "write_ms": (t1 - t0) * 1e3, "agree": bool(ok)}
+            if not ok:
+                raise AssertionError(f"screenshot {ext}: {out[ext]}")
+    finally:
+        del tb.render_to_cpu
+    out["fixtures"] = writer_fixture_checks()
+    return out
 
 
 def _record_step_bodies(cls=None):
@@ -2517,25 +2605,50 @@ def netpbm_scene(root: Path, png, world_center) -> dict:
     return out
 
 
-def codec_timings(work: Path) -> dict:
-    """Phase 19: ms per view of every decoder and encoder on the host, at
-    DiLiGenT-MV's 612x512 on a rendered sphere's normal map (PNG, TIFF,
-    EXR, JPEG, BMP, PPM, PFM, Radiance, Sun raster; WebP and GIF, which
-    the port does not write, are timed on phase 20's fixtures), and a
-    4032x3024 JPEG."""
+def _unit_normals():
+    """The codec view: a rendered sphere's normal map in [0, 1] at
+    DiLiGenT-MV's 612x512, and its coverage (1 on the sphere)."""
     import numpy as np
-    from rnb_neus2_torch.io import (bmp, exr, hdr, jpeg, png, pxm, sunras,
-                                    tiff)
     from rnb_neus2_torch.testing.synthetic import (render_sphere_views,
                                                    ring_cameras)
 
     h, w = CODEC_VIEW
     cams = ring_cameras(1, 1.5, w, h, 560.0)
-    normals, _, _ = render_sphere_views(cams, radius=0.25)
+    normals, _, alphas = render_sphere_views(cams, radius=0.25)
     unit = np.clip((normals[0] * np.array([1.0, -1.0, -1.0]) + 1) / 2, 0, 1)
+    return unit, alphas[0]
+
+
+def codec_view():
+    """The codec view as the writer rows of phase 19 take it: 16-bit RGB,
+    and 8-bit RGBA with alpha 0 off the sphere (a screenshot's shape)."""
+    import numpy as np
+
+    unit, alpha = _unit_normals()
+    rgba = np.concatenate([unit, alpha[..., None]], -1)
+    return ((unit * 65535).astype(np.uint16),
+            (rgba * 255).astype(np.uint8))
+
+
+def codec_timings(work: Path) -> dict:
+    """Phase 19: ms per view of every decoder and encoder on the host, at
+    DiLiGenT-MV's 612x512 on a rendered sphere's normal map (PNG, TIFF,
+    EXR, JPEG, BMP, PPM, PFM, Radiance, Sun raster; WebP, GIF and JPEG
+    2000 as `save_image` writes a screenshot, 8-bit RGBA, and JPEG 2000
+    also as 16-bit RGB; AVIF and lossy JPEG 2000, which the port does not
+    write, timed on phase 20's fixtures), and a 4032x3024 JPEG."""
+    import numpy as np
+    from rnb_neus2_torch.io import (bmp, exr, gif, hdr, jpeg, jpeg2000,
+                                    png, pxm, sunras, tiff, webp)
+
+    h, w = CODEC_VIEW
+    unit, _ = _unit_normals()
     u16 = (unit * 65535).astype(np.uint16)
     u8 = (unit * 255).astype(np.uint8)
     f32 = (unit * 2 - 1).astype(np.float32)
+    rgb16, rgba8 = codec_view()
+    clear = rgba8.copy()
+    clear[clear[..., 3] == 0, :3] = 0
     cases = {
         "png_16bit": (".png", lambda p: png.write_png(p, u16),
                       png.read_png, u16),
@@ -2558,6 +2671,14 @@ def codec_timings(work: Path) -> dict:
             np.float32)), hdr.read_hdr, None),
         "sun_raster_24bit": (".ras", lambda p: sunras.write_sunras(p, u8),
                              sunras.read_sunras, u8),
+        "webp_rgba_8bit": (".webp", lambda p: webp.write_webp(p, rgba8),
+                           webp.read_webp, clear),
+        "gif_rgba_8bit": (".gif", lambda p: gif.write_gif(p, rgba8),
+                          gif.read_gif, None),
+        "jp2_rgba_8bit": (".jp2", lambda p: jpeg2000.write_jp2(p, rgba8),
+                          jpeg2000.read_jpeg2000, rgba8),
+        "jp2_rgb_16bit": (".jp2", lambda p: jpeg2000.write_jp2(p, rgb16),
+                          jpeg2000.read_jpeg2000, rgb16),
     }
     out = {"view": [w, h], "repeats": CODEC_REPEATS}
     # formats the port reads and does not write: phase 20's 612x512

@@ -132,3 +132,52 @@ def read_gif(path, mode: str = "unchanged") -> np.ndarray:
     if mode == "unchanged" and f.any_transparent:
         return screen
     return np.ascontiguousarray(screen[..., :3])
+
+
+# ---------------------------------------------------------------- writing
+# OpenCV 5's GIF encoder at its defaults: the fixed palette R << 5 | G << 2
+# | B of 8, 8 and 4 levels, an infinite NETSCAPE2.0 loop, a Graphic
+# Control Extension (disposal 3, delay 100, and where a pixel has alpha 0
+# the transparent index 146), one image of LZW minimum code size 8
+PALETTE = np.array([[(i >> 5) * 36, ((i >> 2) & 7) * 36, (i & 3) * 85]
+                    for i in range(256)], np.uint8)
+TRANSPARENT = 146
+_LOOP = b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"
+
+
+def encode_gif(image: np.ndarray, path="image") -> bytes:
+    """A GIF of (H, W, 3) RGB or (H, W, 4) RGBA uint8 samples, byte for
+    byte what `cv2.imwrite(".gif")` writes: the fixed palette and
+    cv2's Floyd-Steinberg dithering (`native/codecs.cc:gif_dither`),
+    alpha 0 as the transparent index. cv2's encoder fails on grey input
+    (its dithering asserts three or four channels); this raises
+    ValueError."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8:
+        raise ValueError(f"{path}: GIF takes 8-bit samples, not {image.dtype}")
+    if image.ndim != 3 or image.shape[2] not in (3, 4):
+        raise ValueError(f"{path}: cv2's GIF encoder takes 3 or 4 channels, "
+                         f"not shape {image.shape}")
+    h, w = image.shape[:2]
+    if not (0 < w < 65536 and 0 < h < 65536):
+        raise ValueError(f"{path}: a GIF is at most 65535 pixels a side, "
+                         f"not {w}x{h}")
+    transparent, index = native.gif_dither(image)
+    data = native.gif_lzw_encode(index.tobytes(), 8)
+    blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                      for i in range(0, len(data), 255))
+    gce = struct.pack("<BBBBHBB", 0x21, 0xF9, 4, 0x0D if transparent else 0x0C,
+                      100, TRANSPARENT if transparent else 0, 0)
+    palette = PALETTE.copy()
+    if transparent:
+        # cv2 leaves the last transparent pixel's colour in the entry
+        palette[TRANSPARENT] = image[..., :3][image[..., 3] == 0][-1]
+    return (b"GIF89a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0)
+            + palette.tobytes() + _LOOP + gce
+            + struct.pack("<BHHHHB", 0x2C, 0, 0, w, h, 0x07) + b"\x08"
+            + blocks + b"\x00\x3b")
+
+
+def write_gif(path, image: np.ndarray) -> None:
+    data = encode_gif(image, path)
+    Path(path).write_bytes(data)

@@ -179,10 +179,9 @@ def load_image_raw16(path) -> np.ndarray:
     return img
 
 
-# extensions whose cv2 encoder quantises (libwebp, cv2's GIF palette and
-# dithering, OpenJPEG, libavif): the port does not write them yet
-NOT_YET_WRITTEN = {".webp": "WebP", ".gif": "GIF", ".jp2": "JPEG 2000",
-                   ".j2k": "JPEG 2000", ".avif": "AVIF"}
+# cv2 writes `.avif` with libaom's lossy encoder, whose pixels depend on
+# its encoder search: the port does not write it yet
+NOT_YET_WRITTEN = {".avif": "AVIF"}
 PNM_KINDS = {".ppm": "ppm", ".pgm": "pgm", ".pbm": "pbm", ".pnm": "auto"}
 
 
@@ -198,14 +197,18 @@ def write_raw(path, image: np.ndarray) -> None:
     (LZW, horizontal differencing); `.jpg`/`.jpeg`/`.jpe` (quality 95,
     4:2:0, alpha dropped); `.bmp`/`.dib`; `.ppm`, `.pgm`, `.pbm`,
     `.pnm` (binary); `.pam`; `.pfm` and `.hdr`/`.pic` (which also
-    take float32); `.ras`/`.sr`. Formats of 8-bit samples (JPEG, BMP, Sun
-    raster, PBM) take 16-bit ones saturated to 255, as cv2's conversion
-    to 8 bits does. Where cv2.imwrite returns False (a colour `.pgm`, a
-    grey `.ppm`, a 4-channel `.pfm` or `.hdr`, ...) this raises
-    ValueError; so do `.exr` (OpenCV's EXR encoder takes only float
-    samples: `save_exr` writes floats), the formats whose cv2 encoder
-    quantises (`.webp`, `.gif`, `.jp2`, `.avif`), not yet written by the
-    port, and any other extension."""
+    take float32); `.ras`/`.sr`; `.webp` (lossless; grey as three
+    channels; no colour kept under alpha 0); `.gif` (cv2's fixed palette
+    and dithering; RGB or RGBA only); `.jp2` (OpenJPEG's lossless 5/3 at
+    a rate capped at a quarter of the raw samples; 32 pixels a side at
+    least). Formats of 8-bit samples (JPEG, BMP, Sun raster, PBM, WebP,
+    GIF) take 16-bit ones saturated to 255, as cv2's conversion to 8 bits
+    does. Where cv2.imwrite returns False or raises (a colour `.pgm`, a
+    grey `.ppm` or `.gif`, a 4-channel `.pfm` or `.hdr`, a `.jp2` under
+    32 pixels a side, ...) this raises ValueError and writes nothing; so
+    do `.exr` (OpenCV's EXR encoder takes only float samples: `save_exr`
+    writes floats), `.avif`, not yet written by the port, and any other
+    extension (`.j2k` among them: cv2 5 has no writer for it)."""
     ext = os.path.splitext(str(path))[1].lower()
     image = np.asarray(image)
     if image.dtype == np.float32 and ext not in (".pfm", ".hdr", ".pic"):
@@ -233,6 +236,12 @@ def write_raw(path, image: np.ndarray) -> None:
         hdr.write_hdr(path, image)
     elif ext in (".ras", ".sr"):
         sunras.write_sunras(path, _to_8bit(image))
+    elif ext == ".webp":
+        webp.write_webp(path, _to_8bit(image))
+    elif ext == ".gif":
+        gif.write_gif(path, _to_8bit(image))
+    elif ext == ".jp2":
+        jpeg2000.write_jp2(path, image)
     elif ext == ".exr":
         raise ValueError(f"{path}: an EXR file holds float samples; "
                          f"{image.dtype} cannot be written (use save_exr)")

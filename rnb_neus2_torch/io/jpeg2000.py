@@ -807,3 +807,80 @@ def _sycc(comps, shift, dtype, path):
     g = y + ((u * -6472 + v * -9519 + 8192) >> 14)
     b = y + ((u * 33292 + 8192) >> 14)
     return np.clip(np.stack([r, g, b], -1), 0, top).astype(dtype)
+
+
+# ---------------------------------------------------------------- writing
+OPENJPEG_COMMENT = b"Created by OpenJPEG version 2.5.3"
+# OpenCV's encoder: 6 resolutions, so OpenJPEG refuses a side under 2^5
+MIN_SIDE = 32
+RATE = 4.0
+
+
+def _marker(code: int, body: bytes) -> bytes:
+    return struct.pack(">HH", code, len(body) + 2) + body
+
+
+def _jp2_box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + kind + payload
+
+
+def encode_jp2(image: np.ndarray, path="image") -> bytes:
+    """A JP2 file of (H, W), (H, W, 3) RGB or (H, W, 4) RGBA uint8 or
+    uint16 samples, byte for byte what `cv2.imwrite(".jp2")` writes
+    (OpenCV over OpenJPEG 2.5.3 at its defaults: lossless 5/3, 5 levels,
+    64x64 code-blocks, one layer in LRCP order, no MCT, the rate capped at
+    a compression of 4 over the raw samples). Raises ValueError where cv2
+    raises: a side under 32 pixels, other channel counts or types."""
+    image = np.asarray(image)
+    if image.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"{path}: JPEG 2000 takes 8- or 16-bit samples, "
+                         f"not {image.dtype}")
+    comps = image[..., None] if image.ndim == 2 else image
+    if comps.ndim != 3 or comps.shape[2] not in (1, 3, 4):
+        raise ValueError(f"{path}: JPEG 2000 takes 1, 3 or 4 channels, not "
+                         f"shape {image.shape}")
+    h, w, nc = comps.shape
+    if w < MIN_SIDE or h < MIN_SIDE:
+        raise ValueError(f"{path}: OpenJPEG refuses a {w}x{h} image: 5 "
+                         "wavelet levels need at least 32 pixels a side")
+    prec = 8 * image.itemsize
+    # the JP2 header boxes as OpenJPEG writes them for OpenCV
+    ihdr = struct.pack(">IIHBBBB", h, w, nc, prec - 1, 7, 0, 0)
+    colr = struct.pack(">BBBI", 1, 0, 0, SRGB if nc > 1 else GREY)
+    jp2h = _jp2_box(b"ihdr", ihdr) + _jp2_box(b"colr", colr)
+    if nc == 4:
+        cdef = struct.pack(">H", 4) + b"".join(
+            struct.pack(">HHH", i, 0, i + 1) for i in range(3)) \
+            + struct.pack(">HHH", 3, 1, 0)
+        jp2h += _jp2_box(b"cdef", cdef)
+    head = JP2_SIGNATURE + _jp2_box(b"ftyp", b"jp2 \0\0\0\0jp2 ") \
+        + _jp2_box(b"jp2h", jp2h)
+    siz = struct.pack(">H8IH", 0, w, h, 0, 0, w, h, 0, 0, nc) \
+        + bytes([prec - 1, 1, 1]) * nc
+    cod = bytes([0, 0, 0, 1, 0, 5, 4, 4, 0, 1])
+    gains = [0] + [1, 1, 2] * 5
+    qcd = bytes([0x40]) + bytes((prec + g) << 3 for g in gains)
+    main = b"\xff\x4f" + _marker(0xFF51, siz) + _marker(0xFF52, cod) \
+        + _marker(0xFF5C, qcd) \
+        + _marker(0xFF64, struct.pack(">H", 1) + OPENJPEG_COMMENT)
+    # opj_j2k_update_rates: the raw bits over the rate, less what the
+    # stream holds when the tile starts (the boxes, the jp2c box's header
+    # and the main header), at least 30 bytes; float32 as OpenJPEG
+    told = np.float32(len(head) + 8 + len(main))
+    rate = np.float32(np.float32(float(nc * prec) * w * h
+                                 / float(np.float32(RATE) * np.float32(8.0))))
+    rate = np.float32(rate - told)
+    if rate < np.float32(30.0):
+        rate = np.float32(30.0)
+    maxlen = int(math.ceil(float(rate)))
+    samples = np.ascontiguousarray(np.moveaxis(comps, 2, 0), np.int32)
+    packets = native.j2k_encode_tile(samples, prec, maxlen)
+    sot = struct.pack(">HIBB", 0, 12 + 2 + len(packets), 0, 1)
+    codestream = main + _marker(0xFF90, sot) + b"\xff\x93" + packets \
+        + b"\xff\xd9"
+    return head + _jp2_box(b"jp2c", codestream)
+
+
+def write_jp2(path, image: np.ndarray) -> None:
+    data = encode_jp2(image, path)
+    Path(path).write_bytes(data)

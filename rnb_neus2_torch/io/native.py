@@ -44,8 +44,11 @@ SIGNATURES = {
     "hdr_decode": [_P, _I64, _I64, _I64, _P],
     "hdr_encode_rle": [_P, _I64, _I64, _P, _I64],
     "gif_lzw_decode": [_P, _I64, _I32, _I64, _P],
+    "gif_lzw_encode": [_P, _I64, _I32, _P, _I64],
+    "gif_dither": [_P, _I32, _I32, _I32, _P],
     "vp8l_decode": [_P, _I64, _I32, _I32, _P, _P, _P, _I64],
     "vp8l_unpredict": [_P, _I32, _I32, _P, _I32],
+    "vp8l_encode": [_P, _I32, _I32, _I32, _P, _I64],
     "alpha_ungradient": [_P, _I32, _I32],
     "vp8_parse": [_P, _I64, _P, _P, _P, _I64],
     "vp8_reconstruct": [_P, _P, _P, _P, _P, _P],
@@ -53,6 +56,7 @@ SIGNATURES = {
     "thunder_decode": [_P, _I64, _I64, _I64, _P],
     "j2k_decode_tile": [_P, _I64, _P, _I64, _I32, _P, _I32, _P, _P, _I32,
                         _P, _I32, _P, _I32, _P, _P],
+    "j2k_encode_tile": [_P, _I32, _I32, _I32, _I32, _I64, _P, _I64],
 }
 
 
@@ -223,6 +227,22 @@ def gif_lzw_decode(src: bytes, min_size: int, npix: int) -> tuple:
     return n, out
 
 
+def gif_lzw_encode(indices: bytes, min_size: int) -> bytes:
+    # at most 12 bits per index, plus a clear code every 3,838 codes
+    return _bytes_call("gif_lzw_encode", indices, 2 * len(indices) + 64,
+                       min_size)
+
+
+def gif_dither(image: np.ndarray) -> tuple:
+    """(h, w, 3 or 4) uint8 → (whether any pixel is transparent, (h, w)
+    uint8 palette indices), as OpenCV 5's GIF encoder maps them."""
+    image = np.ascontiguousarray(image, np.uint8)
+    h, w, nc = image.shape
+    out = np.empty((h, w), np.uint8)
+    flag = _library().gif_dither(ptr(image), w, h, nc, ptr(out))
+    return bool(flag), out
+
+
 def vp8l_decode(src: bytes, w: int, h: int) -> tuple:
     """A VP8L image stream → (the entropy-coded ARGB pixels (uint32, at
     the width left after colour indexing, flat), the transforms' records
@@ -235,6 +255,20 @@ def vp8l_decode(src: bytes, w: int, h: int) -> tuple:
     n = _library().vp8l_decode(src, len(src), w, h, ptr(out), ptr(tinfo),
                                ptr(tdata), cap)
     return out, tinfo, tdata, n
+
+
+def vp8l_encode(rgba: np.ndarray, alpha_used: bool) -> bytes:
+    """(h, w, 4) RGBA uint8 → a VP8L bitstream (see codecs.cc)."""
+    rgba = np.ascontiguousarray(rgba, np.uint8)
+    h, w = rgba.shape[:2]
+    # at most 15 bits a channel, plus the codes' headers
+    cap = 8 * rgba.size + 4096
+    dst = np.empty(cap, np.uint8)
+    n = _library().vp8l_encode(ptr(rgba), w, h, int(alpha_used), ptr(dst),
+                               cap)
+    if n < 0:
+        raise ValueError(f"vp8l_encode failed with code {n}")
+    return dst[:n].tobytes()
 
 
 def vp8l_unpredict(px: np.ndarray, modes: np.ndarray, bits: int) -> None:
@@ -274,6 +308,19 @@ def j2k_decode_tile(data: bytes, head: bytes, comps, bands, steps, precs,
         data, len(data), head, len(head), len(comps), ptr(comps),
         len(bands), ptr(bands), ptr(steps), len(precs), ptr(precs),
         len(cblks), ptr(cblks), len(packets), ptr(packets), ptr(out))
+
+
+def j2k_encode_tile(samples: np.ndarray, prec: int, maxlen: int) -> bytes:
+    """(nc, h, w) int32 samples of `prec` bits → one tile's packets, coded
+    and rate-allocated as OpenJPEG 2.5 does for cv2 (see codecs.cc)."""
+    nc, h, w = samples.shape
+    cap = 2 * samples.size * ((prec + 7) // 8) + 65536
+    dst = np.empty(cap, np.uint8)
+    n = _library().j2k_encode_tile(ptr(samples), w, h, nc, prec, maxlen,
+                                   ptr(dst), cap)
+    if n < 0:
+        raise ValueError(f"j2k_encode_tile failed with code {n}")
+    return dst[:n].tobytes()
 
 
 VP8_MAX_MB = 1 << 20

@@ -352,3 +352,43 @@ def read_webp(path, mode: str = "unchanged") -> np.ndarray:
     if mode == "unchanged" and has_alpha:
         return rgba
     return np.ascontiguousarray(rgba[..., :3])
+
+
+# ---------------------------------------------------------------- writing
+def encode_webp(image: np.ndarray, path="image") -> bytes:
+    """A lossless WebP of (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA
+    uint8 samples that reads back as the file `cv2.imwrite(".webp")`
+    writes at its default quality (libwebp's lossless encoder): grey as
+    three equal channels, the alpha hint set where some alpha is under
+    255. The stream is the port's own simple VP8L
+    (`native/codecs.cc:vp8l_encode`), so the bytes differ from libwebp's,
+    and so does the colour under alpha 0: libwebp (`exact = 0`) leaves
+    there what its predictor guessed, which its mode search decides, and
+    this writes 0 (ROADMAP section 3)."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8:
+        raise ValueError(f"{path}: WebP takes 8-bit samples, not "
+                         f"{image.dtype}")
+    if image.ndim == 2:
+        image = np.repeat(image[..., None], 3, axis=-1)
+    if image.ndim != 3 or image.shape[2] not in (3, 4):
+        raise ValueError(f"{path}: WebP takes 1, 3 or 4 channels, not shape "
+                         f"{image.shape}")
+    h, w, nc = image.shape
+    if not (0 < w <= 16383 and 0 < h <= 16383):
+        raise ValueError(f"{path}: a WebP is at most 16383 pixels a side, "
+                         f"not {w}x{h}")
+    rgba = np.full((h, w, 4), 255, np.uint8)
+    rgba[..., :nc] = image
+    if nc == 4:
+        rgba[rgba[..., 3] == 0, :3] = 0
+    alpha_used = nc == 4 and bool((rgba[..., 3] != 255).any())
+    data = native.vp8l_encode(rgba, alpha_used)
+    chunk = b"VP8L" + struct.pack("<I", len(data)) + data \
+        + b"\0" * (len(data) & 1)
+    return b"RIFF" + struct.pack("<I", 4 + len(chunk)) + b"WEBP" + chunk
+
+
+def write_webp(path, image: np.ndarray) -> None:
+    data = encode_webp(image, path)
+    Path(path).write_bytes(data)

@@ -17,10 +17,12 @@
 //   bmp_rle_decode                BMP RLE8 / RLE4 as OpenCV's grfmt_bmp
 //   pnm_read_numbers              PNM ASCII numbers as OpenCV's ReadNumber
 //   hdr_decode / hdr_encode_rle   Radiance scanlines (Greg Ward's rgbe.c)
-//   gif_lzw_decode                GIF LZW, codes of 3-12 bits
+//   gif_lzw_decode / _encode      GIF LZW, codes of 3-12 bits
+//   gif_dither                    OpenCV 5's GIF palette and dithering
 //   vp8l_decode / vp8l_unpredict  WebP lossless: prefix codes, colour
 //                                  cache, LZ77, the transforms' sub-images;
 //                                  the predictor transform's inverse
+//   vp8l_encode                   WebP lossless, a simple VP8L stream
 //   alpha_ungradient              WebP ALPH's gradient filter, undone
 //   vp8_parse / vp8_reconstruct   VP8 key frames: headers, modes and
 //                                  tokens; intra prediction and the loop
@@ -30,6 +32,8 @@
 // code the Python side turns into a ValueError naming the file.
 #include <cstdint>
 #include <algorithm>
+#include <cfloat>
+#include <cmath>
 #include <cstring>
 #include <vector>
 
@@ -1269,6 +1273,112 @@ extern "C" int64_t gif_lzw_decode(const uint8_t* src, int64_t n,
   return count;
 }
 
+// GIF LZW of `n` indices at `min_size` (2-8) as OpenCV 5's GIF encoder
+// codes them: a clear code first, codes widened when the next free code
+// needs another bit, a clear code as the table fills (4096 codes), the
+// end code last; LSB-first.
+extern "C" int64_t gif_lzw_encode(const uint8_t* src, int64_t n,
+                                  int32_t min_size, uint8_t* dst,
+                                  int64_t cap) {
+  const int clear = 1 << min_size, end = clear + 1;
+  std::vector<int16_t> child(static_cast<size_t>(4096) << min_size, -1);
+  int size = min_size + 1, next = end + 1;
+  uint64_t acc = 0;
+  int bits = 0;
+  int64_t out = 0;
+  auto put = [&](int code) {
+    acc |= static_cast<uint64_t>(code) << bits;
+    bits += size;
+    while (bits >= 8) {
+      if (out < cap) dst[out] = static_cast<uint8_t>(acc);
+      ++out;
+      acc >>= 8;
+      bits -= 8;
+    }
+  };
+  put(clear);
+  if (n == 0) {
+    put(end);
+  } else {
+    int w = src[0];
+    for (int64_t k = 1; k < n; ++k) {
+      int c = src[k];
+      int16_t& to = child[(static_cast<size_t>(w) << min_size) + c];
+      if (to >= 0) {
+        w = to;
+        continue;
+      }
+      put(w);
+      if (next < 4096) {
+        to = static_cast<int16_t>(next);
+        if (next++ == (1 << size) && size < 12) size++;
+      }
+      if (next == 4096) {
+        put(clear);
+        std::fill(child.begin(), child.end(), -1);
+        size = min_size + 1;
+        next = end + 1;
+      }
+      w = c;
+    }
+    put(w);
+    put(end);
+  }
+  if (bits > 0) {
+    if (out < cap) dst[out] = static_cast<uint8_t>(acc);
+    ++out;
+  }
+  return out <= cap ? out : -1;
+}
+
+// OpenCV 5's GIF encoder at its defaults (grfmt_gif.cpp): a fixed palette
+// of 8 levels of R and G (steps of 36) and 4 of B (steps of 85), index
+// R << 5 | G << 2 | B, each level the nearest (halves up) to the sample
+// plus the error diffused to it so far (summed apart from the sample),
+// Floyd-Steinberg weights (7, 3, 5, 1)/16 in float32, rows left to right. `px`: (h, w, nc) RGB or RGBA uint8; a
+// pixel of alpha 0 takes the transparent index 146 and diffuses nothing,
+// and where one does, an opaque pixel of index 146 takes 142. → 1 if any
+// pixel is transparent, else 0; the indices in `out`.
+extern "C" int64_t gif_dither(const uint8_t* px, int32_t w, int32_t h,
+                              int32_t nc, uint8_t* out) {
+  const float kStep[3] = {36.f, 36.f, 85.f};
+  const int kTop[3] = {7, 7, 3}, kShift[3] = {5, 2, 0};
+  const int64_t npix = static_cast<int64_t>(w) * h;
+  std::vector<float> err_sum(npix * 3, 0.f);  // the error diffused so far
+  bool any_transparent = false;
+  for (int64_t k = 0; k < npix; ++k)
+    if (nc == 4 && px[k * 4 + 3] == 0) any_transparent = true;
+  for (int y = 0; y < h; ++y)
+    for (int x = 0; x < w; ++x) {
+      int64_t k = static_cast<int64_t>(y) * w + x;
+      if (nc == 4 && px[k * 4 + 3] == 0) {
+        out[k] = 146;
+        continue;
+      }
+      int index = 0;
+      for (int c = 0; c < 3; ++c) {
+        float v = static_cast<float>(px[k * nc + c]) + err_sum[k * 3 + c];
+        int level = static_cast<int>(std::floor(v / kStep[c] + 0.5f));
+        level = std::min(std::max(level, 0), kTop[c]);
+        index |= level << kShift[c];
+        float err = v - static_cast<float>(level) * kStep[c];
+        auto spread = [&](int dx, int dy, int weight) {
+          int xx = x + dx, yy = y + dy;
+          if (xx < 0 || xx >= w || yy >= h) return;
+          float& t = err_sum[(static_cast<int64_t>(yy) * w + xx) * 3 + c];
+          t = t + err * static_cast<float>(weight) / 16.f;
+        };
+        spread(1, 0, 7);
+        spread(-1, 1, 3);
+        spread(0, 1, 5);
+        spread(1, 1, 1);
+      }
+      out[k] = static_cast<uint8_t>(any_transparent && index == 146 ? 142
+                                                                    : index);
+    }
+  return any_transparent ? 1 : 0;
+}
+
 // ---------------------------------------------------------------- WebP
 // The entropy layers of WebP as libwebp decodes them (what cv2's WebP
 // reader calls): VP8L, the lossless format (prefix codes, meta prefix
@@ -1598,6 +1708,321 @@ inline uint32_t clamp_half(uint32_t ave, uint32_t c) {
 }
 
 }  // namespace
+
+// ------------------------------------------------ WebP lossless encoding
+// A VP8L stream (RFC 9649) of the simple kind: the subtract-green
+// transform, the predictor transform with mode 12 (ClampAddSubtractFull)
+// over the whole image, no colour cache, runs of a repeated residual as
+// backward references to the pixel on the left, one group of canonical
+// prefix codes of at most 15 bits (simple codes where a channel uses one
+// or two values).
+namespace vp8l_enc {
+
+struct BitWriter {
+  std::vector<uint8_t> out;
+  uint64_t acc = 0;
+  int n = 0;
+  void put(uint32_t v, int bits) {
+    acc |= static_cast<uint64_t>(v) << n;
+    n += bits;
+    while (n >= 8) {
+      out.push_back(static_cast<uint8_t>(acc));
+      acc >>= 8;
+      n -= 8;
+    }
+  }
+  void finish() {
+    if (n > 0) out.push_back(static_cast<uint8_t>(acc));
+    acc = 0;
+    n = 0;
+  }
+};
+
+// Huffman code lengths of `counts`, at most `limit` bits: the counts are
+// halved (rounding up) until the tree fits
+std::vector<uint8_t> code_lengths(const std::vector<uint32_t>& counts,
+                                  int limit) {
+  const int n = static_cast<int>(counts.size());
+  std::vector<uint64_t> c(counts.begin(), counts.end());
+  std::vector<uint8_t> len(n, 0);
+  for (;;) {
+    std::vector<std::pair<uint64_t, int>> heap;  // (weight, node)
+    std::vector<int> parent;
+    for (int i = 0; i < n; ++i)
+      if (c[i]) {
+        heap.push_back({c[i], static_cast<int>(parent.size())});
+        parent.push_back(-1);
+      }
+    std::vector<int> leaf_node(n, -1);
+    for (int i = 0, k = 0; i < n; ++i)
+      if (c[i]) leaf_node[i] = k++;
+    if (heap.size() == 1) {
+      for (int i = 0; i < n; ++i) len[i] = c[i] ? 1 : 0;
+      return len;
+    }
+    auto cmp = [](const std::pair<uint64_t, int>& a,
+                  const std::pair<uint64_t, int>& b) { return a > b; };
+    std::make_heap(heap.begin(), heap.end(), cmp);
+    while (heap.size() > 1) {
+      std::pop_heap(heap.begin(), heap.end(), cmp);
+      auto a = heap.back();
+      heap.pop_back();
+      std::pop_heap(heap.begin(), heap.end(), cmp);
+      auto b = heap.back();
+      heap.pop_back();
+      int node = static_cast<int>(parent.size());
+      parent.push_back(-1);
+      parent[a.second] = parent[b.second] = node;
+      heap.push_back({a.first + b.first, node});
+      std::push_heap(heap.begin(), heap.end(), cmp);
+    }
+    int deepest = 0;
+    for (int i = 0; i < n; ++i) {
+      if (leaf_node[i] < 0) continue;
+      int d = 0;
+      for (int v = leaf_node[i]; parent[v] >= 0; v = parent[v]) ++d;
+      len[i] = static_cast<uint8_t>(d);
+      deepest = std::max(deepest, d);
+    }
+    if (deepest <= limit) return len;
+    for (auto& v : c)
+      if (v) v = (v + 1) / 2;
+  }
+}
+
+// canonical codes, bit-reversed for the LSB-first writer
+std::vector<uint16_t> canonical(const std::vector<uint8_t>& len) {
+  int count[16] = {0}, next[16] = {0};
+  for (uint8_t l : len)
+    if (l) count[l]++;
+  for (int l = 1, code = 0; l < 16; ++l) {
+    code = (code + count[l - 1]) << 1;
+    next[l] = code;
+  }
+  std::vector<uint16_t> out(len.size(), 0);
+  for (size_t s = 0; s < len.size(); ++s) {
+    int l = len[s];
+    if (!l) continue;
+    uint32_t c = next[l]++, r = 0;
+    for (int b = 0; b < l; ++b) r |= ((c >> b) & 1) << (l - 1 - b);
+    out[s] = static_cast<uint16_t>(r);
+  }
+  return out;
+}
+
+struct Code {
+  std::vector<uint8_t> bits;  // 0 for a symbol of a one-symbol code
+  std::vector<uint16_t> code;
+  void put(BitWriter& bw, int s) const {
+    if (bits[s]) bw.put(code[s], bits[s]);
+  }
+};
+
+const int kCodeLengthOrder[19] = {17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8,
+                                  9, 10, 11, 12, 13, 14, 15};
+
+// writes the prefix code of `counts` and returns it
+Code write_code(BitWriter& bw, const std::vector<uint32_t>& counts) {
+  const int n = static_cast<int>(counts.size());
+  std::vector<int> used;
+  for (int s = 0; s < n; ++s)
+    if (counts[s]) used.push_back(s);
+  Code code;
+  code.bits.assign(n, 0);
+  code.code.assign(n, 0);
+  if (used.size() <= 2 && (used.empty() || used.back() < 256)) {
+    int s0 = used.empty() ? 0 : used[0];
+    bw.put(1, 1);
+    bw.put(used.size() == 2 ? 1 : 0, 1);
+    if (s0 < 2) {
+      bw.put(0, 1);
+      bw.put(s0, 1);
+    } else {
+      bw.put(1, 1);
+      bw.put(s0, 8);
+    }
+    if (used.size() == 2) {
+      bw.put(used[1], 8);
+      code.bits[used[0]] = code.bits[used[1]] = 1;
+      code.code[used[1]] = 1;
+    }
+    return code;
+  }
+  std::vector<uint8_t> len = code_lengths(counts, 15);
+  code.bits = len;
+  code.code = canonical(len);
+  // the lengths as tokens: 0-15 literally, 17 and 18 for runs of zeros
+  std::vector<std::pair<int, int>> tokens;  // (symbol, extra bits' value)
+  for (int s = 0; s < n;) {
+    int run = 1;
+    while (s + run < n && len[s + run] == 0 && len[s] == 0) ++run;
+    if (len[s] == 0 && run >= 3) {
+      run = std::min(run, 138);
+      if (run <= 10) tokens.push_back({17, run - 3});
+      else tokens.push_back({18, run - 11});
+      s += run;
+    } else {
+      tokens.push_back({len[s], 0});
+      ++s;
+    }
+  }
+  std::vector<uint32_t> tcounts(19, 0);
+  for (auto& t : tokens) tcounts[t.first]++;
+  std::vector<uint8_t> tlen = code_lengths(tcounts, 7);
+  std::vector<uint16_t> tcode = canonical(tlen);
+  int ntok = 0;  // one kind of token: read in 0 bits
+  for (uint32_t t : tcounts) ntok += t != 0;
+  int num = 19;
+  while (num > 4 && tlen[kCodeLengthOrder[num - 1]] == 0) --num;
+  bw.put(0, 1);
+  bw.put(num - 4, 4);
+  for (int i = 0; i < num; ++i) bw.put(tlen[kCodeLengthOrder[i]], 3);
+  bw.put(0, 1);  // max_symbol: the whole alphabet
+  for (auto& t : tokens) {
+    if (ntok > 1) bw.put(tcode[t.first], tlen[t.first]);
+    if (t.first == 17) bw.put(t.second, 3);
+    if (t.first == 18) bw.put(t.second, 7);
+  }
+  return code;
+}
+
+// LZ77 prefix coding of a length or distance value (1-4096)
+void prefix_of(int v, int& sym, int& nextra, int& extra) {
+  if (v < 5) {
+    sym = v - 1;
+    nextra = extra = 0;
+    return;
+  }
+  int d = v - 1, hb = 0;
+  while ((d >> (hb + 1)) != 0) ++hb;
+  nextra = hb - 1;
+  extra = d & ((1 << nextra) - 1);
+  sym = 2 * hb + ((d >> (hb - 1)) & 1);
+}
+
+}  // namespace vp8l_enc
+
+// (h, w) RGBA pixels (uint8, R G B A) → a VP8L bitstream (the VP8L
+// chunk's payload) with the alpha hint `alpha_used`; → its bytes, or -1
+// where `cap` is short.
+extern "C" int64_t vp8l_encode(const uint8_t* rgba, int32_t w, int32_t h,
+                               int32_t alpha_used, uint8_t* dst,
+                               int64_t cap) {
+  using namespace vp8l_enc;
+  const int64_t npix = static_cast<int64_t>(w) * h;
+  // subtract green, then the residuals of mode 12 (the top-left pixel
+  // against opaque black, the top row against L, the left column
+  // against T)
+  std::vector<uint8_t> px(npix * 4), res(npix * 4);  // A R G B
+  for (int64_t k = 0; k < npix; ++k) {
+    const uint8_t* p = rgba + 4 * k;
+    px[4 * k] = p[3];
+    px[4 * k + 1] = static_cast<uint8_t>(p[0] - p[1]);
+    px[4 * k + 2] = p[1];
+    px[4 * k + 3] = static_cast<uint8_t>(p[2] - p[1]);
+  }
+  for (int y = 0; y < h; ++y)
+    for (int x = 0; x < w; ++x) {
+      int64_t k = static_cast<int64_t>(y) * w + x;
+      for (int c = 0; c < 4; ++c) {
+        int pred;
+        if (x == 0 && y == 0) {
+          pred = c == 0 ? 255 : 0;
+        } else if (y == 0) {
+          pred = px[4 * (k - 1) + c];
+        } else if (x == 0) {
+          pred = px[4 * (k - w) + c];
+        } else {
+          pred = px[4 * (k - 1) + c] + px[4 * (k - w) + c]
+              - px[4 * (k - w - 1) + c];
+          pred = std::min(std::max(pred, 0), 255);
+        }
+        res[4 * k + c] = static_cast<uint8_t>(px[4 * k + c] - pred);
+      }
+    }
+  BitWriter bw;
+  bw.put(0x2F, 8);
+  bw.put(w - 1, 14);
+  bw.put(h - 1, 14);
+  bw.put(alpha_used ? 1 : 0, 1);
+  bw.put(0, 3);
+  bw.put(1, 1);  // subtract green
+  bw.put(2, 2);
+  bw.put(1, 1);  // predictor, blocks of 512: every block mode 12
+  bw.put(0, 2);
+  bw.put(7, 3);
+  bw.put(0, 1);  // its sub-image: no colour cache, one-symbol codes
+  std::vector<uint32_t> one(256, 0);
+  one[12] = 1;
+  write_code(bw, one);
+  one[12] = 0;
+  one[0] = 1;
+  for (int i = 0; i < 3; ++i) write_code(bw, one);
+  write_code(bw, std::vector<uint32_t>(40, 0));
+  bw.put(0, 1);  // no more transforms
+  bw.put(0, 1);  // no colour cache
+  bw.put(0, 1);  // one group of prefix codes
+  // a literal pixel, or (from the second pixel on) a run of 3 to 4096
+  // copies of the pixel on the left: distance code 2, (x, y) = (1, 0)
+  auto same = [&](int64_t a, int64_t b) {
+    return memcmp(&res[4 * a], &res[4 * b], 4) == 0;
+  };
+  std::vector<std::pair<int64_t, int>> toks;  // (pixel, run length or 0)
+  for (int64_t k = 0; k < npix;) {
+    int run = 0;
+    if (k > 0)
+      while (k + run < npix && run < 4096 && same(k + run, k - 1)) ++run;
+    if (run >= 3) {
+      toks.push_back({k, run});
+      k += run;
+    } else {
+      toks.push_back({k, 0});
+      ++k;
+    }
+  }
+  const int kLeft = 2;
+  int dsym, dn, dx;
+  prefix_of(kLeft, dsym, dn, dx);
+  std::vector<uint32_t> hg(280, 0), hr(256, 0), hb(256, 0), ha(256, 0),
+      hd(40, 0);
+  for (auto& t : toks) {
+    const uint8_t* r = &res[4 * t.first];
+    if (t.second) {
+      int sym, n, extra;
+      prefix_of(t.second, sym, n, extra);
+      hg[256 + sym]++;
+      hd[dsym]++;
+    } else {
+      ha[r[0]]++;
+      hr[r[1]]++;
+      hg[r[2]]++;
+      hb[r[3]]++;
+    }
+  }
+  Code cg = write_code(bw, hg), cr = write_code(bw, hr),
+       cb = write_code(bw, hb), ca = write_code(bw, ha),
+       cd = write_code(bw, hd);
+  for (auto& t : toks) {
+    const uint8_t* r = &res[4 * t.first];
+    if (t.second) {
+      int sym, n, extra;
+      prefix_of(t.second, sym, n, extra);
+      cg.put(bw, 256 + sym);
+      if (n) bw.put(extra, n);
+      cd.put(bw, dsym);
+      if (dn) bw.put(dx, dn);
+    } else {
+      cg.put(bw, r[2]);
+      cr.put(bw, r[1]);
+      cb.put(bw, r[3]);
+      ca.put(bw, r[0]);
+    }
+  }
+  bw.finish();
+  if (static_cast<int64_t>(bw.out.size()) > cap) return -1;
+  memcpy(dst, bw.out.data(), bw.out.size());
+  return static_cast<int64_t>(bw.out.size());
+}
 
 // The predictor transform's inverse, in place on (h, w) ARGB residuals,
 // with the modes of `bits`-sized tiles in the green of `modes`.
@@ -3292,12 +3717,11 @@ struct Cblk {
   std::vector<uint8_t> data;
 };
 
-// One code-block's tier-1 decode into `out` (w·h int32, row-major).
-struct T1 {
+// A code-block's state flags and the contexts of T.800 Annex D that both
+// tier-1 coders read from them.
+struct Flags {
   int w, h, orient, style;
   std::vector<uint8_t> sig, sgn, pi, mu;  // (h + 2) x (w + 2), padded
-  int32_t* data;
-  Mq mq;
   int at(int x, int y) const { return (y + 1) * (w + 2) + x + 1; }
   // the row below is outside this sample's contexts under VSC at a
   // stripe's last row
@@ -3347,10 +3771,28 @@ struct T1 {
     }
     return kCtxSc + (hc == 0 ? (vc == 0 ? 0 : 1) : 3 + vc);
   }
-  int mag(int x, int y) const {
+  int mag_ctx(int x, int y) const {
     int i = at(x, y);
     return kCtxMag + (mu[i] ? 2 : nb(x, y) ? 1 : 0);
   }
+  void clear_flags() {
+    int n = (w + 2) * (h + 2);
+    sig.assign(n, 0);
+    sgn.assign(n, 0);
+    pi.assign(n, 0);
+    mu.assign(n, 0);
+  }
+  template <class F> void scan(F f) {
+    for (int y0 = 0; y0 < h; y0 += 4)
+      for (int x = 0; x < w; ++x)
+        for (int y = y0; y < std::min(y0 + 4, h); ++y) f(x, y);
+  }
+};
+
+// One code-block's tier-1 decode into `out` (w·h int32, row-major).
+struct T1 : Flags {
+  int32_t* data;
+  Mq mq;
   void become_significant(int x, int y, int neg, int32_t oneplushalf) {
     int i = at(x, y);
     sig[i] = 1;
@@ -3360,11 +3802,6 @@ struct T1 {
   void decode_sign(int x, int y, int32_t oneplushalf) {
     int xorbit, cx = sc(x, y, xorbit);
     become_significant(x, y, mq.decode(cx) ^ xorbit, oneplushalf);
-  }
-  template <class F> void scan(F f) {
-    for (int y0 = 0; y0 < h; y0 += 4)
-      for (int x = 0; x < w; ++x)
-        for (int y = y0; y < std::min(y0 + 4, h); ++y) f(x, y);
   }
   void sigpass(int bpno, bool raw) {
     int32_t one = 1 << bpno, oph = one | (one >> 1);
@@ -3384,7 +3821,7 @@ struct T1 {
     scan([&](int x, int y) {
       int i = at(x, y);
       if (!sig[i] || pi[i]) return;
-      int v = raw ? mq.raw() : mq.decode(mag(x, y));
+      int v = raw ? mq.raw() : mq.decode(mag_ctx(x, y));
       int32_t& d = data[y * w + x];
       d += (v ^ (d < 0)) ? poshalf : -poshalf;
       mu[i] = 1;
@@ -3427,11 +3864,7 @@ struct T1 {
   }
   // → false where OpenJPEG fails the code-block
   bool decode(const Cblk& cb, int roishift) {
-    int n = (w + 2) * (h + 2);
-    sig.assign(n, 0);
-    sgn.assign(n, 0);
-    pi.assign(n, 0);
-    mu.assign(n, 0);
+    clear_flags();
     memset(data, 0, sizeof(int32_t) * w * h);
     if (cb.segs.empty()) return true;
     int bpno_plus_one = roishift + cb.numbps;
@@ -3647,6 +4080,514 @@ void idwt2d(T* a, int stride, const int32_t* res, int numres, F f) {
   }
 }
 
+
+// ------------------------------------------------ JPEG 2000 encoding
+// One tile as OpenJPEG 2.5 encodes it at OpenCV's parameters: the
+// reversible 5/3 wavelet, code-blocks coded with no style bits and one
+// termination (the MQ flush), each pass's rate and distortion estimate
+// (t1.c: the nmsedec tables, opj_t1_getwmsedec), one quality layer whose
+// passes the rate allocation picks (tcd.c: opj_tcd_rateallocate, the
+// bisection on the rate-distortion slope against the byte budget) and the
+// packets of tier-2 (t2.c: tag trees, pass counts, Lblock).
+
+// the MQ coder of C.2 as OpenJPEG's mqc.c runs it; buf[0] is the byte
+// before the code-block's data (OpenJPEG's bp starts at start - 1)
+struct MqEnc {
+  std::vector<uint8_t> buf;
+  int64_t bp = 0;
+  uint32_t a = 0x8000, c = 0;
+  int ct = 12;
+  uint8_t state[19], mps[19];
+  MqEnc() {
+    buf.assign(1, 0);
+    memset(state, 0, sizeof state);
+    memset(mps, 0, sizeof mps);
+    state[kCtxUni] = 46;
+    state[kCtxAgg] = 3;
+    state[kCtxZc] = 4;
+  }
+  void put(uint8_t v) {
+    if (++bp == static_cast<int64_t>(buf.size())) buf.push_back(v);
+    else buf[bp] = v;
+  }
+  void byteout() {
+    if (buf[bp] == 0xFF) {
+      put(static_cast<uint8_t>(c >> 20));
+      c &= 0xFFFFF;
+      ct = 7;
+    } else if ((c & 0x8000000) == 0) {
+      put(static_cast<uint8_t>(c >> 19));
+      c &= 0x7FFFF;
+      ct = 8;
+    } else {
+      buf[bp]++;
+      if (buf[bp] == 0xFF) {
+        c &= 0x7FFFFFF;
+        put(static_cast<uint8_t>(c >> 20));
+        c &= 0xFFFFF;
+        ct = 7;
+      } else {
+        put(static_cast<uint8_t>(c >> 19));
+        c &= 0x7FFFF;
+        ct = 8;
+      }
+    }
+  }
+  void renorm() {
+    do {
+      a <<= 1;
+      c <<= 1;
+      if (--ct == 0) byteout();
+    } while ((a & 0x8000) == 0);
+  }
+  void encode(int cx, int d) {
+    uint8_t& s = state[cx];
+    uint32_t qe = kQe[s];
+    a -= qe;
+    if (mps[cx] == d) {
+      if ((a & 0x8000) == 0) {
+        if (a < qe) a = qe; else c += qe;
+        s = kNmps[s];
+        renorm();
+      } else {
+        c += qe;
+      }
+    } else {
+      if (a < qe) c += qe; else a = qe;
+      if (kSwitch[s]) mps[cx] ^= 1;
+      s = kNlps[s];
+      renorm();
+    }
+  }
+  void flush() {
+    uint32_t tempc = c + a;
+    c |= 0xFFFF;
+    if (c >= tempc) c -= 0x8000;
+    c <<= ct;
+    byteout();
+    c <<= ct;
+    byteout();
+    if (buf[bp] != 0xFF) bp++;
+  }
+  // bytes since the start, as OpenJPEG's unsigned opj_mqc_numbytes
+  uint32_t numbytes() const { return static_cast<uint32_t>(bp - 1); }
+};
+
+// t1_luts.h: the distortion decrease of a coded bit, from the 7 bits at
+// and below the plane (6 of them fractional), in units of 2^-13
+struct Nmsedec {
+  int16_t sig[128], sig0[128], ref[128], ref0[128];
+  Nmsedec() {
+    auto q = [](double x) {
+      return static_cast<int16_t>(std::max(
+          0, static_cast<int>(std::floor(x * 64.0 + 0.5) / 64.0 * 8192.0)));
+    };
+    for (int i = 0; i < 128; ++i) {
+      double t = i / 64.0, u = t, v = t - 1.5;
+      sig[i] = q(u * u - v * v);
+      sig0[i] = q(u * u);
+      u = t - 1.0;
+      v = (i & 64) ? t - 1.5 : t - 0.5;
+      ref[i] = q(u * u - v * v);
+      ref0[i] = q(u * u);
+    }
+  }
+};
+const Nmsedec& nmsedec_tables() {
+  static const Nmsedec t;
+  return t;
+}
+
+// dwt.c: opj_dwt_norms, the 5/3 synthesis basis norms by orientation
+// (LL, HL, LH, HH) and level
+const double kNorms53[4][10] = {
+  {1.000, 1.500, 2.750, 5.375, 10.68, 21.34, 42.67, 85.33, 170.7, 341.3},
+  {1.038, 1.592, 2.919, 5.703, 11.33, 22.64, 45.25, 90.48, 180.9},
+  {1.038, 1.592, 2.919, 5.703, 11.33, 22.64, 45.25, 90.48, 180.9},
+  {.7186, .9218, 1.586, 3.043, 6.019, 12.01, 24.00, 47.97, 95.93}};
+
+struct Pass {
+  uint32_t rate = 0, len = 0;
+  double dist = 0;
+  bool term = false;
+};
+
+struct EncCblk {
+  int numbps = 0;
+  std::vector<uint8_t> data;
+  std::vector<Pass> passes;
+  // the layer's passes and bytes; tier-2's state
+  int layer_passes = 0, numlenbits = 0, t2_passes = 0;
+  uint32_t layer_len = 0;
+};
+
+// One code-block's tier-1 encode (opj_t1_encode_cblk with cblksty 0):
+// `coef` holds its w·h wavelet coefficients, row-major.
+struct T1Enc : Flags {
+  std::vector<uint32_t> mag;  // |coefficient| << 6
+  std::vector<uint8_t> neg;
+  MqEnc mq;
+  int bit(int x, int y, uint32_t one) const {
+    return (mag[y * w + x] & one) != 0;
+  }
+  void encode_sign(int x, int y) {
+    int xorbit, cx = sc(x, y, xorbit), i = at(x, y);
+    mq.encode(cx, neg[y * w + x] ^ xorbit);
+    sig[i] = 1;
+    sgn[i] = neg[y * w + x];
+  }
+  int sig_decrease(int x, int y, int bpno) const {
+    const Nmsedec& t = nmsedec_tables();
+    uint32_t m = mag[y * w + x];
+    return bpno > 0 ? t.sig[(m >> bpno) & 127] : t.sig0[m & 127];
+  }
+  int ref_decrease(int x, int y, int bpno) const {
+    const Nmsedec& t = nmsedec_tables();
+    uint32_t m = mag[y * w + x];
+    return bpno > 0 ? t.ref[(m >> bpno) & 127] : t.ref0[m & 127];
+  }
+  int sigpass(int bpno) {
+    uint32_t one = 1u << (bpno + 6);
+    int nmsedec = 0;
+    scan([&](int x, int y) {
+      int i = at(x, y);
+      if (sig[i] || !nb(x, y)) return;
+      int v = bit(x, y, one);
+      mq.encode(zc(x, y), v);
+      if (v) {
+        nmsedec += sig_decrease(x, y, bpno);
+        encode_sign(x, y);
+      }
+      pi[i] = 1;
+    });
+    return nmsedec;
+  }
+  int refpass(int bpno) {
+    uint32_t one = 1u << (bpno + 6);
+    int nmsedec = 0;
+    scan([&](int x, int y) {
+      int i = at(x, y);
+      if (!sig[i] || pi[i]) return;
+      nmsedec += ref_decrease(x, y, bpno);
+      mq.encode(mag_ctx(x, y), bit(x, y, one));
+      mu[i] = 1;
+    });
+    return nmsedec;
+  }
+  int clnpass(int bpno) {
+    uint32_t one = 1u << (bpno + 6);
+    int nmsedec = 0;
+    auto significant = [&](int x, int y) {
+      nmsedec += sig_decrease(x, y, bpno);
+      encode_sign(x, y);
+    };
+    for (int y0 = 0; y0 < h; y0 += 4) {
+      for (int x = 0; x < w; ++x) {
+        int y1 = std::min(y0 + 4, h), start = y0;
+        if (y1 - y0 == 4) {
+          bool run = true;
+          for (int y = y0; y < y1 && run; ++y) {
+            int i = at(x, y);
+            run = !sig[i] && !pi[i] && !nb(x, y);
+          }
+          if (run) {
+            int r = 0;
+            while (r < 4 && !bit(x, y0 + r, one)) ++r;
+            if (r == 4) {
+              mq.encode(kCtxAgg, 0);
+              start = y1;
+            } else {
+              mq.encode(kCtxAgg, 1);
+              mq.encode(kCtxUni, r >> 1);
+              mq.encode(kCtxUni, r & 1);
+              significant(x, y0 + r);
+              start = y0 + r + 1;
+            }
+          }
+        }
+        for (int y = start; y < y1; ++y) {
+          int i = at(x, y);
+          if (sig[i] || pi[i]) continue;
+          int v = bit(x, y, one);
+          mq.encode(zc(x, y), v);
+          if (v) significant(x, y);
+        }
+        for (int y = y0; y < y1; ++y) pi[at(x, y)] = 0;
+      }
+    }
+    return nmsedec;
+  }
+  // → the code-block's passes and data; `norm` is the band's basis norm
+  void encode(const int32_t* coef, double norm, EncCblk& cb) {
+    clear_flags();
+    mag.resize(static_cast<size_t>(w) * h);
+    neg.resize(mag.size());
+    uint32_t max = 0;
+    for (size_t k = 0; k < mag.size(); ++k) {
+      int32_t v = coef[k];
+      mag[k] = static_cast<uint32_t>(v < 0 ? -v : v) << 6;
+      neg[k] = v < 0;
+      max = std::max(max, mag[k]);
+    }
+    cb.numbps = max ? floorlog2(static_cast<int>(max)) + 1 - 6 : 0;
+    cb.passes.clear();
+    if (cb.numbps == 0) return;
+    double cum = 0;
+    for (int bpno = cb.numbps - 1, passtype = 2; bpno >= 0;) {
+      int nmsedec = passtype == 0 ? sigpass(bpno)
+          : passtype == 1 ? refpass(bpno) : clnpass(bpno);
+      double wmsedec = 1.0 * norm * 1.0 * (1 << bpno);
+      wmsedec *= wmsedec * nmsedec / 8192.0;
+      cum += wmsedec;
+      Pass p;
+      p.dist = cum;
+      if (bpno == 0 && passtype == 2) {
+        mq.flush();
+        p.term = true;
+        p.rate = mq.numbytes();
+      } else {
+        p.rate = mq.numbytes() + 3;
+      }
+      cb.passes.push_back(p);
+      if (++passtype == 3) {
+        passtype = 0;
+        bpno--;
+      }
+    }
+    // rates never exceed the final length, and no pass ends on 0xFF
+    uint32_t last = mq.numbytes();
+    for (size_t k = cb.passes.size(); k-- > 0;) {
+      if (cb.passes[k].rate > last) cb.passes[k].rate = last;
+      else last = cb.passes[k].rate;
+    }
+    const uint8_t* data = mq.buf.data() + 1;
+    for (size_t k = 0; k < cb.passes.size(); ++k) {
+      Pass& p = cb.passes[k];
+      if (data[p.rate - 1] == 0xFF) p.rate--;
+      p.len = p.rate - (k == 0 ? 0 : cb.passes[k - 1].rate);
+    }
+    cb.data.assign(data, data + mq.numbytes());
+  }
+};
+
+// 1-D 5/3 analysis on x[0..n) (even start), in place: lows to the first
+// ceil(n/2) places, highs after them (opj_dwt_encode_1 and deinterleave)
+void fdwt53(int32_t* x, int n, std::vector<int32_t>& tmp) {
+  if (n == 1) return;
+  auto at = [&](int i) { return x[i < 0 ? -i : i >= n ? 2 * n - 2 - i : i]; };
+  for (int i = 1; i < n; i += 2) x[i] -= (at(i - 1) + at(i + 1)) >> 1;
+  for (int i = 0; i < n; i += 2) x[i] += (at(i - 1) + at(i + 1) + 2) >> 2;
+  tmp.resize(n);
+  int sn = (n + 1) / 2;
+  for (int i = 0; i < n; ++i) tmp[(i & 1) ? sn + i / 2 : i / 2] = x[i];
+  std::copy(tmp.begin(), tmp.begin() + n, x);
+}
+
+// OpenJPEG's tag tree encoder (tgt.c), over the decoder's node layout
+struct TagTreeEnc : TagTree {
+  std::vector<uint8_t> known;
+  TagTreeEnc(int w, int h) : TagTree(w, h), known(nodes.size(), 0) {}
+  void set(int leaf, int value) {
+    for (int n = leaf; n >= 0 && nodes[n].value > value; n = nodes[n].parent)
+      nodes[n].value = value;
+  }
+};
+
+// t2.c's bit writer: a 0xFF byte is followed by 7 bits; a byte past the
+// end is dropped and fails the flush
+struct BioEnc {
+  uint8_t* start;
+  uint8_t* bp;
+  uint8_t* end;
+  uint32_t buf = 0;
+  int ct = 8;
+  bool byteout() {
+    buf = (buf << 8) & 0xFFFF;
+    ct = buf == 0xFF00 ? 7 : 8;
+    if (bp >= end) return false;
+    *bp++ = static_cast<uint8_t>(buf >> 8);
+    return true;
+  }
+  void bit(uint32_t b) {
+    if (ct == 0) byteout();
+    ct--;
+    buf |= b << ct;
+  }
+  void write(uint32_t v, int n) {
+    for (int i = n - 1; i >= 0; --i) bit((v >> i) & 1);
+  }
+  bool flush() {
+    if (!byteout()) return false;
+    if (ct == 7 && !byteout()) return false;
+    return true;
+  }
+};
+
+void tgt_encode(BioEnc& bio, TagTreeEnc& t, int leaf, int threshold) {
+  int stk[32], sp = 0, node = leaf;
+  while (t.nodes[node].parent >= 0) {
+    stk[sp++] = node;
+    node = t.nodes[node].parent;
+  }
+  int low = 0;
+  for (;;) {
+    TagTree::Node& nd = t.nodes[node];
+    if (low > nd.low) nd.low = low; else low = nd.low;
+    while (low < threshold) {
+      if (low >= nd.value) {
+        if (!t.known[node]) {
+          bio.bit(1);
+          t.known[node] = 1;
+        }
+        break;
+      }
+      bio.bit(0);
+      ++low;
+    }
+    nd.low = low;
+    if (sp == 0) break;
+    node = stk[--sp];
+  }
+}
+
+void put_numpasses(BioEnc& bio, int n) {
+  if (n == 1) bio.bit(0);
+  else if (n == 2) bio.write(2, 2);
+  else if (n <= 5) bio.write(0xC | (n - 3), 4);
+  else if (n <= 36) bio.write(0x1E0 | (n - 6), 9);
+  else bio.write(0xFF80 | (n - 37), 16);
+}
+
+struct EncBand {
+  int orient, numbps, ox, oy, bw, bh, cw, ch;
+  std::vector<EncCblk> cblks;
+};
+
+// the bands of one resolution of one component: its precinct
+struct EncRes {
+  std::vector<EncBand> bands;
+};
+
+// One packet (layer 0) of `res` into [dst, dst + length): → its bytes, or
+// -1 where it does not fit (opj_t2_encode_packet)
+int64_t encode_packet(EncRes& res, uint8_t* dst, int64_t length) {
+  std::vector<TagTreeEnc> incl, imsb;
+  for (EncBand& b : res.bands) {
+    incl.emplace_back(b.cw, b.ch);
+    imsb.emplace_back(b.cw, b.ch);
+    for (size_t k = 0; k < b.cblks.size(); ++k) {
+      b.cblks[k].t2_passes = 0;
+      imsb.back().set(static_cast<int>(k), b.numbps - b.cblks[k].numbps);
+    }
+  }
+  BioEnc bio;
+  bio.start = bio.bp = dst;
+  bio.end = dst + length;
+  bio.bit(1);
+  for (size_t bi = 0; bi < res.bands.size(); ++bi) {
+    EncBand& b = res.bands[bi];
+    for (size_t k = 0; k < b.cblks.size(); ++k)
+      if (b.cblks[k].layer_passes) incl[bi].set(static_cast<int>(k), 0);
+    for (size_t k = 0; k < b.cblks.size(); ++k) {
+      EncCblk& cb = b.cblks[k];
+      tgt_encode(bio, incl[bi], static_cast<int>(k), 1);
+      if (!cb.layer_passes) continue;
+      cb.numlenbits = 3;
+      tgt_encode(bio, imsb[bi], static_cast<int>(k), 999);
+      put_numpasses(bio, cb.layer_passes);
+      // one codeword segment: all the layer's passes end at its last
+      int increment = 0, nump = 0;
+      uint32_t len = 0;
+      for (int p = 0; p < cb.layer_passes; ++p) {
+        ++nump;
+        len += cb.passes[p].len;
+        if (cb.passes[p].term || p == cb.layer_passes - 1) {
+          increment = std::max(increment, floorlog2(static_cast<int>(len)) + 1
+                               - (cb.numlenbits + floorlog2(nump)));
+          len = 0;
+          nump = 0;
+        }
+      }
+      for (int i = 0; i < increment; ++i) bio.bit(1);
+      bio.bit(0);
+      cb.numlenbits += increment;
+      for (int p = 0; p < cb.layer_passes; ++p) {
+        ++nump;
+        len += cb.passes[p].len;
+        if (cb.passes[p].term || p == cb.layer_passes - 1) {
+          bio.write(len, cb.numlenbits + floorlog2(nump));
+          len = 0;
+          nump = 0;
+        }
+      }
+    }
+  }
+  if (!bio.flush()) return -1;
+  uint8_t* c = bio.bp;
+  length -= c - dst;
+  for (EncBand& b : res.bands)
+    for (EncCblk& cb : b.cblks) {
+      if (!cb.layer_passes) continue;
+      if (cb.layer_len > length) return -1;
+      memcpy(c, cb.data.data(), cb.layer_len);
+      cb.t2_passes += cb.layer_passes;
+      c += cb.layer_len;
+      length -= cb.layer_len;
+    }
+  return c - dst;
+}
+
+// opj_tcd_makelayer for layer 0: each code-block takes the passes whose
+// slope from the last pass taken is at least `thresh` (all where it is
+// negative); → whether any code-block's count changed
+bool make_layer(std::vector<std::vector<EncRes>>& tile, double thresh) {
+  bool changed = false;
+  for (auto& comp : tile)
+    for (EncRes& res : comp)
+      for (EncBand& b : res.bands)
+        for (EncCblk& cb : b.cblks) {
+          int total = static_cast<int>(cb.passes.size()), n = 0;
+          if (thresh < 0) {
+            n = total;
+          } else {
+            for (int p = 0; p < total; ++p) {
+              uint32_t dr;
+              double dd;
+              if (n == 0) {
+                dr = cb.passes[p].rate;
+                dd = cb.passes[p].dist;
+              } else {
+                dr = cb.passes[p].rate - cb.passes[n - 1].rate;
+                dd = cb.passes[p].dist - cb.passes[n - 1].dist;
+              }
+              if (!dr) {
+                if (dd != 0) n = p + 1;
+                continue;
+              }
+              if (thresh - dd / dr < DBL_EPSILON) n = p + 1;
+            }
+          }
+          changed |= cb.layer_passes != n;
+          cb.layer_passes = n;
+          cb.layer_len = n ? cb.passes[n - 1].rate : 0;
+        }
+  return changed;
+}
+
+// the packets of layer 0 in LRCP order into [dst, dst + length): → their
+// bytes, or -1 where they do not fit
+int64_t encode_packets(std::vector<std::vector<EncRes>>& tile, int numres,
+                       uint8_t* dst, int64_t length) {
+  int64_t at = 0;
+  for (int r = 0; r < numres; ++r)
+    for (auto& comp : tile) {
+      int64_t n = encode_packet(comp[r], dst + at, length - at);
+      if (n < 0) return -1;
+      at += n;
+    }
+  return at;
+}
+
 }  // namespace j2k
 
 // One tile: packets → code-blocks → coefficients → samples.
@@ -3822,4 +4763,109 @@ extern "C" int64_t j2k_decode_tile(
              idwt97);
   }
   return 0;
+}
+
+// One tile of `nc` components of (h, w) unsigned `prec`-bit samples
+// (int32, component after component; w, h >= 32) coded as OpenJPEG 2.5
+// codes it for OpenCV: 5 decomposition levels of the 5/3 wavelet,
+// 64x64 code-blocks, one precinct per resolution, one layer in LRCP
+// order, no MCT. `maxlen` is the layer's byte budget (opj_tcd_rateallocate
+// bisects the slope threshold 128 times against it; 0: every pass).
+// → the packets' bytes in `dst`, or -1 where `cap` is short.
+extern "C" int64_t j2k_encode_tile(const int32_t* samples, int32_t w,
+                                   int32_t h, int32_t nc, int32_t prec,
+                                   int64_t maxlen, uint8_t* dst,
+                                   int64_t cap) {
+  using namespace j2k;
+  const int numres = 6;
+  std::vector<int> rw(numres), rh(numres);
+  for (int r = 0; r < numres; ++r) {
+    int s = numres - 1 - r;
+    rw[r] = (w + (1 << s) - 1) >> s;
+    rh[r] = (h + (1 << s) - 1) >> s;
+  }
+  std::vector<std::vector<EncRes>> tile(nc, std::vector<EncRes>(numres));
+  std::vector<int32_t> a(static_cast<size_t>(w) * h), col, tmp, blk;
+  for (int c = 0; c < nc; ++c) {
+    const int32_t* src = samples + static_cast<int64_t>(c) * w * h;
+    for (size_t k = 0; k < a.size(); ++k) a[k] = src[k] - (1 << (prec - 1));
+    for (int r = numres - 1; r >= 1; --r) {
+      int W = rw[r], H = rh[r];
+      col.resize(H);
+      for (int x = 0; x < W; ++x) {
+        for (int y = 0; y < H; ++y) col[y] = a[static_cast<size_t>(y) * w + x];
+        fdwt53(col.data(), H, tmp);
+        for (int y = 0; y < H; ++y) a[static_cast<size_t>(y) * w + x] = col[y];
+      }
+      for (int y = 0; y < H; ++y) fdwt53(&a[static_cast<size_t>(y) * w], W, tmp);
+    }
+    for (int r = 0; r < numres; ++r) {
+      EncRes& res = tile[c][r];
+      int pw = r ? rw[r - 1] : 0, ph = r ? rh[r - 1] : 0;
+      for (int orient = r ? 1 : 0; orient < (r ? 4 : 1); ++orient) {
+        EncBand b;
+        b.orient = orient;
+        int gain = orient == 0 ? 0 : orient == 3 ? 2 : 1;
+        b.numbps = prec + gain + 1;  // expn + guard bits - 1
+        b.ox = orient & 1 ? pw : 0;
+        b.oy = orient & 2 ? ph : 0;
+        b.bw = orient == 0 ? rw[0] : orient & 1 ? rw[r] - pw : pw;
+        b.bh = orient == 0 ? rh[0] : orient & 2 ? rh[r] - ph : ph;
+        b.cw = (b.bw + 63) / 64;
+        b.ch = (b.bh + 63) / 64;
+        b.cblks.resize(static_cast<size_t>(b.cw) * b.ch);
+        double norm = kNorms53[orient][numres - 1 - r];
+        for (int j = 0; j < b.ch; ++j)
+          for (int i = 0; i < b.cw; ++i) {
+            T1Enc t1;
+            t1.w = std::min(64, b.bw - 64 * i);
+            t1.h = std::min(64, b.bh - 64 * j);
+            t1.orient = orient;
+            t1.style = 0;
+            blk.resize(static_cast<size_t>(t1.w) * t1.h);
+            for (int y = 0; y < t1.h; ++y)
+              for (int x = 0; x < t1.w; ++x)
+                blk[y * t1.w + x] = a[static_cast<size_t>(b.oy + 64 * j + y) * w
+                                      + b.ox + 64 * i + x];
+            t1.encode(blk.data(), norm, b.cblks[j * b.cw + i]);
+          }
+        res.bands.push_back(std::move(b));
+      }
+    }
+  }
+  // the slopes' range, then the bisection (opj_tcd_rateallocate)
+  double lo = DBL_MAX, hi = 0;
+  for (auto& comp : tile)
+    for (EncRes& res : comp)
+      for (EncBand& b : res.bands)
+        for (EncCblk& cb : b.cblks)
+          for (size_t p = 0; p < cb.passes.size(); ++p) {
+            int32_t dr = static_cast<int32_t>(
+                cb.passes[p].rate - (p ? cb.passes[p - 1].rate : 0));
+            double dd = cb.passes[p].dist - (p ? cb.passes[p - 1].dist : 0);
+            if (dr == 0) continue;
+            double slope = dd / dr;
+            lo = std::min(lo, slope);
+            hi = std::max(hi, slope);
+          }
+  double good = -1;
+  if (maxlen > 0) {
+    std::vector<uint8_t> scratch(static_cast<size_t>(maxlen) + 16);
+    double thresh = 0, stable = 0;
+    bool fits = false;
+    for (int i = 0; i < 128; ++i) {
+      thresh = (lo + hi) / 2;
+      if (make_layer(tile, thresh) || i == 0)
+        fits = encode_packets(tile, numres, scratch.data(), maxlen) >= 0;
+      if (fits) {
+        hi = thresh;
+        stable = thresh;
+      } else {
+        lo = thresh;
+      }
+    }
+    good = stable == 0 ? thresh : stable;
+  }
+  make_layer(tile, good);
+  return encode_packets(tile, numres, dst, cap);
 }

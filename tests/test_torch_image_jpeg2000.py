@@ -293,8 +293,20 @@ def test_opj_parameter_offsets():
 
 
 def test_jpeg2000_is_not_written_yet(tmp_path):
-    with pytest.raises(ValueError, match="JPEG 2000 files are not yet"):
-        image_io.write_raw(tmp_path / "a.jp2", np.zeros((4, 4, 3), np.uint8))
+    """The JP2 writer, which this test once found missing, now round-trips
+    through the port's reader: losslessly under OpenJPEG's rate cap, in
+    RGB, RGBA and 16-bit grey; and a side under 32 pixels, which OpenJPEG
+    refuses at cv2's 5 levels, raises and writes nothing."""
+    y, x = np.mgrid[:H, :W]
+    ramps = np.stack([x * 4 + y, y * 3 + 20, x * 2 + y * 2, 255 - y], -1)
+    for img in (ramps[..., :3].astype(np.uint8), ramps.astype(np.uint8),
+                (ramps[..., 0] * 160).astype(np.uint16)):
+        image_io.write_raw(tmp_path / "a.jp2", img)
+        np.testing.assert_array_equal(
+            image_io.read_image(tmp_path / "a.jp2"), img)
+    with pytest.raises(ValueError, match="32 pixels"):
+        image_io.write_raw(tmp_path / "b.jp2", np.zeros((4, 40, 3), np.uint8))
+    assert not (tmp_path / "b.jp2").exists()
 
 
 def test_committed_scene_prepares_as_jax(tmp_path):
