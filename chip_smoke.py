@@ -168,8 +168,13 @@ Phases, each printing JSON lines with `elapsed_s`:
    body and its level bucket (the canonical ones all at 14 levels: 2 and
    12 per step). Each later frame meets the JAX tests' criteria
    (tests/test_dynamic.py): R within 0.08 of I, |t + k·S| < 0.5·|k·S|,
-   cos(t, -k·S) > 0.8, and its mesh at res 256 has its median within
-   0.5·|2k·S| of 2k·S in world space. Before frame 2's canonical phase,
+   cos(t, -k·S) > 0.8; its mesh at res 256 equals the JAX package's
+   (the canonical world-space mesh through the inverse delta, (V − t)·R,
+   within 1e-5; faces and normals the canonical mesh's) and has its
+   median within 0.5·|k·S| of −t·R, where that formula puts the
+   canonical sphere's centre (the world origin; k·S only where R = I,
+   and R drifts: its distance to k·S is printed). Before frame 2's
+   canonical phase,
    one delta gradient on the card against the CPU port on the same
    uniforms: within 1e-4 relative. Prints ms/step of every phase and the
    peak memory.
@@ -240,8 +245,8 @@ Phases, each printing JSON lines with `elapsed_s`:
    found by `_find_mask_in_folder`'s `.jpg` step). Both loaded and
    prepared on the host: B's prepared albedos and both alphas equal A's,
    its normals within 1 (the count of differing samples printed), the
-   same n2w. Then `run_full_pipeline` on B on the card: stage 1 to 300,
-   stage 2 to 450, the mesh at 512; launches against the recorded level
+   same n2w. Then `run_full_pipeline` on B on the card: stage 1 to 133,
+   stage 2 to 200, the mesh at 512; launches against the recorded level
    buckets' count (as phase 12); the mesh's median vertex radius within
    a voxel of the world radius. Then every codec on the host at 612x512
    (DiLiGenT-MV's view size; a rendered sphere's normal map): PNG
@@ -253,22 +258,27 @@ Phases, each printing JSON lines with `elapsed_s`:
    of 16-bit PNGs (`scene_load_seconds`; loaded by its path from another
    checkout's root, this file times that checkout's package on the same
    scene). Also the committed JPEG 2000 / Group 4 sphere
-   (`jp2_scene_phase`) and AVIF sphere (`avif_scene_phase`: lossless
-   8-bit 4:4:4 normals, cv2-default albedos, lossless grey masks; each
+   (`jp2_scene_phase`), AVIF sphere (`avif_scene_phase`: lossless
+   8-bit 4:4:4 normals, cv2-default albedos, lossless grey masks) and
+   SGILog / grid-AVIF sphere (`sgilog_scene_phase`: SGILog and SGILog24
+   albedos, normals as 2x2 grids of lossless AVIF tiles, PNG masks); each
    view's decode timed; normals, albedos and n2w equal to the JAX
-   package's digests), each through `run_full_pipeline` (200 steps, mesh
+   package's digests; each through `run_full_pipeline` (200 steps, mesh
    at 256; launches per level bucket, radius within a voxel), and the
-   612x512 JPEG 2000, Group 4 and AVIF (8-bit q95 colour, lossless 4:4:4
-   colour, 12-bit unchanged) decodes.
+   612x512 JPEG 2000, Group 4, AVIF (8-bit q95 colour, lossless 4:4:4
+   colour, 12-bit unchanged, film grain, superres) and SGILog / SGILog24
+   (`sgilog_view`) decodes, and libwebp's lossless analysis of the
+   screenshot-shaped view (`native.vp8l_analyze`) alone.
 
 20. final slice (within 90 s): every fixture of
    tests/torch_fixtures/formats (JPEG, TIFF, BMP, PNM, Radiance, Sun
    raster, GIF, WebP, JPEG 2000 and AVIF, written where the CPU tests run
    by its make_fixtures.py with cv2, PIL and libaom, which this host
    lacks) decoded on the host in the three read modes, equal to cv2's
-   decode in its expected.npz, the files cv2 cannot read raising
-   UnreadableImage and the AVIF features refused by name
-   (`REFUSED_FIXTURES`) UnsupportedImage (ms per decode; the 612x512
+   decode in its expected.npz (SGILog TIFFs, AVIF film grain, superres
+   and grids among them), the files cv2 cannot read raising
+   UnreadableImage, none refused by name any more (`REFUSED_FIXTURES`
+   is empty; at least N_FIXTURES files) (ms per decode; the 612x512
    files, best of 3); `python -m rnb_neus2_torch.tools.mesh_from_snapshot`
    as a subprocess on phase 11's scene and snapshot at resolution 256
    (GT 128): exit 0, its OBJ equal to phase 11's mesh_300.obj (faces
@@ -331,13 +341,14 @@ OPT_SALT_STEPS = 20
 OPT_BF16_STEPS = 200
 EXTRA_STEPS = {"image": 300, "sdf": 250, "takikawa": 150, "volume": 300}
 EXTRA_TESTBED_STEPS = 100      # phase 17's Testbed in Image mode
-FORMATS_STEPS = 300            # phase 19: stage 1 to 200, stage 2 to 300
+FORMATS_STEPS = 200            # phase 19: stage 1 to 133, stage 2 to 200
 JP2_STEPS = 200                # phase 19's JPEG 2000 / Group 4 scene
 JP2_MESH_RES = 256
 JP2_SCENE = ROOT / "tests" / "torch_fixtures" / "jp2_scene"
 AVIF_STEPS = 200               # phase 19's AVIF scene
 AVIF_MESH_RES = 256
 AVIF_SCENE = ROOT / "tests" / "torch_fixtures" / "avif_scene"
+SGILOG_SCENE = ROOT / "tests" / "torch_fixtures" / "sgilog_scene"
 CODEC_VIEW = (512, 612)        # phase 19's codec timings: H, W
 PHOTO = (3024, 4032)
 CODEC_REPEATS = 5
@@ -346,10 +357,10 @@ SCENE_LOAD_REPEATS = 5
 PAR_READS, PAR_SYNC = 18, 25   # phase 18: 450 steps, a read per 25
 FIXTURES = ROOT / "tests" / "torch_fixtures" / "formats"   # phase 20
 FIXTURE_REPEATS = 3
-# phase 20's fixtures that cv2 reads and the port refuses by name
-REFUSED_FIXTURES = {"avif_film_grain.avif": "film grain",
-                    "avif_superres.avif": "superres",
-                    "avif_grid.avif": "grid"}
+# phase 20's fixtures that cv2 reads and the port refuses by name (none
+# since film grain, superres and grids are read)
+REFUSED_FIXTURES = {}
+N_FIXTURES = 174
 TRAIN_API_STEPS = 32
 
 
@@ -1557,8 +1568,10 @@ def writer_fixture_checks() -> dict:
     """The port's `.webp`, `.gif` and `.jp2` encoders on the committed
     input against cv2.imwrite's committed files of it
     (tests/torch_fixtures/writers/): GIF and JPEG 2000 byte for byte, the
-    WebP (whose bytes are the port's own) pixel for pixel wherever alpha
-    is not 0, and every file decoded by the port's reader."""
+    WebP (whose bytes are the port's own) pixel for pixel, alpha 0
+    included (`webp_alpha0` counts the pixels under alpha 0 whose colour
+    libwebp left non-zero), and every file decoded by the port's
+    reader."""
     import numpy as np
     from rnb_neus2_torch.io import gif, image_io, jpeg2000, webp
 
@@ -1575,15 +1588,14 @@ def writer_fixture_checks() -> dict:
             got = image_io.read_image(path)
             ref = image_io.read_image(WRITER_FIXTURES / f"cv2{ext}")
             if ext == ".webp":
-                seen = rgba[..., 3] > 0
-                same = (got.shape == ref.shape
-                        and np.array_equal(got[seen], ref[seen])
-                        and np.array_equal(got[..., 3], ref[..., 3])
-                        and not got[~seen].any())
+                same = got.shape == ref.shape and np.array_equal(got, ref)
             else:
                 same = ours == want and np.array_equal(got, ref)
             out[ext] = {"bytes": len(ours), "cv2_bytes": len(want),
                         "same_bytes": ours == want, "agree": bool(same)}
+            if ext == ".webp":
+                out[ext]["webp_alpha0"] = int(
+                    ref[ref[..., 3] == 0, :3].any(-1).sum())
             if not same:
                 raise AssertionError(f"writer fixture {ext}: {out[ext]}")
     return out
@@ -1593,17 +1605,21 @@ def screenshot_checks(tb, img, work: Path) -> dict:
     """`Testbed.screenshot` to `.webp`, `.gif` and `.jp2` of the frame
     `img` just rendered (`render_to_cpu` is held to it, so that the check
     is exact), each read back by the port's reader: the JPEG 2000 equals
-    the 8-bit RGBA that `save_image` makes of it, the WebP the same with
-    the colour under alpha 0 zeroed, the GIF has the RGBA's shape and
-    transparency, and the GIF encoder reproduces cv2's committed file
+    the 8-bit RGBA that `save_image` makes of it, the WebP the same but
+    under alpha 0, where it holds the colour libwebp's analysis leaves
+    (`native.vp8l_analyze`, pinned to cv2's files by
+    tests/test_torch_image_writers.py), the GIF has the RGBA's shape and
+    transparency, and the encoders reproduce cv2's committed files
     (`writer_fixture_checks`)."""
     import numpy as np
-    from rnb_neus2_torch.io import image_io
+    from rnb_neus2_torch.io import image_io, native
 
     rgba = (np.clip(np.nan_to_num(img.astype(np.float32), nan=0.0), 0, 1)
             * 255.0).astype(np.uint8)
-    clear = rgba.copy()
-    clear[clear[..., 3] == 0, :3] = 0
+    clear = native.vp8l_analyze(rgba)[0]
+    seen = rgba[..., 3] > 0
+    if not np.array_equal(clear[seen], rgba[seen]):
+        raise AssertionError("WebP analysis changed a pixel of alpha > 0")
     # cv2 reads back 3 channels from a WebP without alpha under 255 and
     # a GIF without a transparent pixel
     webp_ch = 4 if (rgba[..., 3] < 255).any() else 3
@@ -1819,7 +1835,21 @@ def dynamic_phase(torch, kernels, dev, card) -> dict:
             t0 = time.perf_counter()
             m = seq.extract_mesh(resolution=256)
             mesh_s = time.perf_counter() - t0
+            # the JAX package's frame mesh: the canonical world-space mesh
+            # through the inverse delta, (V − t)·R, normals unturned
+            seq.frame, frame_k = 0, seq.frame
+            canon = seq.extract_mesh(resolution=256)
+            seq.frame = frame_k
+            jax_v = (canon["V"] - t) @ R
+            mesh_formula_err = float(np.abs(m["V"] - jax_v).max()) \
+                if m["V"].shape == jax_v.shape else float("inf")
+            same_nf = (np.array_equal(m["F"], canon["F"])
+                       and np.array_equal(m["N"], canon["N"]))
             centre = np.median(m["V"], axis=0)
+            # where that formula puts the canonical sphere's centre (the
+            # world origin): −t·R, which is k·S only where R = I (R drifts:
+            # a sphere's rotation is unobservable, and t trades off)
+            want_centre = -t @ R
             row = {"frame": k, "rotation_err": float(np.abs(
                 R - np.eye(3)).max()), "translation": t.tolist(),
                 "translation_err": float(np.linalg.norm(t - want_t)),
@@ -1829,15 +1859,20 @@ def dynamic_phase(torch, kernels, dev, card) -> dict:
                 "delta_loss_first": seq.delta_losses[0],
                 "delta_loss_last": seq.delta_losses[-1],
                 "mesh_vertices": len(m["V"]), "mesh_s": mesh_s,
+                "mesh_formula_err": mesh_formula_err,
+                "mesh_same_faces_normals": bool(same_nf),
                 "mesh_centre": centre.tolist(),
+                "mesh_centre_want": want_centre.tolist(),
                 "mesh_centre_err": float(np.linalg.norm(
-                    centre - 2 * k * shift)),
-                "mesh_centre_tol": float(0.5 * np.linalg.norm(
-                    2 * k * shift))}
+                    centre - want_centre)),
+                "mesh_centre_vs_kS": float(np.linalg.norm(
+                    centre - k * shift)),
+                "mesh_centre_tol": float(0.5 * np.linalg.norm(k * shift))}
             row["passed"] = (row["rotation_err"] < 0.08
                              and row["centre_moved_err"] < 0.5 * row["shift"]
                              and cos > 0.8 and row["mesh_centre_err"]
-                             < row["mesh_centre_tol"])
+                             < row["mesh_centre_tol"]
+                             and mesh_formula_err < 1e-5 and same_nf)
             log("dynamic_frame", **row)
             frames.append(row)
     finally:
@@ -2630,16 +2665,100 @@ def codec_view():
             (rgba * 255).astype(np.uint8))
 
 
+# cv2's XYZ → RGB (sRGB primaries, D65), inverted to write LogLuv
+XYZ2RGB = ((3.240479, -1.53715, -0.498535), (-0.969256, 1.875991, 0.041556),
+           (0.055648, -0.204043, 1.057311))
+
+
+def _tiff_file(tags: dict, strips: list) -> bytes:
+    """A little-endian one-image TIFF: `tags` {tag: (type 3 or 4,
+    values)}, the strips in order (their offsets and counts filled in)."""
+    import struct
+    tags = {**tags, 273: (4, [0] * len(strips)),
+            279: (4, [len(s) for s in strips])}
+    data_at = 8 + 2 + 12 * len(tags) + 4
+    offsets, pos = [], data_at
+    for s in strips:
+        offsets.append(pos)
+        pos += len(s)
+    tags[273] = (4, offsets)
+    entries, extra = b"", b""
+    for tag, (typ, vals) in sorted(tags.items()):
+        packed = struct.pack("<" + {3: "H", 4: "I"}[typ] * len(vals), *vals)
+        if len(packed) <= 4:
+            value = packed.ljust(4, b"\0")
+        else:
+            value = struct.pack("<I", pos + len(extra))
+            extra += packed
+        entries += struct.pack("<HHI", tag, typ, len(vals)) + value
+    return (b"II*\0" + struct.pack("<IH", 8, len(tags)) + entries
+            + b"\0" * 4 + b"".join(strips) + extra)
+
+
+def sgilog_view(compression: int) -> tuple:
+    """The codec view's colours as a 612x512 LogLuv TIFF, assembled here
+    (the card's host has no TIFF writer of SGILog, and a libtiff file of
+    it passes the TIFF fixtures' 64 KB): XYZ through the inverse of cv2's
+    XYZ2RGB, coded as libtiff's LogLuv32fromXYZ codes them without
+    dithering; compression 34676 (SGILog) stores each row's four byte
+    planes as literal runs, 34677 (SGILog24) the 10-bit log luminance
+    with a 14-bit colour index (here (u·64 + v) % 16289 of the 8-bit u, v
+    codes: any index decodes at the same cost). → (file bytes, the RGB it
+    was made from)."""
+    import numpy as np
+
+    h, w = CODEC_VIEW
+    unit, _ = _unit_normals()
+    xyz = unit.astype(np.float64) @ np.linalg.inv(np.array(XYZ2RGB)).T
+    X, Y, Z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    s = X + 15 * Y + 3 * Z
+    lit = (Y > 5.4136769e-20) & (s > 0)
+    s = np.where(lit, s, 1.0)
+    ue = np.clip(np.floor(410 * np.where(lit, 4 * X / s, 0.210526316)),
+                 0, 255).astype(np.uint32)
+    ve = np.clip(np.floor(410 * np.where(lit, 9 * Y / s, 0.473684211)),
+                 0, 255).astype(np.uint32)
+    logy = np.log2(np.where(lit, Y, 1.0))
+    rows = 16
+    strips = []
+    if compression == 34676:
+        le = np.where(lit, np.clip(np.floor(256 * (logy + 64)), 0, 0x7FFF),
+                      0).astype(np.uint32)
+        code = (le << 16) | (ue << 8) | ve
+        for y0 in range(0, h, rows):
+            out = bytearray()
+            for row in code[y0:y0 + rows]:
+                for shift in (24, 16, 8, 0):
+                    plane = ((row >> shift) & 0xFF).astype(np.uint8).tobytes()
+                    for i in range(0, w, 127):
+                        part = plane[i:i + 127]
+                        out += bytes([len(part)]) + part
+            strips.append(bytes(out))
+    else:
+        l10 = np.where(lit, np.clip(np.floor(64 * (logy + 12)), 0, 1023),
+                       0).astype(np.uint32)
+        code = (l10 << 14) | ((ue * 64 + ve) % 16289)
+        packed = np.stack([(code >> 16) & 0xFF, (code >> 8) & 0xFF,
+                           code & 0xFF], -1).astype(np.uint8)
+        strips = [packed[y0:y0 + rows].tobytes() for y0 in range(0, h, rows)]
+    tags = {256: (3, [w]), 257: (3, [h]), 258: (3, [16] * 3),
+            259: (3, [compression]), 262: (3, [32845]), 277: (3, [3]),
+            278: (3, [rows]), 284: (3, [1]), 339: (3, [2] * 3)}
+    return _tiff_file(tags, strips), unit
+
+
 def codec_timings(work: Path) -> dict:
     """Phase 19: ms per view of every decoder and encoder on the host, at
     DiLiGenT-MV's 612x512 on a rendered sphere's normal map (PNG, TIFF,
     EXR, JPEG, BMP, PPM, PFM, Radiance, Sun raster; WebP, GIF and JPEG
     2000 as `save_image` writes a screenshot, 8-bit RGBA, and JPEG 2000
     also as 16-bit RGB; AVIF and lossy JPEG 2000, which the port does not
-    write, timed on phase 20's fixtures), and a 4032x3024 JPEG."""
+    write, timed on phase 20's fixtures; SGILog and SGILog24 as
+    `sgilog_view` assembles them; libwebp's lossless analysis alone), and
+    a 4032x3024 JPEG."""
     import numpy as np
     from rnb_neus2_torch.io import (bmp, exr, gif, hdr, jpeg, jpeg2000,
-                                    png, pxm, sunras, tiff, webp)
+                                    native, png, pxm, sunras, tiff, webp)
 
     h, w = CODEC_VIEW
     unit, _ = _unit_normals()
@@ -2647,8 +2766,13 @@ def codec_timings(work: Path) -> dict:
     u8 = (unit * 255).astype(np.uint8)
     f32 = (unit * 2 - 1).astype(np.float32)
     rgb16, rgba8 = codec_view()
-    clear = rgba8.copy()
-    clear[clear[..., 3] == 0, :3] = 0
+    # what libwebp's file of it decodes to (alpha 0 as its analysis leaves
+    # it), timed alone
+    ms = []
+    for _ in range(CODEC_REPEATS):
+        t0 = time.perf_counter()
+        clear, info, _ = native.vp8l_analyze(rgba8)
+        ms.append((time.perf_counter() - t0) * 1e3)
     cases = {
         "png_16bit": (".png", lambda p: png.write_png(p, u16),
                       png.read_png, u16),
@@ -2680,7 +2804,10 @@ def codec_timings(work: Path) -> dict:
         "jp2_rgb_16bit": (".jp2", lambda p: jpeg2000.write_jp2(p, rgb16),
                           jpeg2000.read_jpeg2000, rgb16),
     }
-    out = {"view": [w, h], "repeats": CODEC_REPEATS}
+    out = {"view": [w, h], "repeats": CODEC_REPEATS,
+           "webp_analysis": {"ms": statistics.median(ms),
+                             "transform_set": int(info[0]),
+                             "tile_bits": int(info[2])}}
     # formats the port reads and does not write: phase 20's 612x512
     # fixtures of the same sphere (see make_fixtures.py)
     from rnb_neus2_torch.io import image_io
@@ -2693,6 +2820,9 @@ def codec_timings(work: Path) -> dict:
              "color"),
             ("avif_12bit_unchanged", "avif_12bit_612x512.avif",
              "unchanged"),
+            ("avif_film_grain_colour", "avif_film_grain_612x512.avif",
+             "color"),
+            ("avif_superres_colour", "avif_superres_612x512.avif", "color"),
             ("tiff_group4_mask", "g4_mask_612x512.tif", "unchanged")):
         dec = []
         for _ in range(CODEC_REPEATS):
@@ -2703,6 +2833,25 @@ def codec_timings(work: Path) -> dict:
             raise AssertionError(f"{name}: {got.shape}")
         out[name] = {"decode_ms": statistics.median(dec), "mode": mode,
                      "bytes": (FIXTURES / file).stat().st_size}
+    for name, comp in (("sgilog_logluv32", 34676),
+                       ("sgilog24_logluv24", 34677)):
+        blob, rgb = sgilog_view(comp)
+        path = work / f"codec_{name}.tif"
+        path.write_bytes(blob)
+        dec = []
+        for _ in range(CODEC_REPEATS):
+            t0 = time.perf_counter()
+            got = image_io.read_image(path, "unchanged")
+            dec.append((time.perf_counter() - t0) * 1e3)
+        if got.shape != (h, w, 3) or got.dtype != np.float32 \
+                or not np.isfinite(got).all():
+            raise AssertionError(f"{name}: {got.shape} {got.dtype}")
+        # LogLuv32 codes luminance to 0.27% and u', v' to 1/410
+        err = float(np.abs(got - rgb).max())
+        if comp == 34676 and err > 0.02:
+            raise AssertionError(f"{name}: off the view by {err}")
+        out[name] = {"decode_ms": statistics.median(dec), "mode": "unchanged",
+                     "bytes": len(blob), "max_abs_err": err}
     for name, (ext, write, read, want) in cases.items():
         path = work / f"codec_{name}{ext}"
         enc, dec = [], []
@@ -2868,12 +3017,30 @@ def jp2_scene_phase(torch, kernels, root: Path, png) -> dict:
 def avif_scene_phase(torch, kernels, root: Path, png) -> dict:
     """Phase 19: the committed AVIF sphere (tests/torch_fixtures/avif_scene:
     lossless 8-bit 4:4:4 normals, albedos at cv2's default quality,
-    lossless grey masks), prepared on the host: the normals, albedos and
-    n2w equal to the JAX package's (expected.json's digests), each view's
-    decode timed (whether the alphas equal the PNG scene's is printed:
-    these normals carry no alpha of their own); then `run_full_pipeline` on the card
-    (AVIF_STEPS, mesh at AVIF_MESH_RES) with its launches per level
-    bucket and the mesh's median radius within a voxel of the sphere's."""
+    lossless grey masks) through `committed_scene_phase`."""
+    return committed_scene_phase(torch, kernels, root, png, AVIF_SCENE,
+                                 "avif", [".avif"])
+
+
+def sgilog_scene_phase(torch, kernels, root: Path, png) -> dict:
+    """Phase 19: the committed SGILog / grid-AVIF sphere
+    (tests/torch_fixtures/sgilog_scene: SGILog and SGILog24 albedos, grid
+    AVIF normals of 2x2 lossless tiles, PNG masks) through
+    `committed_scene_phase`."""
+    return committed_scene_phase(torch, kernels, root, png, SGILOG_SCENE,
+                                 "sgilog", [".avif", ".png", ".tif"])
+
+
+def committed_scene_phase(torch, kernels, root: Path, png, scene: Path,
+                          tag: str, suffixes: list) -> dict:
+    """A committed sphere scene prepared on the host: the normals,
+    albedos and n2w equal to the JAX package's (expected.json's digests),
+    each view's decode timed (whether the alphas equal the PNG scene's is
+    printed: these normals carry no alpha of their own); then
+    `run_full_pipeline` on the card (AVIF_STEPS, mesh at AVIF_MESH_RES)
+    with its launches per level bucket and the mesh's median radius
+    within a voxel of the sphere's. Logs `formats_<tag>_prepare` and
+    `formats_<tag>`."""
     import numpy as np
     from rnb_neus2_torch.cli import pipeline
     from rnb_neus2_torch.io import image_io
@@ -2881,23 +3048,23 @@ def avif_scene_phase(torch, kernels, root: Path, png) -> dict:
     from rnb_neus2_torch.io.prepare import prepare_testbed_data
     from rnb_neus2_torch.mesh.writer import load_obj
 
-    expected = json.loads((AVIF_SCENE / "expected.json").read_text())
-    kw = dict(albedo_sfm_path=str(AVIF_SCENE / "albedos.sfm.json"),
-              mask_sfm_path=str(AVIF_SCENE / "masks.sfm.json"))
-    normals = str(AVIF_SCENE / "normals.sfm.json")
+    expected = json.loads((scene / "expected.json").read_text())
+    kw = dict(albedo_sfm_path=str(scene / "albedos.sfm.json"),
+              mask_sfm_path=str(scene / "masks.sfm.json"))
+    normals = str(scene / "normals.sfm.json")
     decode_ms = {}
     for kind in ("normals", "albedos", "masks"):
         times = []
-        for path in sorted((AVIF_SCENE / kind).glob("*.avif")):
+        for path in sorted((scene / kind).iterdir()):
             t0 = time.perf_counter()
             image_io.read_image(path)
             times.append(1e3 * (time.perf_counter() - t0))
         decode_ms[kind] = statistics.median(times)
     t0 = time.perf_counter()
     data = load_data(normals, **kw)
-    prepare_testbed_data(data, str(root / "avif" / "prepared"))
+    prepare_testbed_data(data, str(root / tag / "prepared"))
     prep_s = time.perf_counter() - t0
-    a, b = root / "png" / "prepared", root / "avif" / "prepared"
+    a, b = root / "png" / "prepared", root / tag / "prepared"
     cmp = {"frames": 0, "alphas_equal": True, "albedo_digests_equal": True,
            "normal_digests_equal": True}
     for name in sorted(p.name for p in (a / "normals").glob("*.png")):
@@ -2913,12 +3080,12 @@ def avif_scene_phase(torch, kernels, root: Path, png) -> dict:
     cmp["files"] = sorted({Path(v[k]).suffix for v in data["views"]
                            for k in ("normal_path", "albedo_path",
                                      "mask_path")})
-    log("formats_avif_prepare", prepare_s=prep_s, decode_ms=decode_ms,
+    log(f"formats_{tag}_prepare", prepare_s=prep_s, decode_ms=decode_ms,
         **cmp)
     if not (cmp["frames"] == SPHERE["n_views"]
             and cmp["albedo_digests_equal"] and cmp["normal_digests_equal"]
-            and cmp["n2w_equal"] and cmp["files"] == [".avif"]):
-        raise AssertionError(f"prepared AVIF scene: {cmp}")
+            and cmp["n2w_equal"] and cmp["files"] == suffixes):
+        raise AssertionError(f"prepared {tag} scene: {cmp}")
 
     buckets, undo = _record_step_bodies()
     for k in kernels.values():
@@ -2927,7 +3094,7 @@ def avif_scene_phase(torch, kernels, root: Path, png) -> dict:
     t0 = time.perf_counter()
     try:
         mesh_path = pipeline.run_full_pipeline(
-            normals, str(root / "avif_out"), max_steps=AVIF_STEPS,
+            normals, str(root / f"{tag}_out"), max_steps=AVIF_STEPS,
             mesh_resolution=AVIF_MESH_RES, device="cuda", **kw)
         torch.cuda.synchronize()
     finally:
@@ -2935,7 +3102,7 @@ def avif_scene_phase(torch, kernels, root: Path, png) -> dict:
     total = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
     want = _expected_launches(buckets)
-    with open(root / "avif_out" / "prepared_data" / "transform.json") as f:
+    with open(root / f"{tag}_out" / "prepared_data" / "transform.json") as f:
         voxel = 2.0 / AVIF_MESH_RES * json.load(f)["n2w"][0][0]
     V, F = load_obj(mesh_path)
     center = np.asarray(expected["world_center"])
@@ -2948,12 +3115,12 @@ def avif_scene_phase(torch, kernels, root: Path, png) -> dict:
            "decode_ms": decode_ms, "prepare_s": prep_s,
            **{k: cmp[k] for k in ("alphas_equal", "albedo_digests_equal",
                                   "normal_digests_equal", "n2w_equal")}}
-    log("formats_avif", **row)
+    log(f"formats_{tag}", **row)
     if launches != want:
-        raise AssertionError(f"AVIF scene: kernel launches {launches} "
+        raise AssertionError(f"{tag} scene: kernel launches {launches} "
                              f"in {len(buckets)} steps; want {want}")
     if not (len(F) and abs(radius - expected["world_radius"]) <= voxel):
-        raise AssertionError(f"AVIF scene: median radius {radius}, the "
+        raise AssertionError(f"{tag} scene: median radius {radius}, the "
                              f"sphere's {expected['world_radius']} "
                              f"(voxel {voxel})")
     return row
@@ -2994,6 +3161,7 @@ def formats_phase(torch, kernels, card) -> dict:
         netpbm = netpbm_scene(root, png, world_center)
         jp2 = jp2_scene_phase(torch, kernels, root, png)
         avif = avif_scene_phase(torch, kernels, root, png)
+        sgilog = sgilog_scene_phase(torch, kernels, root, png)
         log("formats_prepare", seconds=seconds, mask_files=sorted(
             {Path(p).suffix for p in mask_paths}), **cmp)
         if not (cmp["frames"] == SPHERE["n_views"] and cmp["albedo_equal"]
@@ -3039,7 +3207,7 @@ def formats_phase(torch, kernels, card) -> dict:
            "pipeline_s": total, "vertices": len(V), "faces": len(F),
            "median_radius": radius, "world_radius": r_world, "voxel": voxel,
            "codecs": codecs, "jp2_scene": jp2, "avif_scene": avif,
-           "card": card}
+           "sgilog_scene": sgilog, "card": card}
     log("formats", **row)
     if launches != want:
         raise AssertionError(f"kernel launches {launches} in "
@@ -3112,7 +3280,8 @@ def decode_fixtures() -> dict:
            "ms_612x512_color": big,
            "decode_s": sum(ms.values()) / 1e3}
     log("fixtures", **row)
-    if bad or len(files) < 120 or named != len(REFUSED_FIXTURES) * 3:
+    if bad or len(files) < N_FIXTURES \
+            or named != len(REFUSED_FIXTURES) * 3:
         raise AssertionError(f"fixtures that differ from cv2's decode: "
                              f"{bad}")
     return row
@@ -3356,6 +3525,9 @@ def main() -> int:
         row["launches_formats_avif"] = \
             fmts["avif_scene"]["launches"][row["name"]]
         row["formats_avif_steps"] = fmts["avif_scene"]["step_bodies"]
+        row["launches_formats_sgilog"] = \
+            fmts["sgilog_scene"]["launches"][row["name"]]
+        row["formats_sgilog_steps"] = fmts["sgilog_scene"]["step_bodies"]
         row["launches_train_api"] = \
             final["train_api"]["launches"][row["name"]]
         row["formats_steps"] = fmts["step_bodies"]

@@ -8,8 +8,11 @@ avifPeekCompatibleFileType tests), then `meta` with `hdlr` `pict`,
 1 through `idat`), `iprp` (`ipco` properties bound by `ipma`: `av1C`,
 `ispe`, `pixi`, `colr` nclx or ICC, `auxC`, `irot`, `imir`, `clap`,
 `a1lx`, `lsel`) and `iref` (`auxl`, `prem`, `dimg`). The primary item's
-AV1 OBUs decode in `native/av1.cc`; an item that is the primary's
-`auxl` with the alpha URN is its alpha plane.
+AV1 OBUs decode in `native/av1.cc` (superres upscaling and film grain
+synthesis included, as libaom hands libavif the frame); an item that is
+the primary's `auxl` with the alpha URN is its alpha plane. A `grid`
+derived item (the primary, or its alpha) is its `dimg` tiles decoded one
+by one, checked as libavif checks them and stitched (`decode_grid`).
 
 cv2 returns libavif's planes without applying `irot`, `imir` or `clap`
 (libavif reports them and does not apply them; cv2 ignores the report)
@@ -29,13 +32,13 @@ YuvPixel; otherwise (identity/GBR, monochrome, other matrices, 16-bit
 output) through its own float path (avifImageYUVToRGBAnySlow...).
 `yuv_to_rgb` below holds both, as this module's tests pin them to cv2.
 
-Refused by name (UnsupportedImage): film grain, superres, grid derived
-items, image sequences (an `avis` file with a track), layered images
-(`lsel`, spatial layers), and an `ispe` other than the AV1 frame's size
-(libavif scales the frame to it). A file cv2 cannot read (truncated
-boxes, a broken `iloc`, a bad OBU, a monochrome image with alpha, an
-`avis` brand without a track, large-scale tile, `a1lx` on a
-single-layer item) raises UnreadableImage.
+Refused by name (UnsupportedImage): image sequences (an `avis` file
+with a track), layered images (`lsel`, spatial layers), and an `ispe`
+other than the AV1 frame's size (libavif scales the frame to it). A
+file cv2 cannot read (truncated boxes, a broken `iloc`, a bad OBU, a
+monochrome image with alpha, an `avis` brand without a track,
+large-scale tile, `a1lx` on a single-layer item, a grid libavif refuses
+or whose `ispe` is not its output size) raises UnreadableImage.
 """
 
 from __future__ import annotations
@@ -54,8 +57,7 @@ BRANDS = (b"avif", b"avis")
 ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
               b"urn:mpeg:hevc:2015:auxid:1")
 # native/av1.cc's error codes
-AV1_REFUSED = {-2: "film grain", -3: "superres", -6: "an inter frame",
-               -7: "layers (a layered AV1 stream)"}
+AV1_REFUSED = {-6: "an inter frame", -7: "layers (a layered AV1 stream)"}
 LARGE_SCALE_TILE = -4        # libaom (so libavif, so cv2) fails too
 
 
@@ -266,6 +268,72 @@ def decode_item(c: Container, it: Item, data: bytes, path) -> tuple:
     return info, planes
 
 
+# what libavif requires of every tile of a grid to be the same
+TILE_KEYS = ("width", "height", "bit_depth", "mono", "ssx", "ssy", "cp",
+             "tc", "mc", "full_range")
+
+
+def decode_image(c: Container, it: Item, data: bytes, path) -> tuple:
+    """(info, planes) of an av01 item or a grid of them."""
+    return decode_grid(c, it, data, path) if it.type == b"grid" \
+        else decode_item(c, it, data, path)
+
+
+def decode_grid(c: Container, it: Item, data: bytes, path) -> tuple:
+    """A `grid` derived item as libavif reconstructs it: the ImageGrid
+    payload (version 0; rows and columns; the output size in 16 or 32
+    bits), its `dimg` tiles in order, each an av01 item decoded alone,
+    all of one size and format; the tiles must cover the output, the last
+    row and column must reach into it, and (MIAF) a tile is at least 64
+    samples a side, of even width under 4:2:0 / 4:2:2 and even height
+    under 4:2:0, as is the output. The planes are stitched and cropped
+    to the output size. What libavif refuses is UnreadableImage."""
+    desc = item_data(c, it, data, path)
+    if len(desc) < 8 or desc[0] != 0:
+        unreadable(path, "grid item of another version or truncated")
+    rows, cols = desc[2] + 1, desc[3] + 1
+    wide = desc[1] & 1
+    if len(desc) < (12 if wide else 8):
+        unreadable(path, "truncated grid item")
+    ow, oh = struct.unpack(">II" if wide else ">HH", desc[4:12 if wide else 8])
+    ids = [t for kind, frm, to in c.refs if kind == b"dimg" and frm == it.id
+           for t in to]
+    if len(ids) != rows * cols:
+        unreadable(path, f"grid of {rows}x{cols} tiles with {len(ids)} "
+                   "dimg references")
+    tiles = []
+    for tid in ids:
+        tile = c.items.get(tid)
+        if tile is None or tile.type != b"av01":
+            unreadable(path, "grid tile that is not an av01 item")
+        tiles.append(decode_item(c, tile, data, path))
+    info = tiles[0][0]
+    if any(tuple(t[0][k] for k in TILE_KEYS)
+           != tuple(info[k] for k in TILE_KEYS) for t in tiles):
+        unreadable(path, "grid of mismatched tiles")
+    tw, th = info["width"], info["height"]
+    if tw * cols < ow or th * rows < oh:
+        unreadable(path, "grid tiles that do not cover the image")
+    if tw * (cols - 1) >= ow or th * (rows - 1) >= oh:
+        unreadable(path, "grid tiles past the image's last row or column")
+    ssx, ssy = (0, 0) if info["mono"] else (info["ssx"], info["ssy"])
+    if tw < 64 or th < 64 or (ssx and (ow % 2 or tw % 2)) \
+            or (ssy and (oh % 2 or th % 2)):
+        unreadable(path, "grid tile or image size MIAF forbids")
+    check_size(path, ow, oh)
+    planes = []
+    for p, plane in enumerate(tiles[0][1]):
+        sx, sy = (ssx, ssy) if p else (0, 0)
+        ph, pw = plane.shape
+        out = np.zeros((rows * ph, cols * pw), plane.dtype)
+        for k, (_, tp) in enumerate(tiles):
+            r, col = divmod(k, cols)
+            out[r * ph:(r + 1) * ph, col * pw:(col + 1) * pw] = tp[p]
+        planes.append(np.ascontiguousarray(
+            out[:(oh + sy) >> sy, :(ow + sx) >> sx]))
+    return dict(info, width=ow, height=oh), planes
+
+
 @dataclass
 class Decoded:
     info: dict
@@ -288,16 +356,17 @@ def decode(path) -> Decoded:
             unsupported(path, "AVIF image sequence")
         unreadable(path, "avis brand without a track")
     it = c.items[c.primary]
-    if it.type == b"grid":
-        unsupported(path, "AVIF grid image")
-    if it.type != b"av01":
+    if it.type not in (b"av01", b"grid"):
         unreadable(path, f"primary item of type {it.type!r}")
-    info, planes = decode_item(c, it, data, path)
+    info, planes = decode_image(c, it, data, path)
     ispe = prop(it, b"ispe")
     if ispe is None or len(ispe) < 12:
         unreadable(path, "primary item without ispe")
     w, h = struct.unpack(">II", ispe[4:12])
     if (w, h) != (info["width"], info["height"]):
+        if it.type == b"grid":
+            # cv2 sizes its image by the ispe and fails on the grid's
+            unreadable(path, "grid whose ispe differs from its output size")
         unsupported(path, "AVIF whose ispe differs from its AV1 frame size "
                     "(libavif scales the frame to it)")
     check_size(path, w, h)
@@ -313,11 +382,11 @@ def decode(path) -> Decoded:
             continue
         aux = c.items[frm]
         auxc = prop(aux, b"auxC")
-        if aux.type != b"av01" or auxc is None:
+        if aux.type not in (b"av01", b"grid") or auxc is None:
             continue
         if auxc[4:].rstrip(b"\0").split(b"\0")[0] not in ALPHA_URNS:
             continue
-        alpha_info, ap = decode_item(c, aux, data, path)
+        alpha_info, ap = decode_image(c, aux, data, path)
         if (alpha_info["width"], alpha_info["height"]) != (w, h):
             unreadable(path, "alpha plane of another size")
         alpha = ap[0]

@@ -10,6 +10,12 @@
 - `UnsupportedImage`: cv2 reads this file but the port does not yet (the
   EXR variants, other formats). It stays a loud `ValueError` naming the
   file and the feature.
+
+And one way a writer refuses: `ImwriteFailed`, where `cv2.imwrite`
+returns False (a colour `.pgm`, a grey `.gif`, a JPEG 2000 under 32
+pixels a side, ...) rather than raising. `left` holds the bytes cv2
+leaves at the path (None: no file), which `image_io.save_image` writes
+and returns, as the JAX save_image does.
 """
 
 from __future__ import annotations
@@ -21,6 +27,15 @@ class UnreadableImage(FileNotFoundError, ValueError):
 
 class UnsupportedImage(ValueError):
     """A file that `cv2.imread` reads and the port does not."""
+
+
+class ImwriteFailed(ValueError):
+    """Samples that `cv2.imwrite` returns False for; `left` is what it
+    leaves at the path (None: nothing)."""
+
+    def __init__(self, message: str, left: bytes = None):
+        super().__init__(message)
+        self.left = left
 
 
 def unreadable(path, what: str):

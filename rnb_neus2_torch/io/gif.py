@@ -24,7 +24,7 @@ import numpy as np
 
 from . import native
 from .bytestream import ByteStream
-from .errors import unreadable, unsupported
+from .errors import ImwriteFailed, unreadable, unsupported
 from .jpeg import cvt_grey
 
 SIGNATURES = (b"GIF87a", b"GIF89a")
@@ -150,11 +150,14 @@ def encode_gif(image: np.ndarray, path="image") -> bytes:
     byte what `cv2.imwrite(".gif")` writes: the fixed palette and
     cv2's Floyd-Steinberg dithering (`native/codecs.cc:gif_dither`),
     alpha 0 as the transparent index. cv2's encoder fails on grey input
-    (its dithering asserts three or four channels); this raises
-    ValueError."""
+    (its dithering asserts three or four channels) after it has opened
+    the file: this raises `ImwriteFailed` with an empty file left."""
     image = np.asarray(image)
     if image.dtype != np.uint8:
         raise ValueError(f"{path}: GIF takes 8-bit samples, not {image.dtype}")
+    if image.ndim == 2 or image.shape[2] == 1:
+        raise ImwriteFailed(f"{path}: cv2's GIF encoder takes 3 or 4 "
+                            "channels, not grey", left=b"")
     if image.ndim != 3 or image.shape[2] not in (3, 4):
         raise ValueError(f"{path}: cv2's GIF encoder takes 3 or 4 channels, "
                          f"not shape {image.shape}")

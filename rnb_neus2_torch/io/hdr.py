@@ -22,7 +22,7 @@ from pathlib import Path
 import numpy as np
 
 from . import native
-from .errors import unreadable
+from .errors import ImwriteFailed, unreadable
 from .jpeg import cvt_grey, saturate_u8
 
 SIGNATURES = (b"#?RGBE", b"#?RADIANCE")
@@ -108,6 +108,8 @@ def encode_hdr(img: np.ndarray) -> bytes:
     img = np.asarray(img)
     if img.ndim == 2 or img.shape[2] == 1:
         img = np.repeat(img.reshape(img.shape[:2] + (1,)), 3, -1)
+    if img.shape[2] == 4:
+        raise ImwriteFailed("cv2 writes a .hdr of 1 or 3 channels, not 4")
     if img.shape[2] != 3:
         raise ValueError("cv2 writes a .hdr of 1 or 3 channels, not "
                          f"{img.shape[2]}")

@@ -25,12 +25,13 @@ testbed_nerf.cu:1504-1535):
 from __future__ import annotations
 
 import os
+from pathlib import Path
 
 import numpy as np
 
 from . import (avif, bmp, exr, gif, hdr, jpeg, jpeg2000, png, pxm, sunras,
                tiff, webp)
-from .errors import UnreadableImage, unreadable, unsupported
+from .errors import ImwriteFailed, UnreadableImage, unreadable, unsupported
 
 
 def srgb_to_linear(x: np.ndarray) -> np.ndarray:
@@ -203,12 +204,14 @@ def write_raw(path, image: np.ndarray) -> None:
     a rate capped at a quarter of the raw samples; 32 pixels a side at
     least). Formats of 8-bit samples (JPEG, BMP, Sun raster, PBM, WebP,
     GIF) take 16-bit ones saturated to 255, as cv2's conversion to 8 bits
-    does. Where cv2.imwrite returns False or raises (a colour `.pgm`, a
-    grey `.ppm` or `.gif`, a 4-channel `.pfm` or `.hdr`, a `.jp2` under
-    32 pixels a side, ...) this raises ValueError and writes nothing; so
-    do `.exr` (OpenCV's EXR encoder takes only float samples: `save_exr`
-    writes floats), `.avif`, not yet written by the port, and any other
-    extension (`.j2k` among them: cv2 5 has no writer for it)."""
+    does. Where cv2.imwrite returns False (a colour `.pgm`, a grey `.ppm`
+    or `.gif`, a 4-channel `.ppm`, `.pfm` or `.hdr`, a `.jp2` under 32
+    pixels a side) this raises `errors.ImwriteFailed`, and where it
+    raises (2 or 5 channels, ...) ValueError; either way it writes
+    nothing. So do `.exr` (OpenCV's EXR encoder takes only float
+    samples: `save_exr` writes floats), `.avif`, not yet written by the
+    port, and any other extension (`.j2k` among them: cv2 5 has no writer
+    for it)."""
     ext = os.path.splitext(str(path))[1].lower()
     image = np.asarray(image)
     if image.dtype == np.float32 and ext not in (".pfm", ".hdr", ".pic"):
@@ -255,18 +258,30 @@ def write_raw(path, image: np.ndarray) -> None:
 
 def save_image(image: np.ndarray, path, bit_depth: int = 16) -> None:
     """[0, 1] floats → 8- or 16-bit samples (NaN → 0), written by
-    `write_raw` in the format the extension names."""
+    `write_raw` in the format the extension names. Where cv2.imwrite
+    returns False, this returns as the JAX save_image does (which ignores
+    that result) and leaves what cv2 leaves: no file, an empty `.gif`, a
+    `.pfm` of "P", a `.jp2` of its header boxes."""
     image = np.nan_to_num(np.asarray(image, np.float32), nan=0.0)
     image = np.clip(image, 0.0, 1.0) * float(2 ** bit_depth - 1)
-    write_raw(path, image.astype(np.uint8 if bit_depth == 8 else np.uint16))
+    try:
+        write_raw(path, image.astype(np.uint8 if bit_depth == 8
+                                     else np.uint16))
+    except ImwriteFailed as e:
+        if e.left is not None:
+            Path(path).write_bytes(e.left)
 
 
 def save_exr(image: np.ndarray, path) -> None:
     """float32 (H, W), (H, W, 3) or (H, W, 4) → an EXR of FLOAT channels,
-    ZIP-compressed (what the JAX `save_exr` asks cv2 for), each channel
-    under its own name: Y, or R, G, B(, A). (The JAX `save_exr` reverses
-    all channels before cv2 names them B, G, R, A, so an RGBA image's R
-    lands in A there.)"""
+    ZIP-compressed, holding what the JAX `save_exr` hands cv2: an image
+    of 3 or more channels reversed, then named B, G, R(, A) as cv2's EXR
+    encoder names them. For RGB that is each channel under its own name;
+    for RGBA the file's R holds G, its G holds B, its B holds A and its A
+    holds R."""
+    image = np.asarray(image, np.float32)
+    if image.ndim == 3 and image.shape[2] == 4:
+        image = image[:, :, [1, 2, 3, 0]]
     exr.write_exr(path, image)
 
 

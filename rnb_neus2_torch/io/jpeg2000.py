@@ -34,7 +34,7 @@ from pathlib import Path
 import numpy as np
 
 from . import jpeg, native
-from .errors import check_size, unreadable, unsupported
+from .errors import ImwriteFailed, check_size, unreadable, unsupported
 
 JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
 J2K_SIGNATURE = b"\xff\x4f\xff\x51"
@@ -830,7 +830,9 @@ def encode_jp2(image: np.ndarray, path="image") -> bytes:
     (OpenCV over OpenJPEG 2.5.3 at its defaults: lossless 5/3, 5 levels,
     64x64 code-blocks, one layer in LRCP order, no MCT, the rate capped at
     a compression of 4 over the raw samples). Raises ValueError where cv2
-    raises: a side under 32 pixels, other channel counts or types."""
+    raises (other channel counts or types), `ImwriteFailed` with the JP2
+    header boxes left where OpenJPEG refuses after writing them (a side
+    under 32 pixels)."""
     image = np.asarray(image)
     if image.dtype not in (np.uint8, np.uint16):
         raise ValueError(f"{path}: JPEG 2000 takes 8- or 16-bit samples, "
@@ -840,9 +842,6 @@ def encode_jp2(image: np.ndarray, path="image") -> bytes:
         raise ValueError(f"{path}: JPEG 2000 takes 1, 3 or 4 channels, not "
                          f"shape {image.shape}")
     h, w, nc = comps.shape
-    if w < MIN_SIDE or h < MIN_SIDE:
-        raise ValueError(f"{path}: OpenJPEG refuses a {w}x{h} image: 5 "
-                         "wavelet levels need at least 32 pixels a side")
     prec = 8 * image.itemsize
     # the JP2 header boxes as OpenJPEG writes them for OpenCV
     ihdr = struct.pack(">IIHBBBB", h, w, nc, prec - 1, 7, 0, 0)
@@ -855,6 +854,10 @@ def encode_jp2(image: np.ndarray, path="image") -> bytes:
         jp2h += _jp2_box(b"cdef", cdef)
     head = JP2_SIGNATURE + _jp2_box(b"ftyp", b"jp2 \0\0\0\0jp2 ") \
         + _jp2_box(b"jp2h", jp2h)
+    if w < MIN_SIDE or h < MIN_SIDE:
+        raise ImwriteFailed(f"{path}: OpenJPEG refuses a {w}x{h} image: 5 "
+                            "wavelet levels need at least 32 pixels a side",
+                            left=head)
     siz = struct.pack(">H8IH", 0, w, h, 0, 0, w, h, 0, 0, nc) \
         + bytes([prec - 1, 1, 1]) * nc
     cod = bytes([0, 0, 0, 1, 0, 5, 4, 4, 0, 1])

@@ -49,6 +49,8 @@ SIGNATURES = {
     "vp8l_decode": [_P, _I64, _I32, _I32, _P, _P, _P, _I64],
     "vp8l_unpredict": [_P, _I32, _I32, _P, _I32],
     "vp8l_encode": [_P, _I32, _I32, _I32, _P, _I64],
+    "vp8l_analyze": [_P, _I32, _I32, _P, _P, _P],
+    "sgilog_decode": [_P, _I64, _I32, _I32, _I32, _P, _P],
     "alpha_ungradient": [_P, _I32, _I32],
     "vp8_parse": [_P, _I64, _P, _P, _P, _I64],
     "vp8_reconstruct": [_P, _P, _P, _P, _P, _P],
@@ -269,6 +271,38 @@ def vp8l_encode(rgba: np.ndarray, alpha_used: bool) -> bytes:
     if n < 0:
         raise ValueError(f"vp8l_encode failed with code {n}")
     return dst[:n].tobytes()
+
+
+def vp8l_analyze(rgba: np.ndarray) -> tuple:
+    """libwebp's lossless analysis of (h, w, 4) RGBA uint8 at cv2's
+    settings → (the RGBA libwebp's file decodes to, info = {transform set
+    (0 direct, 1 spatial, 2 subtract-green, 3 spatial + subtract-green, 4
+    palette), palette size (257: more than 256 colours), predictor tile
+    bits, tiles across, tiles down}, the predictor's modes (tiles down,
+    tiles across) or None where no spatial set was chosen)."""
+    rgba = np.ascontiguousarray(rgba, np.uint8)
+    h, w = rgba.shape[:2]
+    info = np.zeros(5, np.int32)
+    modes = np.zeros(-(-w // 4) * -(-h // 4), np.uint32)
+    out = np.empty_like(rgba)
+    _library().vp8l_analyze(ptr(rgba), w, h, ptr(info), ptr(modes), ptr(out))
+    tiles = None
+    if info[0] in (1, 3):
+        tiles = ((modes[:info[3] * info[4]] >> 8) & 0xFF).reshape(
+            info[4], info[3]).astype(np.int32)
+    return out, info, tiles
+
+
+def sgilog_decode(src: bytes, kind: int, cols: int, rows: int) -> tuple:
+    """One SGILog chunk (kind 0 LogL, 1 LogLuv32, 2 LogLuv24) → (float32
+    Y or XYZ, uint8 grey or RGB as libtiff's 8-bit interface gives it,
+    the bytes read or −(rows decoded + 1) where the data ends first)."""
+    ch = 1 if kind == 0 else 3
+    y = np.zeros((rows, cols, ch), np.float32)
+    out8 = np.zeros((rows, cols, ch), np.uint8)
+    n = _library().sgilog_decode(src, len(src), kind, cols, rows, ptr(y),
+                                 ptr(out8))
+    return y, out8, n
 
 
 def vp8l_unpredict(px: np.ndarray, modes: np.ndarray, bits: int) -> None:

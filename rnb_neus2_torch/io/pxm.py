@@ -29,7 +29,7 @@ from pathlib import Path
 import numpy as np
 
 from . import native
-from .errors import unreadable, unsupported
+from .errors import ImwriteFailed, unreadable, unsupported
 from .jpeg import cv_grey, saturate_u8
 
 _SPACE = b" \t\n\v\f\r"
@@ -299,17 +299,19 @@ def encode_pnm(img: np.ndarray, kind: str = "auto") -> bytes:
     ch = 1 if img.ndim == 2 else img.shape[2]
     if kind == "auto":
         kind = "pgm" if ch == 1 else "ppm"
+    if ch not in (1, 3, 4):
+        raise ValueError(f"cv2 writes 1, 3 or 4 channels, not {ch}")
     if kind == "pgm" and ch != 1:
-        raise ValueError("cv2 writes a .pgm from grey samples only, not "
-                         f"{ch} channels")
+        raise ImwriteFailed("cv2 writes a .pgm from grey samples only, not "
+                            f"{ch} channels")
     if kind == "ppm" and ch != 3:
-        raise ValueError("cv2 writes a .ppm from 3 channels only, not "
-                         f"{ch}")
+        raise ImwriteFailed("cv2 writes a .ppm from 3 channels only, not "
+                            f"{ch}")
     h, w = img.shape[:2]
     if kind == "pbm":
         if ch != 1:
-            raise ValueError("cv2 writes a .pbm from grey samples only, "
-                             f"not {ch} channels")
+            raise ImwriteFailed("cv2 writes a .pbm from grey samples "
+                                f"only, not {ch} channels")
         bits = (np.minimum(img, 255).astype(np.uint8) == 0)
         return b"P4\n%d %d\n" % (w, h) + np.packbits(bits, axis=1).tobytes()
     depth = img.dtype.itemsize * 8
@@ -336,9 +338,12 @@ def encode_pam(img: np.ndarray) -> bytes:
 def encode_pfm(img: np.ndarray) -> bytes:
     """cv2.imwrite's `.pfm`: 1 or 3 channels, samples converted to float32
     unscaled (uint8 255 → 255.0), little-endian (scale -1), bottom row
-    first."""
+    first. Of 4 channels cv2 writes "P" and fails."""
     img = np.asarray(img)
     ch = 1 if img.ndim == 2 else img.shape[2]
+    if ch == 4:
+        raise ImwriteFailed("cv2 writes a .pfm of 1 or 3 channels, not 4",
+                            left=b"P")
     if ch not in (1, 3):
         raise ValueError(f"cv2 writes a .pfm of 1 or 3 channels, not {ch}")
     h, w = img.shape[:2]

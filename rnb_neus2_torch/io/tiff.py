@@ -8,7 +8,10 @@ configuration 1 or 2; compression none (1), LZW (5), Deflate (8, 32946),
 PackBits (32773), JPEG (7, with JPEGTables, through `io/jpeg.py`), the
 CCITT codecs of bilevel images (2 modified Huffman, 3 T.4 1-D and 2-D,
 4 T.6, 32771 RLEW; FillOrder 2) as libtiff's tif_fax3.c decodes them,
-or ThunderScan (32809, 4-bit);
+or ThunderScan (32809, 4-bit), or SGILog (34676: LogL and LogLuv32) and
+SGILog24 (34677: LogLuv24) as libtiff's tif_luv.c decodes them
+(`native/codecs.cc:sgilog_decode`; see `_read_sgilog` for what cv2 makes
+of them);
 predictor none, horizontal differencing (2) or floating point (3);
 orientations 1-8 in every mode, as `exif.orient` (5-8 only for square
 images: cv2 transposes in place and fails on others). cv2 reads 1-, 4-
@@ -31,9 +34,9 @@ CMYK, CMYK with alpha, float16, 32- and 64-bit samples read as 8-bit
 colour or grey, and the codecs cv2's libtiff was built without
 (`NOT_CONFIGURED`: old-style JPEG, PixarLog, JBIG, LERC, LZMA, ZSTD,
 WebP). What cv2 reads and this reader does not raises
-`errors.UnsupportedImage`: SGILog, a code libtiff does not know (cv2
-reads zeros), CCITT or ThunderScan data libtiff would have to recover
-from,
+`errors.UnsupportedImage`: a code libtiff does not know (cv2 reads
+zeros), CCITT or ThunderScan data libtiff would have to recover from,
+LogLuv data that ends inside a row read as float,
 16-bit and float planar-separate files of several samples (which cv2
 decodes into uninitialized memory), 16-bit grey tiles of partial width
 read as 8-bit, grey with more than one extra sample, other photometric
@@ -64,8 +67,9 @@ COMPRESSIONS = (NONE, LZW, DEFLATE, ADOBE_DEFLATE, PACKBITS, *FAX,
 # returns None ("... compression support is not configured")
 NOT_CONFIGURED = {6: "old-style JPEG", 32909: "PixarLog", 34661: "JBIG",
                   34887: "LERC", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP"}
-# codecs cv2 decodes and this reader does not
-NOT_READ = {34676: "SGILog", 34677: "SGILog24"}
+# SGILog (libtiff's tif_luv.c): LogL / LogLuv photometrics
+SGILOG, SGILOG24 = 34676, 34677
+LOGL, LOGLUV = 32844, 32845
 FAX_ERRORS = {-1: "that ends early", -2: "with a bad code word",
               -3: "with a row of the wrong length",
               -4: "in uncompressed mode", -5: "with runs past the row",
@@ -130,6 +134,30 @@ def _ifd(blob: bytes, path):
 class _Layout:
     """What the first image needs, checked against what is read."""
 
+    def _sgilog(self, path) -> int:
+        """The kind of SGILog data (0 LogL, 1 LogLuv32, 2 LogLuv24) as
+        libtiff's LogLuvSetupDecode picks it; what it refuses is
+        unreadable (cv2 returns None)."""
+        if self.photometric not in (LOGL, LOGLUV):
+            unreadable(path, f"SGILog TIFF of PhotometricInterpretation "
+                       f"{self.photometric} (libtiff wants LogL or LogLuv)")
+        if self.planar != 1 and self.spp > 1:
+            unreadable(path, "planar-separate SGILog TIFF")
+        if self.spp != (1 if self.photometric == LOGL else 3):
+            unsupported(path, f"SGILog TIFF of {self.spp} samples per pixel "
+                        f"and PhotometricInterpretation {self.photometric}")
+        if self.photometric == LOGL and self.fmt == 3:
+            unreadable(path, "LogL TIFF of float SampleFormat")
+        if self.bits != 16 or self.fmt not in (1, 2):
+            unsupported(path, f"SGILog TIFF stored as {self.bits}-bit "
+                        f"samples of SampleFormat {self.fmt} (libtiff "
+                        "writes 16-bit signed)")
+        if self.photometric == LOGL:
+            if self.comp == SGILOG24:
+                unreadable(path, "LogL TIFF under the SGILog24 code")
+            return 0
+        return 2 if self.comp == SGILOG24 else 1
+
     def __init__(self, tags, path):
         self.tags = tags
         if 256 not in tags or 257 not in tags:
@@ -177,12 +205,12 @@ class _Layout:
             unreadable(path, f"TIFF compression {self.comp} "
                        f"({NOT_CONFIGURED[self.comp]}), which cv2's libtiff "
                        "lacks")
+        self.sgilog = None
         if self.comp == JPEG:
             if bits != 8:
                 unsupported(path, f"{bits}-bit JPEG-compressed TIFF")
-        elif self.comp in NOT_READ:
-            unsupported(path, f"TIFF compression {self.comp} "
-                        f"({NOT_READ[self.comp]})")
+        elif self.comp in (SGILOG, SGILOG24):
+            self.sgilog = self._sgilog(path)
         elif self.comp not in COMPRESSIONS:
             unsupported(path, f"TIFF compression {self.comp} (libtiff does "
                         "not know it; cv2 reads zeros)")
@@ -195,7 +223,7 @@ class _Layout:
         self.t4_options = tags.get(292, (0,))[0]
         kinds = {MINISWHITE: (1, 2), MINISBLACK: (1, 2), RGB: (3, 4),
                  PALETTE: (1,), SEPARATED: (4,), YCBCR: (3,)}
-        if spp not in kinds.get(ph, ()):
+        if self.sgilog is None and spp not in kinds.get(ph, ()):
             unsupported(path, f"TIFF with {spp} samples per pixel and "
                         f"PhotometricInterpretation {ph}")
         if bits == 1 and ph not in (MINISWHITE, MINISBLACK, PALETTE):
@@ -504,6 +532,9 @@ def read_tiff(path, mode: str = "unchanged") -> np.ndarray:
     blob = Path(path).read_bytes()
     order, tags = _ifd(blob, path)
     lay = _Layout(tags, path)
+    if lay.sgilog is not None:
+        return exif.orient(_read_sgilog(blob, lay, path, mode),
+                           lay.orientation)
     img = _decode(blob, lay, order, path)
     if not lay.rgba or (lay.raw_int8 and mode == "unchanged"):
         if mode == "unchanged":
@@ -537,6 +568,65 @@ def read_tiff(path, mode: str = "unchanged") -> np.ndarray:
     else:
         out = rgba[..., :3]
     return exif.orient(out, lay.orientation)
+
+
+# cv2's COLOR_XYZ2RGB for float samples (sRGB primaries, D65)
+XYZ2RGB = np.array([[3.240479, -1.53715, -0.498535],
+                    [-0.969256, 1.875991, 0.041556],
+                    [0.055648, -0.204043, 1.057311]], np.float32)
+
+
+def _read_sgilog(blob, lay, path, mode) -> np.ndarray:
+    """An SGILog image as cv2 reads it. LogLuv under IMREAD_UNCHANGED:
+    libtiff's float XYZ (SGILOGDATAFMT_FLOAT), then cvtColor's XYZ2BGR
+    in float32; otherwise libtiff's RGBA interface (SGILOGDATAFMT_8BIT:
+    XYZtoRGB24, a gamma of 2 on the 709 primaries; LogL L16toGry), as
+    RGB, or grey by cv2's conversion. LogL under IMREAD_UNCHANGED comes
+    back as that 8-bit grey, signed where the file's SampleFormat is (as
+    libtiff writes it)."""
+    grid = _chunk_grid(lay)
+    if len(lay.offsets) < len(grid):
+        unreadable(path, f"TIFF with {len(lay.offsets)} chunks, want "
+                   f"{len(grid)}")
+    counts = lay.counts or [len(blob) - o for o in lay.offsets]
+    ch = 1 if lay.sgilog == 0 else 3
+    xyz = np.zeros((lay.h, lay.w, ch), np.float32)
+    rgb8 = np.zeros((lay.h, lay.w, ch), np.uint8)
+    hdr = lay.sgilog and mode == "unchanged"
+    for i, (y, x, rows, cols) in enumerate(grid):
+        n_rows = lay.ch if lay.tiled else rows
+        data = blob[lay.offsets[i]:lay.offsets[i] + counts[i]]
+        f, b, n = native.sgilog_decode(data, lay.sgilog, lay.cw, n_rows)
+        if n < 0 and hdr:
+            unsupported(path, "LogLuv data that ends inside a row, read "
+                        "as float")
+        # the RGBA interface goes on past a chunk whose data ends inside a
+        # row: that row and the rest of the chunk stay 0 (libtiff zeroes
+        # its buffer and converts no row it could not decode)
+        xyz[y:y + rows, x:x + cols] = f[:rows, :cols]
+        rgb8[y:y + rows, x:x + cols] = b[:rows, :cols]
+    if lay.sgilog == 0:
+        grey = rgb8[..., 0]
+        if mode == "unchanged":
+            return grey.view(np.int8) if lay.fmt == 2 else grey
+        return grey if mode == "grey" else np.repeat(grey[..., None], 3, -1)
+    if mode == "unchanged":
+        return _xyz_to_rgb(xyz)
+    return jpeg.cv_grey(rgb8) if mode == "grey" else rgb8
+
+
+def _xyz_to_rgb(xyz: np.ndarray) -> np.ndarray:
+    """cvtColor's XYZ2BGR of float32 samples, in RGB order: row by row,
+    its 4-lane loop sums x·c0 + (y·c1 + z·c2), its scalar tail (the last
+    width % 4 pixels) (x·c0 + y·c1) + z·c2."""
+    c = XYZ2RGB
+    X, Y, Z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    lanes = np.stack([X * c[i, 0] + (Y * c[i, 1] + Z * c[i, 2])
+                      for i in range(3)], -1)
+    tail = np.stack([(X * c[i, 0] + Y * c[i, 1]) + Z * c[i, 2]
+                     for i in range(3)], -1)
+    w = xyz.shape[1] // 4 * 4
+    return np.concatenate([lanes[:, :w], tail[:, w:]], 1).astype(np.float32)
 
 
 def _apply_predictor(img: np.ndarray, predictor: int) -> np.ndarray:

@@ -360,11 +360,13 @@ def encode_webp(image: np.ndarray, path="image") -> bytes:
     uint8 samples that reads back as the file `cv2.imwrite(".webp")`
     writes at its default quality (libwebp's lossless encoder): grey as
     three equal channels, the alpha hint set where some alpha is under
-    255. The stream is the port's own simple VP8L
-    (`native/codecs.cc:vp8l_encode`), so the bytes differ from libwebp's,
-    and so does the colour under alpha 0: libwebp (`exact = 0`) leaves
-    there what its predictor guessed, which its mode search decides, and
-    this writes 0 (ROADMAP section 3)."""
+    255. The colour under alpha 0 is what libwebp leaves there at cv2's
+    settings (`exact = 0`): its analysis (`native/codecs.cc:vp8l_analyze`)
+    picks the transform set and, for a spatial one, the predictor's mode
+    per tile, and each pixel of alpha 0 takes its prediction's RGB. The
+    stream is the port's own simple VP8L (`native/codecs.cc:vp8l_encode`)
+    of those pixels, so the bytes differ from libwebp's and the pixels do
+    not."""
     image = np.asarray(image)
     if image.dtype != np.uint8:
         raise ValueError(f"{path}: WebP takes 8-bit samples, not "
@@ -380,8 +382,8 @@ def encode_webp(image: np.ndarray, path="image") -> bytes:
                          f"not {w}x{h}")
     rgba = np.full((h, w, 4), 255, np.uint8)
     rgba[..., :nc] = image
-    if nc == 4:
-        rgba[rgba[..., 3] == 0, :3] = 0
+    if nc == 4 and not rgba[..., 3].all():
+        rgba = native.vp8l_analyze(rgba)[0]
     alpha_used = nc == 4 and bool((rgba[..., 3] != 255).any())
     data = native.vp8l_encode(rgba, alpha_used)
     chunk = b"VP8L" + struct.pack("<I", len(data)) + data \

@@ -150,15 +150,10 @@ def extract_mesh(field, params, resolution: int = 512,
                  meta: Optional[SceneMeta] = None,
                  block: int = 16, coarse_factor: int = 4,
                  thresh: float = 0.0, aabb=(0.0, 1.0),
-                 with_colors: bool = False, backend: str = "auto",
-                 unit_transform=None):
+                 with_colors: bool = False, backend: str = "auto"):
     """Returns {V (world, float32), F (int64), N (vertex normals), C
     (colours or None)} as numpy arrays, plus `active_blocks` and the
     `seconds` of each stage (coarse, fine, marching_cubes, finish).
-
-    unit_transform: (V, N) → (V, N) on the unit-cube vertices and their
-    unit normals, applied after the field is queried and before the world
-    mapping (a dynamic frame's inverse rigid delta).
 
     backend: "device" keeps the fine volume on the field's device and
     triangulates there; "host" fetches it and runs the numpy marching
@@ -195,7 +190,7 @@ def extract_mesh(field, params, resolution: int = 512,
                                             span / res, thresh)
     del vol
     t.append(_now(dev))
-    mesh = _finish_mesh(field, V, F, meta, with_colors, unit_transform)
+    mesh = _finish_mesh(field, V, F, meta, with_colors)
     t.append(_now(dev))
     mesh["active_blocks"] = int(active.shape[0])
     mesh["seconds"] = dict(zip(("coarse", "fine", "marching_cubes",
@@ -222,8 +217,7 @@ def mc_slabs(vol: torch.Tensor) -> int:
 
 
 @torch.no_grad()
-def _finish_mesh(field, V, F, meta: SceneMeta, with_colors: bool,
-                 unit_transform=None) -> dict:
+def _finish_mesh(field, V, F, meta: SceneMeta, with_colors: bool) -> dict:
     """Normals from the SDF gradient, optional albedo vertex colours, and
     the unit-cube → world mapping (shared by both backends)."""
     F = F.cpu().numpy() if torch.is_tensor(F) else F
@@ -246,8 +240,6 @@ def _finish_mesh(field, V, F, meta: SceneMeta, with_colors: bool,
 
     # ---- to world space ----------------------------------------------------
     V = Vt.cpu().numpy()
-    if unit_transform is not None:
-        V, N = unit_transform(V, N)
     Vw = (V - np.asarray(meta.offset, np.float32)) / meta.scale
     Vw = meta.n2w_scale * Vw + np.asarray(meta.n2w_translation, np.float32)
     Nw = N * np.sign(meta.n2w_scale)

@@ -66,7 +66,7 @@ def compose(acc: Dict[str, torch.Tensor],
 
 def inverse_transform_points(delta: Dict[str, torch.Tensor],
                              pts: torch.Tensor) -> torch.Tensor:
-    """Canonical → frame (transform_mesh_with_6d), in the space where the
-    delta was trained: the unit cube."""
+    """Canonical → world (mesh vertices after training,
+    transform_mesh_with_6d)."""
     R = rotation_6d_to_matrix(delta["rotation6d"])
     return (pts - delta["translation"]) @ R

@@ -7,8 +7,11 @@
 // block syntax (5.11) with intra block copy (its motion vector stack,
 // 7.10.2), prediction and reconstruction (7.11-7.13), and the in-loop
 // filters in order: deblocking (7.14), CDEF (7.15) and loop restoration
-// (7.17). Superres, film grain, large-scale tile, layers and frames that
-// are not intra are refused with their own codes; so is what libaom
+// (7.17), with superres upscaling (7.16) between CDEF and loop restoration,
+// then film grain synthesis (7.18.3, av1_grain.h) on the output as
+// libaom's av1_add_film_grain applies it for libavif. Large-scale tile,
+// layers and frames that are not intra are refused with their own codes;
+// so is what libaom
 // rejects (a tile whose symbols overrun it or end without the trailing
 // bits, an invalid segment id, ...).
 //
@@ -25,6 +28,7 @@
 #include <vector>
 
 #include "av1_dsp.h"
+#include "av1_grain.h"
 #include "av1_tables.h"
 
 using namespace av1;
@@ -33,8 +37,6 @@ namespace {
 
 enum Err {
     ERR_BITSTREAM = -1,      // malformed or truncated: libaom fails too
-    ERR_FILM_GRAIN = -2,
-    ERR_SUPERRES = -3,
     ERR_LARGE_SCALE_TILE = -4,
     ERR_NOT_INTRA = -6,      // inter frame or show_existing_frame
     ERR_LAYERED = -7,        // more than one spatial layer
@@ -57,7 +59,7 @@ enum Census {
     C_DEBLOCK = 76, C_CDEF = 77, C_LR_WIENER = 78, C_LR_SGRPROJ = 79,
     C_LR_SWITCHABLE = 80, C_SEGMENTATION = 81, C_DELTA_Q = 82, C_DELTA_LF = 83,
     C_TILES = 84, C_SB128 = 85, C_QMATRIX = 86, C_LOSSLESS = 87,
-    C_SEGMENT_IDS = 94,
+    C_SEGMENT_IDS = 94, C_SUPERRES = 95, C_FILM_GRAIN = 96,
     C_COUNT = 128,
 };
 
@@ -309,6 +311,7 @@ struct Decoder {
     // ---- frame header
     int frameType = 0, showFrame = 1, errorResilient = 1, allowSct = 0, allowIntrabc = 0, disableCdfUpdate = 0;
     int FrameWidth = 0, FrameHeight = 0, MiCols = 0, MiRows = 0;
+    int SuperresDenom = 8, UpscaledWidth = 0;
     int baseQ = 0, dqYDc = 0, dqUDc = 0, dqUAc = 0, dqVDc = 0, dqVAc = 0;
     int usingQm = 0, qmY = 15, qmU = 15, qmV = 15;
     int segEnabled = 0, featEn[8][8] = {{0}}, featData[8][8] = {{0}}, segIdPreSkip = 0, lastActiveSegId = 0;
@@ -319,6 +322,7 @@ struct Decoder {
     int cdefDamping = 3, cdefBits = 0, cdefYPri[8] = {0}, cdefYSec[8] = {0}, cdefUvPri[8] = {0}, cdefUvSec[8] = {0};
     int frameRestType[3] = {0}, lrSize[3] = {256, 256, 256}, usesLr = 0;
     int txModeSelect = 0, reducedTxSet = 0;
+    FilmGrain grain;
     int tileColsLog2 = 0, tileRowsLog2 = 0, tileCols = 1, tileRows = 1;
     int miColStarts[65], miRowStarts[65], tileSizeBytes = 4;
     int headerDone = 0, tilesDone = 0;
@@ -539,10 +543,17 @@ struct Decoder {
         // frame_size, superres_params, render_size
         if (overrideSize) { FrameWidth = b.f(frameWidthBits) + 1; FrameHeight = b.f(frameHeightBits) + 1; }
         else { FrameWidth = maxW; FrameHeight = maxH; }
-        if (enSuperres && b.f(1)) throw (int)ERR_SUPERRES;
+        // superres_params (5.9.8): the frame is coded SuperresDenom / 8
+        // narrower and upscaled after CDEF (7.16)
+        int useSuperres = enSuperres ? b.f(1) : 0;
+        SuperresDenom = useSuperres ? b.f(3) + 9 : 8;
+        UpscaledWidth = FrameWidth;
+        if (useSuperres)   // at least 16 wide (or as wide as the image), as libaom
+            FrameWidth = std::max((UpscaledWidth * 8 + SuperresDenom / 2) / SuperresDenom,
+                                  std::min(16, UpscaledWidth));
         MiCols = 2 * ((FrameWidth + 7) >> 3); MiRows = 2 * ((FrameHeight + 7) >> 3);
         if (b.f(1)) { b.f(16); b.f(16); }
-        if (allowSct) allowIntrabc = b.f(1);
+        if (allowSct && UpscaledWidth == FrameWidth) allowIntrabc = b.f(1);
         if (!(reducedStill || disableCdfUpdate)) b.f(1);  // disable_frame_end_update_cdf
         tile_info(b);
         // quantization_params
@@ -640,9 +651,54 @@ struct Decoder {
         // read_tx_mode, frame_reference_mode, skip_mode, warped motion
         txModeSelect = codedLossless ? 0 : b.f(1);
         reducedTxSet = b.f(1);
-        // film_grain_params
-        if (filmGrainPresent && showFrame) { if (b.f(1)) throw (int)ERR_FILM_GRAIN; }
+        if (filmGrainPresent && showFrame) film_grain_params(b);
         headerDone = 1;
+    }
+
+    // film_grain_params (5.9.30) of an intra frame (update_grain = 1), with
+    // the checks libaom makes (av1_read_film_grain_params)
+    void film_grain_params(Bits& b) {
+        FilmGrain& g = grain;
+        g = FilmGrain();
+        g.apply = b.f(1);
+        if (!g.apply) return;
+        g.seed = b.f(16);
+        auto points = [&](int n, int (*pt)[2]) {
+            for (int i = 0; i < n; i++) {
+                pt[i][0] = b.f(8); pt[i][1] = b.f(8);
+                if (i && pt[i][0] <= pt[i - 1][0]) throw (int)ERR_BITSTREAM;
+            }
+        };
+        g.numY = b.f(4);
+        if (g.numY > 14) throw (int)ERR_BITSTREAM;
+        points(g.numY, g.pointY);
+        g.chromaFromLuma = mono ? 0 : b.f(1);
+        if (!(mono || g.chromaFromLuma || (ssx == 1 && ssy == 1 && g.numY == 0))) {
+            g.numCb = b.f(4);
+            if (g.numCb > 10) throw (int)ERR_BITSTREAM;
+            points(g.numCb, g.pointCb);
+            g.numCr = b.f(4);
+            if (g.numCr > 10) throw (int)ERR_BITSTREAM;
+            points(g.numCr, g.pointCr);
+            if (ssx == 1 && ssy == 1 && ((g.numCb == 0) != (g.numCr == 0))) throw (int)ERR_BITSTREAM;
+        }
+        g.scalingMinus8 = b.f(2);
+        g.arLag = b.f(2);
+        int numPosLuma = 2 * g.arLag * (g.arLag + 1), numPosChroma = numPosLuma;
+        if (g.numY) {
+            numPosChroma = numPosLuma + 1;
+            for (int i = 0; i < numPosLuma; i++) g.arY[i] = (int)b.f(8) - 128;
+        }
+        if (g.chromaFromLuma || g.numCb)
+            for (int i = 0; i < numPosChroma; i++) g.arCb[i] = (int)b.f(8) - 128;
+        if (g.chromaFromLuma || g.numCr)
+            for (int i = 0; i < numPosChroma; i++) g.arCr[i] = (int)b.f(8) - 128;
+        g.arShiftMinus6 = b.f(2);
+        g.scaleShift = b.f(2);
+        if (g.numCb) { g.cbMult = b.f(8); g.cbLumaMult = b.f(8); g.cbOffset = b.f(9); }
+        if (g.numCr) { g.crMult = b.f(8); g.crLumaMult = b.f(8); g.crOffset = b.f(9); }
+        g.overlap = b.f(1);
+        g.clipRestricted = b.f(1);
     }
 
     // ================================================================ frame state
@@ -672,7 +728,7 @@ struct Decoder {
             int sx = p ? ssx : 0, sy = p ? ssy : 0;
             int unitSize = lrSize[p];
             lrUnitRows[p] = count_units(unitSize, round2(FrameHeight, sy));
-            lrUnitCols[p] = count_units(unitSize, round2(FrameWidth, sx));
+            lrUnitCols[p] = count_units(unitSize, round2(UpscaledWidth, sx));
             size_t units = (size_t)lrUnitRows[p] * lrUnitCols[p];
             lrType[p].assign(units, 0); lrWiener[p].assign(units * 6, 0); lrSgr[p].assign(units * 3, 0);
         }
@@ -743,8 +799,11 @@ struct Decoder {
             int unitRows = lrUnitRows[p], unitCols = lrUnitCols[p];
             int rs = (r * (4 >> sy) + unitSize - 1) / unitSize;
             int re = std::min(unitRows, ((r + h) * (4 >> sy) + unitSize - 1) / unitSize);
-            int cs = (c * (4 >> sx) + unitSize - 1) / unitSize;
-            int ce = std::min(unitCols, ((c + w) * (4 >> sx) + unitSize - 1) / unitSize);
+            // units are counted in the upscaled width
+            int scaled = UpscaledWidth != FrameWidth;
+            int num = (4 >> sx) * (scaled ? SuperresDenom : 8), den = unitSize * 8;
+            int cs = (c * num + den - 1) / den;
+            int ce = std::min(unitCols, ((c + w) * num + den - 1) / den);
             for (int ur = rs; ur < re; ur++) for (int uc = cs; uc < ce; uc++) read_lr_unit(p, ur, uc);
         }
     }
@@ -2224,7 +2283,7 @@ struct Decoder {
         if (!usesLr) { for (int p = 0; p < numPlanes; p++) lrFrame[p] = cdefFrame[p]; return; }
         for (int p = 0; p < numPlanes; p++) lrFrame[p] = cdefFrame[p];
         for (int y = 0; y < FrameHeight; y += 4)
-            for (int x = 0; x < FrameWidth; x += 4)
+            for (int x = 0; x < UpscaledWidth; x += 4)
                 for (int p = 0; p < numPlanes; p++)
                     if (frameRestType[p] != RESTORE_NONE) lr_block(p, y >> 2, x >> 2);
     }
@@ -2239,7 +2298,7 @@ struct Decoder {
         int unitRows = lrUnitRows[plane], unitCols = lrUnitCols[plane];
         int unitRow = std::min(unitRows - 1, ((row * 4 + 8) >> sy) / unitSize);
         int unitCol = std::min(unitCols - 1, ((col * 4) >> sx) / unitSize);
-        planeEndX = round2(FrameWidth, sx) - 1;
+        planeEndX = round2(UpscaledWidth, sx) - 1;
         planeEndY = round2(FrameHeight, sy) - 1;
         int x = (col * 4) >> sx, y = (row * 4) >> sy;
         if (x > planeEndX || y > planeEndY) return;
@@ -2426,9 +2485,47 @@ struct Decoder {
         }
     }
 
+    // the upscaling process (7.16) of each plane, in place: the 8-tap
+    // normative filter at 1/64 sample, positions in 1/16384, the source
+    // clamped to the decoded width of whole 4x4 units
+    void upscale(Plane* planes) {
+        int maxv = (1 << bitDepth) - 1;
+        for (int p = 0; p < numPlanes; p++) {
+            int sx = p ? ssx : 0, sy = p ? ssy : 0;
+            int downW = round2(FrameWidth, sx), upW = round2(UpscaledWidth, sx);
+            int planeH = round2(FrameHeight, sy);
+            int stepX = ((downW << 14) + (upW / 2)) / upW;
+            int err = upW * stepX - (downW << 14);
+            int x0 = (-((upW - downW) << 13) + upW / 2) / upW + (1 << 7) - err / 2;
+            x0 &= (1 << 14) - 1;
+            int maxX = (MiCols >> sx) * 4 - 1;
+            const Plane& in = planes[p];
+            Plane out;
+            out.w = upW + 80; out.h = in.h; out.stride = out.w;
+            out.px.assign((size_t)out.w * out.h, 0);
+            for (int y = 0; y < planeH; y++)
+                for (int x = 0; x < upW; x++) {
+                    int srcX = -(1 << 14) + x0 + x * stepX;
+                    int srcPx = srcX >> 14, sub = (srcX & ((1 << 14) - 1)) >> 8;
+                    int sum = 0;
+                    for (int k = 0; k < 8; k++)
+                        sum += in.get(y, clip3(0, maxX, srcPx + k - 3)) * k_upscale_filter[sub][k];
+                    *out.at(y, x) = (uint16_t)clip3(0, maxv, round2(sum, 7));
+                }
+            planes[p] = std::move(out);
+        }
+    }
+
     void post_filters() {
         loop_filter();
         cdef();
+        // as libaom, only where the widths differ (a denominator can leave
+        // a narrow frame at its width)
+        if (UpscaledWidth != FrameWidth) {
+            census[C_SUPERRES]++;
+            upscale(frame);         // the deblocked rows loop restoration reads
+            upscale(cdefFrame);
+        }
         loop_restoration();
     }
 };
@@ -2436,7 +2533,7 @@ struct Decoder {
 }  // namespace
 
 static void fill_info(const Decoder* d, int32_t* info) {
-    info[INFO_WIDTH] = d->headerDone ? d->FrameWidth : d->maxW;
+    info[INFO_WIDTH] = d->headerDone ? d->UpscaledWidth : d->maxW;
     info[INFO_HEIGHT] = d->headerDone ? d->FrameHeight : d->maxH;
     info[INFO_BITDEPTH] = d->bitDepth; info[INFO_MONO] = d->mono;
     info[INFO_SSX] = d->ssx; info[INFO_SSY] = d->ssy;
@@ -2459,7 +2556,7 @@ extern "C" int64_t av1_decode(const uint8_t* obus, int64_t n, int32_t* info, uin
         dec->run(obus, (size_t)n, false);
         if (!dec->headerDone) throw (int)ERR_NO_FRAME;
         fill_info(dec, info);
-        int64_t W = dec->FrameWidth, H = dec->FrameHeight;
+        int64_t W = dec->UpscaledWidth, H = dec->FrameHeight;
         int64_t cw = dec->mono ? 0 : (W + dec->ssx) >> dec->ssx, ch = dec->mono ? 0 : (H + dec->ssy) >> dec->ssy;
         int64_t need = W * H + 2 * cw * ch;
         if (cap < need) { delete dec; return -need - 1000; }
@@ -2476,6 +2573,17 @@ extern "C" int64_t av1_decode(const uint8_t* obus, int64_t n, int32_t* info, uin
         if (dec->frameRestType[0] == RESTORE_SWITCHABLE || dec->frameRestType[1] == RESTORE_SWITCHABLE ||
             dec->frameRestType[2] == RESTORE_SWITCHABLE) dec->census[C_LR_SWITCHABLE] = 1;
         dec->post_filters();
+        if (dec->grain.apply) {
+            dec->census[C_FILM_GRAIN]++;
+            uint16_t* px[3] = {nullptr, nullptr, nullptr};
+            int strides[3] = {0, 0, 0};
+            for (int p = 0; p < dec->numPlanes; p++) {
+                px[p] = dec->lrFrame[p].px.data();
+                strides[p] = dec->lrFrame[p].stride;
+            }
+            GrainSynthesis(dec->grain, dec->bitDepth, dec->mono, dec->ssx, dec->ssy)
+                .apply(px, strides, (int)W, (int)H, dec->mc == 0);
+        }
         uint16_t* out = planes;
         for (int p = 0; p < dec->numPlanes; p++) {
             int64_t pw = p ? cw : W, ph = p ? ch : H;

@@ -23,7 +23,12 @@
 //                                  cache, LZ77, the transforms' sub-images;
 //                                  the predictor transform's inverse
 //   vp8l_encode                   WebP lossless, a simple VP8L stream
+//   vp8l_analyze                  libwebp's lossless analysis: transform
+//                                  set, predictor modes, and the colour
+//                                  it leaves under alpha 0
 //   alpha_ungradient              WebP ALPH's gradient filter, undone
+//   sgilog_decode                 TIFF SGILog / SGILog24 (libtiff's
+//                                  tif_luv.c), to XYZ and to 8-bit RGB
 //   vp8_parse / vp8_reconstruct   VP8 key frames: headers, modes and
 //                                  tokens; intra prediction and the loop
 //                                  filters (libwebp's dec.c / frame_dec.c)
@@ -36,6 +41,8 @@
 #include <cmath>
 #include <cstring>
 #include <vector>
+
+#include "sgilog_uv.h"
 
 namespace {
 
@@ -1709,6 +1716,166 @@ inline uint32_t clamp_half(uint32_t ave, uint32_t c) {
 
 }  // namespace
 
+// ------------------------------------------------------------- SGILog
+// libtiff 4.7.1's tif_luv.c decoders (LogL16Decode, LogLuvDecode32,
+// LogLuvDecode24) and conversions (LogL16toY, LogLuv32toXYZ,
+// LogLuv24toXYZ through uv_decode, XYZtoRGB24, L16toGry).
+namespace sgilog {
+
+constexpr double kUvScale = 410.0, kUNeu = 0.210526316, kVNeu = 0.473684211;
+constexpr float kUvSqSiz = 0.003500f, kUvVStart = 0.016940f;
+constexpr int kUvNvs = 163, kUvNDivs = 16289;
+
+double logl16_to_y(int p16) {
+  const int le = p16 & 0x7fff;
+  if (!le) return 0.0;
+  const double y = std::exp(M_LN2 / 256. * (le + .5) - M_LN2 * 64.);
+  return !(p16 & 0x8000) ? y : -y;
+}
+
+double logl10_to_y(int p10) {
+  if (p10 == 0) return 0.0;
+  return std::exp(M_LN2 / 64. * (p10 + .5) - M_LN2 * 12.);
+}
+
+int uv_decode(double* up, double* vp, int c) {
+  if (c < 0 || c >= kUvNDivs) return -1;
+  int lower = 0, upper = kUvNvs, ui, vi;
+  while (upper - lower > 1) {
+    vi = (lower + upper) >> 1;
+    ui = c - k_uv_row[vi].ncum;
+    if (ui > 0) {
+      lower = vi;
+    } else if (ui < 0) {
+      upper = vi;
+    } else {
+      lower = vi;
+      break;
+    }
+  }
+  vi = lower;
+  ui = c - k_uv_row[vi].ncum;
+  *up = k_uv_row[vi].ustart + (ui + .5) * kUvSqSiz;
+  *vp = kUvVStart + (vi + .5) * kUvSqSiz;
+  return 0;
+}
+
+void uv_to_xyz(double L, double u, double v, float* xyz) {
+  const double s = 1. / (6. * u - 16. * v + 12.);
+  const double x = 9. * u * s, y = 4. * v * s;
+  xyz[0] = static_cast<float>(x / y * L);
+  xyz[1] = static_cast<float>(L);
+  xyz[2] = static_cast<float>((1. - x - y) / y * L);
+}
+
+void luv32_to_xyz(uint32_t p, float* xyz) {
+  const double L = logl16_to_y(static_cast<int>(p) >> 16);
+  if (L <= 0.) {
+    xyz[0] = xyz[1] = xyz[2] = 0.f;
+    return;
+  }
+  uv_to_xyz(L, 1. / kUvScale * ((p >> 8 & 0xff) + .5),
+            1. / kUvScale * ((p & 0xff) + .5), xyz);
+}
+
+void luv24_to_xyz(uint32_t p, float* xyz) {
+  const double L = logl10_to_y(p >> 14 & 0x3ff);
+  if (L <= 0.) {
+    xyz[0] = xyz[1] = xyz[2] = 0.f;
+    return;
+  }
+  double u, v;
+  if (uv_decode(&u, &v, p & 0x3fff) < 0) {
+    u = kUNeu;
+    v = kVNeu;
+  }
+  uv_to_xyz(L, u, v, xyz);
+}
+
+inline uint8_t gamma8(double v) {
+  return static_cast<uint8_t>(v <= 0. ? 0 : v >= 1. ? 255
+                              : static_cast<int>(256. * std::sqrt(v)));
+}
+
+void xyz_to_rgb24(const float* xyz, uint8_t* rgb) {
+  const double r = 2.690 * xyz[0] + -1.276 * xyz[1] + -0.414 * xyz[2];
+  const double g = -1.022 * xyz[0] + 1.978 * xyz[1] + 0.044 * xyz[2];
+  const double b = 0.061 * xyz[0] + -0.224 * xyz[1] + 1.163 * xyz[2];
+  rgb[0] = gamma8(r);
+  rgb[1] = gamma8(g);
+  rgb[2] = gamma8(b);
+}
+
+// one row's byte planes, most significant first, each run-length coded
+// (a byte ≥ 128: a run of byte − 126 copies of the next; else a count of
+// literal bytes); false where the data ends first
+bool planes(const uint8_t*& bp, int64_t& cc, int nplanes, int64_t npix,
+            uint32_t* tp) {
+  std::fill(tp, tp + npix, 0u);
+  for (int shft = 8 * (nplanes - 1); shft >= 0; shft -= 8) {
+    int64_t i = 0;
+    while (i < npix && cc > 0) {
+      if (*bp >= 128) {
+        if (cc < 2) break;
+        int rc = *bp++ + (2 - 128);
+        const uint32_t b = static_cast<uint32_t>(*bp++) << shft;
+        cc -= 2;
+        while (rc-- && i < npix) tp[i++] |= b;
+      } else {
+        int rc = *bp++;
+        while (--cc && rc-- && i < npix)
+          tp[i++] |= static_cast<uint32_t>(*bp++) << shft;
+      }
+    }
+    if (i != npix) return false;
+  }
+  return true;
+}
+
+}  // namespace sgilog
+
+// One SGILog chunk of `rows` rows of `cols` pixels, decoded row by row
+// as libtiff does. kind 0: LogL (16 bits, two byte planes) → `y` (Y
+// float) and `out8` (L16toGry); kind 1: LogLuv32 (four byte planes) and
+// kind 2: LogLuv24 (three bytes a pixel) → `y` (X, Y, Z floats) and
+// `out8` (XYZtoRGB24). Returns the bytes read, or −(rows decoded + 1)
+// where the data ends inside a row.
+extern "C" int64_t sgilog_decode(const uint8_t* src, int64_t n, int32_t kind,
+                                 int32_t cols, int32_t rows, float* y,
+                                 uint8_t* out8) {
+  using namespace sgilog;
+  const uint8_t* bp = src;
+  int64_t cc = n;
+  std::vector<uint32_t> tp(cols);
+  const int ch = kind == 0 ? 1 : 3;
+  for (int r = 0; r < rows; ++r) {
+    if (kind == 2) {
+      int64_t i = 0;
+      for (; i < cols && cc >= 3; ++i, bp += 3, cc -= 3)
+        tp[i] = static_cast<uint32_t>(bp[0]) << 16 | bp[1] << 8 | bp[2];
+      if (i != cols) return -(r + 1);
+    } else if (!planes(bp, cc, kind == 0 ? 2 : 4, cols, tp.data())) {
+      return -(r + 1);
+    }
+    float* fy = y + static_cast<int64_t>(r) * cols * ch;
+    uint8_t* o8 = out8 + static_cast<int64_t>(r) * cols * ch;
+    for (int i = 0; i < cols; ++i) {
+      if (kind == 0) {
+        const double Y = logl16_to_y(static_cast<int16_t>(tp[i]));
+        fy[i] = static_cast<float>(Y);
+        o8[i] = gamma8(Y);
+      } else {
+        if (kind == 1)
+          luv32_to_xyz(tp[i], fy + 3 * i);
+        else
+          luv24_to_xyz(tp[i], fy + 3 * i);
+        xyz_to_rgb24(fy + 3 * i, o8 + 3 * i);
+      }
+    }
+  }
+  return n - cc;
+}
+
 // ------------------------------------------------ WebP lossless encoding
 // A VP8L stream (RFC 9649) of the simple kind: the subtract-green
 // transform, the predictor transform with mode 12 (ClampAddSubtractFull)
@@ -2062,6 +2229,447 @@ extern "C" int64_t vp8l_unpredict(uint32_t* px, int32_t w, int32_t h,
     }
   }
   return 0;
+}
+
+// ------------------------------------ libwebp's lossless analysis
+// What libwebp 1.5 (encoder 0x0210, the one in cv2 5) decides, at the
+// settings of cv2's WebPEncodeLossless{BGR,BGRA} (quality 70, method 4,
+// exact 0), that changes a decoded pixel: WebPReplaceTransparentPixels
+// (alpha 0 → 0x00000000), EncoderAnalyze's choice among direct,
+// subtract-green, spatial, spatial + subtract-green and palette from
+// AnalyzeEntropy's estimates, the predictor transform's tile bits
+// (GetHistoBits, GetTransformBits), GetBestPredictorForTile's mode per
+// tile on the accumulated residual histograms, and GetResidual's rule
+// for pixels of alpha 0: their RGB becomes the prediction, which later
+// predictions read. The costs are libwebp's fixed point (log2 scaled by
+// 2^23). The cross-colour transform and the entropy coding change no
+// pixel and are not analysed.
+namespace webp_analysis {
+
+constexpr int kLogBits = 23;  // LOG_2_PRECISION_BITS
+constexpr uint64_t kLog2Reciprocal = 12102203;  // 2^23 / ln 2
+constexpr int kMaxHuffImageSize = 2600, kMaxPredictorImageSize = 1 << 14;
+enum { kDirect, kSpatial, kSubGreen, kSpatialSubGreen, kPalette };
+
+struct Tables {
+  uint32_t log2[256];
+  uint64_t slog2[256];
+  Tables() {
+    for (int v = 0; v < 256; ++v) {
+      const double l = v ? std::log2(static_cast<double>(v)) : 0.0;
+      log2[v] = static_cast<uint32_t>(std::llround(l * (1 << kLogBits)));
+      slog2[v] = static_cast<uint64_t>(std::llround(v * l * (1 << kLogBits)));
+    }
+  }
+};
+const Tables& tables() {
+  static const Tables t;
+  return t;
+}
+
+inline int log2_floor(uint32_t v) { return 31 - __builtin_clz(v); }
+
+inline int64_t div_round(int64_t a, int64_t b) {
+  return ((a < 0) == (b < 0)) ? ((a + b / 2) / b) : ((a - b / 2) / b);
+}
+
+// VP8LFastLog2: log2(v) · 2^23
+uint32_t fast_log2(uint32_t v) {
+  if (v < 256) return tables().log2[v];
+  if (v < 65536) {
+    const int log_cnt = log2_floor(v) - 7;
+    const uint32_t y = 1u << log_cnt;
+    uint32_t log_2 = tables().log2[v >> log_cnt] +
+                     (static_cast<uint32_t>(log_cnt) << kLogBits);
+    if (v >= 4096) {
+      const uint64_t correction = kLog2Reciprocal * (v & (y - 1));
+      log_2 += static_cast<uint32_t>(div_round(correction, v));
+    }
+    return log_2;
+  }
+  return static_cast<uint32_t>(12102203.161561485 * std::log(v) + .5);
+}
+
+// VP8LFastSLog2: v · log2(v) · 2^23
+uint64_t fast_slog2(uint32_t v) {
+  if (v < 256) return tables().slog2[v];
+  if (v < 65536) {
+    const int log_cnt = log2_floor(v) - 7;
+    const uint32_t y = 1u << log_cnt;
+    const uint64_t correction = kLog2Reciprocal * (v & (y - 1));
+    return static_cast<uint64_t>(v) *
+               (tables().log2[v >> log_cnt] +
+                (static_cast<uint64_t>(log_cnt) << kLogBits)) +
+           correction;
+  }
+  return static_cast<uint64_t>(12102203.161561485 * v *
+                                   std::log(static_cast<double>(v)) + .5);
+}
+
+// VP8LBitsEntropy: BitEntropyUnrefined, then BitsEntropyRefine
+uint64_t bits_entropy(const uint32_t* a, int n) {
+  uint64_t sum = 0, ent = 0;
+  uint32_t max_val = 0;
+  int nonzeros = 0;
+  for (int i = 0; i < n; ++i) {
+    if (!a[i]) continue;
+    sum += a[i];
+    ++nonzeros;
+    ent += fast_slog2(a[i]);
+    max_val = std::max(max_val, a[i]);
+  }
+  ent = fast_slog2(static_cast<uint32_t>(sum)) - ent;
+  uint64_t mix;
+  if (nonzeros < 5) {
+    if (nonzeros <= 1) return 0;
+    if (nonzeros == 2)
+      return div_round(99 * static_cast<int64_t>(sum << kLogBits) +
+                           static_cast<int64_t>(ent), 100);
+    mix = nonzeros == 3 ? 950 : 700;
+  } else {
+    mix = 627;
+  }
+  int64_t min_limit = static_cast<int64_t>((2 * sum - max_val) << kLogBits);
+  min_limit = div_round(static_cast<int64_t>(mix) * min_limit +
+                            static_cast<int64_t>(1000 - mix) *
+                                static_cast<int64_t>(ent), 1000);
+  return ent < static_cast<uint64_t>(min_limit)
+             ? static_cast<uint64_t>(min_limit) : ent;
+}
+
+// VP8LCombinedShannonEntropy(X, Y): the entropy of X + Y less that of Y's
+// share, as libwebp estimates it
+uint64_t combined_entropy(const uint32_t* X, const uint32_t* Y) {
+  uint64_t ret = 0;
+  uint32_t sum_x = 0, sum_xy = 0;
+  for (int i = 0; i < 256; ++i) {
+    const uint32_t x = X[i];
+    if (x) {
+      const uint32_t xy = x + Y[i];
+      sum_x += x;
+      ret += fast_slog2(x);
+      sum_xy += xy;
+      ret += fast_slog2(xy);
+    } else if (Y[i]) {
+      sum_xy += Y[i];
+      ret += fast_slog2(Y[i]);
+    }
+  }
+  return fast_slog2(sum_x) + fast_slog2(sum_xy) - ret;
+}
+
+// PredictionCostBias(counts, 1, 94 / 100): small residuals are cheap
+int64_t cost_bias(const uint32_t* counts) {
+  uint64_t bits = static_cast<uint64_t>(counts[0]) << kLogBits;
+  uint64_t exp_val = static_cast<uint64_t>(94) << kLogBits;
+  for (int i = 1; i < 16; ++i) {
+    bits += div_round(static_cast<int64_t>(exp_val *
+                                            (counts[i] + counts[256 - i])),
+                      100);
+    exp_val = div_round(static_cast<int64_t>(6 * exp_val), 10);
+  }
+  return -div_round(static_cast<int64_t>(bits), 10);
+}
+
+inline uint32_t sub_pixels(uint32_t a, uint32_t b) {
+  return ((0x00ff00ffu + (a & 0xff00ff00u) - (b & 0xff00ff00u)) &
+          0xff00ff00u) |
+         ((0xff00ff00u + (a & 0x00ff00ffu) - (b & 0x00ff00ffu)) &
+          0x00ff00ffu);
+}
+
+inline uint32_t predict(int mode, const uint32_t* left, const uint32_t* top) {
+  const uint32_t L = left[0], T = top[0], TL = top[-1], TR = top[1];
+  switch (mode) {
+    case 1: return L;
+    case 2: return T;
+    case 3: return TR;
+    case 4: return TL;
+    case 5: return average2(average2(L, TR), T);
+    case 6: return average2(L, TL);
+    case 7: return average2(L, T);
+    case 8: return average2(TL, T);
+    case 9: return average2(T, TR);
+    case 10: return average2(average2(L, TL), average2(T, TR));
+    case 11: return select_pred(T, L, TL);
+    case 12: return clamp_full(L, T, TL);
+    case 13: return clamp_half(average2(L, T), TL);
+    default: return 0xff000000u;
+  }
+}
+
+// GetResidual at exact = 0 without near-lossless: residuals of
+// current[x_start, x_end) under `mode`; a pixel of alpha 0 takes its
+// prediction's RGB (and the pixel past the row's end, the next row's
+// first, follows a change of current[0])
+void residuals(int width, uint32_t* upper, uint32_t* current, int mode,
+               int x_start, int x_end, int y, uint32_t* out) {
+  for (int x = x_start; x < x_end; ++x) {
+    uint32_t pred;
+    if (y == 0) {
+      pred = x == 0 ? 0xff000000u : current[x - 1];
+    } else if (x == 0) {
+      pred = upper[x];
+    } else {
+      pred = predict(mode, &current[x - 1], upper + x);
+    }
+    uint32_t r = sub_pixels(current[x], pred);
+    if ((current[x] & 0xff000000u) == 0) {
+      r &= 0xff000000u;
+      current[x] = pred & 0x00ffffffu;
+      if (x == 0 && y != 0) upper[width] = current[0];
+    }
+    if (out) out[x - x_start] = r;
+  }
+}
+
+inline void add_histo(uint32_t* h, uint32_t p) {
+  ++h[p >> 24];
+  ++h[256 + ((p >> 16) & 0xff)];
+  ++h[512 + ((p >> 8) & 0xff)];
+  ++h[768 + (p & 0xff)];
+}
+
+// GetBestPredictorForTile
+int best_mode(int width, int height, int tile_x, int tile_y, int bits,
+              uint32_t* accumulated, const uint32_t* argb,
+              const uint32_t* modes, std::vector<uint32_t>& scratch) {
+  const int start_x = tile_x << bits, start_y = tile_y << bits;
+  const int tile = 1 << bits;
+  const int max_y = std::min(tile, height - start_y);
+  const int max_x = std::min(tile, width - start_x);
+  const int have_left = start_x > 0;
+  const int cx = start_x - have_left;
+  const int tiles_per_row = sub_sample(width, bits);
+  const int left_mode =
+      tile_x > 0 ? (modes[tile_y * tiles_per_row + tile_x - 1] >> 8) & 0xff
+                 : 0xff;
+  const int above_mode =
+      tile_y > 0 ? (modes[(tile_y - 1) * tiles_per_row + tile_x] >> 8) & 0xff
+                 : 0xff;
+  std::vector<uint32_t> h1(1024), h2(1024), res(tile);
+  uint32_t* histo = h1.data();
+  uint32_t* best_histo = h2.data();
+  int64_t best_cost = INT64_MAX;
+  int best = 0;
+  for (int mode = 0; mode < 14; ++mode) {
+    uint32_t* upper = scratch.data();
+    uint32_t* current = upper + width + 1;
+    std::fill(histo, histo + 1024, 0u);
+    if (start_y > 0)
+      memcpy(current + cx, argb + static_cast<int64_t>(start_y - 1) * width + cx,
+             4 * (max_x + have_left + 1));
+    for (int ry = 0; ry < max_y; ++ry) {
+      const int y = start_y + ry;
+      std::swap(upper, current);
+      memcpy(current + cx, argb + static_cast<int64_t>(y) * width + cx,
+             4 * (max_x + have_left + (y + 1 < height)));
+      residuals(width, upper, current, mode, start_x, start_x + max_x, y,
+                res.data());
+      for (int rx = 0; rx < max_x; ++rx) add_histo(histo, res[rx]);
+    }
+    int64_t cost = 0;
+    for (int c = 0; c < 4; ++c) {
+      cost += cost_bias(histo + 256 * c);
+      cost += static_cast<int64_t>(
+          combined_entropy(histo + 256 * c, accumulated + 256 * c));
+    }
+    const int64_t bias = static_cast<int64_t>(15) << kLogBits;
+    if (mode == left_mode) cost -= bias;
+    if (mode == above_mode) cost -= bias;
+    if (cost < best_cost) {
+      std::swap(histo, best_histo);
+      best_cost = cost;
+      best = mode;
+    }
+  }
+  for (int i = 0; i < 1024; ++i) accumulated[i] += best_histo[i];
+  return best;
+}
+
+inline uint32_t hash_pix(uint32_t pix) {
+  return static_cast<uint32_t>(
+             ((static_cast<uint64_t>(pix) + (pix >> 19)) * 0x39c5fba7ull) &
+             0xffffffffu) >> 24;
+}
+
+// AnalyzeEntropy: the transform set of least estimated entropy
+int analyze_entropy(const uint32_t* argb, int width, int height,
+                    bool use_palette, int palette_size, int transform_bits,
+                    int* red_and_blue_always_zero) {
+  if (use_palette && palette_size <= 16) {
+    *red_and_blue_always_zero = 1;
+    return kPalette;
+  }
+  enum { A, AP, G, GP, R, RP, B, BP, RSG, RPSG, BSG, BPSG, PAL, TOTAL };
+  std::vector<uint32_t> histo(TOTAL * 256, 0);
+  auto add = [&](uint32_t p, int a, int r, int g, int b) {
+    ++histo[a * 256 + (p >> 24)];
+    ++histo[r * 256 + ((p >> 16) & 0xff)];
+    ++histo[g * 256 + ((p >> 8) & 0xff)];
+    ++histo[b * 256 + (p & 0xff)];
+  };
+  auto add_sg = [&](uint32_t p, int r, int b) {
+    const int green = static_cast<int>(p >> 8);
+    ++histo[r * 256 + ((static_cast<int>(p >> 16) - green) & 0xff)];
+    ++histo[b * 256 + ((static_cast<int>(p) - green) & 0xff)];
+  };
+  const uint32_t* prev_row = nullptr;
+  uint32_t pix_prev = argb[0];
+  for (int y = 0; y < height; ++y) {
+    const uint32_t* row = argb + static_cast<int64_t>(y) * width;
+    for (int x = 0; x < width; ++x) {
+      const uint32_t pix = row[x];
+      const uint32_t diff = sub_pixels(pix, pix_prev);
+      pix_prev = pix;
+      if (diff == 0 || (prev_row && pix == prev_row[x])) continue;
+      add(pix, A, R, G, B);
+      add(diff, AP, RP, GP, BP);
+      add_sg(pix, RSG, BSG);
+      add_sg(diff, RPSG, BPSG);
+      ++histo[PAL * 256 + hash_pix(pix)];
+    }
+    prev_row = row;
+  }
+  for (int k : {RPSG, BPSG, RP, GP, BP, AP}) ++histo[k * 256];
+  uint64_t comp[TOTAL];
+  for (int j = 0; j < TOTAL; ++j) comp[j] = bits_entropy(&histo[j * 256], 256);
+  uint64_t entropy[5];
+  entropy[kDirect] = comp[A] + comp[R] + comp[G] + comp[B];
+  entropy[kSpatial] = comp[AP] + comp[RP] + comp[GP] + comp[BP];
+  entropy[kSubGreen] = comp[A] + comp[RSG] + comp[G] + comp[BSG];
+  entropy[kSpatialSubGreen] = comp[AP] + comp[RPSG] + comp[GP] + comp[BPSG];
+  entropy[kPalette] = comp[PAL];
+  const uint64_t tiles = static_cast<uint64_t>(sub_sample(width, transform_bits)) *
+                         sub_sample(height, transform_bits);
+  entropy[kSpatial] += tiles * fast_log2(14);
+  entropy[kSpatialSubGreen] += tiles * fast_log2(24);
+  entropy[kPalette] += (static_cast<uint64_t>(palette_size) * 8) << kLogBits;
+  const int last = use_palette ? kPalette : kSpatialSubGreen;
+  int best = kDirect;
+  for (int k = kDirect + 1; k <= last; ++k)
+    if (entropy[best] > entropy[k]) best = k;
+  static const int pairs[5][2] = {{R, B}, {RP, BP}, {RSG, BSG}, {RPSG, BPSG},
+                                  {R, B}};
+  *red_and_blue_always_zero = 1;
+  for (int i = 1; i < 256; ++i)
+    if (histo[pairs[best][0] * 256 + i] | histo[pairs[best][1] * 256 + i]) {
+      *red_and_blue_always_zero = 0;
+      break;
+    }
+  return best;
+}
+
+int clamp_bits(int width, int height, int bits, int min_bits, int max_bits,
+               int size_max) {
+  bits = std::min(std::max(bits, min_bits), max_bits);
+  int size = sub_sample(width, bits) * sub_sample(height, bits);
+  while (bits < max_bits && size > size_max) {
+    ++bits;
+    size = sub_sample(width, bits) * sub_sample(height, bits);
+  }
+  while (bits > min_bits && size == 1) {
+    size = sub_sample(width, bits - 1) * sub_sample(height, bits - 1);
+    if (size != 1) break;
+    --bits;
+  }
+  return bits;
+}
+
+}  // namespace webp_analysis
+
+// libwebp's lossless analysis of (h, w) RGBA (see webp_analysis): `out`
+// gets the RGBA a decoder of libwebp's file returns (alpha-0 pixels as
+// libwebp leaves them), `modes` the predictor's mode per tile (raster
+// order) where a spatial transform set was chosen, and info = {transform
+// set (0 direct, 1 spatial, 2 subtract-green, 3 spatial + subtract-green,
+// 4 palette), palette size (257: more than 256 colours), predictor tile
+// bits, tiles across, tiles down}. Returns the number of tiles.
+extern "C" int64_t vp8l_analyze(const uint8_t* rgba, int32_t w, int32_t h,
+                                int32_t* info, uint32_t* modes,
+                                uint8_t* out) {
+  using namespace webp_analysis;
+  const int64_t n = static_cast<int64_t>(w) * h;
+  std::vector<uint32_t> argb(n + 1, 0);
+  for (int64_t i = 0; i < n; ++i) {
+    const uint8_t* p = rgba + 4 * i;
+    argb[i] = p[3] ? (static_cast<uint32_t>(p[3]) << 24) |
+                         (static_cast<uint32_t>(p[0]) << 16) |
+                         (static_cast<uint32_t>(p[1]) << 8) | p[2]
+                   : 0u;
+  }
+  std::vector<uint32_t> colours(argb.begin(), argb.begin() + n);
+  std::sort(colours.begin(), colours.end());
+  const int palette_size = static_cast<int>(std::min<int64_t>(
+      257, std::unique(colours.begin(), colours.end()) - colours.begin()));
+  const bool use_palette = palette_size <= 256;
+  int histo_bits = (use_palette ? 9 : 7) - 4;
+  while (sub_sample(w, histo_bits) * sub_sample(h, histo_bits) >
+         kMaxHuffImageSize)
+    ++histo_bits;
+  histo_bits = std::min(std::max(histo_bits, 2), 9);
+  const int transform_bits = std::min(histo_bits, 5);
+  int rb_zero = 0;
+  const int set = analyze_entropy(argb.data(), w, h, use_palette,
+                                  palette_size, transform_bits, &rb_zero);
+  const int bits = clamp_bits(w, h, transform_bits, 2, 9,
+                              kMaxPredictorImageSize);
+  const int tw = sub_sample(w, bits), th = sub_sample(h, bits);
+  info[0] = set;
+  info[1] = palette_size;
+  info[2] = bits;
+  info[3] = tw;
+  info[4] = th;
+  const bool sub_green = set == kSpatialSubGreen;
+  if (set == kSpatial || set == kSpatialSubGreen) {
+    if (sub_green)
+      for (int64_t i = 0; i < n; ++i) {
+        const uint32_t g = (argb[i] >> 8) & 0xff;
+        const uint32_t r = (((argb[i] >> 16) & 0xff) - g) & 0xff;
+        const uint32_t b = ((argb[i] & 0xff) - g) & 0xff;
+        argb[i] = (argb[i] & 0xff00ff00u) | (r << 16) | b;
+      }
+    std::vector<uint32_t> accumulated(1024, 0), scratch(2 * (w + 1) + 2, 0);
+    for (int ty = 0; ty < th; ++ty)
+      for (int tx = 0; tx < tw; ++tx)
+        modes[ty * tw + tx] = 0xff000000u |
+            (static_cast<uint32_t>(best_mode(w, h, tx, ty, bits,
+                                             accumulated.data(), argb.data(),
+                                             modes, scratch)) << 8);
+    // CopyImageWithPrediction: the pass that writes the residuals, whose
+    // rows of cleaned pixels are what a decoder rebuilds
+    std::vector<uint32_t> rows(2 * (w + 1), 0), done(n);
+    uint32_t* upper = rows.data();
+    uint32_t* current = upper + w + 1;
+    for (int y = 0; y < h; ++y) {
+      std::swap(upper, current);
+      memcpy(current, argb.data() + static_cast<int64_t>(y) * w,
+             4 * (w + (y + 1 < h)));
+      for (int x = 0; x < w;) {
+        const int mode = (modes[(y >> bits) * tw + (x >> bits)] >> 8) & 0xff;
+        const int x_end = std::min(x + (1 << bits), static_cast<int>(w));
+        residuals(w, upper, current, mode, x, x_end, y, nullptr);
+        x = x_end;
+      }
+      memcpy(done.data() + static_cast<int64_t>(y) * w, current, 4 * w);
+    }
+    for (int64_t i = 0; i < n; ++i) argb[i] = done[i];
+    if (sub_green)
+      for (int64_t i = 0; i < n; ++i) {
+        const uint32_t g = (argb[i] >> 8) & 0xff;
+        const uint32_t r = (((argb[i] >> 16) & 0xff) + g) & 0xff;
+        const uint32_t b = ((argb[i] & 0xff) + g) & 0xff;
+        argb[i] = (argb[i] & 0xff00ff00u) | (r << 16) | b;
+      }
+  }
+  for (int64_t i = 0; i < n; ++i) {
+    uint8_t* p = out + 4 * i;
+    p[0] = (argb[i] >> 16) & 0xff;
+    p[1] = (argb[i] >> 8) & 0xff;
+    p[2] = argb[i] & 0xff;
+    p[3] = argb[i] >> 24;
+  }
+  return static_cast<int64_t>(tw) * th;
 }
 
 // The ALPH chunk's gradient filter, undone in place on (h, w) bytes.

@@ -19,11 +19,11 @@ predict_global_movement(_training_step), finetune_global_movement and the
 - then the delta is baked into the frame's cameras and the canonical
   field trains on with the `Trainer` (its occupancy grid, error map and
   guard carry over from the previous frame);
-- `extract_mesh` maps the canonical mesh into the current frame through
-  the inverse delta in unit-cube coordinates, where the delta was trained,
-  before the world mapping. (The JAX package applies it to the world-space
-  vertices, which halves the translation at the default scale 0.5 and
-  turns about the world origin; see ROADMAP.md §3.)
+- `extract_mesh` maps the canonical mesh's world-space vertices into the
+  current frame through the inverse delta, as the JAX package does (at
+  the default scale 0.5 that moves the mesh by half the delta's
+  translation, and turns it about the world origin); its faces, normals
+  and colours are the canonical mesh's.
 
 The delta phase launches no scatter kernel: the field's parameters
 require no gradient in it (`NeusField.frozen`).
@@ -177,21 +177,17 @@ class FrameSequenceTrainer:
         return self.delta
 
     def extract_mesh(self, resolution: int = 256, **kw):
-        """Mesh in the current frame's world: the canonical mesh mapped
-        through the inverse delta (transform_mesh_with_6d) in unit-cube
-        coordinates, its normals turned with it, then to world space."""
+        """Mesh in the current frame's world: the canonical world-space
+        vertices mapped through the inverse delta
+        (transform_mesh_with_6d), as the JAX package does; F, N and C are
+        the canonical mesh's."""
         from ..mesh.extract import extract_mesh
 
         tr = self.trainer
-        transform = None
+        m = extract_mesh(tr.field, tr.inference_params,
+                         resolution=resolution, meta=tr.dataset.meta, **kw)
         if self.frame > 0:
             delta = {k: v.detach().cpu() for k, v in self.delta.items()}
-            R = dn.rotation_6d_to_matrix(delta["rotation6d"]).numpy()
-
-            def transform(V, N):
-                V = dn.inverse_transform_points(delta, torch.from_numpy(V))
-                return V.numpy(), N @ R
-
-        return extract_mesh(tr.field, tr.inference_params,
-                            resolution=resolution, meta=tr.dataset.meta,
-                            unit_transform=transform, **kw)
+            m["V"] = dn.inverse_transform_points(
+                delta, torch.from_numpy(m["V"])).numpy()
+        return m

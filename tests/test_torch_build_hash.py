@@ -27,4 +27,10 @@ def test_digest_follows_included_headers(tmp_path):
 
 def test_av1_sources_hash_their_headers():
     deps = build._included(NATIVE / "av1.cc", set())
-    assert {p.name for p in deps} == {"av1_dsp.h", "av1_tables.h"}
+    assert {p.name for p in deps} == {"av1_dsp.h", "av1_grain.h",
+                                      "av1_tables.h"}
+
+
+def test_codecs_source_hashes_the_uv_table():
+    deps = build._included(NATIVE / "codecs.cc", set())
+    assert {p.name for p in deps} == {"sgilog_uv.h"}

@@ -357,13 +357,12 @@ def test_field_differentiable_positions_match_jax():
 
 
 def test_extract_mesh_in_unit_cube_coordinates():
-    """A later frame's mesh: the port applies the inverse delta in the
-    unit cube, where the delta was trained, so a translation t = −S of the
-    rays moves the canonical mesh by S in the unit cube, 2·S in world
-    space at the default scale 0.5. The JAX package applies it to
-    world-space vertices and moves the mesh by S. Both from the same
-    parameters (the geometric init's small sphere) at res 64; the
-    canonical meshes (frame 0) are equal."""
+    """A later frame's mesh equals the JAX package's: the inverse delta
+    applied to the canonical world-space vertices, F and N as the
+    canonical mesh's (the normals not turned). Both from the same
+    parameters (the geometric init's small sphere) at res 64, with a delta
+    that rotates as well as moves, so the normals are held too; the
+    canonical meshes (frame 0) are equal first."""
     jseq = jdynamic.FrameSequenceTrainer(_frame((0.5, 0.5, 0.5), True),
                                          _cfg(jconfig))
     seq = dynamic.FrameSequenceTrainer(_frame((0.5, 0.5, 0.5), False),
@@ -371,16 +370,19 @@ def test_extract_mesh_in_unit_cube_coordinates():
     seq.trainer = trainer_mod.Trainer(
         seq.trainer.dataset, seq.cfg, device="cpu",
         params=interop.params_from_jax(_np_tree(jseq.trainer.params)))
-    canon = seq.extract_mesh(resolution=64)["V"]
-    np.testing.assert_allclose(canon, jseq.extract_mesh(resolution=64)["V"],
-                               atol=1e-5)
-    assert len(canon) > 100
-    delta = {"rotation6d": np.array([1, 0, 0, 0, 1, 0], np.float32),
+    canon, jcanon = seq.extract_mesh(resolution=64), jseq.extract_mesh(
+        resolution=64)
+    np.testing.assert_allclose(canon["V"], jcanon["V"], atol=1e-5)
+    assert len(canon["V"]) > 100
+    c, s = np.cos(0.3), np.sin(0.3)
+    delta = {"rotation6d": np.array([c, s, 0, -s, c, 0], np.float32),
              "translation": -SHIFT}
     jseq.delta = {k: jnp.asarray(v) for k, v in delta.items()}
     seq.delta = interop.tensors_from_numpy(delta)
     jseq.frame = seq.frame = 1
     jm, m = jseq.extract_mesh(resolution=64), seq.extract_mesh(resolution=64)
-    np.testing.assert_allclose(m["V"], canon + 2 * SHIFT, atol=1e-5)
-    np.testing.assert_allclose(jm["V"], canon + SHIFT, atol=1e-5)
+    for k in ("V", "N"):
+        np.testing.assert_allclose(m[k], np.asarray(jm[k]), atol=1e-5)
     np.testing.assert_array_equal(m["F"], jm["F"])
+    np.testing.assert_allclose(m["N"], canon["N"], atol=0)
+    assert np.abs(m["V"] - canon["V"]).max() > 0.05

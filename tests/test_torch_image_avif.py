@@ -33,10 +33,9 @@ FILES = sorted(p.name for p in FIXTURES.glob("*.avif"))
 # broken on purpose: no AV1 item to decode
 BROKEN = {"unreadable_avif_truncated.avif", "unreadable_avif_bad_iloc.avif",
           "unreadable_avif_bad_obu.avif"}
-# cv2 reads these; the port refuses them by name
-REFUSED = {"avif_film_grain.avif": "film grain",
-           "avif_superres.avif": "superres",
-           "avif_grid.avif": "grid"}
+# cv2 reads these; the port refuses them by name (none left: film grain,
+# superres and grids are read)
+REFUSED = {}
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +45,8 @@ def expected():
 
 
 def _av1_items(path: Path):
-    """The OBUs of the primary item and of its alpha item."""
+    """The OBUs of the primary item and of its alpha item, or of their
+    grids' tiles."""
     data = path.read_bytes()
     c = avif.parse(data, path)
     out = []
@@ -54,8 +54,14 @@ def _av1_items(path: Path):
     items = [primary] + [c.items[f] for k, f, to in c.refs
                          if k == b"auxl" and c.primary in to]
     for it in items:
-        if it.type == b"av01":
-            out.append(avif.item_data(c, it, data, path))
+        if it.type == b"grid":
+            tiles = [c.items[t] for k, f, to in c.refs
+                     if k == b"dimg" and f == it.id for t in to]
+        else:
+            tiles = [it]
+        for t in tiles:
+            if t.type == b"av01":
+                out.append(avif.item_data(c, t, data, path))
     return out
 
 

@@ -226,13 +226,17 @@ def test_pil_lzma_and_zstd_are_unreadable(tmp_path, compression):
     (34676, "SGILog"), (9, "does not know it"), (34712, "does not know it"),
     (50002, "does not know it")])
 def test_codecs_cv2_reads_and_the_port_does_not(tmp_path, comp, what):
-    """SGILog is decoded by cv2's libtiff; a code libtiff does not know
-    comes back as zeros from cv2 (its strip read fails into a buffer it
-    never wrote). Both are refused by name."""
+    """SGILog is decoded by cv2's libtiff, and by the port as cv2 decodes
+    it (this hand-made LogL strip in the three modes); a code libtiff does
+    not know comes back as zeros from cv2 (its strip read fails into a
+    buffer it never wrote), and the port refuses it by name."""
     path = tmp_path / f"c{comp}.tif"
     path.write_bytes(_hand_tiff(comp, 16 if comp == 34676 else 8,
                                 32844 if comp == 34676 else 1))
     assert cv2.imread(str(path), cv2.IMREAD_UNCHANGED) is not None
+    if comp == 34676:
+        assert _like_cv2(path) == list(MODES)
+        return
     with pytest.raises(UnsupportedImage, match=what):
         image_io.read_image(path)
 

@@ -22,6 +22,7 @@ import itertools
 import json
 import os
 import struct
+import types
 import zlib
 
 import numpy as np
@@ -473,8 +474,8 @@ def test_exr_reads_the_written_arrays(tmp_path, comp, kind, chans,
 @pytest.mark.parametrize("chans", ["Y", "RGB", "RGBA"])
 def test_exr_jax_semantics_and_save_exr(tmp_path, monkeypatch, chans):
     """The JAX loaders on what cv2-with-OpenEXR gives equal the port's
-    loaders on the file; `save_exr` round-trips, each channel under its
-    own name."""
+    loaders on the file; `save_exr` writes the channels the JAX save_exr
+    hands cv2, under cv2's names."""
     img, _ = _exr_image(np.random.default_rng(9), tuple(chans), "half")
     img[1, 2] = -0.25                           # clipped by raw16
     planes = {c: img[..., i].astype("<f2") for i, c in enumerate(chans)}
@@ -488,11 +489,25 @@ def test_exr_jax_semantics_and_save_exr(tmp_path, monkeypatch, chans):
         got, want = (getattr(m, name)(path) for m in (image_io, jimage_io))
         assert got.dtype == want.dtype, name
         np.testing.assert_array_equal(got, want, err_msg=name)
+    # save_exr: the port's file holds, by channel name, the array the JAX
+    # save_exr hands cv2, under cv2's EXR names B, G, R(, A) (this cv2 has
+    # no OpenEXR, so imwrite is recorded, not run)
+    handed = []
+    monkeypatch.setattr(jimage_io, "cv2", types.SimpleNamespace(
+        imwrite=lambda p, a, params=(): handed.append(a.copy()) or True,
+        IMWRITE_EXR_TYPE=cv2.IMWRITE_EXR_TYPE,
+        IMWRITE_EXR_TYPE_FLOAT=cv2.IMWRITE_EXR_TYPE_FLOAT))
+    jimage_io.save_exr(img, tmp_path / "j.exr")
     image_io.save_exr(img, tmp_path / "s.exr")
-    np.testing.assert_array_equal(image_io.read_raw(tmp_path / "s.exr"), img)
+    (want,) = handed
+    np.testing.assert_array_equal(image_io.read_raw(tmp_path / "s.exr"),
+                                  _as_cv2(want))
     stored = exr._channels(exr._header(
         (tmp_path / "s.exr").read_bytes(), "s")[0]["channels"][1], "s")
     assert [n for n, _ in stored] == sorted(chans)
+    if chans == "RGBA":     # the file's R holds G, G B, B A and A R
+        np.testing.assert_array_equal(image_io.read_raw(tmp_path / "s.exr"),
+                                      img[..., [1, 2, 3, 0]])
 
 
 # ---------------------------------------------------------------------------
@@ -792,27 +807,59 @@ EXACT_WRITERS = (".jpg", ".jpeg", ".bmp", ".dib", ".ppm", ".pnm", ".pgm",
 @pytest.mark.parametrize("bit_depth", [8, 16])
 def test_save_image_by_extension_matches_jax(tmp_path, ext, bit_depth):
     """The port writes what the JAX save_image (cv2.imwrite) writes; where
-    cv2.imwrite returns False the JAX one writes nothing and says nothing,
-    and the port raises (ROADMAP section 3)."""
+    cv2.imwrite returns False both return and leave the same files (none,
+    or the bytes cv2 leaves)."""
     img = np.random.default_rng(bit_depth).uniform(-0.1, 1.1, (H, W, 4)) \
         .astype(np.float32)
     img[0, 0, 0] = np.nan
-    jimage_io.save_image(img, tmp_path / f"j{ext}", bit_depth)
+    _assert_saves_as_jax(tmp_path, img, ext, bit_depth)
+
+
+def _listing(d):
+    return {name: (d / name).read_bytes() for name in sorted(os.listdir(d))}
+
+
+def _assert_saves_as_jax(tmp_path, img, ext, bit_depth):
+    """The JAX save_image and the port's into fresh folders: the same
+    files, the same format, cv2's reads equal, cv2's bytes for the exact
+    writers and wherever cv2.imwrite fails."""
+    jdir, pdir = tmp_path / "jax", tmp_path / "port"
+    jdir.mkdir()
+    pdir.mkdir()
+    jimage_io.save_image(img, jdir / f"x{ext}", bit_depth)
+    image_io.save_image(img, pdir / f"x{ext}", bit_depth)
+    want, got = _listing(jdir), _listing(pdir)
+    assert sorted(got) == sorted(want)
     samples = (np.clip(np.nan_to_num(img), 0, 1) * (2 ** bit_depth - 1)) \
         .astype(np.uint8 if bit_depth == 8 else np.uint16)
     if not cv2.imwrite(str(tmp_path / f"c{ext}"), _as_cv2(samples)):
-        with pytest.raises(ValueError):
-            image_io.save_image(img, tmp_path / f"p{ext}", bit_depth)
+        assert got == want                      # what cv2 leaves
         return
-    image_io.save_image(img, tmp_path / f"p{ext}", bit_depth)
-    got = (tmp_path / f"p{ext}").read_bytes()
-    want = (tmp_path / f"j{ext}").read_bytes()
+    got, want = got[f"x{ext}"], want[f"x{ext}"]
     assert got[:4] == want[:4]                      # the same format
     if ext != ".pam":   # cv2 cannot read back the 4-channel PAM it writes
-        np.testing.assert_array_equal(_cv2_rgb(tmp_path / f"p{ext}"),
-                                      _cv2_rgb(tmp_path / f"j{ext}"))
+        np.testing.assert_array_equal(_cv2_rgb(pdir / f"x{ext}"),
+                                      _cv2_rgb(jdir / f"x{ext}"))
     if ext in EXACT_WRITERS:
         assert got == want
+
+
+@pytest.mark.parametrize("ext,chans,side", [
+    (".pgm", 3, 24), (".pbm", 4, 24), (".ppm", 1, 24), (".ppm", 4, 24),
+    (".pnm", 4, 24), (".pfm", 4, 24), (".hdr", 4, 24), (".pic", 4, 24),
+    (".gif", 1, 24), (".jp2", 1, 20), (".jp2", 3, 31), (".jp2", 4, 12),
+    (".pgm", 1, 24), (".pnm", 1, 24), (".gif", 3, 24), (".jp2", 3, 32)])
+@pytest.mark.parametrize("bit_depth", [8, 16])
+def test_save_image_where_cv2_fails_matches_jax(tmp_path, ext, chans, side,
+                                                bit_depth):
+    """Channel counts and sizes that cv2.imwrite returns False for: the
+    port returns as the JAX save_image does and leaves the same folder
+    (nothing; an empty GIF; a PFM of "P"; a JP2 of its header boxes);
+    beside each kind a case that writes."""
+    shape = (side, side + 5) + ((chans,) if chans > 1 else ())
+    img = np.random.default_rng(chans + side).uniform(0, 1, shape) \
+        .astype(np.float32)
+    _assert_saves_as_jax(tmp_path, img, ext, bit_depth)
 
 
 def test_save_image_refuses_what_cv2_refuses(tmp_path):

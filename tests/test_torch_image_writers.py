@@ -8,11 +8,13 @@ Each case writes one array with cv2.imwrite and with the port's
 agree, and the port's `read_image` agrees with cv2 on the port's file.
 The GIF and JPEG 2000 files are equal byte for byte too, including JPEG
 2000 files whose rate cap drops coding passes. A WebP's bytes are the
-port's own (a simple VP8L stream), and so is the colour under alpha 0:
-libwebp's lossless encoder leaves there whatever its predictor guessed,
-which its per-tile mode search decides, and the port writes 0 (ROADMAP
-section 3). Where cv2 fails or raises, the port raises ValueError and
-writes nothing. Sizes of 1 to 89 pixels a side keep the file fast.
+port's own (a simple VP8L stream), its pixels libwebp's, the colour under
+alpha 0 included: libwebp's lossless encoder leaves there what its
+predictor guessed, and the port's analysis (`native.vp8l_analyze`) makes
+the same choices, which the analysis cases pin against the transforms
+and the modes per tile that cv2's own files record. Where cv2 fails or
+raises, `write_raw` raises ValueError and writes nothing. Sizes of 1 to
+89 pixels a side keep the file fast.
 """
 
 import sys
@@ -25,7 +27,7 @@ cv2 = pytest.importorskip("cv2")
 
 import rnb_neus2_tpu.io.image_io as jimage_io
 from rnb_neus2_torch import api
-from rnb_neus2_torch.io import image_io
+from rnb_neus2_torch.io import image_io, native
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURES = ROOT / "tests" / "torch_fixtures" / "writers"
@@ -79,24 +81,12 @@ def _image(kind, h, w, seed):
 
 def _assert_reads_as_cv2s(port_file, cv2_file, ext, img):
     """cv2.imread of the port's file equals cv2.imread of cv2's in the
-    three modes (for WebP, but for the colour under alpha 0, which the
-    port writes as 0), and the port's reader agrees with cv2 on the port's
-    file."""
-    hidden = None
-    if ext == ".webp" and img.ndim == 3 and img.shape[2] == 4 \
-            and (img[..., 3] == 0).any():
-        hidden = img[..., 3] == 0
+    three modes, every pixel (a WebP's under alpha 0 too), and the port's
+    reader agrees with cv2 on the port's file."""
     for mode in MODES:
         got, want = _cv2_read(port_file, mode), _cv2_read(cv2_file, mode)
         assert (got.dtype, got.shape) == (want.dtype, want.shape), mode
-        if hidden is None:
-            np.testing.assert_array_equal(got, want, err_msg=mode)
-        else:
-            np.testing.assert_array_equal(got[~hidden], want[~hidden],
-                                          err_msg=mode)
-            if mode == "unchanged":
-                np.testing.assert_array_equal(got[..., 3], want[..., 3])
-            assert not got[hidden][..., :3].any(), mode
+        np.testing.assert_array_equal(got, want, err_msg=mode)
         mine = image_io.read_image(port_file, mode)
         assert (mine.dtype, mine.shape) == (got.dtype, got.shape), mode
         np.testing.assert_array_equal(mine, got, err_msg=mode)
@@ -129,6 +119,97 @@ def test_writer_matches_cv2(tmp_path, ext, kind, case):
     _assert_reads_as_cv2s(port_file, cv2_file, ext, img)
     if ext != ".webp":
         assert port_file.read_bytes() == cv2_file.read_bytes()
+
+
+def _webp_records(data: bytes) -> tuple:
+    """The transform set of a VP8L file, as libwebp's analysis names it,
+    and its predictor's (tile bits, modes per tile) or None."""
+    body = data[data.index(b"VP8L") + 8:]
+    bits = int.from_bytes(body[1:5], "little")
+    w, h = (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+    _, tinfo, tdata, n = native.vp8l_decode(body[5:], w, h)
+    assert n >= 0
+    kinds, pred = [], None
+    for kind, tbits, before, off in tinfo[:4 * n].reshape(-1, 4):
+        kinds.append(int(kind))
+        if kind == 0:
+            tw, th = -(-before // (1 << tbits)), -(-h // (1 << tbits))
+            pred = (int(tbits), ((tdata[off:off + tw * th] >> 8) & 0xFF)
+                    .reshape(th, tw))
+    if 3 in kinds:
+        return "palette", pred
+    if 0 in kinds:
+        return ("spatial+subtract-green" if 2 in kinds else "spatial"), pred
+    return ("subtract-green" if 2 in kinds else "direct"), pred
+
+
+SETS = ("direct", "spatial", "subtract-green", "spatial+subtract-green",
+        "palette")
+
+
+def _analysis_image(kind, h, w, seed):
+    """noise: independent channels, a quarter of alpha 0; grey / colour:
+    a render of a shaded disc on an alpha-0 background (RGB 0 there);
+    palette: 200 or 9 colours, a quarter of them at alpha 0."""
+    rng = np.random.default_rng(seed)
+    if kind == "noise":
+        img = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+        img[..., 3] = np.where(img[..., 3] < 64, 0, img[..., 3])
+        return img
+    if kind.startswith("palette"):
+        n = int(kind[7:])
+        colours = rng.integers(0, 256, (n, 4), dtype=np.uint8)
+        colours[:n // 4, 3] = 0
+        return colours[rng.integers(0, n, (h, w))]
+    y, x = np.mgrid[:h, :w].astype(np.float32)
+    disc = (x - w / 2) ** 2 + (y - h / 2) ** 2 < (0.42 * min(h, w)) ** 2
+    v = 90 + 60 * np.cos(x / 11) + 40 * np.sin(y / 9)
+    rgb = np.stack([v + c * 3 + (0 if kind == "grey" else
+                                 30 * np.sin(x / 5 + c) + rng.normal(0, 2, v.shape))
+                    for c in range(3)], -1)
+    img = np.concatenate([np.clip(rgb, 0, 255), 255 * disc[..., None]],
+                         -1).astype(np.uint8)
+    img[~disc, :3] = 0
+    return img
+
+
+@pytest.mark.parametrize("kind,h,w,want", [
+    ("noise", 64, 64, "direct"), ("noise", 77, 80, "direct"),
+    ("noise", 89, 71, "subtract-green"),
+    ("colour", 40, 48, "spatial"), ("colour", 45, 81, "spatial"),
+    ("colour", 31, 64, "spatial"),
+    ("colour", 160, 128, "spatial+subtract-green"),
+    ("colour", 89, 71, "spatial+subtract-green"),
+    ("grey", 40, 48, "spatial+subtract-green"),
+    ("grey", 33, 17, "spatial+subtract-green"),
+    ("palette200", 40, 48, "palette"), ("palette9", 50, 60, "palette"),
+    ("colour", 13, 7, "palette"), ("colour", 1, 89, "palette"),
+    ("colour", 89, 2, "palette")])
+def test_webp_analysis_matches_libwebp(tmp_path, kind, h, w, want):
+    """libwebp's lossless analysis at cv2's settings, case by case: the
+    transform set cv2's file records, and for a spatial set the mode of
+    every tile (cv2's file may merge equal tiles into larger ones), equal
+    the port's analysis; then the port's file decodes to cv2's pixels,
+    alpha 0 included, in the three modes. Edge tiles are cut at sizes
+    that are no multiple of the tile."""
+    img = _analysis_image(kind, h, w, h * 100 + w)
+    cv2_file, port_file = tmp_path / "cv2.webp", tmp_path / "port.webp"
+    assert _cv2_write(cv2_file, img)
+    got_set, pred = _webp_records(cv2_file.read_bytes())
+    out, info, tiles = native.vp8l_analyze(img)
+    assert (SETS[info[0]], got_set) == (want, want)
+    if pred is None:
+        assert tiles is None
+    else:
+        bits, modes = pred
+        k = bits - int(info[2])
+        assert k >= 0
+        grid = np.repeat(np.repeat(modes, 1 << k, 0), 1 << k, 1)
+        np.testing.assert_array_equal(tiles, grid[:tiles.shape[0],
+                                                  :tiles.shape[1]])
+    np.testing.assert_array_equal(out, _cv2_read(cv2_file, "unchanged"))
+    image_io.write_raw(port_file, img)
+    _assert_reads_as_cv2s(port_file, cv2_file, ".webp", img)
 
 
 @pytest.mark.parametrize("ext", EXTS)

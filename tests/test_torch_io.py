@@ -131,8 +131,9 @@ def _tiff_header(tags) -> bytes:
 
 def test_png_refuses_what_it_does_not_read(tmp_path):
     """What the readers still refuse raises by name: a PIZ-compressed EXR
-    and a film-grain AVIF file, which cv2 reads (UnsupportedImage; a
-    plain AVIF file now reads as cv2 reads it), and a
+    and an AVIF file whose ispe is not its frame's size, which cv2 reads
+    (UnsupportedImage; a plain AVIF file now reads as cv2 reads it, and
+    so does a film-grain one), and a
     hierarchical JPEG
     and an Orientation 6 TIFF, which cv2 cannot read either
     (UnreadableImage, a FileNotFoundError as the JAX loaders raise for
@@ -159,8 +160,15 @@ def test_png_refuses_what_it_does_not_read(tmp_path):
     grain = Path(__file__).parent / "torch_fixtures" / "formats" / \
         "avif_film_grain.avif"
     (tmp_path / "g.img").write_bytes(grain.read_bytes())
-    assert cv2.imread(str(tmp_path / "g.img")) is not None
-    for name, what in (("piz.exr", "PIZ"), ("g.img", "AVIF with film grain")):
+    np.testing.assert_array_equal(
+        image_io.read_image(tmp_path / "g.img", "color"),
+        cv2.imread(str(tmp_path / "g.img"))[..., ::-1])
+    blob = avif.tobytes()
+    at = blob.find(b"ispe") + 8
+    (tmp_path / "s.img").write_bytes(blob[:at] + struct.pack(">I", 17)
+                                     + blob[at + 4:])
+    assert cv2.imread(str(tmp_path / "s.img")) is not None
+    for name, what in (("piz.exr", "PIZ"), ("s.img", "ispe differs")):
         with pytest.raises(errors.UnsupportedImage,
                            match=f"{what}.*not supported"):
             image_io.load_image(tmp_path / name)

@@ -1,6 +1,7 @@
 """Write `rnb_neus2_torch/native/av1_tables.h`, the AV1 specification's
 tables that the port's AV1 decoder needs (default CDFs, quantizer lookup
-and matrices, scans, intra and filter constants), from the read-only data
+and matrices, scans, intra and filter constants, the superres upscaling
+filter and film grain's Gaussian sequence), from the read-only data
 of libaom 3.14 as the opencv-python wheel ships it, and check the header
 against that data.
 
@@ -237,6 +238,8 @@ def build(lib: Rodata) -> dict:
     t["ext_tx_inv"] = lib.get("av1_ext_tx_inv", np.int32).reshape(6, 16)
     t["ss_size_lookup"] = lib.get("av1_ss_size_lookup", np.uint8).reshape(22, 2, 2)
     t["palette_color_context"] = lib.get("av1_palette_color_index_context_lookup", np.int32)
+    t["upscale_filter"] = lib.get("av1_resize_filter_normative", i16).reshape(64, 8)
+    t["gaussian_sequence"] = lib.get("gaussian_sequence", np.int32)
     return t
 
 

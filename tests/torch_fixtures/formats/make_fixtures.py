@@ -19,6 +19,10 @@ coding tool the port's AV1 decoder has (`tests/test_torch_image_avif.py`
 holds their census), the features refused by name and what cv2 cannot
 read; `../avif_scene/` is the sphere below in AVIF.
 
+The sixteenth slice: LogLuv 32- and 24-bit and LogL TIFFs in strips and
+tiles, written by the host's libtiff (`sgilog_*.tif`); AVIF grids with
+alpha and cropped, and 612x512 film-grain and superres AVIFs.
+
 Also the JPEG 2000 / Group 4 sphere scene of `../jp2_scene/` (phase 19):
 the port's `write_sfm_scene` PNG sphere (16 views of 256x256) with its
 normals rewritten as lossless 16-bit JP2, its albedos as 8-bit JP2 at
@@ -28,7 +32,7 @@ names them), and `expected.json`, digests of what the JAX package's
 
 Needs cv2 and PIL, so it runs where the tests run, not on the card:
 
-    python tests/torch_fixtures/formats/make_fixtures.py [avif]
+    python tests/torch_fixtures/formats/make_fixtures.py [avif | sixteenth]
 """
 
 import io
@@ -462,6 +466,60 @@ def thirteenth(rng):
     return out
 
 
+def sixteenth(rng):
+    """TIFF SGILog (34676) and SGILog24 (34677), written by the host's
+    libtiff from float XYZ / Y: LogLuv 32- and 24-bit and LogL, in strips
+    and in tiles, with zeros, values past 1 (clipped by the 8-bit path),
+    negative Y (LogL's sign bit) and saturated colours; LogL under the
+    SGILog24 code, which cv2 does not read. (A 612x512 LogLuv32 view
+    takes 160 KB, past the TIFF fixtures' 64 KB: phase 19 assembles its
+    612x512 SGILog files itself.) Also AVIF grids (with alpha, cropped;
+    one of tiles libavif refuses) and the phase-19 view as film-grain and
+    superres AVIFs."""
+    import tempfile
+    out = {}
+    y, x = np.mgrid[:H, :W]
+    xyz = (smooth(rng, (H, W, 3)).astype(np.float32) / 255) ** 2 * 1.6
+    xyz[:4, :6] = 0
+    xyz[-3:, -5:] *= 40
+    xyz[5:9, 10:20] = [0.9, 0.05, 0.01]
+    xyz[20:24, 30:40] = [0.01, 0.3, 1.2]
+    lum = xyz[..., 1] * np.where((x + y) % 9 == 0, -1, 1)
+    with tempfile.TemporaryDirectory() as d:
+        p = Path(d) / "s.tif"
+        for kind, comp in (("luv32", 34676), ("luv24", 34677)):
+            out[f"sgilog_{kind}_strips.tif"] = tw.libtiff_sgilog(
+                p, xyz, comp, rows_per_strip=7)
+            out[f"sgilog_{kind}_tiles.tif"] = tw.libtiff_sgilog(
+                p, xyz, comp, tile=(16, 16))
+        out["sgilog_logl_strips.tif"] = tw.libtiff_sgilog(
+            p, lum, 34676, rows_per_strip=5)
+        out["sgilog_logl_tiles.tif"] = tw.libtiff_sgilog(p, lum, 34676,
+                                                         tile=(32, 16))
+        out["unreadable_sgilog_logl_code24.tif"] = tw.libtiff_sgilog(
+            p, lum, 34677)
+    # AVIF grids: 3x2 tiles of cv2's RGBA files (an alpha grid as the
+    # colour grid's auxl) cropped to 170x120, and tiles under 64 samples
+    # (MIAF; libavif refuses them)
+    tiles = []
+    for _ in range(6):
+        rgba = np.dstack([rich(rng, 64, 64), rng.integers(0, 256, (64, 64))
+                          .astype(np.uint8)])
+        tiles.append(cv2_avif(rgba[..., [2, 1, 0, 3]].copy()))
+    out["avif_grid_alpha.avif"] = grid_avif(tiles, 2, 3, (170, 120))
+    out["unreadable_avif_grid_small_tiles.avif"] = grid_avif(
+        cv2_avif(rich(rng, 48, 48)[..., ::-1].copy()))
+    # the phase-19 view with film grain (libaom's test vector 1) and with
+    # superres (coded 8/12 as wide), libaom's encoder through ctypes
+    view = np.round(sphere_view() * 255).astype(np.uint8)
+    out["avif_film_grain_612x512.avif"] = aom_avif(
+        view, usage=2, cq=40, options={"cpu-used": 6, "film-grain-test": 1})
+    out["avif_superres_612x512.avif"] = aom_avif(
+        view, usage=2, cq=30, options={"cpu-used": 6},
+        cfg={19: 1, 20: 12, 21: 12})
+    return out
+
+
 def rich(rng, h, w):
     """Texture with edges at many angles, discs and noise: content that
     makes an AV1 encoder use most of its intra tools."""
@@ -512,7 +570,7 @@ def aom_avif(rgb, **kw):
     from rnb_neus2_torch.io import native
     obus = tw.aom_encode(tw.rgb_to_yuv420(rgb), **kw)
     code, info, _, _ = native.av1_decode(obus)
-    assert code in (0, -3), code      # -3: superres, refused by name
+    assert code == 0, code
     return tw.avif_still(obus, info, colr=(1, 13, 6, 1))
 
 
@@ -537,22 +595,44 @@ def with_colr(blob: bytes, mc: int) -> bytes:
     return bytes(out)
 
 
-def grid_avif(tile_blob: bytes) -> bytes:
-    """A 2x2 grid derived item over four copies of a one-item AVIF's
-    tile."""
+def grid_avif(tile_blobs, rows=2, cols=2, size=None) -> bytes:
+    """A rows x cols grid derived item over one-item AVIFs' tiles (one
+    blob for every tile, or a list in raster order), of output `size`
+    (w, h; default the tiles' whole area); where the tiles carry alpha,
+    an alpha grid over their alpha items, the colour grid's `auxl`."""
     from rnb_neus2_torch.io import avif
-    c = avif.parse(tile_blob, "tile")
-    it = c.items[c.primary]
-    obus = avif.item_data(c, it, tile_blob, "tile")
-    w, h = struct.unpack(">II", avif.prop(it, b"ispe")[4:12])
-    av1c = tw.isobmff_box(b"av1C", avif.prop(it, b"av1C"))
-    tiles = [dict(id=2 + i, type=b"av01", data=obus, hidden=True,
-                  props=[tw.ispe(w, h), tw.pixi(8, 3), av1c])
-             for i in range(4)]
-    desc = bytes([0, 0, 1, 1]) + struct.pack(">HH", 2 * w, 2 * h)
-    grid = dict(id=1, type=b"grid", data=desc, method=1,
-                props=[tw.ispe(2 * w, 2 * h), tw.pixi(8, 3)])
-    return tw.avif_file([grid] + tiles, refs=[(b"dimg", 1, [2, 3, 4, 5])])
+    blobs = tile_blobs if isinstance(tile_blobs, list) \
+        else [tile_blobs] * (rows * cols)
+    colour, alpha = [], []
+    for blob in blobs:
+        c = avif.parse(blob, "tile")
+        it = c.items[c.primary]
+        aux = [c.items[f] for k, f, to in c.refs
+               if k == b"auxl" and c.primary in to]
+        for dst, item in ((colour, it), (alpha, aux[0] if aux else None)):
+            if item is None:
+                continue
+            w, h = struct.unpack(">II", avif.prop(item, b"ispe")[4:12])
+            props = [tw.ispe(w, h), tw.isobmff_box(b"av1C",
+                                                   avif.prop(item, b"av1C"))]
+            dst.append((avif.item_data(c, item, blob, "tile"), w, h, props))
+    w, h = colour[0][1], colour[0][2]
+    ow, oh = size or (cols * w, rows * h)
+    desc = bytes([0, 0, rows - 1, cols - 1]) + struct.pack(">HH", ow, oh)
+    n = rows * cols
+    items = [dict(id=1, type=b"grid", data=desc, method=1,
+                  props=[tw.ispe(ow, oh), tw.pixi(8, 3)])]
+    refs = [(b"dimg", 1, list(range(3, 3 + n)))]
+    if alpha:
+        urn = b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha\0"
+        items.append(dict(id=2, type=b"grid", data=desc, method=1,
+                          props=[tw.ispe(ow, oh), tw.pixi(8, 1),
+                                 tw.full_box(b"auxC", 0, 0, urn)]))
+        refs += [(b"auxl", 2, [1]), (b"dimg", 2, list(range(3 + n, 3 + 2 * n)))]
+    for k, (obus, tw_, th, props) in enumerate(colour + alpha):
+        items.append(dict(id=3 + k, type=b"av01", data=obus, hidden=True,
+                          props=props + [tw.pixi(8, 3 if k < n else 1)]))
+    return tw.avif_file(items, refs=refs)
 
 
 def fourteenth(rng):
@@ -687,8 +767,6 @@ def jp2_scene():
     import tempfile
 
     from rnb_neus2_torch.testing.synthetic import write_sfm_scene
-    from rnb_neus2_tpu.io.dataloaders import load_data as jload
-    from rnb_neus2_tpu.io.prepare import prepare_testbed_data as jprepare
 
     if SCENE.exists():
         shutil.rmtree(SCENE)
@@ -723,25 +801,7 @@ def jp2_scene():
         for k, v in sfm.items():
             with open(SCENE / f"{k}.sfm.json", "w") as f:
                 json.dump(v, f)
-    with tempfile.TemporaryDirectory() as d:
-        data = jload(str(SCENE / "normals.sfm.json"),
-                     albedo_sfm_path=str(SCENE / "albedos.sfm.json"),
-                     mask_sfm_path=str(SCENE / "masks.sfm.json"))
-        jprepare(data, d)
-        tj = json.load(open(Path(d) / "transform.json"))
-        expected = {"world_center": list(SCENE_CENTER), "world_radius":
-                    radius, "n2w": tj["n2w"], "frames": {}}
-        for fr in tj["frames"]:
-            rec = {}
-            for key in ("normal_path", "albedo_path"):
-                img = cv2.imread(str(Path(d) / fr[key]),
-                                 cv2.IMREAD_UNCHANGED)[..., [2, 1, 0, 3]]
-                rec[key.split("_")[0]] = array_digest(img)
-            expected["frames"][Path(fr["normal_path"]).name] = rec
-    with open(SCENE / "expected.json", "w") as f:
-        json.dump(expected, f, indent=1)
-    total = sum(p.stat().st_size for p in SCENE.rglob("*") if p.is_file())
-    print(f"jp2_scene: {total} bytes")
+    write_expected(SCENE, radius)
 
 
 AVIF_SCENE = HERE.parent / "avif_scene"
@@ -756,8 +816,6 @@ def avif_scene():
     import tempfile
 
     from rnb_neus2_torch.testing.synthetic import write_sfm_scene
-    from rnb_neus2_tpu.io.dataloaders import load_data as jload
-    from rnb_neus2_tpu.io.prepare import prepare_testbed_data as jprepare
 
     if AVIF_SCENE.exists():
         shutil.rmtree(AVIF_SCENE)
@@ -790,10 +848,88 @@ def avif_scene():
         for k, v in sfm.items():
             with open(AVIF_SCENE / f"{k}.sfm.json", "w") as f:
                 json.dump(v, f)
+    write_expected(AVIF_SCENE, radius)
+
+
+SGILOG_SCENE = HERE.parent / "sgilog_scene"
+# cv2's XYZ → RGB (sRGB primaries, D65), which the albedos go through
+# backwards so that cv2 reads them back close to the PNG scene's
+XYZ2RGB = np.array([[3.240479, -1.53715, -0.498535],
+                    [-0.969256, 1.875991, 0.041556],
+                    [0.055648, -0.204043, 1.057311]])
+
+
+def sgilog_scene():
+    """The phase-19 sphere with SGILog albedos (LogLuv of the PNG albedos'
+    float XYZ, which cv2 reads back as RGB: views 1 and 9 SGILog24, whose
+    uncompressed 3 bytes a sample take 197 KB a view, the others SGILog),
+    grid AVIF normals (each view 2x2 tiles of
+    cv2's lossless encodes, as `grid_avif` builds them) and 8-bit PNG
+    masks; and the digests of the JAX package's prepared arrays."""
+    import json
+    import shutil
+    import tempfile
+
+    from rnb_neus2_torch.testing.synthetic import write_sfm_scene
+
+    if SGILOG_SCENE.exists():
+        shutil.rmtree(SGILOG_SCENE)
+    for sub in ("normals", "albedos", "masks"):
+        (SGILOG_SCENE / sub).mkdir(parents=True)
+    to_xyz = np.linalg.inv(XYZ2RGB)
     with tempfile.TemporaryDirectory() as d:
-        data = jload(str(AVIF_SCENE / "normals.sfm.json"),
-                     albedo_sfm_path=str(AVIF_SCENE / "albedos.sfm.json"),
-                     mask_sfm_path=str(AVIF_SCENE / "masks.sfm.json"))
+        normals, albedos, masks, radius = write_sfm_scene(
+            d, "png", world_center=SCENE_CENTER, **SCENE_SPHERE)
+        sfm = {k: json.load(open(p)) for k, p in (("normals", normals),
+                                                  ("albedos", albedos))}
+        for k, view in enumerate(sfm["albedos"]["views"]):
+            src = Path(d) / view["path"]
+            rgb = cv2.imread(str(src), cv2.IMREAD_UNCHANGED)[..., 2::-1]
+            xyz = (rgb.astype(np.float64) / 65535) @ to_xyz.T
+            view["path"] = str(Path("albedos") / (src.stem + ".tif"))
+            tw.libtiff_sgilog(SGILOG_SCENE / view["path"],
+                              xyz.astype(np.float32),
+                              34677 if k % 8 == 1 else 34676,
+                              rows_per_strip=32)
+        for view in sfm["normals"]["views"]:
+            src = Path(d) / view["path"]
+            img = cv2.imread(str(src), cv2.IMREAD_COLOR)       # 8 bits
+            h, w = img.shape[:2]
+            tiles = [cv2_avif(np.ascontiguousarray(
+                img[r * h // 2:(r + 1) * h // 2, c * w // 2:(c + 1) * w // 2]),
+                cv2.IMWRITE_AVIF_QUALITY, 100)
+                for r in range(2) for c in range(2)]
+            view["path"] = str(Path("normals") / (src.stem + ".avif"))
+            (SGILOG_SCENE / view["path"]).write_bytes(
+                grid_avif(tiles, 2, 2, (w, h)))
+            assert np.array_equal(cv2.imread(str(SGILOG_SCENE / view["path"]),
+                                             cv2.IMREAD_COLOR), img)
+        mask_views = []
+        for view in sfm["normals"]["views"]:
+            pid = view["poseId"]
+            path = Path("masks") / f"{pid}.png"
+            shutil.copy(Path(masks) / f"{pid}.png", SGILOG_SCENE / path)
+            mask_views.append(dict(view, path=str(path)))
+        sfm["masks"] = dict(sfm["normals"], views=mask_views)
+        for k, v in sfm.items():
+            with open(SGILOG_SCENE / f"{k}.sfm.json", "w") as f:
+                json.dump(v, f)
+    write_expected(SGILOG_SCENE, radius)
+
+
+def write_expected(scene: Path, radius: float) -> None:
+    """`scene`/expected.json: the world sphere, the JAX package's n2w and
+    the digests of its prepared normals and albedos (RGBA, uint16)."""
+    import json
+    import tempfile
+
+    from rnb_neus2_tpu.io.dataloaders import load_data as jload
+    from rnb_neus2_tpu.io.prepare import prepare_testbed_data as jprepare
+
+    with tempfile.TemporaryDirectory() as d:
+        data = jload(str(scene / "normals.sfm.json"),
+                     albedo_sfm_path=str(scene / "albedos.sfm.json"),
+                     mask_sfm_path=str(scene / "masks.sfm.json"))
         jprepare(data, d)
         tj = json.load(open(Path(d) / "transform.json"))
         expected = {"world_center": list(SCENE_CENTER), "world_radius":
@@ -805,10 +941,10 @@ def avif_scene():
                                  cv2.IMREAD_UNCHANGED)[..., [2, 1, 0, 3]]
                 rec[key.split("_")[0]] = array_digest(img)
             expected["frames"][Path(fr["normal_path"]).name] = rec
-    with open(AVIF_SCENE / "expected.json", "w") as f:
+    with open(scene / "expected.json", "w") as f:
         json.dump(expected, f, indent=1)
-    total = sum(p.stat().st_size for p in AVIF_SCENE.rglob("*") if p.is_file())
-    print(f"avif_scene: {total} bytes")
+    total = sum(p.stat().st_size for p in scene.rglob("*") if p.is_file())
+    print(f"{scene.name}: {total} bytes")
 
 
 def cv2_rgb(path, mode):
@@ -824,12 +960,18 @@ def cv2_rgb(path, mode):
 
 
 def main():
-    """All fixtures and both scenes; `make_fixtures.py avif` rewrites only
-    the AVIF files, their entries of expected.npz and the AVIF scene."""
-    only_avif = sys.argv[1:] == ["avif"]
-    avifs = fourteenth(np.random.default_rng(17))
-    if only_avif:
-        files = avifs
+    """All fixtures and the scenes; `make_fixtures.py avif` rewrites only
+    the AVIF files, their entries of expected.npz and the AVIF scene;
+    `make_fixtures.py sixteenth` only the sixteenth slice's files (SGILog,
+    the new AVIFs) and their entries."""
+    only = sys.argv[1] if sys.argv[1:] in (["avif"], ["sixteenth"]) else None
+    if only == "sixteenth":
+        files = sixteenth(np.random.default_rng(19))
+        with np.load(HERE / "expected.npz") as z:
+            expected = {k: z[k] for k in z.files
+                        if k.split(":")[0] not in files}
+    elif only == "avif":
+        files = fourteenth(np.random.default_rng(17))
         for old in HERE.glob("*.avif"):
             old.unlink()
         with np.load(HERE / "expected.npz") as z:
@@ -838,7 +980,9 @@ def main():
     else:
         rng = np.random.default_rng(2024)
         files = {**jpegs(rng), **tiffs(rng), **more_formats(rng),
-                 **thirteenth(np.random.default_rng(16)), **avifs}
+                 **thirteenth(np.random.default_rng(16)),
+                 **fourteenth(np.random.default_rng(17)),
+                 **sixteenth(np.random.default_rng(19))}
         for old in HERE.iterdir():
             if old.suffix not in (".py", ".npz"):
                 old.unlink()
@@ -855,9 +999,12 @@ def main():
     total = sum(len(b) for b in files.values())
     print(f"{len(files)} fixtures, {total} bytes; expected.npz "
           f"{(HERE / 'expected.npz').stat().st_size} bytes")
-    if not only_avif:
+    if only is None:
         jp2_scene()
-    avif_scene()
+    if only in (None, "avif"):
+        avif_scene()
+    if only in (None, "sixteenth"):
+        sgilog_scene()
 
 
 if __name__ == "__main__":

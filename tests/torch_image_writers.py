@@ -1008,6 +1008,57 @@ def libtiff_bilevel(path, black, compression, photometric=0, fill_order=1,
         return f.read()
 
 
+def libtiff_sgilog(path, data, compression=34676, rows_per_strip=None,
+                   tile=None) -> bytes:
+    """float32 (h, w, 3) XYZ (LogLuv) or (h, w) Y (LogL) written by the
+    host's libtiff.so.6 with compression 34676 (SGILog) or 34677
+    (SGILog24) from SGILOGDATAFMT_FLOAT samples (PIL refuses the
+    photometrics); → the file's bytes. libtiff stores them as 16-bit
+    signed samples whatever the data format."""
+    import ctypes
+    lib = ctypes.CDLL("libtiff.so.6")
+    lib.TIFFOpen.restype = ctypes.c_void_p
+    lib.TIFFOpen.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    lib.TIFFClose.argtypes = [ctypes.c_void_p]
+    lib.TIFFWriteScanline.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_uint32, ctypes.c_uint16]
+    lib.TIFFWriteEncodedTile.argtypes = [ctypes.c_void_p, ctypes.c_uint32,
+                                         ctypes.c_void_p, ctypes.c_ssize_t]
+    lib.TIFFWriteEncodedTile.restype = ctypes.c_ssize_t
+    data = np.asarray(data, np.float32)
+    h, w = data.shape[:2]
+    spp = 1 if data.ndim == 2 else 3
+    tif = lib.TIFFOpen(str(path).encode(), b"w")
+    assert tif
+
+    def put(tag, v):
+        assert lib.TIFFSetField(ctypes.c_void_p(tif), ctypes.c_uint32(tag),
+                                ctypes.c_int(v)), tag
+    put(256, w)
+    put(257, h)
+    put(277, spp)
+    put(259, compression)
+    put(262, 32845 if spp == 3 else 32844)
+    put(284, 1)
+    put(65560, 0)                      # TIFFTAG_SGILOGDATAFMT: float
+    if tile:
+        put(322, tile[0])
+        put(323, tile[1])
+        for i, t in enumerate(tiles(data, *tile)):
+            t = np.ascontiguousarray(t, np.float32)
+            assert lib.TIFFWriteEncodedTile(ctypes.c_void_p(tif), i,
+                                            t.ctypes.data, t.nbytes) >= 0
+    else:
+        put(278, rows_per_strip or h)
+        for y in range(h):
+            row = np.ascontiguousarray(data[y])
+            assert lib.TIFFWriteScanline(ctypes.c_void_p(tif),
+                                         row.ctypes.data, y, 0) == 1
+    lib.TIFFClose(ctypes.c_void_p(tif))
+    with open(path, "rb") as f:
+        return f.read()
+
+
 # ITU-T T.4 tables 2 and 3 (terminating codes 0-63, make-up codes 64,
 # 128, ..., 1728, then the shared make-up codes 1792, ..., 2560)
 T4_WHITE = """00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111
