@@ -12,9 +12,10 @@ Phases, each printing JSON lines with `elapsed_s`:
    sources in the checkout, the point-to-mesh library of the Chamfer
    metric (`native/raycast.cc`, g++), the PNG row unfilter
    (`rnb_neus2_torch/native/png_unfilter.cc`, g++) and the image codecs'
-   helpers (`rnb_neus2_torch/native/codecs.cc`, g++) and the AV1 decoder
-   (`rnb_neus2_torch/native/av1.cc`, g++), all at once (one compiler per
-   library), with `-Xptxas -v` output.
+   helpers (`rnb_neus2_torch/native/codecs.cc`, g++), the AV1 decoder
+   (`rnb_neus2_torch/native/av1.cc`, g++) and the AVIF frame scaler
+   (`rnb_neus2_torch/native/scale.cc`, g++), all at once (one compiler
+   per library), with `-Xptxas -v` output.
 3. kernel vs plain: each kernel's wrapper on card tensors at the main
    path's shapes against its plain PyTorch version; max abs error ≤
    1e-5·(1 + max |plain|) (float atomics sum in another order), and every
@@ -259,14 +260,18 @@ Phases, each printing JSON lines with `elapsed_s`:
    checkout's root, this file times that checkout's package on the same
    scene). Also the committed JPEG 2000 / Group 4 sphere
    (`jp2_scene_phase`), AVIF sphere (`avif_scene_phase`: lossless
-   8-bit 4:4:4 normals, cv2-default albedos, lossless grey masks) and
+   8-bit 4:4:4 normals, cv2-default albedos, lossless grey masks),
    SGILog / grid-AVIF sphere (`sgilog_scene_phase`: SGILog and SGILog24
-   albedos, normals as 2x2 grids of lossless AVIF tiles, PNG masks); each
-   view's decode timed; normals, albedos and n2w equal to the JAX
-   package's digests; each through `run_full_pipeline` (200 steps, mesh
-   at 256; launches per level bucket, radius within a voxel), and the
-   612x512 JPEG 2000, Group 4, AVIF (8-bit q95 colour, lossless 4:4:4
-   colour, 12-bit unchanged, film grain, superres) and SGILog / SGILog24
+   albedos, normals as 2x2 grids of lossless AVIF tiles, PNG masks) and
+   sequence / layered AVIF sphere (`avis_scene_phase`: normals as 3-frame
+   AVIF sequences whose first frame is the view, albedos as 2-layer
+   spatial AVIFs, PNG masks); each view's decode timed; normals, albedos
+   and n2w equal to the JAX package's digests; each through
+   `run_full_pipeline` (200 steps, mesh at 256; launches per level
+   bucket, radius within a voxel), and the 612x512 JPEG 2000, Group 4,
+   AVIF (8-bit q95 colour, lossless 4:4:4 colour, 12-bit unchanged, film
+   grain, superres, a sequence's first frame, a 306x256 frame scaled to
+   its 612x512 ispe, a 2-layer spatial image) and SGILog / SGILog24
    (`sgilog_view`) decodes, and libwebp's lossless analysis of the
    screenshot-shaped view (`native.vp8l_analyze`) alone.
 
@@ -275,11 +280,12 @@ Phases, each printing JSON lines with `elapsed_s`:
    raster, GIF, WebP, JPEG 2000 and AVIF, written where the CPU tests run
    by its make_fixtures.py with cv2, PIL and libaom, which this host
    lacks) decoded on the host in the three read modes, equal to cv2's
-   decode in its expected.npz (SGILog TIFFs, AVIF film grain, superres
-   and grids among them), the files cv2 cannot read raising
-   UnreadableImage, none refused by name any more (`REFUSED_FIXTURES`
-   is empty; at least N_FIXTURES files) (ms per decode; the 612x512
-   files, best of 3); `python -m rnb_neus2_torch.tools.mesh_from_snapshot`
+   decode in its expected.npz (SGILog TIFFs, AVIF film grain, superres,
+   grids, sequences, scaled frames and layered images among them), the
+   files cv2 cannot read raising UnreadableImage, the two whose streams
+   use compound prediction or global motion (`REFUSED_FIXTURES`) raising
+   UnsupportedImage by name (at least N_FIXTURES files) (ms per decode;
+   the 612x512 files, best of 3); `python -m rnb_neus2_torch.tools.mesh_from_snapshot`
    as a subprocess on phase 11's scene and snapshot at resolution 256
    (GT 128): exit 0, its OBJ equal to phase 11's mesh_300.obj (faces
    equal, vertices within 1e-5), its Chamfer printed and not gated (the
@@ -345,22 +351,24 @@ FORMATS_STEPS = 200            # phase 19: stage 1 to 133, stage 2 to 200
 JP2_STEPS = 200                # phase 19's JPEG 2000 / Group 4 scene
 JP2_MESH_RES = 256
 JP2_SCENE = ROOT / "tests" / "torch_fixtures" / "jp2_scene"
-AVIF_STEPS = 200               # phase 19's AVIF scene
+AVIF_STEPS = 200               # phase 19's committed scenes
 AVIF_MESH_RES = 256
 AVIF_SCENE = ROOT / "tests" / "torch_fixtures" / "avif_scene"
 SGILOG_SCENE = ROOT / "tests" / "torch_fixtures" / "sgilog_scene"
+AVIS_SCENE = ROOT / "tests" / "torch_fixtures" / "avis_scene"
 CODEC_VIEW = (512, 612)        # phase 19's codec timings: H, W
 PHOTO = (3024, 4032)
-CODEC_REPEATS = 5
+CODEC_REPEATS = 3              # phase 19's codec rows: the median of 3 (5 until PR 20)
 SCENE_LOAD = dict(n_views=16, width=612, height=512, focal=560.0)
 SCENE_LOAD_REPEATS = 5
 PAR_READS, PAR_SYNC = 18, 25   # phase 18: 450 steps, a read per 25
 FIXTURES = ROOT / "tests" / "torch_fixtures" / "formats"   # phase 20
 FIXTURE_REPEATS = 3
-# phase 20's fixtures that cv2 reads and the port refuses by name (none
-# since film grain, superres and grids are read)
-REFUSED_FIXTURES = {}
-N_FIXTURES = 174
+# phase 20's fixtures that cv2 reads and the port refuses by name: inter
+# tools no layered image of libavif's uses
+REFUSED_FIXTURES = {"avif_refused_compound.avif": "compound prediction",
+                    "avif_refused_global_motion.avif": "global motion"}
+N_FIXTURES = 210
 TRAIN_API_STEPS = 32
 
 
@@ -2823,6 +2831,11 @@ def codec_timings(work: Path) -> dict:
             ("avif_film_grain_colour", "avif_film_grain_612x512.avif",
              "color"),
             ("avif_superres_colour", "avif_superres_612x512.avif", "color"),
+            ("avis_first_frame_colour", "avis_612x512.avif", "color"),
+            ("avif_ispe_scaled_colour", "avif_ispe_306x256_to_612x512.avif",
+             "color"),
+            ("avif_layers_spatial_colour", "avif_layers_spatial_612x512.avif",
+             "color"),
             ("tiff_group4_mask", "g4_mask_612x512.tif", "unchanged")):
         dec = []
         for _ in range(CODEC_REPEATS):
@@ -3022,6 +3035,16 @@ def avif_scene_phase(torch, kernels, root: Path, png) -> dict:
                                  "avif", [".avif"])
 
 
+def avis_scene_phase(torch, kernels, root: Path, png) -> dict:
+    """Phase 19: the committed sequence / layered AVIF sphere
+    (tests/torch_fixtures/avis_scene: normals as 3-frame AVIF sequences
+    whose first frame is the view, albedos as 2-layer spatial AVIFs
+    decoded through the AV1 inter path, PNG masks) through
+    `committed_scene_phase`."""
+    return committed_scene_phase(torch, kernels, root, png, AVIS_SCENE,
+                                 "avis", [".avif", ".png"])
+
+
 def sgilog_scene_phase(torch, kernels, root: Path, png) -> dict:
     """Phase 19: the committed SGILog / grid-AVIF sphere
     (tests/torch_fixtures/sgilog_scene: SGILog and SGILog24 albedos, grid
@@ -3162,6 +3185,7 @@ def formats_phase(torch, kernels, card) -> dict:
         jp2 = jp2_scene_phase(torch, kernels, root, png)
         avif = avif_scene_phase(torch, kernels, root, png)
         sgilog = sgilog_scene_phase(torch, kernels, root, png)
+        avis = avis_scene_phase(torch, kernels, root, png)
         log("formats_prepare", seconds=seconds, mask_files=sorted(
             {Path(p).suffix for p in mask_paths}), **cmp)
         if not (cmp["frames"] == SPHERE["n_views"] and cmp["albedo_equal"]
@@ -3207,7 +3231,7 @@ def formats_phase(torch, kernels, card) -> dict:
            "pipeline_s": total, "vertices": len(V), "faces": len(F),
            "median_radius": radius, "world_radius": r_world, "voxel": voxel,
            "codecs": codecs, "jp2_scene": jp2, "avif_scene": avif,
-           "sgilog_scene": sgilog, "card": card}
+           "sgilog_scene": sgilog, "avis_scene": avis, "card": card}
     log("formats", **row)
     if launches != want:
         raise AssertionError(f"kernel launches {launches} in "
@@ -3264,7 +3288,9 @@ def decode_fixtures() -> dict:
                  "hdr_612x512.hdr", "bmp_rle8_612x512.bmp",
                  "jp2_lossless16_612x512.jp2", "jp2_lossy8_612x512.jp2",
                  "g4_mask_612x512.tif", "avif_q95_612x512.avif",
-                 "avif_lossless444_612x512.avif", "avif_12bit_612x512.avif"):
+                 "avif_lossless444_612x512.avif", "avif_12bit_612x512.avif",
+                 "avis_612x512.avif", "avif_ispe_306x256_to_612x512.avif",
+                 "avif_layers_spatial_612x512.avif"):
         times = []
         for _ in range(FIXTURE_REPEATS):
             t0 = time.perf_counter()
@@ -3406,6 +3432,8 @@ def main() -> int:
     from rnb_neus2_torch.tools import bench_scatter as bench
     av1 = types.SimpleNamespace(_library=native._av1_library,
                                 LIBRARY=native.AV1_LIBRARY)
+    scale = types.SimpleNamespace(_library=native._scale_library,
+                                  LIBRARY=native.SCALE_LIBRARY)
 
     kernels = {"hash_grad_small": hgs, "scatter_add": sca}
     card = bench.card_name_and_power()
@@ -3415,7 +3443,7 @@ def main() -> int:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
 
-    build_all(build, [hgs, sca, raycast, png, native, av1])
+    build_all(build, [hgs, sca, raycast, png, native, av1, scale])
     errs = check_kernels_vs_plain(torch, bench, kernels, dev)
     for name, sizes in (("hash_grad_small", (4096, 13824)),
                         ("scatter_add", (39304, 125000, 373248, 1 << 19))):
@@ -3528,6 +3556,9 @@ def main() -> int:
         row["launches_formats_sgilog"] = \
             fmts["sgilog_scene"]["launches"][row["name"]]
         row["formats_sgilog_steps"] = fmts["sgilog_scene"]["step_bodies"]
+        row["launches_formats_avis"] = \
+            fmts["avis_scene"]["launches"][row["name"]]
+        row["formats_avis_steps"] = fmts["avis_scene"]["step_bodies"]
         row["launches_train_api"] = \
             final["train_api"]["launches"][row["name"]]
         row["formats_steps"] = fmts["step_bodies"]

@@ -1,18 +1,37 @@
-"""AVIF still images, read as cv2 reads them: OpenCV's grfmt_avif on
-libavif 1.4 (with its bundled libyuv) over libaom, sample for sample.
+"""AVIF images and sequences, read as cv2 reads them: OpenCV's
+grfmt_avif on libavif 1.4 (with its bundled libyuv) over libaom, sample
+for sample.
 
 The container is HEIF (ISO/IEC 23008-12) in ISOBMFF boxes: `ftyp` (major
-or compatible brand `avif`/`avis`, as libavif's
-avifPeekCompatibleFileType tests), then `meta` with `hdlr` `pict`,
-`pitm`, `iinf`/`infe`, `iloc` (versions 0-2, construction methods 0 and
-1 through `idat`), `iprp` (`ipco` properties bound by `ipma`: `av1C`,
-`ispe`, `pixi`, `colr` nclx or ICC, `auxC`, `irot`, `imir`, `clap`,
-`a1lx`, `lsel`) and `iref` (`auxl`, `prem`, `dimg`). The primary item's
-AV1 OBUs decode in `native/av1.cc` (superres upscaling and film grain
-synthesis included, as libaom hands libavif the frame); an item that is
-the primary's `auxl` with the alpha URN is its alpha plane. A `grid`
-derived item (the primary, or its alpha) is its `dimg` tiles decoded one
-by one, checked as libavif checks them and stitched (`decode_grid`).
+or compatible brand `avif`/`avis`, as libavif's avifPeekCompatibleFileType
+tests; a brand `avif` needs a `meta` box, `avis` a `moov`), `meta` with
+`hdlr` `pict`, `pitm`, `iinf`/`infe`, `iloc` (versions 0-2, construction
+methods 0 and 1 through `idat`), `iprp` (`ipco` properties bound by
+`ipma`: `av1C`, `ispe`, `pixi`, `colr` nclx or ICC, `auxC`, `irot`,
+`imir`, `clap`, `a1op`, `a1lx`, `lsel`; libavif's rules on which must be
+essential, and an item with an essential property it does not know
+ignored) and `iref` (`auxl`, `prem`, `dimg`); and `moov` with its tracks
+(`tkhd`, `tref` `auxl`/`prem`, `mdia`/`minf`/`stbl`: the `av01` sample
+entry's properties, `stsc`, `stsz`, `stco`/`co64`; `stss` and `stts`
+read and not needed for the first frame).
+
+Which image: libavif's AVIF_DECODER_SOURCE_AUTO (`source`): a major brand
+`avis` decodes the tracks, `avif` the primary item, any other the tracks
+where the file has any. From tracks, the first usable track that is no
+`auxl` of another is the colour, the first that is an `auxl` of it the
+alpha (`prem` naming it: premultiplied), and each gives its first
+sample. The AV1 OBUs of an item or a sample decode in `native/av1.cc`
+(every frame of the stream, key and inter: a layered item's layers, the
+temporal unit of a sample; superres and film grain included, as libaom
+hands libavif the frame); a layered item shows its last frame, or with
+`lsel` the first frame of that spatial layer (from the layers `a1lx`
+sizes up to it), in the operating point `a1op` names. An item whose
+primary is the `auxl` with the alpha URN is its alpha plane. A `grid`
+derived item is its `dimg` tiles decoded one by one, checked as libavif
+checks them and stitched (`decode_grid`). A frame whose size is not its
+item's `ispe` (or its track's size) is scaled to it as libavif's
+avifImageScaleWithLimit scales it: libyuv's ScalePlane / ScalePlane_12,
+box filter, in `native/scale.cc` (`scale`).
 
 cv2 returns libavif's planes without applying `irot`, `imir` or `clap`
 (libavif reports them and does not apply them; cv2 ignores the report)
@@ -22,7 +41,7 @@ values; 3 channels, or 4 with alpha; a monochrome file 1 channel (with
 alpha, cv2 fails: None). "color" is libavif's conversion to 8-bit RGB
 (alpha dropped, never multiplied in) and "grey" cvtColor's BGR2GRAY of
 that; of a monochrome file both are its Y plane (a deeper one scaled to
-8 bits by cv2's convertTo).
+8 bits by cv2's saturating convertTo).
 
 libavif converts YUV to RGB through libyuv where libyuv has the matrix
 (BT.601, BT.709, BT.2020 NCL; full and limited range; 8-bit and, to
@@ -30,15 +49,21 @@ libavif converts YUV to RGB through libyuv where libyuv has the matrix
 bilinear chroma upsampling ("Filter" functions) and its 6-bit fixed-point
 YuvPixel; otherwise (identity/GBR, monochrome, other matrices, 16-bit
 output) through its own float path (avifImageYUVToRGBAnySlow...).
-`yuv_to_rgb` below holds both, as this module's tests pin them to cv2.
+`to_rgb` below holds both, as this module's tests pin them to cv2.
 
-Refused by name (UnsupportedImage): image sequences (an `avis` file
-with a track), layered images (`lsel`, spatial layers), and an `ispe`
-other than the AV1 frame's size (libavif scales the frame to it). A
-file cv2 cannot read (truncated boxes, a broken `iloc`, a bad OBU, a
-monochrome image with alpha, an `avis` brand without a track,
-large-scale tile, `a1lx` on a single-layer item, a grid libavif refuses
-or whose `ispe` is not its output size) raises UnreadableImage.
+Refused by name (UnsupportedImage, "AVIF layer using ..."): the inter
+tools no layered image of libavif's uses (`AV1_TOOLS`: compound
+prediction, global motion, inter-frame segmentation, show_existing_frame,
+switch frames, short reference signalling, the bilinear or dual
+interpolation filters, loop filter delta updates, superres or film grain
+in an inter frame). A file cv2 cannot read (truncated boxes, a broken
+`iloc`, a bad OBU, a monochrome image with alpha, a brand without the box
+it needs, a track without `stsd`, samples or chunks that run out or past
+the file, a first sample that is no key frame, large-scale tile, an
+essential `a1lx` or one that does not fit its item, a non-essential
+`a1op` or `lsel`, an `lsel` past the layers, a zero or too large
+`ispe`, a grid libavif refuses or whose `ispe` is not its output size)
+raises UnreadableImage.
 """
 
 from __future__ import annotations
@@ -56,9 +81,17 @@ from .jpeg import cvt_grey
 BRANDS = (b"avif", b"avis")
 ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
               b"urn:mpeg:hevc:2015:auxid:1")
-# native/av1.cc's error codes
-AV1_REFUSED = {-6: "an inter frame", -7: "layers (a layered AV1 stream)"}
-LARGE_SCALE_TILE = -4        # libaom (so libavif, so cv2) fails too
+# native/av1.cc's error codes: an inter tool the port does not decode
+# (its Tool number in info["tool"]), large-scale tile (libaom, so libavif,
+# so cv2, fails too)
+AV1_TOOL = -9
+AV1_NO_FRAME = -8
+LARGE_SCALE_TILE = -4
+AV1_TOOLS = {1: "show_existing_frame", 2: "compound prediction", 3: "global motion",
+             4: "segmentation", 5: "a switch frame", 6: "short reference signalling",
+             7: "the bilinear interpolation filter", 8: "dual interpolation filters",
+             9: "loop filter delta updates", 10: "superres in an inter frame",
+             11: "film grain in an inter frame"}
 
 
 def is_avif(head: bytes) -> bool:
@@ -81,6 +114,15 @@ class Item:
     props: list = field(default_factory=list)
     extents: list = field(default_factory=list)
     method: int = 0
+    unsupported: bool = False     # an essential property libavif does not know
+
+
+# the item properties libavif parses, and those the specifications want
+# marked essential (a1op, lsel, the transforms) or not (a1lx)
+KNOWN_PROPERTIES = {b"ispe", b"auxC", b"colr", b"av1C", b"pasp", b"clap", b"irot", b"imir",
+                    b"pixi", b"a1op", b"lsel", b"a1lx", b"clli"}
+ESSENTIAL = {b"a1op", b"lsel", b"clap", b"irot", b"imir"}
+NONESSENTIAL = {b"a1lx"}
 
 
 def _boxes(data: bytes, start: int, end: int, path):
@@ -124,28 +166,181 @@ class _Reader:
 
 
 @dataclass
+class Track:
+    """A `trak` of an AVIF sequence as libavif keeps it: the tkhd's id and
+    size, its `auxl` / `prem` references, the sample entries (format and
+    property boxes) and the sample table."""
+    id: int = 0
+    width: int = 0
+    height: int = 0
+    aux_for: int = 0
+    prem_by: int = 0
+    entries: list = field(default_factory=list)   # (format, [(kind, body)])
+    has_table: bool = False
+    chunks: list = field(default_factory=list)    # chunk offsets
+    to_chunk: list = field(default_factory=list)  # (first chunk, samples)
+    all_size: int = 0
+    sizes: list = field(default_factory=list)
+
+    def props(self) -> list | None:
+        """The properties of the first av01 sample entry, or None."""
+        for fmt, props in self.entries:
+            if fmt == b"av01":
+                return props
+        return None
+
+    def samples(self, n_data: int, path) -> list:
+        """(offset, size) of every sample, as libavif's
+        avifCodecDecodeInputFillFromSampleTable lays them out: chunk by
+        chunk, each chunk's samples back to back from its offset; a chunk
+        without samples, a size table that runs out or a sample past the
+        file is UnreadableImage."""
+        out, k = [], 0
+        for index, offset in enumerate(self.chunks):
+            count = 0
+            for first, per in reversed(self.to_chunk):
+                if first <= index + 1:
+                    count = per
+                    break
+            if count == 0:
+                unreadable(path, "AVIF track with a chunk of no samples")
+            for _ in range(count):
+                size = self.all_size
+                if size == 0:
+                    if k >= len(self.sizes):
+                        unreadable(path, "AVIF track's sample table is truncated")
+                    size = self.sizes[k]
+                if offset + size > n_data:
+                    unreadable(path, "AVIF sample past the end of the file")
+                out.append((offset, size))
+                offset += size
+                k += 1
+        return out
+
+
+@dataclass
 class Container:
     items: dict
-    primary: int
+    primary: int | None
     refs: list          # (type, from, [to...])
     idat: bytes
     major: bytes
-    has_moov: bool
+    tracks: list = field(default_factory=list)
+
+
+def _parse_track(data: bytes, s: int, e: int, path) -> Track:
+    """avifParseTrackBox: tkhd (mandatory; version 0 or 1; a size of zero
+    or past libavif's limits fails), tref's auxl / prem (the first id of
+    each), and mdia/minf/stbl's boxes (each of version 0)."""
+    t, tkhd = Track(), False
+    for kind, bs, be in _boxes(data, s, e, path):
+        r = _Reader(data, bs, be, path)
+        if kind == b"tkhd":
+            v, _ = r.full()
+            if v not in (0, 1):
+                unreadable(path, f"tkhd of version {v}")
+            n = 8 if v == 1 else 4
+            r.u(n); r.u(n)
+            t.id = r.u(4)
+            r.u(4); r.u(n)
+            r.take(52)
+            t.width, t.height = r.u(4) >> 16, r.u(4) >> 16
+            if t.width == 0 or t.height == 0:
+                unreadable(path, "AVIF track of size zero")
+            check_size(path, t.width, t.height)
+            tkhd = True
+        elif kind == b"tref":
+            for k2, s2, e2 in _boxes(data, bs, be, path):
+                if k2 in (b"auxl", b"prem"):
+                    ident = _Reader(data, s2, e2, path).u(4)
+                    if k2 == b"auxl":
+                        t.aux_for = ident
+                    else:
+                        t.prem_by = ident
+        elif kind == b"mdia":
+            for k2, s2, e2 in _boxes(data, bs, be, path):
+                if k2 == b"minf":
+                    for k3, s3, e3 in _boxes(data, s2, e2, path):
+                        if k3 == b"stbl":
+                            if t.has_table:
+                                unreadable(path, "a second stbl in one track")
+                            t.has_table = True
+                            _parse_stbl(t, data, s3, e3, path)
+                elif k2 == b"mdhd":
+                    v, _ = _Reader(data, s2, e2, path).full()
+                    if v not in (0, 1):
+                        unreadable(path, f"mdhd of version {v}")
+    if not tkhd:
+        unreadable(path, "trak without tkhd")
+    return t
+
+
+def _parse_stbl(t: Track, data: bytes, s: int, e: int, path) -> None:
+    for kind, bs, be in _boxes(data, s, e, path):
+        r = _Reader(data, bs, be, path)
+        if kind not in (b"stco", b"co64", b"stsc", b"stsz", b"stss", b"stts",
+                        b"stsd"):
+            continue
+        v, _ = r.full()
+        if v != 0 and kind != b"stsd":
+            unreadable(path, f"{kind.decode()} of version {v}")
+        if kind in (b"stco", b"co64"):
+            t.chunks += [r.u(8 if kind == b"co64" else 4) for _ in range(r.u(4))]
+        elif kind == b"stsc":
+            for i in range(r.u(4)):
+                first, per = r.u(4), r.u(4)
+                r.u(4)
+                if (i == 0 and first != 1) or (i and first <= t.to_chunk[-1][0]):
+                    unreadable(path, "stsc's chunks do not start at 1 and rise")
+                t.to_chunk.append((first, per))
+        elif kind == b"stsz":
+            size, count = r.u(4), r.u(4)
+            if size:
+                t.all_size = size
+            else:
+                t.sizes += [r.u(4) for _ in range(count)]
+        elif kind == b"stss":
+            [r.u(4) for _ in range(r.u(4))]
+        elif kind == b"stts":
+            [r.u(8) for _ in range(r.u(4))]
+        else:
+            for _ in range(r.u(4)):
+                if r.end - r.p < 8:
+                    unreadable(path, "truncated sample entry")
+                size, fmt = struct.unpack(">I4s", data[r.p:r.p + 8])
+                if size < 8 or r.p + size > r.end:
+                    unreadable(path, "sample entry runs past stsd")
+                props = []
+                # the VisualSampleEntry's 78 bytes, then property boxes (libavif
+                # reads them up to the end of stsd)
+                if fmt == b"av01" and r.end - (r.p + 8) > 78:
+                    props = [(k, data[a:b]) for k, a, b in
+                             _boxes(data, r.p + 8 + 78, r.end, path)]
+                t.entries.append((fmt, props))
+                r.p += size
 
 
 def parse(data: bytes, path) -> Container:
-    major, meta, moov = b"", None, False
+    major, meta, moov, brands = b"", None, False, ()
+    tracks = []
     for kind, s, e in _boxes(data, 0, len(data), path):
         if kind == b"ftyp":
             major = data[s:s + 4]
+            brands = (major,) + tuple(data[i:i + 4] for i in range(s + 8, e - 3, 4))
         elif kind == b"meta":
             meta = (s, e)
         elif kind == b"moov":
             moov = True
+            for k2, s2, e2 in _boxes(data, s, e, path):
+                if k2 == b"trak":
+                    tracks.append(_parse_track(data, s2, e2, path))
+            if not tracks:
+                unreadable(path, "moov without a trak")
+    # libavif's avifParse: a brand `avif` needs a meta box, `avis` a moov
+    if (b"avif" in brands and meta is None) or (b"avis" in brands and not moov):
+        unreadable(path, "AVIF without the meta or moov box its brands need")
     if meta is None:
-        if moov:
-            unsupported(path, "AVIF image sequence")
-        unreadable(path, "no meta box")
+        return Container({}, None, [], b"", major, tracks)
     items, props, refs, idat, primary, handler = {}, [], [], b"", None, b""
     ipma = []
     r = _Reader(data, meta[0], meta[1], path)
@@ -203,9 +398,9 @@ def parse(data: bytes, path) -> Container:
                         iid = pb.u(2 if v < 1 else 4)
                         assoc = []
                         for _ in range(pb.u(1)):
-                            x = pb.u(2 if flags & 1 else 1)
-                            mask = 0x7FFF if flags & 1 else 0x7F
-                            assoc.append(x & mask)
+                            wide = flags & 1
+                            x = pb.u(2 if wide else 1)
+                            assoc.append((x & (0x7FFF if wide else 0x7F), bool(x >> (15 if wide else 7))))
                         ipma.append((iid, assoc))
         elif kind == b"iref":
             v, _ = b.full()
@@ -216,18 +411,27 @@ def parse(data: bytes, path) -> Container:
                 refs.append((k2, frm, [rb.u(n) for _ in range(rb.u(2))]))
     if handler != b"pict":
         unreadable(path, "meta handler is not pict")
-    if primary is None or primary not in items:
-        if moov:
-            unsupported(path, "AVIF image sequence")
-        unreadable(path, "no primary item")
     for iid, assoc in ipma:
         it = items.setdefault(iid, Item(iid))
-        for idx in assoc:
+        for idx, essential in assoc:
             if idx:
                 if idx > len(props):
                     unreadable(path, "ipma names a missing property")
+                kind = props[idx - 1][0]
+                # libavif: properties the specifications want essential or
+                # not, and an item with an essential property it does not
+                # know is ignored
+                if kind in KNOWN_PROPERTIES:
+                    if essential and kind in NONESSENTIAL:
+                        unreadable(path, f"essential {kind.decode()} property")
+                    if not essential and kind in ESSENTIAL:
+                        unreadable(path, f"non-essential {kind.decode()} property")
+                elif essential:
+                    it.unsupported = True
                 it.props.append(props[idx - 1])
-    return Container(items, primary, refs, idat, major, moov)
+    if primary not in items or items[primary].unsupported:
+        primary = None
+    return Container(items, primary, refs, idat, major, tracks)
 
 
 def item_data(c: Container, it: Item, data: bytes, path) -> bytes:
@@ -251,20 +455,93 @@ def prop(it: Item, kind: bytes):
     return None
 
 
-def decode_item(c: Container, it: Item, data: bytes, path) -> tuple:
-    """(info, planes) of an av01 item."""
-    if prop(it, b"lsel") is not None:
-        unsupported(path, "layered AVIF image (lsel)")
-    obus = item_data(c, it, data, path)
-    code, info, planes, _ = native.av1_decode(obus)
-    if code in AV1_REFUSED:
-        unsupported(path, f"AVIF with {AV1_REFUSED[code]}")
+def decode_av1(obus: bytes, path, op: int = 0, layer: int = -1) -> tuple:
+    """(info, planes) of the frame libaom hands libavif from one AV1
+    sample or item payload (its operating point `op`; the first frame of
+    spatial layer `layer`, or the last one)."""
+    code, info, planes, _ = native.av1_decode(obus, op, layer)
+    if code == AV1_NO_FRAME and layer >= 0:
+        unreadable(path, f"no frame of spatial layer {layer} (lsel)")
+    if code == AV1_TOOL:
+        unsupported(path, f"AVIF layer using {AV1_TOOLS.get(info['tool'], 'an inter tool')}")
     if code == LARGE_SCALE_TILE:
         unreadable(path, "large-scale tile (a tile list OBU)")
     if code != 0:
         unreadable(path, f"AV1 bitstream error {code}")
-    if prop(it, b"a1lx") is not None:
-        unreadable(path, "a1lx on a single-layer AV1 item")
+    return info, planes
+
+
+def scale(info: dict, planes: list, width: int, height: int, path) -> tuple:
+    """avifImageScaleWithLimit: a decoded frame whose size is not its
+    item's `ispe` (or its track's) is scaled to it, each plane to its
+    chroma-rounded size, by libyuv's box-filtered ScalePlane
+    (`native/scale.cc`); a zero size, or one past libavif's limits or
+    libyuv's 16384, is UnreadableImage."""
+    w0, h0 = info["width"], info["height"]
+    if (w0, h0) == (width, height):
+        return info, planes
+    if width == 0 or height == 0:
+        unreadable(path, "AVIF scaled to a size of zero")
+    check_size(path, width, height)
+    if w0 > 16384 or h0 > 16384:
+        unreadable(path, "AVIF frame too large for libyuv's scaler")
+    out = []
+    for p, plane in enumerate(planes):
+        sx, sy = (info["ssx"], info["ssy"]) if p else (0, 0)
+        out.append(native.scale_plane(plane, (width + sx) >> sx, (height + sy) >> sy,
+                                      info["bit_depth"]))
+    return dict(info, width=width, height=height), out
+
+
+def layer_sizes(a1lx: bytes, total: int, path) -> list:
+    """The layer sizes of an `a1lx` property as libavif reads them: three
+    sizes of 16 (or, with the large_size flag, 32) bits, a zero ending the
+    list, and the rest of the item as the last layer; a size that leaves
+    no room for the layers after it is UnreadableImage."""
+    n = 4 if a1lx[:1] and a1lx[0] & 1 else 2
+    if len(a1lx) < 1 + 3 * n:
+        unreadable(path, "truncated a1lx")
+    sizes, remaining = [], total
+    for i in range(3):
+        size = int.from_bytes(a1lx[1 + i * n:1 + (i + 1) * n], "big")
+        if size == 0:
+            sizes.append(remaining)
+            remaining = 0
+            break
+        if size >= remaining:
+            unreadable(path, f"a1lx layer {i} does not fit in its item")
+        sizes.append(size)
+        remaining -= size
+    if remaining > 0:
+        sizes.append(remaining)
+    return sizes
+
+
+def decode_item(c: Container, it: Item, data: bytes, path) -> tuple:
+    """(info, planes) of an av01 item, scaled to its `ispe`. A layered item
+    decodes all its layers (in the operating point `a1op` names) and gives
+    the last frame, or with `lsel` the first frame of that spatial layer
+    from the layers up to it (as `a1lx` sizes them) — as libavif decodes
+    for cv2, progressive decoding off."""
+    obus = item_data(c, it, data, path)
+    a1lx, lsel, a1op = prop(it, b"a1lx"), prop(it, b"lsel"), prop(it, b"a1op")
+    sizes = layer_sizes(a1lx, len(obus), path) if a1lx is not None else []
+    layer = -1
+    if lsel is not None:
+        if len(lsel) < 2:
+            unreadable(path, "truncated lsel")
+        layer = struct.unpack(">H", lsel[:2])[0]
+        if layer == 0xFFFF:
+            layer = -1
+        elif sizes:
+            if layer >= len(sizes):
+                unreadable(path, f"lsel layer {layer} past the a1lx layers")
+            obus = obus[:sum(sizes[:layer + 1])]
+    op = a1op[0] if a1op else 0
+    info, planes = decode_av1(obus, path, op, layer)
+    ispe = prop(it, b"ispe")
+    if ispe is not None and len(ispe) >= 12:
+        info, planes = scale(info, planes, *struct.unpack(">II", ispe[4:12]), path)
     return info, planes
 
 
@@ -304,7 +581,7 @@ def decode_grid(c: Container, it: Item, data: bytes, path) -> tuple:
     tiles = []
     for tid in ids:
         tile = c.items.get(tid)
-        if tile is None or tile.type != b"av01":
+        if tile is None or tile.type != b"av01" or tile.unsupported:
             unreadable(path, "grid tile that is not an av01 item")
         tiles.append(decode_item(c, tile, data, path))
     info = tiles[0][0]
@@ -344,37 +621,88 @@ class Decoded:
     nclx: tuple | None
 
 
+def source(c: Container) -> str:
+    """libavif's AVIF_DECODER_SOURCE_AUTO: the major brand `avis` decodes
+    the tracks, `avif` the primary item; any other the tracks where the
+    file has any, else the primary item."""
+    if c.major == b"avis":
+        return "tracks"
+    if c.major == b"avif":
+        return "item"
+    return "tracks" if c.tracks else "item"
+
+
+def _nclx(props) -> tuple | None:
+    for k, colr in props:
+        if k == b"colr":
+            if colr[:4] == b"nclx" and len(colr) >= 11:
+                cp, tc, mc = struct.unpack(">HHH", colr[4:10])
+                return cp, tc, mc, colr[10] >> 7
+            return None
+    return None
+
+
+def _usable(t: Track) -> bool:
+    return t.has_table and t.id != 0 and bool(t.chunks) and t.props() is not None
+
+
+def decode_track(t: Track, data: bytes, path) -> tuple:
+    """(info, planes) of a track's first sample, scaled to the track's
+    size."""
+    offset, size = t.samples(len(data), path)[0]
+    info, planes = decode_av1(data[offset:offset + size], path)
+    return scale(info, planes, t.width, t.height, path)
+
+
+def decode_tracks(c: Container, data: bytes, path) -> Decoded:
+    """An AVIF sequence's first frame as libavif picks it: the colour
+    track is the first usable one (an id, chunks, an av01 sample entry)
+    that is no `auxl` of another; its alpha the first usable track that
+    is an `auxl` of it; premultiplied where the colour track's `prem`
+    names the alpha track."""
+    color = next((t for t in c.tracks if _usable(t) and not t.aux_for), None)
+    if color is None:
+        unreadable(path, "AVIF without an AV1 colour track")
+    props = color.props()
+    if prop(Item(0, props=props), b"av1C") is None:
+        unreadable(path, "AVIF track without av1C")
+    info, planes = decode_track(color, data, path)
+    alpha = alpha_info = None
+    premul = False
+    track = next((t for t in c.tracks if _usable(t) and t.aux_for == color.id), None)
+    if track is not None:
+        alpha_info, ap = decode_track(track, data, path)
+        if (alpha_info["width"], alpha_info["height"]) != (color.width, color.height):
+            unreadable(path, "alpha track of another size")
+        alpha = ap[0]
+        premul = color.prem_by == track.id
+    return Decoded(info, planes, alpha, alpha_info, premul, _nclx(props))
+
+
 def decode(path) -> Decoded:
     data = Path(path).read_bytes()
     if not is_avif(data[:64]):
         unreadable(path, "not an AVIF file")
     c = parse(data, path)
-    if c.major == b"avis":
-        # libavif decodes the track of an `avis` file (cv2 gives its first
-        # frame) and fails without one
-        if c.has_moov:
-            unsupported(path, "AVIF image sequence")
-        unreadable(path, "avis brand without a track")
+    if source(c) == "tracks":
+        if not c.tracks:
+            unreadable(path, "avis brand without a track")
+        return decode_tracks(c, data, path)
+    if c.primary is None:
+        unreadable(path, "no primary item")
     it = c.items[c.primary]
     if it.type not in (b"av01", b"grid"):
         unreadable(path, f"primary item of type {it.type!r}")
-    info, planes = decode_image(c, it, data, path)
     ispe = prop(it, b"ispe")
     if ispe is None or len(ispe) < 12:
         unreadable(path, "primary item without ispe")
     w, h = struct.unpack(">II", ispe[4:12])
+    info, planes = decode_image(c, it, data, path)
     if (w, h) != (info["width"], info["height"]):
-        if it.type == b"grid":
-            # cv2 sizes its image by the ispe and fails on the grid's
-            unreadable(path, "grid whose ispe differs from its output size")
-        unsupported(path, "AVIF whose ispe differs from its AV1 frame size "
-                    "(libavif scales the frame to it)")
+        # cv2 sizes its image by the ispe and fails on the grid's
+        unreadable(path, "grid whose ispe differs from its output size")
     check_size(path, w, h)
-    nclx = None
-    colr = prop(it, b"colr")
-    if colr is not None and colr[:4] == b"nclx" and len(colr) >= 11:
-        cp, tc, mc = struct.unpack(">HHH", colr[4:10])
-        nclx = (cp, tc, mc, colr[10] >> 7)
+    nclx = _nclx(it.props)
     alpha = alpha_info = None
     premul = False
     for kind, frm, to in c.refs:
@@ -382,7 +710,7 @@ def decode(path) -> Decoded:
             continue
         aux = c.items[frm]
         auxc = prop(aux, b"auxC")
-        if aux.type not in (b"av01", b"grid") or auxc is None:
+        if aux.type not in (b"av01", b"grid") or auxc is None or aux.unsupported:
             continue
         if auxc[4:].rstrip(b"\0").split(b"\0")[0] not in ALPHA_URNS:
             continue
@@ -610,12 +938,15 @@ def to_rgb(d: Decoded, out_depth: int) -> np.ndarray:
 def _unpremultiply(rgb: np.ndarray, a: np.ndarray, depth: int) -> np.ndarray:
     """avifRGBImageUnpremultiplyAlpha: 8-bit through libyuv's
     ARGBUnattenuate (SIMD rows: pmulhuw of x * 257 by 1/a in 8.8 fixed
-    point), deeper samples by libavif's float division."""
+    point, 0xFFFF for a = 1, then packuswb, which saturates a word of
+    32768 or more, read as signed, to 0), deeper samples by libavif's
+    float division."""
     a = a.astype(np.int64)[..., None]
     if depth == 8:
         ia = np.where(a == 0, 0, np.where(a == 1, 0xFFFF, 0x10000 // np.maximum(a, 1)))
         ia = np.where(a == 255, 256, ia)
-        return np.minimum((rgb.astype(np.int64) * 257 * ia) >> 16, 255).astype(np.uint8)
+        v = (rgb.astype(np.int64) * 257 * ia) >> 16
+        return np.where(v >= 32768, 0, np.minimum(v, 255)).astype(np.uint8)
     top = np.float32((1 << depth) - 1)
     f = rgb.astype(np.float32) * top / np.maximum(a, 1).astype(np.float32)
     c = np.minimum(np.floor(f + np.float32(0.5)), top)
@@ -637,8 +968,8 @@ def read_avif(path, mode: str = "unchanged") -> np.ndarray:
         y = d.planes[0]
         if mode == "unchanged":
             return y.astype(np.uint8) if depth == 8 else y.astype(np.uint16)
-        if depth > 8:
-            y = np.rint(y.astype(np.float64) / (1 << (depth - 8)))
+        if depth > 8:       # saturating, as convertTo
+            y = np.minimum(np.rint(y.astype(np.float64) / (1 << (depth - 8))), 255)
         y = y.astype(np.uint8)
         return np.dstack([y, y, y]) if mode == "color" else y
     rgb = to_rgb(d, depth if mode == "unchanged" else 8)

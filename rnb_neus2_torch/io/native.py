@@ -394,27 +394,30 @@ AV1_SOURCE = Path(__file__).resolve().parent.parent / "native" / "av1.cc"
 AV1_LIBRARY = "av1"
 AV1_INFO = ("width", "height", "bit_depth", "mono", "ssx", "ssy", "cp", "tc",
             "mc", "full_range", "profile", "still", "reduced", "csp",
-            "frame_type", "operating_points", "level", "tier")
+            "frame_type", "operating_points", "level", "tier", "tool",
+            "frames", "spatial_id")
 
 
 @functools.lru_cache(maxsize=None)
 def _av1_library() -> ctypes.CDLL:
     lib, _ = load_host_library(AV1_LIBRARY, AV1_SOURCE)
     lib.av1_decode.restype = ctypes.c_int64
-    lib.av1_decode.argtypes = [_P, _I64, _P, _P, _I64, _P]
+    lib.av1_decode.argtypes = [_P, _I64, _P, _P, _I64, _P, _I32, _I32]
     return lib
 
 
-def av1_decode(obus: bytes) -> tuple:
-    """Decode the intra frame of an AV1 OBU stream (`native/av1.cc`) →
-    (code, info dict, [Y, U, V] uint16 planes, census int64[128]); code
-    is 0 or one of the negative codes of av1.cc, and the planes are empty
-    unless it is 0 (info holds the sequence header's fields once one was
-    read)."""
+def av1_decode(obus: bytes, op: int = 0, layer: int = -1) -> tuple:
+    """Decode the frames of an AV1 OBU stream (`native/av1.cc`) in
+    operating point `op` → (code, info dict, [Y, U, V] uint16 planes of
+    the output frame, census int64[128]). The output is the last shown
+    frame, or with `layer` >= 0 the first shown frame of that spatial
+    layer. code is 0 or one of the negative codes of av1.cc, and the
+    planes are empty unless it is 0 (info holds the sequence header's
+    fields once one was read; "tool" names the inter tool of code -9)."""
     lib = _av1_library()
     info = np.zeros(32, np.int32)
     census = np.zeros(128, np.int64)
-    code = lib.av1_decode(obus, len(obus), ptr(info), None, 0, ptr(census))
+    code = lib.av1_decode(obus, len(obus), ptr(info), None, 0, ptr(census), op, layer)
     if code > -1000:
         meta = dict(zip(AV1_INFO, (int(v) for v in info[:len(AV1_INFO)])))
         return code, meta if meta["width"] else {}, [], census
@@ -422,7 +425,7 @@ def av1_decode(obus: bytes) -> tuple:
     planes = np.zeros(need, np.uint16)
     census[:] = 0
     code = lib.av1_decode(obus, len(obus), ptr(info), ptr(planes), need,
-                          ptr(census))
+                          ptr(census), op, layer)
     meta = dict(zip(AV1_INFO, (int(v) for v in info[:len(AV1_INFO)])))
     if code != 0:
         return code, meta, [], census
@@ -434,3 +437,30 @@ def av1_decode(obus: bytes) -> tuple:
         v = planes[w * h + cw * ch:w * h + 2 * cw * ch].reshape(ch, cw)
         out += [u, v]
     return code, meta, out, census
+
+
+# ------------------------------------------------------------------ scaling
+SCALE_SOURCE = Path(__file__).resolve().parent.parent / "native" / "scale.cc"
+SCALE_LIBRARY = "scale"
+
+
+@functools.lru_cache(maxsize=None)
+def _scale_library() -> ctypes.CDLL:
+    lib, _ = load_host_library(SCALE_LIBRARY, SCALE_SOURCE)
+    lib.scale_plane.restype = ctypes.c_int64
+    lib.scale_plane.argtypes = [_P, _I32, _I32, _P, _I32, _I32, _I32]
+    return lib
+
+
+def scale_plane(plane: np.ndarray, width: int, height: int,
+                depth: int) -> np.ndarray:
+    """`plane` scaled to width x height as libavif scales a decoded plane
+    (`native/scale.cc`: libyuv's ScalePlane for 8-bit samples,
+    ScalePlane_12 for deeper ones, kFilterBox) → uint16."""
+    src = np.ascontiguousarray(plane, np.uint16)
+    dst = np.zeros((height, width), np.uint16)
+    code = _scale_library().scale_plane(ptr(src), src.shape[1], src.shape[0],
+                                        ptr(dst), width, height, int(depth > 8))
+    if code != 0:
+        raise ValueError(f"scale_plane failed with code {code}")
+    return dst

@@ -1,30 +1,46 @@
-// AV1 still-image decoder for the port's AVIF reader (io/avif.py): the
-// OBUs of one intra frame (a KEY_FRAME or INTRA_ONLY frame) to its Y, U and
-// V planes, bit for bit as the AV1 specification and libaom decode them.
+// AV1 decoder for the port's AVIF reader (io/avif.py): the OBUs of an AVIF
+// item or sample to the Y, U and V planes of the frame libaom hands libavif,
+// bit for bit as the AV1 specification and libaom decode them.
 //
 // Follows the specification's decoding process and its names: OBU and
 // header syntax (5.3-5.9), the symbol decoder with CDF adaptation (8.2),
-// block syntax (5.11) with intra block copy (its motion vector stack,
-// 7.10.2), prediction and reconstruction (7.11-7.13), and the in-loop
-// filters in order: deblocking (7.14), CDEF (7.15) and loop restoration
-// (7.17), with superres upscaling (7.16) between CDEF and loop restoration,
-// then film grain synthesis (7.18.3, av1_grain.h) on the output as
-// libaom's av1_add_film_grain applies it for libavif. Large-scale tile,
-// layers and frames that are not intra are refused with their own codes;
-// so is what libaom
-// rejects (a tile whose symbols overrun it or end without the trailing
-// bits, an invalid segment id, ...).
+// block syntax (5.11) with intra block copy, and prediction and
+// reconstruction (7.11-7.13), then the in-loop filters in order:
+// deblocking (7.14), CDEF (7.15) and loop restoration (7.17), with superres
+// upscaling (7.16) between CDEF and loop restoration, then film grain
+// synthesis (7.18.3, av1_grain.h) on the output as libaom's
+// av1_add_film_grain applies it for libavif. Every frame of the operating
+// point is decoded: key and intra-only frames, and inter frames with one
+// reference per block as libaom writes them for libavif's layers and
+// sequences (the reference slots and their saved state, 7.20; the inter
+// frame header; CDFs loaded from the primary reference; motion vector
+// prediction with its temporal candidates from the motion field, 7.9-7.10;
+// translation at any reference scale, OBMC, local warped motion, smooth and
+// wedge inter-intra, 7.11.3; variable inter transforms; the loop filter's
+// reference and mode deltas), where libaom differs from the specification
+// following libaom (warp samples stepped by each neighbour's size, a
+// missing temporal candidate making the zero-MV context 1). The output is
+// the last shown frame, or the first one of a chosen spatial layer. The
+// inter tools no such stream uses (see Tool) are refused with ERR_TOOL;
+// large-scale tile has its own code; so has what libaom rejects (a tile
+// whose symbols overrun it or end without the trailing bits, an invalid
+// segment id, a reference that was never decoded, ...).
 //
 // C interface (ctypes, io/native.py):
-//   av1_decode(obus, n, info[32], planes, cap, census[128]) -> 0 or < 0
-// info receives the sequence and frame header's values (see INFO_*);
-// planes receives Y, then U, then V (uint16, each plane's width x height,
-// row by row) when cap (in samples) is large enough; otherwise the call
-// returns -(samples needed) - 1000 after the headers and decodes nothing.
-// census counts the coding tools the frame used (see CENSUS_*).
+//   av1_decode(obus, n, info[32], planes, cap, census[128], op, layer)
+//     -> 0 or < 0
+// info receives the sequence header's and the output frame's values (see
+// INFO_*); planes receives Y, then U, then V (uint16, each plane's width x
+// height, row by row) when cap (in samples) is large enough for the
+// sequence's largest frame; otherwise the call returns -(samples needed) -
+// 1000 after the first frame header and decodes nothing. op is the
+// operating point (one the stream lacks is point 0, as libaom takes it);
+// layer is -1 for the last shown frame, else a spatial id. census counts
+// the coding tools the frames used (see CENSUS_*).
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 #include <vector>
 
 #include "av1_dsp.h"
@@ -38,15 +54,24 @@ namespace {
 enum Err {
     ERR_BITSTREAM = -1,      // malformed or truncated: libaom fails too
     ERR_LARGE_SCALE_TILE = -4,
-    ERR_NOT_INTRA = -6,      // inter frame or show_existing_frame
-    ERR_LAYERED = -7,        // more than one spatial layer
     ERR_NO_FRAME = -8,
+    ERR_TOOL = -9,           // an inter tool the port does not decode (INFO_TOOL)
 };
 
 enum Info {
     INFO_WIDTH, INFO_HEIGHT, INFO_BITDEPTH, INFO_MONO, INFO_SSX, INFO_SSY,
     INFO_CP, INFO_TC, INFO_MC, INFO_RANGE, INFO_PROFILE, INFO_STILL,
     INFO_REDUCED, INFO_CSP, INFO_FRAME_TYPE, INFO_OPERATING_POINTS, INFO_LEVEL, INFO_TIER,
+    INFO_TOOL, INFO_FRAMES, INFO_SPATIAL_ID,
+};
+
+// the inter tools refused by name (ERR_TOOL; io/avif.py names them): none
+// is in the streams libaom writes for libavif's layers (skip mode needs
+// compound prediction)
+enum Tool {
+    TOOL_SHOW_EXISTING = 1, TOOL_COMPOUND, TOOL_GLOBAL_MOTION, TOOL_SEGMENTATION,
+    TOOL_SWITCH_FRAME, TOOL_FRAME_REFS_SHORT, TOOL_BILINEAR,
+    TOOL_DUAL_FILTER, TOOL_LF_DELTAS, TOOL_SUPERRES_INTER, TOOL_GRAIN_INTER,
 };
 
 enum Census {
@@ -60,8 +85,32 @@ enum Census {
     C_LR_SWITCHABLE = 80, C_SEGMENTATION = 81, C_DELTA_Q = 82, C_DELTA_LF = 83,
     C_TILES = 84, C_SB128 = 85, C_QMATRIX = 86, C_LOSSLESS = 87,
     C_SEGMENT_IDS = 94, C_SUPERRES = 95, C_FILM_GRAIN = 96,
+    // inter frames: frames, blocks, intra blocks among them, the four
+    // single-reference modes, a DRL index read, scaled references (block
+    // predictions), the regular, smooth and sharp filters, wedge inter-intra,
+    // split inter transforms, extra MV searches, high-precision MV frames,
+    // switchable filter frames, CDFs loaded from a reference, local warps
+    // that fall back to translation, inter frames with loop restoration,
+    // sub-8x8 chroma from several blocks, frames above spatial layer 0,
+    // skipped inter blocks, deblocked inter frames, temporal MV candidates,
+    // motion modes read, frames with reference MVs, OBMC, local warps,
+    // inter frames with CDEF, smooth or wedge inter-intra
+    C_INTER_FRAMES = 97, C_INTER_BLOCKS = 98, C_INTRA_IN_INTER = 99,
+    C_NEARESTMV = 100, C_NEARMV = 101, C_GLOBALMV = 102, C_NEWMV = 103, C_DRL = 104,
+    C_SCALED_REF = 105, C_FILTER = 106, C_WEDGE_INTERINTRA = 109, C_VAR_TX = 110,
+    C_EXTRA_SEARCH = 111, C_HP_MV = 112, C_SWITCHABLE = 113, C_PRIMARY_REF = 114,
+    C_LOCALWARP_INVALID = 115, C_INTER_LR = 116, C_CHROMA_SUB8X8 = 117, C_SPATIAL_LAYERS = 118,
+    C_INTER_SKIP = 119, C_INTER_DEBLOCK = 120, C_TEMPORAL_MV = 121, C_MOTION_MODE_READ = 122,
+    C_REF_FRAME_MVS = 123, C_OBMC = 124, C_LOCALWARP = 125, C_INTER_CDEF = 126, C_INTERINTRA = 127,
     C_COUNT = 128,
 };
+
+enum { INTRA_FRAME = 0, LAST_FRAME = 1, GOLDEN_FRAME = 4, BWDREF_FRAME = 5, ALTREF2_FRAME = 6,
+       ALTREF_FRAME = 7, NONE_FRAME = -1 };
+enum { KEY_FRAME = 0, INTER_FRAME = 1, INTRA_ONLY_FRAME = 2, SWITCH_FRAME = 3 };
+enum { NEARESTMV = 13, NEARMV = 14, GLOBALMV = 15, NEWMV = 16 };
+enum { EIGHTTAP = 0, EIGHTTAP_SMOOTH = 1, EIGHTTAP_SHARP = 2, BILINEAR = 3, SWITCHABLE = 4 };
+const int kSizeGroup[22] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 3, 3, 3, 3, 0, 0, 1, 1, 2, 2};
 
 enum { DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED,
        D203_PRED, D67_PRED, SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED,
@@ -264,6 +313,50 @@ struct Cdfs {
     uint16_t eob128[2][2][9], eob256[2][2][10], eob512[2][2][11], eob1024[2][2][12];
     uint16_t eob_extra[5][2][9][3], dc_sign[2][3][3], base_eob[5][2][4][4];
     uint16_t base[5][2][42][5], br[5][2][21][5];
+    // inter frames
+    uint16_t y_mode[4][14], intra_inter[4][3], single_ref[3][6][3], newmv[6][3], zeromv[2][3];
+    uint16_t refmv[6][3], drl[3][3], interp[16][4], motion_mode[22][4], obmc[22][3];
+    uint16_t interintra[4][3], comp_inter[5][3], skip_mode[3][3], seg_pred[3][3], nmv[143];
+    uint16_t interintra_mode[4][5], wedge_interintra[22][3], wedge_idx[22][17];
+
+    // libaom's av1_reset_cdf_symbol_counters: the counter after each CDF's
+    // last symbol, for the number of symbols each is read with
+    template <typename T> static void zero(T& a, int n) {
+        uint16_t* p = reinterpret_cast<uint16_t*>(&a);
+        const size_t last = std::extent<T, std::rank<T>::value - 1>::value;
+        for (size_t i = 0; i + last <= sizeof(a) / sizeof(uint16_t); i += last) p[i + n] = 0;
+    }
+    void reset_counters() {
+        for (int i = 0; i < 20; i++) {
+            int n = i < 4 ? 4 : i < 16 ? 10 : 8;
+            partition[i][n] = 0;
+        }
+        zero(kf_y_mode, 13); zero(uv_mode[0], 13); zero(uv_mode[1], 14); zero(angle_delta, 7);
+        zero(intrabc, 2); zero(skip, 2); zero(seg, 8); zero(delta_q, 4); zero(delta_lf, 4);
+        zero(delta_lf_multi, 4); zero(tx_size[0], 2); zero(tx_size[1], 3); zero(tx_size[2], 3);
+        zero(tx_size[3], 3); zero(filter_intra, 2); zero(filter_intra_mode, 5);
+        zero(pal_y_size, 7); zero(pal_uv_size, 7); zero(pal_y_mode, 2); zero(pal_uv_mode, 2);
+        for (int k = 0; k < 7; k++) { zero(pal_y_color[k], k + 2); zero(pal_uv_color[k], k + 2); }
+        zero(cfl_sign, 8); zero(cfl_alpha, 16); zero(intra_tx[1], 7); zero(intra_tx[2], 5);
+        zero(inter_tx[1], 16); zero(inter_tx[2], 12); zero(inter_tx[3], 2); zero(txfm_part, 2);
+        zero(switchable_restore, 3); zero(wiener, 2); zero(sgrproj, 2);
+        zero(txb_skip, 2); zero(eob16, 5); zero(eob32, 6); zero(eob64, 7); zero(eob128, 8);
+        zero(eob256, 9); zero(eob512, 10); zero(eob1024, 11); zero(eob_extra, 2); zero(dc_sign, 2);
+        zero(base_eob, 3); zero(base, 4); zero(br, 4);
+        zero(y_mode, 13); zero(intra_inter, 2); zero(single_ref, 2); zero(newmv, 2); zero(zeromv, 2);
+        zero(refmv, 2); zero(drl, 2); zero(interp, 3); zero(motion_mode, 3); zero(obmc, 2);
+        zero(interintra, 2); zero(comp_inter, 2); zero(skip_mode, 2); zero(seg_pred, 2);
+        zero(interintra_mode, 4); zero(wedge_interintra, 2); zero(wedge_idx, 16);
+        // nmv: joints, then per component classes, class0_fr (2), fr, sign,
+        // class0_hp, hp, class0, bits (10)
+        nmv[4] = 0;
+        for (int c = 0; c < 2; c++) {
+            uint16_t* m = nmv + 5 + 69 * c;
+            m[11] = 0; m[12 + 4] = 0; m[17 + 4] = 0; m[22 + 4] = 0; m[27 + 2] = 0;
+            m[30 + 2] = 0; m[33 + 2] = 0; m[36 + 2] = 0;
+            for (int i = 0; i < 10; i++) m[39 + 3 * i + 2] = 0;
+        }
+    }
 
     void init(int baseQ) {
 #define CP(dst, src) static_assert(sizeof(dst) == sizeof(src), #dst); memcpy(dst, src, sizeof(dst))
@@ -279,6 +372,13 @@ struct Cdfs {
         CP(inter_tx, k_inter_ext_tx_cdf); CP(txfm_part, k_txfm_partition_cdf);
         CP(switchable_restore, k_switchable_restore_cdf); CP(wiener, k_wiener_restore_cdf);
         CP(sgrproj, k_sgrproj_restore_cdf);
+        CP(y_mode, k_y_mode_cdf); CP(intra_inter, k_intra_inter_cdf); CP(single_ref, k_single_ref_cdf);
+        CP(newmv, k_newmv_cdf); CP(zeromv, k_zeromv_cdf); CP(refmv, k_refmv_cdf); CP(drl, k_drl_cdf);
+        CP(interp, k_switchable_interp_cdf); CP(motion_mode, k_motion_mode_cdf); CP(obmc, k_obmc_cdf);
+        CP(interintra, k_interintra_cdf); CP(comp_inter, k_comp_inter_cdf); CP(skip_mode, k_skip_mode_cdf);
+        CP(seg_pred, k_seg_pred_cdf); CP(nmv, k_nmv_cdf);
+        CP(interintra_mode, k_interintra_mode_cdf); CP(wedge_interintra, k_wedge_interintra_cdf);
+        CP(wedge_idx, k_wedge_idx_cdf);
         int q = baseQ <= 20 ? 0 : baseQ <= 60 ? 1 : baseQ <= 120 ? 2 : 3;
         CP(txb_skip, k_txb_skip_cdf[q]); CP(eob16, k_eob_multi16_cdf[q]); CP(eob32, k_eob_multi32_cdf[q]);
         CP(eob64, k_eob_multi64_cdf[q]); CP(eob128, k_eob_multi128_cdf[q]);
@@ -296,6 +396,21 @@ struct Plane {
     uint16_t get(int y, int x) const { return px[(size_t)y * stride + x]; }
 };
 
+// what a reference slot keeps of a decoded frame (7.20)
+struct RefSlot {
+    bool valid = false;
+    int frameType = 0, orderHint = 0, savedOrderHints[8] = {0};
+    int frameWidth = 0, frameHeight = 0, upscaledWidth = 0, renderWidth = 0, renderHeight = 0;
+    int miCols = 0, miRows = 0, bitDepth = 8, ssx = 1, ssy = 1, mono = 0;
+    Plane planes[3];
+    Cdfs cdf;
+    int lfRefDeltas[8] = {0}, lfModeDeltas[2] = {0};
+    int featEn[8][8] = {{0}}, featData[8][8] = {{0}};
+    FilmGrain grain;
+    std::vector<int8_t> mfRef;     // per 8x8: the reference of a backward motion vector, or -1
+    std::vector<int16_t> mfMv;     // and that vector (row, col)
+};
+
 struct Decoder {
     // ---- sequence header
     int seqSeen = 0, profile = 0, stillPicture = 0, reducedStill = 0;
@@ -305,11 +420,19 @@ struct Decoder {
     int frameWidthBits = 0, frameHeightBits = 0, maxW = 0, maxH = 0;
     int frameIdPresent = 0, idLen = 0, sb128 = 0, enFilterIntra = 0, enIntraEdge = 0;
     int enOrderHint = 0, orderHintBits = 0, forceSct = 0, forceIntMv = 0;
+    int enInterintra = 0, enWarped = 0, enDualFilter = 0, enRefFrameMvs = 0;
     int enSuperres = 0, enCdef = 0, enRestoration = 0, filmGrainPresent = 0;
     int bitDepth = 8, mono = 0, ssx = 1, ssy = 1, cp = 2, tc = 2, mc = 2, colorRange = 0;
     int csp = 0, sepUvDelta = 0, numPlanes = 3;
     // ---- frame header
     int frameType = 0, showFrame = 1, errorResilient = 1, allowSct = 0, allowIntrabc = 0, disableCdfUpdate = 0;
+    int showableFrame = 0, frameIsIntra = 1, primaryRefFrame = 7, refreshFlags = 0, orderHint = 0;
+    int refFrameIdx[7] = {0}, orderHints[8] = {0}, refFrameSignBias[8] = {0};
+    int allowHp = 0, forceIntegerMv = 0, interpFilter = 0, motionSwitchable = 0, useRefFrameMvs = 0;
+    int referenceSelect = 0, allowWarped = 0, disableFrameEndUpdateCdf = 1, contextUpdateTileId = 0;
+    int RenderWidth = 0, RenderHeight = 0, refusedTool = 0, deltaFrameIdLen = 0;
+    RefSlot refs[8];
+    Cdfs frameCdf, savedCdf;
     int FrameWidth = 0, FrameHeight = 0, MiCols = 0, MiRows = 0;
     int SuperresDenom = 8, UpscaledWidth = 0;
     int baseQ = 0, dqYDc = 0, dqUDc = 0, dqUAc = 0, dqVDc = 0, dqVAc = 0;
@@ -329,6 +452,9 @@ struct Decoder {
     // ---- frame state
     int miStride = 0, miAllocRows = 0;
     std::vector<uint8_t> miSize, yMode, uvMode, skip, isInter, segId, txSizeMi, palSize0, palSize1, lossMi, written;
+    std::vector<int8_t> refFrame0;      // RefFrames[][][0]: INTRA_FRAME or LAST_FRAME..ALTREF_FRAME
+    std::vector<int8_t> refFrame1;      // RefFrames[][][1]: NONE, or INTRA_FRAME for inter-intra
+    std::vector<uint8_t> filt0, filt1;  // InterpFilters: vertical, horizontal
     std::vector<int16_t> mvRow, mvCol;
     std::vector<int8_t> deltaLFs;       // 4 per mi
     std::vector<uint16_t> palColors;    // 2 planes x 8 per mi
@@ -355,6 +481,9 @@ struct Decoder {
     int MiRow = 0, MiCol = 0, MiSize = 0, bw4 = 0, bh4 = 0, HasChroma = 0;
     int AvailU = 0, AvailL = 0, AvailUChroma = 0, AvailLChroma = 0;
     int Skip = 0, segment_id = 0, Lossless = 0, use_intrabc = 0, Mv[2] = {0, 0};
+    int is_inter = 0, RefFrame0 = 0, interpF[2] = {0, 0}, RefMvIdx = 0, motionMode = 0;
+    int interintra = 0, interintraMode = 0, wedgeInterintra = 0, wedgeIndex = 0;
+    int AboveRefFrame0 = 0, LeftRefFrame0 = 0;
     uint16_t ndvc[143];
     int YMode = 0, UVMode = 0, AngleDeltaY = 0, AngleDeltaUV = 0, CflAlphaU = 0, CflAlphaV = 0;
     int PaletteSizeY = 0, PaletteSizeUV = 0, use_filter_intra = 0, filter_intra_mode = 0;
@@ -424,13 +553,13 @@ struct Decoder {
         frameWidthBits = b.f(4) + 1; frameHeightBits = b.f(4) + 1;
         maxW = b.f(frameWidthBits) + 1; maxH = b.f(frameHeightBits) + 1;
         frameIdPresent = reducedStill ? 0 : b.f(1);
-        if (frameIdPresent) { int d = b.f(4) + 2; int a = b.f(3) + 1; idLen = a + d; }
+        if (frameIdPresent) { int d = b.f(4) + 2; int a = b.f(3) + 1; idLen = a + d; deltaFrameIdLen = d; }
         sb128 = b.f(1); enFilterIntra = b.f(1); enIntraEdge = b.f(1);
         if (reducedStill) { forceSct = 2; forceIntMv = 2; enOrderHint = 0; orderHintBits = 0; }
         else {
-            b.f(1); b.f(1); b.f(1); b.f(1);  // interintra, masked, warped, dual filter
+            enInterintra = b.f(1); b.f(1); enWarped = b.f(1); enDualFilter = b.f(1);  // masked unused
             enOrderHint = b.f(1);
-            if (enOrderHint) { b.f(1); b.f(1); }  // jnt_comp, ref_frame_mvs
+            if (enOrderHint) { b.f(1); enRefFrameMvs = b.f(1); }  // jnt_comp
             forceSct = b.f(1) ? 2 : b.f(1);
             if (forceSct > 0) forceIntMv = b.f(1) ? 2 : b.f(1);
             else forceIntMv = 2;
@@ -490,8 +619,9 @@ struct Decoder {
             }
             miRowStarts[i] = MiRows; tileRows = i; tileRowsLog2 = tile_log2(1, tileRows);
         }
+        contextUpdateTileId = 0;
         if (tileColsLog2 > 0 || tileRowsLog2 > 0) {
-            b.f(tileRowsLog2 + tileColsLog2);
+            contextUpdateTileId = b.f(tileRowsLog2 + tileColsLog2);
             tileSizeBytes = b.f(2) + 1;
         }
     }
@@ -508,24 +638,61 @@ struct Decoder {
         return baseQ;
     }
 
+    [[noreturn]] void refuse(int tool) { refusedTool = tool; throw (int)ERR_TOOL; }
+
+    int relative_dist(int a, int b) const {
+        if (!enOrderHint) return 0;
+        int diff = a - b, m = 1 << (orderHintBits - 1);
+        return (diff & (m - 1)) - (diff & m);
+    }
+
+    // frame_size, superres_params and compute_image_size (5.9.5-5.9.9)
+    void frame_size(Bits& b, int overrideSize) {
+        if (overrideSize) { FrameWidth = b.f(frameWidthBits) + 1; FrameHeight = b.f(frameHeightBits) + 1; }
+        else { FrameWidth = maxW; FrameHeight = maxH; }
+        superres_params(b);
+    }
+    void superres_params(Bits& b) {
+        // the frame is coded SuperresDenom / 8 narrower and upscaled after
+        // CDEF (7.16)
+        int useSuperres = enSuperres ? b.f(1) : 0;
+        SuperresDenom = useSuperres ? b.f(3) + 9 : 8;
+        UpscaledWidth = FrameWidth;
+        if (useSuperres)   // at least 16 wide (or as wide as the image), as libaom
+            FrameWidth = std::max((UpscaledWidth * 8 + SuperresDenom / 2) / SuperresDenom,
+                                  std::min(16, UpscaledWidth));
+        MiCols = 2 * ((FrameWidth + 7) >> 3); MiRows = 2 * ((FrameHeight + 7) >> 3);
+    }
+    void render_size(Bits& b) {
+        RenderWidth = UpscaledWidth; RenderHeight = FrameHeight;
+        if (b.f(1)) { RenderWidth = b.f(16) + 1; RenderHeight = b.f(16) + 1; }
+    }
+
     void frame_header(Bits& b, int temporalId, int spatialId) {
         int showExisting = 0;
-        if (reducedStill) { frameType = 0; showFrame = 1; }
+        if (reducedStill) { frameType = KEY_FRAME; showFrame = 1; showableFrame = 0; }
         else {
             showExisting = b.f(1);
-            if (showExisting) throw (int)ERR_NOT_INTRA;
+            if (showExisting) refuse(TOOL_SHOW_EXISTING);
             frameType = b.f(2); showFrame = b.f(1);
-            if (frameType != 0 && frameType != 2) throw (int)ERR_NOT_INTRA;
+            if (frameType == SWITCH_FRAME) refuse(TOOL_SWITCH_FRAME);
             if (showFrame && decoderModelInfo && !equalPictureInterval) b.f(framePresentationTimeLen);
-            if (!showFrame) b.f(1);  // showable_frame
-            errorResilient = (frameType == 0 && showFrame) ? 1 : b.f(1);
+            showableFrame = showFrame ? frameType != KEY_FRAME : b.f(1);
+            errorResilient = (frameType == KEY_FRAME && showFrame) ? 1 : b.f(1);
+        }
+        frameIsIntra = frameType == KEY_FRAME || frameType == INTRA_ONLY_FRAME;
+        if (frameType == KEY_FRAME && showFrame) {
+            for (int i = 0; i < 8; i++) { refs[i].valid = false; refs[i].orderHint = 0; }
+            for (int i = 0; i < 8; i++) orderHints[i] = 0;
         }
         disableCdfUpdate = b.f(1);
         allowSct = forceSct == 2 ? b.f(1) : forceSct;
-        if (allowSct && forceIntMv == 2) b.f(1);
+        forceIntegerMv = allowSct ? (forceIntMv == 2 ? (int)b.f(1) : forceIntMv) : 0;
+        if (frameIsIntra) forceIntegerMv = 1;
         if (frameIdPresent) b.f(idLen);
         int overrideSize = reducedStill ? 0 : b.f(1);
-        b.f(orderHintBits);
+        orderHint = b.f(orderHintBits);
+        primaryRefFrame = (frameIsIntra || errorResilient) ? 7 : b.f(3);
         if (!reducedStill && decoderModelInfo) {
             if (b.f(1)) {
                 for (int op = 0; op < opCount; op++) {
@@ -536,29 +703,79 @@ struct Decoder {
                 }
             }
         }
-        int refresh = (frameType == 0 && showFrame) ? 0xFF : b.f(8);
-        if (frameType == 2 && refresh == 0xFF) throw (int)ERR_BITSTREAM;
-        if (refresh != 0xFF && errorResilient && enOrderHint)
-            for (int i = 0; i < 8; i++) b.f(orderHintBits);
-        // frame_size, superres_params, render_size
-        if (overrideSize) { FrameWidth = b.f(frameWidthBits) + 1; FrameHeight = b.f(frameHeightBits) + 1; }
-        else { FrameWidth = maxW; FrameHeight = maxH; }
-        // superres_params (5.9.8): the frame is coded SuperresDenom / 8
-        // narrower and upscaled after CDEF (7.16)
-        int useSuperres = enSuperres ? b.f(1) : 0;
-        SuperresDenom = useSuperres ? b.f(3) + 9 : 8;
-        UpscaledWidth = FrameWidth;
-        if (useSuperres)   // at least 16 wide (or as wide as the image), as libaom
-            FrameWidth = std::max((UpscaledWidth * 8 + SuperresDenom / 2) / SuperresDenom,
-                                  std::min(16, UpscaledWidth));
-        MiCols = 2 * ((FrameWidth + 7) >> 3); MiRows = 2 * ((FrameHeight + 7) >> 3);
-        if (b.f(1)) { b.f(16); b.f(16); }
-        if (allowSct && UpscaledWidth == FrameWidth) allowIntrabc = b.f(1);
-        if (!(reducedStill || disableCdfUpdate)) b.f(1);  // disable_frame_end_update_cdf
+        allowHp = 0; useRefFrameMvs = 0; allowIntrabc = 0;
+        refreshFlags = (frameType == KEY_FRAME && showFrame) ? 0xFF : b.f(8);
+        if (frameType == INTRA_ONLY_FRAME && refreshFlags == 0xFF) throw (int)ERR_BITSTREAM;
+        if ((!frameIsIntra || refreshFlags != 0xFF) && errorResilient && enOrderHint)
+            for (int i = 0; i < 8; i++) {
+                int hint = b.f(orderHintBits);
+                if (hint != refs[i].orderHint || !refs[i].valid) refs[i].valid = false;
+            }
+        if (frameIsIntra) {
+            frame_size(b, overrideSize);
+            render_size(b);
+            if (allowSct && UpscaledWidth == FrameWidth) allowIntrabc = b.f(1);
+        } else {
+            census[C_INTER_FRAMES]++;
+            if (spatialId > 0) census[C_SPATIAL_LAYERS]++;
+            if (enOrderHint && b.f(1)) refuse(TOOL_FRAME_REFS_SHORT);
+            for (int i = 0; i < 7; i++) {
+                refFrameIdx[i] = b.f(3);
+                if (frameIdPresent) b.f(deltaFrameIdLen);   // delta_frame_id_minus_1
+                if (!refs[refFrameIdx[i]].valid) throw (int)ERR_BITSTREAM;
+            }
+            if (overrideSize && !errorResilient) {
+                int found = 0;
+                for (int i = 0; i < 7 && !found; i++) {
+                    if (b.f(1)) {
+                        const RefSlot& r = refs[refFrameIdx[i]];
+                        UpscaledWidth = r.upscaledWidth; FrameWidth = UpscaledWidth; FrameHeight = r.frameHeight;
+                        RenderWidth = r.renderWidth; RenderHeight = r.renderHeight;
+                        found = 1;
+                    }
+                }
+                if (!found) { frame_size(b, overrideSize); render_size(b); }
+                else superres_params(b);
+            } else { frame_size(b, overrideSize); render_size(b); }
+            // libaom: every reference of this frame's format, at most twice its
+            // size and at least a sixteenth of it
+            for (int i = 0; i < 7; i++) {
+                const RefSlot& r = refs[refFrameIdx[i]];
+                if (r.bitDepth != bitDepth || r.ssx != ssx || r.ssy != ssy || r.mono != mono)
+                    throw (int)ERR_BITSTREAM;
+                if (2 * FrameWidth < r.upscaledWidth || 2 * FrameHeight < r.frameHeight ||
+                    FrameWidth > 16 * r.upscaledWidth || FrameHeight > 16 * r.frameHeight)
+                    throw (int)ERR_BITSTREAM;
+            }
+            allowHp = forceIntegerMv ? 0 : b.f(1);
+            if (allowHp) census[C_HP_MV]++;
+            interpFilter = b.f(1) ? SWITCHABLE : b.f(2);
+            if (interpFilter == SWITCHABLE) census[C_SWITCHABLE]++;
+            motionSwitchable = b.f(1);
+            useRefFrameMvs = (errorResilient || !enRefFrameMvs) ? 0 : b.f(1);
+            for (int i = 0; i < 7; i++) {
+                int hint = refs[refFrameIdx[i]].orderHint;
+                orderHints[LAST_FRAME + i] = hint;
+                refFrameSignBias[LAST_FRAME + i] = enOrderHint ? relative_dist(hint, orderHint) > 0 : 0;
+            }
+        }
+        disableFrameEndUpdateCdf = (reducedStill || disableCdfUpdate) ? 1 : b.f(1);
+        // init_non_coeff_cdfs / setup_past_independence, or load_cdfs /
+        // load_previous from the primary reference frame
+        lfRefDeltas[0] = 1; lfRefDeltas[1] = 0; lfRefDeltas[2] = 0; lfRefDeltas[3] = 0;
+        lfRefDeltas[4] = -1; lfRefDeltas[5] = 0; lfRefDeltas[6] = -1; lfRefDeltas[7] = -1;
+        lfModeDeltas[0] = lfModeDeltas[1] = 0;
+        if (primaryRefFrame != 7) {
+            const RefSlot& r = refs[refFrameIdx[primaryRefFrame]];
+            memcpy(lfRefDeltas, r.lfRefDeltas, sizeof(lfRefDeltas));
+            memcpy(lfModeDeltas, r.lfModeDeltas, sizeof(lfModeDeltas));
+            census[C_PRIMARY_REF]++;
+        }
         tile_info(b);
         // quantization_params
         baseQ = b.f(8);
         dqYDc = read_delta_q(b);
+        dqUDc = dqUAc = dqVDc = dqVAc = 0;
         if (numPlanes > 1) {
             int diffUv = sepUvDelta ? b.f(1) : 0;
             dqUDc = read_delta_q(b); dqUAc = read_delta_q(b);
@@ -571,6 +788,7 @@ struct Decoder {
         segEnabled = b.f(1);
         memset(featEn, 0, sizeof(featEn)); memset(featData, 0, sizeof(featData));
         if (segEnabled) {
+            if (!frameIsIntra) refuse(TOOL_SEGMENTATION);
             for (int i = 0; i < 8; i++) for (int j = 0; j < 8; j++) {
                 if (b.f(1)) {
                     featEn[i][j] = 1;
@@ -592,6 +810,8 @@ struct Decoder {
             if (!allowIntrabc) deltaLfPresent = b.f(1);
             if (deltaLfPresent) { deltaLfRes = b.f(2); deltaLfMulti = b.f(1); }
         }
+        if (primaryRefFrame == 7) frameCdf.init(baseQ);
+        else frameCdf = refs[refFrameIdx[primaryRefFrame]].cdf;
         codedLossless = 1;
         for (int s = 0; s < 8; s++) {
             int q = get_qidx(1, s);
@@ -604,17 +824,20 @@ struct Decoder {
         }
         allLossless = codedLossless;
         // loop_filter_params
-        lfRefDeltas[0] = 1; lfRefDeltas[1] = 0; lfRefDeltas[2] = 0; lfRefDeltas[3] = 0;
-        lfRefDeltas[4] = -1; lfRefDeltas[5] = 0; lfRefDeltas[6] = -1; lfRefDeltas[7] = -1;
-        lfModeDeltas[0] = lfModeDeltas[1] = 0;
         lfDeltaEnabled = 1;
-        if (codedLossless || allowIntrabc) { lfLevel[0] = lfLevel[1] = lfLevel[2] = lfLevel[3] = 0; }
-        else {
+        if (codedLossless || allowIntrabc) {
+            lfLevel[0] = lfLevel[1] = lfLevel[2] = lfLevel[3] = 0;
+            lfRefDeltas[0] = 1; lfRefDeltas[1] = 0; lfRefDeltas[2] = 0; lfRefDeltas[3] = 0;
+            lfRefDeltas[4] = -1; lfRefDeltas[5] = 0; lfRefDeltas[6] = -1; lfRefDeltas[7] = -1;
+            lfModeDeltas[0] = lfModeDeltas[1] = 0;
+        } else {
             lfLevel[0] = b.f(6); lfLevel[1] = b.f(6);
+            lfLevel[2] = lfLevel[3] = 0;
             if (numPlanes > 1 && (lfLevel[0] || lfLevel[1])) { lfLevel[2] = b.f(6); lfLevel[3] = b.f(6); }
             lfSharp = b.f(3);
             lfDeltaEnabled = b.f(1);
             if (lfDeltaEnabled && b.f(1)) {
+                if (!frameIsIntra) refuse(TOOL_LF_DELTAS);
                 for (int i = 0; i < 8; i++) if (b.f(1)) lfRefDeltas[i] = b.su(7);
                 for (int i = 0; i < 2; i++) if (b.f(1)) lfModeDeltas[i] = b.su(7);
             }
@@ -648,11 +871,86 @@ struct Decoder {
                 lrSize[1] = lrSize[2] = lrSize[0] >> uvShift;
             }
         }
-        // read_tx_mode, frame_reference_mode, skip_mode, warped motion
+        // read_tx_mode, frame_reference_mode, skip_mode_params, warped motion
         txModeSelect = codedLossless ? 0 : b.f(1);
+        referenceSelect = frameIsIntra ? 0 : b.f(1);
+        if (referenceSelect) refuse(TOOL_COMPOUND);
+        allowWarped = (frameIsIntra || errorResilient || !enWarped) ? 0 : b.f(1);
         reducedTxSet = b.f(1);
-        if (filmGrainPresent && showFrame) film_grain_params(b);
+        global_motion_params(b);
+        if (useRefFrameMvs) { census[C_REF_FRAME_MVS]++; motion_field(); }
+        if (filmGrainPresent && (showFrame || showableFrame)) film_grain_params(b);
+        else grain = FilmGrain();
         headerDone = 1;
+    }
+
+    // global_motion_params (5.9.24): every model but the identity is
+    // refused, so global motion vectors are zero
+    void global_motion_params(Bits& b) {
+        if (frameIsIntra) return;
+        for (int r = LAST_FRAME; r <= ALTREF_FRAME; r++)
+            if (b.f(1)) refuse(TOOL_GLOBAL_MOTION);    // is_global: no fixture's encoder sets one
+    }
+
+    // ---- the motion field (7.9) as libaom's av1_setup_motion_field keeps
+    // it: per 8x8, a backward motion vector of a reference projected onto
+    // this frame, with that vector's own frame distance
+    std::vector<int16_t> tplMv;
+    std::vector<int8_t> tplOff;
+    std::vector<uint8_t> tplValid;
+    int tplStride = 0;
+
+    static void mv_projection(int* out, const int* mv, int num, int den) {
+        den = std::min(den, 31);
+        num = num > 0 ? std::min(num, 31) : std::max(num, -31);
+        for (int i = 0; i < 2; i++) {
+            int v = mv[i] * num * k_div_mult[den];
+            v = v >= 0 ? (v + (1 << 13)) >> 14 : -((-v + (1 << 13)) >> 14);
+            out[i] = clip3(-(1 << 14) + 1, (1 << 14) - 1, v);
+        }
+    }
+
+    int project(int src, int dir) {
+        const RefSlot& r = refs[refFrameIdx[src - LAST_FRAME]];
+        if (r.frameType == KEY_FRAME || r.frameType == INTRA_ONLY_FRAME) return 0;
+        if (r.miRows != MiRows || r.miCols != MiCols) return 0;
+        int startToCur = relative_dist(r.orderHint, orderHint), refOffset[8] = {0};
+        for (int rf = LAST_FRAME; rf <= ALTREF_FRAME; rf++) refOffset[rf] = relative_dist(r.orderHint, r.savedOrderHints[rf]);
+        if (dir == 2) startToCur = -startToCur;
+        int rows = (MiRows + 1) >> 1, cols = (MiCols + 1) >> 1;
+        for (int br = 0; br < rows; br++)
+            for (int bc = 0; bc < cols; bc++) {
+                size_t k = (size_t)br * cols + bc;
+                int ref = r.mfRef[k];
+                if (ref <= INTRA_FRAME) continue;
+                int off = refOffset[ref];
+                if (std::abs(off) > 31 || off <= 0 || std::abs(startToCur) > 31) continue;
+                int fwd[2] = {r.mfMv[2 * k], r.mfMv[2 * k + 1]}, mv[2];
+                mv_projection(mv, fwd, startToCur, off);
+                int ro = mv[0] >= 0 ? mv[0] >> 6 : -((-mv[0]) >> 6);
+                int co = mv[1] >= 0 ? mv[1] >> 6 : -((-mv[1]) >> 6);
+                int row = dir == 2 ? br - ro : br + ro, col = dir == 2 ? bc - co : bc + co;
+                int baseR = (br >> 3) << 3, baseC = (bc >> 3) << 3;
+                if (row < 0 || row >= (MiRows >> 1) || col < 0 || col >= (MiCols >> 1)) continue;
+                if (row < baseR || row >= baseR + 8 || col < baseC - 8 || col >= baseC + 16) continue;
+                size_t t = (size_t)row * tplStride + col;
+                tplMv[2 * t] = (int16_t)fwd[0]; tplMv[2 * t + 1] = (int16_t)fwd[1];
+                tplOff[t] = (int8_t)off; tplValid[t] = 1;
+            }
+        return 1;
+    }
+
+    void motion_field() {
+        tplStride = (MiCols >> 1) + 1;
+        size_t n = (size_t)((MiRows >> 1) + 1) * tplStride;
+        tplMv.assign(2 * n, 0); tplOff.assign(n, 0); tplValid.assign(n, 0);
+        int refStamp = 2;
+        if (refs[refFrameIdx[0]].savedOrderHints[ALTREF_FRAME] != orderHints[GOLDEN_FRAME]) project(LAST_FRAME, 2);
+        refStamp--;
+        if (relative_dist(orderHints[BWDREF_FRAME], orderHint) > 0 && project(BWDREF_FRAME, 0)) refStamp--;
+        if (relative_dist(orderHints[ALTREF2_FRAME], orderHint) > 0 && project(ALTREF2_FRAME, 0)) refStamp--;
+        if (relative_dist(orderHints[ALTREF_FRAME], orderHint) > 0 && refStamp >= 0 && project(ALTREF_FRAME, 0)) refStamp--;
+        if (refStamp >= 0) project(2, 2);   // LAST2_FRAME
     }
 
     // film_grain_params (5.9.30) of an intra frame (update_grain = 1), with
@@ -663,6 +961,12 @@ struct Decoder {
         g.apply = b.f(1);
         if (!g.apply) return;
         g.seed = b.f(16);
+        if (frameType == INTER_FRAME && !b.f(1)) {   // update_grain = 0: a reference's, with this seed
+            int seed = g.seed;
+            g = refs[b.f(3)].grain;
+            g.seed = seed;
+            return;
+        }
         auto points = [&](int n, int (*pt)[2]) {
             for (int i = 0; i < n; i++) {
                 pt[i][0] = b.f(8); pt[i][1] = b.f(8);
@@ -710,7 +1014,7 @@ struct Decoder {
         miSize.assign(n, 0); yMode.assign(n, 0); uvMode.assign(n, 0); skip.assign(n, 0);
         isInter.assign(n, 0); segId.assign(n, 0); txSizeMi.assign(n, 0); palSize0.assign(n, 0);
         palSize1.assign(n, 0); lossMi.assign(n, 0); written.assign(n, 0); mvRow.assign(n, 0); mvCol.assign(n, 0); deltaLFs.assign(n * 4, 0); palColors.assign(n * 16, 0);
-        txTypes.assign(n, 0);
+        txTypes.assign(n, 0); refFrame0.assign(n, 0); refFrame1.assign(n, -1); filt0.assign(n, 0); filt1.assign(n, 0);
         for (int p = 0; p < 3; p++) lfTx[p].assign(n, 0);
         cdefStride = cols / 16 + 2;
         cdefIdx.assign((size_t)(rows / 16 + 2) * cdefStride, -1);
@@ -971,15 +1275,21 @@ struct Decoder {
             if (ssy && bh4 == 1) AvailUChroma = is_inside(r - 2, c);
             if (ssx && bw4 == 1) AvailLChroma = is_inside(r, c - 2);
         } else AvailUChroma = AvailLChroma = 0;
-        intra_frame_mode_info();
+        if (frameIsIntra) intra_frame_mode_info();
+        else inter_frame_mode_info();
         palette_tokens();
         read_block_tx_size();
         if (Skip) reset_block_context();
         if (use_intrabc) census[C_INTRABC]++;
+        if (!frameIsIntra) {
+            census[is_inter ? C_INTER_BLOCKS : C_INTRA_IN_INTER]++;
+            if (is_inter && Skip) census[C_INTER_SKIP]++;
+        }
         for (int y = 0; y < bh4; y++) for (int x = 0; x < bw4; x++) {
             size_t m = mi(r + y, c + x);
             yMode[m] = (uint8_t)YMode; uvMode[m] = (uint8_t)UVMode;
-            isInter[m] = (uint8_t)use_intrabc; skip[m] = (uint8_t)Skip; written[m] = 1;
+            isInter[m] = (uint8_t)is_inter; skip[m] = (uint8_t)Skip; written[m] = 1;
+            refFrame0[m] = (int8_t)RefFrame0; refFrame1[m] = (int8_t)(interintra ? INTRA_FRAME : NONE_FRAME); filt0[m] = (uint8_t)interpF[0]; filt1[m] = (uint8_t)interpF[1];
             mvRow[m] = (int16_t)Mv[0]; mvCol[m] = (int16_t)Mv[1];
             miSize[m] = (uint8_t)MiSize; segId[m] = (uint8_t)segment_id;
             palSize0[m] = (uint8_t)PaletteSizeY; palSize1[m] = (uint8_t)PaletteSizeUV;
@@ -990,10 +1300,16 @@ struct Decoder {
             }
             for (int i = 0; i < 4; i++) deltaLFs[m * 4 + i] = (int8_t)deltaLF[i];
         }
-        census[C_YMODE + YMode]++;
-        if (HasChroma) census[C_UVMODE + UVMode]++;
+        if (!is_inter || use_intrabc) {
+            census[C_YMODE + YMode]++;
+            if (HasChroma) census[C_UVMODE + UVMode]++;
+        } else {
+            census[C_NEARESTMV + YMode - NEARESTMV]++;
+            census[C_FILTER + interpF[0]]++;
+        }
         if (Lossless) census[C_LOSSLESS]++;
         if (use_intrabc) predict_intrabc();
+        else if (is_inter) predict_inter_block();
         residual();
     }
 
@@ -1051,11 +1367,13 @@ struct Decoder {
         read_delta_lf();
         readDeltas = 0;
         use_intrabc = 0; Mv[0] = Mv[1] = 0;
+        is_inter = 0; RefFrame0 = INTRA_FRAME; interpF[0] = interpF[1] = 0; interintra = 0;
         PaletteSizeY = PaletteSizeUV = 0; use_filter_intra = 0;
         memset(paletteColors, 0, sizeof(paletteColors));
         if (allowIntrabc) {
             use_intrabc = sd.symbol(cdf.intrabc, 2);
             if (use_intrabc) {
+                is_inter = 1; interpF[0] = interpF[1] = BILINEAR;
                 YMode = DC_PRED; UVMode = DC_PRED; AngleDeltaY = AngleDeltaUV = 0;
                 CflAlphaU = CflAlphaV = 0;
                 read_intrabc_mv();
@@ -1066,6 +1384,12 @@ struct Decoder {
         int aboveMode = AvailU ? yMode[mi(MiRow - 1, MiCol)] : DC_PRED;
         int leftMode = AvailL ? yMode[mi(MiRow, MiCol - 1)] : DC_PRED;
         YMode = sd.symbol(cdf.kf_y_mode[kIntraModeContext[aboveMode]][kIntraModeContext[leftMode]], 13);
+        intra_modes_after_y();
+    }
+
+    // intra_angle_info_y onwards: the chroma mode, CfL, palette and filter
+    // intra of an intra block (in any frame)
+    void intra_modes_after_y() {
         AngleDeltaY = 0;
         if (MiSize >= BLOCK_8X8 && is_directional(YMode)) {
             AngleDeltaY = sd.symbol(cdf.angle_delta[YMode - V_PRED], 7) - 3;
@@ -1294,14 +1618,14 @@ struct Decoder {
 
     // InterTxSizes live in txSizeMi
     void read_block_tx_size() {
-        if (txModeSelect && MiSize > BLOCK_4X4 && use_intrabc && !Skip && !Lossless) {
+        if (txModeSelect && MiSize > BLOCK_4X4 && is_inter && !Skip && !Lossless) {
             int maxTx = kMaxTxRect[MiSize];
             int txW4 = kTxW[maxTx] / 4, txH4 = kTxH[maxTx] / 4;
             for (int row = MiRow; row < MiRow + bh4; row += txH4)
                 for (int col = MiCol; col < MiCol + bw4; col += txW4) read_var_tx_size(row, col, maxTx, 0);
             return;
         }
-        read_tx_size(!Skip || !use_intrabc);
+        read_tx_size(!Skip || !is_inter);
         for (int y = 0; y < bh4; y++) for (int x = 0; x < bw4; x++) txSizeMi[mi(MiRow + y, MiCol + x)] = (uint8_t)TxSize;
     }
 
@@ -1318,6 +1642,7 @@ struct Decoder {
             split = sd.symbol(cdf.txfm_part[ctx], 2);
         }
         int w4 = kTxW[txSz] / 4, h4 = kTxH[txSz] / 4;
+        if (split && !use_intrabc) census[C_VAR_TX]++;
         if (split) {
             int sub = kSplitTx[txSz], sw = kTxW[sub] / 4, sh = kTxH[sub] / 4;
             for (int i = 0; i < h4; i += sh) for (int j = 0; j < w4; j += sw) read_var_tx_size(row + i, col + j, sub, depth + 1);
@@ -1382,8 +1707,10 @@ struct Decoder {
                     int n4w = kNum4x4W[planeSz], n4h = kNum4x4H[planeSz];
                     int sx = p ? ssx : 0, sy = p ? ssy : 0;
                     int baseX = (MiCol >> sx) * 4, baseY = (MiRow >> sy) * 4;
-                    if (use_intrabc && !Lossless && p == 0) {
-                        transform_tree((miColChunk >> sx) * 4, (miRowChunk >> sy) * 4, n4w * 4, n4h * 4);
+                    if (is_inter && !Lossless && p == 0) {
+                        // each 64x64 chunk as trees of the largest transform
+                        transform_tree((miColChunk >> sx) * 4, (miRowChunk >> sy) * 4,
+                                       std::min(64, n4w * 4), std::min(64, n4h * 4));
                         continue;
                     }
                     for (int y = 0; y < std::min(n4h, 16 >> sy); y += stepY)
@@ -1414,7 +1741,7 @@ struct Decoder {
         int stepX = kTxW[txSz] >> 2, stepY = kTxH[txSz] >> 2;
         int maxX = (MiCols * 4) >> sx, maxY = (MiRows * 4) >> sy;
         if (startX >= maxX || startY >= maxY) return;
-        if (use_intrabc) {}
+        if (is_inter) {}
         else if ((plane == 0 && PaletteSizeY) || (plane != 0 && PaletteSizeUV)) predict_palette(plane, startX, startY, x, y, txSz);
         else {
             int isCfl = plane > 0 && UVMode == UV_CFL_PRED;
@@ -1443,7 +1770,7 @@ struct Decoder {
     int get_tx_set(int txSz) const {
         int sq = tx_sqr(txSz), up = tx_sqr_up(txSz);
         if (up > TX_32X32) return 0;
-        if (use_intrabc) {
+        if (is_inter) {
             if (reducedTxSet || up == TX_32X32) return 5;
             if (sq == TX_16X16) return 4;
             return 3;
@@ -1466,7 +1793,7 @@ struct Decoder {
             {1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0},
             {1, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0}};
         int t;
-        if (use_intrabc) t = txTypes[mi(std::max(MiRow, blockY << ssy), std::max(MiCol, blockX << ssx))];
+        if (is_inter) t = txTypes[mi(std::max(MiRow, blockY << ssy), std::max(MiCol, blockX << ssx))];
         else t = kModeToTxfm[UVMode];
         if (!inSet[set][t]) return DCT_DCT;
         return t;
@@ -1721,12 +2048,7 @@ struct Decoder {
 
     void add_candidate(int r, int c, int weight) {
         size_t m = mi(r, c);
-        if (!isInter[m]) return;
-        int mv0 = mvRow[m], mv1 = mvCol[m];  // integer already: lower_mv_precision keeps it
-        int idx;
-        for (idx = 0; idx < numMvFound; idx++) if (stackMv[idx][0] == mv0 && stackMv[idx][1] == mv1) break;
-        if (idx < numMvFound) weightStack[idx] += weight;
-        else if (numMvFound < 8) { stackMv[numMvFound][0] = mv0; stackMv[numMvFound][1] = mv1; weightStack[numMvFound] = weight; numMvFound++; }
+        if (isInter[m]) add_ref_mv_candidate(m, weight);
     }
     void scan_row(int deltaRow) {
         int end4 = std::min(std::min(bw4, MiCols - MiCol), 16), deltaCol = 0, step16 = bw4 >= 16;
@@ -1772,51 +2094,13 @@ struct Decoder {
         }
     }
 
-    int read_mv_component(int comp) {
-        uint16_t* c = ndvc + 5 + 69 * comp;
-        int sign = sd.symbol(c + 27, 2);
-        int mvClass = sd.symbol(c, 11);
-        int mag, d;
-        if (mvClass == 0) { d = sd.symbol(c + 36, 2); mag = 0; }
-        else {
-            int n = mvClass;  // mv_class + CLASS0_BITS - 1
-            d = 0;
-            for (int i = 0; i < n; i++) d |= sd.symbol(c + 39 + 3 * i, 2) << i;
-            mag = 2 << (mvClass + 2);
-        }
-        mag += ((d << 3) | (3 << 1) | 1) + 1;
-        return sign ? -mag : mag;
-    }
 
     void read_intrabc_mv() {
-        numMvFound = 0;
-        scan_row(-1);
-        scan_col(-1);
-        if (std::max(bw4, bh4) <= 16) scan_point(-1, bw4);
-        int numNearest = numMvFound;
-        for (int i = 0; i < numNearest; i++) weightStack[i] += 640;
-        scan_point(-1, -1);
-        scan_row(-3);
-        scan_col(-3);
-        if (bh4 > 1) scan_row(-5);
-        if (bw4 > 1) scan_col(-5);
-        sort_stack(0, numNearest);
-        sort_stack(numNearest, numMvFound);
-        // context_and_clamping: clamp each candidate to the block's reach
-        for (int i = 0; i < numMvFound; i++) {
-            int bh = bh4 * 4, bw = bw4 * 4;
-            int top = -(MiRow * 4 * 8), bottom = (MiRows - bh4 - MiRow) * 4 * 8;
-            int left = -(MiCol * 4 * 8), right = (MiCols - bw4 - MiCol) * 4 * 8;
-            stackMv[i][0] = clip3(top - (128 + bh * 8), bottom + (128 + bh * 8), stackMv[i][0]);
-            stackMv[i][1] = clip3(left - (128 + bw * 8), right + (128 + bw * 8), stackMv[i][1]);
-        }
-        int nearest[2] = {0, 0}, near[2] = {0, 0};
-        if (numMvFound > 0) { nearest[0] = stackMv[0][0]; nearest[1] = stackMv[0][1]; }
-        if (numMvFound > 1) { near[0] = stackMv[1][0]; near[1] = stackMv[1][1]; }
-        for (int k = 0; k < 2; k++) {  // lower_mv_precision without high precision
-            if (nearest[k] & 1) nearest[k] += nearest[k] > 0 ? -1 : 1;
-            if (near[k] & 1) near[k] += near[k] > 0 ? -1 : 1;
-        }
+        // the stack of a block whose reference is this frame (its
+        // neighbours' vectors are whole samples already)
+        RefFrame0 = INTRA_FRAME;
+        find_mv_stack();
+        int nearest[2] = {stackMv[0][0], stackMv[0][1]}, near[2] = {stackMv[1][0], stackMv[1][1]};
         int ref[2];
         if (nearest[0] || nearest[1]) { ref[0] = nearest[0]; ref[1] = nearest[1]; }
         else { ref[0] = near[0]; ref[1] = near[1]; }
@@ -1828,8 +2112,8 @@ struct Decoder {
         ref[0] = (ref[0] >> 3) * 8; ref[1] = (ref[1] >> 3) * 8;
         int joint = sd.symbol(ndvc, 4);
         int diff0 = 0, diff1 = 0;
-        if (joint == 2 || joint == 3) diff0 = read_mv_component(0);
-        if (joint == 1 || joint == 3) diff1 = read_mv_component(1);
+        if (joint == 2 || joint == 3) diff0 = read_mv_comp(ndvc, 0);
+        if (joint == 1 || joint == 3) diff1 = read_mv_comp(ndvc, 1);
         Mv[0] = ((ref[0] + diff0) >> 3) * 8;
         Mv[1] = ((ref[1] + diff1) >> 3) * 8;
     }
@@ -1857,6 +2141,683 @@ struct Decoder {
                 pred[i * w + j] = (uint16_t)v;
             }
             for (int i = 0; i < h; i++) for (int j = 0; j < w; j++) *f.at(baseY + i, baseX + j) = pred[i * w + j];
+        }
+    }
+
+
+    // ================================================================ inter blocks
+    // inter_frame_mode_info (5.11.18) of a frame with one reference per
+    // block: segmentation, skip mode and compound references are refused
+    // in the frame header
+    void inter_frame_mode_info() {
+        use_intrabc = 0; Mv[0] = Mv[1] = 0;
+        AboveRefFrame0 = AvailU ? refFrame0[mi(MiRow - 1, MiCol)] : INTRA_FRAME;
+        LeftRefFrame0 = AvailL ? refFrame0[mi(MiRow, MiCol - 1)] : INTRA_FRAME;
+        int leftIntra = LeftRefFrame0 <= INTRA_FRAME, aboveIntra = AboveRefFrame0 <= INTRA_FRAME;
+        segment_id = 0;
+        int ctx = 0;
+        if (AvailU) ctx += skip[mi(MiRow - 1, MiCol)];
+        if (AvailL) ctx += skip[mi(MiRow, MiCol - 1)];
+        Skip = sd.symbol(cdf.skip[ctx], 2);
+        Lossless = losslessArr[segment_id];
+        read_cdef();
+        read_delta_qindex();
+        read_delta_lf();
+        readDeltas = 0;
+        int ictx;
+        if (AvailU && AvailL) ictx = (leftIntra && aboveIntra) ? 3 : (leftIntra || aboveIntra);
+        else if (AvailU || AvailL) ictx = 2 * (AvailU ? aboveIntra : leftIntra);
+        else ictx = 0;
+        is_inter = sd.symbol(cdf.intra_inter[ictx], 2);
+        interintra = 0;
+        PaletteSizeY = PaletteSizeUV = 0; use_filter_intra = 0;
+        memset(paletteColors, 0, sizeof(paletteColors));
+        if (is_inter) {
+            AngleDeltaY = AngleDeltaUV = 0;   // an inter-intra block's intra half has none
+            inter_block_mode_info();
+            return;
+        }
+        RefFrame0 = INTRA_FRAME; interpF[0] = interpF[1] = 0;
+        YMode = sd.symbol(cdf.y_mode[kSizeGroup[MiSize]], 13);
+        intra_modes_after_y();
+    }
+
+    void read_ref_frames() {
+        auto count = [&](int f) { return (AvailU && AboveRefFrame0 == f) + (AvailL && LeftRefFrame0 == f); };
+        auto ctx = [](int a, int b) { return a < b ? 0 : a == b ? 1 : 2; };
+        int c1 = count(1), c2 = count(2), c3 = count(3), c4 = count(4), c5 = count(5), c6 = count(6), c7 = count(7);
+        if (sd.symbol(cdf.single_ref[ctx(c1 + c2 + c3 + c4, c5 + c6 + c7)][0], 2)) {
+            if (!sd.symbol(cdf.single_ref[ctx(c5 + c6, c7)][1], 2))
+                RefFrame0 = sd.symbol(cdf.single_ref[ctx(c5, c6)][5], 2) ? ALTREF2_FRAME : BWDREF_FRAME;
+            else RefFrame0 = ALTREF_FRAME;
+        } else {
+            if (sd.symbol(cdf.single_ref[ctx(c1 + c2, c3 + c4)][2], 2))
+                RefFrame0 = sd.symbol(cdf.single_ref[ctx(c3, c4)][4], 2) ? GOLDEN_FRAME : 3;
+            else RefFrame0 = sd.symbol(cdf.single_ref[ctx(c1, c2)][3], 2) ? 2 : LAST_FRAME;
+        }
+    }
+
+    void inter_block_mode_info() {
+        read_ref_frames();
+        find_mv_stack();
+        if (!sd.symbol(cdf.newmv[NewMvContext], 2)) YMode = NEWMV;
+        else if (!sd.symbol(cdf.zeromv[ZeroMvContext], 2)) YMode = GLOBALMV;
+        else YMode = sd.symbol(cdf.refmv[RefMvContext], 2) ? NEARMV : NEARESTMV;
+        RefMvIdx = 0;
+        if (YMode == NEWMV || YMode == NEARMV) {
+            int first = YMode == NEARMV;
+            RefMvIdx = first;
+            for (int idx = first; idx < first + 2; idx++) {
+                if (numMvFound <= idx + 1) continue;
+                census[C_DRL]++;
+                if (!sd.symbol(cdf.drl[DrlCtxStack[idx]], 2)) { RefMvIdx = idx; break; }
+                RefMvIdx = idx + 1;
+            }
+        }
+        // assign_mv
+        int pred[2];
+        if (YMode == GLOBALMV) { pred[0] = GlobalMv[0]; pred[1] = GlobalMv[1]; }
+        else {
+            int pos = YMode == NEARESTMV ? 0 : RefMvIdx;
+            if (YMode == NEWMV && numMvFound <= 1) pos = 0;
+            pred[0] = stackMv[pos][0]; pred[1] = stackMv[pos][1];
+        }
+        Mv[0] = pred[0]; Mv[1] = pred[1];
+        if (YMode == NEWMV) {
+            int joint = sd.symbol(cdf.nmv, 4);
+            if (joint == 2 || joint == 3) Mv[0] += read_mv_comp(cdf.nmv, 0);
+            if (joint == 1 || joint == 3) Mv[1] += read_mv_comp(cdf.nmv, 1);
+        }
+        // read_interintra_mode (every size it allows has wedges)
+        if (enInterintra && MiSize >= BLOCK_8X8 && MiSize <= BLOCK_32X32 &&
+            sd.symbol(cdf.interintra[kSizeGroup[MiSize]], 2)) {
+            interintra = 1;
+            interintraMode = sd.symbol(cdf.interintra_mode[kSizeGroup[MiSize]], 4);
+            census[C_INTERINTRA]++;
+            wedgeInterintra = sd.symbol(cdf.wedge_interintra[MiSize], 2);
+            if (wedgeInterintra) { wedgeIndex = sd.symbol(cdf.wedge_idx[MiSize], 16); census[C_WEDGE_INTERINTRA]++; }
+        }
+        // read_motion_mode
+        motionMode = 0;
+        if (motionSwitchable && !interintra && std::min(bw4, bh4) >= 2 &&
+            has_overlappable_candidates()) {
+            int mode;
+            find_warp_samples();
+            if (forceIntegerMv || !allowWarped || ref_is_scaled(RefFrame0) || !numSamples)
+                mode = sd.symbol(cdf.obmc[MiSize], 2);
+            else mode = sd.symbol(cdf.motion_mode[MiSize], 3);
+            motionMode = mode;
+            census[C_MOTION_MODE_READ]++;
+            if (mode == 1) census[C_OBMC]++;
+            if (mode == 2) { census[C_LOCALWARP]++; warp_estimation(); }
+        }
+        // interpolation filters: vertical, then horizontal
+        int large = std::min(bw4, bh4) >= 2;
+        // needs_interp_filter: a large GLOBALMV block (of an identity
+        // model) and a local warp read none
+        int needs = motionMode != 2 && !(large && YMode == GLOBALMV);
+        if (interpFilter == SWITCHABLE) {
+            for (int dir = 0; dir < (enDualFilter ? 2 : 1); dir++)
+                interpF[dir] = needs ? sd.symbol(cdf.interp[interp_ctx(dir)], 3) : EIGHTTAP;
+            if (!enDualFilter) interpF[1] = interpF[0];
+        } else interpF[0] = interpF[1] = interpFilter;
+        if (interpF[0] == BILINEAR || interpF[1] == BILINEAR) refuse(TOOL_BILINEAR);
+        if (interpF[0] != interpF[1]) refuse(TOOL_DUAL_FILTER);
+    }
+
+    int interp_ctx(int dir) const {
+        int ctx = (dir & 1) * 8, leftType = 3, aboveType = 3;
+        if (AvailL) {
+            size_t m = mi(MiRow, MiCol - 1);
+            if (refFrame0[m] == RefFrame0) leftType = dir ? filt1[m] : filt0[m];
+        }
+        if (AvailU) {
+            size_t m = mi(MiRow - 1, MiCol);
+            if (refFrame0[m] == RefFrame0) aboveType = dir ? filt1[m] : filt0[m];
+        }
+        if (leftType == aboveType) ctx += leftType;
+        else if (leftType == 3) ctx += aboveType;
+        else if (aboveType == 3) ctx += leftType;
+        else ctx += 3;
+        return ctx;
+    }
+
+    int has_overlappable_candidates() const {
+        if (AvailU)
+            for (int x4 = MiCol; x4 < std::min(MiCols, MiCol + bw4); x4 += 2) {
+                int x5 = std::min(x4 | 1, MiCols - 1);
+                if (refFrame0[mi(MiRow - 1, x5)] > INTRA_FRAME) return 1;
+            }
+        if (AvailL)
+            for (int y4 = MiRow; y4 < std::min(MiRows, MiRow + bh4); y4 += 2) {
+                int y5 = std::min(y4 | 1, MiRows - 1);
+                if (refFrame0[mi(y5, MiCol - 1)] > INTRA_FRAME) return 1;
+            }
+        return 0;
+    }
+
+    // read_mv_component (5.11.32) on an nmv context (joints, then per
+    // component classes, class0_fr, fr, sign, class0_hp, hp, class0, bits);
+    // an intra frame's force_integer_mv leaves no fraction (intra block copy)
+    int read_mv_comp(uint16_t* nmv, int comp) {
+        uint16_t* c = nmv + 5 + 69 * comp;
+        int sign = sd.symbol(c + 27, 2);
+        int cls = sd.symbol(c, 11);
+        int d, mag;
+        if (cls == 0) { d = sd.symbol(c + 36, 2); mag = 0; }
+        else {
+            d = 0;
+            for (int i = 0; i < cls; i++) d |= sd.symbol(c + 39 + 3 * i, 2) << i;
+            mag = 2 << (cls + 2);
+        }
+        int fr = forceIntegerMv ? 3 : sd.symbol(cls == 0 ? c + 12 + 5 * d : c + 22, 4);
+        int hp = allowHp ? sd.symbol(cls == 0 ? c + 30 : c + 33, 2) : 1;
+        mag += ((d << 3) | (fr << 1) | hp) + 1;
+        return sign ? -mag : mag;
+    }
+
+    // ---- motion vector prediction (7.10.2) for one reference
+    int GlobalMv[2] = {0, 0}, NewMvContext = 0, RefMvContext = 0, ZeroMvContext = 0, DrlCtxStack[8];
+    int newMvCount = 0, foundMatch = 0;
+
+    void lower_mv_precision(int* mv) const {
+        if (allowHp) return;
+        for (int i = 0; i < 2; i++) {
+            if (forceIntegerMv) {
+                int a = std::abs(mv[i]), aInt = (a + 3) >> 3;
+                mv[i] = mv[i] > 0 ? aInt << 3 : -(aInt << 3);
+            } else if (mv[i] & 1) mv[i] += mv[i] > 0 ? -1 : 1;
+        }
+    }
+
+    void add_ref_mv_candidate(size_t m, int weight) {
+        if (refFrame0[m] != RefFrame0) return;
+        int mv[2] = {mvRow[m], mvCol[m]};
+        lower_mv_precision(mv);
+        if (yMode[m] == NEWMV) newMvCount++;
+        foundMatch = 1;
+        int idx;
+        for (idx = 0; idx < numMvFound; idx++) if (stackMv[idx][0] == mv[0] && stackMv[idx][1] == mv[1]) break;
+        if (idx < numMvFound) weightStack[idx] += weight;
+        else if (numMvFound < 8) {
+            stackMv[numMvFound][0] = mv[0]; stackMv[numMvFound][1] = mv[1];
+            weightStack[numMvFound] = weight; numMvFound++;
+        }
+    }
+
+    void find_mv_stack() {
+        numMvFound = 0; newMvCount = 0;
+        GlobalMv[0] = GlobalMv[1] = 0;     // identity global motion only
+        foundMatch = 0;
+        scan_row(-1);
+        int foundAbove = foundMatch;
+        foundMatch = 0;
+        scan_col(-1);
+        int foundLeft = foundMatch;
+        foundMatch = 0;
+        if (std::max(bw4, bh4) <= 16) scan_point(-1, bw4);
+        if (foundMatch) foundAbove = 1;
+        int closeMatches = foundAbove + foundLeft;
+        int numNearest = numMvFound, numNew = newMvCount;
+        for (int i = 0; i < numNearest; i++) weightStack[i] += 640;
+        ZeroMvContext = 0;
+        if (useRefFrameMvs) temporal_scan();
+        foundMatch = 0;
+        scan_point(-1, -1);
+        if (foundMatch) foundAbove = 1;
+        foundMatch = 0;
+        scan_row(-3);
+        if (foundMatch) foundAbove = 1;
+        foundMatch = 0;
+        scan_col(-3);
+        if (foundMatch) foundLeft = 1;
+        foundMatch = 0;
+        if (bh4 > 1) scan_row(-5);
+        if (foundMatch) foundAbove = 1;
+        foundMatch = 0;
+        if (bw4 > 1) scan_col(-5);
+        if (foundMatch) foundLeft = 1;
+        int totalMatches = foundAbove + foundLeft;
+        sort_stack(0, numNearest);
+        sort_stack(numNearest, numMvFound);
+        if (numMvFound < 2) extra_search();
+        for (int idx = 0; idx < numMvFound; idx++) {
+            int z = 0;
+            if (idx + 1 < numMvFound) {
+                int w0 = weightStack[idx], w1 = weightStack[idx + 1];
+                if (w0 >= 640) { if (w1 < 640) z = 1; }
+                else z = 2;
+            }
+            DrlCtxStack[idx] = z;
+        }
+        for (int i = 0; i < numMvFound; i++) {
+            int bh = bh4 * 4, bw = bw4 * 4;
+            int top = -(MiRow * 4 * 8), bottom = (MiRows - bh4 - MiRow) * 4 * 8;
+            int left = -(MiCol * 4 * 8), right = (MiCols - bw4 - MiCol) * 4 * 8;
+            stackMv[i][0] = clip3(top - (128 + bh * 8), bottom + (128 + bh * 8), stackMv[i][0]);
+            stackMv[i][1] = clip3(left - (128 + bw * 8), right + (128 + bw * 8), stackMv[i][1]);
+        }
+        if (closeMatches == 0) { NewMvContext = std::min(totalMatches, 1); RefMvContext = totalMatches; }
+        else if (closeMatches == 1) { NewMvContext = 3 - std::min(numNew, 1); RefMvContext = 2 + totalMatches; }
+        else { NewMvContext = 5 - std::min(numNew, 1); RefMvContext = 5; }
+        // past the stack, the global motion vector (av1_get_ref_mv_from_stack)
+        for (int idx = numMvFound; idx < 2; idx++) { stackMv[idx][0] = GlobalMv[0]; stackMv[idx][1] = GlobalMv[1]; }
+    }
+
+    void temporal_scan() {
+        int stepW4 = bw4 >= 16 ? 4 : 2, stepH4 = bh4 >= 16 ? 4 : 2, available = 0;
+        for (int dr = 0; dr < std::min(bh4, 16); dr += stepH4)
+            for (int dc = 0; dc < std::min(bw4, 16); dc += stepW4) {
+                int ret = add_tpl_ref_mv(dr, dc);
+                if (dr == 0 && dc == 0) available = ret;
+            }
+        if (!available) ZeroMvContext = 1;
+        if (bh4 >= 2 && bh4 < 16 && bw4 >= 2 && bw4 < 16) {
+            const int pos[3][2] = {{bh4, -2}, {bh4, bw4}, {bh4 - 2, bw4}};
+            for (int i = 0; i < 3; i++) {
+                int row = (MiRow & 15) + pos[i][0], col = (MiCol & 15) + pos[i][1];
+                if (row < 0 || row >= 16 || col < 0 || col >= 16) continue;   // check_sb_border
+                add_tpl_ref_mv(pos[i][0], pos[i][1]);
+            }
+        }
+    }
+
+    int add_tpl_ref_mv(int dr, int dc) {
+        int r = MiRow + ((MiRow & 1) ? dr : dr + 1), c = MiCol + ((MiCol & 1) ? dc : dc + 1);
+        if (!is_inside(r, c)) return 0;
+        size_t t = (size_t)(r >> 1) * tplStride + (c >> 1);
+        if (!tplValid[t]) return 0;
+        int curOff = relative_dist(orderHint, refs[refFrameIdx[RefFrame0 - LAST_FRAME]].orderHint);
+        int fwd[2] = {tplMv[2 * t], tplMv[2 * t + 1]}, mv[2];
+        mv_projection(mv, fwd, curOff, tplOff[t]);
+        lower_mv_precision(mv);
+        if (dr == 0 && dc == 0 && (std::abs(mv[0] - GlobalMv[0]) >= 16 || std::abs(mv[1] - GlobalMv[1]) >= 16))
+            ZeroMvContext = 1;
+        census[C_TEMPORAL_MV]++;
+        int idx;
+        for (idx = 0; idx < numMvFound; idx++) if (stackMv[idx][0] == mv[0] && stackMv[idx][1] == mv[1]) break;
+        if (idx < numMvFound) weightStack[idx] += 2;
+        else if (numMvFound < 8) {
+            stackMv[numMvFound][0] = mv[0]; stackMv[numMvFound][1] = mv[1];
+            weightStack[numMvFound] = 2; numMvFound++;
+        }
+        return 1;
+    }
+
+    // find_warp_samples (7.10.4) as libaom's av1_findSamples and
+    // av1_selectSamples: the centres of the neighbours that use this
+    // block's reference, before and after their motion
+    int numSamples = 0, candList[8][4];
+    void find_warp_samples() {
+        int scanned = 0, doTopLeft = 1, doTopRight = 1;
+        numSamples = 0;
+        int thresh = clip3(16, 112, std::max(bw4, bh4) * 4);
+        auto add = [&](int dr, int dc) {
+            if (scanned >= 8) return;
+            int r = MiRow + dr, c = MiCol + dc;
+            if (!is_inside(r, c)) return;
+            size_t m = mi(r, c);
+            if (!written[m] || refFrame0[m] != RefFrame0 || refFrame1[m] != NONE_FRAME) return;
+            int cw4 = kNum4x4W[miSize[m]], ch4 = kNum4x4H[miSize[m]];
+            int candRow = r & ~(ch4 - 1), candCol = c & ~(cw4 - 1);
+            int midY = candRow * 4 + ch4 * 2 - 1, midX = candCol * 4 + cw4 * 2 - 1;
+            int valid = std::abs(mvRow[m] - Mv[0]) + std::abs(mvCol[m] - Mv[1]) <= thresh;
+            scanned++;
+            if (!valid && scanned > 1) return;
+            candList[numSamples][0] = midY * 8; candList[numSamples][1] = midX * 8;
+            candList[numSamples][2] = midY * 8 + mvRow[m]; candList[numSamples][3] = midX * 8 + mvCol[m];
+            if (valid) numSamples++;
+        };
+        if (AvailU) {
+            int srcW = kNum4x4W[miSize[mi(MiRow - 1, MiCol)]];
+            if (bw4 <= srcW) {
+                int colOffset = -(MiCol & (srcW - 1));
+                if (colOffset < 0) doTopLeft = 0;
+                if (colOffset + srcW > bw4) doTopRight = 0;
+                add(-1, 0);
+            } else {
+                for (int i = 0, step = 0; i < std::min(bw4, MiCols - MiCol); i += step) {
+                    step = kNum4x4W[miSize[mi(MiRow - 1, MiCol + i)]];   // libaom steps by the neighbour
+                    add(-1, i);
+                }
+            }
+        }
+        if (AvailL) {
+            int srcH = kNum4x4H[miSize[mi(MiRow, MiCol - 1)]];
+            if (bh4 <= srcH) {
+                if (-(MiRow & (srcH - 1)) < 0) doTopLeft = 0;
+                add(0, -1);
+            } else {
+                for (int i = 0, step = 0; i < std::min(bh4, MiRows - MiRow); i += step) {
+                    step = kNum4x4H[miSize[mi(MiRow + i, MiCol - 1)]];
+                    add(i, -1);
+                }
+            }
+        }
+        if (doTopLeft) add(-1, -1);
+        if (doTopRight && std::max(bw4, bh4) <= 16) add(-1, bw4);
+        if (numSamples == 0 && scanned > 0) numSamples = 1;
+    }
+
+    // warpEstimation (7.11.3.8) and setupShear (7.11.3.6), as libaom's
+    // find_affine_int and av1_get_shear_params compute them
+    int64_t localWarp[6];
+    int localValid = 0, warpAlpha = 0, warpBeta = 0, warpGamma = 0, warpDelta = 0;
+    static int16_t resolve_divisor(uint64_t d, int* shift) {
+        int sh = 0;
+        while ((d >> sh) > 1) sh++;
+        int64_t e = (int64_t)(d - ((uint64_t)1 << sh)), f;
+        if (sh > 8) f = (e + ((int64_t)1 << (sh - 9))) >> (sh - 8);
+        else f = e << (8 - sh);
+        *shift = sh + 14;
+        return k_div_lut[f];
+    }
+    static int64_t round2signed64(int64_t v, int n) {
+        if (n == 0) return v;
+        return v < 0 ? -((-v + ((int64_t)1 << (n - 1))) >> n) : (v + ((int64_t)1 << (n - 1))) >> n;
+    }
+    void warp_estimation() {
+        int64_t A[2][2] = {{0, 0}, {0, 0}}, Bx[2] = {0, 0}, By[2] = {0, 0};
+        int rsuy = bh4 * 2 - 1, rsux = bw4 * 2 - 1;
+        int suy = (MiRow * 4 + rsuy) * 8, sux = (MiCol * 4 + rsux) * 8;
+        int duy = suy + Mv[0], dux = sux + Mv[1];
+        auto sq = [](int64_t a) { return ((a * a) >> 2) + 2 * a + 8; };
+        auto p1 = [](int64_t a, int64_t b) { return ((a * b) >> 2) + (a + b) + 4; };
+        auto p2 = [](int64_t a, int64_t b) { return ((a * b) >> 2) + (a + b) + 8; };
+        for (int i = 0; i < numSamples; i++) {
+            int sy = candList[i][0] - suy, sx = candList[i][1] - sux;
+            int dy = candList[i][2] - duy, dx = candList[i][3] - dux;
+            if (std::abs(sx - dx) < 256 && std::abs(sy - dy) < 256) {
+                A[0][0] += sq(sx); A[0][1] += p1(sx, sy); A[1][1] += sq(sy);
+                Bx[0] += p2(sx, dx); Bx[1] += p1(sy, dx);
+                By[0] += p1(sx, dy); By[1] += p2(sy, dy);
+            }
+        }
+        // libaom keeps these sums in 32 bits
+        for (auto* a : {&A[0][0], &A[0][1], &A[1][1], &Bx[0], &Bx[1], &By[0], &By[1]}) *a = (int32_t)*a;
+        int64_t det = A[0][0] * A[1][1] - A[0][1] * A[0][1];
+        localValid = 0;
+        if (det == 0) { census[C_LOCALWARP_INVALID]++; return; }
+        int shift;
+        int16_t iDet = (int16_t)(resolve_divisor((uint64_t)(det < 0 ? -det : det), &shift) * (det < 0 ? -1 : 1));
+        shift -= 16;
+        if (shift < 0) { iDet = (int16_t)(iDet * (1 << -shift)); shift = 0; }
+        int64_t px0 = A[1][1] * Bx[0] - A[0][1] * Bx[1], px1 = -A[0][1] * Bx[0] + A[0][0] * Bx[1];
+        int64_t py0 = A[1][1] * By[0] - A[0][1] * By[1], py1 = -A[0][1] * By[0] + A[0][0] * By[1];
+        const int64_t clampN = 1 << 13;
+        auto diag = [&](int64_t v) { return std::max((1 << 16) - clampN + 1, std::min((1 << 16) + clampN - 1, round2signed64(v * iDet, shift))); };
+        auto ndiag = [&](int64_t v) { return std::max(-clampN + 1, std::min(clampN - 1, round2signed64(v * iDet, shift))); };
+        localWarp[2] = diag(px0); localWarp[3] = ndiag(px1); localWarp[4] = ndiag(py0); localWarp[5] = diag(py1);
+        int64_t isuy = MiRow * 4 + rsuy, isux = MiCol * 4 + rsux;
+        int64_t vx = (int64_t)Mv[1] * (1 << 13) - (isux * (localWarp[2] - (1 << 16)) + isuy * localWarp[3]);
+        int64_t vy = (int64_t)Mv[0] * (1 << 13) - (isux * localWarp[4] + isuy * (localWarp[5] - (1 << 16)));
+        vx = (int32_t)vx; vy = (int32_t)vy;
+        localWarp[0] = std::max<int64_t>(-(1 << 23), std::min<int64_t>((1 << 23) - 1, vx));
+        localWarp[1] = std::max<int64_t>(-(1 << 23), std::min<int64_t>((1 << 23) - 1, vy));
+        // av1_get_shear_params
+        if (localWarp[2] <= 0) { census[C_LOCALWARP_INVALID]++; return; }
+        auto c16 = [](int64_t v) { return (int)std::max<int64_t>(-32768, std::min<int64_t>(32767, v)); };
+        int alpha = c16(localWarp[2] - (1 << 16)), beta = c16(localWarp[3]);
+        int sh;
+        int16_t y = resolve_divisor((uint64_t)localWarp[2], &sh);
+        int64_t v = (localWarp[4] * (1 << 16)) * y;
+        int gamma = c16(round2signed64(v, sh));
+        v = (localWarp[3] * localWarp[4]) * y;
+        int delta = c16(localWarp[5] - round2signed64(v, sh) - (1 << 16));
+        auto reduce = [](int x) { return (int)round2signed64(x, 6) * 64; };
+        warpAlpha = reduce(alpha); warpBeta = reduce(beta); warpGamma = reduce(gamma); warpDelta = reduce(delta);
+        if (4 * std::abs(warpAlpha) + 7 * std::abs(warpBeta) >= (1 << 16) ||
+            4 * std::abs(warpGamma) + 4 * std::abs(warpDelta) >= (1 << 16)) { census[C_LOCALWARP_INVALID]++; return; }
+        localValid = 1;
+    }
+
+    int ref_is_scaled(int refFrame) const {
+        const RefSlot& r = refs[refFrameIdx[refFrame - LAST_FRAME]];
+        int xScale = ((r.upscaledWidth << 14) + (FrameWidth / 2)) / FrameWidth;
+        int yScale = ((r.frameHeight << 14) + (FrameHeight / 2)) / FrameHeight;
+        return xScale != (1 << 14) || yScale != (1 << 14);
+    }
+
+    void extra_search() {
+        if (!use_intrabc) census[C_EXTRA_SEARCH]++;
+        int w4 = std::min(std::min(16, bw4), MiCols - MiCol), h4 = std::min(std::min(16, bh4), MiRows - MiRow);
+        int num4x4 = std::min(w4, h4);
+        for (int pass = 0; pass < 2 && numMvFound < 2; pass++) {
+            int idx = 0;
+            while (idx < num4x4 && numMvFound < 2) {
+                int r = pass == 0 ? MiRow - 1 : MiRow + idx, c = pass == 0 ? MiCol + idx : MiCol - 1;
+                if (!is_inside(r, c)) break;
+                size_t m = mi(r, c);
+                int candRef = refFrame0[m];
+                if (candRef > INTRA_FRAME) {
+                    int mv[2] = {mvRow[m], mvCol[m]};
+                    if (refFrameSignBias[candRef] != refFrameSignBias[RefFrame0]) { mv[0] = -mv[0]; mv[1] = -mv[1]; }
+                    int k;
+                    for (k = 0; k < numMvFound; k++) if (stackMv[k][0] == mv[0] && stackMv[k][1] == mv[1]) break;
+                    if (k == numMvFound) {
+                        stackMv[k][0] = mv[0]; stackMv[k][1] = mv[1]; weightStack[k] = 2; numMvFound++;
+                    }
+                }
+                idx += pass == 0 ? kNum4x4W[miSize[m]] : kNum4x4H[miSize[m]];
+            }
+        }
+    }
+
+    // ---- inter prediction (7.11.3.1): the whole block, chroma of a block
+    // under 8x8 from the blocks it covers where none of them is intra
+    void predict_inter_block() {
+        for (int plane = 0; plane < 1 + 2 * HasChroma; plane++) {
+            int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+            int planeSz = plane_residual_size(MiSize, plane);
+            int n4w = kNum4x4W[planeSz], n4h = kNum4x4H[planeSz];
+            int baseX = (MiCol >> sx) * 4, baseY = (MiRow >> sy) * 4;
+            int candRow = (MiRow >> sy) << sy, candCol = (MiCol >> sx) << sx;
+            int predW = (bw4 * 4) >> sx, predH = (bh4 * 4) >> sy;
+            int someUseIntra = 0;
+            for (int r = 0; r < (n4h << sy); r++)
+                for (int c = 0; c < (n4w << sx); c++)
+                    if (refFrame0[mi(candRow + r, candCol + c)] == INTRA_FRAME) someUseIntra = 1;
+            if (someUseIntra) { predW = n4w * 4; predH = n4h * 4; candRow = MiRow; candCol = MiCol; }
+            else if (predW < n4w * 4 || predH < n4h * 4) census[C_CHROMA_SUB8X8]++;
+            static thread_local uint16_t intra[32 * 32];
+            int w = n4w * 4, h = n4h * 4;
+            if (interintra) {
+                // the intra prediction of the whole block from its edges, kept
+                // while the inter prediction overwrites it
+                static const int toIntra[4] = {DC_PRED, V_PRED, H_PRED, SMOOTH_PRED};
+                predict_intra(plane, baseX, baseY, plane ? AvailLChroma : AvailL, plane ? AvailUChroma : AvailU,
+                              0, 0, toIntra[interintraMode], floor_log2(w), floor_log2(h));
+                for (int i = 0; i < h; i++) for (int j = 0; j < w; j++) intra[i * w + j] = frame[plane].get(baseY + i, baseX + j);
+            }
+            for (int y = 0, r = 0; y < h; y += predH, r++)
+                for (int x = 0, c = 0; x < w; x += predW, c++)
+                    predict_inter(plane, baseX + x, baseY + y, predW, predH, candRow + r, candCol + c);
+            if (interintra) {
+                // libaom's smooth inter-intra masks: ii_weights1d by the row,
+                // the column or the nearer edge, 32 for DC; or the block
+                // size's wedge mask, averaged over 2 samples a side where the
+                // plane is subsampled
+                int scale = 128 / std::max(w, h);
+                const uint8_t* wedge = nullptr;
+                int lw = bw4 * 4, subw = 2 * bw4 == w, subh = 2 * bh4 == h;
+                if (wedgeInterintra) {
+                    static const int sizes[9] = {BLOCK_8X8, BLOCK_8X16, BLOCK_16X8, BLOCK_16X16, BLOCK_16X32,
+                                                 BLOCK_32X16, BLOCK_32X32, BLOCK_8X32, BLOCK_32X8};
+                    size_t off = 0;
+                    for (int k = 0; k < 9 && sizes[k] != MiSize; k++) off += (size_t)16 * kNum4x4W[sizes[k]] * kNum4x4H[sizes[k]] * 16;
+                    wedge = k_wedge_masks + off + (size_t)wedgeIndex * bw4 * bh4 * 16;
+                }
+                for (int i = 0; i < h; i++) for (int j = 0; j < w; j++) {
+                    int mk;
+                    if (wedge) {
+                        const uint8_t* m0 = wedge + (size_t)(i << subh) * lw + (j << subw);
+                        if (subw && subh) mk = (m0[0] + m0[1] + m0[lw] + m0[lw + 1] + 2) >> 2;
+                        else if (subw) mk = (m0[0] + m0[1] + 1) >> 1;
+                        else if (subh) mk = (m0[0] + m0[lw] + 1) >> 1;
+                        else mk = m0[0];
+                    } else mk = interintraMode == 0 ? 32 : interintraMode == 1 ? k_ii_weights1d[i * scale]
+                           : interintraMode == 2 ? k_ii_weights1d[j * scale] : k_ii_weights1d[std::min(i, j) * scale];
+                    uint16_t* d = frame[plane].at(baseY + i, baseX + j);
+                    *d = (uint16_t)((mk * intra[i * w + j] + (64 - mk) * *d + 32) >> 6);
+                }
+            }
+        }
+        if (motionMode == 1) obmc();
+    }
+
+    // motion vector scaling (7.11.3.3) and block inter prediction
+    // (7.11.3.4): positions in 1/1024 sample, the 8-tap filters (4-tap on a
+    // side of 4 or less), the reference clamped to its edges; a LOCALWARP
+    // block of 8x8 or more in the plane is warped instead (7.11.3.5)
+    void predict_inter(int plane, int x, int y, int w, int h, int candRow, int candCol) {
+        Plane& f = frame[plane];
+        predict_with(plane, x, y, w, h, mi(candRow, candCol), f.at(y, x), f.stride, motionMode == 2);
+    }
+
+    void predict_with(int plane, int x, int y, int w, int h, size_t m, uint16_t* dst, int dstStride, bool warp) {
+        int refFrame = refFrame0[m];
+        const RefSlot& ref = refs[refFrameIdx[refFrame - LAST_FRAME]];
+        int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+        int xScale = ((ref.upscaledWidth << 14) + (FrameWidth / 2)) / FrameWidth;
+        int yScale = ((ref.frameHeight << 14) + (FrameHeight / 2)) / FrameHeight;
+        int scaled = xScale != (1 << 14) || yScale != (1 << 14);
+        if (scaled) census[C_SCALED_REF]++;
+        const Plane& rp = ref.planes[plane];
+        int lastX = ((ref.upscaledWidth + sx) >> sx) - 1, lastY = ((ref.frameHeight + sy) >> sy) - 1;
+        int maxv = (1 << bitDepth) - 1;
+        if (warp && localValid && w >= 8 && h >= 8 && !forceIntegerMv && !scaled) {
+            warp_block(rp, lastX, lastY, sx, sy, x, y, w, h, dst, dstStride);
+            return;
+        }
+        int origX = (x << 4) + ((2 * mvCol[m]) >> sx) + 8;
+        int origY = (y << 4) + ((2 * mvRow[m]) >> sy) + 8;
+        int64_t baseX = (int64_t)origX * xScale - (8 << 14), baseY = (int64_t)origY * yScale - (8 << 14);
+        int startX = (int)round2signed64(baseX, 8) + 32, startY = (int)round2signed64(baseY, 8) + 32;
+        int stepX = (int)round2signed64(xScale, 4), stepY = (int)round2signed64(yScale, 4);
+        int interH = (((h - 1) * stepY + (1 << 10) - 1) >> 10) + 8;
+        int fv = filt0[m], fh = filt1[m];
+        if (w <= 4) { if (fh == EIGHTTAP || fh == EIGHTTAP_SHARP) fh = 4; else if (fh == EIGHTTAP_SMOOTH) fh = 5; }
+        if (h <= 4) { if (fv == EIGHTTAP || fv == EIGHTTAP_SHARP) fv = 4; else if (fv == EIGHTTAP_SMOOTH) fv = 5; }
+        int round0 = bitDepth == 12 ? 5 : 3, round1 = bitDepth == 12 ? 9 : 11;
+        static thread_local int32_t inter[(128 * 2 + 16) * 128];
+        for (int r = 0; r < interH; r++) {
+            int yy = clip3(0, lastY, (startY >> 10) + r - 3);
+            const uint16_t* row = &rp.px[(size_t)yy * rp.stride];
+            for (int c = 0; c < w; c++) {
+                int p = startX + stepX * c;
+                const int16_t* fk = k_subpel_filters[fh][(p >> 6) & 15];
+                int sum = 0;
+                for (int t = 0; t < 8; t++) sum += fk[t] * row[clip3(0, lastX, (p >> 10) + t - 3)];
+                inter[r * w + c] = (sum + (1 << (round0 - 1))) >> round0;   // Round2 of a signed sum
+            }
+        }
+        for (int r = 0; r < h; r++) {
+            int p = (startY & 1023) + stepY * r;
+            const int16_t* fk = k_subpel_filters[fv][(p >> 6) & 15];
+            for (int c = 0; c < w; c++) {
+                int sum = 0;
+                for (int t = 0; t < 8; t++) sum += fk[t] * inter[((p >> 10) + t) * w + c];
+                dst[(size_t)r * dstStride + c] = (uint16_t)clip3(0, maxv, (sum + (1 << (round1 - 1))) >> round1);
+            }
+        }
+    }
+
+    // libaom's av1_highbd_warp_affine_c (the 8-bit one computes the same)
+    void warp_block(const Plane& rp, int lastX, int lastY, int sx, int sy, int x, int y, int w, int h,
+                    uint16_t* dst, int dstStride) {
+        int round0 = bitDepth == 12 ? 5 : 3;
+        int rbh = round0 + std::max(bitDepth + 7 - round0 - 14, 0), rbv = 14 - rbh;
+        int offH = bitDepth + 6, offV = bitDepth + 14 - rbh;
+        int maxv = (1 << bitDepth) - 1;
+        int32_t tmp[15 * 8];
+        for (int i = y; i < y + h; i += 8)
+            for (int j = x; j < x + w; j += 8) {
+                int32_t srcX = (j + 4) << sx, srcY = (i + 4) << sy;
+                int64_t dstX = localWarp[2] * srcX + localWarp[3] * srcY + localWarp[0];
+                int64_t dstY = localWarp[4] * srcX + localWarp[5] * srcY + localWarp[1];
+                int64_t x4 = dstX >> sx, y4 = dstY >> sy;
+                int ix4 = (int)(x4 >> 16), iy4 = (int)(y4 >> 16);
+                int sx4 = (int)(x4 & 0xFFFF), sy4 = (int)(y4 & 0xFFFF);
+                sx4 += warpAlpha * -4 + warpBeta * -4;
+                sy4 += warpGamma * -4 + warpDelta * -4;
+                sx4 &= ~63; sy4 &= ~63;
+                for (int k = -7; k < 8; k++) {
+                    int iy = clip3(0, lastY, iy4 + k);
+                    const uint16_t* row = &rp.px[(size_t)iy * rp.stride];
+                    int sxk = sx4 + warpBeta * (k + 4);
+                    for (int l = -4; l < 4; l++, sxk += warpAlpha) {
+                        int offs = ((sxk + (1 << 9)) >> 10) + 64;
+                        const int16_t* co = k_warped_filter[offs];
+                        int32_t sum = 1 << offH;
+                        for (int mm = 0; mm < 8; mm++) sum += row[clip3(0, lastX, ix4 + l - 3 + mm)] * co[mm];
+                        tmp[(k + 7) * 8 + (l + 4)] = (sum + (1 << (rbh - 1))) >> rbh;
+                    }
+                }
+                for (int k = -4; k < std::min(4, y + h - i - 4); k++) {
+                    int syk = sy4 + warpDelta * (k + 4);
+                    for (int l = -4; l < std::min(4, x + w - j - 4); l++, syk += warpGamma) {
+                        int offs = ((syk + (1 << 9)) >> 10) + 64;
+                        const int16_t* co = k_warped_filter[offs];
+                        int32_t sum = 1 << offV;
+                        for (int mm = 0; mm < 8; mm++) sum += tmp[(k + mm + 4) * 8 + (l + 4)] * co[mm];
+                        sum = (sum + (1 << (rbv - 1))) >> rbv;
+                        dst[(size_t)(i - y + k + 4) * dstStride + (j - x + l + 4)] =
+                            (uint16_t)clip3(0, maxv, sum - (1 << (bitDepth - 1)) - (1 << bitDepth));
+                    }
+                }
+            }
+    }
+
+    // overlapped block motion compensation (7.11.3.10), as libaom's
+    // dec_build_obmc_inter_predictors_sb: the top and left strips of the
+    // block predicted again with the motion of each inter neighbour above
+    // (then to the left) and blended in
+    void obmc() {
+        static const int maxNb[6] = {0, 1, 2, 3, 4, 4};
+        static thread_local uint16_t tmp[64 * 128];
+        for (int dir = 0; dir < 2; dir++) {
+            if (dir == 0 ? !AvailU : !AvailL) continue;
+            int count = 0, limit = maxNb[dir == 0 ? kMiWLog2[MiSize] : kMiHLog2[MiSize]];
+            int end = dir == 0 ? std::min(MiCol + bw4, MiCols) : std::min(MiRow + bh4, MiRows);
+            for (int pos = dir == 0 ? MiCol : MiRow, step = 0; pos < end && count < limit; pos += step) {
+                size_t m = dir == 0 ? mi(MiRow - 1, pos) : mi(pos, MiCol - 1);
+                step = std::min(dir == 0 ? kNum4x4W[miSize[m]] : kNum4x4H[miSize[m]], 16);
+                if (step == 1) {
+                    pos &= ~1;
+                    m = dir == 0 ? mi(MiRow - 1, pos + 1) : mi(pos + 1, MiCol - 1);
+                    step = 2;
+                }
+                if (refFrame0[m] <= INTRA_FRAME) continue;
+                count++;
+                int size4 = std::min(dir == 0 ? bw4 : bh4, (int)step);
+                for (int plane = 0; plane < numPlanes; plane++) {
+                    int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+                    int psz = plane_residual_size(MiSize, plane);
+                    if (dir == 0 && (psz == BLOCK_4X4 || psz == BLOCK_8X4 || psz == BLOCK_4X8)) continue;
+                    int x = (MiCol * 4) >> sx, y = (MiRow * 4) >> sy;
+                    int w, h, bw, bh;
+                    if (dir == 0) {
+                        x += ((pos - MiCol) * 4) >> sx;
+                        w = bw = (size4 * 4) >> sx;
+                        h = clip3(4, 64 >> (sy + 1), (bh4 * 4) >> (sy + 1));
+                        bh = (std::min(bh4 * 4, 64) >> 1) >> sy;
+                    } else {
+                        y += ((pos - MiRow) * 4) >> sy;
+                        h = bh = (size4 * 4) >> sy;
+                        w = clip3(4, 64 >> (sx + 1), (bw4 * 4) >> (sx + 1));
+                        bw = (std::min(bw4 * 4, 64) >> 1) >> sx;
+                    }
+                    predict_with(plane, x, y, w, h, m, tmp, w, false);
+                    const uint8_t* mask = k_obmc_masks + (dir == 0 ? bh : bw) - 1;
+                    Plane& f = frame[plane];
+                    for (int i = 0; i < bh; i++)
+                        for (int j = 0; j < bw; j++) {
+                            int mk = dir == 0 ? mask[i] : mask[j];
+                            uint16_t* d = f.at(y + i, x + j);
+                            *d = (uint16_t)((mk * *d + (64 - mk) * tmp[i * w + j] + 32) >> 6);
+                        }
+                }
+            }
         }
     }
 
@@ -2157,8 +3118,10 @@ struct Decoder {
         int lvl = clip3(0, 63, deltaLf + lfLevel[i]);
         if (segEnabled && featEn[seg][1 + i]) lvl = clip3(0, 63, lvl + featData[seg][1 + i]);
         if (lfDeltaEnabled) {
-            int nShift = lvl >> 5;
-            lvl = clip3(0, 63, lvl + (lfRefDeltas[0] * (1 << nShift)));
+            int nShift = lvl >> 5, ref = refFrame0[m];
+            if (ref == INTRA_FRAME) lvl += lfRefDeltas[INTRA_FRAME] * (1 << nShift);
+            else lvl += lfRefDeltas[ref] * (1 << nShift) + lfModeDeltas[k_mode_lf_lut[yMode[m]]] * (1 << nShift);
+            lvl = clip3(0, 63, lvl);
         }
         return lvl;
     }
@@ -2178,9 +3141,15 @@ struct Decoder {
         int prevRow = row - (dy << sy), prevCol = col - (dx << sx);
         int txSz = lfTx[plane][mi(row >> sy, col >> sx)];
         int prevTxSz = lfTx[plane][mi(prevRow >> sy, prevCol >> sx)];
-        // every transform edge: skip suppresses only inter blocks' inner
-        // edges, and a frame with intra block copy is never deblocked
+        // every transform edge, but one between two skipped inter blocks
+        // only on the current block's edge (a frame with intra block copy is
+        // never deblocked)
         int applyFilter = pass == 0 ? (xP % kTxW[txSz] == 0) : (yP % kTxH[txSz] == 0);
+        size_t m = mi(row, col), mPrev = mi(prevRow, prevCol);
+        if (applyFilter && skip[m] && isInter[m] && skip[mPrev] && isInter[mPrev]) {
+            int bsz = plane_residual_size(miSize[m], plane);
+            applyFilter = pass == 0 ? (xP % (kNum4x4W[bsz] * 4) == 0) : (yP % (kNum4x4H[bsz] * 4) == 0);
+        }
         int baseSize = pass == 0 ? std::min(kTxW[prevTxSz], kTxW[txSz]) : std::min(kTxH[prevTxSz], kTxH[txSz]);
         int filterSize = plane == 0 ? std::min(16, baseSize) : std::min(8, baseSize);
         int lvl = filter_level(row, col, plane, pass);
@@ -2425,10 +3394,11 @@ struct Decoder {
             MiRowStart = miRowStarts[tileRow]; MiRowEnd = miRowStarts[tileRow + 1];
             MiColStart = miColStarts[tileCol]; MiColEnd = miColStarts[tileCol + 1];
             currentQIndex = baseQ;
-            cdf.init(baseQ);
+            cdf = frameCdf;
             memcpy(ndvc, k_nmv_cdf, sizeof(ndvc));
             sd.init(d + pos, tileSize, disableCdfUpdate);
             decode_tile();
+            if (t == contextUpdateTileId) { savedCdf = cdf; savedCdf.reset_counters(); }
             pos += tileSize;
         }
         if (tgEnd == numTiles - 1) tilesDone = 1;
@@ -2445,29 +3415,44 @@ struct Decoder {
         throw (int)ERR_BITSTREAM;
     }
 
-    // Parse the OBUs; stops after the first frame's header when the planes
-    // do not fit (decode == false) and after its last tile otherwise.
+    // Parse the OBUs of operating point `op`: with decode == false, up to
+    // the first frame header; otherwise every frame, each decoded, filtered
+    // and kept in the reference slots it refreshes. A shown frame becomes
+    // the output (the last one, as libaom hands libavif one frame per
+    // temporal unit; or the first of spatial layer `layer` when it is not
+    // -1, as libavif picks an `lsel` layer among all of them).
+    int op = 0, layer = -1, frames = 0, spatialId = 0, outSpatialId = -1;
+    Plane out[3];
+    int outW = 0, outH = 0;
     void run(const uint8_t* d, size_t n, bool decode) {
         size_t pos = 0;
-        while (pos < n && !tilesDone) {
+        while (pos < n) {
             uint8_t h = d[pos++];
             if (h & 0x80) throw (int)ERR_BITSTREAM;
             int type = (h >> 3) & 15, ext = (h >> 2) & 1, hasSize = (h >> 1) & 1;
-            int temporalId = 0, spatialId = 0;
+            int temporalId = 0, sid = 0;
             if (ext) {
                 if (pos >= n) throw (int)ERR_BITSTREAM;
-                temporalId = d[pos] >> 5; spatialId = (d[pos] >> 3) & 3; pos++;
+                temporalId = d[pos] >> 5; sid = (d[pos] >> 3) & 3; pos++;
             }
             size_t sz = hasSize ? leb128(d, n, pos) : n - pos;
             if (pos + sz > n) throw (int)ERR_BITSTREAM;
             const uint8_t* p = d + pos;
-            if (spatialId > 0 && type != 1) { pos += sz; throw (int)ERR_LAYERED; }
-            if (type == 1) { Bits b{p, sz}; sequence_header(b); }
-            else if (type == 3 || type == 6) {
-                if (!seqSeen) throw (int)ERR_BITSTREAM;
-                if (headerDone) { if (type == 3) { pos += sz; continue; } }
+            pos += sz;
+            if (type == 1) { Bits b{p, sz}; sequence_header(b); continue; }
+            if (type == 8) throw (int)ERR_LARGE_SCALE_TILE;
+            if (type != 3 && type != 4 && type != 6) continue;
+            if (!seqSeen) throw (int)ERR_BITSTREAM;
+            int idc = opIdc[op < opCount ? op : 0];   // libaom takes 0 for a point the stream lacks
+            if (ext && idc && !(((idc >> temporalId) & 1) && ((idc >> (sid + 8)) & 1))) continue;
+            if (type == 3 || type == 6) {
+                if (headerDone) {
+                    if (type == 3) continue;        // a copy of the header
+                    throw (int)ERR_BITSTREAM;
+                }
                 Bits b{p, sz};
-                if (!headerDone) frame_header(b, temporalId, spatialId);
+                spatialId = sid;
+                frame_header(b, temporalId, sid);
                 if (!decode) return;
                 alloc();
                 if (type == 6) {
@@ -2475,13 +3460,72 @@ struct Decoder {
                     size_t off = b.pos >> 3;
                     tile_group(p + off, sz - off);
                 }
-            } else if (type == 4) {
+            } else {
                 if (!headerDone) throw (int)ERR_BITSTREAM;
-                if (!decode) return;
-                if (frame[0].px.empty()) alloc();
                 tile_group(p, sz);
-            } else if (type == 8) throw (int)ERR_LARGE_SCALE_TILE;
-            pos += sz;
+            }
+            if (tilesDone) { finish_frame(); headerDone = tilesDone = 0; }
+        }
+        if (headerDone) throw (int)ERR_BITSTREAM;   // a frame without all its tiles
+    }
+
+    void finish_frame() {
+        if (!disableFrameEndUpdateCdf) frameCdf = savedCdf;
+        if (!frameIsIntra) {
+            census[C_INTER_DEBLOCK] += lfLevel[0] || lfLevel[1];
+            census[C_INTER_CDEF] += enCdef && !codedLossless && (cdefBits || cdefYPri[0] || cdefYSec[0] || cdefUvPri[0] || cdefUvSec[0]);
+            census[C_INTER_LR] += usesLr;
+            if (UpscaledWidth != FrameWidth) refuse(TOOL_SUPERRES_INTER);
+            if (grain.apply) refuse(TOOL_GRAIN_INTER);
+        }
+        census[C_SEGMENTATION] += segEnabled;
+        census[C_DELTA_Q] += deltaQPresent;
+        census[C_DELTA_LF] += deltaLfPresent;
+        census[C_SB128] = sb128;
+        if (frameRestType[0] == RESTORE_SWITCHABLE || frameRestType[1] == RESTORE_SWITCHABLE ||
+            frameRestType[2] == RESTORE_SWITCHABLE) census[C_LR_SWITCHABLE] = 1;
+        post_filters();
+        // the motion field motion vectors of this frame (7.19): per 8x8, its
+        // last mi's vector where it points back in order and is short enough
+        int rows8 = (MiRows + 1) >> 1, cols8 = (MiCols + 1) >> 1;
+        std::vector<int8_t> mfRef((size_t)rows8 * cols8, -1);
+        std::vector<int16_t> mfMv((size_t)2 * rows8 * cols8, 0);
+        if (!frameIsIntra)
+            for (int r8 = 0; r8 < rows8; r8++)
+                for (int c8 = 0; c8 < cols8; c8++) {
+                    size_t m = mi(2 * r8 + 1, 2 * c8 + 1), k = (size_t)r8 * cols8 + c8;
+                    int ref = refFrame0[m];
+                    if (ref <= INTRA_FRAME || relative_dist(orderHints[ref], orderHint) >= 0) continue;
+                    if (std::abs(mvRow[m]) > 4095 || std::abs(mvCol[m]) > 4095) continue;
+                    mfRef[k] = (int8_t)ref; mfMv[2 * k] = mvRow[m]; mfMv[2 * k + 1] = mvCol[m];
+                }
+        for (int i = 0; i < 8; i++) {
+            if (!((refreshFlags >> i) & 1)) continue;
+            RefSlot& r = refs[i];
+            r.valid = true; r.frameType = frameType; r.orderHint = orderHint;
+            memcpy(r.savedOrderHints, orderHints, sizeof(orderHints));
+            r.frameWidth = FrameWidth; r.frameHeight = FrameHeight; r.upscaledWidth = UpscaledWidth;
+            r.renderWidth = RenderWidth; r.renderHeight = RenderHeight;
+            r.miCols = MiCols; r.miRows = MiRows; r.bitDepth = bitDepth; r.ssx = ssx; r.ssy = ssy; r.mono = mono;
+            for (int p = 0; p < numPlanes; p++) r.planes[p] = lrFrame[p];
+            r.cdf = frameCdf;
+            memcpy(r.lfRefDeltas, lfRefDeltas, sizeof(lfRefDeltas));
+            memcpy(r.lfModeDeltas, lfModeDeltas, sizeof(lfModeDeltas));
+            memcpy(r.featEn, featEn, sizeof(featEn)); memcpy(r.featData, featData, sizeof(featData));
+            r.grain = grain;
+            r.mfRef = mfRef; r.mfMv = mfMv;
+        }
+        frames++;
+        if (!showFrame || (layer >= 0 && (outSpatialId == layer || spatialId != layer))) return;
+        outSpatialId = spatialId;
+        outW = UpscaledWidth; outH = FrameHeight;
+        for (int p = 0; p < numPlanes; p++) out[p] = lrFrame[p];
+        if (grain.apply) {
+            census[C_FILM_GRAIN]++;
+            uint16_t* px[3] = {nullptr, nullptr, nullptr};
+            int strides[3] = {0, 0, 0};
+            for (int p = 0; p < numPlanes; p++) { px[p] = out[p].px.data(); strides[p] = out[p].stride; }
+            GrainSynthesis(grain, bitDepth, mono, ssx, ssy).apply(px, strides, outW, outH, mc == 0);
         }
     }
 
@@ -2533,8 +3577,8 @@ struct Decoder {
 }  // namespace
 
 static void fill_info(const Decoder* d, int32_t* info) {
-    info[INFO_WIDTH] = d->headerDone ? d->UpscaledWidth : d->maxW;
-    info[INFO_HEIGHT] = d->headerDone ? d->FrameHeight : d->maxH;
+    info[INFO_WIDTH] = d->outSpatialId >= 0 ? d->outW : d->headerDone ? d->UpscaledWidth : d->maxW;
+    info[INFO_HEIGHT] = d->outSpatialId >= 0 ? d->outH : d->headerDone ? d->FrameHeight : d->maxH;
     info[INFO_BITDEPTH] = d->bitDepth; info[INFO_MONO] = d->mono;
     info[INFO_SSX] = d->ssx; info[INFO_SSY] = d->ssy;
     info[INFO_CP] = d->cp; info[INFO_TC] = d->tc; info[INFO_MC] = d->mc;
@@ -2543,20 +3587,24 @@ static void fill_info(const Decoder* d, int32_t* info) {
     info[INFO_CSP] = d->csp; info[INFO_FRAME_TYPE] = d->frameType;
     info[INFO_OPERATING_POINTS] = d->opCount;
     info[INFO_LEVEL] = d->level0; info[INFO_TIER] = d->tier0;
+    info[INFO_TOOL] = d->refusedTool; info[INFO_FRAMES] = d->frames;
+    info[INFO_SPATIAL_ID] = d->outSpatialId;
 }
 
 extern "C" int64_t av1_decode(const uint8_t* obus, int64_t n, int32_t* info, uint16_t* planes,
-                              int64_t cap, int64_t* census) {
+                              int64_t cap, int64_t* census, int32_t op, int32_t layer) {
     Decoder* dec = new Decoder();
     int64_t ret = 0;
     int64_t dummy[C_COUNT];
     memset(dummy, 0, sizeof(dummy));
     try {
         dec->census = census ? census : dummy;
+        dec->op = op; dec->layer = layer;
         dec->run(obus, (size_t)n, false);
         if (!dec->headerDone) throw (int)ERR_NO_FRAME;
         fill_info(dec, info);
-        int64_t W = dec->UpscaledWidth, H = dec->FrameHeight;
+        // every frame fits the sequence header's largest size
+        int64_t W = dec->maxW, H = dec->maxH;
         int64_t cw = dec->mono ? 0 : (W + dec->ssx) >> dec->ssx, ch = dec->mono ? 0 : (H + dec->ssy) >> dec->ssy;
         int64_t need = W * H + 2 * cw * ch;
         if (cap < need) { delete dec; return -need - 1000; }
@@ -2564,30 +3612,16 @@ extern "C" int64_t av1_decode(const uint8_t* obus, int64_t n, int32_t* info, uin
         delete dec;
         dec = d2;
         dec->census = census ? census : dummy;
+        dec->op = op; dec->layer = layer;
         dec->run(obus, (size_t)n, true);
-        if (!dec->tilesDone) throw (int)ERR_BITSTREAM;
-        dec->census[C_SEGMENTATION] = dec->segEnabled;
-        dec->census[C_DELTA_Q] = dec->deltaQPresent;
-        dec->census[C_DELTA_LF] = dec->deltaLfPresent;
-        dec->census[C_SB128] = dec->sb128;
-        if (dec->frameRestType[0] == RESTORE_SWITCHABLE || dec->frameRestType[1] == RESTORE_SWITCHABLE ||
-            dec->frameRestType[2] == RESTORE_SWITCHABLE) dec->census[C_LR_SWITCHABLE] = 1;
-        dec->post_filters();
-        if (dec->grain.apply) {
-            dec->census[C_FILM_GRAIN]++;
-            uint16_t* px[3] = {nullptr, nullptr, nullptr};
-            int strides[3] = {0, 0, 0};
-            for (int p = 0; p < dec->numPlanes; p++) {
-                px[p] = dec->lrFrame[p].px.data();
-                strides[p] = dec->lrFrame[p].stride;
-            }
-            GrainSynthesis(dec->grain, dec->bitDepth, dec->mono, dec->ssx, dec->ssy)
-                .apply(px, strides, (int)W, (int)H, dec->mc == 0);
-        }
+        if (dec->outSpatialId < 0) throw (int)ERR_NO_FRAME;
+        fill_info(dec, info);
+        W = dec->outW; H = dec->outH;
+        cw = dec->mono ? 0 : (W + dec->ssx) >> dec->ssx; ch = dec->mono ? 0 : (H + dec->ssy) >> dec->ssy;
         uint16_t* out = planes;
         for (int p = 0; p < dec->numPlanes; p++) {
             int64_t pw = p ? cw : W, ph = p ? ch : H;
-            const Plane& f = dec->lrFrame[p];
+            const Plane& f = dec->out[p];
             for (int64_t y = 0; y < ph; y++) memcpy(out + y * pw, &f.px[(size_t)y * f.stride], pw * 2);
             out += pw * ph;
         }

@@ -30,12 +30,15 @@ FIXTURES = Path(__file__).parent / "torch_fixtures" / "formats"
 SCENE = Path(__file__).parent / "torch_fixtures" / "avif_scene"
 MODES = ("unchanged", "color", "grey")
 FILES = sorted(p.name for p in FIXTURES.glob("*.avif"))
-# broken on purpose: no AV1 item to decode
+# broken on purpose: no AV1 item or sample to decode, or one libaom fails on
 BROKEN = {"unreadable_avif_truncated.avif", "unreadable_avif_bad_iloc.avif",
-          "unreadable_avif_bad_obu.avif"}
-# cv2 reads these; the port refuses them by name (none left: film grain,
-# superres and grids are read)
-REFUSED = {}
+          "unreadable_avif_bad_obu.avif", "unreadable_avif_layers_essential_a1lx.avif",
+          "unreadable_avis_no_stsd.avif", "unreadable_avis_not_a_key_frame.avif",
+          "unreadable_avis_sample_past_end.avif"}
+# cv2 reads these; the port refuses them by name: inter tools no layered
+# image of libavif's uses (film grain, superres and grids are read)
+REFUSED = {"avif_refused_compound.avif": "compound prediction",
+           "avif_refused_global_motion.avif": "global motion"}
 
 
 @pytest.fixture(scope="module")
@@ -46,9 +49,12 @@ def expected():
 
 def _av1_items(path: Path):
     """The OBUs of the primary item and of its alpha item, or of their
-    grids' tiles."""
+    grids' tiles; of a file whose tracks libavif decodes, each track's
+    first sample."""
     data = path.read_bytes()
     c = avif.parse(data, path)
+    if avif.source(c) == "tracks":
+        return [data[o:o + n] for t in c.tracks for o, n in t.samples(len(data), path)[:1]]
     out = []
     primary = c.items[c.primary]
     items = [primary] + [c.items[f] for k, f, to in c.refs
@@ -158,18 +164,21 @@ def _still(rgb=None):
 
 
 @pytest.mark.parametrize("kind,error,what", [
-    ("sequence", UnsupportedImage, "sequence"),
-    ("lsel", UnsupportedImage, "layered"),
-    ("ispe", UnsupportedImage, "ispe"),
+    # an image sequence, a layer selection and an ispe other than the
+    # frame's size were refused by name until the port read them; they keep
+    # their ids
+    pytest.param("sequence", None, None, id="sequence-UnsupportedImage-sequence"),
+    pytest.param("lsel", None, None, id="lsel-UnsupportedImage-layered"),
+    pytest.param("ispe", None, None, id="ispe-UnsupportedImage-ispe"),
     ("a1lx", UnreadableImage, "a1lx"),
     ("tile_list", UnreadableImage, "large-scale tile")])
 def test_other_refusals_by_name(tmp_path, kind, error, what):
-    """An image sequence (`avis` with a track: cv2 gives its first frame),
-    a layered image (`lsel`) and an `ispe` other than the frame's size
-    (libavif scales the frame to it) raise UnsupportedImage naming the
-    file and the feature; `a1lx` on a single-layer item and large-scale
-    tile (a tile list OBU), which libavif fails on (cv2: None), raise
-    UnreadableImage, also by name."""
+    """`a1lx` whose first layer fills the item and large-scale tile (a
+    tile list OBU), which libavif fails on (cv2: None), raise
+    UnreadableImage naming the file and the feature. An image sequence
+    (`avis` with a track: cv2 gives its first frame), a layer selection
+    (`lsel` 0 of a one-layer item) and an `ispe` other than the frame's
+    size (libavif scales the frame to it) read as cv2 reads them."""
     from PIL import Image
     path = tmp_path / "x.avif"
     obus, info = _still()
@@ -194,6 +203,10 @@ def test_other_refusals_by_name(tmp_path, kind, error, what):
                              + obus[seq_end:], info)
     path.write_bytes(blob)
     assert (cv2.imread(str(path)) is None) == (error is UnreadableImage)
+    if error is None:
+        want = cv2.imread(str(path), cv2.IMREAD_COLOR)[..., ::-1]
+        np.testing.assert_array_equal(image_io.read_image(path, "color"), want)
+        return
     with pytest.raises(error, match=what) as e:
         image_io.read_image(path, "color")
     assert str(path) in str(e.value)

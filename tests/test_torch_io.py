@@ -130,10 +130,10 @@ def _tiff_header(tags) -> bytes:
 
 
 def test_png_refuses_what_it_does_not_read(tmp_path):
-    """What the readers still refuse raises by name: a PIZ-compressed EXR
-    and an AVIF file whose ispe is not its frame's size, which cv2 reads
-    (UnsupportedImage; a plain AVIF file now reads as cv2 reads it, and
-    so does a film-grain one), and a
+    """What the readers still refuse raises by name: a PIZ-compressed EXR,
+    which cv2 reads (UnsupportedImage; a plain AVIF file now reads as cv2
+    reads it, and so do a film-grain one and one whose ispe is not its
+    frame's size, which libavif scales), and a
     hierarchical JPEG
     and an Orientation 6 TIFF, which cv2 cannot read either
     (UnreadableImage, a FileNotFoundError as the JAX loaders raise for
@@ -168,10 +168,11 @@ def test_png_refuses_what_it_does_not_read(tmp_path):
     (tmp_path / "s.img").write_bytes(blob[:at] + struct.pack(">I", 17)
                                      + blob[at + 4:])
     assert cv2.imread(str(tmp_path / "s.img")) is not None
-    for name, what in (("piz.exr", "PIZ"), ("s.img", "ispe differs")):
-        with pytest.raises(errors.UnsupportedImage,
-                           match=f"{what}.*not supported"):
-            image_io.load_image(tmp_path / name)
+    np.testing.assert_array_equal(
+        image_io.read_image(tmp_path / "s.img", "color"),
+        cv2.imread(str(tmp_path / "s.img"))[..., ::-1])
+    with pytest.raises(errors.UnsupportedImage, match="PIZ.*not supported"):
+        image_io.load_image(tmp_path / "piz.exr")
     jpg = cv2.imencode(".jpg", np.zeros((9, 9, 3), np.uint8))[1].tobytes()
     (tmp_path / "h.jpg").write_bytes(jpg.replace(b"\xff\xc0", b"\xff\xc5",
                                                  1))

@@ -342,9 +342,9 @@ def test_neus_converter_matches_jax(tmp_path, capsys):
 
 def test_neus_converter_refuses_other_formats(tmp_path):
     """An EXR image (whose 8-bit colour read no test can observe) and a
-    file that cv2 reads and the port does not yet (an AVIF whose ispe
-    scales its frame; plain AVIF, JPEG 2000 and film grain until the port
-    read them) raise by name."""
+    file that cv2 reads and the port does not yet (an AVIF whose frames
+    use compound prediction; plain AVIF, JPEG 2000, film grain and an
+    ispe that scales until the port read them) raise by name."""
     from rnb_neus2_torch.io import image_io
     _neus_dir(tmp_path / "neus", n=1)
     img = tmp_path / "neus" / "image" / "000.png"
@@ -354,13 +354,10 @@ def test_neus_converter_refuses_other_formats(tmp_path):
     with pytest.raises(ValueError, match="EXR read as 8-bit colour"):
         data_format_from_neus.generate(str(tmp_path / "neus"),
                                        str(tmp_path / "out"))
-    blob = (Path(__file__).parent / "torch_fixtures" / "formats" /
-            "avif_cv2_default.avif").read_bytes()
-    at = blob.find(b"ispe") + 8
-    width = int.from_bytes(blob[at:at + 4], "big")
     img.with_suffix(".exr").write_bytes(
-        blob[:at] + (width + 1).to_bytes(4, "big") + blob[at + 4:])
-    with pytest.raises(ValueError, match="ispe differs .* is not "
+        (Path(__file__).parent / "torch_fixtures" / "formats" /
+         "avif_refused_compound.avif").read_bytes())
+    with pytest.raises(ValueError, match="compound prediction is not "
                                          "supported"):
         data_format_from_neus.generate(str(tmp_path / "neus"),
                                        str(tmp_path / "out"))

@@ -182,6 +182,81 @@ def qm_row_major(block: np.ndarray, w: int, h: int) -> np.ndarray:
     return block.reshape(w, h).T.reshape(-1)
 
 
+# The inter-frame CDFs libaom builds from immediates: the byte offsets and
+# shapes of FRAME_CONTEXT's members (libaom 3.14, av1/common/entropy.h)
+# after av1_init_mode_probs, whose anchors below must hold.
+FRAME_CONTEXT_CDFS = {
+    "newmv_cdf": (8090, (6, 3)), "zeromv_cdf": (8126, (2, 3)),
+    "refmv_cdf": (8138, (6, 3)), "drl_cdf": (8174, (3, 3)),
+    "interintra_cdf": (9216, (4, 3)), "wedge_interintra_cdf": (9240, (22, 3)),
+    "interintra_mode_cdf": (9372, (4, 5)), "motion_mode_cdf": (9412, (22, 4)),
+    "obmc_cdf": (9588, (22, 3)), "comp_inter_cdf": (11342, (5, 3)),
+    "single_ref_cdf": (11372, (3, 6, 3)), "skip_mode_cdf": (11852, (3, 3)),
+    "intra_inter_cdf": (11888, (4, 3)), "seg_pred_cdf": (12490, (3, 3)),
+    "y_mode_cdf": (12726, (4, 14)), "switchable_interp_cdf": (14058, (16, 4)),
+}
+FRAME_CONTEXT_ANCHORS = {
+    "default_wedge_idx_cdf": 8468, "default_palette_y_color_index_cdf": 9944,
+    "default_uv_mode_cdf": 12838, "default_partition_cdf": 13618,
+    "default_kf_y_mode_cdf": 14186, "default_inter_ext_tx_cdf": 20474,
+}
+
+
+def frame_context_cdfs(lib: Rodata) -> dict:
+    """Run libaom's av1_init_mode_probs on a FRAME_CONTEXT-sized buffer
+    (the library loaded through ctypes; its base found from an exported
+    symbol) and read the inter CDFs at their offsets, after checking the
+    named tables and the CDFs of SMALL_CDFS sit where the layout puts
+    them."""
+    import ctypes
+    dll = ctypes.CDLL(libaom_path())
+    base = ctypes.cast(dll.aom_codec_av1_dx, ctypes.c_void_p).value - lib.syms["aom_codec_av1_dx"][0]
+    init = ctypes.CFUNCTYPE(None, ctypes.c_void_p)(base + lib.syms["av1_init_mode_probs"][0])
+    buf = ctypes.create_string_buffer(1 << 16)
+    init(buf)
+    raw = buf.raw
+    for name, off in FRAME_CONTEXT_ANCHORS.items():
+        want = lib.raw(*lib.syms[name])
+        if raw[off:off + len(want)] != want:
+            raise ValueError(f"FRAME_CONTEXT layout: {name} not at {off}")
+    for name, off in (("skip_cdf", 11870), ("txfm_partition_cdf", 11654), ("intrabc_cdf", 12484),
+                      ("spatial_pred_seg_cdf", 12508), ("sgrproj_restore_cdf", 12720)):
+        want = np.array(SMALL_CDFS[name], np.uint16).tobytes()
+        if raw[off:off + len(want)] != want:
+            raise ValueError(f"FRAME_CONTEXT layout: {name} not at {off}")
+    out = {}
+    for name, (off, shape) in FRAME_CONTEXT_CDFS.items():
+        n = int(np.prod(shape))
+        out[name] = np.frombuffer(raw[off:off + 2 * n], np.uint16).reshape(shape).copy()
+    return out
+
+
+WEDGE_SIZES = (3, 4, 5, 6, 7, 8, 9, 18, 19)    # BLOCK_8X8..BLOCK_32X32, 8X32, 32X8
+BLOCK_W = [4, 4, 8, 8, 8, 16, 16, 16, 32, 32, 32, 64, 64, 64, 128, 128, 4, 16, 8, 32, 16, 64]
+BLOCK_H = [4, 8, 4, 8, 16, 8, 16, 32, 16, 32, 64, 32, 64, 128, 64, 128, 16, 4, 32, 8, 64, 16]
+
+
+def wedge_masks(lib: Rodata) -> np.ndarray:
+    """The 16 wedge masks (sign 0) of each block size with wedges, in
+    WEDGE_SIZES order, as libaom builds them when its decoder first runs
+    (it decodes a small key frame of its own encoder here, through ctypes;
+    `wedge_masks` then holds a pointer to each)."""
+    import ctypes
+
+    import torch_image_writers as tw
+    from torch_avif_reference import _lib, libaom_planes
+    libaom_planes(tw.aom_encode(tw.rgb_to_yuv420(np.zeros((16, 16, 3), np.uint8)), options={"cpu-used": 6}))
+    dll = _lib()
+    base = ctypes.cast(dll.aom_codec_av1_dx, ctypes.c_void_p).value - lib.syms["aom_codec_av1_dx"][0]
+    table = base + lib.syms["wedge_masks"][0]
+    out = []
+    for b in WEDGE_SIZES:
+        for k in range(16):
+            ptr = ctypes.c_void_p.from_address(table + ((b * 2 + 0) * 16 + k) * 8).value
+            out.append(np.frombuffer(ctypes.string_at(ptr, BLOCK_W[b] * BLOCK_H[b]), np.uint8))
+    return np.concatenate(out)
+
+
 def build(lib: Rodata) -> dict:
     t = {}
     u16 = np.uint16
@@ -240,6 +315,27 @@ def build(lib: Rodata) -> dict:
     t["palette_color_context"] = lib.get("av1_palette_color_index_context_lookup", np.int32)
     t["upscale_filter"] = lib.get("av1_resize_filter_normative", i16).reshape(64, 8)
     t["gaussian_sequence"] = lib.get("gaussian_sequence", np.int32)
+    t.update(frame_context_cdfs(lib))
+    # the sub-sample filters in the specification's order: regular, smooth,
+    # sharp, bilinear, then the 4-tap regular and smooth for small blocks
+    bilinear = np.zeros((16, 8), i16)
+    bilinear[:, 3] = 128 - 8 * np.arange(16)
+    bilinear[:, 4] = 8 * np.arange(16)
+    t["subpel_filters"] = np.stack([
+        lib.get("av1_sub_pel_filters_8", i16).reshape(16, 8),
+        lib.get("av1_sub_pel_filters_8smooth", i16).reshape(16, 8),
+        lib.get("av1_sub_pel_filters_8sharp", i16).reshape(16, 8), bilinear,
+        lib.get("av1_sub_pel_filters_4", i16).reshape(16, 8),
+        lib.get("av1_sub_pel_filters_4smooth", i16).reshape(16, 8)])
+    t["mode_lf_lut"] = lib.get("mode_lf_lut", np.int32)
+    t["div_mult"] = lib.get("div_mult", np.int32)
+    t["div_lut"] = lib.get("div_lut", i16)
+    t["warped_filter"] = lib.get("av1_warped_filter", i16).reshape(193, 8)
+    # OBMC's blending masks of length 1, 2, 4, 8, 16 and 32, one after another
+    t["ii_weights1d"] = lib.get("ii_weights1d", np.uint8)
+    t["wedge_masks"] = wedge_masks(lib)
+    t["wedge_idx_cdf"] = lib.get("default_wedge_idx_cdf", u16).reshape(22, 17)
+    t["obmc_masks"] = np.concatenate([lib.get(f"obmc_mask_{n}", np.uint8) for n in (1, 2, 4, 8, 16, 32)])
     return t
 
 

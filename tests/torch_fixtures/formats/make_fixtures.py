@@ -23,6 +23,16 @@ The sixteenth slice: LogLuv 32- and 24-bit and LogL TIFFs in strips and
 tiles, written by the host's libtiff (`sgilog_*.tif`); AVIF grids with
 alpha and cropped, and 612x512 film-grain and superres AVIFs.
 
+The seventeenth slice: AVIF sequences (cv2's `imwriteanimation` and
+Pillow's `save_all` files, and containers built box by box: `co64`,
+several chunks, `prem`, a track size that scales the frame, a primary item
+that differs from the track's first frame), still items whose `ispe`
+scales the frame, and layered images from libaom's encoder driven as
+libavif drives it (2 and 4 layers, quality and spatial, `lsel`, alpha,
+10 and 12 bits, screen content, the slow speeds' overlapped and warped
+motion and inter-intra), with what libavif refuses; 612x512 sequence,
+scaled and layered files (phase 19); and `../avis_scene/`.
+
 Also the JPEG 2000 / Group 4 sphere scene of `../jp2_scene/` (phase 19):
 the port's `write_sfm_scene` PNG sphere (16 views of 256x256) with its
 normals rewritten as lossless 16-bit JP2, its albedos as 8-bit JP2 at
@@ -32,7 +42,7 @@ names them), and `expected.json`, digests of what the JAX package's
 
 Needs cv2 and PIL, so it runs where the tests run, not on the card:
 
-    python tests/torch_fixtures/formats/make_fixtures.py [avif | sixteenth]
+    python tests/torch_fixtures/formats/make_fixtures.py [avif | sixteenth | seventeenth]
 """
 
 import io
@@ -635,6 +645,185 @@ def grid_avif(tile_blobs, rows=2, cols=2, size=None) -> bytes:
     return tw.avif_file(items, refs=refs)
 
 
+def cv2_sequence(frames, *params) -> bytes:
+    """cv2.imwriteanimation's AVIF of `frames` (BGR(A) or grey)."""
+    import tempfile
+    anim = cv2.Animation()
+    anim.frames = [np.ascontiguousarray(f) for f in frames]
+    anim.durations = [100] * len(frames)
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "seq.avif")
+        assert cv2.imwriteanimation(path, anim, list(params))
+        return Path(path).read_bytes()
+
+
+def tracks_of(blob):
+    """[(track, [sample bytes])] of an AVIF sequence."""
+    return [(t, t["samples"]) for t in tw.sequence_tracks(blob)]
+
+
+def later_frames(img):
+    """Two frames after `img` that differ from it: shifted and darkened."""
+    return [np.roll(img, 3, axis=1), (img.astype(np.int64) * 3 // 4).astype(img.dtype)]
+
+
+def layered(yuv, layers, depth=8, speed=6, **kw):
+    """(layer OBUs, info) of libaom's layered encode (`aom_encode_layers`)."""
+    from rnb_neus2_torch.io import native
+    obus = tw.aom_encode_layers(yuv, layers, bit_depth=depth, speed=speed, **kw)
+    code, info, _, _ = native.av1_decode(b"".join(obus))
+    assert code == 0, code
+    return obus, info
+
+
+def layered_until(rng, layers, census_indices, settings):
+    """The first of `settings` ((height, width) of a `rich` image and
+    aom_encode_layers keyword sets) whose layered stream uses every tool
+    at `census_indices`."""
+    from rnb_neus2_torch.io import native
+    for size, kw in settings:
+        obus = tw.aom_encode_layers(tw.rgb_to_yuv420(rich(rng, *size)), layers, **kw)
+        code, info, _, census = native.av1_decode(b"".join(obus))
+        if code == 0 and all(census[i] for i in census_indices):
+            return tw.layered_avif(obus, info, colr=(1, 13, 6, 1))
+    raise AssertionError(f"no setting uses tools {census_indices}")
+
+
+QUALITY2 = [(40, (1, 1)), (12, (1, 1))]
+SPATIAL2 = [(30, (1, 2)), (20, (1, 1))]
+SPATIAL4 = [(50, (1, 4)), (40, (1, 2)), (30, (1, 2)), (10, (1, 1))]
+QUALITY4 = [(60, (1, 1)), (40, (1, 1)), (20, (1, 1)), (5, (1, 1))]
+
+
+def seventeenth(rng):
+    """AVIF sequences, `ispe`-scaled stills and layered images (see the
+    module docstring)."""
+    out = {}
+    h, w = 40, 56
+    rgb = rich(rng, h, w)
+    bgr = np.ascontiguousarray(rgb[..., ::-1])
+    alpha = smooth(rng, (h, w))
+    bgra = np.dstack([bgr, alpha])
+    deep = smooth(rng, (h, w, 4)).astype(np.uint16) * 257
+    # cv2's and Pillow's sequences: the first frame, later ones differ
+    out["avis_cv2_rgb.avif"] = cv2_sequence([bgr] + later_frames(bgr))
+    out["avis_cv2_rgba.avif"] = cv2_sequence([bgra] + later_frames(bgra))
+    out["avis_cv2_q100_444.avif"] = cv2_sequence([bgr] + later_frames(bgr), cv2.IMWRITE_AVIF_QUALITY, 100)
+    out["avis_cv2_grey.avif"] = cv2_sequence([bgr[..., 1].copy()] + later_frames(bgr[..., 1].copy()))
+    for depth in (10, 12):
+        d3 = np.ascontiguousarray(deep[..., :3] >> (16 - depth))
+        out[f"avis_cv2_{depth}bit.avif"] = cv2_sequence([d3] + later_frames(d3), cv2.IMWRITE_AVIF_DEPTH, depth)
+    d4 = deep >> 4
+    out["avis_cv2_rgba_12bit.avif"] = cv2_sequence([d4] + later_frames(d4), cv2.IMWRITE_AVIF_DEPTH, 12)
+    frames = [Image.fromarray(f) for f in [rgb] + later_frames(rgb)]
+    bio = io.BytesIO()
+    frames[0].save(bio, "AVIF", save_all=True, append_images=frames[1:], quality=60)
+    out["avis_pil_rgb.avif"] = bio.getvalue()
+    frames = [Image.fromarray(np.dstack([f, alpha])) for f in [rgb] + later_frames(rgb)]
+    bio = io.BytesIO()
+    frames[0].save(bio, "AVIF", save_all=True, append_images=frames[1:], quality=60)
+    out["avis_pil_rgba.avif"] = bio.getvalue()
+    # containers built box by box around cv2's RGBA samples
+    (ct, cs), (at, als) = tracks_of(out["avis_cv2_rgba.avif"])
+    cp, ap = ct["props"], at["props"]
+    brands = (b"avis", b"mif1", b"miaf", b"msf1", b"iso8")
+
+    def seq(color=None, alpha_track=None, **kw):
+        c = dict(id=1, width=w, height=h, samples=cs, props=cp)
+        c.update(color or {})
+        a = dict(id=2, width=w, height=h, samples=als, props=ap, aux_for=1, handler=b"auxv")
+        a.update(alpha_track or {})
+        return tw.avis_file([c, a], brands=brands, **kw)
+    out["avis_co64_chunks_prem.avif"] = seq(dict(co64=True, chunks=[1, 2], prem_by=2),
+                                            dict(co64=True, chunks=[2, 1]))
+    out["avis_track_scaled.avif"] = seq(dict(tkhd_size=(61, 29)), dict(tkhd_size=(61, 29)))
+    out["unreadable_avis_no_stsd.avif"] = seq(dict(skip=[b"stsd"]))
+    out["unreadable_avis_sample_past_end.avif"] = seq(dict(samples=cs, chunks=[3]))[:-200]
+    out["unreadable_avis_not_a_key_frame.avif"] = tw.avis_file(
+        [dict(id=1, width=w, height=h, samples=cs[1:] + cs[:1], props=cp)], brands=brands)
+    # the source rule: a mif1 file whose primary item is another image
+    still = cv2_avif(np.ascontiguousarray(bgr[::-1]))
+    from rnb_neus2_torch.io import avif
+    sc = avif.parse(still, "still")
+    it = sc.items[sc.primary]
+    item = dict(id=1, type=b"av01", data=avif.item_data(sc, it, still, "still"),
+                props=[tw.isobmff_box(k, b) for k, b in it.props])
+    (t1, s1), = tracks_of(out["avis_cv2_rgb.avif"])
+    out["avis_mif1_track_and_item.avif"] = tw.avis_file(
+        [dict(id=1, width=w, height=h, samples=s1, props=t1["props"])],
+        items=[item], major=b"mif1")
+    # stills whose ispe scales the frame: down, up, non-integer, one axis
+    def with_ispe(blob, size):
+        b, pos = bytearray(blob), 0
+        while (i := b.find(b"ispe", pos)) > 0:
+            b[i + 8:i + 16] = struct.pack(">II", *size)
+            pos = i + 4
+        return bytes(b)
+    ok, s8 = cv2.imencode(".avif", bgr)
+    out["avif_ispe_down.avif"] = with_ispe(s8.tobytes(), (28, 20))
+    ok, s10 = cv2.imencode(".avif", np.ascontiguousarray(deep >> 6), [cv2.IMWRITE_AVIF_DEPTH, 10])
+    out["avif_ispe_up_rgba_10bit.avif"] = with_ispe(s10.tobytes(), (112, 80))
+    ok, s12 = cv2.imencode(".avif", np.ascontiguousarray(deep[..., :3] >> 4), [cv2.IMWRITE_AVIF_DEPTH, 12])
+    out["avif_ispe_noninteger_12bit.avif"] = with_ispe(s12.tobytes(), (45, 31))
+    out["avif_ispe_one_axis.avif"] = with_ispe(s8.tobytes(), (56, 17))
+    # layered images, libaom's streams in libavif's container
+    lh, lw = 64, 96
+    lrgb = rich(rng, lh, lw)
+    yuv = tw.rgb_to_yuv420(lrgb)
+    for name, layers in (("quality", QUALITY2), ("spatial", SPATIAL2), ("4_spatial", SPATIAL4)):
+        obus, info = layered(yuv, layers)
+        out[f"avif_layers_{name}.avif"] = tw.layered_avif(obus, info, colr=(1, 13, 6, 1))
+    obus, info = layered(yuv, SPATIAL4)
+    out["avif_layers_lsel_middle.avif"] = tw.layered_avif(obus, info, lsel=1, colr=(1, 13, 6, 1))
+    out["unreadable_avif_layers_lsel_past.avif"] = tw.layered_avif(obus, info, lsel=4, colr=(1, 13, 6, 1))
+    ess = tw.layered_avif(obus, info, colr=(1, 13, 6, 1), essential_a1lx=True)
+    out["unreadable_avif_layers_essential_a1lx.avif"] = ess
+    aplane = smooth(rng, (lh, lw))
+    aobus, ainfo = layered([aplane, yuv[1], yuv[2]], QUALITY2, monochrome=True,
+                           controls={tw.AV1E_SET_COLOR_RANGE: 1})   # full range, as libavif
+    out["avif_layers_alpha.avif"] = tw.layered_avif(*layered(yuv, QUALITY2), alpha=aobus,
+                                                    alpha_info=ainfo, colr=(1, 13, 6, 1))
+    out["avif_layers_alpha_prem.avif"] = tw.layered_avif(*layered(yuv, SPATIAL2), alpha=aobus,
+                                                         alpha_info=ainfo, colr=(1, 13, 6, 1),
+                                                         premultiplied=True)
+    for depth in (10, 12):
+        dyuv = [p.astype(np.uint16) << (depth - 8) for p in yuv]
+        obus, info = layered(dyuv, SPATIAL2 if depth == 10 else QUALITY2, depth=depth)
+        out[f"avif_layers_{depth}bit.avif"] = tw.layered_avif(obus, info, colr=(1, 13, 6, 1))
+    # screen content: palette in an inter frame, whole-sample motion
+    pal = rng.integers(0, 255, (6, 3))
+    idx = (np.add.outer(np.arange(96) // 7, np.arange(128) // 5) + rng.integers(0, 2, (96, 128))) % 6
+    obus, info = layered(tw.rgb_to_yuv420(pal[idx].astype(np.uint8)), SPATIAL2,
+                         options={"tune-content": "screen"})
+    out["avif_layers_screen.avif"] = tw.layered_avif(obus, info, colr=(1, 13, 6, 1))
+    # the slow speeds: overlapped and warped motion, smooth and wedge
+    # inter-intra (census 124, 125, 127, 109)
+    out["avif_layers_slow.avif"] = layered_until(
+        rng, QUALITY4, (124, 125, 127, 109),
+        [((96, 128), dict(speed=sp)) for _ in range(12) for sp in (1, 0)])
+    # tools no libavif layer uses, refused by name: compound prediction
+    # and global motion in a plain 4-frame stream
+    base = rich(rng, 96, 128).astype(np.int64)
+    moving = [tw.rgb_to_yuv420(np.clip(np.roll(np.roll(base, 3 * k, 1), 2 * k, 0), 0, 255).astype(np.uint8))
+              for k in range(6)]
+    for name, speed, gm in (("compound", 0, 0), ("global_motion", 6, 1)):
+        obus = tw.aom_encode_layers(moving, [(30, (1, 1))] * 6, speed=speed, flags=[0] * 6,
+                                    spatial=False, options={"enable-global-motion": gm})
+        from rnb_neus2_torch.io import native
+        code, info, _, _ = native.av1_decode(obus[0])
+        out[f"avif_refused_{name}.avif"] = tw.layered_avif(obus, info, colr=(1, 13, 6, 1))
+    # phase 19's 612x512 rows: a sequence's first frame, a 306x256 frame
+    # scaled to its ispe, a 2-layer spatial image
+    view = cv2.imread(str(HERE / "avif_q95_612x512.avif"), cv2.IMREAD_COLOR)
+    out["avis_612x512.avif"] = cv2_sequence([view] + later_frames(view), cv2.IMWRITE_AVIF_QUALITY, 60)
+    half = cv2.resize(view, (306, 256), interpolation=cv2.INTER_AREA)
+    ok, hb = cv2.imencode(".avif", half, [cv2.IMWRITE_AVIF_QUALITY, 80])
+    out["avif_ispe_306x256_to_612x512.avif"] = with_ispe(hb.tobytes(), (612, 512))
+    obus, info = layered(tw.rgb_to_yuv420(np.ascontiguousarray(view[..., ::-1])), [(45, (1, 2)), (35, (1, 1))])
+    out["avif_layers_spatial_612x512.avif"] = tw.layered_avif(obus, info, colr=(1, 13, 6, 1))
+    return out
+
+
 def fourteenth(rng):
     """AVIF: cv2's own files at its defaults, quality 50 and 100, 10 and
     12 bits, grey, RGBA and odd sizes; PIL's (libavif 1.3 + aom) for the
@@ -851,6 +1040,62 @@ def avif_scene():
     write_expected(AVIF_SCENE, radius)
 
 
+AVIS_SCENE = HERE.parent / "avis_scene"
+
+
+def avis_scene():
+    """The phase-19 sphere with normals as 3-frame AVIF sequences whose
+    first frame is the view (cv2's lossless 4:4:4; then the view shifted
+    and darkened), albedos as 2-layer layered AVIFs (half size, then the
+    view: libaom's spatial layers as libavif encodes them) and PNG masks;
+    and the digests of the JAX package's prepared arrays."""
+    import json
+    import shutil
+    import tempfile
+
+    from rnb_neus2_torch.io import native
+    from rnb_neus2_torch.testing.synthetic import write_sfm_scene
+
+    if AVIS_SCENE.exists():
+        shutil.rmtree(AVIS_SCENE)
+    for sub in ("normals", "albedos", "masks"):
+        (AVIS_SCENE / sub).mkdir(parents=True)
+    with tempfile.TemporaryDirectory() as d:
+        normals, albedos, masks, radius = write_sfm_scene(
+            d, "png", world_center=SCENE_CENTER, **SCENE_SPHERE)
+        sfm = {k: json.load(open(p)) for k, p in (("normals", normals),
+                                                  ("albedos", albedos))}
+        for view in sfm["normals"]["views"]:
+            src = Path(d) / view["path"]
+            img = cv2.imread(str(src), cv2.IMREAD_COLOR)       # 8 bits
+            view["path"] = str(Path("normals") / (src.stem + ".avif"))
+            (AVIS_SCENE / view["path"]).write_bytes(cv2_sequence(
+                [img] + later_frames(img), cv2.IMWRITE_AVIF_QUALITY, 100))
+            assert np.array_equal(cv2.imread(str(AVIS_SCENE / view["path"]),
+                                             cv2.IMREAD_COLOR), img)
+        for view in sfm["albedos"]["views"]:
+            src = Path(d) / view["path"]
+            rgb = cv2.imread(str(src), cv2.IMREAD_COLOR)[..., ::-1]
+            obus = tw.aom_encode_layers(tw.rgb_to_yuv420(np.ascontiguousarray(rgb)),
+                                        [(40, (1, 2)), (16, (1, 1))])
+            code, info, _, _ = native.av1_decode(b"".join(obus))
+            assert code == 0, code
+            view["path"] = str(Path("albedos") / (src.stem + ".avif"))
+            (AVIS_SCENE / view["path"]).write_bytes(
+                tw.layered_avif(obus, info, colr=(1, 13, 6, 1)))
+        mask_views = []
+        for view in sfm["normals"]["views"]:
+            pid = view["poseId"]
+            path = Path("masks") / f"{pid}.png"
+            shutil.copy(Path(masks) / f"{pid}.png", AVIS_SCENE / path)
+            mask_views.append(dict(view, path=str(path)))
+        sfm["masks"] = dict(sfm["normals"], views=mask_views)
+        for k, v in sfm.items():
+            with open(AVIS_SCENE / f"{k}.sfm.json", "w") as f:
+                json.dump(v, f)
+    write_expected(AVIS_SCENE, radius)
+
+
 SGILOG_SCENE = HERE.parent / "sgilog_scene"
 # cv2's XYZ → RGB (sRGB primaries, D65), which the albedos go through
 # backwards so that cv2 reads them back close to the PNG scene's
@@ -963,9 +1208,16 @@ def main():
     """All fixtures and the scenes; `make_fixtures.py avif` rewrites only
     the AVIF files, their entries of expected.npz and the AVIF scene;
     `make_fixtures.py sixteenth` only the sixteenth slice's files (SGILog,
-    the new AVIFs) and their entries."""
-    only = sys.argv[1] if sys.argv[1:] in (["avif"], ["sixteenth"]) else None
-    if only == "sixteenth":
+    the new AVIFs) and their entries; `make_fixtures.py seventeenth` the
+    seventeenth's (sequences, scaled and layered AVIFs), their entries and
+    the avis scene."""
+    only = sys.argv[1] if sys.argv[1:] in (["avif"], ["sixteenth"], ["seventeenth"]) else None
+    if only == "seventeenth":
+        files = seventeenth(np.random.default_rng(20))
+        with np.load(HERE / "expected.npz") as z:
+            expected = {k: z[k] for k in z.files
+                        if k.split(":")[0] not in files}
+    elif only == "sixteenth":
         files = sixteenth(np.random.default_rng(19))
         with np.load(HERE / "expected.npz") as z:
             expected = {k: z[k] for k in z.files
@@ -982,7 +1234,8 @@ def main():
         files = {**jpegs(rng), **tiffs(rng), **more_formats(rng),
                  **thirteenth(np.random.default_rng(16)),
                  **fourteenth(np.random.default_rng(17)),
-                 **sixteenth(np.random.default_rng(19))}
+                 **sixteenth(np.random.default_rng(19)),
+                 **seventeenth(np.random.default_rng(20))}
         for old in HERE.iterdir():
             if old.suffix not in (".py", ".npz"):
                 old.unlink()
@@ -1005,6 +1258,8 @@ def main():
         avif_scene()
     if only in (None, "sixteenth"):
         sgilog_scene()
+    if only in (None, "seventeenth"):
+        avis_scene()
 
 
 if __name__ == "__main__":

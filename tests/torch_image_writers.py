@@ -1452,10 +1452,11 @@ def avif_still(obus: bytes, info: dict, colr=None, extra_props=()) -> bytes:
 
 
 def avif_file(items, primary=1, refs=(), major=b"avif", brands=(b"avif", b"mif1", b"miaf"),
-              extra_meta=b"", extra_top=b"", idat=None) -> bytes:
+              extra_meta=b"", extra_top=b"", idat=None, extra_mdat=b"") -> bytes:
     """An AVIF file: `items` is a list of dicts with id, type, data,
     props (list of box bytes), optional hidden / construction method 1
-    (the data then goes into idat); refs are (type, from, [to...])."""
+    (the data then goes into idat); refs are (type, from, [to...]);
+    `extra_mdat` follows the items' data in mdat."""
     ftyp = isobmff_box(b"ftyp", major + b"\0\0\0\0" + b"".join(brands))
     hdlr = full_box(b"hdlr", 0, 0, b"\0" * 4 + b"pict" + b"\0" * 12 + b"\0")
     pitm = full_box(b"pitm", 0, 0, struct.pack(">H", primary))
@@ -1467,13 +1468,15 @@ def avif_file(items, primary=1, refs=(), major=b"avif", brands=(b"avif", b"mif1"
     for it in items:
         idx = []
         for p in it.get("props", []):
-            props.append(p)
-            idx.append(len(props))
+            # a property is essential unless given as (box, False)
+            box, essential = p if isinstance(p, tuple) else (p, True)
+            props.append(box)
+            idx.append(len(props) | (0x80 if essential else 0))
         assoc.append((it["id"], idx))
     ipco = isobmff_box(b"ipco", b"".join(props))
     ipma_body = struct.pack(">I", len(assoc))
     for iid, idx in assoc:
-        ipma_body += struct.pack(">HB", iid, len(idx)) + bytes(0x80 | i for i in idx)
+        ipma_body += struct.pack(">HB", iid, len(idx)) + bytes(idx)
     iprp = isobmff_box(b"iprp", ipco + full_box(b"ipma", 0, 0, ipma_body))
     iref = b""
     if refs:
@@ -1502,8 +1505,163 @@ def avif_file(items, primary=1, refs=(), major=b"avif", brands=(b"avif", b"mif1"
     meta = build(0)
     start = len(ftyp) + len(meta) + len(extra_top) + 8
     meta = build(start)
-    mdat = isobmff_box(b"mdat", b"".join(it["data"] for it in items if it.get("method") != 1))
+    mdat = isobmff_box(b"mdat", b"".join(it["data"] for it in items if it.get("method") != 1)
+                       + extra_mdat)
     return ftyp + meta + extra_top + mdat
+
+
+def av01_entry(width, height, props) -> bytes:
+    """An `av01` sample entry: the VisualSampleEntry's 78 bytes, then the
+    property boxes (av1C, colr, pasp, ccst, auxi, ...)."""
+    visual = (b"\0" * 6 + struct.pack(">H", 1) + b"\0" * 16 + struct.pack(">HH", width, height)
+              + struct.pack(">III", 0x480000, 0x480000, 0) + struct.pack(">H", 1) + b"\0" * 32
+              + struct.pack(">Hh", 0x18, -1))
+    return isobmff_box(b"av01", visual + b"".join(props))
+
+
+def _track_box(t: dict, base: int) -> bytes:
+    """One `trak` whose samples start at file offset `base`. Keys: id,
+    width, height, samples (list of bytes), props (sample entry boxes),
+    optional aux_for / prem_by (track ids), chunks (samples per chunk;
+    one chunk by default), co64, stss (1-based sample numbers), all_size
+    (every sample of one size: stsz's sample_size), handler, elst,
+    entries (raw stsd entries instead of one av01), tkhd_size (the
+    size written into tkhd) and skip (box types left out)."""
+    skip = set(t.get("skip", ()))
+    samples = t["samples"]
+    w, h = t.get("tkhd_size", (t["width"], t["height"]))
+    tkhd = full_box(b"tkhd", 0, 1, struct.pack(">IIIII", 0, 0, t["id"], 0, len(samples))
+                    + b"\0" * 8 + b"\0" * 8 + struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
+                    + struct.pack(">II", w << 16, h << 16))
+    refs = b""
+    if t.get("aux_for"):
+        refs += isobmff_box(b"auxl", struct.pack(">I", t["aux_for"]))
+    if t.get("prem_by"):
+        refs += isobmff_box(b"prem", struct.pack(">I", t["prem_by"]))
+    tref = isobmff_box(b"tref", refs) if refs else b""
+    edts = isobmff_box(b"edts", full_box(b"elst", 0, 1, struct.pack(">IIII", 1, 100 * len(samples), 0, 0x10000))) \
+        if t.get("elst", True) else b""
+    mdhd = full_box(b"mdhd", 0, 0, struct.pack(">IIIIHH", 0, 0, 1000, 100 * len(samples), 0x55c4, 0))
+    hdlr = full_box(b"hdlr", 0, 0, b"\0" * 4 + t.get("handler", b"pict") + b"\0" * 12 + b"\0")
+    entries = t.get("entries") or [av01_entry(t["width"], t["height"], t.get("props", []))]
+    stsd = full_box(b"stsd", 0, 0, struct.pack(">I", len(entries)) + b"".join(entries))
+    chunks = t.get("chunks") or [len(samples)]
+    runs = []
+    for k, n in enumerate(chunks):
+        if not runs or runs[-1][1] != n:
+            runs.append((k + 1, n))
+    stsc = full_box(b"stsc", 0, 0, struct.pack(">I", len(runs)) + b"".join(
+        struct.pack(">III", f, n, 1) for f, n in runs))
+    if t.get("all_size"):
+        stsz = full_box(b"stsz", 0, 0, struct.pack(">II", len(samples[0]), len(samples)))
+    else:
+        stsz = full_box(b"stsz", 0, 0, struct.pack(">II", 0, len(samples))
+                        + b"".join(struct.pack(">I", len(x)) for x in samples))
+    offsets, pos, k = [], base, 0
+    for n in chunks:
+        offsets.append(pos)
+        pos += sum(len(x) for x in samples[k:k + n])
+        k += n
+    if t.get("co64"):
+        stco = full_box(b"co64", 0, 0, struct.pack(">I", len(offsets)) + b"".join(struct.pack(">Q", o) for o in offsets))
+    else:
+        stco = full_box(b"stco", 0, 0, struct.pack(">I", len(offsets)) + b"".join(struct.pack(">I", o) for o in offsets))
+    syncs = t.get("stss", [1])
+    stss = full_box(b"stss", 0, 0, struct.pack(">I", len(syncs)) + b"".join(struct.pack(">I", x) for x in syncs))
+    stts = full_box(b"stts", 0, 0, struct.pack(">III", 1, len(samples), 100))
+    parts = {b"stsd": stsd, b"stts": stts, b"stsc": stsc, b"stsz": stsz, b"stco": stco, b"stss": stss}
+    stbl = isobmff_box(b"stbl", b"".join(v for k2, v in parts.items() if k2 not in skip))
+    dinf = isobmff_box(b"dinf", full_box(b"dref", 0, 0, struct.pack(">I", 1) + full_box(b"url ", 0, 1, b"")))
+    minf = isobmff_box(b"minf", full_box(b"vmhd", 0, 1, b"\0" * 8) + dinf + stbl)
+    mdia = isobmff_box(b"mdia", mdhd + hdlr + minf)
+    return isobmff_box(b"trak", (b"" if b"tkhd" in skip else tkhd) + tref + edts + mdia)
+
+
+def sequence_tracks(blob: bytes) -> list:
+    """The tracks of an AVIF sequence, read here box by box (not by the
+    port): [{id, aux_for, samples: [bytes], props: [box bytes of the av01
+    sample entry]}] for every `trak`, its samples laid out chunk by chunk
+    as stsc, stsz and stco/co64 say."""
+    def boxes(start, end):
+        pos = start
+        while pos + 8 <= end:
+            size, kind = struct.unpack(">I4s", blob[pos:pos + 8])
+            hdr = 8
+            if size == 1:
+                size, hdr = struct.unpack(">Q", blob[pos + 8:pos + 16])[0], 16
+            yield kind, pos + hdr, pos + size
+            pos += size
+
+    def child(start, end, path):
+        for kind, s, e in boxes(start, end):
+            if kind == path[0]:
+                return (s, e) if len(path) == 1 else child(s, e, path[1:])
+        return None
+    out = []
+    moov = child(0, len(blob), [b"moov"])
+    for kind, ts, te in boxes(*moov):
+        if kind != b"trak":
+            continue
+        s, _ = child(ts, te, [b"tkhd"])
+        version = blob[s]
+        track = {"id": struct.unpack(">I", blob[s + (20 if version else 12):][:4])[0], "aux_for": 0}
+        tref = child(ts, te, [b"tref", b"auxl"])
+        if tref:
+            track["aux_for"] = struct.unpack(">I", blob[tref[0]:tref[0] + 4])[0]
+        stbl = child(ts, te, [b"mdia", b"minf", b"stbl"])
+        tables = {k: (s2, e2) for k, s2, e2 in boxes(*stbl)}
+        s, e = tables[b"stsd"]
+        entry = s + 8
+        esize = struct.unpack(">I", blob[entry:entry + 4])[0]
+        track["props"] = [blob[a - 8:b] for _, a, b in boxes(entry + 8 + 78, entry + esize)]
+        s, _ = tables[b"stsz"]
+        all_size, count = struct.unpack(">II", blob[s + 4:s + 12])
+        sizes = [all_size] * count if all_size else \
+            list(struct.unpack(f">{count}I", blob[s + 12:s + 12 + 4 * count]))
+        wide = b"co64" in tables
+        s, _ = tables[b"co64" if wide else b"stco"]
+        n = struct.unpack(">I", blob[s + 4:s + 8])[0]
+        chunks = struct.unpack(f">{n}{'Q' if wide else 'I'}", blob[s + 8:s + 8 + (8 if wide else 4) * n])
+        s, _ = tables[b"stsc"]
+        runs = [struct.unpack(">III", blob[s + 8 + 12 * i:s + 20 + 12 * i])
+                for i in range(struct.unpack(">I", blob[s + 4:s + 8])[0])]
+        samples, k = [], 0
+        for index, offset in enumerate(chunks):
+            per = [r[1] for r in runs if r[0] <= index + 1][-1]
+            for _ in range(per):
+                samples.append(blob[offset:offset + sizes[k]])
+                offset += sizes[k]
+                k += 1
+        track["samples"] = samples
+        out.append(track)
+    return out
+
+
+def avis_file(tracks, items=(), primary=1, refs=(), major=b"avis",
+              brands=(b"avis", b"avif", b"mif1", b"miaf", b"msf1", b"iso8")) -> bytes:
+    """An AVIF sequence: `tracks` as `_track_box` takes them, their
+    samples in mdat after the items' data (`items`, `primary` and `refs`
+    as avif_file takes them; no meta box without items)."""
+    payload = b"".join(b"".join(t["samples"]) for t in tracks)
+
+    def moov_at(base):
+        mvhd = full_box(b"mvhd", 0, 0, struct.pack(">IIII", 0, 0, 1000, 300) + struct.pack(">IH", 0x10000, 0x100)
+                        + b"\0" * 10 + struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
+                        + b"\0" * 24 + struct.pack(">I", len(tracks) + 1))
+        boxes = b""
+        for t in tracks:
+            boxes += _track_box(t, base)
+            base += sum(len(x) for x in t["samples"])
+        return isobmff_box(b"moov", mvhd + boxes)
+
+    moov = moov_at(0)
+    if items:
+        probe = avif_file(items, primary, refs, major, brands, extra_top=moov, extra_mdat=payload)
+        base = len(probe) - len(payload)
+        return avif_file(items, primary, refs, major, brands, extra_top=moov_at(base), extra_mdat=payload)
+    ftyp = isobmff_box(b"ftyp", major + b"\0\0\0\0" + b"".join(brands))
+    base = len(ftyp) + len(moov) + 8
+    return ftyp + moov_at(base) + isobmff_box(b"mdat", payload)
 
 
 def ispe(w, h) -> bytes:
@@ -1619,6 +1777,154 @@ def _aom_pass(yuv, bit_depth, usage, cq, options, cfg, passno, stats):
     finally:
         lib.aom_codec_destroy(ctx)
     return frames, stat
+
+
+AOME_SET_SCALEMODE, AOME_SET_SPATIAL_LAYER_ID, AOME_SET_CPUUSED = 11, 12, 13
+AOME_SET_TUNING, AOME_SET_CQ_LEVEL, AOME_SET_NUMBER_SPATIAL_LAYERS = 24, 25, 27
+AV1E_SET_COLOR_RANGE = 52        # libaom's encoder_ctrl_maps: ctrl_set_color_range
+SCALE_MODES = {(1, 1): 0, (4, 5): 1, (3, 5): 2, (3, 4): 3, (1, 4): 4, (1, 8): 5, (1, 2): 6}
+# libavif's flags for a layer after the first: LAST is its only reference
+LAYER_FLAGS = ((1 << 17) | (1 << 18) | (1 << 19) | (1 << 20) | (1 << 21) | (1 << 22)
+               | (1 << 24) | (1 << 25))
+
+
+def aom_encode_layers(yuv, layers, bit_depth=8, speed=6, options=None, cfg=None,
+                      monochrome=False, flags=None, spatial=True, controls=None) -> list:
+    """A layered AV1 image as libavif 1.4's codec_aom.c encodes one (good
+    quality, AOM_Q, no lag, tune SSIM, AOME_SET_NUMBER_SPATIAL_LAYERS),
+    then per layer AOME_SET_SPATIAL_LAYER_ID, AOME_SET_SCALEMODE and the
+    quantizer, and for every layer after the first the flags that leave
+    LAST its only reference. `yuv` is the full-size [Y, U, V] 4:2:0
+    input of every layer; `layers` a list of (cq, (num, den)) scales.
+    → each layer's OBUs (temporal delimiters dropped)."""
+    import ctypes
+    lib = _libaom()
+    h, w = (yuv[0][0] if isinstance(yuv[0], (list, tuple)) else yuv[0]).shape
+    cfgbuf = ctypes.create_string_buffer(4096)
+    iface = ctypes.c_void_p(lib.aom_codec_av1_cx())
+    if lib.aom_codec_enc_config_default(iface, cfgbuf, 0):
+        raise RuntimeError("aom_codec_enc_config_default")
+    fields = np.frombuffer(cfgbuf, np.uint32, 100).copy()
+    fields[3], fields[4] = w, h
+    fields[8], fields[9] = bit_depth, bit_depth
+    fields[2] = 2 if bit_depth == 12 else 0
+    fields[14] = 0                                      # g_lag_in_frames
+    fields[24] = 3                                      # rc_end_usage AOM_Q
+    fields[52] = int(monochrome)                        # monochrome
+    for k, v in (cfg or {}).items():
+        fields[k] = v
+    ctypes.memmove(cfgbuf, fields.tobytes(), fields.nbytes)
+    ctx = ctypes.create_string_buffer(512)
+    init_flags = 0x40000 if bit_depth > 8 else 0
+    if lib.aom_codec_enc_init_ver(ctx, iface, cfgbuf, init_flags, AOM_ENCODER_ABI_VERSION):
+        raise RuntimeError("aom_codec_enc_init_ver")
+
+    def control(ident, value):
+        arg = ctypes.c_int(value) if isinstance(value, int) else value
+        if lib.aom_codec_control(ctx, ctypes.c_int(ident), arg):
+            raise RuntimeError(f"aom_codec_control {ident}")
+    out = []
+    try:
+        control(AOME_SET_CPUUSED, speed)
+        if spatial:
+            control(AOME_SET_NUMBER_SPATIAL_LAYERS, len(layers))
+        for k, v in (options or {}).items():
+            if lib.aom_codec_set_option(ctx, k.encode(), str(v).encode()):
+                raise RuntimeError(f"aom option {k}={v} refused")
+        control(AOME_SET_TUNING, 1)                     # AOM_TUNE_SSIM
+        for k, v in (controls or {}).items():
+            control(k, v)
+        fmt = 0x102 | (0x800 if bit_depth > 8 else 0)
+        img = lib.aom_img_alloc(None, fmt, w, h, 16)
+        planes = (ctypes.c_void_p * 3).from_address(img + 64)
+        strides = (ctypes.c_int * 3).from_address(img + 88)
+        ctypes.c_uint.from_address(img + 36).value = bit_depth
+        inputs = yuv if isinstance(yuv[0], (list, tuple)) else [yuv] * len(layers)
+        for index, (cq, scale) in enumerate(layers):
+            for p, plane in enumerate(inputs[index]):
+                data = np.ascontiguousarray(plane, np.uint16 if bit_depth > 8 else np.uint8)
+                row = data.shape[1] * data.itemsize
+                for y in range(data.shape[0]):
+                    ctypes.memmove(planes[p] + y * strides[p], data[y].ctypes.data, row)
+            if spatial:
+                control(AOME_SET_SPATIAL_LAYER_ID, index)
+            mode = (ctypes.c_int * 2)(SCALE_MODES[scale], SCALE_MODES[scale])
+            control(AOME_SET_SCALEMODE, ctypes.cast(mode, ctypes.c_void_p))
+            control(AOME_SET_CQ_LEVEL, cq)
+            frames = b""
+            for frame in ((img,) if index < len(layers) - 1 else (img, None)):
+                flag = flags[index] if flags is not None else LAYER_FLAGS if index else 0
+                if lib.aom_codec_encode(ctx, frame, index, 1, flag):
+                    raise RuntimeError("aom_codec_encode")
+                it = ctypes.c_void_p(0)
+                while True:
+                    pkt = lib.aom_codec_get_cx_data(ctx, ctypes.byref(it))
+                    if not pkt:
+                        break
+                    if ctypes.c_int.from_address(pkt).value == 0:
+                        buf = ctypes.c_void_p.from_address(pkt + 8).value
+                        sz = ctypes.c_size_t.from_address(pkt + 16).value
+                        frames += ctypes.string_at(buf, sz)
+            out.append(drop_temporal_delimiters(frames))
+        lib.aom_img_free(img)
+    finally:
+        lib.aom_codec_destroy(ctx)
+    return out
+
+
+def layered_avif(layers, info, alpha=None, alpha_info=None, lsel=None, a1op=None,
+                 size=None, premultiplied=False, colr=None, essential_a1lx=False) -> bytes:
+    """A layered AVIF item as libavif writes one (its layers' OBUs back to
+    back, `a1lx` sizing all but the last), optionally with a layered alpha
+    item (`auxl`, the alpha URN, optionally `prem`), an `lsel` and an
+    `a1op` on the colour item, an ispe of `size` (default: the stream's
+    largest frame) and an nclx `colr`; `essential_a1lx` marks a1lx
+    essential, which libavif refuses."""
+    def a1lx(sizes):
+        large = any(v > 0xFFFF for v in sizes[:-1])
+        fields = (list(sizes[:-1]) + [0, 0, 0])[:3]
+        return isobmff_box(b"a1lx", bytes([int(large)]) + b"".join(
+            v.to_bytes(4 if large else 2, "big") for v in fields))
+
+    w, h = size or (info["width"], info["height"])
+    props = [ispe(w, h), pixi(info["bit_depth"], 1 if info["mono"] else 3),
+             isobmff_box(b"av1C", av1c(info)), (a1lx([len(x) for x in layers]), essential_a1lx)]
+    if colr is not None:
+        props.append(nclx(*colr))
+    if lsel is not None:
+        props.append(isobmff_box(b"lsel", struct.pack(">H", lsel)))
+    if a1op is not None:
+        props.append(isobmff_box(b"a1op", bytes([a1op])))
+    items = [dict(id=1, type=b"av01", data=b"".join(layers), props=props)]
+    refs = []
+    if alpha is not None:
+        urn = b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha\0"
+        items.append(dict(id=2, type=b"av01", data=b"".join(alpha), hidden=True, props=[
+            ispe(w, h), pixi(alpha_info["bit_depth"], 1), isobmff_box(b"av1C", av1c(alpha_info)),
+            full_box(b"auxC", 0, 0, urn), (a1lx([len(x) for x in alpha]), False)]))
+        refs.append((b"auxl", 2, [1]))
+        if premultiplied:
+            refs.append((b"prem", 1, [2]))
+    return avif_file(items, refs=refs)
+
+
+def drop_temporal_delimiters(obus: bytes) -> bytes:
+    out, pos = b"", 0
+    while pos < len(obus):
+        start, h = pos, obus[pos]
+        pos += 1 + ((h >> 2) & 1)
+        size, shift = 0, 0
+        while True:
+            byte = obus[pos]
+            pos += 1
+            size |= (byte & 0x7F) << shift
+            shift += 7
+            if not byte & 0x80:
+                break
+        if (h >> 3) & 15 != 2:
+            out += obus[start:pos + size]
+        pos += size
+    return out
 
 
 def rgb_to_yuv420(rgb: np.ndarray) -> list:
