@@ -8,16 +8,18 @@ Phases, each printing JSON lines with `elapsed_s`:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions. Exits non-zero without a CUDA device or without the package
    beside this script.
-2. build: every kernel library of the main path, built with nvcc from the
-   sources in the checkout, the point-to-mesh library of the Chamfer
+2. build: every kernel library of the main path (`hash_grad_small`,
+   `scatter_add`, `encode_jacobian`, `corner_backward`), built with nvcc
+   from the sources in the checkout, the point-to-mesh library of the Chamfer
    metric (`native/raycast.cc`, g++), the PNG row unfilter
    (`rnb_neus2_torch/native/png_unfilter.cc`, g++) and the image codecs'
    helpers (`rnb_neus2_torch/native/codecs.cc`, g++), the AV1 decoder
    (`rnb_neus2_torch/native/av1.cc`, g++) and the AVIF frame scaler
    (`rnb_neus2_torch/native/scale.cc`, g++), all at once (one compiler
    per library), with `-Xptxas -v` output.
-3. kernel vs plain: each kernel's wrapper on card tensors at the main
-   path's shapes against its plain PyTorch version; max abs error ≤
+3. kernel vs plain: each exact-backward kernel's wrapper on card tensors
+   at the main path's shapes against its plain PyTorch version (the
+   training encode's two kernels: phase 21); max abs error ≤
    1e-5·(1 + max |plain|) (float atomics sum in another order), and every
    row that no element touches exactly 0.0 in both. (A touched entry whose
    terms cancel may come out 0.0 in one summation order and not in
@@ -44,15 +46,23 @@ Phases, each printing JSON lines with `elapsed_s`:
    in-place one, n·(4 + 4F) bytes plus a read and a write of each row
    that this input adds to. On uniform
    random indices here, and after phase 7 on the inputs that the trained
-   field's next step gives each level, K = 1 and exact, which the kernels
-   line reports (per step: the sum over the kernel's levels); there also,
+   field's next exact step gives each level, which the kernels line
+   reports (per step: the sum over the kernel's levels); there also,
    for `hash_grad_small`, the other kernel on the
    same inputs (`ms_into_scatter_add`), each kernel's fixed cost (one
    launch on its first level's indices with zero values, which add
    nothing: `ms_into_zero_values`), and one line per level with the share of
    elements whose row repeats within its warp of 32 consecutive elements
-   (the atomics the aggregation can remove). Each input is first checked
-   against the plain version as in phase 3.
+   (the atomics the aggregation can remove), for the exact step's
+   elements and the K = 1 step's picks (the plain version's, which the
+   K-corner kernel adds alike). Each input is first checked against the
+   plain version as in phase 3. Then the training encode's two kernels
+   on the K = 1 step's inputs: each held against its plain version on
+   the card (the forward bit for bit, the backward's picks equal), its
+   device ms, the plain version's and its bound (`encode_bounds`: bytes
+   with the gather counted in distinct 32-byte sectors, over 3.35 TB/s,
+   vs float32 operations over 67 TFLOP/s); no single PyTorch call
+   computes either (`library_ms` null).
 5. probes: every section of `rnb_neus2_torch.tools.bench_scatter` (the
    five TPU scatter-add probes' sweeps), both kernels at every point,
    checked exactly against the plain version; a mismatch raises.
@@ -60,8 +70,9 @@ Phases, each printing JSON lines with `elapsed_s`:
    card against the same on the CPU (the CPU port is held against the JAX
    package by tests/test_torch_*.py); then the default config's K = 1
    encode backward on the card and the CPU with the same positions and
-   cotangents: the picked corner of every sample at every level is the
-   same, and the table gradients agree as in phase 3.
+   cotangents: the `corner_backward` kernel's own picked corner of every
+   sample at every level is the CPU's, and the table gradients agree as
+   in phase 3.
 7. train: the main path — `Trainer.train_step` at the full default width
    (14 levels x F=2, 2^19 hashed tables, 64-wide MLPs, 2^18-sample batch,
    128^3 occupancy grid) of the unmodified default config: the default
@@ -70,8 +81,11 @@ Phases, each printing JSON lines with `elapsed_s`:
    steps on a seeded synthetic sphere, so that the last 29 run all 14
    levels; then the exact backward (only stoch_corner_bwd=0 changed) for
    20 steps. Launch counts are zeroed just before each and read just
-   after: `hash_grad_small` twice a step (levels 0 and 1), `scatter_add`
-   once for each other level the step runs. Each run prints the guard's
+   after: `encode_jacobian` once a step (the field call); at K = 1
+   `corner_backward` once a step and neither exact-backward kernel; in
+   the exact steps `hash_grad_small` twice a step (levels 0 and 1) and
+   `scatter_add` once for each other level the step runs
+   (`_expected_launches`). Each run prints the guard's
    counters (rollbacks, degraded, the loss and eikonal floors); a
    rollback on the sphere is reported, not hidden.
 8. rollback: one NaN color loss fed to the default run's guard
@@ -109,8 +123,9 @@ Phases, each printing JSON lines with `elapsed_s`:
    --trace-steps 16 --render-path P --render-frames 8` as a subprocess
    (P: a camera path between training views 0 and 4; the trace covers
    steps 256-271, one 16-step chunk): exit 0, its `iteration=300` line,
-   both files; its Chrome trace names both kernels'
-   CUDA functions and the trainer's spans; 8 RGBA PNGs of 256x256 whose
+   both files; its Chrome trace names the CUDA functions of the two
+   kernels its default path launches (`encode_jacobian`,
+   `corner_backward`) and the trainer's spans; 8 RGBA PNGs of 256x256 whose
    first and last differ; and the count of metric reads it prints equals
    that of the same loop run on the CPU with the step body, the refresh
    and the read replaced by counters (the port's schedule). Its
@@ -131,9 +146,11 @@ Phases, each printing JSON lines with `elapsed_s`:
    trains through `Trainer.train_steps` (metrics read every 25 steps, or
    every two 16-step chunks from step 256); every step body and chunk is
    recorded with its level bucket. Launch counts zeroed just before and
-   read just after: `hash_grad_small` twice per step, `scatter_add` once
-   for each other level of the step's bucket; rollbacks are counted and
-   reported. mesh.obj reads back with
+   read just after: `corner_backward` once per step body,
+   `encode_jacobian` once per training-encode forward (each step body's
+   field call and each chunk of the mesh's normals, counted by
+   `_record_forwards`), neither exact-backward kernel; rollbacks are
+   counted and reported. mesh.obj reads back with
    `load_obj`, and its median vertex radius about the sphere's world
    centre lies within a voxel (at 512) of the world radius. The input's
    albedos carry a per-view scale (1 + 0.01 i); albedo ratios on that
@@ -164,10 +181,11 @@ Phases, each printing JSON lines with `elapsed_s`:
    256x256 with its centre at 0.5 + k·S, S = (0.06, -0.04, 0), the first
    frame 440 steps, each later frame 400 delta steps then 100 canonical
    steps. Launch counts zeroed just before and read just after each
-   phase: the delta phases launch neither kernel and run no training
-   step; the first frame and the canonical phases launch them per step
-   body and its level bucket (the canonical ones all at 14 levels: 2 and
-   12 per step). Each later frame meets the JAX tests' criteria
+   phase: the delta phases run no training step, launch no backward
+   kernel and launch `encode_jacobian` once per delta step (its
+   position-differentiable field call); the first frame and the canonical
+   phases launch `encode_jacobian` and `corner_backward` once per step
+   body. Each later frame meets the JAX tests' criteria
    (tests/test_dynamic.py): R within 0.08 of I, |t + k·S| < 0.5·|k·S|,
    cos(t, -k·S) > 0.8; its mesh at res 256 equals the JAX package's
    (the canonical world-space mesh through the inverse delta, (V − t)·R,
@@ -185,7 +203,8 @@ Phases, each printing JSON lines with `elapsed_s`:
    |t0 + T| < 0.6·|T|, the other views' translations < 0.02; (b) focal
    refinement (every ray corrupted as focal × 1.06, the focal offset
    alone trained, 400 steps): |1.06·(1 + f) − 1| < 0.036 on both axes;
-   (a) and (b) launch neither kernel. (c) `optimise_mesh_step`, 16 steps
+   (a) and (b) launch `encode_jacobian` once per step and no backward
+   kernel (the field is frozen). (c) `optimise_mesh_step`, 16 steps
    on the EMA field's mesh at res 256 in the unit cube: the mean
    |‖v − c‖ − 0.25| does not grow. (d) `export_cuda_snapshot` →
    `import_cuda_snapshot` into a fresh `Trainer`: the parameters and
@@ -230,12 +249,13 @@ Phases, each printing JSON lines with `elapsed_s`:
    cadence past step 256), beside a single `Trainer` from the same init
    on the same schedule: ms/step, device busy ms/step (8 profiled
    `train_step`s), peak memory, each kernel's launches against twice the
-   count of the recorded level buckets, the replicas' largest parameter
+   recorded step bodies' count, the replicas' largest parameter
    difference after every read (must be 0), the loss trend against the
    single trainer (the last six reads' mean loss_total within 3 × the sum
-   of their spreads, tests/test_parallel.py's rule), then both kernels
-   against their plain versions on the first replica's backward inputs
-   of one more step (as phase 4 on the main path), and a forced rollback
+   of their spreads, tests/test_parallel.py's rule), then the training
+   encode's two kernels against their plain versions on the first
+   replica's inputs of one more step (as phase 4 on the main path), and
+   a forced rollback
    (both replicas' parameters scaled, then a NaN loss read: both restored
    to the snapshot bit for bit, and training goes on).
 19. formats: the phase-7 sphere written twice as a Meshroom-style input
@@ -294,8 +314,20 @@ Phases, each printing JSON lines with `elapsed_s`:
    level buckets' count (as phase 12); then every section of
    `tools/bench_primitives` on the card, one line per row.
 
-Then one JSON line with every kernel's numbers (the main path's launches,
-the pipeline's, the dynamic path's per phase, the refinement's, the
+21. encode kernels (right after phase 7, ≈ 17 s): the training encode's
+   `encode_jacobian` and `corner_backward` kernels against their plain
+   versions at the default config (14 levels, F = 2) on 2^18 random
+   positions and cotangents: the forward bit for bit with its plain
+   version on the card at La = 1, 8 and 14 and with a valid_level, and
+   with the CPU's at La = 14; the backward's picks equal the CPU plain
+   version's at all 14 levels for K = 1, 2 and salt 0, 3, its gradient
+   within 1e-5 of the largest entry, every row that no pick touches
+   exactly 0.0 in both; one launch per call. Prints its seconds.
+
+Then one JSON line with every kernel's numbers (the launches of its
+path: the exact steps' for `hash_grad_small` and `scatter_add`, with the
+default path's 0 beside them, the K = 1 steps' for the other two; the
+pipeline's, the dynamic path's per phase, the refinement's, the
 dense-Adam run's, each option path's, each extra-mode fit's, the
 data-parallel run's, the formats pipeline's, the JP2 and AVIF scenes'
 and `Trainer.train`'s, with
@@ -598,11 +630,13 @@ def check_small_agreement(torch, dev) -> None:
 
 def check_stochastic_agreement(torch, dev, n: int = 1 << 16) -> None:
     """Phase 6b: the default config's K = 1 encode backward on the card
-    and on the CPU from the same positions, table and cotangents. Every
-    sample's picked corner agrees at every level; the table gradients
+    (the `corner_backward` kernel) and on the CPU (its plain version) from
+    the same positions, table and cotangents. The kernel's own picks equal
+    the CPU's at every level; the table gradients of the training encode
     agree within 1e-5·(1 + max |CPU|), and every entry that no pick
     touches is exactly 0.0 in both."""
     from rnb_neus2_torch.config import HashGridConfig
+    from rnb_neus2_torch.kernels import corner_backward as cbw
     from rnb_neus2_torch.ops import hash_encoding as he
 
     static = he.HashGridStatic(HashGridConfig())
@@ -616,25 +650,18 @@ def check_stochastic_agreement(torch, dev, n: int = 1 << 16) -> None:
     picks, grads = [], []
     for d in ("cpu", dev):
         xd, cd = x.to(d), [c.to(d) for c in cot]
-        base = he._position_hash(xd)
-        per_level = []
-        for lvl in range(L):
-            idx, src = he.level_corner_cotangents(xd, static, lvl, cd[0],
-                                                  cd[1:], 1.0)
-            choice, idx_k, _ = he.pick_corners(
-                idx, src, he._draws(base, lvl, 1), 1)
-            per_level.append((choice.cpu(), idx_k.cpu()))
-        picks.append(per_level)
+        _, choices = cbw.corner_backward(static, xd, cd[0], cd[1:], L,
+                                         (1.0,) * L, 1, 0, static.n_entries,
+                                         with_choices=True)
+        picks.append(choices.cpu())
         t = table.to(d).requires_grad_(True)
         f, j = he.make_encode_with_jacobian_cv(static, corner_samples=1)(
             t, xd)
         loss = (f * cd[0]).sum() + sum((jd * c).sum()
                                        for jd, c in zip(j, cd[1:]))
         grads.append(torch.autograd.grad(loss, t)[0].cpu())
-    differ = [int((a[0] != b[0]).sum()) for a, b in zip(*picks)]
-    touched = torch.zeros(static.n_entries, dtype=torch.bool)
-    for lvl, (_, idx_k) in enumerate(picks[0]):
-        touched[idx_k + int(static.offsets[lvl])] = True
+    differ = (picks[0] != picks[1]).flatten(1).sum(1).tolist()
+    touched = _touched(torch, static, x, picks[0])
     want, got = grads
     err = float((got - want).abs().max())
     tol = 1e-5 * (1.0 + float(want.abs().max()))
@@ -648,6 +675,19 @@ def check_stochastic_agreement(torch, dev, n: int = 1 << 16) -> None:
         raise AssertionError(f"picked corners differ on the card: {differ}")
     if not (err <= tol and zeros_kept):
         raise AssertionError("K=1 table gradients disagree card vs CPU")
+
+
+def _touched(torch, static, x, choices):
+    """(n_entries,) bool: the table rows that the (La, K, N) `choices` of
+    positions `x` pick (CPU tensors)."""
+    from rnb_neus2_torch.ops import hash_encoding as he
+
+    touched = torch.zeros(static.n_entries, dtype=torch.bool)
+    for lvl in range(choices.shape[0]):
+        idx = he._level_corner_arrays(x, static, lvl)[0]           # (N,8)
+        rows = idx.gather(1, choices[lvl].t().long())
+        touched[rows.flatten() + int(static.offsets[lvl])] = True
+    return touched
 
 
 def train(torch, kernels, dev, stoch: int, steps: int):
@@ -683,7 +723,8 @@ def train(torch, kernels, dev, stoch: int, steps: int):
                 levels=m["n_levels_run"], valid=m["n_valid_total"],
                 kept=m["n_samples_kept"])
     launches = {name: k.launches for name, k in kernels.items()}
-    want = _expected_launches([int(m["n_levels_run"]) for m in hist])
+    want = _expected_launches([int(m["n_levels_run"]) for m in hist],
+                              k=stoch)
     color = [m["loss_color"] for m in hist]
     totals = [m["loss_total"] for m in hist]
     L = tr.cfg.grid.n_levels
@@ -1003,6 +1044,217 @@ def main_path_inputs(torch, tr) -> list:
     return seen
 
 
+def encode_inputs(torch, tr) -> dict:
+    """The arguments that one more training step of `tr` hands the
+    training encode's two kernels' entry points (the first call of each:
+    on a `ParallelTrainer`, the first replica's), cloned with their
+    layout."""
+    from rnb_neus2_torch.kernels import corner_backward as cbw
+    from rnb_neus2_torch.kernels import encode_jacobian as ejac
+
+    seen = {}
+    real_f, real_b = ejac.encode_jacobian_into, cbw.corner_backward_into
+
+    def fwd(outs, table, positions, static, La, mask):
+        seen.setdefault("encode_jacobian", dict(
+            table=table.detach().clone(), positions=positions.clone(),
+            static=static, La=La, mask=tuple(mask)))
+        return real_f(outs, table, positions, static, La, mask)
+
+    def bwd(g_table, static, positions, g_out, g_jac, La, mask, k, salt,
+            choices=None):
+        seen.setdefault("corner_backward", dict(
+            static=static, positions=positions.clone(), g_out=g_out.clone(),
+            g_jac=[g.clone() for g in g_jac], La=La, mask=tuple(mask), k=k,
+            salt=salt, n_entries=g_table.shape[0]))
+        return real_b(g_table, static, positions, g_out, g_jac, La, mask, k,
+                      salt, choices)
+
+    ejac.encode_jacobian_into, cbw.corner_backward_into = fwd, bwd
+    try:
+        tr.train_step()
+    finally:
+        ejac.encode_jacobian_into, cbw.corner_backward_into = real_f, real_b
+    return seen
+
+
+def _gathered_sectors(torch, a) -> int:
+    """Distinct 32-byte sectors of the table that the forward's corner
+    rows cover, over its active levels: what its gather must read at the
+    least."""
+    from rnb_neus2_torch.ops import hash_encoding as he
+
+    static, F = a["static"], a["static"].cfg.n_features_per_level
+    sectors = []
+    for lvl in range(a["La"]):
+        idx = he._level_corner_arrays(a["positions"], static, lvl)[0]
+        sectors.append(torch.unique(
+            ((idx + int(static.offsets[lvl])) * (F * 4)) // 32))
+    return int(torch.unique(torch.cat(sectors)).numel())
+
+
+def encode_bounds(torch, name: str, a: dict) -> dict:
+    """`bound_ms` of one call of the training encode's kernel `name` on
+    the inputs `a` (`encode_inputs`): the larger of its bytes over
+    3.35 TB/s and its float32 operations over 67 TFLOP/s (bench_scatter's
+    rates). Forward: the positions and the four (N, L·F) outputs once,
+    and each distinct 32-byte sector of the gathered corner rows once
+    (hashed rows scatter, so a row costs a sector); operations ≈ 55 +
+    68·F per (sample, level). Backward: the positions and the active
+    levels' columns of the four cotangents once, the whole zeroed
+    (n_entries, F) gradient written once; operations ≈ 86 + 68·F + K·(20
+    + F) per (sample, level)."""
+    from rnb_neus2_torch.tools import bench_scatter as bench
+
+    static = a["static"]
+    n, La = a["positions"].shape[0], a["La"]
+    F, L = static.cfg.n_features_per_level, static.cfg.n_levels
+    if name == "encode_jacobian":
+        nbytes = n * 12 + 4 * n * L * F * 4 + 32 * _gathered_sectors(torch, a)
+        ops = n * La * (55 + 68 * F)
+    else:
+        k = a["k"]
+        nbytes = n * 12 + 4 * n * La * F * 4 + a["n_entries"] * F * 4
+        ops = n * La * (86 + 68 * F + k * (20 + F))
+    t_bytes, t_ops = nbytes / bench.HBM_BYTES_PER_S, ops / bench.FP32_FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes, "bound_ops": ops}
+
+
+def time_encode_kernels(torch, bench, dev, card, ins: dict,
+                        label: str) -> dict:
+    """Each training-encode kernel on its captured inputs `ins`
+    (`encode_inputs`): first held against its plain version on the card
+    (the forward bit for bit, the backward's picks equal and its gradient
+    within 1e-5 of the largest entry), then the allocating call
+    (`ms`, the main path's), the plain version (`plain_ms`) and the bound,
+    timed as phase 4 times. Raises on a mismatch."""
+    from rnb_neus2_torch.kernels import corner_backward as cbw
+    from rnb_neus2_torch.kernels import encode_jacobian as ejac
+
+    out = {}
+    a = ins["encode_jacobian"]
+    fargs = (a["table"], a["positions"], a["static"], a["La"], a["mask"])
+    got, want = ejac.encode_jacobian(*fargs), ejac.plain(*fargs)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                for g, w in zip(got, want))
+    out["encode_jacobian"] = {
+        "n": a["positions"].shape[0], "La": a["La"],
+        "bit_equal": equal, "max_abs_err": max(
+            float((g - w).abs().max()) for g, w in zip(got, want)),
+        "ms": bench.time_ms(lambda: ejac.encode_jacobian(*fargs)),
+        "plain_ms": bench.time_ms(lambda: ejac.plain(*fargs)),
+        "library_ms": None, **encode_bounds(torch, "encode_jacobian", a)}
+    b = ins["corner_backward"]
+    bargs = (b["static"], b["positions"], b["g_out"], b["g_jac"], b["La"],
+             b["mask"], b["k"], b["salt"], b["n_entries"])
+    got, gc = cbw.corner_backward(*bargs, with_choices=True)
+    want, wc = cbw.plain(*bargs, with_choices=True)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = 1e-5 * float(want.abs().max())
+    out["corner_backward"] = {
+        "n": b["positions"].shape[0], "La": b["La"], "k": b["k"],
+        "g_out_contiguous": b["g_out"].is_contiguous(),
+        "picks_differ": int((gc != wc).sum()), "max_abs_err": err,
+        "tol": tol, "rows_touched": int((want != 0).any(1).sum()),
+        "ms": bench.time_ms(lambda: cbw.corner_backward(*bargs)),
+        "plain_ms": bench.time_ms(lambda: cbw.plain(*bargs)),
+        "library_ms": None, **encode_bounds(torch, "corner_backward", b)}
+    for name, row in out.items():
+        log("encode_kernel_timing", kernel=name, inputs=label, card=card,
+            **row)
+    if not equal or out["corner_backward"]["picks_differ"] or not err <= tol:
+        raise AssertionError(f"the encode kernels disagree with their plain "
+                             f"versions on the {label} inputs: {out}")
+    return out
+
+
+def encode_kernels_phase(torch, bench, dev, card, n: int = 1 << 18
+                         ) -> dict:
+    """Phase 21: both training-encode kernels against their plain
+    versions at the default config (14 levels, F = 2) on n random
+    positions and cotangents: the forward bit for bit with the plain
+    version on the card (La = 1, 8, 14, and 14 with valid_level 9) and on
+    the CPU (La = 14); the backward's picks equal the CPU's at every level
+    for K = 1, 2 and salt 0, 3, its gradient within 1e-5 of the largest
+    entry, every row that no pick touches 0.0 in both. Returns the
+    largest abs errors and the phase's seconds."""
+    from rnb_neus2_torch.config import HashGridConfig
+    from rnb_neus2_torch.kernels import corner_backward as cbw
+    from rnb_neus2_torch.kernels import encode_jacobian as ejac
+    from rnb_neus2_torch.ops import hash_encoding as he
+
+    t0 = time.perf_counter()
+    static = he.HashGridStatic(HashGridConfig())
+    L = static.cfg.n_levels
+    gen = torch.Generator()
+    gen.manual_seed(21)
+    x = torch.rand(n, 3, generator=gen)
+    table = torch.randn(static.n_entries, 2, generator=gen) * 1e-2
+    cot = [torch.randn(n, static.cfg.output_dim, generator=gen)
+           for _ in range(4)]
+    xd, td, cd = x.to(dev), table.to(dev), [c.to(dev) for c in cot]
+    errs = {"encode_jacobian": 0.0, "corner_backward": 0.0}
+    failed = []
+    for La, valid in ((1, None), (8, None), (14, None), (14, 9)):
+        mask = he._level_mask(La, valid)
+        before = ejac.launches
+        got = ejac.encode_jacobian(td, xd, static, La, mask)
+        twins = [ejac.plain(td, xd, static, La, mask)]
+        if La == L and valid is None:
+            twins.append(ejac.plain(table, x, static, La, mask))
+        torch.cuda.synchronize()
+        equal = [all(torch.equal(g.cpu().view(torch.int32),
+                                 w.cpu().view(torch.int32))
+                     for g, w in zip(got, twin)) for twin in twins]
+        err = max(float((g - w).abs().max()) for g, w in zip(got, twins[0]))
+        errs["encode_jacobian"] = max(errs["encode_jacobian"], err)
+        row = {"La": La, "valid_level": valid, "n": n,
+               "bit_equal_card_twin": equal[0],
+               "bit_equal_cpu_twin": equal[1] if len(equal) > 1 else None,
+               "launches": ejac.launches - before, "max_abs_err": err}
+        log("encode_forward_vs_plain", **row)
+        if not all(equal) or row["launches"] != 1:
+            failed.append(row)
+    full = (1.0,) * L
+    for k in (1, 2):
+        for salt in (0, 3):
+            before = cbw.launches
+            got, choices = cbw.corner_backward(
+                static, xd, cd[0], cd[1:], L, full, k, salt,
+                static.n_entries, with_choices=True)
+            want, want_choices = cbw.plain(
+                static, x, cot[0], cot[1:], L, full, k, salt,
+                static.n_entries, with_choices=True)
+            got, choices = got.cpu(), choices.cpu()
+            touched = _touched(torch, static, x, want_choices)
+            err = float((got - want).abs().max())
+            tol = 1e-5 * float(want.abs().max())
+            errs["corner_backward"] = max(errs["corner_backward"], err)
+            row = {"k": k, "salt": salt, "n": n,
+                   "launches": cbw.launches - before,
+                   "picks_differ_per_level": (choices != want_choices)
+                   .flatten(1).sum(1).tolist(),
+                   "max_abs_err": err, "tol": tol,
+                   "touched_entries": int(touched.sum()),
+                   "untouched_exactly_zero": bool(
+                       not got[~touched].any() and not want[~touched].any())}
+            log("corner_backward_vs_plain", **row)
+            if (any(row["picks_differ_per_level"]) or not err <= tol
+                    or not row["untouched_exactly_zero"]
+                    or row["launches"] != 1):
+                failed.append(row)
+    seconds = time.perf_counter() - t0
+    log("encode_kernels", card=card, seconds=seconds, failed=failed,
+        max_abs_err=errs)
+    if failed:
+        raise AssertionError(f"the encode kernels disagree: {failed}")
+    return {"max_abs_err": errs, "seconds": seconds}
+
+
 def warp_repeats(torch, S, idx, v) -> dict:
     """Of the elements a kernel adds (index in [0, S), a non-zero value),
     the share whose row equals another's in its warp of 32 consecutive
@@ -1077,14 +1329,16 @@ def dry_metric_reads(argv) -> int:
 
 
 def check_trace(path: Path) -> dict:
-    """The Chrome trace of the CLI's --trace-steps: both kernels' CUDA
-    functions and the trainer's spans are in it."""
+    """The Chrome trace of the CLI's --trace-steps: the CUDA functions of
+    the kernels that its default path (K = 1) launches, the training
+    encode's forward and K-corner backward, and the trainer's spans are in
+    it."""
     trace = json.loads(path.read_text())
     events = trace["traceEvents"]
     names = {e.get("name", "") for e in events}
     kernels = [e for e in events if e.get("cat") == "kernel"]
     found = {k: sum(k in e.get("name", "") for e in kernels)
-             for k in ("hash_grad_small_kernel", "scatter_add_kernel")}
+             for k in ("encode_jacobian_kernel", "corner_backward_kernel")}
     spans = ("occupancy_refresh", "sample_and_march", "field_forward",
              "loss", "backward", "optimizer")
     row = {"trace_bytes": path.stat().st_size, "trace_events": len(events),
@@ -1324,6 +1578,7 @@ def pipeline_phase(torch, kernels, card) -> dict:
         pipeline.run_testbed = timed_stage
         for k, fn in counted.items():
             setattr(Trainer, k, fn)
+        forwards, undo_fwd = _record_forwards()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for k in kernels.values():
@@ -1340,11 +1595,14 @@ def pipeline_phase(torch, kernels, card) -> dict:
             pipeline.run_testbed = real_stage
             for k, fn in real.items():
                 setattr(Trainer, k, fn)
+            undo_fwd()
         total = time.perf_counter() - t0
         launches = {name: k.launches for name, k in kernels.items()}
         text = tee.buf.getvalue()
         n_steps = len(steps)
-        want = _expected_launches([n for _, n in steps])
+        # the step bodies' field calls and the mesh's normal chunks
+        want = _expected_launches([n for _, n in steps],
+                                  forwards=len(forwards))
         # steps whose chunk holds a smaller bucket than the step's own
         held = [s for s, n in steps if n < min(
             b for b in (4, 9, 14) if b >= HashGridConfig().valid_levels(s))]
@@ -1370,6 +1628,7 @@ def pipeline_phase(torch, kernels, card) -> dict:
             "steps_at_14_levels": sum(n == 14 for _, n in steps),
             "steps_held_below_their_bucket": held,
             "launches": launches, "launches_expected": want,
+            "encode_forwards": len(forwards),
             "stages": stages, "total_s": total,
             "ms_per_step_cli": _floats(r"\(([\d.]+) ms/step", text),
             "metric_reads": [int(v) for v in _floats(r"(\d+) metric reads",
@@ -1389,7 +1648,8 @@ def pipeline_phase(torch, kernels, card) -> dict:
             "scaled_albedos": len(list((root / "scaled").glob("*.png"))),
             "card": card}
     log("pipeline", **row)
-    if launches != want or launches["hash_grad_small"] != 2 * n_steps:
+    if (launches != want or launches["corner_backward"] != n_steps
+            or launches["encode_jacobian"] <= n_steps):
         raise AssertionError(f"kernel launches {launches} in {n_steps} "
                              f"steps; want {want}")
     if row["steps_at_14_levels"] == 0:
@@ -1676,17 +1936,45 @@ def _record_step_bodies(cls=None):
     return rec, lambda: setattr(cls, "_step_body", real)
 
 
-def _expected_launches(buckets, grid=None) -> dict:
+def _expected_launches(buckets, grid=None, k: int = 1,
+                       forwards: int | None = None) -> dict:
     """Each kernel's launches for step bodies at the given level buckets
-    (of `grid`, the default grid if None): `hash_grad_small` at the dense
-    levels of at most 2^15 entries (0-1 by default), `scatter_add` at
-    every other level the body runs."""
+    (of `grid`, the default grid if None) with K = `k` picked corners:
+    `encode_jacobian` once per training-encode forward (`forwards`; one
+    per body, the step's field call, if None); at K ≥ 1 `corner_backward`
+    once per body (all its levels in one launch) and neither exact-backward
+    kernel; at K = 0 `hash_grad_small` at the dense levels of at most
+    2^15 entries (0-1 by default) and `scatter_add` at every other level
+    the body runs."""
     from rnb_neus2_torch.config import HashGridConfig
     from rnb_neus2_torch.ops import hash_encoding as he
 
+    fwd = len(buckets) if forwards is None else forwards
+    if k:
+        return {"hash_grad_small": 0, "scatter_add": 0,
+                "encode_jacobian": fwd, "corner_backward": len(buckets)}
     static = he.HashGridStatic(grid or HashGridConfig())
     small = sum(len(he.levels_through_kernel(static, b)) for b in buckets)
-    return {"hash_grad_small": small, "scatter_add": sum(buckets) - small}
+    return {"hash_grad_small": small, "scatter_add": sum(buckets) - small,
+            "encode_jacobian": fwd, "corner_backward": 0}
+
+
+def _record_forwards():
+    """Patch `NeusField.sdf_and_grad`, the field's one way to the training
+    encode (the step's field call, the mesh's normals and colours, a
+    render), to count its calls: each is one training-encode forward.
+    Returns (calls, undo)."""
+    from rnb_neus2_torch.models.neus_field import NeusField
+
+    real = NeusField.__dict__["sdf_and_grad"]
+    calls = []
+
+    def counted(self, *a, **kw):
+        calls.append(1)
+        return real(self, *a, **kw)
+
+    NeusField.sdf_and_grad = counted
+    return calls, lambda: setattr(NeusField, "sdf_and_grad", real)
 
 
 def _to(x, dev, dtype=None):
@@ -1714,7 +2002,10 @@ def delta_card_vs_cpu(torch, seq, n_rays: int) -> dict:
     (~4e6) and cancel, so the card's and the CPU's rounding alone moved
     it by up to 5.6e-2 relative with the positions made equal (an H100
     80GB HBM3 at 700 W); float64 leaves only the implementations'
-    differences."""
+    differences. The training encode's forward kernel takes float32
+    only, so on the card its plain version stands in for it here (phase
+    21 holds the kernel bit for bit against that plain version)."""
+    from rnb_neus2_torch.kernels import encode_jacobian as ejac
     from rnb_neus2_torch.models import delta_network as dn
     from rnb_neus2_torch.train import dynamic
     from rnb_neus2_torch.train.sampler import draw_uniforms
@@ -1740,10 +2031,12 @@ def delta_card_vs_cpu(torch, seq, n_rays: int) -> dict:
         batch = _to(marched, dev, f64)
         t0 = time.perf_counter()
         dynamic.sample_ray_batch = lambda *a, **k: batch
+        kernel, ejac.encode_jacobian = ejac.encode_jacobian, ejac.plain
         try:
             loss, grads = twin.delta_grad(n_rays)
         finally:
             dynamic.sample_ray_batch = real
+            ejac.encode_jacobian = kernel
         out[name] = (float(loss), {k: v.cpu() for k, v in grads.items()},
                      time.perf_counter() - t0)
         del twin
@@ -1791,7 +2084,10 @@ def dynamic_phase(torch, kernels, dev, card) -> dict:
     bodies, undo = _record_step_bodies()
     rows = []
 
-    def run(name, fn, steps):
+    def run(name, fn, steps, forwards=None):
+        """`forwards`: the phase's training-encode forwards when they are
+        not one per step body (the delta steps' position-differentiable
+        field calls)."""
         for k in kernels.values():
             k.reset_launches()
         start = len(bodies)
@@ -1801,7 +2097,7 @@ def dynamic_phase(torch, kernels, dev, card) -> dict:
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
         launches = {n: k.launches for n, k in kernels.items()}
-        want = _expected_launches(bodies[start:])
+        want = _expected_launches(bodies[start:], forwards=forwards)
         row = {"phase": name, "steps": steps, "seconds": s,
                "ms_per_step": 1e3 * s / steps, "launches": launches,
                "launches_expected": want,
@@ -1817,8 +2113,13 @@ def dynamic_phase(torch, kernels, dev, card) -> dict:
         run("first_frame", seq.train_first_frame, DYN_FIRST)
         for k in (1, 2):
             ds = frame(k)
-            d = run(f"delta_{k}", lambda: seq.predict_movement(ds), DYN_DELTA)
-            if d["step_bodies"] or any(d["launches"].values()):
+            # one field call per delta step, through the forward kernel;
+            # the frozen table takes no gradient
+            d = run(f"delta_{k}", lambda: seq.predict_movement(ds), DYN_DELTA,
+                    forwards=DYN_DELTA)
+            if d["step_bodies"] or d["launches"] != {
+                    "hash_grad_small": 0, "scatter_add": 0,
+                    "encode_jacobian": DYN_DELTA, "corner_backward": 0}:
                 raise AssertionError("the delta phase ran a training step "
                                      "or launched a scatter kernel")
             delta = {key: v.detach().cpu() for key, v in seq.delta.items()}
@@ -1963,7 +2264,11 @@ def refine_phase(torch, kernels, tr, card) -> dict:
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
         launches = {n: k.launches for n, k in kernels.items()}
-        if any(launches.values()):
+        # one forward per step through the position-differentiable
+        # encode; the frozen field takes no table gradient
+        if launches != {"hash_grad_small": 0, "scatter_add": 0,
+                        "encode_jacobian": REFINE_STEPS,
+                        "corner_backward": 0}:
             raise AssertionError(f"refinement launched {launches}")
         return params, {"seconds": s, "ms_per_step": 1e3 * s / REFINE_STEPS,
                         "launches": launches,
@@ -2082,7 +2387,7 @@ def refine_phase(torch, kernels, tr, card) -> dict:
 
 def _train_counted(torch, kernels, tr, steps: int, label: str,
                    profile_steps: int = 8) -> dict:
-    """`steps` train_steps of `tr` with both kernels' launches counted per
+    """`steps` train_steps of `tr` with every kernel's launches counted per
     level bucket, then `profile_steps` more under the profiler (per-phase
     device ms). Raises on a non-finite loss, a rollback or a launch count
     that the buckets do not give."""
@@ -2100,7 +2405,7 @@ def _train_counted(torch, kernels, tr, steps: int, label: str,
     s = time.perf_counter() - t0
     launches = {n: k.launches for n, k in kernels.items()}
     want = _expected_launches([int(m["n_levels_run"]) for m in hist],
-                              tr.cfg.grid)
+                              tr.cfg.grid, tr.cfg.network.stoch_corner_bwd)
     peak = torch.cuda.max_memory_allocated()
     prof = profile_window(lambda n: [tr.train_step() for _ in range(n)],
                           profile_steps)
@@ -2312,7 +2617,7 @@ def options_phase(torch, kernels, dev, card, ds) -> dict:
 
 
 def _fit_counted(torch, kernels, label: str, fit) -> dict:
-    """`fit()` → (loss, extra dict), with both kernels' launches counted
+    """`fit()` → (loss, extra dict), with every kernel's launches counted
     and its seconds."""
     torch.cuda.synchronize()
     for k in kernels.values():
@@ -2337,10 +2642,13 @@ def extra_modes_phase(torch, kernels, dev, card, work: Path) -> dict:
     from rnb_neus2_torch.testing.synthetic import icosphere
 
     def per_step(grid, steps):
+        """The features-only encode: the exact backward's kernels per
+        level, no training-encode kernel."""
         static = he.HashGridStatic(grid)
         small = len(he.levels_through_kernel(static))
         return {"hash_grad_small": small * steps,
-                "scatter_add": (grid.n_levels - small) * steps}
+                "scatter_add": (grid.n_levels - small) * steps,
+                "encode_jacobian": 0, "corner_backward": 0}
 
     rows = {}
     H = W = 48
@@ -2358,7 +2666,8 @@ def extra_modes_phase(torch, kernels, dev, card, work: Path) -> dict:
     rows["image"] = _fit_counted(torch, kernels, "image", image)
     rows["image"]["launches_expected"] = {
         "hash_grad_small": 0,
-        "scatter_add": em.Hash2D().n_levels * EXTRA_STEPS["image"]}
+        "scatter_add": em.Hash2D().n_levels * EXTRA_STEPS["image"],
+        "encode_jacobian": 0, "corner_backward": 0}
     V, F = icosphere(0.3, (0.5, 0.5, 0.5), subdiv=2)
     sdf_grid = HashGridConfig(n_levels=4, top_resolution=64)
     fields = {}
@@ -2387,7 +2696,8 @@ def extra_modes_phase(torch, kernels, dev, card, work: Path) -> dict:
                                         sdf_takikawa)
     rows["sdf_takikawa"]["launches_expected"] = {
         "hash_grad_small": 0, "scatter_add":
-            rows["sdf_takikawa"]["octree_levels"] * EXTRA_STEPS["takikawa"]}
+            rows["sdf_takikawa"]["octree_levels"] * EXTRA_STEPS["takikawa"],
+        "encode_jacobian": 0, "corner_backward": 0}
     g = np.mgrid[0:24, 0:24, 0:24] / 24.0
     vol = np.exp(-(((g - 0.5) ** 2).sum(0)) / 0.05).astype(np.float32)
     vol_grid = HashGridConfig(n_levels=4, top_resolution=32)
@@ -2493,8 +2803,8 @@ def _parallel_run(torch, kernels, tr, label: str) -> dict:
     total = time.perf_counter() - t0
     steps = tr.step
     launches = {n: k.launches for n, k in kernels.items()}
-    want = {n: n_rep * c
-            for n, c in _expected_launches(rec, tr.cfg.grid).items()}
+    want = {n: n_rep * c for n, c in _expected_launches(
+        rec, tr.cfg.grid, tr.cfg.network.stoch_corner_bwd).items()}
     peak = torch.cuda.max_memory_allocated()
     prof = profile_window(lambda n: [tr.train_step() for _ in range(n)], 8)
     last = reads[-6:]
@@ -2525,8 +2835,8 @@ def _parallel_run(torch, kernels, tr, label: str) -> dict:
 
 def parallel_phase(torch, bench, kernels, dev, card) -> dict:
     """Phase 18: two replicas on the card at full width against a single
-    `Trainer`, both kernels on the first replica's inputs, a forced
-    rollback of both replicas."""
+    `Trainer`, the training encode's kernels on the first replica's
+    inputs, a forced rollback of both replicas."""
     from rnb_neus2_torch.config import TestbedConfig
     from rnb_neus2_torch.parallel import ParallelTrainer
     from rnb_neus2_torch.testing.synthetic import sphere_dataset
@@ -2551,13 +2861,10 @@ def parallel_phase(torch, bench, kernels, dev, card) -> dict:
     if not gap < spread:
         raise AssertionError("the two replicas' loss does not track the "
                              "single trainer's")
-    # both kernels on the first replica's backward inputs of one more step
-    seen = main_path_inputs(torch, tr)
-    first = seen[:len(seen) // tr.n_dev]
-    timed = {name: time_inputs(torch, bench, name, mod, dev, card,
-                               [c[1:] for c in first if c[0] == name],
-                               main_path=True)
-             for name, mod in kernels.items()}
+    # the training encode's kernels on the first replica's inputs of one
+    # more step
+    timed = time_encode_kernels(torch, bench, dev, card,
+                                encode_inputs(torch, tr), "parallel")
     # a forced rollback: both replicas' parameters scaled, then a NaN read
     good = tr._good
     with torch.no_grad():
@@ -2989,6 +3296,7 @@ def jp2_scene_phase(torch, kernels, root: Path, png) -> dict:
         raise AssertionError(f"prepared JPEG 2000 / Group 4 scene: {cmp}")
 
     buckets, undo = _record_step_bodies()
+    forwards, undo_fwd = _record_forwards()
     for k in kernels.values():
         k.reset_launches()
     torch.cuda.synchronize()
@@ -3000,9 +3308,10 @@ def jp2_scene_phase(torch, kernels, root: Path, png) -> dict:
         torch.cuda.synchronize()
     finally:
         undo()
+        undo_fwd()
     total = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
-    want = _expected_launches(buckets)
+    want = _expected_launches(buckets, forwards=len(forwards))
     with open(root / "jp2_out" / "prepared_data" / "transform.json") as f:
         voxel = 2.0 / JP2_MESH_RES * json.load(f)["n2w"][0][0]
     V, F = load_obj(mesh_path)
@@ -3111,6 +3420,7 @@ def committed_scene_phase(torch, kernels, root: Path, png, scene: Path,
         raise AssertionError(f"prepared {tag} scene: {cmp}")
 
     buckets, undo = _record_step_bodies()
+    forwards, undo_fwd = _record_forwards()
     for k in kernels.values():
         k.reset_launches()
     torch.cuda.synchronize()
@@ -3122,9 +3432,10 @@ def committed_scene_phase(torch, kernels, root: Path, png, scene: Path,
         torch.cuda.synchronize()
     finally:
         undo()
+        undo_fwd()
     total = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
-    want = _expected_launches(buckets)
+    want = _expected_launches(buckets, forwards=len(forwards))
     with open(root / f"{tag}_out" / "prepared_data" / "transform.json") as f:
         voxel = 2.0 / AVIF_MESH_RES * json.load(f)["n2w"][0][0]
     V, F = load_obj(mesh_path)
@@ -3204,6 +3515,7 @@ def formats_phase(torch, kernels, card) -> dict:
 
         normals, albedos, masks, r_world = scenes["exr"]
         buckets, undo = _record_step_bodies()
+        forwards, undo_fwd = _record_forwards()
         for k in kernels.values():
             k.reset_launches()
         torch.cuda.synchronize()
@@ -3216,9 +3528,10 @@ def formats_phase(torch, kernels, card) -> dict:
             torch.cuda.synchronize()
         finally:
             undo()
+            undo_fwd()
         total = time.perf_counter() - t0
         launches = {name: k.launches for name, k in kernels.items()}
-        want = _expected_launches(buckets)
+        want = _expected_launches(buckets, forwards=len(forwards))
         with open(root / "out" / "prepared_data" / "transform.json") as f:
             voxel = 2.0 / 512 * json.load(f)["n2w"][0][0]
         V, F = load_obj(mesh_path)
@@ -3426,16 +3739,21 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from rnb_neus2_torch.device import resolve_device
     from rnb_neus2_torch.kernels import build
+    from rnb_neus2_torch.kernels import corner_backward as cbw
+    from rnb_neus2_torch.kernels import encode_jacobian as ejac
     from rnb_neus2_torch.kernels import hash_grad_small as hgs
     from rnb_neus2_torch.kernels import scatter_add as sca
     from rnb_neus2_torch.io import native, png, raycast
+    from rnb_neus2_torch.ops import hash_encoding as he
     from rnb_neus2_torch.tools import bench_scatter as bench
     av1 = types.SimpleNamespace(_library=native._av1_library,
                                 LIBRARY=native.AV1_LIBRARY)
     scale = types.SimpleNamespace(_library=native._scale_library,
                                   LIBRARY=native.SCALE_LIBRARY)
 
-    kernels = {"hash_grad_small": hgs, "scatter_add": sca}
+    kernels = {"hash_grad_small": hgs, "scatter_add": sca,
+               "encode_jacobian": ejac, "corner_backward": cbw}
+    scatters = ("hash_grad_small", "scatter_add")
     card = bench.card_name_and_power()
     print(card, flush=True)
     dev = resolve_device("cuda")
@@ -3443,7 +3761,8 @@ def main() -> int:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
 
-    build_all(build, [hgs, sca, raycast, png, native, av1, scale])
+    build_all(build, [hgs, sca, ejac, cbw, raycast, png, native, av1,
+                      scale])
     errs = check_kernels_vs_plain(torch, bench, kernels, dev)
     for name, sizes in (("hash_grad_small", (4096, 13824)),
                         ("scatter_add", (39304, 125000, 373248, 1 << 19))):
@@ -3458,18 +3777,30 @@ def main() -> int:
     if summary["final_steps_at_all_levels"] < FULL_LEVEL_STEPS:
         raise AssertionError("too few final steps ran all 14 levels")
     exact, tr_exact = train(torch, kernels, dev, 0, EXACT_STEPS)
-    # phase 4 again, on the inputs of the trained fields' next steps
-    inputs = {"K=1": main_path_inputs(torch, tr),
-              "exact": main_path_inputs(torch, tr_exact)}
-    for lvl, case in enumerate(inputs["K=1"]):
-        exact_case = (inputs["exact"][lvl] if lvl < len(inputs["exact"])
-                      else None)
-        log("warp_repeats", level=lvl, kernel=case[0], S=case[1],
-            **{"K=1": warp_repeats(torch, *case[1:]),
-               "exact": exact_case and warp_repeats(torch, *exact_case[1:])})
+    # phase 21: the training encode's kernels against their plain versions
+    encode_phase = encode_kernels_phase(torch, bench, dev, card)
+    # phase 4 again, on the inputs of the trained fields' next steps: the
+    # training encode's kernels on the K = 1 step's, the exact backward's
+    # on the exact step's, level by level
+    enc_in = encode_inputs(torch, tr)
+    enc_timed = time_encode_kernels(torch, bench, dev, card, enc_in, "K=1")
+    exact_in = main_path_inputs(torch, tr_exact)
+    b = enc_in["corner_backward"]
+    base = he._position_hash(b["positions"])
+    for lvl in range(b["La"]):
+        # the K = 1 picks that the backward kernel adds, as elements
+        _, idx, v = cbw.level_picks(b["static"], b["positions"], b["g_out"],
+                                    b["g_jac"], lvl, b["mask"][lvl], b["k"],
+                                    b["salt"] * b["La"] + lvl, base)
+        S = int(b["static"].table_sizes[lvl])
+        exact_case = exact_in[lvl] if lvl < len(exact_in) else None
+        log("warp_repeats", level=lvl, kernel=exact_case and exact_case[0],
+            S=S, **{"K=1": warp_repeats(torch, S, idx, v),
+                    "exact": exact_case and warp_repeats(
+                        torch, *exact_case[1:])})
     fixed = {}
-    for name, S, idx, v in (next(c for c in inputs["K=1"] if c[0] == k)
-                            for k in kernels):
+    for name, S, idx, v in (next(c for c in exact_in if c[0] == k)
+                            for k in scatters):
         out = torch.zeros(S, v.shape[1], device=dev)
         zeros = torch.zeros_like(v)
         fixed[name] = bench.time_ms(
@@ -3477,22 +3808,22 @@ def main() -> int:
         log("fixed_cost", kernel=name, S=S, n=idx.numel(), card=card,
             ms_into_zero_values=fixed[name])
     rows = []
-    for name, mod in kernels.items():
-        per_path = {
-            path: time_inputs(torch, bench, name, mod, dev, card,
-                              [c[1:] for c in cases if c[0] == name],
-                              main_path=True)
-            for path, cases in inputs.items()}
-        t = per_path["K=1"]
+    for name in scatters:
+        mod = kernels[name]
+        # the exact backward is these kernels' path since the K-corner
+        # backward became one kernel
+        t = time_inputs(torch, bench, name, mod, dev, card,
+                        [c[1:] for c in exact_in if c[0] == name],
+                        main_path=True)
         rows.append({
             "name": name,
             "route": "cuda",
             "source": f"rnb_neus2_torch/csrc/{mod.SOURCE}",
             "replaces": list(mod.REPLACES),
-            "launches": summary["launches"][name],
-            "launches_exact_path": exact["launches"][name],
-            "max_abs_err": max(errs[name], t["max_abs_err"],
-                               per_path["exact"]["max_abs_err"]),
+            "path": "exact backward (stoch_corner_bwd=0)",
+            "launches": exact["launches"][name],
+            "launches_default_path": summary["launches"][name],
+            "max_abs_err": max(errs[name], t["max_abs_err"]),
             "ms": t["ms"],
             "ms_into": t["ms_into"],
             "ms_into_scatter_add": t.get("ms_into_scatter_add"),
@@ -3502,17 +3833,34 @@ def main() -> int:
             "bound_into_ms": t["bound_into_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            "exact_path": {k: per_path["exact"].get(k) for k in (
-                "ms", "ms_into", "ms_into_scatter_add", "plain_ms",
-                "bound_ms", "bound_into_ms", "library_ms")},
         })
+    for name in ("encode_jacobian", "corner_backward"):
+        mod, t = kernels[name], enc_timed[name]
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"rnb_neus2_torch/csrc/{mod.SOURCE}",
+            "replaces": list(mod.REPLACES),
+            "path": "default (stoch_corner_bwd=1)",
+            "launches": summary["launches"][name],
+            "launches_exact_path": exact["launches"][name],
+            "max_abs_err": max(encode_phase["max_abs_err"][name],
+                               t["max_abs_err"]),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "bound_bytes": t["bound_bytes"],
+            "library_ms": None,
+        })
+    del enc_in, exact_in
     forced_rollback(torch, tr)
     mesh_export(torch, tr, card)
     chamfer_protocol(torch, dev, card)
     host_syncs(torch, tr)
     render_phase(torch, tr, card)
     refined = refine_phase(torch, kernels, tr, card)
-    del tr, tr_exact, inputs
+    del tr, tr_exact
     torch.cuda.empty_cache()
     # phase 11's scene, snapshot and mesh stay for phase 20
     work11 = tempfile.TemporaryDirectory()
@@ -3544,7 +3892,6 @@ def main() -> int:
                                    for k, r in opts.items()}
         row["launches_extra_modes"] = {
             k: r["launches"][row["name"]] for k, r in extra["fits"].items()}
-        t = par["kernels"][row["name"]]
         row["launches_parallel"] = par["launches"][row["name"]]
         row["launches_formats"] = fmts["launches"][row["name"]]
         row["launches_formats_jp2"] = \
@@ -3563,10 +3910,11 @@ def main() -> int:
             final["train_api"]["launches"][row["name"]]
         row["formats_steps"] = fmts["step_bodies"]
         row["parallel_steps"] = par["steps"]
-        row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
-        row["parallel_path"] = {k: t.get(k) for k in (
-            "ms", "ms_into", "ms_into_scatter_add", "plain_ms", "bound_ms",
-            "bound_into_ms", "library_ms", "max_abs_err")}
+        t = par["kernels"].get(row["name"])
+        if t:
+            row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
+            row["parallel_path"] = {k: t.get(k) for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
     log("done", card=card, total_s=time.perf_counter() - T0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

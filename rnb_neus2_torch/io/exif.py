@@ -1,5 +1,6 @@
 """EXIF orientation, as cv2.imread applies it under IMREAD_COLOR and
-IMREAD_GRAYSCALE (JPEG APP1 "Exif" segments, PNG eXIf chunks)."""
+IMREAD_GRAYSCALE (JPEG APP1 "Exif" segments, PNG eXIf chunks, WebP EXIF
+chunks)."""
 
 from __future__ import annotations
 

@@ -135,9 +135,9 @@ def read_raw(path) -> np.ndarray:
 
 def color_shape(path):
     """(H, W) of `cv2.imread(path)` (IMREAD_COLOR): an EXIF orientation of
-    5-8 swaps them."""
+    5-8 swaps them (PNG, JPEG, WebP)."""
     reader = _reader(path)
-    if reader in (png.read_png, jpeg.read_jpeg):
+    if reader in (png.read_png, jpeg.read_jpeg, webp.read_webp):
         return read_image(path, "color").shape[:2]
     return read_image(path).shape[:2]
 

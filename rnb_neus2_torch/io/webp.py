@@ -25,6 +25,12 @@ header's alpha bit; a VP8X alpha flag or an ALPH chunk), else BGR;
 file (VP8X with ANIM and ANMF chunks) cv2 returns the first frame as
 libwebp's animation decoder gives it: the frame at its offset on a
 canvas of transparent black, with alpha where the VP8X flag says so.
+
+"color" and "grey" apply the EXIF orientation, as cv2 5 does: the first
+`EXIF` chunk of a VP8X file whose EXIF flag (0x08) is set, still or
+animated, read as a TIFF-structured blob (one that starts with
+"Exif\\0\\0" carries none); a chunk without the flag, or in a file
+without VP8X, is not read. "unchanged" never applies it.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import native
+from . import exif, native
 from .errors import unreadable
 from .jpeg import cvt_grey
 
@@ -269,15 +275,27 @@ def _chunks(blob: bytes, pos: int, end: int, path) -> list:
     return out
 
 
+def _orientation(vp8x: bytes, chunks) -> int:
+    """The EXIF orientation of a VP8X file: its first `EXIF` chunk's,
+    read only where the VP8X flag announces it (libwebp's demuxer keeps
+    the chunk only then); 1 otherwise."""
+    if vp8x[0] & 0x08:
+        for tag, body in chunks:
+            if tag == b"EXIF":
+                return exif.orientation(body)
+    return 1
+
+
 def _decode(blob: bytes, path):
-    """→ (RGB(A) uint8 image, has_alpha as libwebp reports it)."""
+    """→ (RGB(A) uint8 image, has_alpha as libwebp reports it, EXIF
+    orientation)."""
     riff = struct.unpack_from("<I", blob, 4)[0] if len(blob) >= 12 else 0
     if riff < 12 or riff > len(blob) - 8:
         unreadable(path, "WebP RIFF size past the end of the file")
     chunks = _chunks(blob, 12, 8 + riff, path)
     if not chunks:
         unreadable(path, "WebP file without chunks")
-    canvas, alpha_flag = None, False
+    canvas, alpha_flag, orientation = None, False, 1
     if chunks[0][0] == b"VP8X":
         body = chunks[0][1]
         if len(body) < 10:
@@ -285,10 +303,12 @@ def _decode(blob: bytes, path):
         alpha_flag = bool(body[0] & 0x10)
         canvas = (int.from_bytes(body[4:7], "little") + 1,
                   int.from_bytes(body[7:10], "little") + 1)
+        orientation = _orientation(body, chunks[1:])
         if body[0] & 0x02:
-            return _first_frame(chunks[1:], canvas, path), alpha_flag
+            return (_first_frame(chunks[1:], canvas, path), alpha_flag,
+                    orientation)
         chunks = chunks[1:]
-    return _still(chunks, canvas, alpha_flag, path)
+    return _still(chunks, canvas, alpha_flag, path) + (orientation,)
 
 
 def _first_frame(chunks, canvas, path) -> np.ndarray:
@@ -346,12 +366,11 @@ def read_webp(path, mode: str = "unchanged") -> np.ndarray:
     """A WebP as cv2.imread reads it, RGB(A) order (see the module)."""
     if mode not in ("unchanged", "color", "grey"):
         raise ValueError(f"unknown read mode {mode!r}")
-    rgba, has_alpha = _decode(Path(path).read_bytes(), path)
-    if mode == "grey":
-        return cvt_grey(rgba)
-    if mode == "unchanged" and has_alpha:
-        return rgba
-    return np.ascontiguousarray(rgba[..., :3])
+    rgba, has_alpha, orientation = _decode(Path(path).read_bytes(), path)
+    if mode == "unchanged":
+        return rgba if has_alpha else np.ascontiguousarray(rgba[..., :3])
+    img = cvt_grey(rgba) if mode == "grey" else rgba[..., :3]
+    return exif.orient(img, orientation)
 
 
 # ---------------------------------------------------------------- writing

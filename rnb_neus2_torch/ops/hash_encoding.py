@@ -8,26 +8,33 @@ Semantics match the reference's tiny-cuda-nn fork (grid.h):
   the fraction (common_device.h:416-424);
 - dense indexing (x + y·res + z·res²) for levels whose padded dense size fits
   the table, else the spatial hash x ^ (y·2654435761) ^ (z·805459861) mod 2^T
-  in uint32 arithmetic (grid.h:113-148), emulated here in int64 masked to
-  32 bits so that the indices equal the JAX package's bit for bit;
+  in uint32 arithmetic (grid.h:113-148), emulated in int64 masked to 32
+  bits (`kernels/hash_corners.py`) so that the indices equal the JAX
+  package's bit for bit;
 - per-level tables concatenated with offsets (grid.h:973-1005);
 - progressive level unlocking zeroes features of locked levels
   (grid.h:254-260); `n_active` statically skips levels that are locked for
   the whole call.
 
 `make_encode_with_jacobian_cv` is the training encode: features and their
-analytic position-jacobian from one gather, with a hand-written backward
-that scatters either the exact 8-corner table gradient or, with
-`corner_samples` = K > 0 (the default K = 1), K corners per sample drawn
-in proportion to the magnitude of their cotangent (`pick_corners`, with
-the position-hash draws of `_hash_uniforms`, bit for bit the JAX
-package's). Small dense levels (≤ 2^15 entries) scatter through the CUDA
-kernel of `kernels/hash_grad_small.py`; every other level through the
-global-atomics kernel of `kernels/scatter_add.py`. Both add in place into
-the level's rows of the one zeroed table gradient.
+analytic position-jacobian from one gather (on the card one launch of the
+CUDA kernel of `kernels/encode_jacobian.py` over every active level),
+with a hand-written backward that scatters either the exact 8-corner
+table gradient or, with `corner_samples` = K > 0 (the default K = 1), K
+corners per sample drawn in proportion to the magnitude of their
+cotangent (`pick_corners`, with the position-hash draws of
+`_hash_uniforms`, bit for bit the JAX package's). The K-corner backward
+is one launch of the CUDA kernel of `kernels/corner_backward.py` over
+every active level. In the exact backward small dense levels (≤ 2^15
+entries) scatter through the CUDA kernel of `kernels/hash_grad_small.py`
+and every other level through the global-atomics kernel of
+`kernels/scatter_add.py`. All of them add in place into the level's rows
+of the one zeroed table gradient. The corner arithmetic that the plain
+versions and the kernels share is `kernels/hash_corners.py`.
 
 `encode_with_jacobian` is the position-differentiable encode, for rays
-whose geometry is trainable: the same outputs at all levels, the exact
+whose geometry is trainable: the same outputs at all levels (the same
+forward kernel), the exact
 table gradient, and the positions' cotangent (`position_cotangent`: the
 first- and second-order terms of the trilinear weights).
 
@@ -52,65 +59,18 @@ import numpy as np
 import torch
 
 from ..config import HashGridConfig
-from ..kernels import hash_grad_small, scatter_add
+from ..kernels import (corner_backward, encode_jacobian, hash_grad_small,
+                       scatter_add)
+# the corner arithmetic; the draws, the hash and the pick are here under
+# the names their callers use
+from ..kernels.hash_corners import (  # noqa: F401
+    CORNERS, _corner_indices, _corner_sum, _draws, _hash_uniforms,
+    _level_corner_arrays, _level_factors, _position_hash,
+    level_corner_cotangents, pick_corners)
 
-PRIMES = (1, 2654435761, 805459861)
-MASK32 = 0xFFFFFFFF
 # dense levels up to this many entries take the shared-memory kernel (the
 # JAX package's _MXU_MAX_ENTRIES)
 SMALL_LEVEL_MAX_ENTRIES = 1 << 15
-
-# 8 corner offsets of the unit cube, ordered (z, y, x) minor→major like a
-# 3-bit counter — the JAX package's order
-CORNERS = np.array([[i & 1, (i >> 1) & 1, (i >> 2) & 1] for i in range(8)],
-                   np.int64)
-
-
-@functools.lru_cache(maxsize=None)
-def _corners(device: torch.device) -> torch.Tensor:
-    """CORNERS on `device`, copied there once: a copy from host memory on
-    every level of every step would make the host wait for it."""
-    return torch.as_tensor(CORNERS, device=device)
-
-
-def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
-    """a·b mod 2^32 for int64 `a` in [0, 2^32) and a constant b < 2^32.
-
-    A full 32-bit product reaches 2^64 and overflows int64, so b is taken
-    in 16-bit halves: each partial product stays below 2^48."""
-    return (a * (b & 0xFFFF) + (((a * (b >> 16)) & MASK32) << 16)) & MASK32
-
-
-def _position_hash(positions: torch.Tensor) -> torch.Tensor:
-    """The draws' salt-free uint32 mix (as int64) of the float32 bit
-    patterns of the (N, 3) positions."""
-    bits = [positions[:, d].contiguous().view(torch.int32).long() & MASK32
-            for d in range(3)]
-    return (_mul32(bits[0], 0x9E3779B1) ^ _mul32(bits[1], 0x85EBCA77)
-            ^ _mul32(bits[2], 0xC2B2AE3D))
-
-
-def _draws(base: torch.Tensor, salt: int, k: int) -> list:
-    """The k uniforms of stream `salt` from `_position_hash`'s mix."""
-    us = []
-    for j in range(k):
-        h = (base + ((0x27D4EB2F * (salt * k + j + 1)) & MASK32)) & MASK32
-        h = _mul32(h ^ (h >> 15), 0x2C1B3C6D)
-        h = _mul32(h ^ (h >> 12), 0x297A2D39)
-        h = h ^ (h >> 15)
-        # below 2^24: exact in float32
-        us.append((h >> 8).float() * (1.0 / (1 << 24)))
-    return us
-
-
-def _hash_uniforms(positions: torch.Tensor, salt: int, k: int) -> list:
-    """k per-sample float32 uniforms in [0, 1) from the position bit
-    patterns (a murmur-style uint32 mix), bit for bit the JAX package's
-    `_hash_uniforms`: the backward has no generator input, and fresh
-    random ray samples every step decorrelate the draws across steps;
-    `salt` selects an independent stream."""
-    return _draws(_position_hash(positions), salt, k)
-
 
 class HashGridStatic:
     """Precomputed static tables for a HashGridConfig (host-side)."""
@@ -141,55 +101,6 @@ def init_table(cfg: HashGridConfig, generator: torch.Generator | None = None,
     return u * 2e-4 - 1e-4
 
 
-def _corner_indices(pos_grid: torch.Tensor, res: int, table_size: int,
-                    hashed: bool) -> torch.Tensor:
-    """Table index (int64) for integer lattice corners (..., 3)."""
-    x, y, z = pos_grid[..., 0], pos_grid[..., 1], pos_grid[..., 2]
-    if hashed:
-        # uint32 wraparound arithmetic in int64: each product is masked
-        # back to 32 bits (grid.h:113-130)
-        h = ((x & MASK32) ^ ((y * PRIMES[1]) & MASK32)
-             ^ ((z * PRIMES[2]) & MASK32))
-        return h % table_size
-    # dense linear index, x fastest (grid.h:132-141)
-    return (x + y * res + z * res * res) % table_size
-
-
-def _level_factors(positions: torch.Tensor, static: HashGridStatic,
-                   lvl: int):
-    """(idx (N,8) int64, wd (N,8,3), sd (1,8,3), scale) for one level: each
-    corner's table index, its per-axis weight factors (frac or 1 − frac)
-    and their signs d wd/d frac (±1)."""
-    scale = float(static.scales[lvl])
-    corners = _corners(positions.device)                            # (8,3)
-    p = positions * scale + 0.5
-    p0 = torch.floor(p)
-    fr = p - p0
-    cpos = p0.long()[:, None, :] + corners[None]                    # (N,8,3)
-    idx = _corner_indices(cpos, int(static.resolutions[lvl]),
-                          int(static.table_sizes[lvl]),
-                          bool(static.hashed[lvl]))
-    on = corners[None] > 0
-    wd = torch.where(on, fr[:, None, :], 1.0 - fr[:, None, :])      # (N,8,3)
-    sd = torch.where(on, 1.0, -1.0).to(fr.dtype)                    # (1,8,3)
-    return idx, wd, sd, scale
-
-
-def _level_corner_arrays(positions: torch.Tensor, static: HashGridStatic,
-                         lvl: int):
-    """(idx (N,8) int64, w (N,8), dw (N,8,3), scale) for one level.
-
-    w is the trilinear weight of each corner and dw[..., d] its derivative
-    wrt the lattice fraction along d, products taken in the JAX package's
-    order."""
-    idx, wd, sd, scale = _level_factors(positions, static, lvl)
-    wx, wy, wz = wd[..., 0], wd[..., 1], wd[..., 2]
-    w = wx * wy * wz
-    dw = torch.stack([sd[..., 0] * (wy * wz), sd[..., 1] * (wx * wz),
-                      sd[..., 2] * (wx * wy)], dim=-1)
-    return idx, w, dw, scale
-
-
 def _level_mask(n_levels: int, valid_level: int | None) -> list:
     if valid_level is None:
         return [1.0] * n_levels
@@ -199,17 +110,6 @@ def _level_mask(n_levels: int, valid_level: int | None) -> list:
 def _active(static: HashGridStatic, n_active: int | None) -> int:
     L = static.cfg.n_levels
     return min(L, n_active) if n_active else L
-
-
-def _corner_sum(w: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
-    """Σ_c w[:, c]·feats[:, c] (N, F), summed corner by corner in the JAX
-    package's order: the jacobian columns carry the lattice scale (up to
-    2048) and cancel across corners, so the order shows in the last
-    bits."""
-    acc = w[:, 0, None] * feats[:, 0]
-    for c in range(1, 8):
-        acc = acc + w[:, c, None] * feats[:, c]
-    return acc
 
 
 def encode_columns(table: torch.Tensor, positions: torch.Tensor,
@@ -237,26 +137,6 @@ def encode_columns(table: torch.Tensor, positions: torch.Tensor,
     return torch.cat(cols, dim=1)
 
 
-def _encode_jac_forward(table, positions, static, La, mask):
-    cfg = static.cfg
-    L, F = cfg.n_levels, cfg.n_features_per_level
-    n = positions.shape[0]
-    outs, jacs = [], [[], [], []]
-    for lvl in range(La):
-        idx, w, dw, scale = _level_corner_arrays(positions, static, lvl)
-        feats = table[idx + int(static.offsets[lvl])]               # (N,8,F)
-        m = mask[lvl]
-        outs.append(_corner_sum(w, feats) * m)
-        for d in range(3):
-            jacs[d].append(_corner_sum(dw[..., d], feats) * (scale * m))
-    if La < L:
-        z = positions.new_zeros(n, (L - La) * F)
-        outs.append(z)
-        for d in range(3):
-            jacs[d].append(z)
-    return (torch.cat(outs, 1),) + tuple(torch.cat(j, 1) for j in jacs)
-
-
 def level_table_grad(static: HashGridStatic, lvl: int, idx: torch.Tensor,
                      src: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """Add one level's table gradient from (n,) element indices and (n, F)
@@ -267,59 +147,6 @@ def level_table_grad(static: HashGridStatic, lvl: int, idx: torch.Tensor,
     if static.uses_small_kernel(lvl):
         return hash_grad_small.grad_small_into(out, idx, src)
     return scatter_add.scatter_add_into(out, idx, src)
-
-
-def level_corner_cotangents(positions: torch.Tensor, static: HashGridStatic,
-                            lvl: int, g_out: torch.Tensor, g_jac, m: float):
-    """(idx (N, 8) int64, src (N, 8, F)) of one level: each corner's table
-    index and its cotangent src_c = w_c·g_out + Σ_d dw_{c,d}·g_jac_d (the
-    jacobian cotangents scaled by the lattice scale), in the JAX package's
-    order of operations; `m` is the level's unlock mask. g_jac None: the
-    features-only encode, src_c = w_c·g_out."""
-    F = static.cfg.n_features_per_level
-    idx, w, dw, scale = _level_corner_arrays(positions, static, lvl)
-    sl = slice(lvl * F, (lvl + 1) * F)
-    go = g_out[:, sl] * m
-    src = w[..., None] * go[:, None, :]                             # (N,8,F)
-    for d in range(3 if g_jac is not None else 0):
-        gj = g_jac[d][:, sl] * (scale * m)
-        src = src + dw[..., d, None] * gj[:, None, :]
-    return idx, src
-
-
-def pick_corners(idx: torch.Tensor, src: torch.Tensor, us: Sequence,
-                 k: int):
-    """The stochastic K-corner draw of one level (the "stoch" branch of
-    the JAX package's `enc_bwd`): per sample and uniform u, corner
-    choice = #{c < 7 : u ≥ cdf_c} over p_c ∝ Σ_f |src_c[f]|, its value
-    scaled by 1/(K·p_choice) — an unbiased estimator of the 8-corner
-    scatter with every value bounded by ‖src‖₁/K.
-
-    idx (N, 8), src (N, 8, F), `us` k uniforms (N,) → (choice (k, N),
-    element indices (k·N,), values (k·N, F)), draw-major as in JAX. Sums
-    run corner by corner in JAX's order, with no fused multiply-add: an
-    ulp in the CDF flips a pick near a boundary."""
-    n, _, F = src.shape
-    a = src.abs()
-    mags = a[..., 0]
-    for f in range(1, F):
-        mags = mags + a[..., f]
-    mags = mags + 1e-20                                             # (N,8)
-    total = mags[:, 0]
-    for c in range(1, 8):
-        total = total + mags[:, c]
-    ps = mags * (1.0 / total)[:, None]
-    cdf = [ps[:, 0]]
-    for c in range(1, 7):
-        cdf.append(cdf[-1] + ps[:, c])
-    u = torch.stack(list(us))                                       # (k,N)
-    choice = (u[..., None] >= torch.stack(cdf, 1)[None]).sum(-1)    # (k,N)
-    pick = choice.t()                                               # (N,k)
-    idx_k = idx.gather(1, pick).t()
-    p_k = ps.gather(1, pick).t()
-    s_k = src.gather(1, pick[..., None].expand(n, k, F)).transpose(0, 1)
-    inv = 1.0 / (k * p_k)
-    return choice, idx_k.reshape(-1), (s_k * inv[..., None]).reshape(-1, F)
 
 
 # the off-diagonal pairs (e, d) of the weights' second derivative; output
@@ -391,12 +218,13 @@ def position_cotangent(table: torch.Tensor, positions: torch.Tensor,
 
 
 class _EncodeWithJacobian(torch.autograd.Function):
-    """The training encode's custom backward (the reference's
-    kernel_grid_backward_grid, grid.h:~400): for every corner c of every
-    sample, src_c = w_c·g_out + Σ_d dw_{c,d}·g_jac_d (scaled by the level's
-    lattice scale), scattered into the table: all 8 corners (K = 0), or K
-    corners drawn per sample (`pick_corners`) from the stream
-    salt·La + level. Indices and weights are recomputed from the positions.
+    """The training encode (forward: `encode_jacobian`) and its custom
+    backward (the reference's kernel_grid_backward_grid, grid.h:~400): for
+    every corner c of every sample, src_c = w_c·g_out + Σ_d dw_{c,d}·g_jac_d
+    (scaled by the level's lattice scale), scattered into the table: all 8
+    corners (K = 0), or K corners drawn per sample (`pick_corners`) from
+    the stream salt·La + level (`corner_backward`). Indices and weights are
+    recomputed from the positions.
     The table gradient is computed only when the table requires one. The
     position cotangent is None unless `position_grad` (the training step
     differentiates wrt the table only, and the field's position-gradient
@@ -410,7 +238,8 @@ class _EncodeWithJacobian(torch.autograd.Function):
                                                          k, salt)
         ctx.position_grad = position_grad
         ctx.n_entries = table.shape[0]
-        return _encode_jac_forward(table, positions, static, La, mask)
+        return encode_jacobian.encode_jacobian(table, positions, static, La,
+                                               mask)
 
     @staticmethod
     def backward(ctx, g_out, g_jx, g_jy, g_jz):
@@ -430,19 +259,20 @@ class _EncodeWithJacobian(torch.autograd.Function):
 def _table_grad(static: HashGridStatic, positions: torch.Tensor, La: int,
                 mask, g_out: torch.Tensor, g_jac, n_entries: int, k: int = 0,
                 salt: int = 0) -> torch.Tensor:
-    """The (n_entries, F) table gradient of La levels: each level's corner
-    cotangents (`level_corner_cotangents`), all 8 corners (k = 0) or k
-    picked per sample from the stream salt·La + level (`pick_corners`),
-    added in place into the level's rows by `level_table_grad`."""
+    """The (n_entries, F) table gradient of La levels: k ≥ 1 corners
+    picked per sample from the stream salt·La + level, all levels in one
+    `corner_backward` call; or each level's 8 corner cotangents
+    (`level_corner_cotangents`, k = 0), added in place into the level's
+    rows by `level_table_grad`."""
+    if k:
+        return corner_backward.corner_backward(static, positions, g_out,
+                                               g_jac, La, mask, k, salt,
+                                               n_entries)
     F = static.cfg.n_features_per_level
     g_table = g_out.new_zeros(n_entries, F)
-    base = _position_hash(positions) if k else None
     for lvl in range(La):
         idx, src = level_corner_cotangents(positions, static, lvl, g_out,
                                            g_jac, mask[lvl])
-        if k:
-            _, idx, src = pick_corners(idx, src, _draws(base, salt * La + lvl,
-                                                        k), k)
         off = int(static.offsets[lvl])
         size = int(static.table_sizes[lvl])
         level_table_grad(static, lvl, idx.reshape(-1), src.reshape(-1, F),
@@ -545,7 +375,7 @@ def encode_with_jacobian(table: torch.Tensor, positions: torch.Tensor,
 
 def levels_through_kernel(static: HashGridStatic,
                           n_active: int | None = None) -> Sequence[int]:
-    """Levels whose table gradient the CUDA kernel computes in a backward
-    with `n_active` levels."""
+    """Levels whose table gradient `hash_grad_small` computes in an exact
+    backward with `n_active` levels."""
     return [lvl for lvl in range(_active(static, n_active))
             if static.uses_small_kernel(lvl)]

@@ -9,6 +9,8 @@ import pytest
 import torch
 
 from rnb_neus2_torch.config import HashGridConfig
+from rnb_neus2_torch.kernels import corner_backward as cbw
+from rnb_neus2_torch.kernels import encode_jacobian as ejac
 from rnb_neus2_torch.kernels import hash_grad_small as hgs
 from rnb_neus2_torch.kernels import scatter_add as sca
 from rnb_neus2_torch.ops import hash_encoding as he
@@ -149,12 +151,14 @@ def test_scatter_add_refuses_what_it_cannot_take(cuda):
 
 @pytest.mark.parametrize("k", [1, 2])
 def test_stochastic_backward_on_card_matches_cpu(cuda, k):
-    """The default config's K-corner backward on the card (levels 0-1
-    through the shared-memory kernel, 2-13 through the global-atomics one)
-    against the CPU's plain scatters: every sample picks the same corner at
-    every level, the table gradients agree within 1e-5 of the largest
-    entry, and every entry that no pick touches is exactly 0.0 in both."""
+    """The default config's K-corner backward on the card (the
+    `corner_backward` kernel, one launch over all 14 levels) against the
+    CPU's plain version: the kernel's own picks are the CPU's at every
+    level, the table gradients (the kernel's, and the training encode's
+    through autograd) agree within 1e-5 of the largest entry, and every
+    entry that no pick touches is exactly 0.0 in all three."""
     static = he.HashGridStatic(HashGridConfig())
+    L = static.cfg.n_levels
     gen = torch.Generator()
     gen.manual_seed(k)
     n = 1 << 14
@@ -165,25 +169,170 @@ def test_stochastic_backward_on_card_matches_cpu(cuda, k):
     picks, grads = [], []
     for d in ("cpu", cuda):
         xd, cd = x.to(d), [c.to(d) for c in cot]
-        base = he._position_hash(xd)
-        picks.append([[p.cpu() for p in he.pick_corners(
-            *he.level_corner_cotangents(xd, static, lvl, cd[0], cd[1:], 1.0),
-            he._draws(base, lvl, k), k)[:2]]
-            for lvl in range(static.cfg.n_levels)])
+        before = cbw.launches
+        g, choices = cbw.corner_backward(static, xd, cd[0], cd[1:], L,
+                                         (1.0,) * L, k, 0, static.n_entries,
+                                         with_choices=True)
+        assert cbw.launches == before + (d != "cpu")
+        picks.append(choices.cpu())
         t = table.to(d).requires_grad_(True)
         f, j = he.make_encode_with_jacobian_cv(static, corner_samples=k)(
             t, xd)
         loss = (f * cd[0]).sum() + sum((jd * c).sum()
                                        for jd, c in zip(j, cd[1:]))
-        grads.append(torch.autograd.grad(loss, t)[0].cpu())
+        grads += [g.cpu(), torch.autograd.grad(loss, t)[0].cpu()]
+    assert cbw.launches == before + 2
+    assert torch.equal(picks[0], picks[1])
+    xc = x
     touched = torch.zeros(static.n_entries, dtype=torch.bool)
-    for lvl, ((choice_cpu, idx_k), (choice_card, _)) in enumerate(
-            zip(*picks)):
-        assert torch.equal(choice_cpu, choice_card)
+    base = he._position_hash(xc)
+    for lvl in range(L):
+        _, idx_k, _ = cbw.level_picks(static, xc, cot[0], cot[1:], lvl, 1.0,
+                                      k, lvl, base)
         touched[idx_k + int(static.offsets[lvl])] = True
     scale = grads[0].abs().max()
-    assert (grads[0] - grads[1]).abs().max() <= 1e-5 * scale
-    assert (grads[0][~touched] == 0).all() and (grads[1][~touched] == 0).all()
+    assert torch.equal(grads[0], grads[1])
+    for g in grads[2:]:
+        assert (grads[0] - g).abs().max() <= 1e-5 * scale
+    assert all((g[~touched] == 0).all() for g in grads)
+
+
+# the default config; two small ones at F = 1 and 4 (dense and hashed
+# levels)
+ENCODE_CONFIGS = {
+    "default": dict(),
+    "f1": dict(n_levels=6, top_resolution=128, log2_hashmap_size=12,
+               n_features_per_level=1),
+    "f4": dict(n_levels=5, top_resolution=96, log2_hashmap_size=13,
+               n_features_per_level=4),
+}
+
+
+def _encode_inputs(static, n, seed, device):
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    F = static.cfg.n_features_per_level
+    x = torch.rand(n, 3, generator=gen)
+    x[:3] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0],
+                          [0.5, 0.25, 1.0]])
+    table = torch.randn(static.n_entries, F, generator=gen) * 1e-2
+    cot = [torch.randn(n, static.cfg.output_dim, generator=gen)
+           for _ in range(4)]
+    return x.to(device), table.to(device), [c.to(device) for c in cot]
+
+
+@pytest.mark.parametrize("name,La,valid_level", [
+    ("default", 14, None), ("default", 8, None), ("default", 1, None),
+    ("default", 14, 9), ("f1", 6, 4), ("f4", 5, None), ("f4", 3, 2)])
+def test_encode_jacobian_kernel_matches_plain(cuda, name, La, valid_level):
+    """The forward kernel's four outputs equal its plain version's on the
+    card and on the CPU bit for bit (int32 views), zeros past La; one
+    launch per call."""
+    static = he.HashGridStatic(HashGridConfig(**ENCODE_CONFIGS[name]))
+    n = 1 << 14
+    x, table, _ = _encode_inputs(static, n, La, cuda)
+    mask = he._level_mask(La, valid_level)
+    before = ejac.launches
+    got = ejac.encode_jacobian(table, x, static, La, mask)
+    assert ejac.launches == before + 1
+    on_card = ejac.plain(table, x, static, La, mask)
+    on_cpu = ejac.plain(table.cpu(), x.cpu(), static, La, mask)
+    torch.cuda.synchronize()
+    F = static.cfg.n_features_per_level
+    for g, w, c in zip(got, on_card, on_cpu):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(g.cpu().view(torch.int32), c.view(torch.int32))
+        assert not g[:, La * F:].any()
+    assert got[0][:, :F].any()
+
+
+@pytest.mark.parametrize("name,k,salt,valid_level", [
+    ("f1", 1, 0, None), ("f1", 3, 2, 4), ("f4", 2, 1, None),
+    ("f4", 16, 0, 3), ("default", 4, 5, 10)])
+def test_corner_backward_kernel_matches_plain(cuda, name, k, salt,
+                                              valid_level):
+    """The K-corner kernel at F = 1, 2 and 4 and K up to 16: its choices
+    equal the plain version's on the CPU at every level, its table
+    gradient is within 1e-5 of the largest entry, and every entry that no
+    pick touches is 0.0 in both."""
+    static = he.HashGridStatic(HashGridConfig(**ENCODE_CONFIGS[name]))
+    L = static.cfg.n_levels
+    n = 12345
+    x, _, cot = _encode_inputs(static, n, k + salt, cuda)
+    mask = he._level_mask(L, valid_level)
+    got, choices = cbw.corner_backward(static, x, cot[0], cot[1:], L, mask,
+                                       k, salt, static.n_entries,
+                                       with_choices=True)
+    want, want_choices = cbw.plain(static, x.cpu(), cot[0].cpu(),
+                                   [c.cpu() for c in cot[1:]], L, mask, k,
+                                   salt, static.n_entries, with_choices=True)
+    torch.cuda.synchronize()
+    assert torch.equal(choices.cpu(), want_choices)
+    got = got.cpu()
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    xc, cc = x.cpu(), [c.cpu() for c in cot]
+    base = he._position_hash(xc)
+    touched = torch.zeros(static.n_entries, dtype=torch.bool)
+    for lvl in range(L):
+        _, idx, _ = cbw.level_picks(static, xc, cc[0], cc[1:], lvl,
+                                    mask[lvl], k, salt * L + lvl, base)
+        touched[idx + int(static.offsets[lvl])] = True
+    assert not got[~touched].any() and not want[~touched].any()
+
+
+def test_corner_backward_reads_non_contiguous_cotangents(cuda):
+    """Cotangents that are views (transposed storage), as autograd may
+    give them: the same choices and table gradient (within 1e-5) as the
+    contiguous ones; the views are left as they were."""
+    static = he.HashGridStatic(HashGridConfig())
+    L = static.cfg.n_levels
+    x, _, cot = _encode_inputs(static, 1 << 14, 11, cuda)
+    views = [c.t().contiguous().t() for c in cot]
+    assert not any(v.is_contiguous() for v in views)
+    args = (L, (1.0,) * L, 1, 0, static.n_entries)
+    want, wc = cbw.corner_backward(static, x, cot[0], cot[1:], *args,
+                                   with_choices=True)
+    got, gc = cbw.corner_backward(static, x, views[0], views[1:], *args,
+                                  with_choices=True)
+    torch.cuda.synchronize()
+    assert torch.equal(gc, wc)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    assert all(torch.equal(v, c) for v, c in zip(views, cot))
+
+
+def test_encode_kernels_refuse_what_they_cannot_take(cuda):
+    """On card tensors: 3 features, K = 0 and 17, float64, more than 32
+    levels, tensors on two devices; nothing launches."""
+    ok = he.HashGridStatic(HashGridConfig(n_levels=4, top_resolution=64))
+    f3 = he.HashGridStatic(HashGridConfig(n_levels=4, top_resolution=64,
+                                          n_features_per_level=3))
+    l33 = he.HashGridStatic(HashGridConfig(n_levels=33, top_resolution=64))
+    before = (ejac.launches, cbw.launches)
+    for static, exc in ((f3, ValueError), (l33, ValueError)):
+        x, table, cot = _encode_inputs(static, 64, 0, cuda)
+        L = static.cfg.n_levels
+        with pytest.raises(exc):
+            ejac.encode_jacobian(table, x, static, L, (1.0,) * L)
+        with pytest.raises(exc):
+            cbw.corner_backward(static, x, cot[0], cot[1:], L, (1.0,) * L, 1,
+                                0, static.n_entries)
+    x, table, cot = _encode_inputs(ok, 64, 0, cuda)
+    mask = (1.0,) * 4
+    for k in (0, 17):
+        with pytest.raises(ValueError):
+            cbw.corner_backward(ok, x, cot[0], cot[1:], 4, mask, k, 0,
+                                ok.n_entries)
+    with pytest.raises(TypeError):
+        ejac.encode_jacobian(table.double(), x, ok, 4, mask)
+    with pytest.raises(TypeError):
+        cbw.corner_backward(ok, x, cot[0].double(), cot[1:], 4, mask, 1, 0,
+                            ok.n_entries)
+    with pytest.raises(ValueError):
+        ejac.encode_jacobian(table.cpu(), x, ok, 4, mask)
+    with pytest.raises(ValueError):
+        cbw.corner_backward(ok, x, cot[0].cpu(), cot[1:], 4, mask, 1, 0,
+                            ok.n_entries)
+    assert (ejac.launches, cbw.launches) == before
 
 
 INTO = {"scatter_add": (sca, sca.scatter_add_into),
@@ -411,15 +560,15 @@ def test_train_steps_on_card_follow_the_schedule(cuda):
         return reads, bodies
 
     want, _ = run("cpu", True)
-    hgs.reset_launches()
-    sca.reset_launches()
+    for mod in (hgs, sca, ejac, cbw):
+        mod.reset_launches()
     got, bodies = run(cuda, False)
     torch.cuda.synchronize()
     assert got == want and not any(rb for _, rb in got)
-    static = he.HashGridStatic(cfg.grid)
-    small = sum(len(he.levels_through_kernel(static, n)) for n in bodies)
     assert len(bodies) == 600
-    assert (hgs.launches, sca.launches) == (small, sum(bodies) - small)
+    # K = 1: one forward and one K-corner backward per step body
+    assert (ejac.launches, cbw.launches, hgs.launches, sca.launches) == (
+        600, 600, 0, 0)
 
 
 def test_features_only_encode_on_card_matches_cpu(cuda):
@@ -517,7 +666,8 @@ def test_cascaded_march_on_card_matches_cpu(cuda):
 
 def test_option_paths_train_on_the_card(cuda):
     """aabb_scale 4, the emulations, the salt and bfloat16 each train a few
-    steps on the card with both kernels launched per level bucket."""
+    steps on the card (K = 1) with the encode's two kernels launched once
+    per step each, and the exact backward's two never."""
     import dataclasses
 
     from rnb_neus2_torch.config import (LossConfig, MarchConfig,
@@ -543,13 +693,12 @@ def test_option_paths_train_on_the_card(cuda):
     for kw in variants:
         cfg = dataclasses.replace(base, **kw)
         tr = Trainer(ds, cfg, device=cuda)
-        static = tr.field.static
-        before = (hgs.launches, sca.launches)
-        buckets = [tr.train_step()["n_levels_run"] for _ in range(6)]
-        small = sum(len(he.levels_through_kernel(static, b))
-                    for b in buckets)
-        assert (hgs.launches - before[0], sca.launches - before[1]) == (
-            small, sum(buckets) - small), kw
+        mods = (ejac, cbw, hgs, sca)
+        before = [m.launches for m in mods]
+        for _ in range(6):
+            tr.train_step()
+        assert [m.launches - b for m, b in zip(mods, before)] == [
+            6, 6, 0, 0], kw
 
 
 @pytest.mark.parametrize("cards", [1, 2], ids=["one_card", "two_cards"])
@@ -615,7 +764,7 @@ def test_two_replicas_on_the_card_match_the_cpu(cuda, monkeypatch, cards):
     for name, devs in (("cpu", ["cpu", "cpu"]), ("card", card_devs)):
         calls.update(sample=0, cells=0)
         tr = ParallelTrainer(ds, cfg, params=init, devices=devs)
-        before = (hgs.launches, sca.launches)
+        before = (hgs.launches, sca.launches, ejac.launches)
         hist = []
         for _ in range(3):
             hist.append(tr.train_step())
@@ -624,7 +773,8 @@ def test_two_replicas_on_the_card_match_the_cpu(cuda, monkeypatch, cards):
                     assert torch.equal(p.to(tr.device), tr.params[k]), \
                         (name, k)
         runs[name] = (tr, hist, (hgs.launches - before[0],
-                                 sca.launches - before[1]))
+                                 sca.launches - before[1],
+                                 ejac.launches - before[2]))
     (cpu, cpu_hist, _), (card, card_hist, launches) = runs["cpu"], \
         runs["card"]
     for m, w in zip(card_hist, cpu_hist):
@@ -637,4 +787,4 @@ def test_two_replicas_on_the_card_match_the_cpu(cuda, monkeypatch, cards):
     static = he.HashGridStatic(cfg.grid)
     buckets = [m["n_levels_run"] for m in card_hist]
     small = sum(len(he.levels_through_kernel(static, b)) for b in buckets)
-    assert launches == (2 * small, 2 * (sum(buckets) - small))
+    assert launches == (2 * small, 2 * (sum(buckets) - small), 2 * 3)

@@ -12,7 +12,8 @@ import torch
 
 from rnb_neus2_tpu.ops import hash_encoding as jhe
 from rnb_neus2_torch.config import HashGridConfig
-from rnb_neus2_torch.kernels import hash_grad_small, scatter_add
+from rnb_neus2_torch.kernels import (corner_backward, hash_grad_small,
+                                     scatter_add)
 from rnb_neus2_torch.ops import hash_encoding as he
 from rnb_neus2_torch.tools import bench_scatter
 
@@ -145,12 +146,13 @@ def test_in_place_wrapper_refuses_a_bad_out(name):
 
 @pytest.mark.parametrize("k", [0, 1, 2])
 def test_default_config_levels_route_to_the_kernels(monkeypatch, k):
-    """At the default config the backward sends levels 0 and 1 (dense,
-    ≤ 2^15 entries, where the JAX package takes `grad_onehot_mxu`) to the
-    cluster-shared kernel's in-place wrapper and levels 2-13 to the
-    global-atomics kernel's, with 8 elements per sample in the exact
-    backward and K in the stochastic one, each into its level's rows of
-    the table gradient; nothing else scatters."""
+    """At the default config the exact backward sends levels 0 and 1
+    (dense, ≤ 2^15 entries, where the JAX package takes `grad_onehot_mxu`)
+    to the cluster-shared kernel's in-place wrapper and levels 2-13 to the
+    global-atomics kernel's, 8 elements per sample, each into its level's
+    rows of the table gradient; the stochastic one (K ≥ 1) makes one call
+    of the K-corner kernel's in-place wrapper over all 14 levels into the
+    whole table gradient; nothing else scatters."""
     static = he.HashGridStatic(HashGridConfig())
     calls = []
 
@@ -160,11 +162,21 @@ def test_default_config_levels_route_to_the_kernels(monkeypatch, k):
             return real(out, idx, v)
         return fn
 
+    def spy_corners(g_table, static, positions, g_out, g_jac, La, mask, k,
+                    salt, choices=None):
+        calls.append(("corner_backward", k * positions.shape[0] * La,
+                      g_table.shape[0]))
+        return real_corners(g_table, static, positions, g_out, g_jac, La,
+                            mask, k, salt, choices)
+
+    real_corners = corner_backward.corner_backward_into
     monkeypatch.setattr(hash_grad_small, "grad_small_into",
                         spy("hash_grad_small",
                             hash_grad_small.grad_small_into))
     monkeypatch.setattr(scatter_add, "scatter_add_into",
                         spy("scatter_add", scatter_add.scatter_add_into))
+    monkeypatch.setattr(corner_backward, "corner_backward_into",
+                        spy_corners)
     n = 37
     rng = np.random.default_rng(k)
     t = torch.from_numpy((rng.standard_normal((static.n_entries, 2)) * 1e-2)
@@ -172,10 +184,11 @@ def test_default_config_levels_route_to_the_kernels(monkeypatch, k):
     x = torch.from_numpy(rng.random((n, 3)).astype(np.float32))
     f, j = he.make_encode_with_jacobian_cv(static, corner_samples=k)(t, x)
     (f.sum() + j[0].sum()).backward()
-    per = 8 if k == 0 else k
     sizes = [int(s) for s in static.table_sizes]
-    want = [("hash_grad_small" if lvl < 2 else "scatter_add", per * n,
+    want = [("hash_grad_small" if lvl < 2 else "scatter_add", 8 * n,
              sizes[lvl]) for lvl in range(14)]
+    if k:
+        want = [("corner_backward", k * n * 14, static.n_entries)]
     assert calls == want
     assert sizes[2:5] == [39304, 125000, 373248]
     assert all(s == 1 << 19 for s in sizes[5:])
