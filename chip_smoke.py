@@ -314,7 +314,7 @@ Phases, each printing JSON lines with `elapsed_s`:
    level buckets' count (as phase 12); then every section of
    `tools/bench_primitives` on the card, one line per row.
 
-21. encode kernels (right after phase 7, ≈ 17 s): the training encode's
+21. encode kernels (right after phase 7, ≈ 25 s): the training encode's
    `encode_jacobian` and `corner_backward` kernels against their plain
    versions at the default config (14 levels, F = 2) on 2^18 random
    positions and cotangents: the forward bit for bit with its plain
@@ -322,7 +322,13 @@ Phases, each printing JSON lines with `elapsed_s`:
    with the CPU's at La = 14; the backward's picks equal the CPU plain
    version's at all 14 levels for K = 1, 2 and salt 0, 3, its gradient
    within 1e-5 of the largest entry, every row that no pick touches
-   exactly 0.0 in both; one launch per call. Prints its seconds.
+   exactly 0.0 in both; one launch per call. Then both kernels against
+   the CPU's plain versions (forward bit for bit, picks equal, gradient
+   within 1e-5) on a ragged batch (2^18 − 27 samples: the last tile of
+   either kernel is partial) and on positions outside [0, 1] (x·4 − 1.5:
+   negative corners, the dense levels' int64 remainder). Prints its
+   seconds, and phase 4's encode rows print each kernel's tile plan, its
+   shared memory per block and ptxas's registers, stack and spills.
 
 Then one JSON line with every kernel's numbers (the launches of its
 path: the exact steps' for `hash_grad_small` and `scatter_add`, with the
@@ -1128,11 +1134,16 @@ def time_encode_kernels(torch, bench, dev, card, ins: dict,
     (`encode_inputs`): first held against its plain version on the card
     (the forward bit for bit, the backward's picks equal and its gradient
     within 1e-5 of the largest entry), then the allocating call
-    (`ms`, the main path's), the plain version (`plain_ms`) and the bound,
-    timed as phase 4 times. Raises on a mismatch."""
+    (`ms`, the main path's; for the backward also `ms_into`, the kernel
+    alone adding into a given gradient, and that at levels 0 and 0–1
+    alone, `ms_into_first_levels`), the plain version (`plain_ms`), the
+    bound, and each kernel at tile caps of 32, 64 and 96 samples
+    (`ms_by_tile`; the kernel's TILE is its fastest), timed as phase 4
+    times. Raises on a mismatch."""
     from rnb_neus2_torch.kernels import corner_backward as cbw
     from rnb_neus2_torch.kernels import encode_jacobian as ejac
 
+    t0 = time.perf_counter()
     out = {}
     a = ins["encode_jacobian"]
     fargs = (a["table"], a["positions"], a["static"], a["La"], a["mask"])
@@ -1161,15 +1172,61 @@ def time_encode_kernels(torch, bench, dev, card, ins: dict,
         "picks_differ": int((gc != wc).sum()), "max_abs_err": err,
         "tol": tol, "rows_touched": int((want != 0).any(1).sum()),
         "ms": bench.time_ms(lambda: cbw.corner_backward(*bargs)),
+        "ms_into": bench.time_ms(lambda: cbw.corner_backward_into(
+            got, *bargs[:-1])),
         "plain_ms": bench.time_ms(lambda: cbw.plain(*bargs)),
         "library_ms": None, **encode_bounds(torch, "corner_backward", b)}
+    # the kernel alone at its first levels: level 0's 4,096 hot rows
+    out["corner_backward"]["ms_into_first_levels"] = {
+        La: bench.time_ms(lambda La=La: cbw.corner_backward_into(
+            got, b["static"], b["positions"], b["g_out"], b["g_jac"], La,
+            b["mask"], b["k"], b["salt"])) for La in (1, 2)}
+    # each kernel at other tile caps than its TILE
+    for name, mod, fn in (
+            ("encode_jacobian", ejac, lambda: ejac.encode_jacobian(*fargs)),
+            ("corner_backward", cbw,
+             lambda: cbw.corner_backward_into(got, *bargs[:-1]))):
+        real, sweep = mod.TILE, {}
+        try:
+            for tile in (32, 64, 96):
+                mod.TILE = tile
+                sweep[tile] = bench.time_ms(fn)
+        finally:
+            mod.TILE = real
+        out[name]["ms_by_tile"] = sweep
+    for name, mod in (("encode_jacobian", ejac), ("corner_backward", cbw)):
+        out[name].update(kernel_resources(mod, a["static"]))
+    seconds = time.perf_counter() - t0
     for name, row in out.items():
         log("encode_kernel_timing", kernel=name, inputs=label, card=card,
-            **row)
+            seconds=seconds, **row)
     if not equal or out["corner_backward"]["picks_differ"] or not err <= tol:
         raise AssertionError(f"the encode kernels disagree with their plain "
                              f"versions on the {label} inputs: {out}")
     return out
+
+
+_PTXAS_USAGE = re.compile(
+    r"kernelILi(\d)E.*?\n\s*(\d+) bytes stack frame, (\d+) bytes spill "
+    r"stores.*?\n.*?Used (\d+) registers")
+
+
+def kernel_resources(mod, static) -> dict:
+    """One training-encode kernel module's tile plan at `static` (T,
+    stages, shared memory per block) and ptxas's registers, stack frame
+    and spill stores for its F, from the build log (`-Xptxas -v`)."""
+    from rnb_neus2_torch.kernels import build, hash_corners as hc
+
+    L, F = static.cfg.n_levels, static.cfg.n_features_per_level
+    T, stages = hc.tile_plan(L, F, mod.TILE)
+    row = {"tile": T, "stages": stages, "shared_bytes":
+           hc.BARRIER_BYTES + stages * hc.stage_bytes(T, L, F)}
+    log_text = build._LOADED[mod.LIBRARY][1]["log"]
+    for f, stack, spill, regs in _PTXAS_USAGE.findall(log_text):
+        if int(f) == F:
+            row.update(registers=int(regs), stack_bytes=int(stack),
+                       spill_bytes=int(spill))
+    return row
 
 
 def encode_kernels_phase(torch, bench, dev, card, n: int = 1 << 18
@@ -1181,7 +1238,11 @@ def encode_kernels_phase(torch, bench, dev, card, n: int = 1 << 18
     the CPU (La = 14); the backward's picks equal the CPU's at every level
     for K = 1, 2 and salt 0, 3, its gradient within 1e-5 of the largest
     entry, every row that no pick touches 0.0 in both. Returns the
-    largest abs errors and the phase's seconds."""
+    largest abs errors and the phase's seconds. Then both kernels on a
+    ragged batch (n − 27 samples) and on positions outside [0, 1] (x·4 −
+    1.5) against the CPU's plain versions: the forward bit for bit, the
+    backward's picks (K = 1, salt 0) equal and its gradient within
+    1e-5."""
     from rnb_neus2_torch.config import HashGridConfig
     from rnb_neus2_torch.kernels import corner_backward as cbw
     from rnb_neus2_torch.kernels import encode_jacobian as ejac
@@ -1247,6 +1308,36 @@ def encode_kernels_phase(torch, bench, dev, card, n: int = 1 << 18
                     or not row["untouched_exactly_zero"]
                     or row["launches"] != 1):
                 failed.append(row)
+    for case, xs in (("ragged", x[:n - 27]),
+                     ("outside_unit_cube", x * 4.0 - 1.5)):
+        m = xs.shape[0]
+        cs = [c[:m] for c in cot]
+        xsd, csd = xs.to(dev), [c.to(dev) for c in cs]
+        before = (ejac.launches, cbw.launches)
+        got = ejac.encode_jacobian(td, xsd, static, L, full)
+        g, choices = cbw.corner_backward(static, xsd, csd[0], csd[1:], L,
+                                         full, 1, 0, static.n_entries,
+                                         with_choices=True)
+        want = ejac.plain(table, xs, static, L, full)
+        wg, wc = cbw.plain(static, xs, cs[0], cs[1:], L, full, 1, 0,
+                           static.n_entries, with_choices=True)
+        torch.cuda.synchronize()
+        g = g.cpu()
+        err = float((g - wg).abs().max())
+        row = {"case": case, "n": m,
+               "launches": [ejac.launches - before[0],
+                            cbw.launches - before[1]],
+               "bit_equal_cpu_twin": all(
+                   torch.equal(a.cpu().view(torch.int32),
+                               b.view(torch.int32))
+                   for a, b in zip(got, want)),
+               "picks_differ": int((choices.cpu() != wc).sum()),
+               "max_abs_err": err, "tol": 1e-5 * float(wg.abs().max())}
+        errs["corner_backward"] = max(errs["corner_backward"], err)
+        log("encode_kernels_case", **row)
+        if (not row["bit_equal_cpu_twin"] or row["picks_differ"]
+                or not err <= row["tol"] or row["launches"] != [1, 1]):
+            failed.append(row)
     seconds = time.perf_counter() - t0
     log("encode_kernels", card=card, seconds=seconds, failed=failed,
         max_abs_err=errs)
@@ -3847,6 +3938,7 @@ def main() -> int:
             "max_abs_err": max(encode_phase["max_abs_err"][name],
                                t["max_abs_err"]),
             "ms": t["ms"],
+            "ms_into": t.get("ms_into"),
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],

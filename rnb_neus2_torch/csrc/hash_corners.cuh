@@ -28,17 +28,19 @@ constexpr uint32_t kPrime1 = 2654435761u;
 constexpr uint32_t kPrime2 = 805459861u;
 
 // One level's constants, formed on the host (hash_corners.py's
-// level_constants, whose LEVEL_DTYPE has this layout: 32 bytes).
+// level_constants, whose LEVEL_DTYPE has this layout: 36 bytes).
 struct LevelConst {
-  float scale;      // lattice scale, resolution - 1
-  float m;          // unlock mask: 1 or 0
-  float scale_m;    // float32(scale * m), the jacobian's factor
-  int res;          // resolution (dense index)
-  int size;         // table rows of the level
-  int offset;       // the level's first row in the whole table
-  int hashed;       // 1: spatial hash, 0: dense index
-  uint32_t stream;  // the draws' stream, salt * La + level
+  float scale;         // lattice scale, resolution - 1
+  float m;             // unlock mask: 1 or 0
+  float scale_m;       // float32(scale * m), the jacobian's factor
+  int res;             // resolution (dense index)
+  int size;            // table rows of the level
+  int offset;          // the level's first row in the whole table
+  int hashed;          // 1: spatial hash, 0: dense index
+  uint32_t stream;     // the draws' stream, salt * La + level
+  uint32_t size_mask;  // size - 1 when size is a power of two, else 0
 };
+static_assert(sizeof(LevelConst) == 36, "hash_corners.py's LEVEL_DTYPE");
 
 // Every level's constants, passed by value as a kernel parameter (1 KB).
 struct Levels {
@@ -56,17 +58,27 @@ struct Corners {
 
 // The table row of integer lattice corner (x, y, z): hashed in uint32
 // (the twin's int64 masked to 32 bits), or dense with a non-negative
-// remainder (the twin's int64 `%`).
+// remainder (the twin's int64 `%`). The same bits without a division
+// where the operands allow: a power-of-two size (every hashed level of
+// the default config) takes a mask, and a dense index in [0, 2·size)
+// (every corner of a position in [0, 1]: at most res³ + res² + res) one
+// conditional subtraction in 32 bits; other dense indices (positions
+// outside the unit cube) keep the int64 remainder.
 __device__ __forceinline__ int corner_index(long long x, long long y,
                                             long long z,
                                             const LevelConst& lc) {
   if (lc.hashed) {
     const uint32_t h = (uint32_t)x ^ ((uint32_t)y * kPrime1) ^
                        ((uint32_t)z * kPrime2);
-    return (int)(h % (uint32_t)lc.size);
+    return (int)(lc.size_mask ? h & lc.size_mask : h % (uint32_t)lc.size);
   }
   const long long res = lc.res;
-  long long r = (x + y * res + z * res * res) % lc.size;
+  const long long v = x + y * res + z * res * res;
+  if ((unsigned long long)v < 2ull * (unsigned long long)lc.size) {
+    const int r = (int)v;
+    return r >= lc.size ? r - lc.size : r;
+  }
+  const long long r = v % lc.size;
   return (int)(r < 0 ? r + lc.size : r);
 }
 

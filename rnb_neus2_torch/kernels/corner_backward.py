@@ -8,19 +8,23 @@ cotangents src_c = w_c·g_out·m + Σ_d dw_{c,d}·g_jac_d·(scale·m), K corners
 drawn from the position hash's uniforms (stream salt·La + level) with
 p_c ∝ Σ_f |src_c[f]|, and src_choice/(K·p_choice) added into the
 choice's row of the (n_entries, F) table gradient. The kernel
-(`csrc/corner_backward.cu`) recomputes the corners from the positions on
-the corner arithmetic of `csrc/hash_corners.cuh`, whose float32
-operations are the plain version's one by one, so every pick is the plain
-version's; its float atomics add in another order. Its source note gives
-the design and the bound.
+(`csrc/corner_backward.cu`) walks tiles of consecutive samples whose
+positions and cotangents arrive in shared memory by bulk asynchronous
+copies (`hash_corners.tile_plan` sizes the tile) and recomputes the
+corners from the positions on the corner arithmetic of
+`csrc/hash_corners.cuh`, whose float32 operations are the plain version's
+one by one, so every pick is the plain version's; its float atomics add
+in another order. Its source note gives the design and the bound.
 
 The cotangents are read at column lvl·F + f of each (N, L·F) tensor; a
-non-contiguous one is made contiguous first. `corner_backward(static,
-positions, g_out, g_jac, La, mask, k, salt, n_entries)` allocates the
-zeroed table gradient and calls `corner_backward_into`, which launches
-the kernel for CUDA tensors and takes the plain version only for CPU
-tensors; either can also return each pick's corner, (La, K, N) int8
-(`choices`). `launches` counts kernel launches.
+non-contiguous one is made contiguous first, and one that does not start
+on a 16-byte boundary is read with plain loads inside the kernel.
+`corner_backward(static, positions, g_out, g_jac, La, mask, k, salt,
+n_entries)` allocates the zeroed table gradient and calls
+`corner_backward_into`, which launches the kernel for CUDA tensors and
+takes the plain version only for CPU tensors; either can also return
+each pick's corner, (La, K, N) int8 (`choices`). `launches` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 from .build import load_library
 from .hash_corners import (MAX_LEVELS, _draws, _position_hash,
                            level_constants, level_corner_cotangents,
-                           pick_corners)
+                           pick_corners, tile_plan)
 
 SOURCE = "corner_backward.cu"
 LIBRARY = "corner_backward"
@@ -42,6 +46,11 @@ REPLACES = ("rnb_neus2_tpu/ops/hash_encoding.py:689",)
 # features per level and picks per sample the kernel takes
 FEATURES = (1, 2, 4, 8)
 MAX_PICKS = 16
+
+# the largest tile of samples the kernel takes: of 32, 64 and 96, the
+# fastest on an NVIDIA H100 on a K = 1 training step's inputs (n = 2^18,
+# 14 levels, F = 2); chip_smoke.py times each (`ms_by_tile`)
+TILE = 64
 
 launches = 0
 
@@ -166,7 +175,8 @@ def _library():
     fn = lib.corner_backward_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.corner_backward_error_string.argtypes = [ctypes.c_int]
     lib.corner_backward_error_string.restype = ctypes.c_char_p
@@ -198,6 +208,7 @@ def corner_backward_into(g_table: torch.Tensor, static,
     if n == 0 or La == 0:
         return g_table
     cfg = static.cfg
+    L, F = cfg.n_levels, cfg.n_features_per_level
     levels = level_constants(static, La, mask, salt)
     lib = _library()
     with torch.cuda.device(positions.device):
@@ -205,9 +216,8 @@ def corner_backward_into(g_table: torch.Tensor, static,
         err = lib.corner_backward_launch(
             positions.data_ptr(), *(c.data_ptr() for c in cots),
             g_table.data_ptr(),
-            None if choices is None else choices.data_ptr(), n,
-            cfg.n_levels, La, cfg.n_features_per_level, k,
-            levels.ctypes.data, stream)
+            None if choices is None else choices.data_ptr(), n, L, La, F, k,
+            *tile_plan(L, F, TILE), levels.ctypes.data, stream)
     if err != 0:
         msg = lib.corner_backward_error_string(err).decode()
         raise RuntimeError(f"corner_backward launch failed: {msg} ({err})")

@@ -7,10 +7,12 @@ the TPU, not a Pallas kernel: per sample and level l < La, the 8 corner
 rows of the level's table gathered once, out = Σ_c w_c·T[row_c]·m and
 jac_d = Σ_c dw_{c,d}·T[row_c]·(scale·m), four (N, L·F) float32 tensors,
 zeros at the levels from La on. The kernel (`csrc/encode_jacobian.cu`)
-runs one thread per (sample, level) on the corner arithmetic of
-`csrc/hash_corners.cuh`, whose float32 operations are the plain version's
-one by one: its outputs equal the plain version's bit for bit. Its source
-note gives the design and the bound.
+walks tiles of consecutive samples staged in shared memory (positions in
+and outputs out by bulk asynchronous copies; `hash_corners.tile_plan`
+sizes the tile), on the corner arithmetic of `csrc/hash_corners.cuh`,
+whose float32 operations are the plain version's one by one: its outputs
+equal the plain version's bit for bit. Its source note gives the design
+and the bound.
 
 `encode_jacobian(table, positions, static, La, mask)` allocates the four
 outputs and calls `encode_jacobian_into`, which launches the kernel for
@@ -28,13 +30,18 @@ import torch
 
 from .build import load_library
 from .hash_corners import (MAX_LEVELS, _corner_sum, _level_corner_arrays,
-                           level_constants)
+                           level_constants, tile_plan)
 
 SOURCE = "encode_jacobian.cu"
 LIBRARY = "encode_jacobian"
 REPLACES = ("rnb_neus2_tpu/ops/hash_encoding.py:598",)
 # features per level the kernel takes
 FEATURES = (1, 2, 4, 8)
+
+# the largest tile of samples the kernel takes: of 32, 64 and 96, the
+# fastest on an NVIDIA H100 on a K = 1 training step's inputs (n = 2^18,
+# 14 levels, F = 2); chip_smoke.py times each (`ms_by_tile`)
+TILE = 32
 
 launches = 0
 
@@ -125,7 +132,7 @@ def _library():
     fn = lib.encode_jacobian_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.encode_jacobian_error_string.argtypes = [ctypes.c_int]
     lib.encode_jacobian_error_string.restype = ctypes.c_char_p
@@ -153,14 +160,15 @@ def encode_jacobian_into(outs: Sequence[torch.Tensor], table: torch.Tensor,
     if n == 0:
         return tuple(outs)
     cfg = static.cfg
+    L, F = cfg.n_levels, cfg.n_features_per_level
     levels = level_constants(static, La, mask)
     lib = _library()
     with torch.cuda.device(positions.device):
         stream = torch.cuda.current_stream(positions.device).cuda_stream
         err = lib.encode_jacobian_launch(
             table.data_ptr(), positions.data_ptr(),
-            *(t.data_ptr() for t in outs), n, cfg.n_levels, La,
-            cfg.n_features_per_level, levels.ctypes.data, stream)
+            *(t.data_ptr() for t in outs), n, L, La, F,
+            *tile_plan(L, F, TILE), levels.ctypes.data, stream)
     if err != 0:
         msg = lib.encode_jacobian_error_string(err).decode()
         raise RuntimeError(f"encode_jacobian launch failed: {msg} ({err})")

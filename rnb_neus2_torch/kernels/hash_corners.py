@@ -201,7 +201,14 @@ MAX_LEVELS = 32
 # hash_corners.cuh's LevelConst, field for field
 LEVEL_DTYPE = np.dtype([("scale", "<f4"), ("m", "<f4"), ("scale_m", "<f4"),
                         ("res", "<i4"), ("size", "<i4"), ("offset", "<i4"),
-                        ("hashed", "<i4"), ("stream", "<u4")])
+                        ("hashed", "<i4"), ("stream", "<u4"),
+                        ("size_mask", "<u4")])
+
+
+def size_mask(size: int) -> int:
+    """size − 1 when `size` is a power of two (the kernels then take h &
+    mask for the hashed index's h % size: the same bits), else 0."""
+    return size - 1 if size > 0 and size & (size - 1) == 0 else 0
 
 
 def level_constants(static: HashGridStatic, La: int, mask: Sequence[float],
@@ -209,15 +216,49 @@ def level_constants(static: HashGridStatic, La: int, mask: Sequence[float],
     """(La,) LEVEL_DTYPE: each level's lattice scale, unlock mask m, the
     jacobian's factor scale·m (a Python float product rounded to float32,
     as the plain versions' `tensor * (scale * m)` rounds it), resolution,
-    table size and offset, whether it is hashed, and its draw stream
-    salt·La + level (mod 2^32, as `_draws` masks it)."""
+    table size and offset, whether it is hashed, its draw stream
+    salt·La + level (mod 2^32, as `_draws` masks it) and `size_mask`."""
     if La > MAX_LEVELS:
         raise ValueError(f"{La} levels: the kernels take at most "
                          f"{MAX_LEVELS}")
     out = np.zeros(La, LEVEL_DTYPE)
     for lvl in range(La):
         scale, m = float(static.scales[lvl]), float(mask[lvl])
-        out[lvl] = (scale, m, scale * m, static.resolutions[lvl],
-                    static.table_sizes[lvl], static.offsets[lvl],
-                    static.hashed[lvl], (salt * La + lvl) & MASK32)
+        size = int(static.table_sizes[lvl])
+        out[lvl] = (scale, m, scale * m, static.resolutions[lvl], size,
+                    static.offsets[lvl], static.hashed[lvl],
+                    (salt * La + lvl) & MASK32, size_mask(size))
     return out
+
+
+# shared memory: what one block may use, what one SM holds and keeps per
+# block (sm_90), and the tile's mbarriers (tile_copy.cuh's kBarrierBytes)
+BLOCK_SHARED_BYTES = 232_448
+SM_SHARED_BYTES = 233_472
+SM_RESERVED_PER_BLOCK = 1024
+BARRIER_BYTES = 128
+
+
+def stage_bytes(T: int, L: int, F: int) -> int:
+    """Shared memory of one stage of a T-sample tile: its positions and
+    four (T, L·F) float32 blocks (tile_copy.cuh's `stage_bytes`)."""
+    return T * (3 + 4 * L * F) * 4
+
+
+def tile_plan(L: int, F: int, max_tile: int) -> tuple:
+    """(T, stages) of an encode kernel at L levels of F features: the
+    largest tile T ≤ max_tile, a multiple of 32, whose two stages let two
+    blocks share an SM; else the largest whose two stages fit one block;
+    else T = 32 in one stage (L·F = 256: 128 KB). Its shared memory,
+    BARRIER_BYTES + stages·stage_bytes, never exceeds
+    BLOCK_SHARED_BYTES."""
+    for blocks, stages in ((2, 2), (1, 2), (1, 1)):
+        budget = min(BLOCK_SHARED_BYTES,
+                     SM_SHARED_BYTES // blocks - SM_RESERVED_PER_BLOCK)
+        T = min(max_tile,
+                (budget - BARRIER_BYTES) // (stages * stage_bytes(1, L, F))
+                // 32 * 32)
+        if T >= 32:
+            return T, stages
+    raise ValueError(f"{L} levels of {F} features: no tile of 32 samples "
+                     "fits a block's shared memory")

@@ -6,6 +6,7 @@ their wrappers hand the CUDA kernels; every input they refuse. The
 kernels themselves run in tests/test_torch_gpu.py and chip_smoke.py."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -244,7 +245,7 @@ def test_level_constants_equal_the_twins(name, salt, valid_level, n_active):
     mask = he._level_mask(La, valid_level)
     lv = hash_corners.level_constants(static, La, mask, salt)
     assert lv.dtype == hash_corners.LEVEL_DTYPE and lv.shape == (La,)
-    assert hash_corners.LEVEL_DTYPE.itemsize == 32
+    assert hash_corners.LEVEL_DTYPE.itemsize == 36
     one = torch.ones(1)
     x = torch.from_numpy(_inputs(static, 6, 64)[1])
     base = he._position_hash(x)
@@ -264,6 +265,66 @@ def test_level_constants_equal_the_twins(name, salt, valid_level, n_active):
                 lv["hashed"][lvl]) == (
             static.resolutions[lvl], static.table_sizes[lvl],
             static.offsets[lvl], static.hashed[lvl])
+        size = int(static.table_sizes[lvl])
+        pow2 = size & (size - 1) == 0
+        assert int(lv["size_mask"][lvl]) == (size - 1 if pow2 else 0)
+
+
+@pytest.mark.parametrize("size", [1, 2, 3, 4096, 13824, 39304, 125000,
+                                  373248, 1 << 14, 1 << 19, (1 << 19) + 8,
+                                  (1 << 31) - 1, 1 << 31])
+def test_size_mask_takes_the_remainder_bit_for_bit(size):
+    """`size_mask` is size − 1 exactly when the size is a power of two,
+    else 0; where it is set, h & mask equals h % size for uint32 hashes
+    (numpy), so the kernels' mask gives the plain version's rows."""
+    mask = hash_corners.size_mask(size)
+    assert mask == (size - 1 if size & (size - 1) == 0 else 0)
+    h = np.random.default_rng(size).integers(0, 2**32, 4096,
+                                             dtype=np.uint64)
+    h[:4] = [0, 1, 2**32 - 1, 2**31]
+    if mask or size == 1:
+        np.testing.assert_array_equal(h & np.uint64(mask),
+                                      h % np.uint64(size))
+
+
+def test_level_const_layout_matches_the_header():
+    """hash_corners.cuh's LevelConst has LEVEL_DTYPE's fields in its order
+    and of its widths, and asserts its size."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "rnb_neus2_torch", "csrc",
+                           "hash_corners.cuh")) as f:
+        src = f.read()
+    body = src[src.index("struct LevelConst {"):]
+    body = body[:body.index("};")]
+    fields = re.findall(r"^\s*(float|int|uint32_t) (\w+);", body, re.M)
+    kinds = {"float": "<f4", "int": "<i4", "uint32_t": "<u4"}
+    assert [(name, kinds[t]) for t, name in fields] == [
+        (name, hash_corners.LEVEL_DTYPE.fields[name][0].str)
+        for name in hash_corners.LEVEL_DTYPE.names]
+    assert (f"static_assert(sizeof(LevelConst) == "
+            f"{hash_corners.LEVEL_DTYPE.itemsize}") in src
+
+
+@pytest.mark.parametrize("module", [encode_jacobian, corner_backward],
+                         ids=["forward", "backward"])
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_tile_plan_fits_shared_memory(module, F):
+    """For every L ≤ 32 the kernel's tile is a positive multiple of 32 of
+    at most its TILE samples, its stages (two, or one only where two
+    tiles of 32 do not fit) fit the 227 KB a block may use, and two
+    stages are taken wherever they fit."""
+    for L in range(1, hash_corners.MAX_LEVELS + 1):
+        T, stages = hash_corners.tile_plan(L, F, module.TILE)
+        assert T % 32 == 0 and 32 <= T <= module.TILE, (L, T)
+        assert stages in (1, 2)
+        smem = (hash_corners.BARRIER_BYTES
+                + stages * hash_corners.stage_bytes(T, L, F))
+        assert smem <= hash_corners.BLOCK_SHARED_BYTES == 227 * 1024, L
+        two = (hash_corners.BARRIER_BYTES
+               + 2 * hash_corners.stage_bytes(32, L, F))
+        assert stages == (2 if two <= hash_corners.BLOCK_SHARED_BYTES
+                          else 1), L
+    assert hash_corners.tile_plan(32, 8, module.TILE) == (32, 1)
 
 
 def _refusal_args(static, **change):

@@ -11,6 +11,7 @@ import torch
 from rnb_neus2_torch.config import HashGridConfig
 from rnb_neus2_torch.kernels import corner_backward as cbw
 from rnb_neus2_torch.kernels import encode_jacobian as ejac
+from rnb_neus2_torch.kernels import hash_corners
 from rnb_neus2_torch.kernels import hash_grad_small as hgs
 from rnb_neus2_torch.kernels import scatter_add as sca
 from rnb_neus2_torch.ops import hash_encoding as he
@@ -214,7 +215,7 @@ def _encode_inputs(static, n, seed, device):
     F = static.cfg.n_features_per_level
     x = torch.rand(n, 3, generator=gen)
     x[:3] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0],
-                          [0.5, 0.25, 1.0]])
+                          [0.5, 0.25, 1.0]])[:n]
     table = torch.randn(static.n_entries, F, generator=gen) * 1e-2
     cot = [torch.randn(n, static.cfg.output_dim, generator=gen)
            for _ in range(4)]
@@ -333,6 +334,152 @@ def test_encode_kernels_refuse_what_they_cannot_take(cuda):
         cbw.corner_backward(ok, x, cot[0].cpu(), cot[1:], 4, mask, 1, 0,
                             ok.n_entries)
     assert (ejac.launches, cbw.launches) == before
+
+
+def _hold_encode_kernels(static, x, table, cot, La, mask, k, salt):
+    """Both training-encode kernels on card tensors against their plain
+    versions on the CPU: the forward's four outputs bit for bit (zeros
+    past La), the backward's choices identical at every level, its
+    gradient within 1e-5 of the largest entry and every entry that no
+    pick touches 0.0 in both; one launch each (none for the backward at
+    La = 0)."""
+    xc, tc, cc = x.cpu(), table.cpu(), [c.cpu() for c in cot]
+    before = (ejac.launches, cbw.launches)
+    got = ejac.encode_jacobian(table, x, static, La, mask)
+    g, choices = cbw.corner_backward(static, x, cot[0], cot[1:], La, mask, k,
+                                     salt, static.n_entries,
+                                     with_choices=True)
+    assert (ejac.launches, cbw.launches) == (before[0] + 1,
+                                             before[1] + (La > 0))
+    want = ejac.plain(tc, xc, static, La, mask)
+    wg, wc = cbw.plain(static, xc, cc[0], cc[1:], La, mask, k, salt,
+                       static.n_entries, with_choices=True)
+    torch.cuda.synchronize()
+    F = static.cfg.n_features_per_level
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+        assert not a[:, La * F:].any()
+    assert torch.equal(choices.cpu(), wc)
+    g = g.cpu()
+    assert (g - wg).abs().max() <= 1e-5 * wg.abs().max()
+    touched = torch.zeros(static.n_entries, dtype=torch.bool)
+    base = he._position_hash(xc)
+    for lvl in range(La):
+        _, idx, _ = cbw.level_picks(static, xc, cc[0], cc[1:], lvl,
+                                    mask[lvl], k, salt * La + lvl, base)
+        touched[idx + int(static.offsets[lvl])] = True
+    assert not g[~touched].any() and not wg[~touched].any()
+
+
+def _tile(static, mod):
+    """The tile of samples that kernel module `mod` takes at `static`."""
+    return hash_corners.tile_plan(static.cfg.n_levels,
+                                  static.cfg.n_features_per_level,
+                                  mod.TILE)[0]
+
+
+@pytest.mark.parametrize("rows", ["1", "31", "fwd T-1", "fwd T+1",
+                                  "bwd T-1", "bwd T+1", "2^18+5"])
+def test_encode_kernels_on_ragged_tiles(cuda, rows):
+    """Batches that end inside a tile of either kernel (the plain loads
+    and stores of the last tile) and batches of less than one tile, at the
+    default config."""
+    static = he.HashGridStatic(HashGridConfig())
+    if rows[0] in "fb":
+        T = _tile(static, ejac if rows[0] == "f" else cbw)
+        n = T - 1 if rows.endswith("-1") else T + 1
+    else:
+        n = {"1": 1, "31": 31, "2^18+5": (1 << 18) + 5}[rows]
+    x, table, cot = _encode_inputs(static, n, n, cuda)
+    L = static.cfg.n_levels
+    _hold_encode_kernels(static, x, table, cot, L, (1.0,) * L, 1, 0)
+
+
+@pytest.mark.parametrize("La,valid_level", [(0, None), (1, None),
+                                            (9, 6), (14, None)])
+def test_encode_kernels_at_active_levels(cuda, La, valid_level):
+    """La = 0 (all zeros, no backward launch), 1, 9 (under a mask) and
+    14 at the default config."""
+    static = he.HashGridStatic(HashGridConfig())
+    x, table, cot = _encode_inputs(static, 3 * _tile(static, cbw) + 17,
+                                   La, cuda)
+    _hold_encode_kernels(static, x, table, cot, La,
+                         he._level_mask(La, valid_level), 2, 1)
+
+
+def test_encode_kernels_at_32_levels_of_8_features(cuda):
+    """L·F = 256: the smallest tile, in one stage."""
+    static = he.HashGridStatic(HashGridConfig(
+        n_levels=32, n_features_per_level=8, base_resolution=4,
+        top_resolution=256, log2_hashmap_size=12))
+    assert hash_corners.tile_plan(32, 8, ejac.TILE) == (32, 1)
+    assert hash_corners.tile_plan(32, 8, cbw.TILE) == (32, 1)
+    x, table, cot = _encode_inputs(static, 1000, 8, cuda)
+    _hold_encode_kernels(static, x, table, cot, 32, (1.0,) * 32, 3, 2)
+
+
+@pytest.mark.parametrize("name", ["default", "f1", "f4"])
+def test_encode_kernels_outside_the_unit_cube(cuda, name):
+    """Positions in [-1.5, 2.5): negative and wrapping corners, the dense
+    levels' int64 remainder and the hashed levels' uint32 wrap."""
+    static = he.HashGridStatic(HashGridConfig(**ENCODE_CONFIGS[name]))
+    x, table, cot = _encode_inputs(static, 5000, 3, cuda)
+    x = x * 4.0 - 1.5
+    L = static.cfg.n_levels
+    _hold_encode_kernels(static, x, table, cot, L, (1.0,) * L, 1, 0)
+
+
+@pytest.mark.parametrize("k", [1, 4, 16])
+def test_encode_kernels_with_k_picks(cuda, k):
+    """K up to 16 picks at the default config, on a ragged batch."""
+    static = he.HashGridStatic(HashGridConfig())
+    x, table, cot = _encode_inputs(static, 4 * _tile(static, cbw) + 3, k,
+                                   cuda)
+    L = static.cfg.n_levels
+    _hold_encode_kernels(static, x, table, cot, L, (1.0,) * L, k, 3)
+
+
+def _misaligned(t):
+    """A contiguous copy of `t` that starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("which", ["g_out", "g_jac_z", "positions",
+                                   "outputs", "table"])
+def test_encode_kernels_on_misaligned_tensors(cuda, which):
+    """A cotangent, the positions or the forward's outputs that do not
+    start on a 16-byte boundary (a slice at an odd offset) are read or
+    written with plain loads and stores, and a table off its rows' 8-byte
+    alignment is gathered feature by feature: the same results as aligned
+    tensors."""
+    static = he.HashGridStatic(HashGridConfig())
+    x, table, cot = _encode_inputs(static, 2 * _tile(static, cbw) + 9, 4,
+                                   cuda)
+    L = static.cfg.n_levels
+    if which == "g_out":
+        cot[0] = _misaligned(cot[0])
+    elif which == "g_jac_z":
+        cot[3] = _misaligned(cot[3])
+    elif which == "positions":
+        x = _misaligned(x)
+    elif which == "table":
+        table = _misaligned(table)
+    if which != "outputs":
+        _hold_encode_kernels(static, x, table, cot, L, (1.0,) * L, 2, 0)
+        return
+    outs = [_misaligned(torch.full((x.shape[0], static.cfg.output_dim),
+                                   7.0, device=cuda)) for _ in range(4)]
+    got = ejac.encode_jacobian_into(outs, table, x, static, L, (1.0,) * L)
+    want = ejac.plain(table.cpu(), x.cpu(), static, L, (1.0,) * L)
+    torch.cuda.synchronize()
+    assert all(a is b for a, b in zip(got, outs))
+    for a, b in zip(outs, want):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
 
 
 INTO = {"scatter_add": (sca, sca.scatter_add_into),
