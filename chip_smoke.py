@@ -285,13 +285,18 @@ Phases, each printing JSON lines with `elapsed_s`:
    albedos, normals as 2x2 grids of lossless AVIF tiles, PNG masks) and
    sequence / layered AVIF sphere (`avis_scene_phase`: normals as 3-frame
    AVIF sequences whose first frame is the view, albedos as 2-layer
-   spatial AVIFs, PNG masks); each view's decode timed; normals, albedos
+   spatial AVIFs, PNG masks) and the AVIF sphere of plain multi-frame
+   streams (`avif_inter_scene_phase`: normals and albedos as libaom
+   streams with look-ahead whose last shown frame is the view, together
+   using compound prediction, global motion and shown-existing frames,
+   PNG masks); each view's decode timed; normals, albedos
    and n2w equal to the JAX package's digests; each through
    `run_full_pipeline` (200 steps, mesh at 256; launches per level
    bucket, radius within a voxel), and the 612x512 JPEG 2000, Group 4,
    AVIF (8-bit q95 colour, lossless 4:4:4 colour, 12-bit unchanged, film
    grain, superres, a sequence's first frame, a 306x256 frame scaled to
-   its 612x512 ispe, a 2-layer spatial image) and SGILog / SGILog24
+   its 612x512 ispe, a 2-layer spatial image, a 4-frame stream with
+   compound prediction and global motion) and SGILog / SGILog24
    (`sgilog_view`) decodes, and libwebp's lossless analysis of the
    screenshot-shaped view (`native.vp8l_analyze`) alone.
 
@@ -301,9 +306,10 @@ Phases, each printing JSON lines with `elapsed_s`:
    by its make_fixtures.py with cv2, PIL and libaom, which this host
    lacks) decoded on the host in the three read modes, equal to cv2's
    decode in its expected.npz (SGILog TIFFs, AVIF film grain, superres,
-   grids, sequences, scaled frames and layered images among them), the
-   files cv2 cannot read raising UnreadableImage, the two whose streams
-   use compound prediction or global motion (`REFUSED_FIXTURES`) raising
+   grids, sequences, scaled frames, layered images and plain multi-frame
+   streams with compound prediction, global motion and the other inter
+   tools among them), the files cv2 cannot read raising UnreadableImage,
+   those of `REFUSED_FIXTURES` (none since this slice) raising
    UnsupportedImage by name (at least N_FIXTURES files) (ms per decode;
    the 612x512 files, best of 3); `python -m rnb_neus2_torch.tools.mesh_from_snapshot`
    as a subprocess on phase 11's scene and snapshot at resolution 256
@@ -394,6 +400,7 @@ AVIF_MESH_RES = 256
 AVIF_SCENE = ROOT / "tests" / "torch_fixtures" / "avif_scene"
 SGILOG_SCENE = ROOT / "tests" / "torch_fixtures" / "sgilog_scene"
 AVIS_SCENE = ROOT / "tests" / "torch_fixtures" / "avis_scene"
+AVIF_INTER_SCENE = ROOT / "tests" / "torch_fixtures" / "avif_inter_scene"
 CODEC_VIEW = (512, 612)        # phase 19's codec timings: H, W
 PHOTO = (3024, 4032)
 CODEC_REPEATS = 3              # phase 19's codec rows: the median of 3 (5 until PR 20)
@@ -402,11 +409,10 @@ SCENE_LOAD_REPEATS = 5
 PAR_READS, PAR_SYNC = 18, 25   # phase 18: 450 steps, a read per 25
 FIXTURES = ROOT / "tests" / "torch_fixtures" / "formats"   # phase 20
 FIXTURE_REPEATS = 3
-# phase 20's fixtures that cv2 reads and the port refuses by name: inter
-# tools no layered image of libavif's uses
-REFUSED_FIXTURES = {"avif_refused_compound.avif": "compound prediction",
-                    "avif_refused_global_motion.avif": "global motion"}
-N_FIXTURES = 210
+# phase 20's fixtures that cv2 reads and the port refuses by name (file:
+# the tool): none since compound prediction and global motion decode
+REFUSED_FIXTURES = {}
+N_FIXTURES = 224
 TRAIN_API_STEPS = 32
 
 
@@ -3234,6 +3240,8 @@ def codec_timings(work: Path) -> dict:
              "color"),
             ("avif_layers_spatial_colour", "avif_layers_spatial_612x512.avif",
              "color"),
+            ("avif_inter_tools_colour", "avif_inter_tools_612x512.avif",
+             "color"),
             ("tiff_group4_mask", "g4_mask_612x512.tif", "unchanged")):
         dec = []
         for _ in range(CODEC_REPEATS):
@@ -3445,6 +3453,16 @@ def avis_scene_phase(torch, kernels, root: Path, png) -> dict:
                                  "avis", [".avif", ".png"])
 
 
+def avif_inter_scene_phase(torch, kernels, root: Path, png) -> dict:
+    """Phase 19: the committed AVIF sphere of plain multi-frame AV1
+    streams (tests/torch_fixtures/avif_inter_scene: normals and albedos
+    each a libaom stream with look-ahead whose last shown frame is the
+    view, together using compound prediction, global motion and
+    shown-existing frames; PNG masks) through `committed_scene_phase`."""
+    return committed_scene_phase(torch, kernels, root, png, AVIF_INTER_SCENE,
+                                 "avif_inter", [".avif", ".png"])
+
+
 def sgilog_scene_phase(torch, kernels, root: Path, png) -> dict:
     """Phase 19: the committed SGILog / grid-AVIF sphere
     (tests/torch_fixtures/sgilog_scene: SGILog and SGILog24 albedos, grid
@@ -3588,6 +3606,7 @@ def formats_phase(torch, kernels, card) -> dict:
         avif = avif_scene_phase(torch, kernels, root, png)
         sgilog = sgilog_scene_phase(torch, kernels, root, png)
         avis = avis_scene_phase(torch, kernels, root, png)
+        inter = avif_inter_scene_phase(torch, kernels, root, png)
         log("formats_prepare", seconds=seconds, mask_files=sorted(
             {Path(p).suffix for p in mask_paths}), **cmp)
         if not (cmp["frames"] == SPHERE["n_views"] and cmp["albedo_equal"]
@@ -3635,7 +3654,8 @@ def formats_phase(torch, kernels, card) -> dict:
            "pipeline_s": total, "vertices": len(V), "faces": len(F),
            "median_radius": radius, "world_radius": r_world, "voxel": voxel,
            "codecs": codecs, "jp2_scene": jp2, "avif_scene": avif,
-           "sgilog_scene": sgilog, "avis_scene": avis, "card": card}
+           "sgilog_scene": sgilog, "avis_scene": avis,
+           "avif_inter_scene": inter, "card": card}
     log("formats", **row)
     if launches != want:
         raise AssertionError(f"kernel launches {launches} in "
@@ -3694,7 +3714,8 @@ def decode_fixtures() -> dict:
                  "g4_mask_612x512.tif", "avif_q95_612x512.avif",
                  "avif_lossless444_612x512.avif", "avif_12bit_612x512.avif",
                  "avis_612x512.avif", "avif_ispe_306x256_to_612x512.avif",
-                 "avif_layers_spatial_612x512.avif"):
+                 "avif_layers_spatial_612x512.avif",
+                 "avif_inter_tools_612x512.avif"):
         times = []
         for _ in range(FIXTURE_REPEATS):
             t0 = time.perf_counter()

@@ -22,10 +22,11 @@ where the file has any. From tracks, the first usable track that is no
 alpha (`prem` naming it: premultiplied), and each gives its first
 sample. The AV1 OBUs of an item or a sample decode in `native/av1.cc`
 (every frame of the stream, key and inter: a layered item's layers, the
-temporal unit of a sample; superres and film grain included, as libaom
-hands libavif the frame); a layered item shows its last frame, or with
-`lsel` the first frame of that spatial layer (from the layers `a1lx`
-sizes up to it), in the operating point `a1op` names. An item whose
+temporal unit of a sample, a multi-frame stream in one item; superres and
+film grain included, as libaom hands libavif the frame); a layered item
+shows its last frame, or with `lsel` the first frame of that spatial
+layer (from the layers `a1lx` sizes up to it), in the operating point
+`a1op` names. An item whose
 primary is the `auxl` with the alpha URN is its alpha plane. A `grid`
 derived item is its `dimg` tiles decoded one by one, checked as libavif
 checks them and stitched (`decode_grid`). A frame whose size is not its
@@ -51,12 +52,13 @@ YuvPixel; otherwise (identity/GBR, monochrome, other matrices, 16-bit
 output) through its own float path (avifImageYUVToRGBAnySlow...).
 `to_rgb` below holds both, as this module's tests pin them to cv2.
 
-Refused by name (UnsupportedImage, "AVIF layer using ..."): the inter
-tools no layered image of libavif's uses (`AV1_TOOLS`: compound
-prediction, global motion, inter-frame segmentation, show_existing_frame,
-switch frames, short reference signalling, the bilinear or dual
-interpolation filters, loop filter delta updates, superres or film grain
-in an inter frame). A file cv2 cannot read (truncated boxes, a broken
+The inter tools of libaom's plain multi-frame streams decode too:
+compound prediction and the skip mode, global motion, shown-existing
+frames, segmentation, superres and film grain in inter frames, switch
+frames. Refused by name (UnsupportedImage, "AVIF layer using ..."): the
+inter tools no setting of libaom's encoder writes (`AV1_TOOLS`: short
+reference signalling, the bilinear or dual interpolation filters, loop
+filter delta updates in an inter frame). A file cv2 cannot read (truncated boxes, a broken
 `iloc`, a bad OBU, a monochrome image with alpha, a brand without the box
 it needs, a track without `stsd`, samples or chunks that run out or past
 the file, a first sample that is no key frame, large-scale tile, an
@@ -87,11 +89,8 @@ ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
 AV1_TOOL = -9
 AV1_NO_FRAME = -8
 LARGE_SCALE_TILE = -4
-AV1_TOOLS = {1: "show_existing_frame", 2: "compound prediction", 3: "global motion",
-             4: "segmentation", 5: "a switch frame", 6: "short reference signalling",
-             7: "the bilinear interpolation filter", 8: "dual interpolation filters",
-             9: "loop filter delta updates", 10: "superres in an inter frame",
-             11: "film grain in an inter frame"}
+AV1_TOOLS = {6: "short reference signalling", 7: "the bilinear interpolation filter",
+             8: "dual interpolation filters", 9: "loop filter delta updates"}
 
 
 def is_avif(head: bytes) -> bool:

@@ -406,17 +406,20 @@ def _av1_library() -> ctypes.CDLL:
     return lib
 
 
+AV1_CENSUS = 192   # native/av1.cc's C_COUNT
+
+
 def av1_decode(obus: bytes, op: int = 0, layer: int = -1) -> tuple:
     """Decode the frames of an AV1 OBU stream (`native/av1.cc`) in
     operating point `op` → (code, info dict, [Y, U, V] uint16 planes of
-    the output frame, census int64[128]). The output is the last shown
+    the output frame, census int64[AV1_CENSUS]). The output is the last shown
     frame, or with `layer` >= 0 the first shown frame of that spatial
     layer. code is 0 or one of the negative codes of av1.cc, and the
     planes are empty unless it is 0 (info holds the sequence header's
     fields once one was read; "tool" names the inter tool of code -9)."""
     lib = _av1_library()
     info = np.zeros(32, np.int32)
-    census = np.zeros(128, np.int64)
+    census = np.zeros(AV1_CENSUS, np.int64)
     code = lib.av1_decode(obus, len(obus), ptr(info), None, 0, ptr(census), op, layer)
     if code > -1000:
         meta = dict(zip(AV1_INFO, (int(v) for v in info[:len(AV1_INFO)])))

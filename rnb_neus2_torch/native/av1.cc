@@ -10,24 +10,34 @@
 // upscaling (7.16) between CDEF and loop restoration, then film grain
 // synthesis (7.18.3, av1_grain.h) on the output as libaom's
 // av1_add_film_grain applies it for libavif. Every frame of the operating
-// point is decoded: key and intra-only frames, and inter frames with one
-// reference per block as libaom writes them for libavif's layers and
-// sequences (the reference slots and their saved state, 7.20; the inter
-// frame header; CDFs loaded from the primary reference; motion vector
-// prediction with its temporal candidates from the motion field, 7.9-7.10;
-// translation at any reference scale, OBMC, local warped motion, smooth and
-// wedge inter-intra, 7.11.3; variable inter transforms; the loop filter's
-// reference and mode deltas), where libaom differs from the specification
-// following libaom (warp samples stepped by each neighbour's size, a
-// missing temporal candidate making the zero-MV context 1). The output is
-// the last shown frame, or the first one of a chosen spatial layer. The
-// inter tools no such stream uses (see Tool) are refused with ERR_TOOL;
-// large-scale tile has its own code; so has what libaom rejects (a tile
-// whose symbols overrun it or end without the trailing bits, an invalid
-// segment id, a reference that was never decoded, ...).
+// point is decoded: key, intra-only, inter and switch frames, and frames
+// shown again (show_existing_frame, 7.21), as libaom writes them for
+// libavif's layers and sequences and in its plain multi-frame streams with
+// look-ahead: the reference slots and their saved state (7.20: CDFs, loop
+// filter deltas, segmentation features and ids, global motion, film
+// grain); the inter frame header with the skip mode's references (5.9.22)
+// and global motion models coded against the primary reference's
+// (5.9.24-5.9.25); segmentation in inter frames with map and temporal
+// updates (5.11.19); one or two references per block (5.11.25, with
+// libaom's neighbour contexts) and the skip mode; motion vector prediction
+// for both with its temporal candidates from the motion field (7.9-7.10);
+// translation at any reference scale, global and local warped motion,
+// OBMC, smooth and wedge inter-intra, and compound prediction averaged,
+// weighted by frame distance, or blended by a wedge or a difference mask
+// (7.11.3) with libaom's roundings; variable inter transforms; the loop
+// filter's reference and mode deltas; superres and film grain in any
+// frame. Where libaom differs from the specification this follows libaom
+// (warp samples stepped by each neighbour's size, a missing temporal
+// candidate making the zero-MV context 1, the compound extra search). The
+// output is the last shown frame, or the first one of a chosen spatial
+// layer. The tools libaom's encoder never writes (see Tool) are refused
+// with ERR_TOOL; large-scale tile has its own code; so has what libaom
+// rejects (a tile whose symbols overrun it or end without the trailing
+// bits, an invalid segment id, a reference that was never decoded, a slot
+// shown again that holds no showable frame, ...).
 //
 // C interface (ctypes, io/native.py):
-//   av1_decode(obus, n, info[32], planes, cap, census[128], op, layer)
+//   av1_decode(obus, n, info[32], planes, cap, census[192], op, layer)
 //     -> 0 or < 0
 // info receives the sequence header's and the output frame's values (see
 // INFO_*); planes receives Y, then U, then V (uint16, each plane's width x
@@ -65,14 +75,12 @@ enum Info {
     INFO_TOOL, INFO_FRAMES, INFO_SPATIAL_ID,
 };
 
-// the inter tools refused by name (ERR_TOOL; io/avif.py names them): none
-// is in the streams libaom writes for libavif's layers (skip mode needs
-// compound prediction)
-enum Tool {
-    TOOL_SHOW_EXISTING = 1, TOOL_COMPOUND, TOOL_GLOBAL_MOTION, TOOL_SEGMENTATION,
-    TOOL_SWITCH_FRAME, TOOL_FRAME_REFS_SHORT, TOOL_BILINEAR,
-    TOOL_DUAL_FILTER, TOOL_LF_DELTAS, TOOL_SUPERRES_INTER, TOOL_GRAIN_INTER,
-};
+// the inter tools refused by name (ERR_TOOL; io/avif.py names them): those
+// no setting of libaom's encoder writes (its sequence headers never enable
+// dual filters, it picks no bilinear filter, updates no loop filter delta
+// in an inter frame and never signals references short); numbers 1-5, 10
+// and 11 named tools decoded since
+enum Tool { TOOL_FRAME_REFS_SHORT = 6, TOOL_BILINEAR = 7, TOOL_DUAL_FILTER = 8, TOOL_LF_DELTAS = 9 };
 
 enum Census {
     C_PARTITION = 0,      // 10 partition kinds
@@ -102,13 +110,35 @@ enum Census {
     C_LOCALWARP_INVALID = 115, C_INTER_LR = 116, C_CHROMA_SUB8X8 = 117, C_SPATIAL_LAYERS = 118,
     C_INTER_SKIP = 119, C_INTER_DEBLOCK = 120, C_TEMPORAL_MV = 121, C_MOTION_MODE_READ = 122,
     C_REF_FRAME_MVS = 123, C_OBMC = 124, C_LOCALWARP = 125, C_INTER_CDEF = 126, C_INTERINTRA = 127,
-    C_COUNT = 128,
+    // the tools of libaom's plain multi-frame streams: compound blocks, by
+    // type (average, distance weights, wedge, difference weights),
+    // skip-mode blocks, unidirectional compound references, the eight
+    // compound modes; global motion models per reference (translation,
+    // rotation-zoom, affine), blocks warped by one, models whose shear
+    // leaves them translations; shown-existing frames (of a key frame);
+    // inter frames with segmentation, their map updates, temporal updates,
+    // predicted segment ids, blocks under the reference, skip and global
+    // motion features, features loaded from a reference; inter frames with
+    // superres, with film grain (loaded from a reference); switch frames
+    C_COMPOUND = 128, C_COMP_AVERAGE = 129, C_COMP_DISTANCE = 130, C_COMP_WEDGE = 131,
+    C_COMP_DIFFWTD = 132, C_SKIP_MODE = 133, C_UNIDIR_COMP = 134, C_COMPOUND_MODE = 135,
+    C_GM_TRANSLATION = 143, C_GM_ROTZOOM = 144, C_GM_AFFINE = 145, C_GM_WARP = 146, C_GM_INVALID = 147,
+    C_SHOW_EXISTING = 148, C_SHOW_EXISTING_KEY = 149,
+    C_INTER_SEG = 150, C_SEG_UPDATE_MAP = 151, C_SEG_TEMPORAL = 152, C_SEG_PREDICTED = 153,
+    C_SEG_REF_FRAME = 154, C_SEG_SKIP = 155, C_SEG_GLOBALMV = 156, C_SEG_FROM_REF = 157,
+    C_SUPERRES_INTER = 161, C_GRAIN_INTER = 162, C_GRAIN_FROM_REF = 163, C_SWITCH_FRAME = 164,
+    C_COUNT = 192,
 };
 
 enum { INTRA_FRAME = 0, LAST_FRAME = 1, GOLDEN_FRAME = 4, BWDREF_FRAME = 5, ALTREF2_FRAME = 6,
        ALTREF_FRAME = 7, NONE_FRAME = -1 };
 enum { KEY_FRAME = 0, INTER_FRAME = 1, INTRA_ONLY_FRAME = 2, SWITCH_FRAME = 3 };
-enum { NEARESTMV = 13, NEARMV = 14, GLOBALMV = 15, NEWMV = 16 };
+enum { NEARESTMV = 13, NEARMV = 14, GLOBALMV = 15, NEWMV = 16, NEAREST_NEARESTMV = 17,
+       NEAR_NEARMV = 18, NEAREST_NEWMV = 19, NEW_NEARESTMV = 20, NEAR_NEWMV = 21, NEW_NEARMV = 22,
+       GLOBAL_GLOBALMV = 23, NEW_NEWMV = 24 };
+enum { COMPOUND_WEDGE, COMPOUND_DIFFWTD, COMPOUND_AVERAGE, COMPOUND_DISTANCE };
+enum { IDENTITY, TRANSLATION, ROTZOOM, AFFINE };
+enum { SEG_LVL_REF_FRAME = 5, SEG_LVL_SKIP = 6, SEG_LVL_GLOBALMV = 7 };
 enum { EIGHTTAP = 0, EIGHTTAP_SMOOTH = 1, EIGHTTAP_SHARP = 2, BILINEAR = 3, SWITCHABLE = 4 };
 const int kSizeGroup[22] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 3, 3, 3, 3, 0, 0, 1, 1, 2, 2};
 
@@ -215,6 +245,7 @@ struct Bits {
         return (v << 1) - m + f(1);
     }
     uint32_t le(int k) { uint32_t x = 0; for (int i = 0; i < k; i++) x |= f(8) << (8 * i); return x; }
+    uint32_t literal(int k) { return f(k); }
     void align() { pos = (pos + 7) & ~(size_t)7; }
 };
 
@@ -318,6 +349,8 @@ struct Cdfs {
     uint16_t refmv[6][3], drl[3][3], interp[16][4], motion_mode[22][4], obmc[22][3];
     uint16_t interintra[4][3], comp_inter[5][3], skip_mode[3][3], seg_pred[3][3], nmv[143];
     uint16_t interintra_mode[4][5], wedge_interintra[22][3], wedge_idx[22][17];
+    uint16_t comp_ref_type[5][3], uni_comp_ref[3][3][3], comp_ref[3][3][3], comp_bwdref[3][2][3];
+    uint16_t compound_mode[8][9], comp_group_idx[6][3], compound_idx[6][3], compound_type[22][3];
 
     // libaom's av1_reset_cdf_symbol_counters: the counter after each CDF's
     // last symbol, for the number of symbols each is read with
@@ -347,6 +380,8 @@ struct Cdfs {
         zero(refmv, 2); zero(drl, 2); zero(interp, 3); zero(motion_mode, 3); zero(obmc, 2);
         zero(interintra, 2); zero(comp_inter, 2); zero(skip_mode, 2); zero(seg_pred, 2);
         zero(interintra_mode, 4); zero(wedge_interintra, 2); zero(wedge_idx, 16);
+        zero(comp_ref_type, 2); zero(uni_comp_ref, 2); zero(comp_ref, 2); zero(comp_bwdref, 2);
+        zero(compound_mode, 8); zero(comp_group_idx, 2); zero(compound_idx, 2); zero(compound_type, 2);
         // nmv: joints, then per component classes, class0_fr (2), fr, sign,
         // class0_hp, hp, class0, bits (10)
         nmv[4] = 0;
@@ -379,6 +414,10 @@ struct Cdfs {
         CP(seg_pred, k_seg_pred_cdf); CP(nmv, k_nmv_cdf);
         CP(interintra_mode, k_interintra_mode_cdf); CP(wedge_interintra, k_wedge_interintra_cdf);
         CP(wedge_idx, k_wedge_idx_cdf);
+        CP(comp_ref_type, k_comp_ref_type_cdf); CP(uni_comp_ref, k_uni_comp_ref_cdf); CP(comp_ref, k_comp_ref_cdf);
+        CP(comp_bwdref, k_comp_bwdref_cdf); CP(compound_mode, k_compound_mode_cdf);
+        CP(comp_group_idx, k_comp_group_idx_cdf); CP(compound_idx, k_compound_idx_cdf);
+        CP(compound_type, k_compound_type_cdf);
         int q = baseQ <= 20 ? 0 : baseQ <= 60 ? 1 : baseQ <= 120 ? 2 : 3;
         CP(txb_skip, k_txb_skip_cdf[q]); CP(eob16, k_eob_multi16_cdf[q]); CP(eob32, k_eob_multi32_cdf[q]);
         CP(eob64, k_eob_multi64_cdf[q]); CP(eob128, k_eob_multi128_cdf[q]);
@@ -409,6 +448,8 @@ struct RefSlot {
     FilmGrain grain;
     std::vector<int8_t> mfRef;     // per 8x8: the reference of a backward motion vector, or -1
     std::vector<int16_t> mfMv;     // and that vector (row, col)
+    int showable = 0, gm[8][6];    // showable_frame; SavedGmParams
+    std::vector<uint8_t> segIds;   // SavedSegmentIds, miRows x miCols
 };
 
 struct Decoder {
@@ -420,7 +461,7 @@ struct Decoder {
     int frameWidthBits = 0, frameHeightBits = 0, maxW = 0, maxH = 0;
     int frameIdPresent = 0, idLen = 0, sb128 = 0, enFilterIntra = 0, enIntraEdge = 0;
     int enOrderHint = 0, orderHintBits = 0, forceSct = 0, forceIntMv = 0;
-    int enInterintra = 0, enWarped = 0, enDualFilter = 0, enRefFrameMvs = 0;
+    int enInterintra = 0, enMaskedCompound = 0, enWarped = 0, enDualFilter = 0, enRefFrameMvs = 0, enJntComp = 0;
     int enSuperres = 0, enCdef = 0, enRestoration = 0, filmGrainPresent = 0;
     int bitDepth = 8, mono = 0, ssx = 1, ssy = 1, cp = 2, tc = 2, mc = 2, colorRange = 0;
     int csp = 0, sepUvDelta = 0, numPlanes = 3;
@@ -431,6 +472,12 @@ struct Decoder {
     int allowHp = 0, forceIntegerMv = 0, interpFilter = 0, motionSwitchable = 0, useRefFrameMvs = 0;
     int referenceSelect = 0, allowWarped = 0, disableFrameEndUpdateCdf = 1, contextUpdateTileId = 0;
     int RenderWidth = 0, RenderHeight = 0, refusedTool = 0, deltaFrameIdLen = 0;
+    int showExistingFrame = 0, frameToShow = 0, skipModePresent = 0, SkipModeFrame[2] = {0, 0};
+    // global motion (5.9.24): gm_params per reference, its type, and
+    // whether its shear allows a warp (setupShear, 7.11.3.6)
+    int gmParams[8][6], gmType[8] = {0}, gmValid[8] = {0}, gmShear[8][4];
+    int segUpdateMap = 0, segTemporalUpdate = 0;
+    std::vector<uint8_t> prevSegIds;    // PrevSegmentIds, MiRows x MiCols (empty: all 0)
     RefSlot refs[8];
     Cdfs frameCdf, savedCdf;
     int FrameWidth = 0, FrameHeight = 0, MiCols = 0, MiRows = 0;
@@ -455,7 +502,8 @@ struct Decoder {
     std::vector<int8_t> refFrame0;      // RefFrames[][][0]: INTRA_FRAME or LAST_FRAME..ALTREF_FRAME
     std::vector<int8_t> refFrame1;      // RefFrames[][][1]: NONE, or INTRA_FRAME for inter-intra
     std::vector<uint8_t> filt0, filt1;  // InterpFilters: vertical, horizontal
-    std::vector<int16_t> mvRow, mvCol;
+    std::vector<int16_t> mvRow, mvCol, mvRow1, mvCol1;   // Mvs[][][0] and [1]
+    std::vector<uint8_t> skipModeMi, compGroupIdxMi, compoundIdxMi, segPredMi;
     std::vector<int8_t> deltaLFs;       // 4 per mi
     std::vector<uint16_t> palColors;    // 2 planes x 8 per mi
     std::vector<uint8_t> txTypes;       // luma, per 4x4
@@ -480,10 +528,11 @@ struct Decoder {
     // ---- block state
     int MiRow = 0, MiCol = 0, MiSize = 0, bw4 = 0, bh4 = 0, HasChroma = 0;
     int AvailU = 0, AvailL = 0, AvailUChroma = 0, AvailLChroma = 0;
-    int Skip = 0, segment_id = 0, Lossless = 0, use_intrabc = 0, Mv[2] = {0, 0};
-    int is_inter = 0, RefFrame0 = 0, interpF[2] = {0, 0}, RefMvIdx = 0, motionMode = 0;
+    int Skip = 0, segment_id = 0, Lossless = 0, use_intrabc = 0, Mv[2] = {0, 0}, Mv1[2] = {0, 0};
+    int is_inter = 0, RefFrame0 = 0, RefFrame1 = -1, interpF[2] = {0, 0}, RefMvIdx = 0, motionMode = 0;
     int interintra = 0, interintraMode = 0, wedgeInterintra = 0, wedgeIndex = 0;
-    int AboveRefFrame0 = 0, LeftRefFrame0 = 0;
+    int skipMode = 0, compoundType = COMPOUND_AVERAGE, compGroupIdx = 0, compoundIdx = 1, wedgeSign = 0, maskType = 0;
+    int AboveRefFrame0 = 0, LeftRefFrame0 = 0, AboveRefFrame1 = -1, LeftRefFrame1 = -1;
     uint16_t ndvc[143];
     int YMode = 0, UVMode = 0, AngleDeltaY = 0, AngleDeltaUV = 0, CflAlphaU = 0, CflAlphaV = 0;
     int PaletteSizeY = 0, PaletteSizeUV = 0, use_filter_intra = 0, filter_intra_mode = 0;
@@ -557,9 +606,9 @@ struct Decoder {
         sb128 = b.f(1); enFilterIntra = b.f(1); enIntraEdge = b.f(1);
         if (reducedStill) { forceSct = 2; forceIntMv = 2; enOrderHint = 0; orderHintBits = 0; }
         else {
-            enInterintra = b.f(1); b.f(1); enWarped = b.f(1); enDualFilter = b.f(1);  // masked unused
+            enInterintra = b.f(1); enMaskedCompound = b.f(1); enWarped = b.f(1); enDualFilter = b.f(1);
             enOrderHint = b.f(1);
-            if (enOrderHint) { b.f(1); enRefFrameMvs = b.f(1); }  // jnt_comp
+            if (enOrderHint) { enJntComp = b.f(1); enRefFrameMvs = b.f(1); }
             forceSct = b.f(1) ? 2 : b.f(1);
             if (forceSct > 0) forceIntMv = b.f(1) ? 2 : b.f(1);
             else forceIntMv = 2;
@@ -669,16 +718,26 @@ struct Decoder {
     }
 
     void frame_header(Bits& b, int temporalId, int spatialId) {
-        int showExisting = 0;
+        showExistingFrame = 0;
         if (reducedStill) { frameType = KEY_FRAME; showFrame = 1; showableFrame = 0; }
         else {
-            showExisting = b.f(1);
-            if (showExisting) refuse(TOOL_SHOW_EXISTING);
+            if (b.f(1)) {
+                // show_existing_frame: a saved frame shown again, with its
+                // film grain (load_grain_params); libaom fails on a slot
+                // that holds no showable frame
+                frameToShow = b.f(3);
+                if (decoderModelInfo && !equalPictureInterval) b.f(framePresentationTimeLen);
+                if (frameIdPresent) b.f(idLen);
+                const RefSlot& r = refs[frameToShow];
+                if (!r.valid || !r.showable) throw (int)ERR_BITSTREAM;
+                showExistingFrame = 1; showFrame = 1; frameType = r.frameType;
+                return;
+            }
             frameType = b.f(2); showFrame = b.f(1);
-            if (frameType == SWITCH_FRAME) refuse(TOOL_SWITCH_FRAME);
+            if (frameType == SWITCH_FRAME) census[C_SWITCH_FRAME]++;
             if (showFrame && decoderModelInfo && !equalPictureInterval) b.f(framePresentationTimeLen);
             showableFrame = showFrame ? frameType != KEY_FRAME : b.f(1);
-            errorResilient = (frameType == KEY_FRAME && showFrame) ? 1 : b.f(1);
+            errorResilient = (frameType == SWITCH_FRAME || (frameType == KEY_FRAME && showFrame)) ? 1 : b.f(1);
         }
         frameIsIntra = frameType == KEY_FRAME || frameType == INTRA_ONLY_FRAME;
         if (frameType == KEY_FRAME && showFrame) {
@@ -690,7 +749,7 @@ struct Decoder {
         forceIntegerMv = allowSct ? (forceIntMv == 2 ? (int)b.f(1) : forceIntMv) : 0;
         if (frameIsIntra) forceIntegerMv = 1;
         if (frameIdPresent) b.f(idLen);
-        int overrideSize = reducedStill ? 0 : b.f(1);
+        int overrideSize = frameType == SWITCH_FRAME ? 1 : reducedStill ? 0 : b.f(1);
         orderHint = b.f(orderHintBits);
         primaryRefFrame = (frameIsIntra || errorResilient) ? 7 : b.f(3);
         if (!reducedStill && decoderModelInfo) {
@@ -704,7 +763,7 @@ struct Decoder {
             }
         }
         allowHp = 0; useRefFrameMvs = 0; allowIntrabc = 0;
-        refreshFlags = (frameType == KEY_FRAME && showFrame) ? 0xFF : b.f(8);
+        refreshFlags = (frameType == SWITCH_FRAME || (frameType == KEY_FRAME && showFrame)) ? 0xFF : b.f(8);
         if (frameType == INTRA_ONLY_FRAME && refreshFlags == 0xFF) throw (int)ERR_BITSTREAM;
         if ((!frameIsIntra || refreshFlags != 0xFF) && errorResilient && enOrderHint)
             for (int i = 0; i < 8; i++) {
@@ -765,10 +824,18 @@ struct Decoder {
         lfRefDeltas[0] = 1; lfRefDeltas[1] = 0; lfRefDeltas[2] = 0; lfRefDeltas[3] = 0;
         lfRefDeltas[4] = -1; lfRefDeltas[5] = 0; lfRefDeltas[6] = -1; lfRefDeltas[7] = -1;
         lfModeDeltas[0] = lfModeDeltas[1] = 0;
+        memset(featEn, 0, sizeof(featEn)); memset(featData, 0, sizeof(featData));
+        for (int r = 0; r < 8; r++) for (int i = 0; i < 6; i++) prevGm[r][i] = i % 3 == 2 ? 1 << 16 : 0;
+        prevSegIds.clear();
         if (primaryRefFrame != 7) {
+            // load_previous: the loop filter deltas, segmentation features,
+            // global motion and segment ids of the primary reference
             const RefSlot& r = refs[refFrameIdx[primaryRefFrame]];
             memcpy(lfRefDeltas, r.lfRefDeltas, sizeof(lfRefDeltas));
             memcpy(lfModeDeltas, r.lfModeDeltas, sizeof(lfModeDeltas));
+            memcpy(featEn, r.featEn, sizeof(featEn)); memcpy(featData, r.featData, sizeof(featData));
+            memcpy(prevGm, r.gm, sizeof(prevGm));
+            if (r.miRows == MiRows && r.miCols == MiCols) prevSegIds = r.segIds;
             census[C_PRIMARY_REF]++;
         }
         tile_info(b);
@@ -786,15 +853,30 @@ struct Decoder {
         if (usingQm) { qmY = b.f(4); qmU = b.f(4); qmV = sepUvDelta ? b.f(4) : qmU; }
         // segmentation_params
         segEnabled = b.f(1);
-        memset(featEn, 0, sizeof(featEn)); memset(featData, 0, sizeof(featData));
-        if (segEnabled) {
-            if (!frameIsIntra) refuse(TOOL_SEGMENTATION);
-            for (int i = 0; i < 8; i++) for (int j = 0; j < 8; j++) {
-                if (b.f(1)) {
-                    featEn[i][j] = 1;
-                    int bits = kSegFeatureBits[j], lim = kSegFeatureMax[j];
-                    if (kSegFeatureSigned[j]) featData[i][j] = clip3(-lim, lim, b.su(1 + bits));
-                    else featData[i][j] = clip3(0, lim, (int)b.f(bits));
+        segUpdateMap = segTemporalUpdate = 0;
+        if (!segEnabled) { memset(featEn, 0, sizeof(featEn)); memset(featData, 0, sizeof(featData)); }
+        else {
+            int updateData = 1;
+            if (primaryRefFrame == 7) segUpdateMap = 1;
+            else {
+                segUpdateMap = b.f(1);
+                if (segUpdateMap) segTemporalUpdate = b.f(1);
+                updateData = b.f(1);
+            }
+            if (!frameIsIntra) {
+                census[C_INTER_SEG]++;
+                census[C_SEG_UPDATE_MAP] += segUpdateMap; census[C_SEG_TEMPORAL] += segTemporalUpdate;
+                census[C_SEG_FROM_REF] += !updateData;
+            }
+            if (updateData) {
+                memset(featEn, 0, sizeof(featEn)); memset(featData, 0, sizeof(featData));
+                for (int i = 0; i < 8; i++) for (int j = 0; j < 8; j++) {
+                    if (b.f(1)) {
+                        featEn[i][j] = 1;
+                        int bits = kSegFeatureBits[j], lim = kSegFeatureMax[j];
+                        if (kSegFeatureSigned[j]) featData[i][j] = clip3(-lim, lim, b.su(1 + bits));
+                        else featData[i][j] = clip3(0, lim, (int)b.f(bits));
+                    }
                 }
             }
         }
@@ -837,7 +919,7 @@ struct Decoder {
             lfSharp = b.f(3);
             lfDeltaEnabled = b.f(1);
             if (lfDeltaEnabled && b.f(1)) {
-                if (!frameIsIntra) refuse(TOOL_LF_DELTAS);
+                if (!frameIsIntra) refuse(TOOL_LF_DELTAS);   // no libaom setting writes one
                 for (int i = 0; i < 8; i++) if (b.f(1)) lfRefDeltas[i] = b.su(7);
                 for (int i = 0; i < 2; i++) if (b.f(1)) lfModeDeltas[i] = b.su(7);
             }
@@ -874,7 +956,7 @@ struct Decoder {
         // read_tx_mode, frame_reference_mode, skip_mode_params, warped motion
         txModeSelect = codedLossless ? 0 : b.f(1);
         referenceSelect = frameIsIntra ? 0 : b.f(1);
-        if (referenceSelect) refuse(TOOL_COMPOUND);
+        skip_mode_params(b);
         allowWarped = (frameIsIntra || errorResilient || !enWarped) ? 0 : b.f(1);
         reducedTxSet = b.f(1);
         global_motion_params(b);
@@ -884,12 +966,72 @@ struct Decoder {
         headerDone = 1;
     }
 
-    // global_motion_params (5.9.24): every model but the identity is
-    // refused, so global motion vectors are zero
+    // skip_mode_params (5.9.22): the nearest forward and backward
+    // references, or the two nearest forward ones
+    void skip_mode_params(Bits& b) {
+        skipModePresent = 0;
+        if (frameIsIntra || !referenceSelect || !enOrderHint) return;
+        int fwd = -1, bwd = -1, fwdHint = 0, bwdHint = 0;
+        for (int i = 0; i < 7; i++) {
+            int h = refs[refFrameIdx[i]].orderHint;
+            if (relative_dist(h, orderHint) < 0) {
+                if (fwd < 0 || relative_dist(h, fwdHint) > 0) { fwd = i; fwdHint = h; }
+            } else if (relative_dist(h, orderHint) > 0) {
+                if (bwd < 0 || relative_dist(h, bwdHint) < 0) { bwd = i; bwdHint = h; }
+            }
+        }
+        int other = bwd;
+        if (fwd < 0) return;
+        if (bwd < 0) {
+            int fwd2Hint = 0;
+            for (int i = 0; i < 7; i++) {
+                int h = refs[refFrameIdx[i]].orderHint;
+                if (relative_dist(h, fwdHint) < 0 && (other < 0 || relative_dist(h, fwd2Hint) > 0)) { other = i; fwd2Hint = h; }
+            }
+            if (other < 0) return;
+        }
+        SkipModeFrame[0] = LAST_FRAME + std::min(fwd, other);
+        SkipModeFrame[1] = LAST_FRAME + std::max(fwd, other);
+        skipModePresent = b.f(1);
+    }
+
+    // global_motion_params (5.9.24-5.9.25): each reference's model coded
+    // against PrevGmParams (the primary reference's, or the defaults), and
+    // whether libaom's av1_get_shear_params lets it warp
+    int prevGm[8][6];
+    void read_global_param(Bits& b, int type, int ref, int idx) {
+        int absBits = 12, precBits = 15;
+        if (idx < 2) {
+            if (type == TRANSLATION) { absBits = 9 - !allowHp; precBits = 3 - !allowHp; }
+            else { absBits = 12; precBits = 6; }
+        }
+        int precDiff = 16 - precBits, round = idx % 3 == 2 ? 1 << 16 : 0, sub = idx % 3 == 2 ? 1 << precBits : 0;
+        int mx = 1 << absBits, r = (prevGm[ref][idx] >> precDiff) - sub;
+        gmParams[ref][idx] = signed_subexp_with_ref(b, -mx, mx + 1, 3, r) * (1 << precDiff) + round;
+    }
     void global_motion_params(Bits& b) {
+        for (int r = 0; r < 8; r++) {
+            gmType[r] = IDENTITY; gmValid[r] = 1;
+            for (int i = 0; i < 6; i++) gmParams[r][i] = i % 3 == 2 ? 1 << 16 : 0;
+            for (int i = 0; i < 4; i++) gmShear[r][i] = 0;
+        }
         if (frameIsIntra) return;
-        for (int r = LAST_FRAME; r <= ALTREF_FRAME; r++)
-            if (b.f(1)) refuse(TOOL_GLOBAL_MOTION);    // is_global: no fixture's encoder sets one
+        for (int r = LAST_FRAME; r <= ALTREF_FRAME; r++) {
+            int type = IDENTITY;
+            if (b.f(1)) type = b.f(1) ? ROTZOOM : b.f(1) ? TRANSLATION : AFFINE;
+            gmType[r] = type;
+            if (type >= ROTZOOM) {
+                read_global_param(b, type, r, 2); read_global_param(b, type, r, 3);
+                if (type == AFFINE) { read_global_param(b, type, r, 4); read_global_param(b, type, r, 5); }
+                else { gmParams[r][4] = -gmParams[r][3]; gmParams[r][5] = gmParams[r][2]; }
+            }
+            if (type >= TRANSLATION) { read_global_param(b, type, r, 0); read_global_param(b, type, r, 1); }
+            if (type) census[C_GM_TRANSLATION + type - 1]++;
+            int64_t m[6];
+            for (int i = 0; i < 6; i++) m[i] = gmParams[r][i];
+            gmValid[r] = shear_params(m, gmShear[r]);
+            if (!gmValid[r]) census[C_GM_INVALID]++;
+        }
     }
 
     // ---- the motion field (7.9) as libaom's av1_setup_motion_field keeps
@@ -962,9 +1104,12 @@ struct Decoder {
         if (!g.apply) return;
         g.seed = b.f(16);
         if (frameType == INTER_FRAME && !b.f(1)) {   // update_grain = 0: a reference's, with this seed
-            int seed = g.seed;
-            g = refs[b.f(3)].grain;
+            int seed = g.seed, idx = b.f(3), found = 0;
+            for (int i = 0; i < 7; i++) found |= refFrameIdx[i] == idx;
+            if (!found) throw (int)ERR_BITSTREAM;   // as libaom
+            g = refs[idx].grain;
             g.seed = seed;
+            census[C_GRAIN_FROM_REF]++;
             return;
         }
         auto points = [&](int n, int (*pt)[2]) {
@@ -1014,6 +1159,8 @@ struct Decoder {
         miSize.assign(n, 0); yMode.assign(n, 0); uvMode.assign(n, 0); skip.assign(n, 0);
         isInter.assign(n, 0); segId.assign(n, 0); txSizeMi.assign(n, 0); palSize0.assign(n, 0);
         palSize1.assign(n, 0); lossMi.assign(n, 0); written.assign(n, 0); mvRow.assign(n, 0); mvCol.assign(n, 0); deltaLFs.assign(n * 4, 0); palColors.assign(n * 16, 0);
+        mvRow1.assign(n, 0); mvCol1.assign(n, 0); skipModeMi.assign(n, 0); compGroupIdxMi.assign(n, 0);
+        compoundIdxMi.assign(n, 1); segPredMi.assign(n, 0);
         txTypes.assign(n, 0); refFrame0.assign(n, 0); refFrame1.assign(n, -1); filt0.assign(n, 0); filt1.assign(n, 0);
         for (int p = 0; p < 3; p++) lfTx[p].assign(n, 0);
         cdefStride = cols / 16 + 2;
@@ -1112,23 +1259,22 @@ struct Decoder {
         }
     }
 
-    int decode_subexp_bool(int numSyms, int k) {
-        int i = 0, mk = 0;
-        while (true) {
-            int b2 = i ? k + i - 1 : k, a = 1 << b2;
-            if (numSyms <= mk + 3 * a) return sd.ns(numSyms - mk) + mk;
-            if (sd.literal(1)) { i++; mk += a; }
-            else return sd.literal(b2) + mk;
-        }
-    }
     static int inverse_recenter(int r, int v) {
         if (v > 2 * r) return v;
         if (v & 1) return r - ((v + 1) >> 1);
         return r + (v >> 1);
     }
-    int decode_signed_subexp_with_ref(int low, int high, int k, int r) {
-        int mx = high - low; r -= low;
-        int v = decode_subexp_bool(mx, k);
+    // decode_signed_subexp_with_ref (5.11.58 on symbols, 5.9.26-5.9.28 on
+    // header bits: either reader's ns and literal)
+    template <typename R> static int signed_subexp_with_ref(R& rd, int low, int high, int k, int r) {
+        int mx = high - low, i = 0, mk = 0, v;
+        r -= low;
+        while (true) {
+            int b2 = i ? k + i - 1 : k, a = 1 << b2;
+            if (mx <= mk + 3 * a) { v = (int)rd.ns(mx - mk) + mk; break; }
+            if (rd.literal(1)) { i++; mk += a; }
+            else { v = (int)rd.literal(b2) + mk; break; }
+        }
         int x = (r << 1) <= mx ? inverse_recenter(r, v) : mx - 1 - inverse_recenter(mx - 1 - r, v);
         return x + low;
     }
@@ -1146,7 +1292,7 @@ struct Decoder {
                 int first = 0;
                 if (p) { first = 1; lrWiener[p][u * 6 + pass * 3] = 0; }
                 for (int j = first; j < 3; j++) {
-                    int v = decode_signed_subexp_with_ref(kWienerTapsMin[j], kWienerTapsMax[j] + 1, kWienerTapsK[j], refLrWiener[p][pass][j]);
+                    int v = signed_subexp_with_ref(sd, kWienerTapsMin[j], kWienerTapsMax[j] + 1, kWienerTapsK[j], refLrWiener[p][pass][j]);
                     lrWiener[p][u * 6 + pass * 3 + j] = (int16_t)v;
                     refLrWiener[p][pass][j] = v;
                 }
@@ -1158,7 +1304,7 @@ struct Decoder {
             for (int i = 0; i < 2; i++) {
                 int radius = k_sgr_params[set][i];
                 int v;
-                if (radius) v = decode_signed_subexp_with_ref(kSgrprojXqdMin[i], kSgrprojXqdMax[i] + 1, 4, refSgrXqd[p][i]);
+                if (radius) v = signed_subexp_with_ref(sd, kSgrprojXqdMin[i], kSgrprojXqdMax[i] + 1, 4, refSgrXqd[p][i]);
                 else { v = 0; if (i == 1) v = clip3(kSgrprojXqdMin[i], kSgrprojXqdMax[i], (1 << 7) - refSgrXqd[p][0]); }
                 lrSgr[p][u * 3 + 1 + i] = (int16_t)v;
                 refSgrXqd[p][i] = v;
@@ -1289,8 +1435,11 @@ struct Decoder {
             size_t m = mi(r + y, c + x);
             yMode[m] = (uint8_t)YMode; uvMode[m] = (uint8_t)UVMode;
             isInter[m] = (uint8_t)is_inter; skip[m] = (uint8_t)Skip; written[m] = 1;
-            refFrame0[m] = (int8_t)RefFrame0; refFrame1[m] = (int8_t)(interintra ? INTRA_FRAME : NONE_FRAME); filt0[m] = (uint8_t)interpF[0]; filt1[m] = (uint8_t)interpF[1];
-            mvRow[m] = (int16_t)Mv[0]; mvCol[m] = (int16_t)Mv[1];
+            refFrame0[m] = (int8_t)RefFrame0; filt0[m] = (uint8_t)interpF[0]; filt1[m] = (uint8_t)interpF[1];
+            refFrame1[m] = (int8_t)(RefFrame1 > INTRA_FRAME ? RefFrame1 : interintra ? INTRA_FRAME : NONE_FRAME);
+            mvRow[m] = (int16_t)Mv[0]; mvCol[m] = (int16_t)Mv[1]; mvRow1[m] = (int16_t)Mv1[0]; mvCol1[m] = (int16_t)Mv1[1];
+            skipModeMi[m] = (uint8_t)skipMode; compGroupIdxMi[m] = (uint8_t)compGroupIdx;
+            compoundIdxMi[m] = (uint8_t)compoundIdx; segPredMi[m] = (uint8_t)segIdPredicted;
             miSize[m] = (uint8_t)MiSize; segId[m] = (uint8_t)segment_id;
             palSize0[m] = (uint8_t)PaletteSizeY; palSize1[m] = (uint8_t)PaletteSizeUV;
             lossMi[m] = (uint8_t)Lossless;
@@ -1304,8 +1453,8 @@ struct Decoder {
             census[C_YMODE + YMode]++;
             if (HasChroma) census[C_UVMODE + UVMode]++;
         } else {
-            census[C_NEARESTMV + YMode - NEARESTMV]++;
-            census[C_FILTER + interpF[0]]++;
+            if (YMode < NEAREST_NEARESTMV) census[C_NEARESTMV + YMode - NEARESTMV]++;
+            if (interpF[0] < BILINEAR) census[C_FILTER + interpF[0]]++;
         }
         if (Lossless) census[C_LOSSLESS]++;
         if (use_intrabc) predict_intrabc();
@@ -1366,8 +1515,9 @@ struct Decoder {
         read_delta_qindex();
         read_delta_lf();
         readDeltas = 0;
-        use_intrabc = 0; Mv[0] = Mv[1] = 0;
-        is_inter = 0; RefFrame0 = INTRA_FRAME; interpF[0] = interpF[1] = 0; interintra = 0;
+        use_intrabc = 0; Mv[0] = Mv[1] = 0; Mv1[0] = Mv1[1] = 0; skipMode = 0; segIdPredicted = 0;
+        is_inter = 0; RefFrame0 = INTRA_FRAME; RefFrame1 = NONE_FRAME; interpF[0] = interpF[1] = 0; interintra = 0;
+        compGroupIdx = 0; compoundIdx = 1; compoundType = COMPOUND_AVERAGE;
         PaletteSizeY = PaletteSizeUV = 0; use_filter_intra = 0;
         memset(paletteColors, 0, sizeof(paletteColors));
         if (allowIntrabc) {
@@ -2044,7 +2194,7 @@ struct Decoder {
     }
 
     // ---- intra block copy (5.11.26, 7.10.2, 7.11.3)
-    int numMvFound = 0, stackMv[8][2], weightStack[8];
+    int numMvFound = 0, stackMv[8][2][2], weightStack[8];   // RefStackMv[idx][list][comp]
 
     void add_candidate(int r, int c, int weight) {
         size_t m = mi(r, c);
@@ -2086,8 +2236,7 @@ struct Decoder {
             for (int idx = start + 1; idx < end; idx++)
                 if (weightStack[idx - 1] < weightStack[idx]) {
                     std::swap(weightStack[idx - 1], weightStack[idx]);
-                    std::swap(stackMv[idx - 1][0], stackMv[idx][0]);
-                    std::swap(stackMv[idx - 1][1], stackMv[idx][1]);
+                    std::swap(stackMv[idx - 1], stackMv[idx]);
                     newEnd = idx;
                 }
             end = newEnd;
@@ -2099,8 +2248,8 @@ struct Decoder {
         // the stack of a block whose reference is this frame (its
         // neighbours' vectors are whole samples already)
         RefFrame0 = INTRA_FRAME;
-        find_mv_stack();
-        int nearest[2] = {stackMv[0][0], stackMv[0][1]}, near[2] = {stackMv[1][0], stackMv[1][1]};
+        find_mv_stack(0);
+        int nearest[2] = {stackMv[0][0][0], stackMv[0][0][1]}, near[2] = {stackMv[1][0][0], stackMv[1][0][1]};
         int ref[2];
         if (nearest[0] || nearest[1]) { ref[0] = nearest[0]; ref[1] = nearest[1]; }
         else { ref[0] = near[0]; ref[1] = near[1]; }
@@ -2146,30 +2295,51 @@ struct Decoder {
 
 
     // ================================================================ inter blocks
-    // inter_frame_mode_info (5.11.18) of a frame with one reference per
-    // block: segmentation, skip mode and compound references are refused
-    // in the frame header
+    // inter_frame_mode_info (5.11.18): segment ids (5.11.19), the skip
+    // mode (5.11.10), then an intra block or inter_block_mode_info
+    int seg_feature_active(int f) const { return segEnabled && featEn[segment_id][f]; }
+    int segIdPredicted = 0;
+
     void inter_frame_mode_info() {
-        use_intrabc = 0; Mv[0] = Mv[1] = 0;
-        AboveRefFrame0 = AvailU ? refFrame0[mi(MiRow - 1, MiCol)] : INTRA_FRAME;
-        LeftRefFrame0 = AvailL ? refFrame0[mi(MiRow, MiCol - 1)] : INTRA_FRAME;
+        use_intrabc = 0; Mv[0] = Mv[1] = 0; Mv1[0] = Mv1[1] = 0;
+        size_t a = AvailU ? mi(MiRow - 1, MiCol) : 0, l = AvailL ? mi(MiRow, MiCol - 1) : 0;
+        AboveRefFrame0 = AvailU ? refFrame0[a] : INTRA_FRAME; AboveRefFrame1 = AvailU ? refFrame1[a] : NONE_FRAME;
+        LeftRefFrame0 = AvailL ? refFrame0[l] : INTRA_FRAME; LeftRefFrame1 = AvailL ? refFrame1[l] : NONE_FRAME;
         int leftIntra = LeftRefFrame0 <= INTRA_FRAME, aboveIntra = AboveRefFrame0 <= INTRA_FRAME;
-        segment_id = 0;
-        int ctx = 0;
-        if (AvailU) ctx += skip[mi(MiRow - 1, MiCol)];
-        if (AvailL) ctx += skip[mi(MiRow, MiCol - 1)];
-        Skip = sd.symbol(cdf.skip[ctx], 2);
+        Skip = 0; skipMode = 0; segIdPredicted = 0;
+        inter_segment_id(1);
+        // read_skip_mode
+        if (!seg_feature_active(SEG_LVL_SKIP) && !seg_feature_active(SEG_LVL_REF_FRAME) &&
+            !seg_feature_active(SEG_LVL_GLOBALMV) && skipModePresent && bw4 >= 2 && bh4 >= 2) {
+            int ctx = (AvailU && skipModeMi[a]) + (AvailL && skipModeMi[l]);
+            skipMode = sd.symbol(cdf.skip_mode[ctx], 2);
+        }
+        if (skipMode) Skip = 1;
+        else if (segIdPreSkip && seg_feature_active(SEG_LVL_SKIP)) Skip = 1;
+        else {
+            int ctx = 0;
+            if (AvailU) ctx += skip[a];
+            if (AvailL) ctx += skip[l];
+            Skip = sd.symbol(cdf.skip[ctx], 2);
+        }
+        if (!segIdPreSkip) inter_segment_id(0);
         Lossless = losslessArr[segment_id];
         read_cdef();
         read_delta_qindex();
         read_delta_lf();
         readDeltas = 0;
-        int ictx;
-        if (AvailU && AvailL) ictx = (leftIntra && aboveIntra) ? 3 : (leftIntra || aboveIntra);
-        else if (AvailU || AvailL) ictx = 2 * (AvailU ? aboveIntra : leftIntra);
-        else ictx = 0;
-        is_inter = sd.symbol(cdf.intra_inter[ictx], 2);
-        interintra = 0;
+        // read_is_inter
+        if (skipMode) is_inter = 1;
+        else if (seg_feature_active(SEG_LVL_REF_FRAME)) is_inter = featData[segment_id][SEG_LVL_REF_FRAME] != INTRA_FRAME;
+        else if (seg_feature_active(SEG_LVL_GLOBALMV)) is_inter = 1;
+        else {
+            int ictx;
+            if (AvailU && AvailL) ictx = (leftIntra && aboveIntra) ? 3 : (leftIntra || aboveIntra);
+            else if (AvailU || AvailL) ictx = 2 * (AvailU ? aboveIntra : leftIntra);
+            else ictx = 0;
+            is_inter = sd.symbol(cdf.intra_inter[ictx], 2);
+        }
+        interintra = 0; compoundType = COMPOUND_AVERAGE; compGroupIdx = 0; compoundIdx = 1;
         PaletteSizeY = PaletteSizeUV = 0; use_filter_intra = 0;
         memset(paletteColors, 0, sizeof(paletteColors));
         if (is_inter) {
@@ -2177,35 +2347,152 @@ struct Decoder {
             inter_block_mode_info();
             return;
         }
-        RefFrame0 = INTRA_FRAME; interpF[0] = interpF[1] = 0;
+        RefFrame0 = INTRA_FRAME; RefFrame1 = NONE_FRAME; interpF[0] = interpF[1] = 0;
         YMode = sd.symbol(cdf.y_mode[kSizeGroup[MiSize]], 13);
         intra_modes_after_y();
     }
 
+    // get_segment_id: the smallest of PrevSegmentIds under the block
+    int predicted_segment_id() const {
+        if (prevSegIds.empty()) return 0;
+        int seg = 7;
+        for (int y = 0; y < std::min(MiRows - MiRow, bh4); y++)
+            for (int x = 0; x < std::min(MiCols - MiCol, bw4); x++)
+                seg = std::min(seg, (int)prevSegIds[(size_t)(MiRow + y) * MiCols + MiCol + x]);
+        return seg;
+    }
+
+    void inter_segment_id(int preSkip) {
+        if (!segEnabled) { segment_id = 0; return; }
+        if (!segUpdateMap) { segment_id = predicted_segment_id(); return; }
+        if (preSkip && !segIdPreSkip) { segment_id = 0; return; }
+        segIdPredicted = 0;
+        if (!preSkip && Skip) { read_segment_id(); return; }   // the spatial prediction
+        if (segTemporalUpdate) {
+            int ctx = (AvailU && segPredMi[mi(MiRow - 1, MiCol)]) + (AvailL && segPredMi[mi(MiRow, MiCol - 1)]);
+            segIdPredicted = sd.symbol(cdf.seg_pred[ctx], 2);
+            if (segIdPredicted) { segment_id = predicted_segment_id(); census[C_SEG_PREDICTED]++; }
+            else read_segment_id();
+        } else read_segment_id();
+    }
+
+    // read_ref_frames (5.11.25) with libaom's contexts (av1_collect_
+    // neighbors_ref_counts counts both references of an inter neighbour)
+    int has_uni_comp(int r0, int r1) const { return r1 > INTRA_FRAME && (r0 >= BWDREF_FRAME) == (r1 >= BWDREF_FRAME); }
+    int comp_ref_type_ctx() const {
+        int aIntra = AboveRefFrame0 <= INTRA_FRAME, lIntra = LeftRefFrame0 <= INTRA_FRAME;
+        if (AvailU && AvailL) {
+            if (aIntra && lIntra) return 2;
+            if (aIntra || lIntra) {
+                int r0 = aIntra ? LeftRefFrame0 : AboveRefFrame0, r1 = aIntra ? LeftRefFrame1 : AboveRefFrame1;
+                return r1 <= INTRA_FRAME ? 2 : 1 + 2 * has_uni_comp(r0, r1);
+            }
+            int aSingle = AboveRefFrame1 <= INTRA_FRAME, lSingle = LeftRefFrame1 <= INTRA_FRAME;
+            int sameDir = (AboveRefFrame0 >= BWDREF_FRAME) == (LeftRefFrame0 >= BWDREF_FRAME);
+            if (aSingle && lSingle) return 1 + 2 * sameDir;
+            if (aSingle || lSingle) {
+                int uni = aSingle ? has_uni_comp(LeftRefFrame0, LeftRefFrame1) : has_uni_comp(AboveRefFrame0, AboveRefFrame1);
+                return uni ? 3 + sameDir : 1;
+            }
+            int aUni = has_uni_comp(AboveRefFrame0, AboveRefFrame1), lUni = has_uni_comp(LeftRefFrame0, LeftRefFrame1);
+            if (!aUni && !lUni) return 0;
+            if (!aUni || !lUni) return 2;
+            return 3 + ((AboveRefFrame0 == BWDREF_FRAME) == (LeftRefFrame0 == BWDREF_FRAME));
+        }
+        if (AvailU || AvailL) {
+            int r0 = AvailU ? AboveRefFrame0 : LeftRefFrame0, r1 = AvailU ? AboveRefFrame1 : LeftRefFrame1;
+            if (r0 <= INTRA_FRAME || r1 <= INTRA_FRAME) return 2;
+            return 4 * has_uni_comp(r0, r1);
+        }
+        return 2;
+    }
+    int comp_mode_ctx() const {
+        auto bwd = [](int r) { return r >= BWDREF_FRAME; };
+        int aSingle = AboveRefFrame1 <= INTRA_FRAME, lSingle = LeftRefFrame1 <= INTRA_FRAME;
+        if (AvailU && AvailL) {
+            if (aSingle && lSingle) return bwd(AboveRefFrame0) ^ bwd(LeftRefFrame0);
+            if (aSingle) return 2 + (bwd(AboveRefFrame0) || AboveRefFrame0 <= INTRA_FRAME);
+            if (lSingle) return 2 + (bwd(LeftRefFrame0) || LeftRefFrame0 <= INTRA_FRAME);
+            return 4;
+        }
+        if (AvailU || AvailL) {
+            int r0 = AvailU ? AboveRefFrame0 : LeftRefFrame0;
+            return (AvailU ? aSingle : lSingle) ? bwd(r0) : 3;
+        }
+        return 1;
+    }
+
     void read_ref_frames() {
-        auto count = [&](int f) { return (AvailU && AboveRefFrame0 == f) + (AvailL && LeftRefFrame0 == f); };
+        RefFrame1 = NONE_FRAME;
+        if (skipMode) { RefFrame0 = SkipModeFrame[0]; RefFrame1 = SkipModeFrame[1]; return; }
+        if (seg_feature_active(SEG_LVL_REF_FRAME)) {
+            RefFrame0 = featData[segment_id][SEG_LVL_REF_FRAME]; census[C_SEG_REF_FRAME]++; return;
+        }
+        if (seg_feature_active(SEG_LVL_SKIP) || seg_feature_active(SEG_LVL_GLOBALMV)) { RefFrame0 = LAST_FRAME; return; }
+        int c[8] = {0};
+        if (AvailU && AboveRefFrame0 > INTRA_FRAME) { c[AboveRefFrame0]++; if (AboveRefFrame1 > INTRA_FRAME) c[AboveRefFrame1]++; }
+        if (AvailL && LeftRefFrame0 > INTRA_FRAME) { c[LeftRefFrame0]++; if (LeftRefFrame1 > INTRA_FRAME) c[LeftRefFrame1]++; }
         auto ctx = [](int a, int b) { return a < b ? 0 : a == b ? 1 : 2; };
-        int c1 = count(1), c2 = count(2), c3 = count(3), c4 = count(4), c5 = count(5), c6 = count(6), c7 = count(7);
-        if (sd.symbol(cdf.single_ref[ctx(c1 + c2 + c3 + c4, c5 + c6 + c7)][0], 2)) {
-            if (!sd.symbol(cdf.single_ref[ctx(c5 + c6, c7)][1], 2))
-                RefFrame0 = sd.symbol(cdf.single_ref[ctx(c5, c6)][5], 2) ? ALTREF2_FRAME : BWDREF_FRAME;
+        int compound = 0;
+        if (referenceSelect && std::min(bw4, bh4) >= 2) compound = sd.symbol(cdf.comp_inter[comp_mode_ctx()], 2);
+        if (compound) {
+            if (!sd.symbol(cdf.comp_ref_type[comp_ref_type_ctx()], 2)) {   // UNIDIR_COMP_REFERENCE
+                census[C_UNIDIR_COMP]++;
+                if (sd.symbol(cdf.uni_comp_ref[ctx(c[1] + c[2] + c[3] + c[4], c[5] + c[6] + c[7])][0], 2)) {
+                    RefFrame0 = BWDREF_FRAME; RefFrame1 = ALTREF_FRAME;
+                } else if (sd.symbol(cdf.uni_comp_ref[ctx(c[2], c[3] + c[4])][1], 2)) {
+                    RefFrame0 = LAST_FRAME;
+                    RefFrame1 = sd.symbol(cdf.uni_comp_ref[ctx(c[3], c[4])][2], 2) ? GOLDEN_FRAME : 3;
+                } else { RefFrame0 = LAST_FRAME; RefFrame1 = 2; }
+                return;
+            }
+            if (!sd.symbol(cdf.comp_ref[ctx(c[1] + c[2], c[3] + c[4])][0], 2))
+                RefFrame0 = sd.symbol(cdf.comp_ref[ctx(c[1], c[2])][1], 2) ? 2 : LAST_FRAME;
+            else RefFrame0 = sd.symbol(cdf.comp_ref[ctx(c[3], c[4])][2], 2) ? GOLDEN_FRAME : 3;
+            if (!sd.symbol(cdf.comp_bwdref[ctx(c[5] + c[6], c[7])][0], 2))
+                RefFrame1 = sd.symbol(cdf.comp_bwdref[ctx(c[5], c[6])][1], 2) ? ALTREF2_FRAME : BWDREF_FRAME;
+            else RefFrame1 = ALTREF_FRAME;
+            return;
+        }
+        if (sd.symbol(cdf.single_ref[ctx(c[1] + c[2] + c[3] + c[4], c[5] + c[6] + c[7])][0], 2)) {
+            if (!sd.symbol(cdf.single_ref[ctx(c[5] + c[6], c[7])][1], 2))
+                RefFrame0 = sd.symbol(cdf.single_ref[ctx(c[5], c[6])][5], 2) ? ALTREF2_FRAME : BWDREF_FRAME;
             else RefFrame0 = ALTREF_FRAME;
         } else {
-            if (sd.symbol(cdf.single_ref[ctx(c1 + c2, c3 + c4)][2], 2))
-                RefFrame0 = sd.symbol(cdf.single_ref[ctx(c3, c4)][4], 2) ? GOLDEN_FRAME : 3;
-            else RefFrame0 = sd.symbol(cdf.single_ref[ctx(c1, c2)][3], 2) ? 2 : LAST_FRAME;
+            if (sd.symbol(cdf.single_ref[ctx(c[1] + c[2], c[3] + c[4])][2], 2))
+                RefFrame0 = sd.symbol(cdf.single_ref[ctx(c[3], c[4])][4], 2) ? GOLDEN_FRAME : 3;
+            else RefFrame0 = sd.symbol(cdf.single_ref[ctx(c[1], c[2])][3], 2) ? 2 : LAST_FRAME;
         }
     }
 
+    // the single-reference mode of each list of a compound mode (get_mode)
+    static int list_mode(int yMode, int list) {
+        if (yMode < NEAREST_NEARESTMV) return yMode;
+        static const int modes[8][2] = {
+            {NEARESTMV, NEARESTMV}, {NEARMV, NEARMV}, {NEARESTMV, NEWMV}, {NEWMV, NEARESTMV},
+            {NEARMV, NEWMV}, {NEWMV, NEARMV}, {GLOBALMV, GLOBALMV}, {NEWMV, NEWMV}};
+        return modes[yMode - NEAREST_NEARESTMV][list];
+    }
+    static int has_newmv(int mode) { return list_mode(mode, 0) == NEWMV || list_mode(mode, 1) == NEWMV; }
+
     void inter_block_mode_info() {
         read_ref_frames();
-        find_mv_stack();
-        if (!sd.symbol(cdf.newmv[NewMvContext], 2)) YMode = NEWMV;
+        int isCompound = RefFrame1 > INTRA_FRAME;
+        find_mv_stack(isCompound);
+        if (skipMode) { YMode = NEAREST_NEARESTMV; census[C_SKIP_MODE]++; }
+        else if (seg_feature_active(SEG_LVL_SKIP) || seg_feature_active(SEG_LVL_GLOBALMV)) {
+            YMode = GLOBALMV;
+            census[seg_feature_active(SEG_LVL_SKIP) ? C_SEG_SKIP : C_SEG_GLOBALMV]++;
+        } else if (isCompound) {
+            static const int ctxMap[3][5] = {{0, 1, 1, 1, 1}, {1, 2, 3, 4, 4}, {4, 4, 5, 6, 7}};
+            YMode = NEAREST_NEARESTMV + sd.symbol(cdf.compound_mode[ctxMap[RefMvContext >> 1][std::min(NewMvContext, 4)]], 8);
+        } else if (!sd.symbol(cdf.newmv[NewMvContext], 2)) YMode = NEWMV;
         else if (!sd.symbol(cdf.zeromv[ZeroMvContext], 2)) YMode = GLOBALMV;
         else YMode = sd.symbol(cdf.refmv[RefMvContext], 2) ? NEARMV : NEARESTMV;
         RefMvIdx = 0;
-        if (YMode == NEWMV || YMode == NEARMV) {
-            int first = YMode == NEARMV;
+        int m0 = list_mode(YMode, 0), m1 = list_mode(YMode, isCompound);
+        if (!skipMode && (YMode == NEWMV || YMode == NEW_NEWMV || m0 == NEARMV || m1 == NEARMV)) {
+            int first = YMode == NEWMV || YMode == NEW_NEWMV ? 0 : 1;
             RefMvIdx = first;
             for (int idx = first; idx < first + 2; idx++) {
                 if (numMvFound <= idx + 1) continue;
@@ -2215,21 +2502,28 @@ struct Decoder {
             }
         }
         // assign_mv
-        int pred[2];
-        if (YMode == GLOBALMV) { pred[0] = GlobalMv[0]; pred[1] = GlobalMv[1]; }
-        else {
-            int pos = YMode == NEARESTMV ? 0 : RefMvIdx;
-            if (YMode == NEWMV && numMvFound <= 1) pos = 0;
-            pred[0] = stackMv[pos][0]; pred[1] = stackMv[pos][1];
+        for (int list = 0; list < 1 + isCompound; list++) {
+            int mode = list_mode(YMode, list), pred[2];
+            if (mode == GLOBALMV) { pred[0] = GlobalMvs[list][0]; pred[1] = GlobalMvs[list][1]; }
+            else {
+                int pos = mode == NEARESTMV ? 0 : RefMvIdx;
+                if (mode == NEWMV && !isCompound && numMvFound <= 1) pos = 0;
+                pred[0] = stackMv[pos][list][0]; pred[1] = stackMv[pos][list][1];
+            }
+            if (mode == NEWMV) {
+                int joint = sd.symbol(cdf.nmv, 4);
+                if (joint == 2 || joint == 3) pred[0] += read_mv_comp(cdf.nmv, 0);
+                if (joint == 1 || joint == 3) pred[1] += read_mv_comp(cdf.nmv, 1);
+            }
+            int* mv = list ? Mv1 : Mv;
+            mv[0] = pred[0]; mv[1] = pred[1];
         }
-        Mv[0] = pred[0]; Mv[1] = pred[1];
-        if (YMode == NEWMV) {
-            int joint = sd.symbol(cdf.nmv, 4);
-            if (joint == 2 || joint == 3) Mv[0] += read_mv_comp(cdf.nmv, 0);
-            if (joint == 1 || joint == 3) Mv[1] += read_mv_comp(cdf.nmv, 1);
+        if (isCompound) {
+            census[C_COMPOUND]++;
+            census[C_COMPOUND_MODE + YMode - NEAREST_NEARESTMV]++;
         }
         // read_interintra_mode (every size it allows has wedges)
-        if (enInterintra && MiSize >= BLOCK_8X8 && MiSize <= BLOCK_32X32 &&
+        if (!skipMode && enInterintra && !isCompound && MiSize >= BLOCK_8X8 && MiSize <= BLOCK_32X32 &&
             sd.symbol(cdf.interintra[kSizeGroup[MiSize]], 2)) {
             interintra = 1;
             interintraMode = sd.symbol(cdf.interintra_mode[kSizeGroup[MiSize]], 4);
@@ -2239,8 +2533,9 @@ struct Decoder {
         }
         // read_motion_mode
         motionMode = 0;
-        if (motionSwitchable && !interintra && std::min(bw4, bh4) >= 2 &&
-            has_overlappable_candidates()) {
+        int nonTransGlobal = (YMode == GLOBALMV || YMode == GLOBAL_GLOBALMV) && gmType[RefFrame0] > TRANSLATION;
+        if (!skipMode && motionSwitchable && std::min(bw4, bh4) >= 2 && !(!forceIntegerMv && nonTransGlobal) &&
+            !isCompound && !interintra && has_overlappable_candidates()) {
             int mode;
             find_warp_samples();
             if (forceIntegerMv || !allowWarped || ref_is_scaled(RefFrame0) || !numSamples)
@@ -2251,29 +2546,71 @@ struct Decoder {
             if (mode == 1) census[C_OBMC]++;
             if (mode == 2) { census[C_LOCALWARP]++; warp_estimation(); }
         }
-        // interpolation filters: vertical, then horizontal
-        int large = std::min(bw4, bh4) >= 2;
-        // needs_interp_filter: a large GLOBALMV block (of an identity
-        // model) and a local warp read none
-        int needs = motionMode != 2 && !(large && YMode == GLOBALMV);
+        // read_compound_type (5.11.27)
+        if (isCompound && !skipMode) {
+            int wedgeBits = (MiSize >= BLOCK_8X8 && MiSize <= BLOCK_32X32) || MiSize == BLOCK_8X32 || MiSize == BLOCK_32X8;
+            if (enMaskedCompound) compGroupIdx = sd.symbol(cdf.comp_group_idx[comp_group_idx_ctx()], 2);
+            if (!compGroupIdx) {
+                if (enJntComp) {
+                    compoundIdx = sd.symbol(cdf.compound_idx[compound_idx_ctx()], 2);
+                    compoundType = compoundIdx ? COMPOUND_AVERAGE : COMPOUND_DISTANCE;
+                }
+            } else {
+                compoundType = wedgeBits ? sd.symbol(cdf.compound_type[MiSize], 2) : COMPOUND_DIFFWTD;
+                if (compoundType == COMPOUND_WEDGE) { wedgeIndex = sd.symbol(cdf.wedge_idx[MiSize], 16); wedgeSign = sd.literal(1); }
+                else maskType = sd.literal(1);
+            }
+        }
+        if (isCompound) census[compoundType == COMPOUND_AVERAGE ? C_COMP_AVERAGE : compoundType == COMPOUND_DISTANCE
+                              ? C_COMP_DISTANCE : compoundType == COMPOUND_WEDGE ? C_COMP_WEDGE : C_COMP_DIFFWTD]++;
+        // interpolation filters: vertical, then horizontal; none for the
+        // skip mode, a local warp, or a large GLOBALMV block whose models
+        // are none of them translations (libaom's av1_is_interp_needed)
+        int needs = !skipMode && motionMode != 2;
+        if (needs && (YMode == GLOBALMV || YMode == GLOBAL_GLOBALMV) && std::min(bw4, bh4) >= 2) {
+            int anyTranslation = gmType[RefFrame0] == TRANSLATION || (isCompound && gmType[RefFrame1] == TRANSLATION);
+            needs = anyTranslation;
+        }
         if (interpFilter == SWITCHABLE) {
             for (int dir = 0; dir < (enDualFilter ? 2 : 1); dir++)
                 interpF[dir] = needs ? sd.symbol(cdf.interp[interp_ctx(dir)], 3) : EIGHTTAP;
             if (!enDualFilter) interpF[1] = interpF[0];
         } else interpF[0] = interpF[1] = interpFilter;
+        // libaom's encoder writes neither (its sequence headers never enable
+        // dual filters)
         if (interpF[0] == BILINEAR || interpF[1] == BILINEAR) refuse(TOOL_BILINEAR);
         if (interpF[0] != interpF[1]) refuse(TOOL_DUAL_FILTER);
     }
 
+    int comp_group_idx_ctx() const {
+        auto side = [&](int avail, size_t m) {
+            if (!avail) return 0;
+            if (refFrame1[m] > INTRA_FRAME) return (int)compGroupIdxMi[m];
+            return refFrame0[m] == ALTREF_FRAME ? 3 : 0;
+        };
+        return std::min(5, side(AvailU, AvailU ? mi(MiRow - 1, MiCol) : 0) + side(AvailL, AvailL ? mi(MiRow, MiCol - 1) : 0));
+    }
+    int compound_idx_ctx() const {
+        int fwd = std::abs(relative_dist(refs[refFrameIdx[RefFrame1 - LAST_FRAME]].orderHint, orderHint));
+        int bck = std::abs(relative_dist(orderHint, refs[refFrameIdx[RefFrame0 - LAST_FRAME]].orderHint));
+        auto side = [&](int avail, size_t m) {
+            if (!avail) return 0;
+            if (refFrame1[m] > INTRA_FRAME) return (int)compoundIdxMi[m];
+            return refFrame0[m] == ALTREF_FRAME ? 1 : 0;
+        };
+        return side(AvailU, AvailU ? mi(MiRow - 1, MiCol) : 0) + side(AvailL, AvailL ? mi(MiRow, MiCol - 1) : 0) +
+               3 * (fwd == bck);
+    }
+
     int interp_ctx(int dir) const {
-        int ctx = (dir & 1) * 8, leftType = 3, aboveType = 3;
+        int ctx = ((dir & 1) * 2 + (RefFrame1 > INTRA_FRAME)) * 4, leftType = 3, aboveType = 3;
         if (AvailL) {
             size_t m = mi(MiRow, MiCol - 1);
-            if (refFrame0[m] == RefFrame0) leftType = dir ? filt1[m] : filt0[m];
+            if (refFrame0[m] == RefFrame0 || refFrame1[m] == RefFrame0) leftType = dir ? filt1[m] : filt0[m];
         }
         if (AvailU) {
             size_t m = mi(MiRow - 1, MiCol);
-            if (refFrame0[m] == RefFrame0) aboveType = dir ? filt1[m] : filt0[m];
+            if (refFrame0[m] == RefFrame0 || refFrame1[m] == RefFrame0) aboveType = dir ? filt1[m] : filt0[m];
         }
         if (leftType == aboveType) ctx += leftType;
         else if (leftType == 3) ctx += aboveType;
@@ -2316,9 +2653,9 @@ struct Decoder {
         return sign ? -mag : mag;
     }
 
-    // ---- motion vector prediction (7.10.2) for one reference
-    int GlobalMv[2] = {0, 0}, NewMvContext = 0, RefMvContext = 0, ZeroMvContext = 0, DrlCtxStack[8];
-    int newMvCount = 0, foundMatch = 0;
+    // ---- motion vector prediction (7.10.2) for one or two references
+    int GlobalMvs[2][2] = {{0, 0}, {0, 0}}, NewMvContext = 0, RefMvContext = 0, ZeroMvContext = 0, DrlCtxStack[8];
+    int newMvCount = 0, foundMatch = 0, stackCompound = 0;
 
     void lower_mv_precision(int* mv) const {
         if (allowHp) return;
@@ -2330,24 +2667,72 @@ struct Decoder {
         }
     }
 
-    void add_ref_mv_candidate(size_t m, int weight) {
-        if (refFrame0[m] != RefFrame0) return;
-        int mv[2] = {mvRow[m], mvCol[m]};
+    // setup_global_mv (7.10.2.1), as libaom's gm_get_motion_vector (a
+    // translation's offsets go to row and column swapped, as the
+    // specification has them)
+    void setup_global_mv(int list) {
+        int ref = list ? RefFrame1 : RefFrame0, mv[2] = {0, 0};
+        int typ = ref > INTRA_FRAME ? gmType[ref] : IDENTITY;
+        if (typ == TRANSLATION) { mv[0] = gmParams[ref][0] >> 13; mv[1] = gmParams[ref][1] >> 13; }
+        else if (typ != IDENTITY) {
+            const int* g = gmParams[ref];
+            int x = MiCol * 4 + bw4 * 2 - 1, y = MiRow * 4 + bh4 * 2 - 1;
+            int xc = (g[2] - (1 << 16)) * x + g[3] * y + g[0];
+            int yc = g[4] * x + (g[5] - (1 << 16)) * y + g[1];
+            if (allowHp) { mv[0] = round2signed(yc, 13); mv[1] = round2signed(xc, 13); }
+            else { mv[0] = round2signed(yc, 14) * 2; mv[1] = round2signed(xc, 14) * 2; }
+        }
         lower_mv_precision(mv);
-        if (yMode[m] == NEWMV) newMvCount++;
-        foundMatch = 1;
+        GlobalMvs[list][0] = mv[0]; GlobalMvs[list][1] = mv[1];
+    }
+
+    void push_stack(const int (*mv)[2], int weight) {
         int idx;
-        for (idx = 0; idx < numMvFound; idx++) if (stackMv[idx][0] == mv[0] && stackMv[idx][1] == mv[1]) break;
+        for (idx = 0; idx < numMvFound; idx++)
+            if (stackMv[idx][0][0] == mv[0][0] && stackMv[idx][0][1] == mv[0][1] &&
+                (!stackCompound || (stackMv[idx][1][0] == mv[1][0] && stackMv[idx][1][1] == mv[1][1]))) break;
         if (idx < numMvFound) weightStack[idx] += weight;
         else if (numMvFound < 8) {
-            stackMv[numMvFound][0] = mv[0]; stackMv[numMvFound][1] = mv[1];
+            memcpy(stackMv[numMvFound], mv, sizeof(stackMv[0]));
             weightStack[numMvFound] = weight; numMvFound++;
         }
     }
 
-    void find_mv_stack() {
-        numMvFound = 0; newMvCount = 0;
-        GlobalMv[0] = GlobalMv[1] = 0;     // identity global motion only
+    // add_ref_mv_candidate (7.10.2.7): search_stack for each list of the
+    // candidate that uses this block's reference, or compound_search_stack
+    void add_ref_mv_candidate(size_t m, int weight) {
+        int candMode = yMode[m], candSize = miSize[m];
+        int globalCand = (candMode == GLOBALMV || candMode == GLOBAL_GLOBALMV) &&
+                         std::min(kNum4x4W[candSize], kNum4x4H[candSize]) >= 2;
+        int mvs[2][2] = {{mvRow[m], mvCol[m]}, {mvRow1[m], mvCol1[m]}};
+        if (!stackCompound) {
+            for (int list = 0; list < 2; list++) {
+                if ((list ? refFrame1[m] : refFrame0[m]) != RefFrame0) continue;
+                int mv[2][2] = {{mvs[list][0], mvs[list][1]}, {0, 0}};
+                if (globalCand && gmType[RefFrame0] > TRANSLATION) { mv[0][0] = GlobalMvs[0][0]; mv[0][1] = GlobalMvs[0][1]; }
+                lower_mv_precision(mv[0]);
+                if (has_newmv(candMode)) newMvCount++;
+                foundMatch = 1;
+                push_stack(mv, weight);
+            }
+            return;
+        }
+        if (refFrame0[m] != RefFrame0 || refFrame1[m] != RefFrame1) return;
+        for (int list = 0; list < 2; list++) {
+            if (globalCand && gmType[list ? RefFrame1 : RefFrame0] > TRANSLATION) {
+                mvs[list][0] = GlobalMvs[list][0]; mvs[list][1] = GlobalMvs[list][1];
+            }
+            lower_mv_precision(mvs[list]);
+        }
+        foundMatch = 1;
+        push_stack(mvs, weight);
+        if (has_newmv(candMode)) newMvCount++;
+    }
+
+    void find_mv_stack(int isCompound) {
+        numMvFound = 0; newMvCount = 0; stackCompound = isCompound;
+        setup_global_mv(0);
+        if (isCompound) setup_global_mv(1);
         foundMatch = 0;
         scan_row(-1);
         int foundAbove = foundMatch;
@@ -2380,7 +2765,7 @@ struct Decoder {
         int totalMatches = foundAbove + foundLeft;
         sort_stack(0, numNearest);
         sort_stack(numNearest, numMvFound);
-        if (numMvFound < 2) extra_search();
+        if (numMvFound < 2) { if (isCompound) compound_extra_search(); else extra_search(); }
         for (int idx = 0; idx < numMvFound; idx++) {
             int z = 0;
             if (idx + 1 < numMvFound) {
@@ -2390,18 +2775,19 @@ struct Decoder {
             }
             DrlCtxStack[idx] = z;
         }
-        for (int i = 0; i < numMvFound; i++) {
-            int bh = bh4 * 4, bw = bw4 * 4;
-            int top = -(MiRow * 4 * 8), bottom = (MiRows - bh4 - MiRow) * 4 * 8;
-            int left = -(MiCol * 4 * 8), right = (MiCols - bw4 - MiCol) * 4 * 8;
-            stackMv[i][0] = clip3(top - (128 + bh * 8), bottom + (128 + bh * 8), stackMv[i][0]);
-            stackMv[i][1] = clip3(left - (128 + bw * 8), right + (128 + bw * 8), stackMv[i][1]);
-        }
+        for (int i = 0; i < numMvFound; i++)
+            for (int list = 0; list < 1 + isCompound; list++) {
+                int bh = bh4 * 4, bw = bw4 * 4;
+                int top = -(MiRow * 4 * 8), bottom = (MiRows - bh4 - MiRow) * 4 * 8;
+                int left = -(MiCol * 4 * 8), right = (MiCols - bw4 - MiCol) * 4 * 8;
+                stackMv[i][list][0] = clip3(top - (128 + bh * 8), bottom + (128 + bh * 8), stackMv[i][list][0]);
+                stackMv[i][list][1] = clip3(left - (128 + bw * 8), right + (128 + bw * 8), stackMv[i][list][1]);
+            }
         if (closeMatches == 0) { NewMvContext = std::min(totalMatches, 1); RefMvContext = totalMatches; }
         else if (closeMatches == 1) { NewMvContext = 3 - std::min(numNew, 1); RefMvContext = 2 + totalMatches; }
         else { NewMvContext = 5 - std::min(numNew, 1); RefMvContext = 5; }
         // past the stack, the global motion vector (av1_get_ref_mv_from_stack)
-        for (int idx = numMvFound; idx < 2; idx++) { stackMv[idx][0] = GlobalMv[0]; stackMv[idx][1] = GlobalMv[1]; }
+        for (int idx = numMvFound; idx < 2; idx++) { stackMv[idx][0][0] = GlobalMvs[0][0]; stackMv[idx][0][1] = GlobalMvs[0][1]; }
     }
 
     void temporal_scan() {
@@ -2422,25 +2808,25 @@ struct Decoder {
         }
     }
 
+    // add_tpl_ref_mv (7.10.2.6): the motion field's vector projected onto
+    // each of the block's references
     int add_tpl_ref_mv(int dr, int dc) {
         int r = MiRow + ((MiRow & 1) ? dr : dr + 1), c = MiCol + ((MiCol & 1) ? dc : dc + 1);
         if (!is_inside(r, c)) return 0;
         size_t t = (size_t)(r >> 1) * tplStride + (c >> 1);
         if (!tplValid[t]) return 0;
-        int curOff = relative_dist(orderHint, refs[refFrameIdx[RefFrame0 - LAST_FRAME]].orderHint);
-        int fwd[2] = {tplMv[2 * t], tplMv[2 * t + 1]}, mv[2];
-        mv_projection(mv, fwd, curOff, tplOff[t]);
-        lower_mv_precision(mv);
-        if (dr == 0 && dc == 0 && (std::abs(mv[0] - GlobalMv[0]) >= 16 || std::abs(mv[1] - GlobalMv[1]) >= 16))
-            ZeroMvContext = 1;
-        census[C_TEMPORAL_MV]++;
-        int idx;
-        for (idx = 0; idx < numMvFound; idx++) if (stackMv[idx][0] == mv[0] && stackMv[idx][1] == mv[1]) break;
-        if (idx < numMvFound) weightStack[idx] += 2;
-        else if (numMvFound < 8) {
-            stackMv[numMvFound][0] = mv[0]; stackMv[numMvFound][1] = mv[1];
-            weightStack[numMvFound] = 2; numMvFound++;
+        int fwd[2] = {tplMv[2 * t], tplMv[2 * t + 1]}, mv[2][2] = {{0, 0}, {0, 0}};
+        for (int list = 0; list < 1 + stackCompound; list++) {
+            int ref = list ? RefFrame1 : RefFrame0;
+            int curOff = relative_dist(orderHint, refs[refFrameIdx[ref - LAST_FRAME]].orderHint);
+            mv_projection(mv[list], fwd, curOff, tplOff[t]);
+            lower_mv_precision(mv[list]);
+            if (dr == 0 && dc == 0 && (std::abs(mv[list][0] - GlobalMvs[list][0]) >= 16 ||
+                                       std::abs(mv[list][1] - GlobalMvs[list][1]) >= 16))
+                ZeroMvContext = 1;
         }
+        census[C_TEMPORAL_MV]++;
+        push_stack(mv, 2);
         return 1;
     }
 
@@ -2554,21 +2940,28 @@ struct Decoder {
         vx = (int32_t)vx; vy = (int32_t)vy;
         localWarp[0] = std::max<int64_t>(-(1 << 23), std::min<int64_t>((1 << 23) - 1, vx));
         localWarp[1] = std::max<int64_t>(-(1 << 23), std::min<int64_t>((1 << 23) - 1, vy));
-        // av1_get_shear_params
-        if (localWarp[2] <= 0) { census[C_LOCALWARP_INVALID]++; return; }
-        auto c16 = [](int64_t v) { return (int)std::max<int64_t>(-32768, std::min<int64_t>(32767, v)); };
-        int alpha = c16(localWarp[2] - (1 << 16)), beta = c16(localWarp[3]);
-        int sh;
-        int16_t y = resolve_divisor((uint64_t)localWarp[2], &sh);
-        int64_t v = (localWarp[4] * (1 << 16)) * y;
-        int gamma = c16(round2signed64(v, sh));
-        v = (localWarp[3] * localWarp[4]) * y;
-        int delta = c16(localWarp[5] - round2signed64(v, sh) - (1 << 16));
-        auto reduce = [](int x) { return (int)round2signed64(x, 6) * 64; };
-        warpAlpha = reduce(alpha); warpBeta = reduce(beta); warpGamma = reduce(gamma); warpDelta = reduce(delta);
-        if (4 * std::abs(warpAlpha) + 7 * std::abs(warpBeta) >= (1 << 16) ||
-            4 * std::abs(warpGamma) + 4 * std::abs(warpDelta) >= (1 << 16)) { census[C_LOCALWARP_INVALID]++; return; }
+        int shear[4];
+        if (!shear_params(localWarp, shear)) { census[C_LOCALWARP_INVALID]++; return; }
+        warpAlpha = shear[0]; warpBeta = shear[1]; warpGamma = shear[2]; warpDelta = shear[3];
         localValid = 1;
+    }
+
+    // av1_get_shear_params: alpha, beta, gamma, delta of a model, and
+    // whether the warp filter can follow its shear
+    static int shear_params(const int64_t* m, int* out) {
+        if (m[2] <= 0) return 0;
+        auto c16 = [](int64_t v) { return (int)std::max<int64_t>(-32768, std::min<int64_t>(32767, v)); };
+        int alpha = c16(m[2] - (1 << 16)), beta = c16(m[3]);
+        int sh;
+        int16_t y = resolve_divisor((uint64_t)m[2], &sh);
+        int64_t v = (m[4] * (1 << 16)) * y;
+        int gamma = c16(round2signed64(v, sh));
+        v = (m[3] * m[4]) * y;
+        int delta = c16(m[5] - round2signed64(v, sh) - (1 << 16));
+        auto reduce = [](int x) { return (int)round2signed64(x, 6) * 64; };
+        out[0] = reduce(alpha); out[1] = reduce(beta); out[2] = reduce(gamma); out[3] = reduce(delta);
+        return 4 * std::abs(out[0]) + 7 * std::abs(out[1]) < (1 << 16) &&
+               4 * std::abs(out[2]) + 4 * std::abs(out[3]) < (1 << 16);
     }
 
     int ref_is_scaled(int refFrame) const {
@@ -2578,6 +2971,9 @@ struct Decoder {
         return xScale != (1 << 14) || yScale != (1 << 14);
     }
 
+    // the single-reference extra search (libaom's process_single_ref_mv_
+    // candidate): both vectors of the neighbours above, then to the left,
+    // turned where their reference lies on the other side
     void extra_search() {
         if (!use_intrabc) census[C_EXTRA_SEARCH]++;
         int w4 = std::min(std::min(16, bw4), MiCols - MiCol), h4 = std::min(std::min(16, bh4), MiRows - MiRow);
@@ -2588,14 +2984,15 @@ struct Decoder {
                 int r = pass == 0 ? MiRow - 1 : MiRow + idx, c = pass == 0 ? MiCol + idx : MiCol - 1;
                 if (!is_inside(r, c)) break;
                 size_t m = mi(r, c);
-                int candRef = refFrame0[m];
-                if (candRef > INTRA_FRAME) {
-                    int mv[2] = {mvRow[m], mvCol[m]};
+                for (int list = 0; list < 2; list++) {
+                    int candRef = list ? refFrame1[m] : refFrame0[m];
+                    if (candRef <= INTRA_FRAME) continue;
+                    int mv[2] = {list ? mvRow1[m] : mvRow[m], list ? mvCol1[m] : mvCol[m]};
                     if (refFrameSignBias[candRef] != refFrameSignBias[RefFrame0]) { mv[0] = -mv[0]; mv[1] = -mv[1]; }
                     int k;
-                    for (k = 0; k < numMvFound; k++) if (stackMv[k][0] == mv[0] && stackMv[k][1] == mv[1]) break;
+                    for (k = 0; k < numMvFound; k++) if (stackMv[k][0][0] == mv[0] && stackMv[k][0][1] == mv[1]) break;
                     if (k == numMvFound) {
-                        stackMv[k][0] = mv[0]; stackMv[k][1] = mv[1]; weightStack[k] = 2; numMvFound++;
+                        stackMv[k][0][0] = mv[0]; stackMv[k][0][1] = mv[1]; weightStack[k] = 2; numMvFound++;
                     }
                 }
                 idx += pass == 0 ? kNum4x4W[miSize[m]] : kNum4x4H[miSize[m]];
@@ -2603,9 +3000,57 @@ struct Decoder {
         }
     }
 
+    // the compound extra search (libaom's process_compound_ref_mv_
+    // candidate): per list, the neighbours' vectors of that reference, then
+    // of other references (turned by sign bias), then the global one
+    void compound_extra_search() {
+        census[C_EXTRA_SEARCH]++;
+        int idMv[2][2][2], diffMv[2][2][2], idN[2] = {0, 0}, diffN[2] = {0, 0};
+        int w4 = std::min(std::min(16, bw4), MiCols - MiCol), h4 = std::min(std::min(16, bh4), MiRows - MiRow);
+        int num4x4 = std::min(w4, h4);
+        int rf[2] = {RefFrame0, RefFrame1};
+        for (int pass = 0; pass < 2; pass++) {
+            if (pass == 0 ? !AvailU : !AvailL) continue;
+            for (int idx = 0; idx < num4x4;) {
+                size_t m = pass == 0 ? mi(MiRow - 1, MiCol + idx) : mi(MiRow + idx, MiCol - 1);
+                for (int cl = 0; cl < 2; cl++) {
+                    int canRf = cl ? refFrame1[m] : refFrame0[m];
+                    int mv[2] = {cl ? mvRow1[m] : mvRow[m], cl ? mvCol1[m] : mvCol[m]};
+                    for (int list = 0; list < 2; list++) {
+                        if (canRf == rf[list] && idN[list] < 2) {
+                            idMv[list][idN[list]][0] = mv[0]; idMv[list][idN[list]][1] = mv[1]; idN[list]++;
+                        } else if (canRf > INTRA_FRAME && diffN[list] < 2) {
+                            int s = refFrameSignBias[canRf] != refFrameSignBias[rf[list]] ? -1 : 1;
+                            diffMv[list][diffN[list]][0] = s * mv[0]; diffMv[list][diffN[list]][1] = s * mv[1];
+                            diffN[list]++;
+                        }
+                    }
+                }
+                idx += pass == 0 ? kNum4x4W[miSize[m]] : kNum4x4H[miSize[m]];
+            }
+        }
+        int comp[2][2][2];
+        for (int list = 0; list < 2; list++) {
+            int k = 0;
+            for (int i = 0; i < idN[list] && k < 2; i++, k++) { comp[k][list][0] = idMv[list][i][0]; comp[k][list][1] = idMv[list][i][1]; }
+            for (int i = 0; i < diffN[list] && k < 2; i++, k++) { comp[k][list][0] = diffMv[list][i][0]; comp[k][list][1] = diffMv[list][i][1]; }
+            for (; k < 2; k++) { comp[k][list][0] = GlobalMvs[list][0]; comp[k][list][1] = GlobalMvs[list][1]; }
+        }
+        if (numMvFound == 1) {
+            int same = !memcmp(comp[0], stackMv[0], sizeof(comp[0]));
+            memcpy(stackMv[1], comp[same ? 1 : 0], sizeof(comp[0]));
+            weightStack[1] = 2; numMvFound = 2;
+        } else {
+            for (int k = 0; k < 2; k++) { memcpy(stackMv[k], comp[k], sizeof(comp[0])); weightStack[k] = 2; }
+            numMvFound = 2;
+        }
+    }
+
     // ---- inter prediction (7.11.3.1): the whole block, chroma of a block
-    // under 8x8 from the blocks it covers where none of them is intra
+    // under 8x8 from the blocks it covers where none of them is intra; a
+    // compound block from both references (predict_compound)
     void predict_inter_block() {
+        if (RefFrame1 > INTRA_FRAME) { predict_compound(); return; }
         for (int plane = 0; plane < 1 + 2 * HasChroma; plane++) {
             int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
             int planeSz = plane_residual_size(MiSize, plane);
@@ -2629,33 +3074,22 @@ struct Decoder {
                               0, 0, toIntra[interintraMode], floor_log2(w), floor_log2(h));
                 for (int i = 0; i < h; i++) for (int j = 0; j < w; j++) intra[i * w + j] = frame[plane].get(baseY + i, baseX + j);
             }
+            Plane& f = frame[plane];
             for (int y = 0, r = 0; y < h; y += predH, r++)
                 for (int x = 0, c = 0; x < w; x += predW, c++)
-                    predict_inter(plane, baseX + x, baseY + y, predW, predH, candRow + r, candCol + c);
+                    predict_with(plane, baseX + x, baseY + y, predW, predH, mi(candRow + r, candCol + c),
+                                 f.at(baseY + y, baseX + x), f.stride, motionMode == 2, false);
             if (interintra) {
                 // libaom's smooth inter-intra masks: ii_weights1d by the row,
                 // the column or the nearer edge, 32 for DC; or the block
                 // size's wedge mask, averaged over 2 samples a side where the
                 // plane is subsampled
                 int scale = 128 / std::max(w, h);
-                const uint8_t* wedge = nullptr;
+                const uint8_t* wedge = wedgeInterintra ? wedge_mask() : nullptr;
                 int lw = bw4 * 4, subw = 2 * bw4 == w, subh = 2 * bh4 == h;
-                if (wedgeInterintra) {
-                    static const int sizes[9] = {BLOCK_8X8, BLOCK_8X16, BLOCK_16X8, BLOCK_16X16, BLOCK_16X32,
-                                                 BLOCK_32X16, BLOCK_32X32, BLOCK_8X32, BLOCK_32X8};
-                    size_t off = 0;
-                    for (int k = 0; k < 9 && sizes[k] != MiSize; k++) off += (size_t)16 * kNum4x4W[sizes[k]] * kNum4x4H[sizes[k]] * 16;
-                    wedge = k_wedge_masks + off + (size_t)wedgeIndex * bw4 * bh4 * 16;
-                }
                 for (int i = 0; i < h; i++) for (int j = 0; j < w; j++) {
-                    int mk;
-                    if (wedge) {
-                        const uint8_t* m0 = wedge + (size_t)(i << subh) * lw + (j << subw);
-                        if (subw && subh) mk = (m0[0] + m0[1] + m0[lw] + m0[lw + 1] + 2) >> 2;
-                        else if (subw) mk = (m0[0] + m0[1] + 1) >> 1;
-                        else if (subh) mk = (m0[0] + m0[lw] + 1) >> 1;
-                        else mk = m0[0];
-                    } else mk = interintraMode == 0 ? 32 : interintraMode == 1 ? k_ii_weights1d[i * scale]
+                    int mk = wedge ? sub_mask(wedge, lw, i, j, subw, subh, 0)
+                           : interintraMode == 0 ? 32 : interintraMode == 1 ? k_ii_weights1d[i * scale]
                            : interintraMode == 2 ? k_ii_weights1d[j * scale] : k_ii_weights1d[std::min(i, j) * scale];
                     uint16_t* d = frame[plane].at(baseY + i, baseX + j);
                     *d = (uint16_t)((mk * intra[i * w + j] + (64 - mk) * *d + 32) >> 6);
@@ -2665,17 +3099,101 @@ struct Decoder {
         if (motionMode == 1) obmc();
     }
 
-    // motion vector scaling (7.11.3.3) and block inter prediction
-    // (7.11.3.4): positions in 1/1024 sample, the 8-tap filters (4-tap on a
-    // side of 4 or less), the reference clamped to its edges; a LOCALWARP
-    // block of 8x8 or more in the plane is warped instead (7.11.3.5)
-    void predict_inter(int plane, int x, int y, int w, int h, int candRow, int candCol) {
-        Plane& f = frame[plane];
-        predict_with(plane, x, y, w, h, mi(candRow, candCol), f.at(y, x), f.stride, motionMode == 2);
+    // the block size's wedge mask (sign 0) of wedgeIndex, at luma size
+    const uint8_t* wedge_mask() const {
+        static const int sizes[9] = {BLOCK_8X8, BLOCK_8X16, BLOCK_16X8, BLOCK_16X16, BLOCK_16X32,
+                                     BLOCK_32X16, BLOCK_32X32, BLOCK_8X32, BLOCK_32X8};
+        size_t off = 0;
+        for (int k = 0; k < 9 && sizes[k] != MiSize; k++) off += (size_t)16 * kNum4x4W[sizes[k]] * kNum4x4H[sizes[k]] * 16;
+        return k_wedge_masks + off + (size_t)wedgeIndex * bw4 * bh4 * 16;
+    }
+    // a luma-size mask at a sample of a plane: averaged over 2 samples a
+    // subsampled side, as libaom's blend_a64 functions; `flip` gives 64 - it
+    static int sub_mask(const uint8_t* m, int lw, int i, int j, int subw, int subh, int flip) {
+        const uint8_t* m0 = m + (size_t)(i << subh) * lw + (j << subw);
+        int v0 = m0[0], v1 = subw ? m0[1] : 0, v2 = subh ? m0[lw] : 0, v3 = subw && subh ? m0[lw + 1] : 0;
+        if (flip) { v0 = 64 - v0; v1 = 64 - v1; v2 = 64 - v2; v3 = 64 - v3; }
+        if (subw && subh) return (v0 + v1 + v2 + v3 + 2) >> 2;
+        if (subw) return (v0 + v1 + 1) >> 1;
+        if (subh) return (v0 + v2 + 1) >> 1;
+        return v0;
     }
 
-    void predict_with(int plane, int x, int y, int w, int h, size_t m, uint16_t* dst, int dstStride, bool warp) {
-        int refFrame = refFrame0[m];
+    // compound prediction (7.11.3.1, 7.11.3.11-7.11.3.15) as libaom's
+    // convolve, warp and blend_a64 functions compute it: each reference's
+    // prediction rounded by 7 after the vertical filter, then averaged,
+    // weighted by frame distance, or blended by a wedge mask or by the
+    // difference of the two luma predictions (COMPOUND_DIFFWTD), rounded
+    // and clipped
+    void predict_compound() {
+        static thread_local int32_t p0[128 * 128], p1[128 * 128];
+        static thread_local uint8_t diffMask[128 * 128];
+        int round0 = bitDepth == 12 ? 5 : 3, post = 14 - round0 - 7, maxv = (1 << bitDepth) - 1;
+        size_t m = mi(MiRow, MiCol);
+        int fwdW = 8, bckW = 8;
+        if (compoundType == COMPOUND_DISTANCE) {
+            // av1_dist_wtd_comp_weight_assign
+            static const int weights[4][2] = {{2, 3}, {2, 5}, {2, 7}, {1, 31}};
+            static const int lut[4][2] = {{9, 7}, {11, 5}, {12, 4}, {13, 3}};
+            int d0 = clip3(0, 31, std::abs(relative_dist(refs[refFrameIdx[RefFrame1 - LAST_FRAME]].orderHint, orderHint)));
+            int d1 = clip3(0, 31, std::abs(relative_dist(orderHint, refs[refFrameIdx[RefFrame0 - LAST_FRAME]].orderHint)));
+            int order = d0 <= d1, i = 3;
+            if (d0 && d1)
+                for (i = 0; i < 3; i++) {
+                    int c0 = weights[i][order], c1 = weights[i][!order];
+                    if ((d0 > d1 && d0 * c0 < d1 * c1) || (d0 <= d1 && d0 * c0 > d1 * c1)) break;
+                }
+            fwdW = lut[i][order]; bckW = lut[i][1 - order];
+        }
+        int lw = bw4 * 4;
+        const uint8_t* wedge = compoundType == COMPOUND_WEDGE ? wedge_mask() : nullptr;
+        for (int plane = 0; plane < 1 + 2 * HasChroma; plane++) {
+            int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+            int w = (bw4 * 4) >> sx, h = (bh4 * 4) >> sy;
+            int x0 = (MiCol >> sx) * 4, y0 = (MiRow >> sy) * 4;
+            predict_one(plane, x0, y0, w, h, m, 0, 7, false, false, p0);
+            predict_one(plane, x0, y0, w, h, m, 1, 7, false, false, p1);
+            if (compoundType == COMPOUND_DIFFWTD && plane == 0)
+                for (int i = 0; i < w * h; i++) {
+                    int diff = round2(std::abs(p0[i] - p1[i]), post + bitDepth - 8);
+                    int mk = clip3(0, 64, 38 + diff / 16);
+                    diffMask[i] = (uint8_t)(maskType ? 64 - mk : mk);
+                }
+            Plane& f = frame[plane];
+            for (int i = 0; i < h; i++)
+                for (int j = 0; j < w; j++) {
+                    int k = i * w + j, v;
+                    if (compoundType == COMPOUND_AVERAGE) v = (p0[k] + p1[k]) >> 1;
+                    else if (compoundType == COMPOUND_DISTANCE) v = (p0[k] * fwdW + p1[k] * bckW) >> 4;
+                    else {
+                        int mk = wedge ? sub_mask(wedge, lw, i, j, sx, sy, wedgeSign) : sub_mask(diffMask, lw, i, j, sx, sy, 0);
+                        v = (mk * p0[k] + (64 - mk) * p1[k]) >> 6;
+                    }
+                    *f.at(y0 + i, x0 + j) = (uint16_t)clip3(0, maxv, (v + (1 << (post - 1))) >> post);
+                }
+        }
+    }
+
+    // a single reference's prediction, rounded and clipped to samples
+    void predict_with(int plane, int x, int y, int w, int h, size_t m, uint16_t* dst, int dstStride, bool local, bool obmcPass) {
+        static thread_local int32_t tmp[128 * 128];
+        int round1 = bitDepth == 12 ? 9 : 11, maxv = (1 << bitDepth) - 1;
+        predict_one(plane, x, y, w, h, m, 0, round1, local, obmcPass, tmp);
+        for (int r = 0; r < h; r++)
+            for (int c = 0; c < w; c++) dst[(size_t)r * dstStride + c] = (uint16_t)clip3(0, maxv, tmp[r * w + c]);
+    }
+
+    // motion vector scaling (7.11.3.3) and block inter prediction
+    // (7.11.3.4) of list `list` of the block at mi m: positions in 1/1024
+    // sample, a filter per direction (4-tap on a side of 4 or less), the
+    // reference clamped to its edges, the vertical filter's sum rounded by
+    // round1; a block of 8x8 or more in the plane is warped instead
+    // (7.11.3.5) by its local warp, or by a global motion model of its
+    // GLOBALMV mode (not for OBMC's neighbour predictions: libaom's
+    // av1_allow_warp)
+    void predict_one(int plane, int x, int y, int w, int h, size_t m, int list, int round1, bool local,
+                     bool obmcPass, int32_t* out) {
+        int refFrame = list ? refFrame1[m] : refFrame0[m];
         const RefSlot& ref = refs[refFrameIdx[refFrame - LAST_FRAME]];
         int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
         int xScale = ((ref.upscaledWidth << 14) + (FrameWidth / 2)) / FrameWidth;
@@ -2684,13 +3202,25 @@ struct Decoder {
         if (scaled) census[C_SCALED_REF]++;
         const Plane& rp = ref.planes[plane];
         int lastX = ((ref.upscaledWidth + sx) >> sx) - 1, lastY = ((ref.frameHeight + sy) >> sy) - 1;
-        int maxv = (1 << bitDepth) - 1;
-        if (warp && localValid && w >= 8 && h >= 8 && !forceIntegerMv && !scaled) {
-            warp_block(rp, lastX, lastY, sx, sy, x, y, w, h, dst, dstStride);
-            return;
+        if (w >= 8 && h >= 8 && !forceIntegerMv && !scaled && !obmcPass) {
+            if (local && localValid) {
+                int shear[4] = {warpAlpha, warpBeta, warpGamma, warpDelta};
+                warp_block(rp, lastX, lastY, sx, sy, x, y, w, h, localWarp, shear, round1, out);
+                return;
+            }
+            int bs = miSize[m];
+            if ((yMode[m] == GLOBALMV || yMode[m] == GLOBAL_GLOBALMV) && gmType[refFrame] > TRANSLATION &&
+                std::min(kNum4x4W[bs], kNum4x4H[bs]) >= 2 && gmValid[refFrame]) {
+                if (plane == 0) census[C_GM_WARP]++;
+                int64_t g[6];
+                for (int i = 0; i < 6; i++) g[i] = gmParams[refFrame][i];
+                warp_block(rp, lastX, lastY, sx, sy, x, y, w, h, g, gmShear[refFrame], round1, out);
+                return;
+            }
         }
-        int origX = (x << 4) + ((2 * mvCol[m]) >> sx) + 8;
-        int origY = (y << 4) + ((2 * mvRow[m]) >> sy) + 8;
+        int mvr = list ? mvRow1[m] : mvRow[m], mvc = list ? mvCol1[m] : mvCol[m];
+        int origX = (x << 4) + ((2 * mvc) >> sx) + 8;
+        int origY = (y << 4) + ((2 * mvr) >> sy) + 8;
         int64_t baseX = (int64_t)origX * xScale - (8 << 14), baseY = (int64_t)origY * yScale - (8 << 14);
         int startX = (int)round2signed64(baseX, 8) + 32, startY = (int)round2signed64(baseY, 8) + 32;
         int stepX = (int)round2signed64(xScale, 4), stepY = (int)round2signed64(yScale, 4);
@@ -2698,7 +3228,7 @@ struct Decoder {
         int fv = filt0[m], fh = filt1[m];
         if (w <= 4) { if (fh == EIGHTTAP || fh == EIGHTTAP_SHARP) fh = 4; else if (fh == EIGHTTAP_SMOOTH) fh = 5; }
         if (h <= 4) { if (fv == EIGHTTAP || fv == EIGHTTAP_SHARP) fv = 4; else if (fv == EIGHTTAP_SMOOTH) fv = 5; }
-        int round0 = bitDepth == 12 ? 5 : 3, round1 = bitDepth == 12 ? 9 : 11;
+        int round0 = bitDepth == 12 ? 5 : 3;
         static thread_local int32_t inter[(128 * 2 + 16) * 128];
         for (int r = 0; r < interH; r++) {
             int yy = clip3(0, lastY, (startY >> 10) + r - 3);
@@ -2717,35 +3247,38 @@ struct Decoder {
             for (int c = 0; c < w; c++) {
                 int sum = 0;
                 for (int t = 0; t < 8; t++) sum += fk[t] * inter[((p >> 10) + t) * w + c];
-                dst[(size_t)r * dstStride + c] = (uint16_t)clip3(0, maxv, (sum + (1 << (round1 - 1))) >> round1);
+                out[r * w + c] = (sum + (1 << (round1 - 1))) >> round1;
             }
         }
     }
 
     // libaom's av1_highbd_warp_affine_c (the 8-bit one computes the same)
+    // of the model `mat` with its shear, the vertical sum rounded by round1
+    // (2 * 7 - the horizontal rounding, or 7 into a compound prediction)
     void warp_block(const Plane& rp, int lastX, int lastY, int sx, int sy, int x, int y, int w, int h,
-                    uint16_t* dst, int dstStride) {
+                    const int64_t* mat, const int* shear, int round1, int32_t* out) {
         int round0 = bitDepth == 12 ? 5 : 3;
-        int rbh = round0 + std::max(bitDepth + 7 - round0 - 14, 0), rbv = 14 - rbh;
+        int rbh = round0 + std::max(bitDepth + 7 - round0 - 14, 0);
         int offH = bitDepth + 6, offV = bitDepth + 14 - rbh;
-        int maxv = (1 << bitDepth) - 1;
+        int offset = (1 << (offV - round1)) + (1 << (offV - 1 - round1));
+        int alpha = shear[0], beta = shear[1], gamma = shear[2], delta = shear[3];
         int32_t tmp[15 * 8];
         for (int i = y; i < y + h; i += 8)
             for (int j = x; j < x + w; j += 8) {
                 int32_t srcX = (j + 4) << sx, srcY = (i + 4) << sy;
-                int64_t dstX = localWarp[2] * srcX + localWarp[3] * srcY + localWarp[0];
-                int64_t dstY = localWarp[4] * srcX + localWarp[5] * srcY + localWarp[1];
+                int64_t dstX = mat[2] * srcX + mat[3] * srcY + mat[0];
+                int64_t dstY = mat[4] * srcX + mat[5] * srcY + mat[1];
                 int64_t x4 = dstX >> sx, y4 = dstY >> sy;
                 int ix4 = (int)(x4 >> 16), iy4 = (int)(y4 >> 16);
                 int sx4 = (int)(x4 & 0xFFFF), sy4 = (int)(y4 & 0xFFFF);
-                sx4 += warpAlpha * -4 + warpBeta * -4;
-                sy4 += warpGamma * -4 + warpDelta * -4;
+                sx4 += alpha * -4 + beta * -4;
+                sy4 += gamma * -4 + delta * -4;
                 sx4 &= ~63; sy4 &= ~63;
                 for (int k = -7; k < 8; k++) {
                     int iy = clip3(0, lastY, iy4 + k);
                     const uint16_t* row = &rp.px[(size_t)iy * rp.stride];
-                    int sxk = sx4 + warpBeta * (k + 4);
-                    for (int l = -4; l < 4; l++, sxk += warpAlpha) {
+                    int sxk = sx4 + beta * (k + 4);
+                    for (int l = -4; l < 4; l++, sxk += alpha) {
                         int offs = ((sxk + (1 << 9)) >> 10) + 64;
                         const int16_t* co = k_warped_filter[offs];
                         int32_t sum = 1 << offH;
@@ -2754,15 +3287,14 @@ struct Decoder {
                     }
                 }
                 for (int k = -4; k < std::min(4, y + h - i - 4); k++) {
-                    int syk = sy4 + warpDelta * (k + 4);
-                    for (int l = -4; l < std::min(4, x + w - j - 4); l++, syk += warpGamma) {
+                    int syk = sy4 + delta * (k + 4);
+                    for (int l = -4; l < std::min(4, x + w - j - 4); l++, syk += gamma) {
                         int offs = ((syk + (1 << 9)) >> 10) + 64;
                         const int16_t* co = k_warped_filter[offs];
                         int32_t sum = 1 << offV;
                         for (int mm = 0; mm < 8; mm++) sum += tmp[(k + mm + 4) * 8 + (l + 4)] * co[mm];
-                        sum = (sum + (1 << (rbv - 1))) >> rbv;
-                        dst[(size_t)(i - y + k + 4) * dstStride + (j - x + l + 4)] =
-                            (uint16_t)clip3(0, maxv, sum - (1 << (bitDepth - 1)) - (1 << bitDepth));
+                        sum = (sum + (1 << (round1 - 1))) >> round1;
+                        out[(size_t)(i - y + k + 4) * w + (j - x + l + 4)] = sum - offset;
                     }
                 }
             }
@@ -2807,7 +3339,7 @@ struct Decoder {
                         w = clip3(4, 64 >> (sx + 1), (bw4 * 4) >> (sx + 1));
                         bw = (std::min(bw4 * 4, 64) >> 1) >> sx;
                     }
-                    predict_with(plane, x, y, w, h, m, tmp, w, false);
+                    predict_with(plane, x, y, w, h, m, tmp, w, false, true);
                     const uint8_t* mask = k_obmc_masks + (dir == 0 ? bh : bw) - 1;
                     Plane& f = frame[plane];
                     for (int i = 0; i < bh; i++)
@@ -3453,6 +3985,11 @@ struct Decoder {
                 Bits b{p, sz};
                 spatialId = sid;
                 frame_header(b, temporalId, sid);
+                if (showExistingFrame) {
+                    if (type == 6) throw (int)ERR_BITSTREAM;   // a frame OBU shows no existing frame
+                    if (decode) show_existing();
+                    continue;
+                }
                 if (!decode) return;
                 alloc();
                 if (type == 6) {
@@ -3475,8 +4012,8 @@ struct Decoder {
             census[C_INTER_DEBLOCK] += lfLevel[0] || lfLevel[1];
             census[C_INTER_CDEF] += enCdef && !codedLossless && (cdefBits || cdefYPri[0] || cdefYSec[0] || cdefUvPri[0] || cdefUvSec[0]);
             census[C_INTER_LR] += usesLr;
-            if (UpscaledWidth != FrameWidth) refuse(TOOL_SUPERRES_INTER);
-            if (grain.apply) refuse(TOOL_GRAIN_INTER);
+            census[C_SUPERRES_INTER] += UpscaledWidth != FrameWidth;
+            census[C_GRAIN_INTER] += grain.apply;
         }
         census[C_SEGMENTATION] += segEnabled;
         census[C_DELTA_Q] += deltaQPresent;
@@ -3485,6 +4022,15 @@ struct Decoder {
         if (frameRestType[0] == RESTORE_SWITCHABLE || frameRestType[1] == RESTORE_SWITCHABLE ||
             frameRestType[2] == RESTORE_SWITCHABLE) census[C_LR_SWITCHABLE] = 1;
         post_filters();
+        // SegmentIds as saved: the block's ids, the previous map where this
+        // frame kept it (update_map 0), or none
+        std::vector<uint8_t> segIds((size_t)MiRows * MiCols, 0);
+        if (segEnabled)
+            for (int r = 0; r < MiRows; r++)
+                for (int c = 0; c < MiCols; c++) {
+                    size_t k = (size_t)r * MiCols + c;
+                    segIds[k] = segUpdateMap ? segId[mi(r, c)] : prevSegIds.empty() ? 0 : prevSegIds[k];
+                }
         // the motion field motion vectors of this frame (7.19): per 8x8, its
         // last mi's vector where it points back in order and is short enough
         int rows8 = (MiRows + 1) >> 1, cols8 = (MiCols + 1) >> 1;
@@ -3494,10 +4040,13 @@ struct Decoder {
             for (int r8 = 0; r8 < rows8; r8++)
                 for (int c8 = 0; c8 < cols8; c8++) {
                     size_t m = mi(2 * r8 + 1, 2 * c8 + 1), k = (size_t)r8 * cols8 + c8;
-                    int ref = refFrame0[m];
-                    if (ref <= INTRA_FRAME || relative_dist(orderHints[ref], orderHint) >= 0) continue;
-                    if (std::abs(mvRow[m]) > 4095 || std::abs(mvCol[m]) > 4095) continue;
-                    mfRef[k] = (int8_t)ref; mfMv[2 * k] = mvRow[m]; mfMv[2 * k + 1] = mvCol[m];
+                    for (int list = 0; list < 2; list++) {   // the second list's vector wins
+                        int ref = list ? refFrame1[m] : refFrame0[m];
+                        int mr = list ? mvRow1[m] : mvRow[m], mc = list ? mvCol1[m] : mvCol[m];
+                        if (ref <= INTRA_FRAME || relative_dist(orderHints[ref], orderHint) >= 0) continue;
+                        if (std::abs(mr) > 4095 || std::abs(mc) > 4095) continue;
+                        mfRef[k] = (int8_t)ref; mfMv[2 * k] = (int16_t)mr; mfMv[2 * k + 1] = (int16_t)mc;
+                    }
                 }
         for (int i = 0; i < 8; i++) {
             if (!((refreshFlags >> i) & 1)) continue;
@@ -3514,18 +4063,39 @@ struct Decoder {
             memcpy(r.featEn, featEn, sizeof(featEn)); memcpy(r.featData, featData, sizeof(featData));
             r.grain = grain;
             r.mfRef = mfRef; r.mfMv = mfMv;
+            r.showable = showableFrame;
+            memcpy(r.gm, gmParams, sizeof(r.gm));
+            r.segIds = segIds;
         }
         frames++;
-        if (!showFrame || (layer >= 0 && (outSpatialId == layer || spatialId != layer))) return;
+        if (showFrame) output(lrFrame, UpscaledWidth, FrameHeight, grain);
+    }
+
+    // show_existing_frame (7.21): the slot's frame is the output, with its
+    // film grain; a key frame shown so also becomes every slot (the
+    // reference frame update process with all slots refreshed)
+    void show_existing() {
+        census[C_SHOW_EXISTING]++;
+        RefSlot& r = refs[frameToShow];
+        if (r.frameType == KEY_FRAME) {
+            census[C_SHOW_EXISTING_KEY]++;
+            r.showable = 0;
+            for (int i = 0; i < 8; i++) if (i != frameToShow) refs[i] = r;
+        }
+        output(r.planes, r.upscaledWidth, r.frameHeight, r.grain);
+    }
+
+    void output(const Plane* planes, int w, int h, const FilmGrain& g) {
+        if (layer >= 0 && (outSpatialId == layer || spatialId != layer)) return;
         outSpatialId = spatialId;
-        outW = UpscaledWidth; outH = FrameHeight;
-        for (int p = 0; p < numPlanes; p++) out[p] = lrFrame[p];
-        if (grain.apply) {
+        outW = w; outH = h;
+        for (int p = 0; p < numPlanes; p++) out[p] = planes[p];
+        if (g.apply) {
             census[C_FILM_GRAIN]++;
             uint16_t* px[3] = {nullptr, nullptr, nullptr};
             int strides[3] = {0, 0, 0};
             for (int p = 0; p < numPlanes; p++) { px[p] = out[p].px.data(); strides[p] = out[p].stride; }
-            GrainSynthesis(grain, bitDepth, mono, ssx, ssy).apply(px, strides, outW, outH, mc == 0);
+            GrainSynthesis(g, bitDepth, mono, ssx, ssy).apply(px, strides, outW, outH, mc == 0);
         }
     }
 

@@ -2,8 +2,8 @@
 decoder `native/av1.cc`): every committed fixture in the three modes
 against cv2 5.0's decode in `expected.npz`, the decoded Y, U and V
 planes (and alpha planes) against libaom 3.14's own decoder reached
-through ctypes, a census of the coding tools the fixtures use, the
-features refused by name, cv2's None cases, the AV1 tables against
+through ctypes, a census of the coding tools the fixtures use, cv2's
+None cases, the AV1 tables against
 libaom's read-only data, and the committed AVIF scene prepared as the
 JAX package prepares it."""
 
@@ -22,7 +22,7 @@ import pytest
 import torch_av1_tables as tables
 import torch_image_writers as tw
 from rnb_neus2_torch.io import avif, image_io, native
-from rnb_neus2_torch.io.errors import UnreadableImage, UnsupportedImage
+from rnb_neus2_torch.io.errors import UnreadableImage
 from torch_avif_reference import libaom_planes
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -35,10 +35,6 @@ BROKEN = {"unreadable_avif_truncated.avif", "unreadable_avif_bad_iloc.avif",
           "unreadable_avif_bad_obu.avif", "unreadable_avif_layers_essential_a1lx.avif",
           "unreadable_avis_no_stsd.avif", "unreadable_avis_not_a_key_frame.avif",
           "unreadable_avis_sample_past_end.avif"}
-# cv2 reads these; the port refuses them by name: inter tools no layered
-# image of libavif's uses (film grain, superres and grids are read)
-REFUSED = {"avif_refused_compound.avif": "compound prediction",
-           "avif_refused_global_motion.avif": "global motion"}
 
 
 @pytest.fixture(scope="module")
@@ -81,18 +77,12 @@ def test_fixture_set():
 
 @pytest.mark.parametrize("name", FILES)
 def test_fixture_reads_as_cv2(name, expected):
-    """Each mode equals cv2's decode; cv2's None is UnreadableImage; the
-    features refused by name raise UnsupportedImage naming the file and
-    the feature."""
+    """Each mode equals cv2's decode; cv2's None is UnreadableImage (the
+    files once refused for compound prediction and global motion,
+    `avif_refused_*`, decode as cv2 reads them)."""
     path = FIXTURES / name
     for mode in MODES:
         want = expected[f"{name}:{mode}"]
-        if name in REFUSED:
-            assert want.size
-            with pytest.raises(UnsupportedImage, match=REFUSED[name]) as e:
-                image_io.read_image(path, mode)
-            assert name in str(e.value)
-            continue
         if want.size == 0:
             with pytest.raises(UnreadableImage):
                 image_io.read_image(path, mode)
@@ -102,8 +92,7 @@ def test_fixture_reads_as_cv2(name, expected):
         np.testing.assert_array_equal(got, want, err_msg=f"{name} {mode}")
 
 
-@pytest.mark.parametrize("name", [n for n in FILES if n not in BROKEN
-                                  and n not in REFUSED])
+@pytest.mark.parametrize("name", [n for n in FILES if n not in BROKEN])
 def test_planes_equal_libaom(name):
     """The Y, U and V planes of every item native/av1.cc decodes equal
     libaom's decode of the same OBUs."""
@@ -125,10 +114,10 @@ def test_tool_census():
     CDEF, the three restoration types, segmentation, delta q and lf,
     several tiles, 128x128 superblocks, at 8, 10 and 12 bits in 4:0:0,
     4:2:0, 4:2:2 and 4:4:4."""
-    total = np.zeros(128, np.int64)
+    total = np.zeros(native.AV1_CENSUS, np.int64)
     depths, formats, tiles = set(), set(), 1
     for name in FILES:
-        if name in BROKEN or name in REFUSED:
+        if name in BROKEN:
             continue
         for obus in _av1_items(FIXTURES / name):
             code, info, _, census = native.av1_decode(obus)
@@ -266,10 +255,19 @@ def test_signature_is_libavifs(tmp_path, major, compatible, reads):
 def test_av1_tables_are_libaoms():
     """native/av1_tables.h is what tests/torch_av1_tables.py writes from
     libaom's read-only data, and the CDFs written out by hand are found
-    in the library."""
+    in the library; the compound prediction CDFs read from libaom's
+    FRAME_CONTEXT are inverse CDFs (falling to the terminal 0, then the
+    zero counter)."""
     lib = tables.Rodata(tables.libaom_path())
     assert tables.check_small_cdfs(lib) == []
-    assert tables.HEADER.read_text() == tables.render(tables.build(lib))
+    built = tables.build(lib)
+    assert tables.HEADER.read_text() == tables.render(built)
+    for name in ("compound_mode_cdf", "compound_type_cdf", "comp_ref_type_cdf",
+                 "uni_comp_ref_cdf", "comp_ref_cdf", "comp_bwdref_cdf",
+                 "compound_idx_cdf", "comp_group_idx_cdf"):
+        rows = built[name].reshape(-1, built[name].shape[-1]).astype(np.int64)
+        assert (rows[:, -2:] == 0).all(), name
+        assert (rows[:, 0] > 0).all() and (np.diff(rows[:, :-1], axis=1) <= 0).all(), name
 
 
 def test_deep_samples_load_as_the_jax_package_loads_them():
@@ -291,7 +289,7 @@ def test_deep_samples_load_as_the_jax_package_loads_them():
 def test_the_port_loads_neither_libavif_nor_libaom(tmp_path):
     """Reading every kind of fixture leaves libavif and libaom unloaded:
     the decoder is the port's own."""
-    names = [n for n in FILES if not n.startswith("unreadable") and n not in REFUSED]
+    names = [n for n in FILES if not n.startswith("unreadable")]
     code = ("import sys\nfrom pathlib import Path\n"
             "from rnb_neus2_torch.io import image_io\n"
             f"for n in {names!r}:\n"

@@ -19,8 +19,9 @@ stream's planes equal libaom's own decode; the files equal cv2 in the
 three modes (test_torch_image_avif.py's fixture test covers them too).
 The inter tools the fixtures reach are counted by the decoder's census
 (`PYTHONPATH=.:tests python tests/test_torch_image_avif_layers.py`
-prints it); the tools no
-layered image of libavif's uses raise UnsupportedImage by name.
+prints it, with the slots of the tools of libaom's plain multi-frame
+streams summed over `avif_inter_*` and `avif_refused_*`, which
+test_torch_image_avif_inter_tools.py holds against libaom).
 """
 
 import hashlib
@@ -34,7 +35,7 @@ import pytest
 
 import torch_image_writers as tw
 from rnb_neus2_torch.io import avif, image_io, native
-from rnb_neus2_torch.io.errors import UnreadableImage, UnsupportedImage
+from rnb_neus2_torch.io.errors import UnreadableImage
 from torch_avif_reference import libaom_planes
 
 REPO = Path(__file__).resolve().parents[1]
@@ -205,27 +206,27 @@ def test_whole_sequences_decode_as_libaom():
     assert census[97] == 9
 
 
-@pytest.mark.parametrize("name,tool", [("avif_refused_compound.avif", "compound prediction"),
-                                       ("avif_refused_global_motion.avif", "global motion")])
+@pytest.mark.parametrize("name,tool", [("avif_refused_compound.avif", 128),
+                                       ("avif_refused_global_motion.avif", 144)])
 def test_tools_refused_by_name(name, tool):
-    """Inter tools no layered image of libavif's uses (compound prediction
-    and global motion, from libaom's plain multi-frame streams) raise
-    UnsupportedImage naming the file and the tool; cv2 reads the files."""
-    path = FIXTURES / name
-    assert cv2.imread(str(path)) is not None
-    with pytest.raises(UnsupportedImage, match=f"AVIF layer using {tool}") as e:
-        image_io.read_image(path)
-    assert str(path) in str(e.value)
+    """The inter tools no layered image of libavif's uses, once refused by
+    name (compound prediction and global motion, from libaom's plain
+    multi-frame streams), now decode: the stream equals libaom's decode,
+    uses the tool (census slot `tool`: compound blocks, rotation-zoom
+    models) and the file reads as cv2 reads it."""
+    for it, obus in _items(name):
+        assert _equal_libaom(obus)[tool] > 0
+    _like_cv2(FIXTURES / name)
 
 
-def census_table() -> dict:
-    """The inter tools' census summed over the layered fixtures → {slot:
-    count}, and the transform types of their inter frames."""
-    total = np.zeros(128, np.int64)
-    for name in LAYERED:
+def census_table(names=None, tools=INTER_TOOLS) -> dict:
+    """The inter tools' census summed over `names` (the layered fixtures)
+    → {slot: count}."""
+    total = np.zeros(native.AV1_CENSUS, np.int64)
+    for name in names or LAYERED:
         for it, obus in _items(name):
             total += native.av1_decode(obus)[3]
-    return {k: int(total[k]) for k in INTER_TOOLS}
+    return {k: int(total[k]) for k in tools}
 
 
 def test_inter_tool_census():
@@ -276,5 +277,8 @@ def test_committed_scene_prepares_as_jax(tmp_path):
 
 
 if __name__ == "__main__":
+    from test_torch_image_avif_inter_tools import PLAIN_STREAMS, STREAM_TOOLS
     for k, v in census_table().items():
         print(f"{k:4d}  {INTER_TOOLS[k]:40s} {v}")
+    for k, v in census_table(PLAIN_STREAMS, STREAM_TOOLS).items():
+        print(f"{k:4d}  {STREAM_TOOLS[k]:40s} {v}")

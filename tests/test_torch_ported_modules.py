@@ -342,9 +342,11 @@ def test_neus_converter_matches_jax(tmp_path, capsys):
 
 def test_neus_converter_refuses_other_formats(tmp_path):
     """An EXR image (whose 8-bit colour read no test can observe) and a
-    file that cv2 reads and the port does not yet (an AVIF whose frames
-    use compound prediction; plain AVIF, JPEG 2000, film grain and an
+    file that cv2 reads and the port refuses (a 16-bit grey TIFF of
+    partial edge tiles read as 8-bit colour, which cv2 misreads; an AVIF
+    with compound prediction, plain AVIF, JPEG 2000, film grain and an
     ispe that scales until the port read them) raise by name."""
+    import torch_image_writers as tw
     from rnb_neus2_torch.io import image_io
     _neus_dir(tmp_path / "neus", n=1)
     img = tmp_path / "neus" / "image" / "000.png"
@@ -354,10 +356,13 @@ def test_neus_converter_refuses_other_formats(tmp_path):
     with pytest.raises(ValueError, match="EXR read as 8-bit colour"):
         data_format_from_neus.generate(str(tmp_path / "neus"),
                                        str(tmp_path / "out"))
-    img.with_suffix(".exr").write_bytes(
-        (Path(__file__).parent / "torch_fixtures" / "formats" /
-         "avif_refused_compound.avif").read_bytes())
-    with pytest.raises(ValueError, match="compound prediction is not "
+    grey = np.arange(20 * 24, dtype="<u2").reshape(20, 24) * 97
+    tags = {256: (4, [24]), 257: (4, [20]), 258: (3, [16]), 259: (3, [1]),
+            262: (3, [1]), 277: (3, [1]), 284: (3, [1]), 322: (3, [16]),
+            323: (3, [16])}
+    img.with_suffix(".exr").write_bytes(tw.tiff_file(
+        tags, [t.tobytes() for t in tw.tiles(grey, 16, 16)], tiled=True))
+    with pytest.raises(ValueError, match="partial edge tiles .* is not "
                                          "supported"):
         data_format_from_neus.generate(str(tmp_path / "neus"),
                                        str(tmp_path / "out"))

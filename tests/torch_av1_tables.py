@@ -194,6 +194,12 @@ FRAME_CONTEXT_CDFS = {
     "single_ref_cdf": (11372, (3, 6, 3)), "skip_mode_cdf": (11852, (3, 3)),
     "intra_inter_cdf": (11888, (4, 3)), "seg_pred_cdf": (12490, (3, 3)),
     "y_mode_cdf": (12726, (4, 14)), "switchable_interp_cdf": (14058, (16, 4)),
+    # compound prediction (between drl_cdf and wedge_idx_cdf, single_ref_cdf
+    # and txfm_partition_cdf, txfm_partition_cdf and skip_mode_cdf)
+    "compound_mode_cdf": (8192, (8, 9)), "compound_type_cdf": (8336, (22, 3)),
+    "comp_ref_type_cdf": (11480, (5, 3)), "uni_comp_ref_cdf": (11510, (3, 3, 3)),
+    "comp_ref_cdf": (11564, (3, 3, 3)), "comp_bwdref_cdf": (11618, (3, 2, 3)),
+    "compound_idx_cdf": (11780, (6, 3)), "comp_group_idx_cdf": (11816, (6, 3)),
 }
 FRAME_CONTEXT_ANCHORS = {
     "default_wedge_idx_cdf": 8468, "default_palette_y_color_index_cdf": 9944,

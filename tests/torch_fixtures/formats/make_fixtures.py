@@ -33,6 +33,14 @@ libavif drives it (2 and 4 layers, quality and spatial, `lsel`, alpha,
 motion and inter-intra), with what libavif refuses; 612x512 sequence,
 scaled and layered files (phase 19); and `../avis_scene/`.
 
+The twentieth slice: plain multi-frame AV1 streams of libaom's encoder
+(`tw.aom_encode_stream`, with look-ahead) in one item, each using an
+inter tool (`avif_inter_*`: compound prediction of every type, the skip
+mode, shown-existing frames, global motion, segmentation in inter frames
+with temporal updates, superres and film grain in inter frames, switch
+frames; 8 and 10 bits; a 612x512 stream for phase 19); and
+`../avif_inter_scene/`.
+
 Also the JPEG 2000 / Group 4 sphere scene of `../jp2_scene/` (phase 19):
 the port's `write_sfm_scene` PNG sphere (16 views of 256x256) with its
 normals rewritten as lossless 16-bit JP2, its albedos as 8-bit JP2 at
@@ -42,7 +50,7 @@ names them), and `expected.json`, digests of what the JAX package's
 
 Needs cv2 and PIL, so it runs where the tests run, not on the card:
 
-    python tests/torch_fixtures/formats/make_fixtures.py [avif | sixteenth | seventeenth]
+    python tests/torch_fixtures/formats/make_fixtures.py [avif | sixteenth | seventeenth | twentieth]
 """
 
 import io
@@ -824,6 +832,90 @@ def seventeenth(rng):
     return out
 
 
+def moving_frames(rng, n, h, w, zoom=False, depth=8):
+    """`n` 4:2:0 frames of a `rich` picture moving: shifted 3 samples
+    right and 2 down a frame, or turned 1.5 degrees and zoomed 2 % about
+    its centre; uint16 at `depth` > 8."""
+    base = rich(rng, h + 40, w + 40)
+    out = []
+    for k in range(n):
+        if zoom:
+            m = cv2.getRotationMatrix2D(((w + 40) / 2, (h + 40) / 2), 1.5 * k, 1 + 0.02 * k)
+            fr = cv2.warpAffine(base, m, (w + 40, h + 40))
+        else:
+            fr = np.roll(np.roll(base, 3 * k, 1), 2 * k, 0)
+        yuv = tw.rgb_to_yuv420(np.ascontiguousarray(fr[20:20 + h, 20:20 + w]))
+        out.append([p.astype(np.uint16) << (depth - 8) for p in yuv] if depth > 8 else yuv)
+    return out
+
+
+def stream_until(frames, census_indices, settings, depth=8):
+    """(OBUs, info) of the first of `settings` (aom_encode_stream keyword
+    sets) whose plain multi-frame stream uses every tool at
+    `census_indices` of native/av1.cc's census, decodes and equals
+    libaom's decode."""
+    from rnb_neus2_torch.io import native
+    from torch_avif_reference import libaom_planes
+    for kw in settings:
+        obus = tw.aom_encode_stream(frames, bit_depth=depth, **kw)
+        code, info, planes, census = native.av1_decode(obus)
+        if code == 0 and all(census[i] for i in census_indices):
+            ref = libaom_planes(obus)
+            assert len(ref) == len(planes) and all(np.array_equal(a, b) for a, b in zip(planes, ref))
+            return obus, info
+        print("  setting", kw, "code", code, "census", {i: int(census[i]) for i in census_indices})
+    raise AssertionError(f"no setting uses tools {census_indices}")
+
+
+def twentieth(rng):
+    """Plain multi-frame AV1 streams of libaom's encoder in one item, each
+    using an inter tool the port decodes since this slice (census slots of
+    native/av1.cc): compound prediction of every type with the skip mode
+    and shown-existing frames (look-ahead and alt-reference frames),
+    global motion, segmentation in inter frames (cyclic refresh, with
+    temporal updates in real-time mode), superres and film grain in inter
+    frames, switch frames; 8 and 10 bits; and a 612x512 stream with
+    compound prediction and global motion for phase 19's codec rows."""
+    out = {}
+    h, w = 64, 96
+    shift = moving_frames(rng, 12, h, w)
+    zoom = moving_frames(rng, 10, h, w, zoom=True)
+    gm = {"enable-global-motion": 1}
+    cases = [
+        ("compound", shift, 8, (128, 131, 133), [dict(lag=12, speed=s) for s in (1, 0, 2)]),
+        ("compound_types", shift, 8, (129, 130, 131, 132, 134),
+         [dict(speed=0, cq=c) for c in (30, 20, 40)]),
+        ("skip_mode", shift, 8, (133,), [dict(lag=12, speed=s) for s in (6, 4)]),
+        ("show_existing", shift, 8, (148,), [dict(lag=12, speed=s, cq=40) for s in (4, 6)]),
+        ("global_motion", zoom, 8, (128, 141, 144, 146), [dict(lag=10, speed=s, options=gm) for s in (2, 1, 3)]),
+        ("segmentation", shift, 8, (150, 151), [dict(speed=s, options={"aq-mode": 3}) for s in (6, 4)]),
+        ("segmentation_temporal", shift, 8, (150, 152),
+         [dict(usage=1, speed=s, options={"aq-mode": 3}) for s in (7, 8, 6)]),
+        ("superres", shift, 8, (161,), [dict(lag=12, cfg={19: 1, 20: d, 21: d}) for d in (12, 16)]),
+        ("film_grain", shift, 8, (162,), [dict(lag=12, options={"film-grain-test": t}) for t in (1, 2)]),
+        ("switch_frame", shift, 8, (164,), [dict(lag=12, cfg={49: d, 50: 1}) for d in (4, 3)]),
+    ]
+    for depth in (10,):
+        deep = [[p.astype(np.uint16) << 2 for p in f] for f in shift]
+        deep_zoom = [[p.astype(np.uint16) << 2 for p in f] for f in zoom]
+        cases += [("compound_10bit", deep, depth, (128, 133, 148), [dict(lag=12, speed=s) for s in (1, 2)]),
+                  ("global_motion_10bit", deep_zoom, depth, (141, 144, 146),
+                   [dict(lag=10, speed=s, options=gm) for s in (2, 1)]),
+                  ("film_grain_10bit", deep, depth, (162,), [dict(lag=12, options={"film-grain-test": 1})])]
+    for name, frames, depth, slots, settings in cases:
+        obus, info = stream_until(frames, slots, settings, depth)
+        out[f"avif_inter_{name}.avif"] = tw.avif_still(obus, info, colr=(1, 13, 6, 1))
+    # phase 19's row: the 612x512 view moving (turned and zoomed)
+    view = cv2.imread(str(HERE / "avif_q95_612x512.avif"), cv2.IMREAD_COLOR)[..., ::-1]
+    frames = []
+    for k in range(4):
+        m = cv2.getRotationMatrix2D((306, 256), 1.0 * (3 - k), 1 + 0.015 * (3 - k))
+        frames.append(tw.rgb_to_yuv420(np.ascontiguousarray(cv2.warpAffine(view, m, (612, 512)))))
+    obus, info = stream_until(frames, (128, 144, 146), [dict(lag=4, speed=s, options=gm) for s in (4, 2)])
+    out["avif_inter_tools_612x512.avif"] = tw.avif_still(obus, info, colr=(1, 13, 6, 1))
+    return out
+
+
 def fourteenth(rng):
     """AVIF: cv2's own files at its defaults, quality 50 and 100, 10 and
     12 bits, grey, RGBA and odd sizes; PIL's (libavif 1.3 + aom) for the
@@ -1096,6 +1188,71 @@ def avis_scene():
     write_expected(AVIS_SCENE, radius)
 
 
+AVIF_INTER_SCENE = HERE.parent / "avif_inter_scene"
+
+
+def avif_inter_scene():
+    """The phase-19 sphere with normals and albedos as plain multi-frame
+    AV1 streams in one item (libaom with look-ahead and global motion:
+    the view turned and zoomed, then the view itself, the last frame
+    shown), which together use compound prediction, global motion and
+    shown-existing frames; PNG masks; and the digests of the JAX
+    package's prepared arrays."""
+    import json
+    import shutil
+    import tempfile
+
+    from rnb_neus2_torch.io import native
+    from rnb_neus2_torch.testing.synthetic import write_sfm_scene
+
+    if AVIF_INTER_SCENE.exists():
+        shutil.rmtree(AVIF_INTER_SCENE)
+    for sub in ("normals", "albedos", "masks"):
+        (AVIF_INTER_SCENE / sub).mkdir(parents=True)
+    used = np.zeros(native.AV1_CENSUS, np.int64)
+    with tempfile.TemporaryDirectory() as d:
+        normals, albedos, masks, radius = write_sfm_scene(
+            d, "png", world_center=SCENE_CENTER, **SCENE_SPHERE)
+        sfm = {k: json.load(open(p)) for k, p in (("normals", normals),
+                                                  ("albedos", albedos))}
+        noise = np.random.default_rng(23)
+        # normals: 8 frames at speed 2 (compound prediction, global motion
+        # warps); albedos: 12 frames with noise before the view at speed 4
+        # (compound prediction, the skip mode, shown-existing frames)
+        for key, n, speed, cq, sigma in (("normals", 8, 2, 8, 0), ("albedos", 12, 4, 16, 4)):
+            for view in sfm[key]["views"]:
+                src = Path(d) / view["path"]
+                rgb = np.ascontiguousarray(cv2.imread(str(src), cv2.IMREAD_COLOR)[..., ::-1])
+                frames = []
+                for k in range(n):
+                    j = n - 1 - k
+                    m = cv2.getRotationMatrix2D((128, 128), 1.5 * j, 1 + 0.015 * j)
+                    fr = cv2.warpAffine(rgb, m, (256, 256), borderMode=cv2.BORDER_REPLICATE).astype(np.float64)
+                    if j:
+                        fr += noise.normal(0, sigma, fr.shape)
+                    frames.append(tw.rgb_to_yuv420(np.clip(np.round(fr), 0, 255).astype(np.uint8)))
+                obus = tw.aom_encode_stream(frames, cq=cq, lag=n, speed=speed,
+                                            options={"enable-global-motion": 1})
+                code, info, _, census = native.av1_decode(obus)
+                assert code == 0, code
+                used += census
+                view["path"] = str(Path(key) / (src.stem + ".avif"))
+                (AVIF_INTER_SCENE / view["path"]).write_bytes(
+                    tw.avif_still(obus, info, colr=(1, 13, 6, 1)))
+        assert used[128] and used[148] and (used[143] or used[144] or used[145]), used[128:165]
+        mask_views = []
+        for view in sfm["normals"]["views"]:
+            pid = view["poseId"]
+            path = Path("masks") / f"{pid}.png"
+            shutil.copy(Path(masks) / f"{pid}.png", AVIF_INTER_SCENE / path)
+            mask_views.append(dict(view, path=str(path)))
+        sfm["masks"] = dict(sfm["normals"], views=mask_views)
+        for k, v in sfm.items():
+            with open(AVIF_INTER_SCENE / f"{k}.sfm.json", "w") as f:
+                json.dump(v, f)
+    write_expected(AVIF_INTER_SCENE, radius)
+
+
 SGILOG_SCENE = HERE.parent / "sgilog_scene"
 # cv2's XYZ → RGB (sRGB primaries, D65), which the albedos go through
 # backwards so that cv2 reads them back close to the PNG scene's
@@ -1210,9 +1367,16 @@ def main():
     `make_fixtures.py sixteenth` only the sixteenth slice's files (SGILog,
     the new AVIFs) and their entries; `make_fixtures.py seventeenth` the
     seventeenth's (sequences, scaled and layered AVIFs), their entries and
-    the avis scene."""
-    only = sys.argv[1] if sys.argv[1:] in (["avif"], ["sixteenth"], ["seventeenth"]) else None
-    if only == "seventeenth":
+    the avis scene; `make_fixtures.py twentieth` the twentieth's (plain
+    multi-frame AV1 streams using compound prediction, global motion and
+    the other inter tools), their entries and the avif_inter scene."""
+    only = sys.argv[1] if sys.argv[1:] in (["avif"], ["sixteenth"], ["seventeenth"], ["twentieth"]) else None
+    if only == "twentieth":
+        files = twentieth(np.random.default_rng(23))
+        with np.load(HERE / "expected.npz") as z:
+            expected = {k: z[k] for k in z.files
+                        if k.split(":")[0] not in files}
+    elif only == "seventeenth":
         files = seventeenth(np.random.default_rng(20))
         with np.load(HERE / "expected.npz") as z:
             expected = {k: z[k] for k in z.files
@@ -1235,7 +1399,8 @@ def main():
                  **thirteenth(np.random.default_rng(16)),
                  **fourteenth(np.random.default_rng(17)),
                  **sixteenth(np.random.default_rng(19)),
-                 **seventeenth(np.random.default_rng(20))}
+                 **seventeenth(np.random.default_rng(20)),
+                 **twentieth(np.random.default_rng(23))}
         for old in HERE.iterdir():
             if old.suffix not in (".py", ".npz"):
                 old.unlink()
@@ -1260,6 +1425,8 @@ def main():
         sgilog_scene()
     if only in (None, "seventeenth"):
         avis_scene()
+    if only in (None, "twentieth"):
+        avif_inter_scene()
 
 
 if __name__ == "__main__":

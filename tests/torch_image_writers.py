@@ -1697,6 +1697,42 @@ def _libaom():
 AOM_ENCODER_ABI_VERSION = 0x1d   # as libavif 1.4 passes it to aom_codec_enc_init_ver
 
 
+def _aom_image(lib, w, h, bit_depth):
+    """A w x h aom_image_t (I420, 16-bit above 8 bits) and a function that
+    copies [Y, U, V] planes into it."""
+    import ctypes
+    img = lib.aom_img_alloc(None, 0x102 | (0x800 if bit_depth > 8 else 0), w, h, 16)
+    planes = (ctypes.c_void_p * 3).from_address(img + 64)
+    strides = (ctypes.c_int * 3).from_address(img + 88)
+    ctypes.c_uint.from_address(img + 36).value = bit_depth   # bit_depth
+
+    def fill(yuv):
+        for p, plane in enumerate(yuv):
+            data = np.ascontiguousarray(plane, np.uint16 if bit_depth > 8 else np.uint8)
+            row = data.shape[1] * data.itemsize
+            for y in range(data.shape[0]):
+                ctypes.memmove(planes[p] + y * strides[p], data[y].ctypes.data, row)
+    return img, fill
+
+
+def _aom_packets(lib, ctx) -> tuple:
+    """(frame bytes, first-pass stats bytes) of the packets the encoder
+    holds."""
+    import ctypes
+    frames, stats, it = b"", b"", ctypes.c_void_p(0)
+    while True:
+        pkt = lib.aom_codec_get_cx_data(ctx, ctypes.byref(it))
+        if not pkt:
+            return frames, stats
+        kind = ctypes.c_int.from_address(pkt).value
+        buf = ctypes.c_void_p.from_address(pkt + 8).value
+        sz = ctypes.c_size_t.from_address(pkt + 16).value
+        if kind == 0:                                  # AOM_CODEC_CX_FRAME_PKT
+            frames += ctypes.string_at(buf, sz)
+        elif kind == 1:                                # AOM_CODEC_STATS_PKT
+            stats += ctypes.string_at(buf, sz)
+
+
 def aom_encode(yuv, bit_depth=8, usage=2, cq=30, options=None, cfg=None,
                two_pass=False) -> bytes:
     """One key frame from libaom's encoder: `yuv` is [Y, U, V] 4:2:0
@@ -1747,32 +1783,14 @@ def _aom_pass(yuv, bit_depth, usage, cq, options, cfg, passno, stats):
         for k, v in opts.items():
             if lib.aom_codec_set_option(ctx, k.encode(), str(v).encode()):
                 raise RuntimeError(f"aom option {k}={v} refused")
-        fmt = 0x102 | (0x800 if bit_depth > 8 else 0)
-        img = lib.aom_img_alloc(None, fmt, w, h, 16)
-        planes = (ctypes.c_void_p * 3).from_address(img + 64)
-        strides = (ctypes.c_int * 3).from_address(img + 88)
-        ctypes.c_uint.from_address(img + 36).value = bit_depth   # bit_depth
-        for p, plane in enumerate(yuv):
-            data = np.ascontiguousarray(plane, np.uint16 if bit_depth > 8 else np.uint8)
-            row = data.shape[1] * data.itemsize
-            for y in range(data.shape[0]):
-                ctypes.memmove(planes[p] + y * strides[p], data[y].ctypes.data, row)
+        img, fill = _aom_image(lib, w, h, bit_depth)
+        fill(yuv)
         frames, stat = b"", b""
         for frame in (img, None):
             if lib.aom_codec_encode(ctx, frame, 0, 1, 0):
                 raise RuntimeError("aom_codec_encode")
-            it = ctypes.c_void_p(0)
-            while True:
-                pkt = lib.aom_codec_get_cx_data(ctx, ctypes.byref(it))
-                if not pkt:
-                    break
-                kind = ctypes.c_int.from_address(pkt).value
-                buf = ctypes.c_void_p.from_address(pkt + 8).value
-                sz = ctypes.c_size_t.from_address(pkt + 16).value
-                if kind == 0:                          # AOM_CODEC_CX_FRAME_PKT
-                    frames += ctypes.string_at(buf, sz)
-                elif kind == 1:                        # AOM_CODEC_STATS_PKT
-                    stat += ctypes.string_at(buf, sz)
+            got = _aom_packets(lib, ctx)
+            frames, stat = frames + got[0], stat + got[1]
         lib.aom_img_free(img)
     finally:
         lib.aom_codec_destroy(ctx)
@@ -1834,18 +1852,10 @@ def aom_encode_layers(yuv, layers, bit_depth=8, speed=6, options=None, cfg=None,
         control(AOME_SET_TUNING, 1)                     # AOM_TUNE_SSIM
         for k, v in (controls or {}).items():
             control(k, v)
-        fmt = 0x102 | (0x800 if bit_depth > 8 else 0)
-        img = lib.aom_img_alloc(None, fmt, w, h, 16)
-        planes = (ctypes.c_void_p * 3).from_address(img + 64)
-        strides = (ctypes.c_int * 3).from_address(img + 88)
-        ctypes.c_uint.from_address(img + 36).value = bit_depth
+        img, fill = _aom_image(lib, w, h, bit_depth)
         inputs = yuv if isinstance(yuv[0], (list, tuple)) else [yuv] * len(layers)
         for index, (cq, scale) in enumerate(layers):
-            for p, plane in enumerate(inputs[index]):
-                data = np.ascontiguousarray(plane, np.uint16 if bit_depth > 8 else np.uint8)
-                row = data.shape[1] * data.itemsize
-                for y in range(data.shape[0]):
-                    ctypes.memmove(planes[p] + y * strides[p], data[y].ctypes.data, row)
+            fill(inputs[index])
             if spatial:
                 control(AOME_SET_SPATIAL_LAYER_ID, index)
             mode = (ctypes.c_int * 2)(SCALE_MODES[scale], SCALE_MODES[scale])
@@ -1856,20 +1866,75 @@ def aom_encode_layers(yuv, layers, bit_depth=8, speed=6, options=None, cfg=None,
                 flag = flags[index] if flags is not None else LAYER_FLAGS if index else 0
                 if lib.aom_codec_encode(ctx, frame, index, 1, flag):
                     raise RuntimeError("aom_codec_encode")
-                it = ctypes.c_void_p(0)
-                while True:
-                    pkt = lib.aom_codec_get_cx_data(ctx, ctypes.byref(it))
-                    if not pkt:
-                        break
-                    if ctypes.c_int.from_address(pkt).value == 0:
-                        buf = ctypes.c_void_p.from_address(pkt + 8).value
-                        sz = ctypes.c_size_t.from_address(pkt + 16).value
-                        frames += ctypes.string_at(buf, sz)
+                frames += _aom_packets(lib, ctx)[0]
             out.append(drop_temporal_delimiters(frames))
         lib.aom_img_free(img)
     finally:
         lib.aom_codec_destroy(ctx)
     return out
+
+
+def aom_encode_stream(frames, bit_depth=8, speed=6, cq=30, lag=0, options=None, cfg=None,
+                      controls=None, usage=0) -> bytes:
+    """A plain multi-frame AV1 stream from libaom's encoder (good quality
+    by default, AOM_Q at `cq`): `frames` are full-size [Y, U, V] 4:2:0
+    inputs; `lag` frames of look-ahead (g_lag_in_frames) let libaom code
+    alt-reference frames, so compound prediction, the skip mode and
+    shown-existing frames; `options` go to aom_codec_set_option (aomenc's
+    names), `cfg` sets aom_codec_enc_cfg_t fields by their uint32 index
+    (46 kf_mode, 48 kf_max_dist, 49 sframe_dist, 50 sframe_mode),
+    `controls` aom_codec_control ids. The encoder is drained after the
+    last frame, so every frame it holds back is written.
+    → the OBUs of every temporal unit, temporal delimiters dropped."""
+    import ctypes
+    lib = _libaom()
+    h, w = frames[0][0].shape
+    cfgbuf = ctypes.create_string_buffer(4096)
+    iface = ctypes.c_void_p(lib.aom_codec_av1_cx())
+    if lib.aom_codec_enc_config_default(iface, cfgbuf, usage):
+        raise RuntimeError("aom_codec_enc_config_default")
+    fields = np.frombuffer(cfgbuf, np.uint32, 100).copy()
+    fields[3], fields[4] = w, h
+    fields[8], fields[9] = bit_depth, bit_depth
+    fields[2] = 2 if bit_depth == 12 else 0
+    fields[14] = lag                                    # g_lag_in_frames
+    fields[24] = 3                                      # rc_end_usage AOM_Q
+    for k, v in (cfg or {}).items():
+        fields[k] = v
+    ctypes.memmove(cfgbuf, fields.tobytes(), fields.nbytes)
+    ctx = ctypes.create_string_buffer(512)
+    init_flags = 0x40000 if bit_depth > 8 else 0
+    if lib.aom_codec_enc_init_ver(ctx, iface, cfgbuf, init_flags, AOM_ENCODER_ABI_VERSION):
+        raise RuntimeError("aom_codec_enc_init_ver")
+    out = b""
+    try:
+        if lib.aom_codec_control(ctx, ctypes.c_int(AOME_SET_CPUUSED), ctypes.c_int(speed)):
+            raise RuntimeError("aom_codec_control cpu-used")
+        opts = {"cq-level": str(cq)}
+        opts.update(options or {})
+        for k, v in opts.items():
+            if lib.aom_codec_set_option(ctx, k.encode(), str(v).encode()):
+                raise RuntimeError(f"aom option {k}={v} refused")
+        for k, v in (controls or {}).items():
+            if lib.aom_codec_control(ctx, ctypes.c_int(k), ctypes.c_int(v)):
+                raise RuntimeError(f"aom_codec_control {k}")
+        img, fill = _aom_image(lib, w, h, bit_depth)
+        for index, yuv in enumerate(frames):
+            fill(yuv)
+            if lib.aom_codec_encode(ctx, img, index, 1, 0):
+                raise RuntimeError("aom_codec_encode")
+            out += _aom_packets(lib, ctx)[0]
+        while True:                                     # flush what the look-ahead holds
+            if lib.aom_codec_encode(ctx, None, 0, 1, 0):
+                raise RuntimeError("aom_codec_encode")
+            got = _aom_packets(lib, ctx)[0]
+            if not got:
+                break
+            out += got
+        lib.aom_img_free(img)
+    finally:
+        lib.aom_codec_destroy(ctx)
+    return drop_temporal_delimiters(out)
 
 
 def layered_avif(layers, info, alpha=None, alpha_info=None, lsel=None, a1op=None,
