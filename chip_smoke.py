@@ -1929,16 +1929,54 @@ def testbed_phase(torch, dev, card, work: Path) -> dict:
 WRITER_FIXTURES = ROOT / "tests" / "torch_fixtures" / "writers"
 
 
+# the AVIF writer's bounds against cv2's file of the same input (as
+# tests/test_torch_image_avif_writer.py holds them): per channel, PSNR at
+# most this far under cv2's, max abs error at most this far over
+AVIF_PSNR_MARGIN_DB = 0.5
+AVIF_MAX_ERR_MARGIN = 8
+
+
+def avif_error(image, got, ref) -> dict:
+    """Per channel PSNR and max abs error against `image` of the port's
+    decoded AVIF `got` and of cv2's `ref`, and whether they keep the
+    bounds."""
+    import numpy as np
+
+    def psnr(a, b):
+        mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+        return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+    chans = range(image.shape[2]) if image.ndim == 3 else [None]
+    pick = (lambda a, k: a if k is None else a[..., k])
+    row = {"psnr_db": [], "cv2_psnr_db": [], "max_abs_err": [],
+           "cv2_max_abs_err": []}
+    for k in chans:
+        x = pick(image, k).astype(np.int64)
+        row["psnr_db"].append(psnr(x, pick(got, k)))
+        row["cv2_psnr_db"].append(psnr(x, pick(ref, k)))
+        row["max_abs_err"].append(int(np.abs(x - pick(got, k)).max()))
+        row["cv2_max_abs_err"].append(int(np.abs(x - pick(ref, k)).max()))
+    row["within_bounds"] = bool(
+        got.shape == ref.shape == image.shape
+        and all(a >= b - AVIF_PSNR_MARGIN_DB
+                for a, b in zip(row["psnr_db"], row["cv2_psnr_db"]))
+        and all(a <= b + AVIF_MAX_ERR_MARGIN
+                for a, b in zip(row["max_abs_err"], row["cv2_max_abs_err"])))
+    return row
+
+
 def writer_fixture_checks() -> dict:
-    """The port's `.webp`, `.gif` and `.jp2` encoders on the committed
-    input against cv2.imwrite's committed files of it
+    """The port's `.webp`, `.gif`, `.jp2` and `.avif` encoders on the
+    committed input against cv2.imwrite's committed files of it
     (tests/torch_fixtures/writers/): GIF and JPEG 2000 byte for byte, the
     WebP (whose bytes are the port's own) pixel for pixel, alpha 0
     included (`webp_alpha0` counts the pixels under alpha 0 whose colour
-    libwebp left non-zero), and every file decoded by the port's
-    reader."""
+    libwebp left non-zero), the AVIF (whose bytes are the port's own AV1
+    encoder's) read back as the encoder's reconstruction and within the
+    bounds of cv2's file's error (`avif_error`), every file decoded by
+    the port's reader."""
     import numpy as np
-    from rnb_neus2_torch.io import gif, image_io, jpeg2000, webp
+    from rnb_neus2_torch.io import avif, gif, image_io, jpeg2000, webp
 
     rgba = image_io.read_image(WRITER_FIXTURES / "input.png")
     encoders = {".webp": webp.encode_webp, ".gif": gif.encode_gif,
@@ -1963,21 +2001,36 @@ def writer_fixture_checks() -> dict:
                     ref[ref[..., 3] == 0, :3].any(-1).sum())
             if not same:
                 raise AssertionError(f"writer fixture {ext}: {out[ext]}")
+        ours, recon, arecon = avif.encode_avif_recon(rgba)
+        want = (WRITER_FIXTURES / "cv2.avif").read_bytes()
+        path = Path(d) / "port.avif"
+        path.write_bytes(ours)
+        got = image_io.read_image(path)
+        row = avif_error(rgba, got, image_io.read_image(
+            WRITER_FIXTURES / "cv2.avif"))
+        exact = np.array_equal(got, avif.reconstructed(recon, arecon))
+        out[".avif"] = {"bytes": len(ours), "cv2_bytes": len(want),
+                        "same_bytes": ours == want,
+                        "reads_as_reconstruction": exact,
+                        "agree": exact and row["within_bounds"], **row}
+        if not out[".avif"]["agree"]:
+            raise AssertionError(f"writer fixture .avif: {out['.avif']}")
     return out
 
 
 def screenshot_checks(tb, img, work: Path) -> dict:
-    """`Testbed.screenshot` to `.webp`, `.gif` and `.jp2` of the frame
-    `img` just rendered (`render_to_cpu` is held to it, so that the check
-    is exact), each read back by the port's reader: the JPEG 2000 equals
-    the 8-bit RGBA that `save_image` makes of it, the WebP the same but
-    under alpha 0, where it holds the colour libwebp's analysis leaves
+    """`Testbed.screenshot` to `.webp`, `.gif`, `.jp2` and `.avif` of the
+    frame `img` just rendered (`render_to_cpu` is held to it, so that the
+    check is exact), each read back by the port's reader: the JPEG 2000
+    equals the 8-bit RGBA that `save_image` makes of it, the WebP the same
+    but under alpha 0, where it holds the colour libwebp's analysis leaves
     (`native.vp8l_analyze`, pinned to cv2's files by
     tests/test_torch_image_writers.py), the GIF has the RGBA's shape and
-    transparency, and the encoders reproduce cv2's committed files
+    transparency, the AVIF is the AV1 encoder's reconstruction of that
+    RGBA, and the encoders reproduce cv2's committed files
     (`writer_fixture_checks`)."""
     import numpy as np
-    from rnb_neus2_torch.io import image_io, native
+    from rnb_neus2_torch.io import avif, image_io, native
 
     rgba = (np.clip(np.nan_to_num(img.astype(np.float32), nan=0.0), 0, 1)
             * 255.0).astype(np.uint8)
@@ -1989,11 +2042,12 @@ def screenshot_checks(tb, img, work: Path) -> dict:
     # a GIF without a transparent pixel
     webp_ch = 4 if (rgba[..., 3] < 255).any() else 3
     gif_ch = 4 if (rgba[..., 3] == 0).any() else 3
-    want = {".jp2": rgba, ".webp": clear[..., :webp_ch]}
+    want = {".jp2": rgba, ".webp": clear[..., :webp_ch],
+            ".avif": avif.reconstructed(*avif.encode_avif_recon(rgba)[1:])}
     tb.render_to_cpu = lambda view_idx=0, **kw: img
     out = {}
     try:
-        for ext in (".webp", ".gif", ".jp2"):
+        for ext in (".webp", ".gif", ".jp2", ".avif"):
             path = work / f"screenshot{ext}"
             t0 = time.perf_counter()
             tb.screenshot(str(path))
@@ -3163,13 +3217,14 @@ def codec_timings(work: Path) -> dict:
     """Phase 19: ms per view of every decoder and encoder on the host, at
     DiLiGenT-MV's 612x512 on a rendered sphere's normal map (PNG, TIFF,
     EXR, JPEG, BMP, PPM, PFM, Radiance, Sun raster; WebP, GIF and JPEG
-    2000 as `save_image` writes a screenshot, 8-bit RGBA, and JPEG 2000
-    also as 16-bit RGB; AVIF and lossy JPEG 2000, which the port does not
-    write, timed on phase 20's fixtures; SGILog and SGILog24 as
+    2000 and AVIF as `save_image` writes a screenshot, 8-bit RGBA (the
+    AVIF read back as its encoder's reconstruction), and JPEG 2000 also
+    as 16-bit RGB; libaom's AVIFs and lossy JPEG 2000, which the port
+    does not write, decoded from phase 20's fixtures; SGILog and SGILog24 as
     `sgilog_view` assembles them; libwebp's lossless analysis alone), and
     a 4032x3024 JPEG."""
     import numpy as np
-    from rnb_neus2_torch.io import (bmp, exr, gif, hdr, jpeg, jpeg2000,
+    from rnb_neus2_torch.io import (avif, bmp, exr, gif, hdr, jpeg, jpeg2000,
                                     native, png, pxm, sunras, tiff, webp)
 
     h, w = CODEC_VIEW
@@ -3215,6 +3270,9 @@ def codec_timings(work: Path) -> dict:
                           jpeg2000.read_jpeg2000, rgba8),
         "jp2_rgb_16bit": (".jp2", lambda p: jpeg2000.write_jp2(p, rgb16),
                           jpeg2000.read_jpeg2000, rgb16),
+        "avif_rgba_8bit": (".avif", lambda p: avif.write_avif(p, rgba8),
+                           avif.read_avif, avif.reconstructed(
+                               *avif.encode_avif_recon(rgba8)[1:])),
     }
     out = {"view": [w, h], "repeats": CODEC_REPEATS,
            "webp_analysis": {"ms": statistics.median(ms),
@@ -3862,6 +3920,8 @@ def main() -> int:
                                 LIBRARY=native.AV1_LIBRARY)
     scale = types.SimpleNamespace(_library=native._scale_library,
                                   LIBRARY=native.SCALE_LIBRARY)
+    av1_enc = types.SimpleNamespace(_library=native._av1_enc_library,
+                                    LIBRARY=native.AV1_ENC_LIBRARY)
 
     kernels = {"hash_grad_small": hgs, "scatter_add": sca,
                "encode_jacobian": ejac, "corner_backward": cbw}
@@ -3874,7 +3934,7 @@ def main() -> int:
         cuda=torch.version.cuda)
 
     build_all(build, [hgs, sca, ejac, cbw, raycast, png, native, av1,
-                      scale])
+                      scale, av1_enc])
     errs = check_kernels_vs_plain(torch, bench, kernels, dev)
     for name, sizes in (("hash_grad_small", (4096, 13824)),
                         ("scatter_add", (39304, 125000, 373248, 1 << 19))):

@@ -66,6 +66,9 @@ essential `a1lx` or one that does not fit its item, a non-essential
 `a1op` or `lsel`, an `lsel` past the layers, a zero or too large
 `ispe`, a grid libavif refuses or whose `ispe` is not its output size)
 raises UnreadableImage.
+
+Writing (`encode_avif`, below): the kind of file cv2.imwrite writes at
+its defaults, coded by the port's own AV1 encoder (`native/av1_enc.cc`).
 """
 
 from __future__ import annotations
@@ -77,7 +80,7 @@ from pathlib import Path
 import numpy as np
 
 from . import native
-from .errors import check_size, unreadable, unsupported
+from .errors import ImwriteFailed, check_size, unreadable, unsupported
 from .jpeg import cvt_grey
 
 BRANDS = (b"avif", b"avis")
@@ -994,3 +997,146 @@ def _limited_to_full(a: np.ndarray, depth: int) -> np.ndarray:
     lo, rng, full = 16 << (depth - 8), 219 << (depth - 8), (1 << depth) - 1
     v = (a.astype(np.int64) - lo) * full
     return np.clip((v + rng // 2) // rng, 0, full)
+
+
+# ------------------------------------------------------------------ writing
+# cv2.imwrite's AVIF at its defaults: libavif 1.4 over libaom 3.14, lossy,
+# 8-bit only. The colour item is 4:2:0 BT.601 full range (colr nclx 1 /
+# 13 / 6) or, from grey input, monochrome (nclx 2 / 2 / 2); an alpha
+# channel with any sample under 255 becomes a monochrome full-range
+# auxiliary item. base_q_idx of libaom's frames at cv2's default quality:
+COLOUR_QINDEX = 148
+ALPHA_QINDEX = 124
+ALPHA_URN = ALPHA_URNS[0]
+TEMPORAL_DELIMITER = b"\x12\x00"   # libavif keeps it before the sequence header
+
+
+def rgb_to_yuv420(rgb: np.ndarray) -> tuple:
+    """libavif's avifImageRGBToYUV of cv2's 8-bit BGR(A) pixels (given here
+    in RGB order) for 4:2:0 BT.601 full range, which it hands to libyuv
+    (RGB24ToJ420 / ARGBToJ420): Y = (77 R + 150 G + 29 B + 128) >> 8; each
+    chroma sample from the rounded mean of its 2x2 pixels (the last row
+    or column repeated where the size is odd), U = (128 B - 85 G - 43 R +
+    32768) >> 8, V = (128 R - 107 G - 21 B + 32768) >> 8."""
+    h, w = rgb.shape[:2]
+    x = rgb[..., :3].astype(np.int32)
+    y = (77 * x[..., 0] + 150 * x[..., 1] + 29 * x[..., 2] + 128) >> 8
+    p = np.pad(x, ((0, h % 2), (0, w % 2), (0, 0)), mode="edge")
+    m = (p[0::2, 0::2] + p[0::2, 1::2] + p[1::2, 0::2] + p[1::2, 1::2] + 2) >> 2
+    r, g, b = m[..., 0], m[..., 1], m[..., 2]
+    u = (128 * b - 85 * g - 43 * r + 32768) >> 8
+    v = (128 * r - 107 * g - 21 * b + 32768) >> 8
+    return tuple(c.astype(np.uint8) for c in (y, u, v))
+
+
+def _box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + kind + payload
+
+
+def _full_box(kind: bytes, version: int, flags: int, payload: bytes) -> bytes:
+    return _box(kind, bytes([version]) + flags.to_bytes(3, "big") + payload)
+
+
+def _av1c(level: int, mono: bool) -> bytes:
+    """av1C of profile 0, tier 0, 8 bits, 4:2:0 (or monochrome), chroma
+    sample position 0, no configOBUs."""
+    return _box(b"av1C", bytes([0x81, level, 0x10 * mono | 0x0C, 0]))
+
+
+def _container(w: int, h: int, colour: bytes, level: int, mono: bool,
+               alpha: bytes = None) -> bytes:
+    """The HEIF boxes of cv2's AVIF, in its order: ftyp (avif; avif, mif1,
+    miaf, and MA1B for a colour image of level 5.1 or lower), meta (hdlr,
+    pitm, iloc, iinf, iref, iprp), mdat with the alpha item's data before
+    the colour item's."""
+    brands = b"avifmif1miaf" + (b"MA1B" if not mono and level <= 13 else b"")
+    ftyp = _box(b"ftyp", b"avif" + b"\0\0\0\0" + brands)
+    hdlr = _full_box(b"hdlr", 0, 0, b"\0" * 4 + b"pict" + b"\0" * 13)
+    pitm = _full_box(b"pitm", 0, 0, struct.pack(">H", 1))
+    items = [(1, b"Color", colour)] + ([(2, b"Alpha", alpha)] if alpha else [])
+    iinf = _full_box(b"iinf", 0, 0, struct.pack(">H", len(items)) + b"".join(
+        _full_box(b"infe", 2, 0, struct.pack(">HH", i, 0) + b"av01" + name + b"\0")
+        for i, name, _ in items))
+    iref = _full_box(b"iref", 0, 0, _box(b"auxl", struct.pack(">HHH", 2, 1, 1))) if alpha else b""
+    nclx = (2, 2, 2) if mono else (1, 13, 6)
+    props = [_full_box(b"ispe", 0, 0, struct.pack(">II", w, h)),
+             _full_box(b"pixi", 0, 0, bytes([1, 8]) if mono else bytes([3, 8, 8, 8])),
+             _av1c(level, mono),
+             _box(b"colr", b"nclx" + struct.pack(">HHHB", *nclx, 0x80))]
+    assoc = [(1, [1, 2, 0x83, 4])]
+    if alpha:
+        props += [_full_box(b"pixi", 0, 0, bytes([1, 8])), _av1c(level, True),
+                  _full_box(b"auxC", 0, 0, ALPHA_URN + b"\0")]
+        assoc.append((2, [1, 5, 0x86, 7]))
+    ipma = _full_box(b"ipma", 0, 0, struct.pack(">I", len(assoc)) + b"".join(
+        struct.pack(">HB", i, len(a)) + bytes(a) for i, a in assoc))
+    iprp = _box(b"iprp", _box(b"ipco", b"".join(props)) + ipma)
+    order = items[::-1]                       # mdat: alpha, then colour
+
+    def meta(start: int) -> bytes:
+        offsets, pos = {}, start
+        for i, _, data in order:
+            offsets[i] = pos
+            pos += len(data)
+        iloc = _full_box(b"iloc", 0, 0, bytes([0x44, 0]) + struct.pack(">H", len(items)) + b"".join(
+            struct.pack(">HHHII", i, 0, 1, offsets[i], len(data)) for i, _, data in items))
+        return _full_box(b"meta", 0, 0, hdlr + pitm + iloc + iinf + iref + iprp)
+
+    start = len(ftyp) + len(meta(0)) + 8
+    return ftyp + meta(start) + _box(b"mdat", b"".join(d for _, _, d in order))
+
+
+def encode_avif_recon(image: np.ndarray, path="image") -> tuple:
+    """`encode_avif`'s file, with the planes a decoder reconstructs from
+    it: ([Y] or [Y, U, V] uint8, the alpha plane or None)."""
+    image = np.asarray(image)
+    if image.ndim == 3 and image.shape[2] == 1:
+        image = image[..., 0]
+    if image.ndim not in (2, 3) or (image.ndim == 3 and image.shape[2] not in (3, 4)):
+        raise ValueError(f"{path}: cv2's AVIF encoder takes 1, 3 or 4 channels, "
+                         f"not shape {image.shape}")
+    if image.dtype == np.uint16:
+        raise ImwriteFailed(f"{path}: cv2 writes AVIF from 8-bit samples only "
+                            "(at its default bit depth)")
+    if image.dtype != np.uint8:
+        raise ValueError(f"{path}: AVIF takes 8-bit samples, not {image.dtype}")
+    h, w = image.shape[:2]
+    mono = image.ndim == 2
+    planes = [image] if mono else list(rgb_to_yuv420(image))
+    colour, recon, level = native.av1_encode(planes, COLOUR_QINDEX,
+                                             (2, 2, 2) if mono else (1, 13, 6))
+    alpha = arecon = None
+    if not mono and image.shape[2] == 4 and (image[..., 3] < 255).any():
+        alpha, arec, _ = native.av1_encode([image[..., 3]], ALPHA_QINDEX)
+        alpha = TEMPORAL_DELIMITER + alpha
+        arecon = arec[0]
+    data = _container(w, h, TEMPORAL_DELIMITER + colour, level, mono, alpha)
+    return data, recon, arecon
+
+
+def reconstructed(recon: list, alpha=None) -> np.ndarray:
+    """What cv2 and `read_avif` ("unchanged") read from a file of
+    `encode_avif_recon`: its grey plane, or its planes through libavif's
+    YUV to RGB (libyuv, BT.601 full range, bilinear chroma), with its
+    alpha where it has one."""
+    if len(recon) == 1:
+        return recon[0]
+    rgb = _libyuv_rgb(*recon, 601, 1, 8, 1, 1)
+    return rgb if alpha is None else np.dstack([rgb, alpha])
+
+
+def encode_avif(image: np.ndarray, path="image") -> bytes:
+    """An AVIF of (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8
+    samples of the kind `cv2.imwrite(".avif")` writes at its defaults:
+    cv2's boxes, brands and properties, its colour conversion
+    (`rgb_to_yuv420`), its sequence header fields and its quantizers
+    (COLOUR_QINDEX, ALPHA_QINDEX), coded by the port's own AV1 encoder
+    (`native/av1_enc.cc`), so its bytes and pixels are not libaom's.
+    Like cv2, 16-bit samples fail (`ImwriteFailed`) and 2 channels raise
+    ValueError; an alpha channel of all 255 is not written."""
+    return encode_avif_recon(image, path)[0]
+
+
+def write_avif(path, image: np.ndarray) -> None:
+    data = encode_avif(image, path)
+    Path(path).write_bytes(data)

@@ -180,9 +180,6 @@ def load_image_raw16(path) -> np.ndarray:
     return img
 
 
-# cv2 writes `.avif` with libaom's lossy encoder, whose pixels depend on
-# its encoder search: the port does not write it yet
-NOT_YET_WRITTEN = {".avif": "AVIF"}
 PNM_KINDS = {".ppm": "ppm", ".pgm": "pgm", ".pbm": "pbm", ".pnm": "auto"}
 
 
@@ -202,16 +199,20 @@ def write_raw(path, image: np.ndarray) -> None:
     channels; no colour kept under alpha 0); `.gif` (cv2's fixed palette
     and dithering; RGB or RGBA only); `.jp2` (OpenJPEG's lossless 5/3 at
     a rate capped at a quarter of the raw samples; 32 pixels a side at
-    least). Formats of 8-bit samples (JPEG, BMP, Sun raster, PBM, WebP,
-    GIF) take 16-bit ones saturated to 255, as cv2's conversion to 8 bits
-    does. Where cv2.imwrite returns False (a colour `.pgm`, a grey `.ppm`
-    or `.gif`, a 4-channel `.ppm`, `.pfm` or `.hdr`, a `.jp2` under 32
-    pixels a side) this raises `errors.ImwriteFailed`, and where it
-    raises (2 or 5 channels, ...) ValueError; either way it writes
-    nothing. So do `.exr` (OpenCV's EXR encoder takes only float
-    samples: `save_exr` writes floats), `.avif`, not yet written by the
-    port, and any other extension (`.j2k` among them: cv2 5 has no writer
-    for it)."""
+    least); `.avif` (lossy, 8-bit only: the kind of file cv2 writes at
+    its defaults, from the port's own AV1 encoder, so not cv2's bytes or
+    pixels: grey as a monochrome item, RGB as 4:2:0 BT.601 full range,
+    an alpha channel with any sample under 255 as an auxiliary
+    monochrome item; `avif.encode_avif`). Formats of 8-bit samples (JPEG,
+    BMP, Sun raster, PBM, WebP, GIF) take 16-bit ones saturated to 255,
+    as cv2's conversion to 8 bits does. Where cv2.imwrite returns False
+    (a colour `.pgm`, a grey `.ppm` or `.gif`, a 4-channel `.ppm`, `.pfm`
+    or `.hdr`, a `.jp2` under 32 pixels a side, 16-bit `.avif`) this
+    raises `errors.ImwriteFailed`, and where it raises (2 or 5 channels,
+    ...) ValueError; either way it writes nothing. So do `.exr`
+    (OpenCV's EXR encoder takes only float samples: `save_exr` writes
+    floats) and any other extension (`.j2k` among them: cv2 5 has no
+    writer for it)."""
     ext = os.path.splitext(str(path))[1].lower()
     image = np.asarray(image)
     if image.dtype == np.float32 and ext not in (".pfm", ".hdr", ".pic"):
@@ -248,9 +249,8 @@ def write_raw(path, image: np.ndarray) -> None:
     elif ext == ".exr":
         raise ValueError(f"{path}: an EXR file holds float samples; "
                          f"{image.dtype} cannot be written (use save_exr)")
-    elif ext in NOT_YET_WRITTEN:
-        raise ValueError(f"{path}: {NOT_YET_WRITTEN[ext]} files are not yet "
-                         "written by the port")
+    elif ext == ".avif":
+        avif.write_avif(path, image)
     else:
         raise ValueError(f"{path}: no image writer for extension "
                          f"{ext or '(none)'!r}")

@@ -395,7 +395,7 @@ AV1_LIBRARY = "av1"
 AV1_INFO = ("width", "height", "bit_depth", "mono", "ssx", "ssy", "cp", "tc",
             "mc", "full_range", "profile", "still", "reduced", "csp",
             "frame_type", "operating_points", "level", "tier", "tool",
-            "frames", "spatial_id")
+            "frames", "spatial_id", "base_q_idx")
 
 
 @functools.lru_cache(maxsize=None)
@@ -440,6 +440,53 @@ def av1_decode(obus: bytes, op: int = 0, layer: int = -1) -> tuple:
         v = planes[w * h + cw * ch:w * h + 2 * cw * ch].reshape(ch, cw)
         out += [u, v]
     return code, meta, out, census
+
+
+AV1_ENC_SOURCE = Path(__file__).resolve().parent.parent / "native" / "av1_enc.cc"
+AV1_ENC_LIBRARY = "av1_enc"
+
+
+@functools.lru_cache(maxsize=None)
+def _av1_enc_library() -> ctypes.CDLL:
+    lib, _ = load_host_library(AV1_ENC_LIBRARY, AV1_ENC_SOURCE)
+    lib.av1_encode.restype = ctypes.c_int64
+    lib.av1_encode.argtypes = [_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
+                               _I32, _P, _I64, _P, _P]
+    return lib
+
+
+def av1_encode(planes: list, qindex: int, colour: tuple = (2, 2, 2)) -> tuple:
+    """One 8-bit full-range AV1 key frame of [Y] or [Y, U, V] (4:2:0) uint8
+    planes at base_q_idx `qindex` (`native/av1_enc.cc`), with the colour
+    description (primaries, transfer, matrix; (2, 2, 2) writes none) →
+    (OBUs: the sequence header and the frame, the reconstructed planes a
+    decoder gives, seq_level_idx)."""
+    y = np.ascontiguousarray(planes[0], np.uint8)
+    h, w = y.shape
+    mono = len(planes) == 1
+    u, v = (y, y) if mono else (np.ascontiguousarray(p, np.uint8) for p in planes[1:])
+    cw, ch = (w + 1) // 2, (h + 1) // 2
+    if not mono and (u.shape != (ch, cw) or v.shape != (ch, cw)):
+        raise ValueError(f"chroma planes of a {w}x{h} frame are {cw}x{ch}, not "
+                         f"{u.shape[1]}x{u.shape[0]} and {v.shape[1]}x{v.shape[0]}")
+    recon = np.zeros(w * h + (0 if mono else 2 * cw * ch), np.uint8)
+    level = np.zeros(1, np.int32)
+    cap = 2 * recon.size + 4096
+    for _ in range(2):
+        out = np.zeros(cap, np.uint8)
+        n = _av1_enc_library().av1_encode(
+            ptr(y), ptr(u), ptr(v), w, h, int(mono), qindex, *colour,
+            ptr(out), cap, ptr(recon), ptr(level))
+        if n > -1000:
+            break
+        cap = -n - 1000
+    if n < 0:
+        raise ValueError(f"av1_encode failed with code {n} ({w}x{h}, q {qindex})")
+    rec = [recon[:w * h].reshape(h, w)]
+    if not mono:
+        rec += [recon[w * h:w * h + cw * ch].reshape(ch, cw),
+                recon[w * h + cw * ch:].reshape(ch, cw)]
+    return out[:n].tobytes(), rec, int(level[0])
 
 
 # ------------------------------------------------------------------ scaling

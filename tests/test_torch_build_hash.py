@@ -27,7 +27,10 @@ def test_digest_follows_included_headers(tmp_path):
 
 def test_av1_sources_hash_their_headers():
     deps = build._included(NATIVE / "av1.cc", set())
-    assert {p.name for p in deps} == {"av1_dsp.h", "av1_grain.h",
+    assert {p.name for p in deps} == {"av1_common.h", "av1_dsp.h",
+                                      "av1_grain.h", "av1_tables.h"}
+    deps = build._included(NATIVE / "av1_enc.cc", set())
+    assert {p.name for p in deps} == {"av1_common.h", "av1_dsp.h",
                                       "av1_tables.h"}
 
 

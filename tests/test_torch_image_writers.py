@@ -294,9 +294,9 @@ def test_two_channels_refused_as_cv2_refuses(tmp_path, ext):
 
 
 def test_grey_gif_j2k_and_avif_refused(tmp_path):
-    """cv2's GIF encoder fails on grey input, cv2 5 has no `.j2k` writer
-    (so the JAX save_image raises), and the port does not write `.avif`
-    yet."""
+    """cv2's GIF encoder fails on grey input and cv2 5 has no `.j2k`
+    writer (so the JAX save_image raises); `.avif` is written, grey as a
+    monochrome file that cv2 reads as the port's reader does."""
     grey = np.zeros((8, 8), np.uint8)
     assert not _cv2_write(tmp_path / "c.gif", grey)
     with pytest.raises(ValueError, match="3 or 4 channels"):
@@ -305,13 +305,18 @@ def test_grey_gif_j2k_and_avif_refused(tmp_path):
         jimage_io.save_image(np.zeros((40, 40, 3)), tmp_path / "j.j2k")
     with pytest.raises(ValueError, match="no image writer"):
         image_io.save_image(np.zeros((40, 40, 3)), tmp_path / "p.j2k")
-    with pytest.raises(ValueError, match="not yet written"):
-        image_io.write_raw(tmp_path / "p.avif", np.zeros((40, 40, 3),
-                                                          np.uint8))
+    for name, img in (("p.avif", np.zeros((40, 40, 3), np.uint8)),
+                      ("g.avif", grey)):
+        image_io.write_raw(tmp_path / name, img)
+        for mode in ("unchanged", "color", "grey"):
+            np.testing.assert_array_equal(
+                image_io.read_image(tmp_path / name, mode),
+                _cv2_read(tmp_path / name, mode))
+    assert image_io.read_image(tmp_path / "g.avif").shape == (8, 8)
 
 
 @pytest.mark.parametrize("name", ["input.png", "cv2.webp", "cv2.gif",
-                                  "cv2.jp2"])
+                                  "cv2.jp2", "cv2.avif"])
 def test_writer_fixtures_have_not_drifted(name):
     """The committed input and cv2's files of it, which phase 13 of
     chip_smoke.py holds the port's writers against on the card's host,

@@ -1,10 +1,12 @@
 """Write this folder's writer fixtures: `input.png`, a seeded 48x40 RGBA
 image shaped like a `Testbed` screenshot (a shaded disc over an alpha-0
-background, with some noise), and `cv2.imwrite`'s `.webp`, `.gif` and
-`.jp2` files of it. `chip_smoke.py` (phase 13) encodes the same input
-with the port's writers on the card's host, which has no cv2, and holds
-the results against these files; tests/test_torch_image_writers.py
-regenerates them with cv2 and checks that they have not drifted.
+background, with some noise), and `cv2.imwrite`'s `.webp`, `.gif`,
+`.jp2` and `.avif` files of it. `chip_smoke.py` (phase 13) encodes the
+same input with the port's writers on the card's host, which has no cv2,
+and holds the results against these files (the AVIF, whose bytes are
+libaom's and not the port's, by its decoded pixels' error);
+tests/test_torch_image_writers.py regenerates them with cv2 and checks
+that they have not drifted.
 
 With --sizes it prints instead the sizes of cv2's files of phase 19's
 612x512 codec view (`chip_smoke.codec_view`), which the card's host
@@ -23,7 +25,7 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parents[2]
-EXTS = (".webp", ".gif", ".jp2")
+EXTS = (".webp", ".gif", ".jp2", ".avif")
 
 
 def make_input() -> np.ndarray:
