@@ -14,9 +14,11 @@ Phases, each printing JSON lines with `elapsed_s`:
    metric (`native/raycast.cc`, g++), the PNG row unfilter
    (`rnb_neus2_torch/native/png_unfilter.cc`, g++) and the image codecs'
    helpers (`rnb_neus2_torch/native/codecs.cc`, g++), the AV1 decoder
-   (`rnb_neus2_torch/native/av1.cc`, g++) and the AVIF frame scaler
-   (`rnb_neus2_torch/native/scale.cc`, g++), all at once (one compiler
-   per library), with `-Xptxas -v` output.
+   (`rnb_neus2_torch/native/av1.cc`, g++), the AVIF frame scaler
+   (`rnb_neus2_torch/native/scale.cc`, g++), the AV1 encoder
+   (`native/av1_enc.cc`) and the OpenEXR codecs (`native/exr.cc`: PIZ,
+   B44, DWA), all at once (one compiler per library), with `-Xptxas -v`
+   output.
 3. kernel vs plain: each exact-backward kernel's wrapper on card tensors
    at the main path's shapes against its plain PyTorch version (the
    training encode's two kernels: phase 21); max abs error ≤
@@ -289,7 +291,10 @@ Phases, each printing JSON lines with `elapsed_s`:
    streams (`avif_inter_scene_phase`: normals and albedos as libaom
    streams with look-ahead whose last shown frame is the view, together
    using compound prediction, global motion and shown-existing frames,
-   PNG masks); each view's decode timed; normals, albedos
+   PNG masks) and the EXR sphere (`exr_scene_phase`: normals as HALF
+   PIZ, DWAA and 16x16-tiled mip-mapped ZIP files in turn, view 0's as
+   part 0 of a 2-part file, albedos as FLOAT PXR24 and HALF B44A, PNG
+   masks, all written by OpenEXR 3.1.5); each view's decode timed; normals, albedos
    and n2w equal to the JAX package's digests; each through
    `run_full_pipeline` (200 steps, mesh at 256; launches per level
    bucket, radius within a voxel), and the 612x512 JPEG 2000, Group 4,
@@ -297,21 +302,27 @@ Phases, each printing JSON lines with `elapsed_s`:
    grain, superres, a sequence's first frame, a 306x256 frame scaled to
    its 612x512 ispe, a 2-layer spatial image, a 4-frame stream with
    compound prediction and global motion) and SGILog / SGILog24
-   (`sgilog_view`) decodes, and libwebp's lossless analysis of the
-   screenshot-shaped view (`native.vp8l_analyze`) alone.
+   (`sgilog_view`) decodes, the sphere's 612x512 HALF RGB normal map as
+   OpenEXR wrote it in PIZ, PXR24, B44, B44A, DWAA, DWAB and 64x64 ZIP
+   tiles (each decode equal to expected.npz), and libwebp's lossless
+   analysis of the screenshot-shaped view (`native.vp8l_analyze`)
+   alone.
 
 20. final slice (within 90 s): every fixture of
    tests/torch_fixtures/formats (JPEG, TIFF, BMP, PNM, Radiance, Sun
-   raster, GIF, WebP, JPEG 2000 and AVIF, written where the CPU tests run
-   by its make_fixtures.py with cv2, PIL and libaom, which this host
-   lacks) decoded on the host in the three read modes, equal to cv2's
-   decode in its expected.npz (SGILog TIFFs, AVIF film grain, superres,
-   grids, sequences, scaled frames, layered images and plain multi-frame
-   streams with compound prediction, global motion and the other inter
-   tools among them), the files cv2 cannot read raising UnreadableImage,
-   those of `REFUSED_FIXTURES` (none since this slice) raising
-   UnsupportedImage by name (at least N_FIXTURES files) (ms per decode;
-   the 612x512 files, best of 3); `python -m rnb_neus2_torch.tools.mesh_from_snapshot`
+   raster, GIF, WebP, JPEG 2000, AVIF and OpenEXR, written where the CPU
+   tests run by its make_fixtures.py with cv2, PIL, libaom and OpenEXR
+   3.1.5, which the card's host lacks) decoded on the host in the three read
+   modes, equal to cv2's decode in its expected.npz (SGILog TIFFs, AVIF
+   film grain, superres, grids, sequences, scaled frames, layered images
+   and plain multi-frame streams with compound prediction, global motion
+   and the other inter tools among them); EXR files in IMREAD_UNCHANGED
+   only, equal to OpenEXR's `InputFile` decode there (PIZ, PXR24, B44,
+   B44A, DWAA, DWAB, tiled and multi-part files), their 8-bit colour and
+   grey reads refused by name; the files cv2 cannot read raising
+   UnreadableImage, those of `REFUSED_FIXTURES` (deep, UINT and
+   subsampled EXR) raising UnsupportedImage by name (at least N_FIXTURES
+   files) (ms per decode; the 612x512 files, best of 3); `python -m rnb_neus2_torch.tools.mesh_from_snapshot`
    as a subprocess on phase 11's scene and snapshot at resolution 256
    (GT 128): exit 0, its OBJ equal to phase 11's mesh_300.obj (faces
    equal, vertices within 1e-5), its Chamfer printed and not gated (the
@@ -401,6 +412,7 @@ AVIF_SCENE = ROOT / "tests" / "torch_fixtures" / "avif_scene"
 SGILOG_SCENE = ROOT / "tests" / "torch_fixtures" / "sgilog_scene"
 AVIS_SCENE = ROOT / "tests" / "torch_fixtures" / "avis_scene"
 AVIF_INTER_SCENE = ROOT / "tests" / "torch_fixtures" / "avif_inter_scene"
+EXR_SCENE = ROOT / "tests" / "torch_fixtures" / "exr_scene"
 CODEC_VIEW = (512, 612)        # phase 19's codec timings: H, W
 PHOTO = (3024, 4032)
 CODEC_REPEATS = 3              # phase 19's codec rows: the median of 3 (5 until PR 20)
@@ -410,9 +422,11 @@ PAR_READS, PAR_SYNC = 18, 25   # phase 18: 450 steps, a read per 25
 FIXTURES = ROOT / "tests" / "torch_fixtures" / "formats"   # phase 20
 FIXTURE_REPEATS = 3
 # phase 20's fixtures that cv2 reads and the port refuses by name (file:
-# the tool): none since compound prediction and global motion decode
-REFUSED_FIXTURES = {}
-N_FIXTURES = 224
+# the feature its UnsupportedImage names)
+REFUSED_FIXTURES = {"exr_refused_deep.exr": "deep EXR",
+                    "exr_refused_uint.exr": "EXR UINT channel",
+                    "exr_refused_subsampled.exr": "subsampled EXR channel"}
+N_FIXTURES = 315
 TRAIN_API_STEPS = 32
 
 
@@ -3221,8 +3235,10 @@ def codec_timings(work: Path) -> dict:
     AVIF read back as its encoder's reconstruction), and JPEG 2000 also
     as 16-bit RGB; libaom's AVIFs and lossy JPEG 2000, which the port
     does not write, decoded from phase 20's fixtures; SGILog and SGILog24 as
-    `sgilog_view` assembles them; libwebp's lossless analysis alone), and
-    a 4032x3024 JPEG."""
+    `sgilog_view` assembles them; OpenEXR's files of the normal map in
+    PIZ, PXR24, B44, B44A, DWAA, DWAB and 64x64 ZIP tiles, each equal to
+    the library's decode; libwebp's lossless analysis alone), and a
+    4032x3024 JPEG."""
     import numpy as np
     from rnb_neus2_torch.io import (avif, bmp, exr, gif, hdr, jpeg, jpeg2000,
                                     native, png, pxm, sunras, tiff, webp)
@@ -3310,6 +3326,28 @@ def codec_timings(work: Path) -> dict:
             raise AssertionError(f"{name}: {got.shape}")
         out[name] = {"decode_ms": statistics.median(dec), "mode": mode,
                      "bytes": (FIXTURES / file).stat().st_size}
+    # the sphere's normal map as OpenEXR 3.1.5 wrote it in each
+    # compression (HALF RGB), equal to the library's decode
+    with np.load(FIXTURES / "expected.npz") as z:
+        for name, file in (
+                ("exr_piz_half", "exr_piz_612x512.exr"),
+                ("exr_pxr24_half", "exr_pxr24_612x512.exr"),
+                ("exr_b44_half", "exr_b44_612x512.exr"),
+                ("exr_b44a_half", "exr_b44a_612x512.exr"),
+                ("exr_dwaa_half", "exr_dwaa_612x512.exr"),
+                ("exr_dwab_half", "exr_dwab_612x512.exr"),
+                ("exr_tiled_zip_half", "exr_tiled_zip_612x512.exr")):
+            want = z[f"{file}:unchanged"]
+            dec = []
+            for _ in range(CODEC_REPEATS):
+                t0 = time.perf_counter()
+                got = exr.read_exr(FIXTURES / file)
+                dec.append((time.perf_counter() - t0) * 1e3)
+            if got.shape != (h, w, 3) or not np.array_equal(got, want):
+                raise AssertionError(f"{name}: differs from OpenEXR's decode")
+            out[name] = {"decode_ms": statistics.median(dec),
+                         "mode": "unchanged",
+                         "bytes": (FIXTURES / file).stat().st_size}
     for name, comp in (("sgilog_logluv32", 34676),
                        ("sgilog24_logluv24", 34677)):
         blob, rgb = sgilog_view(comp)
@@ -3521,6 +3559,16 @@ def avif_inter_scene_phase(torch, kernels, root: Path, png) -> dict:
                                  "avif_inter", [".avif", ".png"])
 
 
+def exr_scene_phase(torch, kernels, root: Path, png) -> dict:
+    """Phase 19: the committed EXR sphere (tests/torch_fixtures/exr_scene,
+    written by OpenEXR 3.1.5: normals as HALF PIZ, DWAA and 16x16-tiled
+    mip-mapped ZIP files in turn, view 0's as part 0 of a 2-part file,
+    albedos as FLOAT PXR24 and HALF B44A, PNG masks) through
+    `committed_scene_phase`."""
+    return committed_scene_phase(torch, kernels, root, png, EXR_SCENE,
+                                 "exr_variants", [".exr", ".png"])
+
+
 def sgilog_scene_phase(torch, kernels, root: Path, png) -> dict:
     """Phase 19: the committed SGILog / grid-AVIF sphere
     (tests/torch_fixtures/sgilog_scene: SGILog and SGILog24 albedos, grid
@@ -3665,6 +3713,7 @@ def formats_phase(torch, kernels, card) -> dict:
         sgilog = sgilog_scene_phase(torch, kernels, root, png)
         avis = avis_scene_phase(torch, kernels, root, png)
         inter = avif_inter_scene_phase(torch, kernels, root, png)
+        exr_variants = exr_scene_phase(torch, kernels, root, png)
         log("formats_prepare", seconds=seconds, mask_files=sorted(
             {Path(p).suffix for p in mask_paths}), **cmp)
         if not (cmp["frames"] == SPHERE["n_views"] and cmp["albedo_equal"]
@@ -3713,7 +3762,8 @@ def formats_phase(torch, kernels, card) -> dict:
            "median_radius": radius, "world_radius": r_world, "voxel": voxel,
            "codecs": codecs, "jp2_scene": jp2, "avif_scene": avif,
            "sgilog_scene": sgilog, "avis_scene": avis,
-           "avif_inter_scene": inter, "card": card}
+           "avif_inter_scene": inter, "exr_scene": exr_variants,
+           "card": card}
     log("formats", **row)
     if launches != want:
         raise AssertionError(f"kernel launches {launches} in "
@@ -3727,11 +3777,13 @@ def formats_phase(torch, kernels, card) -> dict:
 def decode_fixtures() -> dict:
     """Phase 20, part 1: every fixture of tests/torch_fixtures/formats
     (JPEG, TIFF with CCITT, BMP, PNM/PAM/PFM, Radiance, Sun raster, GIF,
-    WebP, JPEG 2000, AVIF)
+    WebP, JPEG 2000, AVIF, OpenEXR)
     decoded in each mode on the host, equal to cv2's decode in
-    expected.npz; where cv2 returned None (an empty array there), the
-    port must raise UnreadableImage, and UnsupportedImage naming the
-    feature for REFUSED_FIXTURES. The 612x512 files are timed in "color"
+    expected.npz (EXR: IMREAD_UNCHANGED only, equal to OpenEXR's
+    `InputFile` decode; its colour and grey reads refused by name); where
+    cv2 returned None (an empty array there), the port must raise
+    UnreadableImage, and UnsupportedImage naming the feature for
+    REFUSED_FIXTURES. The 612x512 files are timed in "color"
     mode (the best of FIXTURE_REPEATS)."""
     import numpy as np
     from rnb_neus2_torch.io import image_io
@@ -3741,9 +3793,21 @@ def decode_fixtures() -> dict:
         expected = {k: z[k] for k in z.files}
     files = sorted(p for p in FIXTURES.iterdir()
                    if p.is_file() and p.suffix not in (".py", ".npz"))
-    ms, bad, refused, named = {}, [], 0, 0
+    ms, bad, refused, named, exr_8bit = {}, [], 0, 0, 0
     for path in files:
+        is_exr = path.suffix == ".exr"
         for mode in ("unchanged", "color", "grey"):
+            if is_exr and mode != "unchanged":
+                # EXR read as 8-bit colour or grey stays refused by name
+                try:
+                    image_io.read_image(path, mode)
+                except UnsupportedImage as e:
+                    if "8-bit colour or grey" not in str(e):
+                        raise
+                    exr_8bit += 1
+                    continue
+                bad.append(f"{path.name}:{mode} read, the port refuses it")
+                continue
             want = expected[f"{path.name}:{mode}"]
             t0 = time.perf_counter()
             try:
@@ -3780,8 +3844,11 @@ def decode_fixtures() -> dict:
             image_io.read_image(FIXTURES / name, "color")
             times.append(1e3 * (time.perf_counter() - t0))
         big[name] = min(times)
+    exr_ms = {k: v for k, v in ms.items() if k.split(":")[0].endswith(".exr")}
     row = {"files": len(files), "decodes": len(ms), "refused": refused,
-           "refused_by_name": named,
+           "refused_by_name": named, "exr_files": len(exr_ms),
+           "exr_decode_s": sum(exr_ms.values()) / 1e3,
+           "exr_8bit_refused": exr_8bit,
            "mismatched": bad, "ms_per_decode": ms,
            "ms_612x512_progressive_color": big["prog_612x512.jpg"],
            "ms_612x512_progressive_cut3_color":
@@ -3789,8 +3856,10 @@ def decode_fixtures() -> dict:
            "ms_612x512_color": big,
            "decode_s": sum(ms.values()) / 1e3}
     log("fixtures", **row)
-    if bad or len(files) < N_FIXTURES \
-            or named != len(REFUSED_FIXTURES) * 3:
+    n_exr = sum(p.suffix == ".exr" for p in files)
+    if bad or len(files) < N_FIXTURES or exr_8bit != 2 * n_exr \
+            or named != sum(1 if n.endswith(".exr") else 3
+                            for n in REFUSED_FIXTURES):
         raise AssertionError(f"fixtures that differ from cv2's decode: "
                              f"{bad}")
     return row
@@ -3922,6 +3991,8 @@ def main() -> int:
                                   LIBRARY=native.SCALE_LIBRARY)
     av1_enc = types.SimpleNamespace(_library=native._av1_enc_library,
                                     LIBRARY=native.AV1_ENC_LIBRARY)
+    exr = types.SimpleNamespace(_library=native._exr_library,
+                                LIBRARY=native.EXR_LIBRARY)
 
     kernels = {"hash_grad_small": hgs, "scatter_add": sca,
                "encode_jacobian": ejac, "corner_backward": cbw}
@@ -3934,7 +4005,7 @@ def main() -> int:
         cuda=torch.version.cuda)
 
     build_all(build, [hgs, sca, ejac, cbw, raycast, png, native, av1,
-                      scale, av1_enc])
+                      scale, av1_enc, exr])
     errs = check_kernels_vs_plain(torch, bench, kernels, dev)
     for name, sizes in (("hash_grad_small", (4096, 13824)),
                         ("scatter_add", (39304, 125000, 373248, 1 << 19))):

@@ -514,3 +514,86 @@ def scale_plane(plane: np.ndarray, width: int, height: int,
     if code != 0:
         raise ValueError(f"scale_plane failed with code {code}")
     return dst
+
+
+# ------------------------------------------------------------------ OpenEXR
+EXR_SOURCE = Path(__file__).resolve().parent.parent / "native" / "exr.cc"
+EXR_LIBRARY = "exr"
+EXR_ERRORS = {-1: "data ends early", -2: "corrupt data",
+              -3: "output buffer too small"}
+
+
+@functools.lru_cache(maxsize=None)
+def _exr_library() -> ctypes.CDLL:
+    lib, _ = load_host_library(EXR_LIBRARY, EXR_SOURCE)
+    for name, args in {
+            "exr_huf_decode": [_P, _I64, _P, _I64],
+            "exr_wav_decode": [_P, _I32, _I32, _I32, _I32, _I32],
+            "exr_piz_decode": [_P, _I64, _I32, _P, _I32, _I32, _P, _I64],
+            "exr_b44_decode": [_P, _I64, _I32, _P, _P, _I32, _I32, _P, _I64],
+            "exr_dwa_lossy": [_P, _I64, _P, _I64, _I32, _I32, _I32, _I32, _P,
+                              _P]}.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ctypes.c_int64, args
+    return lib
+
+
+def _exr_check(name: str, code: int) -> int:
+    if code < 0:
+        raise ValueError(f"{name}: {EXR_ERRORS.get(code, code)}")
+    return code
+
+
+def exr_huf_decode(src: bytes, n_out: int) -> np.ndarray:
+    """OpenEXR's Huffman code (PIZ, DWAA's AC) → n_out uint16 symbols."""
+    out = np.zeros(max(n_out, 1), np.uint16)
+    _exr_check("exr_huf_decode",
+               _exr_library().exr_huf_decode(src, len(src), ptr(out), n_out))
+    return out[:n_out]
+
+
+def exr_wav_decode(plane: np.ndarray, max_value: int) -> None:
+    """PIZ's inverse 2-D wavelet of a (ny, nx) uint16 plane, in place."""
+    if plane.dtype != np.uint16 or not plane.flags.c_contiguous:
+        raise ValueError("exr_wav_decode takes a C-contiguous uint16 plane")
+    ny, nx = plane.shape
+    _exr_library().exr_wav_decode(ptr(plane), nx, 1, ny, nx, max_value)
+
+
+def exr_piz_decode(src: bytes, types, nx: int, ny: int) -> bytes:
+    """One PIZ chunk of channels of pixel `types` (0 UINT, 1 HALF,
+    2 FLOAT), nx x ny samples each → the uncompressed chunk."""
+    types = np.asarray(types, np.int32)
+    cap = nx * ny * int(np.where(types == 1, 2, 4).sum())
+    dst = np.empty(max(cap, 1), np.uint8)
+    n = _exr_check("exr_piz_decode", _exr_library().exr_piz_decode(
+        src, len(src), types.size, ptr(types), nx, ny, ptr(dst), cap))
+    return dst[:n].tobytes()
+
+
+def exr_b44_decode(src: bytes, types, plinear, nx: int, ny: int) -> bytes:
+    """One B44 / B44A chunk (as `exr_piz_decode`; `plinear` a flag a
+    channel)."""
+    types = np.asarray(types, np.int32)
+    plinear = np.asarray(plinear, np.int32)
+    cap = nx * ny * int(np.where(types == 1, 2, 4).sum())
+    dst = np.empty(max(cap, 1), np.uint8)
+    n = _exr_check("exr_b44_decode", _exr_library().exr_b44_decode(
+        src, len(src), types.size, ptr(types), ptr(plinear), nx, ny,
+        ptr(dst), cap))
+    return dst[:n].tobytes()
+
+
+def exr_dwa_lossy(ac: np.ndarray, dc: np.ndarray, n_comp: int, width: int,
+                  height: int, to_linear: bool) -> tuple:
+    """One DWA lossy-DCT set (1 channel, or 3 through the inverse BT.709
+    transform) from run-length AC and DC uint16 values → ((n_comp, height,
+    width) half bits as uint16, AC values used, DC values used)."""
+    ac = np.ascontiguousarray(ac, np.uint16)
+    dc = np.ascontiguousarray(dc, np.uint16)
+    out = np.zeros((n_comp, height, width), np.uint16)
+    used = np.zeros(2, np.int64)
+    _exr_check("exr_dwa_lossy", _exr_library().exr_dwa_lossy(
+        ptr(ac), ac.size, ptr(dc), dc.size, n_comp, width, height,
+        int(to_linear), ptr(out), ptr(used)))
+    return out, int(used[0]), int(used[1])

@@ -14,9 +14,10 @@ found from its signature (`io/image_io.py:read_image`: PNG, TIFF and
 JPEG, with their EXIF orientation) — and each RGBA result is written
 under its own name in the format that name's extension gives, as
 `cv2.imwrite` writes it (a `.jpg` name drops the mask, as cv2's JPEG
-writer drops alpha). EXR images, whose 8-bit conversion by cv2 the
-tests cannot observe (their cv2 is built without OpenEXR), are refused
-by name.
+writer drops alpha). EXR images are refused by name: the port decodes
+their samples as OpenEXR does, but their 8-bit colour or grey
+conversion is cv2's own, which the tests cannot run (their cv2 is built
+without OpenEXR).
 
     python -m rnb_neus2_torch.tools.data_format_from_neus DATASET OUT \
         [--cameras-name cameras_sphere.npz] [--image-folder image] \

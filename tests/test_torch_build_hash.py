@@ -37,3 +37,7 @@ def test_av1_sources_hash_their_headers():
 def test_codecs_source_hashes_the_uv_table():
     deps = build._included(NATIVE / "codecs.cc", set())
     assert {p.name for p in deps} == {"sgilog_uv.h"}
+
+
+def test_exr_source_includes_no_local_header():
+    assert build._included(NATIVE / "exr.cc", set()) == []

@@ -504,7 +504,7 @@ def test_exr_jax_semantics_and_save_exr(tmp_path, monkeypatch, chans):
                                   _as_cv2(want))
     stored = exr._channels(exr._header(
         (tmp_path / "s.exr").read_bytes(), "s")[0]["channels"][1], "s")
-    assert [n for n, _ in stored] == sorted(chans)
+    assert [n for n, _, _ in stored] == sorted(chans)
     if chans == "RGBA":     # the file's R holds G, G B, B A and A R
         np.testing.assert_array_equal(image_io.read_raw(tmp_path / "s.exr"),
                                       img[..., [1, 2, 3, 0]])
@@ -536,21 +536,35 @@ def _refused_jpegs(tmp_path):
     return {p: (what, UnreadableImage) for p, what in out.items()}
 
 
+EXR_FIXTURES = os.path.join(os.path.dirname(__file__), "torch_fixtures",
+                            "formats")
+
+
 def _refused_exrs(tmp_path):
-    """EXR kinds that cv2 (with OpenEXR) reads and the port does not yet
-    (UnsupportedImage)."""
+    """EXR kinds that cv2 (with OpenEXR) reads and the port refuses by
+    name (UnsupportedImage): deep files, UINT and subsampled (Y/RY/BY)
+    channels, other channel sets. The variants the port now reads must
+    read: every compression (a chunk stored raw, as OpenEXR stores one
+    that does not shrink), tiled and multi-part files (OpenEXR's own)."""
     planes = {c: np.zeros((3, 4), "<f4") for c in "BGR"}
-    out = {}
-    for code, what in ((4, "PIZ"), (5, "PXR24"), (6, "B44"), (7, "B44A"),
-                       (8, "DWAA"), (9, "DWAB")):
-        p = tmp_path / f"{what}.exr"
+    for code in range(4, 10):           # PIZ, PXR24, B44, B44A, DWAA, DWAB
+        p = tmp_path / f"{code}.exr"
         p.write_bytes(_exr_file(planes, code))
-        out[p] = what
-    for flag, what in ((0x200, "tiled"), (0x1000, "multi-part"),
-                       (0x800, "deep")):
-        p = tmp_path / f"{what}.exr"
-        p.write_bytes(_exr_file(planes, 0, version_flags=flag))
-        out[p] = what
+        np.testing.assert_array_equal(image_io.load_image(p),
+                                      np.zeros((3, 4, 3), np.float32))
+    for name in ("exr_tiled_8x8_mipmap_down_decreasing_b44a.exr",
+                 "exr_multipart_scanline.exr", "exr_multipart_tiled.exr"):
+        assert image_io.load_image(os.path.join(EXR_FIXTURES, name)).ndim == 3
+    out = {}
+    p = tmp_path / "deep.exr"
+    p.write_bytes(_exr_file(planes, 0, version_flags=0x800))
+    out[p] = "deep"
+    for name, what in (("exr_refused_deep.exr", "deep"),
+                       ("exr_refused_uint.exr", "UINT"),
+                       ("exr_refused_subsampled.exr", "subsampled")):
+        out[tmp_path / name] = what
+        (tmp_path / name).write_bytes(
+            open(os.path.join(EXR_FIXTURES, name), "rb").read())
     p = tmp_path / "uint.exr"
     p.write_bytes(_exr_file({c: np.zeros((3, 4), "<u4") for c in "BGR"}, 0))
     out[p] = "UINT"
@@ -584,8 +598,8 @@ def _refused_tiffs(tmp_path):
 @pytest.mark.parametrize("family", ["jpeg", "exr", "tiff"])
 def test_refused_variants_raise_by_name(tmp_path, family):
     """Each refusal names the file's feature. JPEG and TIFF: what cv2
-    cannot read either (cv2 returns None on the same bytes); EXR: the
-    variants that wait for files written by OpenEXR."""
+    cannot read either (cv2 returns None on the same bytes); EXR: what
+    stays refused (and the variants that now read, read)."""
     cases = {"jpeg": _refused_jpegs, "exr": _refused_exrs,
              "tiff": _refused_tiffs}[family](tmp_path)
     for path, (what, cls) in cases.items():

@@ -653,11 +653,18 @@ def test_fixtures_decode_to_expected():
 
 
 def test_expected_npz_is_cv2s_decode():
-    """`expected.npz` is what the installed cv2 gives for each fixture."""
+    """`expected.npz` is what the installed cv2 gives for each fixture
+    (for EXR, which this cv2 cannot read, OpenEXR's decode)."""
     expected = _fixture_expectations()
     for key, want in expected.items():
         name, mode = key.split(":")
         got = _cv2(FIXTURES / name, mode)
+        if name.endswith(".exr"):
+            # this cv2 has no OpenEXR: the entry is OpenEXR's own decode
+            # (tests/test_torch_image_exr_variants.py holds the port to it)
+            assert got is None and mode == "unchanged", key
+            assert want.dtype == np.float32, key
+            continue
         if want.size == 0:
             assert got is None, key
         else:

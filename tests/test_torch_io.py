@@ -4,7 +4,7 @@ JAX package.
 PNG: the port's reader equals `cv2.imread(IMREAD_UNCHANGED)` with cv2's
 BGR(A) flipped, for 8 and 16 bit, every channel count and files whose
 rows use every filter type; cv2 reads the port's writer back exactly;
-what the readers still refuse (a PIZ EXR, a progressive JPEG, a tiled or
+what the readers still refuse (a deep EXR, a progressive JPEG, a tiled or
 planar-separate TIFF) raises by name. image_io: every loader
 equals the JAX package's on the same file. Loader: `load_transform_json`
 of both packages on one scene directory is bitwise equal in normals,
@@ -130,8 +130,10 @@ def _tiff_header(tags) -> bytes:
 
 
 def test_png_refuses_what_it_does_not_read(tmp_path):
-    """What the readers still refuse raises by name: a PIZ-compressed EXR,
-    which cv2 reads (UnsupportedImage; a plain AVIF file now reads as cv2
+    """What the readers still refuse raises by name: a deep EXR, which
+    cv2 reads (UnsupportedImage; an EXR whose ZIP data is labelled PIZ,
+    refused by name before the port read PIZ, is now a corrupt PIZ chunk,
+    a ValueError naming the file; a plain AVIF file now reads as cv2
     reads it, and so do a film-grain one and one whose ispe is not its
     frame's size, which libavif scales), and a
     hierarchical JPEG
@@ -145,6 +147,8 @@ def test_png_refuses_what_it_does_not_read(tmp_path):
     key = b"compression\0compression\0" + struct.pack("<i", 1)
     (tmp_path / "piz.exr").write_bytes(blob.replace(key + b"\x03",
                                                     key + b"\x04"))
+    (tmp_path / "deep.exr").write_bytes(blob[:4] + struct.pack("<I", 0x802)
+                                        + blob[8:])
     jp2 = cv2.imencode(".jp2", np.zeros((64, 64, 3), np.uint8))[1]
     (tmp_path / "b.img").write_bytes(jp2.tobytes())
     np.testing.assert_array_equal(
@@ -171,8 +175,10 @@ def test_png_refuses_what_it_does_not_read(tmp_path):
     np.testing.assert_array_equal(
         image_io.read_image(tmp_path / "s.img", "color"),
         cv2.imread(str(tmp_path / "s.img"))[..., ::-1])
-    with pytest.raises(errors.UnsupportedImage, match="PIZ.*not supported"):
+    with pytest.raises(ValueError, match="piz.exr: corrupt EXR chunk"):
         image_io.load_image(tmp_path / "piz.exr")
+    with pytest.raises(errors.UnsupportedImage, match="deep EXR.*not supported"):
+        image_io.load_image(tmp_path / "deep.exr")
     jpg = cv2.imencode(".jpg", np.zeros((9, 9, 3), np.uint8))[1].tobytes()
     (tmp_path / "h.jpg").write_bytes(jpg.replace(b"\xff\xc0", b"\xff\xc5",
                                                  1))
