@@ -142,7 +142,7 @@ Phases, each printing JSON lines with `elapsed_s`:
 12. pipeline: the sphere as an IDR input (cameras.npz, normal/, albedo/,
    mask/ PNGs; `write_idr_scene`) through `run_full_pipeline` in this
    process on the card: load, prepare (silhouette scaling), stage 1 to
-   step 400, stage 2 resumed from its snapshot with --opti-lights to 600
+   step 666, stage 2 resumed from its snapshot with --opti-lights to 1000
    (all 14 levels from step 411, except in a 16-step chunk that started
    below that bucket), the mesh at 512, the largest component. The CLI
    trains through `Trainer.train_steps` (metrics read every 25 steps, or
@@ -347,9 +347,31 @@ Phases, each printing JSON lines with `elapsed_s`:
    seconds, and phase 4's encode rows print each kernel's tile plan, its
    shared memory per block and ptxas's registers, stack and spills.
 
+22. loss kernels (right after phase 21): the NeuS composite and loss's
+   forward and backward kernels (`kernels/neus_loss.py`) against their
+   plain version run in float64 on double copies of the same inputs
+   (`testing/loss_batch.hold_against_float64`): on the arguments of the
+   phase-7 trainer's next step, which is then undone (2^18 slots, 2^16
+   rays), and on the CPU tests' edge-case batch under each of their
+   configurations (`EDGE_CASES`, two of them weighting the eikonal
+   term): total and metrics within 1e-5 relative, the per-ray colour
+   within 1e-4 of its largest entry, every gradient entry by entry (at
+   most 1% of a tensor's entries off rtol 1e-4 with an atol of 1e-5 of
+   its largest entry, none off by 1e-3 of that entry; the variance's sum
+   within 1e-3 of its terms' magnitudes), the colour and a worst entry
+   also within twice the float32 plain version's own error where that
+   version's transmittance is right, log T within 1e-4, keep equal, one
+   launch of each (`loss_batch.py` states why); the samples whose
+   float64 T lies within 1e-4 (relative) of the threshold counted and
+   their rays left out; the float32 plain
+   version's errors (its largest |Δ log T|, from its whole-buffer cumsum)
+   printed beside the kernels'. Then each kernel's ms, its plain
+   version's and its bound on the main path's arguments. Every training
+   path's launch counts include both kernels, once per step body.
+
 Then one JSON line with every kernel's numbers (the launches of its
 path: the exact steps' for `hash_grad_small` and `scatter_add`, with the
-default path's 0 beside them, the K = 1 steps' for the other two; the
+default path's 0 beside them, the K = 1 steps' for the other four; the
 pipeline's, the dynamic path's per phase, the refinement's, the
 dense-Adam run's, each option path's, each extra-mode fit's, the
 data-parallel run's, the formats pipeline's, the JP2 and AVIF scenes'
@@ -387,7 +409,10 @@ LOG_EVERY = 20
 CLI_STEPS = 300
 TRACE_STEPS = 16               # the CLI's traced window, steps 256-271
 FLY_FRAMES = 8
-PIPELINE_STEPS = 600           # stage 1 to 400, stage 2 to 600
+# stage 1 to 666, stage 2 to 1000: with each ray's exact transmittance
+# the sphere's median radius is 0.4945-0.4947 at 600 steps, on phase 12's
+# one-voxel bound (0.4946), and 0.4954 at 1000
+PIPELINE_STEPS = 1000
 SPHERE = dict(n_views=16, width=256, height=256, radius=0.25)
 DYN_FIRST, DYN_DELTA, DYN_NEXT = 440, 400, 100   # phase 14's schedule
 DYN_SHIFT = (0.06, -0.04, 0.0)  # the sphere's motion per frame
@@ -1366,6 +1391,136 @@ def encode_kernels_phase(torch, bench, dev, card, n: int = 1 << 18
     return {"max_abs_err": errs, "seconds": seconds}
 
 
+def neus_loss_bounds(torch, args, fwd) -> dict:
+    """`bound_ms` of each loss kernel on one call's arguments `args` (those
+    of a `neus_loss` call) and its forward's outputs `fwd`: the larger of
+    its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s
+    (bench_scatter's rates). What this run's data needs, each input read
+    once and each output written once: per slot up to each ray's
+    termination its ray_id and valid (and the per-sample attrs' alive
+    column), per kept sample sdf, ∇sdf, raw albedo, dt (and the attrs'
+    direction); per ray seg_start, alive, ray_kept, light, target4 and
+    both masks (and ray_d). Forward outputs: the keep mask, the per-ray
+    colour and the metrics; backward outputs: the gradients of sdf, ∇sdf,
+    raw albedo and the variance, every slot. Operations ≈ 60 (forward) and
+    150 (backward) per kept sample."""
+    from rnb_neus2_torch.tools import bench_scatter as bench
+
+    sdf, grad, alb, v, dirs, inp, opt = args
+    S, R = inp.dt.shape[0], inp.seg_start.shape[0]
+    walked = int(torch.clamp_min(fwd.walk_end.long() - inp.seg_start, 0)
+                 .sum())
+    kept = int(fwd.keep.sum())
+    per_sample = inp.per_sample_dirs
+    v_per_sample = v.numel() == S and v.dim() == 1
+    v_bytes = 4 * (kept if v_per_sample else 1)
+    reads = (walked * (8 + 1 + (4 if per_sample else 0))
+             + kept * (4 + 12 + 12 + 4 + (12 if per_sample else 0))
+             + R * (8 + 1 + 1 + 12 + 16 + 4 + 4 + (0 if per_sample else 12))
+             + v_bytes)
+    out = {}
+    for name, nbytes, ops in (
+            ("neus_loss_forward", reads + S + 4 * R + 4 * 6 + 16, 60 * kept),
+            ("neus_loss_backward",
+             reads + 4 + 4 * S * 7 + 4 * (S if v_per_sample else 1),
+             150 * kept)):
+        t_bytes, t_ops = nbytes / bench.HBM_BYTES_PER_S, ops / bench.FP32_FLOPS
+        out[name] = {"bound_ms": 1e3 * max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bound_bytes": nbytes, "bound_ops": ops}
+    out["walked_slots"], out["kept_samples"] = walked, kept
+    return out
+
+
+def time_loss_kernels(torch, bench, card, args) -> dict:
+    """Each loss kernel on one call's arguments (`args`, the main path's):
+    the wrapper's launch with its allocations (`ms`), the plain version
+    in float32 (`plain_ms`: its forward without autograd, its backward as
+    autograd's pass over a kept graph), and the bound
+    (`neus_loss_bounds`). No single PyTorch call computes either
+    function, so `library_ms` is None."""
+    from rnb_neus2_torch.kernels import neus_loss as nl
+
+    sdf, grad, alb, v, dirs, inp, opt = args
+    fields = [x.detach() for x in (sdf, grad, alb, v, dirs)]
+    p = nl.prepare(*fields, inp, opt)
+    fwd = nl.forward(p)
+    g = torch.ones((), device=sdf.device)
+    leaves = [x.clone().requires_grad_() for x in fields[:4]] + [fields[4]]
+    with torch.no_grad():
+        plain_fwd = bench.time_ms(lambda: nl.plain(*leaves, inp, opt))
+    total = nl.plain(*leaves, inp, opt)[0]
+    plain_bwd = bench.time_ms(lambda: torch.autograd.grad(
+        total, leaves[:4], retain_graph=True))
+    rows = {
+        "neus_loss_forward": {"ms": bench.time_ms(lambda: nl.forward(p)),
+                              "plain_ms": plain_fwd, "library_ms": None},
+        "neus_loss_backward": {"ms": bench.time_ms(lambda: nl.backward(
+            p, fwd, g, v.shape, False)), "plain_ms": plain_bwd,
+            "library_ms": None}}
+    bounds = neus_loss_bounds(torch, args, fwd)
+    for name, row in rows.items():
+        row.update(bounds[name])
+        log("loss_kernel_timing", kernel=name, card=card, S=p.options.S,
+            R=p.options.R, walked_slots=bounds["walked_slots"],
+            kept_samples=bounds["kept_samples"], **row)
+    return rows
+
+
+def loss_kernels_phase(torch, bench, dev, card, tr) -> dict:
+    """Phase 22: the loss's forward and backward kernels against their
+    plain version run in float64 (`testing/loss_batch.py:
+    hold_against_float64`, whose tolerances it prints) on the arguments of
+    the phase-7 trainer's next training step, which is then undone (the
+    default config at full width: 2^18 slots, 2^16 rays, 14 levels), and
+    on the CPU tests' edge-case batch under each of their configurations
+    (`EDGE_CASES`):
+    the total, the metrics, the per-ray colour and every gradient, with
+    the samples whose float64 T lies within 1e−4 (relative) of the
+    threshold counted and their rays left out; the float32 plain
+    version's own errors (its largest |Δ log T| among them) beside the
+    kernels'. Then both kernels' times on the main path's arguments
+    (`time_loss_kernels`). Returns the rows of the final line and the
+    phase's seconds; raises if a case misses a tolerance."""
+    from rnb_neus2_torch.testing import loss_batch as lb
+
+    t0 = time.perf_counter()
+    # the next step's arguments, from a step that is then undone: the
+    # trainer comes back as it was (the guard's rollback restore), so the
+    # later phases that read it start where they would without this one
+    state = tr._snapshot_state()
+    _, calls = lb.capture_call(tr.train_step_async)
+    tr._restore(state)
+    if len(calls) != 1:
+        raise AssertionError(f"a training step called the loss "
+                             f"{len(calls)} times")
+    reports, failed = [], []
+    for label, args in [("main path", calls[0])] + lb.edge_case_calls(dev):
+        rep = lb.hold_against_float64(args, label)
+        log("loss_kernels_vs_float64", card=card, **rep)
+        reports.append(rep)
+        if not rep["ok"]:
+            failed.append(label)
+    rows = time_loss_kernels(torch, bench, card, calls[0])
+    rows["neus_loss_forward"]["max_abs_err"] = max(
+        max(r["kernel"]["forward"]["total_abs_err"],
+            r["kernel"]["forward"]["color_max_abs_err"]) for r in reports)
+    rows["neus_loss_backward"]["max_abs_err"] = max(
+        e["max_abs_err"] for r in reports
+        for e in r["kernel"]["grads"].values())
+    seconds = time.perf_counter() - t0
+    main = reports[0]
+    log("loss_kernels", card=card, seconds=seconds, failed=failed,
+        longest_segment=main["longest_segment"],
+        near_threshold_samples=main["near_threshold_samples"],
+        kernel_max_abs_dlogT=main["kernel"]["max_abs_dlogT"],
+        plain_float32_max_abs_dlogT=main["plain_float32"]["max_abs_dlogT"])
+    if failed:
+        raise AssertionError(f"the loss kernels disagree with the float64 "
+                             f"plain version: {failed}")
+    return {"rows": rows, "seconds": seconds, "reports": reports}
+
+
 def warp_repeats(torch, S, idx, v) -> dict:
     """Of the elements a kernel adds (index in [0, S), a non-zero value),
     the share whose row equals another's in its warp of 32 consecutive
@@ -1442,14 +1597,16 @@ def dry_metric_reads(argv) -> int:
 def check_trace(path: Path) -> dict:
     """The Chrome trace of the CLI's --trace-steps: the CUDA functions of
     the kernels that its default path (K = 1) launches, the training
-    encode's forward and K-corner backward, and the trainer's spans are in
-    it."""
+    encode's forward and K-corner backward and the loss's forward and
+    backward, and the trainer's spans are in it."""
     trace = json.loads(path.read_text())
     events = trace["traceEvents"]
     names = {e.get("name", "") for e in events}
     kernels = [e for e in events if e.get("cat") == "kernel"]
     found = {k: sum(k in e.get("name", "") for e in kernels)
-             for k in ("encode_jacobian_kernel", "corner_backward_kernel")}
+             for k in ("encode_jacobian_kernel", "corner_backward_kernel",
+                       "neus_loss_forward_kernel",
+                       "neus_loss_backward_kernel")}
     spans = ("occupancy_refresh", "sample_and_march", "field_forward",
              "loss", "backward", "optimizer")
     row = {"trace_bytes": path.stat().st_size, "trace_events": len(events),
@@ -2102,7 +2259,8 @@ def _record_step_bodies(cls=None):
 
 
 def _expected_launches(buckets, grid=None, k: int = 1,
-                       forwards: int | None = None) -> dict:
+                       forwards: int | None = None,
+                       losses: int | None = None) -> dict:
     """Each kernel's launches for step bodies at the given level buckets
     (of `grid`, the default grid if None) with K = `k` picked corners:
     `encode_jacobian` once per training-encode forward (`forwards`; one
@@ -2110,18 +2268,22 @@ def _expected_launches(buckets, grid=None, k: int = 1,
     once per body (all its levels in one launch) and neither exact-backward
     kernel; at K = 0 `hash_grad_small` at the dense levels of at most
     2^15 entries (0-1 by default) and `scatter_add` at every other level
-    the body runs."""
+    the body runs. The loss's forward and backward kernels once per
+    loss (`losses`; one per body, the step's loss, if None)."""
     from rnb_neus2_torch.config import HashGridConfig
     from rnb_neus2_torch.ops import hash_encoding as he
 
     fwd = len(buckets) if forwards is None else forwards
+    n_loss = len(buckets) if losses is None else losses
+    loss = {"neus_loss_forward": n_loss, "neus_loss_backward": n_loss}
     if k:
         return {"hash_grad_small": 0, "scatter_add": 0,
-                "encode_jacobian": fwd, "corner_backward": len(buckets)}
+                "encode_jacobian": fwd, "corner_backward": len(buckets),
+                **loss}
     static = he.HashGridStatic(grid or HashGridConfig())
     small = sum(len(he.levels_through_kernel(static, b)) for b in buckets)
     return {"hash_grad_small": small, "scatter_add": sum(buckets) - small,
-            "encode_jacobian": fwd, "corner_backward": 0}
+            "encode_jacobian": fwd, "corner_backward": 0, **loss}
 
 
 def _record_forwards():
@@ -2167,10 +2329,13 @@ def delta_card_vs_cpu(torch, seq, n_rays: int) -> dict:
     (~4e6) and cancel, so the card's and the CPU's rounding alone moved
     it by up to 5.6e-2 relative with the positions made equal (an H100
     80GB HBM3 at 700 W); float64 leaves only the implementations'
-    differences. The training encode's forward kernel takes float32
-    only, so on the card its plain version stands in for it here (phase
-    21 holds the kernel bit for bit against that plain version)."""
+    differences. The training encode's forward kernel and the loss's
+    kernels take float32 only, so on the card their plain versions stand
+    in for them here (phase 21 holds the encode kernel bit for bit
+    against its plain version, phase 22 the loss kernels against theirs
+    in float64)."""
     from rnb_neus2_torch.kernels import encode_jacobian as ejac
+    from rnb_neus2_torch.kernels import neus_loss as nl
     from rnb_neus2_torch.models import delta_network as dn
     from rnb_neus2_torch.train import dynamic
     from rnb_neus2_torch.train.sampler import draw_uniforms
@@ -2197,11 +2362,13 @@ def delta_card_vs_cpu(torch, seq, n_rays: int) -> dict:
         t0 = time.perf_counter()
         dynamic.sample_ray_batch = lambda *a, **k: batch
         kernel, ejac.encode_jacobian = ejac.encode_jacobian, ejac.plain
+        loss_kernels, nl.neus_loss = nl.neus_loss, nl.plain
         try:
             loss, grads = twin.delta_grad(n_rays)
         finally:
             dynamic.sample_ray_batch = real
             ejac.encode_jacobian = kernel
+            nl.neus_loss = loss_kernels
         out[name] = (float(loss), {k: v.cpu() for k, v in grads.items()},
                      time.perf_counter() - t0)
         del twin
@@ -2249,10 +2416,10 @@ def dynamic_phase(torch, kernels, dev, card) -> dict:
     bodies, undo = _record_step_bodies()
     rows = []
 
-    def run(name, fn, steps, forwards=None):
-        """`forwards`: the phase's training-encode forwards when they are
-        not one per step body (the delta steps' position-differentiable
-        field calls)."""
+    def run(name, fn, steps, forwards=None, losses=None):
+        """`forwards` and `losses`: the phase's training-encode forwards
+        and losses when they are not one per step body (the delta steps'
+        position-differentiable field calls and their losses)."""
         for k in kernels.values():
             k.reset_launches()
         start = len(bodies)
@@ -2262,7 +2429,8 @@ def dynamic_phase(torch, kernels, dev, card) -> dict:
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
         launches = {n: k.launches for n, k in kernels.items()}
-        want = _expected_launches(bodies[start:], forwards=forwards)
+        want = _expected_launches(bodies[start:], forwards=forwards,
+                                  losses=losses)
         row = {"phase": name, "steps": steps, "seconds": s,
                "ms_per_step": 1e3 * s / steps, "launches": launches,
                "launches_expected": want,
@@ -2281,10 +2449,12 @@ def dynamic_phase(torch, kernels, dev, card) -> dict:
             # one field call per delta step, through the forward kernel;
             # the frozen table takes no gradient
             d = run(f"delta_{k}", lambda: seq.predict_movement(ds), DYN_DELTA,
-                    forwards=DYN_DELTA)
+                    forwards=DYN_DELTA, losses=DYN_DELTA)
             if d["step_bodies"] or d["launches"] != {
                     "hash_grad_small": 0, "scatter_add": 0,
-                    "encode_jacobian": DYN_DELTA, "corner_backward": 0}:
+                    "encode_jacobian": DYN_DELTA, "corner_backward": 0,
+                    "neus_loss_forward": DYN_DELTA,
+                    "neus_loss_backward": DYN_DELTA}:
                 raise AssertionError("the delta phase ran a training step "
                                      "or launched a scatter kernel")
             delta = {key: v.detach().cpu() for key, v in seq.delta.items()}
@@ -2430,10 +2600,13 @@ def refine_phase(torch, kernels, tr, card) -> dict:
         s = time.perf_counter() - t0
         launches = {n: k.launches for n, k in kernels.items()}
         # one forward per step through the position-differentiable
-        # encode; the frozen field takes no table gradient
+        # encode; the frozen field takes no table gradient; the loss's
+        # two kernels once per step
         if launches != {"hash_grad_small": 0, "scatter_add": 0,
                         "encode_jacobian": REFINE_STEPS,
-                        "corner_backward": 0}:
+                        "corner_backward": 0,
+                        "neus_loss_forward": REFINE_STEPS,
+                        "neus_loss_backward": REFINE_STEPS}:
             raise AssertionError(f"refinement launched {launches}")
         return params, {"seconds": s, "ms_per_step": 1e3 * s / REFINE_STEPS,
                         "launches": launches,
@@ -2603,9 +2776,16 @@ def _card_vs_cpu_grads(torch, tr, loss_cfg, n_rays: int, seed: int):
     """One loss and its gradients on a batch that the card marched from
     `tr`'s state, by a copy of `tr`'s field on the card and one on the
     CPU (the exact backward on both): ((loss, grads) card, (loss, grads)
-    CPU), grads by parameter name, on the CPU."""
+    CPU), grads by parameter name, on the CPU. The CPU computes the loss
+    layer with its plain version in float64 (`loss_batch.plain_float64`):
+    the card's loss kernels sum each ray's own log transmittance, the
+    float32 plain version the whole buffer's, whose rounding reaches 0.16
+    in log T on a full 2^18-slot buffer (phase 22), so the float32 CPU
+    loss is no yardstick for the card's."""
+    from rnb_neus2_torch.kernels import neus_loss as nl
     from rnb_neus2_torch.models.neus_field import NeusField
     from rnb_neus2_torch.render.losses import training_loss
+    from rnb_neus2_torch.testing.loss_batch import plain_float64
     from rnb_neus2_torch.train.sampler import draw_uniforms, sample_ray_batch
 
     dev = tr.device
@@ -2617,11 +2797,17 @@ def _card_vs_cpu_grads(torch, tr, loss_cfg, n_rays: int, seed: int):
     net = dataclasses.replace(tr.cfg.network, stoch_corner_bwd=0)
     state = tr.field.state_dict()
     out = []
+    real = nl.neus_loss
     for d in (dev, "cpu"):
         field = NeusField(tr.cfg.grid, net, d)
         field.load_state_dict({k: v.to(d) for k, v in state.items()})
-        loss, _ = training_loss(field(pos.to(d)), _to(samples, d),
-                                _to(batch, d), tr.cfg.flags, loss_cfg, 1.0)
+        nl.neus_loss = real if d == dev else plain_float64
+        try:
+            loss, _ = training_loss(field(pos.to(d)), _to(samples, d),
+                                    _to(batch, d), tr.cfg.flags, loss_cfg,
+                                    1.0)
+        finally:
+            nl.neus_loss = real
         names = [n for n, _ in field.named_parameters()]
         grads = torch.autograd.grad(loss, list(field.parameters()))
         out.append((float(loss.detach()),
@@ -2813,7 +2999,8 @@ def extra_modes_phase(torch, kernels, dev, card, work: Path) -> dict:
         small = len(he.levels_through_kernel(static))
         return {"hash_grad_small": small * steps,
                 "scatter_add": (grid.n_levels - small) * steps,
-                "encode_jacobian": 0, "corner_backward": 0}
+                "encode_jacobian": 0, "corner_backward": 0,
+                "neus_loss_forward": 0, "neus_loss_backward": 0}
 
     rows = {}
     H = W = 48
@@ -2832,7 +3019,8 @@ def extra_modes_phase(torch, kernels, dev, card, work: Path) -> dict:
     rows["image"]["launches_expected"] = {
         "hash_grad_small": 0,
         "scatter_add": em.Hash2D().n_levels * EXTRA_STEPS["image"],
-        "encode_jacobian": 0, "corner_backward": 0}
+        "encode_jacobian": 0, "corner_backward": 0,
+        "neus_loss_forward": 0, "neus_loss_backward": 0}
     V, F = icosphere(0.3, (0.5, 0.5, 0.5), subdiv=2)
     sdf_grid = HashGridConfig(n_levels=4, top_resolution=64)
     fields = {}
@@ -2862,7 +3050,8 @@ def extra_modes_phase(torch, kernels, dev, card, work: Path) -> dict:
     rows["sdf_takikawa"]["launches_expected"] = {
         "hash_grad_small": 0, "scatter_add":
             rows["sdf_takikawa"]["octree_levels"] * EXTRA_STEPS["takikawa"],
-        "encode_jacobian": 0, "corner_backward": 0}
+        "encode_jacobian": 0, "corner_backward": 0,
+        "neus_loss_forward": 0, "neus_loss_backward": 0}
     g = np.mgrid[0:24, 0:24, 0:24] / 24.0
     vol = np.exp(-(((g - 0.5) ** 2).sum(0)) / 0.05).astype(np.float32)
     vol_grid = HashGridConfig(n_levels=4, top_resolution=32)
@@ -3981,6 +4170,7 @@ def main() -> int:
     from rnb_neus2_torch.kernels import corner_backward as cbw
     from rnb_neus2_torch.kernels import encode_jacobian as ejac
     from rnb_neus2_torch.kernels import hash_grad_small as hgs
+    from rnb_neus2_torch.kernels import neus_loss as nl
     from rnb_neus2_torch.kernels import scatter_add as sca
     from rnb_neus2_torch.io import native, png, raycast
     from rnb_neus2_torch.ops import hash_encoding as he
@@ -3995,7 +4185,9 @@ def main() -> int:
                                 LIBRARY=native.EXR_LIBRARY)
 
     kernels = {"hash_grad_small": hgs, "scatter_add": sca,
-               "encode_jacobian": ejac, "corner_backward": cbw}
+               "encode_jacobian": ejac, "corner_backward": cbw,
+               "neus_loss_forward": nl.forward_kernel,
+               "neus_loss_backward": nl.backward_kernel}
     scatters = ("hash_grad_small", "scatter_add")
     card = bench.card_name_and_power()
     print(card, flush=True)
@@ -4004,7 +4196,7 @@ def main() -> int:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
 
-    build_all(build, [hgs, sca, ejac, cbw, raycast, png, native, av1,
+    build_all(build, [hgs, sca, ejac, cbw, nl, raycast, png, native, av1,
                       scale, av1_enc, exr])
     errs = check_kernels_vs_plain(torch, bench, kernels, dev)
     for name, sizes in (("hash_grad_small", (4096, 13824)),
@@ -4022,6 +4214,8 @@ def main() -> int:
     exact, tr_exact = train(torch, kernels, dev, 0, EXACT_STEPS)
     # phase 21: the training encode's kernels against their plain versions
     encode_phase = encode_kernels_phase(torch, bench, dev, card)
+    # phase 22: the loss's kernels against their plain version in float64
+    loss_phase = loss_kernels_phase(torch, bench, dev, card, tr)
     # phase 4 again, on the inputs of the trained fields' next steps: the
     # training encode's kernels on the K = 1 step's, the exact backward's
     # on the exact step's, level by level
@@ -4096,6 +4290,17 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "bound_bytes": t["bound_bytes"],
             "library_ms": None,
+        })
+    for name in ("neus_loss_forward", "neus_loss_backward"):
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"rnb_neus2_torch/csrc/{nl.SOURCE}",
+            "replaces": list(nl.REPLACES),
+            "path": "every training path",
+            "launches": summary["launches"][name],
+            "launches_exact_path": exact["launches"][name],
+            **loss_phase["rows"][name],
         })
     del enc_in, exact_in
     forced_rollback(torch, tr)

@@ -32,9 +32,10 @@ import torch
 
 from ..config import MarchConfig
 from ..geom.camera import Cameras, rays_from_pixels
+from ..kernels.neus_loss import albedo_activation
 from ..mesh.extract import _bind, _field_device
 from ..ops import ray_march
-from . import losses, neus
+from . import neus
 from .envmap import background_color
 
 
@@ -109,7 +110,7 @@ def render_rays(field, ray_o: torch.Tensor, ray_d: torch.Tensor,
         out = field(pts)
         sdf[valid] = out["sdf"]
         grad[valid] = out["grad"]
-        alb[valid] = losses.albedo_activation(out["albedo_raw"])
+        alb[valid] = albedo_activation(out["albedo_raw"])
     inv_s = torch.exp(10.0 * field.variance[0])
     tc = torch.sum(ray_d[:, None, :] * grad, dim=-1)
     alpha = neus.sdf_to_alpha(sdf, tc, marched.dt, inv_s, 1.0)

@@ -19,7 +19,8 @@ step 256, where the occupancy refresh becomes subsampled and runs every
 - idle_share: 1 − busy / wall, over the profiled steps;
 - kernels_per_step: device activities (kernels, copies, fills);
 - phases: for each `record_function` span of the trainer
-  (occupancy_refresh, sample_and_march, field_forward, loss, backward,
+  (occupancy_refresh, sample_and_march, field_forward, loss (on the card
+  the loss's forward kernel and the per-ray lights and targets), backward,
   grad_sum (the data-parallel trainer's sum over its replicas),
   optimizer, guard_snapshot) the host ms per step, and the device ms and
   activities per step of the kernels it launched (autograd runs the
@@ -27,6 +28,9 @@ step 256, where the occupancy refresh becomes subsampled and runs every
   device time that no span claims is `other`). `guard_snapshot` is the
   divergence guard's on-device copy of the state after each healthy step;
 - top_kernels: the 15 kernels with the most device time per step;
+- hand_kernels: the device ms per step of each of the port's hand-written
+  kernels (the training encode's two, the loss's forward and backward,
+  the exact backward's two scatters), top or not;
 - backward_fills_and_copies: per step, the fill and copy kernels that the
   backward launched, by name (the table gradient is zeroed once, and its
   levels are added in place, so no per-level fill or copy belongs there);
@@ -63,6 +67,10 @@ from .bench_scatter import card_name_and_power
 
 PHASES = ("occupancy_refresh", "sample_and_march", "field_forward", "loss",
           "backward", "grad_sum", "optimizer", "guard_snapshot")
+# the port's hand-written kernels, by the name of their CUDA function
+HAND_KERNELS = ("encode_jacobian_kernel", "corner_backward_kernel",
+                "neus_loss_forward_kernel", "neus_loss_backward_kernel",
+                "hash_grad_small", "scatter_add")
 
 
 def _root(evt):
@@ -84,8 +92,8 @@ def profile_window(window, n: int) -> dict:
     """Run `window(n)` (n training steps, returning their metrics) under
     `torch.profiler` → the per-step breakdown of the module docstring:
     wall_ms_per_step, device_busy_ms_per_step, idle_share,
-    kernels_per_step, phases, top_kernels, backward_fills_and_copies, and
-    the window's `metrics`."""
+    kernels_per_step, phases, top_kernels, hand_kernels,
+    backward_fills_and_copies, and the window's `metrics`."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -131,6 +139,8 @@ def profile_window(window, n: int) -> dict:
                    for p in PHASES + ("other",)},
         "top_kernels": [{"name": k[:120], "device_ms": us / 1e3 / n}
                         for k, us in by_kernel.most_common(15)],
+        "hand_kernels": {h: sum(us for k, us in by_kernel.items() if h in k)
+                         / 1e3 / n for h in HAND_KERNELS},
         "backward_fills_and_copies": {k: c / n for k, c in
                                       bwd_fill_copy.most_common()},
         "metrics": metrics,

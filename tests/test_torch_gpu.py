@@ -13,8 +13,10 @@ from rnb_neus2_torch.kernels import corner_backward as cbw
 from rnb_neus2_torch.kernels import encode_jacobian as ejac
 from rnb_neus2_torch.kernels import hash_corners
 from rnb_neus2_torch.kernels import hash_grad_small as hgs
+from rnb_neus2_torch.kernels import neus_loss
 from rnb_neus2_torch.kernels import scatter_add as sca
 from rnb_neus2_torch.ops import hash_encoding as he
+from rnb_neus2_torch.testing import loss_batch
 from rnb_neus2_torch.tools import bench_scatter as bench
 
 pytestmark = pytest.mark.gpu
@@ -935,3 +937,36 @@ def test_two_replicas_on_the_card_match_the_cpu(cuda, monkeypatch, cards):
     buckets = [m["n_levels_run"] for m in card_hist]
     small = sum(len(he.levels_through_kernel(static, b)) for b in buckets)
     assert launches == (2 * small, 2 * (sum(buckets) - small), 2 * 3)
+
+
+@pytest.mark.parametrize("case", range(len(loss_batch.EDGE_CASES) + 1))
+def test_loss_kernels_match_float64_plain(cuda, case):
+    """The loss's two kernels against their plain version run in float64
+    (`loss_batch.hold_against_float64`, whose tolerances are stated
+    there): on the edge-case batch under each configuration of
+    `EDGE_CASES`, and on a larger seeded batch (4,096 rays, 2^15 slots)."""
+    if case < len(loss_batch.EDGE_CASES):
+        label, args = loss_batch.edge_case_calls(cuda)[case]
+    else:
+        from rnb_neus2_torch.config import LossConfig, RenderFlags
+        from rnb_neus2_torch.render.losses import training_loss
+
+        label = "seeded 4096 x 2^15"
+        field, samples, batch = loss_batch.torch_batch(
+            loss_batch.loss_batch(1, 4096, 1 << 15), cuda)
+        _, (args,) = loss_batch.capture_call(lambda: training_loss(
+            field, samples, batch, RenderFlags(), LossConfig()))
+    report = loss_batch.hold_against_float64(args, label)
+    assert report["ok"], report
+
+
+def test_loss_kernels_refuse_what_they_cannot_take(cuda):
+    label, args = loss_batch.edge_case_calls(cuda)[0]
+    sdf, grad, alb, v, dirs, inp, opt = args
+    with pytest.raises(TypeError):
+        neus_loss.neus_loss(sdf.double(), grad, alb, v, dirs, inp, opt)
+    with pytest.raises(ValueError):
+        neus_loss.neus_loss(sdf[:-1], grad, alb, v, dirs, inp, opt)
+    with pytest.raises(ValueError):
+        neus_loss.neus_loss(sdf, grad, alb, v, dirs,
+                            inp._replace(dt=inp.dt.cpu()), opt)

@@ -18,6 +18,7 @@ from rnb_neus2_tpu.testing.synthetic import sphere_dataset as jsphere
 from rnb_neus2_tpu.train.sampler import sample_ray_batch as jsample
 from rnb_neus2_torch import config, interop
 from rnb_neus2_torch.io import dataset
+from rnb_neus2_torch.kernels import neus_loss
 from rnb_neus2_torch.models.neus_field import NeusField
 from rnb_neus2_torch.ops.ray_march import FlatSamples
 from rnb_neus2_torch.render import losses
@@ -193,7 +194,7 @@ def test_guarded_sqrt_matches_jax():
         jy, jvjp = jax.vjp(jf, jnp.asarray(x))
         (jd,) = jvjp(jnp.ones_like(jy))
         t = torch.from_numpy(x).requires_grad_(True)
-        y = losses.GuardedSqrt.apply(t, floor, not ref)
+        y = neus_loss.GuardedSqrt.apply(t, floor, not ref)
         (d,) = torch.autograd.grad(y.sum(), t)
         np.testing.assert_array_equal(y.detach().numpy(), np.asarray(jy))
         np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-6)
