@@ -348,26 +348,42 @@ Phases, each printing JSON lines with `elapsed_s`:
    shared memory per block and ptxas's registers, stack and spills.
 
 22. loss kernels (right after phase 21): the NeuS composite and loss's
-   forward and backward kernels (`kernels/neus_loss.py`) against their
-   plain version run in float64 on double copies of the same inputs
-   (`testing/loss_batch.hold_against_float64`): on the arguments of the
+   three kernels (`kernels/neus_loss.py`: the forward's scan and
+   composite, the backward) against their plain version run in float64
+   on double copies of the same inputs, fed the kernels' float32 prefix
+   C and α values, C against the twin of the kernels' own logs (bit for
+   bit) and against the twin's prefix of the float32 plain version's
+   logs of the same inputs, α against float64's (`testing/loss_batch.
+   hold_against_float64`): on the arguments of the
    phase-7 trainer's next step, which is then undone (2^18 slots, 2^16
-   rays), and on the CPU tests' edge-case batch under each of their
-   configurations (`EDGE_CASES`, two of them weighting the eikonal
-   term): total and metrics within 1e-5 relative, the per-ray colour
-   within 1e-4 of its largest entry, every gradient entry by entry (at
-   most 1% of a tensor's entries off rtol 1e-4 with an atol of 1e-5 of
-   its largest entry, none off by 1e-3 of that entry; the variance's sum
-   within 1e-3 of its terms' magnitudes), the colour and a worst entry
-   also within twice the float32 plain version's own error where that
-   version's transmittance is right, log T within 1e-4, keep equal, one
-   launch of each (`loss_batch.py` states why); the samples whose
-   float64 T lies within 1e-4 (relative) of the threshold counted and
-   their rays left out; the float32 plain
-   version's errors (its largest |Δ log T|, from its whole-buffer cumsum)
-   printed beside the kernels'. Then each kernel's ms, its plain
-   version's and its bound on the main path's arguments. Every training
-   path's launch counts include both kernels, once per step body.
+   rays), on the CPU tests' edge-case batch under each of their
+   configurations (`EDGE_CASES`, two of them weighting the eikonal term)
+   and on an eight-tile batch whose rays cross tiles (`TILE_CASES`):
+   total and metrics within 1e-5 relative, the per-ray colour within 1e-4
+   of its largest entry, every gradient entry by entry (at most 1% of a
+   tensor's entries off rtol 1e-4 with an atol of 1e-5 of its largest
+   entry, none off by 1e-3 of that entry; the variance's sum within 1e-3
+   of its terms' magnitudes), the colour and a worst entry also within
+   twice the float32 plain version's own error where that version's
+   transmittance is right, log T within 1e-4, keep
+   equal, one launch of each kernel (`loss_batch.py` states why); the
+   samples whose float64 T lies within 1e-4 (relative) of the threshold
+   counted and their rays left out, as the rays whose weight sum lies
+   on two sides of the mask term's clamp in the two versions. The scan's output (from a forward
+   that also writes its logs and C; the training path writes neither),
+   entry by entry: its logs within two float32 steps of log1p(−min(α,
+   1 − 1e-7)) of its own α, that α within four times the float32 plain
+   version's largest α error of the float64 version's, and C against
+   the reference's prefix within two float32 steps of max |C| plus
+   the logs' summed difference (`loss_batch.scan_checks`). Against the twin of the kernels' own logs
+   (`loss_batch.prefix_checks`): C bit for bit, T within one float32
+   step, keep equal but where the two T
+   straddle 1e-4, log T within two float32 steps of the largest |C| of
+   the CPU's `torch.cumsum` of the same logs, and a second forward and
+   backward bit for bit with the first. Then each kernel's ms, its plain
+   version's and its bound on the main path's arguments, and the two
+   forward launches' ms against the whole forward's bound. Every training
+   path's launch counts include the three kernels, once per step body.
 
 Then one JSON line with every kernel's numbers (the launches of its
 path: the exact steps' for `hash_grad_small` and `scatter_add`, with the
@@ -409,9 +425,13 @@ LOG_EVERY = 20
 CLI_STEPS = 300
 TRACE_STEPS = 16               # the CLI's traced window, steps 256-271
 FLY_FRAMES = 8
-# stage 1 to 666, stage 2 to 1000: with each ray's exact transmittance
-# the sphere's median radius is 0.4945-0.4947 at 600 steps, on phase 12's
-# one-voxel bound (0.4946), and 0.4954 at 1000
+# stage 1 to 666, stage 2 to 1000: at 600 steps the sphere's median
+# radius sits on phase 12's one-voxel bound (0.494586), with each ray's
+# exact transmittance (0.49455-0.49467) as with the JAX package's
+# buffer-wide sum that the loss kernels compute (in a float32 tree
+# order 0.494553-0.494688 in 13 runs, one under the bound; rounded once
+# from float64, 0.494558-0.494635 in five, two under; PERF.md §6); it
+# is about 0.4954 at 1000
 PIPELINE_STEPS = 1000
 SPHERE = dict(n_views=16, width=256, height=256, radius=0.25)
 DYN_FIRST, DYN_DELTA, DYN_NEXT = 440, 400, 100   # phase 14's schedule
@@ -453,6 +473,9 @@ REFUSED_FIXTURES = {"exr_refused_deep.exr": "deep EXR",
                     "exr_refused_subsampled.exr": "subsampled EXR channel"}
 N_FIXTURES = 315
 TRAIN_API_STEPS = 32
+# the loss's kernels, by their counters' names: the forward's two, the
+# backward
+LOSS_KERNELS = ("neus_loss_scan", "neus_loss_forward", "neus_loss_backward")
 
 
 def log(phase: str, **kw) -> None:
@@ -1395,93 +1418,132 @@ def neus_loss_bounds(torch, args, fwd) -> dict:
     """`bound_ms` of each loss kernel on one call's arguments `args` (those
     of a `neus_loss` call) and its forward's outputs `fwd`: the larger of
     its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s
-    (bench_scatter's rates). What this run's data needs, each input read
-    once and each output written once: per slot up to each ray's
-    termination its ray_id and valid (and the per-sample attrs' alive
-    column), per kept sample sdf, ∇sdf, raw albedo, dt (and the attrs'
-    direction); per ray seg_start, alive, ray_kept, light, target4 and
-    both masks (and ray_d). Forward outputs: the keep mask, the per-ray
-    colour and the metrics; backward outputs: the gradients of sdf, ∇sdf,
-    raw albedo and the variance, every slot. Operations ≈ 60 (forward) and
-    150 (backward) per kept sample."""
+    (bench_scatter's rates). What this run's data needs of the function,
+    each input read once and each output written once; the kernels'
+    intermediates (lw, the tiles' prefixes and totals, the alive mask) do
+    not count. The forward (`neus_loss_forward_function`) reads ray_id and
+    valid (and the attributes' alive column) per slot, sdf, ∇sdf, dt, the
+    direction and v per alive slot (every alive α enters the buffer-wide
+    prefix), the raw albedo per kept sample and the per-ray data, and
+    writes keep, α and T (the residuals the backward reads) per slot,
+    pred4, weight sum and colour per ray and the loss; the scan's and the
+    composite's rows split these bytes, each input charged to the first
+    kernel that reads it, so that they sum to the forward's. The backward:
+    per slot ray_id, keep and valid, per kept sample sdf, ∇sdf, raw
+    albedo, dt, the direction, α and T, per ray the forward's pred4 and
+    weight sum and the per-ray data; writes the gradients of sdf, ∇sdf,
+    raw albedo (and a per-sample variance) every slot. Operations ≈ 60
+    per alive slot (α), 40 (composite) and 150 (backward) per kept
+    sample."""
+    from rnb_neus2_torch.kernels import neus_loss as nl
     from rnb_neus2_torch.tools import bench_scatter as bench
 
     sdf, grad, alb, v, dirs, inp, opt = args
     S, R = inp.dt.shape[0], inp.seg_start.shape[0]
-    walked = int(torch.clamp_min(fwd.walk_end.long() - inp.seg_start, 0)
-                 .sum())
+    alive = int(nl.slot_alive(dirs, inp).sum())
     kept = int(fwd.keep.sum())
     per_sample = inp.per_sample_dirs
     v_per_sample = v.numel() == S and v.dim() == 1
-    v_bytes = 4 * (kept if v_per_sample else 1)
-    reads = (walked * (8 + 1 + (4 if per_sample else 0))
-             + kept * (4 + 12 + 12 + 4 + (12 if per_sample else 0))
-             + R * (8 + 1 + 1 + 12 + 16 + 4 + 4 + (0 if per_sample else 12))
-             + v_bytes)
+    v_bytes = 4 * (alive if v_per_sample else 1)
+    ray_data = R * (8 + 12 + 16 + 4 + 4)    # seg_start, light, target4, masks
+    ray_dirs = 0 if per_sample else 12 * R
+    scan = (S * (8 + 1 + (4 if per_sample else 0))
+            + alive * (4 + 12 + 4 + (12 if per_sample else 0))
+            + R * 2 + ray_dirs + v_bytes + 4 * S)
+    composite = (kept * 12 + ray_data
+                 + S * (1 + 4) + R * (20 + 4) + 4 * 6 + 16)
+    bwd_bytes = (S * (8 + 1 + 1) + kept * (4 + 12 + 12 + 4 + 4 + 4
+                                          + (12 if per_sample else 0))
+                 + R * (20 + 2 + 12 + 16 + 4 + 4) + ray_dirs + 4
+                 + 4 * S * 7 + 4 * (S if v_per_sample else 1))
     out = {}
     for name, nbytes, ops in (
-            ("neus_loss_forward", reads + S + 4 * R + 4 * 6 + 16, 60 * kept),
-            ("neus_loss_backward",
-             reads + 4 + 4 * S * 7 + 4 * (S if v_per_sample else 1),
-             150 * kept)):
+            ("neus_loss_scan", scan, 60 * alive),
+            ("neus_loss_forward", composite, 40 * kept),
+            ("neus_loss_forward_function", scan + composite,
+             60 * alive + 40 * kept),
+            ("neus_loss_backward", bwd_bytes, 150 * kept)):
         t_bytes, t_ops = nbytes / bench.HBM_BYTES_PER_S, ops / bench.FP32_FLOPS
         out[name] = {"bound_ms": 1e3 * max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "bound_bytes": nbytes, "bound_ops": ops}
-    out["walked_slots"], out["kept_samples"] = walked, kept
+    out["alive_slots"], out["kept_samples"] = alive, kept
     return out
 
 
 def time_loss_kernels(torch, bench, card, args) -> dict:
     """Each loss kernel on one call's arguments (`args`, the main path's):
-    the wrapper's launch with its allocations (`ms`), the plain version
-    in float32 (`plain_ms`: its forward without autograd, its backward as
+    its launch alone on buffers allocated once, as the training path runs
+    it (`ms`); on the forward's two rows also the two launches together
+    (`function_ms`, against the whole forward's bound,
+    `function_bound_ms`) and with their allocations (`forward_ms`); the
+    plain version in float32 (`plain_ms`: the scan's α, logs and the
+    twin's prefix; the forward without autograd; the backward as
     autograd's pass over a kept graph), and the bound
-    (`neus_loss_bounds`). No single PyTorch call computes either
-    function, so `library_ms` is None."""
+    (`neus_loss_bounds`). No single PyTorch call computes any of them, so
+    `library_ms` is None."""
     from rnb_neus2_torch.kernels import neus_loss as nl
 
     sdf, grad, alb, v, dirs, inp, opt = args
     fields = [x.detach() for x in (sdf, grad, alb, v, dirs)]
     p = nl.prepare(*fields, inp, opt)
-    fwd = nl.forward(p)
+    fwd, out = nl.forward_buffers(p)
+    nl.launch_scan(p, out)
+    nl.launch_forward(p, out)
     g = torch.ones((), device=sdf.device)
     leaves = [x.clone().requires_grad_() for x in fields[:4]] + [fields[4]]
     with torch.no_grad():
+        plain_scan = bench.time_ms(lambda: nl.plain_scan(
+            leaves[0], leaves[1], leaves[3], leaves[4], inp, opt))
         plain_fwd = bench.time_ms(lambda: nl.plain(*leaves, inp, opt))
     total = nl.plain(*leaves, inp, opt)[0]
     plain_bwd = bench.time_ms(lambda: torch.autograd.grad(
         total, leaves[:4], retain_graph=True))
-    rows = {
-        "neus_loss_forward": {"ms": bench.time_ms(lambda: nl.forward(p)),
-                              "plain_ms": plain_fwd, "library_ms": None},
-        "neus_loss_backward": {"ms": bench.time_ms(lambda: nl.backward(
-            p, fwd, g, v.shape, False)), "plain_ms": plain_bwd,
-            "library_ms": None}}
+
+    def both_launches():
+        nl.launch_scan(p, out)
+        nl.launch_forward(p, out)
     bounds = neus_loss_bounds(torch, args, fwd)
+    function = {"function_ms": bench.time_ms(both_launches),
+                "function_bound_ms":
+                bounds["neus_loss_forward_function"]["bound_ms"],
+                "forward_ms": bench.time_ms(lambda: nl.forward(p))}
+    rows = {
+        "neus_loss_scan": {"ms": bench.time_ms(lambda: nl.launch_scan(
+            p, out)), "plain_ms": plain_scan, "library_ms": None,
+            **function},
+        "neus_loss_forward": {"ms": bench.time_ms(lambda: nl.launch_forward(
+            p, out)), "plain_ms": plain_fwd, "library_ms": None,
+            **function},
+        "neus_loss_backward": {"ms": bench.time_ms(lambda: nl.backward(
+            p, fwd.saved, g, v.shape, False)), "plain_ms": plain_bwd,
+            "library_ms": None}}
     for name, row in rows.items():
         row.update(bounds[name])
         log("loss_kernel_timing", kernel=name, card=card, S=p.options.S,
-            R=p.options.R, walked_slots=bounds["walked_slots"],
+            R=p.options.R, alive_slots=bounds["alive_slots"],
             kept_samples=bounds["kept_samples"], **row)
     return rows
 
 
 def loss_kernels_phase(torch, bench, dev, card, tr) -> dict:
-    """Phase 22: the loss's forward and backward kernels against their
-    plain version run in float64 (`testing/loss_batch.py:
+    """Phase 22: the loss's three kernels against their plain version run
+    in float64 fed the kernels' prefix C and α, their α, logs and C against the
+    float32 plain version's (C against the twin's prefix of its logs),
+    and their prefix against the twin of their own logs (`testing/loss_batch.py:
     hold_against_float64`, whose tolerances it prints) on the arguments of
     the phase-7 trainer's next training step, which is then undone (the
-    default config at full width: 2^18 slots, 2^16 rays, 14 levels), and
-    on the CPU tests' edge-case batch under each of their configurations
-    (`EDGE_CASES`):
+    default config at full width: 2^18 slots, 2^16 rays, 14 levels), on
+    the CPU tests' edge-case batch under each of their configurations
+    (`EDGE_CASES`) and on the eight-tile batch (`TILE_CASES`):
     the total, the metrics, the per-ray colour and every gradient, with
     the samples whose float64 T lies within 1e−4 (relative) of the
-    threshold counted and their rays left out; the float32 plain
-    version's own errors (its largest |Δ log T| among them) beside the
-    kernels'. Then both kernels' times on the main path's arguments
-    (`time_loss_kernels`). Returns the rows of the final line and the
-    phase's seconds; raises if a case misses a tolerance."""
+    threshold counted and their rays left out; C bit for bit, T, keep,
+    log T against the CPU's cumsum, and repeat runs bit for bit; the
+    float32 plain version's own errors (its largest |Δ log T| among them)
+    beside the kernels'. Then the kernels' times on the main path's
+    arguments (`time_loss_kernels`). Returns the rows of the final line
+    and the phase's seconds; raises if a case misses a tolerance."""
     from rnb_neus2_torch.testing import loss_batch as lb
 
     t0 = time.perf_counter()
@@ -1502,6 +1564,10 @@ def loss_kernels_phase(torch, bench, dev, card, tr) -> dict:
         if not rep["ok"]:
             failed.append(label)
     rows = time_loss_kernels(torch, bench, card, calls[0])
+    # the scan's error: C against its plain version's (the twin's prefix
+    # of the float32 plain version's logs of the same inputs)
+    rows["neus_loss_scan"]["max_abs_err"] = max(
+        r["scan"]["C_vs_plain_twin_max_abs_err"] for r in reports)
     rows["neus_loss_forward"]["max_abs_err"] = max(
         max(r["kernel"]["forward"]["total_abs_err"],
             r["kernel"]["forward"]["color_max_abs_err"]) for r in reports)
@@ -1514,7 +1580,8 @@ def loss_kernels_phase(torch, bench, dev, card, tr) -> dict:
         longest_segment=main["longest_segment"],
         near_threshold_samples=main["near_threshold_samples"],
         kernel_max_abs_dlogT=main["kernel"]["max_abs_dlogT"],
-        plain_float32_max_abs_dlogT=main["plain_float32"]["max_abs_dlogT"])
+        plain_float32_max_abs_dlogT=main["plain_float32"]["max_abs_dlogT"],
+        scan=main["scan"], prefix=main["prefix"])
     if failed:
         raise AssertionError(f"the loss kernels disagree with the float64 "
                              f"plain version: {failed}")
@@ -1605,8 +1672,7 @@ def check_trace(path: Path) -> dict:
     kernels = [e for e in events if e.get("cat") == "kernel"]
     found = {k: sum(k in e.get("name", "") for e in kernels)
              for k in ("encode_jacobian_kernel", "corner_backward_kernel",
-                       "neus_loss_forward_kernel",
-                       "neus_loss_backward_kernel")}
+                       *(f"{name}_kernel" for name in LOSS_KERNELS))}
     spans = ("occupancy_refresh", "sample_and_march", "field_forward",
              "loss", "backward", "optimizer")
     row = {"trace_bytes": path.stat().st_size, "trace_events": len(events),
@@ -2268,14 +2334,15 @@ def _expected_launches(buckets, grid=None, k: int = 1,
     once per body (all its levels in one launch) and neither exact-backward
     kernel; at K = 0 `hash_grad_small` at the dense levels of at most
     2^15 entries (0-1 by default) and `scatter_add` at every other level
-    the body runs. The loss's forward and backward kernels once per
-    loss (`losses`; one per body, the step's loss, if None)."""
+    the body runs. The loss's three kernels (the forward's two and the
+    backward) once per loss (`losses`; one per body, the step's loss, if
+    None)."""
     from rnb_neus2_torch.config import HashGridConfig
     from rnb_neus2_torch.ops import hash_encoding as he
 
     fwd = len(buckets) if forwards is None else forwards
     n_loss = len(buckets) if losses is None else losses
-    loss = {"neus_loss_forward": n_loss, "neus_loss_backward": n_loss}
+    loss = {name: n_loss for name in LOSS_KERNELS}
     if k:
         return {"hash_grad_small": 0, "scatter_add": 0,
                 "encode_jacobian": fwd, "corner_backward": len(buckets),
@@ -2453,8 +2520,7 @@ def dynamic_phase(torch, kernels, dev, card) -> dict:
             if d["step_bodies"] or d["launches"] != {
                     "hash_grad_small": 0, "scatter_add": 0,
                     "encode_jacobian": DYN_DELTA, "corner_backward": 0,
-                    "neus_loss_forward": DYN_DELTA,
-                    "neus_loss_backward": DYN_DELTA}:
+                    **{name: DYN_DELTA for name in LOSS_KERNELS}}:
                 raise AssertionError("the delta phase ran a training step "
                                      "or launched a scatter kernel")
             delta = {key: v.detach().cpu() for key, v in seq.delta.items()}
@@ -2601,12 +2667,12 @@ def refine_phase(torch, kernels, tr, card) -> dict:
         launches = {n: k.launches for n, k in kernels.items()}
         # one forward per step through the position-differentiable
         # encode; the frozen field takes no table gradient; the loss's
-        # two kernels once per step
+        # three kernels once per step
         if launches != {"hash_grad_small": 0, "scatter_add": 0,
                         "encode_jacobian": REFINE_STEPS,
                         "corner_backward": 0,
-                        "neus_loss_forward": REFINE_STEPS,
-                        "neus_loss_backward": REFINE_STEPS}:
+                        **{name: REFINE_STEPS
+                           for name in LOSS_KERNELS}}:
             raise AssertionError(f"refinement launched {launches}")
         return params, {"seconds": s, "ms_per_step": 1e3 * s / REFINE_STEPS,
                         "launches": launches,
@@ -3000,7 +3066,7 @@ def extra_modes_phase(torch, kernels, dev, card, work: Path) -> dict:
         return {"hash_grad_small": small * steps,
                 "scatter_add": (grid.n_levels - small) * steps,
                 "encode_jacobian": 0, "corner_backward": 0,
-                "neus_loss_forward": 0, "neus_loss_backward": 0}
+                **{name: 0 for name in LOSS_KERNELS}}
 
     rows = {}
     H = W = 48
@@ -3020,7 +3086,7 @@ def extra_modes_phase(torch, kernels, dev, card, work: Path) -> dict:
         "hash_grad_small": 0,
         "scatter_add": em.Hash2D().n_levels * EXTRA_STEPS["image"],
         "encode_jacobian": 0, "corner_backward": 0,
-        "neus_loss_forward": 0, "neus_loss_backward": 0}
+        **{name: 0 for name in LOSS_KERNELS}}
     V, F = icosphere(0.3, (0.5, 0.5, 0.5), subdiv=2)
     sdf_grid = HashGridConfig(n_levels=4, top_resolution=64)
     fields = {}
@@ -3051,7 +3117,7 @@ def extra_modes_phase(torch, kernels, dev, card, work: Path) -> dict:
         "hash_grad_small": 0, "scatter_add":
             rows["sdf_takikawa"]["octree_levels"] * EXTRA_STEPS["takikawa"],
         "encode_jacobian": 0, "corner_backward": 0,
-        "neus_loss_forward": 0, "neus_loss_backward": 0}
+        **{name: 0 for name in LOSS_KERNELS}}
     g = np.mgrid[0:24, 0:24, 0:24] / 24.0
     vol = np.exp(-(((g - 0.5) ** 2).sum(0)) / 0.05).astype(np.float32)
     vol_grid = HashGridConfig(n_levels=4, top_resolution=32)
@@ -4186,6 +4252,7 @@ def main() -> int:
 
     kernels = {"hash_grad_small": hgs, "scatter_add": sca,
                "encode_jacobian": ejac, "corner_backward": cbw,
+               "neus_loss_scan": nl.scan_kernel,
                "neus_loss_forward": nl.forward_kernel,
                "neus_loss_backward": nl.backward_kernel}
     scatters = ("hash_grad_small", "scatter_add")
@@ -4291,7 +4358,7 @@ def main() -> int:
             "bound_bytes": t["bound_bytes"],
             "library_ms": None,
         })
-    for name in ("neus_loss_forward", "neus_loss_backward"):
+    for name in LOSS_KERNELS:
         rows.append({
             "name": name,
             "route": "cuda",

@@ -1,5 +1,6 @@
 // The tile pipeline shared by the training encode's two kernels
-// (encode_jacobian.cu, corner_backward.cu): Hopper's bulk asynchronous
+// (encode_jacobian.cu, corner_backward.cu; neus_loss.cu takes its bulk
+// loads and barriers for its tiles of slots): Hopper's bulk asynchronous
 // copies (the TMA's 1-D form, `cp.async.bulk`) between device memory and
 // shared memory, completing on an `mbarrier` (loads) or a bulk group
 // (stores), and the shared-memory layout of a tile.

@@ -1,11 +1,13 @@
 """The NeuS composite and loss of a training step, forward and backward, as
-two CUDA kernels: wrapper, plain version and launch counters.
+three CUDA kernels: wrapper, plain version, the kernels' prefix order
+(`prefix_twin`) and launch counters.
 
 Replaces the JAX package's `training_loss` (rnb_neus2_tpu/render/
 losses.py:257) with its `sdf_to_alpha` (rnb_neus2_tpu/render/neus.py:29;
 `REPLACES`), which XLA compiles, and their VJP: per sample the NeuS
-alpha, per ray the segmented exclusive transmittance with its keep rule
-(T ≥ 1e−4), the shading, the predicted albedo and weight sum, and the
+alpha, the exclusive transmittance (a log-space prefix sum over the whole
+buffer, re-based at each ray's first slot) with its keep rule (T ≥ 1e−4),
+the shading, the predicted albedo and weight sum per ray, and the
 colour, mask and eikonal terms; the backward gives the gradients wrt the
 field's outputs (sdf, ∇sdf, raw albedo, variance) and the ray directions.
 `csrc/neus_loss.cu` holds the kernels and their design; its source note
@@ -13,12 +15,19 @@ gives the bound.
 
 `plain` is the same function in PyTorch (the port's CPU path and the
 tests' reference; differentiable through autograd). It sums the
-transmittance's logs over the whole buffer and re-bases each ray, as the
-JAX package does; the kernels sum each ray's own, which rounds less.
+transmittance's logs with `torch.cumsum` over the whole buffer, as the
+JAX package does with `jnp.cumsum`; with `prefix` it takes the values of
+that prefix from a given function instead (the gradient stays the
+cumsum's). The kernels sum the same logs in float64 in a fixed tree
+order over tiles of `TILE` slots and round each entry to float32 once,
+which `prefix_twin` reproduces bit for bit: the float32 nearest the
+exact prefix, as the CPU's `torch.cumsum` (which sums in float64) gives
+it.
 `neus_loss` takes `plain` for CPU tensors and the kernels, through
 `NeusLoss`, for CUDA tensors, where it raises on inputs they do not
-take. `forward_kernel.launches` and `backward_kernel.launches` count
-the kernels' launches.
+take. The forward is two launches (`scan_kernel`, then `forward_kernel`),
+the backward one (`backward_kernel`); each counter counts its kernel's
+launches.
 
 Inputs: `sdf` (S,), `grad` (S, 3), `albedo_raw` (S, 3), `variance` (a
 scalar, or (S,) when an emulation gave each sample its own), `dirs` (the
@@ -34,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -60,8 +69,14 @@ class _Counter:
         self.launches = 0
 
 
+scan_kernel = _Counter("neus_loss_scan")
 forward_kernel = _Counter("neus_loss_forward")
 backward_kernel = _Counter("neus_loss_backward")
+
+# csrc/neus_loss.cu's tile plan: kThreads threads per block, kPer
+# consecutive slots per thread in a scan, TILE slots per block
+THREADS, PER = 512, 2
+TILE = THREADS * PER
 
 
 class LossInputs(NamedTuple):
@@ -173,33 +188,106 @@ def _segment_sum(values: torch.Tensor, seg_ids: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# the kernels' prefix order
+# ---------------------------------------------------------------------------
+
+def _inclusive(x: torch.Tensor) -> torch.Tensor:
+    """Kogge-Stone inclusive scan along the last dimension: at distance
+    d = 1, 2, 4, … each entry adds the one d before it (a warp's
+    __shfl_up_sync scan)."""
+    d = 1
+    while d < x.shape[-1]:
+        x = torch.cat([x[..., :d], x[..., d:] + x[..., :-d]], dim=-1)
+        d *= 2
+    return x
+
+
+def _block_scan(x: torch.Tensor, threads: int = THREADS):
+    """csrc/neus_loss.cu's `block_prefix` on each row of x (B, threads·n):
+    thread t holds entries n·t … n·t + n − 1, which it sums serially; its
+    total goes through its warp's scan, the warps' totals through one more;
+    each entry's exclusive prefix is (warp's + lane's) + its own. Returns
+    (the exclusive prefixes, each row's total)."""
+    B, m = x.shape
+    v = x.view(B, threads, m // threads)
+    s = torch.zeros(B, threads, dtype=x.dtype, device=x.device)
+    own = []
+    for k in range(v.shape[2]):
+        own.append(s)
+        s = s + v[..., k]
+    lanes = _inclusive(s.view(B, threads // 32, 32))
+    lane_ex = torch.cat([torch.zeros_like(lanes[..., :1]), lanes[..., :-1]],
+                        dim=-1)
+    warps = _inclusive(lanes[..., 31])
+    warp_ex = torch.cat([torch.zeros_like(warps[:, :1]), warps[:, :-1]],
+                        dim=-1)
+    base = (warp_ex[..., None] + lane_ex).reshape(B, threads, 1)
+    return (base + torch.stack(own, dim=-1)).reshape(B, m), warps[:, -1]
+
+
+def prefix_twin(lw: torch.Tensor, threads: int = THREADS,
+                per: int = PER) -> torch.Tensor:
+    """The exclusive prefix of lw (S,) in the kernels' order, bit for bit
+    for the tile plan (threads, per): in float64, each tile's local prefix
+    by `_block_scan`, every tile's offset by `_block_scan` of the tiles'
+    totals (each thread a run of ⌈tiles/threads⌉ of them), then offset +
+    local, added once and rounded to lw's type. Slots past S count as
+    +0."""
+    S = lw.shape[0]
+    tile = threads * per
+    nb = -(-S // tile)
+    x = lw.new_zeros(nb * tile, dtype=torch.float64)
+    x[:S] = lw
+    local, totals = _block_scan(x.view(nb, tile), threads)
+    t = x.new_zeros(threads * -(-nb // threads))
+    t[:nb] = totals
+    offsets = _block_scan(t.view(1, -1), threads)[0][0, :nb]
+    return (offsets[:, None] + local).reshape(-1)[:S].to(lw.dtype)
+
+
+# ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
 
+def slot_alive(dirs: torch.Tensor, inp: LossInputs) -> torch.Tensor:
+    """(S,) bool: the slot holds a sample of a ray (ray_id < R), is valid,
+    and its ray is alive and kept (with per-sample attributes, their
+    alive column)."""
+    R = inp.seg_start.shape[0]
+    if inp.per_sample_dirs:
+        s_ray_alive = dirs[:, 3] > 0.5
+    else:
+        s_ray_alive = (inp.alive & inp.ray_kept)[
+            torch.clamp_max(inp.ray_id, R - 1)]
+    return s_ray_alive & (inp.ray_id < R) & inp.valid
+
+
 def alpha_and_trans(sdf: torch.Tensor, grad: torch.Tensor,
                     variance: torch.Tensor, dirs: torch.Tensor,
-                    inp: LossInputs, opt: LossOptions):
+                    inp: LossInputs, opt: LossOptions,
+                    prefix: Optional[Callable] = None,
+                    alpha_values: Optional[torch.Tensor] = None):
     """The plain version's per-sample alpha (zero where the sample is not
     alive), exclusive transmittance, alive mask and inv_s: a segmented
     log-space prefix sum, cumsum(log(1−α)) over the whole buffer re-based
-    at each ray's first slot."""
+    at each ray's first slot. `prefix`, if given, maps the (detached) logs
+    to the values of that prefix (as `prefix_twin` does); its gradient
+    stays the cumsum's. `alpha_values`, if given, are α's values at the
+    alive slots (the kernels' own, for a check); its gradient stays
+    sdf_to_alpha's."""
     cfg = opt.cfg
     S = inp.dt.shape[0]
     R = inp.seg_start.shape[0]
     rid = torch.clamp_max(inp.ray_id, R - 1)      # clipped gather index
-    in_seg = inp.ray_id < R                       # slot belongs to a ray
-    ray_alive = inp.alive & inp.ray_kept
     if inp.per_sample_dirs:
         d = dirs[:, 0:3]
-        s_ray_alive = dirs[:, 3] > 0.5
     else:
         # trainable rays (the delta phase, camera refinement): index_select,
         # whose backward is an index_add; the backward of `ray_d[rid]`
         # (`indexing_backward_kernel`) serializes on the padded slots' one
         # row
         d = dirs.index_select(0, rid)
-        s_ray_alive = ray_alive[rid]
-    s_alive = s_ray_alive & in_seg & inp.valid
+    s_alive = slot_alive(dirs, inp)
     inv_s = torch.exp(10.0 * variance)
 
     # ---- per-sample alpha ------------------------------------------------
@@ -210,6 +298,10 @@ def alpha_and_trans(sdf: torch.Tensor, grad: torch.Tensor,
     alpha = neus.sdf_to_alpha(sdf_for_alpha, true_cos, inp.dt, inv_s,
                               opt.cos_anneal_ratio)
     alpha = torch.where(s_alive, alpha, torch.zeros_like(alpha))
+    if alpha_values is not None:
+        alpha = alpha + torch.where(
+            s_alive, alpha_values.to(alpha.dtype) - alpha,
+            torch.zeros_like(alpha)).detach()
 
     # ---- segmented exclusive transmittance -------------------------------
     # clamp so a fully-opaque sample doesn't poison the log-prefix sum;
@@ -217,25 +309,39 @@ def alpha_and_trans(sdf: torch.Tensor, grad: torch.Tensor,
     lw = torch.log1p(-torch.clamp_max(alpha, 1.0 - 1e-7))
     cum = torch.cumsum(lw, 0)
     cum_excl = torch.cat([lw.new_zeros(1), cum[:-1]])
+    if prefix is not None:
+        cum_excl = prefix(lw.detach()).to(cum_excl.dtype) + (
+            cum_excl - cum_excl.detach())
     seg_base = cum_excl[torch.clamp_max(inp.seg_start, S - 1)]  # (R,)
     trans = torch.exp(cum_excl - seg_base[rid])
     return alpha, trans, s_alive, inv_s
 
 
+def plain_scan(sdf: torch.Tensor, grad: torch.Tensor,
+               variance: torch.Tensor, dirs: torch.Tensor, inp: LossInputs,
+               opt: LossOptions):
+    """What the scan kernel computes, in PyTorch: (α, lw, C), C by
+    `prefix_twin`."""
+    alpha = alpha_and_trans(sdf, grad, variance, dirs, inp, opt)[0]
+    lw = torch.log1p(-torch.clamp_max(alpha, 1.0 - 1e-7))
+    return alpha, lw, prefix_twin(lw)
+
+
 def plain(sdf: torch.Tensor, grad: torch.Tensor, albedo_raw: torch.Tensor,
           variance: torch.Tensor, dirs: torch.Tensor, inp: LossInputs,
-          opt: LossOptions):
+          opt: LossOptions, prefix: Optional[Callable] = None,
+          alpha_values: Optional[torch.Tensor] = None):
     """The loss in plain PyTorch (any device, float32 or float64): the
-    compositing runs in the flat layout (`alpha_and_trans`), and per-ray
-    reductions are segment sums keyed by ray_id. Returns (total, metrics,
-    keep)."""
+    compositing runs in the flat layout (`alpha_and_trans`, which takes
+    `prefix` and `alpha_values`), and per-ray reductions are segment sums
+    keyed by ray_id. Returns (total, metrics, keep)."""
     flags, cfg = opt.flags, opt.cfg
     R = inp.seg_start.shape[0]
     rid = torch.clamp_max(inp.ray_id, R - 1)
     in_seg = inp.ray_id < R
     ray_alive = inp.alive & inp.ray_kept
-    alpha, trans, s_alive, inv_s = alpha_and_trans(sdf, grad, variance,
-                                                   dirs, inp, opt)
+    alpha, trans, s_alive, inv_s = alpha_and_trans(
+        sdf, grad, variance, dirs, inp, opt, prefix, alpha_values)
     keep = s_alive & (trans >= TRANSMITTANCE_EPSILON)
     w = torch.where(keep, alpha * trans, torch.zeros_like(alpha))
 
@@ -315,26 +421,26 @@ class _Inputs(ctypes.Structure):
 class _ForwardOut(ctypes.Structure):
     """csrc/neus_loss.cu's ForwardOut."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "total", "metrics", "counts", "color", "keep", "trans", "ray_saved",
-        "walk_end", "acc")]
+        "total", "metrics", "counts", "color", "keep", "alpha", "lw", "cum",
+        "trans", "ray_saved", "work")]
 
 
 class _BackwardIO(ctypes.Structure):
     """csrc/neus_loss.cu's BackwardIO."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "g_total", "trans", "ray_saved", "walk_end", "g_sdf", "g_grad",
-        "g_albedo", "g_v", "g_dirs")]
-
-
-ACCUM_BYTES = 40       # csrc/neus_loss.cu's Accum
+        "g_total", "alpha", "trans", "keep", "ray_saved", "work", "g_sdf",
+        "g_grad", "g_albedo", "g_v", "g_dirs")]
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
     lib, _ = load_library(LIBRARY, [SOURCE])
-    for fn in (lib.neus_loss_forward_launch, lib.neus_loss_backward_launch):
+    for fn in (lib.neus_loss_scan_launch, lib.neus_loss_forward_launch,
+               lib.neus_loss_backward_launch):
         fn.argtypes = [ctypes.c_void_p] * 4
         fn.restype = ctypes.c_int
+    lib.neus_loss_work_words.argtypes = [ctypes.c_int]
+    lib.neus_loss_work_words.restype = ctypes.c_longlong
     lib.neus_loss_error_string.argtypes = [ctypes.c_int]
     lib.neus_loss_error_string.restype = ctypes.c_char_p
     return lib
@@ -435,16 +541,62 @@ def prepare(sdf, grad, albedo_raw, variance, dirs, inp: LossInputs,
     return _prepared(tuple(ts[n] for n, _ in _Inputs._fields_), options)
 
 
+def _up4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _saved_layout(S: int, R: int):
+    """Offsets in float32 words of `ForwardResult.saved`'s pieces, each at
+    a multiple of 16 bytes: α and T (S each, `stride` apart), the keep
+    mask's bytes, ray_saved (R, 5) and the kernels' scratch."""
+    stride = _up4(S)
+    keep = 2 * stride
+    ray_saved = keep + _up4(-(-S // 4))
+    return stride, keep, ray_saved, ray_saved + _up4(5 * R)
+
+
 class ForwardResult(NamedTuple):
     total: torch.Tensor       # ()
     metrics: torch.Tensor     # (5,) loss_color, loss_mask, loss_ek,
     #                           weight_sum_mean, inv_s
     counts: torch.Tensor      # (2,) int64 n_samples_kept, n_rays_alive
     color: torch.Tensor       # (R,) per-ray colour loss
-    keep: torch.Tensor        # (S,) bool
-    trans: torch.Tensor       # (S,) T at each walked slot (for the backward)
-    ray_saved: torch.Tensor   # (R, 5) pred4, weight_sum
-    walk_end: torch.Tensor    # (R,) int32
+    keep: torch.Tensor        # (S,) bool, a view of `saved`
+    saved: torch.Tensor       # float32: what the backward reads
+    #                           (`_saved_layout`)
+    prefix: Optional[torch.Tensor] = None   # (2, S) lw and C, where asked
+
+    def _slot_part(self, k: int) -> torch.Tensor:
+        S = self.keep.shape[0]
+        return self.saved.narrow(0, k * _up4(S), S)
+
+    @property
+    def alpha(self) -> torch.Tensor:
+        """(S,) α, 0 where the slot is not alive."""
+        return self._slot_part(0)
+
+    @property
+    def trans(self) -> torch.Tensor:
+        """(S,) T = exp(C − C[seg_start])."""
+        return self._slot_part(1)
+
+    @property
+    def lw(self) -> torch.Tensor:
+        """(S,) log1p(−min(α, 1 − 1e−7)), the logs that C sums (a forward
+        with `with_prefix`)."""
+        return self.prefix[0]
+
+    @property
+    def cum(self) -> torch.Tensor:
+        """(S,) C, the buffer-wide exclusive prefix of lw (a forward with
+        `with_prefix`)."""
+        return self.prefix[1]
+
+    @property
+    def ray_saved(self) -> torch.Tensor:
+        """(R, 5) each ray's pred4 and weight sum."""
+        S, R = self.keep.shape[0], self.color.shape[0]
+        return self.saved.narrow(0, _saved_layout(S, R)[2], 5 * R).view(R, 5)
 
 
 def _check(lib, err: int, which: str) -> None:
@@ -453,40 +605,76 @@ def _check(lib, err: int, which: str) -> None:
         raise RuntimeError(f"neus_loss {which} launch failed: {msg} ({err})")
 
 
-def forward(p: Prepared) -> ForwardResult:
-    """Launch the forward kernel on a prepared call."""
-    S, R = p.options.S, p.options.R
-    dev = p.tensors[0].device
-    lib = _library()
-    zeroed = torch.zeros(ACCUM_BYTES + S, dtype=torch.uint8, device=dev)
-    res = ForwardResult(
-        total=torch.empty((), device=dev),
-        metrics=torch.empty(5, device=dev),
-        counts=torch.empty(2, dtype=torch.int64, device=dev),
-        color=torch.empty(R, device=dev),
-        keep=zeroed[ACCUM_BYTES:].view(torch.bool),
-        trans=torch.empty(S, device=dev),
-        ray_saved=torch.empty(R, 5, device=dev),
-        walk_end=torch.empty(R, dtype=torch.int32, device=dev))
-    out = _ForwardOut(
-        total=res.total.data_ptr(), metrics=res.metrics.data_ptr(), counts=res.counts.data_ptr(),
-        color=res.color.data_ptr(), keep=res.keep.data_ptr(),
-        trans=res.trans.data_ptr(), ray_saved=res.ray_saved.data_ptr(),
-        walk_end=res.walk_end.data_ptr(), acc=zeroed.data_ptr())
+def _launch(lib, fn, which: str, p: Prepared, out, counter: _Counter,
+            dev) -> None:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.neus_loss_forward_launch(
-            ctypes.addressof(p.inputs), ctypes.addressof(p.options),
-            ctypes.addressof(out), stream)
-    _check(lib, err, "forward")
-    forward_kernel.launches += 1
+        err = fn(ctypes.addressof(p.inputs), ctypes.addressof(p.options),
+                 ctypes.addressof(out), stream)
+    _check(lib, err, which)
+    counter.launches += 1
+
+
+def forward_buffers(p: Prepared, with_prefix: bool = False):
+    """The forward's outputs for a prepared call, unwritten, and the
+    ForwardOut that points the kernels at them: (ForwardResult,
+    _ForwardOut). No buffer needs a fill: the kernels write every
+    entry. With `with_prefix` the kernels also write lw and C (for a
+    check; the training path leaves them out)."""
+    S, R = p.options.S, p.options.R
+    dev = p.tensors[0].device
+    stride, keep, ray_saved, work = _saved_layout(S, R)
+    saved = torch.empty(work + _library().neus_loss_work_words(S),
+                        device=dev)
+    # total, metrics, pad, counts (int64, at word 8), the per-ray colour
+    outs = torch.empty(12 + R, device=dev)
+    prefix = torch.empty(2, S, device=dev) if with_prefix else None
+    sp, op = saved.data_ptr(), outs.data_ptr()
+    out = _ForwardOut(
+        total=op, metrics=op + 4, counts=op + 32, color=op + 48,
+        keep=sp + 4 * keep, alpha=sp,
+        lw=prefix[0].data_ptr() if with_prefix else None,
+        cum=prefix[1].data_ptr() if with_prefix else None,
+        trans=sp + 4 * stride, ray_saved=sp + 4 * ray_saved,
+        work=sp + 4 * work)
+    res = ForwardResult(
+        total=outs[0], metrics=outs[1:6], counts=outs[8:12].view(torch.int64),
+        color=outs[12:],
+        keep=saved.narrow(0, keep, -(-S // 4)).view(torch.uint8)[:S]
+        .view(torch.bool), saved=saved, prefix=prefix)
+    return res, out
+
+
+def launch_scan(p: Prepared, out: _ForwardOut) -> None:
+    """The forward's first kernel: α and the tiles' prefixes of lw."""
+    lib = _library()
+    _launch(lib, lib.neus_loss_scan_launch, "scan", p, out, scan_kernel,
+            p.tensors[0].device)
+
+
+def launch_forward(p: Prepared, out: _ForwardOut) -> None:
+    """The forward's second kernel (after `launch_scan` on the same
+    buffers): C, T, keep, the per-ray sums and the loss."""
+    lib = _library()
+    _launch(lib, lib.neus_loss_forward_launch, "forward", p, out,
+            forward_kernel, p.tensors[0].device)
+
+
+def forward(p: Prepared, with_prefix: bool = False) -> ForwardResult:
+    """Launch the forward's two kernels on a prepared call (with
+    `with_prefix`, writing lw and C too)."""
+    res, out = forward_buffers(p, with_prefix)
+    launch_scan(p, out)
+    launch_forward(p, out)
     return res
 
 
-def backward(p: Prepared, fwd: ForwardResult, g_total: torch.Tensor,
+def backward(p: Prepared, saved: torch.Tensor, g_total: torch.Tensor,
              v_shape: torch.Size, with_dirs: bool):
-    """Launch the backward kernel: (g_sdf (S,), g_grad (S, 3), g_albedo
-    (S, 3), g_variance shaped `v_shape`, g_dirs shaped as dirs or None)."""
+    """Launch the backward kernel on a prepared call and its forward's
+    `saved`: (g_sdf (S,), g_grad (S, 3), g_albedo (S, 3), g_variance shaped
+    `v_shape`, g_dirs shaped as dirs or None). The kernel writes every
+    entry."""
     o = p.options
     S, R = o.S, o.R
     dev = p.tensors[0].device
@@ -494,30 +682,27 @@ def backward(p: Prepared, fwd: ForwardResult, g_total: torch.Tensor,
     nv = S if o.v_per_sample else 1
     nd = (S * o.dir_stride if o.dirs_per_sample else R * 3) if with_dirs \
         else 0
-    buf = torch.zeros(7 * S + nv + nd, device=dev)
+    buf = torch.empty(7 * S + nv + nd, device=dev)
     g_sdf, g_grad, g_alb, g_v, g_dirs = torch.split(
         buf, [S, 3 * S, 3 * S, nv, nd])
     g_total = g_total.to(torch.float32).contiguous()
+    stride, keep, ray_saved, work = _saved_layout(S, R)
+    sp = saved.data_ptr()
     io = _BackwardIO(
-        g_total=g_total.data_ptr(), trans=fwd.trans.data_ptr(),
-        ray_saved=fwd.ray_saved.data_ptr(), walk_end=fwd.walk_end.data_ptr(),
+        g_total=g_total.data_ptr(), alpha=sp, trans=sp + 4 * stride,
+        keep=sp + 4 * keep, ray_saved=sp + 4 * ray_saved, work=sp + 4 * work,
         g_sdf=g_sdf.data_ptr(), g_grad=g_grad.data_ptr(),
         g_albedo=g_alb.data_ptr(), g_v=g_v.data_ptr(),
         g_dirs=g_dirs.data_ptr() if with_dirs else None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.neus_loss_backward_launch(
-            ctypes.addressof(p.inputs), ctypes.addressof(p.options),
-            ctypes.addressof(io), stream)
-    _check(lib, err, "backward")
-    backward_kernel.launches += 1
+    _launch(lib, lib.neus_loss_backward_launch, "backward", p, io,
+            backward_kernel, dev)
     dirs_shape = (S, o.dir_stride) if o.dirs_per_sample else (R, 3)
     return (g_sdf, g_grad.view(S, 3), g_alb.view(S, 3), g_v.view(v_shape),
             g_dirs.view(dirs_shape) if with_dirs else None)
 
 
 class NeusLoss(torch.autograd.Function):
-    """The loss on CUDA tensors: the forward kernel, and the backward
+    """The loss on CUDA tensors: the forward's kernels, and the backward
     kernel for the gradient wrt sdf, grad, albedo_raw, variance and dirs.
     Returns (total, the forward's other outputs); only total carries a
     gradient."""
@@ -527,10 +712,8 @@ class NeusLoss(torch.autograd.Function):
         p = prepare(sdf, grad, albedo_raw, variance, dirs, inp, opt)
         fwd = forward(p)
         # what the backward reads, saved so that autograd refuses a
-        # backward after an in-place change to any of them; not the
-        # outputs, which would make a reference cycle through this node
-        ctx.save_for_backward(*p.tensors, fwd.trans, fwd.ray_saved,
-                              fwd.walk_end)
+        # backward after an in-place change to any of them
+        ctx.save_for_backward(*p.tensors, fwd.saved)
         ctx.options = p.options
         ctx.v_shape = variance.shape
         ctx.mark_non_differentiable(fwd.metrics, fwd.counts, fwd.color,
@@ -540,9 +723,7 @@ class NeusLoss(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g_total, *_):
-        *ts, trans, ray_saved, walk_end = ctx.saved_tensors
-        saved = ForwardResult(None, None, None, None, None, trans,
-                              ray_saved, walk_end)
+        *ts, saved = ctx.saved_tensors
         grads = backward(_prepared(tuple(ts), ctx.options), saved, g_total,
                          ctx.v_shape, ctx.needs_input_grad[4])
         return (*grads, None, None)

@@ -1,9 +1,9 @@
 """Training loss (port of `rnb_neus2_tpu/render/losses.py:training_loss`).
 
 The reference's fused loss kernel (`src/testbed_nerf.cu:1396-2097`): on
-CUDA tensors the two kernels of `kernels/neus_loss.py` (forward and
-backward), on CPU tensors its plain version, whose autograd gives the same
-gradients, including the second-order path through ∇sdf:
+CUDA tensors the three kernels of `kernels/neus_loss.py` (the forward's
+two and the backward), on CPU tensors its plain version, whose autograd
+gives the same gradients, including the second-order path through ∇sdf:
 
   total = ( Σ_rays color_loss + mask_w · Σ_rays mask_bce ) / n_rays
           + ek_w · Σ_kept_samples (‖∇sdf‖ − 1)² / S
@@ -156,9 +156,9 @@ def training_loss(field_out: Dict[str, torch.Tensor], samples,
 
     samples: ops.ray_march.FlatSamples with S slots; field_out: NeusField
     on the (S, 3) sample positions. The composite and the loss are
-    `kernels/neus_loss.neus_loss`: two kernels on the card, the plain
-    version (a segmented log-space prefix sum over the flat layout) on the
-    CPU.
+    `kernels/neus_loss.neus_loss`: three kernels on the card, the plain
+    version on the CPU, both a segmented log-space prefix sum over the
+    flat layout.
 
     n_rays_divisor / ek_samples_divisor (None: this batch's R and S) let a
     data-parallel replica normalize by the global ray count and the global

@@ -17,11 +17,14 @@ exactly and the last kept ray has no slots and starts at S; otherwise
 the buffer ends in unused slots. `tests/test_torch_neus_loss.py` holds
 the port's loss against the JAX package's on it; `chip_smoke.py` and
 `tests/test_torch_gpu.py` hold the kernels against the plain version on
-it (`hold_against_float64`).
+it (`hold_against_float64`), the scan's logs and the kernels' prefix
+against values computed apart from them (`scan_checks`), and that prefix
+against the twin of the kernels' own logs (`prefix_checks`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
@@ -39,22 +42,39 @@ ROLES = dict(no_slots=1, long=2, opaque=3, rail_albedo=4, dead=5,
 LONG_SLOTS = 40
 
 
+def _faint_level(n: int, dt: float = 0.03) -> float:
+    """An sdf level whose NeuS alpha (dirs·∇ ≈ −1, inv_s = e^{10·VARIANCE})
+    is about 2 ln 1e4 / n: the transmittance of n such samples crosses
+    1e−4 near the middle. 0 where no level is faint enough to be needed
+    (σ′ cannot exceed 1/4)."""
+    s = float(np.exp(10.0 * VARIANCE))
+    q = 2.0 * np.log(1e4) / n / (s * dt)
+    if q >= 0.25:
+        return 0.0
+    sig = (1.0 + np.sqrt(1.0 - 4.0 * q)) / 2.0
+    return float(np.log(sig / (1.0 - sig)) / s)
+
+
 def _unit(rng, n):
     v = rng.normal(size=(n, 3))
     return v / np.linalg.norm(v, axis=1, keepdims=True)
 
 
 def loss_batch(seed: int = 0, n_rays: int = 300, n_slots: int = 2048,
-               full: bool = False) -> Dict[str, np.ndarray]:
+               full: bool = False, long_slots: int = LONG_SLOTS
+               ) -> Dict[str, np.ndarray]:
     """The batch as a dict of numpy arrays: the field's outputs (sdf, grad,
     albedo_raw, variance), the `FlatSamples` fields and the `RayBatch`
-    fields (sample_attrs included)."""
+    fields (sample_attrs included). The long ray has `long_slots` slots;
+    past LONG_SLOTS its sdf sits at a level where its transmittance
+    crosses 1e−4 about halfway along, so that a long ray keeps samples
+    across the kernels' tiles."""
     rng = np.random.default_rng(seed)
     R, S = n_rays, n_slots
     drop = R - 20
     n_valid = rng.integers(1, 9, R)
     n_valid[ROLES["no_slots"]] = 0
-    n_valid[ROLES["long"]] = LONG_SLOTS
+    n_valid[ROLES["long"]] = long_slots
     n_valid[ROLES["opaque"]] = 6
     if full:
         # the rays before drop − 1 fill the buffer exactly; ray drop − 1
@@ -102,7 +122,7 @@ def loss_batch(seed: int = 0, n_rays: int = 300, n_slots: int = 2048,
         step = rng.uniform(0.01, 0.06)
         sdf[sl] = rng.uniform(0.05, 0.15) - step * np.arange(c)
         if r == ROLES["long"]:
-            sdf[sl] = 0.01 * rng.normal(size=c)
+            sdf[sl] = 0.01 * rng.normal(size=c) + _faint_level(c)
             dt[sl] = 0.03
         elif r == ROLES["opaque"]:
             j = offsets[r] + 2
@@ -232,8 +252,43 @@ GRADS = ("sdf", "grad", "albedo_raw", "variance", "dirs")
 #   gradient, one sum over every sample, within GRAD_TOL of the sum of
 #   its terms' magnitudes (each term is itself a difference at a faint
 #   sample: 1.1e−4 of that sum at full width on an H100);
-# - log T 1e−4 (a float32 running sum of up to a few hundred logs, each
-#   addition rounding by up to 2^−24 of |log T| ≤ ln 1e4).
+# - log T 1e−4 against the float64 version fed the kernels' C (exact
+#   differences of the same float32 values): the kernels' exp of a
+#   float32 difference; C itself is held below, against the twin of the
+#   kernels' own logs bit for bit and against the reference's prefix (at
+#   |C| ≈ 3e5 one float32 step of C is 0.03 in log T, and a C one step
+#   off moves a ray's T by 3%, so the composite is compared on one C).
+#   The float64 version takes the kernels' α values too (α is held
+#   below): where a ray's composite sits near its optimum, g_w·T and
+#   G/(1 − α) nearly cancel, and α's float32 error (1e−7 relative)
+#   moved a whole ray's gradient by 5.4e−3 of the largest entry in one
+#   main-path batch of 180 on an H100 (any float32 version shares it).
+#   Rays whose weight sum lies on two sides of the mask term's clamp in
+#   the two versions are left out: the clamp's gradient, 0 or the mask
+#   term's, then differs for the whole ray;
+# - the scan kernel's α→lw step, entry by entry: its logs within LW_ULPS
+#   float32 steps of log1p(−min(α, 1 − 1e−7)) taken in float64 of the
+#   α it wrote at the same slot (the clamp at float32's 1 − 1e−7, as the
+#   kernel and the float32 plain version clamp; log1pf is within one
+#   step, its rounding half of one); and that α, entry by entry, within
+#   ALPHA_FACTOR times the float32 plain version's largest α error in the
+#   buffer of the float64 version's (0 where a slot is not alive, in
+#   all three; the float32 error is the cancellation of two sigmoids, a
+#   property of the inputs, not of the order). Together they hold each
+#   log against the float64 log1p(−min(α, 1 − 1e−7)) at float32's error.
+#   The kernels' C against the twin's prefix of the float32 plain
+#   version's logs (the reference's prefix) within C_REF_STEPS float32
+#   steps of the largest |C| plus the sum of |Δ lw| before the slot (each
+#   is the float32 nearest its exact sum, within half a step,
+#   `tests/test_torch_loss_prefix.py`, and the exact sums differ by at
+#   most that sum);
+# - log T within LOG_T_STEPS float32 steps of the buffer's largest |C|
+#   against the CPU's float32 `torch.cumsum` of the kernels' own logs
+#   (each of the two sums in float64 in another order and rounds once: an
+#   entry may differ by one step where its exact sum lies within the
+#   float64 sums' error of a rounding tie, and a ray's log T is a
+#   difference of two entries; measured on 2^18 trained-like logs: every
+#   entry equal).
 # Where float32 itself is further off (a faint sample's α cancels to a
 # few bits, and e^10 albedo or the reference's RGB+ jacobian magnifies
 # it), the colour and a gradient's worst entry may also be within
@@ -241,13 +296,20 @@ GRADS = ("sdf", "grad", "albedo_raw", "variance", "dirs")
 # computes the same α, as long as that version's transmittance is right
 # (its |Δ log T| ≤ PLAIN_LOG_T_OK; at full width its whole-buffer cumsum
 # is not, and the fixed tolerances alone hold).
-SCALAR_RTOL, COLOR_TOL, LOG_T_TOL = 1e-5, 1e-4, 1e-4
+SCALAR_RTOL, COLOR_TOL, LOG_T_TOL, LOG_T_STEPS = 1e-5, 1e-4, 1e-4, 2.0
 GRAD_RTOL, GRAD_ATOL, GRAD_OFF_SHARE, GRAD_TOL = 1e-4, 1e-5, 0.01, 1e-3
 PLAIN_FACTOR, PLAIN_LOG_T_OK = 2.0, 1e-3
+ALPHA_FACTOR, LW_ULPS, C_REF_STEPS = 4.0, 2.0, 2.0
+# the clamp of α before log1p, in float32 as the float32 versions take it
+LW_CAP = float(np.float32(1.0 - 1e-7))
 # samples whose float64 T lies within this relative band of 1e−4 may be
 # kept by one version and not by the other: their rays are left out of
 # the gradient comparison
 KEEP_BAND = 1e-4
+# the mask term's clamp of the weight sum, in float64 and as the kernels
+# take it in float32
+WS_LO, WS_HI = 1e-4, 1.0 - 1e-4
+WS_LO32, WS_HI32 = float(np.float32(WS_LO)), float(np.float32(WS_HI))
 
 
 def grad_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -282,26 +344,199 @@ def grads_failed(kern: dict, plain: dict, plain_ok: bool) -> list:
     return failed
 
 
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Float32 steps between a and b, entry by entry (0 where both are the
+    same inf or both NaN)."""
+    d = (_bits(a).long() - _bits(b).long()).abs()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return torch.where(same, torch.zeros_like(d), d)
+
+
+def _exclusive_cumsum(lw: torch.Tensor) -> torch.Tensor:
+    c = torch.cumsum(lw, 0)
+    return torch.cat([lw.new_zeros(1), c[:-1]])
+
+
+def _f32_step(x: torch.Tensor) -> torch.Tensor:
+    """The float32 step at each |x| (float64; the least subnormal at 0)."""
+    _, e = torch.frexp(x.double())
+    step = torch.ldexp(torch.ones_like(x, dtype=torch.float64),
+                       (e - 24).clamp_min(-149))
+    return torch.where(x == 0, torch.full_like(step, 2.0 ** -149), step)
+
+
+def _max_step(big: float) -> float:
+    return 2.0 ** (np.floor(np.log2(big)) - 23) if big > 0 else 2.0 ** -149
+
+
+def plain_logs(alpha: torch.Tensor) -> torch.Tensor:
+    """log1p(−min(α, LW_CAP)), the plain version's logs, in α's type."""
+    return torch.log1p(-torch.clamp_max(alpha, LW_CAP))
+
+
+def scan_checks(lw: torch.Tensor, cum: torch.Tensor, alpha: torch.Tensor,
+                alpha32: torch.Tensor, alpha64: torch.Tensor,
+                cum_ref: torch.Tensor) -> dict:
+    """The scan kernel's output against values computed apart from it: its
+    logs `lw` entry by entry against log1p(−min(α, LW_CAP)) in float64 of
+    its own α `alpha`, within LW_ULPS float32 steps; `alpha` entry by
+    entry against the float64 plain version's (`alpha64`) within
+    ALPHA_FACTOR times the float32 plain version's (`alpha32`) largest
+    error; `cum` against `cum_ref`, the twin's prefix of the float32 plain
+    version's logs, within C_REF_STEPS float32 steps of the largest |C|
+    plus the sum of |lw − lw32| before the slot. Returns a report with
+    `failed`."""
+    k, a_k = lw.double(), alpha.double()
+    want = plain_logs(a_k)
+    lw_err = (k - want).abs()
+    lw_off = lw_err > LW_ULPS * _f32_step(want)
+    a64 = alpha64.double()
+    a_err = (a_k - a64).abs()
+    a_tol = ALPHA_FACTOR * float((alpha32.double() - a64).abs().max())
+    p32 = plain_logs(alpha32).double()
+    drift = _exclusive_cumsum((k - p32).abs())
+    c, c_ref = cum.double(), cum_ref.double()
+    step = _max_step(float(torch.maximum(c.abs().max(), c_ref.abs().max())))
+    c_err = ((c - c_ref).abs() - drift).clamp_min(0.0)
+    rep = {
+        "lw_of_alpha_entries_off": int(lw_off.sum()),
+        "lw_of_alpha_max_steps": float((lw_err / _f32_step(want)).max()),
+        "alpha_max_abs_err": float(a_err.max()),
+        "alpha_tol": a_tol,
+        "alpha_entries_off": int((a_err > a_tol).sum()),
+        "lw_vs_float64_max_abs_err": float((k - plain_logs(a64)).abs()
+                                           .max()),
+        "C_vs_plain_twin_max_abs_err": float((c - c_ref).abs().max()),
+        "C_vs_plain_twin_steps": float(c_err.max()) / step,
+        "C_bits_differ_from_plain_twin": int(
+            (_bits(cum.float()) != _bits(cum_ref.float())).sum()),
+    }
+    checks = {"lw": rep["lw_of_alpha_entries_off"] == 0,
+              "alpha": rep["alpha_entries_off"] == 0,
+              "C_vs_plain_twin": rep["C_vs_plain_twin_steps"]
+              <= C_REF_STEPS}
+    rep["failed"] = [k for k, ok in checks.items() if not ok]
+    return rep
+
+
+def prefix_checks(p, fwd, inp) -> dict:
+    """The kernels' transmittance against their order's twin
+    (`neus_loss.prefix_twin`) on the kernels' own logs (which
+    `scan_checks` holds apart), for a prepared call `p` and its forward
+    `fwd` (run `with_prefix`): C bit for bit; T within one float32
+    step of exp(C − C_s) computed from the twin; keep equal to the
+    twin's, but where the two T straddle 1e−4; log T against the CPU's
+    float32 `torch.cumsum` of the same logs within LOG_T_STEPS steps of
+    the largest |C|. Then a second forward and a second backward on the
+    same inputs: every output bit for bit. Returns a report with
+    `failed` and `ok`, and the twin's C (`cum_twin`)."""
+    S, R = p.options.S, p.options.R
+    eps = TRANSMITTANCE_EPSILON
+    lw, cum, trans = fwd.lw, fwd.cum, fwd.trans
+    twin = neus_loss.prefix_twin(lw)
+    rid = torch.clamp_max(inp.ray_id, R - 1)
+    base = torch.clamp(inp.seg_start, 0, S - 1)[rid]
+    t_twin = torch.exp(twin - twin[base])
+    sdf, v, dirs = p.tensors[0], p.tensors[3], p.tensors[4]
+    alive = neus_loss.slot_alive(dirs, inp)
+    keep_twin = alive & (t_twin >= eps)
+    straddle = (trans >= eps) != (t_twin >= eps)
+    keep_off = (fwd.keep != keep_twin) & ~straddle
+    # log T against the CPU path's cumsum of the same logs, in float64
+    cpu = _exclusive_cumsum(lw.cpu()).double()
+    k64, b_cpu = cum.double().cpu(), base.cpu()
+    a_cpu = alive.cpu()
+    dlog = ((k64 - k64[b_cpu]) - (cpu - cpu[b_cpu]))[a_cpu].abs()
+    big = float(torch.maximum(k64.abs().max(), cpu.abs().max()))
+    step = _max_step(big)
+    # the same call again: bit for bit
+    fwd2 = neus_loss.forward(p, with_prefix=True)
+    same_fwd = all(torch.equal(_bits(x), _bits(y)) for x, y in (
+        (fwd.alpha, fwd2.alpha), (fwd.lw, fwd2.lw), (fwd.cum, fwd2.cum),
+        (fwd.trans, fwd2.trans), (fwd.ray_saved, fwd2.ray_saved),
+        (fwd.color, fwd2.color), (fwd.metrics, fwd2.metrics),
+        (fwd.total.reshape(1), fwd2.total.reshape(1)))) and torch.equal(
+        fwd.keep, fwd2.keep) and torch.equal(fwd.counts, fwd2.counts)
+    g = torch.ones((), device=sdf.device)
+    bwd = [neus_loss.backward(p, f.saved, g, v.shape, True)
+           for f in (fwd, fwd2)]
+    same_bwd = all(torch.equal(_bits(x), _bits(y))
+                   for x, y in zip(*bwd) if x is not None)
+    rep = {
+        "prefix_bits_differ": int((_bits(cum) != _bits(twin)).sum()),
+        "trans_max_ulps": int(_ulps(trans, t_twin).max()),
+        "keep_straddling": int((straddle & alive).sum()),
+        "keep_differs_from_twin": int(keep_off.sum()),
+        "max_abs_C": big, "C_step": step,
+        "log_T_vs_cpu_cumsum_steps": float(dlog.max()) / step
+        if dlog.numel() else 0.0,
+        "forward_repeats_bit_for_bit": same_fwd,
+        "backward_repeats_bit_for_bit": same_bwd,
+    }
+    checks = {
+        "prefix_bits": rep["prefix_bits_differ"] == 0,
+        "trans_ulp": rep["trans_max_ulps"] <= 1,
+        "keep_twin": rep["keep_differs_from_twin"] == 0,
+        "log_T_steps": rep["log_T_vs_cpu_cumsum_steps"] <= LOG_T_STEPS,
+        "forward_repeat": same_fwd, "backward_repeat": same_bwd,
+    }
+    rep["failed"] = [k for k, ok in checks.items() if not ok]
+    rep["ok"] = not rep["failed"]
+    rep["cum_twin"] = twin
+    return rep
+
+
 def hold_against_float64(args, label: str = "") -> dict:
     """The loss kernels against the plain version run in float64 on double
     copies of the same inputs (`args`: the arguments of a `neus_loss`
-    call on CUDA tensors), beside the float32 plain version's own error.
-    Returns a report; `report["failed"]` names the checks that the
-    kernels miss (a tolerance, or one launch of each, which CPU tensors,
-    taking the plain version, miss), and `report["ok"]` is True where it
-    is empty."""
+    call on CUDA tensors), fed the kernels' float32 prefix C (the
+    function's rounding) and α values, beside the float32 plain version's
+    own error; C and α held apart from the composite: C against the twin
+    of the kernels' own logs (`prefix_checks`), and the scan's α, logs
+    and C against values computed apart from the kernels, float64's α and
+    the twin's prefix of the float32 plain version's logs of the same
+    inputs for C (`scan_checks`). Returns a report;
+    `report["failed"]` names the checks that the kernels miss (a
+    tolerance, or one launch of each kernel, which CPU tensors, taking the
+    plain version, miss), and `report["ok"]` is True where it is
+    empty."""
     sdf = args[0]
     inp0, opt = args[5], args[6]
     S, R = inp0.dt.shape[0], inp0.seg_start.shape[0]
-    f0, b0 = neus_loss.forward_kernel.launches, \
-        neus_loss.backward_kernel.launches
+    counters = (neus_loss.scan_kernel, neus_loss.forward_kernel,
+                neus_loss.backward_kernel)
+    before = [c.launches for c in counters]
     k_total, k_m, k_keep, k_g, k_leaves, _, _ = _run(
         neus_loss.neus_loss, args, torch.float32)
-    launched = [neus_loss.forward_kernel.launches - f0,
-                neus_loss.backward_kernel.launches - b0]
-    # the kernel's own T, from one more forward launch
-    fwd = neus_loss.forward(neus_loss.prepare(
-        *[x.detach() for x in k_leaves], inp0, opt))
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    # the kernels' own α, logs, C and T, from one more forward that
+    # writes its logs and C
+    p = neus_loss.prepare(*[x.detach() for x in k_leaves], inp0, opt)
+    fwd = neus_loss.forward(p, with_prefix=True)
+    twin = prefix_checks(p, fwd, inp0)
+    twin.pop("cum_twin")
+    # C apart from the kernels: the twin's order on the float32 plain
+    # version's logs of the same inputs. The float64 composite takes the
+    # kernels' own C and α values (its derivatives its own), each held
+    # apart by `scan_checks`: C is the float32 nearest the exact prefix, so
+    # where the two α differ by their float32 errors (1e−6) the two exact
+    # prefixes may round a step apart (0.03 in log T at |C| ≈ 3e5) at some
+    # hundreds of slots, which moves those rays' colour and gradients by
+    # 3%; and at a nearly opaque sample whose later samples are still
+    # kept (1 − α ≥ 1e−4 / T) the backward's G/(1 − α) turns α's float32
+    # error into up to a few per cent of that entry
+    with torch.no_grad():
+        alpha32, T32, _, _ = neus_loss.alpha_and_trans(
+            *[x.detach() for x in k_leaves[:2]], k_leaves[3].detach(),
+            k_leaves[4].detach(), inp0, opt)
+    cum_ref = neus_loss.prefix_twin(plain_logs(alpha32))
+
+    def fed(lw):
+        return fwd.cum
     p_total, p_m, p_keep, p_g, _, _, _ = _run(neus_loss.plain, args,
                                               torch.float32)
     # the float64 run takes a scalar variance per sample, which gives the
@@ -310,20 +545,34 @@ def hold_against_float64(args, label: str = "") -> dict:
     per_sample_v = v.dim() == 1 and v.numel() == S
     v64 = v if per_sample_v else v.detach().reshape(()).expand(S).clone()
     d_total, d_m, d_keep, d_g, d_leaves, d_inp, _ = _run(
-        neus_loss.plain, (*args[:3], v64, *args[4:]), torch.float64)
+        functools.partial(neus_loss.plain, prefix=fed,
+                          alpha_values=fwd.alpha),
+        (*args[:3], v64, *args[4:]), torch.float64)
     with torch.no_grad():
-        _, T64, alive64, _ = neus_loss.alpha_and_trans(
-            *d_leaves[:2], d_leaves[3], d_leaves[4], d_inp, opt)
-        _, T32, _, _ = neus_loss.alpha_and_trans(
-            *[x.detach() for x in k_leaves[:2]], k_leaves[3].detach(),
-            k_leaves[4].detach(), inp0, opt)
+        alpha64, T64, alive64, _ = neus_loss.alpha_and_trans(
+            *d_leaves[:2], d_leaves[3], d_leaves[4], d_inp, opt, fed)
+    scan = scan_checks(fwd.lw, fwd.cum, fwd.alpha, alpha32, alpha64,
+                       cum_ref)
     eps = TRANSMITTANCE_EPSILON
     band = alive64 & ((T64 / eps - 1.0).abs() < KEEP_BAND)
     rid = torch.clamp_max(inp0.ray_id, R - 1)
     in_seg = inp0.ray_id < R
+    seg_ids = torch.where(in_seg, inp0.ray_id, R)
     flip_rays = torch.zeros(R + 1, dtype=torch.bool, device=sdf.device)
-    flip_rays[torch.where(in_seg, inp0.ray_id, R)[band]] = True
+    flip_rays[seg_ids[band]] = True
     flip_rays[R] = False
+    # rays whose weight sum the mask term's clamp takes in one version and
+    # passes in the other (the kernels' float32 sum and float64's on two
+    # sides of a bound): the clamp's gradient, 0 or the whole mask term's,
+    # differs for the whole ray
+    ws64 = torch.zeros(R + 1, dtype=torch.float64, device=sdf.device
+                       ).index_add_(0, seg_ids, torch.where(
+                           d_keep, fwd.alpha.double() * T64,
+                           torch.zeros_like(T64)))[:R]
+    ws_k = fwd.ray_saved[:, 4]
+    clamp_flip = ((ws_k >= WS_LO32) & (ws_k <= WS_HI32)) != (
+        (ws64 >= WS_LO) & (ws64 <= WS_HI))
+    flip_rays[:R] |= clamp_flip
     slot_ok = ~(flip_rays[rid] & in_seg)
     # T where both versions walk: kept samples in float64, outside the band
     walked = d_keep & ~band
@@ -380,16 +629,19 @@ def hold_against_float64(args, label: str = "") -> dict:
                          minlength=R + 1)[:R]
     report = {
         "case": label, "S": S, "R": R, "launches": launched,
+        "scan": scan, "prefix": twin,
         "longest_segment": int(seg.max()),
         "kept_float64": int(d_keep.sum()),
         "near_threshold_samples": int(band.sum()),
         "rays_left_out": int(flip_rays.sum()),
+        "rays_across_the_mask_clamp": int(clamp_flip.sum()),
         "counts_float64": {k: int(d_m[k]) for k in COUNTS},
         "kernel": kern, "plain_float32": f32,
         "tolerances": {"scalar_rtol": SCALAR_RTOL, "color_tol": COLOR_TOL,
                        "grad_rtol": GRAD_RTOL, "grad_atol": GRAD_ATOL,
                        "grad_off_share": GRAD_OFF_SHARE,
                        "grad_tol": GRAD_TOL, "log_T_tol": LOG_T_TOL,
+                       "log_T_steps": LOG_T_STEPS,
                        "plain_factor": PLAIN_FACTOR,
                        "plain_log_T_ok": PLAIN_LOG_T_OK,
                        "keep_band": KEEP_BAND},
@@ -400,7 +652,7 @@ def hold_against_float64(args, label: str = "") -> dict:
         return max(fixed, PLAIN_FACTOR * plain_err) if plain_ok else fixed
 
     checks = {
-        "launches": launched == [1, 1],
+        "launches": launched == [1, 1, 1],
         "scalars": all(v <= SCALAR_RTOL
                        for v in kern["scalars_rel_err"].values()),
         "color": kern["forward"]["color_max_abs_err"]
@@ -416,21 +668,25 @@ def hold_against_float64(args, label: str = "") -> dict:
     }
     report["failed"] = [k for k, ok in checks.items() if not ok] + [
         f"grad:{k}" for k in grads_failed(kern["grads"], f32["grads"],
-                                          plain_ok)]
+                                          plain_ok)] + [
+        f"prefix:{k}" for k in twin["failed"]] + [
+        f"scan:{k}" for k in scan["failed"]]
     report["ok"] = not report["failed"]
     return report
 
 
 def edge_case_calls(device, seed: int = 0) -> list:
     """(label, arguments of a `neus_loss` call) of the edge-case batch on
-    `device` under the configurations the CPU tests cover, each taken
-    through `training_loss` on the card."""
+    `device` under the configurations the CPU tests cover, and of the
+    tile batch (`TILE_BATCH`) under `TILE_CASES`, each taken through
+    `training_loss` on the card."""
     from ..config import LossConfig, RenderFlags
     from ..render.losses import training_loss
 
     calls = []
-    for label, full, attrs, flags, cfg, div in EDGE_CASES:
-        field, samples, batch = torch_batch(loss_batch(seed, full=full),
+    for label, full, attrs, flags, cfg, div in EDGE_CASES + TILE_CASES:
+        kw = TILE_BATCH if label.startswith("tiles") else dict(full=full)
+        field, samples, batch = torch_batch(loss_batch(seed, **kw),
                                             device, attrs)
         _, got = capture_call(lambda: training_loss(
             field, samples, batch, RenderFlags(**flags), LossConfig(**cfg),
@@ -465,3 +721,15 @@ EDGE_CASES = [
      dict(mask_loss_weight=0.0, ek_loss_weight=1.0), (1 << 20, 64)),
 ]
 
+
+# a buffer of eight tiles of the kernels (1024 slots each), full: the long
+# ray's 3,000 faint slots cross two tile boundaries with samples kept on
+# both sides, and the last kept ray takes the ~5,100 slots left (five
+# tiles)
+TILE_BATCH = dict(n_rays=40, n_slots=8192, full=True, long_slots=3000)
+TILE_CASES = [
+    ("tiles", True, True, {}, {}, ()),
+    ("tiles_ray_directions", True, False, {}, {}, ()),
+    ("tiles_emulations", True, True, {},
+     dict(fp16_grad_emulation=True, rollover_grad_emulation=True), ()),
+]

@@ -69,7 +69,8 @@ PHASES = ("occupancy_refresh", "sample_and_march", "field_forward", "loss",
           "backward", "grad_sum", "optimizer", "guard_snapshot")
 # the port's hand-written kernels, by the name of their CUDA function
 HAND_KERNELS = ("encode_jacobian_kernel", "corner_backward_kernel",
-                "neus_loss_forward_kernel", "neus_loss_backward_kernel",
+                "neus_loss_scan_kernel", "neus_loss_forward_kernel",
+                "neus_loss_backward_kernel",
                 "hash_grad_small", "scatter_add")
 
 

@@ -939,13 +939,18 @@ def test_two_replicas_on_the_card_match_the_cpu(cuda, monkeypatch, cards):
     assert launches == (2 * small, 2 * (sum(buckets) - small), 2 * 3)
 
 
-@pytest.mark.parametrize("case", range(len(loss_batch.EDGE_CASES) + 1))
+N_LOSS_CASES = len(loss_batch.EDGE_CASES) + len(loss_batch.TILE_CASES)
+
+
+@pytest.mark.parametrize("case", range(N_LOSS_CASES + 1))
 def test_loss_kernels_match_float64_plain(cuda, case):
-    """The loss's two kernels against their plain version run in float64
+    """The loss's three kernels against their plain version run in float64
+    with the twin's prefix, and their prefix against the twin
     (`loss_batch.hold_against_float64`, whose tolerances are stated
     there): on the edge-case batch under each configuration of
-    `EDGE_CASES`, and on a larger seeded batch (4,096 rays, 2^15 slots)."""
-    if case < len(loss_batch.EDGE_CASES):
+    `EDGE_CASES`, on the tile batch under `TILE_CASES`, and on a larger
+    seeded batch (4,096 rays, 2^15 slots)."""
+    if case < N_LOSS_CASES:
         label, args = loss_batch.edge_case_calls(cuda)[case]
     else:
         from rnb_neus2_torch.config import LossConfig, RenderFlags

@@ -1,5 +1,5 @@
 """The loss layer (`kernels/neus_loss.py`: the plain version that the CPU
-takes, and the interface of the two CUDA kernels that the card takes)
+takes, and the interface of the three CUDA kernels that the card takes)
 against the JAX package's `training_loss`: on the seeded edge-case batch of
 `testing/loss_batch.py` (a few hundred rays, 2,048 slots), the total,
 every metric and the VJP wrt each field output (sdf, ∇sdf, raw albedo,
@@ -245,10 +245,6 @@ def test_the_structs_match_the_kernel_source():
                 for t, star, n in fields]
         got = [(n, t.__name__) for n, t in cls._fields_]
         assert got == want, struct
-    acc = re.search(r"struct Accum {(.*?)\n};", src, re.S)[1]
-    assert "float color, mask, ek, ws;" in acc
-    assert "unsigned long long kept, alive;" in acc
-    assert neus_loss.ACCUM_BYTES == 4 * 4 + 2 * 4 + 2 * 8
 
 
 def test_wrapper_takes_plain_on_cpu_and_checks_its_inputs(batches):
@@ -262,13 +258,13 @@ def test_wrapper_takes_plain_on_cpu_and_checks_its_inputs(batches):
     opt = neus_loss.LossOptions(config.RenderFlags(), config.LossConfig(),
                                 1.0, 300, 2048)
     args = [field[k] for k in lb.FIELD] + [batch.sample_attrs]
-    before = (neus_loss.forward_kernel.launches,
-              neus_loss.backward_kernel.launches)
+    counters = (neus_loss.scan_kernel, neus_loss.forward_kernel,
+                neus_loss.backward_kernel)
+    before = [c.launches for c in counters]
     total, _, keep = neus_loss.neus_loss(*args, inp, opt)
     ptotal, _, pkeep = neus_loss.plain(*args, inp, opt)
     assert torch.equal(total, ptotal) and torch.equal(keep, pkeep)
-    assert (neus_loss.forward_kernel.launches,
-            neus_loss.backward_kernel.launches) == before
+    assert [c.launches for c in counters] == before
     neus_loss.check_inputs(*args, inp)
     with pytest.raises(TypeError):
         neus_loss.check_inputs(args[0].double(), *args[1:], inp)
@@ -313,6 +309,25 @@ def test_the_float64_check_sees_a_dropped_eikonal_gradient(case):
                if n != "grad")
 
 
+def test_the_pipelines_train_with_the_chosen_loss(batches):
+    """`tools/loss_check.py --loss`: each choice is the named version on
+    the edge-case batch's arguments (on the CPU the kernels' entry point
+    takes the plain version), and `pipelines` puts `neus_loss.neus_loss`
+    back."""
+    field, samples, batch = lb.torch_batch(batches[False], "cpu")
+    _, (args,) = lb.capture_call(lambda: losses.training_loss(
+        field, samples, batch, config.RenderFlags(), config.LossConfig()))
+    args = (*[x.detach() for x in args[:5]], *args[5:])
+    got = {k: float(fn(*args)[0]) for k, fn in loss_check.LOSSES.items()}
+    assert got["kernels"] == float(neus_loss.plain(*args)[0])
+    assert got["plain"] == got["kernels"]
+    assert got["plain_twin"] == float(neus_loss.plain(
+        *args, prefix=neus_loss.prefix_twin)[0])
+    real = neus_loss.neus_loss
+    loss_check.pipelines(0, 1, "plain")
+    assert neus_loss.neus_loss is real
+
+
 def test_the_planted_fault_finds_its_line():
     """`tools/loss_check.py --planted` edits the backward kernel's
     eikonal gradient, which must stand in the source exactly once."""
@@ -323,3 +338,16 @@ def test_the_planted_fault_finds_its_line():
     assert loss_check.EIKONAL_LINE not in out
     with pytest.raises(ValueError):
         loss_check.plant(out)
+
+
+def test_the_planted_scan_fault_finds_its_line():
+    """`tools/loss_check.py --planted`'s second fault moves the scan
+    kernel's logs one slot on within the tile: its line stands in the
+    source exactly once, and the planted source has it no more."""
+    src = (Path(neus_loss.__file__).parent.parent / "csrc"
+           / neus_loss.SOURCE).read_text()
+    line, planted_line = loss_check.PLANTS["scan_shift"]
+    out = loss_check.plant(src, "scan_shift")
+    assert planted_line in out and line not in out
+    with pytest.raises(ValueError):
+        loss_check.plant(out, "scan_shift")
