@@ -9,7 +9,8 @@ Phases, each printing JSON lines with `elapsed_s`:
    versions. Exits non-zero without a CUDA device or without the package
    beside this script.
 2. build: every kernel library of the main path (`hash_grad_small`,
-   `scatter_add`, `encode_jacobian`, `corner_backward`), built with nvcc
+   `scatter_add`, `encode_jacobian`, `corner_backward`, `neus_loss`,
+   `march`), built with nvcc
    from the sources in the checkout, the point-to-mesh library of the Chamfer
    metric (`native/raycast.cc`, g++), the PNG row unfilter
    (`rnb_neus2_torch/native/png_unfilter.cc`, g++) and the image codecs'
@@ -127,7 +128,8 @@ Phases, each printing JSON lines with `elapsed_s`:
    steps 256-271, one 16-step chunk): exit 0, its `iteration=300` line,
    both files; its Chrome trace names the CUDA functions of the two
    kernels its default path launches (`encode_jacobian`,
-   `corner_backward`) and the trainer's spans; 8 RGBA PNGs of 256x256 whose
+   `corner_backward`, the loss's three and the march's four) and the
+   trainer's spans; 8 RGBA PNGs of 256x256 whose
    first and last differ; and the count of metric reads it prints equals
    that of the same loop run on the CPU with the step body, the refresh
    and the read replaced by counters (the port's schedule). Its
@@ -170,7 +172,10 @@ Phases, each printing JSON lines with `elapsed_s`:
    dataset's alpha ≥ 0.9; depth inside the silhouette within (0.5, 3.0)),
    the same view at 512x612 with the focal length scaled per axis to keep
    the field of view (coverage within 0.01 of the 256x256 one), ms per
-   frame, rays/s and peak memory for each; and a 32x32 crop of rays from
+   frame, rays/s and peak memory for each, and beside them the device ms
+   per frame of the renderer's dense march (`ops/ray_march.march`, its
+   own span in one profiled frame) and of the whole frame; and a 32x32
+   crop of rays from
    the CPU rendered on the card and by the CPU port on the same
    parameters and bitfield (`render_rays`): albedo, alpha and depth within
    1e-4, alpha x normal within 1e-4. After phase 12, the Python `Testbed`
@@ -385,6 +390,29 @@ Phases, each printing JSON lines with `elapsed_s`:
    forward launches' ms against the whole forward's bound. Every training
    path's launch counts include the three kernels, once per step body.
 
+23. march kernels (right after phase 22): the training march and its
+   compaction's four kernels (`kernels/march.py`: the dilated coarse
+   grid, the count pass, the scan, the write pass; the coarse grid only
+   on the blocked path, cone 0) against the plain march
+   (`ops/ray_march.march_flat_plain`) and the twin of their loops
+   (`kernels/march.walk_twin`) on the same card tensors, every field bit
+   for bit, each kernel launched once per march
+   (`testing/march_cases.hold`): on the phase-7 trainer's next step's
+   rays, jitter and bitfield (`march_cases.capture_march` between the
+   guard's snapshot and restore; 2^16 rays, 2^18 slots), on 2^18 rays of
+   the same sampler, on the first 8,192 rays (NB = K/8, where the
+   blocked and single-phase kernels must also equal each other), on the
+   first 2^16 − 27, on the rays reordered so that the first overflows a
+   one-slot budget (total 0), on `march_cases.edge_rays` (rays that miss
+   the cube, start inside it, lie on a slab plane, u = 0), on an empty
+   and a full bitfield, and at cone 1/256 and aabb_scale 4 with the 1-D
+   bitfield (the options path). Then each kernel's ms alone, the four
+   launches' and the wrapper's, the plain march's ms and the bounds with
+   the walk's cell reads and their 32-byte sectors (`march_bounds`), and
+   the phase's seconds. Every training path's launch counts include the
+   four kernels once per march (one per step body, delta step and
+   refinement step), the coarse grid's 0 at cone > 0.
+
 Then one JSON line with every kernel's numbers (the launches of its
 path: the exact steps' for `hash_grad_small` and `scatter_add`, with the
 default path's 0 beside them, the K = 1 steps' for the other four; the
@@ -476,6 +504,9 @@ TRAIN_API_STEPS = 32
 # the loss's kernels, by their counters' names: the forward's two, the
 # backward
 LOSS_KERNELS = ("neus_loss_scan", "neus_loss_forward", "neus_loss_backward")
+# the march's kernels, by their counters' names, in launch order (the
+# coarse grid only on the blocked path, cone 0)
+MARCH_KERNELS = ("march_coarse", "march_count", "march_scan", "march_write")
 
 
 def log(phase: str, **kw) -> None:
@@ -1588,6 +1619,173 @@ def loss_kernels_phase(torch, bench, dev, card, tr) -> dict:
     return {"rows": rows, "seconds": seconds, "reports": reports}
 
 
+def march_bounds(torch, p, reads) -> dict:
+    """`bound_ms` of each march kernel and of the whole march on one call
+    (`p`, its `kernels/march.Plan`; `reads`, the cells that `walk_twin`
+    reads in each pass): the larger of its bytes over 3.35 TB/s and its
+    float32 operations over 67 TFLOP/s (bench_scatter's rates). The
+    function's bytes, each input read once and each output written once:
+    o, d and u (28 B per ray), the fine bitfield (g³ B) and the coarse grid
+    (cg³ B, blocked path) once, 17 B per slot (t, dt, ray_id, valid) and
+    17 B per ray (seg_start, n_valid, ray_kept). Each input is charged to
+    the first kernel that reads it and each output to the one that writes
+    it, so that the rows sum to the whole: the coarse grid's kernel the
+    bitfield and the coarse grid, the count pass the rays and n_valid
+    (and the bitfield on the single-phase path), the scan seg_start and
+    ray_kept, the write pass the slots. Operations: the coarse grid's
+    any-pool and separable dilation, g³ + 6·cg³ ORs; ≈ 40 per cell the
+    walk reads (a ladder point, its position, the tests, the index);
+    beside them the reads and the distinct 32-byte sectors they touch (the
+    sector method of `encode_bounds`)."""
+    from rnb_neus2_torch.tools import bench_scatter as bench
+
+    R, S = p.R, p.S
+    fine, coarse = p.g ** 3, (p.cg ** 3 if p.blocked else 0)
+    sectors = lambda idx: int(torch.unique(idx // 32).numel())
+    n_reads = {k: int(v.numel()) for k, v in reads.items()}
+    parts = {
+        "march_coarse": (fine + coarse if p.blocked else 0,
+                         fine + 6 * coarse),
+        "march_count": (28 * R + 8 * R + (0 if p.blocked else fine),
+                        40 * (n_reads["fine"] + n_reads["coarse"])),
+        "march_scan": (9 * R, 4 * R),
+        "march_write": (17 * S, 40 * (n_reads["write_fine"]
+                                      + n_reads["write_coarse"]) + 4 * S)}
+    parts["march"] = tuple(map(sum, zip(*parts.values())))
+    out = {}
+    for name, (nbytes, ops) in parts.items():
+        t_bytes, t_ops = nbytes / bench.HBM_BYTES_PER_S, ops / bench.FP32_FLOPS
+        out[name] = {"bound_ms": 1e3 * max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bound_bytes": nbytes, "bound_ops": ops}
+    out["reads"] = {**n_reads, "fine_sectors": sectors(reads["fine"]),
+                    "coarse_sectors": sectors(reads["coarse"]),
+                    "write_fine_sectors": sectors(reads["write_fine"])}
+    return out
+
+
+def time_march_kernels(torch, bench, card, args, n_ladder, S) -> dict:
+    """Each march kernel's launch alone on buffers allocated once
+    (`kernels/march.prepare`, then one `run`), the four together (`run`,
+    `launches_ms`) and with the wrapper's checks and allocations
+    (`march_flat`, `function_ms`), the plain march (`plain_ms`; the coarse
+    grid's row: `_coarse_dilated` alone), on one call's arguments, and the
+    bounds (`march_bounds`). No single PyTorch call computes any of them,
+    so `library_ms` is None."""
+    from rnb_neus2_torch.kernels import march as mk
+    from rnb_neus2_torch.ops import ray_march
+
+    prep = mk.prepare(*args, n_ladder, S, 0.0)
+    mk.run(prep)
+    p = prep.plan
+    reads = {}
+    mk.walk_twin(*args, n_ladder, S, 0.0, reads=reads)
+    bounds = march_bounds(torch, p, reads)
+    whole = {"function_ms": bench.time_ms(
+        lambda: ray_march.march_flat(*args, n_ladder, S, 0.0)),
+        "launches_ms": bench.time_ms(lambda: mk.run(prep)),
+        "function_bound_ms": bounds["march"]["bound_ms"],
+        "function_bound_bytes": bounds["march"]["bound_bytes"]}
+    plain_ms = bench.time_ms(
+        lambda: ray_march.march_flat_plain(*args, n_ladder, S, 0.0), 10)
+    coarse_plain = bench.time_ms(
+        lambda: ray_march._coarse_dilated(args[2], p.g), 10)
+    rows = {}
+    for name, fn in (("march_coarse", mk.launch_coarse),
+                     ("march_count", mk.launch_count),
+                     ("march_scan", mk.launch_scan),
+                     ("march_write", mk.launch_write)):
+        rows[name] = {"ms": bench.time_ms(lambda: fn(prep)),
+                      "plain_ms": coarse_plain if name == "march_coarse"
+                      else plain_ms, "library_ms": None, **bounds[name],
+                      **whole}
+        log("march_kernel_timing", kernel=name, card=card, R=p.R, S=S,
+            K=p.K, NB=p.NB, reads=bounds["reads"], **rows[name])
+    return rows
+
+
+def march_kernels_phase(torch, bench, dev, card, tr) -> dict:
+    """Phase 23: the march kernels against the plain march and the twin of
+    their loops on the same card tensors, every field bit for bit
+    (`testing/march_cases.hold`): on the arguments of the phase-7
+    trainer's next step, which is then undone (2^16 rays, 2^18 slots, the
+    trained 128³ bitfield); on 2^18 rays of the same sampler; on the first
+    8,192 rays (NB = K/8), where the blocked and single-phase results must
+    also equal each other; on the first 2^16 − 27 rays; on the rays
+    reordered so that the first overflows a one-slot budget (total 0);
+    on `edge_rays` (rays that miss the cube, start inside it, lie on a
+    slab plane, u = 0); on an empty and a full bitfield; at cone 1/256
+    and aabb_scale 4 with the 1-D bitfield (the options path). Then the
+    kernels' times on the main path's arguments (`time_march_kernels`).
+    Returns the rows of the final line and the phase's seconds; raises
+    if any case differs or launches other than once per kernel."""
+    from rnb_neus2_torch.ops import ray_march
+    from rnb_neus2_torch.testing import march_cases as mc
+    from rnb_neus2_torch.train.sampler import sample_ray_batch
+
+    t0 = time.perf_counter()
+    state = tr._snapshot_state()
+    _, calls = mc.capture_march(tr.train_step_async)
+    tr._restore(state)
+    if len(calls) != 1:
+        raise AssertionError(f"a training step marched {len(calls)} times")
+    o, d, bit, u, K, S, cone = calls[0]
+    main = (o, d, bit, u)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    _, big = mc.capture_march(lambda: sample_ray_batch(
+        tr.dataset, bit, 1 << 18, S, tr.cfg.march, generator=gen))
+    first = lambda n: (o[:n], d[:n], bit, u[:n])
+    n_main = ray_march.march_flat_plain(*main, K, S, cone).n_valid
+    lead = int(torch.argmax(n_main))
+    order = torch.cat([torch.tensor([lead], device=dev),
+                       torch.arange(o.shape[0], device=dev)
+                       [torch.arange(o.shape[0], device=dev) != lead]])
+    edge = [torch.from_numpy(x).to(dev) for x in mc.edge_rays(4099, 23)]
+    cases = [
+        ("main_path", main, S, 0.0, 1.0),
+        ("rays_2^18", big[0][:4], S, 0.0, 1.0),
+        ("R_8192", first(8192), S, 0.0, 1.0),
+        ("R_2^16-27", first(o.shape[0] - 27), S, 0.0, 1.0),
+        ("total_0", (o[order], d[order], bit, u[order]), 1, 0.0, 1.0),
+        ("edge_rays", (edge[0], edge[1], bit, edge[2]), S, 0.0, 1.0),
+        ("empty_bitfield", (o, d, torch.zeros_like(bit), u), S, 0.0, 1.0),
+        ("full_bitfield", (o, d, torch.ones_like(bit), u), S, 0.0, 1.0),
+        ("cone_aabb_4", main, S, 1.0 / 256.0, 4.0)]
+    reports, failed = [], []
+    for label, args, slots, c, aabb in cases:
+        rep = mc.hold(args, K, slots, c, aabb, label=label)
+        log("march_kernels_case", card=card, **rep)
+        reports.append(rep)
+        if not rep["ok"]:
+            failed.append(label)
+    rep = mc.hold(first(8192), K, S, 0.0, blocked=False, label="R_8192_ladder")
+    same = all(torch.equal(a, b) for a, b in zip(
+        ray_march.march_flat(*first(8192), K, S, 0.0),
+        ray_march.march_flat(*first(8192), K, S, 0.0, blocked=False)))
+    log("march_kernels_case", card=card, blocked_equals_ladder=same, **rep)
+    reports.append(rep)
+    if not (rep["ok"] and same):
+        failed.append("R_8192_ladder")
+    checks = {"total_0": lambda r: r["valid"] == 0 and r["kept"] == 0,
+              "empty_bitfield": lambda r: r["valid"] == 0,
+              "main_path": lambda r: 0 < r["valid"] <= S and r["blocked"],
+              "R_8192": lambda r: r["NB"] == r["K"] // 8,
+              "cone_aabb_4": lambda r: not r["blocked"] and r["valid"] > 0}
+    failed += [r["label"] for r in reports
+               if r["label"] in checks and not checks[r["label"]](r)]
+    rows = time_march_kernels(torch, bench, card, main, K, S)
+    for name in rows:
+        rows[name]["max_abs_err"] = max(r["max_abs_err"] for r in reports)
+    seconds = time.perf_counter() - t0
+    log("march_kernels", card=card, seconds=seconds, failed=failed,
+        cases=len(reports))
+    if failed:
+        raise AssertionError(f"the march kernels differ from the plain "
+                             f"march: {failed}")
+    return {"rows": rows, "seconds": seconds, "reports": reports}
+
+
 def warp_repeats(torch, S, idx, v) -> dict:
     """Of the elements a kernel adds (index in [0, S), a non-zero value),
     the share whose row equals another's in its warp of 32 consecutive
@@ -1664,15 +1862,16 @@ def dry_metric_reads(argv) -> int:
 def check_trace(path: Path) -> dict:
     """The Chrome trace of the CLI's --trace-steps: the CUDA functions of
     the kernels that its default path (K = 1) launches, the training
-    encode's forward and K-corner backward and the loss's forward and
-    backward, and the trainer's spans are in it."""
+    encode's forward and K-corner backward, the loss's forward and
+    backward and the march's four, and the trainer's spans are in it."""
     trace = json.loads(path.read_text())
     events = trace["traceEvents"]
     names = {e.get("name", "") for e in events}
     kernels = [e for e in events if e.get("cat") == "kernel"]
     found = {k: sum(k in e.get("name", "") for e in kernels)
              for k in ("encode_jacobian_kernel", "corner_backward_kernel",
-                       *(f"{name}_kernel" for name in LOSS_KERNELS))}
+                       *(f"{name}_kernel"
+                         for name in LOSS_KERNELS + MARCH_KERNELS))}
     spans = ("occupancy_refresh", "sample_and_march", "field_forward",
              "loss", "backward", "optimizer")
     row = {"trace_bytes": path.stat().st_size, "trace_events": len(events),
@@ -2033,10 +2232,52 @@ def host_syncs(torch, tr) -> dict:
     return row
 
 
+def render_march_share(torch, render) -> dict:
+    """One frame (`render()`) under `torch.profiler` with the renderer's
+    dense march (`ops/ray_march.march`) in a span of its own: the device
+    ms per frame of the kernels the march launched, of all the frame's
+    device activity, and the march's calls."""
+    from torch.autograd import DeviceType
+    from rnb_neus2_torch.ops import ray_march
+
+    real, calls = ray_march.march, []
+
+    def spanned(*a, **kw):
+        calls.append(1)
+        with torch.profiler.record_function("render_march"):
+            return real(*a, **kw)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    ray_march.march = spanned
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            render()
+            torch.cuda.synchronize()
+    finally:
+        ray_march.march = real
+
+    def in_march(evt):
+        while evt is not None:
+            if evt.name == "render_march":
+                return True
+            evt = evt.cpu_parent
+        return False
+    events = prof.events()
+    march_us = sum(k.duration for e in events if in_march(e)
+                   for k in e.kernels)
+    busy_us = sum(e.time_range.elapsed_us() for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+    return {"march_device_ms_per_frame": march_us / 1e3,
+            "device_busy_ms_per_frame": busy_us / 1e3,
+            "march_calls_per_frame": len(calls)}
+
+
 def render_phase(torch, tr, card) -> dict:
     """Phase 13: the renderer on the trained run's EMA field on the card,
     against the dataset's silhouette, at 512x612, and against the CPU
-    port on a crop of rays."""
+    port on a crop of rays; beside each frame size's ms per frame, the
+    device ms of its dense march (`render_march_share`)."""
     import numpy as np
     from rnb_neus2_torch.geom.camera import rays_from_pixels
     from rnb_neus2_torch.mesh.extract import _bind
@@ -2056,8 +2297,11 @@ def render_phase(torch, tr, card) -> dict:
             out = renderer.render_view(field, None, cams_v, 0, bit, march)
         ms = (time.perf_counter() - t0) * 1e3 / reps
         W, H = cams_v.resolution
+        share = render_march_share(torch, lambda: renderer.render_view(
+            field, None, cams_v, 0, bit, march))
         return out, {"W": W, "H": H, "tiles": -(-W * H // 4096),
                      "ms_per_frame": ms, "rays_per_s": W * H / ms * 1e3,
+                     **share,
                      "max_memory_allocated": torch.cuda.max_memory_allocated(),
                      "memory_before": base,
                      "alpha_mean": float(out["alpha"].mean()),
@@ -2326,7 +2570,8 @@ def _record_step_bodies(cls=None):
 
 def _expected_launches(buckets, grid=None, k: int = 1,
                        forwards: int | None = None,
-                       losses: int | None = None) -> dict:
+                       losses: int | None = None,
+                       blocked: bool = True) -> dict:
     """Each kernel's launches for step bodies at the given level buckets
     (of `grid`, the default grid if None) with K = `k` picked corners:
     `encode_jacobian` once per training-encode forward (`forwards`; one
@@ -2336,13 +2581,17 @@ def _expected_launches(buckets, grid=None, k: int = 1,
     2^15 entries (0-1 by default) and `scatter_add` at every other level
     the body runs. The loss's three kernels (the forward's two and the
     backward) once per loss (`losses`; one per body, the step's loss, if
-    None)."""
+    None), and the march's four once per march: every body, delta step
+    and refinement step marches once and computes one loss; the coarse
+    grid's kernel only on the blocked path (`blocked`: cone 0)."""
     from rnb_neus2_torch.config import HashGridConfig
     from rnb_neus2_torch.ops import hash_encoding as he
 
     fwd = len(buckets) if forwards is None else forwards
     n_loss = len(buckets) if losses is None else losses
     loss = {name: n_loss for name in LOSS_KERNELS}
+    loss.update({name: n_loss if blocked or name != "march_coarse" else 0
+                 for name in MARCH_KERNELS})
     if k:
         return {"hash_grad_small": 0, "scatter_add": 0,
                 "encode_jacobian": fwd, "corner_backward": len(buckets),
@@ -2520,7 +2769,8 @@ def dynamic_phase(torch, kernels, dev, card) -> dict:
             if d["step_bodies"] or d["launches"] != {
                     "hash_grad_small": 0, "scatter_add": 0,
                     "encode_jacobian": DYN_DELTA, "corner_backward": 0,
-                    **{name: DYN_DELTA for name in LOSS_KERNELS}}:
+                    **{name: DYN_DELTA
+                       for name in LOSS_KERNELS + MARCH_KERNELS}}:
                 raise AssertionError("the delta phase ran a training step "
                                      "or launched a scatter kernel")
             delta = {key: v.detach().cpu() for key, v in seq.delta.items()}
@@ -2667,12 +2917,12 @@ def refine_phase(torch, kernels, tr, card) -> dict:
         launches = {n: k.launches for n, k in kernels.items()}
         # one forward per step through the position-differentiable
         # encode; the frozen field takes no table gradient; the loss's
-        # three kernels once per step
+        # three kernels and the march's four once per step
         if launches != {"hash_grad_small": 0, "scatter_add": 0,
                         "encode_jacobian": REFINE_STEPS,
                         "corner_backward": 0,
                         **{name: REFINE_STEPS
-                           for name in LOSS_KERNELS}}:
+                           for name in LOSS_KERNELS + MARCH_KERNELS}}:
             raise AssertionError(f"refinement launched {launches}")
         return params, {"seconds": s, "ms_per_step": 1e3 * s / REFINE_STEPS,
                         "launches": launches,
@@ -2789,6 +3039,16 @@ def refine_phase(torch, kernels, tr, card) -> dict:
     return out
 
 
+def _march_blocked(cfg) -> bool:
+    """Whether the trainer's march at `cfg` takes the blocked path (and
+    so launches the coarse grid's kernel)."""
+    from rnb_neus2_torch.ops import ray_march
+
+    cone = cfg.march.cone_angle
+    return ray_march._takes_blocked(ray_march.effective_ladder_points(
+        cfg.march.n_ladder, cone), cone, 1)
+
+
 def _train_counted(torch, kernels, tr, steps: int, label: str,
                    profile_steps: int = 8) -> dict:
     """`steps` train_steps of `tr` with every kernel's launches counted per
@@ -2809,7 +3069,8 @@ def _train_counted(torch, kernels, tr, steps: int, label: str,
     s = time.perf_counter() - t0
     launches = {n: k.launches for n, k in kernels.items()}
     want = _expected_launches([int(m["n_levels_run"]) for m in hist],
-                              tr.cfg.grid, tr.cfg.network.stoch_corner_bwd)
+                              tr.cfg.grid, tr.cfg.network.stoch_corner_bwd,
+                              blocked=_march_blocked(tr.cfg))
     peak = torch.cuda.max_memory_allocated()
     prof = profile_window(lambda n: [tr.train_step() for _ in range(n)],
                           profile_steps)
@@ -3066,7 +3327,7 @@ def extra_modes_phase(torch, kernels, dev, card, work: Path) -> dict:
         return {"hash_grad_small": small * steps,
                 "scatter_add": (grid.n_levels - small) * steps,
                 "encode_jacobian": 0, "corner_backward": 0,
-                **{name: 0 for name in LOSS_KERNELS}}
+                **{name: 0 for name in LOSS_KERNELS + MARCH_KERNELS}}
 
     rows = {}
     H = W = 48
@@ -3086,7 +3347,7 @@ def extra_modes_phase(torch, kernels, dev, card, work: Path) -> dict:
         "hash_grad_small": 0,
         "scatter_add": em.Hash2D().n_levels * EXTRA_STEPS["image"],
         "encode_jacobian": 0, "corner_backward": 0,
-        **{name: 0 for name in LOSS_KERNELS}}
+        **{name: 0 for name in LOSS_KERNELS + MARCH_KERNELS}}
     V, F = icosphere(0.3, (0.5, 0.5, 0.5), subdiv=2)
     sdf_grid = HashGridConfig(n_levels=4, top_resolution=64)
     fields = {}
@@ -3117,7 +3378,7 @@ def extra_modes_phase(torch, kernels, dev, card, work: Path) -> dict:
         "hash_grad_small": 0, "scatter_add":
             rows["sdf_takikawa"]["octree_levels"] * EXTRA_STEPS["takikawa"],
         "encode_jacobian": 0, "corner_backward": 0,
-        **{name: 0 for name in LOSS_KERNELS}}
+        **{name: 0 for name in LOSS_KERNELS + MARCH_KERNELS}}
     g = np.mgrid[0:24, 0:24, 0:24] / 24.0
     vol = np.exp(-(((g - 0.5) ** 2).sum(0)) / 0.05).astype(np.float32)
     vol_grid = HashGridConfig(n_levels=4, top_resolution=32)
@@ -4236,6 +4497,7 @@ def main() -> int:
     from rnb_neus2_torch.kernels import corner_backward as cbw
     from rnb_neus2_torch.kernels import encode_jacobian as ejac
     from rnb_neus2_torch.kernels import hash_grad_small as hgs
+    from rnb_neus2_torch.kernels import march as mk
     from rnb_neus2_torch.kernels import neus_loss as nl
     from rnb_neus2_torch.kernels import scatter_add as sca
     from rnb_neus2_torch.io import native, png, raycast
@@ -4254,7 +4516,8 @@ def main() -> int:
                "encode_jacobian": ejac, "corner_backward": cbw,
                "neus_loss_scan": nl.scan_kernel,
                "neus_loss_forward": nl.forward_kernel,
-               "neus_loss_backward": nl.backward_kernel}
+               "neus_loss_backward": nl.backward_kernel,
+               **{c.name: c for c in mk.COUNTERS}}
     scatters = ("hash_grad_small", "scatter_add")
     card = bench.card_name_and_power()
     print(card, flush=True)
@@ -4263,8 +4526,8 @@ def main() -> int:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
 
-    build_all(build, [hgs, sca, ejac, cbw, nl, raycast, png, native, av1,
-                      scale, av1_enc, exr])
+    build_all(build, [hgs, sca, ejac, cbw, nl, mk, raycast, png, native,
+                      av1, scale, av1_enc, exr])
     errs = check_kernels_vs_plain(torch, bench, kernels, dev)
     for name, sizes in (("hash_grad_small", (4096, 13824)),
                         ("scatter_add", (39304, 125000, 373248, 1 << 19))):
@@ -4283,6 +4546,8 @@ def main() -> int:
     encode_phase = encode_kernels_phase(torch, bench, dev, card)
     # phase 22: the loss's kernels against their plain version in float64
     loss_phase = loss_kernels_phase(torch, bench, dev, card, tr)
+    # phase 23: the march's kernels against the plain march, bit for bit
+    march_phase = march_kernels_phase(torch, bench, dev, card, tr)
     # phase 4 again, on the inputs of the trained fields' next steps: the
     # training encode's kernels on the K = 1 step's, the exact backward's
     # on the exact step's, level by level
@@ -4368,6 +4633,17 @@ def main() -> int:
             "launches": summary["launches"][name],
             "launches_exact_path": exact["launches"][name],
             **loss_phase["rows"][name],
+        })
+    for name in MARCH_KERNELS:
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"rnb_neus2_torch/csrc/{mk.SOURCE}",
+            "replaces": list(mk.REPLACES),
+            "path": "every training path (the coarse grid's: at cone 0)",
+            "launches": summary["launches"][name],
+            "launches_exact_path": exact["launches"][name],
+            **march_phase["rows"][name],
         })
     del enc_in, exact_in
     forced_rollback(torch, tr)

@@ -40,6 +40,18 @@ BUILD_TIMEOUT_S = 600
 _LOADED: Dict[str, Tuple[ctypes.CDLL, dict]] = {}
 
 
+class LaunchCounter:
+    """One kernel's launch count: its wrapper adds one where it launches
+    the kernel, and nowhere else."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+    def reset_launches(self) -> None:
+        self.launches = 0
+
+
 def find_nvcc() -> str:
     nvcc = shutil.which("nvcc")
     if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):

@@ -50,7 +50,7 @@ from torch.autograd.function import once_differentiable
 
 from ..config import TRANSMITTANCE_EPSILON, LossConfig, RenderFlags
 from ..render import neus, shading
-from .build import load_library
+from .build import LaunchCounter, load_library
 
 SOURCE = "neus_loss.cu"
 LIBRARY = "neus_loss"
@@ -58,20 +58,9 @@ REPLACES = ("rnb_neus2_tpu/render/losses.py:257",
             "rnb_neus2_tpu/render/neus.py:29")
 
 
-class _Counter:
-    """One kernel's launch count."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.launches = 0
-
-    def reset_launches(self) -> None:
-        self.launches = 0
-
-
-scan_kernel = _Counter("neus_loss_scan")
-forward_kernel = _Counter("neus_loss_forward")
-backward_kernel = _Counter("neus_loss_backward")
+scan_kernel = LaunchCounter("neus_loss_scan")
+forward_kernel = LaunchCounter("neus_loss_forward")
+backward_kernel = LaunchCounter("neus_loss_backward")
 
 # csrc/neus_loss.cu's tile plan: kThreads threads per block, kPer
 # consecutive slots per thread in a scan, TILE slots per block
@@ -605,7 +594,7 @@ def _check(lib, err: int, which: str) -> None:
         raise RuntimeError(f"neus_loss {which} launch failed: {msg} ({err})")
 
 
-def _launch(lib, fn, which: str, p: Prepared, out, counter: _Counter,
+def _launch(lib, fn, which: str, p: Prepared, out, counter: LaunchCounter,
             dev) -> None:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

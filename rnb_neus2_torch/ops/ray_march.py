@@ -20,6 +20,10 @@ inside each ray's first NB = min(K/8, max(32, 2^20/R)) flagged blocks.
 points in order, an (R, M) layout; it too equals the JAX package's bit for
 bit.
 
+On CUDA tensors `march_flat` runs the hand-written kernels of
+`kernels/march.py` (`csrc/march.cu`), bit for bit with the plain version
+(`march_flat_plain`, the CPU path); they take a 1-D bitfield only.
+
 `aabb_scale` > 1 marches the cube [0.5 ∓ aabb_scale/2]; given a (C, G³)
 bitfield, both marches consult the cascaded occupancy grid with the
 reference's mip selection (testbed_nerf.cu:569-583, 755-790). The JAX
@@ -37,6 +41,7 @@ import torch
 from ..config import MAX_CONE_STEPSIZE, MIN_CONE_STEPSIZE
 from ..geom.camera import ray_aabb
 from ..grid import occupancy
+from ..kernels import march as march_kernels
 
 
 class FlatSamples(NamedTuple):
@@ -227,6 +232,13 @@ def _compact(valid, n_valid, n_slots):
         torch.clamp_max(lo, C - 1)
 
 
+def _takes_blocked(K: int, cone_angle: float, bitfield_dim: int) -> bool:
+    """blocked=None's path: the two-phase march at cone 0 with a 1-D
+    bitfield, the single-phase ladder otherwise."""
+    return (cone_angle == 0.0 and bitfield_dim == 1 and K % BLOCK == 0
+            and K >= 64)
+
+
 def march_flat(ray_o: torch.Tensor, ray_d: torch.Tensor,
                bitfield: torch.Tensor, u_start: torch.Tensor, n_ladder: int,
                n_slots: int, cone_angle: float, aabb_scale: float = 1.0,
@@ -236,11 +248,30 @@ def march_flat(ray_o: torch.Tensor, ray_d: torch.Tensor,
     testbed_nerf.cu:1332-1364). ray_d must be unit-norm. blocked=None takes
     the two-phase path at cone 0 with a 1-D bitfield (bitwise identical to
     the single-phase ladder whenever NB == K/8, i.e. R ≤ 8192), the
-    single-phase ladder otherwise."""
+    single-phase ladder otherwise.
+
+    CUDA tensors go through the hand-written kernels
+    (`kernels/march.march_flat`, bit for bit with the plain version; they
+    raise on a cascaded bitfield and on rays that require grad), CPU
+    tensors through `march_flat_plain`."""
+    if ray_o.device.type == "cuda":
+        return FlatSamples(*march_kernels.march_flat(
+            ray_o, ray_d, bitfield, u_start, n_ladder, n_slots, cone_angle,
+            aabb_scale, blocked))
+    return march_flat_plain(ray_o, ray_d, bitfield, u_start, n_ladder,
+                            n_slots, cone_angle, aabb_scale, blocked)
+
+
+def march_flat_plain(ray_o: torch.Tensor, ray_d: torch.Tensor,
+                     bitfield: torch.Tensor, u_start: torch.Tensor,
+                     n_ladder: int, n_slots: int, cone_angle: float,
+                     aabb_scale: float = 1.0,
+                     blocked: bool | None = None) -> FlatSamples:
+    """`march_flat` in plain PyTorch on any device: the port's CPU path and
+    the kernels' specification (bit for bit with the JAX package)."""
     K = effective_ladder_points(n_ladder, cone_angle, aabb_scale)
     if blocked is None:
-        blocked = (cone_angle == 0.0 and bitfield.dim() == 1
-                   and K % BLOCK == 0 and K >= 64)
+        blocked = _takes_blocked(K, cone_angle, bitfield.dim())
     if blocked:
         return _march_flat_blocked(ray_o, ray_d, bitfield, u_start, K,
                                    n_slots, cone_angle, aabb_scale)

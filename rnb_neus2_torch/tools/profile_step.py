@@ -28,9 +28,11 @@ step 256, where the occupancy refresh becomes subsampled and runs every
   device time that no span claims is `other`). `guard_snapshot` is the
   divergence guard's on-device copy of the state after each healthy step;
 - top_kernels: the 15 kernels with the most device time per step;
+- other_kernels: the 8 kernels with the most device time per step that no
+  span claims (the `other` phase), by name;
 - hand_kernels: the device ms per step of each of the port's hand-written
   kernels (the training encode's two, the loss's forward and backward,
-  the exact backward's two scatters), top or not;
+  the march's four, the exact backward's two scatters), top or not;
 - backward_fills_and_copies: per step, the fill and copy kernels that the
   backward launched, by name (the table gradient is zeroed once, and its
   levels are added in place, so no per-level fill or copy belongs there);
@@ -70,8 +72,9 @@ PHASES = ("occupancy_refresh", "sample_and_march", "field_forward", "loss",
 # the port's hand-written kernels, by the name of their CUDA function
 HAND_KERNELS = ("encode_jacobian_kernel", "corner_backward_kernel",
                 "neus_loss_scan_kernel", "neus_loss_forward_kernel",
-                "neus_loss_backward_kernel",
-                "hash_grad_small", "scatter_add")
+                "neus_loss_backward_kernel", "march_coarse_kernel",
+                "march_count_kernel", "march_scan_kernel",
+                "march_write_kernel", "hash_grad_small", "scatter_add")
 
 
 def _root(evt):
@@ -93,7 +96,7 @@ def profile_window(window, n: int) -> dict:
     """Run `window(n)` (n training steps, returning their metrics) under
     `torch.profiler` → the per-step breakdown of the module docstring:
     wall_ms_per_step, device_busy_ms_per_step, idle_share,
-    kernels_per_step, phases, top_kernels, hand_kernels,
+    kernels_per_step, phases, top_kernels, hand_kernels, other_kernels,
     backward_fills_and_copies, and the window's `metrics`."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -108,6 +111,7 @@ def profile_window(window, n: int) -> dict:
     device_n = collections.Counter()     # their launches
     bwd_fill_copy = collections.Counter()  # backward fill/copy launches
     by_kernel = collections.Counter()    # every device activity, by name
+    claimed = collections.Counter()      # the part a span claims, by name
     n_kernels = 0
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
@@ -122,6 +126,8 @@ def profile_window(window, n: int) -> dict:
             phase = _phase_of(evt)
             device_us[phase] += k.duration
             device_n[phase] += 1
+            if phase != "other":
+                claimed[k.name] += k.duration
             if phase == "backward" and any(w in k.name.lower()
                                            for w in ("fill", "copy")):
                 bwd_fill_copy[k.name[:120]] += 1
@@ -142,6 +148,8 @@ def profile_window(window, n: int) -> dict:
                         for k, us in by_kernel.most_common(15)],
         "hand_kernels": {h: sum(us for k, us in by_kernel.items() if h in k)
                          / 1e3 / n for h in HAND_KERNELS},
+        "other_kernels": [{"name": k[:120], "device_ms": us / 1e3 / n}
+                          for k, us in (by_kernel - claimed).most_common(8)],
         "backward_fills_and_copies": {k: c / n for k, c in
                                       bwd_fill_copy.most_common()},
         "metrics": metrics,

@@ -975,3 +975,80 @@ def test_loss_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(ValueError):
         neus_loss.neus_loss(sdf, grad, alb, v, dirs,
                             inp._replace(dt=inp.dt.cpu()), opt)
+
+
+# the march kernels' cases: (R, K, S, g, occupied share, cone, aabb_scale,
+# blocked); R = 300 is not a multiple of 32, 2^14 rays at 2^16 slots drop
+# most of them, S = 16 drops every ray, a 30³ grid takes the coarse grid's
+# one-byte reads
+MARCH_CASES = {
+    "main": (1 << 14, 1024, 1 << 16, 128, 0.05, 0.0, 1.0, None),
+    "edge_blocked": (300, 512, 1 << 13, 32, 0.3, 0.0, 1.0, None),
+    "grid_30": (300, 512, 1 << 13, 30, 0.3, 0.0, 1.0, None),
+    "empty": (300, 512, 1 << 13, 32, 0.0, 0.0, 1.0, None),
+    "full": (300, 512, 1 << 13, 32, 1.0, 0.0, 1.0, None),
+    "total_0": (300, 512, 16, 32, 1.0, 0.0, 1.0, None),
+    "ladder_cone_0": (300, 512, 1 << 13, 32, 0.3, 0.0, 1.0, False),
+    "cone_aabb_4": (2048, 1024, 1 << 15, 128, 0.05, 1.0 / 256.0, 4.0,
+                    None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MARCH_CASES))
+def test_march_kernels_match_plain(cuda, name):
+    """`ops/ray_march.march_flat` on the card (the four march kernels)
+    against `march_flat_plain` and `kernels/march.walk_twin` on the same
+    card tensors: every field bit for bit, each kernel launched once (the
+    coarse grid's only on the blocked path)."""
+    from rnb_neus2_torch.ops import ray_march
+    from rnb_neus2_torch.testing import march_cases as mc
+
+    R, K, S, g, share, cone, aabb, blocked = MARCH_CASES[name]
+    o, d, u = mc.edge_rays(R, R + g, *ray_march._cube(aabb))
+    args = [torch.from_numpy(x).to(cuda)
+            for x in (o, d, mc.bitfield(g, share, g), u)]
+    report = mc.hold(args, K, S, cone, aabb, blocked, name)
+    assert report["ok"], report
+    if name == "total_0":
+        assert report["valid"] == 0 and report["kept"] == 0
+    elif share > 0.0:
+        assert 0 < report["valid"] <= S
+
+
+def test_march_kernels_stop_at_nb_flagged_blocks(cuda):
+    """R = 9000: NB = 116 < 128 blocks, which the diagonal rays pass; the
+    blocked kernels equal the plain blocked march, which differs there
+    from the single-phase ladder (the kernels' too)."""
+    from rnb_neus2_torch.ops import ray_march
+    from rnb_neus2_torch.testing import march_cases as mc
+
+    o, d, u, diag = mc.diagonal_rays(9000, 9000)
+    args = [torch.from_numpy(x).to(cuda)
+            for x in (o, d, mc.bitfield(128, 0.05, 10024), u)]
+    report = mc.hold(args, 1024, 1 << 16, 0.0, label="nb")
+    assert report["ok"] and report["NB"] == 116, report
+    ladder = mc.hold(args, 1024, 1 << 16, 0.0, blocked=False, label="ladder")
+    assert ladder["ok"], ladder
+    blocked = ray_march.march_flat(*args, 1024, 1 << 16, 0.0)
+    single = ray_march.march_flat(*args, 1024, 1 << 16, 0.0, blocked=False)
+    cut = (blocked.n_valid < single.n_valid).cpu()
+    assert int(cut.sum()) > diag.sum() // 2
+    assert not bool(cut[torch.from_numpy(~diag)].any())
+
+
+def test_march_kernels_refuse_what_they_cannot_take(cuda):
+    from rnb_neus2_torch.ops import ray_march
+    from rnb_neus2_torch.testing import march_cases as mc
+
+    o, d, u = (torch.from_numpy(x).to(cuda) for x in mc.edge_rays(64, 2))
+    bit = torch.ones(16 ** 3, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="cascaded"):
+        ray_march.march_flat(o, d, bit.reshape(2, -1), u, 512, 64, 0.0,
+                             aabb_scale=4.0)
+    with pytest.raises(ValueError, match="gradient"):
+        ray_march.march_flat(o, d.requires_grad_(), bit, u, 512, 64, 0.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ray_march.march_flat(o, d.detach(), bit.cpu(), u, 512, 64, 0.0)
+    with pytest.raises(TypeError):
+        ray_march.march_flat(o, d.detach(), bit.to(torch.uint8), u, 512,
+                             64, 0.0)
